@@ -1,0 +1,223 @@
+"""SDF (generator) and Moment (discriminator) networks as ``nn.Module``s.
+
+The counterparts of the JAX package's ``models/networks.py``, with the
+reference's module names (``sdf_net.macro_lstm.lstm``, ``fc_layers.{3i}``,
+``output_proj``), so reference ``.pt`` checkpoints load strictly:
+
+* :class:`SDFNet`: macro LSTM → concat ``[individual, macro_state]`` → FFN
+  (ReLU, dropout) → Linear(1) → mask → cross-sectional zero-mean.
+* :class:`MomentNet`: concat ``[macro, individual]`` → (optional FFN) →
+  Linear(K) → tanh → [K, T, N].
+
+Both first layers are applied concat-free: the weight splits into a
+per-stock block and a per-period block, ``concat([stock, period]) @ Wᵀ ==
+stock @ W_sᵀ + period @ W_pᵀ``, so the [T, N, F + D] concat never exists.
+
+The SDF FFN itself runs member-stacked through :mod:`..ops.sdf_ffn`: on a
+CUDA device in the hand-written kernel, on the CPU in its plain version.
+The functional core (:func:`sdf_raw_weights`) takes parameters with a
+leading member axis; one module is the S = 1 case of it.
+"""
+
+from __future__ import annotations
+
+from typing import List, Mapping, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import sdf_ffn
+from ..utils.config import ExecutionConfig, GANConfig
+from .recurrent import MacroLSTM, layer_params, stacked_lstm_scan
+
+_DEFAULT_EXEC = ExecutionConfig()
+
+
+def masked_zero_mean(weights: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Cross-sectional zero-mean per period over valid stocks (last axis)."""
+    count = mask.sum(dim=-1, keepdim=True).clamp_min(1)
+    mean = (weights * mask).sum(dim=-1, keepdim=True) / count
+    return (weights - mean) * mask
+
+
+def _fc_stack(d_in: int, hidden: Sequence[int], dropout: float) -> nn.Sequential:
+    """(Linear, ReLU, Dropout) triplets: the Linear of layer i sits at 3·i."""
+    layers: List[nn.Module] = []
+    for h in hidden:
+        layers += [nn.Linear(d_in, h), nn.ReLU(), nn.Dropout(dropout)]
+        d_in = h
+    return nn.Sequential(*layers)
+
+
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every parameter from ``generator`` with torch's default
+    bounds: U(±1/√fan_in) for a Linear's weight and bias, U(±1/√H) for an
+    LSTM's."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                k = m.in_features ** -0.5
+            elif isinstance(m, nn.LSTM):
+                k = m.hidden_size ** -0.5
+            else:
+                continue
+            for p in m.parameters(recurse=False):
+                p.copy_(torch.rand(p.shape, generator=generator) * 2 * k - k)
+
+
+# -- the SDF network's functional core -------------------------------------
+
+
+def macro_states(params: Mapping[str, torch.Tensor], cfg: GANConfig,
+                 macro: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[S, T, Dp] per-member macro state from ``sdf_net``-relative,
+    member-stacked params: the LSTM's h sequence, the raw macro when the
+    config runs no LSTM, None without macro."""
+    if macro is None or cfg.macro_feature_dim == 0:
+        return None
+    S = params["output_proj.bias"].shape[0]
+    if not cfg.use_rnn:
+        return macro.expand(S, *macro.shape)
+    layers = layer_params(params, len(cfg.num_units_rnn), "macro_lstm.lstm.")
+    hs, _ = stacked_lstm_scan(layers, macro)
+    return hs
+
+
+def ffn_pieces(params: Mapping[str, torch.Tensor], cfg: GANConfig,
+               macro_state: Optional[torch.Tensor], T: int):
+    """(zp [S, T, H1], k1T [S, H1, F], mids, kout [S, HL], bout [S]) — the
+    kernel's parameter inputs, from member-stacked ``sdf_net`` params.
+
+    The first layer's weight [H1, F + Dp] splits in the reference's concat
+    order ``[individual, macro_state]``: ``k1T = W[:, :F]`` and the
+    per-period bias ``zp = macro_state @ W[:, F:]ᵀ + b``."""
+    F = cfg.individual_feature_dim
+    w0, b0 = params["fc_layers.0.weight"], params["fc_layers.0.bias"]
+    k1T = w0[:, :, :F]
+    if macro_state is not None:
+        zp = macro_state @ w0[:, :, F:].transpose(1, 2) + b0[:, None, :]
+    else:
+        zp = b0[:, None, :].expand(b0.shape[0], T, b0.shape[1])
+    mids = [(params[f"fc_layers.{3 * i}.weight"],
+             params[f"fc_layers.{3 * i}.bias"])
+            for i in range(1, len(cfg.hidden_dim))]
+    kout = params["output_proj.weight"][:, 0, :]
+    bout = params["output_proj.bias"][:, 0]
+    return zp.contiguous(), k1T, mids, kout, bout
+
+
+def pack_sdf_ffn(params: Mapping[str, torch.Tensor], cfg: GANConfig,
+                 compute_dtype: str) -> sdf_ffn.PackedFfn:
+    """The member-stacked FFN weights packed once in the kernel's layout
+    (the serving engine keeps this across requests)."""
+    _, k1T, mids, kout, bout = ffn_pieces(params, cfg, None, 1)
+    return sdf_ffn.pack_ffn(k1T, mids, kout, bout, compute_dtype)
+
+
+def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
+                    exec_cfg: ExecutionConfig, x_t: torch.Tensor,
+                    macro_state: Optional[torch.Tensor],
+                    packed: Optional[sdf_ffn.PackedFfn] = None) -> torch.Tensor:
+    """Unmasked weights [S, T, N] of S members on the feature-major panel
+    x_t [T, F, N], given each member's macro state [S, T, Dp] (or None).
+    With hidden layers this is ONE fused-FFN call over all members."""
+    T = x_t.shape[0]
+    if not cfg.hidden_dim:
+        # no hidden layer: the output projection is the split layer itself
+        F = cfg.individual_feature_dim
+        w = params["output_proj.weight"][:, 0, :]  # [S, F + Dp]
+        out = torch.einsum("sf,tfn->stn", w[:, :F], x_t)
+        out = out + params["output_proj.bias"][:, :, None]  # [S, 1, 1]
+        if macro_state is not None:
+            out = out + (macro_state @ w[:, F:, None])  # [S, T, 1]
+        return out
+    zp, k1T, mids, kout, bout = ffn_pieces(params, cfg, macro_state, T)
+    if packed is None:
+        packed = sdf_ffn.pack_ffn(k1T, mids, kout, bout,
+                                  exec_cfg.compute_dtype)
+    return sdf_ffn.sdf_ffn_packed(x_t, zp, packed, kernel=exec_cfg.kernel)
+
+
+class SDFNet(nn.Module):
+    """Generator: per-stock portfolio weights [T, N] from the panel."""
+
+    def __init__(self, cfg: GANConfig, exec_cfg: Optional[ExecutionConfig] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.exec_cfg = exec_cfg or _DEFAULT_EXEC
+        if cfg.use_rnn and cfg.macro_feature_dim > 0:
+            self.macro_lstm = MacroLSTM(cfg.macro_feature_dim,
+                                        cfg.num_units_rnn, cfg.dropout)
+        self.fc_layers = _fc_stack(cfg.sdf_input_dim, cfg.hidden_dim,
+                                   cfg.dropout)
+        d_last = cfg.hidden_dim[-1] if cfg.hidden_dim else cfg.sdf_input_dim
+        self.output_proj = nn.Linear(d_last, 1)
+
+    def forward(self, macro: Optional[torch.Tensor], individual: torch.Tensor,
+                mask: torch.Tensor, individual_t: Optional[torch.Tensor] = None,
+                macro_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Eval-mode weights [T, N]. ``macro_state`` [T, Dp] bypasses the
+        LSTM with a caller-carried state (then ``macro`` is not read)."""
+        if self.training and self.cfg.dropout > 0:
+            raise NotImplementedError(
+                "training-mode dropout comes with the training slice; call "
+                ".eval() (serving and evaluation run without dropout)")
+        params = {n: p[None] for n, p in self.named_parameters()}
+        if macro_state is None:
+            macro_state = macro_states(params, self.cfg, macro)
+        else:
+            macro_state = macro_state[None]
+        if individual_t is None:
+            individual_t = individual.permute(0, 2, 1).contiguous()
+        w = sdf_raw_weights(params, self.cfg, self.exec_cfg, individual_t,
+                            macro_state)[0]
+        w = w * mask
+        if self.cfg.normalize_w:
+            w = masked_zero_mean(w, mask)
+        return w
+
+
+class MomentNet(nn.Module):
+    """Discriminator: K bounded moment functions h_k(t, i) in [-1, 1],
+    from the RAW macro and the characteristics, concat order
+    ``[macro, individual]``."""
+
+    def __init__(self, cfg: GANConfig, exec_cfg: Optional[ExecutionConfig] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.fc_layers = _fc_stack(cfg.moment_input_dim,
+                                   cfg.hidden_dim_moment, cfg.dropout)
+        d_last = (cfg.hidden_dim_moment[-1] if cfg.hidden_dim_moment
+                  else cfg.moment_input_dim)
+        self.output_proj = nn.Linear(d_last, cfg.num_condition_moment)
+
+    def forward(self, macro: Optional[torch.Tensor],
+                individual: torch.Tensor) -> torch.Tensor:
+        linears = [m for m in self.fc_layers if isinstance(m, nn.Linear)]
+        linears.append(self.output_proj)
+        first = linears[0]
+        M = 0 if macro is None else macro.shape[-1]
+        # first layer, concat-free: rows [:M] act on macro, [M:] on stocks
+        x = individual @ first.weight[:, M:].T + first.bias
+        if macro is not None:
+            x = x + (macro @ first.weight[:, :M].T)[:, None, :]
+        for lin in linears[1:]:
+            x = lin(torch.relu(x))
+        return torch.tanh(x).permute(2, 0, 1)  # [K, T, N]
+
+
+class AssetPricingModule(nn.Module):
+    """The GAN pair: ``sdf_net`` and ``moment_net``."""
+
+    def __init__(self, cfg: GANConfig, exec_cfg: Optional[ExecutionConfig] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.exec_cfg = exec_cfg or _DEFAULT_EXEC
+        self.sdf_net = SDFNet(cfg, self.exec_cfg)
+        self.moment_net = MomentNet(cfg, self.exec_cfg)
+
+    def forward(self, macro, individual, mask, individual_t=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weights [T, N], moments [K, T, N])."""
+        return (self.sdf_net(macro, individual, mask, individual_t),
+                self.moment_net(macro, individual))

@@ -1,0 +1,71 @@
+"""Portfolio metrics: Sharpe, max drawdown, weight normalization, and the
+paper's Table-1 companions (EV, cross-sectional R²).
+
+The JAX package's ``ops/metrics.py`` in PyTorch, with its conventions:
+Sharpe is monthly (not annualized); training uses ddof=1 (torch ``std``)
+and the ensemble evaluator ddof=0 (numpy ``std``), picked with ``ddof``.
+EV and XS-R² use the per-stock unconditional OLS beta of R_i on the SDF
+factor F over the stock's valid months, masked-panel exact.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sharpe(returns: torch.Tensor, ddof: int = 1) -> torch.Tensor:
+    """Monthly Sharpe mean/std; 0 when std < 1e-8."""
+    std = returns.std(correction=ddof)
+    return torch.where(std < 1e-8, torch.zeros_like(std),
+                       returns.mean() / std)
+
+
+def normalize_weights_abs(weights: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Per-period scaling so Σ_i |w·m| = 1 (weights already masked); the
+    abs-sum is clamped to 1e-8."""
+    abs_sum = (weights.abs() * mask).sum(dim=-1, keepdim=True).clamp_min(1e-8)
+    return weights / abs_sum
+
+
+def factor_betas(returns: torch.Tensor, factor: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Per-stock OLS slope β_i of R_it on F_t over stock i's valid months:
+    returns/mask [T, N], factor [T] → β [N] (0 without variance)."""
+    t_i = mask.sum(dim=0).clamp_min(1)
+    rbar = (returns * mask).sum(dim=0) / t_i
+    fbar = (factor[:, None] * mask).sum(dim=0) / t_i
+    f_dev = (factor[:, None] - fbar) * mask
+    cov = (f_dev * (returns - rbar)).sum(dim=0) / t_i
+    var = (f_dev ** 2).sum(dim=0) / t_i
+    return torch.where(var > 1e-12, cov / var.clamp_min(1e-12),
+                       torch.zeros_like(var))
+
+
+def explained_variation(returns: torch.Tensor, factor: torch.Tensor,
+                        mask: torch.Tensor,
+                        betas: torch.Tensor = None) -> torch.Tensor:
+    """EV = 1 − Σ m·ε² / Σ m·R², ε = R − β_i·F_t."""
+    if betas is None:
+        betas = factor_betas(returns, factor, mask)
+    eps = (returns - betas[None, :] * factor[:, None]) * mask
+    total = (returns ** 2 * mask).sum().clamp_min(1e-12)
+    return 1.0 - (eps ** 2).sum() / total
+
+
+def cross_sectional_r2(returns: torch.Tensor, factor: torch.Tensor,
+                       mask: torch.Tensor, betas: torch.Tensor = None,
+                       min_obs: int = 1) -> torch.Tensor:
+    """XS-R² = 1 − Σ_i T_i·ē_i² / Σ_i T_i·R̄_i² over stocks with ≥ min_obs
+    valid months, weighted by their observation counts T_i."""
+    if betas is None:
+        betas = factor_betas(returns, factor, mask)
+    t_i = mask.sum(dim=0)
+    keep = (t_i >= min_obs).to(returns.dtype)
+    safe_t = t_i.clamp_min(1)
+    eps = (returns - betas[None, :] * factor[:, None]) * mask
+    ebar = eps.sum(dim=0) / safe_t
+    rbar = (returns * mask).sum(dim=0) / safe_t
+    num = (t_i * ebar ** 2 * keep).sum()
+    den = (t_i * rbar ** 2 * keep).sum().clamp_min(1e-12)
+    return 1.0 - num / den

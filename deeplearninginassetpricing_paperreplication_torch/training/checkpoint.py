@@ -1,0 +1,92 @@
+"""Checkpoint loading: reference ``.pt`` run directories, and the weight
+bridge from the JAX package's parameter tree.
+
+A run directory holds ``config.json`` (the reference's keys) beside
+``best_model_sharpe.pt`` / ``best_model_loss.pt`` / ``final_model.pt``, each
+a reference ``AssetPricingGAN.state_dict()``. The port's
+``models.networks.AssetPricingModule`` carries the reference's module
+names, so these load with ``load_state_dict(strict=True)``.
+
+Reading the JAX package's flax ``.msgpack`` checkpoints, and every save
+path, come with the training slice.
+"""
+
+from __future__ import annotations
+
+import warnings
+from pathlib import Path
+from typing import Any, Dict, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..utils.config import GANConfig
+
+
+def load_checkpoint_dir(
+    ckpt_dir: Union[str, Path],
+    which: str = "best_model_sharpe",
+) -> Tuple[GANConfig, Dict[str, torch.Tensor]]:
+    """(config, state_dict) from a run directory. Falls back to
+    ``final_model.pt`` when the requested best-model file is absent (a run
+    whose schedule never passed ``ignore_epoch`` writes none), with a
+    warning, as the JAX package does."""
+    ckpt_dir = Path(ckpt_dir)
+    cfg = GANConfig.load(ckpt_dir / "config.json")
+    candidates = [ckpt_dir / f"{which}.pt"]
+    if which.startswith("best_model"):
+        candidates.append(ckpt_dir / "final_model.pt")
+    for path in candidates:
+        if not path.exists():
+            continue
+        if path.stem == "final_model" and which != "final_model":
+            warnings.warn(f"{which} absent in {ckpt_dir} (best tracker never "
+                          f"updated); using {path.name}")
+        return cfg, torch.load(path, map_location="cpu", weights_only=True)
+    if (ckpt_dir / f"{which}.msgpack").exists():
+        raise FileNotFoundError(
+            f"{ckpt_dir} holds only flax .msgpack checkpoints, which the "
+            "PyTorch port does not read yet: export them with the JAX "
+            "package's save_torch_checkpoint, or bridge the params with "
+            "state_dict_from_jax_params")
+    raise FileNotFoundError(f"no {which}.pt or final_model fallback in "
+                            f"{ckpt_dir}")
+
+
+def state_dict_from_jax_params(params_np: Mapping[str, Any],
+                               cfg: GANConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's params tree (as NumPy arrays) → the port's
+    ``state_dict``.
+
+    JAX tree (flax): ``sdf_net/{macro_lstm/{w_ih_l0, w_hh_l0, b_ih_l0,
+    b_hh_l0}, TorchDense_i/Dense_0/{kernel, bias}, output_proj/Dense_0/...}``
+    and ``moment_net/{TorchDense_i, output_proj}/Dense_0/...``; kernels are
+    [fan_in, fan_out], so torch weights are their transposes. The Linear of
+    hidden layer i sits at index 3·i of ``fc_layers`` (Linear, ReLU,
+    Dropout).
+    """
+    sd: Dict[str, torch.Tensor] = {}
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def put_dense(prefix: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.weight"] = t(np.asarray(tree["Dense_0"]["kernel"]).T)
+        sd[f"{prefix}.bias"] = t(tree["Dense_0"]["bias"])
+
+    sdf = params_np["sdf_net"]
+    if cfg.use_rnn and cfg.macro_feature_dim > 0:
+        lstm = sdf["macro_lstm"]
+        for li in range(len(cfg.num_units_rnn)):
+            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                 ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                sd[f"sdf_net.macro_lstm.lstm.{theirs}_l{li}"] = t(
+                    lstm[f"{ours}_l{li}"])
+    for i in range(len(cfg.hidden_dim)):
+        put_dense(f"sdf_net.fc_layers.{3 * i}", sdf[f"TorchDense_{i}"])
+    put_dense("sdf_net.output_proj", sdf["output_proj"])
+    moment = params_np["moment_net"]
+    for i in range(len(cfg.hidden_dim_moment)):
+        put_dense(f"moment_net.fc_layers.{3 * i}", moment[f"TorchDense_{i}"])
+    put_dense("moment_net.output_proj", moment["output_proj"])
+    return sd
