@@ -3,23 +3,31 @@
 
     python3 chip_smoke.py             # the check (one card)
     python3 chip_smoke.py --profile   # also: torch.profiler over the engine
+                                      # and over training epochs
 
 Phases, each printing its results; any failure exits non-zero:
 
 1. Card: ``nvidia-smi`` name and power limit.
 2. Build: every kernel of the port from this checkout's sources (``nvcc``,
-   sm_90a, one process per library, all started together).
+   sm_90a, one process per library, all started together): the SDF-FFN
+   forward and backward for each width bound, and the conditional-EM.
 3. Kernels against their plain PyTorch versions on the card, at the serving
-   path's shapes, with CUDA-event timings.
-4. Main path at the paper's full width: a synthetic panel (F = 46,
-   M = 178, N = 10,000 stocks, 48/12/24 months, seed 42) and the three
-   paper-width reference checkpoints (``ref_runs/{w500,mid2000,w4000}``)
-   served over HTTP by the port's ``serving.server``, in f32 and then in
-   bf16. Every test month is served singly and in groups of 4 and held
-   against the port's offline ``ensemble_metrics`` (plain route, same card).
-   The kernel's launch counter is reset just before each drive and must
-   rise during it.
+   and training paths' shapes, with CUDA-event timings, bounds, the
+   dropout keep share, and bitwise-repeatable gradients.
+4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
+   N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
+   reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served over
+   HTTP by the port's ``serving.server``, in f32 and then in bf16. Every
+   test month is served singly and in groups of 4 and held against the
+   port's offline ``ensemble_metrics`` (plain route, same card). The
+   forward kernel's launch counter is reset just before each drive and
+   must rise during it.
 5. Offline ensemble: the port's ``evaluate_ensemble`` on the same panel.
+6. Training at full width on the same panel (the paper's model, dropout
+   0.05, schedule 8/4/16, ignore 2): ``train_3phase`` on the kernel route
+   against ``kernel="off"`` in f32, with every kernel's launches counted
+   per phase; then the ``train`` CLI in its default bf16 configuration,
+   and the port's ``evaluate_ensemble`` on the run dir it wrote.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -47,6 +55,22 @@ DATA_DIR = ROOT / "_smoke_data"
 DEVICE = "cuda"
 PANEL = dict(n_periods_train=48, n_periods_valid=12, n_periods_test=24,
              n_stocks=10_000, n_features=46, n_macro=178, seed=42)
+RUN_DIR = ROOT / "_smoke_run"
+SCHEDULE = dict(num_epochs_unc=8, num_epochs_moment=4, num_epochs=16,
+                ignore_epoch=2)
+# expected launches per epoch: (sdf_ffn_fwd, sdf_ffn_bwd, cond_em_fwd,
+# cond_em_bwd) — the train step, then (phases 1 and 3) eval on valid, test
+PER_EPOCH = {"unconditional": (3, 1, 2, 0), "moment": (1, 0, 1, 1),
+             "conditional": (3, 1, 3, 1)}
+DROPOUT = 0.05
+# kernel-check shapes: (S, T, N) of the FFN backward, (S, N) of the
+# conditional-EM at T = 48, and the keep-share panel (T, N)
+BWD_SHAPES = [(S, T, N) for S in (1, 3)
+              for T, N in ((4, 16384), (48, 10000), (48, 10007))]
+CEM_SHAPES = [(S, N) for S in (1, 3) for N in (10000, 10007)]
+CEM_T = 48
+KEEP_SHAPE = (48, 10_000)
+BWD_ROW, CEM_ROW = (1, 48, 10000), (1, 10000)  # the training path's shapes
 
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of bytes / memory rate and operations / peak rate
@@ -54,6 +78,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)  # kernel vs plain, f32 (sum order)
+GRAD_F32_REL = 1e-4  # gradients, f32: atol = 1e-4 · max|reference|
 SERVE_F32_TOL = dict(rtol=1e-4, atol=1e-6)  # served vs offline, f32
 BF16_REL = 2e-2  # bf16: atol = 2e-2 · max|reference|
 
@@ -73,6 +98,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def bound(flops: int, nbytes: int, dtype: str):
+    """(bound ms, what bounds it): the larger of operations over the peak
+    rate and bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def rel_err(out, ref) -> float:
+    """max|out - ref| / max|ref| (0 for an all-zero reference)."""
+    scale = float(ref.abs().max())
+    return float((out - ref).abs().max()) / scale if scale else float(
+        (out - ref).abs().max())
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -105,7 +146,7 @@ def within(diff: np.ndarray, ref: np.ndarray, dtype: str, rtol: float,
 def kernel_checks(torch, K, card):
     """The fused FFN against its plain version at the listed shapes; returns
     the row of the shape the main path serves most (S=3, T=4, N=16384)."""
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
     F, hidden = 46, [64, 64]
 
@@ -163,6 +204,216 @@ def kernel_checks(torch, K, card):
                                    shape=f"S=3 T=4 N=16384 F={F} "
                                          f"hidden={hidden} bfloat16")
     return row
+
+
+def dropout_keep_share(torch, K, card):
+    """The forward kernel's measured keep share at dropout 0.05, from its
+    own output: with k1T = 0 and zp = 1 every first-layer unit is 1 before
+    dropout, so w = scale·mean(keep); a second layer W = 0, b = 1 reads
+    the second layer's units the same way."""
+    dev = torch.device(DEVICE)
+    (T, N), F, H = KEEP_SHAPE, 46, 64
+    x = torch.randn(T, F, N, device=dev)
+    _, scale = K.dropout_params(DROPOUT)
+    shares = []
+    for layer in (0, 1):
+        zp = torch.ones(1, T, H, device=dev)
+        k1T = torch.zeros(1, H, F, device=dev)
+        mids = ([(torch.zeros(1, H, H, device=dev),
+                  torch.ones(1, H, device=dev))] if layer else [])
+        kout = torch.full((1, H), 1.0 / H, device=dev)
+        bout = torch.zeros(1, device=dev)
+        packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+        w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=DROPOUT, seed=123)
+        ref = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, "float32",
+                                  123, DROPOUT)
+        check(float((w - ref).abs().max()) <= 1e-6,
+              f"dropout: kernel and plain masks differ (layer {layer})")
+        shares.append(float(w.double().mean()) / scale)
+    for layer, share in enumerate(shares):
+        check(abs(share - (1 - DROPOUT)) <= 0.002,
+              f"dropout keep share {share:.5f} of layer {layer} is not "
+              f"0.95 ± 0.002")
+    print(f"[kernels] sdf_ffn_fwd dropout {DROPOUT}: kernel == plain masks;"
+          f" keep share over {T * N * H:,} units per layer: "
+          f"{shares[0]:.5f} (layer 0), {shares[1]:.5f} (layer 1) ({card})",
+          flush=True)
+    # the training step's forward: the paper's widths, one member
+    g = torch.Generator(device=dev).manual_seed(3)
+    zp1, k1T, mids, kout, bout = _ffn_params(torch, g, 1, F, [H, H], dev)
+    zp = zp1.expand(1, T, H).contiguous()
+    for cd in ("float32", "bfloat16"):
+        packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+        for rate in (0.0, DROPOUT):
+            w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate, seed=5)
+            ref = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, cd, 5,
+                                      rate)
+            err = rel_err(w, ref)
+            check(err <= (1e-5 if cd == "float32" else BF16_REL),
+                  f"sdf_ffn_fwd at the training shape, {cd} dropout {rate}:"
+                  f" max|d|/max|ref| {err:.3e}")
+            ms = cuda_ms(torch, lambda: K.sdf_ffn_packed(
+                x, zp, packed, dropout_rate=rate, seed=5))
+            plain_ms = cuda_ms(torch, lambda: K.sdf_ffn_reference(
+                x, zp, k1T, mids, kout, bout, cd, 5, rate), reps=10)
+            b_ms, b_by = bound(K.flops(1, T, N, F, [H, H]),
+                               K.bytes_moved(1, T, N, F, [H, H]), cd)
+            print(f"[kernels] fwd S=1 T={T} N={N} {cd:8s} drop {rate:.2f} "
+                  f"max|d|/max|ref| {err:.2e}  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    return shares
+
+
+def _ffn_params(torch, g, S, F, hidden, dev):
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+    zp = rand(S, 1, hidden[0], scale=0.3)
+    k1T = rand(S, hidden[0], F, scale=F ** -0.5)
+    mids = [(rand(S, b, a, scale=a ** -0.5), rand(S, b, scale=0.1))
+            for a, b in zip(hidden, hidden[1:])]
+    kout = rand(S, hidden[-1], scale=hidden[-1] ** -0.5)
+    bout = rand(S, scale=0.1)
+    return zp, k1T, mids, kout, bout
+
+
+def ffn_bwd_checks(torch, K, card):
+    """sdf_ffn_bwd against sdf_ffn_bwd_reference, each output tensor, and
+    two calls bitwise-equal; returns the training path's row (S=1, T=48,
+    N=10000, f32, dropout 0.05)."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(1)
+    F, hidden = 46, [64, 64]
+    row = None
+    names = ["dzp", "dk1T", "dW2", "db2", "dkout", "dbout"]
+    print(f"[kernels] sdf_ffn_bwd vs sdf_ffn_bwd_reference, F={F} "
+          f"hidden={hidden} ({card})", flush=True)
+    for S, T, N in BWD_SHAPES:
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden,
+                                                dev)
+        zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        gout = torch.randn(S, T, N, generator=g, device=dev) / N
+        for cd in ("float32", "bfloat16"):
+            packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+            for rate in (0.0, DROPOUT):
+                def kern():
+                    return K._launch_bwd(x, zp, packed, gout, 7, rate)
+                grads, dzp = kern()
+                grads2, dzp2 = kern()
+                torch.cuda.synchronize()
+                check(torch.equal(grads, grads2)
+                      and torch.equal(dzp, dzp2),
+                      f"sdf_ffn_bwd not bitwise repeatable at S={S} "
+                      f"T={T} N={N} {cd} rate {rate}")
+                dk1T, dmids, dkout, dbout = K.unpack_grads(
+                    grads, packed.layout)
+                outs = [dzp, dk1T, dmids[0][0], dmids[0][1], dkout,
+                        dbout]
+
+                def plain():
+                    return K.sdf_ffn_bwd_reference(
+                        x, zp, k1T, mids, kout, gout, cd, 7, rate)
+                r = plain()
+                refs = [r[0], r[1], r[2][0][0], r[2][0][1], r[3], r[4]]
+                errs = [rel_err(o, q) for o, q in zip(outs, refs)]
+                bar = GRAD_F32_REL if cd == "float32" else BF16_REL
+                worst = max(range(len(errs)), key=errs.__getitem__)
+                check(all(bool(torch.isfinite(o).all()) for o in outs),
+                      f"non-finite sdf_ffn_bwd output S={S} T={T} N={N}")
+                check(errs[worst] <= bar,
+                      f"sdf_ffn_bwd disagrees with its plain version at "
+                      f"S={S} T={T} N={N} {cd} rate {rate}: "
+                      f"{names[worst]} max|d|/max|ref| "
+                      f"{errs[worst]:.3e}")
+                ms = cuda_ms(torch, kern, reps=10, warmup=2)
+                plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
+                b_ms, b_by = bound(K.bwd_flops(S, T, N, F, hidden),
+                                   K.bwd_bytes_moved(S, T, N, F, hidden),
+                                   cd)
+                abs_err = max(float((o - q).abs().max())
+                              for o, q in zip(outs, refs))
+                print(f"[kernels] bwd S={S} T={T:2d} N={N:5d} {cd:8s} "
+                      f"drop {rate:.2f}  max|d|/max|ref| {errs[worst]:.2e}"
+                      f" ({names[worst]})  kernel {ms:.4f} ms  plain "
+                      f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+                      f"  bitwise-repeatable", flush=True)
+                if ((S, T, N), cd, rate) == (BWD_ROW, "float32", DROPOUT):
+                    row = dict(max_abs_err=abs_err, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by,
+                               shape=f"S={S} T={T} N={N} F={F} "
+                                     f"hidden={hidden} float32 dropout "
+                                     f"{DROPOUT}")
+    return row
+
+
+def cond_em_checks(torch, C, card):
+    """cond_em_fwd / cond_em_bwd against their plain versions; returns the
+    training path's rows (S=1, T=48, N=10000, f32)."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(2)
+    F, Kn, T = 46, 8, CEM_T
+    rows = {}
+    print(f"[kernels] cond_em vs cond_em_reference, F={F} K={Kn} ({card})",
+          flush=True)
+    for S, N in CEM_SHAPES:
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zpm = torch.randn(S, T, Kn, generator=g, device=dev) * 0.3
+        xr = torch.randn(S, T, N, generator=g, device=dev) * 0.1
+        tinv = 1.0 / torch.randint(1, T + 1, (N,), generator=g,
+                                   device=dev).float()
+        kT = torch.randn(S, Kn, F, generator=g, device=dev) * F ** -0.5
+        gem = torch.randn(S, Kn, N, generator=g, device=dev) / N
+        for cd in ("float32", "bfloat16"):
+            bar = GRAD_F32_REL if cd == "float32" else BF16_REL
+            em = C._launch_fwd(x, zpm, xr, tinv, kT, cd)
+            em_ref = C.cond_em_reference(x, zpm, xr, tinv, kT, cd)
+            e_f = rel_err(em, em_ref)
+            check(bool(torch.isfinite(em).all()) and e_f <= bar,
+                  f"cond_em_fwd disagrees at S={S} N={N} {cd}: {e_f:.3e}")
+            outs = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+            outs2 = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(outs, outs2)),
+                  f"cond_em_bwd not bitwise repeatable S={S} N={N} {cd}")
+            refs = C.cond_em_bwd_reference(x, zpm, xr, tinv, kT, gem, cd)
+            errs = [rel_err(o, r) for o, r in zip(outs, refs)]
+            check(max(errs) <= bar,
+                  f"cond_em_bwd disagrees at S={S} N={N} {cd}: "
+                  f"dkT/dzp_m/dxr {errs}")
+            t = {}
+            t["fwd"] = (cuda_ms(torch, lambda: C._launch_fwd(
+                x, zpm, xr, tinv, kT, cd)), cuda_ms(
+                torch, lambda: C.cond_em_reference(x, zpm, xr, tinv, kT,
+                                                   cd), reps=10),
+                bound(C.fwd_flops(S, T, N, F, Kn),
+                      C.fwd_bytes_moved(S, T, N, F, Kn), cd),
+                float((em - em_ref).abs().max()))
+            t["bwd"] = (cuda_ms(torch, lambda: C._launch_bwd(
+                x, zpm, xr, tinv, kT, gem, cd)), cuda_ms(
+                torch, lambda: C.cond_em_bwd_reference(
+                    x, zpm, xr, tinv, kT, gem, cd), reps=10),
+                bound(C.bwd_flops(S, T, N, F, Kn),
+                      C.bwd_bytes_moved(S, T, N, F, Kn), cd),
+                max(float((o - r).abs().max())
+                    for o, r in zip(outs, refs)))
+            print(f"[kernels] cond_em S={S} T={T} N={N:5d} {cd:8s} fwd "
+                  f"max|d|/max|ref| {e_f:.2e} kernel {t['fwd'][0]:.4f} "
+                  f"ms plain {t['fwd'][1]:.4f} ms bound "
+                  f"{t['fwd'][2][0]:.4f} ms ({t['fwd'][2][1]}) | bwd "
+                  f"{max(errs):.2e} kernel {t['bwd'][0]:.4f} ms plain "
+                  f"{t['bwd'][1]:.4f} ms bound {t['bwd'][2][0]:.4f} ms "
+                  f"({t['bwd'][2][1]}) bitwise-repeatable", flush=True)
+            if ((S, N), cd) == (CEM_ROW, "float32"):
+                for k, (ms, plain_ms, (b_ms, b_by), err) in t.items():
+                    rows[k] = dict(max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by,
+                                   shape=f"S={S} T={T} N={N} F={F} "
+                                         f"K={Kn} float32")
+    return rows
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -335,14 +586,197 @@ def profile_engine(torch, service, reqs, card):
               f"{e.key[:90]}", flush=True)
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+
+def counts(K, C):
+    return (K.launches, K.bwd_launches, C.fwd_launches, C.bwd_launches)
+
+
+def train_checks(torch, K, C, card, splits, opts):
+    """train_3phase at full width, kernel route against kernel="off" (f32,
+    dropout 0.05, the same seed), with the launches counted per phase."""
+    from deeplearninginassetpricing_paperreplication_torch.training import (
+        trainer as trainer_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, test = splits
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    dropout=DROPOUT)
+    tcfg = TrainConfig(**SCHEDULE, seed=42, print_freq=10 ** 6)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid, test)]
+    per_phase = {}
+    run_phase = trainer_mod.Trainer.run_phase
+
+    def counted(self, phase, seeds, b, best):
+        before = counts(K, C)
+        out = run_phase(self, phase, seeds, b, best)
+        torch.cuda.synchronize()
+        per_phase[phase] = tuple(a - c for a, c in zip(counts(K, C), before))
+        return out
+
+    # one untimed epoch per phase on each route first: library loads,
+    # cuBLAS handles and the allocator's first growth are set-up
+    for kernel in ("on", "off"):
+        trainer_mod.train_3phase(
+            cfg, *batches, tcfg=TrainConfig(1, 1, 1, ignore_epoch=0),
+            verbose=False, exec_cfg=ExecutionConfig(
+                kernel=kernel, compute_dtype="float32", device=DEVICE))
+    trainer_mod.Trainer.run_phase = counted
+    try:
+        results = {}
+        for kernel in ("on", "off"):
+            exec_cfg = ExecutionConfig(kernel=kernel,
+                                       compute_dtype="float32",
+                                       device=DEVICE)
+            per_phase.clear()
+            K.reset_launch_count()
+            C.reset_launch_count()
+            t0 = time.perf_counter()
+            gan, _, hist, trainer = trainer_mod.train_3phase(
+                cfg, *batches, tcfg=tcfg, seed=42, verbose=False,
+                exec_cfg=exec_cfg)
+            before = counts(K, C)
+            final = trainer.final_eval(batches[2])
+            final_launches = tuple(a - c for a, c in
+                                   zip(counts(K, C), before))
+            results[kernel] = dict(hist=hist, phases=dict(per_phase),
+                                   final=final, final_launches=final_launches,
+                                   epoch_ms=trainer.epoch_ms(),
+                                   wall=time.perf_counter() - t0,
+                                   trainer=trainer)
+    finally:
+        trainer_mod.Trainer.run_phase = run_phase
+
+    on, off = results["on"], results["off"]
+    n_epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+                "moment": SCHEDULE["num_epochs_moment"],
+                "conditional": SCHEDULE["num_epochs"]}
+    for phase, per in PER_EPOCH.items():
+        want = tuple(n_epochs[phase] * v for v in per)
+        check(on["phases"][phase] == want,
+              f"{phase}: launches (fwd, bwd, cem_fwd, cem_bwd) "
+              f"{on['phases'][phase]} != {want}")
+        check(off["phases"][phase] == (0, 0, 0, 0),
+              f"kernel='off' launched kernels in {phase}")
+    check(on["final_launches"] == (1, 0, 1, 0),
+          f"final_eval launched {on['final_launches']}, not (1, 0, 1, 0)")
+    dev_loss = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])
+                             / np.maximum(np.abs(off["hist"][k]), 1e-12)))
+                   for k in ("train_loss", "valid_loss", "test_loss"))
+    dev_sharpe = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])))
+                     for k in ("train_sharpe", "valid_sharpe",
+                               "test_sharpe"))
+    check(all(np.isfinite(on["hist"][k]).all() for k in on["hist"]
+              if k != "phase"), "non-finite training history")
+    check(dev_loss <= 1e-3, f"kernel vs plain training: loss rel dev "
+                            f"{dev_loss:.3e} > 1e-3")
+    check(dev_sharpe <= 5e-3, f"kernel vs plain training: Sharpe dev "
+                              f"{dev_sharpe:.3e} > 5e-3")
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    print(f"[train] full width F={cfg.individual_feature_dim} "
+          f"M={cfg.macro_feature_dim} N={train.N} T={train.T}/{valid.T}/"
+          f"{test.T}, hidden {list(cfg.hidden_dim)}, LSTM "
+          f"{list(cfg.num_units_rnn)}, K={cfg.num_condition_moment}, dropout "
+          f"{DROPOUT}, schedule 8/4/16 ignore 2, f32 ({card})", flush=True)
+    print(f"[train] kernel vs plain, every epoch: max loss rel dev "
+          f"{dev_loss:.3e} (bar 1e-3), max Sharpe dev {dev_sharpe:.3e} "
+          f"(bar 5e-3); final test Sharpe kernel "
+          f"{on['final']['sharpe']:.6f} plain {off['final']['sharpe']:.6f}",
+          flush=True)
+    for phase, n in n_epochs.items():
+        print(f"[train] launches {phase}: (fwd, bwd, cem_fwd, cem_bwd) "
+              f"{on['phases'][phase]} = {n} epochs x {PER_EPOCH[phase]}",
+              flush=True)
+    print(f"[train] final_eval launches {on['final_launches']}; wall ms per "
+          f"epoch kernel: {fmt(on['epoch_ms'])}; plain: "
+          f"{fmt(off['epoch_ms'])} ({card})", flush=True)
+    if opts.profile:
+        profile_training(torch, on["trainer"], batches, card)
+    launches = {name: sum(v[i] for v in on["phases"].values())
+                + on["final_launches"][i]
+                for i, name in enumerate(("sdf_ffn_fwd", "sdf_ffn_bwd",
+                                          "cond_em_fwd", "cond_em_bwd"))}
+    return launches, on["epoch_ms"]
+
+
+def profile_training(torch, trainer, batches, card):
+    """torch.profiler over 4 phase-3 epochs (train step + two evals) on the
+    kernel route: device time by kernel and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearninginassetpricing_paperreplication_torch.training.steps \
+        import eval_step, train_step
+
+    gan = trainer.gan
+    b = [gan.prepare_batch(x) for x in batches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for e in range(4):
+            train_step(gan, "conditional", trainer.opt_sdf, b[0], 1000 + e)
+            eval_step(gan, b[1])
+            eval_step(gan, b[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_time = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    evs = sorted((e for e in prof.key_averages() if dev_time(e) > 0),
+                 key=dev_time, reverse=True)
+    busy = sum(dev_time(e) for e in evs) / 1e6
+    print(f"[profile train] 4 phase-3 epochs in {wall * 1e3:.1f} ms wall; "
+          f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of the "
+          f"window; {card})", flush=True)
+    for e in evs[:14]:
+        print(f"[profile train]   {dev_time(e) / 1e3:9.3f} ms  {e.count:5d} x"
+              f"  {e.key[:90]}", flush=True)
+
+
+def cli_check(torch, card):
+    """The train CLI in its default bf16 configuration, then the port's
+    evaluate_ensemble on the run dir it wrote."""
+    from deeplearninginassetpricing_paperreplication_torch import train
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import evaluate_ensemble
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    train.main(["--data_dir", str(DATA_DIR), "--save_dir", str(RUN_DIR),
+                "--epochs_unc", str(SCHEDULE["num_epochs_unc"]),
+                "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
+                "--epochs", str(SCHEDULE["num_epochs"]), "--ignore_epoch",
+                str(SCHEDULE["ignore_epoch"]), "--print_freq", "8",
+                "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    metrics = json.loads((RUN_DIR / "final_metrics.json").read_text())
+    res = evaluate_ensemble([str(RUN_DIR)], str(DATA_DIR),
+                            exec_cfg=ExecutionConfig(device=DEVICE),
+                            verbose=False)
+    check(np.isfinite(res["test_sharpe"]), "non-finite test Sharpe of the "
+                                           "CLI-trained run dir")
+    print(f"[cli] train CLI (bf16, kernel auto) wrote {RUN_DIR.name}/ in "
+          f"{wall:.1f} s; evaluate_ensemble test Sharpe (negated, ddof 0) "
+          f"{res['test_sharpe']:.6f}; wall ms per epoch: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in metrics["epoch_ms"].items())
+          + f" ({card})", flush=True)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return metrics["epoch_ms"]
+
+
 # -- main ----------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the serving engine with "
-                         "torch.profiler")
+                    help="also profile the serving engine and training "
+                         "epochs with torch.profiler")
     opts = ap.parse_args(argv)
 
     import torch
@@ -365,6 +799,10 @@ def main(argv=None) -> int:
         import generate_all_splits
     from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
         import evaluate_ensemble, stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.ops import _nvcc
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        cond_em as C,
+    )
     from deeplearninginassetpricing_paperreplication_torch.ops import (
         sdf_ffn as K,
     )
@@ -384,26 +822,33 @@ def main(argv=None) -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.device_count()} device(s); {kind}", flush=True)
 
-    # 2. build
+    # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
-    logs = K.build(verbose=True)
-    print(f"[build] sdf_ffn_fwd: {len(logs)} libraries (widths "
-          f"{sorted(logs)}) built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for w in sorted(logs):
-        for line in logs[w].splitlines():
+    jobs = K.build_jobs() + C.build_jobs()
+    logs = _nvcc.run(jobs, verbose=True)
+    print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in sorted(logs):
+        for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[build]   w{w}: {line.strip()}", flush=True)
+                print(f"[build]   {name}: {line.strip()}", flush=True)
 
-    # 3. kernel against its plain version
+    # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     row = kernel_checks(torch, K, card)
+    dropout_keep_share(torch, K, card)
+    bwd_row = ffn_bwd_checks(torch, K, card)
+    cem_rows = cond_em_checks(torch, C, card)
+    print(f"[kernels] all checks passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    # 4. main path
+    # 4. serving
     t0 = time.perf_counter()
     if DATA_DIR.exists():
         shutil.rmtree(DATA_DIR)
     generate_all_splits(DATA_DIR, verbose=False, compress=False, **PANEL)
-    _, _, test = load_splits(DATA_DIR)
+    splits = load_splits(DATA_DIR)
+    test = splits[2]
     print(f"[panel] synthetic F={PANEL['n_features']} M={PANEL['n_macro']} "
           f"N={PANEL['n_stocks']} months {PANEL['n_periods_train']}/"
           f"{PANEL['n_periods_valid']}/{PANEL['n_periods_test']} seed "
@@ -416,13 +861,13 @@ def main(argv=None) -> int:
     cfg, stacked = stack_checkpoints([str(ROOT / d) for d in REF_RUNS],
                                      device=DEVICE)
     batch = test.to_batch(DEVICE)
-    total_launches = 0
+    serve_launches = 0
     for dtype in ("float32", "bfloat16"):
         offline = ensemble_metrics(cfg, stacked, batch, ExecutionConfig(
             kernel="off", compute_dtype=dtype, device=DEVICE))
         service, launches, _ = serve_and_check(
             torch, dtype, test, offline, bodies, card, K, server_mod)
-        total_launches += launches
+        serve_launches += launches
         reqs = engine_timing(torch, service, test, card)
         if opts.profile:
             profile_engine(torch, service, reqs, card)
@@ -436,32 +881,49 @@ def main(argv=None) -> int:
           f"{res['test_sharpe']:.6f}; train {res['train_sharpe']:.6f} valid "
           f"{res['valid_sharpe']:.6f}; members "
           f"{[round(s, 6) for s in res['individual_sharpes']]}", flush=True)
+
+    # 6. training
+    t0 = time.perf_counter()
+    train_launches, _ = train_checks(torch, K, C, card, splits, opts)
+    cli_check(torch, card)
+    print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "sdf_ffn_fwd",
-        "route": "cuda",
-        "source": f"{PKG}/ops/csrc/sdf_ffn.cu",
-        "replaces": "deeplearninginassetpricing_paperreplication_tpu/ops/"
-                    "pallas_ffn.py:561",
-        "also_replaces": "deeplearninginassetpricing_paperreplication_tpu/"
-                         "ops/pallas_ffn.py:188",
-        "launches": total_launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": None,
-        "shape": row["shape"],
-    }]}), flush=True)
+    src = f"{PKG}/ops/csrc/"
+    tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
+    kernels = [
+        dict(name="sdf_ffn_fwd", route="cuda", source=src + "sdf_ffn.cu",
+             replaces=tpu + "pallas_ffn.py:561",
+             also_replaces=tpu + "pallas_ffn.py:188",
+             launches=serve_launches + train_launches["sdf_ffn_fwd"],
+             launches_by_path={"serving": serve_launches,
+                               "training": train_launches["sdf_ffn_fwd"]},
+             **row),
+        dict(name="sdf_ffn_bwd", route="cuda", source=src + "sdf_ffn_bwd.cu",
+             replaces=tpu + "pallas_ffn.py:205",
+             also_replaces=tpu + "pallas_ffn.py:591",
+             launches=train_launches["sdf_ffn_bwd"], **bwd_row),
+        dict(name="cond_em_fwd", route="cuda", source=src + "cond_em.cu",
+             replaces=tpu + "pallas_moment.py:64",
+             also_replaces=tpu + "pallas_moment.py:274",
+             launches=train_launches["cond_em_fwd"], **cem_rows["fwd"]),
+        dict(name="cond_em_bwd", route="cuda", source=src + "cond_em.cu",
+             replaces=tpu + "pallas_moment.py:86",
+             also_replaces=tpu + "pallas_moment.py:302",
+             launches=train_launches["cond_em_bwd"], **cem_rows["bwd"]),
+    ]
+    for k in kernels:
+        check(k["launches"] > 0, f"the main path launched {k['name']} no "
+                                 "time")
+        k["library_ms"] = None  # no single PyTorch call computes these
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,7 +7,7 @@ The counterpart of the JAX package's ``evaluate_ensemble.py`` in its
 ``--checkpoint_dirs`` mode: the K members are stacked on a leading axis and
 evaluated together (one fused-FFN launch per split). It runs on the CUDA
 device unless ``--device cpu`` is given. Training an ensemble from seeds
-(``--train_seeds``) comes with the training slice.
+(``--train_seeds``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -151,7 +151,8 @@ def execution_config(args) -> ExecutionConfig:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
-    return ExecutionConfig(compute_dtype=args.compute_dtype,
+    return ExecutionConfig(kernel=getattr(args, "kernel", "auto"),
+                           compute_dtype=args.compute_dtype,
                            device=args.device)
 
 

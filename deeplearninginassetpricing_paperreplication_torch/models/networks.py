@@ -14,9 +14,14 @@ per-stock block and a per-period block, ``concat([stock, period]) @ Wᵀ ==
 stock @ W_sᵀ + period @ W_pᵀ``, so the [T, N, F + D] concat never exists.
 
 The SDF FFN itself runs member-stacked through :mod:`..ops.sdf_ffn`: on a
-CUDA device in the hand-written kernel, on the CPU in its plain version.
-The functional core (:func:`sdf_raw_weights`) takes parameters with a
-leading member axis; one module is the S = 1 case of it.
+CUDA device in the hand-written kernels, on the CPU in their plain
+versions. The functional core (:func:`sdf_raw_weights`) takes parameters
+with a leading member axis; one module is the S = 1 case of it.
+
+Training mode is chosen per call, as in the JAX package (an ``rng``
+there): a dropout ``seed`` for the FFN (whose kernels draw the masks from
+it) and a ``torch.Generator`` for the LSTM's inter-layer and the moment
+net's dropout. Without them every dropout is the identity.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from torch import nn
 
 from ..ops import sdf_ffn
 from ..utils.config import ExecutionConfig, GANConfig
-from .recurrent import MacroLSTM, layer_params, stacked_lstm_scan
+from .recurrent import MacroLSTM, dropout, layer_params, stacked_lstm_scan
 
 _DEFAULT_EXEC = ExecutionConfig()
 
@@ -69,17 +74,20 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def macro_states(params: Mapping[str, torch.Tensor], cfg: GANConfig,
-                 macro: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+                 macro: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator] = None
+                 ) -> Optional[torch.Tensor]:
     """[S, T, Dp] per-member macro state from ``sdf_net``-relative,
     member-stacked params: the LSTM's h sequence, the raw macro when the
-    config runs no LSTM, None without macro."""
+    config runs no LSTM, None without macro. `generator` draws the LSTM's
+    inter-layer dropout (training)."""
     if macro is None or cfg.macro_feature_dim == 0:
         return None
     S = params["output_proj.bias"].shape[0]
     if not cfg.use_rnn:
         return macro.expand(S, *macro.shape)
     layers = layer_params(params, len(cfg.num_units_rnn), "macro_lstm.lstm.")
-    hs, _ = stacked_lstm_scan(layers, macro)
+    hs, _ = stacked_lstm_scan(layers, macro, cfg.dropout, generator)
     return hs
 
 
@@ -117,10 +125,13 @@ def pack_sdf_ffn(params: Mapping[str, torch.Tensor], cfg: GANConfig,
 def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
                     exec_cfg: ExecutionConfig, x_t: torch.Tensor,
                     macro_state: Optional[torch.Tensor],
-                    packed: Optional[sdf_ffn.PackedFfn] = None) -> torch.Tensor:
+                    packed: Optional[sdf_ffn.PackedFfn] = None,
+                    seed: Optional[int] = None) -> torch.Tensor:
     """Unmasked weights [S, T, N] of S members on the feature-major panel
     x_t [T, F, N], given each member's macro state [S, T, Dp] (or None).
-    With hidden layers this is ONE fused-FFN call over all members."""
+    With hidden layers this is ONE fused-FFN call over all members: from
+    weights packed once (`packed`, the serving path), or differentiable,
+    with dropout drawn from `seed` when one is given (training)."""
     T = x_t.shape[0]
     if not cfg.hidden_dim:
         # no hidden layer: the output projection is the split layer itself
@@ -132,10 +143,13 @@ def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
             out = out + (macro_state @ w[:, F:, None])  # [S, T, 1]
         return out
     zp, k1T, mids, kout, bout = ffn_pieces(params, cfg, macro_state, T)
-    if packed is None:
-        packed = sdf_ffn.pack_ffn(k1T, mids, kout, bout,
-                                  exec_cfg.compute_dtype)
-    return sdf_ffn.sdf_ffn_packed(x_t, zp, packed, kernel=exec_cfg.kernel)
+    if packed is not None:
+        return sdf_ffn.sdf_ffn_packed(x_t, zp, packed, kernel=exec_cfg.kernel)
+    training = seed is not None and cfg.dropout > 0.0
+    return sdf_ffn.sdf_ffn(
+        x_t, zp, k1T, mids, kout, bout, seed=seed if training else 0,
+        dropout_rate=cfg.dropout if training else 0.0,
+        compute_dtype=exec_cfg.compute_dtype, kernel=exec_cfg.kernel)
 
 
 class SDFNet(nn.Module):
@@ -155,22 +169,22 @@ class SDFNet(nn.Module):
 
     def forward(self, macro: Optional[torch.Tensor], individual: torch.Tensor,
                 mask: torch.Tensor, individual_t: Optional[torch.Tensor] = None,
-                macro_state: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Eval-mode weights [T, N]. ``macro_state`` [T, Dp] bypasses the
-        LSTM with a caller-carried state (then ``macro`` is not read)."""
-        if self.training and self.cfg.dropout > 0:
-            raise NotImplementedError(
-                "training-mode dropout comes with the training slice; call "
-                ".eval() (serving and evaluation run without dropout)")
+                macro_state: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Weights [T, N]. ``macro_state`` [T, Dp] bypasses the LSTM with a
+        caller-carried state (then ``macro`` is not read). Training mode:
+        `seed` draws the FFN's dropout, `generator` the LSTM's; without
+        them the forward is the eval forward."""
         params = {n: p[None] for n, p in self.named_parameters()}
         if macro_state is None:
-            macro_state = macro_states(params, self.cfg, macro)
+            macro_state = macro_states(params, self.cfg, macro, generator)
         else:
             macro_state = macro_state[None]
         if individual_t is None:
             individual_t = individual.permute(0, 2, 1).contiguous()
         w = sdf_raw_weights(params, self.cfg, self.exec_cfg, individual_t,
-                            macro_state)[0]
+                            macro_state, seed=seed)[0]
         w = w * mask
         if self.cfg.normalize_w:
             w = masked_zero_mean(w, mask)
@@ -192,7 +206,10 @@ class MomentNet(nn.Module):
         self.output_proj = nn.Linear(d_last, cfg.num_condition_moment)
 
     def forward(self, macro: Optional[torch.Tensor],
-                individual: torch.Tensor) -> torch.Tensor:
+                individual: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """h [K, T, N]; `generator` draws the hidden layers' dropout
+        (training), as the JAX MomentNet does."""
         linears = [m for m in self.fc_layers if isinstance(m, nn.Linear)]
         linears.append(self.output_proj)
         first = linears[0]
@@ -202,8 +219,20 @@ class MomentNet(nn.Module):
         if macro is not None:
             x = x + (macro @ first.weight[:, :M].T)[:, None, :]
         for lin in linears[1:]:
-            x = lin(torch.relu(x))
+            x = lin(dropout(torch.relu(x), self.cfg.dropout, generator))
         return torch.tanh(x).permute(2, 0, 1)  # [K, T, N]
+
+
+def moment_output_params(module: "AssetPricingModule", cfg: GANConfig
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(k_period [M, K], k_stock [F, K], bias [K]) of the default MomentNet
+    output layer: the reference's [macro, individual] concat order, rows
+    [:M] of the (transposed) weight act on macro, rows [M:] on the stock
+    features."""
+    proj = module.moment_net.output_proj
+    M = cfg.macro_feature_dim
+    k = proj.weight.T  # [M + F, K]
+    return k[:M], k[M:], proj.bias
 
 
 class AssetPricingModule(nn.Module):

@@ -65,14 +65,29 @@ def lstm_step(p: LayerParams, carry: Carry, x_t: torch.Tensor) -> Carry:
     return _gates(zx_t + _rowmat(carry[0], _mT(p["w_hh"])), carry[1])
 
 
-def stacked_lstm_scan(layers: Sequence[LayerParams], x: torch.Tensor
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawn from an explicit generator; the identity
+    without one (eval) or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def stacked_lstm_scan(layers: Sequence[LayerParams], x: torch.Tensor,
+                      dropout_rate: float = 0.0,
+                      generator: Optional[torch.Generator] = None
                       ) -> Tuple[torch.Tensor, List[Carry]]:
     """x [..., T, M] → (last layer's h sequence [..., T, H], per-layer
-    final carries). Eval mode: inter-layer dropout is the identity."""
+    final carries). Between layers (only when there are several), training
+    draws dropout from `generator`; without one, dropout is the identity."""
     carries = []
-    for p in layers:
+    for li, p in enumerate(layers):
         x, carry = lstm_scan(p, x)
         carries.append(carry)
+        if li < len(layers) - 1:
+            x = dropout(x, dropout_rate, generator)
     return x, carries
 
 

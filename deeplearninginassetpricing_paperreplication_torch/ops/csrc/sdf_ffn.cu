@@ -33,6 +33,10 @@
 // biases stay f32. A product of two bf16 values is exact in f32, so only
 // the summation order differs from the plain version.
 //
+// Training-mode dropout (pallas_ffn._dropout_mask, applied after the ReLU of
+// every hidden layer) draws its mask from the counter-based hash in
+// sdf_ffn_common.cuh, so the backward kernel regenerates it exactly.
+//
 // The packed parameter layout (floats, every segment a multiple of 4) is
 // defined once, in ops/sdf_ffn.py::ffn_layout, and passed in as offsets:
 //   k1   [F][hp0]         first layer, feature-major rows
@@ -41,8 +45,7 @@
 //   kout [hp_L]
 //   bout [4]              (element 0)
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sdf_ffn_common.cuh"
 
 // One library per width bound: the build passes -DSDF_FFN_MAXW=32|64|128
 // (the widest padded hidden layer it serves), so each is compiled alone and
@@ -53,31 +56,18 @@
 
 namespace {
 
-constexpr int kMaxLayers = 8;
+using sdf_ffn::Dropout;
+using sdf_ffn::FfnDims;
+using sdf_ffn::kUnsupported;
+using sdf_ffn::round_bf16;
+
 constexpr int kThreads = 128;
-constexpr int kUnsupported = -1;  // returned for shapes the kernel refuses
-
-struct FfnDims {
-  int n_hidden;          // hidden layers, >= 1
-  int F;                 // features
-  int P;                 // packed floats per member
-  int off_kout;
-  int off_bout;
-  int h[kMaxLayers];     // hidden widths
-  int hp[kMaxLayers];    // widths padded to a multiple of 4
-  int off_w[kMaxLayers]; // offsets of W_l (l >= 1)
-  int off_b[kMaxLayers]; // offsets of b_l (l >= 1)
-};
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <int MAXW>
 __global__ void __launch_bounds__(kThreads)
 sdf_ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
                    const float* __restrict__ params, float* __restrict__ out,
-                   int T, int N, FfnDims d, int bf16) {
+                   int T, int N, FfnDims d, int bf16, Dropout drop) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int s = blockIdx.z;
@@ -98,6 +88,7 @@ sdf_ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
 
   for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
        n += gridDim.x * blockDim.x) {
+    const uint32_t row = drop.on ? sdf_ffn::row_hash(drop.seed, s, t, n) : 0u;
     // -- first layer: relu(K1^T x + zp), feature by feature ----------------
     float cur[MAXW];
 #pragma unroll
@@ -120,7 +111,10 @@ sdf_ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
 #pragma unroll
     for (int j = 0; j < MAXW; ++j) {
       if (j < hp0) {
-        const float a = fmaxf(cur[j] + zps[j], 0.f);
+        float a = fmaxf(cur[j] + zps[j], 0.f);
+        if (drop.on)
+          a = sdf_ffn::keep_unit(row, 0, j, drop.threshold) ? a * drop.scale
+                                                             : 0.f;
         cur[j] = bf16 ? round_bf16(a) : a;
       }
     }
@@ -147,6 +141,9 @@ sdf_ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
             }
           }
           acc = fmaxf(acc + b[k], 0.f);
+          if (drop.on)
+            acc = sdf_ffn::keep_unit(row, l, k, drop.threshold)
+                      ? acc * drop.scale : 0.f;
           if (bf16) acc = round_bf16(acc);
         }
         nxt[k] = acc;  // padded lanes stay exactly 0
@@ -176,7 +173,7 @@ sdf_ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
 template <int MAXW>
 int launch(const float* x, const float* zp, const float* params, float* out,
            int S, int T, int N, const FfnDims& d, int bf16,
-           cudaStream_t stream) {
+           const Dropout& drop, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(d.P + d.hp[0]);
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -197,36 +194,27 @@ int launch(const float* x, const float* zp, const float* params, float* out,
   if (gx < 1) gx = 1;
   dim3 grid((unsigned)gx, (unsigned)T, (unsigned)S);
   sdf_ffn_fwd_kernel<MAXW><<<grid, kThreads, smem, stream>>>(
-      x, zp, params, out, T, N, d, bf16);
+      x, zp, params, out, T, N, d, bf16, drop);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// layout: [n_hidden, F, P, off_kout, off_bout,
-//          h[0..n), hp[0..n), off_w[0..n), off_b[0..n)]  (host ints)
+// layout: see sdf_ffn::read_dims. dropout: rate > 0 iff `dropout` is 1;
+// then keep iff hash >= `threshold`, kept values scaled by `scale`.
 // Returns 0 on success, a cudaError_t value, or -1 for an unsupported shape.
 extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
                            const float* params, float* out, int S, int T,
-                           int N, const int* layout, int bf16, void* stream) {
-  FfnDims d = {};
-  d.n_hidden = layout[0];
-  d.F = layout[1];
-  d.P = layout[2];
-  d.off_kout = layout[3];
-  d.off_bout = layout[4];
-  if (d.n_hidden < 1 || d.n_hidden > kMaxLayers) return kUnsupported;
-  if (S < 1 || T < 1 || N < 1 || T > 65535 || S > 65535) return kUnsupported;
+                           int N, const int* layout, int bf16, int dropout,
+                           unsigned int seed, unsigned int threshold,
+                           float scale, void* stream) {
+  FfnDims d;
   int maxw = 0;
-  for (int l = 0; l < d.n_hidden; ++l) {
-    d.h[l] = layout[5 + l];
-    d.hp[l] = layout[5 + d.n_hidden + l];
-    d.off_w[l] = layout[5 + 2 * d.n_hidden + l];
-    d.off_b[l] = layout[5 + 3 * d.n_hidden + l];
-    if (d.hp[l] > maxw) maxw = d.hp[l];
-  }
+  if (sdf_ffn::read_dims(layout, &d, &maxw) != 0) return kUnsupported;
+  if (S < 1 || T < 1 || N < 1 || T > 65535 || S > 65535) return kUnsupported;
   if ((size_t)sizeof(float) * (d.P + d.hp[0]) > 227 * 1024) return kUnsupported;
   if (maxw > SDF_FFN_MAXW) return kUnsupported;
-  return launch<SDF_FFN_MAXW>(x, zp, params, out, S, T, N, d, bf16,
+  const Dropout drop{dropout, seed, threshold, scale};
+  return launch<SDF_FFN_MAXW>(x, zp, params, out, S, T, N, d, bf16, drop,
                               static_cast<cudaStream_t>(stream));
 }

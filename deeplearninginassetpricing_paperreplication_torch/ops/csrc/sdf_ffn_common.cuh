@@ -1,0 +1,88 @@
+// Shared by sdf_ffn.cu (forward) and sdf_ffn_bwd.cu (recompute backward):
+// the packed-layout dimensions, the bf16 operand rounding, and the dropout
+// mask.
+//
+// Dropout: a counter-based hash of (seed, member s, period t, stock n,
+// layer l, unit j) only, so a mask does not depend on the block size or the
+// launch shape, and the backward regenerates the forward's masks exactly.
+// The plain PyTorch version (ops/sdf_ffn.py::_row_hash, _unit_bits)
+// computes the same bits. The rule is the JAX kernel's
+// (pallas_ffn._dropout_mask): keep if bits >= round(rate * 2^32), scale the
+// kept value by 1 / (1 - rate), after the ReLU of every hidden layer.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sdf_ffn {
+
+constexpr int kMaxLayers = 8;
+constexpr int kUnsupported = -1;  // returned for shapes a kernel refuses
+
+struct FfnDims {
+  int n_hidden;          // hidden layers, >= 1
+  int F;                 // features
+  int P;                 // packed floats per member
+  int off_kout;
+  int off_bout;
+  int h[kMaxLayers];     // hidden widths
+  int hp[kMaxLayers];    // widths padded to a multiple of 4
+  int off_w[kMaxLayers]; // offsets of W_l (l >= 1)
+  int off_b[kMaxLayers]; // offsets of b_l (l >= 1)
+};
+
+struct Dropout {
+  int on;            // 0: no dropout
+  uint32_t seed;
+  uint32_t threshold;  // keep iff bits >= threshold
+  float scale;         // 1 / (1 - rate), as float32
+};
+
+// layout: [n_hidden, F, P, off_kout, off_bout,
+//          h[0..n), hp[0..n), off_w[0..n), off_b[0..n)]  (host ints)
+inline int read_dims(const int* layout, FfnDims* d, int* maxw) {
+  *d = FfnDims{};
+  d->n_hidden = layout[0];
+  d->F = layout[1];
+  d->P = layout[2];
+  d->off_kout = layout[3];
+  d->off_bout = layout[4];
+  if (d->n_hidden < 1 || d->n_hidden > kMaxLayers) return kUnsupported;
+  *maxw = 0;
+  for (int l = 0; l < d->n_hidden; ++l) {
+    d->h[l] = layout[5 + l];
+    d->hp[l] = layout[5 + d->n_hidden + l];
+    d->off_w[l] = layout[5 + 2 * d->n_hidden + l];
+    d->off_b[l] = layout[5 + 3 * d->n_hidden + l];
+    if (d->hp[l] > *maxw) *maxw = d->hp[l];
+  }
+  return 0;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// the per-(member, period, stock) base of every unit's bits
+__device__ __forceinline__ uint32_t row_hash(uint32_t seed, uint32_t s,
+                                             uint32_t t, uint32_t n) {
+  return fmix32(fmix32(fmix32(fmix32(seed ^ 0x9E3779B9u) ^ s) ^ t) ^ n);
+}
+
+__device__ __forceinline__ bool keep_unit(uint32_t row, int l, int j,
+                                          uint32_t threshold) {
+  const uint32_t key = (uint32_t)((l << 8) | j) * 0x9E3779B9u;
+  return fmix32(row ^ key) >= threshold;
+}
+
+}  // namespace sdf_ffn

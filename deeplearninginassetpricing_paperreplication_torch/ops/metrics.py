@@ -10,6 +10,7 @@ factor F over the stock's valid months, masked-panel exact.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,18 @@ def sharpe(returns: torch.Tensor, ddof: int = 1) -> torch.Tensor:
     std = returns.std(correction=ddof)
     return torch.where(std < 1e-8, torch.zeros_like(std),
                        returns.mean() / std)
+
+
+def sharpe_monitor(returns: torch.Tensor) -> torch.Tensor:
+    """The in-forward monitoring Sharpe: mean / (std_ddof1 + 1e-8)."""
+    return returns.mean() / (returns.std(correction=1) + 1e-8)
+
+
+def max_drawdown(returns) -> float:
+    """Max drawdown of the cumulative-product wealth curve (host NumPy)."""
+    cumulative = np.cumprod(1.0 + np.asarray(returns))
+    running_max = np.maximum.accumulate(cumulative)
+    return float(((cumulative - running_max) / running_max).min())
 
 
 def normalize_weights_abs(weights: torch.Tensor,

@@ -1,64 +1,76 @@
-"""Fused SDF-FFN forward: the panel MLP of every ensemble member, one launch.
+"""Fused SDF-FFN: the panel MLP of every ensemble member, forward and
+recompute backward, one launch each.
 
-The counterpart of the JAX package's ``ops/pallas_ffn.py`` forward
-(``fused_sdf_ffn``; Pallas kernels ``_fwd_kernel`` and
-``_fwd_kernel_members``). For member s, period t and stock n::
+The counterpart of the JAX package's ``ops/pallas_ffn.py``
+(``fused_sdf_ffn``; Pallas kernels ``_fwd_kernel``/``_fwd_kernel_members``
+and ``_bwd_kernel``/``_bwd_kernel_members``). For member s, period t and
+stock n::
 
-    w[s,t,n] = kout_s . relu(W_L,s ... relu(K1_s^T x[t,:,n] + zp[s,t]) ... + b) + bout_s
+    w[s,t,n] = kout_s . drop(relu(W_L,s ... drop(relu(K1_s^T x[t,:,n] + zp[s,t])) ... + b)) + bout_s
 
 over the feature-major panel ``x_t [T, F, N]``. The member axis is explicit
 (S = 1 is the single-model call), so an ensemble is one launch over one
 panel read. Masking, zero-mean and normalization stay in plain PyTorch, as
 they are plain XLA in the JAX package.
 
-Two routes compute the same function:
+Two routes compute the same functions:
 
-* :func:`sdf_ffn_reference`: plain PyTorch, with the same bf16 operand
-  rounding as the kernel. It is what a CPU tensor runs, and what the tests
-  and ``chip_smoke.py`` hold the kernel against.
-* the CUDA kernel ``csrc/sdf_ffn.cu`` (``sm_90a``), built from this
-  package's sources with ``nvcc`` at first use and bound through ``ctypes``.
-  A CUDA tensor always goes through it; a build or launch failure raises.
+* plain PyTorch: :func:`sdf_ffn_reference` and :func:`sdf_ffn_bwd_reference`,
+  with the same bf16 operand rounding and the same dropout bits as the
+  kernels. A CPU tensor runs them, and the tests and ``chip_smoke.py`` hold
+  the kernels against them.
+* the CUDA kernels ``csrc/sdf_ffn.cu`` (forward) and ``csrc/sdf_ffn_bwd.cu``
+  (backward), ``sm_90a``, built with ``nvcc`` at first use and bound through
+  ``ctypes``. A CUDA tensor always goes through them; a build or launch
+  failure raises.
+
+:func:`sdf_ffn` is the differentiable entry (a ``torch.autograd.Function``
+whose backward is ``sdf_ffn_bwd``); :func:`sdf_ffn_packed` is the
+serving path's forward over weights packed once.
 
 ``compute_dtype="bfloat16"`` rounds both operands of every product to bf16
 and accumulates in f32 (``pallas_ffn._dot``); biases stay f32.
+
+Dropout (training) is a counter-based hash of (seed, member, period, stock,
+layer, unit), applied after the ReLU of every hidden layer: keep iff the
+bits are ≥ round(rate·2³²), kept values scaled by 1/(1 − rate). The mask
+does not depend on how the kernel tiles the stocks; it is not the JAX
+kernel's TPU PRNG stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "sdf_ffn.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from . import _nvcc
+
 COMPUTE_DTYPES = ("float32", "bfloat16")
 MAX_HIDDEN_LAYERS = 8
 WIDTH_BOUNDS = (32, 64, 128)  # one library per bound on the padded width
+BWD_TILES = (128, 64, 32)  # stock tiles of the backward, largest that fits
+MAX_SMEM = 227 * 1024
 
-# launches of the CUDA kernel, counted where the wrapper launches it and
-# nowhere else (reset_launch_count() before a run, read it after)
+# launches of the CUDA kernels, counted where the wrapper launches them and
+# nowhere else (reset_launch_count() before a run, read them after)
 launches = 0
+bwd_launches = 0
 
-_libs: Dict[int, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 Mids = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def reset_launch_count() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def _round(a: torch.Tensor, compute_dtype: str) -> torch.Tensor:
@@ -75,25 +87,138 @@ def _check_dtype(compute_dtype: str) -> None:
                          f"{compute_dtype!r}")
 
 
+# -- dropout bits (the same hash as csrc/sdf_ffn_common.cuh) ----------------
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def dropout_params(rate: float) -> Tuple[int, float]:
+    """(threshold, scale): keep iff bits ≥ threshold = round(rate·2³²);
+    kept values are multiplied by scale = 1/(1 − rate) in float32."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1): {rate}")
+    threshold = int(round(rate * float(2 ** 32)))
+    scale = float(np.float32(1.0) / np.float32(1.0 - rate))
+    return threshold, scale
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h · c) mod 2³² for 32-bit values held in int64, without int64
+    overflow (the product is split into 16-bit halves)."""
+    lo, hi = h & 0xFFFF, h >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _row_hash(seed: int, S: int, T: int, N: int,
+              device) -> torch.Tensor:
+    """[S, T, N] int64: the per-(member, period, stock) base of the bits."""
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    h = _fmix32(torch.tensor((int(seed) ^ _GOLDEN) & _M32, dtype=torch.int64,
+                             device=device))
+    h = _fmix32(h ^ ar(S)[:, None, None])
+    h = _fmix32(h ^ ar(T)[None, :, None])
+    return _fmix32(h ^ ar(N)[None, None, :])
+
+
+def _unit_bits(row: torch.Tensor, layer: int, H: int) -> torch.Tensor:
+    """[S, T, H, N] bits of layer `layer`'s H units."""
+    key = _mul32((layer << 8) | torch.arange(H, dtype=torch.int64,
+                                             device=row.device), _GOLDEN)
+    return _fmix32(row[:, :, None, :] ^ key[None, None, :, None])
+
+
+def dropout_keep(seed: int, rate: float, layer: int, S: int, T: int, H: int,
+                 N: int, device="cpu") -> torch.Tensor:
+    """The kernels' keep mask [S, T, H, N] (bool) of one hidden layer."""
+    threshold, _ = dropout_params(rate)
+    return _unit_bits(_row_hash(seed, S, T, N, device), layer, H) >= threshold
+
+
+# -- the plain versions -------------------------------------------------------
+
+
+def _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed, dropout_rate):
+    """Post-ReLU, post-dropout activations (f32, unrounded) [S, T, H, N] of
+    every hidden layer, and each layer's derivative factor (ReLU mask ×
+    dropout multiplier): the ONE copy of the layer loop for the plain
+    forward and backward."""
+    _check_dtype(compute_dtype)
+    T, _, N = x_t.shape
+    S = zp.shape[0]
+    drop = dropout_rate > 0.0
+    if drop:
+        threshold, scale = dropout_params(dropout_rate)
+        row = _row_hash(seed, S, T, N, x_t.device)
+    x = _round(x_t.float(), compute_dtype)
+    h_pre = torch.einsum("shf,tfn->sthn", _round(k1T, compute_dtype), x)
+    h_pre = h_pre + zp[..., None]
+    acts, facs = [], []
+    for layer, wb in enumerate([None] + list(mids)):
+        if wb is not None:
+            w, b = wb
+            h_pre = torch.einsum("sko,ston->stkn", _round(w, compute_dtype),
+                                 _round(acts[-1], compute_dtype))
+            h_pre = h_pre + b[:, None, :, None]
+        fac = (h_pre > 0).float()
+        if drop:
+            keep = _unit_bits(row, layer, h_pre.shape[2]) >= threshold
+            fac = fac * (keep.float() * scale)
+        acts.append(torch.relu(h_pre) * (keep.float() * scale if drop
+                                         else 1.0))
+        facs.append(fac)
+    return acts, facs
+
+
 def sdf_ffn_reference(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
                       mids: Mids, kout: torch.Tensor, bout: torch.Tensor,
-                      compute_dtype: str = "float32") -> torch.Tensor:
-    """The plain-PyTorch version of the kernel.
+                      compute_dtype: str = "float32", seed: int = 0,
+                      dropout_rate: float = 0.0) -> torch.Tensor:
+    """The plain-PyTorch forward.
 
     x_t [T, F, N]; zp [S, T, H1]; k1T [S, H1, F]; mids ((W [S, H, Hin],
     b [S, H]), ...); kout [S, HL]; bout [S]  →  raw weights [S, T, N] f32.
     """
-    _check_dtype(compute_dtype)
-    x = _round(x_t.float(), compute_dtype)
-    h = torch.einsum("shf,tfn->sthn", _round(k1T, compute_dtype), x)
-    h = torch.relu(h + zp[..., None])
-    for w, b in mids:
-        h = torch.einsum("sko,ston->stkn", _round(w, compute_dtype),
-                         _round(h, compute_dtype))
-        h = torch.relu(h + b[:, None, :, None])
+    acts, _ = _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed,
+                             dropout_rate)
     out = torch.einsum("sk,stkn->stn", _round(kout, compute_dtype),
-                       _round(h, compute_dtype))
+                       _round(acts[-1], compute_dtype))
     return out + bout[:, None, None]
+
+
+def sdf_ffn_bwd_reference(x_t: torch.Tensor, zp: torch.Tensor,
+                          k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
+                          g: torch.Tensor, compute_dtype: str = "float32",
+                          seed: int = 0, dropout_rate: float = 0.0):
+    """The plain-PyTorch backward, with the JAX kernel's rounding points.
+
+    g [S, T, N] → (dzp [S, T, H1], dk1T [S, H1, F], ((dW, db), ...),
+    dkout [S, HL], dbout [S])."""
+    cd = compute_dtype
+    acts, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate)
+    dkout = torch.einsum("sthn,stn->sh", acts[-1], g)  # f32, unrounded
+    dbout = g.sum(dim=(1, 2))
+    dh = _round(kout, cd)[:, None, :, None] * _round(g, cd)[:, :, None, :]
+    dmids = []
+    for li in range(len(mids), 0, -1):
+        dh_pre = dh * facs[li]
+        dW = torch.einsum("stjn,stin->sji", _round(dh_pre, cd),
+                          _round(acts[li - 1], cd))
+        dmids.append((dW, dh_pre.sum(dim=(1, 3))))
+        dh = torch.einsum("sji,stjn->stin", _round(mids[li - 1][0], cd),
+                          _round(dh_pre, cd))
+    dh1_pre = dh * facs[0]
+    dk1T = torch.einsum("stjn,tfn->sjf", _round(dh1_pre, cd),
+                        _round(x_t.float(), cd))
+    return (dh1_pre.sum(dim=3), dk1T, tuple(reversed(dmids)), dkout, dbout)
 
 
 # -- packed parameters ------------------------------------------------------
@@ -194,20 +319,7 @@ def pack_ffn(k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
                      tuple((w, b) for w, b in mids), kout, bout)
 
 
-# -- the CUDA kernel --------------------------------------------------------
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME, /usr/local/cuda and PATH): "
-            "the sdf_ffn_fwd kernel is built from source at first use")
-    return found
+# -- the CUDA kernels ---------------------------------------------------------
 
 
 def width_bound(hidden: Sequence[int]) -> int:
@@ -217,75 +329,94 @@ def width_bound(hidden: Sequence[int]) -> int:
     for b in WIDTH_BOUNDS:
         if w <= b:
             return b
-    raise ValueError(f"sdf_ffn_fwd: hidden width {max(hidden)} exceeds the "
+    raise ValueError(f"sdf_ffn: hidden width {max(hidden)} exceeds the "
                      f"kernel's {WIDTH_BOUNDS[-1]}")
 
 
-def _lib_path(width: int) -> Path:
-    key = hashlib.sha256(_CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return BUILD_DIR / f"libsdf_ffn_w{width}_{key}.so"
+_SOURCES = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu"}
 
 
-def build(widths: Sequence[int] = WIDTH_BOUNDS,
-          verbose: bool = False) -> Dict[int, str]:
-    """Compile ``csrc/sdf_ffn.cu`` for sm_90a, one library per width bound,
-    all ``nvcc`` processes started together, into the package's build
-    directory (named by the source and flags, so an unchanged source is
-    built once). Returns {width: compiler output}; ``verbose`` adds
-    ``-Xptxas -v`` (registers, shared memory and spills) and rebuilds."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
-    procs = {}
-    for w in widths:
-        lib = _lib_path(w)
-        if lib.exists() and not verbose:
-            continue
-        tmp = lib.with_name(f".{lib.name}.{os.getpid()}")
-        procs[w] = (tmp, lib, subprocess.Popen(
-            [_nvcc(), *flags, f"-DSDF_FFN_MAXW={w}", "-o", str(tmp),
-             str(_CSRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    logs = {}
-    for w, (tmp, lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_CSRC} for width {w} "
-                               f"(rc {proc.returncode}):\n{out}")
-        os.replace(tmp, lib)
-        logs[w] = out
-    return logs
+def build_jobs(widths: Sequence[int] = WIDTH_BOUNDS,
+               kernels: Sequence[str] = ("fwd", "bwd")) -> List[_nvcc.Job]:
+    """One library per (kernel, width bound), each compiled alone so only
+    what a model needs is built at first use."""
+    return [_nvcc.Job(f"sdf_ffn_{k}_w{w}", _SOURCES[k],
+                      (f"-DSDF_FFN_MAXW={w}",))
+            for k in kernels for w in widths]
 
 
-def _load(width: int):
+def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
+          kernels: Sequence[str] = ("fwd", "bwd")) -> Dict[str, str]:
+    """Compile the forward and backward kernels for sm_90a, one library per
+    (kernel, width bound), all ``nvcc`` processes started together. Returns
+    {library name: compiler output} (see :func:`_nvcc.run`)."""
+    return _nvcc.run(build_jobs(widths, kernels), verbose)
+
+
+_ARGTYPES = {
+    "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+               ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+               ctypes.c_void_p]),
+    "bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+               ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+def _load(kernel: str, width: int):
+    key = (kernel, width)
     with _lib_lock:
-        if width not in _libs:
-            build([width])
-            lib = ctypes.CDLL(str(_lib_path(width)))
-            lib.sdf_ffn_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-            lib.sdf_ffn_fwd.restype = ctypes.c_int
-            _libs[width] = lib
-        return _libs[width]
+        if key not in _libs:
+            (job,) = build_jobs([width], [kernel])
+            _nvcc.run([job])
+            lib = ctypes.CDLL(str(job.path))
+            fn = getattr(lib, f"sdf_ffn_{kernel}")
+            fn.argtypes = _ARGTYPES[kernel]
+            fn.restype = ctypes.c_int
+            if kernel == "bwd":
+                lib.sdf_ffn_bwd_smem_bytes.argtypes = [
+                    ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                lib.sdf_ffn_bwd_smem_bytes.restype = ctypes.c_longlong
+            _libs[key] = lib
+        return _libs[key]
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape: Tuple[int, ...],
                 device: torch.device) -> None:
     if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"sdf_ffn_fwd: {name} must be a contiguous float32 "
+        raise ValueError(f"sdf_ffn: {name} must be a contiguous float32 "
                          f"tensor on {device}; got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
     if tuple(t.shape) != shape:
-        raise ValueError(f"sdf_ffn_fwd: {name} must be {list(shape)}; got "
+        raise ValueError(f"sdf_ffn: {name} must be {list(shape)}; got "
                          f"{list(t.shape)}")
     if t.data_ptr() % 16:
-        raise ValueError(f"sdf_ffn_fwd: {name} must be 16-byte aligned")
+        raise ValueError(f"sdf_ffn: {name} must be 16-byte aligned")
 
 
-def _launch(x_t: torch.Tensor, zp: torch.Tensor,
-            packed: PackedFfn) -> torch.Tensor:
+def _raise_rc(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed (code {rc}: "
+            + ("unsupported shape" if rc == -1 else "cudaError") + ")")
+
+
+def _dropout_args(seed: int, rate: float) -> Tuple[int, int, int, float]:
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    threshold, scale = dropout_params(rate)
+    return 1, int(seed) & _M32, threshold, scale
+
+
+def _layout_ints(lay: FfnLayout):
+    ints = lay.as_ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+            seed: int = 0, dropout_rate: float = 0.0) -> torch.Tensor:
     global launches
     lay = packed.layout
     T, F, N = x_t.shape
@@ -294,48 +425,178 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor,
     _check_cuda("x_t", x_t, (T, lay.F, N), dev)
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
-    lib = _load(width_bound(lay.hidden))
+    lib = _load("fwd", width_bound(lay.hidden))
     out = torch.empty((S, T, N), dtype=torch.float32, device=dev)
-    ints = lay.as_ints()
-    layout = (ctypes.c_int * len(ints))(*ints)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_fwd(
             x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-            out.data_ptr(), S, T, N, layout,
-            int(packed.compute_dtype == "bfloat16"), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"sdf_ffn_fwd launch failed (code {rc}: "
-            + ("unsupported shape" if rc == -1 else "cudaError") + ")")
+            out.data_ptr(), S, T, N, _layout_ints(lay),
+            int(packed.compute_dtype == "bfloat16"),
+            *_dropout_args(seed, dropout_rate), stream)
+    _raise_rc("sdf_ffn_fwd", rc)
     launches += 1
     return out
 
 
-def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-                   kernel: str = "auto",
-                   dropout_rate: float = 0.0) -> torch.Tensor:
-    """Raw weights [S, T, N] from pre-packed member weights.
+def bwd_blocks(S: int, T: int, N: int, tile: int, sms: int) -> int:
+    """Blocks per member of the backward: one wave of one block per SM,
+    never more than the (period, stock-tile) cells."""
+    cells = T * (-(-N // tile))
+    return max(1, min(cells, -(-sms // S)))
 
-    A CUDA panel launches the kernel (``kernel`` "auto" or "on"); a CPU
-    panel runs :func:`sdf_ffn_reference`. ``kernel="off"`` asks for the
-    plain route explicitly on any device."""
-    if dropout_rate > 0.0:
-        raise ValueError("sdf_ffn_fwd is the eval-mode forward: dropout "
-                         f"rate must be 0, got {dropout_rate}")
+
+def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+                g: torch.Tensor, seed: int = 0, dropout_rate: float = 0.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grads [S, P] in the packed layout, dzp [S, T, H1])."""
+    global bwd_launches
+    lay = packed.layout
+    T, F, N = x_t.shape
+    S = packed.n_members
+    dev = x_t.device
+    _check_cuda("x_t", x_t, (T, lay.F, N), dev)
+    _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
+    _check_cuda("params", packed.params, (S, lay.P), dev)
+    _check_cuda("g", g, (S, T, N), dev)
+    lib = _load("bwd", width_bound(lay.hidden))
+    ints = _layout_ints(lay)
+    tile = next((b for b in BWD_TILES
+                 if 0 < lib.sdf_ffn_bwd_smem_bytes(ints, b) <= MAX_SMEM),
+                None)
+    if tile is None:
+        raise ValueError(f"sdf_ffn_bwd: hidden {list(lay.hidden)} with F = "
+                         f"{lay.F} does not fit the kernel's shared memory")
+    G = bwd_blocks(S, T, N, tile,
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    grad_part = torch.empty((S, G, lay.P), dtype=torch.float32, device=dev)
+    dzp_part = torch.zeros((S, G, T, lay.hidden[0]), dtype=torch.float32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdf_ffn_bwd(
+            x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+            g.data_ptr(), grad_part.data_ptr(), dzp_part.data_ptr(), S, T, N,
+            ints, int(packed.compute_dtype == "bfloat16"),
+            *_dropout_args(seed, dropout_rate), G, tile, stream)
+    _raise_rc("sdf_ffn_bwd", rc)
+    bwd_launches += 1
+    # the fixed-order pass over the per-block partials
+    return grad_part.sum(dim=1), dzp_part.sum(dim=1)
+
+
+def unpack_grads(grads: torch.Tensor, lay: FfnLayout):
+    """Packed-layout gradients [S, P] → (dk1T [S, H1, F], ((dW [S, H, Hin],
+    db [S, H]), ...), dkout [S, HL], dbout [S])."""
+    S = grads.shape[0]
+    h = lay.hidden
+    dk1T = grads[:, :lay.F * lay.hp[0]].view(S, lay.F, lay.hp[0])
+    dk1T = dk1T[:, :, :h[0]].transpose(1, 2)
+    dmids = []
+    for li in range(1, len(h)):
+        o = lay.off_w[li]
+        dW = grads[:, o:o + h[li] * lay.hp[li - 1]].view(
+            S, h[li], lay.hp[li - 1])[:, :, :h[li - 1]]
+        db = grads[:, lay.off_b[li]:lay.off_b[li] + h[li]]
+        dmids.append((dW, db))
+    dkout = grads[:, lay.off_kout:lay.off_kout + h[-1]]
+    return dk1T, tuple(dmids), dkout, grads[:, lay.off_bout]
+
+
+def _route(x_t: torch.Tensor, kernel: str) -> str:
+    """"kernel" or "plain": a CUDA panel launches the kernel ("auto" or
+    "on"), a CPU panel runs the plain version, and "off" asks for the plain
+    route explicitly on any device."""
     if kernel not in ("auto", "on", "off"):
         raise ValueError(f"kernel must be auto|on|off: {kernel!r}")
     if kernel == "off" or (kernel == "auto" and x_t.device.type == "cpu"):
-        return sdf_ffn_reference(x_t, zp, packed.k1T, packed.mids,
-                                 packed.kout, packed.bout,
-                                 packed.compute_dtype)
+        return "plain"
     if x_t.device.type != "cuda":
         raise ValueError(f"kernel='on' needs a CUDA panel; got {x_t.device}")
-    return _launch(x_t, zp, packed)
+    return "kernel"
+
+
+def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+                   kernel: str = "auto", dropout_rate: float = 0.0,
+                   seed: int = 0) -> torch.Tensor:
+    """Raw weights [S, T, N] from pre-packed member weights (the serving
+    path: no gradient)."""
+    if _route(x_t, kernel) == "plain":
+        return sdf_ffn_reference(x_t, zp, packed.k1T, packed.mids,
+                                 packed.kout, packed.bout,
+                                 packed.compute_dtype, seed, dropout_rate)
+    return _launch(x_t, zp, packed, seed, dropout_rate)
+
+
+class _SdfFfn(torch.autograd.Function):
+    """Forward: the fwd kernel (or its plain version); backward: the bwd
+    kernel (or its plain version), regenerating the forward's dropout masks
+    from the seed. Packing happens here; autograd sees the raw tensors."""
+
+    @staticmethod
+    def forward(ctx, meta, x_t, zp, k1T, kout, bout, *mids_flat):
+        route, cd, seed, rate = meta
+        mids = tuple(zip(mids_flat[0::2], mids_flat[1::2]))
+        ctx.meta = meta
+        ctx.n_mids = len(mids)
+        ctx.save_for_backward(x_t, zp, k1T, kout, *mids_flat)
+        if route == "plain":
+            return sdf_ffn_reference(x_t, zp, k1T, mids, kout, bout, cd,
+                                     seed, rate)
+        ctx.packed = pack_ffn(k1T, mids, kout, bout, cd)
+        return _launch(x_t, zp, ctx.packed, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "the gradient with respect to the panel x_t is TPU kernel "
+                "row 4 (ops/pallas_ffn.py:300 _dx_kernel), not ported yet")
+        route, cd, seed, rate = ctx.meta
+        x_t, zp, k1T, kout, *mids_flat = ctx.saved_tensors
+        g = g.float().contiguous()
+        if route == "plain":
+            mids = tuple(zip(mids_flat[0::2], mids_flat[1::2]))
+            dzp, dk1T, dmids, dkout, dbout = sdf_ffn_bwd_reference(
+                x_t, zp, k1T, mids, kout, g, cd, seed, rate)
+        else:
+            grads, dzp = _launch_bwd(x_t, zp.contiguous(), ctx.packed, g,
+                                     seed, rate)
+            dk1T, dmids, dkout, dbout = unpack_grads(grads,
+                                                     ctx.packed.layout)
+        flat = [t for wb in dmids for t in wb]
+        return (None, None, dzp, dk1T, dkout, dbout, *flat)
+
+
+def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
+            mids: Mids, kout: torch.Tensor, bout: torch.Tensor, *,
+            seed: int = 0, dropout_rate: float = 0.0,
+            compute_dtype: str = "bfloat16",
+            kernel: str = "auto") -> torch.Tensor:
+    """Differentiable fused FFN: raw weights [S, T, N].
+
+    Gradients flow to zp (and through it to the macro path) and to every
+    weight and bias. Asking for the panel's gradient raises (TPU kernel row
+    4 is not ported). ``seed`` and ``dropout_rate`` draw the dropout masks,
+    identically in the forward and the backward."""
+    _check_dtype(compute_dtype)
+    S, H1, F = k1T.shape
+    if len(mids) + 1 > MAX_HIDDEN_LAYERS:
+        raise ValueError(f"the fused FFN takes at most {MAX_HIDDEN_LAYERS} "
+                         f"hidden layers; got {len(mids) + 1}")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1): {dropout_rate}")
+    meta = (_route(x_t, kernel), compute_dtype, int(seed) & _M32,
+            float(dropout_rate))
+    flat = [t for wb in mids for t in wb]
+    return _SdfFfn.apply(meta, x_t, zp, k1T, kout, bout, *flat)
+
+
+# -- the bounds -----------------------------------------------------------------
 
 
 def flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
-    """Multiply-adds ×2 of one call: 2·(F·H1 + Σ H_{l-1}·H_l + H_L) per
+    """Multiply-adds ×2 of one forward: 2·(F·H1 + Σ H_{l-1}·H_l + H_L) per
     (member, period, stock)."""
     per = F * hidden[0] + sum(a * b for a, b in zip(hidden, hidden[1:]))
     per += hidden[-1]
@@ -347,3 +608,23 @@ def bytes_moved(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
     the packed weights, and the [S, T, N] output."""
     lay = ffn_layout(F, hidden)
     return 4 * (T * F * N + S * T * hidden[0] + S * lay.P + S * T * N)
+
+
+def bwd_flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
+    """Multiply-adds ×2 of one backward: the recomputed hidden stack, then
+    per layer the weight gradient (H·Hin) and, above the first layer, the
+    propagated dh (H·Hin), plus the output projection's dkout and dh —
+    about 2.6× the forward at the paper's widths."""
+    mids = sum(a * b for a, b in zip(hidden, hidden[1:]))
+    per = F * hidden[0] + mids  # the recomputed hidden stack
+    per += F * hidden[0] + 2 * mids + 2 * hidden[-1]  # the gradients
+    return 2 * per * S * T * N
+
+
+def bwd_bytes_moved(S: int, T: int, N: int, F: int,
+                    hidden: Sequence[int]) -> int:
+    """The panel, zp, the weights and g read once; dzp and the parameter
+    gradients written once (f32)."""
+    lay = ffn_layout(F, hidden)
+    return 4 * (T * F * N + 2 * S * T * hidden[0] + 2 * S * lay.P
+                + S * T * N)

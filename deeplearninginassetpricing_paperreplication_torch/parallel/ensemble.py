@@ -9,7 +9,7 @@ launch over one panel read (never a Python loop over members).
 The reduction is the reference's: average the members' abs-sum-normalized
 weights, re-normalize per period where the abs-sum exceeds 1e-8, form the
 portfolio returns, and report the Sharpe of the NEGATED series with
-ddof=0. Training the ensemble comes with the training slice.
+ddof=0. Training the ensemble (members as a leading axis) is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,0 +1,106 @@
+"""Training CLI: the 3-phase GAN on one CUDA card (or, explicitly, the CPU).
+
+    python -m deeplearninginassetpricing_paperreplication_torch.train \\
+        --data_dir data/synthetic_data --save_dir ./checkpoints
+
+The counterpart of the JAX package's ``train.py`` for the flags this port
+implements (the schedule, the model's widths, dropout and seed), plus the
+port's ``--device`` (default cuda: a host without a CUDA device is an
+error naming CUDA, never a quiet CPU run), ``--kernel auto|on|off`` and
+``--compute_dtype``. It writes ``config.json``, ``best_model_loss.pt``,
+``best_model_sharpe.pt``, ``final_model.pt``, ``history.npz`` and
+``final_metrics.json`` into ``--save_dir``; the port's
+``evaluate_ensemble`` and server read that directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+from .data.panel import load_splits
+from .evaluate_ensemble import add_execution_args, execution_config
+from .training.trainer import train_3phase
+from .utils.config import GANConfig, TrainConfig, resolve_device
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train the Asset Pricing GAN (PyTorch, CUDA)")
+    p.add_argument("--config", type=str, help="Path to config JSON")
+    p.add_argument("--data_dir", type=str, required=True)
+    p.add_argument("--save_dir", type=str, default="./checkpoints")
+    # 3-phase schedule (paper defaults)
+    p.add_argument("--epochs_unc", type=int, default=256)
+    p.add_argument("--epochs_moment", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=1024)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--print_freq", type=int, default=128)
+    p.add_argument("--ignore_epoch", type=int, default=64)
+    # model (paper defaults)
+    p.add_argument("--hidden_dim", type=int, nargs="+", default=[64, 64])
+    p.add_argument("--rnn_dim", type=int, nargs="+", default=[4])
+    p.add_argument("--num_moments", type=int, default=8)
+    p.add_argument("--dropout", type=float, default=0.05)
+    p.add_argument("--hidden_dim_moment", type=int, nargs="+", default=[])
+    p.add_argument("--seed", type=int, default=42)
+    add_execution_args(p)
+    p.add_argument("--kernel", type=str, default="auto",
+                   choices=("auto", "on", "off"),
+                   help="the CUDA kernels (auto: on a CUDA device) or, with "
+                        "off, their plain PyTorch versions")
+    return p
+
+
+def main(argv=None):
+    args = build_arg_parser().parse_args(argv)
+    exec_cfg = execution_config(args)  # exits naming CUDA without a card
+    device = resolve_device(exec_cfg.device)
+    save_dir = Path(args.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    tcfg = TrainConfig(num_epochs_unc=args.epochs_unc,
+                       num_epochs_moment=args.epochs_moment,
+                       num_epochs=args.epochs, lr=args.lr,
+                       ignore_epoch=args.ignore_epoch, seed=args.seed,
+                       print_freq=args.print_freq)
+    train_ds, valid_ds, test_ds = load_splits(args.data_dir)
+    if args.config:
+        cfg = GANConfig.load(args.config)
+    else:
+        cfg = GANConfig(
+            macro_feature_dim=train_ds.macro_feature_dim,
+            individual_feature_dim=train_ds.individual_feature_dim,
+            hidden_dim=tuple(args.hidden_dim),
+            num_units_rnn=tuple(args.rnn_dim),
+            hidden_dim_moment=tuple(args.hidden_dim_moment),
+            num_condition_moment=args.num_moments, dropout=args.dropout)
+    print(f"Device: {device}; kernel {exec_cfg.kernel}, compute dtype "
+          f"{exec_cfg.compute_dtype}", flush=True)
+    print(f"  Train: {train_ds.T} x {train_ds.N} | Valid: {valid_ds.T} x "
+          f"{valid_ds.N} | Test: {test_ds.T} x {test_ds.N}", flush=True)
+    batches = {name: ds.to_batch(device) for name, ds in
+               (("train", train_ds), ("valid", valid_ds), ("test", test_ds))}
+    t0 = time.time()
+    gan, _, _, trainer = train_3phase(
+        cfg, batches["train"], batches["valid"], batches["test"], tcfg=tcfg,
+        save_dir=str(save_dir), seed=args.seed, exec_cfg=exec_cfg)
+    wall = time.time() - t0
+    print("\nBest Model Performance (normalized weights):", flush=True)
+    results = {}
+    for name, b in batches.items():
+        m = trainer.final_eval(b)
+        results[name] = m
+        print(f"  {name:5s} - Sharpe: {m['sharpe']:7.3f}, MaxDD: "
+              f"{m['max_drawdown']:7.2%}", flush=True)
+    (save_dir / "final_metrics.json").write_text(json.dumps(
+        {**results, "wall_clock_s": wall,
+         "phase_execute_seconds": trainer.phase_seconds,
+         "epoch_ms": trainer.epoch_ms(), "device": str(device)}, indent=2))
+    print(f"\nTotal wall-clock: {wall:.1f}s — checkpoints in {save_dir}",
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""Checkpoint loading: reference ``.pt`` run directories, and the weight
-bridge from the JAX package's parameter tree.
+"""Checkpoints: reference ``.pt`` run directories (load and save), and the
+weight bridge from the JAX package's parameter tree.
 
 A run directory holds ``config.json`` (the reference's keys) beside
 ``best_model_sharpe.pt`` / ``best_model_loss.pt`` / ``final_model.pt``, each
@@ -7,12 +7,14 @@ a reference ``AssetPricingGAN.state_dict()``. The port's
 ``models.networks.AssetPricingModule`` carries the reference's module
 names, so these load with ``load_state_dict(strict=True)``.
 
-Reading the JAX package's flax ``.msgpack`` checkpoints, and every save
-path, come with the training slice.
+The trainer writes the same layout (:func:`save_state_dict`,
+:func:`save_history`), so its run directories load back strictly. Reading
+the JAX package's flax ``.msgpack`` checkpoints is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from pathlib import Path
 from typing import Any, Dict, Mapping, Tuple, Union
@@ -90,3 +92,25 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any],
         put_dense(f"moment_net.fc_layers.{3 * i}", moment[f"TorchDense_{i}"])
     put_dense("moment_net.output_proj", moment["output_proj"])
     return sd
+
+
+def save_state_dict(path: Union[str, Path],
+                    state_dict: Mapping[str, torch.Tensor]) -> None:
+    """A reference-layout ``state_dict`` as a ``.pt`` file (CPU tensors),
+    written atomically (tmp + rename)."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save({k: v.detach().cpu().clone() for k, v in state_dict.items()},
+               tmp)
+    os.replace(tmp, path)
+
+
+def save_history(save_dir: Union[str, Path],
+                 history: Mapping[str, Any]) -> None:
+    """``history.npz`` (the per-epoch series and the ``phase`` labels),
+    written atomically."""
+    save_dir = Path(save_dir)
+    tmp = save_dir / "history.npz.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in history.items()})
+    os.replace(tmp, save_dir / "history.npz")

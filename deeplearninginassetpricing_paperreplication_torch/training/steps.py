@@ -1,0 +1,116 @@
+"""Per-phase train and eval steps with a scoped optimizer.
+
+The counterpart of the JAX package's ``training/steps.py``. Each phase
+differentiates only its trainable subtree; the frozen side gets
+``requires_grad_(False)``, so no gradient is computed for it (in phase 2
+the SDF-FFN backward kernel does not run). The update is the JAX
+package's optax chain, written out: clip by global norm (optax's formula:
+g stays as it is when ‖g‖ < clip, else g / ‖g‖ · clip — not
+``torch.nn.utils.clip_grad_norm_``'s 1 / (‖g‖ + 1e-6)), then Adam
+(b1 0.9, b2 0.999, eps 1e-8, optax's bias correction).
+
+Phase → (loss, trainable subtree):
+    unconditional → E[w·R·M]²,    sdf_net
+    moment        → −E[h·w·R·M]², moment_net
+    conditional   → E[h·w·R·M]²,  sdf_net
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from ..models.gan import GAN, Batch
+from ..ops.metrics import normalize_weights_abs, sharpe
+
+_TRAINABLE = {
+    "unconditional": "sdf_net",
+    "moment": "moment_net",
+    "conditional": "sdf_net",
+}
+
+
+def trainable_key(phase: str) -> str:
+    return _TRAINABLE[phase]
+
+
+def subtree_params(gan: GAN, key: str) -> List[torch.nn.Parameter]:
+    return list(getattr(gan.module, key).parameters())
+
+
+class Optimizer:
+    """clip-by-global-norm → Adam over one parameter subtree; the state (the
+    moments and the step count) lives on the same tensors across phases."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 grad_clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.grad_clip = lr, grad_clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Apply one update from `grads`; returns the pre-clip global norm."""
+        gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+        keep = gnorm < self.grad_clip
+        self.count += 1
+        dev = gnorm.device
+        bc1 = 1 - torch.tensor(self.b1, device=dev) ** self.count
+        bc2 = 1 - torch.tensor(self.b2, device=dev) ** self.count
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            g = torch.where(keep, g, g / gnorm * self.grad_clip)
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * g * g + self.b2 * nu)
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.add_(-self.lr * update)
+        return gnorm
+
+
+def set_trainable(gan: GAN, key: str) -> None:
+    """requires_grad on the phase's subtree only."""
+    for name, p in gan.module.named_parameters():
+        p.requires_grad_(name.startswith(key + "."))
+
+
+def train_step(gan: GAN, phase: str, opt: Optimizer, batch: Batch,
+               seed: Optional[int]) -> Dict[str, torch.Tensor]:
+    """One update of the phase's subtree; returns 0-d device tensors (the
+    caller syncs once per epoch)."""
+    set_trainable(gan, trainable_key(phase))
+    out = gan.forward(batch, phase=phase, seed=seed)
+    grads = torch.autograd.grad(out["loss"], opt.params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(opt.params, grads)]
+    grad_norm = opt.step(grads)
+    return {
+        "loss": out["loss"].detach(),
+        "loss_unc": out["loss_unconditional"].detach(),
+        "loss_cond": out["loss_conditional"].detach(),
+        "loss_residual": out["loss_residual"].detach(),
+        # guarded sharpe (0 when std < 1e-8), as the reference logs it
+        "sharpe": sharpe(out["portfolio_returns"].detach(), ddof=1),
+        "grad_norm": grad_norm,
+    }
+
+
+@torch.no_grad()
+def eval_step(gan: GAN, batch: Batch) -> Dict[str, torch.Tensor]:
+    """Dropout off: Sharpe (ddof 1) of the abs-sum-normalized weights'
+    portfolio, losses from a conditional-phase forward."""
+    out = gan.forward(batch, phase="conditional", seed=None)
+    nw = normalize_weights_abs(out["weights"], batch["mask"])
+    port = (nw * batch["returns"] * batch["mask"]).sum(dim=1)
+    return {
+        "loss": out["loss"],
+        "loss_unc": out["loss_unconditional"],
+        "loss_cond": out["loss_conditional"],
+        "sharpe": sharpe(port, ddof=1),
+        "mean_return": port.mean(),
+        "std_return": port.std(correction=0),
+        "portfolio_returns": port,
+    }

@@ -7,6 +7,9 @@ Checkpoint directories are interchangeable between the two packages.
 
 :class:`ExecutionConfig` is the port's own: which device, whether the SDF
 FFN runs in the CUDA kernel, and the kernel's operand dtype.
+
+:class:`TrainConfig` is the 3-phase schedule, field for field the JAX
+package's, with its validation.
 """
 
 from __future__ import annotations
@@ -192,3 +195,24 @@ class ExecutionConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError("compute_dtype must be float32|bfloat16: "
                              f"{self.compute_dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """3-phase training schedule (the reference CLI's defaults)."""
+
+    num_epochs_unc: int = 256
+    num_epochs_moment: int = 64
+    num_epochs: int = 1024
+    lr: float = 1e-3
+    grad_clip: float = 1.0
+    ignore_epoch: int = 64
+    seed: int = 42
+    print_freq: int = 128
+
+    def __post_init__(self):
+        for name in ("num_epochs_unc", "num_epochs_moment", "num_epochs"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        if self.lr <= 0:
+            raise ValueError("lr must be > 0")

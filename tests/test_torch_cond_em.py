@@ -1,0 +1,172 @@
+"""The PyTorch port's fused conditional-EM (ops/cond_em.py) against the JAX
+package's Pallas kernel in the interpreter.
+
+The same numpy-seeded inputs go through the JAX ``fused_conditional_em``
+(``interpret=True``, ragged N against a 16-stock block) and its gradient
+(``jax.grad``), and through the port's plain versions, which a CPU tensor
+runs. The CUDA kernels run only on the card: the test that launches them is
+marked ``cuda`` and skips without one.
+
+Tolerances: f32 within 1e-4·max|ref| (only the summation order differs);
+bf16 within 2e-2·max|ref| (both round the operands of the products to bf16,
+so a flip of one rounding after another summation order is what remains).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearninginassetpricing_paperreplication_torch.ops import cond_em as C
+from deeplearninginassetpricing_paperreplication_tpu.ops.pallas_moment import (
+    fused_conditional_em,
+)
+
+T, F, N, K = 6, 5, 37, 4
+REL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _inputs(seed=0, S=None):
+    rng = np.random.default_rng(seed)
+    lead = () if S is None else (S,)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    x = f32(rng.standard_normal((T, F, N)))
+    zpm = f32(0.3 * rng.standard_normal(lead + (T, K)))
+    xr = f32(0.2 * rng.standard_normal(lead + (T, N)))
+    tinv = f32(1.0 / rng.integers(1, T + 1, N))
+    ks = f32(rng.standard_normal(lead + (F, K)) / np.sqrt(F))
+    g = f32(rng.standard_normal(lead + (K, N)))
+    return x, zpm, xr, tinv, ks, g
+
+
+def _close(a, ref, cd, what):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(np.asarray(a), ref,
+                               atol=REL[cd] * np.abs(ref).max(), rtol=0,
+                               err_msg=what)
+
+
+def _jax_em(cd):
+    def em(x, zpm, xr, tinv, ks):
+        return fused_conditional_em(x, zpm, xr, tinv, ks, block_stocks=16,
+                                    interpret=True, compute_dtype=cd)
+    return em
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_forward_and_backward_match_jax(cd):
+    x, zpm, xr, tinv, ks, g = _inputs()
+    jem = _jax_em(cd)
+    j = [jnp.asarray(a) for a in (x, zpm, xr, tinv, ks)]
+    em_j = jem(*j)
+    grads_j = jax.grad(lambda zpm, xr, tinv, ks: jnp.sum(
+        jem(j[0], zpm, xr, tinv, ks) * g), argnums=(0, 1, 2, 3))(*j[1:])
+    t = [torch.from_numpy(a).requires_grad_(i > 0)
+         for i, a in enumerate((x, zpm, xr, tinv, ks))]
+    em = C.fused_conditional_em(*t, compute_dtype=cd)
+    assert em.shape == (K, N)
+    _close(em.detach(), em_j, cd, "em")
+    grads = torch.autograd.grad((em * torch.from_numpy(g)).sum(), t[1:])
+    for name, a, b in zip(("dzp_m", "dxr", "dtinv", "dk_stock"), grads,
+                          grads_j):
+        _close(a, b, cd, name)
+
+
+def test_member_axis_matches_jax_vmap():
+    """S = 3 members over one panel against the JAX call vmapped over
+    members (its batching rule runs the member-fused kernels)."""
+    S = 3
+    x, zpm, xr, tinv, ks, g = _inputs(1, S=S)
+    jem = _jax_em("float32")
+
+    def loss(zpm, xr, ks):
+        return jnp.sum(jax.vmap(lambda a, b, c: jem(jnp.asarray(x), a, b,
+                                                     jnp.asarray(tinv), c))(
+            zpm, xr, ks) * g)
+
+    j = [jnp.asarray(a) for a in (zpm, xr, ks)]
+    em_j = jax.vmap(lambda a, b, c: jem(jnp.asarray(x), a, b,
+                                        jnp.asarray(tinv), c))(*j)
+    grads_j = jax.grad(loss, argnums=(0, 1, 2))(*j)
+    t = [torch.from_numpy(a).requires_grad_() for a in (zpm, xr, ks)]
+    em = C.fused_conditional_em(torch.from_numpy(x), t[0], t[1],
+                                torch.from_numpy(tinv), t[2],
+                                compute_dtype="float32")
+    assert em.shape == (S, K, N)
+    _close(em.detach(), em_j, "float32", "em")
+    grads = torch.autograd.grad((em * torch.from_numpy(g)).sum(), t)
+    for name, a, b in zip(("dzp_m", "dxr", "dk_stock"), grads, grads_j):
+        _close(a, b, "float32", name)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_plain_backward_is_autograd_of_plain_forward(cd):
+    """The plain backward (the bwd kernel's yardstick) against torch
+    autograd through the plain forward; in bf16 autograd also rounds the
+    backward's operands differently, so only f32 is exact to 1e-5."""
+    S = 2
+    x, zpm, xr, tinv, ks, g = _inputs(2, S=S)
+    kT = torch.from_numpy(np.swapaxes(ks, 1, 2).copy())
+    t = [torch.from_numpy(a).requires_grad_() for a in (zpm, xr)]
+    kT.requires_grad_()
+    gem = torch.from_numpy(g)
+    em = C.cond_em_reference(torch.from_numpy(x), t[0], t[1],
+                             torch.from_numpy(tinv), kT, cd)
+    auto = torch.autograd.grad((em * gem).sum(), [kT, t[0], t[1]])
+    plain = C.cond_em_bwd_reference(torch.from_numpy(x), t[0].detach(),
+                                    t[1].detach(), torch.from_numpy(tinv),
+                                    kT.detach(), gem, cd)
+    rel = 1e-5 if cd == "float32" else REL[cd]
+    for a, b in zip(plain, auto):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=rel * b.abs().max().item())
+
+
+def test_routes_and_refusals():
+    x, zpm, xr, tinv, ks, _ = _inputs(3)
+    args = [torch.from_numpy(a) for a in (x, zpm, xr, tinv, ks)]
+    before = (C.fwd_launches, C.bwd_launches)
+    a = C.fused_conditional_em(*args, kernel="auto")
+    b = C.fused_conditional_em(*args, kernel="off")
+    torch.testing.assert_close(a, b)
+    assert (C.fwd_launches, C.bwd_launches) == before  # CPU: never a kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        C.fused_conditional_em(*args, kernel="on")
+    xg = args[0].clone().requires_grad_()
+    em = C.fused_conditional_em(xg, *args[1:])
+    with pytest.raises(NotImplementedError, match="row 8"):
+        em.sum().backward()
+    # bound bookkeeping at the training shape: the panel read dominates
+    assert C.fwd_bytes_moved(1, 48, 10000, 46, 8) > 4 * 48 * 46 * 10000
+    assert C.bwd_flops(1, 48, 10000, 46, 8) == 2 * 48 * 10000 * 8 * 94
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """cond_em_fwd / cond_em_bwd against their plain versions, and two
+    backward calls bitwise-equal (needs a card + nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for S, Tn, Nn in ((1, 48, 10000), (3, 7, 1001)):
+        x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
+        zpm = torch.randn(S, Tn, 8, generator=g, device=dev) * 0.3
+        xr = torch.randn(S, Tn, Nn, generator=g, device=dev) * 0.1
+        tinv = 1.0 / torch.randint(1, Tn + 1, (Nn,), generator=g,
+                                   device=dev).float()
+        kT = torch.randn(S, 8, 46, generator=g, device=dev) * 0.15
+        gem = torch.randn(S, 8, Nn, generator=g, device=dev)
+        for cd in ("float32", "bfloat16"):
+            em = C._launch_fwd(x, zpm, xr, tinv, kT, cd)
+            ref = C.cond_em_reference(x, zpm, xr, tinv, kT, cd)
+            torch.testing.assert_close(em, ref, rtol=0,
+                                       atol=REL[cd] * ref.abs().max().item())
+            outs = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+            again = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+            assert all(torch.equal(a, b) for a, b in zip(outs, again))
+            for a, b in zip(outs, C.cond_em_bwd_reference(
+                    x, zpm, xr, tinv, kT, gem, cd)):
+                torch.testing.assert_close(
+                    a, b, rtol=0, atol=REL[cd] * b.abs().max().item())

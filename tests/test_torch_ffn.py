@@ -2,16 +2,24 @@
 package's Pallas kernel.
 
 The same numpy-seeded inputs go through the JAX ``fused_sdf_ffn`` in the
-Pallas interpreter and through the port's plain version, which is what a
-CPU tensor runs. The CUDA kernel itself runs only on the card: the
-packed-parameter layout it reads is emulated here in numpy, and the test
-that launches it is marked ``cuda`` and skips without a card.
+Pallas interpreter (and ``jax.grad`` of it) and through the port's plain
+versions, which is what a CPU tensor runs. The CUDA kernels themselves run
+only on the card: the packed-parameter layout they read is emulated here in
+numpy, and the tests that launch them are marked ``cuda`` and skip without
+a card.
 
 Tolerances: f32 weights within atol 2e-5 (the repo's weight parity bar;
 only the summation order differs). bf16 within 1e-3·max|w|: both sides
 round the operands of every product to bf16 the same way and accumulate in
 f32, so only a rounding flip of an activation after a different summation
-order (one bf16 ulp, 2⁻⁸ relative) can separate them.
+order (one bf16 ulp, 2⁻⁸ relative) can separate them. Gradients: f32
+within 1e-4·max|ref|, bf16 within 2e-2·max|ref| (a flipped rounding feeds
+the sums of many products).
+
+Dropout is not compared with JAX (its masks come from the TPU's PRNG,
+which the interpreter does not run): the port's masks are held by their
+keep share, their unbiasedness, their independence of the stock count, and
+by the backward against autograd of the forward with the same seed.
 """
 
 import jax
@@ -165,8 +173,13 @@ def test_wrapper_routes_and_refusals():
             K.sdf_ffn_packed(x, zp, packed, kernel=kernel), plain)
     with pytest.raises(ValueError, match="CUDA"):
         K.sdf_ffn_packed(x, zp, packed, kernel="on")
+    # training-mode dropout: the plain route draws the kernels' masks
+    dropped = K.sdf_ffn_packed(x, zp, packed, dropout_rate=0.05, seed=9)
+    torch.testing.assert_close(dropped, K.sdf_ffn_reference(
+        x, zp, k1T, mids, kout, bout, "float32", 9, 0.05))
+    assert not torch.equal(dropped, plain)
     with pytest.raises(ValueError, match="dropout"):
-        K.sdf_ffn_packed(x, zp, packed, dropout_rate=0.05)
+        K.sdf_ffn(x, zp, k1T, mids, kout, bout, dropout_rate=1.0)
     with pytest.raises(ValueError, match="compute_dtype"):
         K.pack_ffn(k1T, mids, kout, bout, "float16")
     assert K.width_bound((64, 64)) == 64 and K.width_bound((8,)) == 32
@@ -175,6 +188,189 @@ def test_wrapper_routes_and_refusals():
     # bound bookkeeping: 2·(F·H1 + H1·H2 + H2) per (member, period, stock)
     assert K.flops(3, 4, 16384, 46, (64, 64)) == 2 * (
         46 * 64 + 64 * 64 + 64) * 3 * 4 * 16384
+
+
+def _jax_grads(x, zp, k1, mids, ko, bo, g, cd):
+    """jax.grad of Σ g·w through the interpreted Pallas kernel."""
+    def loss(zp, k1, mids, ko, bo):
+        return jnp.sum(_jax_ffn(jnp.asarray(x), zp, k1, mids, ko, bo, cd)
+                       * g)
+    return jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        jnp.asarray(zp), jnp.asarray(k1),
+        [(jnp.asarray(a), jnp.asarray(b)) for a, b in mids],
+        jnp.asarray(ko), jnp.asarray(bo))
+
+
+def _port_grads(x, args, g, cd, S):
+    """sdf_ffn_bwd_reference in the JAX layout (member axis kept)."""
+    zp, k1T, mids, kout, _ = args
+    dzp, dk1T, dmids, dkout, dbout = K.sdf_ffn_bwd_reference(
+        torch.from_numpy(x), zp, k1T, mids, kout,
+        torch.from_numpy(g).reshape(S, T, N), cd)
+    return (dzp, dk1T.transpose(1, 2),
+            [(dW.transpose(1, 2), db) for dW, db in dmids],
+            dkout[..., None], dbout[:, None])
+
+
+def _close_grads(port, ref, cd, squeeze):
+    rel = 1e-4 if cd == "float32" else 2e-2
+    flat_p = [port[0], port[1]] + [t for wb in port[2] for t in wb] + [
+        port[3], port[4]]
+    flat_r = [ref[0], ref[1]] + [t for wb in ref[2] for t in wb] + [
+        ref[3], ref[4]]
+    for i, (p, r) in enumerate(zip(flat_p, flat_r)):
+        p = p.numpy()[0] if squeeze else p.numpy()
+        r = np.asarray(r)
+        np.testing.assert_allclose(p, r, rtol=0,
+                                   atol=rel * np.abs(r).max() + 1e-12,
+                                   err_msg=f"gradient {i}")
+
+
+@pytest.mark.parametrize("cd,hidden", [
+    ("float32", (8, 8)), ("float32", (8, 8, 8)), ("bfloat16", (8, 8)),
+    ("bfloat16", (8, 8, 8))])
+def test_bwd_reference_matches_jax_grad(cd, hidden):
+    """The backward's plain version against jax.grad of the JAX kernel
+    (ragged N: the second 16-stock block holds 5)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((T, F, N)).astype(np.float32)
+    zp, k1, mids, ko, bo = _params(rng, hidden)
+    g = rng.standard_normal((T, N)).astype(np.float32)
+    ref = _jax_grads(x, zp, k1, mids, ko, bo, g, cd)
+    args = _port_args(zp[None], k1[None],
+                      [(a[None], b[None]) for a, b in mids], ko[None],
+                      bo[None])
+    _close_grads(_port_grads(x, args, g, cd, 1), ref, cd, squeeze=True)
+
+
+def test_bwd_member_axis_matches_jax_vmap_grad():
+    S, hidden = 3, (8, 8)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((T, F, N)).astype(np.float32)
+    zp, k1, mids, ko, bo = _params(rng, hidden, S=S)
+    g = rng.standard_normal((S, T, N)).astype(np.float32)
+
+    def one(zp_, k1_, mids_, ko_, bo_, g_):
+        return jax.grad(lambda *p: jnp.sum(_jax_ffn(
+            jnp.asarray(x), *p, "float32") * g_), argnums=(0, 1, 2, 3, 4))(
+            zp_, k1_, mids_, ko_, bo_)
+
+    ref = jax.vmap(one)(jnp.asarray(zp), jnp.asarray(k1),
+                        [(jnp.asarray(a), jnp.asarray(b)) for a, b in mids],
+                        jnp.asarray(ko), jnp.asarray(bo), jnp.asarray(g))
+    args = _port_args(zp, k1, mids, ko, bo)
+    _close_grads(_port_grads(x, args, g, "float32", S), ref, "float32",
+                 squeeze=False)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_bwd_reference_is_autograd_of_the_forward(rate):
+    """With dropout on and one seed, the plain backward regenerates the
+    forward's masks: it equals torch autograd through the plain forward
+    (f32, three members, a ragged mid stack)."""
+    S, hidden = 3, (7, 5, 3)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((T, F, N)).astype(np.float32))
+    zp, k1T, mids, kout, bout = _port_args(*_params(rng, hidden, S=S))
+    params = [zp, k1T, kout, bout] + [t for wb in mids for t in wb]
+    for p in params:
+        p.requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((S, T, N)).astype(np.float32))
+    out = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, "float32", 21,
+                              rate)
+    auto = torch.autograd.grad((out * g).sum(), params)
+    dzp, dk1T, dmids, dkout, dbout = K.sdf_ffn_bwd_reference(
+        x, zp.detach(), k1T.detach(), [(w.detach(), b.detach())
+                                       for w, b in mids],
+        kout.detach(), g, "float32", 21, rate)
+    got = [dzp, dk1T, dkout, dbout] + [t for wb in dmids for t in wb]
+    for a, b in zip(got, auto):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # the differentiable entry takes the same route on a CPU tensor
+    out2 = K.sdf_ffn(x, zp, k1T, mids, kout, bout, seed=21,
+                     dropout_rate=rate, compute_dtype="float32")
+    for a, b in zip(torch.autograd.grad((out2 * g).sum(), params), auto):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_dropout_keep_share_and_tiling_independence():
+    keep = K.dropout_keep(seed=3, rate=0.05, layer=1, S=2, T=8, H=64, N=1000)
+    share = keep.float().mean().item()  # 1,024,000 units: σ ≈ 2e-4
+    assert abs(share - 0.95) < 2e-3
+    # a unit's bit depends on (seed, s, t, n, layer, j) only: not on N
+    wider = K.dropout_keep(seed=3, rate=0.05, layer=1, S=2, T=8, H=64,
+                           N=1500)
+    assert torch.equal(keep, wider[..., :1000])
+    assert not torch.equal(keep, K.dropout_keep(4, 0.05, 1, 2, 8, 64, 1000))
+    assert not torch.equal(keep, K.dropout_keep(3, 0.05, 0, 2, 8, 64, 1000))
+    threshold, scale = K.dropout_params(0.05)
+    assert threshold == round(0.05 * 2 ** 32)
+    assert scale == pytest.approx(1 / 0.95, rel=1e-7)
+
+
+def test_dropout_is_unbiased():
+    """Inverted dropout: the mean output over seeds approaches the
+    no-dropout output (inputs positive, so every ReLU is active)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(np.abs(rng.standard_normal((4, 3, 64))).astype(
+        np.float32))
+    zp = torch.ones(1, 4, 16)
+    k1T = torch.from_numpy(np.abs(rng.standard_normal((1, 16, 3))).astype(
+        np.float32))
+    kout, bout = torch.ones(1, 16), torch.zeros(1)
+    det = K.sdf_ffn_reference(x, zp, k1T, [], kout, bout)
+    runs = torch.stack([K.sdf_ffn_reference(x, zp, k1T, [], kout, bout,
+                                            "float32", s, 0.3)
+                        for s in range(40)])
+    ratio = (runs.mean(0).sum() / det.sum()).item()
+    assert abs(ratio - 1.0) < 0.02
+    assert ((runs == 0) | (runs > 0)).all()
+
+
+def test_panel_gradient_is_refused():
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((T, F, N)).astype(
+        np.float32)).requires_grad_()
+    zp, k1T, mids, kout, bout = _port_args(*_params(rng, (8, 8), S=1))
+    out = K.sdf_ffn(x, zp, k1T, mids, kout, bout)
+    with pytest.raises(NotImplementedError, match="row 4"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_matches_reference_on_card():
+    """sdf_ffn_bwd against sdf_ffn_bwd_reference with dropout, and two
+    calls bitwise-equal (needs a card + nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    for S, Tn, Nn, hidden in ((1, 48, 10000, (64, 64)),
+                              (2, 3, 1001, (8, 7, 6))):
+        x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
+        zp = torch.randn(S, Tn, hidden[0], generator=g, device=dev)
+        k1T = torch.randn(S, hidden[0], 46, generator=g, device=dev) * 0.15
+        mids = [(torch.randn(S, b, a, generator=g, device=dev) * a ** -0.5,
+                 torch.randn(S, b, generator=g, device=dev) * 0.1)
+                for a, b in zip(hidden, hidden[1:])]
+        kout = torch.randn(S, hidden[-1], generator=g, device=dev) * 0.1
+        bout = torch.randn(S, generator=g, device=dev) * 0.1
+        gout = torch.randn(S, Tn, Nn, generator=g, device=dev)
+        for cd in ("float32", "bfloat16"):
+            packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+            grads, dzp = K._launch_bwd(x, zp, packed, gout, 5, 0.05)
+            again = K._launch_bwd(x, zp, packed, gout, 5, 0.05)
+            assert torch.equal(grads, again[0]) and torch.equal(dzp, again[1])
+            dk1T, dmids, dkout, dbout = K.unpack_grads(grads, packed.layout)
+            ref = K.sdf_ffn_bwd_reference(x, zp, k1T, mids, kout, gout, cd,
+                                          5, 0.05)
+            got = [dzp, dk1T, dkout, dbout] + [t for wb in dmids for t in wb]
+            want = [ref[0], ref[1], ref[3], ref[4]] + [
+                t for wb in ref[2] for t in wb]
+            rel = 1e-4 if cd == "float32" else 2e-2
+            for a, b in zip(got, want):
+                torch.testing.assert_close(
+                    a, b, rtol=0, atol=rel * b.abs().max().item())
 
 
 @pytest.mark.cuda

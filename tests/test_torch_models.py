@@ -170,10 +170,46 @@ def test_init_params_is_seeded_and_bounded():
     assert w.abs().max() <= cfg.sdf_input_dim ** -0.5
 
 
-def test_training_mode_dropout_is_refused():
+def test_training_mode_dropout_draws_from_the_seed():
+    """Training mode is a dropout seed (the JAX package's rng), not the
+    module flag: with a seed the SDF net drops units reproducibly; without
+    one, even a module in .train() runs the eval forward."""
     cfg = GANConfig(macro_feature_dim=3, individual_feature_dim=5,
                     hidden_dim=(8,), dropout=0.05)
     module = AssetPricingModule(cfg).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        module.sdf_net(torch.zeros(4, 3), torch.zeros(4, 6, 5),
-                       torch.ones(4, 6))
+    init_params(module, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(0)
+    macro = torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+    indiv = torch.from_numpy(rng.standard_normal((4, 60, 5)).astype(
+        np.float32))
+    mask = torch.ones(4, 60)
+    a = module.sdf_net(macro, indiv, mask, seed=5)
+    b = module.sdf_net(macro, indiv, mask, seed=5)
+    c = module.sdf_net(macro, indiv, mask, seed=6)
+    ev = module.sdf_net(macro, indiv, mask)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c) and not torch.equal(a, ev)
+    torch.testing.assert_close(ev, module.eval().sdf_net(macro, indiv, mask))
+
+
+def test_moment_output_params_split_matches_jax(splits):
+    """The moment net's output layer split [macro, individual], as the
+    JAX package's moment_output_params reads it."""
+    from deeplearninginassetpricing_paperreplication_torch.models.networks \
+        import moment_output_params
+    from deeplearninginassetpricing_paperreplication_tpu.models.networks \
+        import moment_output_params as jmop
+
+    _, _, test = splits
+    kw = dict(macro_feature_dim=test.macro_feature_dim,
+              individual_feature_dim=test.individual_feature_dim,
+              hidden_dim=(8,), dropout=0.0)
+    jgan = JGAN(JGANConfig(**kw))
+    params = jgan.init(jax.random.key(4))
+    cfg = GANConfig(**kw)
+    gan = GAN.from_state_dict(
+        cfg, state_dict_from_jax_params(jax.device_get(params), cfg),
+        CPU_F32)
+    for a, b in zip(moment_output_params(gan.module, cfg),
+                    jmop(params, JGANConfig(**kw))):
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))

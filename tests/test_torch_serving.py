@@ -217,16 +217,18 @@ def test_http_round_trip(run_dirs, splits):
         thread.join(timeout=10)
 
 
-@pytest.mark.parametrize("module,extra", [
-    ("serving.server", []),
-    ("evaluate_ensemble", ["--data_dir", "data/synthetic_demo"]),
+@pytest.mark.parametrize("module,args", [
+    ("serving.server", ["--checkpoint_dirs", "ref_runs/small120x500"]),
+    ("evaluate_ensemble", ["--checkpoint_dirs", "ref_runs/small120x500",
+                           "--data_dir", "data/synthetic_demo"]),
+    ("train", ["--data_dir", "data/synthetic_demo", "--save_dir",
+               "_cli_default_device_run", "--epochs_unc", "1"]),
 ])
-def test_cli_defaults_to_cuda_and_names_it(module, extra):
+def test_cli_defaults_to_cuda_and_names_it(module, args):
     """Without --device cpu, a host with no CUDA device is an error that
-    names CUDA — never a quiet run on the CPU."""
+    names CUDA — never a quiet run (or training) on the CPU."""
     proc = subprocess.run(
-        [sys.executable, "-m", f"{PKG}.{module}", "--checkpoint_dirs",
-         "ref_runs/small120x500", *extra],
+        [sys.executable, "-m", f"{PKG}.{module}", *args],
         capture_output=True, text=True, timeout=120)
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
