@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # the check (one card)
     python3 chip_smoke.py --profile   # also: torch.profiler over the engine
-                                      # and over training epochs
+                                      # and over training and ensemble
+                                      # epochs
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -11,9 +12,11 @@ Phases, each printing its results; any failure exits non-zero:
 2. Build: every kernel of the port from this checkout's sources (``nvcc``,
    sm_90a, one process per library, all started together): the SDF-FFN
    forward and backward for each width bound, and the conditional-EM.
-3. Kernels against their plain PyTorch versions on the card, at the serving
-   and training paths' shapes, with CUDA-event timings, bounds, the
-   dropout keep share, and bitwise-repeatable gradients.
+3. Kernels against their plain PyTorch versions on the card, at the serving,
+   training and ensemble-training paths' shapes (S = 9 with one dropout
+   seed per member), with CUDA-event timings, bounds, the dropout keep
+   share, and bitwise-repeatable gradients; then the bounds of the TPU
+   kernels not ported yet, from their shapes.
 4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
    N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
    reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served over
@@ -28,6 +31,14 @@ Phases, each printing its results; any failure exits non-zero:
    against ``kernel="off"`` in f32, with every kernel's launches counted
    per phase; then the ``train`` CLI in its default bf16 configuration,
    and the port's ``evaluate_ensemble`` on the run dir it wrote.
+7. Ensemble training at full width on the same panel: the paper's nine
+   seeds trained together, members stacked (``train_ensemble``, f32,
+   dropout 0.05, schedule 8/4/16, ignore 2). Every epoch launches each
+   kernel exactly as one model does, every launch carries all 9 members;
+   the kernel route is held against ``kernel="off"`` and each member
+   against its own serial ``train_3phase``; then ``evaluate_ensemble
+   --train_seeds`` (bf16) and ``--checkpoint_dirs`` on what it wrote must
+   report the same test Sharpe.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -56,6 +67,10 @@ DEVICE = "cuda"
 PANEL = dict(n_periods_train=48, n_periods_valid=12, n_periods_test=24,
              n_stocks=10_000, n_features=46, n_macro=178, seed=42)
 RUN_DIR = ROOT / "_smoke_run"
+ENS_DIR = ROOT / "_smoke_ensemble"
+# the paper's nine seeds (the JAX package's train_ensemble default)
+ENSEMBLE_SEEDS = (42, 123, 456, 789, 1000, 2000, 3000, 4000, 5000)
+ENSEMBLE_CLI_SEEDS = (42, 123, 456)
 SCHEDULE = dict(num_epochs_unc=8, num_epochs_moment=4, num_epochs=16,
                 ignore_epoch=2)
 # expected launches per epoch: (sdf_ffn_fwd, sdf_ffn_bwd, cond_em_fwd,
@@ -66,11 +81,14 @@ DROPOUT = 0.05
 # kernel-check shapes: (S, T, N) of the FFN backward, (S, N) of the
 # conditional-EM at T = 48, and the keep-share panel (T, N)
 BWD_SHAPES = [(S, T, N) for S in (1, 3)
-              for T, N in ((4, 16384), (48, 10000), (48, 10007))]
-CEM_SHAPES = [(S, N) for S in (1, 3) for N in (10000, 10007)]
+              for T, N in ((4, 16384), (48, 10000), (48, 10007))] + [
+                  (9, 48, 10000)]
+CEM_SHAPES = [(S, N) for S in (1, 3) for N in (10000, 10007)] + [(9, 10000)]
 CEM_T = 48
 KEEP_SHAPE = (48, 10_000)
 BWD_ROW, CEM_ROW = (1, 48, 10000), (1, 10000)  # the training path's shapes
+# the ensemble training path's shapes: all nine members in one launch
+ENS_BWD_ROW, ENS_CEM_ROW = (9, 48, 10000), (9, 10000)
 
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of bytes / memory rate and operations / peak rate
@@ -131,6 +149,20 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_events(prof):
+    """The profile's device-side events (kernels, copies), by device time,
+    and the device's busy ms. Host-side events (autograd Functions, aten
+    ops) carry the device time of what they launched, so summing them too
+    would count every kernel twice."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    return evs, sum(e.self_device_time_total for e in evs) / 1e3
 
 
 def within(diff: np.ndarray, ref: np.ndarray, dtype: str, rtol: float,
@@ -238,31 +270,42 @@ def dropout_keep_share(torch, K, card):
           f" keep share over {T * N * H:,} units per layer: "
           f"{shares[0]:.5f} (layer 0), {shares[1]:.5f} (layer 1) ({card})",
           flush=True)
-    # the training step's forward: the paper's widths, one member
-    g = torch.Generator(device=dev).manual_seed(3)
-    zp1, k1T, mids, kout, bout = _ffn_params(torch, g, 1, F, [H, H], dev)
-    zp = zp1.expand(1, T, H).contiguous()
-    for cd in ("float32", "bfloat16"):
-        packed = K.pack_ffn(k1T, mids, kout, bout, cd)
-        for rate in (0.0, DROPOUT):
-            w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate, seed=5)
-            ref = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, cd, 5,
-                                      rate)
-            err = rel_err(w, ref)
-            check(err <= (1e-5 if cd == "float32" else BF16_REL),
-                  f"sdf_ffn_fwd at the training shape, {cd} dropout {rate}:"
-                  f" max|d|/max|ref| {err:.3e}")
-            ms = cuda_ms(torch, lambda: K.sdf_ffn_packed(
-                x, zp, packed, dropout_rate=rate, seed=5))
-            plain_ms = cuda_ms(torch, lambda: K.sdf_ffn_reference(
-                x, zp, k1T, mids, kout, bout, cd, 5, rate), reps=10)
-            b_ms, b_by = bound(K.flops(1, T, N, F, [H, H]),
-                               K.bytes_moved(1, T, N, F, [H, H]), cd)
-            print(f"[kernels] fwd S=1 T={T} N={N} {cd:8s} drop {rate:.2f} "
-                  f"max|d|/max|ref| {err:.2e}  kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
-    return shares
+    # the training step's forward: the paper's widths, one member, then
+    # the ensemble's nine members with one dropout seed each
+    ens_row = None
+    for S in (1, 9):
+        g = torch.Generator(device=dev).manual_seed(3)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, [H, H], dev)
+        zp = zp1.expand(S, T, H).contiguous()
+        seed = 5 if S == 1 else list(range(5, 5 + S))
+        for cd in ("float32", "bfloat16"):
+            packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+            for rate in (0.0, DROPOUT):
+                w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate,
+                                     seed=seed)
+                ref = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, cd,
+                                          seed, rate)
+                err = rel_err(w, ref)
+                check(err <= (1e-5 if cd == "float32" else BF16_REL),
+                      f"sdf_ffn_fwd at the training shape S={S}, {cd} "
+                      f"dropout {rate}: max|d|/max|ref| {err:.3e}")
+                ms = cuda_ms(torch, lambda: K.sdf_ffn_packed(
+                    x, zp, packed, dropout_rate=rate, seed=seed))
+                plain_ms = cuda_ms(torch, lambda: K.sdf_ffn_reference(
+                    x, zp, k1T, mids, kout, bout, cd, seed, rate), reps=10)
+                b_ms, b_by = bound(K.flops(S, T, N, F, [H, H]),
+                                   K.bytes_moved(S, T, N, F, [H, H]), cd)
+                print(f"[kernels] fwd S={S} T={T} N={N} {cd:8s} drop "
+                      f"{rate:.2f} max|d|/max|ref| {err:.2e}  kernel "
+                      f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                      f"{b_ms:.4f} ms ({b_by})", flush=True)
+                if (S, cd, rate) == (9, "float32", DROPOUT):
+                    ens_row = dict(
+                        max_abs_err=float((w - ref).abs().max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        shape=f"S=9 T={T} N={N} F={F} hidden={[H, H]} "
+                              f"float32 dropout {DROPOUT}")
+    return shares, ens_row
 
 
 def _ffn_params(torch, g, S, F, hidden, dev):
@@ -284,7 +327,7 @@ def ffn_bwd_checks(torch, K, card):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
     F, hidden = 46, [64, 64]
-    row = None
+    row, ens_row = None, None
     names = ["dzp", "dk1T", "dW2", "db2", "dkout", "dbout"]
     print(f"[kernels] sdf_ffn_bwd vs sdf_ffn_bwd_reference, F={F} "
           f"hidden={hidden} ({card})", flush=True)
@@ -295,11 +338,13 @@ def ffn_bwd_checks(torch, K, card):
         zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
                                 device=dev) * 0.3).contiguous()
         gout = torch.randn(S, T, N, generator=g, device=dev) / N
+        # one dropout seed per member, as the ensemble trains
+        seed = 7 if S == 1 else list(range(7, 7 + S))
         for cd in ("float32", "bfloat16"):
             packed = K.pack_ffn(k1T, mids, kout, bout, cd)
             for rate in (0.0, DROPOUT):
                 def kern():
-                    return K._launch_bwd(x, zp, packed, gout, 7, rate)
+                    return K._launch_bwd(x, zp, packed, gout, seed, rate)
                 grads, dzp = kern()
                 grads2, dzp2 = kern()
                 torch.cuda.synchronize()
@@ -314,7 +359,7 @@ def ffn_bwd_checks(torch, K, card):
 
                 def plain():
                     return K.sdf_ffn_bwd_reference(
-                        x, zp, k1T, mids, kout, gout, cd, 7, rate)
+                        x, zp, k1T, mids, kout, gout, cd, seed, rate)
                 r = plain()
                 refs = [r[0], r[1], r[2][0][0], r[2][0][1], r[3], r[4]]
                 errs = [rel_err(o, q) for o, q in zip(outs, refs)]
@@ -339,14 +384,18 @@ def ffn_bwd_checks(torch, K, card):
                       f" ({names[worst]})  kernel {ms:.4f} ms  plain "
                       f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
                       f"  bitwise-repeatable", flush=True)
-                if ((S, T, N), cd, rate) == (BWD_ROW, "float32", DROPOUT):
-                    row = dict(max_abs_err=abs_err, ms=ms,
-                               plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by,
-                               shape=f"S={S} T={T} N={N} F={F} "
-                                     f"hidden={hidden} float32 dropout "
-                                     f"{DROPOUT}")
-    return row
+                if cd == "float32" and rate == DROPOUT and (S, T, N) in (
+                        BWD_ROW, ENS_BWD_ROW):
+                    r = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             shape=f"S={S} T={T} N={N} F={F} "
+                                   f"hidden={hidden} float32 dropout "
+                                   f"{DROPOUT}")
+                    if (S, T, N) == BWD_ROW:
+                        row = r
+                    else:
+                        ens_row = r
+    return row, ens_row
 
 
 def cond_em_checks(torch, C, card):
@@ -406,14 +455,51 @@ def cond_em_checks(torch, C, card):
                   f"{max(errs):.2e} kernel {t['bwd'][0]:.4f} ms plain "
                   f"{t['bwd'][1]:.4f} ms bound {t['bwd'][2][0]:.4f} ms "
                   f"({t['bwd'][2][1]}) bitwise-repeatable", flush=True)
-            if ((S, N), cd) == (CEM_ROW, "float32"):
+            if cd == "float32" and (S, N) in (CEM_ROW, ENS_CEM_ROW):
                 for k, (ms, plain_ms, (b_ms, b_by), err) in t.items():
-                    rows[k] = dict(max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by,
-                                   shape=f"S={S} T={T} N={N} F={F} "
-                                         f"K={Kn} float32")
+                    key = k if (S, N) == CEM_ROW else "ensemble_" + k
+                    rows[key] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by,
+                                     shape=f"S={S} T={T} N={N} F={F} "
+                                           f"K={Kn} float32")
     return rows
+
+
+def unported_bounds(card):
+    """The bounds of the TPU kernels not ported yet, from the JAX kernels'
+    shapes (no kernel runs): the panel cotangents at the training shape
+    (rows 4 and 8) and the matmul-ceiling microbench (row 11)."""
+    T, F, N, H, Kn = 48, 46, 10_000, 64, 8
+    rows = T * N
+    # row 4, pallas_ffn._dx_kernel: recompute the forward, propagate dh
+    # down to the panel; reads x, g, zp and the weights, writes dx f32
+    ffn_ops = 2 * rows * (2 * F * H + 2 * H * H + 2 * H)
+    ffn_bytes = 4 * (2 * T * F * N + T * N + T * H + F * H + H * H + 2 * H)
+    # row 8, pallas_moment._dx_kernel: recompute tanh moments, dx = kT·dpre;
+    # reads x, zp_m, xr, tinv, kT, gem, writes dx f32
+    cem_ops = 2 * rows * (2 * Kn * F + 3 * Kn)
+    cem_bytes = 4 * (2 * T * F * N + T * Kn + T * N + N + Kn * F + Kn * N)
+    # row 11, microbench._ceiling_kernel: acc += w[s] @ x, VMEM-resident
+    # (no memory traffic), MODEL_MATMUL_SHAPES at its defaults
+    shapes, bn, members, reps, steps = ((64, 46), (64, 64), (8, 224),
+                                        (128, 128)), 2048, 9, 8, 64
+    ceil_ops = sum(2 * m * k * bn * members * reps * steps for m, k in shapes)
+    out = {}
+    for row, name, ops, nbytes, dtypes in (
+            (4, "pallas_ffn.py:300 _dx_kernel", ffn_ops, ffn_bytes,
+             ("float32", "bfloat16")),
+            (8, "pallas_moment.py:134 _dx_kernel", cem_ops, cem_bytes,
+             ("float32", "bfloat16")),
+            (11, "microbench.py:35 _ceiling_kernel", ceil_ops, 0,
+             ("bfloat16",))):
+        for dt in dtypes:
+            b_ms, b_by = bound(ops, nbytes, dt)
+            out[(row, dt)] = (b_ms, b_by)
+            print(f"[bounds] row {row} {name} (not ported) {dt}: "
+                  f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
+                  f"{b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+    return out
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -571,19 +657,13 @@ def profile_engine(torch, service, reqs, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_time(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    evs = [e for e in prof.key_averages() if dev_time(e) > 0]
-    evs.sort(key=dev_time, reverse=True)
-    busy = sum(dev_time(e) for e in evs) / 1e6
+    evs, busy = device_events(prof)
     print(f"[profile] {len(reqs)} engine calls in {wall * 1e3:.1f} ms wall;"
-          f" device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of "
+          f" device busy {busy:.2f} ms ({0.1 * busy / wall:.1f}% of "
           f"the window; {card})", flush=True)
     for e in evs[:12]:
-        print(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  {e.count:5d} x  "
-              f"{e.key[:90]}", flush=True)
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:5d} x  {e.key[:90]}", flush=True)
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -723,17 +803,13 @@ def profile_training(torch, trainer, batches, card):
             eval_step(gan, b[2])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_time = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                                 getattr(e, "self_cuda_time_total", 0.0))
-    evs = sorted((e for e in prof.key_averages() if dev_time(e) > 0),
-                 key=dev_time, reverse=True)
-    busy = sum(dev_time(e) for e in evs) / 1e6
+    evs, busy = device_events(prof)
     print(f"[profile train] 4 phase-3 epochs in {wall * 1e3:.1f} ms wall; "
-          f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of the "
+          f"device busy {busy:.2f} ms ({0.1 * busy / wall:.1f}% of the "
           f"window; {card})", flush=True)
     for e in evs[:14]:
-        print(f"[profile train]   {dev_time(e) / 1e3:9.3f} ms  {e.count:5d} x"
-              f"  {e.key[:90]}", flush=True)
+        print(f"[profile train]   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:5d} x  {e.key[:90]}", flush=True)
 
 
 def cli_check(torch, card):
@@ -769,14 +845,259 @@ def cli_check(torch, card):
     return metrics["epoch_ms"]
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+
+def _history_devs(a, b):
+    """(max loss rel dev, max Sharpe abs dev, where the loss one is: key
+    and (member,) epoch) between two histories."""
+    rel = {k: np.abs(a[k] - b[k]) / np.maximum(np.abs(b[k]), 1e-12)
+           for k in ("train_loss", "valid_loss", "test_loss")}
+    worst = max(rel, key=lambda k: rel[k].max())
+    where = (worst, *np.unravel_index(int(np.argmax(rel[worst])),
+                                      rel[worst].shape))
+    dev_sharpe = max(float(np.max(np.abs(a[k] - b[k])))
+                     for k in ("train_sharpe", "valid_sharpe", "test_sharpe"))
+    return float(rel[worst].max()), dev_sharpe, where
+
+
+def ensemble_checks(torch, K, C, card, splits, single_epoch_ms, opts):
+    """train_ensemble at full width with the paper's nine seeds: the
+    launches per phase and the member count of every launch, the kernel
+    route against kernel="off", and each member against its serial run."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        ensemble as ens_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.training.trainer \
+        import train_3phase
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, test = splits
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    dropout=DROPOUT)
+    tcfg = TrainConfig(**SCHEDULE, print_freq=10 ** 6)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid, test)]
+    S = len(ENSEMBLE_SEEDS)
+    per_phase, phase_s, members = {}, {}, {}
+    run_phase = ens_mod.run_phase
+    launchers = {"sdf_ffn_fwd": (K, "_launch"),
+                 "sdf_ffn_bwd": (K, "_launch_bwd"),
+                 "cond_em_fwd": (C, "_launch_fwd"),
+                 "cond_em_bwd": (C, "_launch_bwd")}
+    originals = {n: getattr(m, a) for n, (m, a) in launchers.items()}
+
+    def counted(gan, phase, *args, **kw):
+        torch.cuda.synchronize()
+        before, t0 = counts(K, C), time.perf_counter()
+        out = run_phase(gan, phase, *args, **kw)
+        torch.cuda.synchronize()
+        phase_s[phase] = time.perf_counter() - t0
+        per_phase[phase] = tuple(a - c for a, c in zip(counts(K, C), before))
+        return out
+
+    def recorder(name):
+        # records the member count of each launch; the count of launches
+        # stays the wrapper's own
+        def rec(*args, **kw):
+            n = (args[2].n_members if name.startswith("sdf")
+                 else args[4].shape[0])
+            members.setdefault(name, set()).add(n)
+            return originals[name](*args, **kw)
+        return rec
+
+    def run(kernel, tc=tcfg):
+        return ens_mod.train_ensemble(
+            cfg, *batches, seeds=ENSEMBLE_SEEDS, tcfg=tc, verbose=False,
+            exec_cfg=ExecutionConfig(kernel=kernel, compute_dtype="float32",
+                                     device=DEVICE))
+
+    # one untimed epoch per phase on each route first (set-up)
+    for kernel in ("on", "off"):
+        run(kernel, TrainConfig(1, 1, 1, ignore_epoch=0))
+    ens_mod.run_phase = counted
+    for name, (m, a) in launchers.items():
+        setattr(m, a, recorder(name))
+    try:
+        results = {}
+        for kernel in ("on", "off"):
+            per_phase.clear()
+            phase_s.clear()
+            members.clear()
+            K.reset_launch_count()
+            C.reset_launch_count()
+            final, hist = run(kernel)
+            results[kernel] = dict(hist=hist, phases=dict(per_phase),
+                                   seconds=dict(phase_s),
+                                   members=dict(members), final=final)
+    finally:
+        ens_mod.run_phase = run_phase
+        for name, (m, a) in launchers.items():
+            setattr(m, a, originals[name])
+
+    on, off = results["on"], results["off"]
+    n_epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+                "moment": SCHEDULE["num_epochs_moment"],
+                "conditional": SCHEDULE["num_epochs"]}
+    for phase, per in PER_EPOCH.items():
+        want = tuple(n_epochs[phase] * v for v in per)
+        check(on["phases"][phase] == want,
+              f"ensemble {phase}: launches (fwd, bwd, cem_fwd, cem_bwd) "
+              f"{on['phases'][phase]} != {want} (one launch per pass for "
+              f"all {S} members)")
+        check(off["phases"][phase] == (0, 0, 0, 0),
+              f"ensemble kernel='off' launched kernels in {phase}")
+    check(set(on["members"]) == set(launchers)
+          and all(v == {S} for v in on["members"].values()),
+          f"ensemble launches not all at S = {S}: {on['members']}")
+    check(all(np.isfinite(v).all() for v in on["hist"].values())
+          and all(bool(torch.isfinite(v).all())
+                  for v in on["final"].values()),
+          "non-finite ensemble history or params")
+    dev_loss, dev_sharpe, where = _history_devs(on["hist"], off["hist"])
+    check(dev_loss <= 1e-3, f"ensemble kernel vs plain: loss rel dev "
+                            f"{dev_loss:.3e} > 1e-3")
+    check(dev_sharpe <= 5e-3, f"ensemble kernel vs plain: Sharpe dev "
+                              f"{dev_sharpe:.3e} > 5e-3")
+    # each member against its own serial run on the kernel route
+    serial = []
+    t0 = time.perf_counter()
+    for i, seed in enumerate(ENSEMBLE_SEEDS):
+        _, _, h, _ = train_3phase(
+            cfg, *batches, tcfg=tcfg, seed=seed, verbose=False,
+            exec_cfg=ExecutionConfig(kernel="on", compute_dtype="float32",
+                                     device=DEVICE))
+        serial.append(_history_devs({k: v[i] for k, v in on["hist"].items()},
+                                    h))
+    serial_s = time.perf_counter() - t0
+    s_loss, _, s_where = max(serial, key=lambda d: d[0])
+    s_sharpe = max(d[1] for d in serial)
+    check(s_loss <= 1e-3, f"ensemble member vs serial run: loss rel dev "
+                          f"{s_loss:.3e} > 1e-3")
+    check(s_sharpe <= 5e-3, f"ensemble member vs serial run: Sharpe dev "
+                            f"{s_sharpe:.3e} > 5e-3")
+    epoch_ms = {ens_mod.PHASE_SECTIONS[p]: 1e3 * on["seconds"][p] / n
+                for p, n in n_epochs.items()}
+    plain_ms = {ens_mod.PHASE_SECTIONS[p]: 1e3 * off["seconds"][p] / n
+                for p, n in n_epochs.items()}
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    print(f"[ensemble train] {S} members (seeds {list(ENSEMBLE_SEEDS)}) "
+          f"stacked, full width N={train.N} T={train.T}/{valid.T}/{test.T}, "
+          f"dropout {DROPOUT}, schedule 8/4/16 ignore 2, f32 ({card})",
+          flush=True)
+    for phase, n in n_epochs.items():
+        print(f"[ensemble train] launches {phase}: (fwd, bwd, cem_fwd, "
+              f"cem_bwd) {on['phases'][phase]} = {n} epochs x "
+              f"{PER_EPOCH[phase]}, every launch S={S}", flush=True)
+    print(f"[ensemble train] kernel vs plain, every epoch of every member: "
+          f"max loss rel dev {dev_loss:.3e} (bar 1e-3; {where[0]} member "
+          f"{where[1]} epoch {where[2]}), max Sharpe dev {dev_sharpe:.3e} "
+          f"(bar 5e-3)", flush=True)
+    print(f"[ensemble train] members vs {S} serial train_3phase runs "
+          f"(kernel route, {serial_s:.1f} s): max loss rel dev "
+          f"{s_loss:.3e} ({s_where[0]} epoch {s_where[1]}), max Sharpe dev "
+          f"{s_sharpe:.3e}", flush=True)
+    print(f"[ensemble train] wall ms per epoch, S={S} kernel: "
+          f"{fmt(epoch_ms)}; plain: {fmt(plain_ms)} ({card})", flush=True)
+    print(f"[ensemble train] wall ms per member-epoch, S={S} kernel: "
+          f"{fmt({k: v / S for k, v in epoch_ms.items()})}; S=1 (phase 6) "
+          f"kernel: {fmt(single_epoch_ms)} ({card})", flush=True)
+    if opts.profile:
+        profile_ensemble(torch, cfg, on["final"], batches, card)
+    launches = {name: sum(v[i] for v in on["phases"].values())
+                for i, name in enumerate(("sdf_ffn_fwd", "sdf_ffn_bwd",
+                                          "cond_em_fwd", "cond_em_bwd"))}
+    return launches, S
+
+
+def profile_ensemble(torch, cfg, params, batches, card):
+    """torch.profiler over 4 phase-3 ensemble epochs (train step + two
+    evals each, nine members): device time by kernel, busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import \
+        GAN
+    from deeplearninginassetpricing_paperreplication_torch.training.steps \
+        import (
+            MemberOptimizer,
+            eval_step_members,
+            member_subtree,
+            train_step_members,
+        )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    gan = GAN(cfg, ExecutionConfig(compute_dtype="float32", device=DEVICE))
+    b = [gan.prepare_batch(x) for x in batches]
+    params = {k: v.clone() for k, v in params.items()}
+    opt = MemberOptimizer(member_subtree(params, "sdf_net"), 1e-3)
+    seeds = list(ENSEMBLE_SEEDS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for e in range(4):
+            train_step_members(gan, "conditional", opt, params, b[0],
+                               [s + e for s in seeds])
+            eval_step_members(gan, params, b[1])
+            eval_step_members(gan, params, b[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs, busy = device_events(prof)
+    print(f"[profile ensemble] 4 phase-3 epochs x {len(seeds)} members in "
+          f"{wall * 1e3:.1f} ms wall; device busy {busy:.2f} ms "
+          f"({0.1 * busy / wall:.1f}% of the window; {card})", flush=True)
+    for e in evs[:14]:
+        print(f"[profile ensemble]   {e.self_device_time_total / 1e3:9.3f} ms"
+              f"  {e.count:5d} x  {e.key[:90]}", flush=True)
+
+
+def ensemble_cli_check(torch, card):
+    """evaluate_ensemble --train_seeds (default bf16) with --save_dir, then
+    --checkpoint_dirs on the run dirs it wrote: the same test Sharpe."""
+    from deeplearninginassetpricing_paperreplication_torch import (
+        evaluate_ensemble as ee,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    shutil.rmtree(ENS_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ee.main(["--data_dir", str(DATA_DIR), "--train_seeds",
+             *map(str, ENSEMBLE_CLI_SEEDS),
+             "--epochs_unc", str(SCHEDULE["num_epochs_unc"]),
+             "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
+             "--epochs", str(SCHEDULE["num_epochs"]), "--ignore_epoch",
+             str(SCHEDULE["ignore_epoch"]), "--save_dir", str(ENS_DIR),
+             "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    report = json.loads((ENS_DIR / "ensemble_report.json").read_text())
+    dirs = [str(ENS_DIR / f"seed_{s}") for s in ENSEMBLE_CLI_SEEDS]
+    res = ee.evaluate_ensemble(dirs, str(DATA_DIR),
+                               exec_cfg=ExecutionConfig(device=DEVICE),
+                               verbose=False)
+    reported = report["ensemble_sharpe"]["test"]
+    check(np.isfinite(reported), "non-finite --train_seeds test Sharpe")
+    d = abs(res["test_sharpe"] - reported)
+    check(d <= 1e-6, f"--checkpoint_dirs test Sharpe {res['test_sharpe']} "
+                     f"!= --train_seeds report {reported} (|d| {d:.3e})")
+    print(f"[ensemble cli] --train_seeds {list(ENSEMBLE_CLI_SEEDS)} (bf16, "
+          f"kernel auto) trained, evaluated and saved in {wall:.1f} s; test "
+          f"Sharpe {reported:.6f}; --checkpoint_dirs on the saved run dirs "
+          f"{res['test_sharpe']:.6f} (|d| {d:.1e}, bar 1e-6) ({card})",
+          flush=True)
+    shutil.rmtree(ENS_DIR, ignore_errors=True)
+
+
 # -- main ----------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the serving engine and training "
-                         "epochs with torch.profiler")
+                    help="also profile the serving engine, training and "
+                         "ensemble-training epochs with torch.profiler")
     opts = ap.parse_args(argv)
 
     import torch
@@ -836,9 +1157,10 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     row = kernel_checks(torch, K, card)
-    dropout_keep_share(torch, K, card)
-    bwd_row = ffn_bwd_checks(torch, K, card)
+    _, ens_fwd_row = dropout_keep_share(torch, K, card)
+    bwd_row, ens_bwd_row = ffn_bwd_checks(torch, K, card)
     cem_rows = cond_em_checks(torch, C, card)
+    unported_bounds(card)
     print(f"[kernels] all checks passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -884,38 +1206,56 @@ def main(argv=None) -> int:
 
     # 6. training
     t0 = time.perf_counter()
-    train_launches, _ = train_checks(torch, K, C, card, splits, opts)
+    train_launches, single_epoch_ms = train_checks(torch, K, C, card, splits,
+                                                   opts)
     cli_check(torch, card)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 7. ensemble training
+    t0 = time.perf_counter()
+    ens_launches, ens_members = ensemble_checks(torch, K, C, card, splits,
+                                                single_epoch_ms, opts)
+    ensemble_cli_check(torch, card)
+    print(f"[ensemble train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
+    def by_path(name, serving=0):
+        paths = {"training": train_launches[name],
+                 "ensemble_training": ens_launches[name]}
+        if serving:
+            paths = {"serving": serving, **paths}
+        return dict(launches=sum(paths.values()), launches_by_path=paths,
+                    ensemble_members=ens_members)
+
     kernels = [
         dict(name="sdf_ffn_fwd", route="cuda", source=src + "sdf_ffn.cu",
              replaces=tpu + "pallas_ffn.py:561",
              also_replaces=tpu + "pallas_ffn.py:188",
-             launches=serve_launches + train_launches["sdf_ffn_fwd"],
-             launches_by_path={"serving": serve_launches,
-                               "training": train_launches["sdf_ffn_fwd"]},
-             **row),
+             **by_path("sdf_ffn_fwd", serve_launches), **row,
+             at_ensemble_shape=ens_fwd_row),
         dict(name="sdf_ffn_bwd", route="cuda", source=src + "sdf_ffn_bwd.cu",
              replaces=tpu + "pallas_ffn.py:205",
              also_replaces=tpu + "pallas_ffn.py:591",
-             launches=train_launches["sdf_ffn_bwd"], **bwd_row),
+             **by_path("sdf_ffn_bwd"), **bwd_row,
+             at_ensemble_shape=ens_bwd_row),
         dict(name="cond_em_fwd", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:64",
              also_replaces=tpu + "pallas_moment.py:274",
-             launches=train_launches["cond_em_fwd"], **cem_rows["fwd"]),
+             **by_path("cond_em_fwd"), **cem_rows["fwd"],
+             at_ensemble_shape=cem_rows["ensemble_fwd"]),
         dict(name="cond_em_bwd", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:86",
              also_replaces=tpu + "pallas_moment.py:302",
-             launches=train_launches["cond_em_bwd"], **cem_rows["bwd"]),
+             **by_path("cond_em_bwd"), **cem_rows["bwd"],
+             at_ensemble_shape=cem_rows["ensemble_bwd"]),
     ]
     for k in kernels:
-        check(k["launches"] > 0, f"the main path launched {k['name']} no "
-                                 "time")
+        for path, n in k["launches_by_path"].items():
+            check(n > 0, f"the {path} path launched {k['name']} no time")
         k["library_ms"] = None  # no single PyTorch call computes these
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,30 +1,52 @@
-"""Ensemble evaluation CLI: the weight-averaged ensemble of K run dirs.
+"""Ensemble CLI: evaluate the weight-averaged ensemble of K run dirs, or
+train one from seeds and evaluate it.
 
     python -m deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \\
         --data_dir data/synthetic_data --checkpoint_dirs ckpt_s42 ckpt_s123 ...
+    python -m deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \\
+        --data_dir data/synthetic_data --train_seeds 42 123 456 --save_dir ens
 
-The counterpart of the JAX package's ``evaluate_ensemble.py`` in its
-``--checkpoint_dirs`` mode: the K members are stacked on a leading axis and
-evaluated together (one fused-FFN launch per split). It runs on the CUDA
-device unless ``--device cpu`` is given. Training an ensemble from seeds
-(``--train_seeds``) is not ported yet.
+The counterpart of the JAX package's ``evaluate_ensemble.py``, both modes:
+
+* ``--checkpoint_dirs``: the K members are stacked on a leading axis and
+  evaluated together (one fused-FFN launch per split); ``--quorum Q``
+  skips absent or corrupt run dirs while at least Q load.
+* ``--train_seeds``: the whole ensemble trains at once, members stacked
+  (``parallel.ensemble.train_ensemble``: one kernel launch per pass for
+  all members), then is evaluated. ``--save_dir`` writes each member as a
+  run dir (``seed_<s>/config.json`` + ``best_model_sharpe.pt``) that
+  ``--checkpoint_dirs`` reads back, and ``ensemble_report.json`` (plain
+  JSON, without the JAX package's ``.sha256`` sidecar).
+
+It runs on the CUDA device unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import pickle
 import sys
 import warnings
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .data.panel import load_splits
-from .parallel.ensemble import ensemble_metrics, stack_state_dicts
-from .training.checkpoint import load_checkpoint_dir
-from .utils.config import ExecutionConfig, GANConfig, resolve_device
+from .parallel.ensemble import (
+    ensemble_metrics,
+    stack_state_dicts,
+    train_ensemble,
+)
+from .training.checkpoint import (
+    load_checkpoint_dir,
+    member_state_dicts,
+    save_state_dict,
+)
+from .utils.config import ExecutionConfig, GANConfig, TrainConfig, resolve_device
 
 PAPER_TEST_SHARPE = 0.75  # Chen-Pelger-Zhu Table 1, GAN test SR (monthly)
 
@@ -68,17 +90,79 @@ def validate_stackable_configs(checkpoint_dirs: List[str]) -> GANConfig:
     return cfg0
 
 
+# what a corrupt or absent member checkpoint raises when it is read
+_UNREADABLE = (OSError, ValueError, RuntimeError, EOFError,
+               pickle.UnpicklingError)
+
+
+def _no_usable(skipped: List[Dict[str, str]]) -> ValueError:
+    return ValueError("no usable checkpoint dirs: " + "; ".join(
+        f"{s['dir']}: {s['reason']}" for s in skipped))
+
+
 def stack_checkpoints(
     checkpoint_dirs: List[str],
     which: str = "best_model_sharpe",
-    device="cpu",
+    device=None,
+    allow_missing: bool = False,
+    coverage_out: Optional[Dict] = None,
 ) -> Tuple[GANConfig, Dict[str, torch.Tensor]]:
     """Load K run dirs and stack their ``state_dict``s on a leading member
-    axis: (config, {name: [K, ...] tensor on `device`}). The architectures
-    are validated from the configs before any weights are read."""
-    cfg = validate_stackable_configs(checkpoint_dirs)
-    sds = [load_checkpoint_dir(d, which)[1] for d in checkpoint_dirs]
+    axis: (config, {name: [K, ...] tensor on `device`}). `device` defaults
+    to ``ExecutionConfig().device`` (the card; an error naming CUDA
+    without one). The architectures are validated from the configs before
+    any weights are read.
+
+    `allow_missing` (quorum semantics): member dirs that are absent, whose
+    config does not load, or whose checkpoint cannot be read are skipped,
+    with one warning listing each and why; architecture mismatches still
+    raise. `coverage_out`, when given, is filled with ``used`` and
+    ``skipped`` (dir + reason)."""
+    device = resolve_device(ExecutionConfig().device if device is None
+                            else device)
+    skipped: List[Dict[str, str]] = []
+    present: List[str] = []
+    for d in checkpoint_dirs:
+        if allow_missing:
+            cfg_path = Path(d) / "config.json"
+            try:
+                GANConfig.load(cfg_path)
+            except Exception as e:  # noqa: BLE001 — absent, torn, invalid
+                skipped.append({"dir": str(d), "reason": (
+                    f"unusable config.json ({type(e).__name__}: {e})"
+                    if cfg_path.exists() else "missing config.json")})
+                continue
+        present.append(d)
+    if not present:
+        raise _no_usable(skipped)
+    cfg = validate_stackable_configs(present)
+    sds, used = [], []
+    for d in present:
+        try:
+            sds.append(load_checkpoint_dir(d, which)[1])
+        except _UNREADABLE as e:
+            if not allow_missing:
+                raise
+            skipped.append({"dir": str(d), "reason": str(e)})
+            continue
+        used.append(str(d))
+    if not sds:
+        raise _no_usable(skipped)
+    if skipped:
+        warnings.warn(
+            f"skipping {len(skipped)} of {len(checkpoint_dirs)} ensemble "
+            "member dirs:\n  " + "\n  ".join(
+                f"{s['dir']}: {s['reason']}" for s in skipped), stacklevel=2)
+    if coverage_out is not None:
+        coverage_out["used"] = used
+        coverage_out["skipped"] = skipped
     return cfg, stack_state_dicts(sds, device)
+
+
+def _split_metrics(cfg: GANConfig, stacked, splits, exec_cfg, device):
+    return {name: ensemble_metrics(cfg, stacked, ds.to_batch(device),
+                                   exec_cfg)
+            for name, ds in zip(("train", "valid", "test"), splits)}
 
 
 def evaluate_ensemble(
@@ -86,24 +170,91 @@ def evaluate_ensemble(
     data_dir: str,
     exec_cfg: Optional[ExecutionConfig] = None,
     verbose: bool = True,
+    quorum: Optional[int] = None,
 ) -> Dict[str, object]:
-    """Train/valid/test ensemble Sharpe and the members' test Sharpes."""
+    """Train/valid/test ensemble Sharpe and the members' test Sharpes.
+
+    `quorum`: proceed with at least that many loadable members, skipping
+    absent or corrupt run dirs (listed in a warning, and in the summary's
+    ``used_dirs`` / ``skipped_dirs``); None loads strictly."""
     exec_cfg = exec_cfg or ExecutionConfig()
     device = resolve_device(exec_cfg.device)
-    cfg, stacked = stack_checkpoints(checkpoint_dirs, device=device)
-    splits = dict(zip(("train", "valid", "test"), load_splits(data_dir)))
-    results = {name: ensemble_metrics(cfg, stacked, ds.to_batch(device),
-                                      exec_cfg)
-               for name, ds in splits.items()}
+    coverage: Dict = {}
+    cfg, stacked = stack_checkpoints(
+        checkpoint_dirs, device=device, allow_missing=quorum is not None,
+        coverage_out=coverage if quorum is not None else None)
+    if quorum is not None and len(coverage["used"]) < quorum:
+        raise ValueError(
+            f"only {len(coverage['used'])} of {len(checkpoint_dirs)} "
+            f"ensemble members loadable, quorum is {quorum}; skipped: "
+            + "; ".join(f"{s['dir']}: {s['reason']}"
+                        for s in coverage["skipped"]))
+    results = _split_metrics(cfg, stacked, load_splits(data_dir), exec_cfg,
+                             device)
+    n_members = next(iter(stacked.values())).shape[0]
     if verbose:
-        _print_report(results, len(checkpoint_dirs))
-    return {
+        _print_report(results, n_members)
+    out = {
         "train_sharpe": float(results["train"]["ensemble_sharpe"]),
         "valid_sharpe": float(results["valid"]["ensemble_sharpe"]),
         "test_sharpe": float(results["test"]["ensemble_sharpe"]),
         "individual_sharpes": results["test"]["individual_sharpes"].tolist(),
         "device": str(device),
     }
+    if quorum is not None:
+        out["used_dirs"] = coverage["used"]
+        out["skipped_dirs"] = coverage["skipped"]
+    return out
+
+
+def train_and_evaluate(
+    data_dir: str,
+    seeds: Sequence[int],
+    tcfg: TrainConfig,
+    exec_cfg: Optional[ExecutionConfig] = None,
+    member_chunk: Optional[int] = None,
+    save_dir: Optional[str] = None,
+    verbose: bool = True,
+) -> Dict[str, object]:
+    """Train the ensemble of `seeds` (the paper's model, members stacked),
+    evaluate it on every split, and with `save_dir` write one run dir per
+    member plus ``ensemble_report.json``. Returns the report."""
+    exec_cfg = exec_cfg or ExecutionConfig()
+    device = resolve_device(exec_cfg.device)
+    seeds = [int(s) for s in seeds]
+    splits = load_splits(data_dir)
+    cfg = GANConfig(macro_feature_dim=splits[0].macro_feature_dim,
+                    individual_feature_dim=splits[0].individual_feature_dim)
+    batches = [ds.to_batch(device) for ds in splits]
+    stacked, _ = train_ensemble(cfg, *batches, seeds=seeds, tcfg=tcfg,
+                                member_chunk=member_chunk,
+                                exec_cfg=exec_cfg, verbose=verbose)
+    results = _split_metrics(cfg, stacked, splits, exec_cfg, device)
+    if verbose:
+        _print_report(results, len(seeds))
+    splits_ = ("train", "valid", "test")
+    report = {
+        "seeds": seeds,
+        **{key: {s: float(results[s][key]) for s in splits_}
+           for key in ("ensemble_sharpe", "explained_variation",
+                       "cross_sectional_r2")},
+        "individual_test_sharpes":
+            results["test"]["individual_sharpes"].tolist(),
+    }
+    if save_dir:
+        save = Path(save_dir)
+        for seed, sd in zip(seeds, member_state_dicts(stacked)):
+            mdir = save / f"seed_{seed}"
+            mdir.mkdir(parents=True, exist_ok=True)
+            cfg.save(mdir / "config.json")
+            save_state_dict(mdir / "best_model_sharpe.pt", sd)
+        tmp = save / "ensemble_report.json.tmp"
+        tmp.write_text(json.dumps(report, indent=2))
+        os.replace(tmp, save / "ensemble_report.json")
+        if verbose:
+            print(f"Saved {len(seeds)} member checkpoints to {save}",
+                  flush=True)
+    return report
 
 
 def _print_report(results, n_models):
@@ -157,13 +308,46 @@ def execution_config(args) -> ExecutionConfig:
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description="Evaluate a model ensemble")
+    p = argparse.ArgumentParser(
+        description="Evaluate (or train) a model ensemble")
     p.add_argument("--data_dir", type=str, required=True)
-    p.add_argument("--checkpoint_dirs", type=str, nargs="+", required=True)
+    p.add_argument("--checkpoint_dirs", type=str, nargs="+", default=None)
+    p.add_argument("--quorum", type=int, default=None, metavar="Q",
+                   help="with --checkpoint_dirs: evaluate with >= Q loadable "
+                        "members, skipping absent or corrupt run dirs "
+                        "(listed in a warning) instead of failing")
+    p.add_argument("--train_seeds", type=int, nargs="+", default=None,
+                   help="train the ensemble from these seeds, members "
+                        "stacked (one kernel launch per pass for all)")
+    p.add_argument("--epochs_unc", type=int, default=256)
+    p.add_argument("--epochs_moment", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=1024)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--ignore_epoch", type=int, default=64)
+    p.add_argument("--member_chunk", type=int, default=None,
+                   help="train at most this many seeds at a time "
+                        "(sequential chunks); the plain route "
+                        "(kernel off) keeps [S, T, H, N] activations")
+    p.add_argument("--save_dir", type=str, default=None,
+                   help="with --train_seeds: write each member as a run dir "
+                        "(seed_<s>/config.json + best_model_sharpe.pt) and "
+                        "ensemble_report.json")
     add_execution_args(p)
     args = p.parse_args(argv)
-    evaluate_ensemble(args.checkpoint_dirs, args.data_dir,
-                      exec_cfg=execution_config(args))
+    if (args.checkpoint_dirs is None) == (args.train_seeds is None):
+        p.error("pass exactly one of --checkpoint_dirs / --train_seeds")
+    exec_cfg = execution_config(args)
+    if args.checkpoint_dirs:
+        evaluate_ensemble(args.checkpoint_dirs, args.data_dir,
+                          exec_cfg=exec_cfg, quorum=args.quorum)
+        return
+    tcfg = TrainConfig(num_epochs_unc=args.epochs_unc,
+                       num_epochs_moment=args.epochs_moment,
+                       num_epochs=args.epochs, lr=args.lr,
+                       ignore_epoch=args.ignore_epoch)
+    train_and_evaluate(args.data_dir, args.train_seeds, tcfg, exec_cfg,
+                       member_chunk=args.member_chunk,
+                       save_dir=args.save_dir)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ the module, and a batch is a dict of tensors on the module's device
 [T, N], the feature-major panel ``individual_t`` [T, F, N] from
 :meth:`GAN.prepare_batch`, optionally ``n_assets``).
 
-:meth:`GAN.forward` computes the phase's loss:
+:meth:`GAN.forward_members` computes the phase's loss of S members at
+once, from member-stacked parameters [S, ...] (where the JAX package vmaps
+``GAN.forward``); :meth:`GAN.forward` is its S = 1 case over the module's
+parameters:
 
     phase='unconditional' → loss = E[w·R·M]² (generator, h ≡ 1)
     phase='moment'        → loss = −E[h·w·R·M]² (discriminator maximizes)
@@ -17,13 +20,14 @@ With the default moment net (no hidden layers) and macro data, the
 conditional loss goes through the fused conditional-EM (``ops/cond_em.py``)
 and h never materializes; any other moment architecture builds h and calls
 ``conditional_loss``, as in the JAX package. Phase 1 does not compute h at
-all (JAX builds it and jit drops it). The inference-mode ``weights`` and
+all (JAX builds it and jit drops it). One fused-FFN and one fused
+conditional-EM call serve all S members. The inference-mode ``weights`` and
 ``moments`` are the serving path's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -36,7 +40,14 @@ from ..ops.losses import (
 )
 from ..ops.metrics import normalize_weights_abs, sharpe_monitor
 from ..utils.config import ExecutionConfig, GANConfig, resolve_device
-from .networks import AssetPricingModule, moment_output_params
+from .networks import (
+    AssetPricingModule,
+    macro_states,
+    masked_zero_mean,
+    moment_h_members,
+    moment_output_members,
+    sdf_raw_weights,
+)
 
 PHASES = ("unconditional", "moment", "conditional")
 
@@ -93,34 +104,70 @@ class GAN:
 
     def forward(self, batch: Batch, phase: str = "conditional",
                 seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """Phase-switched forward. `seed` (an int) turns dropout on and
+        """Phase-switched forward of the module's parameters: the S = 1 case
+        of :meth:`forward_members`. `seed` (an int) turns dropout on and
         draws every mask from it (training); None is the eval forward."""
+        params = {n: p[None] for n, p in self.module.named_parameters()}
+        out = self.forward_members(params, batch, phase,
+                                   None if seed is None else [seed])
+        return {k: v[0] for k, v in out.items()}
+
+    # -- member-stacked training ------------------------------------------------
+
+    def forward_members(self, params: Mapping[str, torch.Tensor],
+                        batch: Batch, phase: str = "conditional",
+                        seeds: Optional[Sequence[int]] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """The phase forward of S members at once, from member-stacked
+        ``state_dict``-keyed params [S, ...]. `seeds` (one per member) turn
+        dropout on: member s draws every mask from seeds[s] (the FFN
+        kernels' hash and a generator seeded with it for the LSTM's and the
+        moment net's dropout); None is the eval forward. Returns
+        per-member losses and monitor Sharpes [S], the portfolio F [S, T]
+        and the weights [S, T, N]. The members are independent, so the
+        gradient of ``loss.sum()`` gives each member its own gradient."""
         if phase not in PHASES:
             raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
         cfg = self.cfg
         batch = self.prepare_batch(batch)
         returns, mask = batch["returns"], batch["mask"]
-        n_assets = batch.get("n_assets")
-        generator = None
-        if seed is not None:
-            generator = torch.Generator(device=returns.device)
-            generator.manual_seed(int(seed))
-        weights = self.module.sdf_net(
-            batch.get("macro"), batch["individual"], mask,
-            individual_t=batch["individual_t"], seed=seed,
-            generator=generator)
-        zero = weights.new_zeros(())
+        macro, n_assets = batch.get("macro"), batch.get("n_assets")
+        sdf = {k[len("sdf_net."):]: v for k, v in params.items()
+               if k.startswith("sdf_net.")}
+        moment = {k[len("moment_net."):]: v for k, v in params.items()
+                  if k.startswith("moment_net.")}
+        generators = None
+        if seeds is not None:
+            seeds = [int(s) for s in seeds]
+            generators = [torch.Generator(device=returns.device).manual_seed(s)
+                          for s in seeds]
+        states = macro_states(sdf, cfg, macro, generators)
+        weights = sdf_raw_weights(sdf, cfg, self.exec_cfg,
+                                  batch["individual_t"], states,
+                                  seed=seeds) * mask
+        if cfg.normalize_w:
+            weights = masked_zero_mean(weights, mask)
+        zero = weights.new_zeros(weights.shape[0])
         if phase == "unconditional":
             loss_unc, F = unconditional_loss(weights, returns, mask,
                                              cfg.weighted_loss,
                                              n_assets=n_assets)
             loss_cond = zero
-        elif not cfg.hidden_dim_moment and batch.get("macro") is not None:
-            loss_cond, F = self._fused_cond_loss(batch, weights, n_assets)
+        elif not cfg.hidden_dim_moment and macro is not None:
+            k_period, k_stock, bias = moment_output_members(moment, cfg)
+            F = portfolio_returns(weights, returns, mask, cfg.weighted_loss)
+            em = fused_conditional_em(
+                batch["individual_t"], macro @ k_period + bias[:, None, :],
+                returns * mask * (1.0 + F)[..., None],
+                1.0 / mask.sum(dim=0).clamp_min(1), k_stock,
+                compute_dtype=self.exec_cfg.compute_dtype,
+                kernel=self.exec_cfg.kernel)  # [S, K, N]
+            loss_cond = ((em ** 2).mean(dim=(1, 2)) if n_assets is None else
+                         (em ** 2).sum(dim=(1, 2)) / (em.shape[1] * n_assets))
         else:
-            moments = self.module.moment_net(batch.get("macro"),
-                                             batch["individual"], generator)
-            loss_cond, F = conditional_loss(weights, returns, mask, moments,
+            h = moment_h_members(moment, cfg, macro, batch["individual"],
+                                 generators)
+            loss_cond, F = conditional_loss(weights, returns, mask, h,
                                             cfg.weighted_loss,
                                             n_assets=n_assets)
         if phase == "moment":
@@ -133,7 +180,10 @@ class GAN:
             total = loss_cond
         else:
             total = loss_unc
-        total, loss_res = self._residual_term(weights, returns, mask, total)
+        loss_res = zero
+        if cfg.residual_loss_factor > 0:
+            loss_res = residual_loss(weights, returns, mask)
+            total = total + cfg.residual_loss_factor * loss_res
         return {
             "weights": weights,
             "loss": total,
@@ -143,38 +193,6 @@ class GAN:
             "sharpe": sharpe_monitor(F),
             "portfolio_returns": F,
         }
-
-    @staticmethod
-    def _em_loss(em: torch.Tensor, n_assets) -> torch.Tensor:
-        """em [K, N] → conditional loss: mean, or sum / (K·true N) under
-        padding."""
-        if n_assets is None:
-            return (em ** 2).mean()
-        return (em ** 2).sum() / (em.shape[0] * n_assets)
-
-    def _residual_term(self, weights, returns, mask, total):
-        """(total + λ·residual, residual)."""
-        if self.cfg.residual_loss_factor > 0:
-            loss_res = residual_loss(weights, returns, mask)
-            return total + self.cfg.residual_loss_factor * loss_res, loss_res
-        return total, weights.new_zeros(())
-
-    def _fused_cond_loss(self, batch: Batch, weights: torch.Tensor,
-                         n_assets, F: Optional[torch.Tensor] = None):
-        """Conditional loss through the fused conditional-EM; (loss, F)."""
-        cfg = self.cfg
-        returns, mask = batch["returns"], batch["mask"]
-        k_period, k_stock, bias = moment_output_params(self.module, cfg)
-        zp_m = batch["macro"] @ k_period + bias  # [T, K]
-        if F is None:
-            F = portfolio_returns(weights, returns, mask, cfg.weighted_loss)
-        xr = returns * mask * (1.0 + F)[:, None]
-        tinv = 1.0 / mask.sum(dim=0).clamp_min(1)
-        em = fused_conditional_em(
-            batch["individual_t"], zp_m, xr, tinv, k_stock,
-            compute_dtype=self.exec_cfg.compute_dtype,
-            kernel=self.exec_cfg.kernel)
-        return self._em_loss(em, n_assets), F
 
     # -- eval surface ---------------------------------------------------------
 

@@ -21,19 +21,32 @@ with a leading member axis; one module is the S = 1 case of it.
 Training mode is chosen per call, as in the JAX package (an ``rng``
 there): a dropout ``seed`` for the FFN (whose kernels draw the masks from
 it) and a ``torch.Generator`` for the LSTM's inter-layer and the moment
-net's dropout. Without them every dropout is the identity.
+net's dropout. Without them every dropout is the identity. Member-stacked
+training gives one seed and one generator per member, so member s draws
+the masks of a one-model run with its own seed.
+
+Ensemble training works on member-stacked parameter dicts (the reference's
+``state_dict`` keys, each tensor [S, ...]): :func:`init_member_params`
+draws them, :func:`moment_output_members` and :func:`moment_h_members` are
+the moment net over them.
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import sdf_ffn
 from ..utils.config import ExecutionConfig, GANConfig
-from .recurrent import MacroLSTM, dropout, layer_params, stacked_lstm_scan
+from .recurrent import (
+    Generators,
+    MacroLSTM,
+    dropout,
+    layer_params,
+    stacked_lstm_scan,
+)
 
 _DEFAULT_EXEC = ExecutionConfig()
 
@@ -73,14 +86,26 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 # -- the SDF network's functional core -------------------------------------
 
 
+def init_member_params(cfg: GANConfig, seeds: Sequence[int]
+                       ) -> Dict[str, torch.Tensor]:
+    """Member-stacked initial parameters [S, ...] (CPU, float32): member s
+    is what ``train_3phase(seed=seeds[s])`` starts from (``init_params``
+    with ``torch.Generator().manual_seed(seeds[s])``)."""
+    sds = []
+    for seed in seeds:
+        module = AssetPricingModule(cfg)
+        init_params(module, torch.Generator().manual_seed(int(seed)))
+        sds.append(module.state_dict())
+    return {k: torch.stack([sd[k].float() for sd in sds]) for k in sds[0]}
+
+
 def macro_states(params: Mapping[str, torch.Tensor], cfg: GANConfig,
                  macro: Optional[torch.Tensor],
-                 generator: Optional[torch.Generator] = None
-                 ) -> Optional[torch.Tensor]:
+                 generator: Generators = None) -> Optional[torch.Tensor]:
     """[S, T, Dp] per-member macro state from ``sdf_net``-relative,
     member-stacked params: the LSTM's h sequence, the raw macro when the
-    config runs no LSTM, None without macro. `generator` draws the LSTM's
-    inter-layer dropout (training)."""
+    config runs no LSTM, None without macro. `generator` (one, or one per
+    member) draws the LSTM's inter-layer dropout (training)."""
     if macro is None or cfg.macro_feature_dim == 0:
         return None
     S = params["output_proj.bias"].shape[0]
@@ -126,12 +151,13 @@ def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
                     exec_cfg: ExecutionConfig, x_t: torch.Tensor,
                     macro_state: Optional[torch.Tensor],
                     packed: Optional[sdf_ffn.PackedFfn] = None,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    seed: Optional[sdf_ffn.Seed] = None) -> torch.Tensor:
     """Unmasked weights [S, T, N] of S members on the feature-major panel
     x_t [T, F, N], given each member's macro state [S, T, Dp] (or None).
     With hidden layers this is ONE fused-FFN call over all members: from
     weights packed once (`packed`, the serving path), or differentiable,
-    with dropout drawn from `seed` when one is given (training)."""
+    with dropout drawn from `seed` (one int, or one per member) when one is
+    given (training)."""
     T = x_t.shape[0]
     if not cfg.hidden_dim:
         # no hidden layer: the output projection is the split layer itself
@@ -221,6 +247,40 @@ class MomentNet(nn.Module):
         for lin in linears[1:]:
             x = lin(dropout(torch.relu(x), self.cfg.dropout, generator))
         return torch.tanh(x).permute(2, 0, 1)  # [K, T, N]
+
+
+def moment_output_members(params: Mapping[str, torch.Tensor], cfg: GANConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(k_period [S, M, K], k_stock [S, F, K], bias [S, K]) of every
+    member's default MomentNet output layer, from member-stacked
+    ``moment_net``-relative params: :func:`moment_output_params` for all
+    members at once (one fused conditional-EM call then serves them all)."""
+    k = params["output_proj.weight"].transpose(1, 2)  # [S, M + F, K]
+    M = cfg.macro_feature_dim
+    return k[:, :M], k[:, M:], params["output_proj.bias"]
+
+
+def moment_h_members(params: Mapping[str, torch.Tensor], cfg: GANConfig,
+                     macro: Optional[torch.Tensor], individual: torch.Tensor,
+                     generators: Generators = None) -> torch.Tensor:
+    """h [S, K, T, N]: :class:`MomentNet` of every member, from
+    member-stacked ``moment_net``-relative params (the plain route of a
+    moment net with hidden layers). `generators` (one per member) draw the
+    hidden layers' dropout."""
+    n_hidden = len(cfg.hidden_dim_moment)
+    layers = [(params[f"fc_layers.{3 * i}.weight"],
+               params[f"fc_layers.{3 * i}.bias"]) for i in range(n_hidden)]
+    layers.append((params["output_proj.weight"], params["output_proj.bias"]))
+    (w0, b0), M = layers[0], (0 if macro is None else macro.shape[-1])
+    # first layer, concat-free: columns [:M] act on macro, [M:] on stocks
+    x = (individual @ w0[:, None, :, M:].transpose(-1, -2)
+         + b0[:, None, None, :])
+    if macro is not None:
+        x = x + (macro @ w0[:, :, :M].transpose(1, 2))[:, :, None, :]
+    for w, b in layers[1:]:
+        x = dropout(torch.relu(x), cfg.dropout, generators)
+        x = x @ w[:, None].transpose(-1, -2) + b[:, None, None, :]
+    return torch.tanh(x).permute(0, 3, 1, 2)  # [S, K, T, N]
 
 
 def moment_output_params(module: "AssetPricingModule", cfg: GANConfig

@@ -15,13 +15,15 @@ members' recurrences together.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 LayerParams = Dict[str, torch.Tensor]
+# one generator, or one per member (leading axis) of a member-stacked tensor
+Generators = Union[torch.Generator, Sequence[torch.Generator], None]
 
 
 def _mT(w: torch.Tensor) -> torch.Tensor:
@@ -66,18 +68,25 @@ def lstm_step(p: LayerParams, carry: Carry, x_t: torch.Tensor) -> Carry:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Generators) -> torch.Tensor:
     """Inverted dropout drawn from an explicit generator; the identity
-    without one (eval) or at rate 0."""
+    without one (eval) or at rate 0. With one generator per member, member
+    s's slice x[s] draws from its own, exactly as a one-member call with
+    that generator draws (only the draw is per member)."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = torch.stack([torch.rand(x.shape[1:], generator=g, device=x.device)
+                         for g in generator])
+    keep = u >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def stacked_lstm_scan(layers: Sequence[LayerParams], x: torch.Tensor,
                       dropout_rate: float = 0.0,
-                      generator: Optional[torch.Generator] = None
+                      generator: Generators = None
                       ) -> Tuple[torch.Tensor, List[Carry]]:
     """x [..., T, M] → (last layer's h sequence [..., T, H], per-layer
     final carries). Between layers (only when there are several), training

@@ -85,10 +85,11 @@ sdf_ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
   const int F = d.F;
   const float* xt = x + (size_t)t * F * N;
   float* orow = out + ((size_t)s * T + t) * N;
+  const uint32_t base = drop.on ? drop.member_base[s] : 0u;
 
   for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
        n += gridDim.x * blockDim.x) {
-    const uint32_t row = drop.on ? sdf_ffn::row_hash(drop.seed, s, t, n) : 0u;
+    const uint32_t row = drop.on ? sdf_ffn::row_hash(base, t, n) : 0u;
     // -- first layer: relu(K1^T x + zp), feature by feature ----------------
     float cur[MAXW];
 #pragma unroll
@@ -201,20 +202,23 @@ int launch(const float* x, const float* zp, const float* params, float* out,
 }  // namespace
 
 // layout: see sdf_ffn::read_dims. dropout: rate > 0 iff `dropout` is 1;
-// then keep iff hash >= `threshold`, kept values scaled by `scale`.
+// then member s hashes from member_base[s] (a device array of S uint32),
+// keeps a unit iff its hash >= `threshold`, and scales kept values by
+// `scale`.
 // Returns 0 on success, a cudaError_t value, or -1 for an unsupported shape.
 extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
                            const float* params, float* out, int S, int T,
                            int N, const int* layout, int bf16, int dropout,
-                           unsigned int seed, unsigned int threshold,
-                           float scale, void* stream) {
+                           const unsigned int* member_base,
+                           unsigned int threshold, float scale,
+                           void* stream) {
   FfnDims d;
   int maxw = 0;
   if (sdf_ffn::read_dims(layout, &d, &maxw) != 0) return kUnsupported;
   if (S < 1 || T < 1 || N < 1 || T > 65535 || S > 65535) return kUnsupported;
   if ((size_t)sizeof(float) * (d.P + d.hp[0]) > 227 * 1024) return kUnsupported;
   if (maxw > SDF_FFN_MAXW) return kUnsupported;
-  const Dropout drop{dropout, seed, threshold, scale};
+  const Dropout drop{dropout, member_base, threshold, scale};
   return launch<SDF_FFN_MAXW>(x, zp, params, out, S, T, N, d, bf16, drop,
                               static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,7 @@
 // _bwd_kernel (:205, one member) and, through the explicit member axis S,
 // _bwd_kernel_members (:591). Given the cotangent g [S, T, N] of the raw
 // weights, it recomputes the forward tile by tile from (x, zp, weights,
-// dropout seed), keeps the ReLU and dropout masks, stores no activations in
+// dropout member bases), keeps the ReLU and dropout masks, stores no activations in
 // device memory, and emits, per member, the gradients of every packed
 // parameter (dK1 [F][hp0], dW_l, db_l, dkout, dbout, in the forward's packed
 // layout) and dzp [T, H1].
@@ -118,6 +118,7 @@ sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
   const int ntiles = (N + bn - 1) / bn;
   const long long cells = (long long)T * ntiles;
   const float dscale = drop.on ? drop.scale : 1.f;
+  const uint32_t base = drop.on ? drop.member_base[s] : 0u;
   float* dzp_blk = dzp_part + ((size_t)s * G + b) * T * h0;
 
   for (long long c = b; c < cells; c += G) {
@@ -135,8 +136,7 @@ sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
     if (lane) {
       const float gv = valid ? g[((size_t)s * T + t) * N + n] : 0.f;
       gs[tid] = gv;
-      const uint32_t row =
-          drop.on ? sdf_ffn::row_hash(drop.seed, s, t, n) : 0u;
+      const uint32_t row = drop.on ? sdf_ffn::row_hash(base, t, n) : 0u;
       const float* xt = x + (size_t)t * F * N;
       float* xrow = xs + tid * m.sx;
       float cur[MAXW];
@@ -344,8 +344,9 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
                            const float* params, const float* g,
                            float* grad_part, float* dzp_part, int S, int T,
                            int N, const int* layout, int bf16, int dropout,
-                           unsigned int seed, unsigned int threshold,
-                           float scale, int G, int bn, void* stream) {
+                           const unsigned int* member_base,
+                           unsigned int threshold, float scale, int G, int bn,
+                           void* stream) {
   FfnDims d;
   int maxw = 0;
   if (sdf_ffn::read_dims(layout, &d, &maxw) != 0) return kUnsupported;
@@ -362,7 +363,7 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const Dropout drop{dropout, seed, threshold, scale};
+  const Dropout drop{dropout, member_base, threshold, scale};
   dim3 grid((unsigned)G, (unsigned)S);
   sdf_ffn_bwd_kernel<SDF_FFN_MAXW>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

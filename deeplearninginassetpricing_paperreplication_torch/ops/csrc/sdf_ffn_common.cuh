@@ -2,13 +2,17 @@
 // the packed-layout dimensions, the bf16 operand rounding, and the dropout
 // mask.
 //
-// Dropout: a counter-based hash of (seed, member s, period t, stock n,
-// layer l, unit j) only, so a mask does not depend on the block size or the
-// launch shape, and the backward regenerates the forward's masks exactly.
-// The plain PyTorch version (ops/sdf_ffn.py::_row_hash, _unit_bits)
-// computes the same bits. The rule is the JAX kernel's
-// (pallas_ffn._dropout_mask): keep if bits >= round(rate * 2^32), scale the
-// kept value by 1 / (1 - rate), after the ReLU of every hidden layer.
+// Dropout: a counter-based hash of (member base, period t, stock n, layer l,
+// unit j) only, so a mask does not depend on the block size or the launch
+// shape, and the backward regenerates the forward's masks exactly. Member
+// s's base is fmix32(fmix32(seed_s ^ golden) ^ index_s), computed on the
+// host (ops/sdf_ffn.py::member_bases) and read from a small [S] array: with
+// S seeds, index_s = 0 and member s draws exactly the masks of a one-member
+// launch with seed_s; with one seed, index_s = s. The plain PyTorch version
+// (ops/sdf_ffn.py::_row_hash, _unit_bits) computes the same bits. The rule
+// is the JAX kernel's (pallas_ffn._dropout_mask): keep if bits >=
+// round(rate * 2^32), scale the kept value by 1 / (1 - rate), after the
+// ReLU of every hidden layer.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,8 +37,8 @@ struct FfnDims {
 };
 
 struct Dropout {
-  int on;            // 0: no dropout
-  uint32_t seed;
+  int on;                        // 0: no dropout
+  const uint32_t* member_base;   // [S] per-member hash bases (device)
   uint32_t threshold;  // keep iff bits >= threshold
   float scale;         // 1 / (1 - rate), as float32
 };
@@ -73,10 +77,11 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// the per-(member, period, stock) base of every unit's bits
-__device__ __forceinline__ uint32_t row_hash(uint32_t seed, uint32_t s,
-                                             uint32_t t, uint32_t n) {
-  return fmix32(fmix32(fmix32(fmix32(seed ^ 0x9E3779B9u) ^ s) ^ t) ^ n);
+// the per-(member, period, stock) base of every unit's bits, from the
+// member's base
+__device__ __forceinline__ uint32_t row_hash(uint32_t base, uint32_t t,
+                                             uint32_t n) {
+  return fmix32(fmix32(base ^ t) ^ n);
 }
 
 __device__ __forceinline__ bool keep_unit(uint32_t row, int l, int j,

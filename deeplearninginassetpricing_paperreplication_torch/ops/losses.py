@@ -9,6 +9,11 @@ columns change nothing.
 Notation: weights w [T, N], returns R [T, N], mask m [T, N] (float 0/1),
 moments h [K, T, N]. SDF M_t = 1 + F_t with F_t the (optionally N̄/N_t
 weighted) aggregate portfolio return.
+
+Every function also takes the weights (and moments) with a leading member
+axis, w [S, T, N] and h [S, K, T, N] against the shared R and m [T, N], and
+then returns one loss (and one F [S, T]) per member: the reductions run over
+the period and stock axes counted from the end.
 """
 
 from __future__ import annotations
@@ -22,9 +27,9 @@ def portfolio_returns(weights: torch.Tensor, returns: torch.Tensor,
                       mask: torch.Tensor, weighted: bool = True
                       ) -> torch.Tensor:
     """F_t = Σ_i w·R·m, scaled per period by N̄/N_t when `weighted`."""
-    weighted_returns = (weights * returns * mask).sum(dim=1)
+    weighted_returns = (weights * returns * mask).sum(dim=-1)
     if weighted:
-        n_per_period = mask.sum(dim=1).clamp_min(1)  # [T]
+        n_per_period = mask.sum(dim=-1).clamp_min(1)  # [T]
         return weighted_returns / n_per_period * n_per_period.mean()
     return weighted_returns
 
@@ -37,11 +42,12 @@ def unconditional_loss(weights: torch.Tensor, returns: torch.Tensor,
     if F is None:
         F = portfolio_returns(weights, returns, mask, weighted)
     sdf = 1.0 + F
-    t_per_asset = mask.sum(dim=0).clamp_min(1)  # [N]
-    empirical_mean = (returns * mask * sdf[:, None]).sum(dim=0) / t_per_asset
+    t_per_asset = mask.sum(dim=-2).clamp_min(1)  # [N]
+    empirical_mean = ((returns * mask * sdf[..., None]).sum(dim=-2)
+                      / t_per_asset)
     if n_assets is None:
-        return (empirical_mean ** 2).mean(), F
-    return (empirical_mean ** 2).sum() / n_assets, F
+        return (empirical_mean ** 2).mean(dim=-1), F
+    return (empirical_mean ** 2).sum(dim=-1) / n_assets, F
 
 
 def conditional_loss(weights: torch.Tensor, returns: torch.Tensor,
@@ -53,12 +59,14 @@ def conditional_loss(weights: torch.Tensor, returns: torch.Tensor,
     if F is None:
         F = portfolio_returns(weights, returns, mask, weighted)
     sdf = 1.0 + F
-    t_per_asset = mask.sum(dim=0).clamp_min(1)  # [N]
-    x = returns * mask * sdf[:, None]  # [T, N]
-    empirical_mean = torch.einsum("ktn,tn->kn", moments, x) / t_per_asset
+    t_per_asset = mask.sum(dim=-2).clamp_min(1)  # [N]
+    x = returns * mask * sdf[..., None]  # [T, N]
+    empirical_mean = torch.einsum("...ktn,...tn->...kn", moments,
+                                  x) / t_per_asset
     if n_assets is None:
-        return (empirical_mean ** 2).mean(), F
-    return (empirical_mean ** 2).sum() / (moments.shape[0] * n_assets), F
+        return (empirical_mean ** 2).mean(dim=(-2, -1)), F
+    return ((empirical_mean ** 2).sum(dim=(-2, -1))
+            / (moments.shape[-3] * n_assets)), F
 
 
 def residual_loss(weights: torch.Tensor, returns: torch.Tensor,
@@ -68,23 +76,23 @@ def residual_loss(weights: torch.Tensor, returns: torch.Tensor,
     A period joins the R² average iff it has ≥ 2 valid stocks, and the
     residual average iff also w·w > 1e-8 there. Returns 0 when no period
     contributes a residual."""
-    count = mask.sum(dim=1)  # [T]
+    count = mask.sum(dim=-1)  # [T]
     safe_count = count.clamp_min(1)
     has_stocks = count >= 2
-    ww = (weights * weights * mask).sum(dim=1)
-    rw = (returns * weights * mask).sum(dim=1)
+    ww = (weights * weights * mask).sum(dim=-1)
+    rw = (returns * weights * mask).sum(dim=-1)
     coef = rw / torch.where(ww > 1e-8, ww, torch.ones_like(ww))
-    resid = (returns - coef[:, None] * weights) * mask
-    resid_sq = (resid ** 2).sum(dim=1) / safe_count
-    r_sq = (returns ** 2 * mask).sum(dim=1) / safe_count
+    resid = (returns - coef[..., None] * weights) * mask
+    resid_sq = (resid ** 2).sum(dim=-1) / safe_count
+    r_sq = (returns ** 2 * mask).sum(dim=-1) / safe_count
     resid_contrib = has_stocks & (ww > 1e-8)
-    n_resid = resid_contrib.sum()
-    n_rsq = has_stocks.sum()
+    n_resid = resid_contrib.sum(dim=-1)
+    n_rsq = has_stocks.sum(dim=-1)
     zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
     resid_mean = torch.where(
-        n_resid > 0, (resid_sq * resid_contrib).sum() / n_resid.clamp_min(1),
-        zero)
+        n_resid > 0,
+        (resid_sq * resid_contrib).sum(dim=-1) / n_resid.clamp_min(1), zero)
     rsq_mean = torch.where(
-        n_rsq > 0, (r_sq * has_stocks).sum() / n_rsq.clamp_min(1), zero)
+        n_rsq > 0, (r_sq * has_stocks).sum(dim=-1) / n_rsq.clamp_min(1), zero)
     return torch.where(n_resid > 0, resid_mean / rsq_mean.clamp_min(1e-8),
                        zero)

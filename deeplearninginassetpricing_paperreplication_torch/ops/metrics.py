@@ -5,7 +5,9 @@ The JAX package's ``ops/metrics.py`` in PyTorch, with its conventions:
 Sharpe is monthly (not annualized); training uses ddof=1 (torch ``std``)
 and the ensemble evaluator ddof=0 (numpy ``std``), picked with ``ddof``.
 EV and XS-R² use the per-stock unconditional OLS beta of R_i on the SDF
-factor F over the stock's valid months, masked-panel exact.
+factor F over the stock's valid months, masked-panel exact. ``sharpe`` and
+``sharpe_monitor`` reduce over the last (period) axis, so a member-stacked
+[S, T] series gives one Sharpe per member.
 """
 
 from __future__ import annotations
@@ -15,15 +17,16 @@ import torch
 
 
 def sharpe(returns: torch.Tensor, ddof: int = 1) -> torch.Tensor:
-    """Monthly Sharpe mean/std; 0 when std < 1e-8."""
-    std = returns.std(correction=ddof)
+    """Monthly Sharpe mean/std over the last axis; 0 when std < 1e-8."""
+    std = returns.std(dim=-1, correction=ddof)
     return torch.where(std < 1e-8, torch.zeros_like(std),
-                       returns.mean() / std)
+                       returns.mean(dim=-1) / std)
 
 
 def sharpe_monitor(returns: torch.Tensor) -> torch.Tensor:
-    """The in-forward monitoring Sharpe: mean / (std_ddof1 + 1e-8)."""
-    return returns.mean() / (returns.std(correction=1) + 1e-8)
+    """The in-forward monitoring Sharpe: mean / (std_ddof1 + 1e-8), over
+    the last axis."""
+    return returns.mean(dim=-1) / (returns.std(dim=-1, correction=1) + 1e-8)
 
 
 def max_drawdown(returns) -> float:

@@ -31,11 +31,15 @@ serving path's forward over weights packed once.
 ``compute_dtype="bfloat16"`` rounds both operands of every product to bf16
 and accumulates in f32 (``pallas_ffn._dot``); biases stay f32.
 
-Dropout (training) is a counter-based hash of (seed, member, period, stock,
-layer, unit), applied after the ReLU of every hidden layer: keep iff the
-bits are ≥ round(rate·2³²), kept values scaled by 1/(1 − rate). The mask
-does not depend on how the kernel tiles the stocks; it is not the JAX
-kernel's TPU PRNG stream.
+Dropout (training) is a counter-based hash of (member base, period,
+stock, layer, unit), applied after the ReLU of every hidden layer: keep iff
+the bits are ≥ round(rate·2³²), kept values scaled by 1/(1 − rate). The
+mask does not depend on how the kernel tiles the stocks; it is not the JAX
+kernel's TPU PRNG stream. ``seed`` is one int or one int per member: with
+S seeds, member s draws exactly the masks of a one-member call with
+``seeds[s]`` (as the JAX member kernels seed each member from its own
+``seed_ref[s]``), so a member-fused ensemble trains like S serial runs; one
+int gives member s the base of (seed, s).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -65,6 +69,7 @@ _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 Mids = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+Seed = Union[int, Sequence[int]]
 
 
 def reset_launch_count() -> None:
@@ -118,14 +123,42 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def _row_hash(seed: int, S: int, T: int, N: int,
+def _fmix32_int(h: int) -> int:
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def member_seeds(seed: Seed, S: int) -> Tuple[int, ...]:
+    """The dropout seed as the kernels take it: one int, or a tuple of S
+    ints (validated), each reduced to 32 bits."""
+    if isinstance(seed, (int, np.integer)):
+        return int(seed) & _M32
+    seeds = tuple(int(x) & _M32 for x in seed)
+    if len(seeds) != S:
+        raise ValueError(f"sdf_ffn: {len(seeds)} dropout seeds for {S} "
+                         "members")
+    return seeds
+
+
+def member_bases(seed: Seed, S: int) -> List[int]:
+    """Member s's hash base fmix32(fmix32(seed_s ^ golden) ^ index_s):
+    (seed, s) for one int seed, (seeds[s], 0) for S seeds — so member s of
+    an S-seed call hashes exactly as a one-member call with seeds[s]."""
+    seed = member_seeds(seed, S)
+    keys = ([(seed, s) for s in range(S)] if isinstance(seed, int)
+            else [(x, 0) for x in seed])
+    return [_fmix32_int(_fmix32_int(x ^ _GOLDEN) ^ i) for x, i in keys]
+
+
+def _row_hash(seed: Seed, S: int, T: int, N: int,
               device) -> torch.Tensor:
     """[S, T, N] int64: the per-(member, period, stock) base of the bits."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    h = _fmix32(torch.tensor((int(seed) ^ _GOLDEN) & _M32, dtype=torch.int64,
-                             device=device))
-    h = _fmix32(h ^ ar(S)[:, None, None])
-    h = _fmix32(h ^ ar(T)[None, :, None])
+    h = torch.tensor(member_bases(seed, S), dtype=torch.int64, device=device)
+    h = _fmix32(h[:, None, None] ^ ar(T)[None, :, None])
     return _fmix32(h ^ ar(N)[None, None, :])
 
 
@@ -136,9 +169,10 @@ def _unit_bits(row: torch.Tensor, layer: int, H: int) -> torch.Tensor:
     return _fmix32(row[:, :, None, :] ^ key[None, None, :, None])
 
 
-def dropout_keep(seed: int, rate: float, layer: int, S: int, T: int, H: int,
-                 N: int, device="cpu") -> torch.Tensor:
-    """The kernels' keep mask [S, T, H, N] (bool) of one hidden layer."""
+def dropout_keep(seed: Seed, rate: float, layer: int, S: int, T: int,
+                 H: int, N: int, device="cpu") -> torch.Tensor:
+    """The kernels' keep mask [S, T, H, N] (bool) of one hidden layer;
+    `seed` is one int or S ints."""
     threshold, _ = dropout_params(rate)
     return _unit_bits(_row_hash(seed, S, T, N, device), layer, H) >= threshold
 
@@ -180,7 +214,7 @@ def _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed, dropout_rate):
 
 def sdf_ffn_reference(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
                       mids: Mids, kout: torch.Tensor, bout: torch.Tensor,
-                      compute_dtype: str = "float32", seed: int = 0,
+                      compute_dtype: str = "float32", seed: Seed = 0,
                       dropout_rate: float = 0.0) -> torch.Tensor:
     """The plain-PyTorch forward.
 
@@ -197,7 +231,7 @@ def sdf_ffn_reference(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
 def sdf_ffn_bwd_reference(x_t: torch.Tensor, zp: torch.Tensor,
                           k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
                           g: torch.Tensor, compute_dtype: str = "float32",
-                          seed: int = 0, dropout_rate: float = 0.0):
+                          seed: Seed = 0, dropout_rate: float = 0.0):
     """The plain-PyTorch backward, with the JAX kernel's rounding points.
 
     g [S, T, N] → (dzp [S, T, H1], dk1T [S, H1, F], ((dW, db), ...),
@@ -356,11 +390,11 @@ def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
 _ARGTYPES = {
     "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-               ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
                ctypes.c_void_p]),
     "bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-               ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
                ctypes.c_int, ctypes.c_void_p]),
 }
 
@@ -403,11 +437,15 @@ def _raise_rc(kernel: str, rc: int) -> None:
             + ("unsupported shape" if rc == -1 else "cudaError") + ")")
 
 
-def _dropout_args(seed: int, rate: float) -> Tuple[int, int, int, float]:
+def _dropout_args(seed: Seed, rate: float, S: int, device):
+    """(kernel arguments (on, member_base pointer, threshold, scale), the
+    [S] base tensor the pointer points into, kept alive by the caller)."""
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
+        return (0, None, 0, 1.0), None
     threshold, scale = dropout_params(rate)
-    return 1, int(seed) & _M32, threshold, scale
+    bases = np.asarray(member_bases(seed, S), np.uint32).view(np.int32)
+    base_t = torch.from_numpy(bases).to(device)
+    return (1, base_t.data_ptr(), threshold, scale), base_t
 
 
 def _layout_ints(lay: FfnLayout):
@@ -416,7 +454,7 @@ def _layout_ints(lay: FfnLayout):
 
 
 def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-            seed: int = 0, dropout_rate: float = 0.0) -> torch.Tensor:
+            seed: Seed = 0, dropout_rate: float = 0.0) -> torch.Tensor:
     global launches
     lay = packed.layout
     T, F, N = x_t.shape
@@ -427,27 +465,29 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     _check_cuda("params", packed.params, (S, lay.P), dev)
     lib = _load("fwd", width_bound(lay.hidden))
     out = torch.empty((S, T, N), dtype=torch.float32, device=dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_fwd(
             x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
             out.data_ptr(), S, T, N, _layout_ints(lay),
-            int(packed.compute_dtype == "bfloat16"),
-            *_dropout_args(seed, dropout_rate), stream)
+            int(packed.compute_dtype == "bfloat16"), *drop, stream)
     _raise_rc("sdf_ffn_fwd", rc)
     launches += 1
     return out
 
 
 def bwd_blocks(S: int, T: int, N: int, tile: int, sms: int) -> int:
-    """Blocks per member of the backward: one wave of one block per SM,
-    never more than the (period, stock-tile) cells."""
+    """Blocks per member of the backward: one wave of one block per SM
+    (⌊sms / S⌋ per member, so S · G ≤ sms: a ceiling would put the
+    remainder in a second wave of its own), never more than the (period,
+    stock-tile) cells."""
     cells = T * (-(-N // tile))
-    return max(1, min(cells, -(-sms // S)))
+    return max(1, min(cells, sms // S))
 
 
 def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-                g: torch.Tensor, seed: int = 0, dropout_rate: float = 0.0
+                g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(grads [S, P] in the packed layout, dzp [S, T, H1])."""
     global bwd_launches
@@ -472,13 +512,14 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     grad_part = torch.empty((S, G, lay.P), dtype=torch.float32, device=dev)
     dzp_part = torch.zeros((S, G, T, lay.hidden[0]), dtype=torch.float32,
                            device=dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_bwd(
             x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
             g.data_ptr(), grad_part.data_ptr(), dzp_part.data_ptr(), S, T, N,
-            ints, int(packed.compute_dtype == "bfloat16"),
-            *_dropout_args(seed, dropout_rate), G, tile, stream)
+            ints, int(packed.compute_dtype == "bfloat16"), *drop, G, tile,
+            stream)
     _raise_rc("sdf_ffn_bwd", rc)
     bwd_launches += 1
     # the fixed-order pass over the per-block partials
@@ -518,7 +559,7 @@ def _route(x_t: torch.Tensor, kernel: str) -> str:
 
 def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                    kernel: str = "auto", dropout_rate: float = 0.0,
-                   seed: int = 0) -> torch.Tensor:
+                   seed: Seed = 0) -> torch.Tensor:
     """Raw weights [S, T, N] from pre-packed member weights (the serving
     path: no gradient)."""
     if _route(x_t, kernel) == "plain":
@@ -531,7 +572,7 @@ def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
 class _SdfFfn(torch.autograd.Function):
     """Forward: the fwd kernel (or its plain version); backward: the bwd
     kernel (or its plain version), regenerating the forward's dropout masks
-    from the seed. Packing happens here; autograd sees the raw tensors."""
+    from the seed(s). Packing happens here; autograd sees the raw tensors."""
 
     @staticmethod
     def forward(ctx, meta, x_t, zp, k1T, kout, bout, *mids_flat):
@@ -570,15 +611,16 @@ class _SdfFfn(torch.autograd.Function):
 
 def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
             mids: Mids, kout: torch.Tensor, bout: torch.Tensor, *,
-            seed: int = 0, dropout_rate: float = 0.0,
+            seed: Seed = 0, dropout_rate: float = 0.0,
             compute_dtype: str = "bfloat16",
             kernel: str = "auto") -> torch.Tensor:
     """Differentiable fused FFN: raw weights [S, T, N].
 
     Gradients flow to zp (and through it to the macro path) and to every
     weight and bias. Asking for the panel's gradient raises (TPU kernel row
-    4 is not ported). ``seed`` and ``dropout_rate`` draw the dropout masks,
-    identically in the forward and the backward."""
+    4 is not ported). ``seed`` (one int, or S ints: one per member) and
+    ``dropout_rate`` draw the dropout masks, identically in the forward and
+    the backward."""
     _check_dtype(compute_dtype)
     S, H1, F = k1T.shape
     if len(mids) + 1 > MAX_HIDDEN_LAYERS:
@@ -586,7 +628,7 @@ def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
                          f"hidden layers; got {len(mids) + 1}")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1): {dropout_rate}")
-    meta = (_route(x_t, kernel), compute_dtype, int(seed) & _M32,
+    meta = (_route(x_t, kernel), compute_dtype, member_seeds(seed, S),
             float(dropout_rate))
     flat = [t for wb in mids for t in wb]
     return _SdfFfn.apply(meta, x_t, zp, k1T, kout, bout, *flat)

@@ -10,6 +10,11 @@ names, so these load with ``load_state_dict(strict=True)``.
 The trainer writes the same layout (:func:`save_state_dict`,
 :func:`save_history`), so its run directories load back strictly. Reading
 the JAX package's flax ``.msgpack`` checkpoints is not ported.
+
+A trained ensemble is a member-stacked dict (the same keys, each tensor
+[S, ...]): :func:`stacked_state_dict_from_jax_params` bridges the JAX
+package's vmapped params into one, and :func:`member_state_dicts` splits
+one into per-member ``state_dict``s for saving, one run directory each.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import os
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,6 +97,38 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any],
         put_dense(f"moment_net.fc_layers.{3 * i}", moment[f"TorchDense_{i}"])
     put_dense("moment_net.output_proj", moment["output_proj"])
     return sd
+
+
+def _member_tree(tree: Mapping[str, Any], s: int) -> Dict[str, Any]:
+    return {k: _member_tree(v, s) if isinstance(v, Mapping)
+            else np.asarray(v)[s] for k, v in tree.items()}
+
+
+def _first_leaf(tree: Mapping[str, Any]):
+    v = next(iter(tree.values()))
+    return _first_leaf(v) if isinstance(v, Mapping) else v
+
+
+def stacked_state_dict_from_jax_params(vparams_np: Mapping[str, Any],
+                                       cfg: GANConfig
+                                       ) -> Dict[str, torch.Tensor]:
+    """The JAX package's member-stacked params tree (every leaf [S, ...],
+    as NumPy arrays, e.g. ``jax.device_get`` of ``train_ensemble``'s
+    params) → the port's member-stacked ``state_dict`` [S, ...]: member s
+    is :func:`state_dict_from_jax_params` of the tree's slice s."""
+    S = np.shape(_first_leaf(vparams_np))[0]
+    sds = [state_dict_from_jax_params(_member_tree(vparams_np, s), cfg)
+           for s in range(S)]
+    return {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]}
+
+
+def member_state_dicts(stacked: Mapping[str, torch.Tensor]
+                       ) -> List[Dict[str, torch.Tensor]]:
+    """A member-stacked ``state_dict`` [S, ...] → S reference-layout
+    ``state_dict``s (CPU tensors), member order kept."""
+    S = next(iter(stacked.values())).shape[0]
+    return [{k: v[s].detach().cpu().clone() for k, v in stacked.items()}
+            for s in range(S)]
 
 
 def save_state_dict(path: Union[str, Path],

@@ -13,11 +13,17 @@ Phase → (loss, trainable subtree):
     unconditional → E[w·R·M]²,    sdf_net
     moment        → −E[h·w·R·M]², moment_net
     conditional   → E[h·w·R·M]²,  sdf_net
+
+The member-stacked steps (:class:`MemberOptimizer`, :func:`train_step_members`,
+:func:`eval_step_members`) train S models whose parameters sit on a leading
+axis [S, ...]. optax runs inside the JAX package's vmap, so each member is
+clipped by its OWN global norm; :class:`MemberOptimizer` does the same (one
+joint norm over the stack would clip every member by all members' norm).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,22 +59,42 @@ class Optimizer:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
+    def _norms(self, grads: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(the pre-clip global norm, that norm as each gradient's clip
+        sees it)."""
+        gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+        return gnorm, [gnorm] * len(grads)
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """Apply one update from `grads`; returns the pre-clip global norm."""
-        gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = gnorm < self.grad_clip
+        gnorm, norms = self._norms(grads)
         self.count += 1
         dev = gnorm.device
         bc1 = 1 - torch.tensor(self.b1, device=dev) ** self.count
         bc2 = 1 - torch.tensor(self.b2, device=dev) ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(keep, g, g / gnorm * self.grad_clip)
+        for p, g, n, mu, nu in zip(self.params, grads, norms, self.mu,
+                                   self.nu):
+            g = torch.where(n < self.grad_clip, g, g / n * self.grad_clip)
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * g * g + self.b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(-self.lr * update)
         return gnorm
+
+
+class MemberOptimizer(Optimizer):
+    """:class:`Optimizer` over member-stacked tensors [S, ...]: member s is
+    clipped by the global norm of its own gradients, then the same Adam
+    runs elementwise, so each member's update is a one-model
+    ``Optimizer.step``. ``step`` returns the [S] pre-clip norms."""
+
+    def _norms(self, grads):
+        sq = sum((g * g).reshape(g.shape[0], -1).sum(dim=1) for g in grads)
+        gnorm = torch.sqrt(sq)  # [S]
+        return gnorm, [gnorm.view((-1,) + (1,) * (g.dim() - 1))
+                       for g in grads]
 
 
 def set_trainable(gan: GAN, key: str) -> None:
@@ -112,5 +138,58 @@ def eval_step(gan: GAN, batch: Batch) -> Dict[str, torch.Tensor]:
         "sharpe": sharpe(port, ddof=1),
         "mean_return": port.mean(),
         "std_return": port.std(correction=0),
+        "portfolio_returns": port,
+    }
+
+
+# -- member-stacked steps ---------------------------------------------------
+
+StackedParams = Mapping[str, torch.Tensor]
+
+
+def member_subtree(params: StackedParams, key: str) -> List[torch.Tensor]:
+    """The stacked tensors of one subtree (``sdf_net`` or ``moment_net``),
+    in ``state_dict`` order."""
+    return [v for k, v in params.items() if k.startswith(key + ".")]
+
+
+def train_step_members(gan: GAN, phase: str, opt: MemberOptimizer,
+                       params: StackedParams, batch: Batch,
+                       seeds: Optional[Sequence[int]]
+                       ) -> Dict[str, torch.Tensor]:
+    """One update of every member's phase subtree, in place; returns [S]
+    device tensors (the caller syncs once per epoch). `seeds` holds one
+    dropout seed per member."""
+    key = trainable_key(phase)
+    for k, p in params.items():
+        p.requires_grad_(k.startswith(key + "."))
+    out = gan.forward_members(params, batch, phase=phase, seeds=seeds)
+    grads = torch.autograd.grad(out["loss"].sum(), opt.params,
+                                allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(opt.params, grads)]
+    grad_norm = opt.step(grads)
+    return {
+        "loss": out["loss"].detach(),
+        "loss_unc": out["loss_unconditional"].detach(),
+        "loss_cond": out["loss_conditional"].detach(),
+        "loss_residual": out["loss_residual"].detach(),
+        "sharpe": sharpe(out["portfolio_returns"].detach(), ddof=1),
+        "grad_norm": grad_norm,
+    }
+
+
+@torch.no_grad()
+def eval_step_members(gan: GAN, params: StackedParams, batch: Batch
+                      ) -> Dict[str, torch.Tensor]:
+    """:func:`eval_step` of every member: [S] metrics, [S, T] portfolio."""
+    out = gan.forward_members(params, batch, phase="conditional")
+    nw = normalize_weights_abs(out["weights"], batch["mask"])
+    port = (nw * batch["returns"] * batch["mask"]).sum(dim=-1)
+    return {
+        "loss": out["loss"],
+        "loss_unc": out["loss_unconditional"],
+        "loss_cond": out["loss_conditional"],
+        "sharpe": sharpe(port, ddof=1),
         "portfolio_returns": port,
     }

@@ -113,7 +113,7 @@ def test_engine_matches_jax_offline_ensemble(run_dirs, splits):
     assert {r.batch_bucket for r in singles} == {1}
     assert {r.batch_bucket for r in grouped} == {4}
     # the port's own offline path is the same function
-    cfg, stacked = stack_checkpoints(run_dirs)
+    cfg, stacked = stack_checkpoints(run_dirs, device="cpu")
     port = ensemble_metrics(cfg, stacked, {
         k: torch.from_numpy(np.asarray(v, np.float32))
         for k, v in test.full_batch().items()}, CPU_F32)
