@@ -2,21 +2,26 @@
 """Drive the PyTorch port on one CUDA card, end to end.
 
     python3 chip_smoke.py             # the check (one card)
-    python3 chip_smoke.py --profile   # also: torch.profiler over the engine
-                                      # and over training and ensemble
-                                      # epochs
+    python3 chip_smoke.py --profile   # also: torch.profiler over the engine,
+                                      # training and ensemble epochs, and
+                                      # the panel gradient
 
 Phases, each printing its results; any failure exits non-zero:
 
 1. Card: ``nvidia-smi`` name and power limit.
 2. Build: every kernel of the port from this checkout's sources (``nvcc``,
    sm_90a, one process per library, all started together): the SDF-FFN
-   forward and backward for each width bound, and the conditional-EM.
+   forward and backward (with its panel cotangent) for each width bound,
+   the conditional-EM (forward, backward, panel cotangent), and the matmul
+   ceiling.
 3. Kernels against their plain PyTorch versions on the card, at the serving,
-   training and ensemble-training paths' shapes (S = 9 with one dropout
-   seed per member), with CUDA-event timings, bounds, the dropout keep
-   share, and bitwise-repeatable gradients; then the bounds of the TPU
-   kernels not ported yet, from their shapes.
+   training, ensemble-training and panel-gradient paths' shapes (S = 9 with
+   one dropout seed per member), with CUDA-event timings, bounds, the
+   dropout keep share, and bitwise-repeatable gradients and panel
+   cotangents; then the matmul ceiling: its values at small shapes, and
+   (the roofline path) ``measure_matmul_ceiling`` at the model's shapes
+   with the JAX defaults (checked bit for bit there on integer operands),
+   each shape's TFLOP/s beside cuBLAS's on the same bf16 products.
 4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
    N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
    reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served over
@@ -29,16 +34,28 @@ Phases, each printing its results; any failure exits non-zero:
 6. Training at full width on the same panel (the paper's model, dropout
    0.05, schedule 8/4/16, ignore 2): ``train_3phase`` on the kernel route
    against ``kernel="off"`` in f32, with every kernel's launches counted
-   per phase; then the ``train`` CLI in its default bf16 configuration,
-   and the port's ``evaluate_ensemble`` on the run dir it wrote.
+   per phase, and the roofline of its phase-1 and phase-3 epochs
+   (``ops/roofline.py``: the measured epoch ms and the f32 panel's bytes
+   against the f32 CUDA-core peak, which bounds these f32 kernels, and
+   against the measured bf16 shape ceiling); then the ``train`` CLI in its
+   default bf16 configuration, and the port's ``evaluate_ensemble`` on the
+   run dir it wrote.
 7. Ensemble training at full width on the same panel: the paper's nine
    seeds trained together, members stacked (``train_ensemble``, f32,
    dropout 0.05, schedule 8/4/16, ignore 2). Every epoch launches each
    kernel exactly as one model does, every launch carries all 9 members;
    the kernel route is held against ``kernel="off"`` and each member
-   against its own serial ``train_3phase``; then ``evaluate_ensemble
-   --train_seeds`` (bf16) and ``--checkpoint_dirs`` on what it wrote must
-   report the same test Sharpe.
+   against its own serial ``train_3phase``; the roofline of its epochs at
+   S = 9; then ``evaluate_ensemble --train_seeds`` (bf16) and
+   ``--checkpoint_dirs`` on what it wrote must report the same test Sharpe.
+8. Panel gradients at full width: the characteristic sensitivity
+   ∂loss/∂individual of the nine members phase 7 trained (parameters
+   frozen), on the train split: ``torch.autograd.grad`` of the conditional
+   loss, the unconditional loss and the weights against a seeded random
+   cotangent, kernel route against ``kernel="off"`` in f32 and bf16. One
+   conditional call must launch the FFN forward and panel cotangent, the
+   conditional-EM forward, backward and panel cotangent once each, and the
+   FFN's parameter backward not at all.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -77,6 +94,9 @@ SCHEDULE = dict(num_epochs_unc=8, num_epochs_moment=4, num_epochs=16,
 # cond_em_bwd) — the train step, then (phases 1 and 3) eval on valid, test
 PER_EPOCH = {"unconditional": (3, 1, 2, 0), "moment": (1, 0, 1, 1),
              "conditional": (3, 1, 3, 1)}
+# one frozen-parameter panel gradient of the conditional loss: (sdf_ffn_fwd,
+# sdf_ffn_bwd, sdf_ffn_dx, cond_em_fwd, cond_em_bwd, cond_em_dx)
+PANEL_GRAD_LAUNCHES = (1, 0, 1, 1, 1, 1)
 DROPOUT = 0.05
 # kernel-check shapes: (S, T, N) of the FFN backward, (S, N) of the
 # conditional-EM at T = 48, and the keep-share panel (T, N)
@@ -89,11 +109,23 @@ KEEP_SHAPE = (48, 10_000)
 BWD_ROW, CEM_ROW = (1, 48, 10000), (1, 10000)  # the training path's shapes
 # the ensemble training path's shapes: all nine members in one launch
 ENS_BWD_ROW, ENS_CEM_ROW = (9, 48, 10000), (9, 10000)
-
-# the card's published peaks (H100 SXM data sheet, dense): the bound of a
-# kernel is the larger of bytes / memory rate and operations / peak rate
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the panel cotangents' (S, T, N): one member, a ragged three, and the
+# panel-gradient path's nine members
+DX_SHAPES = [(1, 48, 10000), (3, 48, 10007), (9, 48, 10000)]
+DX_ROW = (9, 48, 10000)
+# the matmul ceiling's value checks, (M, K, BN, S, repeats, steps): at 2 x 3
+# steps (one step per step group) on normal operands, within 1e-4 of max;
+# and at the timed configuration (8 x 64: several steps per step group, as
+# measure_matmul_ceiling launches it) on integer operands in [-2, 2], whose
+# every partial sum is exact in f32 (|sum| <= 9 * 224 * 4 * 512 < 2^24), so
+# the kernel must equal its plain version bit for bit: one repeat too many or
+# too few shows, where on normal operands the f32 accumulation of 512 like
+# terms alone can drift past the 1e-4 bar
+CEILING_CHECKS = [(64, 46, 2048, 9, 2, 3), (64, 64, 2048, 9, 2, 3),
+                  (8, 224, 2048, 9, 2, 3), (128, 128, 2048, 9, 2, 3),
+                  (8, 16, 100, 2, 2, 3)]
+CEILING_EXACT_CHECKS = [(64, 46, 2048, 9, 8, 64), (64, 64, 2048, 9, 8, 64),
+                        (8, 224, 2048, 9, 8, 64), (128, 128, 2048, 9, 8, 64)]
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)  # kernel vs plain, f32 (sum order)
 GRAD_F32_REL = 1e-4  # gradients, f32: atol = 1e-4 · max|reference|
@@ -119,10 +151,17 @@ def card_line() -> str:
 
 
 def bound(flops: int, nbytes: int, dtype: str):
-    """(bound ms, what bounds it): the larger of operations over the peak
-    rate and bytes over the memory rate."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    """(bound ms, what bounds it): the larger of operations over the card's
+    published peak rate for `dtype` and bytes over its memory rate (the
+    H100 SXM data sheet's, from ops/roofline.py)."""
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        roofline,
+    )
+
+    peak = {"float32": roofline.PEAK_F32_FLOPS,
+            "bfloat16": roofline.PEAK_BF16_FLOPS}[dtype]
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / (roofline.HBM_PEAK_GBPS * 1e9) * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -149,6 +188,22 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_of(torch, fn):
+    """fn captured in a CUDA graph, after two warm-up calls on a side stream
+    (as capture needs): a replay launches the same kernels with no host
+    dispatch between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 def device_events(prof):
@@ -218,21 +273,17 @@ def kernel_checks(torch, K, card):
                     plain_ms = cuda_ms(torch, lambda: K.sdf_ffn_reference(
                         x, zp, k1T, mids, kout, bout, cd))
                     flops = K.flops(S, T, N, F, hidden)
-                    nbytes = K.bytes_moved(S, T, N, F, hidden)
-                    t_ops = flops / PEAK_FLOPS[cd] * 1e3
-                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                    bound_ms = max(t_ops, t_bytes)
+                    bound_ms, bound_by = bound(
+                        flops, K.bytes_moved(S, T, N, F, hidden), cd)
                     print(f"[kernels] S={S} T={T:2d} N={N:5d} {cd:8s} "
                           f"max|d| {err:.3e} max|ref| "
                           f"{float(np.abs(refn).max()):.3f}  kernel "
                           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                          f"{bound_ms:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
+                          f"{bound_ms:.4f} ms ({bound_by})"
                           f"  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
                     if (S, T, N, cd) == (3, 4, 16384, "bfloat16"):
                         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms,
-                                   bound_by=("operations" if t_ops >= t_bytes
-                                             else "bytes"),
+                                   bound_ms=bound_ms, bound_by=bound_by,
                                    shape=f"S=3 T=4 N=16384 F={F} "
                                          f"hidden={hidden} bfloat16")
     return row
@@ -466,40 +517,169 @@ def cond_em_checks(torch, C, card):
     return rows
 
 
-def unported_bounds(card):
-    """The bounds of the TPU kernels not ported yet, from the JAX kernels'
-    shapes (no kernel runs): the panel cotangents at the training shape
-    (rows 4 and 8) and the matmul-ceiling microbench (row 11)."""
-    T, F, N, H, Kn = 48, 46, 10_000, 64, 8
-    rows = T * N
-    # row 4, pallas_ffn._dx_kernel: recompute the forward, propagate dh
-    # down to the panel; reads x, g, zp and the weights, writes dx f32
-    ffn_ops = 2 * rows * (2 * F * H + 2 * H * H + 2 * H)
-    ffn_bytes = 4 * (2 * T * F * N + T * N + T * H + F * H + H * H + 2 * H)
-    # row 8, pallas_moment._dx_kernel: recompute tanh moments, dx = kT·dpre;
-    # reads x, zp_m, xr, tinv, kT, gem, writes dx f32
-    cem_ops = 2 * rows * (2 * Kn * F + 3 * Kn)
-    cem_bytes = 4 * (2 * T * F * N + T * Kn + T * N + N + Kn * F + Kn * N)
-    # row 11, microbench._ceiling_kernel: acc += w[s] @ x, VMEM-resident
-    # (no memory traffic), MODEL_MATMUL_SHAPES at its defaults
-    shapes, bn, members, reps, steps = ((64, 46), (64, 64), (8, 224),
-                                        (128, 128)), 2048, 9, 8, 64
-    ceil_ops = sum(2 * m * k * bn * members * reps * steps for m, k in shapes)
-    out = {}
-    for row, name, ops, nbytes, dtypes in (
-            (4, "pallas_ffn.py:300 _dx_kernel", ffn_ops, ffn_bytes,
-             ("float32", "bfloat16")),
-            (8, "pallas_moment.py:134 _dx_kernel", cem_ops, cem_bytes,
-             ("float32", "bfloat16")),
-            (11, "microbench.py:35 _ceiling_kernel", ceil_ops, 0,
-             ("bfloat16",))):
-        for dt in dtypes:
-            b_ms, b_by = bound(ops, nbytes, dt)
-            out[(row, dt)] = (b_ms, b_by)
-            print(f"[bounds] row {row} {name} (not ported) {dt}: "
-                  f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
-                  f"{b_ms:.4f} ms ({b_by}) ({card})", flush=True)
-    return out
+def dx_checks(torch, K, C, card):
+    """The panel cotangents sdf_ffn_dx and cond_em_dx against their plain
+    versions at DX_SHAPES, f32 and bf16 (the FFN with dropout 0.05, one
+    seed per member), each two calls bitwise-equal; returns the
+    panel-gradient path's rows (S=9, T=48, N=10000, f32)."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(4)
+    F, hidden, Kn = 46, [64, 64], 8
+    rows = {}
+    print(f"[kernels] sdf_ffn_dx / cond_em_dx vs sdf_ffn_dx_reference / "
+          f"cond_em_dx_reference, F={F} hidden={hidden} K={Kn} ({card})",
+          flush=True)
+    for S, T, N in DX_SHAPES:
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden,
+                                                dev)
+        zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        gout = torch.randn(S, T, N, generator=g, device=dev) / N
+        seed = 9 if S == 1 else list(range(9, 9 + S))
+        zpm = torch.randn(S, T, Kn, generator=g, device=dev) * 0.3
+        xr = torch.randn(S, T, N, generator=g, device=dev) * 0.1
+        tinv = 1.0 / torch.randint(1, T + 1, (N,), generator=g,
+                                   device=dev).float()
+        kT = torch.randn(S, Kn, F, generator=g, device=dev) * F ** -0.5
+        gem = torch.randn(S, Kn, N, generator=g, device=dev) / N
+        for cd in ("float32", "bfloat16"):
+            packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+            cases = {
+                "sdf_ffn_dx": (
+                    lambda: K._launch_dx(x, zp, packed, gout, seed, DROPOUT),
+                    lambda: K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout,
+                                                   gout, cd, seed, DROPOUT),
+                    K.dx_flops(S, T, N, F, hidden),
+                    K.dx_bytes_moved(S, T, N, F, hidden), f"dropout "
+                    f"{DROPOUT}"),
+                "cond_em_dx": (
+                    lambda: C._launch_dx(x, zpm, xr, tinv, kT, gem, cd),
+                    lambda: C.cond_em_dx_reference(x, zpm, xr, tinv, kT,
+                                                   gem, cd),
+                    C.dx_flops(S, T, N, F, Kn),
+                    C.dx_bytes_moved(S, T, N, F, Kn), f"K={Kn}"),
+            }
+            for name, (kern, plain, flops, nbytes, what) in cases.items():
+                out, again = kern(), kern()
+                torch.cuda.synchronize()
+                check(torch.equal(out, again), f"{name} not bitwise "
+                      f"repeatable at S={S} T={T} N={N} {cd}")
+                ref = plain()
+                err = rel_err(out, ref)
+                check(bool(torch.isfinite(out).all())
+                      and err <= (GRAD_F32_REL if cd == "float32"
+                                  else BF16_REL),
+                      f"{name} disagrees with its plain version at S={S} "
+                      f"T={T} N={N} {cd}: max|d|/max|ref| {err:.3e}")
+                ms = cuda_ms(torch, kern, reps=10, warmup=2)
+                plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
+                b_ms, b_by = bound(flops, nbytes, cd)
+                print(f"[kernels] {name} S={S} T={T} N={N:5d} {cd:8s} "
+                      f"{what}: max|d|/max|ref| {err:.2e}  kernel "
+                      f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                      f"{b_ms:.4f} ms ({b_by})  bitwise-repeatable",
+                      flush=True)
+                if (S, T, N) == DX_ROW:
+                    rows[(name, cd)] = dict(
+                        max_abs_err=float((out - ref).abs().max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        shape=f"S={S} T={T} N={N} F={F} {cd} {what}")
+    return rows
+
+
+def ceiling_checks(torch, MB, card):
+    """matmul_ceiling against its plain version at CEILING_CHECKS (padded
+    K and M, two row slices, ragged BN) and, bit for bit, at
+    CEILING_EXACT_CHECKS (the timed configuration); then the roofline path:
+    measure_matmul_ceiling at MODEL_MATMUL_SHAPES with the JAX defaults
+    (S = 9, BN 2048, 8 repeats x 64 steps), launches counted, beside
+    cuBLAS (torch.matmul of the same bf16 [S, M, K] x [K, BN] stack, as
+    many calls as the kernel's repeats x steps, replayed from one CUDA
+    graph so that host dispatch is not timed). Returns the kernels-line
+    row, which carries the per-shape ceilings."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(6)
+    errs, abs_errs = [], []
+    for m, k, bn, S, reps, steps in CEILING_CHECKS:
+        w = torch.randn(S, m, k, generator=g, device=dev).bfloat16()
+        x = torch.randn(k, bn, generator=g, device=dev).bfloat16()
+        out = MB.matmul_ceiling(w, x, reps, steps)
+        ref = MB.matmul_ceiling_reference(w, x, reps, steps)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        errs.append(err)
+        abs_errs.append(float((out - ref).abs().max()))
+        check(bool(torch.isfinite(out).all()) and err <= GRAD_F32_REL,
+              f"matmul_ceiling disagrees with its plain version at "
+              f"M={m} K={k} BN={bn} S={S}: max|d|/max|ref| {err:.3e}")
+    print(f"[kernels] matmul_ceiling vs matmul_ceiling_reference at "
+          f"{CEILING_CHECKS} (M, K, BN, S, repeats, steps): "
+          f"max|d|/max|ref| {max(errs):.2e} ({card})", flush=True)
+    for m, k, bn, S, reps, steps in CEILING_EXACT_CHECKS:
+        w = torch.randint(-2, 3, (S, m, k), generator=g, device=dev)
+        x = torch.randint(-2, 3, (k, bn), generator=g, device=dev)
+        out = MB.matmul_ceiling(w.bfloat16(), x.bfloat16(), reps, steps)
+        ref = MB.matmul_ceiling_reference(w.bfloat16(), x.bfloat16(), reps,
+                                          steps)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref),
+              f"matmul_ceiling differs from its plain version on integer "
+              f"operands at M={m} K={k} BN={bn} S={S} {reps} x {steps}: "
+              f"max|d| {float((out - ref).abs().max())}")
+    print(f"[kernels] matmul_ceiling == matmul_ceiling_reference bit for bit "
+          f"on integer operands at {CEILING_EXACT_CHECKS} (the timed "
+          f"configuration) ({card})", flush=True)
+
+    S, bn, reps, steps = 9, 2048, 8, 64
+    MB.reset_launch_count()
+    # 20 timed calls, not the JAX default 3: one call takes a fraction of a
+    # millisecond, too short a span to time in three
+    ceiling = MB.measure_matmul_ceiling(timed_calls=20, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = MB.launches
+    check(launches > 0, "the roofline path launched matmul_ceiling no time")
+    blended = MB.model_shape_ceiling_tflops(ceiling)
+    ms = plain_ms = library_ms = 0.0
+    flops = nbytes = 0
+    for m, k in MB.MODEL_MATMUL_SHAPES:
+        rec = ceiling[f"{m}x{k}"]
+        w = torch.randn(S, m, k, generator=g, device=dev).bfloat16()
+        x = torch.randn(k, bn, generator=g, device=dev).bfloat16()
+
+        def cublas():
+            for _ in range(reps * steps):
+                torch.matmul(w, x)
+        lib_ms = cuda_ms(torch, graph_of(torch, cublas).replay, reps=5,
+                         warmup=1)
+        p_ms = cuda_ms(torch, lambda: MB.matmul_ceiling_reference(
+            w, x, reps, steps), reps=5, warmup=1)
+        f = 2 * m * k * bn * S * reps * steps
+        rec["cublas_tflops"] = f / (lib_ms / 1e3) / 1e12
+        ms += rec["seconds"] * 1e3
+        plain_ms += p_ms
+        library_ms += lib_ms
+        flops += f
+        nbytes += 2 * (S * m * k + k * bn) + 4 * m * bn
+        print(f"[ceiling] {m}x{k}: {rec['tflops']:.2f} TFLOP/s "
+              f"({rec['seconds'] * 1e3:.4f} ms per call of "
+              f"{rec['gflops_per_call']:.2f} GFLOP), "
+              f"{rec['fraction_of_dense_128']:.3f} of 128x128; cuBLAS "
+              f"{rec['cublas_tflops']:.2f} TFLOP/s ({lib_ms:.4f} ms for "
+              f"{reps * steps} torch.matmul calls in one CUDA graph) "
+              f"({card})", flush=True)
+    print(f"[ceiling] model_shape_ceiling_tflops {blended} (S={S}, BN {bn},"
+          f" {reps} x {steps}; {launches} launches) ({card})", flush=True)
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    row = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+               launches_by_path={"roofline": launches},
+               model_shape_ceiling_tflops=blended,
+               per_shape={key: rec for key, rec in ceiling.items()
+                          if key != "note"},
+               shape=f"MODEL_MATMUL_SHAPES S={S} BN={bn} {reps}x{steps} "
+                     "bf16, one call per shape")
+    return row
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -845,6 +1025,39 @@ def cli_check(torch, card):
     return metrics["epoch_ms"]
 
 
+def roofline_lines(tag, splits, epoch_ms, n_members, ceiling_tflops, card):
+    """roofline_summary of the measured phase-1 and phase-3 epochs, with the
+    f32 panel's bytes per epoch (the JAX bench's pass structure: phase 3
+    streams the panel 4x in its train step, phase 1 2x, and every epoch's
+    valid and test evals 2x each), against two compute walls: the f32
+    CUDA-core peak, which bounds these epochs (their kernels run f32 on the
+    CUDA cores), and the measured bf16 tensor-core shape ceiling, the wall
+    a redesign onto the tensor cores is judged by."""
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        roofline,
+    )
+
+    train, valid, test = splits
+    shapes = dict(T_train=train.T, T_valid=valid.T, T_test=test.T,
+                  N=train.N, F=train.individual_feature_dim)
+    F, N, bpe = shapes["F"], shapes["N"], 4  # the port's panel is f32
+    eval_bytes = 2 * (valid.T + test.T) * F * N * bpe
+    for phase, passes, key in (("phase1", 2, "phase1_unconditional"),
+                               ("phase3", 4, "phase3_conditional")):
+        nbytes = passes * train.T * F * N * bpe + eval_bytes
+        for wall, tflops in (("f32 CUDA-core peak",
+                              roofline.PEAK_F32_FLOPS / 1e12),
+                             ("bf16 shape ceiling", ceiling_tflops)):
+            summary = roofline.roofline_summary(
+                epoch_ms[key] / 1e3, shapes, phase=phase,
+                n_members=n_members, panel_bytes_per_epoch=nbytes,
+                shape_ceiling_tflops=tflops)
+            print(f"[roofline {tag}] {phase} S={n_members} epoch "
+                  f"{epoch_ms[key]:.2f} ms against the {wall} "
+                  f"({tflops:.2f} TFLOP/s): {json.dumps(summary)} ({card})",
+                  flush=True)
+
+
 # -- phase 7 ------------------------------------------------------------------
 
 
@@ -1008,7 +1221,7 @@ def ensemble_checks(torch, K, C, card, splits, single_epoch_ms, opts):
     launches = {name: sum(v[i] for v in on["phases"].values())
                 for i, name in enumerate(("sdf_ffn_fwd", "sdf_ffn_bwd",
                                           "cond_em_fwd", "cond_em_bwd"))}
-    return launches, S
+    return launches, S, epoch_ms, on["final"]
 
 
 def profile_ensemble(torch, cfg, params, batches, card):
@@ -1090,6 +1303,129 @@ def ensemble_cli_check(torch, card):
     shutil.rmtree(ENS_DIR, ignore_errors=True)
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+
+def panel_counts(K, C):
+    return (K.launches, K.bwd_launches, K.dx_launches, C.fwd_launches,
+            C.bwd_launches, C.dx_launches)
+
+
+def panel_gradient_checks(torch, K, C, card, splits, params, opts):
+    """∂/∂individual of the nine trained members' conditional loss,
+    unconditional loss and weights (against a seeded random cotangent),
+    parameters frozen, on the train split: the kernel route against
+    kernel="off" in f32 and bf16, the launches of one conditional call,
+    and the launches of the whole phase per kernel."""
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import \
+        GAN
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig
+
+    train = splits[0]
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    dropout=DROPOUT)
+    params = {k: v.detach() for k, v in params.items()}  # frozen
+    batch = train.to_batch(DEVICE)
+    S = params["sdf_net.output_proj.bias"].shape[0]
+    dev = torch.device(DEVICE)
+    cot = torch.randn(S, *batch["mask"].shape, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(8))
+    wrt = (("conditional", "conditional"), ("unconditional", "unconditional"),
+           ("weights", "unconditional"))
+
+    def grad(gan, what, phase):
+        ind = batch["individual"].clone().requires_grad_()
+        res = gan.forward_members(params, dict(batch, individual=ind), phase)
+        y = ((res["weights"] * cot).sum() if what == "weights"
+             else res["loss"].sum())
+        (dx,) = torch.autograd.grad(y, ind)
+        return dx
+
+    gans = {(kernel, cd): GAN(cfg, ExecutionConfig(
+        kernel=kernel, compute_dtype=cd, device=DEVICE))
+        for kernel in ("on", "off") for cd in ("float32", "bfloat16")}
+    grad(gans[("on", "float32")], "conditional", "conditional")  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    C.reset_launch_count()
+    one = grad(gans[("on", "float32")], "conditional", "conditional")
+    torch.cuda.synchronize()
+    got = panel_counts(K, C)
+    check(got == PANEL_GRAD_LAUNCHES,
+          f"one conditional panel gradient launched (sdf_ffn_fwd, "
+          f"sdf_ffn_bwd, sdf_ffn_dx, cond_em_fwd, cond_em_bwd, cond_em_dx) "
+          f"{got}, not {PANEL_GRAD_LAUNCHES}")
+    walls = {}
+    for kernel in ("on", "off"):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            grad(gans[(kernel, "float32")], "conditional", "conditional")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[kernel] = statistics.median(times) * 1e3
+    K.reset_launch_count()
+    C.reset_launch_count()
+    results = {}
+    for cd in ("float32", "bfloat16"):
+        for what, phase in wrt:
+            on = grad(gans[("on", cd)], what, phase)
+            off = grad(gans[("off", cd)], what, phase)
+            err = rel_err(on, off)
+            check(bool(torch.isfinite(on).all())
+                  and err <= (GRAD_F32_REL if cd == "float32" else BF16_REL),
+                  f"panel gradient of the {what} ({cd}): kernel vs plain "
+                  f"max|d|/max|ref| {err:.3e}")
+            results[(what, cd)] = (err, float(on.abs().max()))
+    torch.cuda.synchronize()
+    names = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
+             "cond_em_bwd", "cond_em_dx")
+    launches = dict(zip(names, panel_counts(K, C)))
+    check(launches["sdf_ffn_bwd"] == 0,
+          "a frozen-parameter panel gradient launched sdf_ffn_bwd")
+    mean_abs = one.abs().mean(dim=(0, 1))  # [F]: mean |∂loss/∂x_f|
+    top = torch.argsort(mean_abs, descending=True)[:5].tolist()
+    print(f"[panel grad] S={S} members of phase 7, train split T={train.T} "
+          f"N={train.N} F={train.individual_feature_dim}, parameters frozen "
+          f"({card})", flush=True)
+    print(f"[panel grad] one conditional call launched (fwd, bwd, dx, "
+          f"cem_fwd, cem_bwd, cem_dx) {got}; wall ms (forward + grad, f32) "
+          f"kernel {walls['on']:.2f}, plain {walls['off']:.2f}", flush=True)
+    for (what, cd), (err, amax) in results.items():
+        print(f"[panel grad] d {what} / d individual, {cd}: kernel vs plain "
+              f"max|d|/max|ref| {err:.2e} (bar "
+              f"{GRAD_F32_REL if cd == 'float32' else BF16_REL:g}); "
+              f"max|dx| {amax:.3e}", flush=True)
+    print(f"[panel grad] conditional loss, f32: max|dx| "
+          f"{float(one.abs().max()):.3e}; characteristics with the largest "
+          f"mean |dloss/dx_f|: "
+          + ", ".join(f"f{f} {float(mean_abs[f]):.3e}" for f in top),
+          flush=True)
+    print(f"[panel grad] launches on the kernel route ({len(results)} "
+          f"gradients): {launches}", flush=True)
+    if opts.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                grad(gans[("on", "float32")], "conditional", "conditional")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs, busy = device_events(prof)
+        print(f"[profile panel grad] 4 conditional panel gradients, S={S}, "
+              f"f32, in {wall * 1e3:.1f} ms wall; device busy {busy:.2f} ms "
+              f"({0.1 * busy / wall:.1f}% of the window; {card})",
+              flush=True)
+        for e in evs[:10]:
+            print(f"[profile panel grad]   {e.self_device_time_total / 1e3:9.3f}"
+                  f" ms  {e.count:5d} x  {e.key[:90]}", flush=True)
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1097,7 +1433,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the serving engine, training and "
-                         "ensemble-training epochs with torch.profiler")
+                         "ensemble-training epochs and the panel gradient "
+                         "with torch.profiler")
     opts = ap.parse_args(argv)
 
     import torch
@@ -1125,6 +1462,9 @@ def main(argv=None) -> int:
         cond_em as C,
     )
     from deeplearninginassetpricing_paperreplication_torch.ops import (
+        microbench as MB,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
         sdf_ffn as K,
     )
     from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
@@ -1145,7 +1485,7 @@ def main(argv=None) -> int:
 
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
-    jobs = K.build_jobs() + C.build_jobs()
+    jobs = K.build_jobs() + C.build_jobs() + MB.build_jobs()
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1160,7 +1500,9 @@ def main(argv=None) -> int:
     _, ens_fwd_row = dropout_keep_share(torch, K, card)
     bwd_row, ens_bwd_row = ffn_bwd_checks(torch, K, card)
     cem_rows = cond_em_checks(torch, C, card)
-    unported_bounds(card)
+    dx_rows = dx_checks(torch, K, C, card)
+    ceiling_row = ceiling_checks(torch, MB, card)
+    shape_ceiling = ceiling_row["model_shape_ceiling_tflops"]
     print(f"[kernels] all checks passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1208,16 +1550,26 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_launches, single_epoch_ms = train_checks(torch, K, C, card, splits,
                                                    opts)
+    roofline_lines("train", splits, single_epoch_ms, 1, shape_ceiling, card)
     cli_check(torch, card)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # 7. ensemble training
     t0 = time.perf_counter()
-    ens_launches, ens_members = ensemble_checks(torch, K, C, card, splits,
-                                                single_epoch_ms, opts)
+    ens_launches, ens_members, ens_epoch_ms, ens_params = ensemble_checks(
+        torch, K, C, card, splits, single_epoch_ms, opts)
+    roofline_lines("ensemble train", splits, ens_epoch_ms, ens_members,
+                   shape_ceiling, card)
     ensemble_cli_check(torch, card)
     print(f"[ensemble train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 8. panel gradients
+    t0 = time.perf_counter()
+    grad_launches = panel_gradient_checks(torch, K, C, card, splits,
+                                          ens_params, opts)
+    print(f"[panel grad] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -1228,8 +1580,17 @@ def main(argv=None) -> int:
                  "ensemble_training": ens_launches[name]}
         if serving:
             paths = {"serving": serving, **paths}
+        if grad_launches[name]:
+            paths["panel_gradient"] = grad_launches[name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members)
+
+    def grad_path(name):
+        n = grad_launches[name]
+        return dict(launches=n, launches_by_path={"panel_gradient": n},
+                    **dx_rows[(name, "float32")],
+                    at_bfloat16=dx_rows[(name, "bfloat16")],
+                    library_ms=None)  # no single PyTorch call computes it
 
     kernels = [
         dict(name="sdf_ffn_fwd", route="cuda", source=src + "sdf_ffn.cu",
@@ -1254,9 +1615,22 @@ def main(argv=None) -> int:
              at_ensemble_shape=cem_rows["ensemble_bwd"]),
     ]
     for k in kernels:
+        k["library_ms"] = None  # no single PyTorch call computes these
+    kernels += [
+        dict(name="sdf_ffn_dx", route="cuda", source=src + "sdf_ffn_bwd.cu",
+             replaces=tpu + "pallas_ffn.py:300", **grad_path("sdf_ffn_dx")),
+        dict(name="cond_em_dx", route="cuda", source=src + "cond_em.cu",
+             replaces=tpu + "pallas_moment.py:134",
+             **grad_path("cond_em_dx")),
+        dict(name="matmul_ceiling", route="cuda",
+             source=src + "microbench.cu",
+             replaces=tpu + "microbench.py:35",
+             launches=ceiling_row["launches_by_path"]["roofline"],
+             **ceiling_row),
+    ]
+    for k in kernels:
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"the {path} path launched {k['name']} no time")
-        k["library_ms"] = None  # no single PyTorch call computes these
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -1,10 +1,10 @@
 """Fused moment net + conditional loss: h = tanh(K_stockᵀx + zp_m)
-contracted into the per-(moment, asset) empirical means, forward and
-backward, without materializing h [K, T, N].
+contracted into the per-(moment, asset) empirical means, forward, backward
+and panel cotangent, without materializing h [K, T, N].
 
 The counterpart of the JAX package's ``ops/pallas_moment.py``
-(``fused_conditional_em``; Pallas kernels ``_fwd_kernel``/``_bwd_kernel``
-and their member-fused twins). For member s::
+(``fused_conditional_em``; Pallas kernels ``_fwd_kernel``/``_bwd_kernel``,
+their member-fused twins, and ``_dx_kernel``). For member s::
 
     em[s,k,n] = Σ_t tanh(kT_s[k,:]·x[t,:,n] + zp_m[s,t,k]) · xr[s,t,n] · tinv[n]
 
@@ -12,8 +12,9 @@ with ``xr = R·m·(1 + F)`` and ``tinv = 1 / clip(T_i, 1)``;
 ``conditional_loss == mean(em²)`` (or sum / (K·n_assets) under padding).
 
 Two routes compute the same functions: the plain PyTorch versions
-:func:`cond_em_reference` / :func:`cond_em_bwd_reference` (with the JAX
-kernel's bf16 rounding points), which a CPU tensor runs, and the CUDA
+:func:`cond_em_reference`, :func:`cond_em_bwd_reference` and
+:func:`cond_em_dx_reference` (with the JAX kernels' bf16 rounding points),
+which a CPU tensor runs, and the CUDA
 kernels ``csrc/cond_em.cu`` (``sm_90a``, built with ``nvcc`` at first use,
 bound through ``ctypes``), which a CUDA tensor always runs. ``kernel="off"``
 is the only way to the plain route on the card.
@@ -37,15 +38,17 @@ BWD_STOCKS = 128  # stocks per backward block (its shared-memory tile)
 # launches of the CUDA kernels, counted where the wrapper launches them
 fwd_launches = 0
 bwd_launches = 0
+dx_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_launch_count() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, bwd_launches, dx_launches
     fwd_launches = 0
     bwd_launches = 0
+    dx_launches = 0
 
 
 # -- the plain versions -------------------------------------------------------
@@ -68,15 +71,32 @@ def cond_em_reference(x_t: torch.Tensor, zp_m: torch.Tensor,
     return (h * (xr * tinv)[:, :, None, :]).sum(dim=1)
 
 
+def _dpre(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """(h, dpre = gem·xr·tinv·(1 − h²)) [S, T, K, N]: the cotangent of the
+    moment net's pre-activation, shared by the backward and the panel
+    cotangent."""
+    h = _h(x_t, zp_m, kT, compute_dtype)
+    return h, gem[:, None] * (xr * tinv)[:, :, None, :] * (1.0 - h * h)
+
+
 def cond_em_bwd_reference(x_t, zp_m, xr, tinv, kT, gem,
                           compute_dtype: str = "float32"):
     """gem [S, K, N] → (dkT [S, K, F], dzp_m [S, T, K], dxr [S, T, N])."""
-    h = _h(x_t, zp_m, kT, compute_dtype)
-    dpre = gem[:, None] * (xr * tinv)[:, :, None, :] * (1.0 - h * h)
+    h, dpre = _dpre(x_t, zp_m, xr, tinv, kT, gem, compute_dtype)
     dkT = torch.einsum("stkn,tfn->skf", _round(dpre, compute_dtype),
                        _round(x_t.float(), compute_dtype))
     dxr = (gem[:, None] * h).sum(dim=2) * tinv
     return dkT, dpre.sum(dim=3), dxr
+
+
+def cond_em_dx_reference(x_t, zp_m, xr, tinv, kT, gem,
+                         compute_dtype: str = "float32") -> torch.Tensor:
+    """gem [S, K, N] → the panel cotangent dx [T, F, N] = Σ_s round(kT_s)ᵀ ·
+    round(dpre_s), summed over the members (the rounding of
+    ``pallas_moment._dx_kernel``)."""
+    _, dpre = _dpre(x_t, zp_m, xr, tinv, kT, gem, compute_dtype)
+    return torch.einsum("skf,stkn->tfn", _round(kT, compute_dtype),
+                        _round(dpre, compute_dtype))
 
 
 # -- the CUDA kernels ----------------------------------------------------------
@@ -99,7 +119,11 @@ def _load() -> ctypes.CDLL:
             lib.cond_em_bwd.argtypes = ([ctypes.c_void_p] * 9
                                         + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
+            lib.cond_em_dx.argtypes = ([ctypes.c_void_p] * 7
+                                       + [ctypes.c_int] * 6
+                                       + [ctypes.c_void_p])
             lib.cond_em_fwd.restype = lib.cond_em_bwd.restype = ctypes.c_int
+            lib.cond_em_dx.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -177,7 +201,33 @@ def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
     return dkT_part.sum(dim=1), dzpm_part.sum(dim=1), dxr
 
 
+def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """The panel cotangent dx [T, F, N], summed over the members."""
+    global dx_launches
+    kT = _round(kT, compute_dtype).contiguous()
+    S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
+    gem = gem.float().contiguous()
+    if tuple(gem.shape) != (S, K, N):
+        raise ValueError(f"cond_em: gem must be {[S, K, N]}; got "
+                         f"{list(gem.shape)}")
+    dx = torch.empty((T, F, N), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.cond_em_dx(
+            x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
+            kT.data_ptr(), gem.data_ptr(), dx.data_ptr(), S, T, F, N, K,
+            int(compute_dtype == "bfloat16"),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc("cond_em_dx", rc)
+    dx_launches += 1
+    return dx
+
+
 class _CondEm(torch.autograd.Function):
+    """Forward: the fwd kernel (or its plain version); backward: the dx
+    kernel for the panel and the bwd kernel for zp_m, xr and k_stock, each
+    only when one of its inputs needs a gradient."""
+
     @staticmethod
     def forward(ctx, meta, x_t, zp_m, xr, tinv, kT):
         route, cd = meta
@@ -191,25 +241,25 @@ class _CondEm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gem):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                "the gradient with respect to the panel x_t is TPU kernel "
-                "row 8 (ops/pallas_moment.py:134 _dx_kernel), not ported "
-                "yet")
         route, cd = ctx.meta
         x_t, zp_m, xr, tinv, kT, em = ctx.saved_tensors
+        need = ctx.needs_input_grad  # (meta, x_t, zp_m, xr, tinv, kT)
         gem = gem.float().contiguous()
-        if route == "plain":
-            dkT, dzpm, dxr = cond_em_bwd_reference(x_t, zp_m, xr, tinv, kT,
-                                                   gem, cd)
-        else:
-            dkT, dzpm, dxr = _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, cd)
-        d_tinv = None
-        if ctx.needs_input_grad[4]:
+        dx = dzpm = dxr = d_tinv = dkT = None
+        if need[1]:
+            dx = (cond_em_dx_reference if route == "plain" else _launch_dx)(
+                x_t, zp_m, xr, tinv, kT, gem, cd)
+        if need[2] or need[3] or need[5]:
+            dkT, dzpm, dxr = (cond_em_bwd_reference if route == "plain"
+                              else _launch_bwd)(x_t, zp_m, xr, tinv, kT,
+                                                gem, cd)
+            dzpm, dxr, dkT = (d if n else None for d, n in zip(
+                (dzpm, dxr, dkT), (need[2], need[3], need[5])))
+        if need[4]:
             # exact from the saved accumulator: em = tinv·Σ_t h·xr, so
             # dL/dtinv[n] = Σ_k gem·em / tinv (tinv ≥ 1/T > 0)
             d_tinv = ((gem * em).sum(dim=1) / tinv).sum(dim=0)
-        return None, None, dzpm, dxr, d_tinv, dkT
+        return None, dx, dzpm, dxr, d_tinv, dkT
 
 
 def fused_conditional_em(x_t: torch.Tensor, zp_m: torch.Tensor,
@@ -220,8 +270,8 @@ def fused_conditional_em(x_t: torch.Tensor, zp_m: torch.Tensor,
     """em [K, N], with the JAX signature: x_t [T, F, N], zp_m [T, K],
     xr [T, N], tinv [N], k_stock [F, K]. With a leading member axis on
     zp_m [S, T, K], xr [S, T, N] and k_stock [S, F, K] it returns
-    em [S, K, N]. Differentiable with respect to zp_m, xr, k_stock and
-    tinv; the panel's gradient raises (TPU kernel row 8 is not ported)."""
+    em [S, K, N]. Differentiable with respect to the panel x_t (summed over
+    the members, which share it), zp_m, xr, k_stock and tinv."""
     _check_dtype(compute_dtype)
     single = zp_m.dim() == 2
     if single:
@@ -259,3 +309,16 @@ def bwd_bytes_moved(S: int, T: int, N: int, F: int, K: int) -> int:
     return 4 * (T * F * N + 2 * S * T * K + 2 * S * T * N + N
                 + 2 * S * K * F + S * K * N)
 
+
+
+def dx_flops(S: int, T: int, N: int, F: int, K: int) -> int:
+    """The recomputed pre-activation and dx (2·K·F each), plus dpre (about
+    4·K) per (member, period, stock)."""
+    return 2 * S * T * N * K * (2 * F + 2)
+
+
+def dx_bytes_moved(S: int, T: int, N: int, F: int, K: int) -> int:
+    """The forward's inputs and gem read once; dx [T, F, N] written once
+    (f32)."""
+    return 4 * (2 * T * F * N + S * T * K + S * T * N + N + S * K * F
+                + S * K * N)

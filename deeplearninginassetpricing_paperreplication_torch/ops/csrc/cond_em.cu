@@ -1,9 +1,10 @@
 // Fused moment net + conditional empirical means for Hopper (sm_90a),
-// forward and backward.
+// forward, backward and panel cotangent.
 //
 // Replaces deeplearninginassetpricing_paperreplication_tpu/ops/pallas_moment.py
-// _fwd_kernel (:64) and _bwd_kernel (:86) and, through the explicit member
-// axis S, _fwd_kernel_members (:274) and _bwd_kernel_members (:302). For
+// _fwd_kernel (:64), _bwd_kernel (:86) and _dx_kernel (:134) and, through
+// the explicit member axis S, _fwd_kernel_members (:274) and
+// _bwd_kernel_members (:302). For
 // member s, moment k and stock n:
 //
 //   em[s,k,n] = Σ_t tanh(kT_s[k,:] · x[t,:,n] + zp_m[s,t,k]) · xr[s,t,n]·tinv[n]
@@ -29,6 +30,20 @@
 // partial per block: no float atomics, so two calls give bitwise-equal
 // gradients. Ragged stock lanes read x = 0, xr = 0, tinv = 0 and gem = 0,
 // masked before any product (NaN·0 would otherwise leak in).
+//
+// The panel cotangent (cond_em_dx, below) is
+//
+//   dx[t, f, n] = Σ_s Σ_k round(kT_s[k, f]) · round(dpre_s[t, k, n]),
+//   dpre = gem · xr · tinv · (1 − h²)
+//
+// summed over the members, who share the panel. It reads the panel once
+// per member and writes [T, F, N] once: bytes first, about 4 FLOP per byte
+// per member. One thread per (period, stock); every member's kT sits in
+// shared memory (9 × 8 × 46 floats ≈ 13 KB at the ensemble's shape),
+// transposed so that one float4 broadcast serves four moments, and each
+// thread stages its panel column in shared memory once for all members and
+// adds member s's K-term products into its own dx column there, members in
+// ascending order: no atomics, bitwise-equal repeated calls.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,6 +186,97 @@ cond_em_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zpm,
   for (int i = tid; i < K * F; i += blockDim.x) out[i] = acc[i];
 }
 
+constexpr int kDxThreads = 128;
+
+// the dx kernel's shared memory: every member's kT transposed and padded to
+// kp = ⌈K/4⌉·4 moments ([S][F][kp], one float4 broadcast per 4 moments),
+// then this block's panel tile and dx columns ([F][kDxThreads] each)
+inline size_t dx_smem_floats(int S, int F, int K) {
+  return (size_t)S * F * ((K + 3) / 4 * 4) + (size_t)2 * F * kDxThreads;
+}
+
+__global__ void __launch_bounds__(kDxThreads)
+cond_em_dx_kernel(const float* __restrict__ x, const float* __restrict__ zpm,
+                  const float* __restrict__ xr,
+                  const float* __restrict__ tinv,
+                  const float* __restrict__ kT, const float* __restrict__ gem,
+                  float* __restrict__ dx, int S, int T, int F, int N, int K,
+                  int bf16) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int kp = (K + 3) / 4 * 4;
+  float* kTs = sm;  // [S][F][kp], already rounded; moments past K are 0
+  const int t = blockIdx.y, tid = threadIdx.x;
+  float* xs = sm + (size_t)S * F * kp + tid;  // this thread's panel column
+  float* dxs = xs + (size_t)F * kDxThreads;   // this thread's dx column
+  for (int i = tid; i < S * F * kp; i += blockDim.x) {
+    const int s = i / (F * kp), f = (i / kp) % F, k = i % kp;
+    kTs[i] = k < K ? kT[((size_t)s * K + k) * F + f] : 0.f;
+  }
+  const int n = blockIdx.x * kDxThreads + tid;
+  const bool valid = n < N;
+  const float* xt = x + (size_t)t * F * N + n;
+  for (int f = 0; f < F; ++f) {
+    const float xf = valid ? __ldg(xt + (size_t)f * N) : 0.f;
+    xs[f * kDxThreads] = bf16 ? round_bf16(xf) : xf;
+    dxs[f * kDxThreads] = 0.f;
+  }
+  __syncthreads();
+  const float tv = valid ? tinv[n] : 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float4* ks = reinterpret_cast<const float4*>(kTs + (size_t)s * F * kp);
+    const int q = kp / 4;  // float4s per feature row
+    // recompute h, then dpre = gem · xr · tinv · (1 − h²), rounded
+    float pre[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) pre[k] = 0.f;
+    for (int f = 0; f < F; ++f) {
+      const float xf = xs[f * kDxThreads];
+#pragma unroll
+      for (int k = 0; k < kMaxK; k += 4) {
+        if (k < kp) {
+          const float4 w = ks[f * q + k / 4];
+          pre[k] = fmaf(w.x, xf, pre[k]);
+          pre[k + 1] = fmaf(w.y, xf, pre[k + 1]);
+          pre[k + 2] = fmaf(w.z, xf, pre[k + 2]);
+          pre[k + 3] = fmaf(w.w, xf, pre[k + 3]);
+        }
+      }
+    }
+    const float w = (valid ? xr[((size_t)s * T + t) * N + n] : 0.f) * tv;
+    const float* z = zpm + ((size_t)s * T + t) * K;
+    float dp[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      dp[k] = 0.f;
+      if (k < K) {
+        const float h = tanhf(pre[k] + z[k]);
+        const float gm = valid ? gem[((size_t)s * K + k) * N + n] : 0.f;
+        const float v = gm * w * (1.f - h * h);
+        dp[k] = bf16 ? round_bf16(v) : v;
+      }
+    }
+    // dx[f] += Σ_k kT[k, f] · dpre[k]  (padded moments add 0 · 0)
+    for (int f = 0; f < F; ++f) {
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxK; k += 4) {
+        if (k < kp) {
+          const float4 w4 = ks[f * q + k / 4];
+          v = fmaf(w4.x, dp[k], v);
+          v = fmaf(w4.y, dp[k + 1], v);
+          v = fmaf(w4.z, dp[k + 2], v);
+          v = fmaf(w4.w, dp[k + 3], v);
+        }
+      }
+      dxs[f * kDxThreads] += v;
+    }
+  }
+  if (valid)
+    for (int f = 0; f < F; ++f)
+      dx[(size_t)t * F * N + (size_t)f * N + n] = dxs[f * kDxThreads];
+}
+
 int set_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   if (smem > 227 * 1024) return kUnsupported;
@@ -224,5 +330,24 @@ extern "C" int cond_em_bwd(const float* x, const float* zpm, const float* xr,
                        static_cast<cudaStream_t>(stream)>>>(
       x, zpm, xr, tinv, kT, gem, dkT_part, dzpm_part, dxr, T, F, N, K, tpg,
       bf16);
+  return (int)cudaGetLastError();
+}
+
+// dx [T, F, N] (fully written). kT [S, K, F] is already rounded to the
+// compute dtype. One block per (128-stock tile, period). Returns 0, a
+// cudaError_t value, or -1 for an unsupported shape (shared memory holds
+// every member's kT and two [F] columns per thread).
+extern "C" int cond_em_dx(const float* x, const float* zpm, const float* xr,
+                          const float* tinv, const float* kT,
+                          const float* gem, float* dx, int S, int T, int F,
+                          int N, int K, int bf16, void* stream) {
+  if (bad_shape(S, T, F, N, K, 1) || T > 65535) return kUnsupported;
+  const size_t smem = sizeof(float) * dx_smem_floats(S, F, K);
+  int rc = set_smem((const void*)cond_em_dx_kernel, smem);
+  if (rc != 0) return rc;
+  dim3 grid((unsigned)((N + kDxThreads - 1) / kDxThreads), (unsigned)T);
+  cond_em_dx_kernel<<<grid, kDxThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, zpm, xr, tinv, kT, gem, dx, S, T, F, N, K, bf16);
   return (int)cudaGetLastError();
 }

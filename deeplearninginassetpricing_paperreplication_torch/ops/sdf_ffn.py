@@ -1,10 +1,10 @@
-"""Fused SDF-FFN: the panel MLP of every ensemble member, forward and
-recompute backward, one launch each.
+"""Fused SDF-FFN: the panel MLP of every ensemble member, forward, recompute
+backward and panel cotangent, one launch each.
 
 The counterpart of the JAX package's ``ops/pallas_ffn.py``
-(``fused_sdf_ffn``; Pallas kernels ``_fwd_kernel``/``_fwd_kernel_members``
-and ``_bwd_kernel``/``_bwd_kernel_members``). For member s, period t and
-stock n::
+(``fused_sdf_ffn``; Pallas kernels ``_fwd_kernel``/``_fwd_kernel_members``,
+``_bwd_kernel``/``_bwd_kernel_members`` and ``_dx_kernel``). For member s,
+period t and stock n::
 
     w[s,t,n] = kout_s . drop(relu(W_L,s ... drop(relu(K1_s^T x[t,:,n] + zp[s,t])) ... + b)) + bout_s
 
@@ -15,18 +15,20 @@ they are plain XLA in the JAX package.
 
 Two routes compute the same functions:
 
-* plain PyTorch: :func:`sdf_ffn_reference` and :func:`sdf_ffn_bwd_reference`,
-  with the same bf16 operand rounding and the same dropout bits as the
-  kernels. A CPU tensor runs them, and the tests and ``chip_smoke.py`` hold
-  the kernels against them.
+* plain PyTorch: :func:`sdf_ffn_reference`, :func:`sdf_ffn_bwd_reference`
+  and :func:`sdf_ffn_dx_reference`, with the same bf16 operand rounding
+  and the same dropout bits as the kernels. A CPU tensor runs them, and
+  the tests and ``chip_smoke.py`` hold the kernels against them.
 * the CUDA kernels ``csrc/sdf_ffn.cu`` (forward) and ``csrc/sdf_ffn_bwd.cu``
-  (backward), ``sm_90a``, built with ``nvcc`` at first use and bound through
-  ``ctypes``. A CUDA tensor always goes through them; a build or launch
-  failure raises.
+  (backward and panel cotangent), ``sm_90a``, built with ``nvcc`` at first
+  use and bound through ``ctypes``. A CUDA tensor always goes through them;
+  a build or launch failure raises.
 
 :func:`sdf_ffn` is the differentiable entry (a ``torch.autograd.Function``
-whose backward is ``sdf_ffn_bwd``); :func:`sdf_ffn_packed` is the
-serving path's forward over weights packed once.
+whose backward is ``sdf_ffn_dx`` for the panel and ``sdf_ffn_bwd`` for
+everything else, each launched only when asked for);
+:func:`sdf_ffn_packed` is the serving path's forward over weights packed
+once.
 
 ``compute_dtype="bfloat16"`` rounds both operands of every product to bf16
 and accumulates in f32 (``pallas_ffn._dot``); biases stay f32.
@@ -64,6 +66,7 @@ MAX_SMEM = 227 * 1024
 # nowhere else (reset_launch_count() before a run, read them after)
 launches = 0
 bwd_launches = 0
+dx_launches = 0
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -73,9 +76,10 @@ Seed = Union[int, Sequence[int]]
 
 
 def reset_launch_count() -> None:
-    global launches, bwd_launches
+    global launches, bwd_launches, dx_launches
     launches = 0
     bwd_launches = 0
+    dx_launches = 0
 
 
 def _round(a: torch.Tensor, compute_dtype: str) -> torch.Tensor:
@@ -228,6 +232,22 @@ def sdf_ffn_reference(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
     return out + bout[:, None, None]
 
 
+def _dh_chain(facs, mids, kout, g, compute_dtype):
+    """dh_pre [S, T, H, N] of every hidden layer, from the cotangent g
+    [S, T, N] of the raw weights down to the first layer: the ONE copy of
+    the dh chain, with the JAX kernel's rounding points (both operands of
+    kout·g and Wᵀ·dh_pre)."""
+    cd = compute_dtype
+    dh = _round(kout, cd)[:, None, :, None] * _round(g, cd)[:, :, None, :]
+    dh_pres = [None] * len(facs)
+    for li in range(len(mids), 0, -1):
+        dh_pres[li] = dh * facs[li]
+        dh = torch.einsum("sji,stjn->stin", _round(mids[li - 1][0], cd),
+                          _round(dh_pres[li], cd))
+    dh_pres[0] = dh * facs[0]
+    return dh_pres
+
+
 def sdf_ffn_bwd_reference(x_t: torch.Tensor, zp: torch.Tensor,
                           k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
                           g: torch.Tensor, compute_dtype: str = "float32",
@@ -238,21 +258,32 @@ def sdf_ffn_bwd_reference(x_t: torch.Tensor, zp: torch.Tensor,
     dkout [S, HL], dbout [S])."""
     cd = compute_dtype
     acts, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate)
+    dh_pres = _dh_chain(facs, mids, kout, g, cd)
     dkout = torch.einsum("sthn,stn->sh", acts[-1], g)  # f32, unrounded
     dbout = g.sum(dim=(1, 2))
-    dh = _round(kout, cd)[:, None, :, None] * _round(g, cd)[:, :, None, :]
-    dmids = []
-    for li in range(len(mids), 0, -1):
-        dh_pre = dh * facs[li]
-        dW = torch.einsum("stjn,stin->sji", _round(dh_pre, cd),
-                          _round(acts[li - 1], cd))
-        dmids.append((dW, dh_pre.sum(dim=(1, 3))))
-        dh = torch.einsum("sji,stjn->stin", _round(mids[li - 1][0], cd),
-                          _round(dh_pre, cd))
-    dh1_pre = dh * facs[0]
-    dk1T = torch.einsum("stjn,tfn->sjf", _round(dh1_pre, cd),
+    dmids = tuple(
+        (torch.einsum("stjn,stin->sji", _round(dh_pres[li], cd),
+                      _round(acts[li - 1], cd)), dh_pres[li].sum(dim=(1, 3)))
+        for li in range(1, len(mids) + 1))
+    dk1T = torch.einsum("stjn,tfn->sjf", _round(dh_pres[0], cd),
                         _round(x_t.float(), cd))
-    return (dh1_pre.sum(dim=3), dk1T, tuple(reversed(dmids)), dkout, dbout)
+    return (dh_pres[0].sum(dim=3), dk1T, dmids, dkout, dbout)
+
+
+def sdf_ffn_dx_reference(x_t: torch.Tensor, zp: torch.Tensor,
+                         k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
+                         g: torch.Tensor, compute_dtype: str = "float32",
+                         seed: Seed = 0, dropout_rate: float = 0.0
+                         ) -> torch.Tensor:
+    """The plain-PyTorch panel cotangent, with the JAX kernel's rounding
+    points (``pallas_ffn._dx_kernel``): g [S, T, N] → dx [T, F, N] =
+    Σ_s round(K1_s)·round(dh1_pre_s), summed over the members because they
+    share the panel."""
+    cd = compute_dtype
+    _, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate)
+    dh1_pre = _dh_chain(facs, mids, kout, g, cd)[0]
+    return torch.einsum("sjf,stjn->tfn", _round(k1T, cd),
+                        _round(dh1_pre, cd))
 
 
 # -- packed parameters ------------------------------------------------------
@@ -396,6 +427,11 @@ _ARGTYPES = {
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
                ctypes.c_int, ctypes.c_void_p]),
+    # the panel cotangent, in the backward's library
+    "dx": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+           + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
+              ctypes.c_void_p]),
 }
 
 
@@ -413,6 +449,8 @@ def _load(kernel: str, width: int):
                 lib.sdf_ffn_bwd_smem_bytes.argtypes = [
                     ctypes.POINTER(ctypes.c_int), ctypes.c_int]
                 lib.sdf_ffn_bwd_smem_bytes.restype = ctypes.c_longlong
+                lib.sdf_ffn_dx.argtypes = _ARGTYPES["dx"]
+                lib.sdf_ffn_dx.restype = ctypes.c_int
             _libs[key] = lib
         return _libs[key]
 
@@ -526,6 +564,33 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     return grad_part.sum(dim=1), dzp_part.sum(dim=1)
 
 
+def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+               g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0
+               ) -> torch.Tensor:
+    """The panel cotangent dx [T, F, N], summed over the members."""
+    global dx_launches
+    lay = packed.layout
+    T, F, N = x_t.shape
+    S = packed.n_members
+    dev = x_t.device
+    _check_cuda("x_t", x_t, (T, lay.F, N), dev)
+    _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
+    _check_cuda("params", packed.params, (S, lay.P), dev)
+    _check_cuda("g", g, (S, T, N), dev)
+    lib = _load("bwd", width_bound(lay.hidden))
+    dx = torch.empty((T, lay.F, N), dtype=torch.float32, device=dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdf_ffn_dx(
+            x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), S, T, N, _layout_ints(lay),
+            int(packed.compute_dtype == "bfloat16"), *drop, stream)
+    _raise_rc("sdf_ffn_dx", rc)
+    dx_launches += 1
+    return dx
+
+
 def unpack_grads(grads: torch.Tensor, lay: FfnLayout):
     """Packed-layout gradients [S, P] → (dk1T [S, H1, F], ((dW [S, H, Hin],
     db [S, H]), ...), dkout [S, HL], dbout [S])."""
@@ -570,9 +635,11 @@ def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
 
 
 class _SdfFfn(torch.autograd.Function):
-    """Forward: the fwd kernel (or its plain version); backward: the bwd
-    kernel (or its plain version), regenerating the forward's dropout masks
-    from the seed(s). Packing happens here; autograd sees the raw tensors."""
+    """Forward: the fwd kernel (or its plain version); backward: the dx
+    kernel for the panel and the bwd kernel for zp and the weights (or
+    their plain versions), each only when one of its inputs needs a
+    gradient, regenerating the forward's dropout masks from the seed(s).
+    Packing happens here; autograd sees the raw tensors."""
 
     @staticmethod
     def forward(ctx, meta, x_t, zp, k1T, kout, bout, *mids_flat):
@@ -589,24 +656,31 @@ class _SdfFfn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                "the gradient with respect to the panel x_t is TPU kernel "
-                "row 4 (ops/pallas_ffn.py:300 _dx_kernel), not ported yet")
         route, cd, seed, rate = ctx.meta
         x_t, zp, k1T, kout, *mids_flat = ctx.saved_tensors
+        mids = tuple(zip(mids_flat[0::2], mids_flat[1::2]))
+        need = ctx.needs_input_grad  # (meta, x_t, zp, k1T, kout, bout, *mids)
         g = g.float().contiguous()
-        if route == "plain":
-            mids = tuple(zip(mids_flat[0::2], mids_flat[1::2]))
-            dzp, dk1T, dmids, dkout, dbout = sdf_ffn_bwd_reference(
-                x_t, zp, k1T, mids, kout, g, cd, seed, rate)
-        else:
-            grads, dzp = _launch_bwd(x_t, zp.contiguous(), ctx.packed, g,
-                                     seed, rate)
-            dk1T, dmids, dkout, dbout = unpack_grads(grads,
-                                                     ctx.packed.layout)
-        flat = [t for wb in dmids for t in wb]
-        return (None, None, dzp, dk1T, dkout, dbout, *flat)
+        dx = None
+        if need[1]:
+            dx = (sdf_ffn_dx_reference(x_t, zp, k1T, mids, kout, g, cd, seed,
+                                       rate) if route == "plain" else
+                  _launch_dx(x_t, zp.contiguous(), ctx.packed, g, seed,
+                             rate))
+        grads = [None] * (len(need) - 2)
+        if any(need[2:]):
+            if route == "plain":
+                dzp, dk1T, dmids, dkout, dbout = sdf_ffn_bwd_reference(
+                    x_t, zp, k1T, mids, kout, g, cd, seed, rate)
+            else:
+                flat, dzp = _launch_bwd(x_t, zp.contiguous(), ctx.packed, g,
+                                        seed, rate)
+                dk1T, dmids, dkout, dbout = unpack_grads(flat,
+                                                         ctx.packed.layout)
+            grads = [d if n else None for d, n in zip(
+                [dzp, dk1T, dkout, dbout, *(t for wb in dmids for t in wb)],
+                need[2:])]
+        return (None, dx, *grads)
 
 
 def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
@@ -616,9 +690,9 @@ def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
             kernel: str = "auto") -> torch.Tensor:
     """Differentiable fused FFN: raw weights [S, T, N].
 
-    Gradients flow to zp (and through it to the macro path) and to every
-    weight and bias. Asking for the panel's gradient raises (TPU kernel row
-    4 is not ported). ``seed`` (one int, or S ints: one per member) and
+    Gradients flow to the panel x_t (summed over the members, which share
+    it), to zp (and through it to the macro path) and to every weight and
+    bias. ``seed`` (one int, or S ints: one per member) and
     ``dropout_rate`` draw the dropout masks, identically in the forward and
     the backward."""
     _check_dtype(compute_dtype)
@@ -670,3 +744,20 @@ def bwd_bytes_moved(S: int, T: int, N: int, F: int,
     lay = ffn_layout(F, hidden)
     return 4 * (T * F * N + 2 * S * T * hidden[0] + 2 * S * lay.P
                 + S * T * N)
+
+
+def dx_flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
+    """Multiply-adds ×2 of one panel cotangent: the recomputed hidden stack
+    (F·H1 + Σ H_{l-1}·H_l), the dh chain (H_L for kout·g, then Σ H_{l-1}·H_l)
+    and dx = K1·dh1_pre (F·H1) — about twice the forward."""
+    mids = sum(a * b for a, b in zip(hidden, hidden[1:]))
+    per = 2 * F * hidden[0] + 2 * mids + hidden[-1]
+    return 2 * per * S * T * N
+
+
+def dx_bytes_moved(S: int, T: int, N: int, F: int,
+                   hidden: Sequence[int]) -> int:
+    """The panel, zp, the weights and g read once; dx [T, F, N] written
+    once (f32)."""
+    lay = ffn_layout(F, hidden)
+    return 4 * (2 * T * F * N + S * T * hidden[0] + S * lay.P + S * T * N)

@@ -126,20 +126,129 @@ def test_plain_backward_is_autograd_of_plain_forward(cd):
 def test_routes_and_refusals():
     x, zpm, xr, tinv, ks, _ = _inputs(3)
     args = [torch.from_numpy(a) for a in (x, zpm, xr, tinv, ks)]
-    before = (C.fwd_launches, C.bwd_launches)
+    launches = lambda: (C.fwd_launches, C.bwd_launches, C.dx_launches)  # noqa: E731
+    before = launches()
     a = C.fused_conditional_em(*args, kernel="auto")
     b = C.fused_conditional_em(*args, kernel="off")
     torch.testing.assert_close(a, b)
-    assert (C.fwd_launches, C.bwd_launches) == before  # CPU: never a kernel
+    assert launches() == before  # CPU: never a kernel
     with pytest.raises(ValueError, match="CUDA"):
         C.fused_conditional_em(*args, kernel="on")
+    # the panel's gradient, once refused, is the plain panel cotangent
     xg = args[0].clone().requires_grad_()
-    em = C.fused_conditional_em(xg, *args[1:])
-    with pytest.raises(NotImplementedError, match="row 8"):
-        em.sum().backward()
+    em = C.fused_conditional_em(xg, *args[1:], compute_dtype="float32")
+    em.sum().backward()
+    ks = args[4]
+    torch.testing.assert_close(xg.grad, C.cond_em_dx_reference(
+        args[0], args[1][None], args[2][None], args[3],
+        ks.T[None].contiguous(), torch.ones(1, K, N), "float32"))
+    assert launches() == before
     # bound bookkeeping at the training shape: the panel read dominates
     assert C.fwd_bytes_moved(1, 48, 10000, 46, 8) > 4 * 48 * 46 * 10000
     assert C.bwd_flops(1, 48, 10000, 46, 8) == 2 * 48 * 10000 * 8 * 94
+
+
+def _jax_dx(x, zpm, xr, tinv, ks, g, S=None):
+    """jax.grad w.r.t. the panel of Σ g·em through the interpreted Pallas
+    kernel (f32); with S, of the call vmapped over the members."""
+    jem = _jax_em("float32")
+    j = [jnp.asarray(a) for a in (zpm, xr, tinv, ks)]
+    if S is None:
+        return jax.grad(lambda x_: jnp.sum(jem(x_, *j) * g))(jnp.asarray(x))
+    return jax.grad(lambda x_: jnp.sum(jax.vmap(
+        lambda a, b, c: jem(x_, a, b, j[2], c))(j[0], j[1], j[3]) * g))(
+            jnp.asarray(x))
+
+
+@pytest.mark.parametrize("S", [None, 3], ids=["one", "members"])
+def test_panel_gradient_matches_jax(S):
+    """Autograd of the fused conditional-EM (plain route) w.r.t. the panel
+    against jax.grad of the JAX kernel, ragged N (21 stocks against a
+    16-stock block): one member, and S = 3 through jax.vmap, whose members'
+    cotangents sum. f32 within 1e-4·max|ref|."""
+    n = 21
+    x, zpm, xr, tinv, ks, g = _inputs(4, S=S)
+    x, xr, tinv, g = x[..., :n], xr[..., :n], tinv[:n], g[..., :n]
+    ref = _jax_dx(x, zpm, xr, tinv, ks, g, S)
+    xt = torch.from_numpy(np.ascontiguousarray(x)).requires_grad_()
+    em = C.fused_conditional_em(
+        xt, *(torch.from_numpy(np.ascontiguousarray(a))
+              for a in (zpm, xr, tinv, ks)), compute_dtype="float32")
+    (dx,) = torch.autograd.grad(
+        (em * torch.from_numpy(np.ascontiguousarray(g))).sum(), xt)
+    assert dx.shape == (T, F, n)
+    _close(dx, ref, "float32", "dx")
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_dx_reference_is_autograd_of_plain_forward(cd):
+    """The plain panel cotangent against torch autograd w.r.t. x_t through
+    the plain forward (two members). f32 to 1e-5; bf16 within
+    2e-2·max|ref| (autograd does not round dpre as the kernel does)."""
+    x, zpm, xr, tinv, ks, g = _inputs(5, S=2)
+    xt = torch.from_numpy(x).requires_grad_()
+    kT = torch.from_numpy(np.swapaxes(ks, 1, 2).copy())
+    args = [torch.from_numpy(a) for a in (zpm, xr, tinv)]
+    em = C.cond_em_reference(xt, *args, kT, cd)
+    (auto,) = torch.autograd.grad((em * torch.from_numpy(g)).sum(), xt)
+    dx = C.cond_em_dx_reference(xt.detach(), *args, kT, torch.from_numpy(g),
+                                cd)
+    rel = 1e-5 if cd == "float32" else REL[cd]
+    torch.testing.assert_close(dx, auto, rtol=0,
+                               atol=rel * auto.abs().max().item())
+
+
+def test_backward_runs_only_what_is_asked(monkeypatch):
+    """The panel cotangent runs only when x_t needs a gradient, the
+    parameter backward only when zp_m, xr or k_stock does; every other
+    input's gradient is None."""
+    calls = {"bwd": 0, "dx": 0}
+    for name, key in (("cond_em_bwd_reference", "bwd"),
+                      ("cond_em_dx_reference", "dx")):
+        def counted(*a, _f=getattr(C, name), _k=key, **kw):
+            calls[_k] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(C, name, counted)
+    x, zpm, xr, tinv, ks, g = (torch.from_numpy(a) for a in _inputs(6, S=2))
+    xg = x.clone().requires_grad_()
+    em = C.fused_conditional_em(xg, zpm, xr, tinv, ks, compute_dtype="float32")
+    (dx,) = torch.autograd.grad((em * g).sum(), xg)  # frozen parameters
+    assert calls == {"bwd": 0, "dx": 1} and dx.shape == x.shape
+    xr = xr.clone().requires_grad_()
+    em = C.fused_conditional_em(xg, zpm, xr, tinv, ks, compute_dtype="float32")
+    dx2, dxr = torch.autograd.grad((em * g).sum(), (xg, xr))
+    assert calls == {"bwd": 1, "dx": 2}
+    torch.testing.assert_close(dx2, dx)
+    ks = ks.clone().requires_grad_()
+    em = C.fused_conditional_em(x, zpm, xr.detach(), tinv, ks,
+                                compute_dtype="float32")
+    (dks,) = torch.autograd.grad((em * g).sum(), ks)  # a data panel
+    assert calls == {"bwd": 2, "dx": 2} and dks.shape == ks.shape
+
+
+@pytest.mark.cuda
+def test_dx_kernel_matches_plain_on_card():
+    """cond_em_dx against cond_em_dx_reference, ragged N, and two calls
+    bitwise-equal (needs a card + nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    for S, Tn, Nn in ((1, 48, 10000), (9, 7, 1001)):
+        x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
+        zpm = torch.randn(S, Tn, 8, generator=g, device=dev) * 0.3
+        xr = torch.randn(S, Tn, Nn, generator=g, device=dev) * 0.1
+        tinv = 1.0 / torch.randint(1, Tn + 1, (Nn,), generator=g,
+                                   device=dev).float()
+        kT = torch.randn(S, 8, 46, generator=g, device=dev) * 0.15
+        gem = torch.randn(S, 8, Nn, generator=g, device=dev)
+        for cd in ("float32", "bfloat16"):
+            dx = C._launch_dx(x, zpm, xr, tinv, kT, gem, cd)
+            assert torch.equal(dx, C._launch_dx(x, zpm, xr, tinv, kT, gem,
+                                                cd))
+            ref = C.cond_em_dx_reference(x, zpm, xr, tinv, kT, gem, cd)
+            torch.testing.assert_close(dx, ref, rtol=0,
+                                       atol=REL[cd] * ref.abs().max().item())
 
 
 @pytest.mark.cuda

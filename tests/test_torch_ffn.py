@@ -327,14 +327,115 @@ def test_dropout_is_unbiased():
     assert ((runs == 0) | (runs > 0)).all()
 
 
+def _jax_dx(x, zp, k1, mids, ko, bo, g, S=None):
+    """jax.grad w.r.t. the panel of Σ g·w through the interpreted Pallas
+    kernel (f32); with S, of the call vmapped over the members (the dx
+    primitive's sequential fallback), so the members' cotangents sum."""
+    def one(x_, zp_, k1_, mids_, ko_, bo_):
+        return _jax_ffn(x_, zp_, k1_, mids_, ko_, bo_, "float32")
+
+    j = lambda a: jnp.asarray(a)  # noqa: E731
+    p = (j(zp), j(k1), [(j(a), j(b)) for a, b in mids], j(ko), j(bo))
+    if S is None:
+        return jax.grad(lambda x_: jnp.sum(one(x_, *p) * g))(j(x))
+    return jax.grad(lambda x_: jnp.sum(jax.vmap(
+        one, in_axes=(None, 0, 0, 0, 0, 0))(x_, *p) * g))(j(x))
+
+
 def test_panel_gradient_is_refused():
+    """The panel's gradient is refused only on the kernel route of a CPU
+    panel (no quiet fallback to the plain version); on the plain route it
+    runs: autograd of the fused FFN w.r.t. x_t against jax.grad of the JAX
+    kernel, one member, ragged N (21 stocks against a 16-stock block), f32
+    within 1e-4·max|ref|."""
+    n = 21
     rng = np.random.default_rng(10)
+    x = rng.standard_normal((T, F, n)).astype(np.float32)
+    zp, k1, mids, ko, bo = _params(rng, (8, 8))
+    g = rng.standard_normal((T, n)).astype(np.float32)
+    ref = np.asarray(_jax_dx(x, zp, k1, mids, ko, bo, g))
+    xt = torch.from_numpy(x).requires_grad_()
+    args = _port_args(zp[None], k1[None], [(a[None], b[None]) for a, b in mids],
+                      ko[None], bo[None])
+    before = (K.launches, K.bwd_launches, K.dx_launches)
+    out = K.sdf_ffn(xt, *args, compute_dtype="float32")
+    (dx,) = torch.autograd.grad((out[0] * torch.from_numpy(g)).sum(), xt)
+    assert (K.launches, K.bwd_launches, K.dx_launches) == before
+    assert dx.shape == (T, F, n)
+    np.testing.assert_allclose(dx.numpy(), ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+    with pytest.raises(ValueError, match="CUDA"):
+        K.sdf_ffn(xt, *args, compute_dtype="float32", kernel="on")
+
+
+def test_panel_gradient_member_axis_matches_jax_vmap():
+    """S = 3 members over one panel: the port's dx sums the members'
+    cotangents, as jax.grad of the JAX call vmapped over the members does
+    (f32, ragged N)."""
+    S, n = 3, 21
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((T, F, n)).astype(np.float32)
+    zp, k1, mids, ko, bo = _params(rng, (8, 8), S=S)
+    g = rng.standard_normal((S, T, n)).astype(np.float32)
+    ref = np.asarray(_jax_dx(x, zp, k1, mids, ko, bo, g, S=S))
+    zp_t, *rest = _port_args(zp, k1, mids, ko, bo)
+    dx = K.sdf_ffn_dx_reference(torch.from_numpy(x), zp_t, rest[0], rest[1],
+                                rest[2], torch.from_numpy(g), "float32")
+    np.testing.assert_allclose(dx.numpy(), ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("seed", [21, [21, 22, 23]], ids=["one", "per_member"])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_dx_reference_is_autograd_of_the_forward(seed, cd):
+    """With dropout 0.05 the plain panel cotangent regenerates the
+    forward's masks: it equals torch autograd w.r.t. x_t through the plain
+    forward (three members, a ragged mid stack). f32 to 1e-5 (the same
+    einsums); bf16 within 2e-2·max|ref|, because autograd does not round
+    the backward's operands as the kernel does."""
+    S, hidden = 3, (7, 5, 3)
+    rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.standard_normal((T, F, N)).astype(
         np.float32)).requires_grad_()
-    zp, k1T, mids, kout, bout = _port_args(*_params(rng, (8, 8), S=1))
-    out = K.sdf_ffn(x, zp, k1T, mids, kout, bout)
-    with pytest.raises(NotImplementedError, match="row 4"):
-        out.sum().backward()
+    zp, k1T, mids, kout, bout = _port_args(*_params(rng, hidden, S=S))
+    g = torch.from_numpy(rng.standard_normal((S, T, N)).astype(np.float32))
+    out = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, cd, seed, 0.05)
+    (auto,) = torch.autograd.grad((out * g).sum(), x)
+    dx = K.sdf_ffn_dx_reference(x.detach(), zp, k1T, mids, kout, g, cd, seed,
+                                0.05)
+    rel = 1e-5 if cd == "float32" else 2e-2
+    torch.testing.assert_close(dx, auto, rtol=0,
+                               atol=rel * auto.abs().max().item())
+
+
+def test_backward_runs_only_what_is_asked(monkeypatch):
+    """The autograd Function's backward runs the panel cotangent only when
+    x_t needs a gradient and the parameter backward only when zp or a
+    weight does, and returns None for every other input."""
+    calls = {"bwd": 0, "dx": 0}
+    for name, key in (("sdf_ffn_bwd_reference", "bwd"),
+                      ("sdf_ffn_dx_reference", "dx")):
+        def counted(*a, _f=getattr(K, name), _k=key, **kw):
+            calls[_k] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(K, name, counted)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((T, F, N)).astype(np.float32))
+    zp, k1T, mids, kout, bout = _port_args(*_params(rng, (8, 8), S=2))
+    xg = x.clone().requires_grad_()
+    out = K.sdf_ffn(xg, zp, k1T, mids, kout, bout, compute_dtype="float32")
+    (dx,) = torch.autograd.grad(out.sum(), xg)  # frozen parameters
+    assert calls == {"bwd": 0, "dx": 1} and dx.shape == x.shape
+    kout = kout.clone().requires_grad_()
+    out = K.sdf_ffn(x, zp, k1T, mids, kout, bout, compute_dtype="float32")
+    (dkout,) = torch.autograd.grad(out.sum(), kout)  # a data panel
+    assert calls == {"bwd": 1, "dx": 1} and dkout.shape == kout.shape
+    bout = bout.clone().requires_grad_()
+    out = K.sdf_ffn(x, zp, k1T, mids, kout.detach(), bout,
+                    compute_dtype="float32")
+    out.sum().backward()
+    assert calls == {"bwd": 2, "dx": 1} and bout.grad is not None
+    torch.testing.assert_close(bout.grad, torch.full_like(bout, T * N))
 
 
 @pytest.mark.cuda
@@ -371,6 +472,38 @@ def test_bwd_kernel_matches_reference_on_card():
             for a, b in zip(got, want):
                 torch.testing.assert_close(
                     a, b, rtol=0, atol=rel * b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_dx_kernel_matches_reference_on_card():
+    """sdf_ffn_dx against sdf_ffn_dx_reference with dropout, one seed per
+    member, ragged N, and two calls bitwise-equal (needs a card + nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    for S, Tn, Nn, hidden in ((1, 48, 10000, (64, 64)),
+                              (3, 5, 1001, (8, 7, 6))):
+        x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
+        zp = torch.randn(S, Tn, hidden[0], generator=g, device=dev)
+        k1T = torch.randn(S, hidden[0], 46, generator=g, device=dev) * 0.15
+        mids = [(torch.randn(S, b, a, generator=g, device=dev) * a ** -0.5,
+                 torch.randn(S, b, generator=g, device=dev) * 0.1)
+                for a, b in zip(hidden, hidden[1:])]
+        kout = torch.randn(S, hidden[-1], generator=g, device=dev) * 0.1
+        bout = torch.randn(S, generator=g, device=dev) * 0.1
+        gout = torch.randn(S, Tn, Nn, generator=g, device=dev)
+        seed = list(range(5, 5 + S))
+        for cd in ("float32", "bfloat16"):
+            packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+            dx = K._launch_dx(x, zp, packed, gout, seed, 0.05)
+            assert torch.equal(dx, K._launch_dx(x, zp, packed, gout, seed,
+                                                0.05))
+            ref = K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout, cd,
+                                         seed, 0.05)
+            rel = 1e-4 if cd == "float32" else 2e-2
+            torch.testing.assert_close(dx, ref, rtol=0,
+                                       atol=rel * ref.abs().max().item())
 
 
 @pytest.mark.cuda
