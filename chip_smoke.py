@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile   # also: torch.profiler over the engine,
                                       # training and ensemble epochs, and
                                       # the panel gradient
+    python3 chip_smoke.py --only_bwd  # the FFN backward's libraries and
+                                      # checks only (no result line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -18,10 +20,14 @@ Phases, each printing its results; any failure exits non-zero:
    training, ensemble-training and panel-gradient paths' shapes (S = 9 with
    one dropout seed per member), with CUDA-event timings, bounds, the
    dropout keep share, and bitwise-repeatable gradients and panel
-   cotangents; then the matmul ceiling: its values at small shapes, and
-   (the roofline path) ``measure_matmul_ceiling`` at the model's shapes
-   with the JAX defaults (checked bit for bit there on integer operands),
-   each shape's TFLOP/s beside cuBLAS's on the same bf16 products.
+   cotangents; the three FFN kernels also at the JAX sweep grid's other
+   widths, hidden (128, 128), (64, 64, 64) and (32, 32), at S = 1 and 9
+   (each backward line with its launch plan, and the paper-width backward
+   timed at every stock tile); then the matmul ceiling: its values at small
+   shapes, and (the roofline path) ``measure_matmul_ceiling`` at the
+   model's shapes with the JAX defaults (checked bit for bit there on
+   integer operands), each shape's TFLOP/s beside cuBLAS's on the same
+   bf16 products.
 4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
    N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
    reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served over
@@ -37,7 +43,9 @@ Phases, each printing its results; any failure exits non-zero:
    per phase, and the roofline of its phase-1 and phase-3 epochs
    (``ops/roofline.py``: the measured epoch ms and the f32 panel's bytes
    against the f32 CUDA-core peak, which bounds these f32 kernels, and
-   against the measured bf16 shape ceiling); then the ``train`` CLI in its
+   against the measured bf16 shape ceiling); a short ``train_3phase`` at
+   the sweep's hidden (128, 128) on the kernel route (launches counted);
+   then the ``train`` CLI in its
    default bf16 configuration, and the port's ``evaluate_ensemble`` on the
    run dir it wrote.
 7. Ensemble training at full width on the same panel: the paper's nine
@@ -113,6 +121,15 @@ ENS_BWD_ROW, ENS_CEM_ROW = (9, 48, 10000), (9, 10000)
 # panel-gradient path's nine members
 DX_SHAPES = [(1, 48, 10000), (3, 48, 10007), (9, 48, 10000)]
 DX_ROW = (9, 48, 10000)
+# the sweep grid's other FFN widths that the FFN kernels must hold at
+# (the JAX package's parallel/sweep.py:82 hidden_dims: the w128 library,
+# a third layer, and the w32 library with the backward's 4-tile register
+# instance), at one member and at the ensemble's nine; and one short
+# train_3phase at (128, 128)
+WIDE_HIDDEN = [(128, 128), (64, 64, 64), (32, 32)]
+WIDE_SHAPES = [(1, 48, 10000), (9, 48, 10000)]
+WIDE_TRAIN = dict(hidden=(128, 128), num_epochs_unc=2, num_epochs_moment=1,
+                  num_epochs=2, ignore_epoch=0)
 # the matmul ceiling's value checks, (M, K, BN, S, repeats, steps): at 2 x 3
 # steps (one step per step group) on normal operands, within 1e-4 of max;
 # and at the timed configuration (8 x 64: several steps per step group, as
@@ -286,7 +303,70 @@ def kernel_checks(torch, K, card):
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    shape=f"S=3 T=4 N=16384 F={F} "
                                          f"hidden={hidden} bfloat16")
+    wide_checks(torch, K, card, "fwd")
     return row
+
+
+def wide_checks(torch, K, card, kernel):
+    """sdf_ffn_fwd or sdf_ffn_dx against its plain version at WIDE_HIDDEN
+    and WIDE_SHAPES, f32 and bf16, dropout 0.05 with one seed per member,
+    and two calls bitwise-equal."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(6)
+    F = 46
+    for hidden in WIDE_HIDDEN:
+        hidden = list(hidden)
+        for S, T, N in WIDE_SHAPES:
+            x = torch.randn(T, F, N, generator=g, device=dev)
+            zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden,
+                                                    dev)
+            zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                    device=dev) * 0.3).contiguous()
+            gout = torch.randn(S, T, N, generator=g, device=dev) / N
+            seed = 11 if S == 1 else list(range(11, 11 + S))
+            for cd in ("float32", "bfloat16"):
+                packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+                if kernel == "fwd":
+                    def kern():
+                        return K.sdf_ffn_packed(x, zp, packed,
+                                                dropout_rate=DROPOUT,
+                                                seed=seed)
+
+                    def plain():
+                        return K.sdf_ffn_reference(x, zp, k1T, mids, kout,
+                                                   bout, cd, seed, DROPOUT)
+                    flops = K.flops(S, T, N, F, hidden)
+                    nbytes = K.bytes_moved(S, T, N, F, hidden)
+                    bar = 1e-5 if cd == "float32" else BF16_REL
+                else:
+                    def kern():
+                        return K._launch_dx(x, zp, packed, gout, seed,
+                                            DROPOUT)
+
+                    def plain():
+                        return K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout,
+                                                      gout, cd, seed, DROPOUT)
+                    flops = K.dx_flops(S, T, N, F, hidden)
+                    nbytes = K.dx_bytes_moved(S, T, N, F, hidden)
+                    bar = GRAD_F32_REL if cd == "float32" else BF16_REL
+                out, again = kern(), kern()
+                torch.cuda.synchronize()
+                check(torch.equal(out, again),
+                      f"sdf_ffn_{kernel} not bitwise repeatable at S={S} "
+                      f"hidden={hidden} {cd}")
+                err = rel_err(out, plain())
+                check(bool(torch.isfinite(out).all()) and err <= bar,
+                      f"sdf_ffn_{kernel} disagrees with its plain version at"
+                      f" S={S} T={T} N={N} hidden={hidden} {cd}: "
+                      f"max|d|/max|ref| {err:.3e}")
+                ms = cuda_ms(torch, kern, reps=5, warmup=1)
+                plain_ms = cuda_ms(torch, plain, reps=2, warmup=1)
+                b_ms, b_by = bound(flops, nbytes, cd)
+                print(f"[kernels] {kernel} hidden={hidden} S={S} T={T} "
+                      f"N={N} {cd:8s} dropout {DROPOUT}: max|d|/max|ref| "
+                      f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+                      f"ms  bound {b_ms:.4f} ms ({b_by}) ({card})",
+                      flush=True)
 
 
 def dropout_keep_share(torch, K, card):
@@ -371,18 +451,48 @@ def _ffn_params(torch, g, S, F, hidden, dev):
     return zp, k1T, mids, kout, bout
 
 
-def ffn_bwd_checks(torch, K, card):
+def bwd_plan_of(torch, K, lay, S, T, N, tile=None):
+    """The backward's plan for this card and what the card makes of it;
+    fails if the card holds fewer blocks resident per SM than planned."""
+    plan = K.card_bwd_plan(lay, torch.device(DEVICE), S, T, N, tile)
+    info = K.bwd_plan_info(lay, plan)
+    check(info["blocks_per_sm"] >= plan.blocks_per_sm,
+          f"sdf_ffn_bwd plan {plan}: the card holds {info['blocks_per_sm']} "
+          f"blocks per SM, not {plan.blocks_per_sm}")
+    return plan, dict(tile=plan.tile, threads=plan.threads,
+                      smem_bytes=plan.smem_bytes,
+                      blocks_per_sm_planned=plan.blocks_per_sm,
+                      blocks_per_sm=info["blocks_per_sm"], G=plan.G,
+                      accumulators=plan.accumulators, reg_tiles=plan.nt,
+                      registers=info["registers"],
+                      local_bytes=info["local_bytes"])
+
+
+def plan_text(p) -> str:
+    return (f"plan tile {p['tile']} threads {p['threads']} smem "
+            f"{p['smem_bytes']} B resident {p['blocks_per_sm']}/SM (planned "
+            f"{p['blocks_per_sm_planned']}) G {p['G']} acc "
+            f"{p['accumulators']}"
+            + (f" ({p['reg_tiles']} tiles)" if p["reg_tiles"] else "")
+            + f" regs {p['registers']} local {p['local_bytes']} B")
+
+
+def ffn_bwd_checks(torch, K, card, hidden=(64, 64), shapes=None):
     """sdf_ffn_bwd against sdf_ffn_bwd_reference, each output tensor, and
-    two calls bitwise-equal; returns the training path's row (S=1, T=48,
-    N=10000, f32, dropout 0.05)."""
+    two calls bitwise-equal, at `shapes` (BWD_SHAPES) of `hidden`; each
+    line carries the launch plan. Returns {(S, T, N): row} of the f32,
+    dropout 0.05 runs; at (64, 64) and the ensemble's S = 9 it also times
+    the plan at every stock tile that fits."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
-    F, hidden = 46, [64, 64]
-    row, ens_row = None, None
-    names = ["dzp", "dk1T", "dW2", "db2", "dkout", "dbout"]
+    F, hidden = 46, list(hidden)
+    wide = hidden != [64, 64]
+    rows = {}
+    names = ["dzp", "dk1T", "dkout", "dbout"] + [
+        f"{n}{li + 1}" for li in range(1, len(hidden)) for n in ("dW", "db")]
     print(f"[kernels] sdf_ffn_bwd vs sdf_ffn_bwd_reference, F={F} "
           f"hidden={hidden} ({card})", flush=True)
-    for S, T, N in BWD_SHAPES:
+    for S, T, N in shapes or BWD_SHAPES:
         x = torch.randn(T, F, N, generator=g, device=dev)
         zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden,
                                                 dev)
@@ -391,62 +501,81 @@ def ffn_bwd_checks(torch, K, card):
         gout = torch.randn(S, T, N, generator=g, device=dev) / N
         # one dropout seed per member, as the ensemble trains
         seed = 7 if S == 1 else list(range(7, 7 + S))
+        lay = K.ffn_layout(F, hidden)
+        plan, pinfo = bwd_plan_of(torch, K, lay, S, T, N)
         for cd in ("float32", "bfloat16"):
             packed = K.pack_ffn(k1T, mids, kout, bout, cd)
             for rate in (0.0, DROPOUT):
-                def kern():
-                    return K._launch_bwd(x, zp, packed, gout, seed, rate)
+                def kern(p=None):
+                    return K._launch_bwd(x, zp, packed, gout, seed, rate, p)
                 grads, dzp = kern()
                 grads2, dzp2 = kern()
                 torch.cuda.synchronize()
                 check(torch.equal(grads, grads2)
                       and torch.equal(dzp, dzp2),
                       f"sdf_ffn_bwd not bitwise repeatable at S={S} "
-                      f"T={T} N={N} {cd} rate {rate}")
+                      f"T={T} N={N} hidden={hidden} {cd} rate {rate}")
                 dk1T, dmids, dkout, dbout = K.unpack_grads(
                     grads, packed.layout)
-                outs = [dzp, dk1T, dmids[0][0], dmids[0][1], dkout,
-                        dbout]
+                outs = [dzp, dk1T, dkout, dbout] + [
+                    t for wb in dmids for t in wb]
 
                 def plain():
                     return K.sdf_ffn_bwd_reference(
                         x, zp, k1T, mids, kout, gout, cd, seed, rate)
                 r = plain()
-                refs = [r[0], r[1], r[2][0][0], r[2][0][1], r[3], r[4]]
+                refs = [r[0], r[1], r[3], r[4]] + [
+                    t for wb in r[2] for t in wb]
                 errs = [rel_err(o, q) for o, q in zip(outs, refs)]
+                abs_err = max(float((o - q).abs().max())
+                              for o, q in zip(outs, refs))
+                del r, refs
                 bar = GRAD_F32_REL if cd == "float32" else BF16_REL
                 worst = max(range(len(errs)), key=errs.__getitem__)
                 check(all(bool(torch.isfinite(o).all()) for o in outs),
-                      f"non-finite sdf_ffn_bwd output S={S} T={T} N={N}")
+                      f"non-finite sdf_ffn_bwd output S={S} T={T} N={N} "
+                      f"hidden={hidden}")
                 check(errs[worst] <= bar,
                       f"sdf_ffn_bwd disagrees with its plain version at "
-                      f"S={S} T={T} N={N} {cd} rate {rate}: "
-                      f"{names[worst]} max|d|/max|ref| "
-                      f"{errs[worst]:.3e}")
-                ms = cuda_ms(torch, kern, reps=10, warmup=2)
-                plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
+                      f"S={S} T={T} N={N} hidden={hidden} {cd} rate {rate}: "
+                      f"{names[worst]} max|d|/max|ref| {errs[worst]:.3e}")
+                ms = cuda_ms(torch, kern, reps=5 if wide else 10, warmup=2)
+                plain_ms = cuda_ms(torch, plain, reps=2 if wide else 5,
+                                   warmup=1)
                 b_ms, b_by = bound(K.bwd_flops(S, T, N, F, hidden),
                                    K.bwd_bytes_moved(S, T, N, F, hidden),
                                    cd)
-                abs_err = max(float((o - q).abs().max())
-                              for o, q in zip(outs, refs))
-                print(f"[kernels] bwd S={S} T={T:2d} N={N:5d} {cd:8s} "
-                      f"drop {rate:.2f}  max|d|/max|ref| {errs[worst]:.2e}"
-                      f" ({names[worst]})  kernel {ms:.4f} ms  plain "
-                      f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
-                      f"  bitwise-repeatable", flush=True)
-                if cd == "float32" and rate == DROPOUT and (S, T, N) in (
-                        BWD_ROW, ENS_BWD_ROW):
-                    r = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by,
-                             shape=f"S={S} T={T} N={N} F={F} "
-                                   f"hidden={hidden} float32 dropout "
-                                   f"{DROPOUT}")
-                    if (S, T, N) == BWD_ROW:
-                        row = r
-                    else:
-                        ens_row = r
-    return row, ens_row
+                print(f"[kernels] bwd hidden={hidden} S={S} T={T:2d} "
+                      f"N={N:5d} {cd:8s} drop {rate:.2f}  max|d|/max|ref| "
+                      f"{errs[worst]:.2e} ({names[worst]})  kernel {ms:.4f} "
+                      f"ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({b_by})  bitwise-repeatable; {plan_text(pinfo)}",
+                      flush=True)
+                if cd == "float32" and rate == DROPOUT:
+                    rows[(S, T, N)] = dict(
+                        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, plan=pinfo,
+                        shape=f"S={S} T={T} N={N} F={F} hidden={hidden} "
+                              f"float32 dropout {DROPOUT}")
+                    if not wide and (S, T, N) == ENS_BWD_ROW:
+                        tile_times(torch, K, lay, S, T, N, kern, card)
+    return rows
+
+
+def tile_times(torch, K, lay, S, T, N, kern, card):
+    """The backward at every stock tile whose plan fits, same inputs."""
+    parts = []
+    for tile in K.BWD_TILES:
+        try:
+            plan, pinfo = bwd_plan_of(torch, K, lay, S, T, N, tile)
+        except ValueError:
+            continue
+        ms = cuda_ms(torch, lambda: kern(plan), reps=5, warmup=1)
+        parts.append(f"tile {tile} ({pinfo['blocks_per_sm']}/SM, "
+                     f"{pinfo['accumulators']}, regs {pinfo['registers']}) "
+                     f"{ms:.4f} ms")
+    print(f"[kernels] bwd S={S} T={T} N={N} f32 dropout {DROPOUT} by stock "
+          f"tile: " + "; ".join(parts) + f" ({card})", flush=True)
 
 
 def cond_em_checks(torch, C, card):
@@ -585,6 +714,7 @@ def dx_checks(torch, K, C, card):
                         max_abs_err=float((out - ref).abs().max()), ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         shape=f"S={S} T={T} N={N} F={F} {cd} {what}")
+    wide_checks(torch, K, card, "dx")
     return rows
 
 
@@ -961,6 +1091,71 @@ def train_checks(torch, K, C, card, splits, opts):
                 for i, name in enumerate(("sdf_ffn_fwd", "sdf_ffn_bwd",
                                           "cond_em_fwd", "cond_em_bwd"))}
     return launches, on["epoch_ms"]
+
+
+def wide_train_check(torch, K, C, card, splits):
+    """train_3phase at the sweep's hidden (128, 128), kernel route, f32,
+    dropout 0.05, a short schedule: a finite history, and every kernel's
+    launches per phase as PER_EPOCH counts them."""
+    from deeplearninginassetpricing_paperreplication_torch.training import (
+        trainer as trainer_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, test = splits
+    sched = dict(WIDE_TRAIN)
+    hidden = sched.pop("hidden")
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    hidden_dim=hidden, dropout=DROPOUT)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid, test)]
+    per_phase = {}
+    run_phase = trainer_mod.Trainer.run_phase
+
+    def counted(self, phase, seeds, b, best):
+        before = counts(K, C)
+        out = run_phase(self, phase, seeds, b, best)
+        torch.cuda.synchronize()
+        per_phase[phase] = tuple(a - c for a, c in zip(counts(K, C), before))
+        return out
+
+    trainer_mod.Trainer.run_phase = counted
+    try:
+        t0 = time.perf_counter()
+        _, _, hist, trainer = trainer_mod.train_3phase(
+            cfg, *batches, tcfg=TrainConfig(**sched, seed=42,
+                                            print_freq=10 ** 6),
+            seed=42, verbose=False, exec_cfg=ExecutionConfig(
+                kernel="on", compute_dtype="float32", device=DEVICE))
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.run_phase = run_phase
+    n_epochs = {"unconditional": sched["num_epochs_unc"],
+                "moment": sched["num_epochs_moment"],
+                "conditional": sched["num_epochs"]}
+    for phase, per in PER_EPOCH.items():
+        want = tuple(n_epochs[phase] * v for v in per)
+        check(per_phase[phase] == want,
+              f"hidden {list(hidden)}: {phase} launches (fwd, bwd, cem_fwd, "
+              f"cem_bwd) {per_phase[phase]} != {want}")
+    check(all(np.isfinite(hist[k]).all() for k in hist if k != "phase"),
+          f"non-finite training history at hidden {list(hidden)}")
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    print(f"[train wide] hidden {list(hidden)}, F="
+          f"{cfg.individual_feature_dim} N={train.N} T={train.T}, dropout "
+          f"{DROPOUT}, schedule {n_epochs['unconditional']}/"
+          f"{n_epochs['moment']}/{n_epochs['conditional']}, f32, kernel "
+          f"route: {wall:.1f} s; final train/valid/test Sharpe "
+          f"{hist['train_sharpe'][-1]:.4f} / {hist['valid_sharpe'][-1]:.4f} "
+          f"/ {hist['test_sharpe'][-1]:.4f}; wall ms per epoch "
+          f"{fmt(trainer.epoch_ms())} ({card})", flush=True)
+    for phase in n_epochs:
+        print(f"[train wide] launches {phase}: (fwd, bwd, cem_fwd, cem_bwd) "
+              f"{per_phase[phase]}", flush=True)
+    return {name: sum(v[i] for v in per_phase.values())
+            for i, name in enumerate(("sdf_ffn_fwd", "sdf_ffn_bwd",
+                                      "cond_em_fwd", "cond_em_bwd"))}
 
 
 def profile_training(torch, trainer, batches, card):
@@ -1435,6 +1630,10 @@ def main(argv=None) -> int:
                     help="also profile the serving engine, training and "
                          "ensemble-training epochs and the panel gradient "
                          "with torch.profiler")
+    ap.add_argument("--only_bwd", action="store_true",
+                    help="build the FFN backward's libraries only and run "
+                         "their checks (a short call while the backward "
+                         "changes); no result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -1485,7 +1684,8 @@ def main(argv=None) -> int:
 
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
-    jobs = K.build_jobs() + C.build_jobs() + MB.build_jobs()
+    jobs = (K.build_jobs(kernels=("bwd",)) if opts.only_bwd
+            else K.build_jobs() + C.build_jobs() + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1494,11 +1694,26 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {line.strip()}", flush=True)
 
+    if opts.only_bwd:
+        # the backward's libraries alone: sdf_ffn_bwd at every check shape
+        # and sweep width, sdf_ffn_dx at the sweep widths
+        t0 = time.perf_counter()
+        ffn_bwd_checks(torch, K, card)
+        for h in WIDE_HIDDEN:
+            ffn_bwd_checks(torch, K, card, h, WIDE_SHAPES)
+        wide_checks(torch, K, card, "dx")
+        print(f"[kernels] backward checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
+
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     row = kernel_checks(torch, K, card)
     _, ens_fwd_row = dropout_keep_share(torch, K, card)
-    bwd_row, ens_bwd_row = ffn_bwd_checks(torch, K, card)
+    bwd_rows = ffn_bwd_checks(torch, K, card)
+    bwd_row, ens_bwd_row = bwd_rows[BWD_ROW], bwd_rows[ENS_BWD_ROW]
+    wide_bwd = {str(list(h)): {f"S={k[0]}": r for k, r in ffn_bwd_checks(
+        torch, K, card, h, WIDE_SHAPES).items()} for h in WIDE_HIDDEN}
     cem_rows = cond_em_checks(torch, C, card)
     dx_rows = dx_checks(torch, K, C, card)
     ceiling_row = ceiling_checks(torch, MB, card)
@@ -1551,6 +1766,7 @@ def main(argv=None) -> int:
     train_launches, single_epoch_ms = train_checks(torch, K, C, card, splits,
                                                    opts)
     roofline_lines("train", splits, single_epoch_ms, 1, shape_ceiling, card)
+    wide_launches = wide_train_check(torch, K, C, card, splits)
     cli_check(torch, card)
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1577,6 +1793,7 @@ def main(argv=None) -> int:
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
     def by_path(name, serving=0):
         paths = {"training": train_launches[name],
+                 "training_hidden_128x128": wide_launches[name],
                  "ensemble_training": ens_launches[name]}
         if serving:
             paths = {"serving": serving, **paths}
@@ -1602,7 +1819,7 @@ def main(argv=None) -> int:
              replaces=tpu + "pallas_ffn.py:205",
              also_replaces=tpu + "pallas_ffn.py:591",
              **by_path("sdf_ffn_bwd"), **bwd_row,
-             at_ensemble_shape=ens_bwd_row),
+             at_ensemble_shape=ens_bwd_row, at_sweep_widths=wide_bwd),
         dict(name="cond_em_fwd", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:64",
              also_replaces=tpu + "pallas_moment.py:274",

@@ -59,8 +59,21 @@ from . import _nvcc
 COMPUTE_DTYPES = ("float32", "bfloat16")
 MAX_HIDDEN_LAYERS = 8
 WIDTH_BOUNDS = (32, 64, 128)  # one library per bound on the padded width
-BWD_TILES = (128, 64, 32)  # stock tiles of the backward, largest that fits
-MAX_SMEM = 227 * 1024
+MAX_SMEM = 227 * 1024  # shared memory one block may use (bytes)
+# the card's SM (H100): shared memory, of which each resident block also
+# takes 1 KB for itself, and its thread and block limits
+SM_SMEM = 228 * 1024
+BLOCK_SMEM_RESERVED = 1024
+SM_MAX_THREADS = 2048
+SM_MAX_BLOCKS = 32
+SM_REGS = 65536
+REG_ALLOC_UNIT = 256  # a warp's registers come in units of 256
+# the backward's stock tiles (= threads per block), its register-tile
+# instances (4 × 4 tiles per thread; none in the w128 library) and its
+# 4-wide register tiles per thread (csrc/sdf_ffn_bwd.cu)
+BWD_TILES = (128, 96, 64, 32)
+BWD_REG_TILES = (4, 6)
+BWD_VEC_TILES = 4
 
 # launches of the CUDA kernels, counted where the wrapper launches them and
 # nowhere else (reset_launch_count() before a run, read them after)
@@ -425,8 +438,9 @@ _ARGTYPES = {
                ctypes.c_void_p]),
     "bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p]),
+               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
+            + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_void_p]),
     # the panel cotangent, in the backward's library
     "dx": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
@@ -446,9 +460,12 @@ def _load(kernel: str, width: int):
             fn.argtypes = _ARGTYPES[kernel]
             fn.restype = ctypes.c_int
             if kernel == "bwd":
-                lib.sdf_ffn_bwd_smem_bytes.argtypes = [
-                    ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-                lib.sdf_ffn_bwd_smem_bytes.restype = ctypes.c_longlong
+                lib.sdf_ffn_bwd_plan_info.argtypes = [
+                    ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [
+                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+                lib.sdf_ffn_bwd_plan_info.restype = ctypes.c_int
+                lib.sdf_ffn_bwd_registers.argtypes = [ctypes.c_int]
+                lib.sdf_ffn_bwd_registers.restype = ctypes.c_int
                 lib.sdf_ffn_dx.argtypes = _ARGTYPES["dx"]
                 lib.sdf_ffn_dx.restype = ctypes.c_int
             _libs[key] = lib
@@ -515,19 +532,129 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     return out
 
 
-def bwd_blocks(S: int, T: int, N: int, tile: int, sms: int) -> int:
-    """Blocks per member of the backward: one wave of one block per SM
-    (⌊sms / S⌋ per member, so S · G ≤ sms: a ceiling would put the
-    remainder in a second wave of its own), never more than the (period,
-    stock-tile) cells."""
-    cells = T * (-(-N // tile))
-    return max(1, min(cells, sms // S))
+def _row_stride(w: int) -> int:
+    """A stock-major tile's row stride (csrc/sdf_ffn_bwd.cu row_stride): a
+    multiple of 4 floats whose quarter is odd."""
+    s = _pad4(w)
+    return s if (s // 4) % 2 else s + 4
+
+
+def bwd_geometry(lay: FfnLayout, tile: int) -> Tuple[int, int, int]:
+    """(shared-memory floats, 4 × 4 product tiles, 4-wide sum tiles) of the
+    backward at stock tile `tile`, as csrc/sdf_ffn_bwd.cu's smem_plan counts
+    them: the packed weights, zp, g, then the tile's x rows (F padded to 4)
+    and one activation row per layer and stock; the tiles of dW_l and dK1,
+    and of dkout + dbout and every db_l."""
+    hp = lay.hp
+    floats = lay.P + hp[0] + tile + tile * (
+        _row_stride(lay.F) + sum(_row_stride(h) for h in hp))
+    outer = _pad4(lay.F) // 4 * (hp[0] // 4) + sum(
+        hp[li] // 4 * (hp[li - 1] // 4) for li in range(1, len(hp)))
+    vec = hp[-1] // 4 + 1 + sum(h // 4 for h in hp[1:])
+    return floats, outer, vec
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's launch: stock tile (= threads per block), shared
+    memory per block, the resident blocks per SM that shared memory, the
+    thread limit and the registers allow, blocks per member G, and the accumulators: `nt`
+    register tiles per thread (a csrc instance), or 0 for read-add-write of
+    each block's slice of grad_part per cell."""
+
+    tile: int
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int
+    G: int
+    nt: int
+
+    @property
+    def accumulators(self) -> str:
+        return "registers" if self.nt else "grad_part"
+
+
+def bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
+             tile: int = None, registers: Dict[int, int] = None) -> BwdPlan:
+    """The backward's launch plan for `lay` on a card of `sms` SMs.
+
+    Among the stock tiles whose shared memory fits one block, it takes the
+    one that keeps the most stocks resident per SM (tile × blocks per SM;
+    then register accumulators; then the larger tile). The accumulators
+    stay in registers when the product tiles fit an instance of
+    BWD_REG_TILES per thread (not in the w128 library). `registers`
+    ({nt: registers per thread of that kernel instance}, as the built
+    library reports them) bounds the blocks per SM too. G = ⌊blocks per SM
+    · sms / S⌋ blocks per member, capped at the (period, tile) cells, so
+    one wave fills the card (a ceiling would put the remainder in a second
+    wave of its own). `tile` forces one stock tile. Raises if none fits."""
+    plans = []
+    for bn in (BWD_TILES if tile is None else (tile,)):
+        floats, outer, vec = bwd_geometry(lay, bn)
+        smem = 4 * floats
+        if bn not in BWD_TILES or smem > MAX_SMEM:
+            continue
+        blocks = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED),
+                     SM_MAX_THREADS // bn, SM_MAX_BLOCKS)
+        nt = 0
+        if width_bound(lay.hidden) <= 64 and vec <= BWD_VEC_TILES * bn:
+            nt = next((r for r in BWD_REG_TILES if outer <= r * bn), 0)
+        regs = (registers or {}).get(nt, 0)
+        if regs:
+            per_warp = -(-regs * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+            blocks = min(blocks, SM_REGS // (per_warp * -(-bn // 32)))
+        if blocks < 1:
+            continue
+        cells = T * (-(-N // bn))
+        G = max(1, min(cells, blocks * sms // S))
+        plans.append(BwdPlan(bn, bn, smem, blocks, G, nt))
+    if not plans:
+        raise ValueError(f"sdf_ffn_bwd: hidden {list(lay.hidden)} with F = "
+                         f"{lay.F} does not fit the kernel's shared memory"
+                         + (f" at tile {tile}" if tile else ""))
+    return max(plans, key=lambda p: (p.tile * p.blocks_per_sm, p.nt > 0,
+                                     p.tile))
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_bwd_regs: Dict[int, Dict[int, int]] = {}
+
+
+def card_bwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
+                  tile: int = None) -> BwdPlan:
+    """:func:`bwd_plan` for the card `dev`: its SM count, and the registers
+    of the library's kernel instances."""
+    width = width_bound(lay.hidden)
+    if width not in _bwd_regs:
+        lib = _load("bwd", width)
+        regs = {nt: lib.sdf_ffn_bwd_registers(nt)
+                for nt in (0,) + BWD_REG_TILES}
+        _bwd_regs[width] = {nt: r for nt, r in regs.items() if r > 0}
+    return bwd_plan(lay, _sm_count(dev), S, T, N, tile, _bwd_regs[width])
+
+
+def bwd_plan_info(lay: FfnLayout, plan: BwdPlan) -> Dict[str, int]:
+    """What the card makes of `plan` (the current CUDA device): resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local-memory bytes per thread of the kernel instance it
+    launches. Raises for a plan the kernel refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _load("bwd", width_bound(lay.hidden)).sdf_ffn_bwd_plan_info(
+        _layout_ints(lay), plan.tile, plan.threads, plan.nt,
+        plan.smem_bytes, out)
+    if rc != 0:
+        raise RuntimeError(f"sdf_ffn_bwd refused the plan {plan} (code {rc})")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
 def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-                g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(grads [S, P] in the packed layout, dzp [S, T, H1])."""
+                g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
+                plan: BwdPlan = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grads [S, P] in the packed layout, dzp [S, T, H1]); `plan` defaults
+    to :func:`card_bwd_plan` for this card."""
     global bwd_launches
     lay = packed.layout
     T, F, N = x_t.shape
@@ -537,17 +664,11 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
     _check_cuda("g", g, (S, T, N), dev)
+    if plan is None:
+        plan = card_bwd_plan(lay, dev, S, T, N)
     lib = _load("bwd", width_bound(lay.hidden))
-    ints = _layout_ints(lay)
-    tile = next((b for b in BWD_TILES
-                 if 0 < lib.sdf_ffn_bwd_smem_bytes(ints, b) <= MAX_SMEM),
-                None)
-    if tile is None:
-        raise ValueError(f"sdf_ffn_bwd: hidden {list(lay.hidden)} with F = "
-                         f"{lay.F} does not fit the kernel's shared memory")
-    G = bwd_blocks(S, T, N, tile,
-                   torch.cuda.get_device_properties(dev).multi_processor_count)
-    grad_part = torch.empty((S, G, lay.P), dtype=torch.float32, device=dev)
+    G = plan.G
+    grad_part = torch.zeros((S, G, lay.P), dtype=torch.float32, device=dev)
     dzp_part = torch.zeros((S, G, T, lay.hidden[0]), dtype=torch.float32,
                            device=dev)
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
@@ -556,8 +677,12 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         rc = lib.sdf_ffn_bwd(
             x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
             g.data_ptr(), grad_part.data_ptr(), dzp_part.data_ptr(), S, T, N,
-            ints, int(packed.compute_dtype == "bfloat16"), *drop, G, tile,
-            stream)
+            _layout_ints(lay), int(packed.compute_dtype == "bfloat16"),
+            *drop, G, plan.tile, plan.threads, plan.nt, plan.smem_bytes,
+            plan.blocks_per_sm, stream)
+    if rc == -1:
+        raise RuntimeError(f"sdf_ffn_bwd refused the plan {plan} for hidden "
+                           f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_bwd", rc)
     bwd_launches += 1
     # the fixed-order pass over the per-block partials

@@ -228,10 +228,11 @@ def _close_grads(port, ref, cd, squeeze):
 
 @pytest.mark.parametrize("cd,hidden", [
     ("float32", (8, 8)), ("float32", (8, 8, 8)), ("bfloat16", (8, 8)),
-    ("bfloat16", (8, 8, 8))])
+    ("bfloat16", (8, 8, 8)), ("float32", (128, 128))])
 def test_bwd_reference_matches_jax_grad(cd, hidden):
     """The backward's plain version against jax.grad of the JAX kernel
-    (ragged N: the second 16-stock block holds 5)."""
+    (ragged N: the second 16-stock block holds 5), also at the sweep grid's
+    widest hidden (128, 128) (parallel/sweep.py:82)."""
     rng = np.random.default_rng(5)
     x = rng.standard_normal((T, F, N)).astype(np.float32)
     zp, k1, mids, ko, bo = _params(rng, hidden)
@@ -438,6 +439,13 @@ def test_backward_runs_only_what_is_asked(monkeypatch):
     torch.testing.assert_close(bout.grad, torch.full_like(bout, T * N))
 
 
+# the sweep grid's other widths (parallel/sweep.py:82), one member and
+# three, ragged N: (S, T, N, hidden)
+SWEEP_CASES = tuple((S, 6, N, h)
+                    for h in ((128, 128), (64, 64, 64), (32, 32))
+                    for S, N in ((1, 2001), (3, 1003)))
+
+
 @pytest.mark.cuda
 def test_bwd_kernel_matches_reference_on_card():
     """sdf_ffn_bwd against sdf_ffn_bwd_reference with dropout, and two
@@ -447,7 +455,7 @@ def test_bwd_kernel_matches_reference_on_card():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     for S, Tn, Nn, hidden in ((1, 48, 10000, (64, 64)),
-                              (2, 3, 1001, (8, 7, 6))):
+                              (2, 3, 1001, (8, 7, 6))) + SWEEP_CASES:
         x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
         zp = torch.randn(S, Tn, hidden[0], generator=g, device=dev)
         k1T = torch.randn(S, hidden[0], 46, generator=g, device=dev) * 0.15
@@ -483,7 +491,7 @@ def test_dx_kernel_matches_reference_on_card():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     for S, Tn, Nn, hidden in ((1, 48, 10000, (64, 64)),
-                              (3, 5, 1001, (8, 7, 6))):
+                              (3, 5, 1001, (8, 7, 6))) + SWEEP_CASES:
         x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
         zp = torch.randn(S, Tn, hidden[0], generator=g, device=dev)
         k1T = torch.randn(S, hidden[0], 46, generator=g, device=dev) * 0.15
@@ -514,7 +522,7 @@ def test_kernel_matches_reference_on_card():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     for S, Tn, Nn, hidden in ((1, 1, 16384, (64, 64)), (3, 4, 10007, (64, 64)),
-                              (2, 3, 1001, (8, 7, 6))):
+                              (2, 3, 1001, (8, 7, 6))) + SWEEP_CASES:
         x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
         zp = torch.randn(S, Tn, hidden[0], generator=g, device=dev)
         k1T = torch.randn(S, hidden[0], 46, generator=g, device=dev) * 0.15
