@@ -7,6 +7,12 @@
                                       # the panel gradient
     python3 chip_smoke.py --only_bwd  # the FFN backward's libraries and
                                       # checks only (no result line)
+    python3 chip_smoke.py --only_fwd  # the FFN forward's libraries and
+                                      # checks only (no result line)
+    python3 chip_smoke.py --only_fwd --compare_fwd DIR
+                                      # also: the f32 forward bit for bit
+                                      # against DIR/sdf_ffn.cu (an older
+                                      # source beside its header)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -15,7 +21,8 @@ Phases, each printing its results; any failure exits non-zero:
    sm_90a, one process per library, all started together): the SDF-FFN
    forward and backward (with its panel cotangent) for each width bound,
    the conditional-EM (forward, backward, panel cotangent), and the matmul
-   ceiling.
+   ceiling; then each forward library's tensor-core instructions (HMMA in
+   its ``cuobjdump -sass``), which the bf16 route needs.
 3. Kernels against their plain PyTorch versions on the card, at the serving,
    training, ensemble-training and panel-gradient paths' shapes (S = 9 with
    one dropout seed per member), with CUDA-event timings, bounds, the
@@ -23,11 +30,12 @@ Phases, each printing its results; any failure exits non-zero:
    cotangents; the three FFN kernels also at the JAX sweep grid's other
    widths, hidden (128, 128), (64, 64, 64) and (32, 32), at S = 1 and 9
    (each backward line with its launch plan, and the paper-width backward
-   timed at every stock tile); then the matmul ceiling: its values at small
-   shapes, and (the roofline path) ``measure_matmul_ceiling`` at the
-   model's shapes with the JAX defaults (checked bit for bit there on
-   integer operands), each shape's TFLOP/s beside cuBLAS's on the same
-   bf16 products.
+   timed at every stock tile; each forward route's launch plan per width
+   bound, as the card holds it, with no spills); then the matmul ceiling:
+   its values at small shapes, and (the roofline path)
+   ``measure_matmul_ceiling`` at the model's shapes with the JAX defaults
+   (checked bit for bit there on integer operands), each shape's TFLOP/s
+   beside cuBLAS's on the same bf16 products.
 4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
    N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
    reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served over
@@ -475,6 +483,109 @@ def plan_text(p) -> str:
             f"{p['accumulators']}"
             + (f" ({p['reg_tiles']} tiles)" if p["reg_tiles"] else "")
             + f" regs {p['registers']} local {p['local_bytes']} B")
+
+
+def fwd_plan_lines(torch, K, card):
+    """Each forward route's plan at every width bound (the paper's (64, 64)
+    and the sweep widths) and the main paths' (S, T, N), as the card holds
+    it; fails if the card keeps fewer blocks resident than planned or a
+    kernel spills to local memory."""
+    dev = torch.device(DEVICE)
+    for hidden in [(64, 64)] + WIDE_HIDDEN:
+        lay = K.ffn_layout(46, hidden)
+        for S, T, N in ((3, 4, 16384), (1, 48, 10000), (9, 48, 10000)):
+            for cd in ("float32", "bfloat16"):
+                plan = K.card_fwd_plan(lay, dev, S, T, N, cd)
+                info = K.fwd_plan_info(lay, S, plan)
+                check(info["blocks_per_sm"] >= plan.blocks_per_sm,
+                      f"sdf_ffn_fwd plan {plan}: the card holds "
+                      f"{info['blocks_per_sm']} blocks per SM")
+                check(info["local_bytes"] == 0,
+                      f"sdf_ffn_fwd w{K.width_bound(hidden)} {cd} spills "
+                      f"{info['local_bytes']} B per thread")
+                print(f"[kernels] fwd plan hidden={list(hidden)} w"
+                      f"{K.width_bound(hidden)} S={S} T={T} N={N} {cd:8s} "
+                      f"route {plan.route} tile {plan.tile} threads "
+                      f"{plan.threads} members {plan.members} smem "
+                      f"{plan.smem_bytes} B resident "
+                      f"{info['blocks_per_sm']}/SM (planned "
+                      f"{plan.blocks_per_sm}) G {plan.G} of {plan.cells} "
+                      f"cells regs {info['registers']} local "
+                      f"{info['local_bytes']} B ({card})", flush=True)
+
+
+def sass_hmma(K, _nvcc):
+    """HMMA instructions in each forward library's SASS (cuobjdump): the
+    bf16 route's products must be on the tensor cores."""
+    tool = Path(_nvcc.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("[build] cuobjdump not in the toolkit: HMMA count not taken",
+              flush=True)
+        return
+    counts = {}
+    for job in K.build_jobs(kernels=("fwd",)):
+        sass = subprocess.run([str(tool), "-sass", str(job.path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[job.name] = sass.count("HMMA")
+    print(f"[build] HMMA instructions in the forward's SASS: {counts}",
+          flush=True)
+    check(all(counts.values()), "a forward library has no HMMA instruction")
+
+
+def compare_fwd(torch, K, _nvcc, src_dir, card):
+    """The f32 forward against an older source's (src_dir/sdf_ffn.cu, its
+    one-thread-per-stock kernel and argument list) at the training shapes:
+    bit for bit equal, and the two timed in turns (old, new, new, old)."""
+    import ctypes
+
+    src = Path(src_dir).resolve()
+    out = _nvcc.BUILD_DIR / "libsdf_ffn_fwd_compare.so"
+    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-DSDF_FFN_MAXW=64",
+                    "-o", str(out), str(src / "sdf_ffn.cu")], check=True)
+    old = ctypes.CDLL(str(out)).sdf_ffn_fwd
+    old.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                       ctypes.c_float, ctypes.c_void_p])
+    old.restype = ctypes.c_int
+    dev = torch.device(DEVICE)
+    (T, N), F, H = KEEP_SHAPE, 46, 64
+    x = torch.randn(T, F, N, device=dev)
+    for S in (1, 9):
+        g = torch.Generator(device=dev).manual_seed(3)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, [H, H], dev)
+        zp = zp1.expand(S, T, H).contiguous()
+        seed = 5 if S == 1 else list(range(5, 5 + S))
+        packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+        for rate in (0.0, DROPOUT):
+            drop, bases = K._dropout_args(seed, rate, S, dev)
+
+            def run_old():
+                o = torch.empty(S, T, N, device=dev)
+                rc = old(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+                         o.data_ptr(), S, T, N,
+                         K._layout_ints(packed.layout), 0, *drop,
+                         torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"the older forward failed (code {rc})")
+                return o
+
+            def run_new():
+                return K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate,
+                                        seed=seed)
+            a, b = run_old(), run_new()
+            torch.cuda.synchronize()
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)), f"sdf_ffn_fwd f32 differs from the older kernel at "
+                        f"S={S} dropout {rate}: max|d| "
+                        f"{float((a - b).abs().max()):.3e}")
+            t = [cuda_ms(torch, f) for f in (run_old, run_new, run_new,
+                                              run_old)]
+            print(f"[kernels] fwd f32 S={S} T={T} N={N} drop {rate:.2f}: bit "
+                  f"for bit equal to {src.name}/sdf_ffn.cu; older "
+                  f"{t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / {t[2]:.4f} "
+                  f"ms ({card})", flush=True)
+            del bases
 
 
 def ffn_bwd_checks(torch, K, card, hidden=(64, 64), shapes=None):
@@ -1634,6 +1745,14 @@ def main(argv=None) -> int:
                     help="build the FFN backward's libraries only and run "
                          "their checks (a short call while the backward "
                          "changes); no result line")
+    ap.add_argument("--only_fwd", action="store_true",
+                    help="build the FFN forward's libraries only and run "
+                         "their checks (a short call while the forward "
+                         "changes); no result line")
+    ap.add_argument("--compare_fwd", metavar="DIR", default=None,
+                    help="with --only_fwd: hold the f32 forward bit for bit "
+                         "against DIR/sdf_ffn.cu, an older source beside "
+                         "its sdf_ffn_common.cuh")
     opts = ap.parse_args(argv)
 
     import torch
@@ -1685,6 +1804,7 @@ def main(argv=None) -> int:
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
     jobs = (K.build_jobs(kernels=("bwd",)) if opts.only_bwd
+            else K.build_jobs(kernels=("fwd",)) if opts.only_fwd
             else K.build_jobs() + C.build_jobs() + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
@@ -1693,6 +1813,22 @@ def main(argv=None) -> int:
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {line.strip()}", flush=True)
+
+    if not opts.only_bwd:
+        sass_hmma(K, _nvcc)
+
+    if opts.only_fwd:
+        # the forward's libraries alone: its plans, every forward check,
+        # and (with --compare_fwd) the f32 route against an older source
+        t0 = time.perf_counter()
+        fwd_plan_lines(torch, K, card)
+        kernel_checks(torch, K, card)
+        dropout_keep_share(torch, K, card)
+        if opts.compare_fwd:
+            compare_fwd(torch, K, _nvcc, opts.compare_fwd, card)
+        print(f"[kernels] forward checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
 
     if opts.only_bwd:
         # the backward's libraries alone: sdf_ffn_bwd at every check shape
@@ -1708,6 +1844,7 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
+    fwd_plan_lines(torch, K, card)
     row = kernel_checks(torch, K, card)
     _, ens_fwd_row = dropout_keep_share(torch, K, card)
     bwd_rows = ffn_bwd_checks(torch, K, card)

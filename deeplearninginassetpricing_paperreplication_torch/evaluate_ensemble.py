@@ -283,7 +283,7 @@ def _print_report(results, n_models):
 
 
 def add_execution_args(p: argparse.ArgumentParser) -> None:
-    """--device / --compute_dtype, shared by the CLIs."""
+    """--device / --compute_dtype / --kernel, shared by the CLIs."""
     p.add_argument("--device", type=str, default="cuda",
                    choices=("cuda", "cpu"),
                    help="run on the CUDA device (default; an error without "
@@ -292,6 +292,10 @@ def add_execution_args(p: argparse.ArgumentParser) -> None:
                    choices=("float32", "bfloat16"),
                    help="operand dtype of the fused FFN's products (f32 "
                         "accumulation always)")
+    p.add_argument("--kernel", type=str, default="auto",
+                   choices=("auto", "on", "off"),
+                   help="the CUDA kernels (auto: on a CUDA device) or, with "
+                        "off, their plain PyTorch versions")
 
 
 def execution_config(args) -> ExecutionConfig:
@@ -302,12 +306,12 @@ def execution_config(args) -> ExecutionConfig:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
-    return ExecutionConfig(kernel=getattr(args, "kernel", "auto"),
+    return ExecutionConfig(kernel=args.kernel,
                            compute_dtype=args.compute_dtype,
                            device=args.device)
 
 
-def main(argv=None):
+def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Evaluate (or train) a model ensemble")
     p.add_argument("--data_dir", type=str, required=True)
@@ -333,6 +337,11 @@ def main(argv=None):
                         "(seed_<s>/config.json + best_model_sharpe.pt) and "
                         "ensemble_report.json")
     add_execution_args(p)
+    return p
+
+
+def main(argv=None):
+    p = build_arg_parser()
     args = p.parse_args(argv)
     if (args.checkpoint_dirs is None) == (args.train_seeds is None):
         p.error("pass exactly one of --checkpoint_dirs / --train_seeds")

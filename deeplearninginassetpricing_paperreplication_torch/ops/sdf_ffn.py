@@ -74,6 +74,14 @@ REG_ALLOC_UNIT = 256  # a warp's registers come in units of 256
 BWD_TILES = (128, 96, 64, 32)
 BWD_REG_TILES = (4, 6)
 BWD_VEC_TILES = 4
+# the forward's routes (csrc/sdf_ffn.cu): f32 register tiles on the CUDA
+# cores at these stock tiles and block sizes; bf16 mma.sync on the tensor
+# cores, 8 warps of 16 stocks per 128-stock tile, times 1 or 2 member
+# phases (256 or 512 threads; 256 only in the w128 library)
+FWD_ROUTES = {"float32": 0, "bfloat16": 1}
+FWD_TILES = (32, 64, 128)
+FWD_THREADS = (128, 256)
+MMA_TILE = 128
 
 # launches of the CUDA kernels, counted where the wrapper launches them and
 # nowhere else (reset_launch_count() before a run, read them after)
@@ -302,8 +310,12 @@ def sdf_ffn_dx_reference(x_t: torch.Tensor, zp: torch.Tensor,
 # -- packed parameters ------------------------------------------------------
 
 
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _pad4(n: int) -> int:
-    return -(-n // 4) * 4
+    return _pad(n, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -434,8 +446,9 @@ def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
 _ARGTYPES = {
     "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
-               ctypes.c_void_p]),
+               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
+            + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]),
     "bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
@@ -459,6 +472,13 @@ def _load(kernel: str, width: int):
             fn = getattr(lib, f"sdf_ffn_{kernel}")
             fn.argtypes = _ARGTYPES[kernel]
             fn.restype = ctypes.c_int
+            if kernel == "fwd":
+                lib.sdf_ffn_fwd_plan_info.argtypes = [
+                    ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5 + [
+                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+                lib.sdf_ffn_fwd_plan_info.restype = ctypes.c_int
+                lib.sdf_ffn_fwd_registers.argtypes = [ctypes.c_int] * 2
+                lib.sdf_ffn_fwd_registers.restype = ctypes.c_int
             if kernel == "bwd":
                 lib.sdf_ffn_bwd_plan_info.argtypes = [
                     ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [
@@ -510,6 +530,7 @@ def _layout_ints(lay: FfnLayout):
 
 def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
             seed: Seed = 0, dropout_rate: float = 0.0) -> torch.Tensor:
+    """Raw weights [S, T, N], launched at :func:`card_fwd_plan`."""
     global launches
     lay = packed.layout
     T, F, N = x_t.shape
@@ -518,6 +539,7 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     _check_cuda("x_t", x_t, (T, lay.F, N), dev)
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
+    plan = card_fwd_plan(lay, dev, S, T, N, packed.compute_dtype)
     lib = _load("fwd", width_bound(lay.hidden))
     out = torch.empty((S, T, N), dtype=torch.float32, device=dev)
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
@@ -526,10 +548,134 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         rc = lib.sdf_ffn_fwd(
             x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
             out.data_ptr(), S, T, N, _layout_ints(lay),
-            int(packed.compute_dtype == "bfloat16"), *drop, stream)
+            int(packed.compute_dtype == "bfloat16"), *drop, plan.route,
+            plan.tile, plan.threads, plan.members, plan.smem_bytes,
+            plan.blocks_per_sm, plan.G, stream)
+    if rc == -1:
+        raise RuntimeError(f"sdf_ffn_fwd refused the plan {plan} for hidden "
+                           f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_fwd", rc)
     launches += 1
     return out
+
+
+def fwd_geometry(lay: FfnLayout, route: int, tile: int,
+                 members: int = 1) -> Tuple[int, int]:
+    """(shared-memory words of one block, words per member), as
+    csrc/sdf_ffn.cu's smem_plan counts them.
+
+    f32 route (0), units padded to 8 (the register tile's width): one
+    member's weights (k1 and each later W_l as [inputs][units], biases,
+    kout, bout), zp, the tile's row hashes, the x tile [max(F, H8)][tile]
+    (odd layers write their output over it) and the even layers' tile
+    [H8][tile], H8 the widest padded layer.
+    bf16 route (1), every layer padded to the library's width bound W: two
+    f32 x tiles [pad16(F)][tile + 4] (double-buffered), then per member
+    its two zp rows [W] (double-buffered) and its weights: each layer's
+    bf16 B rows (W units; inputs padded to 16 in the first layer, to W
+    after it; rows inputs/2 + 4 words apart), the f32 biases of layers ≥ 2,
+    the output product's 8 bf16 B rows (kout, then zeros) and bout,
+    rounded up to 4 words."""
+    hp, h = lay.hp, lay.hidden
+    if route == 0:
+        p8 = [_pad(x, 8) for x in hp]
+        w = lay.F * p8[0] + sum(hp[li - 1] * p8[li] + p8[li]
+                                for li in range(1, len(h))) + hp[-1] + 4
+        h8 = max(p8)
+        return w + p8[0] + tile + (max(lay.F, h8) + h8) * tile, w
+    W = width_bound(h)
+    w = W * (_pad(lay.F, 16) // 2 + 4) + (len(h) - 1) * W * (W // 2 + 5)
+    w = _pad(w + 8 * (W // 2 + 4) + 4, 4) + 2 * W
+    return 2 * _pad(lay.F, 16) * (tile + 4) + members * w, w
+
+
+def mma_threads(lay: FfnLayout, members: int, registers: int = 0) -> int:
+    """The tensor-core route's block: 512 threads (two member phases) where
+    a group has two members or more, the library allows it (not w128) and
+    the kernel's registers fit 16 warps on an SM; else 256."""
+    two = (members >= 2 and width_bound(lay.hidden) <= 64
+           and (not registers or registers <= SM_REGS // 512))
+    return 512 if two else 256
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward's launch: route (0 f32 register tiles, 1 bf16 tensor
+    cores), stock tile per cell, threads per block, members per block (the
+    bf16 route stages a group's weights and runs them all on each panel
+    tile), shared memory per block, the resident blocks per SM that shared
+    memory, threads and registers allow, and the persistent grid G (at
+    most blocks per SM × SMs, at most the cells) walking `cells` cells of
+    (member group, period, stock tile)."""
+
+    route: int
+    tile: int
+    threads: int
+    members: int
+    smem_bytes: int
+    blocks_per_sm: int
+    G: int
+    cells: int
+
+
+def _resident(smem: int, threads: int, regs: int) -> int:
+    """Blocks one SM holds by shared memory, threads, its block limit and
+    (when known) registers."""
+    blocks = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED),
+                 SM_MAX_THREADS // threads, SM_MAX_BLOCKS)
+    if regs:
+        per_warp = -(-regs * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+        blocks = min(blocks, SM_REGS // (per_warp * (threads // 32)))
+    return blocks
+
+
+def fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
+             compute_dtype: str = "float32",
+             registers: Dict[int, int] = None) -> FwdPlan:
+    """The forward's launch plan for `lay` on a card of `sms` SMs.
+
+    float32: of the stock tiles and block sizes whose shared memory fits,
+    the one that keeps the most threads busy per SM (blocks per SM × the
+    threads that have an 8 × 8 tile of the widest layer; then fewer
+    threads, then the larger tile). bfloat16: the tensor-core route, with as many
+    members per block as fit (all S where they do), balanced over the
+    groups, in blocks of :func:`mma_threads`. `registers` ({route: registers per thread}, as the built
+    library reports them) bounds the blocks per SM too. G = min(cells,
+    blocks per SM · sms): a persistent grid, every block resident at once.
+    Raises if nothing fits."""
+    _check_dtype(compute_dtype)
+    route = FWD_ROUTES[compute_dtype]
+    regs = (registers or {}).get(route, 0)
+    plans = []
+    if route == 0:
+        for tile in FWD_TILES:
+            for threads in FWD_THREADS:
+                smem = 4 * fwd_geometry(lay, 0, tile)[0]
+                if smem > MAX_SMEM:
+                    continue
+                blocks = _resident(smem, threads, regs)
+                busy = blocks * min(threads,
+                                    _pad(max(lay.hp), 8) // 8 * (tile // 8))
+                plans.append(((busy, -threads, tile),
+                              (tile, threads, 1, smem, blocks)))
+    else:
+        base, per = fwd_geometry(lay, 1, MMA_TILE, 0)
+        fit = (MAX_SMEM // 4 - base) // per
+        if fit >= 1:
+            groups = -(-S // min(S, fit))
+            members = -(-S // groups)
+            smem = 4 * fwd_geometry(lay, 1, MMA_TILE, members)[0]
+            threads = mma_threads(lay, members, regs)
+            plans.append(((0,), (MMA_TILE, threads, members, smem,
+                                 _resident(smem, threads, regs))))
+    plans = [p for p in plans if p[1][4] >= 1]
+    if not plans:
+        raise ValueError(f"sdf_ffn_fwd: hidden {list(lay.hidden)} with F = "
+                         f"{lay.F} does not fit the kernel's shared memory")
+    tile, threads, members, smem, blocks = max(plans)[1]
+    cells = -(-S // members) * T * -(-N // tile)
+    return FwdPlan(route, tile, threads, members, smem, blocks,
+                   min(cells, blocks * sms), cells)
 
 
 def _row_stride(w: int) -> int:
@@ -621,6 +767,8 @@ def _sm_count(dev) -> int:
 
 
 _bwd_regs: Dict[int, Dict[int, int]] = {}
+_fwd_regs: Dict[Tuple[int, int], Dict[int, int]] = {}
+_fwd_plans: Dict[tuple, "FwdPlan"] = {}
 
 
 def card_bwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
@@ -634,6 +782,37 @@ def card_bwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
                 for nt in (0,) + BWD_REG_TILES}
         _bwd_regs[width] = {nt: r for nt, r in regs.items() if r > 0}
     return bwd_plan(lay, _sm_count(dev), S, T, N, tile, _bwd_regs[width])
+
+
+def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
+                  compute_dtype: str) -> FwdPlan:
+    """:func:`fwd_plan` for the card `dev`: its SM count, and the registers
+    of the library's two kernels at the layout's F; kept per shape, so a serving loop plans
+    each bucket once."""
+    key = (lay, dev, S, T, N, compute_dtype)
+    if key not in _fwd_plans:
+        lib_key = (width_bound(lay.hidden), lay.F)
+        if lib_key not in _fwd_regs:
+            lib = _load("fwd", lib_key[0])
+            _fwd_regs[lib_key] = {r: lib.sdf_ffn_fwd_registers(r, lay.F)
+                                  for r in FWD_ROUTES.values()}
+        _fwd_plans[key] = fwd_plan(lay, _sm_count(dev), S, T, N,
+                                   compute_dtype, _fwd_regs[lib_key])
+    return _fwd_plans[key]
+
+
+def fwd_plan_info(lay: FfnLayout, S: int, plan: FwdPlan) -> Dict[str, int]:
+    """What the card makes of `plan` (the current CUDA device): resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local-memory bytes per thread of the kernel it launches.
+    Raises for a plan the kernel refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _load("fwd", width_bound(lay.hidden)).sdf_ffn_fwd_plan_info(
+        _layout_ints(lay), S, plan.route, plan.tile, plan.threads,
+        plan.members, plan.smem_bytes, out)
+    if rc != 0:
+        raise RuntimeError(f"sdf_ffn_fwd refused the plan {plan} (code {rc})")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
 def bwd_plan_info(lay: FfnLayout, plan: BwdPlan) -> Dict[str, int]:

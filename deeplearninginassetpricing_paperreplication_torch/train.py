@@ -47,10 +47,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden_dim_moment", type=int, nargs="+", default=[])
     p.add_argument("--seed", type=int, default=42)
     add_execution_args(p)
-    p.add_argument("--kernel", type=str, default="auto",
-                   choices=("auto", "on", "off"),
-                   help="the CUDA kernels (auto: on a CUDA device) or, with "
-                        "off, their plain PyTorch versions")
     return p
 
 

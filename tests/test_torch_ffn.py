@@ -343,7 +343,7 @@ def _jax_dx(x, zp, k1, mids, ko, bo, g, S=None):
         one, in_axes=(None, 0, 0, 0, 0, 0))(x_, *p) * g))(j(x))
 
 
-def test_panel_gradient_is_refused():
+def test_panel_gradient_matches_jax_and_kernel_on_refuses_cpu():
     """The panel's gradient is refused only on the kernel route of a CPU
     panel (no quiet fallback to the plain version); on the plain route it
     runs: autograd of the fused FFN w.r.t. x_t against jax.grad of the JAX
