@@ -13,6 +13,12 @@
                                       # also: the f32 forward bit for bit
                                       # against DIR/sdf_ffn.cu (an older
                                       # source beside its header)
+    python3 chip_smoke.py --only_cem  # the conditional-EM library and its
+                                      # plans, checks and timings only (no
+                                      # result line)
+    python3 chip_smoke.py --only_cem --compare_cem DIR
+                                      # also: the f32 cond_em_fwd/bwd bit
+                                      # for bit against DIR/cond_em.cu
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -31,7 +37,11 @@ Phases, each printing its results; any failure exits non-zero:
    widths, hidden (128, 128), (64, 64, 64) and (32, 32), at S = 1 and 9
    (each backward line with its launch plan, and the paper-width backward
    timed at every stock tile; each forward route's launch plan per width
-   bound, as the card holds it, with no spills); then the matmul ceiling:
+   bound, as the card holds it, with no spills; the conditional-EM kernels
+   at K = 4 and 8, each plan as the card holds it, each timed as one
+   event-timed call like every kernel, its device time from CUDA-graph
+   replays beside it, each faster than its plain version by both); then the
+   matmul ceiling:
    its values at small shapes, and (the roofline path)
    ``measure_matmul_ceiling`` at the model's shapes with the JAX defaults
    (checked bit for bit there on integer operands), each shape's TFLOP/s
@@ -121,6 +131,10 @@ BWD_SHAPES = [(S, T, N) for S in (1, 3)
                   (9, 48, 10000)]
 CEM_SHAPES = [(S, N) for S in (1, 3) for N in (10000, 10007)] + [(9, 10000)]
 CEM_T = 48
+CEM_KS = (4, 8)  # the sweep's num_condition_moment values
+# (S, T, N, F, K) of the conditional-EM instances off the main paths
+CEM_ODD_SHAPES = [(3, 12, 1001, 80, 8), (2, 5, 77, 10, 5),
+                  (4, 24, 999, 46, 16)]
 KEEP_SHAPE = (48, 10_000)
 BWD_ROW, CEM_ROW = (1, 48, 10000), (1, 10000)  # the training path's shapes
 # the ensemble training path's shapes: all nine members in one launch
@@ -213,6 +227,23 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call from CUDA events around `reps` replays of fn
+    captured in a CUDA graph: the host's Python and launch overhead, which
+    one event-timed call includes, is left out."""
+    graph = graph_of(torch, fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def graph_of(torch, fn):
@@ -689,79 +720,251 @@ def tile_times(torch, K, lay, S, T, N, kern, card):
           f"tile: " + "; ".join(parts) + f" ({card})", flush=True)
 
 
-def cond_em_checks(torch, C, card):
-    """cond_em_fwd / cond_em_bwd against their plain versions; returns the
-    training path's rows (S=1, T=48, N=10000, f32)."""
+def cem_plan_lines(torch, C, card, Ks=CEM_KS):
+    """cem_plan's forward and backward plans at CEM_SHAPES (T = CEM_T), K
+    in Ks, both dtypes, as the card holds them; fails if the card keeps
+    fewer blocks resident than planned or a kernel spills."""
+    dev = torch.device(DEVICE)
+    F, T = 46, CEM_T
+    for S, N in CEM_SHAPES:
+        for Kn in Ks:
+            for cd in ("float32", "bfloat16"):
+                for p in C.card_cem_plan(dev, S, T, N, F, Kn, cd):
+                    info = C.plan_info(p, S, T, N, F, Kn, cd)
+                    check(info["blocks_per_sm"] >= p.blocks_per_sm,
+                          f"cond_em_{p.kernel} plan {p}: the card holds "
+                          f"{info['blocks_per_sm']} blocks per SM")
+                    check(info["local_bytes"] == 0,
+                          f"cond_em_{p.kernel} {cd} K={Kn} spills "
+                          f"{info['local_bytes']} B per thread")
+                    print(f"[kernels] cem plan {p.kernel} S={S} T={T} "
+                          f"N={N:5d} K={Kn} {cd:8s} route {p.route} tile "
+                          f"{p.tile} members {p.members} threads {p.threads}"
+                          f" var {p.var} stages {p.stages} smem "
+                          f"{p.smem_bytes} B resident "
+                          f"{info['blocks_per_sm']}/SM (planned "
+                          f"{p.blocks_per_sm}) groups {p.groups} grid "
+                          f"{list(p.grid)} ({p.blocks} blocks) regs "
+                          f"{info['registers']} local {info['local_bytes']} "
+                          f"B ({card})", flush=True)
+
+
+def _cem_inputs(torch, g, S, T, N, F, Kn, dev):
+    x = torch.randn(T, F, N, generator=g, device=dev)
+    zpm = torch.randn(S, T, Kn, generator=g, device=dev) * 0.3
+    xr = torch.randn(S, T, N, generator=g, device=dev) * 0.1
+    tinv = 1.0 / torch.randint(1, T + 1, (N,), generator=g,
+                               device=dev).float()
+    kT = torch.randn(S, Kn, F, generator=g, device=dev) * F ** -0.5
+    gem = torch.randn(S, Kn, N, generator=g, device=dev) / N
+    return x, zpm, xr, tinv, kT, gem
+
+
+def cond_em_checks(torch, C, card, Ks=CEM_KS):
+    """cond_em_fwd / cond_em_bwd against their plain versions at CEM_SHAPES
+    and K in Ks, each backward twice bitwise-equal; returns the training
+    paths' rows (S=1 and S=9, T=48, N=10000, K=8, f32)."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
-    F, Kn, T = 46, 8, CEM_T
+    F, T = 46, CEM_T
     rows = {}
-    print(f"[kernels] cond_em vs cond_em_reference, F={F} K={Kn} ({card})",
-          flush=True)
-    for S, N in CEM_SHAPES:
-        x = torch.randn(T, F, N, generator=g, device=dev)
-        zpm = torch.randn(S, T, Kn, generator=g, device=dev) * 0.3
-        xr = torch.randn(S, T, N, generator=g, device=dev) * 0.1
-        tinv = 1.0 / torch.randint(1, T + 1, (N,), generator=g,
-                                   device=dev).float()
-        kT = torch.randn(S, Kn, F, generator=g, device=dev) * F ** -0.5
-        gem = torch.randn(S, Kn, N, generator=g, device=dev) / N
+    print(f"[kernels] cond_em vs cond_em_reference, F={F} K={list(Ks)} "
+          f"({card})", flush=True)
+    for Kn in Ks:
+        for S, N in CEM_SHAPES:
+            x, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F, Kn,
+                                                    dev)
+            for cd in ("float32", "bfloat16"):
+                bar = GRAD_F32_REL if cd == "float32" else BF16_REL
+                em = C._launch_fwd(x, zpm, xr, tinv, kT, cd)
+                em_ref = C.cond_em_reference(x, zpm, xr, tinv, kT, cd)
+                e_f = rel_err(em, em_ref)
+                check(bool(torch.isfinite(em).all()) and e_f <= bar,
+                      f"cond_em_fwd disagrees at S={S} N={N} K={Kn} {cd}: "
+                      f"{e_f:.3e}")
+                outs = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+                outs2 = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(outs, outs2)),
+                      f"cond_em_bwd not bitwise repeatable S={S} N={N} "
+                      f"K={Kn} {cd}")
+                refs = C.cond_em_bwd_reference(x, zpm, xr, tinv, kT, gem,
+                                               cd)
+                errs = [rel_err(o, r) for o, r in zip(outs, refs)]
+                check(all(bool(torch.isfinite(o).all()) for o in outs)
+                      and max(errs) <= bar,
+                      f"cond_em_bwd disagrees at S={S} N={N} K={Kn} {cd}: "
+                      f"dkT/dzp_m/dxr {errs}")
+                fns = {"fwd": (lambda: C._launch_fwd(x, zpm, xr, tinv, kT,
+                                                      cd),
+                               lambda: C.cond_em_reference(x, zpm, xr, tinv,
+                                                           kT, cd),
+                               C.fwd_flops, C.fwd_bytes_moved,
+                               float((em - em_ref).abs().max())),
+                       "bwd": (lambda: C._launch_bwd(x, zpm, xr, tinv, kT,
+                                                      gem, cd),
+                               lambda: C.cond_em_bwd_reference(
+                                   x, zpm, xr, tinv, kT, gem, cd),
+                               C.bwd_flops, C.bwd_bytes_moved,
+                               max(float((o - r).abs().max())
+                                   for o, r in zip(outs, refs)))}
+                t = {}
+                for k, (kern, plain, flops, nbytes, err) in fns.items():
+                    # one event-timed call, as every kernel row is timed
+                    # (its host launch included), and beside it the device
+                    # time from CUDA-graph replays; kernel and plain alike
+                    t[k] = dict(ms=cuda_ms(torch, kern),
+                                plain_ms=cuda_ms(torch, plain, reps=10),
+                                device_ms=graph_ms(torch, kern),
+                                plain_device_ms=graph_ms(torch, plain,
+                                                         reps=10),
+                                bound=bound(flops(S, T, N, F, Kn),
+                                            nbytes(S, T, N, F, Kn), cd),
+                                err=err)
+                    for a, b in (("ms", "plain_ms"),
+                                 ("device_ms", "plain_device_ms")):
+                        check(t[k][a] < t[k][b],
+                              f"cond_em_{k} at S={S} N={N} K={Kn} {cd} is "
+                              f"not faster than its plain version ({a}): "
+                              f"{t[k][a]:.4f} against {t[k][b]:.4f} ms")
+                print(f"[kernels] cond_em S={S} T={T} N={N:5d} K={Kn} "
+                      f"{cd:8s} fwd max|d|/max|ref| {e_f:.2e} | bwd "
+                      f"{max(errs):.2e} bitwise-repeatable ({card})",
+                      flush=True)
+                for k, r in t.items():
+                    print(f"[kernels]   cond_em_{k} S={S} N={N:5d} K={Kn} "
+                          f"{cd:8s} kernel {r['ms']:.4f} ms (device "
+                          f"{r['device_ms']:.4f}) plain {r['plain_ms']:.4f} "
+                          f"ms (device {r['plain_device_ms']:.4f}) bound "
+                          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) "
+                          f"({card})", flush=True)
+                if (cd == "float32" and Kn == 8
+                        and (S, N) in (CEM_ROW, ENS_CEM_ROW)):
+                    for k, r in t.items():
+                        key = k if (S, N) == CEM_ROW else "ensemble_" + k
+                        rows[key] = dict(max_abs_err=r["err"], ms=r["ms"],
+                                         device_ms=r["device_ms"],
+                                         plain_ms=r["plain_ms"],
+                                         bound_ms=r["bound"][0],
+                                         bound_by=r["bound"][1],
+                                         shape=f"S={S} T={T} N={N} F={F} "
+                                               f"K={Kn} float32")
+    # the kernel instances the main paths do not take: F past the tensor
+    # cores' k steps (bf16 on the CUDA cores), an odd K, K = 16, empty
+    # period groups (T = 5 in 4 groups), a small ragged N
+    for S, T, N, F, Kn in CEM_ODD_SHAPES:
+        x, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F, Kn,
+                                                dev)
         for cd in ("float32", "bfloat16"):
             bar = GRAD_F32_REL if cd == "float32" else BF16_REL
             em = C._launch_fwd(x, zpm, xr, tinv, kT, cd)
-            em_ref = C.cond_em_reference(x, zpm, xr, tinv, kT, cd)
-            e_f = rel_err(em, em_ref)
-            check(bool(torch.isfinite(em).all()) and e_f <= bar,
-                  f"cond_em_fwd disagrees at S={S} N={N} {cd}: {e_f:.3e}")
             outs = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
-            outs2 = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
+            again = C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)
             torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(outs, outs2)),
-                  f"cond_em_bwd not bitwise repeatable S={S} N={N} {cd}")
-            refs = C.cond_em_bwd_reference(x, zpm, xr, tinv, kT, gem, cd)
-            errs = [rel_err(o, r) for o, r in zip(outs, refs)]
-            check(max(errs) <= bar,
-                  f"cond_em_bwd disagrees at S={S} N={N} {cd}: "
-                  f"dkT/dzp_m/dxr {errs}")
-            t = {}
-            t["fwd"] = (cuda_ms(torch, lambda: C._launch_fwd(
-                x, zpm, xr, tinv, kT, cd)), cuda_ms(
-                torch, lambda: C.cond_em_reference(x, zpm, xr, tinv, kT,
-                                                   cd), reps=10),
-                bound(C.fwd_flops(S, T, N, F, Kn),
-                      C.fwd_bytes_moved(S, T, N, F, Kn), cd),
-                float((em - em_ref).abs().max()))
-            t["bwd"] = (cuda_ms(torch, lambda: C._launch_bwd(
-                x, zpm, xr, tinv, kT, gem, cd)), cuda_ms(
-                torch, lambda: C.cond_em_bwd_reference(
-                    x, zpm, xr, tinv, kT, gem, cd), reps=10),
-                bound(C.bwd_flops(S, T, N, F, Kn),
-                      C.bwd_bytes_moved(S, T, N, F, Kn), cd),
-                max(float((o - r).abs().max())
-                    for o, r in zip(outs, refs)))
-            print(f"[kernels] cond_em S={S} T={T} N={N:5d} {cd:8s} fwd "
-                  f"max|d|/max|ref| {e_f:.2e} kernel {t['fwd'][0]:.4f} "
-                  f"ms plain {t['fwd'][1]:.4f} ms bound "
-                  f"{t['fwd'][2][0]:.4f} ms ({t['fwd'][2][1]}) | bwd "
-                  f"{max(errs):.2e} kernel {t['bwd'][0]:.4f} ms plain "
-                  f"{t['bwd'][1]:.4f} ms bound {t['bwd'][2][0]:.4f} ms "
-                  f"({t['bwd'][2][1]}) bitwise-repeatable", flush=True)
-            if cd == "float32" and (S, N) in (CEM_ROW, ENS_CEM_ROW):
-                for k, (ms, plain_ms, (b_ms, b_by), err) in t.items():
-                    key = k if (S, N) == CEM_ROW else "ensemble_" + k
-                    rows[key] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by,
-                                     shape=f"S={S} T={T} N={N} F={F} "
-                                           f"K={Kn} float32")
+            errs = [rel_err(em, C.cond_em_reference(x, zpm, xr, tinv, kT,
+                                                    cd))] + [
+                rel_err(o, r) for o, r in zip(outs, C.cond_em_bwd_reference(
+                    x, zpm, xr, tinv, kT, gem, cd))]
+            plans = C.card_cem_plan(dev, S, T, N, F, Kn, cd)
+            check(all(torch.equal(a, b) for a, b in zip(outs, again))
+                  and max(errs) <= bar,
+                  f"cond_em at S={S} T={T} N={N} F={F} K={Kn} {cd}: "
+                  f"em/dkT/dzp_m/dxr {errs}")
+            print(f"[kernels] cond_em S={S} T={T} N={N} F={F} K={Kn} "
+                  f"{cd:8s} routes {plans.fwd.route}/{plans.bwd.route}: "
+                  f"max|d|/max|ref| {max(errs):.2e}, bitwise-repeatable "
+                  f"({card})", flush=True)
     return rows
 
 
-def dx_checks(torch, K, C, card):
-    """The panel cotangents sdf_ffn_dx and cond_em_dx against their plain
-    versions at DX_SHAPES, f32 and bf16 (the FFN with dropout 0.05, one
-    seed per member), each two calls bitwise-equal; returns the
-    panel-gradient path's rows (S=9, T=48, N=10000, f32)."""
+def compare_cem(torch, C, _nvcc, src_dir, card):
+    """The f32 cond_em_fwd and cond_em_bwd against an older source's
+    (src_dir/cond_em.cu, its one-thread-per-stock kernels and argument
+    lists) at S in {1, 3, 9}, N in {10000, 10007}, K in {4, 8}: every output
+    bit for bit equal (int32 views), and the two timed in turns (old, new,
+    new, old)."""
+    import ctypes
+
+    src = Path(src_dir).resolve()
+    out = _nvcc.BUILD_DIR / "libcond_em_compare.so"
+    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(out),
+                    str(src / "cond_em.cu")], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.cond_em_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                                + [ctypes.c_void_p])
+    lib.cond_em_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                                + [ctypes.c_void_p])
+    lib.cond_em_fwd.restype = lib.cond_em_bwd.restype = ctypes.c_int
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(8)
+    F, T = 46, CEM_T
+    for Kn in (4, 8):
+        for S in (1, 3, 9):
+            for N in (10000, 10007):
+                x, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F,
+                                                        Kn, dev)
+                gf = C._groups(S, T, N, 64, sms, 4)
+                gb = C._groups(S, T, N, C.BWD_STOCKS, sms, 4)
+                tiles = -(-N // C.BWD_STOCKS)
+
+                def old_fwd():
+                    part = torch.empty(S, gf, Kn, N, device=dev)
+                    rc = lib.cond_em_fwd(
+                        x.data_ptr(), zpm.data_ptr(), xr.data_ptr(),
+                        tinv.data_ptr(), kT.data_ptr(), part.data_ptr(), S,
+                        T, F, N, Kn, gf, 0,
+                        torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, f"the older cond_em_fwd failed ({rc})")
+                    return (part.sum(dim=1),)
+
+                def old_bwd():
+                    dkt = torch.empty(S, gb * tiles, Kn, F, device=dev)
+                    dzp = torch.empty(S, tiles, T, Kn, device=dev)
+                    dxr = torch.empty(S, T, N, device=dev)
+                    rc = lib.cond_em_bwd(
+                        x.data_ptr(), zpm.data_ptr(), xr.data_ptr(),
+                        tinv.data_ptr(), kT.data_ptr(), gem.data_ptr(),
+                        dkt.data_ptr(), dzp.data_ptr(), dxr.data_ptr(), S, T,
+                        F, N, Kn, gb, 0,
+                        torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, f"the older cond_em_bwd failed ({rc})")
+                    return dkt.sum(dim=1), dzp.sum(dim=1), dxr
+
+                def new_fwd():
+                    return (C._launch_fwd(x, zpm, xr, tinv, kT, "float32"),)
+
+                def new_bwd():
+                    return C._launch_bwd(x, zpm, xr, tinv, kT, gem,
+                                         "float32")
+                times = []
+                for name, old, new in (("fwd", old_fwd, new_fwd),
+                                       ("bwd", old_bwd, new_bwd)):
+                    a, b = old(), new()
+                    torch.cuda.synchronize()
+                    for u, v in zip(a, b):
+                        check(torch.equal(u.view(torch.int32),
+                                          v.view(torch.int32)),
+                              f"cond_em_{name} f32 differs from the older "
+                              f"kernel at S={S} N={N} K={Kn}: max|d| "
+                              f"{float((u - v).abs().max()):.3e}")
+                    t = [cuda_ms(torch, f) for f in (old, new, new, old)]
+                    d = [graph_ms(torch, f) for f in (old, new, new, old)]
+                    times.append(f"{name} older {t[0]:.4f} / {t[3]:.4f} ms, "
+                                 f"new {t[1]:.4f} / {t[2]:.4f} ms (device: "
+                                 f"older {d[0]:.4f} / {d[3]:.4f}, new "
+                                 f"{d[1]:.4f} / {d[2]:.4f})")
+                print(f"[kernels] cem f32 S={S} T={T} N={N:5d} K={Kn}: bit "
+                      f"for bit equal to {src.name}/cond_em.cu; "
+                      + "; ".join(times) + f" ({card})", flush=True)
+
+
+def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
+    """The panel cotangents sdf_ffn_dx and cond_em_dx (those in `names`)
+    against their plain versions at DX_SHAPES, f32 and bf16 (the FFN with
+    dropout 0.05, one seed per member), each two calls bitwise-equal;
+    returns the panel-gradient path's rows (S=9, T=48, N=10000, f32)."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(4)
     F, hidden, Kn = 46, [64, 64], 8
@@ -801,6 +1004,8 @@ def dx_checks(torch, K, C, card):
                     C.dx_bytes_moved(S, T, N, F, Kn), f"K={Kn}"),
             }
             for name, (kern, plain, flops, nbytes, what) in cases.items():
+                if name not in names:
+                    continue
                 out, again = kern(), kern()
                 torch.cuda.synchronize()
                 check(torch.equal(out, again), f"{name} not bitwise "
@@ -825,7 +1030,8 @@ def dx_checks(torch, K, C, card):
                         max_abs_err=float((out - ref).abs().max()), ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         shape=f"S={S} T={T} N={N} F={F} {cd} {what}")
-    wide_checks(torch, K, card, "dx")
+    if "sdf_ffn_dx" in names:
+        wide_checks(torch, K, card, "dx")
     return rows
 
 
@@ -1753,6 +1959,14 @@ def main(argv=None) -> int:
                     help="with --only_fwd: hold the f32 forward bit for bit "
                          "against DIR/sdf_ffn.cu, an older source beside "
                          "its sdf_ffn_common.cuh")
+    ap.add_argument("--only_cem", action="store_true",
+                    help="build the conditional-EM library only and run its "
+                         "plans, checks and timings (a short call while "
+                         "cond_em.cu changes); no result line")
+    ap.add_argument("--compare_cem", metavar="DIR", default=None,
+                    help="with --only_cem: hold the f32 cond_em_fwd and "
+                         "cond_em_bwd bit for bit against DIR/cond_em.cu, "
+                         "an older source, and time both in turns")
     opts = ap.parse_args(argv)
 
     import torch
@@ -1805,6 +2019,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     jobs = (K.build_jobs(kernels=("bwd",)) if opts.only_bwd
             else K.build_jobs(kernels=("fwd",)) if opts.only_fwd
+            else C.build_jobs() if opts.only_cem
             else K.build_jobs() + C.build_jobs() + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
@@ -1814,8 +2029,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {line.strip()}", flush=True)
 
-    if not opts.only_bwd:
+    if not (opts.only_bwd or opts.only_cem):
         sass_hmma(K, _nvcc)
+
+    if opts.only_cem:
+        # the conditional-EM library alone: its plans, every check and
+        # timing, the panel cotangent, and (with --compare_cem) the f32
+        # kernels against an older source
+        t0 = time.perf_counter()
+        cem_plan_lines(torch, C, card)
+        cond_em_checks(torch, C, card)
+        dx_checks(torch, K, C, card, names=("cond_em_dx",))
+        if opts.compare_cem:
+            compare_cem(torch, C, _nvcc, opts.compare_cem, card)
+        print(f"[kernels] conditional-EM checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
 
     if opts.only_fwd:
         # the forward's libraries alone: its plans, every forward check,
@@ -1851,6 +2080,7 @@ def main(argv=None) -> int:
     bwd_row, ens_bwd_row = bwd_rows[BWD_ROW], bwd_rows[ENS_BWD_ROW]
     wide_bwd = {str(list(h)): {f"S={k[0]}": r for k, r in ffn_bwd_checks(
         torch, K, card, h, WIDE_SHAPES).items()} for h in WIDE_HIDDEN}
+    cem_plan_lines(torch, C, card)
     cem_rows = cond_em_checks(torch, C, card)
     dx_rows = dx_checks(torch, K, C, card)
     ceiling_row = ceiling_checks(torch, MB, card)

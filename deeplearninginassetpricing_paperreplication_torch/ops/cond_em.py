@@ -18,22 +18,30 @@ which a CPU tensor runs, and the CUDA
 kernels ``csrc/cond_em.cu`` (``sm_90a``, built with ``nvcc`` at first use,
 bound through ``ctypes``), which a CUDA tensor always runs. ``kernel="off"``
 is the only way to the plain route on the card.
+
+The forward and backward kernels launch at :func:`cem_plan`'s plan (the
+route, stock tile, members per block, threads, stages and shared memory,
+Python arithmetic that the kernel checks on the card); their f32 outputs
+keep the summation order of the one-thread-per-stock kernels they replaced,
+bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _nvcc
-from .sdf_ffn import _check_dtype, _raise_rc, _round, _route
+from .sdf_ffn import (BLOCK_SMEM_RESERVED, MAX_SMEM, REG_ALLOC_UNIT,
+                      SM_MAX_BLOCKS, SM_MAX_THREADS, SM_REGS, SM_SMEM,
+                      _check_dtype, _raise_rc, _round, _route)
 
 MAX_MOMENTS = 16
-FWD_STOCKS = 64  # stocks per forward block
-BWD_STOCKS = 128  # stocks per backward block (its shared-memory tile)
+BWD_STOCKS = 128  # the backward's stock tile: its partial sums are built on it
 
 # launches of the CUDA kernels, counted where the wrapper launches them
 fwd_launches = 0
@@ -114,16 +122,21 @@ def _load() -> ctypes.CDLL:
             _nvcc.run([job])
             lib = ctypes.CDLL(str(job.path))
             lib.cond_em_fwd.argtypes = ([ctypes.c_void_p] * 6
-                                        + [ctypes.c_int] * 7
-                                        + [ctypes.c_void_p])
+                                        + [ctypes.c_int] * 13
+                                        + [ctypes.c_longlong, ctypes.c_void_p])
             lib.cond_em_bwd.argtypes = ([ctypes.c_void_p] * 9
-                                        + [ctypes.c_int] * 7
-                                        + [ctypes.c_void_p])
+                                        + [ctypes.c_int] * 12
+                                        + [ctypes.c_longlong, ctypes.c_void_p])
             lib.cond_em_dx.argtypes = ([ctypes.c_void_p] * 7
                                        + [ctypes.c_int] * 6
                                        + [ctypes.c_void_p])
-            lib.cond_em_fwd.restype = lib.cond_em_bwd.restype = ctypes.c_int
-            lib.cond_em_dx.restype = ctypes.c_int
+            lib.cond_em_plan_info.argtypes = (
+                [ctypes.c_int] * 14 + [ctypes.c_longlong,
+                                       ctypes.POINTER(ctypes.c_int)])
+            lib.cond_em_registers.argtypes = [ctypes.c_int] * 6
+            for fn in (lib.cond_em_fwd, lib.cond_em_bwd, lib.cond_em_dx,
+                       lib.cond_em_plan_info, lib.cond_em_registers):
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -133,6 +146,324 @@ def _groups(S: int, T: int, N: int, stocks: int, sms: int, waves: int) -> int:
     blocks per SM, never more groups than periods."""
     blocks = S * (-(-N // stocks))
     return max(1, min(T, -(-waves * sms // blocks)))
+
+
+# -- the launch plan --------------------------------------------------------------
+#
+# csrc/cond_em.cu's kernels and limits: the forward on the CUDA cores (route
+# 0: register tiles of RT = 8 or 4 moments × CT stocks per thread) or, in
+# bf16 with F ≤ MMA_MAX_F, on the tensor cores (route 1: warps of 16 stocks ×
+# NT n tiles of 8 member-moments); the backward over 128-stock tiles, on
+# the CUDA cores (route 0: 64 threads a member) or, in bf16, on the tensor
+# cores (route 1). Both stream the panel through `stages` tiles. The f32
+# partial sums fix the period groups (the forward's are planned on 64-stock
+# blocks, the backward's on its 128-stock tiles); the forward's stock tile
+# and both kernels' members per block and stages are free.
+
+FWD_GROUP_STOCKS = 64
+FWD_MAX_THREADS = 512
+BWD_MAX_THREADS = 256
+BWD_PER_MEMBER = 64
+STAGE_STRIDE = BWD_STOCKS + 4  # the backward's stage rows (odd quarter)
+MMA_MAX_F = 64
+# route 0's stocks per thread, by RT, most first. By the rule below the plan
+# would take CT 4 only from N = 11,261 (CT 8 at RT 4 from 22,521) at S = 9
+# and K ∈ {4, 8}, past every training panel, so those are not built.
+FWD_CTS = {8: (2, 1), 4: (2,)}
+# route 0 takes the most stocks per thread whose grid still has this many
+# warps per SM (fewer shared loads per FMA against more warps in flight)
+FWD_MIN_WARPS = 6
+# the stages the kernels take. The CUDA-core routes: a constant (two in the
+# forward, one in the backward), as more timed the same (instruction issue
+# and latency bound them). The tensor-core routes: the most of these that
+# cost no wave (the panel read weighs more there)
+FWD_CORES_STAGES = 2
+FWD_STAGES = (2, 3, 4)
+BWD_STAGES = (1, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class CemPlan:
+    """One kernel's launch: route (0 CUDA cores, 1 bf16 tensor cores),
+    stocks per block, members per block, threads per block, `var` (the
+    forward's stocks per thread on route 0 or n tiles per warp on route 1;
+    the backward's route 0: 0 with the stock-major copy of the tile, 1
+    without; its route 1: warps per row group), the panel tiles in flight
+    (`stages`), shared memory per block, the resident blocks per SM that
+    shared memory, threads and (where known) registers allow, the period
+    groups and the grid (x, y, z)."""
+
+    kernel: str
+    route: int
+    tile: int
+    members: int
+    threads: int
+    var: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+    groups: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+class CemPlans(NamedTuple):
+    fwd: CemPlan
+    bwd: CemPlan
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _odd4(w: int) -> int:
+    """A row stride of at least w floats, a multiple of 4 whose quarter is
+    odd (csrc/cond_em.cu odd4)."""
+    s = _pad(w, 4)
+    return s if (s // 4) % 2 else s + 4
+
+
+def fwd_rt(K: int) -> int:
+    """Route 0's moments per thread."""
+    return 4 if _pad(K, 4) % 8 else 8
+
+
+def mma_nt(M: int, K: int) -> int:
+    """Route 1's n tiles per warp: the largest of 3, 2, 1 dividing the
+    block's M·⌈K/8⌉ tiles of 8 member-moments."""
+    tiles = M * _pad(K, 8) // 8
+    return 3 if tiles % 3 == 0 else 2 if tiles % 2 == 0 else 1
+
+
+def fwd_geometry(route: int, M: int, F: int, K: int, tpg: int, tile: int,
+                 var: int, stages: int) -> Tuple[int, int]:
+    """(threads, shared-memory floats) of the forward, as csrc/cond_em.cu's
+    fwd_geometry counts them ((0, 0) for route 0 at other than
+    FWD_CORES_STAGES stages, which it refuses). Route 0: kT [M][F][KP], zp_m
+    [tpg][M][KP], the panel tiles [stages][F][tile] and xr
+    [stages][M][tile], KP = ⌈K/4⌉·4. Route 1: zp_m [tpg][M·⌈K/8⌉·8], the
+    tiles [stages][16·⌈F/16⌉][tile + 4], xr."""
+    if route == 1:
+        R = M * _pad(K, 8)
+        return (32 * (R // 8 // var) * (tile // 16),
+                tpg * R + stages * 16 * -(-F // 16) * (tile + 4)
+                + stages * M * tile)
+    if stages != FWD_CORES_STAGES:
+        return 0, 0
+    kp = _pad(K, 4)
+    return (_pad(M * (kp // fwd_rt(K)) * (tile // var), 32),
+            M * F * kp + tpg * M * kp + stages * F * tile
+            + stages * M * tile)
+
+
+def bwd_geometry(route: int, M: int, F: int, K: int, tpg: int, bf16: bool,
+                 var: int, stages: int) -> Tuple[int, int]:
+    """(threads, shared-memory floats) of the backward, as csrc/cond_em.cu's
+    bwd_geometry counts them ((0, 0) for a plan it refuses: route 1's dkT
+    tiles outnumbering two a warp, route 0 with more than one stage).
+    Route 0: 64 phase-A threads a member, or phase B's items (4·⌈F/4⌉ dkT
+    tiles and K dzp_m rows a member) where they are more; kT, zp_m, one
+    stage [F][132] and the xr rows, the stock-major tile [128][⌈F/4⌉·4],
+    dpre [128][·] (twice in bf16: as computed, and rounded); `var` 1 drops
+    the stock-major tile (phase B reads the stage, whose rows pad to
+    4·⌈F/4⌉). Route 1: `var` warps per row group of NT n tiles; zp_m
+    [tpg][R], the stages [stages][16·⌈F/16⌉][132], xr rows, tinv, the dzp_m
+    and dxr partials [8][R] and [R/8][128], dpre [⌈R/16⌉·16][136] in bf16,
+    R = M·⌈K/8⌉·8."""
+    if route == 1:
+        R = M * _pad(K, 8)
+        rg = R // 8 // mma_nt(M, K)
+        if -(-R // 16) * -(-F // 8) > 2 * var * rg:
+            return 0, 0
+        return (32 * var * rg,
+                tpg * R + stages * 16 * -(-F // 16) * STAGE_STRIDE
+                + stages * M * BWD_STOCKS + BWD_STOCKS + 8 * R
+                + R // 8 * BWD_STOCKS + _pad(R, 16) * (BWD_STOCKS + 8) // 2)
+    if stages != 1:
+        return 0, 0
+    kp, fq = _pad(K, 4), -(-F // 4)
+    xt = var == 0
+    return (_pad(M * max(BWD_PER_MEMBER, 4 * fq + K), 32),
+            M * F * kp + tpg * M * kp
+            + (F if xt else 4 * fq) * STAGE_STRIDE
+            + M * BWD_STOCKS + (BWD_STOCKS * _pad(F, 4) if xt else 0)
+            + (2 if bf16 else 1) * BWD_STOCKS * _odd4(M * kp))
+
+
+def _resident(smem: int, threads: int, regs: int) -> int:
+    """Blocks one SM holds by shared memory (each block's allocation in
+    128-byte units plus the 1 KB reserved for it), threads, its block limit
+    and (when known) registers: each of the SM's four schedulers has a
+    quarter of the register file, and the blocks' warps spread over them."""
+    blocks = min(SM_SMEM // (_pad(smem, 128) + BLOCK_SMEM_RESERVED),
+                 SM_MAX_THREADS // threads, SM_MAX_BLOCKS)
+    if regs:
+        per_warp = _pad(regs * 32, REG_ALLOC_UNIT)
+        warps = SM_REGS // 4 // per_warp * 4
+        blocks = min(blocks, warps // -(-threads // 32))
+    return blocks
+
+
+def _member_counts(S: int) -> List[int]:
+    """Members per block of the balanced member groups, most first."""
+    return sorted({-(-S // g) for g in range(1, S + 1)}, reverse=True)
+
+
+def cem_plan(S: int, T: int, N: int, F: int, K: int, sms: int,
+             compute_dtype: str = "float32",
+             registers: Optional[Dict[tuple, int]] = None) -> CemPlans:
+    """The launch plans of cond_em_fwd and cond_em_bwd on a card of `sms`
+    SMs.
+
+    Forward: route 1 in bf16 where F ≤ MMA_MAX_F, else route 0 at the most
+    stocks per thread whose grid has FWD_MIN_WARPS warps per SM; then the
+    members per block and the stock tile that put the least work on the
+    busiest SM (⌈blocks / sms⌉ · tile · members; whole waves), fewest waves
+    first, then the most members and the largest tile; route 1 then the most
+    stages. Backward: route 1 in bf16 where F ≤ MMA_MAX_F, else route 0; the
+    members per block, warps per row group (route 1), instance (route 0:
+    with or without the stock-major copy) and stages by the same measure,
+    route 1 two stages where they cost no wave. `registers` ({(kernel,
+    route, var): registers per thread}, var the forward's instance or route
+    1's NT, as the built library reports them) bounds the blocks per SM too.
+    Raises if nothing fits."""
+    _check_dtype(compute_dtype)
+    if not 1 <= K <= MAX_MOMENTS:
+        raise ValueError(f"cond_em: K must be in [1, {MAX_MOMENTS}]; got {K}")
+    bf16 = compute_dtype == "bfloat16"
+    regs = registers or {}
+    # -- forward
+    groups = _groups(S, T, N, FWD_GROUP_STOCKS, sms, 4)
+    tpg = -(-T // groups)
+    route = 1 if bf16 and F <= MMA_MAX_F else 0
+    if route == 0:
+        cts = FWD_CTS[fwd_rt(K)]
+        chunks = _pad(K, 4) // fwd_rt(K)
+        ct = next((c for c in cts if S * chunks * -(-N // c) * groups
+                   >= FWD_MIN_WARPS * 32 * sms), cts[-1])
+    best = None
+    for M in _member_counts(S):
+        var = mma_nt(M, K) if route == 1 else ct
+        q = 16 if route == 1 else 4
+        mg = -(-S // M)
+        stage_counts = FWD_STAGES if route == 1 else (FWD_CORES_STAGES,)
+        for tile in range(q, _pad(N, q) + 1, q):
+            threads, floats = fwd_geometry(route, M, F, K, tpg, tile, var,
+                                           stage_counts[0])
+            if threads > FWD_MAX_THREADS or 4 * floats > MAX_SMEM:
+                break  # both grow with the tile
+            grid = (-(-N // tile), groups, mg)
+            per_sm = -(-(grid[0] * groups * mg) // sms)
+            for ns in stage_counts:
+                threads, floats = fwd_geometry(route, M, F, K, tpg, tile,
+                                               var, ns)
+                if 4 * floats > MAX_SMEM:
+                    break
+                bps = _resident(4 * floats, threads,
+                                regs.get(("fwd", route, var), 0))
+                if bps < 1:
+                    continue
+                key = (-(-per_sm // bps), per_sm * tile * M, -M, -tile, -ns)
+                if best is None or key < best[0]:
+                    best = (key, CemPlan("fwd", route, tile, M, threads, var,
+                                         ns, 4 * floats, bps, groups, grid))
+    if best is None:
+        raise ValueError(f"cond_em_fwd: F = {F}, K = {K} at S = {S}, T = {T} "
+                         "does not fit the kernel's shared memory")
+    fwd = best[1]
+    # -- backward
+    groups = _groups(S, T, N, BWD_STOCKS, sms, 4)
+    tpg = -(-T // groups)
+    tiles = -(-N // BWD_STOCKS)
+    route = 1 if bf16 and F <= MMA_MAX_F else 0
+    best = None
+    for M in _member_counts(S):
+        for var in (8, 4) if route == 1 else (0, 1):
+            for ns in BWD_STAGES if route == 1 else (1,):
+                threads, floats = bwd_geometry(route, M, F, K, tpg, bf16, var,
+                                               ns)
+                limit = FWD_MAX_THREADS if route == 1 else BWD_MAX_THREADS
+                if not 0 < threads <= limit or 4 * floats > MAX_SMEM:
+                    continue
+                inst = mma_nt(M, K) if route == 1 else var
+                bps = _resident(4 * floats, threads,
+                                regs.get(("bwd", route, inst), 0))
+                if bps < 1:
+                    continue
+                grid = (-(-S // M), tiles, groups)
+                per_sm = -(-(grid[0] * tiles * groups) // sms)
+                # route 0 prefers the stock-major copy (var 0), route 1
+                # the most warps per row group
+                key = (-(-per_sm // bps), per_sm * M, -ns,
+                       var if route == 0 else 0, -M, -var)
+                if best is None or key < best[0]:
+                    best = (key, CemPlan("bwd", route, BWD_STOCKS, M, threads,
+                                         var, ns, 4 * floats, bps, groups,
+                                         grid))
+    if best is None:
+        raise ValueError(f"cond_em_bwd: F = {F}, K = {K} at S = {S}, T = {T} "
+                         "does not fit the kernel's shared memory")
+    return CemPlans(fwd, best[1])
+
+
+_regs: Dict[tuple, Dict[tuple, int]] = {}
+_plans: Dict[tuple, CemPlans] = {}
+
+
+def card_cem_plan(dev, S: int, T: int, N: int, F: int, K: int,
+                  compute_dtype: str) -> CemPlans:
+    """:func:`cem_plan` for the card `dev`: its SM count, and the registers
+    of the library's kernel instances at (F, K, dtype); kept per shape.
+    Each plan is checked on the card once, before its first launch
+    (:func:`plan_info`): one that the kernel refuses, or whose blocks the
+    card does not keep resident, raises."""
+    key = (dev, S, T, N, F, K, compute_dtype)
+    plans = _plans.get(key)
+    if plans is None:
+        bf16 = int(compute_dtype == "bfloat16")
+        rkey = (F, K, bf16)
+        if rkey not in _regs:
+            lib = _load()
+            inst = [("fwd", 0, v) for v in FWD_CTS[fwd_rt(K)]] + [
+                ("bwd", 0, 0), ("bwd", 0, 1)]
+            if bf16 and F <= MMA_MAX_F:
+                inst += [(k, 1, v) for k in ("fwd", "bwd") for v in (1, 2, 3)]
+            got = {i: lib.cond_em_registers(int(i[0] == "bwd"), F, K, bf16,
+                                            i[1], i[2]) for i in inst}
+            _regs[rkey] = {i: r for i, r in got.items() if r > 0}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plans = cem_plan(S, T, N, F, K, sms, compute_dtype, _regs[rkey])
+        with torch.cuda.device(dev):
+            for p in plans:
+                held = plan_info(p, S, T, N, F, K, compute_dtype)
+                if held["blocks_per_sm"] < p.blocks_per_sm:
+                    raise RuntimeError(
+                        f"cond_em_{p.kernel}: the card keeps "
+                        f"{held['blocks_per_sm']} blocks per SM of the plan "
+                        f"{p}")
+        _plans[key] = plans
+    return plans
+
+
+def plan_info(plan: CemPlan, S: int, T: int, N: int, F: int, K: int,
+              compute_dtype: str) -> Dict[str, int]:
+    """What the card makes of `plan` (the current CUDA device): resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local-memory bytes per thread of the kernel it launches.
+    Raises for a plan the kernel refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _load().cond_em_plan_info(
+        int(plan.kernel == "bwd"), S, T, F, N, K, plan.groups,
+        int(compute_dtype == "bfloat16"), plan.route, plan.tile,
+        plan.members, plan.threads, plan.var, plan.stages, plan.smem_bytes,
+        out)
+    if rc != 0:
+        raise RuntimeError(f"cond_em_{plan.kernel} refused the plan {plan} "
+                           f"(code {rc})")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
 def _checked(x_t, zp_m, xr, tinv, kT):
@@ -153,36 +484,46 @@ def _checked(x_t, zp_m, xr, tinv, kT):
     return S, T, F, N, K, dev
 
 
+def _refused(kernel: str, rc: int, plan: CemPlan) -> None:
+    if rc == -1:
+        raise RuntimeError(f"cond_em_{kernel} refused the plan {plan}")
+    _raise_rc(f"cond_em_{kernel}", rc)
+
+
 def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
+    """em [S, K, N]. The kernels round kT to the compute dtype themselves
+    (route 1 as it builds its fragments), so no PyTorch op runs before the
+    launch."""
     global fwd_launches
-    kT = _round(kT, compute_dtype).contiguous()
+    kT = kT.contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = _groups(S, T, N, FWD_STOCKS, sms, 4)
-    em_part = torch.empty((S, groups, K, N), dtype=torch.float32, device=dev)
+    plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype).fwd
+    em_part = torch.empty((S, plan.groups, K, N), dtype=torch.float32,
+                          device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.cond_em_fwd(
             x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
-            kT.data_ptr(), em_part.data_ptr(), S, T, F, N, K, groups,
-            int(compute_dtype == "bfloat16"),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_rc("cond_em_fwd", rc)
+            kT.data_ptr(), em_part.data_ptr(), S, T, F, N, K, plan.groups,
+            int(compute_dtype == "bfloat16"), plan.route, plan.tile,
+            plan.members, plan.threads, plan.var, plan.stages,
+            plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    _refused("fwd", rc, plan)
     fwd_launches += 1
     return em_part.sum(dim=1)  # the fixed-order pass over the period groups
 
 
 def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """(dkT, dzp_m, dxr), kT rounded in the kernels as in the forward."""
     global bwd_launches
-    kT = _round(kT, compute_dtype).contiguous()
+    kT = kT.contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     gem = gem.float().contiguous()
     if tuple(gem.shape) != (S, K, N):
         raise ValueError(f"cond_em: gem must be {[S, K, N]}; got "
                          f"{list(gem.shape)}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-N // BWD_STOCKS)
-    groups = _groups(S, T, N, BWD_STOCKS, sms, 4)
+    plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype).bwd
+    tiles, groups = plan.grid[1], plan.groups
     dkT_part = torch.empty((S, groups * tiles, K, F), dtype=torch.float32,
                            device=dev)
     dzpm_part = torch.empty((S, tiles, T, K), dtype=torch.float32,
@@ -194,9 +535,10 @@ def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
             x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
             kT.data_ptr(), gem.data_ptr(), dkT_part.data_ptr(),
             dzpm_part.data_ptr(), dxr.data_ptr(), S, T, F, N, K, groups,
-            int(compute_dtype == "bfloat16"),
+            int(compute_dtype == "bfloat16"), plan.route, plan.members,
+            plan.threads, plan.var, plan.stages, plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_rc("cond_em_bwd", rc)
+    _refused("bwd", rc, plan)
     bwd_launches += 1
     return dkT_part.sum(dim=1), dzpm_part.sum(dim=1), dxr
 

@@ -1,0 +1,140 @@
+"""The launch plan of the port's conditional-EM kernels
+(ops/cond_em.py::cem_plan).
+
+The plan is arithmetic in Python, and csrc/cond_em.cu recomputes its
+shared memory and threads, asks the card how many blocks it keeps resident,
+and refuses a plan that disagrees. So its shape and its limits are held
+here on the CPU, at the shapes the training paths and the JAX sweep grid
+use: S ∈ {1, 3, 9} members, K ∈ {4, 8} moments (the sweep's
+``num_condition_moment``), the paper's F = 46 and the fixture's F = 10,
+T ∈ {4, 12, 24, 48} periods and a ragged N, both dtypes, on an H100's 132
+SMs. Every plan fits one block's shared memory and fills whole waves (the
+grid is resident at once). The period groups and the backward's 128-stock
+tiles are what keep the f32 sums bit for bit those of the
+one-thread-per-stock kernels, so they are pinned to ``_groups``.
+"""
+
+import itertools
+
+import pytest
+
+from deeplearninginassetpricing_paperreplication_torch.ops import cond_em as C
+
+SMS = 132  # an H100 SXM
+BLOCK_SMEM_LIMIT = 232_448  # 227 KB: what one block may use
+SM_SMEM = 233_472  # 228 KB an SM, with 1 KB reserved per resident block
+SHAPES = list(itertools.product((1, 3, 9), (4, 8), (46, 10), (4, 12, 24, 48),
+                                (10000, 10007)))
+IDS = [f"S{s}-K{k}-F{f}-T{t}-N{n}" for s, k, f, t, n in SHAPES]
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,K,F,T,N", SHAPES, ids=IDS)
+def test_plans_fit_and_fill_whole_waves(S, K, F, T, N, cd):
+    for p in C.cem_plan(S, T, N, F, K, SMS, cd):
+        assert p.smem_bytes <= BLOCK_SMEM_LIMIT
+        assert p.blocks_per_sm >= 1
+        assert p.blocks_per_sm * (p.smem_bytes + 1024) <= SM_SMEM
+        assert p.blocks_per_sm * p.threads <= 2048 and p.threads % 32 == 0
+        # whole waves: every block of the grid is resident at once
+        assert p.blocks <= p.blocks_per_sm * SMS
+        assert p.grid[2 if p.kernel == "fwd" else 0] == -(-S // p.members)
+        assert 1 <= p.members <= S
+        # bf16 products on the tensor cores where the k steps allow
+        assert p.route == (1 if cd == "bfloat16" and F <= C.MMA_MAX_F else 0)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,K,F,T,N", SHAPES, ids=IDS)
+def test_sum_partitions_are_the_bitwise_contract(S, K, F, T, N, cd):
+    """The forward's period groups are those of 64-stock blocks, the
+    backward's those of its 128-stock partial tiles; the grid covers every
+    stock and member, and the geometry is what the kernel counts."""
+    fwd, bwd = C.cem_plan(S, T, N, F, K, SMS, cd)
+    assert fwd.groups == C._groups(S, T, N, 64, SMS, 4)
+    assert fwd.grid[1] == fwd.groups and fwd.grid[0] * fwd.tile >= N
+    assert bwd.groups == C._groups(S, T, N, 128, SMS, 4)
+    assert bwd.tile == C.BWD_STOCKS == 128
+    assert bwd.grid[1:] == (-(-N // 128), bwd.groups)
+    tpg = -(-T // fwd.groups)
+    assert (fwd.threads, fwd.smem_bytes // 4) == C.fwd_geometry(
+        fwd.route, fwd.members, F, K, tpg, fwd.tile, fwd.var, fwd.stages)
+    tpg = -(-T // bwd.groups)
+    assert (bwd.threads, bwd.smem_bytes // 4) == C.bwd_geometry(
+        bwd.route, bwd.members, F, K, tpg, cd == "bfloat16", bwd.var,
+        bwd.stages)
+
+
+def test_geometry_at_the_ensemble_shape():
+    """The words csrc/cond_em.cu lays out at S = 9, T = 48, F = 46, K = 8."""
+    # forward f32: kT 9·46·8, zp_m 48·9·8, two panel slabs 46 × 76 and
+    # two xr rows 9 × 76; 9 members × 38 stock pairs, to whole warps
+    assert C.fwd_geometry(0, 9, 46, 8, 48, 76, 2, 2) == (
+        352, 3312 + 3456 + 2 * 46 * 76 + 2 * 9 * 76)
+    # forward bf16: zp_m [48][72], slabs [16·3][80 + 4] and xr; 3 row groups
+    # of 3 n tiles × 5 warps of 16 stocks
+    assert C.fwd_geometry(1, 9, 46, 8, 48, 80, 3, 4) == (
+        480, 48 * 72 + 4 * 48 * 84 + 4 * 9 * 80)
+    # backward f32, three members a block: kT, zp_m, one stage [46][132],
+    # xr, the stock-major tile [128][48], dpre [128][28]
+    assert C.bwd_geometry(0, 3, 46, 8, 48, False, 0, 1) == (
+        192, 1104 + 1152 + 46 * 132 + 3 * 128 + 128 * 48 + 128 * 28)
+    # without the stock-major tile: one stage of 48 rows
+    assert C.bwd_geometry(0, 1, 46, 8, 7, False, 1, 1) == (
+        64, 368 + 56 + 48 * 132 + 128 + 128 * 12)
+
+
+@pytest.mark.parametrize("smem,threads,regs,blocks", [
+    (76608, 96, 183, 2), (57216, 64, 127, 4), (93952, 352, 64, 2),
+    (60512, 352, 60, 2), (89856, 480, 90, 1)])
+def test_residency_is_what_the_card_reported(smem, threads, regs, blocks):
+    """Resident blocks per SM as the H100's occupancy query reported them
+    for built kernels: each scheduler holds a quarter of the register file,
+    so three 96-thread blocks of 183 registers do not fit where the total
+    would."""
+    assert C._resident(smem, threads, regs) == blocks
+
+
+def test_the_main_paths_plans():
+    """The plans of the training paths (T = 48, N = 10,000, K = 8)."""
+    one = C.cem_plan(1, 48, 10000, 46, 8, SMS, "float32")
+    assert (one.fwd.tile, one.fwd.var, one.fwd.grid) == (304, 1, (33, 4, 1))
+    assert (one.bwd.var, one.bwd.stages, one.bwd.grid) == (1, 1, (1, 79, 7))
+    ens = C.cem_plan(9, 48, 10000, 46, 8, SMS, "float32")
+    assert (ens.fwd.tile, ens.fwd.members, ens.fwd.var) == (76, 9, 2)
+    assert ens.fwd.blocks == SMS  # one block an SM, every member on it
+    assert (ens.bwd.members, ens.bwd.var, ens.bwd.grid) == (3, 0, (3, 79, 1))
+    bf = C.cem_plan(9, 48, 10000, 46, 8, SMS, "bfloat16")
+    assert (bf.fwd.route, bf.fwd.tile, bf.fwd.members) == (1, 80, 9)
+    assert (bf.bwd.route, bf.bwd.members, bf.bwd.var) == (1, 3, 8)
+
+
+@pytest.mark.parametrize("kw", [dict(F=5000), dict(K=17), dict(K=0),
+                                dict(F=5000, cd="bfloat16")],
+                         ids=["wide-F", "K17", "K0", "wide-F-bf16"])
+def test_a_shape_that_cannot_fit_raises(kw):
+    S, T, N, F, K = 9, 48, 10000, kw.get("F", 46), kw.get("K", 8)
+    with pytest.raises(ValueError):
+        C.cem_plan(S, T, N, F, K, SMS, kw.get("cd", "float32"))
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 3, 9])
+def test_stages_and_instances(S, cd):
+    """The CUDA-core routes take a constant number of stages (the forward
+    two, the backward one) and a built instance; the geometry refuses any
+    other stage count there, as csrc/cond_em.cu does."""
+    fwd, bwd = C.cem_plan(S, 48, 10000, 46, 8, SMS, cd)
+    if fwd.route == 0:
+        assert fwd.stages == C.FWD_CORES_STAGES
+        assert fwd.var in C.FWD_CTS[C.fwd_rt(8)]
+    else:
+        assert fwd.stages in C.FWD_STAGES
+    assert bwd.stages == 1 if bwd.route == 0 else bwd.stages in C.BWD_STAGES
+    assert C.fwd_geometry(0, S, 46, 8, 48, 76, 2, 3) == (0, 0)
+    assert C.bwd_geometry(0, S, 46, 8, 48, False, 0, 2) == (0, 0)
+
+
+def test_an_unknown_dtype_raises():
+    with pytest.raises(ValueError, match="compute_dtype"):
+        C.cem_plan(9, 48, 10000, 46, 8, SMS, "float16")

@@ -226,22 +226,32 @@ def test_backward_runs_only_what_is_asked(monkeypatch):
     assert calls == {"bwd": 2, "dx": 2} and dks.shape == ks.shape
 
 
+def _card_inputs(g, S, Tn, Nn, Kn, dev):
+    x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
+    zpm = torch.randn(S, Tn, Kn, generator=g, device=dev) * 0.3
+    xr = torch.randn(S, Tn, Nn, generator=g, device=dev) * 0.1
+    tinv = 1.0 / torch.randint(1, Tn + 1, (Nn,), generator=g,
+                               device=dev).float()
+    kT = torch.randn(S, Kn, 46, generator=g, device=dev) * 0.15
+    gem = torch.randn(S, Kn, Nn, generator=g, device=dev)
+    return x, zpm, xr, tinv, kT, gem
+
+
+CARD_SHAPES = [(1, 48, 10000, 8), (3, 7, 1001, 8), (1, 48, 10000, 4),
+               (3, 7, 1001, 4)]
+
+
 @pytest.mark.cuda
 def test_dx_kernel_matches_plain_on_card():
-    """cond_em_dx against cond_em_dx_reference, ragged N, and two calls
-    bitwise-equal (needs a card + nvcc)."""
+    """cond_em_dx against cond_em_dx_reference, ragged N, K = 4 and 8, and
+    two calls bitwise-equal (needs a card + nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    for S, Tn, Nn in ((1, 48, 10000), (9, 7, 1001)):
-        x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
-        zpm = torch.randn(S, Tn, 8, generator=g, device=dev) * 0.3
-        xr = torch.randn(S, Tn, Nn, generator=g, device=dev) * 0.1
-        tinv = 1.0 / torch.randint(1, Tn + 1, (Nn,), generator=g,
-                                   device=dev).float()
-        kT = torch.randn(S, 8, 46, generator=g, device=dev) * 0.15
-        gem = torch.randn(S, 8, Nn, generator=g, device=dev)
+    for S, Tn, Nn, Kn in ((1, 48, 10000, 8), (9, 7, 1001, 8),
+                          (9, 7, 1001, 4)):
+        x, zpm, xr, tinv, kT, gem = _card_inputs(g, S, Tn, Nn, Kn, dev)
         for cd in ("float32", "bfloat16"):
             dx = C._launch_dx(x, zpm, xr, tinv, kT, gem, cd)
             assert torch.equal(dx, C._launch_dx(x, zpm, xr, tinv, kT, gem,
@@ -253,20 +263,14 @@ def test_dx_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """cond_em_fwd / cond_em_bwd against their plain versions, and two
-    backward calls bitwise-equal (needs a card + nvcc)."""
+    """cond_em_fwd / cond_em_bwd against their plain versions, K = 4 and 8,
+    and two backward calls bitwise-equal (needs a card + nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    for S, Tn, Nn in ((1, 48, 10000), (3, 7, 1001)):
-        x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
-        zpm = torch.randn(S, Tn, 8, generator=g, device=dev) * 0.3
-        xr = torch.randn(S, Tn, Nn, generator=g, device=dev) * 0.1
-        tinv = 1.0 / torch.randint(1, Tn + 1, (Nn,), generator=g,
-                                   device=dev).float()
-        kT = torch.randn(S, 8, 46, generator=g, device=dev) * 0.15
-        gem = torch.randn(S, 8, Nn, generator=g, device=dev)
+    for S, Tn, Nn, Kn in CARD_SHAPES:
+        x, zpm, xr, tinv, kT, gem = _card_inputs(g, S, Tn, Nn, Kn, dev)
         for cd in ("float32", "bfloat16"):
             em = C._launch_fwd(x, zpm, xr, tinv, kT, cd)
             ref = C.cond_em_reference(x, zpm, xr, tinv, kT, cd)
@@ -279,3 +283,19 @@ def test_kernels_match_plain_on_card():
                     x, zpm, xr, tinv, kT, gem, cd)):
                 torch.testing.assert_close(
                     a, b, rtol=0, atol=REL[cd] * b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_plans_hold_on_card():
+    """Each plan of cem_plan at the card tests' shapes is one the kernels
+    take, and the card keeps at least its blocks resident (needs a card +
+    nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for (S, Tn, Nn, Kn), cd in zip(CARD_SHAPES * 2,
+                                   ["float32"] * 4 + ["bfloat16"] * 4):
+        for plan in C.card_cem_plan(dev, S, Tn, Nn, 46, Kn, cd):
+            info = C.plan_info(plan, S, Tn, Nn, 46, Kn, cd)
+            assert info["blocks_per_sm"] >= plan.blocks_per_sm
+            assert info["local_bytes"] == 0
