@@ -5,8 +5,17 @@
     python3 chip_smoke.py --profile   # also: torch.profiler over the engine,
                                       # training and ensemble epochs, and
                                       # the panel gradient
-    python3 chip_smoke.py --only_bwd  # the FFN backward's libraries and
-                                      # checks only (no result line)
+    python3 chip_smoke.py --only_bwd  # the FFN backward's and panel
+                                      # cotangent's libraries and the
+                                      # backward's checks only (no result
+                                      # line)
+    python3 chip_smoke.py --only_dx   # the FFN panel cotangent's libraries,
+                                      # plans and checks only (no result
+                                      # line)
+    python3 chip_smoke.py --only_dx --compare_dx DIR
+                                      # also: the f32 sdf_ffn_dx bit for bit
+                                      # against DIR/sdf_ffn_bwd.cu's (an
+                                      # older source beside its header)
     python3 chip_smoke.py --only_fwd  # the FFN forward's libraries and
                                       # checks only (no result line)
     python3 chip_smoke.py --only_fwd --compare_fwd DIR
@@ -25,10 +34,11 @@ Phases, each printing its results; any failure exits non-zero:
 1. Card: ``nvidia-smi`` name and power limit.
 2. Build: every kernel of the port from this checkout's sources (``nvcc``,
    sm_90a, one process per library, all started together): the SDF-FFN
-   forward and backward (with its panel cotangent) for each width bound,
-   the conditional-EM (forward, backward, panel cotangent), and the matmul
-   ceiling; then each forward library's tensor-core instructions (HMMA in
-   its ``cuobjdump -sass``), which the bf16 route needs.
+   forward, backward and panel cotangent for each width bound, the
+   conditional-EM (forward, backward, panel cotangent), and the matmul
+   ceiling; then each forward and panel-cotangent library's tensor-core
+   instructions (HMMA in its ``cuobjdump -sass``), which the bf16 routes
+   need.
 3. Kernels against their plain PyTorch versions on the card, at the serving,
    training, ensemble-training and panel-gradient paths' shapes (S = 9 with
    one dropout seed per member), with CUDA-event timings, bounds, the
@@ -37,7 +47,12 @@ Phases, each printing its results; any failure exits non-zero:
    widths, hidden (128, 128), (64, 64, 64) and (32, 32), at S = 1 and 9
    (each backward line with its launch plan, and the paper-width backward
    timed at every stock tile; each forward route's launch plan per width
-   bound, as the card holds it, with no spills; the conditional-EM kernels
+   bound, as the card holds it, with no spills; the panel cotangent's plan
+   per width bound and dtype, as the card holds it, with no spills, and
+   the panel cotangent with dropout 0.05 and without, the latter also
+   timed by CUDA-graph replays and at every stock tile, and off the main
+   paths (F = 80, F = 10 under (8, 7, 6), one hidden layer); the
+   conditional-EM kernels
    at K = 4 and 8, each plan as the card holds it, each timed as one
    event-timed call like every kernel, its device time from CUDA-graph
    replays beside it, each faster than its plain version by both); then the
@@ -143,6 +158,12 @@ ENS_BWD_ROW, ENS_CEM_ROW = (9, 48, 10000), (9, 10000)
 # panel-gradient path's nine members
 DX_SHAPES = [(1, 48, 10000), (3, 48, 10007), (9, 48, 10000)]
 DX_ROW = (9, 48, 10000)
+# (S, T, N, F, hidden) of the FFN panel cotangent off the main paths: the
+# bf16 route on the CUDA cores (F > 64), a ten-feature panel under a
+# three-layer odd stack (route 1 with a CUDA-core middle layer), and one
+# hidden layer (both routes' one-layer paths)
+DX_ODD_SHAPES = [(2, 6, 1001, 80, (64, 64)), (3, 5, 1001, 10, (8, 7, 6)),
+                 (2, 4, 999, 46, (12,))]
 # the sweep grid's other FFN widths that the FFN kernels must hold at
 # (the JAX package's parallel/sweep.py:82 hidden_dims: the w128 library,
 # a third layer, and the w32 library with the backward's 4-tile register
@@ -545,23 +566,54 @@ def fwd_plan_lines(torch, K, card):
                       f"{info['local_bytes']} B ({card})", flush=True)
 
 
-def sass_hmma(K, _nvcc):
-    """HMMA instructions in each forward library's SASS (cuobjdump): the
-    bf16 route's products must be on the tensor cores."""
+def dx_plan_lines(torch, K, card):
+    """The panel cotangent's plan at every width bound (the paper's (64, 64),
+    the sweep widths and the odd (8, 7, 6)), S = 1 and 9, both dtypes, as
+    the card holds it; fails if the card keeps fewer blocks resident than
+    planned or a kernel spills to local memory."""
+    dev = torch.device(DEVICE)
+    for hidden in [(64, 64)] + WIDE_HIDDEN + [(8, 7, 6)]:
+        lay = K.ffn_layout(46, hidden)
+        for S, T, N in ((1, 48, 10000), DX_ROW):
+            for cd in ("float32", "bfloat16"):
+                plan = K.card_dx_plan(lay, dev, S, T, N, cd)
+                info = K.dx_plan_info(lay, S, cd, plan)
+                check(info["blocks_per_sm"] >= plan.blocks_per_sm,
+                      f"sdf_ffn_dx plan {plan}: the card holds "
+                      f"{info['blocks_per_sm']} blocks per SM")
+                check(info["local_bytes"] == 0,
+                      f"sdf_ffn_dx w{K.width_bound(hidden)} {cd} spills "
+                      f"{info['local_bytes']} B per thread")
+                print(f"[kernels] dx plan hidden={list(hidden)} w"
+                      f"{K.width_bound(hidden)} S={S} T={T} N={N} {cd:8s} "
+                      f"route {plan.route} tile {plan.tile} threads "
+                      f"{plan.threads} weights "
+                      f"{'resident' if plan.resident else 'streamed'} "
+                      f"({plan.wbufs} buffers) panel tiles {plan.xbufs} smem "
+                      f"{plan.smem_bytes} B "
+                      f"resident {info['blocks_per_sm']}/SM (planned "
+                      f"{plan.blocks_per_sm}) G {plan.G} of {plan.cells} "
+                      f"cells regs {info['registers']} local "
+                      f"{info['local_bytes']} B ({card})", flush=True)
+
+
+def sass_hmma(K, _nvcc, kernels=("fwd",)):
+    """HMMA instructions in the SASS (cuobjdump) of each library of
+    `kernels` (the forward, the panel cotangent): their bf16 routes'
+    products must be on the tensor cores."""
     tool = Path(_nvcc.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         print("[build] cuobjdump not in the toolkit: HMMA count not taken",
               flush=True)
         return
     counts = {}
-    for job in K.build_jobs(kernels=("fwd",)):
+    for job in K.build_jobs(kernels=kernels):
         sass = subprocess.run([str(tool), "-sass", str(job.path)],
                               capture_output=True, text=True,
                               check=True).stdout
         counts[job.name] = sass.count("HMMA")
-    print(f"[build] HMMA instructions in the forward's SASS: {counts}",
-          flush=True)
-    check(all(counts.values()), "a forward library has no HMMA instruction")
+    print(f"[build] HMMA instructions in the SASS: {counts}", flush=True)
+    check(all(counts.values()), "a library has no HMMA instruction")
 
 
 def compare_fwd(torch, K, _nvcc, src_dir, card):
@@ -963,11 +1015,15 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
 def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
     """The panel cotangents sdf_ffn_dx and cond_em_dx (those in `names`)
     against their plain versions at DX_SHAPES, f32 and bf16 (the FFN with
-    dropout 0.05, one seed per member), each two calls bitwise-equal;
-    returns the panel-gradient path's rows (S=9, T=48, N=10000, f32)."""
+    dropout 0.05, one seed per member, and without, as the panel-gradient
+    path runs it: that one also timed by CUDA-graph replays), each two calls
+    bitwise-equal; returns the panel-gradient path's rows (S=9, T=48,
+    N=10000; the FFN's at dropout 0, and with dropout under key
+    (name, dtype, "dropout"))."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(4)
     F, hidden, Kn = 46, [64, 64], 8
+    lay = K.ffn_layout(F, hidden)
     rows = {}
     print(f"[kernels] sdf_ffn_dx / cond_em_dx vs sdf_ffn_dx_reference / "
           f"cond_em_dx_reference, F={F} hidden={hidden} K={Kn} ({card})",
@@ -988,51 +1044,200 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
         gem = torch.randn(S, Kn, N, generator=g, device=dev) / N
         for cd in ("float32", "bfloat16"):
             packed = K.pack_ffn(k1T, mids, kout, bout, cd)
-            cases = {
-                "sdf_ffn_dx": (
-                    lambda: K._launch_dx(x, zp, packed, gout, seed, DROPOUT),
-                    lambda: K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout,
-                                                   gout, cd, seed, DROPOUT),
-                    K.dx_flops(S, T, N, F, hidden),
-                    K.dx_bytes_moved(S, T, N, F, hidden), f"dropout "
-                    f"{DROPOUT}"),
-                "cond_em_dx": (
+            cases = []
+            if "sdf_ffn_dx" in names:
+                for rate in (0.0, DROPOUT):
+                    cases.append((
+                        "sdf_ffn_dx", rate,
+                        lambda r=rate: K._launch_dx(x, zp, packed, gout,
+                                                    seed, r),
+                        lambda r=rate: K.sdf_ffn_dx_reference(
+                            x, zp, k1T, mids, kout, gout, cd, seed, r),
+                        K.dx_flops(S, T, N, F, hidden),
+                        K.dx_bytes_moved(S, T, N, F, hidden),
+                        f"dropout {rate}"))
+            if "cond_em_dx" in names:
+                cases.append((
+                    "cond_em_dx", None,
                     lambda: C._launch_dx(x, zpm, xr, tinv, kT, gem, cd),
                     lambda: C.cond_em_dx_reference(x, zpm, xr, tinv, kT,
                                                    gem, cd),
                     C.dx_flops(S, T, N, F, Kn),
-                    C.dx_bytes_moved(S, T, N, F, Kn), f"K={Kn}"),
-            }
-            for name, (kern, plain, flops, nbytes, what) in cases.items():
-                if name not in names:
-                    continue
+                    C.dx_bytes_moved(S, T, N, F, Kn), f"K={Kn}"))
+            for name, rate, kern, plain, flops, nbytes, what in cases:
                 out, again = kern(), kern()
                 torch.cuda.synchronize()
                 check(torch.equal(out, again), f"{name} not bitwise "
-                      f"repeatable at S={S} T={T} N={N} {cd}")
+                      f"repeatable at S={S} T={T} N={N} {cd} {what}")
                 ref = plain()
                 err = rel_err(out, ref)
                 check(bool(torch.isfinite(out).all())
                       and err <= (GRAD_F32_REL if cd == "float32"
                                   else BF16_REL),
                       f"{name} disagrees with its plain version at S={S} "
-                      f"T={T} N={N} {cd}: max|d|/max|ref| {err:.3e}")
+                      f"T={T} N={N} {cd} {what}: max|d|/max|ref| {err:.3e}")
                 ms = cuda_ms(torch, kern, reps=10, warmup=2)
                 plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
                 b_ms, b_by = bound(flops, nbytes, cd)
+                row = dict(max_abs_err=float((out - ref).abs().max()), ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           shape=f"S={S} T={T} N={N} F={F} {cd} {what}")
+                extra = ""
+                if rate == 0.0:  # the panel-gradient path's own call
+                    row["graph_ms"] = graph_ms(torch, kern)
+                    extra = f" (device {row['graph_ms']:.4f} ms)"
+                if name == "sdf_ffn_dx":
+                    plan = K.card_dx_plan(lay, dev, S, T, N, cd)
+                    row["plan"] = dict(
+                        route=plan.route, tile=plan.tile,
+                        threads=plan.threads, wbufs=plan.wbufs,
+                        xbufs=plan.xbufs, blocks_per_sm=plan.blocks_per_sm,
+                        G=plan.G)
+                    extra += (f"  plan route {plan.route} tile {plan.tile} "
+                              f"threads {plan.threads} buffers {plan.wbufs} "
+                              f"{'(resident)' if plan.resident else ''} / "
+                              f"{plan.xbufs} {plan.blocks_per_sm}/SM G "
+                              f"{plan.G}")
                 print(f"[kernels] {name} S={S} T={T} N={N:5d} {cd:8s} "
                       f"{what}: max|d|/max|ref| {err:.2e}  kernel "
-                      f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                      f"{ms:.4f} ms{extra}  plain {plain_ms:.4f} ms  bound "
                       f"{b_ms:.4f} ms ({b_by})  bitwise-repeatable",
                       flush=True)
                 if (S, T, N) == DX_ROW:
-                    rows[(name, cd)] = dict(
-                        max_abs_err=float((out - ref).abs().max()), ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        shape=f"S={S} T={T} N={N} F={F} {cd} {what}")
+                    key = ((name, cd) if rate in (None, 0.0)
+                           else (name, cd, "dropout"))
+                    rows[key] = row
+                    if name == "sdf_ffn_dx" and rate == 0.0:
+                        dx_tile_times(torch, K, lay, S, T, N, cd, x, zp,
+                                      packed, gout, card)
     if "sdf_ffn_dx" in names:
+        for S, T, N, F, hidden in DX_ODD_SHAPES:
+            x = torch.randn(T, F, N, generator=g, device=dev)
+            zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F,
+                                                    list(hidden), dev)
+            zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                    device=dev) * 0.3).contiguous()
+            gout = torch.randn(S, T, N, generator=g, device=dev) / N
+            seed = list(range(13, 13 + S))
+            for cd in ("float32", "bfloat16"):
+                packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+                for rate in (0.0, DROPOUT):
+                    out = K._launch_dx(x, zp, packed, gout, seed, rate)
+                    again = K._launch_dx(x, zp, packed, gout, seed, rate)
+                    torch.cuda.synchronize()
+                    err = rel_err(out, K.sdf_ffn_dx_reference(
+                        x, zp, k1T, mids, kout, gout, cd, seed, rate))
+                    check(torch.equal(out, again)
+                          and bool(torch.isfinite(out).all())
+                          and err <= (GRAD_F32_REL if cd == "float32"
+                                      else BF16_REL),
+                          f"sdf_ffn_dx at S={S} T={T} N={N} F={F} hidden="
+                          f"{list(hidden)} {cd} dropout {rate}: max|d|/"
+                          f"max|ref| {err:.3e}, or not bitwise repeatable")
+                    plan = K.card_dx_plan(packed.layout, dev, S, T, N, cd)
+                    print(f"[kernels] sdf_ffn_dx S={S} T={T} N={N} F={F} "
+                          f"hidden={list(hidden)} {cd:8s} dropout {rate}: "
+                          f"max|d|/max|ref| {err:.2e}  route {plan.route} "
+                          f"tile {plan.tile}  bitwise-repeatable ({card})",
+                          flush=True)
         wide_checks(torch, K, card, "dx")
     return rows
+
+
+def dx_tile_times(torch, K, lay, S, T, N, cd, x, zp, packed, gout, card):
+    """The panel cotangent without dropout at every stock tile whose plan
+    fits, same inputs, device time from CUDA-graph replays."""
+    dev = torch.device(DEVICE)
+    parts = []
+    for tile in K.DX_TILES:
+        try:
+            plan = K.card_dx_plan(lay, dev, S, T, N, cd, tile)
+        except ValueError:
+            continue
+        ms = graph_ms(torch, lambda: K._launch_dx(x, zp, packed, gout, 0, 0.0,
+                                                  plan), reps=10)
+        parts.append(f"tile {tile} ({plan.threads} threads, "
+                     f"{plan.blocks_per_sm}/SM, buffers {plan.wbufs} / "
+                     f"{plan.xbufs}) {ms:.4f} ms")
+    print(f"[kernels] dx S={S} T={T} N={N} {cd} no dropout by stock tile "
+          f"(device): " + "; ".join(parts) + f" ({card})", flush=True)
+
+
+def compare_dx(torch, K, _nvcc, src_dir, card):
+    """The f32 sdf_ffn_dx against an older source's (src_dir/sdf_ffn_bwd.cu,
+    its one-thread-per-stock kernel and argument list, built once per width
+    bound) at DX_SHAPES (hidden (64, 64)) and at WIDE_HIDDEN × WIDE_SHAPES,
+    dropout 0 and 0.05: bit for bit equal (int32 views), and the two timed
+    in turns (old, new, new, old), without dropout also by CUDA-graph
+    replays."""
+    import ctypes
+
+    src = Path(src_dir).resolve()
+    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, olds = {}, {}
+    for w in K.WIDTH_BOUNDS:
+        out = _nvcc.BUILD_DIR / f"libsdf_ffn_dx_compare_w{w}.so"
+        procs[w] = (out, subprocess.Popen(
+            [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, f"-DSDF_FFN_MAXW={w}", "-o",
+             str(out), str(src / "sdf_ffn_bwd.cu")]))
+    for w, (out, proc) in procs.items():
+        check(proc.wait() == 0, f"the older {src.name}/sdf_ffn_bwd.cu (w{w}) "
+              "did not build")
+        fn = ctypes.CDLL(str(out)).sdf_ffn_dx
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        olds[w] = fn
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(12)
+    F = 46
+    cases = ([((64, 64), sh) for sh in DX_SHAPES]
+             + [(h, sh) for h in WIDE_HIDDEN for sh in WIDE_SHAPES])
+    for hidden, (S, T, N) in cases:
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F,
+                                                list(hidden), dev)
+        zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        gout = torch.randn(S, T, N, generator=g, device=dev) / N
+        seed = 9 if S == 1 else list(range(9, 9 + S))
+        packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+        old = olds[K.width_bound(hidden)]
+        for rate in (0.0, DROPOUT):
+            drop, bases = K._dropout_args(seed, rate, S, dev)
+
+            def run_old():
+                o = torch.empty(T, F, N, device=dev)
+                rc = old(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+                         gout.data_ptr(), o.data_ptr(), S, T, N,
+                         K._layout_ints(packed.layout), 0, *drop,
+                         torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"the older sdf_ffn_dx failed (code {rc})")
+                return o
+
+            def run_new():
+                return K._launch_dx(x, zp, packed, gout, seed, rate)
+            a, b = run_old(), run_new()
+            torch.cuda.synchronize()
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"sdf_ffn_dx f32 differs from the older kernel at hidden="
+                  f"{list(hidden)} S={S} T={T} N={N} dropout {rate}: max|d| "
+                  f"{float((a - b).abs().max()):.3e}")
+            t = [cuda_ms(torch, f, reps=10) for f in (run_old, run_new,
+                                                      run_new, run_old)]
+            line = (f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
+                    f"{t[2]:.4f} ms")
+            if rate == 0.0:
+                d = [graph_ms(torch, f, reps=10) for f in (run_old, run_new,
+                                                           run_new, run_old)]
+                line += (f" (device: older {d[0]:.4f} / {d[3]:.4f}, new "
+                         f"{d[1]:.4f} / {d[2]:.4f})")
+            print(f"[kernels] dx f32 hidden={list(hidden)} S={S} T={T} "
+                  f"N={N:5d} drop {rate:.2f}: bit for bit equal to "
+                  f"{src.name}/sdf_ffn_bwd.cu; {line} ({card})", flush=True)
+            del bases
 
 
 def ceiling_checks(torch, MB, card):
@@ -1948,9 +2153,19 @@ def main(argv=None) -> int:
                          "ensemble-training epochs and the panel gradient "
                          "with torch.profiler")
     ap.add_argument("--only_bwd", action="store_true",
-                    help="build the FFN backward's libraries only and run "
-                         "their checks (a short call while the backward "
-                         "changes); no result line")
+                    help="build the FFN backward's and panel cotangent's "
+                         "libraries only and run the backward's checks and "
+                         "the panel cotangent at the sweep widths (a short "
+                         "call while the backward changes); no result line")
+    ap.add_argument("--only_dx", action="store_true",
+                    help="build the FFN panel cotangent's libraries only and "
+                         "run its plans and checks (a short call while "
+                         "sdf_ffn_dx.cu changes); no result line")
+    ap.add_argument("--compare_dx", metavar="DIR", default=None,
+                    help="with --only_dx: hold the f32 sdf_ffn_dx bit for "
+                         "bit against DIR/sdf_ffn_bwd.cu's, an older source "
+                         "beside its sdf_ffn_common.cuh, and time both in "
+                         "turns")
     ap.add_argument("--only_fwd", action="store_true",
                     help="build the FFN forward's libraries only and run "
                          "their checks (a short call while the forward "
@@ -2017,7 +2232,8 @@ def main(argv=None) -> int:
 
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
-    jobs = (K.build_jobs(kernels=("bwd",)) if opts.only_bwd
+    jobs = (K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
+            else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",)) if opts.only_fwd
             else C.build_jobs() if opts.only_cem
             else K.build_jobs() + C.build_jobs() + MB.build_jobs())
@@ -2029,8 +2245,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {line.strip()}", flush=True)
 
-    if not (opts.only_bwd or opts.only_cem):
-        sass_hmma(K, _nvcc)
+    if not opts.only_cem:
+        sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
+                  else ("fwd",) if opts.only_fwd else ("fwd", "dx"))
+
+    if opts.only_dx:
+        # the panel cotangent's libraries alone: its plans, every check and
+        # timing, and (with --compare_dx) the f32 route against an older
+        # source
+        t0 = time.perf_counter()
+        dx_plan_lines(torch, K, card)
+        dx_checks(torch, K, C, card, names=("sdf_ffn_dx",))
+        if opts.compare_dx:
+            compare_dx(torch, K, _nvcc, opts.compare_dx, card)
+        print(f"[kernels] panel-cotangent checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
 
     if opts.only_cem:
         # the conditional-EM library alone: its plans, every check and
@@ -2074,6 +2304,7 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     fwd_plan_lines(torch, K, card)
+    dx_plan_lines(torch, K, card)
     row = kernel_checks(torch, K, card)
     _, ens_fwd_row = dropout_keep_share(torch, K, card)
     bwd_rows = ffn_bwd_checks(torch, K, card)
@@ -2171,9 +2402,12 @@ def main(argv=None) -> int:
 
     def grad_path(name):
         n = grad_launches[name]
+        extra = {f"at_{cd}_dropout": dx_rows[(name, cd, "dropout")]
+                 for cd in ("float32", "bfloat16")
+                 if (name, cd, "dropout") in dx_rows}
         return dict(launches=n, launches_by_path={"panel_gradient": n},
                     **dx_rows[(name, "float32")],
-                    at_bfloat16=dx_rows[(name, "bfloat16")],
+                    at_bfloat16=dx_rows[(name, "bfloat16")], **extra,
                     library_ms=None)  # no single PyTorch call computes it
 
     kernels = [
@@ -2201,7 +2435,7 @@ def main(argv=None) -> int:
     for k in kernels:
         k["library_ms"] = None  # no single PyTorch call computes these
     kernels += [
-        dict(name="sdf_ffn_dx", route="cuda", source=src + "sdf_ffn_bwd.cu",
+        dict(name="sdf_ffn_dx", route="cuda", source=src + "sdf_ffn_dx.cu",
              replaces=tpu + "pallas_ffn.py:300", **grad_path("sdf_ffn_dx")),
         dict(name="cond_em_dx", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:134",

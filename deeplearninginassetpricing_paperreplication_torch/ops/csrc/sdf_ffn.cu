@@ -76,10 +76,17 @@
 
 namespace {
 
+using sdf_ffn::cp_async4;
+using sdf_ffn::cp_async_commit;
+using sdf_ffn::cp_async_wait;
 using sdf_ffn::Dropout;
 using sdf_ffn::FfnDims;
 using sdf_ffn::kMaxLayers;
 using sdf_ffn::kUnsupported;
+using sdf_ffn::ldsm_x2;
+using sdf_ffn::ldsm_x4;
+using sdf_ffn::mma_bf16;
+using sdf_ffn::pack_bf16;
 
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kRouteF32 = 0, kRouteMma = 1;
@@ -392,45 +399,6 @@ sdf_ffn_fwd_f32_kernel(const float* __restrict__ x,
 
 // -- bf16 route: tensor cores ------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 values rounded to bf16, lo in the low half (the lower k)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint32_t* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // the first layer's A fragments of k step kk from the f32 panel tile xs
 // (this thread's column r0, rows 16·kk + 2·tig ...), rounded to bf16
 __device__ __forceinline__ void x_frag(uint32_t (&a)[4], const float* xs,
@@ -440,14 +408,6 @@ __device__ __forceinline__ void x_frag(uint32_t (&a)[4], const float* xs,
   a[1] = pack_bf16(xp[8], xp[xst + 8]);            // row gid + 8
   a[2] = pack_bf16(xp[8 * xst], xp[9 * xst]);      // k 2·tig + 8
   a[3] = pack_bf16(xp[8 * xst + 8], xp[9 * xst + 8]);
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const uint32_t* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(a));
 }
 
 // start the copies of cell (t, n0) of member group [s0, s0 + ms): its panel

@@ -1,6 +1,5 @@
-// Recompute backward and panel cotangent of the fused SDF-FFN for Hopper
-// (sm_90a). The panel cotangent, sdf_ffn_dx, is the second entry of this
-// file, below.
+// Recompute backward of the fused SDF-FFN for Hopper (sm_90a). The panel
+// cotangent, sdf_ffn_dx, is in sdf_ffn_dx.cu.
 //
 // Replaces deeplearninginassetpricing_paperreplication_tpu/ops/pallas_ffn.py
 // _bwd_kernel (:205, one member) and, through the explicit member axis S,
@@ -738,269 +737,4 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
     default:
       return kUnsupported;
   }
-}
-
-namespace {
-
-// -- the panel cotangent --------------------------------------------------------
-//
-// Replaces pallas_ffn.py _dx_kernel (:300). Given g [S, T, N], it recomputes
-// each member's forward with the same dropout masks, walks the dh chain down
-// to the first layer (sdf_ffn_bwd_reference's rounding points) and emits
-//
-//   dx[t, :, n] = Σ_s round(K1_s) · round(dh1_pre_s[t, :, n])      [T, F, N]
-//
-// summed over the members because they share the panel.
-//
-// What bounds it on this card: operations, about twice the forward's f32
-// FMAs (recompute, the dh chain, then F·H1 for dx) against the panel read
-// once and dx written once (~4 FLOP per byte per member at the paper's
-// widths, so compute from S = 1 up).
-//
-// Design: one thread per (period, stock); a block owns one period and 128
-// stocks and walks the members in ascending order, staging each member's
-// packed weights (≈29 KB at the paper's widths, so nine do not fit at once)
-// and its zp row in shared memory in turn. Per member a thread recomputes
-// the forward with the activations in registers and keeps each layer's
-// derivative factor as one bit per unit (ReLU active and the unit kept: the
-// factor is then the dropout scale); it then carries dh in registers down
-// the layers, staging dh_pre in its own shared-memory column for the
-// product with W_lᵀ, and adds K1·dh1_pre into its own dx column in shared
-// memory. Every shared column belongs to one thread, and the members are
-// added in a fixed order: no atomics, so two calls give bitwise-equal dx.
-// Stock lanes past N read x = 0 and g = 0 and write nothing.
-
-constexpr int kDxThreads = 128;
-
-// offsets (floats) of the dx kernel's shared-memory regions; each per-thread
-// region is [rows][kDxThreads], so a warp touching one row hits 32 banks
-struct DxSmem {
-  int zp, scratch, masks, dx, mwords, total;  // member weights at offset 0
-};
-
-inline DxSmem dx_plan(const FfnDims& d) {
-  DxSmem m{};
-  int maxhp = 0;
-  for (int l = 0; l < d.n_hidden; ++l)
-    if (d.hp[l] > maxhp) maxhp = d.hp[l];
-  m.mwords = (maxhp + 31) / 32;
-  int o = d.P;
-  m.zp = o;
-  o += d.hp[0];
-  m.scratch = o;
-  o += maxhp * kDxThreads;
-  m.masks = o;
-  o += d.n_hidden * m.mwords * kDxThreads;
-  m.dx = o;
-  o += d.F * kDxThreads;
-  m.total = o;
-  return m;
-}
-
-template <int MAXW>
-__global__ void __launch_bounds__(kDxThreads)
-sdf_ffn_dx_kernel(const float* __restrict__ x, const float* __restrict__ zp,
-                  const float* __restrict__ params,
-                  const float* __restrict__ g, float* __restrict__ dx, int S,
-                  int T, int N, FfnDims d, DxSmem m, int bf16, Dropout drop) {
-  constexpr int MW = (MAXW + 31) / 32;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int t = blockIdx.y, tid = threadIdx.x;
-  const int n = blockIdx.x * kDxThreads + tid;
-  const bool valid = n < N;
-  const int F = d.F, L = d.n_hidden, h0 = d.h[0], hp0 = d.hp[0];
-  const float* W = sm;  // the current member's packed weights
-  float* zps = sm + m.zp;
-  float* scr = sm + m.scratch + tid;  // this thread's column, [maxhp]
-  uint32_t* msk = reinterpret_cast<uint32_t*>(sm + m.masks) + tid;
-  float* dxs = sm + m.dx + tid;  // this thread's dx column, [F]
-  const float* xt = x + (size_t)t * F * N + n;
-  const float dscale = drop.on ? drop.scale : 1.f;
-  for (int f = 0; f < F; ++f) dxs[f * kDxThreads] = 0.f;
-
-  for (int s = 0; s < S; ++s) {
-    __syncthreads();  // every thread is done with member s - 1's weights
-    const float4* src =
-        reinterpret_cast<const float4*>(params + (size_t)s * d.P);
-    for (int i = tid; i < d.P / 4; i += kDxThreads) smem4[i] = src[i];
-    for (int j = tid; j < hp0; j += kDxThreads)
-      zps[j] = j < h0 ? zp[((size_t)s * T + t) * h0 + j] : 0.f;
-    __syncthreads();
-    const uint32_t row =
-        drop.on ? sdf_ffn::row_hash(drop.member_base[s], t, n) : 0u;
-
-    // -- recompute the forward: pre-activations in registers, one factor
-    //    bit per unit (ReLU active and the dropout mask keeps the unit) --
-    float cur[MAXW];
-#pragma unroll
-    for (int j = 0; j < MAXW; ++j) cur[j] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      float xf = valid ? __ldg(xt + (size_t)f * N) : 0.f;
-      if (bf16) xf = round_bf16(xf);
-      const float4* wrow = reinterpret_cast<const float4*>(W + f * hp0);
-#pragma unroll
-      for (int j = 0; j < MAXW; j += 4) {
-        if (j < hp0) {
-          const float4 w = wrow[j / 4];
-          cur[j] = fmaf(w.x, xf, cur[j]);
-          cur[j + 1] = fmaf(w.y, xf, cur[j + 1]);
-          cur[j + 2] = fmaf(w.z, xf, cur[j + 2]);
-          cur[j + 3] = fmaf(w.w, xf, cur[j + 3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MAXW; ++j) cur[j] += j < hp0 ? zps[j] : 0.f;
-    for (int l = 0; l < L; ++l) {
-      if (l > 0) {
-        // h_pre = W_l · round(a_{l-1}) + b_l: one output unit per
-        // iteration (not unrolled), staged in this thread's column
-        const int hin = d.hp[l - 1], hout = d.h[l], hpl = d.hp[l];
-        const float* Wl = W + d.off_w[l];
-        const float* bl = W + d.off_b[l];
-#pragma unroll 1
-        for (int k = 0; k < hpl; ++k) {
-          float a = 0.f;
-          if (k < hout) {
-            const float4* wrow =
-                reinterpret_cast<const float4*>(Wl + k * hin);
-#pragma unroll
-            for (int j = 0; j < MAXW; j += 4) {
-              if (j < hin) {
-                const float4 w = wrow[j / 4];
-                a = fmaf(w.x, cur[j], a);
-                a = fmaf(w.y, cur[j + 1], a);
-                a = fmaf(w.z, cur[j + 2], a);
-                a = fmaf(w.w, cur[j + 3], a);
-              }
-            }
-            a += bl[k];
-          }
-          scr[k * kDxThreads] = a;  // padded units stay exactly 0
-        }
-#pragma unroll
-        for (int k = 0; k < MAXW; ++k)
-          cur[k] = k < hpl ? scr[k * kDxThreads] : 0.f;
-      }
-      // cur holds layer l's pre-activations: its factor bits, then its
-      // post-dropout activations, rounded as the next product sees them
-      const int hpl = d.hp[l];
-      uint32_t bits[MW];
-#pragma unroll
-      for (int w = 0; w < MW; ++w) bits[w] = 0u;
-#pragma unroll
-      for (int j = 0; j < MAXW; ++j) {
-        if (j < hpl) {
-          const bool on = cur[j] > 0.f &&
-              (!drop.on || sdf_ffn::keep_unit(row, l, j, drop.threshold));
-          bits[j >> 5] |= (uint32_t)on << (j & 31);
-          const float a = on ? cur[j] * dscale : 0.f;
-          cur[j] = bf16 ? round_bf16(a) : a;
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < MW; ++w)
-        if (w < m.mwords) msk[(l * m.mwords + w) * kDxThreads] = bits[w];
-    }
-
-    // -- the dh chain: dh = round(kout)·round(g), then per layer dh_pre =
-    //    dh · factor and dh_{l-1} = round(W_l)ᵀ · round(dh_pre) -------------
-    const float gv = valid ? g[((size_t)s * T + t) * N + n] : 0.f;
-    const float gr = bf16 ? round_bf16(gv) : gv;
-    const float* ko = W + d.off_kout;
-    float dh[MAXW];
-#pragma unroll
-    for (int j = 0; j < MAXW; ++j) dh[j] = j < d.hp[L - 1] ? ko[j] * gr : 0.f;
-    for (int l = L - 1; l >= 0; --l) {
-      const int hpl = d.hp[l];
-      uint32_t bits[MW];
-#pragma unroll
-      for (int w = 0; w < MW; ++w)
-        bits[w] = w < m.mwords ? msk[(l * m.mwords + w) * kDxThreads] : 0u;
-#pragma unroll
-      for (int j = 0; j < MAXW; ++j) {
-        float dp = 0.f;
-        if (j < hpl && ((bits[j >> 5] >> (j & 31)) & 1u)) dp = dh[j] * dscale;
-        dh[j] = bf16 ? round_bf16(dp) : dp;  // round(dh_pre)
-      }
-      if (l == 0) break;  // dh now holds round(dh1_pre)
-      const int hin = d.hp[l - 1], hout = d.h[l];
-      const float* Wl = W + d.off_w[l];
-#pragma unroll
-      for (int j = 0; j < MAXW; ++j)
-        if (j < hpl) scr[j * kDxThreads] = dh[j];
-#pragma unroll
-      for (int i = 0; i < MAXW; ++i) dh[i] = 0.f;
-#pragma unroll 1
-      for (int j = 0; j < hout; ++j) {
-        const float dj = scr[j * kDxThreads];
-        const float4* wrow = reinterpret_cast<const float4*>(Wl + j * hin);
-#pragma unroll
-        for (int i = 0; i < MAXW; i += 4) {
-          if (i < hin) {
-            const float4 w = wrow[i / 4];
-            dh[i] = fmaf(w.x, dj, dh[i]);
-            dh[i + 1] = fmaf(w.y, dj, dh[i + 1]);
-            dh[i + 2] = fmaf(w.z, dj, dh[i + 2]);
-            dh[i + 3] = fmaf(w.w, dj, dh[i + 3]);
-          }
-        }
-      }
-    }
-
-    // -- dx[f] += K1[f, :] · round(dh1_pre), one feature per iteration -----
-#pragma unroll 1
-    for (int f = 0; f < F; ++f) {
-      const float4* wrow = reinterpret_cast<const float4*>(W + f * hp0);
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXW; j += 4) {
-        if (j < hp0) {
-          const float4 w = wrow[j / 4];
-          v = fmaf(w.x, dh[j], v);
-          v = fmaf(w.y, dh[j + 1], v);
-          v = fmaf(w.z, dh[j + 2], v);
-          v = fmaf(w.w, dh[j + 3], v);
-        }
-      }
-      dxs[f * kDxThreads] += v;
-    }
-  }
-
-  if (valid)
-    for (int f = 0; f < F; ++f)
-      dx[(size_t)t * F * N + (size_t)f * N + n] = dxs[f * kDxThreads];
-}
-
-}  // namespace
-
-// dx [T, F, N] (fully written). One block per (128-stock tile, period),
-// walking the S members in order. Returns 0, a cudaError_t value, or -1 for
-// an unsupported shape.
-extern "C" int sdf_ffn_dx(const float* x, const float* zp, const float* params,
-                          const float* g, float* dx, int S, int T, int N,
-                          const int* layout, int bf16, int dropout,
-                          const unsigned int* member_base,
-                          unsigned int threshold, float scale, void* stream) {
-  FfnDims d;
-  int maxw = 0;
-  if (sdf_ffn::read_dims(layout, &d, &maxw) != 0) return kUnsupported;
-  if (maxw > SDF_FFN_MAXW) return kUnsupported;
-  if (S < 1 || T < 1 || N < 1 || T > 65535) return kUnsupported;
-  const DxSmem m = dx_plan(d);
-  const size_t smem = sizeof(float) * (size_t)m.total;
-  if (smem > kMaxSmem) return kUnsupported;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sdf_ffn_dx_kernel<SDF_FFN_MAXW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const Dropout drop{dropout, member_base, threshold, scale};
-  dim3 grid((unsigned)((N + kDxThreads - 1) / kDxThreads), (unsigned)T);
-  sdf_ffn_dx_kernel<SDF_FFN_MAXW>
-      <<<grid, kDxThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          x, zp, params, g, dx, S, T, N, d, m, bf16, drop);
-  return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// Shared by sdf_ffn.cu (forward) and sdf_ffn_bwd.cu (recompute backward):
-// the packed-layout dimensions, the bf16 operand rounding, and the dropout
-// mask.
+// Shared by sdf_ffn.cu (forward), sdf_ffn_bwd.cu (recompute backward) and
+// sdf_ffn_dx.cu (panel cotangent): the packed-layout dimensions, the bf16
+// operand rounding, the dropout mask, and the tensor-core and cp.async
+// primitives.
 //
 // Dropout: a counter-based hash of (member base, period t, stock n, layer l,
 // unit j) only, so a mask does not depend on the block size or the launch
@@ -88,6 +89,74 @@ __device__ __forceinline__ bool keep_unit(uint32_t row, int l, int j,
                                           uint32_t threshold) {
   const uint32_t key = (uint32_t)((l << 8) | j) * 0x9E3779B9u;
   return fmix32(row ^ key) >= threshold;
+}
+
+// -- tensor cores and asynchronous copies ------------------------------------
+
+// c += a · b: one warp's m16n8k16 product, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 values rounded to bf16, lo in the low half (the lower k)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 16 bytes of which the first `bytes` are copied, the rest zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint32_t* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// the same four 8 × 8 matrices, transposed: a lane gets elements (2·(lane %
+// 4), lane / 4) and (2·(lane % 4) + 1, lane / 4) of each
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const uint32_t* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const uint32_t* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
 }
 
 }  // namespace sdf_ffn

@@ -19,10 +19,10 @@ Two routes compute the same functions:
   and :func:`sdf_ffn_dx_reference`, with the same bf16 operand rounding
   and the same dropout bits as the kernels. A CPU tensor runs them, and
   the tests and ``chip_smoke.py`` hold the kernels against them.
-* the CUDA kernels ``csrc/sdf_ffn.cu`` (forward) and ``csrc/sdf_ffn_bwd.cu``
-  (backward and panel cotangent), ``sm_90a``, built with ``nvcc`` at first
-  use and bound through ``ctypes``. A CUDA tensor always goes through them;
-  a build or launch failure raises.
+* the CUDA kernels ``csrc/sdf_ffn.cu`` (forward), ``csrc/sdf_ffn_bwd.cu``
+  (backward) and ``csrc/sdf_ffn_dx.cu`` (panel cotangent), ``sm_90a``, built
+  with ``nvcc`` at first use and bound through ``ctypes``. A CUDA tensor
+  always goes through them; a build, plan or launch failure raises.
 
 :func:`sdf_ffn` is the differentiable entry (a ``torch.autograd.Function``
 whose backward is ``sdf_ffn_dx`` for the panel and ``sdf_ffn_bwd`` for
@@ -82,6 +82,16 @@ FWD_ROUTES = {"float32": 0, "bfloat16": 1}
 FWD_TILES = (32, 64, 128)
 FWD_THREADS = (128, 256)
 MMA_TILE = 128
+# the panel cotangent's routes (csrc/sdf_ffn_dx.cu) at these stock tiles: 0,
+# register tiles of 8 units × 4 stocks on the CUDA cores (dx's of
+# DX_FEATURES features × 4 stocks; f32, and bf16 operands where pad16(F) >
+# DX_MMA_MAX_F), at these block sizes; 1, bf16, the layers below the top on
+# the CUDA cores and the rest on mma.sync, one warp per 16 stocks (threads
+# = 2 · tile)
+DX_TILES = (32, 64, 128)
+DX_THREADS = (64, 128, 256)
+DX_FEATURES = 6
+DX_MMA_MAX_F = 64
 
 # launches of the CUDA kernels, counted where the wrapper launches them and
 # nowhere else (reset_launch_count() before a run, read them after)
@@ -423,11 +433,13 @@ def width_bound(hidden: Sequence[int]) -> int:
                      f"kernel's {WIDTH_BOUNDS[-1]}")
 
 
-_SOURCES = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu"}
+_SOURCES = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu",
+            "dx": "sdf_ffn_dx.cu"}
+KERNELS = tuple(_SOURCES)
 
 
 def build_jobs(widths: Sequence[int] = WIDTH_BOUNDS,
-               kernels: Sequence[str] = ("fwd", "bwd")) -> List[_nvcc.Job]:
+               kernels: Sequence[str] = KERNELS) -> List[_nvcc.Job]:
     """One library per (kernel, width bound), each compiled alone so only
     what a model needs is built at first use."""
     return [_nvcc.Job(f"sdf_ffn_{k}_w{w}", _SOURCES[k],
@@ -436,9 +448,10 @@ def build_jobs(widths: Sequence[int] = WIDTH_BOUNDS,
 
 
 def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
-          kernels: Sequence[str] = ("fwd", "bwd")) -> Dict[str, str]:
-    """Compile the forward and backward kernels for sm_90a, one library per
-    (kernel, width bound), all ``nvcc`` processes started together. Returns
+          kernels: Sequence[str] = KERNELS) -> Dict[str, str]:
+    """Compile the forward, backward and panel-cotangent kernels for sm_90a,
+    one library per (kernel, width bound), all ``nvcc`` processes started
+    together. Returns
     {library name: compiler output} (see :func:`_nvcc.run`)."""
     return _nvcc.run(build_jobs(widths, kernels), verbose)
 
@@ -454,11 +467,11 @@ _ARGTYPES = {
                ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_void_p]),
-    # the panel cotangent, in the backward's library
-    "dx": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    "dx": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
-              ctypes.c_void_p]),
+              ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
+           + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_void_p]),
 }
 
 
@@ -486,8 +499,13 @@ def _load(kernel: str, width: int):
                 lib.sdf_ffn_bwd_plan_info.restype = ctypes.c_int
                 lib.sdf_ffn_bwd_registers.argtypes = [ctypes.c_int]
                 lib.sdf_ffn_bwd_registers.restype = ctypes.c_int
-                lib.sdf_ffn_dx.argtypes = _ARGTYPES["dx"]
-                lib.sdf_ffn_dx.restype = ctypes.c_int
+            if kernel == "dx":
+                lib.sdf_ffn_dx_plan_info.argtypes = [
+                    ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7 + [
+                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+                lib.sdf_ffn_dx_plan_info.restype = ctypes.c_int
+                lib.sdf_ffn_dx_registers.argtypes = [ctypes.c_int] * 3
+                lib.sdf_ffn_dx_registers.restype = ctypes.c_int
             _libs[key] = lib
         return _libs[key]
 
@@ -619,13 +637,16 @@ class FwdPlan:
 
 
 def _resident(smem: int, threads: int, regs: int) -> int:
-    """Blocks one SM holds by shared memory, threads, its block limit and
-    (when known) registers."""
-    blocks = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED),
+    """Blocks one SM holds by shared memory (each block's allocation in
+    128-byte units plus the 1 KB reserved for it), threads, its block limit
+    and (when known) registers: each of the SM's four schedulers has a
+    quarter of the register file, and the blocks' warps spread over them."""
+    blocks = min(SM_SMEM // (_pad(smem, 128) + BLOCK_SMEM_RESERVED),
                  SM_MAX_THREADS // threads, SM_MAX_BLOCKS)
     if regs:
-        per_warp = -(-regs * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
-        blocks = min(blocks, SM_REGS // (per_warp * (threads // 32)))
+        per_warp = _pad(regs * 32, REG_ALLOC_UNIT)
+        warps = SM_REGS // 4 // per_warp * 4
+        blocks = min(blocks, warps // -(-threads // 32))
     return blocks
 
 
@@ -762,6 +783,149 @@ def bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
                                      p.tile))
 
 
+def dx_route(lay: FfnLayout, compute_dtype: str) -> int:
+    """The panel cotangent's route: 1 (tensor cores) for bf16 where a warp's
+    dx fragments fit its registers (pad16(F) ≤ DX_MMA_MAX_F), else 0 (CUDA
+    cores; bf16 operands rounded there)."""
+    _check_dtype(compute_dtype)
+    return int(compute_dtype == "bfloat16"
+               and _pad(lay.F, 16) <= DX_MMA_MAX_F)
+
+
+def _dx_core_words(lay: FfnLayout) -> int:
+    """Route 0's weight buffer (csrc/sdf_ffn_dx.cu core_wwords): the packed
+    layout and what the register tiles read past it."""
+    F, hp, h = lay.F, lay.hp, lay.hidden
+    end = max(lay.P, _pad(F, DX_FEATURES) * hp[0],
+              (F - 1) * hp[0] + _pad(hp[0], 8))
+    for li in range(1, len(h)):
+        hin = hp[li - 1]
+        end = max(end, lay.off_w[li] + _pad(h[li], 8) * hin,
+                  lay.off_w[li] + (h[li] - 1) * hin + _pad(hin, 8))
+    return _pad4(end)
+
+
+def dx_geometry(lay: FfnLayout, route: int, tile: int, wbufs: int,
+                xbufs: int) -> Tuple[int, int]:
+    """(shared-memory words of one block, words per weight buffer), as
+    csrc/sdf_ffn_dx.cu's smem_plan counts them: `xbufs` panel tiles
+    [F][tile], activation tiles, two zp rows, two g rows and two rows of
+    dropout row hashes [tile], then `wbufs` weight buffers.
+
+    Route 0: one activation tile [H8][tile] per layer (H8 the widest layer
+    padded to 8), zp rows [pad8(hp0)], and one member's packed weights a
+    buffer (plus what the register tiles read past them).
+    Route 1, every layer padded to the library's width bound W: an
+    activation tile [W][tile + 4] per layer below the top (one where there
+    is one layer), zp rows [W], and a member's image a buffer: K1
+    [pad16(F)] and each W_l [W] as bf16 rows of W/2 + 4 words, then b_l,
+    kout and the top layer's Σ|W| as W f32 words each."""
+    F, hp, L = lay.F, lay.hp, len(lay.hidden)
+    if route == 0:
+        w = _dx_core_words(lay)
+        acts, rows, stride, zw = L, max(_pad(x, 8) for x in hp), tile, _pad(
+            hp[0], 8)
+    else:
+        W = width_bound(lay.hidden)
+        rw = W // 2 + 4
+        w = _pad4(_pad(F, 16) * rw + (L - 1) * W * (rw + 1) + 2 * W)
+        acts, rows, stride, zw = max(L - 1, 1), W, tile + 4, W
+    return (xbufs * F * tile + acts * rows * stride + 2 * zw + 4 * tile
+            + wbufs * w, w)
+
+
+def _dx_busy(lay: FfnLayout, tile: int, threads: int) -> float:
+    """The share of a block's threads that route 0 keeps busy, weighted by
+    multiply-adds: each product's register tiles (8 units, or DX_FEATURES
+    features in dx, × 4 stocks) spread over the threads, in rounds."""
+    F, hp, h = lay.F, lay.hp, lay.hidden
+    L = len(h)
+    prods = ([(-(-hp[0] // 8), F * hp[0])]
+             + [(-(-hp[li] // 8), hp[li - 1] * hp[li]) for li in range(1, L)]
+             + [(-(-hp[li - 1] // 8), h[li] * hp[li - 1])
+                for li in range(1, L)]
+             + [(-(-F // DX_FEATURES), F * hp[0])])
+    busy = 0.0
+    for row_tiles, fma in prods:
+        tiles = row_tiles * (tile // 4)
+        busy += fma * tiles / (-(-tiles // threads) * threads)
+    return busy / sum(fma for _, fma in prods)
+
+
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """The panel cotangent's launch: route (0: CUDA-core register tiles; 1:
+    bf16, the layers below the top on the CUDA cores, the rest on the
+    tensor cores), stock tile per cell, threads per block, weight buffers
+    (S: every member resident for the block's life; 2: streamed, the next
+    member's weights arriving while one computes; 1: streamed, each
+    member's at the start of its step), panel tile buffers (2: the next
+    cell's tile arriving while one computes; 1: once the cell's last member
+    has read it), shared memory per block, the resident blocks per SM that
+    shared memory, threads and registers allow, and the persistent grid G
+    (at most blocks per SM × SMs, at most the cells) walking `cells` cells
+    of (period, stock tile), each for all S members."""
+
+    route: int
+    tile: int
+    threads: int
+    wbufs: int
+    xbufs: int
+    resident: bool
+    smem_bytes: int
+    blocks_per_sm: int
+    G: int
+    cells: int
+
+
+def dx_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
+            compute_dtype: str = "float32",
+            registers: Dict[int, int] = None, tile: int = None) -> DxPlan:
+    """The panel cotangent's launch plan for `lay` on a card of `sms` SMs.
+
+    Of the stock tiles, block sizes (route 0; route 1 runs a warp per 16
+    stocks), weight buffers and panel tile buffers whose shared memory
+    fits, and (route 0) whose threads each hold at most one dx tile
+    (⌈F/DX_FEATURES⌉ × tile/4 ≤ threads), the one that keeps the most
+    threads busy per SM (blocks × threads, × :func:`_dx_busy` on route 0;
+    then the larger tile, whose weights and staging serve more stocks; then
+    more blocks, then resident weights, then more weight buffers, then more
+    panel buffers, then fewer threads). `registers` ({route: registers per
+    thread}, as the built library reports them) bounds the blocks per SM
+    too. G = min(cells, blocks per SM · sms). `tile` forces one stock tile.
+    Raises if nothing fits."""
+    route = dx_route(lay, compute_dtype)
+    regs = (registers or {}).get(route, 0)
+    # the member weights: resident, or streamed in two buffers or one
+    bufs = sorted({S} | ({2} if S > 2 else set()) | ({1} if S > 1 else set()))
+    plans = []
+    for bn in (DX_TILES if tile is None else (tile,)):
+        for threads in (DX_THREADS if route == 0 else (2 * bn,)):
+            if (bn not in DX_TILES or route == 0
+                    and -(-lay.F // DX_FEATURES) * (bn // 4) > threads):
+                continue
+            for wbufs in bufs:
+                for xbufs in (1, 2):
+                    smem = 4 * dx_geometry(lay, route, bn, wbufs, xbufs)[0]
+                    if smem > MAX_SMEM:
+                        continue
+                    blocks = _resident(smem, threads, regs)
+                    busy = blocks * threads * (_dx_busy(lay, bn, threads)
+                                               if route == 0 else 1.0)
+                    plans.append(((round(busy, 6), bn, blocks, wbufs == S,
+                                   wbufs, xbufs, -threads),
+                                  (bn, threads, wbufs, xbufs, smem, blocks)))
+    plans = [p for p in plans if p[1][5] >= 1]
+    if not plans:
+        raise ValueError(f"sdf_ffn_dx: hidden {list(lay.hidden)} with F = "
+                         f"{lay.F} does not fit the kernel's shared memory"
+                         + (f" at tile {tile}" if tile else ""))
+    tile, threads, wbufs, xbufs, smem, blocks = max(plans)[1]
+    cells = T * -(-N // tile)
+    return DxPlan(route, tile, threads, wbufs, xbufs, wbufs == S, smem,
+                  blocks, min(cells, blocks * sms), cells)
+
+
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -799,6 +963,55 @@ def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
         _fwd_plans[key] = fwd_plan(lay, _sm_count(dev), S, T, N,
                                    compute_dtype, _fwd_regs[lib_key])
     return _fwd_plans[key]
+
+
+_dx_regs: Dict[Tuple[int, int, int], Dict[int, int]] = {}
+_dx_plans: Dict[tuple, DxPlan] = {}
+
+
+def card_dx_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
+                 compute_dtype: str, tile: int = None) -> DxPlan:
+    """:func:`dx_plan` for the card `dev`: its SM count, and the registers
+    of the library's kernel for the layout's F and dtype; kept per shape
+    (and forced `tile`).
+    Each plan is checked on the card once, before its first launch
+    (:func:`dx_plan_info`): one that the kernel refuses, or whose blocks
+    the card does not keep resident, raises."""
+    key = (lay, dev, S, T, N, compute_dtype, tile)
+    plan = _dx_plans.get(key)
+    if plan is None:
+        route = dx_route(lay, compute_dtype)
+        bf16 = int(compute_dtype == "bfloat16")
+        rkey = (width_bound(lay.hidden), lay.F, bf16)
+        if rkey not in _dx_regs:
+            regs = _load("dx", rkey[0]).sdf_ffn_dx_registers(route, bf16,
+                                                             lay.F)
+            _dx_regs[rkey] = {route: regs} if regs > 0 else {}
+        plan = dx_plan(lay, _sm_count(dev), S, T, N, compute_dtype,
+                       _dx_regs[rkey], tile)
+        with torch.cuda.device(dev):
+            held = dx_plan_info(lay, S, compute_dtype, plan)
+        if held["blocks_per_sm"] < plan.blocks_per_sm:
+            raise RuntimeError(f"sdf_ffn_dx: the card keeps "
+                               f"{held['blocks_per_sm']} blocks per SM of "
+                               f"the plan {plan}")
+        _dx_plans[key] = plan
+    return plan
+
+
+def dx_plan_info(lay: FfnLayout, S: int, compute_dtype: str,
+                 plan: DxPlan) -> Dict[str, int]:
+    """What the card makes of `plan` (the current CUDA device): resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local-memory bytes per thread of the kernel it launches.
+    Raises for a plan the kernel refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _load("dx", width_bound(lay.hidden)).sdf_ffn_dx_plan_info(
+        _layout_ints(lay), S, int(compute_dtype == "bfloat16"), plan.route,
+        plan.tile, plan.threads, plan.wbufs, plan.xbufs, plan.smem_bytes, out)
+    if rc != 0:
+        raise RuntimeError(f"sdf_ffn_dx refused the plan {plan} (code {rc})")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
 def fwd_plan_info(lay: FfnLayout, S: int, plan: FwdPlan) -> Dict[str, int]:
@@ -869,9 +1082,10 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
 
 
 def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-               g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0
-               ) -> torch.Tensor:
-    """The panel cotangent dx [T, F, N], summed over the members."""
+               g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
+               plan: DxPlan = None) -> torch.Tensor:
+    """The panel cotangent dx [T, F, N], summed over the members; `plan`
+    defaults to :func:`card_dx_plan` for this card."""
     global dx_launches
     lay = packed.layout
     T, F, N = x_t.shape
@@ -881,15 +1095,29 @@ def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
     _check_cuda("g", g, (S, T, N), dev)
-    lib = _load("bwd", width_bound(lay.hidden))
+    cd = packed.compute_dtype
+    if plan is None:
+        plan = card_dx_plan(lay, dev, S, T, N, cd)
+    lib = _load("dx", width_bound(lay.hidden))
     dx = torch.empty((T, lay.F, N), dtype=torch.float32, device=dev)
+    # route 1's member images (bf16 rows), written by the launch itself
+    img = (torch.empty(S * dx_geometry(lay, 1, plan.tile, plan.wbufs,
+                                       plan.xbufs)[1],
+                       dtype=torch.int32, device=dev)
+           if plan.route == 1 else None)
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_dx(
             x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), S, T, N, _layout_ints(lay),
-            int(packed.compute_dtype == "bfloat16"), *drop, stream)
+            g.data_ptr(), dx.data_ptr(),
+            None if img is None else img.data_ptr(), S, T, N,
+            _layout_ints(lay), int(cd == "bfloat16"), *drop, plan.route,
+            plan.tile, plan.threads, plan.wbufs, plan.xbufs, plan.smem_bytes,
+            plan.G, stream)
+    if rc == -1:
+        raise RuntimeError(f"sdf_ffn_dx refused the plan {plan} for hidden "
+                           f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_dx", rc)
     dx_launches += 1
     return dx

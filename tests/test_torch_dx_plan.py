@@ -1,0 +1,163 @@
+"""The launch plan of the port's FFN panel cotangent
+(ops/sdf_ffn.py::dx_plan).
+
+The plan is arithmetic in Python, and csrc/sdf_ffn_dx.cu recomputes its
+shared memory and refuses a plan that disagrees; the card is asked once per
+plan whether it keeps the planned blocks resident. So its shape and its
+limits are held here on the CPU for every hidden width of the JAX sweep grid
+(``deeplearninginassetpricing_paperreplication_tpu/parallel/sweep.py:82``
+``grid_configs`` ``hidden_dims``), the odd widths (8, 7, 6) of the card
+tests, S ∈ {1, 3, 9} and both dtypes: the plan fits one block's shared
+memory and the SM's at its blocks per SM, gives each route-0 thread at most
+one dx tile, respects the registers the built kernels report, buffers the
+weights and the panel tile only as the kernel can (weights resident, or
+streamed through two buffers or one; one or two panel tiles), and its grid
+is the persistent set of resident blocks (or every cell, where there are
+fewer).
+"""
+
+import pytest
+
+from deeplearninginassetpricing_paperreplication_torch.ops import sdf_ffn as K
+
+F = 46  # the paper's characteristics
+SMS = 132  # an H100 SXM
+BLOCK_SMEM_LIMIT = 232_448  # 227 KB: what one block may use
+HIDDEN = [(64, 64), (128, 128), (64, 64, 64), (32, 32), (8, 7, 6)]
+IDS = ["-".join(map(str, h)) for h in HIDDEN]
+DTYPES = ["float32", "bfloat16"]
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("hidden", HIDDEN, ids=IDS)
+def test_every_width_gets_a_plan_that_fits(hidden, S, cd):
+    lay = K.ffn_layout(F, hidden)
+    plan = K.dx_plan(lay, SMS, S, 48, 10_000, cd)
+    assert plan.route == K.dx_route(lay, cd) == (cd == "bfloat16")
+    assert plan.smem_bytes <= BLOCK_SMEM_LIMIT
+    assert plan.blocks_per_sm >= 1
+    assert plan.blocks_per_sm * (plan.smem_bytes + K.BLOCK_SMEM_RESERVED) \
+        <= K.SM_SMEM
+    assert plan.blocks_per_sm * plan.threads <= K.SM_MAX_THREADS
+    assert plan.smem_bytes == 4 * K.dx_geometry(
+        lay, plan.route, plan.tile, plan.wbufs, plan.xbufs)[0]
+    # the weights: every member resident, or streamed through two buffers
+    # (more than two members) or one; the panel tile in one buffer or two
+    assert plan.wbufs == S or plan.wbufs == 1 or plan.wbufs == 2 < S
+    assert plan.resident == (plan.wbufs == S) and plan.xbufs in (1, 2)
+    assert plan.tile in K.DX_TILES
+    if plan.route == 0:
+        assert plan.threads in K.DX_THREADS
+        # each thread holds at most one dx tile of 6 features × 4 stocks
+        assert -(-F // K.DX_FEATURES) * (plan.tile // 4) <= plan.threads
+    else:
+        assert plan.threads == 2 * plan.tile  # a warp per 16 stocks
+
+
+def test_smem_geometry_at_the_paper_width():
+    """The words csrc/sdf_ffn_dx.cu's smem_plan lays out at (64, 64)."""
+    lay = K.ffn_layout(F, (64, 64))
+    # route 0 at tile 64, 128 threads: the packed weights (no read past
+    # them at these widths) in two buffers, two x tiles 46 × 64, two
+    # activation tiles 64 × 64, two zp rows of 64, two g and two row-hash
+    # rows of 64
+    assert lay.P == 46 * 64 + 64 * 64 + 64 + 64 + 4
+    assert K.dx_geometry(lay, 0, 64, 2, 2) == (
+        2 * lay.P + 2 * 46 * 64 + 2 * 64 * 64 + 2 * 64 + 4 * 64, lay.P)
+    # one weight buffer and one panel tile: 74,768 B, three blocks an SM
+    assert 4 * K.dx_geometry(lay, 0, 64, 1, 1)[0] == 74_768
+    # route 1 at tile 64: two x tiles 46 × 64, layer 1's activation tile
+    # 64 × (64 + 4), two zp rows of 64, two g and two row-hash rows of 64;
+    # an image of K1 48 rows and W2 64 rows of 64/2 + 4 words, then b2,
+    # kout and Σ|W2|
+    image = 48 * 36 + 64 * 36 + 3 * 64
+    assert K.dx_geometry(lay, 1, 64, 9, 2) == (
+        2 * 46 * 64 + 64 * 68 + 2 * 64 + 4 * 64 + 9 * image, image)
+    # odd widths: the register tiles read up to 8 units (and 6 features)
+    # past the packed layout, so route 0's buffer grows to hold them
+    odd = K.ffn_layout(F, (12,))
+    assert odd.P == 46 * 12 + 12 + 4
+    assert K.dx_geometry(odd, 0, 32, 1, 1)[1] == 48 * 12
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("hidden", HIDDEN, ids=IDS)
+def test_grid_is_the_resident_set(hidden, S, cd):
+    lay = K.ffn_layout(F, hidden)
+    for T, N in ((48, 10_000), (48, 10_007), (2, 100)):
+        plan = K.dx_plan(lay, SMS, S, T, N, cd)
+        assert plan.cells == T * -(-N // plan.tile)
+        assert plan.G == min(plan.cells, plan.blocks_per_sm * SMS)
+        # every cell is walked by exactly one block, for all S members; no
+        # block idles while another has two cells more than it
+        per_block = -(-plan.cells // plan.G)
+        assert (per_block - 1) * plan.G < plan.cells <= per_block * plan.G
+
+
+def test_paper_width_keeps_two_blocks_and_eight_warps():
+    lay = K.ffn_layout(F, (64, 64))
+    for S in (1, 3, 9):
+        for cd in DTYPES:
+            plan = K.dx_plan(lay, SMS, S, 48, 10_000, cd)
+            assert plan.blocks_per_sm >= 2, (S, cd, plan)
+            assert plan.blocks_per_sm * plan.threads >= 8 * 32, (S, cd, plan)
+    # the panel-gradient path's plans at the registers the kernels use
+    # (164 and 154: three warps to each scheduler): f32 in 64-stock tiles
+    # of 8 × 4 register tiles, one per thread in the layer products, with
+    # one weight buffer and one panel tile, so that three blocks share an
+    # SM; bf16 in 64-stock tiles, both double-buffered at three blocks
+    f32 = K.dx_plan(lay, SMS, 9, 48, 10_000, "float32", registers={0: 164})
+    assert (f32.tile, f32.threads, f32.wbufs, f32.xbufs) == (64, 128, 1, 1)
+    assert f32.blocks_per_sm == 3 and f32.G == 3 * SMS
+    bf16 = K.dx_plan(lay, SMS, 9, 48, 10_000, "bfloat16", registers={1: 154})
+    assert (bf16.tile, bf16.threads, bf16.wbufs, bf16.xbufs,
+            bf16.blocks_per_sm) == (64, 128, 2, 2, 3)
+
+
+def test_registers_bound_the_resident_blocks():
+    """The registers a kernel reports lower the blocks per SM, and G with
+    them."""
+    lay = K.ffn_layout(F, (64, 64))
+    # route 1 at 64-stock tiles (4 warps): 168 registers are 5,376 a warp
+    # (21 units of 256), three to each scheduler's 16,384: twelve warps,
+    # three blocks; 169 round up to 5,632, two a scheduler: 256 threads
+    three = K.dx_plan(lay, SMS, 9, 48, 10_000, "bfloat16", registers={1: 168})
+    assert (three.tile, three.blocks_per_sm, three.G) == (64, 3, 3 * SMS)
+    two = K.dx_plan(lay, SMS, 9, 48, 10_000, "bfloat16", registers={1: 169})
+    assert two.blocks_per_sm * two.threads == 256
+    # where registers, not shared memory, cap the blocks, the weights and
+    # the panel tile keep their second buffers
+    assert (three.wbufs, three.xbufs) == (2, 2)
+    # at 255 registers (8,192 a warp) at most 256 threads an SM
+    full = K.dx_plan(lay, SMS, 9, 48, 10_000, "bfloat16", registers={1: 255})
+    assert full.blocks_per_sm * full.threads <= K.SM_REGS // 256
+    assert full.G == full.blocks_per_sm * SMS
+    # route 0: a 255-register kernel holds two 128-thread blocks, not
+    # three, where shared memory would allow more
+    small = K.ffn_layout(F, (8, 7, 6))
+    free = K.dx_plan(small, SMS, 9, 48, 10_000, "float32")
+    capped = K.dx_plan(small, SMS, 9, 48, 10_000, "float32",
+                       registers={0: 255})
+    assert free.blocks_per_sm > capped.blocks_per_sm
+    assert capped.blocks_per_sm * capped.threads * 256 <= K.SM_REGS
+    assert capped.G == capped.blocks_per_sm * SMS
+
+
+def test_plan_refuses_what_does_not_fit():
+    for cd in DTYPES:
+        with pytest.raises(ValueError, match="does not fit"):
+            K.dx_plan(K.ffn_layout(2000, (128, 128)), SMS, 1, 48, 10_000, cd)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        K.dx_plan(K.ffn_layout(F, (64, 64)), SMS, 1, 48, 10_000, "float16")
+
+
+def test_wide_panels_take_the_cuda_core_route_in_bf16():
+    """Beyond 64 features a warp's dx fragments do not fit its registers:
+    bf16 then runs on the CUDA cores with rounded operands."""
+    for f, route in ((10, 1), (64, 1), (65, 0), (120, 0)):
+        lay = K.ffn_layout(f, (64, 64))
+        assert K.dx_route(lay, "bfloat16") == route
+        assert K.dx_route(lay, "float32") == 0
+        assert K.dx_plan(lay, SMS, 9, 48, 10_000, "bfloat16").route == route

@@ -484,13 +484,16 @@ def test_bwd_kernel_matches_reference_on_card():
 
 @pytest.mark.cuda
 def test_dx_kernel_matches_reference_on_card():
-    """sdf_ffn_dx against sdf_ffn_dx_reference with dropout, one seed per
-    member, ragged N, and two calls bitwise-equal (needs a card + nvcc)."""
+    """sdf_ffn_dx against sdf_ffn_dx_reference with dropout 0.05 and
+    without (the panel-gradient path), one seed per member, ragged N (a
+    multiple of 4 or not), and two calls bitwise-equal (needs a card +
+    nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     for S, Tn, Nn, hidden in ((1, 48, 10000, (64, 64)),
+                              (3, 48, 10007, (64, 64)),
                               (3, 5, 1001, (8, 7, 6))) + SWEEP_CASES:
         x = torch.randn(Tn, 46, Nn, generator=g, device=dev)
         zp = torch.randn(S, Tn, hidden[0], generator=g, device=dev)
@@ -504,14 +507,15 @@ def test_dx_kernel_matches_reference_on_card():
         seed = list(range(5, 5 + S))
         for cd in ("float32", "bfloat16"):
             packed = K.pack_ffn(k1T, mids, kout, bout, cd)
-            dx = K._launch_dx(x, zp, packed, gout, seed, 0.05)
-            assert torch.equal(dx, K._launch_dx(x, zp, packed, gout, seed,
-                                                0.05))
-            ref = K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout, cd,
-                                         seed, 0.05)
-            rel = 1e-4 if cd == "float32" else 2e-2
-            torch.testing.assert_close(dx, ref, rtol=0,
-                                       atol=rel * ref.abs().max().item())
+            for rate in (0.0, 0.05):
+                dx = K._launch_dx(x, zp, packed, gout, seed, rate)
+                assert torch.equal(dx, K._launch_dx(x, zp, packed, gout,
+                                                    seed, rate))
+                ref = K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout,
+                                             cd, seed, rate)
+                rel = 1e-4 if cd == "float32" else 2e-2
+                torch.testing.assert_close(dx, ref, rtol=0,
+                                           atol=rel * ref.abs().max().item())
 
 
 @pytest.mark.cuda
