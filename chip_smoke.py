@@ -26,8 +26,19 @@
                                       # plans, checks and timings only (no
                                       # result line)
     python3 chip_smoke.py --only_cem --compare_cem DIR
-                                      # also: the f32 cond_em_fwd/bwd bit
-                                      # for bit against DIR/cond_em.cu
+                                      # also: the f32 cond_em_fwd/bwd/dx
+                                      # bit for bit against DIR/cond_em.cu
+                                      # (one with the first kernels'
+                                      # argument lists, as at bdd71ce)
+    python3 chip_smoke.py --only_ceiling
+                                      # the matmul ceiling's library, plans,
+                                      # checks and measurement only (no
+                                      # result line)
+    python3 chip_smoke.py --only_ceiling --compare_ceiling DIR
+                                      # also: the ceiling bit for bit on
+                                      # integer operands against
+                                      # DIR/microbench.cu, both timed in
+                                      # turns
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -36,9 +47,10 @@ Phases, each printing its results; any failure exits non-zero:
    sm_90a, one process per library, all started together): the SDF-FFN
    forward, backward and panel cotangent for each width bound, the
    conditional-EM (forward, backward, panel cotangent), and the matmul
-   ceiling; then each forward and panel-cotangent library's tensor-core
-   instructions (HMMA in its ``cuobjdump -sass``), which the bf16 routes
-   need.
+   ceiling; then each library's tensor-core instructions in its
+   ``cuobjdump -sass`` (HMMA in the FFN forward's and panel cotangent's
+   libraries and in the conditional-EM's, whose bf16 routes need them;
+   HGMMA, ``wgmma``, in the matmul ceiling's).
 3. Kernels against their plain PyTorch versions on the card, at the serving,
    training, ensemble-training and panel-gradient paths' shapes (S = 9 with
    one dropout seed per member), with CUDA-event timings, bounds, the
@@ -53,13 +65,15 @@ Phases, each printing its results; any failure exits non-zero:
    timed by CUDA-graph replays and at every stock tile, and off the main
    paths (F = 80, F = 10 under (8, 7, 6), one hidden layer); the
    conditional-EM kernels
-   at K = 4 and 8, each plan as the card holds it, each timed as one
+   at K = 4 and 8, each plan as the card holds it (the panel cotangent's
+   too, and its S = 9 call timed at every stock tile), each timed as one
    event-timed call like every kernel, its device time from CUDA-graph
    replays beside it, each faster than its plain version by both); then the
    matmul ceiling:
-   its values at small shapes, and (the roofline path)
-   ``measure_matmul_ceiling`` at the model's shapes with the JAX defaults
-   (checked bit for bit there on integer operands), each shape's TFLOP/s
+   its values at small shapes, its plan per model shape as the card holds
+   it, and (the roofline path) ``measure_matmul_ceiling`` at the model's
+   shapes with the JAX defaults (checked bit for bit there on integer
+   operands), each shape's TFLOP/s (at most 105% of the data-sheet peak)
    beside cuBLAS's on the same bf16 products.
 4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
    N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
@@ -105,6 +119,7 @@ Then one ``kernels`` JSON line, the card line again, and the result line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import statistics
@@ -597,23 +612,28 @@ def dx_plan_lines(torch, K, card):
                       f"{info['local_bytes']} B ({card})", flush=True)
 
 
-def sass_hmma(K, _nvcc, kernels=("fwd",)):
-    """HMMA instructions in the SASS (cuobjdump) of each library of
-    `kernels` (the forward, the panel cotangent): their bf16 routes'
-    products must be on the tensor cores."""
+def sass_hmma(K, _nvcc, kernels=("fwd",), more=()):
+    """Tensor-core instructions in the SASS (cuobjdump) of each library:
+    HMMA (mma.sync) in each library of `kernels` (the FFN forward, its panel
+    cotangent) and, for each (job, opcode) in `more`, that opcode (HMMA in
+    the conditional-EM library, whose bf16 panel cotangent needs it; HGMMA,
+    wgmma, in the matmul ceiling's). Every count must be positive."""
     tool = Path(_nvcc.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         print("[build] cuobjdump not in the toolkit: HMMA count not taken",
               flush=True)
         return
     counts = {}
-    for job in K.build_jobs(kernels=kernels):
+    for job, op in ([(j, "HMMA") for j in K.build_jobs(kernels=kernels)]
+                    + list(more)):
         sass = subprocess.run([str(tool), "-sass", str(job.path)],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts[job.name] = sass.count("HMMA")
-    print(f"[build] HMMA instructions in the SASS: {counts}", flush=True)
-    check(all(counts.values()), "a library has no HMMA instruction")
+        counts[f"{job.name} {op}"] = sass.count(op)
+    print(f"[build] tensor-core instructions in the SASS: {counts}",
+          flush=True)
+    check(all(counts.values()), "a library lacks its tensor-core "
+          "instructions")
 
 
 def compare_fwd(torch, K, _nvcc, src_dir, card):
@@ -799,6 +819,31 @@ def cem_plan_lines(torch, C, card, Ks=CEM_KS):
                           f"{list(p.grid)} ({p.blocks} blocks) regs "
                           f"{info['registers']} local {info['local_bytes']} "
                           f"B ({card})", flush=True)
+    for S, T, N, F, Kn in ([(S, T, N, F, Kn) for S, N in CEM_SHAPES
+                            for Kn in Ks] + CEM_ODD_SHAPES):
+        for cd in ("float32", "bfloat16"):
+            dx_plan_line(torch, C, S, T, N, F, Kn, cd, card)
+
+
+def dx_plan_line(torch, C, S, T, N, F, Kn, cd, card, tile=None):
+    """cond_em_dx's plan at one shape as the card holds it; fails if the
+    card keeps fewer blocks resident than planned or the kernel spills.
+    Returns the plan."""
+    p = C.card_cem_dx_plan(torch.device(DEVICE), S, T, N, F, Kn, cd, tile)
+    info = C.dx_plan_info(p, S, T, N, F, Kn, cd)
+    check(info["blocks_per_sm"] >= p.blocks_per_sm,
+          f"cond_em_dx plan {p}: the card holds {info['blocks_per_sm']} "
+          "blocks per SM")
+    check(info["local_bytes"] == 0,
+          f"cond_em_dx {cd} F={F} K={Kn} spills {info['local_bytes']} B "
+          "per thread")
+    print(f"[kernels] cem plan dx S={S} T={T} N={N:5d} F={F} K={Kn} "
+          f"{cd:8s} route {p.route} tile {p.tile} threads {p.threads} "
+          f"stages {p.stages} smem {p.smem_bytes} B resident "
+          f"{info['blocks_per_sm']}/SM (planned {p.blocks_per_sm}) G {p.G} "
+          f"of {p.cells} cells regs {info['registers']} local "
+          f"{info['local_bytes']} B ({card})", flush=True)
+    return p
 
 
 def _cem_inputs(torch, g, S, T, N, F, Kn, dev):
@@ -930,11 +975,12 @@ def cond_em_checks(torch, C, card, Ks=CEM_KS):
 
 
 def compare_cem(torch, C, _nvcc, src_dir, card):
-    """The f32 cond_em_fwd and cond_em_bwd against an older source's
-    (src_dir/cond_em.cu, its one-thread-per-stock kernels and argument
-    lists) at S in {1, 3, 9}, N in {10000, 10007}, K in {4, 8}: every output
-    bit for bit equal (int32 views), and the two timed in turns (old, new,
-    new, old)."""
+    """The f32 cond_em_fwd, cond_em_bwd and cond_em_dx against an older
+    source's (src_dir/cond_em.cu, its one-thread-per-stock kernels and
+    argument lists, as at bdd71ce) at S in {1, 3, 9}, N in {10000, 10007},
+    K in {4, 8}, and cond_em_dx also at CEM_ODD_SHAPES (K = 5 and 16, F = 10
+    and 80): every output bit for bit equal (int32 views), and the two timed
+    in turns (old, new, new, old)."""
     import ctypes
 
     src = Path(src_dir).resolve()
@@ -947,7 +993,26 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
                                 + [ctypes.c_void_p])
     lib.cond_em_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                                 + [ctypes.c_void_p])
+    lib.cond_em_dx.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p])
     lib.cond_em_fwd.restype = lib.cond_em_bwd.restype = ctypes.c_int
+    lib.cond_em_dx.restype = ctypes.c_int
+
+    def olds_dx(x, zpm, xr, tinv, kT, gem, bf16=0):
+        """The older cond_em_dx on the same inputs (kT rounded by the
+        caller, as the wrapper does: a no-op in f32)."""
+        T, F, N = x.shape
+        S, Kn, _ = kT.shape
+
+        def run():
+            o = torch.empty(T, F, N, device=x.device)
+            rc = lib.cond_em_dx(
+                x.data_ptr(), zpm.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
+                kT.data_ptr(), gem.data_ptr(), o.data_ptr(), S, T, F, N, Kn,
+                bf16, torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"the older cond_em_dx failed ({rc})")
+            return (o,)
+        return run
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(8)
@@ -990,9 +1055,15 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
                 def new_bwd():
                     return C._launch_bwd(x, zpm, xr, tinv, kT, gem,
                                          "float32")
+
+                def new_dx():
+                    return (C._launch_dx(x, zpm, xr, tinv, kT, gem,
+                                         "float32"),)
                 times = []
                 for name, old, new in (("fwd", old_fwd, new_fwd),
-                                       ("bwd", old_bwd, new_bwd)):
+                                       ("bwd", old_bwd, new_bwd),
+                                       ("dx", olds_dx(x, zpm, xr, tinv, kT,
+                                                      gem), new_dx)):
                     a, b = old(), new()
                     torch.cuda.synchronize()
                     for u, v in zip(a, b):
@@ -1010,6 +1081,36 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
                 print(f"[kernels] cem f32 S={S} T={T} N={N:5d} K={Kn}: bit "
                       f"for bit equal to {src.name}/cond_em.cu; "
                       + "; ".join(times) + f" ({card})", flush=True)
+                if (S, N, Kn) == (*ENS_CEM_ROW, 8):
+                    # the panel gradient's bf16 call: the two kernels in
+                    # turns (held by tolerance, not bit for bit)
+                    kb = kT.bfloat16().float()
+                    old_bf16 = olds_dx(x, zpm, xr, tinv, kb, gem, 1)
+
+                    def new_bf16():
+                        return (C._launch_dx(x, zpm, xr, tinv, kT, gem,
+                                             "bfloat16"),)
+                    turns = (old_bf16, new_bf16, new_bf16, old_bf16)
+                    t = [cuda_ms(torch, f) for f in turns]
+                    d = [graph_ms(torch, f) for f in turns]
+                    print(f"[kernels] cem dx bf16 S={S} T={T} N={N} K={Kn}: "
+                          f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f}"
+                          f" / {t[2]:.4f} ms (device: older {d[0]:.4f} / "
+                          f"{d[3]:.4f}, new {d[1]:.4f} / {d[2]:.4f}) "
+                          f"({card})", flush=True)
+    for S, T, N, F, Kn in CEM_ODD_SHAPES:
+        args = _cem_inputs(torch, g, S, T, N, F, Kn, dev)
+        old, new = olds_dx(*args), lambda: (C._launch_dx(*args, "float32"),)
+        a, b = old()[0], new()[0]
+        torch.cuda.synchronize()
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"cond_em_dx f32 differs from the older kernel at S={S} T={T} "
+              f"N={N} F={F} K={Kn}: max|d| {float((a - b).abs().max()):.3e}")
+        t = [cuda_ms(torch, f) for f in (old, new, new, old)]
+        print(f"[kernels] cem dx f32 S={S} T={T} N={N} F={F} K={Kn}: bit for "
+              f"bit equal to {src.name}/cond_em.cu; older {t[0]:.4f} / "
+              f"{t[3]:.4f} ms, new {t[1]:.4f} / {t[2]:.4f} ms ({card})",
+              flush=True)
 
 
 def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
@@ -1083,9 +1184,15 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            shape=f"S={S} T={T} N={N} F={F} {cd} {what}")
                 extra = ""
-                if rate == 0.0:  # the panel-gradient path's own call
+                if rate in (None, 0.0):  # the panel-gradient path's own call
                     row["graph_ms"] = graph_ms(torch, kern)
                     extra = f" (device {row['graph_ms']:.4f} ms)"
+                if name == "cond_em_dx":
+                    plan = C.card_cem_dx_plan(dev, S, T, N, F, Kn, cd)
+                    row["plan"] = dataclasses.asdict(plan)
+                    extra += (f"  plan route {plan.route} tile {plan.tile} "
+                              f"threads {plan.threads} "
+                              f"{plan.blocks_per_sm}/SM G {plan.G}")
                 if name == "sdf_ffn_dx":
                     plan = K.card_dx_plan(lay, dev, S, T, N, cd)
                     row["plan"] = dict(
@@ -1110,6 +1217,9 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
                     if name == "sdf_ffn_dx" and rate == 0.0:
                         dx_tile_times(torch, K, lay, S, T, N, cd, x, zp,
                                       packed, gout, card)
+                    if name == "cond_em_dx":
+                        cem_dx_tile_times(torch, C, S, T, N, F, Kn, cd,
+                                          (x, zpm, xr, tinv, kT, gem), card)
     if "sdf_ffn_dx" in names:
         for S, T, N, F, hidden in DX_ODD_SHAPES:
             x = torch.randn(T, F, N, generator=g, device=dev)
@@ -1141,7 +1251,46 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
                           f"tile {plan.tile}  bitwise-repeatable ({card})",
                           flush=True)
         wide_checks(torch, K, card, "dx")
+    if "cond_em_dx" in names:
+        # the conditional-EM's instances off the main path: bf16 on the CUDA
+        # cores (F > 64), an odd K on a ten-feature panel, K = 16
+        for S, T, N, F, Kn in CEM_ODD_SHAPES:
+            args = _cem_inputs(torch, g, S, T, N, F, Kn, dev)
+            for cd in ("float32", "bfloat16"):
+                out = C._launch_dx(*args, cd)
+                again = C._launch_dx(*args, cd)
+                torch.cuda.synchronize()
+                err = rel_err(out, C.cond_em_dx_reference(*args, cd))
+                plan = C.card_cem_dx_plan(dev, S, T, N, F, Kn, cd)
+                check(torch.equal(out, again)
+                      and bool(torch.isfinite(out).all())
+                      and err <= (GRAD_F32_REL if cd == "float32"
+                                  else BF16_REL),
+                      f"cond_em_dx at S={S} T={T} N={N} F={F} K={Kn} {cd}: "
+                      f"max|d|/max|ref| {err:.3e}, or not bitwise "
+                      "repeatable")
+                print(f"[kernels] cond_em_dx S={S} T={T} N={N} F={F} K={Kn} "
+                      f"{cd:8s}: max|d|/max|ref| {err:.2e}  route "
+                      f"{plan.route} tile {plan.tile}  bitwise-repeatable "
+                      f"({card})", flush=True)
     return rows
+
+
+def cem_dx_tile_times(torch, C, S, T, N, F, Kn, cd, args, card):
+    """cond_em_dx at every stock tile whose plan fits, same inputs, device
+    time from CUDA-graph replays."""
+    parts = []
+    route_tiles = C.DX_MMA_TILES if C.dx_route(F, cd) else C.DX_TILES
+    for tile in route_tiles:
+        try:
+            plan = dx_plan_line(torch, C, S, T, N, F, Kn, cd, card, tile)
+        except ValueError:
+            continue
+        ms = graph_ms(torch, lambda: C._launch_dx(*args, cd, plan), reps=10)
+        parts.append(f"tile {tile} ({plan.threads} threads, "
+                     f"{plan.blocks_per_sm}/SM, G {plan.G}) {ms:.4f} ms")
+    print(f"[kernels] cond_em_dx S={S} T={T} N={N} K={Kn} {cd} by stock tile "
+          f"(device): " + "; ".join(parts) + f" ({card})", flush=True)
 
 
 def dx_tile_times(torch, K, lay, S, T, N, cd, x, zp, packed, gout, card):
@@ -1284,6 +1433,23 @@ def ceiling_checks(torch, MB, card):
           f"configuration) ({card})", flush=True)
 
     S, bn, reps, steps = 9, 2048, 8, 64
+    plans = {}
+    for m, k in MB.MODEL_MATMUL_SHAPES:
+        plan = MB.card_ceiling_plan(dev, S, m, k, bn, steps)
+        info = MB.ceiling_plan_info(plan, S, m, k, bn)
+        check(info["local_bytes"] == 0, f"matmul_ceiling {m}x{k} spills "
+              f"{info['local_bytes']} B per thread")
+        plans[f"{m}x{k}"] = dict(dataclasses.asdict(plan),
+                                 registers=info["registers"])
+        print(f"[ceiling] plan {m}x{k}: {plan.warpgroups} warpgroups, width "
+              f"{plan.width} ({plan.slices} slice) × {plan.stack} members a "
+              f"product (m64n{plan.n}k16), {plan.kchunks} k chunk(s) "
+              f"of {plan.ksteps} k steps, {plan.layout}, smem "
+              f"{plan.smem_bytes} B, resident {info['blocks_per_sm']}/SM "
+              f"(planned {plan.blocks_per_sm}), {plan.groups} step groups, "
+              f"grid {list(plan.grid)} ({plan.blocks} blocks), regs "
+              f"{info['registers']} local {info['local_bytes']} B ({card})",
+              flush=True)
     MB.reset_launch_count()
     # 20 timed calls, not the JAX default 3: one call takes a fraction of a
     # millisecond, too short a span to time in three
@@ -1292,12 +1458,18 @@ def ceiling_checks(torch, MB, card):
     launches = MB.launches
     check(launches > 0, "the roofline path launched matmul_ceiling no time")
     blended = MB.model_shape_ceiling_tflops(ceiling)
-    ms = plain_ms = library_ms = 0.0
+    ms = plain_ms = library_ms = device_ms = 0.0
     flops = nbytes = 0
     for m, k in MB.MODEL_MATMUL_SHAPES:
         rec = ceiling[f"{m}x{k}"]
+        check(rec["tflops"] <= 1.05 * 989.0,
+              f"matmul_ceiling {m}x{k} reads {rec['tflops']:.1f} TFLOP/s, "
+              "above 105% of the card's 989 TFLOP/s bf16 peak")
         w = torch.randn(S, m, k, generator=g, device=dev).bfloat16()
         x = torch.randn(k, bn, generator=g, device=dev).bfloat16()
+        rec["graph_ms"] = graph_ms(torch, lambda: MB.matmul_ceiling(
+            w, x, reps, steps), reps=5)
+        device_ms += rec["graph_ms"]
 
         def cublas():
             for _ in range(reps * steps):
@@ -1314,7 +1486,8 @@ def ceiling_checks(torch, MB, card):
         flops += f
         nbytes += 2 * (S * m * k + k * bn) + 4 * m * bn
         print(f"[ceiling] {m}x{k}: {rec['tflops']:.2f} TFLOP/s "
-              f"({rec['seconds'] * 1e3:.4f} ms per call of "
+              f"({rec['seconds'] * 1e3:.4f} ms per call, device "
+              f"{rec['graph_ms']:.4f} ms from CUDA-graph replays, of "
               f"{rec['gflops_per_call']:.2f} GFLOP), "
               f"{rec['fraction_of_dense_128']:.3f} of 128x128; cuBLAS "
               f"{rec['cublas_tflops']:.2f} TFLOP/s ({lib_ms:.4f} ms for "
@@ -1325,6 +1498,7 @@ def ceiling_checks(torch, MB, card):
     b_ms, b_by = bound(flops, nbytes, "bfloat16")
     row = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+               graph_ms=device_ms, plan=plans,
                launches_by_path={"roofline": launches},
                model_shape_ceiling_tflops=blended,
                per_shape={key: rec for key, rec in ceiling.items()
@@ -1332,6 +1506,94 @@ def ceiling_checks(torch, MB, card):
                shape=f"MODEL_MATMUL_SHAPES S={S} BN={bn} {reps}x{steps} "
                      "bf16, one call per shape")
     return row
+
+
+def compare_ceiling(torch, MB, _nvcc, src_dir, card):
+    """The ceiling against an older source's (src_dir/microbench.cu, its
+    mma.sync kernel and argument lists, as at a09a4f7): bit for bit on
+    integer operands at CEILING_EXACT_CHECKS, then each of the model's
+    shapes at the JAX defaults timed in turns (old, new, new, old), 20
+    calls after one warm-up each, as measure_matmul_ceiling times them."""
+    import ctypes
+
+    src = Path(src_dir).resolve()
+    out = _nvcc.BUILD_DIR / "libmicrobench_compare.so"
+    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(out),
+                    str(src / "microbench.cu")], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.matmul_ceiling.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                                   + [ctypes.c_void_p])
+    lib.matmul_ceiling_occupancy.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.matmul_ceiling.restype = ctypes.c_int
+    lib.matmul_ceiling_occupancy.restype = ctypes.c_int
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def old_of(w, x, reps, steps):
+        S, M, K = w.shape
+        BN = x.shape[1]
+        blocks, per_sm = ctypes.c_int(), ctypes.c_int()
+        check(lib.matmul_ceiling_occupancy(S, M, K, BN, ctypes.byref(blocks),
+                                           ctypes.byref(per_sm)) == 0,
+              "the older matmul_ceiling has no occupancy")
+        groups = MB.step_groups(steps, blocks.value, sms * per_sm.value)
+
+        def run():
+            part = torch.empty(groups, M, BN, device=dev)
+            rc = lib.matmul_ceiling(w.data_ptr(), x.data_ptr(),
+                                    part.data_ptr(), S, M, K, BN, reps,
+                                    steps, groups,
+                                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"the older matmul_ceiling failed ({rc})")
+            return part.sum(dim=0)
+        return run
+
+    for m, k, bn, S, reps, steps in CEILING_EXACT_CHECKS:
+        w = torch.randint(-2, 3, (S, m, k), generator=g,
+                          device=dev).bfloat16()
+        x = torch.randint(-2, 3, (k, bn), generator=g, device=dev).bfloat16()
+        a = old_of(w, x, reps, steps)()
+        b = MB.matmul_ceiling(w, x, reps, steps)
+        torch.cuda.synchronize()
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"matmul_ceiling differs from the older kernel at M={m} K={k} "
+              f"on integer operands: max|d| {float((a - b).abs().max())}")
+    print(f"[ceiling] bit for bit equal to {src.name}/microbench.cu on "
+          f"integer operands at {CEILING_EXACT_CHECKS} ({card})", flush=True)
+
+    def per_call_ms(fn, calls=20):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / calls
+
+    S, bn, reps, steps = 9, 2048, 8, 64
+    total = [0.0] * 4
+    for m, k in MB.MODEL_MATMUL_SHAPES:
+        w = torch.randn(S, m, k, generator=g, device=dev).bfloat16()
+        x = torch.randn(k, bn, generator=g, device=dev).bfloat16()
+        old = old_of(w, x, reps, steps)
+
+        def new():
+            return MB.matmul_ceiling(w, x, reps, steps)
+        t = [per_call_ms(f) for f in (old, new, new, old)]
+        total = [a + b for a, b in zip(total, t)]
+        tf = [2 * m * k * bn * S * reps * steps / (v / 1e3) / 1e12 for v in t]
+        print(f"[ceiling] {m}x{k} older {t[0]:.4f} / {t[3]:.4f} ms "
+              f"({tf[0]:.1f} / {tf[3]:.1f} TFLOP/s), new {t[1]:.4f} / "
+              f"{t[2]:.4f} ms ({tf[1]:.1f} / {tf[2]:.1f} TFLOP/s) ({card})",
+              flush=True)
+    print(f"[ceiling] sum of the four shapes: older {total[0]:.4f} / "
+          f"{total[3]:.4f} ms, new {total[1]:.4f} / {total[2]:.4f} ms "
+          f"({card})", flush=True)
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -2182,6 +2444,15 @@ def main(argv=None) -> int:
                     help="with --only_cem: hold the f32 cond_em_fwd and "
                          "cond_em_bwd bit for bit against DIR/cond_em.cu, "
                          "an older source, and time both in turns")
+    ap.add_argument("--only_ceiling", action="store_true",
+                    help="build the matmul ceiling's library only and run "
+                         "its checks and the roofline path's measurement (a "
+                         "short call while microbench.cu changes); no result "
+                         "line")
+    ap.add_argument("--compare_ceiling", metavar="DIR", default=None,
+                    help="with --only_ceiling: hold the ceiling bit for bit "
+                         "against DIR/microbench.cu's on integer operands "
+                         "and time both in turns at the JAX defaults")
     opts = ap.parse_args(argv)
 
     import torch
@@ -2236,6 +2507,7 @@ def main(argv=None) -> int:
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",)) if opts.only_fwd
             else C.build_jobs() if opts.only_cem
+            else MB.build_jobs() if opts.only_ceiling
             else K.build_jobs() + C.build_jobs() + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
@@ -2245,9 +2517,15 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {line.strip()}", flush=True)
 
-    if not opts.only_cem:
-        sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
-                  else ("fwd",) if opts.only_fwd else ("fwd", "dx"))
+    (cem_job,), (mb_job,) = C.build_jobs(), MB.build_jobs()
+    sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
+              else ("fwd",) if opts.only_fwd
+              else () if opts.only_cem or opts.only_ceiling
+              else ("fwd", "dx"),
+              [(cem_job, "HMMA")] if opts.only_cem
+              else [(mb_job, "HGMMA")] if opts.only_ceiling
+              else [] if opts.only_bwd or opts.only_dx or opts.only_fwd
+              else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_dx:
         # the panel cotangent's libraries alone: its plans, every check and
@@ -2273,6 +2551,18 @@ def main(argv=None) -> int:
         if opts.compare_cem:
             compare_cem(torch, C, _nvcc, opts.compare_cem, card)
         print(f"[kernels] conditional-EM checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
+
+    if opts.only_ceiling:
+        # the matmul ceiling's library alone: its plans, checks and the
+        # roofline path's measurement, and (with --compare_ceiling) the
+        # kernel against an older source
+        t0 = time.perf_counter()
+        ceiling_checks(torch, MB, card)
+        if opts.compare_ceiling:
+            compare_ceiling(torch, MB, _nvcc, opts.compare_ceiling, card)
+        print(f"[kernels] matmul-ceiling checks passed in "
               f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
         return 0
 

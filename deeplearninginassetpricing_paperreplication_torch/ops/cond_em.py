@@ -21,9 +21,9 @@ is the only way to the plain route on the card.
 
 The forward and backward kernels launch at :func:`cem_plan`'s plan (the
 route, stock tile, members per block, threads, stages and shared memory,
-Python arithmetic that the kernel checks on the card); their f32 outputs
-keep the summation order of the one-thread-per-stock kernels they replaced,
-bit for bit.
+Python arithmetic that the kernel checks on the card), the panel cotangent
+at :func:`cem_dx_plan`'s; their f32 outputs keep the summation order of the
+one-thread-per-stock kernels they replaced, bit for bit.
 """
 
 from __future__ import annotations
@@ -128,14 +128,18 @@ def _load() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 12
                                         + [ctypes.c_longlong, ctypes.c_void_p])
             lib.cond_em_dx.argtypes = ([ctypes.c_void_p] * 7
-                                       + [ctypes.c_int] * 6
-                                       + [ctypes.c_void_p])
+                                       + [ctypes.c_int] * 10
+                                       + [ctypes.c_longlong, ctypes.c_void_p])
             lib.cond_em_plan_info.argtypes = (
                 [ctypes.c_int] * 14 + [ctypes.c_longlong,
                                        ctypes.POINTER(ctypes.c_int)])
+            lib.cond_em_dx_plan_info.argtypes = (
+                [ctypes.c_int] * 10 + [ctypes.c_longlong,
+                                       ctypes.POINTER(ctypes.c_int)])
             lib.cond_em_registers.argtypes = [ctypes.c_int] * 6
             for fn in (lib.cond_em_fwd, lib.cond_em_bwd, lib.cond_em_dx,
-                       lib.cond_em_plan_info, lib.cond_em_registers):
+                       lib.cond_em_plan_info, lib.cond_em_dx_plan_info,
+                       lib.cond_em_registers):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -409,8 +413,131 @@ def cem_plan(S: int, T: int, N: int, F: int, K: int, sms: int,
     return CemPlans(fwd, best[1])
 
 
+# csrc/cond_em.cu's panel cotangent: a persistent grid of G blocks walking
+# (stock tile, period) cells, two panel tiles in flight. Route 0 (CUDA
+# cores): phase A items of RT member-moments × 4 stocks, phase B items of
+# DX_FEATURES features × 4 stocks, dealt out to the block's threads; route 1
+# (bf16 tensor cores, F ≤ MMA_MAX_F): one warp per 16 stocks.
+DX_STAGES = 2
+DX_FEATURES = 6
+DX_TILES = (32, 64, 96, 128)
+DX_MMA_TILES = (32, 64, 128)
+DX_MAX_THREADS = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class CemDxPlan:
+    """The panel cotangent's launch: route (0 CUDA cores, 1 bf16 tensor
+    cores), stocks per cell, threads per block, the panel tiles in flight,
+    shared memory per block, the resident blocks per SM that shared memory,
+    threads and (where known) registers allow, and G persistent blocks over
+    the T·⌈N/tile⌉ cells."""
+
+    route: int
+    tile: int
+    threads: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+    G: int
+    cells: int
+
+
+def dx_route(F: int, compute_dtype: str) -> int:
+    """Route 1 (bf16 on the tensor cores) where F ≤ MMA_MAX_F, else 0."""
+    return 1 if compute_dtype == "bfloat16" and F <= MMA_MAX_F else 0
+
+
+def dx_geometry(route: int, S: int, F: int, K: int, tile: int) -> int:
+    """Shared-memory floats of the panel cotangent, as csrc/cond_em.cu's
+    dx_geometry counts them. Route 0: kT [S][⌈F/6⌉·6][⌈K/4⌉·4], the panel
+    tiles [2][F][tile], xr [2][S][tile], dpre [S·⌈K/4⌉·4][tile]. Route 1
+    (words): kT twice in bf16, [RP][16·KS + 8] and [16·KS][RP + 8] with RP =
+    ⌈S·K/16⌉·16 and KS = ⌈F/16⌉, the member of each of the RP rows, the
+    panel tiles [2][16·KS][tile + 4], xr and the period's zp_m [2][RP]."""
+    if route == 1:
+        rp, ks = _pad(S * K, 16), -(-F // 16)
+        return (rp * (8 * ks + 4) + 16 * ks * (rp // 2 + 4) + rp
+                + DX_STAGES * (16 * ks * (tile + 4) + S * tile + rp))
+    kp = _pad(K, 4)
+    return (S * _pad(F, DX_FEATURES) * kp + DX_STAGES * (F + S) * tile
+            + S * kp * tile)
+
+
+def dx_balance(S: int, F: int, K: int, tile: int, threads: int) -> float:
+    """Route 0's share of a block's thread-time that does work: phase A's
+    items (RT·4·F FMAs each) and phase B's (DX_FEATURES·4·S·⌈K/4⌉·4) are
+    dealt out in rounds of `threads`."""
+    kp, rt, spt = _pad(K, 4), fwd_rt(K), tile // 4
+    items = ((S * (kp // rt) * spt, 4 * rt * F),
+             (-(-F // DX_FEATURES) * spt, 4 * DX_FEATURES * S * kp))
+    work = sum(n * w for n, w in items)
+    return work / (threads * sum(-(-n // threads) * w for n, w in items))
+
+
+def cem_dx_plan(S: int, T: int, N: int, F: int, K: int, sms: int,
+                compute_dtype: str = "float32",
+                registers: Optional[Dict[int, int]] = None,
+                tile: Optional[int] = None) -> CemDxPlan:
+    """The panel cotangent's launch plan on a card of `sms` SMs.
+
+    Of the stock tiles (and, on route 0, block sizes of whole warps up to
+    the larger phase's items) whose shared memory fits, the one that keeps
+    the most threads busy per SM: blocks × threads, × the share of the last
+    round of cells that G = min(cells, blocks · sms) blocks fill, × on
+    route 0 :func:`dx_balance`, taken to two significant figures (the
+    balance is no finer); then more blocks (one block's barriers are
+    hidden by the others), then the larger tile, then fewer threads.
+    `registers` ({route: registers per thread}, as the built library
+    reports them) bounds the blocks per SM too; `tile` forces one stock
+    tile. Raises if nothing fits."""
+    _check_dtype(compute_dtype)
+    if not 1 <= K <= MAX_MOMENTS:
+        raise ValueError(f"cond_em: K must be in [1, {MAX_MOMENTS}]; got {K}")
+    route = dx_route(F, compute_dtype)
+    regs = (registers or {}).get(route, 0)
+    best = None
+    for bn in (tile,) if tile else DX_MMA_TILES if route else DX_TILES:
+        if bn % (16 if route else 4):
+            continue
+        if route:
+            counts = (2 * bn,)
+        else:
+            most = max(S * (_pad(K, 4) // fwd_rt(K)), -(-F // DX_FEATURES))
+            counts = range(64, min(DX_MAX_THREADS, _pad(most * bn // 4, 32))
+                           + 1, 32)
+        smem = 4 * dx_geometry(route, S, F, K, bn)
+        if smem > MAX_SMEM:
+            continue
+        cells = T * -(-N // bn)
+        for threads in counts:
+            if threads > DX_MAX_THREADS:
+                continue
+            blocks = _resident(smem, threads, regs)
+            if blocks < 1:
+                continue
+            G = min(cells, blocks * sms)
+            fill = cells / (G * -(-cells // G))
+            busy = blocks * threads * fill
+            if route:
+                busy = round(busy, 6)
+            else:  # to two significant figures: the balance is no finer
+                busy = float(f"{busy * dx_balance(S, F, K, bn, threads):.2g}")
+            key = (busy, blocks, bn, -threads)
+            if best is None or key > best[0]:
+                best = (key, CemDxPlan(route, bn, threads, DX_STAGES, smem,
+                                       blocks, G, cells))
+    if best is None:
+        raise ValueError(f"cond_em_dx: F = {F}, K = {K} at S = {S} does not "
+                         "fit the kernel's shared memory"
+                         + (f" at tile {tile}" if tile else ""))
+    return best[1]
+
+
 _regs: Dict[tuple, Dict[tuple, int]] = {}
 _plans: Dict[tuple, CemPlans] = {}
+_dx_regs: Dict[tuple, Dict[int, int]] = {}
+_dx_plans: Dict[tuple, CemDxPlan] = {}
 
 
 def card_cem_plan(dev, S: int, T: int, N: int, F: int, K: int,
@@ -463,6 +590,50 @@ def plan_info(plan: CemPlan, S: int, T: int, N: int, F: int, K: int,
     if rc != 0:
         raise RuntimeError(f"cond_em_{plan.kernel} refused the plan {plan} "
                            f"(code {rc})")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
+
+
+def card_cem_dx_plan(dev, S: int, T: int, N: int, F: int, K: int,
+                     compute_dtype: str,
+                     tile: Optional[int] = None) -> CemDxPlan:
+    """:func:`cem_dx_plan` for the card `dev`: its SM count, and the
+    registers of the library's kernel instance at (F, K, dtype); kept per
+    shape. Each plan is checked on the card once, before its first launch
+    (:func:`dx_plan_info`): one that the kernel refuses, or whose blocks the
+    card does not keep resident, raises."""
+    key = (dev, S, T, N, F, K, compute_dtype, tile)
+    plan = _dx_plans.get(key)
+    if plan is None:
+        bf16 = int(compute_dtype == "bfloat16")
+        route = dx_route(F, compute_dtype)
+        rkey = (F, K, bf16)
+        if rkey not in _dx_regs:
+            r = _load().cond_em_registers(2, F, K, bf16, route, 0)
+            _dx_regs[rkey] = {route: r} if r > 0 else {}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = cem_dx_plan(S, T, N, F, K, sms, compute_dtype, _dx_regs[rkey],
+                           tile)
+        with torch.cuda.device(dev):
+            held = dx_plan_info(plan, S, T, N, F, K, compute_dtype)
+        if held["blocks_per_sm"] < plan.blocks_per_sm:
+            raise RuntimeError(f"cond_em_dx: the card keeps "
+                               f"{held['blocks_per_sm']} blocks per SM of "
+                               f"the plan {plan}")
+        _dx_plans[key] = plan
+    return plan
+
+
+def dx_plan_info(plan: CemDxPlan, S: int, T: int, N: int, F: int, K: int,
+                 compute_dtype: str) -> Dict[str, int]:
+    """What the card makes of the panel cotangent's `plan` (the current CUDA
+    device), as :func:`plan_info` reports it. Raises for a plan the kernel
+    refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _load().cond_em_dx_plan_info(
+        S, T, F, N, K, int(compute_dtype == "bfloat16"), plan.route,
+        plan.tile, plan.threads, plan.G, plan.smem_bytes, out)
+    if rc != 0:
+        raise RuntimeError(f"cond_em_dx refused the plan {plan} (code {rc})")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
@@ -543,8 +714,10 @@ def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
     return dkT_part.sum(dim=1), dzpm_part.sum(dim=1), dxr
 
 
-def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
-    """The panel cotangent dx [T, F, N], summed over the members."""
+def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
+               plan: Optional[CemDxPlan] = None):
+    """The panel cotangent dx [T, F, N], summed over the members; `plan`
+    defaults to :func:`card_cem_dx_plan` for this card."""
     global dx_launches
     kT = _round(kT, compute_dtype).contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
@@ -552,14 +725,19 @@ def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
     if tuple(gem.shape) != (S, K, N):
         raise ValueError(f"cond_em: gem must be {[S, K, N]}; got "
                          f"{list(gem.shape)}")
+    if plan is None:
+        plan = card_cem_dx_plan(dev, S, T, N, F, K, compute_dtype)
     dx = torch.empty((T, F, N), dtype=torch.float32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.cond_em_dx(
             x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
             kT.data_ptr(), gem.data_ptr(), dx.data_ptr(), S, T, F, N, K,
-            int(compute_dtype == "bfloat16"),
+            int(compute_dtype == "bfloat16"), plan.route, plan.tile,
+            plan.threads, plan.G, plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream)
+    if rc == -1:
+        raise RuntimeError(f"cond_em_dx refused the plan {plan}")
     _raise_rc("cond_em_dx", rc)
     dx_launches += 1
     return dx

@@ -79,19 +79,46 @@
 // fixed order). Ragged stock lanes read x = 0, xr = 0, tinv = 0 and gem =
 // 0, masked before any product (NaN·0 would otherwise leak in).
 //
-// The panel cotangent (cond_em_dx, below; unchanged) is
+// The panel cotangent (cond_em_dx, below) is
 //
 //   dx[t, f, n] = Σ_s Σ_k round(kT_s[k, f]) · round(dpre_s[t, k, n]),
 //   dpre = gem · xr · tinv · (1 − h²)
 //
-// summed over the members, who share the panel. It reads the panel once
-// per member and writes [T, F, N] once: bytes first, about 4 FLOP per byte
-// per member. One thread per (period, stock); every member's kT sits in
-// shared memory (9 × 8 × 46 floats ≈ 13 KB at the ensemble's shape),
-// transposed so that one float4 broadcast serves four moments, and each
-// thread stages its panel column in shared memory once for all members and
-// adds member s's K-term products into its own dx column there, members in
-// ascending order: no atomics, bitwise-equal repeated calls.
+// summed over the members, who share the panel. The first kernel ran one
+// thread per (period, stock) with its panel and dx columns in shared memory,
+// the members walked serially: 0.97 ms at S = 9 on an NVIDIA H100 80GB
+// HBM3 at 700 W, against a bound of 0.097 ms (the f32 FMA rate). The
+// redesign is a persistent grid of G resident blocks, each walking a
+// contiguous run of (stock tile, period) cells, the period innermost (gem
+// and tinv of a tile stay in the caches for its periods). A cell's panel tile [F][tile] and xr rows [S][tile] arrive by
+// cp.async (16 bytes a copy, 4 where N is not a multiple of 4) while the
+// previous cell computes, once for all members; every member's kT sits in
+// shared memory.
+//
+// * f32 (route 0): phase A recomputes pre for RT member-moments × 4 stocks a
+//   thread (two kT float4 broadcasts and one panel float4 per 32 FMAs), then
+//   h and dpre, which it writes to shared memory [S·KP][tile]; phase B gives
+//   each thread 6 features × 4 stocks of dx, and per member the fmaf chain
+//   over the KP moments (four dpre float4s and six kT float4s per 96 FMAs),
+//   added to the accumulator member by member; one float4 store of stocks
+//   per feature row. Every chain is the first kernel's: pre an fmaf chain
+//   over f from 0, v = gem·w·(1 − h²) with w = xr·tinv, member s's term an
+//   fmaf chain over k = 0..KP−1 from 0 (the padded moments' fmaf(0, 0, v)
+//   included, which turns −0 into +0), and dx = 0 + v_0 + v_1 + ... in
+//   member order: bit for bit the same dx.
+// * bf16 (route 1, F ≤ 64): one warp per 16 stocks. pre = panel · kT on
+//   mma.sync m16n8k16 (A = the panel slab rounded to bf16, B = the stacked
+//   kT of all members, r = s·K + k), two n tiles at a time; the epilogue
+//   adds zp_m, takes tanhf, forms dpre and rounds it to bf16, and the two
+//   accumulator tiles are, as they stand in the registers, the A fragment of
+//   one k step of dx = dpre · kTᵀ (contracted over all S·K member-moments,
+//   padded to 16), on mma.sync again. The dx tile goes through the warp's
+//   own columns of the spent panel slab, and the block stores [F][tile]
+//   rows coalesced.
+//
+// No float atomics: two calls are bitwise-equal. The launch plan (route,
+// tile, threads, shared memory, resident blocks, G) is
+// ops/cond_em.py::cem_dx_plan's, checked here as the others are.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1015,102 +1042,409 @@ cond_em_bwd_mma(const float* __restrict__ x, const float* __restrict__ zpm,
 
 // -- panel cotangent --------------------------------------------------------------
 
-constexpr int kDxThreads = 128;
+constexpr int kDxMaxThreads = 512;  // launch bounds: ≤ 128 registers
+constexpr int kDxStages = 2;        // panel tiles: one computes, one lands
+constexpr int kDxFeatures = 6;      // route 0's dx tile: 6 features × 4 stocks
 
-// the dx kernel's shared memory: every member's kT transposed and padded to
-// kp = ⌈K/4⌉·4 moments ([S][F][kp], one float4 broadcast per 4 moments),
-// then this block's panel tile and dx columns ([F][kDxThreads] each)
-inline size_t dx_smem_floats(int S, int F, int K) {
-  return (size_t)S * F * ((K + 3) / 4 * 4) + (size_t)2 * F * kDxThreads;
+__host__ __device__ constexpr int pad16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ constexpr int pad6(int v) { return (v + 5) / 6 * 6; }
+
+// a cell c of the (stock tile, period) walk, the period innermost
+struct DxCell {
+  int t, n0;
+};
+
+__device__ __forceinline__ DxCell dx_cell(int c, int T, int tile) {
+  return DxCell{c % T, c / T * tile};
 }
 
-__global__ void __launch_bounds__(kDxThreads)
-cond_em_dx_kernel(const float* __restrict__ x, const float* __restrict__ zpm,
-                  const float* __restrict__ xr,
-                  const float* __restrict__ tinv,
-                  const float* __restrict__ kT, const float* __restrict__ gem,
-                  float* __restrict__ dx, int S, int T, int F, int N, int K,
-                  int bf16) {
+// this block's contiguous run of cells [c0, c1) of `cells`, split evenly
+__device__ __forceinline__ void dx_run(int cells, int& c0, int& c1) {
+  c0 = (int)((long long)blockIdx.x * cells / gridDim.x);
+  c1 = (int)((long long)(blockIdx.x + 1) * cells / gridDim.x);
+}
+
+// four consecutive floats p[0..3] of a row, where only `left` of them lie
+// before the row's end N (zero past it): a float4 load where the row is
+// 16-byte aligned and whole
+__device__ __forceinline__ float4 ldg4(const float* p, int left, bool vec) {
+  if (vec && left >= 4) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(left > 0 ? __ldg(p) : 0.f, left > 1 ? __ldg(p + 1) : 0.f,
+                     left > 2 ? __ldg(p + 2) : 0.f,
+                     left > 3 ? __ldg(p + 3) : 0.f);
+}
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Route 0. Shared memory: kT [S][pad6(F)][KP] (rounded by the wrapper;
+// features past F and moments past K zero), the panel tiles [2][F][tile],
+// the xr rows [2][S][tile], dpre [S·KP][tile]. Phase A: item (member s,
+// moments k0..k0 + RT, stocks 4·sc..) recomputes pre, h and dpre; phase B:
+// item (features 6·fg.., stocks 4·sc..) forms that dx tile over all members.
+// Items are dealt out to the block's threads in turn.
+template <int RT, bool BF16>
+__global__ void __launch_bounds__(kDxMaxThreads, 1)
+cond_em_dx_cores(const float* __restrict__ x, const float* __restrict__ zpm,
+                 const float* __restrict__ xr, const float* __restrict__ tinv,
+                 const float* __restrict__ kT, const float* __restrict__ gem,
+                 float* __restrict__ dx, int S, int T, int F, int N, int K,
+                 int tile, int cells) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const int kp = (K + 3) / 4 * 4;
-  float* kTs = sm;  // [S][F][kp], already rounded; moments past K are 0
-  const int t = blockIdx.y, tid = threadIdx.x;
-  float* xs = sm + (size_t)S * F * kp + tid;  // this thread's panel column
-  float* dxs = xs + (size_t)F * kDxThreads;   // this thread's dx column
-  for (int i = tid; i < S * F * kp; i += blockDim.x) {
-    const int s = i / (F * kp), f = (i / kp) % F, k = i % kp;
-    kTs[i] = k < K ? kT[((size_t)s * K + k) * F + f] : 0.f;
+  const int KP = pad4(K), FP = pad6(F), chunks = KP / RT, spt = tile / 4;
+  float* kTs = sm;
+  float* xs = kTs + S * FP * KP;
+  float* xrs = xs + kDxStages * F * tile;
+  float* dps = xrs + kDxStages * S * tile;
+  const bool vec = (N & 3) == 0;
+  int c0, c1;
+  dx_run(cells, c0, c1);
+  for (int i = 0; i < kDxStages; ++i) {  // cells c0 and c0 + 1 in flight
+    if (c0 + i < c1) {
+      const DxCell cl = dx_cell(c0 + i, T, tile);
+      fwd_load(xs + i * F * tile, tile, xrs + i * S * tile, x, xr, cl.t,
+               cl.n0, 0, S, S, T, F, N, tile);
+    }
+    cp_async_commit();
   }
-  const int n = blockIdx.x * kDxThreads + tid;
-  const bool valid = n < N;
-  const float* xt = x + (size_t)t * F * N + n;
-  for (int f = 0; f < F; ++f) {
-    const float xf = valid ? __ldg(xt + (size_t)f * N) : 0.f;
-    xs[f * kDxThreads] = bf16 ? round_bf16(xf) : xf;
-    dxs[f * kDxThreads] = 0.f;
+  for (int i = threadIdx.x; i < S * FP * KP; i += blockDim.x) {
+    const int s = i / (FP * KP), f = (i / KP) % FP, k = i % KP;
+    kTs[i] = f < F && k < K ? kT[((size_t)s * K + k) * F + f] : 0.f;
   }
-  __syncthreads();
-  const float tv = valid ? tinv[n] : 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float4* ks = reinterpret_cast<const float4*>(kTs + (size_t)s * F * kp);
-    const int q = kp / 4;  // float4s per feature row
-    // recompute h, then dpre = gem · xr · tinv · (1 − h²), rounded
-    float pre[kMaxK];
+  const int itemsA = S * chunks * spt, itemsB = FP / kDxFeatures * spt;
+  for (int c = c0, it = 0; c < c1; ++c, ++it) {
+    const int b = it & 1;
+    const DxCell cl = dx_cell(c, T, tile);
+    cp_async_wait(1);
+    __syncthreads();  // cell c has landed; phase B of c − 1 is done
+    const float* xb = xs + b * F * tile;
+    const float* xrb = xrs + b * S * tile;
+    // -- phase A: pre, h and dpre for RT member-moments × 4 stocks ---------
+    for (int i = threadIdx.x; i < itemsA; i += blockDim.x) {
+      const int sc = i % spt, rc = i / spt, s = rc / chunks;
+      const int k0 = rc % chunks * RT, n = cl.n0 + 4 * sc;
+      const float4 tv = ldg4(tinv + n, N - n, vec);
+      float4 gm[RT];
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) pre[k] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float xf = xs[f * kDxThreads];
+      for (int r = 0; r < RT; ++r)
+        gm[r] = k0 + r < K ? ldg4(gem + ((size_t)s * K + k0 + r) * N + n,
+                                  N - n, vec)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      float pre[RT][4];
 #pragma unroll
-      for (int k = 0; k < kMaxK; k += 4) {
-        if (k < kp) {
-          const float4 w = ks[f * q + k / 4];
-          pre[k] = fmaf(w.x, xf, pre[k]);
-          pre[k + 1] = fmaf(w.y, xf, pre[k + 1]);
-          pre[k + 2] = fmaf(w.z, xf, pre[k + 2]);
-          pre[k + 3] = fmaf(w.w, xf, pre[k + 3]);
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pre[r][j] = 0.f;
+      const float4* kb =
+          reinterpret_cast<const float4*>(kTs + (size_t)s * FP * KP + k0);
+#pragma unroll 2
+      for (int f = 0; f < F; ++f) {
+        float4 xv = reinterpret_cast<const float4*>(xb + f * tile)[sc];
+        if constexpr (BF16)
+          xv = make_float4(round_bf16(xv.x), round_bf16(xv.y),
+                           round_bf16(xv.z), round_bf16(xv.w));
+#pragma unroll
+        for (int q = 0; q < RT / 4; ++q) {
+          const float4 w = kb[f * (KP / 4) + q];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float xj = f4(xv, j);
+            pre[4 * q][j] = fmaf(w.x, xj, pre[4 * q][j]);
+            pre[4 * q + 1][j] = fmaf(w.y, xj, pre[4 * q + 1][j]);
+            pre[4 * q + 2][j] = fmaf(w.z, xj, pre[4 * q + 2][j]);
+            pre[4 * q + 3][j] = fmaf(w.w, xj, pre[4 * q + 3][j]);
+          }
+        }
+      }
+      const float4 xv = reinterpret_cast<const float4*>(xrb + s * tile)[sc];
+      float w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = f4(xv, j) * f4(tv, j);
+      const float* z = zpm + ((size_t)s * T + cl.t) * K;
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        float dp[4] = {0.f, 0.f, 0.f, 0.f};
+        if (k0 + r < K) {
+          const float zk = __ldg(z + k0 + r);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float h = tanhf(pre[r][j] + zk);
+            const float gmj = f4(gm[r], j);
+            const float v = gmj * w[j] * (1.f - h * h);
+            dp[j] = BF16 ? round_bf16(v) : v;
+          }
+        }
+        reinterpret_cast<float4*>(dps + (size_t)(s * KP + k0 + r) * tile)[sc] =
+            make_float4(dp[0], dp[1], dp[2], dp[3]);
+      }
+    }
+    __syncthreads();  // dpre is complete; the panel tile b is spent
+    if (c + kDxStages < c1) {
+      const DxCell nx = dx_cell(c + kDxStages, T, tile);
+      fwd_load(xs + b * F * tile, tile, xrs + b * S * tile, x, xr, nx.t,
+               nx.n0, 0, S, S, T, F, N, tile);
+    }
+    cp_async_commit();
+    // -- phase B: dx[f, n] = Σ_s (Σ_k kT[s,k,f] · dpre[s,k,n]) -------------
+    for (int i = threadIdx.x; i < itemsB; i += blockDim.x) {
+      const int sc = i % spt, f0 = i / spt * kDxFeatures;
+      float acc[kDxFeatures][4];
+#pragma unroll
+      for (int a = 0; a < kDxFeatures; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+      for (int s = 0; s < S; ++s) {
+        float v[kDxFeatures][4];
+#pragma unroll
+        for (int a = 0; a < kDxFeatures; ++a)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[a][j] = 0.f;
+        const float4* kb = reinterpret_cast<const float4*>(
+            kTs + ((size_t)s * FP + f0) * KP);
+        const float4* db =
+            reinterpret_cast<const float4*>(dps + (size_t)s * KP * tile) + sc;
+        for (int kq = 0; kq < KP / 4; ++kq) {
+          float4 d[4], kv[kDxFeatures];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[e] = db[(4 * kq + e) * spt];
+#pragma unroll
+          for (int a = 0; a < kDxFeatures; ++a) kv[a] = kb[a * (KP / 4) + kq];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int a = 0; a < kDxFeatures; ++a)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                v[a][j] = fmaf(f4(kv[a], e), f4(d[e], j), v[a][j]);
+        }
+#pragma unroll
+        for (int a = 0; a < kDxFeatures; ++a)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[a][j] += v[a][j];
+      }
+      const int n = cl.n0 + 4 * sc, left = N - n;
+#pragma unroll
+      for (int a = 0; a < kDxFeatures; ++a) {
+        if (f0 + a >= F || left <= 0) continue;
+        float* o = dx + ((size_t)cl.t * F + f0 + a) * N + n;
+        if (vec && left >= 4) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < left) o[j] = acc[a][j];
         }
       }
     }
-    const float w = (valid ? xr[((size_t)s * T + t) * N + n] : 0.f) * tv;
-    const float* z = zpm + ((size_t)s * T + t) * K;
-    float dp[kMaxK];
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      dp[k] = 0.f;
-      if (k < K) {
-        const float h = tanhf(pre[k] + z[k]);
-        const float gm = valid ? gem[((size_t)s * K + k) * N + n] : 0.f;
-        const float v = gm * w * (1.f - h * h);
-        dp[k] = bf16 ? round_bf16(v) : v;
-      }
-    }
-    // dx[f] += Σ_k kT[k, f] · dpre[k]  (padded moments add 0 · 0)
-    for (int f = 0; f < F; ++f) {
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < kMaxK; k += 4) {
-        if (k < kp) {
-          const float4 w4 = ks[f * q + k / 4];
-          v = fmaf(w4.x, dp[k], v);
-          v = fmaf(w4.y, dp[k + 1], v);
-          v = fmaf(w4.z, dp[k + 2], v);
-          v = fmaf(w4.w, dp[k + 3], v);
-        }
-      }
-      dxs[f * kDxThreads] += v;
-    }
   }
-  if (valid)
-    for (int f = 0; f < F; ++f)
-      dx[(size_t)t * F * N + (size_t)f * N + n] = dxs[f * kDxThreads];
 }
 
-int set_smem(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  if (smem > 227 * 1024) return kUnsupported;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Route 1 (bf16, F ≤ 64): tile / 16 warps, warp w on stocks 16·w.. of the
+// tile. Shared memory (32-bit words): kT in the first product's B layout,
+// bf16 [RP][16·KS + 8] (row r = s·K + k, features contiguous), and in the
+// second's, bf16 [16·KS][RP + 8] (row f, member-moments contiguous), RP =
+// pad16(S·K), rows padded so that a fragment load's 8 rows × 4 words hit 32
+// banks; the member of each r [RP]; the panel slabs [2][16·KS][tile + 4]
+// (rows past F zero), the xr rows [2][S][tile] and the period's zp_m
+// [2][RP] (past S·K zero).
+template <int KS>
+__global__ void __launch_bounds__(kDxMaxThreads, 1)
+cond_em_dx_mma(const float* __restrict__ x, const float* __restrict__ zpm,
+               const float* __restrict__ xr, const float* __restrict__ tinv,
+               const float* __restrict__ kT, const float* __restrict__ gem,
+               float* __restrict__ dx, int S, int T, int F, int N, int K,
+               int tile, int cells) {
+  constexpr int FN = 2 * KS;  // dx's n tiles of 8 features
+  extern __shared__ float4 sm4[];
+  uint32_t* smw = reinterpret_cast<uint32_t*>(sm4);
+  const int R = S * K, RP = pad16(R), aw = 8 * KS + 4, bw = RP / 2 + 4;
+  const int xst = tile + 4, xsz = 16 * KS * xst;
+  uint32_t* ka = smw;           // [RP][aw]
+  uint32_t* kb = ka + RP * aw;  // [16·KS][bw]
+  int* mem = reinterpret_cast<int*>(kb + 16 * KS * bw);  // [RP]
+  float* xs = reinterpret_cast<float*>(mem + RP);
+  float* xrs = xs + kDxStages * xsz;
+  float* zs = xrs + kDxStages * S * tile;
+  // stage cell c into buffer i: the panel slab, the xr rows, zp_m[:, t, :]
+  auto stage = [&](int c, int i) {
+    const DxCell cl = dx_cell(c, T, tile);
+    fwd_load(xs + i * xsz, xst, xrs + i * S * tile, x, xr, cl.t, cl.n0, 0, S,
+             S, T, F, N, tile);
+    for (int r = threadIdx.x; r < RP; r += blockDim.x) {
+      const int sr = r / K;
+      cp_async4(zs + i * RP + r,
+                r < R ? zpm + ((size_t)sr * T + cl.t) * K + (r - sr * K)
+                      : zpm,
+                r < R);
+    }
+  };
+  int c0, c1;
+  dx_run(cells, c0, c1);
+  if (c0 < c1) stage(c0, 0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kDxStages * (16 * KS - F) * xst;
+       i += blockDim.x) {
+    const int bi = i / ((16 * KS - F) * xst), e = i % ((16 * KS - F) * xst);
+    xs[bi * xsz + F * xst + e] = 0.f;
+  }
+  __nv_bfloat16* kab = reinterpret_cast<__nv_bfloat16*>(ka);
+  for (int i = threadIdx.x; i < RP * 2 * aw; i += blockDim.x) {
+    const int r = i / (2 * aw), f = i % (2 * aw);
+    kab[i] = __float2bfloat16_rn(r < R && f < F ? kT[(size_t)r * F + f] : 0.f);
+  }
+  __nv_bfloat16* kbb = reinterpret_cast<__nv_bfloat16*>(kb);
+  for (int i = threadIdx.x; i < 16 * KS * 2 * bw; i += blockDim.x) {
+    const int f = i / (2 * bw), r = i % (2 * bw);
+    kbb[i] = __float2bfloat16_rn(r < R && f < F ? kT[(size_t)r * F + f] : 0.f);
+  }
+  for (int r = threadIdx.x; r < RP; r += blockDim.x) mem[r] = r < R ? r / K : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, nl = 16 * warp + gid;
+  const bool vec = (N & 3) == 0;
+  for (int c = c0, it = 0; c < c1; ++c, ++it) {
+    const int b = it & 1;
+    const DxCell cl = dx_cell(c, T, tile);
+    __syncthreads();  // cell c − 1 is stored: its buffers b ^ 1 are free
+    if (c + 1 < c1) stage(c + 1, b ^ 1);
+    cp_async_commit();
+    cp_async_wait(1);
+    __syncthreads();  // cell c has landed
+    float* xb = xs + b * xsz;
+    const float* xrb = xrs + b * S * tile + nl;
+    const float* zb = zs + b * RP;
+    uint32_t a[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) x_frag(a[kk], xb + nl, kk, tig, xst);
+    const int n_lo = cl.n0 + nl, n_hi = n_lo + 8;
+    const float tv_lo = n_lo < N ? __ldg(tinv + n_lo) : 0.f;
+    const float tv_hi = n_hi < N ? __ldg(tinv + n_hi) : 0.f;
+    const float* g_lo = gem + (n_lo < N ? n_lo : 0);
+    const float* g_hi = gem + (n_hi < N ? n_hi : 0);
+    float acc[FN][4];
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int q = 0; q < RP / 16; ++q) {
+      // member-moments 16·q .. 16·q + 15 (n tiles 2q, 2q + 1): this thread's
+      // columns r = 16q + 8h + 2·tig (+ 1), stocks nl and nl + 8. Their
+      // gem, zp_m and w = xr · tinv first, then pre on the tensor cores
+      float gm[2][4], z[2][2], w[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const int r = 16 * q + 8 * h + 2 * tig + o;
+          const bool ok = r < R;
+          const int m = mem[r];
+          gm[h][o] = ok && n_lo < N ? __ldg(g_lo + (size_t)r * N) : 0.f;
+          gm[h][o + 2] = ok && n_hi < N ? __ldg(g_hi + (size_t)r * N) : 0.f;
+          z[h][o] = zb[r];
+          w[h][o] = xrb[m * tile] * tv_lo;
+          w[h][o + 2] = xrb[m * tile + 8] * tv_hi;
+        }
+      }
+      float p[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t* br = ka + (16 * q + 8 * h + gid) * aw + tig;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[h][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          mma_bf16(p[h], a[kk], br[8 * kk], br[8 * kk + 4]);
+      }
+      // dpre = gem · (xr · tinv) · (1 − h²), rounded to bf16: the two n
+      // tiles' accumulators are, as they stand, the A fragment of one k
+      // step of the second product
+      uint32_t pa[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float dp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hh = tanhf(p[h][e] + z[h][e & 1]);
+          dp[e] = gm[h][e] * w[h][e] * (1.f - hh * hh);
+        }
+        pa[2 * h] = pack_bf16(dp[0], dp[1]);      // stock nl
+        pa[2 * h + 1] = pack_bf16(dp[2], dp[3]);  // stock nl + 8
+      }
+      // dx += dpre[16 stocks × 16 r] · kT[16 r × 8 features], per n tile
+      const uint32_t* bq = kb + gid * bw + 8 * q + tig;
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        mma_bf16(acc[j], pa, bq[8 * j * bw], bq[8 * j * bw + 4]);
+    }
+    // the dx tile through this warp's own columns of the spent slab b
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = 8 * j + 2 * tig + (e & 1);
+        if (f < F) xb[f * xst + nl + (e >> 1) * 8] = acc[j][e];
+      }
+    }
+    __syncthreads();  // the dx tile [F][tile] is complete
+    const int q4 = tile / 4;
+    for (Walk wk = walk_start(q4); wk.r < F; walk_next(wk, q4)) {
+      const int n = cl.n0 + 4 * wk.c, left = N - n;
+      if (left <= 0) continue;
+      const float4 v = *reinterpret_cast<const float4*>(xb + wk.r * xst +
+                                                        4 * wk.c);
+      float* o = dx + ((size_t)cl.t * F + wk.r) * N + n;
+      if (vec && left >= 4) {
+        *reinterpret_cast<float4*>(o) = v;
+      } else {
+        for (int j = 0; j < 4 && j < left; ++j) o[j] = f4(v, j);
+      }
+    }
+  }
+}
+
+// The panel cotangent's plan: (route, tile, threads) → shared-memory floats,
+// or kUnsupported. Route 0: tile a multiple of 4, threads whole warps; route
+// 1 (bf16, F ≤ 64): tile a multiple of 16, one warp per 16 stocks.
+int dx_geometry(int S, int F, int K, int bf16, int route, int tile,
+                int threads, long long* floats) {
+  if (tile < 4 || threads < 32 || threads % 32 || threads > kDxMaxThreads)
+    return kUnsupported;
+  if (route == kRouteMma) {
+    if (!bf16 || F > kMmaMaxF || tile % 16 || threads != 2 * tile)
+      return kUnsupported;
+    const long long RP = pad16(S * K), ks = (F + 15) / 16;
+    *floats = RP * (8 * ks + 4) + 16 * ks * (RP / 2 + 4) + RP +
+              kDxStages * (16 * ks * (tile + 4) + (long long)S * tile + RP);
+    return 0;
+  }
+  if (route != kRouteCores || tile % 4) return kUnsupported;
+  const long long kp = pad4(K);
+  *floats = S * pad6(F) * kp + kDxStages * (long long)(F + S) * tile +
+            S * kp * tile;
+  return 0;
+}
+
+// the panel cotangent's kernel instance: route 0 by K (RT) and bf16, route
+// 1 by KS = ⌈F/16⌉
+const void* dx_kernel_of(int route, int F, int K, int bf16) {
+  if (route == kRouteMma) {
+    switch ((F + 15) / 16) {
+      case 1: return (const void*)cond_em_dx_mma<1>;
+      case 2: return (const void*)cond_em_dx_mma<2>;
+      case 3: return (const void*)cond_em_dx_mma<3>;
+      case 4: return (const void*)cond_em_dx_mma<4>;
+      default: return nullptr;
+    }
+  }
+  if (route != kRouteCores) return nullptr;
+  if (pad4(K) % 8)
+    return bf16 ? (const void*)cond_em_dx_cores<4, true>
+                : (const void*)cond_em_dx_cores<4, false>;
+  return bf16 ? (const void*)cond_em_dx_cores<8, true>
+              : (const void*)cond_em_dx_cores<8, false>;
 }
 
 bool bad_shape(int S, int T, int F, int N, int K, int groups) {
@@ -1120,7 +1454,7 @@ bool bad_shape(int S, int T, int F, int N, int K, int groups) {
 
 // -- plans (ops/cond_em.py::cem_plan computes them; this file checks them) ------
 
-enum { kFwd = 0, kBwd = 1 };
+enum { kFwd = 0, kBwd = 1, kDx = 2 };
 
 // the forward's kernel instance: route 0 at RT (from K) and var = CT stocks
 // per thread, route 1 at var = NT n tiles per warp and KS = ⌈F/16⌉ k steps
@@ -1281,16 +1615,34 @@ const void* checked_plan(int kernel, int S, int T, int F, int N, int K,
   return kern;
 }
 
+// the panel cotangent's kernel for a plan, after checking it against this
+// file: its shared bytes must be what the geometry gives, G at most the cells
+const void* checked_dx_plan(int S, int T, int F, int N, int K, int bf16,
+                            int route, int tile, int threads, int G,
+                            long long smem_bytes, int* cells) {
+  if (bad_shape(S, T, F, N, K, 1) || G < 1) return nullptr;
+  long long floats = 0;
+  if (dx_geometry(S, F, K, bf16, route, tile, threads, &floats) != 0 ||
+      4 * floats != smem_bytes || smem_bytes > kMaxSmem)
+    return nullptr;
+  const long long n = (long long)T * ((N + tile - 1) / tile);
+  if (n > 0x7fffffffLL || G > n) return nullptr;
+  *cells = (int)n;
+  return dx_kernel_of(route, F, K, bf16);
+}
+
 }  // namespace
 
 // Registers per thread of a kernel instance (kernel 0 forward: route, var as
 // in the plan; kernel 1 backward: route 0 by K, bf16 and var, route 1 at
-// var = NT n tiles per warp), or -1.
+// var = NT n tiles per warp; kernel 2 the panel cotangent: route 0 by K and
+// bf16, route 1 by F, var unused), or -1.
 extern "C" int cond_em_registers(int kernel, int F, int K, int bf16,
                                  int route, int var) {
   if (F < 1 || K < 1 || K > kMaxK) return kUnsupported;
   const void* kern = kernel == kFwd ? fwd_kernel_of(route, F, K, var, bf16)
                      : kernel == kBwd ? bwd_kernel_of(route, F, K, var, bf16)
+                     : kernel == kDx  ? dx_kernel_of(route, F, K, bf16)
                                       : nullptr;
   if (kern == nullptr) return kUnsupported;
   cudaFuncAttributes attr;
@@ -1372,21 +1724,41 @@ extern "C" int cond_em_bwd(const float* x, const float* zpm, const float* xr,
                                static_cast<cudaStream_t>(stream));
 }
 
+
+// What the card makes of a panel-cotangent plan (route, stock tile,
+// threads, G, shared bytes): out as cond_em_plan_info's. Returns 0, a
+// cudaError_t value, or -1 for a plan this file refuses.
+extern "C" int cond_em_dx_plan_info(int S, int T, int F, int N, int K,
+                                    int bf16, int route, int tile,
+                                    int threads, int G, long long smem_bytes,
+                                    int* out) {
+  int cells = 0;
+  const void* kern = checked_dx_plan(S, T, F, N, K, bf16, route, tile,
+                                     threads, G, smem_bytes, &cells);
+  if (kern == nullptr) return kUnsupported;
+  return kernel_info(kern, threads, (size_t)smem_bytes, &out[0], &out[1],
+                     &out[2]);
+}
+
 // dx [T, F, N] (fully written). kT [S, K, F] is already rounded to the
-// compute dtype. One block per (128-stock tile, period). Returns 0, a
-// cudaError_t value, or -1 for an unsupported shape (shared memory holds
-// every member's kT and two [F] columns per thread).
+// compute dtype. The plan (route 0 CUDA cores or 1 bf16 tensor cores, stock
+// tile, threads, G persistent blocks, shared bytes) comes from
+// ops/cond_em.py::cem_dx_plan, checked on the card by cond_em_dx_plan_info;
+// one that disagrees with this file is refused. Returns 0, a cudaError_t
+// value, or -1 for an unsupported shape or plan.
 extern "C" int cond_em_dx(const float* x, const float* zpm, const float* xr,
                           const float* tinv, const float* kT,
                           const float* gem, float* dx, int S, int T, int F,
-                          int N, int K, int bf16, void* stream) {
-  if (bad_shape(S, T, F, N, K, 1) || T > 65535) return kUnsupported;
-  const size_t smem = sizeof(float) * dx_smem_floats(S, F, K);
-  int rc = set_smem((const void*)cond_em_dx_kernel, smem);
-  if (rc != 0) return rc;
-  dim3 grid((unsigned)((N + kDxThreads - 1) / kDxThreads), (unsigned)T);
-  cond_em_dx_kernel<<<grid, kDxThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, zpm, xr, tinv, kT, gem, dx, S, T, F, N, K, bf16);
-  return (int)cudaGetLastError();
+                          int N, int K, int bf16, int route, int tile,
+                          int threads, int G, long long smem_bytes,
+                          void* stream) {
+  int cells = 0;
+  const void* kern = checked_dx_plan(S, T, F, N, K, bf16, route, tile,
+                                     threads, G, smem_bytes, &cells);
+  if (kern == nullptr) return kUnsupported;
+  void* args[] = {&x, &zpm, &xr, &tinv, &kT, &gem, &dx, &S, &T, &F, &N, &K,
+                  &tile, &cells};
+  return (int)cudaLaunchKernel(kern, dim3(G), dim3(threads), args,
+                               (size_t)smem_bytes,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -138,3 +138,95 @@ def test_stages_and_instances(S, cd):
 def test_an_unknown_dtype_raises():
     with pytest.raises(ValueError, match="compute_dtype"):
         C.cem_plan(9, 48, 10000, 46, 8, SMS, "float16")
+
+
+# -- the panel cotangent's plan (ops/cond_em.py::cem_dx_plan) -----------------
+
+DX_PLAN_SHAPES = list(itertools.product((1, 3, 9), (4, 8, 16), (10, 46, 80)))
+DX_IDS = [f"S{s}-K{k}-F{f}" for s, k, f in DX_PLAN_SHAPES]
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,K,F", DX_PLAN_SHAPES, ids=DX_IDS)
+def test_dx_plan_fits_and_fills_whole_waves(S, K, F, cd):
+    T, N = 48, 10000
+    p = C.cem_dx_plan(S, T, N, F, K, SMS, cd)
+    assert p.smem_bytes <= BLOCK_SMEM_LIMIT
+    assert p.smem_bytes == 4 * C.dx_geometry(p.route, S, F, K, p.tile)
+    assert p.blocks_per_sm >= 1
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= SM_SMEM
+    assert p.blocks_per_sm * p.threads <= 2048 and p.threads % 32 == 0
+    # a persistent grid of whole waves: every block resident at once
+    assert p.cells == T * -(-N // p.tile)
+    assert p.G == min(p.cells, p.blocks_per_sm * SMS)
+    assert p.stages == C.DX_STAGES == 2
+    # bf16 products on the tensor cores where the k steps allow
+    assert p.route == (1 if cd == "bfloat16" and F <= C.MMA_MAX_F else 0)
+    if p.route == 1:
+        assert p.tile in C.DX_MMA_TILES and p.threads == 2 * p.tile
+    else:
+        assert p.tile in C.DX_TILES and p.threads <= C.DX_MAX_THREADS
+        assert 0 < C.dx_balance(S, F, K, p.tile, p.threads) <= 1
+
+
+def test_dx_plan_of_the_panel_gradient():
+    """The panel-gradient path's plans (S = 9, T = 48, N = 10,000, F = 46,
+    K = 8): f32 on the CUDA cores, without a register bound 128-stock cells
+    of nine warps whose phases (9 × 32 pre items, 8 × 32 dx tiles) each
+    take one round; at the 122 registers the card reported, which hold 16
+    warps an SM, three blocks of five warps on 64-stock cells; bf16 on the
+    tensor cores, a warp per 16 stocks, two blocks an SM."""
+    f32 = C.cem_dx_plan(9, 48, 10000, 46, 8, SMS, "float32")
+    assert (f32.route, f32.tile, f32.threads, f32.blocks_per_sm, f32.G,
+            f32.cells) == (0, 128, 288, 2, 264, 3792)
+    assert f32.smem_bytes == 4 * (9 * 48 * 8 + 2 * (46 + 9) * 128
+                                  + 72 * 128)
+    card = C.cem_dx_plan(9, 48, 10000, 46, 8, SMS, "float32", {0: 122})
+    assert (card.tile, card.threads, card.blocks_per_sm, card.G) == (
+        64, 160, 3, 396)
+    bf = C.cem_dx_plan(9, 48, 10000, 46, 8, SMS, "bfloat16")
+    assert (bf.route, bf.tile, bf.threads, bf.blocks_per_sm, bf.G) == (
+        1, 128, 256, 2, 264)
+    # kT twice in bf16 (80 rows of 28 words, 48 rows of 44), the members of
+    # the 80 rows, two panel slabs [48][132], xr rows [9][128] and zp_m [80]
+    assert bf.smem_bytes == 4 * (80 * 28 + 48 * 44 + 80 + 2 * (
+        48 * 132 + 9 * 128 + 80))
+
+
+def test_dx_registers_bound_the_resident_blocks():
+    free = C.cem_dx_plan(9, 48, 10000, 46, 8, SMS, "bfloat16")
+    tight = C.cem_dx_plan(9, 48, 10000, 46, 8, SMS, "bfloat16",
+                          registers={1: 168}, tile=free.tile)
+    assert tight.blocks_per_sm < free.blocks_per_sm
+    assert tight.G == tight.blocks_per_sm * SMS
+    # another route's registers do not bind
+    assert C.cem_dx_plan(9, 48, 10000, 46, 8, SMS, "bfloat16",
+                         registers={0: 255}) == free
+
+
+def test_dx_balance_counts_rounds():
+    # 144 pre items and 128 dx tiles on 160 threads: one round each
+    assert C.dx_balance(9, 46, 4, 64, 160) == pytest.approx(
+        (144 * 4 * 4 * 46 + 128 * 24 * 9 * 4) / (160 * (4 * 4 * 46
+                                                          + 24 * 9 * 4)))
+    # on 128 threads phase A takes two rounds
+    assert C.dx_balance(9, 46, 8, 64, 128) < C.dx_balance(9, 46, 8, 64, 160)
+
+
+@pytest.mark.parametrize("kw", [dict(F=5000), dict(K=17), dict(K=0),
+                                dict(tile=102), dict(tile=4096),
+                                dict(F=5000, cd="bfloat16")],
+                         ids=["wide-F", "K17", "K0", "tile102", "tile4096",
+                              "wide-F-bf16"])
+def test_a_dx_shape_that_cannot_fit_raises(kw):
+    with pytest.raises(ValueError):
+        C.cem_dx_plan(9, 48, 10000, kw.get("F", 46), kw.get("K", 8), SMS,
+                      kw.get("cd", "float32"), tile=kw.get("tile"))
+
+
+@pytest.mark.parametrize("F", [46, 64, 65, 80])
+def test_dx_bf16_past_64_features_takes_the_cuda_cores(F):
+    assert C.dx_route(F, "bfloat16") == (1 if F <= 64 else 0)
+    assert C.dx_route(F, "float32") == 0
+    assert C.cem_dx_plan(3, 12, 1001, F, 8, SMS, "bfloat16").route == (
+        1 if F <= 64 else 0)

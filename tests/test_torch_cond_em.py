@@ -243,14 +243,15 @@ CARD_SHAPES = [(1, 48, 10000, 8), (3, 7, 1001, 8), (1, 48, 10000, 4),
 
 @pytest.mark.cuda
 def test_dx_kernel_matches_plain_on_card():
-    """cond_em_dx against cond_em_dx_reference, ragged N, K = 4 and 8, and
-    two calls bitwise-equal (needs a card + nvcc)."""
+    """cond_em_dx against cond_em_dx_reference, ragged N, K = 4, 5, 8 and
+    16, and two calls bitwise-equal (needs a card + nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     for S, Tn, Nn, Kn in ((1, 48, 10000, 8), (9, 7, 1001, 8),
-                          (9, 7, 1001, 4)):
+                          (9, 7, 1001, 4), (3, 5, 10007, 16),
+                          (2, 6, 999, 5)):
         x, zpm, xr, tinv, kT, gem = _card_inputs(g, S, Tn, Nn, Kn, dev)
         for cd in ("float32", "bfloat16"):
             dx = C._launch_dx(x, zpm, xr, tinv, kT, gem, cd)
@@ -287,9 +288,9 @@ def test_kernels_match_plain_on_card():
 
 @pytest.mark.cuda
 def test_plans_hold_on_card():
-    """Each plan of cem_plan at the card tests' shapes is one the kernels
-    take, and the card keeps at least its blocks resident (needs a card +
-    nvcc)."""
+    """Each plan of cem_plan and cem_dx_plan at the card tests' shapes is
+    one the kernels take, and the card keeps at least its blocks resident
+    (needs a card + nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -299,3 +300,7 @@ def test_plans_hold_on_card():
             info = C.plan_info(plan, S, Tn, Nn, 46, Kn, cd)
             assert info["blocks_per_sm"] >= plan.blocks_per_sm
             assert info["local_bytes"] == 0
+        plan = C.card_cem_dx_plan(dev, S, Tn, Nn, 46, Kn, cd)
+        info = C.dx_plan_info(plan, S, Tn, Nn, 46, Kn, cd)
+        assert info["blocks_per_sm"] >= plan.blocks_per_sm
+        assert info["local_bytes"] == 0

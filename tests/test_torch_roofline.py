@@ -131,10 +131,84 @@ def test_measurement_needs_the_card():
                                   timed_calls=1, device="cpu")
 
 
+# (M, K, BN, S) of the ceiling's plans: the model's shapes at the JAX
+# defaults, and the small ragged check shape
+PLAN_SHAPES = [(m, k, 2048, 9) for m, k in MB.MODEL_MATMUL_SHAPES] + [
+    (8, 16, 100, 2)]
+SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("regs", [None, 80, 128], ids=["no-regs", "r80",
+                                                       "r128"])
+@pytest.mark.parametrize("m,k,bn,S", PLAN_SHAPES,
+                         ids=[f"{m}x{k}" for m, k, _, _ in PLAN_SHAPES])
+def test_ceiling_plan_pads_k_to_16_and_fills_one_wave(m, k, bn, S, regs):
+    """The wgmma width is M rounded up to 8, K is padded to a multiple of
+    16 only (cut into chunks whose members' tiles fit one block), and the
+    step groups fill one wave: every block of the grid is resident at
+    once."""
+    G = 64 if bn == 2048 else 3
+    bare = MB.ceiling_plan(S, m, k, bn, SMS, G)
+    p = MB.ceiling_plan(S, m, k, bn, SMS, G, None if regs is None else {
+        (bare.width, bare.stack, bare.ksteps): regs})
+    assert p.width == -(-m // 8) * 8 and p.slices == 1
+    # one wgmma covers `stack` members side by side, within the built N
+    assert S % p.stack == 0 and p.n <= MB.CEILING_MAX_N
+    assert p.warpgroups <= MB.ceiling_max_warpgroups(p.n, p.ksteps)
+    assert p.kchunks * p.ksteps * 16 == -(-k // 16) * 16
+    assert p.ksteps in MB.CEILING_KSTEPS
+    assert p.smem_bytes == S * p.width * p.ksteps * 32 <= 232_448
+    assert p.layout == "K-major, no swizzle"
+    assert p.grid[0] * MB.CEILING_ROWS * p.warpgroups >= bn
+    assert p.grid[1] == p.kchunks and p.grid[2] == p.groups
+    assert p.blocks <= p.blocks_per_sm * SMS
+    assert p.groups == MB.step_groups(G, p.grid[0] * p.grid[1],
+                                      SMS * p.blocks_per_sm)
+    assert 1 <= p.warpgroups <= MB.CEILING_MAX_WARPGROUPS
+    assert p.blocks_per_sm * p.threads <= 2048
+
+
+def test_ceiling_plans_of_the_roofline_path():
+    """At the JAX defaults: 128 × 128 at width 128, K in two chunks of 64
+    (nine members' 128-row tiles of 64 k in 147,456 B: one block an SM, of
+    four warpgroups); 8 × 224 at width 8 (no M padding), 14 k steps, nine
+    members a product (m64n72k16); 64 × 46 at width 64, 3 k steps (K 48,
+    never 64), three members a product (m64n192k16)."""
+    big = MB.ceiling_plan(9, 128, 128, 2048, SMS, 64)
+    assert (big.width, big.stack, big.kchunks, big.ksteps, big.smem_bytes,
+            big.blocks_per_sm, big.warpgroups, big.groups, big.grid) == (
+                128, 1, 2, 4, 147_456, 1, 4, 8, (8, 2, 8))
+    narrow = MB.ceiling_plan(9, 8, 224, 2048, SMS, 64)
+    assert (narrow.width, narrow.stack, narrow.n, narrow.kchunks,
+            narrow.ksteps) == (8, 9, 72, 1, 14)
+    mid = MB.ceiling_plan(9, 64, 46, 2048, SMS, 64)
+    assert (mid.ksteps, mid.stack, mid.n) == (3, 3, 192)
+
+
+def test_ceiling_registers_bound_the_resident_blocks():
+    free = MB.ceiling_plan(9, 64, 46, 2048, SMS, 64)
+    tight = MB.ceiling_plan(9, 64, 46, 2048, SMS, 64, {(64, 3, 3): 168})
+    assert (tight.blocks_per_sm * tight.warpgroups
+            < free.blocks_per_sm * free.warpgroups)
+    assert MB.ceiling_plan(9, 64, 46, 2048, SMS, 64,
+                           {(8, 3, 3): 255}) == free
+
+
+def test_ceiling_width_and_refusals():
+    assert [MB.ceiling_width(m) for m in (1, 8, 9, 46, 64, 65, 128, 300)] == [
+        8, 8, 16, 64, 64, 128, 128, 128]
+    assert [MB.ceiling_stack(S, w) for S, w in ((9, 8), (9, 64), (9, 128),
+                                                (2, 8), (6, 32))] == [
+        9, 3, 1, 1, 3]
+    assert MB.ceiling_plan(2, 300, 16, 256, SMS, 4).slices == 3
+    with pytest.raises(ValueError):  # 400 members' rows fit no block
+        MB.ceiling_plan(400, 128, 16, 2048, SMS, 64)
+
+
 @pytest.mark.cuda
 def test_ceiling_kernel_matches_reference_on_card():
     """matmul_ceiling against its plain version, padded shapes included
-    (K 46 → 48, M 8 → 16, M 128 in two row slices) at 2 × 3 steps; bit
+    (K 46 → 48, width 8 at M = 8, K 128 in two chunks) at 2 × 3 steps; bit
     for bit at the timed configuration (S = 9, 8 repeats × 64 steps,
     several steps per step group) on integer operands in [-2, 2], whose
     every partial sum is exact in f32; and the measurement's keys (needs a
