@@ -54,7 +54,8 @@ Phases, each printing its results; any failure exits non-zero:
 3. Kernels against their plain PyTorch versions on the card, at the serving,
    training, ensemble-training and panel-gradient paths' shapes (S = 9 with
    one dropout seed per member), with CUDA-event timings, bounds, the
-   dropout keep share, and bitwise-repeatable gradients and panel
+   dropout keep share (at 0.05 and the sweep grid's 0.01 and 0.1), and
+   bitwise-repeatable gradients and panel
    cotangents; the three FFN kernels also at the JAX sweep grid's other
    widths, hidden (128, 128), (64, 64, 64) and (32, 32), at S = 1 and 9
    (each backward line with its launch plan, and the paper-width backward
@@ -111,6 +112,18 @@ Phases, each printing its results; any failure exits non-zero:
    conditional call must launch the FFN forward and panel cotangent, the
    conditional-EM forward, backward and panel cotangent once each, and the
    FFN's parameter backward not at all.
+9. The sweep on the same panel: ``run_sweep`` over a covering grid of four
+   architecture buckets (every hidden width, LSTM width, K and dropout
+   rate of the JAX default grid at least once) × the grid's four learning
+   rates × search seed 42, f32, schedule 8/4/16, with a bucket ledger.
+   Every pass of a bucket launches each training kernel once for all four
+   grid points; each bucket's wall time and launch plans are printed; the
+   (128, 128) bucket is held against ``kernel="off"``, the (64, 64)
+   bucket's lr 2e-3 point against a one-point bucket, and a resume from the
+   ledger must launch nothing and return the same ranking bit for bit.
+   Then ``python -m ...sweep --quick`` (bf16) and ``evaluate_ensemble
+   --checkpoint_dirs`` on its rank-0 run dirs: the same test Sharpe, and
+   the report's and ranking's sidecars verify.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -166,6 +179,7 @@ CEM_KS = (4, 8)  # the sweep's num_condition_moment values
 CEM_ODD_SHAPES = [(3, 12, 1001, 80, 8), (2, 5, 77, 10, 5),
                   (4, 24, 999, 46, 16)]
 KEEP_SHAPE = (48, 10_000)
+KEEP_RATES = (DROPOUT, 0.01, 0.1)  # the JAX sweep grid's dropout rates
 BWD_ROW, CEM_ROW = (1, 48, 10000), (1, 10000)  # the training path's shapes
 # the ensemble training path's shapes: all nine members in one launch
 ENS_BWD_ROW, ENS_CEM_ROW = (9, 48, 10000), (9, 10000)
@@ -188,6 +202,22 @@ WIDE_HIDDEN = [(128, 128), (64, 64, 64), (32, 32)]
 WIDE_SHAPES = [(1, 48, 10000), (9, 48, 10000)]
 WIDE_TRAIN = dict(hidden=(128, 128), num_epochs_unc=2, num_epochs_moment=1,
                   num_epochs=2, ignore_epoch=0)
+# the sweep phase's covering grid: four architecture buckets, each trained
+# at the JAX default grid's four lrs for search seed 42 (S = 4 grid points
+# a bucket), together holding every value of every axis of that grid
+# (hidden, rnn units, K, dropout)
+SWEEP_BUCKETS = [((64, 64), (4,), 8, 0.05), ((128, 128), (8,), 4, 0.1),
+                 ((64, 64, 64), (16,), 8, 0.01), ((32, 32), (32,), 4, 0.05)]
+SWEEP_LRS = (1e-3, 5e-4, 2e-3, 1e-4)
+SWEEP_SEED = 42
+SWEEP_DIR = ROOT / "_smoke_sweep"
+# (T, N) of the sweep's kernel checks: the train split
+SWEEP_TN = (CEM_T, 10_000)
+# expected launches per epoch of a sweep bucket (as PER_EPOCH): the train
+# step, then (phases 1 and 3) eval on valid only — the search runs no test
+# evals
+SWEEP_PER_EPOCH = {"unconditional": (2, 1, 1, 0), "moment": (1, 0, 1, 1),
+                   "conditional": (2, 1, 2, 1)}
 # the matmul ceiling's value checks, (M, K, BN, S, repeats, steps): at 2 x 3
 # steps (one step per step group) on normal operands, within 1e-4 of max;
 # and at the timed configuration (8 x 64: several steps per step group, as
@@ -382,16 +412,20 @@ def kernel_checks(torch, K, card):
     return row
 
 
-def wide_checks(torch, K, card, kernel):
-    """sdf_ffn_fwd or sdf_ffn_dx against its plain version at WIDE_HIDDEN
-    and WIDE_SHAPES, f32 and bf16, dropout 0.05 with one seed per member,
-    and two calls bitwise-equal."""
+def wide_checks(torch, K, card, kernel, hiddens=WIDE_HIDDEN,
+                shapes=WIDE_SHAPES, dtypes=("float32", "bfloat16"),
+                rate=DROPOUT):
+    """sdf_ffn_fwd or sdf_ffn_dx against its plain version at `hiddens`
+    (default the sweep widths) and `shapes`, each of `dtypes`, dropout
+    `rate` with one seed per member, and two calls bitwise-equal. Returns
+    {(hidden, S, T, N, cd): row}."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(6)
     F = 46
-    for hidden in WIDE_HIDDEN:
+    rows = {}
+    for hidden in hiddens:
         hidden = list(hidden)
-        for S, T, N in WIDE_SHAPES:
+        for S, T, N in shapes:
             x = torch.randn(T, F, N, generator=g, device=dev)
             zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden,
                                                     dev)
@@ -399,28 +433,26 @@ def wide_checks(torch, K, card, kernel):
                                     device=dev) * 0.3).contiguous()
             gout = torch.randn(S, T, N, generator=g, device=dev) / N
             seed = 11 if S == 1 else list(range(11, 11 + S))
-            for cd in ("float32", "bfloat16"):
+            for cd in dtypes:
                 packed = K.pack_ffn(k1T, mids, kout, bout, cd)
                 if kernel == "fwd":
                     def kern():
                         return K.sdf_ffn_packed(x, zp, packed,
-                                                dropout_rate=DROPOUT,
-                                                seed=seed)
+                                                dropout_rate=rate, seed=seed)
 
                     def plain():
                         return K.sdf_ffn_reference(x, zp, k1T, mids, kout,
-                                                   bout, cd, seed, DROPOUT)
+                                                   bout, cd, seed, rate)
                     flops = K.flops(S, T, N, F, hidden)
                     nbytes = K.bytes_moved(S, T, N, F, hidden)
                     bar = 1e-5 if cd == "float32" else BF16_REL
                 else:
                     def kern():
-                        return K._launch_dx(x, zp, packed, gout, seed,
-                                            DROPOUT)
+                        return K._launch_dx(x, zp, packed, gout, seed, rate)
 
                     def plain():
                         return K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout,
-                                                      gout, cd, seed, DROPOUT)
+                                                      gout, cd, seed, rate)
                     flops = K.dx_flops(S, T, N, F, hidden)
                     nbytes = K.dx_bytes_moved(S, T, N, F, hidden)
                     bar = GRAD_F32_REL if cd == "float32" else BF16_REL
@@ -429,53 +461,66 @@ def wide_checks(torch, K, card, kernel):
                 check(torch.equal(out, again),
                       f"sdf_ffn_{kernel} not bitwise repeatable at S={S} "
                       f"hidden={hidden} {cd}")
-                err = rel_err(out, plain())
+                ref = plain()
+                err = rel_err(out, ref)
                 check(bool(torch.isfinite(out).all()) and err <= bar,
                       f"sdf_ffn_{kernel} disagrees with its plain version at"
-                      f" S={S} T={T} N={N} hidden={hidden} {cd}: "
-                      f"max|d|/max|ref| {err:.3e}")
+                      f" S={S} T={T} N={N} hidden={hidden} {cd} dropout "
+                      f"{rate}: max|d|/max|ref| {err:.3e}")
+                abs_err = float((out - ref).abs().max())
+                del out, again, ref
                 ms = cuda_ms(torch, kern, reps=5, warmup=1)
                 plain_ms = cuda_ms(torch, plain, reps=2, warmup=1)
                 b_ms, b_by = bound(flops, nbytes, cd)
                 print(f"[kernels] {kernel} hidden={hidden} S={S} T={T} "
-                      f"N={N} {cd:8s} dropout {DROPOUT}: max|d|/max|ref| "
+                      f"N={N} {cd:8s} dropout {rate}: max|d|/max|ref| "
                       f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
                       f"ms  bound {b_ms:.4f} ms ({b_by}) ({card})",
                       flush=True)
+                rows[(tuple(hidden), S, T, N, cd)] = dict(
+                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by,
+                    shape=f"S={S} T={T} N={N} F={F} hidden={hidden} {cd} "
+                          f"dropout {rate}")
+    return rows
 
 
 def dropout_keep_share(torch, K, card):
-    """The forward kernel's measured keep share at dropout 0.05, from its
-    own output: with k1T = 0 and zp = 1 every first-layer unit is 1 before
-    dropout, so w = scale·mean(keep); a second layer W = 0, b = 1 reads
-    the second layer's units the same way."""
+    """The forward kernel's measured keep share at dropout 0.05 and at the
+    sweep grid's other rates, 0.01 and 0.1, from its own output: with
+    k1T = 0 and zp = 1 every first-layer unit is 1 before dropout, so
+    w = scale·mean(keep); a second layer W = 0, b = 1 reads the second
+    layer's units the same way."""
     dev = torch.device(DEVICE)
     (T, N), F, H = KEEP_SHAPE, 46, 64
     x = torch.randn(T, F, N, device=dev)
-    _, scale = K.dropout_params(DROPOUT)
-    shares = []
-    for layer in (0, 1):
-        zp = torch.ones(1, T, H, device=dev)
-        k1T = torch.zeros(1, H, F, device=dev)
-        mids = ([(torch.zeros(1, H, H, device=dev),
-                  torch.ones(1, H, device=dev))] if layer else [])
-        kout = torch.full((1, H), 1.0 / H, device=dev)
-        bout = torch.zeros(1, device=dev)
-        packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
-        w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=DROPOUT, seed=123)
-        ref = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, "float32",
-                                  123, DROPOUT)
-        check(float((w - ref).abs().max()) <= 1e-6,
-              f"dropout: kernel and plain masks differ (layer {layer})")
-        shares.append(float(w.double().mean()) / scale)
-    for layer, share in enumerate(shares):
-        check(abs(share - (1 - DROPOUT)) <= 0.002,
-              f"dropout keep share {share:.5f} of layer {layer} is not "
-              f"0.95 ± 0.002")
-    print(f"[kernels] sdf_ffn_fwd dropout {DROPOUT}: kernel == plain masks;"
-          f" keep share over {T * N * H:,} units per layer: "
-          f"{shares[0]:.5f} (layer 0), {shares[1]:.5f} (layer 1) ({card})",
-          flush=True)
+    shares = {}
+    for rate in KEEP_RATES:
+        _, scale = K.dropout_params(rate)
+        for layer in (0, 1):
+            zp = torch.ones(1, T, H, device=dev)
+            k1T = torch.zeros(1, H, F, device=dev)
+            mids = ([(torch.zeros(1, H, H, device=dev),
+                      torch.ones(1, H, device=dev))] if layer else [])
+            kout = torch.full((1, H), 1.0 / H, device=dev)
+            bout = torch.zeros(1, device=dev)
+            packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+            w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate, seed=123)
+            ref = K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout,
+                                      "float32", 123, rate)
+            check(float((w - ref).abs().max()) <= 1e-6,
+                  f"dropout {rate}: kernel and plain masks differ (layer "
+                  f"{layer})")
+            shares[(rate, layer)] = float(w.double().mean()) / scale
+    for (rate, layer), share in shares.items():
+        check(abs(share - (1 - rate)) <= 0.002,
+              f"dropout {rate} keep share {share:.5f} of layer {layer} is "
+              f"not {1 - rate:g} ± 0.002")
+    for rate in KEEP_RATES:
+        print(f"[kernels] sdf_ffn_fwd dropout {rate}: kernel == plain masks;"
+              f" keep share over {T * N * H:,} units per layer: "
+              f"{shares[(rate, 0)]:.5f} (layer 0), {shares[(rate, 1)]:.5f} "
+              f"(layer 1), expected {1 - rate:g} ({card})", flush=True)
     # the training step's forward: the paper's widths, one member, then
     # the ensemble's nine members with one dropout seed each
     ens_row = None
@@ -691,12 +736,13 @@ def compare_fwd(torch, K, _nvcc, src_dir, card):
             del bases
 
 
-def ffn_bwd_checks(torch, K, card, hidden=(64, 64), shapes=None):
+def ffn_bwd_checks(torch, K, card, hidden=(64, 64), shapes=None,
+                   dtypes=("float32", "bfloat16"), rates=(0.0, DROPOUT)):
     """sdf_ffn_bwd against sdf_ffn_bwd_reference, each output tensor, and
-    two calls bitwise-equal, at `shapes` (BWD_SHAPES) of `hidden`; each
-    line carries the launch plan. Returns {(S, T, N): row} of the f32,
-    dropout 0.05 runs; at (64, 64) and the ensemble's S = 9 it also times
-    the plan at every stock tile that fits."""
+    two calls bitwise-equal, at `shapes` (BWD_SHAPES) of `hidden`, each of
+    `dtypes` and dropout `rates`; each line carries the launch plan.
+    Returns {(S, T, N, cd, rate): row}; at (64, 64) and the ensemble's
+    S = 9 it also times the plan at every stock tile that fits."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
     F, hidden = 46, list(hidden)
@@ -717,9 +763,9 @@ def ffn_bwd_checks(torch, K, card, hidden=(64, 64), shapes=None):
         seed = 7 if S == 1 else list(range(7, 7 + S))
         lay = K.ffn_layout(F, hidden)
         plan, pinfo = bwd_plan_of(torch, K, lay, S, T, N)
-        for cd in ("float32", "bfloat16"):
+        for cd in dtypes:
             packed = K.pack_ffn(k1T, mids, kout, bout, cd)
-            for rate in (0.0, DROPOUT):
+            for rate in rates:
                 def kern(p=None):
                     return K._launch_bwd(x, zp, packed, gout, seed, rate, p)
                 grads, dzp = kern()
@@ -765,14 +811,14 @@ def ffn_bwd_checks(torch, K, card, hidden=(64, 64), shapes=None):
                       f"ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
                       f"({b_by})  bitwise-repeatable; {plan_text(pinfo)}",
                       flush=True)
-                if cd == "float32" and rate == DROPOUT:
-                    rows[(S, T, N)] = dict(
-                        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, plan=pinfo,
-                        shape=f"S={S} T={T} N={N} F={F} hidden={hidden} "
-                              f"float32 dropout {DROPOUT}")
-                    if not wide and (S, T, N) == ENS_BWD_ROW:
-                        tile_times(torch, K, lay, S, T, N, kern, card)
+                rows[(S, T, N, cd, rate)] = dict(
+                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, plan=pinfo,
+                    shape=f"S={S} T={T} N={N} F={F} hidden={hidden} {cd} "
+                          f"dropout {rate}")
+                if (not wide and (S, T, N) == ENS_BWD_ROW
+                        and (cd, rate) == ("float32", DROPOUT)):
+                    tile_times(torch, K, lay, S, T, N, kern, card)
     return rows
 
 
@@ -857,10 +903,14 @@ def _cem_inputs(torch, g, S, T, N, F, Kn, dev):
     return x, zpm, xr, tinv, kT, gem
 
 
-def cond_em_checks(torch, C, card, Ks=CEM_KS):
-    """cond_em_fwd / cond_em_bwd against their plain versions at CEM_SHAPES
-    and K in Ks, each backward twice bitwise-equal; returns the training
-    paths' rows (S=1 and S=9, T=48, N=10000, K=8, f32)."""
+def cond_em_checks(torch, C, card, Ks=CEM_KS, shapes=CEM_SHAPES,
+                   dtypes=("float32", "bfloat16"), odd=True):
+    """cond_em_fwd / cond_em_bwd against their plain versions at `shapes`
+    (S, N), T = CEM_T, K in Ks and each of `dtypes`, each backward twice
+    bitwise-equal, then (with `odd`) at CEM_ODD_SHAPES. Returns the rows
+    {(kernel, S, N, K, cd): row}, and under "fwd"/"bwd" and
+    "ensemble_fwd"/"ensemble_bwd" the training paths' (S = 1 and S = 9,
+    N = 10000, K = 8, f32)."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
     F, T = 46, CEM_T
@@ -868,10 +918,10 @@ def cond_em_checks(torch, C, card, Ks=CEM_KS):
     print(f"[kernels] cond_em vs cond_em_reference, F={F} K={list(Ks)} "
           f"({card})", flush=True)
     for Kn in Ks:
-        for S, N in CEM_SHAPES:
+        for S, N in shapes:
             x, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F, Kn,
                                                     dev)
-            for cd in ("float32", "bfloat16"):
+            for cd in dtypes:
                 bar = GRAD_F32_REL if cd == "float32" else BF16_REL
                 em = C._launch_fwd(x, zpm, xr, tinv, kT, cd)
                 em_ref = C.cond_em_reference(x, zpm, xr, tinv, kT, cd)
@@ -935,21 +985,20 @@ def cond_em_checks(torch, C, card, Ks=CEM_KS):
                           f"ms (device {r['plain_device_ms']:.4f}) bound "
                           f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) "
                           f"({card})", flush=True)
-                if (cd == "float32" and Kn == 8
-                        and (S, N) in (CEM_ROW, ENS_CEM_ROW)):
-                    for k, r in t.items():
+                for k, r in t.items():
+                    rows[(k, S, N, Kn, cd)] = dict(
+                        max_abs_err=r["err"], ms=r["ms"],
+                        device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                        shape=f"S={S} T={T} N={N} F={F} K={Kn} {cd}")
+                    if (cd == "float32" and Kn == 8
+                            and (S, N) in (CEM_ROW, ENS_CEM_ROW)):
                         key = k if (S, N) == CEM_ROW else "ensemble_" + k
-                        rows[key] = dict(max_abs_err=r["err"], ms=r["ms"],
-                                         device_ms=r["device_ms"],
-                                         plain_ms=r["plain_ms"],
-                                         bound_ms=r["bound"][0],
-                                         bound_by=r["bound"][1],
-                                         shape=f"S={S} T={T} N={N} F={F} "
-                                               f"K={Kn} float32")
+                        rows[key] = rows[(k, S, N, Kn, cd)]
     # the kernel instances the main paths do not take: F past the tensor
     # cores' k steps (bf16 on the CUDA cores), an odd K, K = 16, empty
     # period groups (T = 5 in 4 groups), a small ragged N
-    for S, T, N, F, Kn in CEM_ODD_SHAPES:
+    for S, T, N, F, Kn in CEM_ODD_SHAPES if odd else ():
         x, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F, Kn,
                                                 dev)
         for cd in ("float32", "bfloat16"):
@@ -2405,6 +2454,355 @@ def panel_gradient_checks(torch, K, C, card, splits, params, opts):
     return launches
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+
+def sweep_plan_lines(torch, K, C, tag, cfg, S, splits, card):
+    """The launch plans of a sweep bucket's four training kernels (f32) as
+    the card holds them: the FFN forward and conditional-EM forward at the
+    train and valid splits' T, the backwards at the train split's; fails
+    if the card keeps fewer blocks resident than planned or a kernel
+    spills."""
+    dev = torch.device(DEVICE)
+    lay = K.ffn_layout(cfg.individual_feature_dim, cfg.hidden_dim)
+    F, Kn, N, cd = cfg.individual_feature_dim, cfg.num_condition_moment, \
+        splits[0].N, "float32"
+    for T in (splits[0].T, splits[1].T):
+        plan = K.card_fwd_plan(lay, dev, S, T, N, cd)
+        info = K.fwd_plan_info(lay, S, plan)
+        check(info["blocks_per_sm"] >= plan.blocks_per_sm
+              and info["local_bytes"] == 0,
+              f"sweep {tag} sdf_ffn_fwd plan {plan}: the card holds "
+              f"{info['blocks_per_sm']} blocks per SM, "
+              f"{info['local_bytes']} B local")
+        print(f"[sweep] {tag} plan sdf_ffn_fwd S={S} T={T} N={N} route "
+              f"{plan.route} tile {plan.tile} threads {plan.threads} members "
+              f"{plan.members} smem {plan.smem_bytes} B resident "
+              f"{info['blocks_per_sm']}/SM (planned {plan.blocks_per_sm}) G "
+              f"{plan.G} of {plan.cells} cells regs {info['registers']} "
+              f"local {info['local_bytes']} B", flush=True)
+        if T == splits[0].T:
+            _, bp = bwd_plan_of(torch, K, lay, S, T, N)
+            print(f"[sweep] {tag} plan sdf_ffn_bwd S={S} T={T} N={N} "
+                  f"{plan_text(bp)}", flush=True)
+        for p in C.card_cem_plan(dev, S, T, N, F, Kn, cd):
+            if p.kernel == "bwd" and T != splits[0].T:
+                continue
+            info = C.plan_info(p, S, T, N, F, Kn, cd)
+            check(info["blocks_per_sm"] >= p.blocks_per_sm
+                  and info["local_bytes"] == 0,
+                  f"sweep {tag} cond_em_{p.kernel} plan {p}: the card holds "
+                  f"{info['blocks_per_sm']} blocks per SM, "
+                  f"{info['local_bytes']} B local")
+            print(f"[sweep] {tag} plan cond_em_{p.kernel} S={S} T={T} N={N} "
+                  f"K={Kn} route {p.route} tile {p.tile} members "
+                  f"{p.members} threads {p.threads} var {p.var} stages "
+                  f"{p.stages} smem {p.smem_bytes} B resident "
+                  f"{info['blocks_per_sm']}/SM (planned {p.blocks_per_sm}) "
+                  f"groups {p.groups} grid {list(p.grid)} regs "
+                  f"{info['registers']} local {info['local_bytes']} B",
+                  flush=True)
+
+
+def sweep_kernel_checks(torch, K, C, card):
+    """The four training kernels against their plain versions at the
+    sweep's shapes (T, N = SWEEP_TN), through the phase-3 checks: each
+    covering-grid bucket at S = 4 (f32, its widths, K and dropout rate) and
+    the --quick search's S = 2 (bf16, (64, 64) and (32, 32), K = 8, dropout
+    0.05), one dropout seed per grid point. Returns {kernel: {case: row}}
+    for the kernels line."""
+    T, N = SWEEP_TN
+    cases = [(f"B{i + 1}", len(SWEEP_LRS), (h,), k, d, "float32")
+             for i, (h, _, k, d) in enumerate(SWEEP_BUCKETS)]
+    cases.append(("quick", 2, ((64, 64), (32, 32)), 8, DROPOUT, "bfloat16"))
+    rows = {n: {} for n in ("sdf_ffn_fwd", "sdf_ffn_bwd", "cond_em_fwd",
+                            "cond_em_bwd")}
+    for tag, S, hiddens, Kn, rate, cd in cases:
+        names = {h: tag if len(hiddens) == 1 else f"{tag} {list(h)}"
+                 for h in hiddens}
+        fwd = wide_checks(torch, K, card, "fwd", hiddens, [(S, T, N)],
+                          (cd,), rate)
+        for h in hiddens:
+            rows["sdf_ffn_fwd"][names[h]] = fwd[(h, S, T, N, cd)]
+            rows["sdf_ffn_bwd"][names[h]] = ffn_bwd_checks(
+                torch, K, card, h, [(S, T, N)], (cd,), (rate,))[
+                    (S, T, N, cd, rate)]
+        cem = cond_em_checks(torch, C, card, (Kn,), [(S, N)], (cd,),
+                             odd=False)
+        for k in ("fwd", "bwd"):
+            rows[f"cond_em_{k}"][tag] = cem[(k, S, N, Kn, cd)]
+    return rows
+
+
+def _point_devs(a, b, i, j):
+    """(loss rel dev, Sharpe dev) between grid point i of bucket output a
+    and point j of b: their histories and reported valid Sharpes."""
+    dev_loss, dev_sharpe, _ = _history_devs(
+        {k: v[i] for k, v in a["history"].items()},
+        {k: v[j] for k, v in b["history"].items()})
+    ra, rb = a["best_valid_sharpe"][i], b["best_valid_sharpe"][j]
+    dev_rep = 0.0 if ra == rb else abs(float(ra) - float(rb))
+    return dev_loss, max(dev_sharpe, dev_rep)
+
+
+def sweep_checks(torch, K, C, card, splits):
+    """run_sweep over the covering grid (four buckets × four lrs × seed 42,
+    f32, a ledger): every pass of a bucket one launch per kernel for all
+    four grid points; B2 on the kernel route against kernel="off"; B1's
+    lr 2e-3 point against a one-point bucket; a resume from the ledger that
+    launches nothing and returns the same ranking bit for bit."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        ensemble as ens_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        sweep as sw,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .ledger import SweepLedger
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, _ = splits
+    base = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                     individual_feature_dim=train.individual_feature_dim)
+    cfgs = [dataclasses.replace(base, hidden_dim=h, num_units_rnn=r,
+                                num_condition_moment=k, dropout=d)
+            for h, r, k, d in SWEEP_BUCKETS]
+    configs = [(c, lr) for c in cfgs for lr in SWEEP_LRS]
+    tcfg = TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid)]
+    G = len(SWEEP_LRS)
+    n_epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+                "moment": SCHEDULE["num_epochs_moment"],
+                "conditional": SCHEDULE["num_epochs"]}
+    epochs = sum(n_epochs.values())
+
+    def execution(kernel):
+        return ExecutionConfig(kernel=kernel, compute_dtype="float32",
+                               device=DEVICE)
+
+    def bucket(cfg, lrs, kernel="on", tc=tcfg):
+        return sw.train_bucket(cfg, lrs, [SWEEP_SEED], *batches, tc,
+                               exec_cfg=execution(kernel))
+
+    # one untimed epoch per phase of every bucket (and of B2's plain route)
+    # first: library loads and the allocator's first growth are set-up
+    warm = TrainConfig(1, 1, 1, ignore_epoch=0)
+    for c in cfgs:
+        bucket(c, SWEEP_LRS, tc=warm)
+    bucket(cfgs[1], SWEEP_LRS, "off", warm)
+    torch.cuda.synchronize()
+
+    real_bucket, real_phase = sw.train_bucket, ens_mod.run_phase
+    launchers = {"sdf_ffn_fwd": (K, "_launch"),
+                 "sdf_ffn_bwd": (K, "_launch_bwd"),
+                 "cond_em_fwd": (C, "_launch_fwd"),
+                 "cond_em_bwd": (C, "_launch_bwd")}
+    originals = {n: getattr(m, a) for n, (m, a) in launchers.items()}
+    runs, phases, members = [], {}, {}
+
+    def counted_phase(gan, phase, *args, **kw):
+        before = counts(K, C)
+        out = real_phase(gan, phase, *args, **kw)
+        phases[phase] = tuple(a - c for a, c in zip(counts(K, C), before))
+        return out
+
+    def counted_bucket(*args, **kw):
+        phases.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_bucket(*args, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(out=out, seconds=time.perf_counter() - t0,
+                         phases=dict(phases)))
+        return out
+
+    def recorder(name):
+        # records the member count of each launch; the count of launches
+        # stays the wrapper's own
+        def rec(*args, **kw):
+            n = (args[2].n_members if name.startswith("sdf")
+                 else args[4].shape[0])
+            members.setdefault(name, set()).add(n)
+            return originals[name](*args, **kw)
+        return rec
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    ledger = SweepLedger(SWEEP_DIR / "sweep_ledger")
+    stats = {}
+    sw.train_bucket, ens_mod.run_phase = counted_bucket, counted_phase
+    for name, (m, a) in launchers.items():
+        setattr(m, a, recorder(name))
+    try:
+        K.reset_launch_count()
+        C.reset_launch_count()
+        ranked = sw.run_sweep(configs, [SWEEP_SEED], *batches, tcfg=tcfg,
+                              top_k=None, verbose=False,
+                              exec_cfg=execution("on"), stats_out=stats,
+                              ledger=ledger)
+        torch.cuda.synchronize()
+        totals = counts(K, C)
+    finally:
+        sw.train_bucket, ens_mod.run_phase = real_bucket, real_phase
+        for name, (m, a) in launchers.items():
+            setattr(m, a, originals[name])
+    names = ("sdf_ffn_fwd", "sdf_ffn_bwd", "cond_em_fwd", "cond_em_bwd")
+    launches = dict(zip(names, totals))
+
+    # (a) every pass one launch for the bucket's four grid points
+    check(stats["n_buckets"] == len(cfgs) and len(runs) == len(cfgs)
+          and stats["ledger_writes"] == len(cfgs),
+          f"run_sweep: {stats} over {len(runs)} trained buckets, not "
+          f"{len(cfgs)}")
+    check(set(members) == set(launchers)
+          and all(v == {G} for v in members.values()),
+          f"sweep launches not all at S = {G}: {members}")
+    print(f"[sweep] covering grid: {len(cfgs)} buckets x lrs "
+          f"{list(SWEEP_LRS)} x seed {SWEEP_SEED} (S={G} a bucket), f32, "
+          f"schedule 8/4/16 ignore 2, N={train.N} T={train.T}/{valid.T}, "
+          f"no test evals ({card})", flush=True)
+    for i, (c, run) in enumerate(zip(cfgs, runs)):
+        tag = f"B{i + 1}"
+        for phase, per in SWEEP_PER_EPOCH.items():
+            want = tuple(n_epochs[phase] * v for v in per)
+            check(run["phases"][phase] == want,
+                  f"sweep {tag} {phase}: launches (fwd, bwd, cem_fwd, "
+                  f"cem_bwd) {run['phases'][phase]} != {want} (one launch "
+                  f"per pass for all {G} grid points)")
+        out = run["out"]
+        check(all(np.isfinite(v).all() for v in out["history"].values())
+              and np.isfinite(out["best_valid_sharpe"]).all()
+              and all(bool(torch.isfinite(v).all())
+                      for v in out["params"].values()),
+              f"sweep {tag}: non-finite history, Sharpe or params")
+        print(f"[sweep] {tag} hidden={list(c.hidden_dim)} "
+              f"rnn={list(c.num_units_rnn)} K={c.num_condition_moment} "
+              f"dropout {c.dropout}: {run['seconds']:.3f} s wall, "
+              f"{run['seconds'] * 1e3 / (G * epochs):.2f} ms per "
+              f"grid-point-epoch ({run['seconds'] * 1e3 / epochs:.2f} ms per "
+              f"epoch at S={G}); launches "
+              + ", ".join(f"{p} {run['phases'][p]}" for p in n_epochs)
+              + f"; reported valid Sharpes "
+              f"{[round(float(v), 6) for v in out['best_valid_sharpe']]}",
+              flush=True)
+        sweep_plan_lines(torch, K, C, tag, c, G, splits, card)
+    print(f"[sweep] launches of the whole search: {launches}; every launch "
+          f"S={G}; ranking top: lr {ranked[0]['lr']} hidden "
+          f"{list(ranked[0]['config'].hidden_dim)} valid Sharpe "
+          f"{ranked[0]['valid_sharpe']:.6f}", flush=True)
+
+    # (b) B2 on the kernel route against kernel="off"
+    before = counts(K, C)
+    t0 = time.perf_counter()
+    off = bucket(cfgs[1], SWEEP_LRS, "off")
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    check(counts(K, C) == before, "kernel='off' launched kernels in B2")
+    devs = [_point_devs(runs[1]["out"], off, i, i) for i in range(G)]
+    dev_loss, dev_sharpe = max(d[0] for d in devs), max(d[1] for d in devs)
+    check(dev_loss <= 1e-3, f"sweep B2 kernel vs plain: loss rel dev "
+                            f"{dev_loss:.3e} > 1e-3")
+    check(dev_sharpe <= 5e-3, f"sweep B2 kernel vs plain: Sharpe dev "
+                              f"{dev_sharpe:.3e} > 5e-3")
+    print(f"[sweep] B2 kernel vs plain, every epoch of the {G} grid points "
+          f"and their reported valid Sharpes: max loss rel dev "
+          f"{dev_loss:.3e} (bar 1e-3), max Sharpe dev {dev_sharpe:.3e} (bar "
+          f"5e-3); wall s kernel {runs[1]['seconds']:.3f}, plain "
+          f"{off_s:.3f} ({card})", flush=True)
+
+    # (c) the per-member lr: B1's lr 2e-3 point alone in a one-point bucket
+    i = SWEEP_LRS.index(2e-3)
+    one = bucket(cfgs[0], [2e-3])
+    dev_loss, dev_sharpe = _point_devs(runs[0]["out"], one, i, 0)
+    check(dev_loss <= 1e-3 and dev_sharpe <= 5e-3,
+          f"sweep B1 lr 2e-3 point vs a one-point bucket: loss rel dev "
+          f"{dev_loss:.3e}, Sharpe dev {dev_sharpe:.3e}")
+    print(f"[sweep] B1 lr 2e-3 (grid point {i} of S={G}) vs a one-point "
+          f"bucket (S=1, same init and dropout seeds): max loss rel dev "
+          f"{dev_loss:.3e} (bar 1e-3), max Sharpe dev {dev_sharpe:.3e} (bar "
+          f"5e-3)", flush=True)
+
+    # (d) resume: every bucket from the ledger, nothing launched
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    C.reset_launch_count()
+    again_stats = {}
+    t0 = time.perf_counter()
+    again = sw.run_sweep(configs, [SWEEP_SEED], *batches, tcfg=tcfg,
+                         top_k=None, verbose=False, exec_cfg=execution("on"),
+                         stats_out=again_stats,
+                         ledger=SweepLedger(SWEEP_DIR / "sweep_ledger"),
+                         consult_ledger=True)
+    resume_s = time.perf_counter() - t0
+    check(panel_counts(K, C) == (0,) * 6,
+          f"the ledger resume launched kernels: {panel_counts(K, C)}")
+    check(again_stats["ledger_hits"] == len(cfgs)
+          and again_stats["ledger_writes"] == 0,
+          f"the ledger resume: {again_stats}")
+    row = lambda r: (r["config"], r["lr"], r["seed"], r["valid_sharpe"])  # noqa: E731
+    check([row(r) for r in again] == [row(r) for r in ranked],
+          "the ranking resumed from the ledger differs from the search's")
+    print(f"[sweep] resume from the ledger: {again_stats['ledger_hits']} "
+          f"hits, 0 launches, the ranking of {len(again)} points equal bit "
+          f"for bit, in {resume_s:.3f} s", flush=True)
+    return launches
+
+
+def sweep_cli_check(torch, card):
+    """``python -m ...sweep --quick`` (bf16, kernel auto) on the panel, then
+    evaluate_ensemble --checkpoint_dirs on the rank0 run dirs it wrote:
+    the report's test Sharpe within 1e-6; the report's and the ranking's
+    sidecars verify."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import evaluate_ensemble
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        import verified
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    save = SWEEP_DIR / "cli"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.sweep", "--data_dir", str(DATA_DIR),
+         "--save_dir", str(save), "--quick", "--device", DEVICE],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the sweep CLI exited {proc.returncode}:\n"
+                                f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    loaded = {}
+    for name in ("report.json", "sweep_ranking.json"):
+        # the file itself, through its own sidecar: load_verified would
+        # also pass a file with no sidecar, or fall back a generation
+        path = save / name
+        check(verified.digest_path(path).exists(),
+              f"the sweep CLI wrote {name} with no sha256 sidecar")
+        loaded[name], used = verified.load_verified(path, json.loads)
+        check(used == path, f"{name} did not verify: loaded {used}")
+    report, ranking = loaded["report.json"], loaded["sweep_ranking.json"]
+    dirs = sorted(str(p) for p in save.glob("rank0_seed*"))
+    check(len(dirs) == 3 and len(ranking) == 4,
+          f"the sweep CLI wrote {len(dirs)} rank0 dirs and "
+          f"{len(ranking)} ranking rows")
+    res = evaluate_ensemble(dirs, str(DATA_DIR),
+                            exec_cfg=ExecutionConfig(device=DEVICE),
+                            verbose=False)
+    reported = report["winners"][0]["ensemble_sharpe"]["test"]
+    check(reported is not None and np.isfinite(reported),
+          "non-finite sweep CLI test Sharpe")
+    d = abs(res["test_sharpe"] - reported)
+    check(d <= 1e-6, f"--checkpoint_dirs test Sharpe {res['test_sharpe']} "
+                     f"!= the sweep report's {reported} (|d| {d:.3e})")
+    print(f"[sweep cli] --quick (bf16, kernel auto): 2 buckets x 2 lrs "
+          f"searched, {len(report['winners'])} winners x 3 seeds trained, in "
+          f"{wall:.1f} s (search {report['search_seconds']} s); winner 0 "
+          f"test Sharpe {reported:.6f}; --checkpoint_dirs on rank0_seed* "
+          f"{res['test_sharpe']:.6f} (|d| {d:.1e}, bar 1e-6); grand "
+          f"ensemble ({report['n_grand_members']} members) test Sharpe "
+          f"{report['grand_ensemble_test_sharpe']:.6f}; report.json and "
+          f"sweep_ranking.json sidecars verify ({card})", flush=True)
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2598,9 +2996,11 @@ def main(argv=None) -> int:
     row = kernel_checks(torch, K, card)
     _, ens_fwd_row = dropout_keep_share(torch, K, card)
     bwd_rows = ffn_bwd_checks(torch, K, card)
-    bwd_row, ens_bwd_row = bwd_rows[BWD_ROW], bwd_rows[ENS_BWD_ROW]
+    bwd_row, ens_bwd_row = (bwd_rows[r + ("float32", DROPOUT)]
+                            for r in (BWD_ROW, ENS_BWD_ROW))
     wide_bwd = {str(list(h)): {f"S={k[0]}": r for k, r in ffn_bwd_checks(
-        torch, K, card, h, WIDE_SHAPES).items()} for h in WIDE_HIDDEN}
+        torch, K, card, h, WIDE_SHAPES).items()
+        if k[3:] == ("float32", DROPOUT)} for h in WIDE_HIDDEN}
     cem_plan_lines(torch, C, card)
     cem_rows = cond_em_checks(torch, C, card)
     dx_rows = dx_checks(torch, K, C, card)
@@ -2675,6 +3075,14 @@ def main(argv=None) -> int:
                                           ens_params, opts)
     print(f"[panel grad] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # 9. sweep
+    t0 = time.perf_counter()
+    sweep_rows = sweep_kernel_checks(torch, K, C, card)
+    sweep_launches = sweep_checks(torch, K, C, card, splits)
+    sweep_cli_check(torch, card)
+    print(f"[sweep] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
@@ -2682,13 +3090,15 @@ def main(argv=None) -> int:
     def by_path(name, serving=0):
         paths = {"training": train_launches[name],
                  "training_hidden_128x128": wide_launches[name],
-                 "ensemble_training": ens_launches[name]}
+                 "ensemble_training": ens_launches[name],
+                 "sweep": sweep_launches[name]}
         if serving:
             paths = {"serving": serving, **paths}
         if grad_launches[name]:
             paths["panel_gradient"] = grad_launches[name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
-                    ensemble_members=ens_members)
+                    ensemble_members=ens_members,
+                    at_sweep_shapes=sweep_rows[name])
 
     def grad_path(name):
         n = grad_launches[name]

@@ -15,8 +15,8 @@ The counterpart of the JAX package's ``evaluate_ensemble.py``, both modes:
   (``parallel.ensemble.train_ensemble``: one kernel launch per pass for
   all members), then is evaluated. ``--save_dir`` writes each member as a
   run dir (``seed_<s>/config.json`` + ``best_model_sharpe.pt``) that
-  ``--checkpoint_dirs`` reads back, and ``ensemble_report.json`` (plain
-  JSON, without the JAX package's ``.sha256`` sidecar).
+  ``--checkpoint_dirs`` reads back, and ``ensemble_report.json`` (atomic,
+  with a ``.sha256`` sidecar, through ``reliability/verified.py``).
 
 It runs on the CUDA device unless ``--device cpu`` is given.
 """
@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import pickle
 import sys
 import warnings
@@ -41,6 +40,7 @@ from .parallel.ensemble import (
     stack_state_dicts,
     train_ensemble,
 )
+from .reliability.verified import write_verified
 from .training.checkpoint import (
     load_checkpoint_dir,
     member_state_dicts,
@@ -248,9 +248,8 @@ def train_and_evaluate(
             mdir.mkdir(parents=True, exist_ok=True)
             cfg.save(mdir / "config.json")
             save_state_dict(mdir / "best_model_sharpe.pt", sd)
-        tmp = save / "ensemble_report.json.tmp"
-        tmp.write_text(json.dumps(report, indent=2))
-        os.replace(tmp, save / "ensemble_report.json")
+        write_verified(save / "ensemble_report.json",
+                       json.dumps(report, indent=2).encode())
         if verbose:
             print(f"Saved {len(seeds)} member checkpoints to {save}",
                   flush=True)

@@ -7,7 +7,8 @@ vmaps), the macro LSTMs of all members run together, and every SDF-FFN and
 conditional-EM pass of all members is ONE fused-kernel launch over one
 panel read (never a Python loop over members).
 
-Training (:func:`train_ensemble`) runs the 3-phase schedule of
+Training (:func:`train_ensemble`, through the runner :func:`train_members`
+that the sweep's buckets share) runs the 3-phase schedule of
 ``training/trainer.py`` for S seeds at once, with its selection rules kept
 per member: best-by-valid tracking after ``ignore_epoch``, the reload after
 phase 1, phase 3 starting from phase 2's last-epoch moment params, and the
@@ -269,22 +270,51 @@ def train_ensemble(config: GANConfig, train_b: Batch, valid_b: Batch,
 
     Returns (the final params, stacked [S, ...] with the reference's
     ``state_dict`` keys; the history {key: [S, E]} over phases 1 and 3)."""
+    out = train_members(config, train_b, valid_b, test_b, seeds, tcfg,
+                        member_chunk=member_chunk, exec_cfg=exec_cfg,
+                        state_dicts=state_dicts, verbose=verbose)
+    return out["params"], out["history"]
+
+
+def train_members(config: GANConfig, train_b: Batch, valid_b: Batch,
+                  test_b: Optional[Batch], seeds: Sequence[int],
+                  tcfg: Optional[TrainConfig] = None,
+                  lrs: Optional[Sequence[float]] = None,
+                  dropout_seeds: Optional[Sequence[int]] = None,
+                  member_chunk: Optional[int] = None,
+                  exec_cfg: Optional[ExecutionConfig] = None,
+                  state_dicts=None, verbose: bool = True) -> Dict:
+    """The member-stacked 3-phase runner behind :func:`train_ensemble` and
+    the sweep's buckets (``parallel/sweep.py``).
+
+    Member s starts from ``seeds[s]`` (or `state_dicts`), trains at
+    ``lrs[s]`` (default: ``tcfg.lr`` for every member) and draws its
+    dropout from the base seed ``dropout_seeds[s]`` (default ``seeds[s]``,
+    as ``train_3phase(seed=s)`` does). Without `test_b` no test evals run (the history's test columns
+    are 0).
+
+    Returns {"params": the final params [S, ...], "history": {key: [S, E]}
+    over phases 1 and 3, "best_valid_sharpe": [S]: the valid Sharpe of the
+    params the final chain picked — phase 3's best where its tracker
+    updated, else phase 1's, else -inf}."""
     tcfg = tcfg or TrainConfig()
     seeds = [int(s) for s in seeds]
     S = len(seeds)
+    dropout_seeds = seeds if dropout_seeds is None else [
+        int(s) for s in dropout_seeds]
     if state_dicts is not None and not isinstance(state_dicts, Mapping):
         state_dicts = stack_state_dicts(list(state_dicts), "cpu")
     if member_chunk is not None and 0 < member_chunk < S:
         def run_one(idx):
             sub = (None if state_dicts is None else
                    {k: v[idx] for k, v in state_dicts.items()})
-            params, hist = train_ensemble(
+            return train_members(
                 config, train_b, valid_b, test_b, [seeds[i] for i in idx],
-                tcfg, None, exec_cfg, sub, verbose)
-            return {"params": params, "history": hist}
+                tcfg, None if lrs is None else [lrs[i] for i in idx],
+                [dropout_seeds[i] for i in idx], None, exec_cfg, sub,
+                verbose)
 
-        out = run_member_chunks(run_one, list(range(S)), member_chunk)
-        return out["params"], out["history"]
+        return run_member_chunks(run_one, list(range(S)), member_chunk)
 
     gan = GAN(config, exec_cfg or ExecutionConfig())
     device = train_b["returns"].device
@@ -296,13 +326,15 @@ def train_ensemble(config: GANConfig, train_b: Batch, valid_b: Batch,
              else init_member_params(config, seeds))
     params = {k: v.detach().to(device, torch.float32).clone().contiguous()
               for k, v in start.items()}
-    opts = {key: MemberOptimizer(member_subtree(params, key), tcfg.lr,
+    opts = {key: MemberOptimizer(member_subtree(params, key),
+                                 lrs or [tcfg.lr] * S,
                                  tcfg.grad_clip)
             for key in ("sdf_net", "moment_net")}
     # per member, per phase, per epoch: the seeds train_3phase(seed=s) draws
     member_seeds = [phase_epoch_seeds(s, [tcfg.num_epochs_unc,
                                           tcfg.num_epochs_moment,
-                                          tcfg.num_epochs]) for s in seeds]
+                                          tcfg.num_epochs])
+                    for s in dropout_seeds]
     phase_seeds = [list(zip(*(m[p] for m in member_seeds)))
                    for p in range(3)]
 
@@ -334,9 +366,13 @@ def train_ensemble(config: GANConfig, train_b: Batch, valid_b: Batch,
     h3 = run("conditional", best3, 2)
     final = vselect(best3.updated_sharpe, best3.params_sharpe,
                     vselect(best1.updated_sharpe, phase1, snapshot(params)))
+    reported = np.where(best3.updated_sharpe, best3.sharpe,
+                        np.where(best1.updated_sharpe, best1.sharpe,
+                                 -np.inf))
     history = {k: np.concatenate([h1[k], h3[k]], axis=1) for k in h1}
     log("Ensemble training complete")
-    return final, history
+    return {"params": final, "history": history,
+            "best_valid_sharpe": reported}
 
 
 # -- quorum -----------------------------------------------------------------

@@ -23,7 +23,7 @@ joint norm over the stack would clip every member by all members' norm).
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -80,15 +80,39 @@ class Optimizer:
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * g * g + self.b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(-self.lr * update)
+            p.add_(-self._lr(p) * update)
         return gnorm
+
+    def _lr(self, p: torch.Tensor):
+        return self.lr
 
 
 class MemberOptimizer(Optimizer):
     """:class:`Optimizer` over member-stacked tensors [S, ...]: member s is
     clipped by the global norm of its own gradients, then the same Adam
     runs elementwise, so each member's update is a one-model
-    ``Optimizer.step``. ``step`` returns the [S] pre-clip norms."""
+    ``Optimizer.step``. ``step`` returns the [S] pre-clip norms.
+
+    `lr` is one float for every member, or one per member (a sweep
+    bucket's grid: the JAX package's vmapped ``inject_hyperparams``
+    learning rate). Either is kept as an [S] f32 tensor on the params'
+    device and broadcast over each tensor's member axis; f32 times f32,
+    so equal values give the one-model step's bits."""
+
+    def __init__(self, params: Sequence[torch.Tensor],
+                 lr: Union[float, Sequence[float]], *args, **kw):
+        super().__init__(params, lr, *args, **kw)
+        S = self.params[0].shape[0]
+        lrs = [float(lr)] * S if isinstance(lr, (int, float)) else lr
+        self.lr = torch.as_tensor([float(v) for v in lrs],
+                                  dtype=torch.float32,
+                                  device=self.params[0].device)
+        if self.lr.shape[0] != S:
+            raise ValueError(f"{self.lr.shape[0]} learning rates for "
+                             f"{S} members")
+
+    def _lr(self, p):
+        return self.lr.view((-1,) + (1,) * (p.dim() - 1))
 
     def _norms(self, grads):
         sq = sum((g * g).reshape(g.shape[0], -1).sum(dim=1) for g in grads)

@@ -6,7 +6,8 @@ its limits are held here on the CPU: every hidden width of the JAX sweep
 grid (``deeplearninginassetpricing_paperreplication_tpu/parallel/sweep.py:82``
 ``grid_configs`` ``hidden_dims``) gets a plan within one block's shared
 memory, the paper's (64, 64) keeps two or more blocks resident per SM, and
-G · S blocks never spill past one wave.
+G · S blocks never spill past one wave at S ∈ {1, 2, 3, 4, 9} (S = 2 and 4
+are the sweep's grids).
 """
 
 import pytest
@@ -55,7 +56,7 @@ def test_paper_width_keeps_two_blocks_resident():
     assert outer <= plan.nt * plan.tile and vec <= K.BWD_VEC_TILES * plan.tile
 
 
-@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 9])
 @pytest.mark.parametrize("hidden", SWEEP_HIDDEN,
                          ids=["-".join(map(str, h)) for h in SWEEP_HIDDEN])
 def test_blocks_fill_one_wave_and_no_more(S, hidden):

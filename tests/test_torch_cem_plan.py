@@ -5,8 +5,9 @@ The plan is arithmetic in Python, and csrc/cond_em.cu recomputes its
 shared memory and threads, asks the card how many blocks it keeps resident,
 and refuses a plan that disagrees. So its shape and its limits are held
 here on the CPU, at the shapes the training paths and the JAX sweep grid
-use: S ∈ {1, 3, 9} members, K ∈ {4, 8} moments (the sweep's
-``num_condition_moment``), the paper's F = 46 and the fixture's F = 10,
+use: S ∈ {1, 2, 3, 4, 9} members (S = 2 and 4 are the sweep's grids),
+K ∈ {4, 8} moments (the sweep's ``num_condition_moment``), the paper's
+F = 46 and the fixture's F = 10,
 T ∈ {4, 12, 24, 48} periods and a ragged N, both dtypes, on an H100's 132
 SMs. Every plan fits one block's shared memory and fills whole waves (the
 grid is resident at once). The period groups and the backward's 128-stock
@@ -23,7 +24,7 @@ from deeplearninginassetpricing_paperreplication_torch.ops import cond_em as C
 SMS = 132  # an H100 SXM
 BLOCK_SMEM_LIMIT = 232_448  # 227 KB: what one block may use
 SM_SMEM = 233_472  # 228 KB an SM, with 1 KB reserved per resident block
-SHAPES = list(itertools.product((1, 3, 9), (4, 8), (46, 10), (4, 12, 24, 48),
+SHAPES = list(itertools.product((1, 2, 3, 4, 9), (4, 8), (46, 10), (4, 12, 24, 48),
                                 (10000, 10007)))
 IDS = [f"S{s}-K{k}-F{f}-T{t}-N{n}" for s, k, f, t, n in SHAPES]
 
@@ -119,7 +120,7 @@ def test_a_shape_that_cannot_fit_raises(kw):
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 9])
 def test_stages_and_instances(S, cd):
     """The CUDA-core routes take a constant number of stages (the forward
     two, the backward one) and a built instance; the geometry refuses any

@@ -1,6 +1,6 @@
 """The port's three CLIs share one set of execution flags.
 
-``train``, ``evaluate_ensemble`` and ``serving.server`` each take
+``train``, ``evaluate_ensemble``, ``sweep`` and ``serving.server`` each take
 ``--device``, ``--compute_dtype`` and ``--kernel auto|on|off`` through
 ``evaluate_ensemble.add_execution_args``, and ``execution_config`` turns
 them into the ``ExecutionConfig`` the run uses: ``--kernel off`` is how a
@@ -11,6 +11,7 @@ import pytest
 
 from deeplearninginassetpricing_paperreplication_torch import (
     evaluate_ensemble,
+    sweep,
     train,
 )
 from deeplearninginassetpricing_paperreplication_torch.serving import server
@@ -23,6 +24,7 @@ REQUIRED = {
     "evaluate_ensemble": (evaluate_ensemble.build_arg_parser,
                           ["--data_dir", "d", "--checkpoint_dirs", "r"]),
     "server": (server.build_arg_parser, ["--checkpoint_dirs", "r"]),
+    "sweep": (sweep.build_arg_parser, ["--data_dir", "d"]),
 }
 
 

@@ -11,7 +11,8 @@
   so only the batched summation order differs (rtol 2e-4);
 * the pieces: per-member dropout seeds, per-member gradient clipping,
   losses and metrics over a leading member axis, quorum;
-* the ``--train_seeds`` CLI and its round trip through ``--checkpoint_dirs``.
+* the ``--train_seeds`` CLI and its round trip through ``--checkpoint_dirs``,
+  its ``ensemble_report.json`` verified by its ``.sha256`` sidecar.
 
 Model: hidden (8, 8), LSTM (4,), K = 4, schedule 8/4/16, ignore 2, f32.
 """
@@ -36,6 +37,9 @@ from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble import 
     member_weights,
     run_member_chunks,
     train_ensemble,
+)
+from deeplearninginassetpricing_paperreplication_torch.reliability import (
+    verified,
 )
 from deeplearninginassetpricing_paperreplication_torch.training.checkpoint import (
     member_state_dicts,
@@ -355,7 +359,9 @@ def test_train_seeds_cli_round_trip(synthetic_dir, tmp_path, capsys):
         "--data_dir", str(synthetic_dir), "--train_seeds", "42", "123",
         "--epochs_unc", "4", "--epochs_moment", "2", "--epochs", "6",
         "--ignore_epoch", "1", "--save_dir", str(save), "--device", "cpu"])
-    report = json.loads((save / "ensemble_report.json").read_text())
+    report, _ = verified.load_verified(save / "ensemble_report.json",
+                                       json.loads)  # the sidecar verifies
+    assert verified.digest_path(save / "ensemble_report.json").exists()
     assert set(report) == {"seeds", "ensemble_sharpe", "explained_variation",
                            "cross_sectional_r2", "individual_test_sharpes"}
     assert report["seeds"] == [42, 123]

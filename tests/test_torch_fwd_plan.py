@@ -5,10 +5,12 @@ checks it on the card (it refuses a plan that disagrees, or one whose grid
 the card cannot keep resident), so its shape and its limits are held here
 on the CPU for every hidden width of the JAX sweep grid
 (``deeplearninginassetpricing_paperreplication_tpu/parallel/sweep.py:82``
-``grid_configs`` ``hidden_dims``) and S ∈ {1, 3, 9}, both routes: the plan
-fits one block's shared memory and the SM's at its blocks per SM, respects
-the registers the built kernels report, and its grid is the persistent set
-of resident blocks (or every cell, where there are fewer).
+``grid_configs`` ``hidden_dims``) and S ∈ {1, 2, 3, 4, 9} (one model, the
+sweep's --quick and bucket grids, the diagnostic retrains, the ensemble),
+both routes: the plan fits one block's shared memory and the SM's at its
+blocks per SM, respects the registers the built kernels report, and its
+grid is the persistent set of resident blocks (or every cell, where there
+are fewer).
 """
 
 import pytest
@@ -24,7 +26,7 @@ DTYPES = ["float32", "bfloat16"]
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 9])
 @pytest.mark.parametrize("hidden", SWEEP_HIDDEN, ids=IDS)
 def test_every_sweep_width_gets_a_plan_that_fits(hidden, S, cd):
     lay = K.ffn_layout(F, hidden)
@@ -79,7 +81,7 @@ def test_smem_geometry_at_the_paper_width():
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 9])
 @pytest.mark.parametrize("hidden", SWEEP_HIDDEN, ids=IDS)
 def test_grid_is_the_resident_set(hidden, S, cd):
     lay = K.ffn_layout(F, hidden)
