@@ -124,6 +124,21 @@ Phases, each printing its results; any failure exits non-zero:
    Then ``python -m ...sweep --quick`` (bf16) and ``evaluate_ensemble
    --checkpoint_dirs`` on its rank-0 run dirs: the same test Sharpe, and
    the report's and ranking's sidecars verify.
+10. Model health and promotion on the same panel: the diagnostics pass
+   (``ops/diagnostics.py``) of phase 6's model (S = 1) and phase 7's nine
+   members (S = 9) on the valid split, kernel route against
+   ``kernel="off"`` in f32 and bf16, each pass launching ``sdf_ffn_fwd`` and
+   ``cond_em_fwd`` once and nothing else, mean_k v_k² equal to the eval
+   loss_cond to rtol 1e-6, each pass timed; ``train_3phase`` again with
+   phase 6's seed and schedule, without and with ``diag_stride`` 2: params,
+   best checkpoints and history bit for bit phase 6's, the forward kernels'
+   launches up by the stride epochs + 1, a verified finite ``health.json``,
+   the epoch ms with and without; phase 6's train CLI call runs with
+   ``--diag_stride 4`` and must leave ``reference_profile.json``,
+   ``health.json`` and the ``diag_*`` fields; then the promotion CLI on
+   phase 7's nine members saved as run dirs: generation 1 with the offline
+   valid Sharpe, a NaN member, a torn member and a 3σ-shifted panel each
+   rejected by its slug, a second generation, ``rollback`` and ``show``.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -211,6 +226,12 @@ SWEEP_BUCKETS = [((64, 64), (4,), 8, 0.05), ((128, 128), (8,), 4, 0.1),
 SWEEP_LRS = (1e-3, 5e-4, 2e-3, 1e-4)
 SWEEP_SEED = 42
 SWEEP_DIR = ROOT / "_smoke_sweep"
+# model health and promotion (phase 10): the diag run's stride, the train
+# CLI's, the diagnostics passes timed per route, and the gate's scratch
+HEALTH_DIR = ROOT / "_smoke_health"
+DIAG_STRIDE = 2
+CLI_DIAG_STRIDE = 4
+DIAG_TIMED_PASSES = 5
 # (T, N) of the sweep's kernel checks: the train split
 SWEEP_TN = (CEM_T, 10_000)
 # expected launches per epoch of a sweep bucket (as PER_EPOCH): the train
@@ -1859,7 +1880,7 @@ def train_checks(torch, K, C, card, splits, opts):
             K.reset_launch_count()
             C.reset_launch_count()
             t0 = time.perf_counter()
-            gan, _, hist, trainer = trainer_mod.train_3phase(
+            gan, params, hist, trainer = trainer_mod.train_3phase(
                 cfg, *batches, tcfg=tcfg, seed=42, verbose=False,
                 exec_cfg=exec_cfg)
             before = counts(K, C)
@@ -1870,7 +1891,7 @@ def train_checks(torch, K, C, card, splits, opts):
                                    final=final, final_launches=final_launches,
                                    epoch_ms=trainer.epoch_ms(),
                                    wall=time.perf_counter() - t0,
-                                   trainer=trainer)
+                                   trainer=trainer, params=params)
     finally:
         trainer_mod.Trainer.run_phase = run_phase
 
@@ -1923,7 +1944,9 @@ def train_checks(torch, K, C, card, splits, opts):
                 + on["final_launches"][i]
                 for i, name in enumerate(("sdf_ffn_fwd", "sdf_ffn_bwd",
                                           "cond_em_fwd", "cond_em_bwd"))}
-    return launches, on["epoch_ms"]
+    return launches, on["epoch_ms"], dict(cfg=cfg, params=on["params"],
+                                          hist=on["hist"],
+                                          epoch_ms=on["epoch_ms"])
 
 
 def wide_train_check(torch, K, C, card, splits):
@@ -2036,9 +2059,10 @@ def cli_check(torch, card):
                 "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
                 "--epochs", str(SCHEDULE["num_epochs"]), "--ignore_epoch",
                 str(SCHEDULE["ignore_epoch"]), "--print_freq", "8",
-                "--device", DEVICE])
+                "--device", DEVICE, "--diag_stride", str(CLI_DIAG_STRIDE)])
     wall = time.perf_counter() - t0
     metrics = json.loads((RUN_DIR / "final_metrics.json").read_text())
+    health_cli_files(card)
     res = evaluate_ensemble([str(RUN_DIR)], str(DATA_DIR),
                             exec_cfg=ExecutionConfig(device=DEVICE),
                             verbose=False)
@@ -2806,6 +2830,360 @@ def sweep_cli_check(torch, card):
 # -- main ----------------------------------------------------------------------
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+
+def health_cli_files(card):
+    """The train CLI's run dir under --diag_stride: the drift profile,
+    health.json and the diag_* fields of history.npz, each verified."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        import drift, modelhealth
+    from deeplearninginassetpricing_paperreplication_torch.ops.diagnostics \
+        import SCALAR_KEYS
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .verified import digest_path
+
+    for name in ("reference_profile.json", "health.json"):
+        check((RUN_DIR / name).exists() and digest_path(RUN_DIR / name)
+              .exists(), f"the train CLI under --diag_stride left no "
+                         f"verified {name}")
+    hist = np.load(RUN_DIR / "history.npz")
+    want = [float(e % CLI_DIAG_STRIDE == 0) for n in (
+        SCHEDULE["num_epochs_unc"], SCHEDULE["num_epochs"]) for e in range(n)]
+    check(all(f"diag_{k}" in hist.files for k in SCALAR_KEYS)
+          and "diag_moment_violations" in hist.files,
+          "history.npz lacks diag_* fields")
+    check(hist["diag_computed"].tolist() == want,
+          f"diag_computed {hist['diag_computed'].tolist()} != {want}")
+    health = modelhealth.read_health(RUN_DIR)
+    profile = drift.read_profile(RUN_DIR)
+    check(health is not None and health["finite"], "CLI health.json is "
+                                                   "missing or non-finite")
+    check(profile is not None and len(profile["individual"])
+          == PANEL["n_features"], "CLI reference_profile.json is unusable")
+    print(f"[health cli] train --diag_stride {CLI_DIAG_STRIDE}: "
+          f"reference_profile.json ({profile['n_periods']} x "
+          f"{profile['n_stocks']}), health.json (moment_violation_max "
+          f"{health['diagnostics']['moment_violation_max']:.6f}, history "
+          f"row {health['history_last']['history_row']}), "
+          f"{int(hist['diag_computed'].sum())} diag rows of "
+          f"{hist['diag_computed'].size} ({card})", flush=True)
+
+
+def diag_pass_checks(torch, K, C, card, splits, models):
+    """(a) The diagnostics pass (``diagnostics_members``) of phase 6's model
+    (S = 1) and phase 7's nine members (S = 9) on the valid split, kernel
+    route against kernel="off" in f32 and bf16; the identity mean_k v_k² ==
+    loss_cond of the eval forward on the kernel route (f32, rtol 1e-6); one
+    pass launching sdf_ffn_fwd and cond_em_fwd once each and nothing else;
+    each pass event-timed and its device ms from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import \
+        GAN
+    from deeplearninginassetpricing_paperreplication_torch.ops.diagnostics \
+        import diagnostics_members
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    valid = splits[1]
+    rows = {}
+    for tag, cfg, params in models:
+        S = next(iter(params.values())).shape[0]
+        gans = {(kernel, cd): GAN(cfg, ExecutionConfig(
+            kernel=kernel, compute_dtype=cd, device=DEVICE))
+            for kernel in ("on", "off") for cd in ("float32", "bfloat16")}
+        batch = gans["on", "float32"].prepare_batch(valid.to_batch(DEVICE))
+        row = {}
+        for cd in ("float32", "bfloat16"):
+            on_gan, off_gan = gans["on", cd], gans["off", cd]
+            K.reset_launch_count()
+            C.reset_launch_count()
+            d_on = diagnostics_members(on_gan, params, batch)
+            torch.cuda.synchronize()
+            n = panel_counts(K, C)
+            check(n == (1, 0, 0, 1, 0, 0),
+                  f"{tag} {cd}: one diagnostics pass launched (fwd, bwd, dx, "
+                  f"cem_fwd, cem_bwd, cem_dx) {n}, not (1, 0, 0, 1, 0, 0)")
+            d_off = {k: v.cpu().numpy() for k, v in diagnostics_members(
+                off_gan, params, batch).items()}
+            worst = 0.0
+            for k, b in d_off.items():
+                a = d_on[k].cpu().numpy()
+                # adv_gap = loss_cond - loss_unc errs as its terms do
+                ref = (np.maximum(np.abs(d_off["loss_cond"]),
+                                  np.abs(d_off["loss_unc"]))
+                       if k == "adv_gap" else b)
+                check(np.isfinite(a).all(), f"{tag} {cd}: non-finite {k}")
+                check(within(np.abs(a - b), ref, cd, **F32_TOL),
+                      f"{tag} {cd}: diagnostics {k} kernel {a} vs plain {b}")
+                if np.abs(ref).max():
+                    worst = max(worst, float(np.max(np.abs(a - b))
+                                             / np.abs(ref).max()))
+            ms = cuda_ms(torch, lambda: diagnostics_members(
+                on_gan, params, batch), reps=DIAG_TIMED_PASSES, warmup=1)
+            plain_ms = cuda_ms(torch, lambda: diagnostics_members(
+                off_gan, params, batch), reps=DIAG_TIMED_PASSES, warmup=1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(DIAG_TIMED_PASSES):
+                    diagnostics_members(on_gan, params, batch)
+                torch.cuda.synchronize()
+            _, busy = device_events(prof)
+            row[cd] = dict(ms=ms, device_ms=busy / DIAG_TIMED_PASSES,
+                           plain_ms=plain_ms, max_rel_dev=worst)
+            if cd == "float32":
+                with torch.no_grad():
+                    loss_cond = on_gan.forward_members(
+                        params, batch, "conditional")["loss_conditional"]
+                v2 = (d_on["moment_violations"].double() ** 2).mean(dim=1)
+                rel = float(((v2 - loss_cond.double()).abs()
+                             / loss_cond.double().abs()).max())
+                check(rel <= 1e-6, f"{tag}: mean_k v_k^2 vs the eval "
+                                   f"loss_cond, rel {rel:.3e} > 1e-6")
+                row["identity_rel"] = rel
+                row["moment_violation_max"] = [
+                    round(float(x), 6) for x in d_on["moment_violation_max"]]
+            print(f"[health diag] {tag} S={S} T={valid.T} N={valid.N} {cd}: "
+                  f"kernel {ms:.4f} ms (device {busy / DIAG_TIMED_PASSES:.4f}"
+                  f" ms), plain {plain_ms:.4f} ms a pass; kernel vs plain max "
+                  f"rel dev {worst:.3e}; launches (fwd, bwd, dx, cem_fwd, "
+                  f"cem_bwd, cem_dx) {n} ({card})", flush=True)
+        print(f"[health diag] {tag} S={S}: mean_k v_k^2 vs eval loss_cond "
+              f"max rel {row['identity_rel']:.3e} (bar 1e-6); "
+              f"moment_violation_max {row['moment_violation_max']}",
+              flush=True)
+        rows[f"S={S}"] = row
+    return rows
+
+
+def diag_train_check(torch, K, C, card, splits, single):
+    """(b) train_3phase with phase 6's seed, config and schedule on the
+    kernel route, without and with diag_stride, in turns (without, with,
+    with, without), each with a save_dir: every run's final params and
+    non-diag history bit for bit phase 6's, the best checkpoints with the
+    diagnostics bit for bit those without, the forward kernels' launches
+    risen by exactly the stride epochs + 1 over phase 6's, and a finite
+    health.json loaded as the file itself."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .modelhealth import HEALTH_FILENAME
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .verified import digest_path, load_verified
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import load_checkpoint_dir
+    from deeplearninginassetpricing_paperreplication_torch.training.trainer \
+        import train_3phase
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, TrainConfig
+
+    batches = [ds.to_batch(DEVICE) for ds in splits]
+    n_epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+                "moment": SCHEDULE["num_epochs_moment"],
+                "conditional": SCHEDULE["num_epochs"]}
+    train_launches = tuple(sum(n_epochs[p] * per[i]
+                               for p, per in PER_EPOCH.items())
+                           for i in range(4))
+    n_diag = sum(-(-n_epochs[p] // DIAG_STRIDE)
+                 for p in ("unconditional", "conditional"))
+    runs = []
+    for i, stride in enumerate((None, DIAG_STRIDE, DIAG_STRIDE, None)):
+        save = HEALTH_DIR / f"train_{i}_stride_{stride}"
+        shutil.rmtree(save, ignore_errors=True)
+        K.reset_launch_count()
+        C.reset_launch_count()
+        t0 = time.perf_counter()
+        _, params, hist, trainer = train_3phase(
+            single["cfg"], *batches, tcfg=TrainConfig(
+                **SCHEDULE, seed=42, print_freq=10 ** 6), save_dir=str(save),
+            seed=42, verbose=False, diag_stride=stride,
+            exec_cfg=ExecutionConfig(kernel="on", compute_dtype="float32",
+                                     device=DEVICE))
+        torch.cuda.synchronize()
+        runs.append(dict(params=params, hist=hist, save=save, stride=stride,
+                         launches=panel_counts(K, C),
+                         wall=time.perf_counter() - t0,
+                         epoch_ms=trainer.epoch_ms()))
+    off, on = runs[0], runs[1]
+    for r in runs:
+        tag = "with" if r["stride"] else "without"
+        # each run with a save_dir adds the health.json pass: one launch of
+        # each forward kernel
+        extra = n_diag + 1 if r["stride"] else 1
+        want = (train_launches[0] + extra, train_launches[1], 0,
+                train_launches[2] + extra, train_launches[3], 0)
+        check(r["launches"] == want, f"{tag} diagnostics: launches (fwd, "
+              f"bwd, dx, cem_fwd, cem_bwd, cem_dx) {r['launches']} != {want}")
+        check(all(torch.equal(r["params"][k], single["params"][k])
+                  for k in single["params"]),
+              f"final params {tag} diagnostics differ from phase 6's")
+        for k, v in single["hist"].items():
+            check(np.array_equal(r["hist"][k], v),
+                  f"history {k} {tag} diagnostics differs from phase 6's")
+    for which in ("best_model_loss", "best_model_sharpe", "final_model"):
+        a, b = (load_checkpoint_dir(r["save"], which)[1] for r in (off, on))
+        check(all(torch.equal(a[k], b[k]) for k in a),
+              f"{which}.pt differs with the diagnostics on")
+    path = on["save"] / HEALTH_FILENAME
+    doc, got = load_verified(path, lambda b: json.loads(b.decode()))
+    check(digest_path(path).exists() and got == path,
+          f"health.json loaded from {got}, not the verified {path}")
+    diag = doc["diagnostics"]
+    check(doc["finite"] and all(np.isfinite(v) for v in diag.values()
+                                if isinstance(v, float))
+          and np.isfinite(diag["moment_violations"]).all(),
+          "health.json of the diag run is not finite")
+    check(np.array_equal(on["hist"]["diag_computed"], [
+        float(e % DIAG_STRIDE == 0) for p in ("unconditional", "conditional")
+        for e in range(n_epochs[p])]), "diag_computed pattern is wrong")
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+
+    def mean_ms(stride):
+        rs = [r["epoch_ms"] for r in runs if r["stride"] == stride]
+        return {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
+
+    epoch_on, epoch_off = mean_ms(DIAG_STRIDE), mean_ms(None)
+    print(f"[health train] diag_stride {DIAG_STRIDE} vs phase 6 (f32 kernel "
+          f"route, dropout {DROPOUT}, 8/4/16): final params, best "
+          f"checkpoints and non-diag history bit for bit; launches (fwd, bwd, "
+          f"dx, cem_fwd, cem_bwd, cem_dx) {on['launches']} = training "
+          f"{train_launches} + {n_diag} stride epochs + 1 health pass of "
+          f"each forward; health.json verified, moment_violation_max "
+          f"{diag['moment_violation_max']:.6f}", flush=True)
+    for r in runs:
+        print(f"[health train] run diag_stride {r['stride']}: wall ms per "
+              f"epoch {fmt(r['epoch_ms'])}; {r['wall']:.2f} s", flush=True)
+    print(f"[health train] wall ms per epoch, mean of two runs each, with "
+          f"diagnostics: {fmt(epoch_on)}; without: {fmt(epoch_off)}; phase "
+          f"6: {fmt(single['epoch_ms'])} ({card})", flush=True)
+    return dict(launches=on["launches"], epoch_ms_diag=epoch_on,
+                epoch_ms_off=epoch_off, n_diag=n_diag)
+
+
+def _promote_cli(argv):
+    """The port's promotion CLI in this process: (exit code, its JSON
+    line)."""
+    import contextlib
+    import io
+
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        import promotion
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = promotion.main(argv)
+    lines = out.getvalue().strip()
+    return rc, json.loads(lines) if lines else None
+
+
+def promotion_checks(torch, K, C, card, splits, ens_cfg, ens_params):
+    """(c) The promotion CLI on phase 7's nine members, saved as run dirs,
+    with the valid split as a .npz: generation 1 with the offline valid
+    Sharpe; a NaN member, a truncated member and a 3-sigma-shifted panel
+    each rejected by its slug; then a second generation, rollback and
+    show."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .drift import reference_profile, write_profile
+    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
+        import ensemble_metrics
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import member_state_dicts, save_state_dict
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    train, valid, _ = splits
+    members = HEALTH_DIR / "members"
+    shutil.rmtree(members, ignore_errors=True)
+    dirs = []
+    for seed, sd in zip(ENSEMBLE_SEEDS, member_state_dicts(ens_params)):
+        d = members / f"seed_{seed}"
+        d.mkdir(parents=True)
+        ens_cfg.save(d / "config.json")
+        save_state_dict(d / "best_model_sharpe.pt", sd)
+        dirs.append(str(d))
+    prof = write_profile(HEALTH_DIR, reference_profile(
+        train.full_batch(), source=str(DATA_DIR)))
+    npz, shifted = HEALTH_DIR / "valid.npz", HEALTH_DIR / "valid_3sd.npz"
+    np.savez(npz, **valid.full_batch())
+    sd = train.individual[train.mask].std(axis=0)
+    np.savez(shifted, **dict(valid.full_batch(), individual=(
+        valid.individual + 3 * sd).astype(np.float32)))
+    ctl = HEALTH_DIR / "ctl"
+    shutil.rmtree(ctl, ignore_errors=True)
+    gate = ["--moment_tolerance", "1.0", "--drift_threshold", "0.25",
+            "--reference_profile", str(prof), "--device", DEVICE]
+
+    K.reset_launch_count()
+    C.reset_launch_count()
+    t0 = time.perf_counter()
+    rc, res = _promote_cli(["promote", "--root", str(ctl), "--candidates",
+                            *dirs, "--valid_npz", str(npz), *gate])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = panel_counts(K, C)
+    check(rc == 0 and res["generation"] == 1,
+          f"the nine members were not promoted: rc {rc}, {res}")
+    # one diagnostics pass (sdf_ffn_fwd + cond_em_fwd) and the ensemble
+    # metrics' weights (sdf_ffn_fwd), every launch at S = 9
+    check(launches == (2, 0, 0, 1, 0, 0), f"the gate launched (fwd, bwd, "
+          f"dx, cem_fwd, cem_bwd, cem_dx) {launches}, not (2, 0, 0, 1, 0, 0)")
+    offline = float(ensemble_metrics(
+        ens_cfg, ens_params, valid.to_batch(DEVICE),
+        ExecutionConfig(device=DEVICE))["ensemble_sharpe"])
+    d = abs(res["valid_sharpe"] - offline)
+    check(d <= 1e-6, f"pointer valid Sharpe {res['valid_sharpe']} vs offline "
+                     f"ensemble_metrics {offline} (|d| {d:.3e})")
+    print(f"[promotion] 9 members (phase 7) promoted to generation 1 in "
+          f"{wall:.2f} s (stack, digests, drift, one S=9 diagnostics pass, "
+          f"ensemble metrics; bf16 kernel); launches (fwd, bwd, dx, cem_fwd, "
+          f"cem_bwd, cem_dx) {launches}; valid Sharpe "
+          f"{res['valid_sharpe']:.6f}, offline ensemble_metrics "
+          f"{offline:.6f} (|d| {d:.1e}, bar 1e-6) "
+          f"({card})", flush=True)
+
+    rejected = {}
+    nan_dir = members / "nan_member"
+    nan_dir.mkdir()
+    ens_cfg.save(nan_dir / "config.json")
+    save_state_dict(nan_dir / "best_model_sharpe.pt", {
+        k: v * float("nan") for k, v in member_state_dicts(ens_params)[0]
+        .items()})
+    torn_dir = members / "torn_member"
+    shutil.copytree(dirs[0], torn_dir)
+    torn = torn_dir / "best_model_sharpe.pt"
+    with open(torn, "r+b") as f:
+        f.truncate(torn.stat().st_size // 2)
+    for slug, cands, panel in (
+            ("moment_violation", dirs[:8] + [str(nan_dir)], npz),
+            ("digest_mismatch", dirs[:8] + [str(torn_dir)], npz),
+            ("data_drift", dirs, shifted)):
+        t0 = time.perf_counter()
+        rc, res = _promote_cli(["promote", "--root", str(ctl),
+                                "--candidates", *cands, "--valid_npz",
+                                str(panel), *gate])
+        rejected[slug] = time.perf_counter() - t0
+        check(rc == 1 and res["rejected"] == slug,
+              f"expected a {slug} rejection, got rc {rc}: {res}")
+    rc, res = _promote_cli(["promote", "--root", str(ctl), "--candidates",
+                            *dirs[:3], "--valid_npz", str(npz),
+                            "--sharpe_tolerance", "-1", *gate])
+    check(rc == 0 and res["generation"] == 2, f"second promotion: {res}")
+    rc, res = _promote_cli(["rollback", "--root", str(ctl), "--reason",
+                            "chip smoke"])
+    check(rc == 0 and res == {"generation": 3, "rolled_back_from": 2},
+          f"rollback: {res}")
+    rc, shown = _promote_cli(["show", "--root", str(ctl)])
+    check(rc == 0 and shown["generation"] == 3
+          and shown["checkpoint_dirs"] == dirs,
+          "show after the rollback does not name the nine members")
+    print("[promotion] rejected: " + ", ".join(
+        f"{k} ({v:.2f} s)" for k, v in rejected.items())
+        + "; generation 2 (3 members), rollback to generation 3 = the nine, "
+          f"show: generation {shown['generation']} ({card})", flush=True)
+    shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+    return dict(launches=launches, wall_s=wall, reject_s=rejected)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3051,8 +3429,8 @@ def main(argv=None) -> int:
 
     # 6. training
     t0 = time.perf_counter()
-    train_launches, single_epoch_ms = train_checks(torch, K, C, card, splits,
-                                                   opts)
+    train_launches, single_epoch_ms, single = train_checks(
+        torch, K, C, card, splits, opts)
     roofline_lines("train", splits, single_epoch_ms, 1, shape_ceiling, card)
     wide_launches = wide_train_check(torch, K, C, card, splits)
     cli_check(torch, card)
@@ -3083,19 +3461,38 @@ def main(argv=None) -> int:
     sweep_cli_check(torch, card)
     print(f"[sweep] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # 10. model health and promotion
+    t0 = time.perf_counter()
+    ens_cfg = single["cfg"]  # phase 7 trains phase 6's configuration
+    diag_rows = diag_pass_checks(torch, K, C, card, splits, [
+        ("phase 6 model", single["cfg"],
+         {k: v[None] for k, v in single["params"].items()}),
+        ("phase 7 members", ens_cfg, ens_params)])
+    diag_train = diag_train_check(torch, K, C, card, splits, single)
+    gate = promotion_checks(torch, K, C, card, splits, ens_cfg, ens_params)
+    print(f"[health] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
+    health_idx = {"sdf_ffn_fwd": 0, "sdf_ffn_bwd": 1, "cond_em_fwd": 3,
+                  "cond_em_bwd": 4}
+
     def by_path(name, serving=0):
         paths = {"training": train_launches[name],
                  "training_hidden_128x128": wide_launches[name],
                  "ensemble_training": ens_launches[name],
-                 "sweep": sweep_launches[name]}
+                 "sweep": sweep_launches[name],
+                 f"training_diag_stride_{DIAG_STRIDE}": diag_train[
+                     "launches"][health_idx[name]]}
         if serving:
             paths = {"serving": serving, **paths}
         if grad_launches[name]:
             paths["panel_gradient"] = grad_launches[name]
+        if gate["launches"][health_idx[name]]:
+            paths["promotion_gate"] = gate["launches"][health_idx[name]]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name])
@@ -3115,7 +3512,7 @@ def main(argv=None) -> int:
              replaces=tpu + "pallas_ffn.py:561",
              also_replaces=tpu + "pallas_ffn.py:188",
              **by_path("sdf_ffn_fwd", serve_launches), **row,
-             at_ensemble_shape=ens_fwd_row),
+             at_ensemble_shape=ens_fwd_row, diagnostics_pass=diag_rows),
         dict(name="sdf_ffn_bwd", route="cuda", source=src + "sdf_ffn_bwd.cu",
              replaces=tpu + "pallas_ffn.py:205",
              also_replaces=tpu + "pallas_ffn.py:591",
@@ -3125,7 +3522,8 @@ def main(argv=None) -> int:
              replaces=tpu + "pallas_moment.py:64",
              also_replaces=tpu + "pallas_moment.py:274",
              **by_path("cond_em_fwd"), **cem_rows["fwd"],
-             at_ensemble_shape=cem_rows["ensemble_fwd"]),
+             at_ensemble_shape=cem_rows["ensemble_fwd"],
+             diagnostics_pass=diag_rows),
         dict(name="cond_em_bwd", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:86",
              also_replaces=tpu + "pallas_moment.py:302",

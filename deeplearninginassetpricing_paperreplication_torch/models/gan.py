@@ -21,8 +21,10 @@ conditional loss goes through the fused conditional-EM (``ops/cond_em.py``)
 and h never materializes; any other moment architecture builds h and calls
 ``conditional_loss``, as in the JAX package. Phase 1 does not compute h at
 all (JAX builds it and jit drops it). One fused-FFN and one fused
-conditional-EM call serve all S members. The inference-mode ``weights`` and
-``moments`` are the serving path's.
+conditional-EM call serve all S members. :meth:`GAN.member_terms` forms the
+weights, F and em (or h) that both the losses and the model-health
+diagnostics (``ops/diagnostics.py``) are built from. The inference-mode
+``weights`` and ``moments`` are the serving path's.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from ..ops.cond_em import fused_conditional_em
 from ..ops.losses import (
     conditional_loss,
+    em_loss,
     portfolio_returns,
     residual_loss,
     unconditional_loss,
@@ -114,6 +117,52 @@ class GAN:
 
     # -- member-stacked training ------------------------------------------------
 
+    def member_terms(self, params: Mapping[str, torch.Tensor], batch: Batch,
+                     seeds: Optional[Sequence[int]] = None,
+                     moments: bool = True):
+        """(weights [S, T, N], F [S, T], em, h): the pieces every loss and
+        diagnostic of S members is built from, from member-stacked
+        ``state_dict``-keyed params [S, ...] (`seeds` as in
+        :meth:`forward_members`; None is the eval forward). With `moments`,
+        the default moment net with macro data gives the empirical moment
+        means em [S, K, N] = Σ_t h·R·m·(1+F) / T_i from the fused
+        conditional-EM (h never materializes) and h None; any other moment
+        net gives h [S, K, T, N] and em None. Without `moments` both are
+        None and no moment-net work is done."""
+        cfg = self.cfg
+        batch = self.prepare_batch(batch)
+        returns, mask, macro = batch["returns"], batch["mask"], batch.get(
+            "macro")
+        sdf = {k[len("sdf_net."):]: v for k, v in params.items()
+               if k.startswith("sdf_net.")}
+        moment = {k[len("moment_net."):]: v for k, v in params.items()
+                  if k.startswith("moment_net.")}
+        generators = None
+        if seeds is not None:
+            seeds = [int(s) for s in seeds]
+            generators = [torch.Generator(device=returns.device).manual_seed(s)
+                          for s in seeds]
+        states = macro_states(sdf, cfg, macro, generators)
+        weights = sdf_raw_weights(sdf, cfg, self.exec_cfg,
+                                  batch["individual_t"], states,
+                                  seed=seeds) * mask
+        if cfg.normalize_w:
+            weights = masked_zero_mean(weights, mask)
+        F = portfolio_returns(weights, returns, mask, cfg.weighted_loss)
+        em = h = None
+        if moments and not cfg.hidden_dim_moment and macro is not None:
+            k_period, k_stock, bias = moment_output_members(moment, cfg)
+            em = fused_conditional_em(
+                batch["individual_t"], macro @ k_period + bias[:, None, :],
+                returns * mask * (1.0 + F)[..., None],
+                1.0 / mask.sum(dim=0).clamp_min(1), k_stock,
+                compute_dtype=self.exec_cfg.compute_dtype,
+                kernel=self.exec_cfg.kernel)  # [S, K, N]
+        elif moments:
+            h = moment_h_members(moment, cfg, macro, batch["individual"],
+                                 generators)
+        return weights, F, em, h
+
     def forward_members(self, params: Mapping[str, torch.Tensor],
                         batch: Batch, phase: str = "conditional",
                         seeds: Optional[Sequence[int]] = None
@@ -131,44 +180,20 @@ class GAN:
         cfg = self.cfg
         batch = self.prepare_batch(batch)
         returns, mask = batch["returns"], batch["mask"]
-        macro, n_assets = batch.get("macro"), batch.get("n_assets")
-        sdf = {k[len("sdf_net."):]: v for k, v in params.items()
-               if k.startswith("sdf_net.")}
-        moment = {k[len("moment_net."):]: v for k, v in params.items()
-                  if k.startswith("moment_net.")}
-        generators = None
-        if seeds is not None:
-            seeds = [int(s) for s in seeds]
-            generators = [torch.Generator(device=returns.device).manual_seed(s)
-                          for s in seeds]
-        states = macro_states(sdf, cfg, macro, generators)
-        weights = sdf_raw_weights(sdf, cfg, self.exec_cfg,
-                                  batch["individual_t"], states,
-                                  seed=seeds) * mask
-        if cfg.normalize_w:
-            weights = masked_zero_mean(weights, mask)
+        n_assets = batch.get("n_assets")
+        weights, F, em, h = self.member_terms(
+            params, batch, seeds, moments=phase != "unconditional")
         zero = weights.new_zeros(weights.shape[0])
         if phase == "unconditional":
-            loss_unc, F = unconditional_loss(weights, returns, mask,
-                                             cfg.weighted_loss,
+            loss_unc, _ = unconditional_loss(weights, returns, mask,
+                                             cfg.weighted_loss, F=F,
                                              n_assets=n_assets)
             loss_cond = zero
-        elif not cfg.hidden_dim_moment and macro is not None:
-            k_period, k_stock, bias = moment_output_members(moment, cfg)
-            F = portfolio_returns(weights, returns, mask, cfg.weighted_loss)
-            em = fused_conditional_em(
-                batch["individual_t"], macro @ k_period + bias[:, None, :],
-                returns * mask * (1.0 + F)[..., None],
-                1.0 / mask.sum(dim=0).clamp_min(1), k_stock,
-                compute_dtype=self.exec_cfg.compute_dtype,
-                kernel=self.exec_cfg.kernel)  # [S, K, N]
-            loss_cond = ((em ** 2).mean(dim=(1, 2)) if n_assets is None else
-                         (em ** 2).sum(dim=(1, 2)) / (em.shape[1] * n_assets))
+        elif em is not None:
+            loss_cond = em_loss(em, n_assets)
         else:
-            h = moment_h_members(moment, cfg, macro, batch["individual"],
-                                 generators)
-            loss_cond, F = conditional_loss(weights, returns, mask, h,
-                                            cfg.weighted_loss,
+            loss_cond, _ = conditional_loss(weights, returns, mask, h,
+                                            cfg.weighted_loss, F=F,
                                             n_assets=n_assets)
         if phase == "moment":
             loss_unc = zero

@@ -63,10 +63,16 @@ def conditional_loss(weights: torch.Tensor, returns: torch.Tensor,
     x = returns * mask * sdf[..., None]  # [T, N]
     empirical_mean = torch.einsum("...ktn,...tn->...kn", moments,
                                   x) / t_per_asset
+    return em_loss(empirical_mean, n_assets), F
+
+
+def em_loss(em: torch.Tensor, n_assets=None) -> torch.Tensor:
+    """mean_k mean_i em² of the empirical moment means em [..., K, N]: the
+    conditional loss, whichever route formed em. ``n_assets`` (the true
+    asset count under stock padding) divides in place of N."""
     if n_assets is None:
-        return (empirical_mean ** 2).mean(dim=(-2, -1)), F
-    return ((empirical_mean ** 2).sum(dim=(-2, -1))
-            / (moments.shape[-3] * n_assets)), F
+        return (em ** 2).mean(dim=(-2, -1))
+    return (em ** 2).sum(dim=(-2, -1)) / (em.shape[-2] * n_assets)
 
 
 def residual_loss(weights: torch.Tensor, returns: torch.Tensor,

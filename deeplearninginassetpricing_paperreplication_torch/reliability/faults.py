@@ -7,9 +7,10 @@ names only the actions below). The paper's protocol is a long
 multi-run pipeline (three GAN phases × a hyperparameter sweep × a 9-member
 ensemble), exactly the shape that dies to preemptions, OOM kills and NaN
 blowups hours in. Named injection sites sit in the port's verified file IO
-(``checkpoint/save``, ``checkpoint/saved``, ``checkpoint/load``) and the
-sweep (``sweep/bucket``, ``sweep/ledger_write``), and a JSON *fault plan*
-decides which site hits fire which fault.
+(``checkpoint/save``, ``checkpoint/saved``, ``checkpoint/load``), the
+sweep (``sweep/bucket``, ``sweep/ledger_write``) and the promotion gate
+(``promote/validate``, ``promote/write``), and a JSON *fault plan* decides
+which site hits fire which fault.
 
 Plan format (``DLAP_FAULT_PLAN`` env: inline JSON, or a path to a JSON
 file) — a list of entries (a single object is accepted too)::
@@ -67,6 +68,10 @@ SITES = (
     "sweep/bucket",            # per sweep bucket trained (ctx: bucket,
                                #   n_buckets, path=the bucket's ledger key)
     "sweep/ledger_write",      # before a bucket record lands (ctx: path)
+    "promote/validate",        # a candidate enters the gate (ctx: path =
+                               #   the source, n_members)
+    "promote/write",           # before the pointer advances (ctx: path,
+                               #   generation)
 )
 
 

@@ -7,10 +7,13 @@ The counterpart of the JAX package's ``train.py`` for the flags this port
 implements (the schedule, the model's widths, dropout and seed), plus the
 port's ``--device`` (default cuda: a host without a CUDA device is an
 error naming CUDA, never a quiet CPU run), ``--kernel auto|on|off`` and
-``--compute_dtype``. It writes ``config.json``, ``best_model_loss.pt``,
-``best_model_sharpe.pt``, ``final_model.pt``, ``history.npz`` and
-``final_metrics.json`` into ``--save_dir``; the port's
-``evaluate_ensemble`` and server read that directory.
+``--compute_dtype``, and ``--diag_stride``. It writes
+``reference_profile.json`` (the train split's drift profile, before
+training), ``config.json``, ``best_model_loss.pt``, ``best_model_sharpe.pt``,
+``final_model.pt``, ``history.npz`` (with ``diag_*`` fields under
+``--diag_stride``), ``health.json`` and ``final_metrics.json`` into
+``--save_dir``; the port's ``evaluate_ensemble``, server and promotion gate
+read that directory.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pathlib import Path
 
 from .data.panel import load_splits
 from .evaluate_ensemble import add_execution_args, execution_config
+from .observability.drift import reference_profile, write_profile
 from .training.trainer import train_3phase
 from .utils.config import GANConfig, TrainConfig, resolve_device
 
@@ -46,6 +50,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=0.05)
     p.add_argument("--hidden_dim_moment", type=int, nargs="+", default=[])
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--diag_stride", type=int, default=None, metavar="K",
+                   help="Fold the model-health diagnostics "
+                        "(ops/diagnostics.py: per-moment violation norms, "
+                        "SDF/portfolio stats, adversarial gap) into the "
+                        "phase-1 and phase-3 epochs every K epochs, landing "
+                        "as diag_* history.npz fields. Observationally free: "
+                        "trained params and best checkpoints are "
+                        "bit-identical with the knob on or off")
     add_execution_args(p)
     return p
 
@@ -78,10 +90,16 @@ def main(argv=None):
           f"{valid_ds.N} | Test: {test_ds.T} x {test_ds.N}", flush=True)
     batches = {name: ds.to_batch(device) for name, ds in
                (("train", train_ds), ("valid", valid_ds), ("test", test_ds))}
+    # the train panel's drift profile: what later panels and promotion
+    # candidates are scored against; written before training, so even a
+    # crashed run leaves it
+    write_profile(save_dir, reference_profile(train_ds.full_batch(),
+                                              source=str(args.data_dir)))
     t0 = time.time()
     gan, _, _, trainer = train_3phase(
         cfg, batches["train"], batches["valid"], batches["test"], tcfg=tcfg,
-        save_dir=str(save_dir), seed=args.seed, exec_cfg=exec_cfg)
+        save_dir=str(save_dir), seed=args.seed, exec_cfg=exec_cfg,
+        diag_stride=args.diag_stride)
     wall = time.time() - t0
     print("\nBest Model Performance (normalized weights):", flush=True)
     results = {}

@@ -8,8 +8,13 @@ a reference ``AssetPricingGAN.state_dict()``. The port's
 names, so these load with ``load_state_dict(strict=True)``.
 
 The trainer writes the same layout (:func:`save_state_dict`,
-:func:`save_history`), so its run directories load back strictly. Reading
-the JAX package's flax ``.msgpack`` checkpoints is not ported.
+:func:`save_history`), so its run directories load back strictly. Every
+``.pt`` the port writes goes through ``reliability/verified.py``, as the JAX
+package's ``save_params`` does: tmp + ``os.replace``, a ``.sha256``
+sidecar, and the previous file rotated to ``.g1``; a load falls back a
+generation past a corrupt newest file. Files without a sidecar (the
+reference's ``ref_runs/*/*.pt``) load unchecked. Reading the JAX package's
+flax ``.msgpack`` checkpoints is not ported.
 
 A trained ensemble is a member-stacked dict (the same keys, each tensor
 [S, ...]): :func:`stacked_state_dict_from_jax_params` bridges the JAX
@@ -19,6 +24,7 @@ one into per-member ``state_dict``s for saving, one run directory each.
 
 from __future__ import annotations
 
+import io
 import os
 import warnings
 from pathlib import Path
@@ -27,6 +33,11 @@ from typing import Any, Dict, List, Mapping, Tuple, Union
 import numpy as np
 import torch
 
+from ..reliability.verified import (
+    load_verified,
+    verified_exists,
+    write_verified,
+)
 from ..utils.config import GANConfig
 
 
@@ -37,19 +48,23 @@ def load_checkpoint_dir(
     """(config, state_dict) from a run directory. Falls back to
     ``final_model.pt`` when the requested best-model file is absent (a run
     whose schedule never passed ``ignore_epoch`` writes none), with a
-    warning, as the JAX package does."""
+    warning, as the JAX package does. Reads through ``load_verified``: a
+    newest ``.pt`` whose digest or unpickling fails falls back to ``.g1``;
+    when every generation is unusable the ``ValueError`` names each
+    file."""
     ckpt_dir = Path(ckpt_dir)
     cfg = GANConfig.load(ckpt_dir / "config.json")
     candidates = [ckpt_dir / f"{which}.pt"]
     if which.startswith("best_model"):
         candidates.append(ckpt_dir / "final_model.pt")
     for path in candidates:
-        if not path.exists():
+        if not verified_exists(path):
             continue
         if path.stem == "final_model" and which != "final_model":
             warnings.warn(f"{which} absent in {ckpt_dir} (best tracker never "
                           f"updated); using {path.name}")
-        return cfg, torch.load(path, map_location="cpu", weights_only=True)
+        sd, _ = load_verified(path, _parse_state_dict)
+        return cfg, sd
     if (ckpt_dir / f"{which}.msgpack").exists():
         raise FileNotFoundError(
             f"{ckpt_dir} holds only flax .msgpack checkpoints, which the "
@@ -58,6 +73,10 @@ def load_checkpoint_dir(
             "state_dict_from_jax_params")
     raise FileNotFoundError(f"no {which}.pt or final_model fallback in "
                             f"{ckpt_dir}")
+
+
+def _parse_state_dict(data: bytes) -> Dict[str, torch.Tensor]:
+    return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
 
 
 def state_dict_from_jax_params(params_np: Mapping[str, Any],
@@ -134,12 +153,12 @@ def member_state_dicts(stacked: Mapping[str, torch.Tensor]
 def save_state_dict(path: Union[str, Path],
                     state_dict: Mapping[str, torch.Tensor]) -> None:
     """A reference-layout ``state_dict`` as a ``.pt`` file (CPU tensors),
-    written atomically (tmp + rename)."""
-    path = Path(path)
-    tmp = path.with_name(path.name + ".tmp")
+    through ``write_verified``: atomic, with a ``.sha256`` sidecar, the
+    previous file kept as ``.g1``."""
+    buf = io.BytesIO()
     torch.save({k: v.detach().cpu().clone() for k, v in state_dict.items()},
-               tmp)
-    os.replace(tmp, path)
+               buf)
+    write_verified(Path(path), buf.getvalue())
 
 
 def save_history(save_dir: Union[str, Path],

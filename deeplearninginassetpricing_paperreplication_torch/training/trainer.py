@@ -18,6 +18,17 @@ Eager PyTorch runs each epoch as it comes (there is no ``lax.scan``
 counterpart); the host syncs once per epoch, when the epoch's metrics are
 read. Checkpoints are reference-layout ``state_dict``s, saved on update
 only, as the JAX package does.
+
+``diag_stride`` k adds the model-health diagnostics (``ops/diagnostics.py``)
+of the valid batch after the train step of every phase-1 and phase-3 epoch
+with ``epoch % k == 0`` (phase-local epochs), read in the epoch's one host
+sync; off-stride rows are zeros with ``diag_computed`` 0. They land in the
+history as ``diag_<key>`` series and a [E, K] ``diag_moment_violations``.
+The diagnostics read the parameters and never feed them, and draw from no
+generator, so params, best checkpoints and every other history series are
+bit for bit those of a run without them. A run with a ``save_dir`` ends by
+writing ``health.json`` on the final params and the valid batch, whatever
+the stride.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ import torch
 
 from ..models.gan import GAN, Batch
 from ..models.networks import AssetPricingModule, init_params
+from ..observability.modelhealth import compute_health, write_health
+from ..ops.diagnostics import SCALAR_KEYS, diagnostics_members
 from ..ops.metrics import (
     cross_sectional_r2,
     explained_variation,
@@ -70,10 +83,14 @@ class Best:
 class Trainer:
     """Runs the three phases of one model; owns checkpoint/history IO."""
 
-    def __init__(self, gan: GAN, tcfg: TrainConfig, has_test: bool = True):
+    def __init__(self, gan: GAN, tcfg: TrainConfig, has_test: bool = True,
+                 diag_stride: Optional[int] = None):
         self.gan = gan
         self.tcfg = tcfg
         self.has_test = has_test
+        # None or a stride < 1: no diagnostics
+        self.diag_stride = (int(diag_stride)
+                            if diag_stride and int(diag_stride) > 0 else None)
         self.opt_sdf = Optimizer(subtree_params(gan, "sdf_net"), tcfg.lr,
                                  tcfg.grad_clip)
         self.opt_moment = Optimizer(subtree_params(gan, "moment_net"),
@@ -92,6 +109,23 @@ class Trainer:
         for k, v in self.gan.module.state_dict().items():
             v.copy_(params[k])
 
+    def diag_keys(self) -> tuple:
+        """The ``diag_*`` history fields of this trainer (empty without
+        diagnostics): one per :data:`ops.diagnostics.SCALAR_KEYS` and the
+        [K]-vector ``diag_moment_violations``."""
+        if not self.diag_stride:
+            return ()
+        return tuple(f"diag_{k}" for k in SCALAR_KEYS) + (
+            "diag_moment_violations",)
+
+    def diagnostics(self, batch: Batch) -> torch.Tensor:
+        """The diagnostics of the live params on `batch` as one f32 vector
+        (:data:`SCALAR_KEYS`, then the K violations), left on the device."""
+        params = {n: p[None] for n, p in self.gan.module.named_parameters()}
+        d = diagnostics_members(self.gan, params, batch)
+        return torch.cat([torch.stack([d[k][0] for k in SCALAR_KEYS]),
+                          d["moment_violations"][0]])
+
     def fresh_best(self, for_moment: bool = False) -> Best:
         entry = self.snapshot()
         return Best(-np.inf if for_moment else np.inf, -np.inf, entry, entry)
@@ -104,6 +138,8 @@ class Trainer:
         train_b, valid_b, test_b = batches
         opt = self.opt_moment if phase == "moment" else self.opt_sdf
         loss_key = "loss_unc" if phase == "unconditional" else "loss_cond"
+        stride = self.diag_stride if phase != "moment" else None
+        n_diag = len(SCALAR_KEYS) + self.gan.cfg.num_condition_moment
         rows = []
         t0 = time.perf_counter()
         for epoch, seed in enumerate(seeds):
@@ -123,7 +159,12 @@ class Trainer:
                     va["sharpe"]]
             vals += ([te[loss_key], te["sharpe"]] if te is not None
                      else [torch.zeros_like(tr["loss"])] * 2)
-            row = torch.stack(vals).tolist()  # the epoch's one host sync
+            row = torch.stack(vals)
+            if stride and epoch % stride == 0:
+                row = torch.cat([row, self.diagnostics(valid_b)])
+            row = row.tolist()  # the epoch's one host sync
+            if stride and epoch % stride:
+                row += [0.0] * n_diag  # off-stride: computed = 0
             eligible = epoch > self.tcfg.ignore_epoch
             if eligible and row[3] < best.loss:
                 best.loss, best.params_loss = row[3], self.snapshot()
@@ -134,9 +175,14 @@ class Trainer:
             rows.append(row)
         self.phase_seconds[PHASE_SECTIONS[phase]] = time.perf_counter() - t0
         keys = (("train_loss", "train_loss_cond") if phase == "moment"
-                else HISTORY_KEYS)
-        arr = np.asarray(rows, np.float32).reshape(len(rows), len(keys))
-        return {k: arr[:, i] for i, k in enumerate(keys)}
+                else HISTORY_KEYS + (self.diag_keys()[:-1] if stride else ()))
+        width = len(keys) + (self.gan.cfg.num_condition_moment if stride
+                             else 0)
+        arr = np.asarray(rows, np.float32).reshape(len(rows), width)
+        out = {k: arr[:, i] for i, k in enumerate(keys)}
+        if stride:
+            out["diag_moment_violations"] = arr[:, len(keys):]
+        return out
 
     # -- the 3-phase schedule ----------------------------------------------------
 
@@ -155,7 +201,8 @@ class Trainer:
                                          tcfg.num_epochs_moment,
                                          tcfg.num_epochs])
         save = Path(save_dir) if save_dir else None
-        history: Dict[str, list] = {k: [] for k in HISTORY_KEYS + ("phase",)}
+        history: Dict[str, list] = {
+            k: [] for k in HISTORY_KEYS + self.diag_keys() + ("phase",)}
         t0 = time.perf_counter()
 
         def log(msg):
@@ -163,7 +210,7 @@ class Trainer:
                 print(msg, flush=True)
 
         def append(h, label):
-            for k in HISTORY_KEYS:
+            for k in HISTORY_KEYS + self.diag_keys():
                 history[k].extend(h[k].tolist())
             history["phase"].extend([label] * len(h["train_loss"]))
 
@@ -217,10 +264,26 @@ class Trainer:
                 save_state_dict(save / "best_model_sharpe.pt", final)
             save_state_dict(save / "final_model.pt", final)
             save_history(save, history)
+            self.write_health(save, final, batches[1], history, log)
         log(f"Training complete in {time.perf_counter() - t0:.1f}s "
             f"({tcfg.num_epochs_unc}+{tcfg.num_epochs_moment}+"
             f"{tcfg.num_epochs} epochs)")
         return {k: np.asarray(v) for k, v in history.items()}
+
+    def write_health(self, save: Path, params: StateDict, valid_b: Batch,
+                     history, log) -> None:
+        """``health.json`` of `params` on the valid batch
+        (``observability/modelhealth.py``). Unlike the JAX trainer, which
+        swallows every exception here, only the write's ``OSError`` is
+        logged and passed over: an error of the diagnostics pass itself (a
+        kernel that fails to launch) propagates."""
+        health = compute_health(self.gan, params, valid_b, history=history,
+                                guard_trips=[], diag_stride=self.diag_stride)
+        try:
+            write_health(save, health)
+        except OSError as e:
+            log(f"health.json write failed ({e}); run artifacts are "
+                "unaffected")
 
     def _print_history(self, log, hist, phase_no: int) -> None:
         n, freq = len(hist["train_loss"]), self.tcfg.print_freq
@@ -270,12 +333,15 @@ def train_3phase(config: GANConfig, train_b: Batch, valid_b: Batch,
                  save_dir: Optional[str] = None, seed: Optional[int] = None,
                  verbose: bool = True,
                  exec_cfg: Optional[ExecutionConfig] = None,
-                 state_dict: Optional[StateDict] = None):
+                 state_dict: Optional[StateDict] = None,
+                 diag_stride: Optional[int] = None):
     """The functional front door: (gan, final state_dict, history, trainer).
 
     The model is initialized from ``torch.Generator().manual_seed(seed)``
     (or from `state_dict`, e.g. the JAX package's params through
-    ``checkpoint.state_dict_from_jax_params``) on the batches' device."""
+    ``checkpoint.state_dict_from_jax_params``) on the batches' device.
+    `diag_stride`: the model-health diagnostics every that many epochs (see
+    the module docstring)."""
     tcfg = tcfg or TrainConfig()
     seed = tcfg.seed if seed is None else seed
     exec_cfg = exec_cfg or ExecutionConfig()
@@ -288,7 +354,8 @@ def train_3phase(config: GANConfig, train_b: Batch, valid_b: Batch,
     if save_dir:
         Path(save_dir).mkdir(parents=True, exist_ok=True)
         config.save(Path(save_dir) / "config.json")
-    trainer = Trainer(gan, tcfg, has_test=test_b is not None)
+    trainer = Trainer(gan, tcfg, has_test=test_b is not None,
+                      diag_stride=diag_stride)
     history = trainer.train(train_b, valid_b, test_b, save_dir=save_dir,
                             verbose=verbose, seed=seed)
     return gan, trainer.snapshot(), history, trainer
