@@ -2973,9 +2973,23 @@ def diag_train_check(torch, K, C, card, splits, single):
     from deeplearninginassetpricing_paperreplication_torch.training \
         .checkpoint import load_checkpoint_dir
     from deeplearninginassetpricing_paperreplication_torch.training.trainer \
-        import train_3phase
+        import Trainer, train_3phase
     from deeplearninginassetpricing_paperreplication_torch.utils.config \
         import ExecutionConfig, TrainConfig
+
+    # the stride's cost inside the trainer: each in-training diagnostics
+    # pass between two CUDA events (its stream time) and two host clocks
+    # (its Python and launch time); neither syncs, so the run is unchanged
+    untimed, spans = Trainer.diagnostics, []
+
+    def timed(self, batch):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        out = untimed(self, batch)
+        b.record()
+        spans.append((a, b, time.perf_counter() - t0))
+        return out
 
     batches = [ds.to_batch(DEVICE) for ds in splits]
     n_epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
@@ -2993,12 +3007,16 @@ def diag_train_check(torch, K, C, card, splits, single):
         K.reset_launch_count()
         C.reset_launch_count()
         t0 = time.perf_counter()
-        _, params, hist, trainer = train_3phase(
-            single["cfg"], *batches, tcfg=TrainConfig(
-                **SCHEDULE, seed=42, print_freq=10 ** 6), save_dir=str(save),
-            seed=42, verbose=False, diag_stride=stride,
-            exec_cfg=ExecutionConfig(kernel="on", compute_dtype="float32",
-                                     device=DEVICE))
+        Trainer.diagnostics = timed
+        try:
+            _, params, hist, trainer = train_3phase(
+                single["cfg"], *batches, tcfg=TrainConfig(
+                    **SCHEDULE, seed=42, print_freq=10 ** 6),
+                save_dir=str(save), seed=42, verbose=False,
+                diag_stride=stride, exec_cfg=ExecutionConfig(
+                    kernel="on", compute_dtype="float32", device=DEVICE))
+        finally:
+            Trainer.diagnostics = untimed
         torch.cuda.synchronize()
         runs.append(dict(params=params, hist=hist, save=save, stride=stride,
                          launches=panel_counts(K, C),
@@ -3043,6 +3061,18 @@ def diag_train_check(torch, K, C, card, splits, single):
         return {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
 
     epoch_on, epoch_off = mean_ms(DIAG_STRIDE), mean_ms(None)
+    n_runs = sum(1 for r in runs if r["stride"])
+    check(len(spans) == n_runs * n_diag, f"{len(spans)} timed in-training "
+          f"passes != {n_runs} runs x {n_diag} stride epochs")
+    n_diag_epochs = n_runs * (n_epochs["unconditional"]
+                              + n_epochs["conditional"])
+    pass_ms = statistics.median(a.elapsed_time(b) for a, b, _ in spans)
+    host_pass_ms = statistics.median(1e3 * h for _, _, h in spans)
+    overhead = dict(
+        stream_ms_per_epoch=sum(a.elapsed_time(b) for a, b, _ in spans)
+        / n_diag_epochs,
+        host_ms_per_epoch=1e3 * sum(h for _, _, h in spans) / n_diag_epochs,
+        pass_stream_ms=pass_ms, pass_host_ms=host_pass_ms)
     print(f"[health train] diag_stride {DIAG_STRIDE} vs phase 6 (f32 kernel "
           f"route, dropout {DROPOUT}, 8/4/16): final params, best "
           f"checkpoints and non-diag history bit for bit; launches (fwd, bwd, "
@@ -3056,8 +3086,14 @@ def diag_train_check(torch, K, C, card, splits, single):
     print(f"[health train] wall ms per epoch, mean of two runs each, with "
           f"diagnostics: {fmt(epoch_on)}; without: {fmt(epoch_off)}; phase "
           f"6: {fmt(single['epoch_ms'])} ({card})", flush=True)
+    print(f"[health train] the stride's overhead, timed in the trainer over "
+          f"{len(spans)} passes: {overhead['stream_ms_per_epoch']:.4f} ms of "
+          f"stream time and {overhead['host_ms_per_epoch']:.4f} ms of host "
+          f"time per phase-1/3 epoch at diag_stride {DIAG_STRIDE}; one pass "
+          f"median {pass_ms:.4f} ms stream, {host_pass_ms:.4f} ms host "
+          f"({card})", flush=True)
     return dict(launches=on["launches"], epoch_ms_diag=epoch_on,
-                epoch_ms_off=epoch_off, n_diag=n_diag)
+                epoch_ms_off=epoch_off, n_diag=n_diag, overhead=overhead)
 
 
 def _promote_cli(argv):

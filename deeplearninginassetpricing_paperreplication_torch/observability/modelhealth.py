@@ -56,12 +56,12 @@ def _finite_or_none(x: Any) -> Optional[float]:
 
 @dataclasses.dataclass(frozen=True)
 class HealthThresholds:
-    """The configurable model-health bars (promotion gate + report)."""
+    """The promotion gate's model-health bars: the worst per-moment
+    violation and the SDF series' finite fraction. (The JAX package's HHI
+    and turnover bars wait for the port's report tooling.)"""
 
     moment_tolerance: float = DEFAULT_MOMENT_TOLERANCE
     min_sdf_finite_fraction: float = DEFAULT_MIN_FINITE_FRACTION
-    max_weight_hhi: Optional[float] = None  # None = not gated
-    max_turnover: Optional[float] = None
 
     def classify(self, diagnostics: Dict[str, Any]) -> List[str]:
         """Stable violation slugs for one diagnostics dict (empty =
@@ -75,15 +75,6 @@ class HealthThresholds:
                 or float(frac) < self.min_sdf_finite_fraction):
             if "moment_violation" not in reasons:
                 reasons.append("moment_violation")
-        hhi = diagnostics.get("weight_hhi")
-        if self.max_weight_hhi is not None and (
-                _finite_or_none(hhi) is None
-                or float(hhi) > self.max_weight_hhi):
-            reasons.append("weight_concentration")
-        to = diagnostics.get("turnover")
-        if self.max_turnover is not None and (
-                _finite_or_none(to) is None or float(to) > self.max_turnover):
-            reasons.append("turnover")
         return reasons
 
 
@@ -218,11 +209,7 @@ def read_health(run_dir: Union[str, Path]) -> Optional[Dict[str, Any]]:
 
     path = Path(run_dir) / HEALTH_FILENAME
     if not verified_exists(path):
-        try:
-            doc = json.loads(path.read_text())
-        except (OSError, ValueError):
-            return None
-        return doc if isinstance(doc, dict) else None
+        return None
     try:
         doc, _ = load_verified(path, lambda b: json.loads(b.decode()))
     except (ValueError, OSError):

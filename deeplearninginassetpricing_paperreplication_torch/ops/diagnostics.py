@@ -31,7 +31,8 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from .losses import em_loss, portfolio_returns, unconditional_loss
+from .losses import (em_loss, moment_means, portfolio_returns,
+                     unconditional_loss)
 from .metrics import normalize_weights_abs
 
 # the scalar diagnostic keys, in the JAX package's order (history.npz fields
@@ -56,15 +57,6 @@ SCALAR_KEYS = (
 )
 
 Diagnostics = Dict[str, torch.Tensor]
-
-
-def moment_means(returns: torch.Tensor, mask: torch.Tensor,
-                 moments: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """em [S, K, N] = Σ_t h·R·m·(1+F) / T_i from moments h [S, K, T, N]:
-    the einsum of ``ops.losses.conditional_loss``."""
-    t_per_asset = mask.sum(dim=-2).clamp_min(1)  # [N]
-    x = returns * mask * (1.0 + F)[..., None]  # [S, T, N]
-    return torch.einsum("...ktn,...tn->...kn", moments, x) / t_per_asset
 
 
 def em_violations(em: torch.Tensor, n_assets=None) -> torch.Tensor:

@@ -58,12 +58,16 @@ def conditional_loss(weights: torch.Tensor, returns: torch.Tensor,
     Returns (loss, F [T])."""
     if F is None:
         F = portfolio_returns(weights, returns, mask, weighted)
-    sdf = 1.0 + F
+    return em_loss(moment_means(returns, mask, moments, F), n_assets), F
+
+
+def moment_means(returns: torch.Tensor, mask: torch.Tensor,
+                 moments: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """The empirical moment means em [..., K, N] = Σ_t h·R·m·(1+F) / T_i of
+    the moments h [..., K, T, N], one einsum."""
     t_per_asset = mask.sum(dim=-2).clamp_min(1)  # [N]
-    x = returns * mask * sdf[..., None]  # [T, N]
-    empirical_mean = torch.einsum("...ktn,...tn->...kn", moments,
-                                  x) / t_per_asset
-    return em_loss(empirical_mean, n_assets), F
+    x = returns * mask * (1.0 + F)[..., None]  # [..., T, N]
+    return torch.einsum("...ktn,...tn->...kn", moments, x) / t_per_asset
 
 
 def em_loss(em: torch.Tensor, n_assets=None) -> torch.Tensor:

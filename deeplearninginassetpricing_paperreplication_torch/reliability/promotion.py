@@ -224,7 +224,11 @@ def evaluate_candidate(
     call, worst case over members), whose per-moment violation norms the
     ``moment_violation`` gate thresholds. Computed for non-finite params
     too (the violations are then non-finite, the evidence the gate
-    needs)."""
+    needs).
+
+    A member set that does not stack raises :class:`GateRejection`
+    (``stack_error``); an error of the diagnostics or the ensemble pass (a
+    kernel that fails to launch) propagates as it is."""
     import numpy as np
     import torch
 
@@ -235,8 +239,13 @@ def evaluate_candidate(
 
     exec_cfg = exec_cfg or ExecutionConfig()
     device = resolve_device(exec_cfg.device)
-    cfg, stacked = stack_checkpoints([str(d) for d in checkpoint_dirs],
-                                     which, device=device)
+    try:
+        cfg, stacked = stack_checkpoints([str(d) for d in checkpoint_dirs],
+                                         which, device=device)
+    except (ValueError, FileNotFoundError) as e:
+        # architecture mismatch AMONG members, or an artifact whose every
+        # generation is unusable — stack_checkpoints says which
+        raise GateRejection("stack_error", str(e)) from e
     finite_params = all(bool(torch.isfinite(v).all())
                         for v in stacked.values())
     out: Dict[str, Any] = {
@@ -360,14 +369,9 @@ def promote(
     members, rejection = verify_member_dirs(dirs, which)
     if rejection is not None:
         reject(*rejection)
-    try:
-        evaluation = evaluate_candidate(
-            dirs, valid_batch, which,
-            with_moments=moment_tolerance is not None, exec_cfg=exec_cfg)
-    except (ValueError, FileNotFoundError) as e:
-        # architecture mismatch AMONG members, or an artifact whose every
-        # generation is unusable — stack_checkpoints says which
-        reject("stack_error", str(e))
+    evaluation = evaluate_candidate(
+        dirs, valid_batch, which,
+        with_moments=moment_tolerance is not None, exec_cfg=exec_cfg)
     expected = expect_config_hash or (
         incumbent.get("config_hash") if incumbent else None)
     if expected and evaluation["config_hash"] != expected:

@@ -339,7 +339,9 @@ def test_write_health_serializes_nonfinite_as_null(tmp_path):
      "weight_hhi": 0.7, "turnover": None},
 ], ids=["healthy", "over", "nan", "nonfinite_sdf", "hhi_turnover"])
 def test_health_thresholds_classify_as_jax(diag):
-    kw = dict(moment_tolerance=1.0, max_weight_hhi=0.5, max_turnover=1.0)
+    """The bars the gate sets (the HHI and turnover keys pass ungated, as
+    under the JAX defaults)."""
+    kw = dict(moment_tolerance=1.0)
     assert (modelhealth.HealthThresholds(**kw).classify(diag)
             == jhealth.HealthThresholds(**kw).classify(diag))
 

@@ -257,6 +257,29 @@ def test_gate_rejects_members_that_do_not_stack(tmp_path):
         == "stack_error"
 
 
+@pytest.mark.parametrize("stage", ["candidate_diagnostics",
+                                   "ensemble_metrics"])
+def test_gate_lets_a_failing_pass_propagate(tmp_path, panel, monkeypatch,
+                                            stage):
+    """An error of the validation pass (a kernel that fails to launch) is
+    no candidate rejection: it propagates, and the pointer stays unset."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        import modelhealth
+    from deeplearninginassetpricing_paperreplication_torch.parallel import \
+        ensemble
+
+    def fail(*a, **k):
+        raise ValueError("kernel failed to launch")
+
+    monkeypatch.setattr(modelhealth if stage == "candidate_diagnostics"
+                        else ensemble, stage, fail)
+    ctl = tmp_path / "ctl"
+    dirs = _members(tmp_path / "v", _cfg(), (1,))
+    with pytest.raises(ValueError, match="kernel failed to launch"):
+        _promote(ctl, dirs, valid_batch=panel, moment_tolerance=1.0)
+    assert promotion.read_pointer(ctl) is None
+
+
 def test_gate_rejects_a_drifted_panel(tmp_path, panel):
     prof = reference_profile(panel, source="fixture")
     dirs = _members(tmp_path / "v", _cfg(), (1,), profile=prof)
