@@ -30,6 +30,10 @@
                                       # bit for bit against DIR/cond_em.cu
                                       # (one with the first kernels'
                                       # argument lists, as at bdd71ce)
+    python3 chip_smoke.py --only_serve
+                                      # the FFN forward's libraries, then
+                                      # phases 4 and 4b alone (4b on nine
+                                      # stand-in members); no result line
     python3 chip_smoke.py --only_ceiling
                                       # the matmul ceiling's library, plans,
                                       # checks and measurement only (no
@@ -78,12 +82,24 @@ Phases, each printing its results; any failure exits non-zero:
    beside cuBLAS's on the same bf16 products.
 4. Serving at the paper's full width: a synthetic panel (F = 46, M = 178,
    N = 10,000 stocks, 48/12/24 months, seed 42) and the three paper-width
-   reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served over
-   HTTP by the port's ``serving.server``, in f32 and then in bf16. Every
-   test month is served singly and in groups of 4 and held against the
-   port's offline ``ensemble_metrics`` (plain route, same card). The
-   forward kernel's launch counter is reset just before each drive and
-   must rise during it.
+   reference checkpoints (``ref_runs/{w500,mid2000,w4000}``) served by the
+   port's ``serving.server`` through the async front end on a free port,
+   in f32 and then in bf16. The forward kernel's launch counter is reset
+   just before the service is built: its warmup runs every (stock bucket ×
+   batch bucket) forward once uncaptured and captures it as a CUDA graph,
+   so the launches must equal twice the captures, and every served forward
+   after that is a graph replay with no capture. Every test month goes over
+   the JSON, base64 and raw-f32 wires (the raw wire carries the month's
+   valid rows alone), the batch-4 groups as four concurrent requests that
+   the continuous batcher folds into one flush (batch bucket 4, the
+   occupancy in ``/metrics``), identical concurrent requests coalesce onto
+   one dispatch, a repeated request comes from the cache, two macro months
+   are appended; every answer is held against the port's offline
+   ``ensemble_metrics`` (plain route, same card) and the wires bit for bit
+   one another. Then every warmed bucket's graph replay against the same
+   forward run eagerly (bit for bit), ``engine.infer`` timed with graphs and
+   eagerly in turns, the request medians per wire and the server's segments
+   of each, and ``/metrics``' p50 and p99.
 5. Offline ensemble: the port's ``evaluate_ensemble`` on the same panel.
 6. Training at full width on the same panel (the paper's model, dropout
    0.05, schedule 8/4/16, ignore 2): ``train_3phase`` on the kernel route
@@ -139,6 +155,16 @@ Phases, each printing its results; any failure exits non-zero:
    phase 7's nine members saved as run dirs: generation 1 with the offline
    valid Sharpe, a NaN member, a torn member and a 3σ-shifted panel each
    rejected by its slug, a second generation, ``rollback`` and ``show``.
+4b. Hot reload of the serving path (f32), on phase 7's members as phase 10
+   saved them and phase 10's pointer: three members served, ``/v1/reload``
+   to three others bit for bit a fresh engine on them (the generation
+   bumped, a cached request served anew, no capture); a NaN candidate
+   written through the verified writer reverted by the canary (a 5xx, the
+   pre-swap answers bit for bit); the ``ref_runs`` trio refused (another
+   architecture; four dirs when it is not) with the engine serving on;
+   ``/v1/drain`` on the admin port closes the listener and the serve loop
+   returns; a nine-member service booted from the pointer reloads as a
+   no-op and refuses, whole, a pointer whose member was tampered.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -153,8 +179,8 @@ import shutil
 import statistics
 import subprocess
 import sys
-import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1668,120 +1694,387 @@ def compare_ceiling(torch, MB, _nvcc, src_dir, card):
 
 # -- phase 4 ------------------------------------------------------------------
 
+# the months of the hot-reload checks (4b)
+RELOAD_MONTHS = (0, 5, 11, 23)
 
-def post(url: str, body: bytes):
-    req = urllib.request.Request(url, data=body, method="POST",
-                                 headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as r:
-        return r.status, json.loads(r.read())
+
+def post(url: str, body, raw: bool = False):
+    """POST a JSON body (bytes or a dict) or, with ``raw``, a raw-f32 body:
+    (status, decoded answer — a float32 array off the raw wire, the error
+    text for a non-200)."""
+    from deeplearninginassetpricing_paperreplication_torch.serving.server \
+        import BINARY_CONTENT_TYPE
+
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="POST", headers={
+        "Content-Type": BINARY_CONTENT_TYPE if raw else "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = r.read()
+            return r.status, (np.frombuffer(out, np.float32) if raw
+                              else json.loads(out))
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(errors="replace")
 
 
 def get(url: str):
     with urllib.request.urlopen(url, timeout=60) as r:
-        return r.status, json.loads(r.read())
+        out = r.read()
+        try:
+            return r.status, json.loads(out)
+        except json.JSONDecodeError:
+            return r.status, out.decode()
 
 
-def serve_and_check(torch, dtype, test, offline, bodies, card, K, server_mod):
-    """Serve the three-member ensemble over HTTP at `dtype`, every test month
-    singly and in groups of 4, and hold the answers against `offline`."""
+def _b64(a) -> str:
+    import base64
+
+    return base64.b64encode(np.ascontiguousarray(a, np.float32)
+                            .tobytes()).decode()
+
+
+def _unb64(s: str) -> np.ndarray:
+    import base64
+
+    return np.frombuffer(base64.b64decode(s), np.float32)
+
+
+def _raw_body(month: int, individual: np.ndarray) -> bytes:
+    import struct
+
+    x = np.ascontiguousarray(individual, np.float32)
+    return struct.pack("<iI", month, x.shape[0]) + x.tobytes()
+
+
+def serving_bodies(test):
+    """Per test month, encoded once (a request's time is the server's and
+    the transport's, not the client's encoding): the JSON body (the full
+    cross-section with its mask and returns), its base64 twin, and the
+    valid rows alone (the raw-f32 wire carries no mask) as raw-f32 and
+    base64 bodies."""
+    mask = test.mask.astype(np.float32)
+    out = []
+    for t in range(test.T):
+        valid = test.mask[t] > 0
+        out.append(dict(
+            json=json.dumps({"individual": test.individual[t].tolist(),
+                             "mask": mask[t].tolist(),
+                             "returns": test.returns[t].tolist(),
+                             "month": t}).encode(),
+            b64=json.dumps({"individual_b64": _b64(test.individual[t]),
+                            "mask_b64": _b64(mask[t]),
+                            "returns_b64": _b64(test.returns[t]),
+                            "month": t, "encoding": "b64"}).encode(),
+            raw=_raw_body(t, test.individual[t][valid]),
+            b64_valid=json.dumps({
+                "individual_b64": _b64(test.individual[t][valid]),
+                "returns_b64": _b64(test.returns[t][valid]), "month": t,
+                "encoding": "b64"}).encode(),
+            valid=valid))
+    return out
+
+
+def _behind_plug(service, send_plug, sends, ready):
+    """Run `sends` concurrently while a plug request holds the dispatcher:
+    the engine's dispatch lock is held, the continuous batcher takes the
+    plug and blocks on the lock, the `sends` queue (or coalesce) behind it
+    until `ready()`, then the lock is released — so the batcher sees them
+    all at once. Returns the sends' answers in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cb = service.cbatcher
+    with ThreadPoolExecutor(len(sends) + 1) as pool:
+        with service.engine._infer_lock:
+            flushes = cb.flushes
+            plug = pool.submit(send_plug)
+            _wait_until(lambda: cb.flushes > flushes, "the plug's flush")
+            futs = [pool.submit(f) for f in sends]
+            _wait_until(ready, "the concurrent requests to queue")
+        check(plug.result(timeout=600)[0] == 200, "the plug request failed")
+        return [f.result(timeout=600) for f in futs]
+
+
+def _wait_until(cond, what: str, timeout: float = 60.0) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < timeout, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def serve_and_check(torch, dtype, test, offline, bodies, card, K,
+                    server_mod):
+    """Serve the three-member ensemble at `dtype` through the async front
+    end on a free port, from a launch count of 0: the service's warmup
+    (one uncaptured forward and one CUDA-graph capture per bucket), every
+    test month over the JSON, base64 and raw-f32 wires, the batch-4 groups
+    as four concurrent requests the continuous batcher folds into one
+    flush, identical concurrent requests coalesced, a repeated request
+    from the cache, two macro appends; every answer held against
+    `offline`, the wires bit for bit one another."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .metrics import parse_prom_text
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        AsyncServerThread,
+        pick_free_port,
+    )
+
+    K.reset_launch_count()  # the main path starts at the service's build
     args = server_mod.build_arg_parser().parse_args(
         ["--checkpoint_dirs", *[str(ROOT / d) for d in REF_RUNS],
-         "--data_dir", str(DATA_DIR), "--port", "0", "--device", DEVICE,
+         "--data_dir", str(DATA_DIR), "--device", DEVICE,
          "--compute_dtype", dtype])
+    t0 = time.perf_counter()
     service = server_mod.build_service(args)
-    httpd = server_mod.make_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    warm_s = time.perf_counter() - t0
+    eng = service.engine
+    n_buckets = len(eng.stock_buckets) * len(eng.batch_buckets)
+    check(eng.stats()["captures"] == n_buckets,
+          f"warmup captured {eng.stats()['captures']} graphs for "
+          f"{n_buckets} buckets")
+    server = AsyncServerThread(service, port=pick_free_port())
+    base = f"http://127.0.0.1:{server.start()}"
     # the full cross-section lands in the smallest stock bucket holding it
-    bucket = min(b for b in service.engine.stock_buckets if b >= test.N)
+    bucket = min(b for b in eng.stock_buckets if b >= test.N)
     avg_ref = offline["avg_weights"]
     port_ref = offline["ensemble_port_returns"]
-    latencies, errs_w, errs_sdf = [], [], []
+    lat = {"json": [], "b64": [], "raw": [], "b64_valid": []}
+    errs_w, errs_sdf = [], []
 
-    def check_answer(t, ans_w, ans_s):
-        n = test.N
-        w = np.asarray(ans_w["weights"])
-        check(ans_w["month"] == t and ans_w["n"] == n
-              and ans_w["bucket"] == bucket, f"bad answer header {ans_w}")
-        check(bool(np.isfinite(w).all()), f"non-finite weights month {t}")
+    def timed(wire, url, body, raw=False):
+        t1 = time.perf_counter()
+        out = post(url, body, raw=raw)
+        lat[wire].append(time.perf_counter() - t1)
+        return out
+
+    def check_weights(t, w, ref, n):
+        check(w.shape == (n,) and bool(np.isfinite(w).all()),
+              f"bad weights at month {t}: shape {w.shape}")
         check(abs(np.abs(w).sum() - 1.0) < 1e-4,
               f"sum|w| = {np.abs(w).sum()} at month {t}")
-        check(ans_s["sdf"] is not None and np.isfinite(ans_s["sdf"])
-              and np.isfinite(ans_s["member_sdf"]).all(),
-              f"non-finite sdf month {t}")
-        dw = np.abs(w - avg_ref[t])
-        ds = abs(ans_s["sdf"] - port_ref[t])
+        dw = np.abs(w - ref)
         errs_w.append(float(dw.max()))
-        errs_sdf.append(ds)
-        check(within(dw, avg_ref[t], dtype, **SERVE_F32_TOL),
+        check(within(dw, ref, dtype, **SERVE_F32_TOL),
               f"served weights != offline at month {t} ({dtype}): "
               f"max|d| {dw.max():.3e}")
+
+    def check_sdf(t, sdf):
+        check(sdf is not None and np.isfinite(sdf), f"non-finite sdf {t}")
+        ds = abs(sdf - port_ref[t])
+        errs_sdf.append(ds)
         check(within(np.array([ds]), port_ref, dtype, **SERVE_F32_TOL)
               if dtype == "bfloat16" else
               ds <= SERVE_F32_TOL["atol"]
               + SERVE_F32_TOL["rtol"] * abs(port_ref[t]),
               f"served sdf != offline at month {t} ({dtype}): |d| {ds:.3e}")
 
+    def check_answer(t, ans_w, ans_s, b=1):
+        check(ans_w["month"] == t and ans_w["n"] == test.N
+              and ans_w["bucket"] == bucket and ans_w["batch_bucket"] == b,
+              f"bad answer header {ans_w} (batch bucket {b})")
+        w = (np.asarray(ans_w["weights"]) if "weights" in ans_w
+             else _unb64(ans_w["weights_b64"]))
+        check_weights(t, w, avg_ref[t], test.N)
+        member = (np.asarray(ans_s["member_sdf"]) if "member_sdf" in ans_s
+                  else _unb64(ans_s["member_sdf_b64"]))
+        check(member.shape == (eng.n_members,)
+              and bool(np.isfinite(member).all()),
+              f"non-finite member sdf month {t}")
+        check_sdf(t, ans_s["sdf"])
+        return w, member
+
     try:
-        K.reset_launch_count()
-        n_infer = 0
-        for t in range(test.T):  # batch bucket 1
-            t0 = time.perf_counter()
-            sw, ans_w = post(base + "/v1/weights", bodies[t])
-            latencies.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            ss, ans_s = post(base + "/v1/sdf", bodies[t])
-            latencies.append(time.perf_counter() - t0)
-            n_infer += 2
-            check(sw == 200 and ss == 200, f"HTTP {sw}/{ss} at month {t}")
-            check(ans_w["batch_bucket"] == 1, "single query not in bucket 1")
-            check_answer(t, ans_w, ans_s)
-        for t0_ in range(0, test.T, 4):  # batch bucket 4
-            group = b'{"batch": [' + b",".join(bodies[t0_:t0_ + 4]) + b"]}"
-            sw, ans_w = post(base + "/v1/weights", group)
-            ss, ans_s = post(base + "/v1/sdf", group)
-            n_infer += 2
-            check(sw == 200 and ss == 200, f"HTTP {sw}/{ss} group {t0_}")
-            for i, (aw, as_) in enumerate(zip(ans_w["results"],
-                                              ans_s["results"])):
-                check(aw["batch_bucket"] == 4, "group not in bucket 4")
-                check_answer(t0_ + i, aw, as_)
-        launches = K.launches
-        check(launches > 0, "the main path launched sdf_ffn_fwd no time")
-        check(launches == n_infer,
-              f"{launches} kernel launches for {n_infer} served forwards")
+        b64_answers = {}
+        for t in range(test.T):  # batch bucket 1, every wire
+            body = bodies[t]
+            sw, jw = timed("json", base + "/v1/weights", body["json"])
+            ss, js = post(base + "/v1/sdf", body["json"])
+            check(sw == 200 and ss == 200, f"JSON HTTP {sw}/{ss} month {t}")
+            jw_w, js_m = check_answer(t, jw, js)
+            sw, bw = timed("b64", base + "/v1/weights", body["b64"])
+            ss, bs = post(base + "/v1/sdf", body["b64"])
+            check(sw == 200 and ss == 200, f"b64 HTTP {sw}/{ss} month {t}")
+            bw_w, bs_m = check_answer(t, bw, bs)
+            b64_answers[t] = bs
+            # the wires bit for bit one another: same month, same batch
+            check(np.array_equal(jw_w.astype(np.float32), bw_w)
+                  and js["sdf"] == bs["sdf"]
+                  and np.array_equal(js_m.astype(np.float32), bs_m),
+                  f"JSON and base64 answers differ at month {t}")
+            valid = body["valid"]
+            sr, rw = timed("raw", base + "/v1/weights", body["raw"],
+                           raw=True)
+            sv, vw = timed("b64_valid", base + "/v1/sdf", body["b64_valid"])
+            check(sr == 200 and sv == 200, f"raw HTTP {sr}/{sv} month {t}")
+            check_weights(t, rw, avg_ref[t][valid], int(valid.sum()))
+            check_sdf(t, vw["sdf"])
+            sv, vw = post(base + "/v1/weights", body["b64_valid"])
+            check(sv == 200 and np.array_equal(rw, _unb64(vw["weights_b64"])),
+                  f"raw-f32 and base64 answers differ at month {t}")
+        # a repeated request: from the cache, the same answer
+        s, again = post(base + "/v1/sdf", bodies[3]["b64"])
+        check(s == 200 and again["cached"] is True
+              and again["sdf"] == b64_answers[3]["sdf"],
+              "a repeated request was not answered from the cache")
+        # batch bucket 4: each group's four /v1/weights and four /v1/sdf
+        # requests sent concurrently behind a plug (a raw request of another
+        # month) fold into two flushes of four; "fold" makes each body new
+        # to the cache, so it reaches the batcher
+        hist0 = dict(service.cbatcher.occupancy_hist)
+        groups = 0
+        for t0_ in range(0, test.T, 4):
+            group = list(range(t0_, min(t0_ + 4, test.T)))
+            sends = [lambda t=t, ep=ep: post(base + ep, dict(
+                json.loads(bodies[t]["b64"]), fold=True))
+                for ep in ("/v1/weights", "/v1/sdf") for t in group]
+            answers = _behind_plug(
+                service,
+                lambda t=t0_: post(base + "/v1/weights",
+                                   bodies[(t + 4) % test.T]["raw"], raw=True),
+                sends, lambda n=len(sends): service.cbatcher.pending() == n)
+            n = len(group)
+            for t, (sw, aw), (ss, as_) in zip(group, answers[:n],
+                                               answers[n:]):
+                check(sw == 200 and ss == 200,
+                      f"HTTP {sw}/{ss} in the group at month {t}")
+                check_answer(t, aw, as_, b=4)
+            groups += 1
+        folded = service.cbatcher.occupancy_hist.get(4, 0) - hist0.get(4, 0)
+        check(folded == 2 * groups,
+              f"{folded} flushes of 4 for {groups} groups of 4 + 4 requests")
+        # identical concurrent requests: one dispatch, the rest coalesced
+        hits0 = service.coalesce_hits
+        same = _behind_plug(
+            service,
+            lambda: post(base + "/v1/weights", bodies[1]["raw"], raw=True),
+            [lambda: post(base + "/v1/weights", bodies[2]["raw"],
+                          raw=True)] * 4,
+            lambda: service.coalesce_hits == hits0 + 3)
+        for s, w in same:
+            check(s == 200 and np.array_equal(w, same[0][1]),
+                  "coalesced answers differ")
         # two new macro months, then the latest month
         for k in range(2):
-            s, ans = post(base + "/v1/macro", json.dumps(
-                {"macro": test.macro[k].tolist()}).encode())
+            s, ans = post(base + "/v1/macro",
+                          {"macro": test.macro[k].tolist()})
             check(s == 200 and ans["month"] == test.T + k,
                   f"/v1/macro answered {s} {ans}")
-        s, ans = post(base + "/v1/weights", json.dumps(
-            {"individual": test.individual[0].tolist(), "month": -1}
-        ).encode())
-        w = np.asarray(ans.get("weights", [np.nan]))
+        s, ans = post(base + "/v1/weights", {
+            "individual_b64": _b64(test.individual[0]), "month": -1})
+        w = np.asarray(ans.get("weights", [np.nan]) if s == 200 else [np.nan])
         check(s == 200 and ans["month"] == test.T + 1
               and np.isfinite(w).all() and abs(np.abs(w).sum() - 1) < 1e-4,
               f"month -1 after two appends answered {s}")
-        s, ans = get(base + "/healthz")
-        check(s == 200 and ans["ok"] is True, f"/healthz answered {s} {ans}")
+        s, health = get(base + "/healthz")
+        check(s == 200 and health["ok"] is True, f"/healthz: {s} {health}")
+        stats = eng.stats()
+        launches = K.launches
+        records = service.flight.snapshot("")["requests"]
+        s, metrics = get(base + "/metrics")
+        s2, prom = get(base + "/metrics?format=prom")
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=10)
-    med = statistics.median(latencies) * 1e3
-    print(f"[serve {dtype}] {len(latencies)} single-month requests + "
-          f"{test.T // 4 * 2} groups of 4 served; kernel launches {launches}"
-          f"; served vs offline max|d| weights {max(errs_w):.3e} sdf "
-          f"{max(errs_sdf):.3e}; per-request latency median {med:.1f} ms "
-          f"(HTTP + JSON of 10,000 x 46 floats, {card})", flush=True)
+        server.stop()
+        service.close()
+    flushes = metrics["batcher"]["flushes"]
+    check(launches > 0, "the main path launched sdf_ffn_fwd no time")
+    # one uncaptured warm-up forward and one capture per bucket; every
+    # served forward after that is a replay, with no capture
+    check(launches == 2 * stats["captures"],
+          f"{launches} kernel launches for {stats['captures']} captures "
+          "(one warm-up forward + one capture each)")
+    check(stats["steady_state_captures"] == 0,
+          f"{stats['steady_state_captures']} captures after warmup")
+    check(stats["replays"] == flushes and flushes > 0,
+          f"{stats['replays']} graph replays for {flushes} served forwards")
+    check(metrics["batcher"]["occupancy_hist"].get("4") == 2 * (test.T // 4),
+          f"/metrics occupancy {metrics['batcher']['occupancy_hist']}")
+    check(metrics["coalesce"]["hits"] >= 3 and metrics["cache"]["hits"] >= 1,
+          f"/metrics coalesce {metrics['coalesce']} cache "
+          f"{metrics['cache']}")
+    series = parse_prom_text(prom) if s2 == 200 else {}
+    check(series.get("dlap_serve_coalesce_hits_total", {}).get(()) ==
+          metrics["coalesce"]["hits"]
+          and "dlap_model_generation" in series,
+          "the Prometheus scrape lacks the coalescing or model series")
+    med = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
+    p = metrics["latency"]
+    # where a request's time goes, per wire: the server's own segments of
+    # its /v1/weights requests at batch bucket 1 (the flight recorder's
+    # ring), medians in ms
+    seg = {}
+    for wire in ("json", "b64", "binary"):
+        rows = [r for r in records if r.get("wire") == wire
+                and r.get("endpoint") == "/v1/weights"
+                and r.get("status") == 200 and r.get("occupancy") == 1]
+        seg[wire] = {k: statistics.median(r.get(k) or 0.0 for r in rows)
+                     * 1e3 for k in ("duration_s", "parse_s", "queue_s",
+                                     "dispatch_s", "serialize_s", "write_s")
+                     } if rows else None
+    print(f"[serve {dtype}] async front end: {test.T} months x (JSON, b64, "
+          f"raw-f32) + {2 * (test.T // 4)} batch-4 flushes of 4 concurrent "
+          f"requests + a cache hit + {metrics['coalesce']['hits']} coalesced"
+          f"; warmup {warm_s:.2f} s ({stats['captures']} CUDA graphs); "
+          f"kernel launches {launches} (= 2 x captures), graph replays "
+          f"{stats['replays']} = flushes {flushes}, captures after warmup "
+          f"{stats['steady_state_captures']}; served vs offline max|d| "
+          f"weights {max(errs_w):.3e} sdf {max(errs_sdf):.3e}; JSON and "
+          f"b64, raw-f32 and b64 bit for bit ({card})", flush=True)
+    print(f"[serve {dtype}] /v1/weights request median ms: JSON "
+          f"{med['json']:.2f}, b64 {med['b64']:.2f} (N = {test.N}, masked); "
+          f"raw-f32 {med['raw']:.2f}, b64 /v1/sdf {med['b64_valid']:.2f} "
+          f"(valid rows only); /metrics over the run: p50 "
+          f"{p['p50_ms']} ms, p99 {p['p99_ms']} ms of {p['count']} "
+          f"requests ({card})", flush=True)
+    for wire, m in seg.items():
+        if m is not None:
+            print(f"[serve {dtype}] {wire} /v1/weights on the server, median "
+                  f"ms: parse {m['parse_s']:.3f} (the body's decode and "
+                  f"checks), queue {m['queue_s']:.3f}, dispatch "
+                  f"{m['dispatch_s']:.3f} (engine.infer), serialize "
+                  f"{m['serialize_s']:.3f}, write {m['write_s']:.3f}; the "
+                  f"row's duration {m['duration_s']:.3f} (from the handler's"
+                  f" start, after the transport's JSON decode) ({card})",
+                  flush=True)
     return service, launches, med
 
 
+def graph_checks(torch, service, test, card):
+    """Every bucket the deployment warmed, replayed from its CUDA graph and
+    run eagerly (the same kernel route uncaptured): bit for bit."""
+    from deeplearninginassetpricing_paperreplication_torch.serving.engine \
+        import InferenceRequest
+
+    eng = service.engine
+    mask = test.mask.astype(np.float32)
+    before = eng.stats()["captures"]
+    n = 0
+    for nb in eng.stock_buckets:
+        rows = min(nb, test.N)
+        for b in eng.batch_buckets:
+            reqs = [InferenceRequest(individual=test.individual[t, :rows],
+                                     mask=mask[t, :rows],
+                                     returns=test.returns[t, :rows], month=t)
+                    for t in range(b)]
+            for g, e in zip(eng.infer(reqs), eng.infer(reqs, graphs=False)):
+                check(g.bucket == nb and g.batch_bucket == b,
+                      f"{rows} stocks x {b} landed in ({g.bucket}, "
+                      f"{g.batch_bucket})")
+                check(np.array_equal(g.weights, e.weights)
+                      and g.sdf == e.sdf
+                      and np.array_equal(g.member_sdf, e.member_sdf),
+                      f"graph replay != eager at bucket ({nb}, {b}) "
+                      f"({eng.exec_cfg.compute_dtype})")
+            n += 1
+    check(eng.stats()["captures"] == before, "a graph check captured")
+    print(f"[graphs {eng.exec_cfg.compute_dtype}] {n} buckets "
+          f"(stock {list(eng.stock_buckets)} x batch "
+          f"{list(eng.batch_buckets)}): CUDA-graph replay bit for bit the "
+          f"eager kernel route ({card})", flush=True)
+
+
 def engine_timing(torch, service, test, card):
-    """Time engine.infer alone (no HTTP, no JSON): host clock around a call
-    that ends in a device sync, batch buckets 1 and 4."""
+    """Time engine.infer alone (no HTTP, no JSON), CUDA-graph replay and
+    eager in turns: host clock around a call that ends in a device sync,
+    batch buckets 1 and 4."""
     from deeplearninginassetpricing_paperreplication_torch.serving.engine \
         import InferenceRequest
 
@@ -1792,23 +2085,26 @@ def engine_timing(torch, service, test, card):
             for t in range(test.T)]
     out = {}
     for b in (1, 4):
-        for _ in range(3):
-            eng.infer(reqs[:b])
-        times = []
+        times = {True: [], False: []}
+        for graphs in (True, False):
+            for _ in range(3):
+                eng.infer(reqs[:b], graphs=graphs)
         for i in range(0, test.T, b):
-            t0 = time.perf_counter()
-            eng.infer(reqs[i:i + b])  # returns host arrays: synchronized
-            times.append(time.perf_counter() - t0)
-        out[b] = statistics.median(times) * 1e3
-    print(f"[engine {eng.exec_cfg.compute_dtype}] infer() median "
-          f"{out[1]:.2f} ms (batch 1), {out[4]:.2f} ms (batch 4) ({card})",
-          flush=True)
+            for graphs in (True, False, False, True):
+                t0 = time.perf_counter()
+                eng.infer(reqs[i:i + b], graphs=graphs)  # host arrays: synced
+                times[graphs].append(time.perf_counter() - t0)
+        out[b] = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    print(f"[engine {eng.exec_cfg.compute_dtype}] infer() median ms, CUDA "
+          f"graphs / eager: batch 1 {out[1][True]:.3f} / {out[1][False]:.3f}"
+          f", batch 4 {out[4][True]:.3f} / {out[4][False]:.3f} (N = "
+          f"{test.N}, {eng.n_members} members; {card})", flush=True)
     return reqs
 
 
 def profile_engine(torch, service, reqs, card):
-    """torch.profiler over 24 batch-1 engine calls: device time by kernel
-    and the device's busy share of the window."""
+    """torch.profiler over 24 batch-1 engine calls (graph replays): device
+    time by kernel and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = service.engine
@@ -1828,6 +2124,301 @@ def profile_engine(torch, service, reqs, card):
     for e in evs[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:5d} x  {e.key[:90]}", flush=True)
+
+
+def make_panel():
+    """The synthetic panel every phase from 4 on reads (``PANEL``), written
+    to ``DATA_DIR`` anew: its (train, valid, test) splits."""
+    from deeplearninginassetpricing_paperreplication_torch.data.panel import (
+        load_splits,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.data.synthetic \
+        import generate_all_splits
+
+    t0 = time.perf_counter()
+    if DATA_DIR.exists():
+        shutil.rmtree(DATA_DIR)
+    generate_all_splits(DATA_DIR, verbose=False, compress=False, **PANEL)
+    splits = load_splits(DATA_DIR)
+    print(f"[panel] synthetic F={PANEL['n_features']} M={PANEL['n_macro']} "
+          f"N={PANEL['n_stocks']} months {PANEL['n_periods_train']}/"
+          f"{PANEL['n_periods_valid']}/{PANEL['n_periods_test']} seed "
+          f"{PANEL['seed']}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return splits
+
+
+def serving_phase(torch, K, card, test, profile: bool) -> int:
+    """Phase 4 at f32 and bf16: the service through the async front end
+    (`serve_and_check`), every warmed bucket's graph against the eager
+    route, `engine.infer` timed; returns the forward's launches."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
+        import ensemble_metrics
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        server as server_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    bodies = serving_bodies(test)
+    cfg, stacked = stack_checkpoints([str(ROOT / d) for d in REF_RUNS],
+                                     device=DEVICE)
+    batch = test.to_batch(DEVICE)
+    launches = 0
+    for dtype in ("float32", "bfloat16"):
+        offline = ensemble_metrics(cfg, stacked, batch, ExecutionConfig(
+            kernel="off", compute_dtype=dtype, device=DEVICE))
+        service, n, _ = serve_and_check(torch, dtype, test, offline, bodies,
+                                        card, K, server_mod)
+        launches += n
+        graph_checks(torch, service, test, card)
+        reqs = engine_timing(torch, service, test, card)
+        if profile:
+            profile_engine(torch, service, reqs, card)
+    return launches
+
+
+def stand_in_members(torch):
+    """Nine members of the paper architecture (``ref_runs``' config) from
+    seeded random weights, saved as verified run dirs, and a promotion
+    pointer naming them: what phases 7 and 10 hand phase 4b, for
+    ``--only_serve``."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
+        import init_ensemble_params
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .promotion import verify_member_dirs, write_pointer
+    from deeplearninginassetpricing_paperreplication_torch.serving.engine \
+        import params_digest
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import member_state_dicts, save_state_dict
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import GANConfig
+
+    cfg = GANConfig.load(ROOT / REF_RUNS[0] / "config.json")
+    shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+    dirs = []
+    for seed, sd in zip(ENSEMBLE_SEEDS, member_state_dicts(
+            init_ensemble_params(cfg, ENSEMBLE_SEEDS))):
+        d = HEALTH_DIR / "members" / f"seed_{seed}"
+        d.mkdir(parents=True)
+        cfg.save(d / "config.json")
+        save_state_dict(d / "best_model_sharpe.pt", sd)
+        dirs.append(str(d))
+    members, rejection = verify_member_dirs(dirs)
+    check(rejection is None, f"stand-in members: {rejection}")
+    _, stacked = stack_checkpoints(dirs, device="cpu")
+    ctl = HEALTH_DIR / "ctl"
+    write_pointer(ctl, {"checkpoint_dirs": dirs, "members": members,
+                        "params_fingerprint": params_digest(stacked)})
+    return dirs, ctl
+
+
+def reload_checks(torch, card, splits, member_dirs, ctl):
+    """(4b) Hot reload on phase 7's nine members (saved as verified run
+    dirs by phase 10, whose promotion pointer under `ctl` names all nine),
+    f32, through the async front end: a swap from three members to three
+    others equals a fresh engine on those dirs bit for bit, bumps the
+    generation and serves a cached request anew; a NaN candidate trips the
+    canary (a 5xx, the pre-swap answers restored bit for bit); the
+    ref_runs trio (another architecture, or four dirs) is refused with the
+    engine serving on; a service booted from the pointer reloads as a
+    no-op and refuses a pointer whose member was tampered, generation
+    unchanged; /v1/drain closes the listener and the serve loop returns."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .manifest import config_hash
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .promotion import read_pointer, write_pointer
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        AsyncServerThread,
+        InferenceEngine,
+        InferenceRequest,
+        pick_free_port,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        server as server_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import member_state_dicts, save_state_dict
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig
+
+    t_start = time.perf_counter()
+    train, _, test = splits
+    common = ["--data_dir", str(DATA_DIR), "--device", DEVICE,
+              "--compute_dtype", "float32", "--stock_buckets", "16384"]
+    mask = test.mask.astype(np.float32)
+    sdf_body = {t: {"individual_b64": _b64(test.individual[t]),
+                    "mask_b64": _b64(mask[t]),
+                    "returns_b64": _b64(test.returns[t]), "month": t,
+                    "encoding": "b64"} for t in RELOAD_MONTHS}
+    raw_body = {t: _raw_body(t, test.individual[t]) for t in RELOAD_MONTHS}
+
+    def request(t, masked=True):
+        return InferenceRequest(individual=test.individual[t],
+                                mask=mask[t] if masked else None,
+                                returns=test.returns[t] if masked else None,
+                                month=t)
+
+    def fresh(dirs):
+        eng = InferenceEngine(dirs, macro_history=test.macro,
+                              macro_stats=(train.mean_macro,
+                                           train.std_macro),
+                              stock_buckets=(16384,),
+                              exec_cfg=ExecutionConfig(
+                                  device=DEVICE, compute_dtype="float32"))
+        eng.warmup()
+        return eng
+
+    def served(base):
+        out = {}
+        for t in RELOAD_MONTHS:
+            s, ans = post(base + "/v1/sdf", sdf_body[t])
+            s2, w = post(base + "/v1/weights", raw_body[t], raw=True)
+            check(s == 200 and s2 == 200, f"HTTP {s}/{s2} at month {t}")
+            out[t] = (ans, w)
+        return out
+
+    def same_as(answers, eng, what):
+        for t, (ans, w) in answers.items():
+            ref = eng.infer_one(request(t), observe=False)
+            ref_raw = eng.infer_one(request(t, masked=False), observe=False)
+            check(ans["sdf"] == ref.sdf and np.array_equal(
+                _unb64(ans["member_sdf_b64"]), ref.member_sdf)
+                and np.array_equal(w, ref_raw.weights),
+                f"{what}: served answers != the reference at month {t} "
+                f"(sdf {ans['sdf']} vs {ref.sdf}, max|dw| "
+                f"{np.abs(w - ref_raw.weights).max():.3e})")
+
+    service = server_mod.build_service(server_mod.build_arg_parser()
+                                       .parse_args(["--checkpoint_dirs",
+                                                    *member_dirs[:3],
+                                                    *common]))
+    server = AsyncServerThread(service, port=pick_free_port(), admin_port=0)
+    base = f"http://127.0.0.1:{server.start()}"
+    admin = f"http://127.0.0.1:{server.admin_port}"
+    eng = service.engine
+    try:
+        before = served(base)  # also fills the cache and the canary ring
+        gen0 = eng.stats()["params_generation"]
+        t0 = time.perf_counter()
+        s, out = post(base + "/v1/reload",
+                      {"checkpoint_dirs": member_dirs[3:6]})
+        swap_s = time.perf_counter() - t0
+        check(s == 200 and out["swapped"] is True
+              and out["params_generation"] == gen0 + 1
+              and out["canary"]["finite"] is True
+              and out["canary"]["replayed"] > 0, f"reload: {s} {out}")
+        after = served(base)
+        check(not any(ans["cached"] for ans, _ in after.values()),
+              "a request cached before the swap was served from the cache")
+        ref_b = fresh(member_dirs[3:6])
+        same_as(after, ref_b, "after the swap")
+        check(eng.stats()["steady_state_captures"] == 0,
+              "the reload captured a graph")
+        # a NaN candidate: written through the verified writer, so only
+        # the canary can stop it
+        nan_dir = HEALTH_DIR / "nan_candidate"
+        shutil.rmtree(nan_dir, ignore_errors=True)
+        nan_dir.mkdir(parents=True)
+        shutil.copy(Path(member_dirs[6]) / "config.json", nan_dir)
+        _, stacked = stack_checkpoints([member_dirs[6]], device="cpu")
+        save_state_dict(nan_dir / "best_model_sharpe.pt", {
+            k: v * float("nan")
+            for k, v in member_state_dicts(stacked)[0].items()})
+        gen1 = eng.stats()["params_generation"]
+        s, err = post(base + "/v1/reload", {
+            "checkpoint_dirs": member_dirs[3:5] + [str(nan_dir)]})
+        check(s == 500 and "canary" in err,
+              f"the NaN candidate was not reverted: {s} {err}")
+        check(eng.stats()["params_generation"] == gen1 + 2
+              and eng.checkpoint_dirs == member_dirs[3:6],
+              "the revert did not restore the pre-swap generation")
+        same_as(served(base), ref_b, "after the canary's revert")
+        # the ref_runs trio: another architecture, else the member count
+        ref_dirs = [str(ROOT / d) for d in REF_RUNS]
+        other_arch = (config_hash(GANConfig.load(Path(ref_dirs[0])
+                                                 / "config.json"))
+                      != eng.config_hash)
+        bad = ref_dirs if other_arch else member_dirs[:4]
+        s, err = post(base + "/v1/reload", {"checkpoint_dirs": bad})
+        check(s == 500 and ("architecture" in err or "member" in err),
+              f"a reload to {'the ref_runs trio' if other_arch else 'four'}"
+              f" dirs answered {s} {err}")
+        check(eng.stats()["params_generation"] == gen1 + 2,
+              "a refused reload moved the generation")
+        same_as(served(base), ref_b, "after the refused reload")
+        # /v1/drain: the public listener closes, the serve loop returns
+        s, drained = post(admin + "/v1/drain", {"timeout_s": 10})
+        check(s == 200 and drained["drained"] is True, f"drain: {drained}")
+        check(server.returned.wait(15) and server.error is None,
+              f"the serve loop did not return cleanly: {server.error}")
+        try:
+            urllib.request.urlopen(base + "/healthz", timeout=5)
+            check(False, "the public listener still answers after a drain")
+        except urllib.error.URLError:
+            pass
+    finally:
+        server.stop()
+        service.close()
+    del ref_b
+
+    # a service booted from phase 10's pointer (the nine members)
+    ptr_service = server_mod.build_service(
+        server_mod.build_arg_parser().parse_args(
+            ["--pointer", str(ctl), "--batch_buckets", "1", *common]))
+    server = AsyncServerThread(ptr_service, port=pick_free_port())
+    base = f"http://127.0.0.1:{server.start()}"
+    eng = ptr_service.engine
+    try:
+        check(eng.n_members == 9, f"the pointer booted {eng.n_members}")
+        s, out = post(base + "/v1/reload", {})
+        check(s == 200 and out["swapped"] is False
+              and out["converged"] is True,
+              f"a no-body reload from the pointer: {s} {out}")
+        # a pointer written for the test names a copy of one member's dir
+        pointer = read_pointer(ctl)
+        src = Path(pointer["checkpoint_dirs"][0])
+        copy = HEALTH_DIR / "pointer_copy" / src.name
+        shutil.rmtree(copy.parent, ignore_errors=True)
+        shutil.copytree(src, copy)
+        head = {k: v for k, v in pointer.items()
+                if k not in ("kind", "generation", "history")}
+        head["checkpoint_dirs"] = [str(copy)] + pointer["checkpoint_dirs"][1:]
+        head["members"] = [dict(m, dir=str(copy)) if i == 0 else m
+                           for i, m in enumerate(pointer["members"])]
+        ptr_service.pointer_root = HEALTH_DIR / "ctl_test"
+        write_pointer(ptr_service.pointer_root, head)
+        s, out = post(base + "/v1/reload", {})
+        check(s == 200 and out["swapped"] is False,
+              f"a reload to the copied member: {s} {out}")
+        gen = eng.stats()["params_generation"]
+        pt = copy / pointer["members"][0]["file"]
+        data = bytearray(pt.read_bytes())
+        data[len(data) // 2] ^= 0xFF
+        pt.write_bytes(bytes(data))
+        s, err = post(base + "/v1/reload", {})
+        check(s == 500 and "digest mismatch" in err
+              and eng.stats()["params_generation"] == gen,
+              f"the tampered member was not refused whole: {s} {err}")
+    finally:
+        server.stop()
+        ptr_service.close()
+    print(f"[serve reload] {len(member_dirs)} members, f32, async front "
+          f"end: a swap from members 1-3 to 4-6 in {swap_s:.2f} s bit for "
+          f"bit a fresh "
+          f"engine (generation {gen0} -> {gen0 + 1}, cached request served "
+          f"anew, no capture); a NaN candidate reverted by the canary (5xx,"
+          f" pre-swap answers bit for bit); "
+          f"{'the ref_runs trio' if other_arch else 'four dirs'} refused, "
+          f"serving on; /v1/drain: listener closed, loop returned; a "
+          f"9-member service from the pointer: no-op reload, a tampered "
+          f"member refused whole (generation {gen} kept); "
+          f"{time.perf_counter() - t_start:.1f} s ({card})", flush=True)
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -3216,8 +3807,9 @@ def promotion_checks(torch, K, C, card, splits, ens_cfg, ens_params):
         f"{k} ({v:.2f} s)" for k, v in rejected.items())
         + "; generation 2 (3 members), rollback to generation 3 = the nine, "
           f"show: generation {shown['generation']} ({card})", flush=True)
-    shutil.rmtree(HEALTH_DIR, ignore_errors=True)
-    return dict(launches=launches, wall_s=wall, reject_s=rejected)
+    # the members and the pointer stay for the serving reload checks (4b)
+    return dict(launches=launches, wall_s=wall, reject_s=rejected,
+                dirs=dirs, ctl=ctl)
 
 
 def main(argv=None) -> int:
@@ -3261,6 +3853,13 @@ def main(argv=None) -> int:
                          "its checks and the roofline path's measurement (a "
                          "short call while microbench.cu changes); no result "
                          "line")
+    ap.add_argument("--only_serve", action="store_true",
+                    help="build the FFN forward's libraries only and run "
+                         "phase 4 and phase 4b, the latter on nine "
+                         "stand-in members (seeded random weights of the "
+                         "paper architecture) and a pointer naming them (a "
+                         "short call while the serving path changes); no "
+                         "result line")
     ap.add_argument("--compare_ceiling", metavar="DIR", default=None,
                     help="with --only_ceiling: hold the ceiling bit for bit "
                          "against DIR/microbench.cu's on integer operands "
@@ -3280,13 +3879,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from deeplearninginassetpricing_paperreplication_torch.data.panel import (
-        load_splits,
-    )
-    from deeplearninginassetpricing_paperreplication_torch.data.synthetic \
-        import generate_all_splits
     from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
-        import evaluate_ensemble, stack_checkpoints
+        import evaluate_ensemble
     from deeplearninginassetpricing_paperreplication_torch.ops import _nvcc
     from deeplearninginassetpricing_paperreplication_torch.ops import (
         cond_em as C,
@@ -3296,11 +3890,6 @@ def main(argv=None) -> int:
     )
     from deeplearninginassetpricing_paperreplication_torch.ops import (
         sdf_ffn as K,
-    )
-    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
-        import ensemble_metrics
-    from deeplearninginassetpricing_paperreplication_torch.serving import (
-        server as server_mod,
     )
     from deeplearninginassetpricing_paperreplication_torch.utils.config \
         import ExecutionConfig
@@ -3317,7 +3906,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     jobs = (K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
-            else K.build_jobs(kernels=("fwd",)) if opts.only_fwd
+            else K.build_jobs(kernels=("fwd",))
+            if opts.only_fwd or opts.only_serve
             else C.build_jobs() if opts.only_cem
             else MB.build_jobs() if opts.only_ceiling
             else K.build_jobs() + C.build_jobs() + MB.build_jobs())
@@ -3331,12 +3921,13 @@ def main(argv=None) -> int:
 
     (cem_job,), (mb_job,) = C.build_jobs(), MB.build_jobs()
     sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
-              else ("fwd",) if opts.only_fwd
+              else ("fwd",) if opts.only_fwd or opts.only_serve
               else () if opts.only_cem or opts.only_ceiling
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
-              else [] if opts.only_bwd or opts.only_dx or opts.only_fwd
+              else [] if (opts.only_bwd or opts.only_dx or opts.only_fwd
+                          or opts.only_serve)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_dx:
@@ -3403,6 +3994,20 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
         return 0
 
+    if opts.only_serve:
+        # the serving phases alone: 4, then 4b on stand-in members
+        t0 = time.perf_counter()
+        splits = make_panel()
+        serving_phase(torch, K, card, splits[2], opts.profile)
+        print(f"[serve] phase 4 done in {time.perf_counter() - t0:.1f} s "
+              f"({card})", flush=True)
+        reload_checks(torch, card, splits, *stand_in_members(torch))
+        shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+        print(f"[serve] serving checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
+
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     fwd_plan_lines(torch, K, card)
@@ -3425,33 +4030,11 @@ def main(argv=None) -> int:
 
     # 4. serving
     t0 = time.perf_counter()
-    if DATA_DIR.exists():
-        shutil.rmtree(DATA_DIR)
-    generate_all_splits(DATA_DIR, verbose=False, compress=False, **PANEL)
-    splits = load_splits(DATA_DIR)
+    splits = make_panel()
     test = splits[2]
-    print(f"[panel] synthetic F={PANEL['n_features']} M={PANEL['n_macro']} "
-          f"N={PANEL['n_stocks']} months {PANEL['n_periods_train']}/"
-          f"{PANEL['n_periods_valid']}/{PANEL['n_periods_test']} seed "
-          f"{PANEL['seed']}: {time.perf_counter() - t0:.1f} s", flush=True)
-    mask = test.mask.astype(np.float32)
-    bodies = [json.dumps({"individual": test.individual[t].tolist(),
-                          "mask": mask[t].tolist(),
-                          "returns": test.returns[t].tolist(),
-                          "month": t}).encode() for t in range(test.T)]
-    cfg, stacked = stack_checkpoints([str(ROOT / d) for d in REF_RUNS],
-                                     device=DEVICE)
-    batch = test.to_batch(DEVICE)
-    serve_launches = 0
-    for dtype in ("float32", "bfloat16"):
-        offline = ensemble_metrics(cfg, stacked, batch, ExecutionConfig(
-            kernel="off", compute_dtype=dtype, device=DEVICE))
-        service, launches, _ = serve_and_check(
-            torch, dtype, test, offline, bodies, card, K, server_mod)
-        serve_launches += launches
-        reqs = engine_timing(torch, service, test, card)
-        if opts.profile:
-            profile_engine(torch, service, reqs, card)
+    serve_launches = serving_phase(torch, K, card, test, opts.profile)
+    print(f"[serve] phase 4 done in {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
 
     # 5. offline ensemble
     res = evaluate_ensemble([str(ROOT / d) for d in REF_RUNS], str(DATA_DIR),
@@ -3509,6 +4092,11 @@ def main(argv=None) -> int:
     gate = promotion_checks(torch, K, C, card, splits, ens_cfg, ens_params)
     print(f"[health] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # 4b. hot reload of the serving path on phase 7's members and phase
+    # 10's pointer
+    reload_checks(torch, card, splits, gate["dirs"], gate["ctl"])
+    shutil.rmtree(HEALTH_DIR, ignore_errors=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"

@@ -8,8 +8,10 @@ multi-run pipeline (three GAN phases × a hyperparameter sweep × a 9-member
 ensemble), exactly the shape that dies to preemptions, OOM kills and NaN
 blowups hours in. Named injection sites sit in the port's verified file IO
 (``checkpoint/save``, ``checkpoint/saved``, ``checkpoint/load``), the
-sweep (``sweep/bucket``, ``sweep/ledger_write``) and the promotion gate
-(``promote/validate``, ``promote/write``), and a JSON *fault plan* decides
+sweep (``sweep/bucket``, ``sweep/ledger_write``), the promotion gate
+(``promote/validate``, ``promote/write``) and the serving path
+(``serving/infer``, ``serve/accept``, ``serve/admit``, ``serve/flush``,
+``serve/coalesce``, ``serve/reload``), and a JSON *fault plan* decides
 which site hits fire which fault.
 
 Plan format (``DLAP_FAULT_PLAN`` env: inline JSON, or a path to a JSON
@@ -72,6 +74,17 @@ SITES = (
                                #   the source, n_members)
     "promote/write",           # before the pointer advances (ctx: path,
                                #   generation)
+    "serving/infer",           # per served micro-batch (ctx: n_requests)
+    "serve/accept",            # per accepted connection
+    "serve/admit",             # per batcher admission decision (ctx:
+                               #   priority, queue_depth — `raise` rejects
+                               #   exactly one request as it is admitted)
+    "serve/flush",             # per continuous-batch flush (ctx: occupancy;
+                               #   `raise` → that flush 5xxs)
+    "serve/coalesce",          # per single-flight dispatch-OWNER entry (a
+                               #   kill here dies with coalesced waiters
+                               #   sharing the doomed flight)
+    "serve/reload",            # per /v1/reload request
 )
 
 
@@ -142,6 +155,13 @@ class FaultInjector:
         if action == "raise":
             raise FaultInjected(f"injected raise at {site} (ctx={ctx})")
         if action == "kill":
+            # last words first: the serving plane dumps its flight recorder
+            # here, so an injected SIGKILL leaves the in-flight evidence
+            for hook in list(_pre_death_hooks):
+                try:
+                    hook(site, action)
+                except Exception:
+                    pass  # a hook must never change the death mode
             # the OOM-kill / preemption death mode: no cleanup, no excepthook
             os.kill(os.getpid(), signal.SIGKILL)
             while True:  # pragma: no cover — unreachable after SIGKILL lands
@@ -177,6 +197,23 @@ class FaultInjector:
 
 _UNRESOLVED = ()  # sentinel: environment not yet inspected
 _injector: Any = _UNRESOLVED
+# callables (site, action) → None run before a kill executes
+_pre_death_hooks: List[Any] = []
+
+
+def add_pre_death_hook(fn) -> None:
+    """Register a last-words callback run before a ``kill`` fault executes
+    (the serving flight recorder's dump). Callbacks must be fast and must
+    not raise; exceptions are swallowed."""
+    if fn not in _pre_death_hooks:
+        _pre_death_hooks.append(fn)
+
+
+def remove_pre_death_hook(fn) -> None:
+    try:
+        _pre_death_hooks.remove(fn)
+    except ValueError:
+        pass
 
 def get_injector() -> Optional[FaultInjector]:
     global _injector

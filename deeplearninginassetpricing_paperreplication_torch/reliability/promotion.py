@@ -234,7 +234,8 @@ def evaluate_candidate(
 
     from ..evaluate_ensemble import stack_checkpoints
     from ..parallel.ensemble import ensemble_metrics
-    from ..serving.engine import config_hash, params_digest
+    from ..observability.manifest import config_hash
+    from ..serving.engine import params_digest
     from ..utils.config import ExecutionConfig, resolve_device
 
     exec_cfg = exec_cfg or ExecutionConfig()

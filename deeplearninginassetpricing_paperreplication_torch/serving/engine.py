@@ -15,22 +15,35 @@ month of firm characteristics.
 * **Incremental macro state.** The macro LSTM runs once over the
   historical series at load; every new month is an O(1) cell step per
   layer (``models/recurrent.stacked_lstm_step``).
-* **Buckets.** A request's stock axis is padded with masked-out zeros to
-  the smallest stock bucket that holds it, and a micro-batch of months to a
-  batch bucket; months ride the panel's time axis, so B month-queries are
-  one T = B forward. Host staging buffers are allocated once per bucket
-  (pinned on a CUDA device) and reused.
+* **Buckets and CUDA graphs.** A request's stock axis is padded with
+  masked-out zeros to the smallest stock bucket that holds it, and a
+  micro-batch of months to a batch bucket; months ride the panel's time
+  axis, so B month-queries are one T = B forward. Host staging is in the
+  request's layout ([B, Nb, F], a row copy per request); the forward
+  transposes to the kernel's feature-major panel on the device. On a CUDA
+  device, :meth:`warmup` captures one ``torch.cuda.CUDAGraph`` per (stock
+  bucket, batch bucket) — the forward from static device inputs to static
+  device outputs, in place of the JAX engine's AOT programs with donated
+  inputs — and a flush fills the bucket's pinned host staging, copies it
+  and the months' macro states into the graph's static inputs, replays
+  the graph and copies the outputs back, all under the dispatch lock. After
+  warmup the serve path captures nothing and allocates no host memory
+  (``stats()["steady_state_captures"]`` is 0). On the CPU there are no
+  graphs: the forward runs eagerly.
+* **Hot reload.** :meth:`reload` swaps new member params in — all or
+  nothing, same architecture and member count — by copying them INTO the
+  tensors the graphs captured (the packed FFN buffer too), never by
+  rebinding, and re-derives the macro state; :meth:`snapshot_params`
+  clones what a reload overwrites so the canary's :meth:`restore_params`
+  can put it back.
 
-Left for later slices: the device mesh, input donation and AOT programs
-(CUDA graphs stand in for them), per-span staging, hot ``reload`` and its
-canary.
+Left for later slices: the device mesh and per-span staging.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-import json
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -48,26 +61,23 @@ from ..models.recurrent import (
     stacked_lstm_scan,
     stacked_lstm_step,
 )
+from ..observability import EventLog
+from ..observability.manifest import config_hash
 from ..ops import sdf_ffn
 from ..ops.metrics import normalize_weights_abs
 from ..parallel.ensemble import sdf_params
-from ..utils.config import ExecutionConfig, GANConfig, resolve_device
+from ..reliability.faults import inject
+from ..utils.config import ExecutionConfig, resolve_device
 
 # Stock-axis buckets: powers of two from 64 to 16384 cover the 500-stock
 # synthetic panel through the ~10k-stock real one with ≤ 2× padding.
 DEFAULT_STOCK_BUCKETS = tuple(64 * 2**i for i in range(9))
 DEFAULT_BATCH_BUCKETS = (1, 4)
 
-
-def config_hash(cfg: GANConfig) -> str:
-    """sha256 of the canonical (sorted-key) JSON of the config."""
-    blob = json.dumps(cfg.to_dict(), sort_keys=True, default=str).encode()
-    return hashlib.sha256(blob).hexdigest()
-
-
 def params_digest(stacked: Dict[str, torch.Tensor]) -> str:
     """sha256 over the stacked parameters' bytes — the served weights'
-    identity."""
+    identity. Result caches key on it, so a hot swap (:meth:`reload`) can
+    never serve a stale entry."""
     h = hashlib.sha256()
     for k in sorted(stacked):
         a = stacked[k].detach().cpu().numpy()
@@ -110,12 +120,31 @@ class InferenceResult:
     batch_bucket: int
 
 
+@dataclasses.dataclass
+class _BucketGraph:
+    """One captured (stock bucket, batch bucket) forward: the graph and the
+    static device tensors it reads and writes."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    individual: torch.Tensor  # [B, Nb, F]
+    mask: torch.Tensor  # [B, Nb]
+    returns: torch.Tensor  # [B, Nb]
+    state: Optional[torch.Tensor]  # [K, B, Dp]
+    out: Dict[str, torch.Tensor]  # weights [B, Nb], sdf [B], member_sdf [K, B]
+
+
 class InferenceEngine:
     """K stacked checkpoints + macro history → month-query object.
 
-    Thread-safety: :meth:`infer` and :meth:`append_month` may be called from
-    any thread; staging fill + dispatch and macro-state appends are
-    serialized by one lock.
+    Thread-safety: :meth:`infer`, :meth:`append_month`, :meth:`reload` and
+    :meth:`restore_params` may be called from any thread. Staging fill,
+    graph replay (or the eager forward) and the output copy, macro-state
+    appends and the whole of a params swap are serialized by the dispatch
+    lock (``_infer_lock``), so a flush runs fully before or fully after a
+    swap; counters and the generation-quality aggregates sit behind a
+    second, short-held lock (``_lock``). The graphs and static buffers
+    belong to the engine, not to a thread: the continuous batcher replays
+    them from its dispatch thread.
     """
 
     def __init__(
@@ -127,18 +156,23 @@ class InferenceEngine:
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         which: str = "best_model_sharpe",
         exec_cfg: Optional[ExecutionConfig] = None,
+        events: Optional[EventLog] = None,
     ):
         self.exec_cfg = exec_cfg or ExecutionConfig()
         self.device = resolve_device(self.exec_cfg.device)
+        self.events = events if events is not None else EventLog()
         self.checkpoint_dirs = [str(d) for d in checkpoint_dirs]
+        self._which = which
         cfg, stacked = stack_checkpoints(self.checkpoint_dirs, which,
                                          device=self.device)
         self.cfg = cfg
         self.config_hash = config_hash(cfg)
         self.params_fingerprint = params_digest(stacked)
+        self.params_generation = 0
         self.n_members = len(self.checkpoint_dirs)
         self.params = sdf_params(stacked)
-        # packed once: the kernel reads these bytes on every request
+        # packed once: the kernel (and every captured graph) reads these
+        # bytes on every request; a reload copies new values into them
         self._packed = (pack_sdf_ffn(self.params, cfg,
                                      self.exec_cfg.compute_dtype)
                         if cfg.hidden_dim else None)
@@ -147,11 +181,22 @@ class InferenceEngine:
             else DEFAULT_STOCK_BUCKETS))
         self.batch_buckets = tuple(sorted(batch_buckets))
         self._lock = threading.Lock()
+        self._infer_lock = threading.Lock()
         self._staging: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
+        self._graphs: Dict[Tuple[int, int], _BucketGraph] = {}
+        self._captures = 0
+        # captures at the end of warmup(): everything past this marker is a
+        # steady-state capture (stats()["steady_state_captures"])
+        self._warmup_captures: Optional[int] = None
+        self._replays = 0
         self._dispatches = 0
+        # per-GENERATION served-output quality (the dlap_model_* gauges),
+        # reset on every swap so a scrape describes the weights serving now
+        self._gen_quality: Dict[str, float] = self._fresh_gen_quality()
         self._macro_stats = macro_stats
         self._uses_state = cfg.macro_feature_dim > 0
         self._uses_lstm = self._uses_state and cfg.use_rnn
+        # views of self.params: a reload's in-place copy updates them too
         self._layers = (layer_params(self.params, len(cfg.num_units_rnn),
                                      "macro_lstm.lstm.")
                         if self._uses_lstm else None)
@@ -165,6 +210,204 @@ class InferenceEngine:
                     f"{cfg.macro_feature_dim} > 0: pass macro_history "
                     "([T, M], normalized with the TRAIN split's stats)")
             self._init_macro_state(np.asarray(macro_history, np.float32))
+
+    @property
+    def uses_graphs(self) -> bool:
+        """True on a CUDA device: every bucket is served by graph replay."""
+        return self.device.type == "cuda"
+
+    # -- generation quality --------------------------------------------------
+
+    @staticmethod
+    def _fresh_gen_quality() -> Dict[str, float]:
+        return {"outputs": 0, "nonfinite_outputs": 0,
+                "sdf_n": 0, "sdf_sum": 0.0, "sdf_sumsq": 0.0,
+                "weight_norm_sum": 0.0, "weight_max_abs": 0.0}
+
+    def _observe_outputs(self, requests: List[InferenceRequest],
+                         out: Dict[str, np.ndarray]) -> None:
+        """Fold one micro-batch's served outputs into the generation-
+        quality aggregates (host numpy over the already-fetched result —
+        no extra device work)."""
+        q = self._fresh_gen_quality()
+        for i, r in enumerate(requests):
+            n = np.asarray(r.individual).shape[0]
+            w = out["weights"][i, :n]
+            finite = bool(np.isfinite(w).all())
+            q["outputs"] += 1
+            q["weight_norm_sum"] += float(np.abs(w).sum())
+            if w.size:
+                q["weight_max_abs"] = max(q["weight_max_abs"],
+                                          float(np.abs(w).max()))
+            if r.returns is not None:
+                s = float(out["sdf"][i])
+                if np.isfinite(s):
+                    q["sdf_n"] += 1
+                    q["sdf_sum"] += s
+                    q["sdf_sumsq"] += s * s
+                else:
+                    finite = False
+            if not finite:
+                q["nonfinite_outputs"] += 1
+        with self._lock:
+            g = self._gen_quality
+            for k, v in q.items():
+                g[k] = max(g[k], v) if k == "weight_max_abs" else g[k] + v
+
+    def generation_quality(self) -> Dict[str, Any]:
+        """Summary of what the CURRENT params generation has served — the
+        ``dlap_model_*`` gauge source. ``finite_fraction`` is 1.0 for a
+        generation that has served nothing (no evidence ≠ bad evidence)."""
+        with self._lock:
+            g = dict(self._gen_quality)
+            generation = self.params_generation
+        n = g["outputs"]
+        sdf_mean = sdf_vol = None
+        if g["sdf_n"]:
+            sdf_mean = g["sdf_sum"] / g["sdf_n"]
+            var = g["sdf_sumsq"] / g["sdf_n"] - sdf_mean * sdf_mean
+            sdf_vol = float(np.sqrt(max(var, 0.0)))
+        return {
+            "generation": generation,
+            "outputs": n,
+            "nonfinite_outputs": g["nonfinite_outputs"],
+            "finite_fraction": (round(1.0 - g["nonfinite_outputs"] / n, 6)
+                                if n else 1.0),
+            "weight_norm_mean": (round(g["weight_norm_sum"] / n, 6)
+                                 if n else None),
+            "weight_max_abs": round(g["weight_max_abs"], 6) if n else None,
+            "sdf_mean": round(sdf_mean, 6) if sdf_mean is not None else None,
+            "sdf_vol": round(sdf_vol, 6) if sdf_vol is not None else None,
+        }
+
+    # -- hot reload ----------------------------------------------------------
+
+    def reload(self, checkpoint_dirs: Optional[Sequence[str]] = None
+               ) -> Dict[str, Any]:
+        """Hot-swap params in place — from the SAME checkpoint dirs (new
+        verified checkpoints written under them) or from `checkpoint_dirs`
+        (a promotion pointer's member set). The captured graphs read the
+        engine's parameter tensors and packed FFN buffer by address, so the
+        new values are copied INTO those tensors; a reload never changes
+        shapes — an architecture or member-count change raises and leaves
+        the engine serving. The macro state is params-dependent and is
+        re-derived over the full (initial + appended) normalized series.
+        Bumps ``params_generation`` and ``params_fingerprint``; result
+        caches keyed on the fingerprint drop every stale entry.
+
+        ALL-OR-NOTHING: a failure (a member dir whose every generation is
+        corrupt, an architecture mismatch, a macro re-scan error) leaves
+        the engine serving its current params. A reload whose loaded bytes
+        hash to the CURRENT fingerprint is a no-op (``swapped: False``):
+        no generation bump, no re-scan."""
+        dirs = (self.checkpoint_dirs if checkpoint_dirs is None
+                else [str(d) for d in checkpoint_dirs])
+        if len(dirs) != self.n_members:
+            raise ValueError(
+                f"reload got {len(dirs)} checkpoint dirs but the captured "
+                f"graphs serve a {self.n_members}-member ensemble — start a "
+                "fresh engine to change the member count")
+        cfg, stacked = stack_checkpoints(dirs, self._which,
+                                         device=self.device)
+        if config_hash(cfg) != self.config_hash:
+            raise ValueError(
+                "reload found a different architecture (config hash "
+                f"{config_hash(cfg)[:12]} != {self.config_hash[:12]}); the "
+                "captured graphs only serve the architecture they were "
+                "captured for — start a fresh engine instead")
+        fingerprint = params_digest(stacked)
+        if fingerprint == self.params_fingerprint:
+            self.checkpoint_dirs = dirs
+            self.events.counter("serve/reload",
+                                generation=self.params_generation,
+                                fingerprint=fingerprint[:16], swapped=False)
+            return {"params_fingerprint": fingerprint,
+                    "params_generation": self.params_generation,
+                    "swapped": False}
+        new = sdf_params(stacked)
+        packed = (pack_sdf_ffn(new, cfg, self.exec_cfg.compute_dtype)
+                  if cfg.hidden_dim else None)
+        with self._infer_lock:
+            # the WHOLE swap — params AND the re-derived macro state —
+            # under the dispatch lock: a flush never sees new params
+            # against old LSTM state
+            old = self._snapshot_locked()
+            self._copy_params(new, packed)
+            self.params_fingerprint = fingerprint
+            try:
+                if self._uses_state:
+                    self._init_macro_state(self._macro_raw)
+            except BaseException:
+                self._restore_locked(old)
+                raise
+            with self._lock:
+                self.params_generation += 1
+                self._gen_quality = self._fresh_gen_quality()
+        self.checkpoint_dirs = dirs
+        self.events.counter("serve/reload",
+                            generation=self.params_generation,
+                            fingerprint=fingerprint[:16], swapped=True)
+        return {"params_fingerprint": fingerprint,
+                "params_generation": self.params_generation,
+                "swapped": True}
+
+    @torch.inference_mode()
+    def _copy_params(self, params: Dict[str, torch.Tensor],
+                     packed: Optional[sdf_ffn.PackedFfn]) -> None:
+        """Copy member params (and their packed FFN buffer) into the
+        engine's own tensors, whose addresses the graphs captured."""
+        for k, v in self.params.items():
+            v.copy_(params[k])
+        if self._packed is not None:
+            self._packed.params.copy_(packed.params)
+
+    def _snapshot_locked(self) -> Tuple:
+        # params and the packed buffer are overwritten in place by a
+        # reload, so they are CLONED; the macro state is rebound (never
+        # mutated in place) on every transition, so references suffice
+        with torch.inference_mode():
+            params = {k: v.clone() for k, v in self.params.items()}
+            packed = (self._packed.params.clone()
+                      if self._packed is not None else None)
+        return (params, packed, self.params_fingerprint, self._carries,
+                self._hs, self._macro_raw, list(self.checkpoint_dirs))
+
+    def _restore_locked(self, snapshot: Tuple) -> None:
+        params, packed, fingerprint, carries, hs, macro_raw, _ = snapshot
+        with torch.inference_mode():
+            for k, v in self.params.items():
+                v.copy_(params[k])
+            if packed is not None:
+                self._packed.params.copy_(packed)
+        self.params_fingerprint = fingerprint
+        self._carries, self._hs, self._macro_raw = carries, hs, macro_raw
+
+    def snapshot_params(self) -> Tuple:
+        """Opaque in-memory snapshot of the serving generation (params,
+        packed FFN buffer, fingerprint, the FULL macro state incl. the raw
+        series, dirs) for the post-reload canary's REVERT: an in-place
+        reload (new bytes under the same dirs) cannot be undone by
+        reloading those dirs — the old params may exist nowhere on disk —
+        so the revert restores the held state. The tensors a reload
+        overwrites in place are cloned (a few hundred KB at paper width)."""
+        with self._infer_lock:
+            return self._snapshot_locked()
+
+    def restore_params(self, snapshot: Tuple) -> None:
+        """Copy a :meth:`snapshot_params` state back in, atomically under
+        the dispatch lock (the counterpart of :meth:`reload`'s swap). The
+        WHOLE macro state (carries, per-month states, raw series) restores
+        together. Bumps the generation and emits ``serve/restore`` (not
+        ``serve/reload``: a revert is not a new hot swap)."""
+        with self._infer_lock:
+            self._restore_locked(snapshot)
+            with self._lock:
+                self.params_generation += 1
+                self._gen_quality = self._fresh_gen_quality()
+        self.checkpoint_dirs = list(snapshot[-1])
+        self.events.counter("serve/restore",
+                            generation=self.params_generation,
+                            fingerprint=self.params_fingerprint[:16])
 
     # -- macro state ---------------------------------------------------------
 
@@ -187,13 +430,15 @@ class InferenceEngine:
             raise ValueError(
                 f"macro_history must be [T, {self.cfg.macro_feature_dim}]; "
                 f"got {macro.shape}")
-        self._macro_raw = np.array(macro, np.float32)
-        x = torch.as_tensor(self._macro_raw, device=self.device)
-        if not self._uses_lstm:
-            # no recurrence: the state is the normalized macro row itself
-            self._hs = x.expand(self.n_members, *x.shape).clone()
-            return
-        self._hs, self._carries = stacked_lstm_scan(self._layers, x)
+        macro_raw = np.array(macro, np.float32)
+        x = torch.as_tensor(macro_raw, device=self.device)
+        with self.events.span("serve/macro_scan", months=int(x.shape[0])):
+            if not self._uses_lstm:
+                # no recurrence: the state is the normalized macro row
+                hs, carries = x.expand(self.n_members, *x.shape).clone(), None
+            else:
+                hs, carries = stacked_lstm_scan(self._layers, x)
+        self._macro_raw, self._hs, self._carries = macro_raw, hs, carries
 
     @torch.inference_mode()
     def append_month(self, macro_row: np.ndarray, raw: bool = False) -> int:
@@ -214,7 +459,9 @@ class InferenceEngine:
             mean, std = self._macro_stats
             row = ((row - np.asarray(mean).reshape(-1))
                    / np.asarray(std).reshape(-1)).astype(np.float32)
-        with self._lock:
+        # the dispatch lock: the macro state must not advance while a
+        # reload is mid-rescan
+        with self._infer_lock:
             x = torch.as_tensor(row, device=self.device)
             if self._uses_lstm:
                 h, self._carries = stacked_lstm_step(self._layers,
@@ -223,8 +470,11 @@ class InferenceEngine:
                 h = x.expand(self.n_members, x.shape[0])
             self._hs = torch.cat([self._hs, h[:, None, :]], dim=1)
             self._macro_raw = np.concatenate([self._macro_raw, row[None]])
+            month = self._hs.shape[1] - 1
+        with self._lock:
             self._dispatches += 1
-            return self._hs.shape[1] - 1
+        self.events.counter("serve/macro_append", month=month)
+        return month
 
     def macro_state_for_month(self, month: int) -> np.ndarray:
         """[K, Dp] per-member macro state at `month` (negative = from end)."""
@@ -235,11 +485,13 @@ class InferenceEngine:
     # -- the forward ---------------------------------------------------------
 
     @torch.inference_mode()
-    def _fwd(self, state: Optional[torch.Tensor], x_t: torch.Tensor,
+    def _fwd(self, state: Optional[torch.Tensor], individual: torch.Tensor,
              mask: torch.Tensor, returns: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
-        """state [K, B, Dp] or None; x_t [B, F, Nb]; mask/returns [B, Nb]
-        → the paper-protocol ensemble reduction per month."""
+        """state [K, B, Dp] or None; individual [B, Nb, F]; mask/returns
+        [B, Nb] → the paper-protocol ensemble reduction per month."""
+        # the kernel's feature-major panel, transposed on the device
+        x_t = individual.transpose(1, 2).contiguous()  # [B, F, Nb]
         w = sdf_raw_weights(self.params, self.cfg, self.exec_cfg, x_t, state,
                             self._packed) * mask  # [K, B, Nb]
         if self.cfg.normalize_w:
@@ -254,15 +506,15 @@ class InferenceEngine:
         return {"weights": avg, "sdf": sdf, "member_sdf": member_sdf}
 
     def _staging_buffers(self, nb: int, b: int) -> Tuple[torch.Tensor, ...]:
-        """Host staging for one (stock bucket, batch bucket): the
-        feature-major panel [B, F, Nb], mask and returns [B, Nb], zeroed and
-        reused (pinned on a CUDA device). Callers hold the lock."""
+        """Host staging for one (stock bucket, batch bucket): the panel
+        [B, Nb, F], mask and returns [B, Nb], zeroed and reused (pinned on
+        a CUDA device). Callers hold the dispatch lock."""
         key = (nb, b)
         stage = self._staging.get(key)
         if stage is None:
             pin = self.device.type == "cuda"
             f = self.cfg.individual_feature_dim
-            stage = (torch.zeros((b, f, nb), pin_memory=pin),
+            stage = (torch.zeros((b, nb, f), pin_memory=pin),
                      torch.zeros((b, nb), pin_memory=pin),
                      torch.zeros((b, nb), pin_memory=pin))
             self._staging[key] = stage
@@ -271,22 +523,61 @@ class InferenceEngine:
                 a.zero_()
         return stage
 
+    def _capture(self, nb: int, b: int) -> _BucketGraph:
+        """Capture the (nb, b) bucket's forward as a CUDA graph over static
+        device inputs. The forward runs once uncaptured first, on the
+        capture's side stream (the kernel library loads, its launch plan is
+        looked up and its shared-memory attribute set outside the capture),
+        then is captured on that stream. A failure raises: the engine never
+        quietly serves a bucket eagerly. Callers hold the dispatch lock."""
+        dev = self.device
+        f = self.cfg.individual_feature_dim
+        individual = torch.zeros((b, nb, f), device=dev)
+        mask = torch.zeros((b, nb), device=dev)
+        returns = torch.zeros((b, nb), device=dev)
+        state = None
+        if self._uses_state:
+            state = torch.zeros((self.n_members, b, self.state_dim),
+                                device=dev)
+            state.copy_(self._hs[:, :1].expand(-1, b, -1))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._fwd(state, individual, mask, returns)
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with self.events.span("serve/capture", bucket=nb, batch=b):
+            # thread_local: a bucket captured on first use (no warmup)
+            # must not fail because another thread of the server (a
+            # reload's checkpoint load) touches the device meanwhile
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = self._fwd(state, individual, mask, returns)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        g = _BucketGraph(graph, individual, mask, returns, state, out)
+        self._graphs[(nb, b)] = g
+        with self._lock:
+            self._captures += 1
+        self.events.counter("serve/capture", bucket=nb, batch=b)
+        return g
+
     def warmup(self) -> int:
-        """Run every (stock bucket, batch bucket) forward once on zeros —
-        builds the kernel and allocates every staging buffer before traffic.
-        Returns the number of buckets warmed."""
+        """Allocate every (stock bucket, batch bucket)'s host staging and,
+        on a CUDA device, capture its graph — so steady-state serving
+        captures nothing and allocates no host memory. Returns the number
+        of buckets warmed."""
         n = 0
         for nb in self.stock_buckets:
             for b in self.batch_buckets:
-                with self._lock:
-                    x_t, mask, returns = self._staging_buffers(nb, b)
-                    state = (self._hs[:, [0] * b]
-                             if self._uses_state and self.months else None)
-                    self._fwd(state, x_t.to(self.device), mask.to(self.device),
-                              returns.to(self.device))
+                with self._infer_lock:
+                    self._staging_buffers(nb, b)
+                    if self.uses_graphs and (nb, b) not in self._graphs:
+                        self._capture(nb, b)
                 n += 1
-        if self.device.type == "cuda":
+        if self.uses_graphs:
             torch.cuda.synchronize(self.device)
+        with self._lock:
+            self._warmup_captures = self._captures
         return n
 
     def _resolve_months(self, requests: List[InferenceRequest]) -> List[int]:
@@ -302,11 +593,54 @@ class InferenceEngine:
             months.append(m)
         return months
 
-    def infer(self, requests: List[InferenceRequest]) -> List[InferenceResult]:
+    @torch.inference_mode()
+    def _dispatch(self, nb: int, b: int, months: List[int],
+                  stage: Tuple[torch.Tensor, ...], graphs: bool
+                  ) -> Dict[str, np.ndarray]:
+        """One forward of a filled staging set → host outputs. Callers hold
+        the dispatch lock. ``graphs``: replay the bucket's graph (captured
+        now if warmup did not); False runs the same forward eagerly."""
+        dev = self.device
+        individual, mask, returns = stage
+        # padded batch slots reuse the first request's month (their outputs
+        # are dropped)
+        idx = months + [months[0]] * (b - len(months))
+        if not graphs:
+            state = self._hs[:, idx] if self._uses_state else None
+            out = self._fwd(state, individual.to(dev, non_blocking=True),
+                            mask.to(dev, non_blocking=True),
+                            returns.to(dev, non_blocking=True))
+            return {k: v.cpu().numpy() for k, v in out.items()}
+        g = self._graphs.get((nb, b)) or self._capture(nb, b)
+        g.individual.copy_(individual, non_blocking=True)
+        g.mask.copy_(mask, non_blocking=True)
+        g.returns.copy_(returns, non_blocking=True)
+        if g.state is not None:
+            # the macro state lives outside the graph (append_month rebinds
+            # it): gather the months' rows into the static input
+            for i, m in enumerate(idx):
+                g.state[:, i].copy_(self._hs[:, m])
+        g.graph.replay()
+        out = {k: v.cpu().numpy() for k, v in g.out.items()}
+        with self._lock:
+            self._replays += 1
+        return out
+
+    def infer(self, requests: List[InferenceRequest],
+              flush: Optional[int] = None, observe: bool = True,
+              graphs: bool = True) -> List[InferenceResult]:
         """Serve a micro-batch: every request pads to the largest one's
-        stock bucket, the batch to its batch bucket."""
+        stock bucket, the batch to its batch bucket. ``flush``: the batcher
+        flush id, stamped onto the ``serve/dispatch`` span. ``observe=False``
+        keeps the outputs out of the generation-quality gauges (the
+        canary replay's route). ``graphs=False`` runs the bucket's forward
+        eagerly instead of replaying its graph (on a CUDA device; the CPU
+        has no graphs): the same kernels in the same order, for holding
+        the two against each other."""
         if not requests:
             return []
+        # fault-injection site: one hit per served micro-batch
+        inject("serving/infer", n_requests=len(requests))
         b = bucket_for(len(requests), self.batch_buckets)
         f = self.cfg.individual_feature_dim
         inds = []
@@ -317,28 +651,30 @@ class InferenceEngine:
                                  f"{ind.shape}")
             inds.append(ind)
         nb = bucket_for(max(a.shape[0] for a in inds), self.stock_buckets)
-        with self._lock:
+        attrs: Dict[str, Any] = dict(bucket=nb, batch=b,
+                                     n_requests=len(requests))
+        if flush is not None:
+            attrs["flush"] = flush
+        with self._infer_lock:
             months = self._resolve_months(requests)
-            x_t, mask, returns = self._staging_buffers(nb, b)
-            xv, mv, rv = x_t.numpy(), mask.numpy(), returns.numpy()
+            stage = self._staging_buffers(nb, b)
+            xv, mv, rv = (a.numpy() for a in stage)
             for i, (r, ind) in enumerate(zip(requests, inds)):
                 n = ind.shape[0]
-                xv[i, :, :n] = ind.T
+                xv[i, :n] = ind
                 mv[i, :n] = (1.0 if r.mask is None
                              else np.asarray(r.mask, np.float32))
                 if r.returns is not None:
                     rv[i, :n] = np.asarray(r.returns, np.float32)
-            state = None
-            if self._uses_state:
-                # padded batch slots reuse the first request's month (their
-                # outputs are dropped below)
-                idx = months + [months[0]] * (b - len(requests))
-                state = self._hs[:, idx]  # [K, B, Dp]
-            dev = self.device
-            out = self._fwd(state, x_t.to(dev, non_blocking=True),
-                            mask.to(dev, non_blocking=True),
-                            returns.to(dev, non_blocking=True))
-            out = {k: v.cpu().numpy() for k, v in out.items()}
+            with self.events.span("serve/dispatch", **attrs):
+                out = self._dispatch(nb, b, months, stage,
+                                     graphs and self.uses_graphs)
+            # merged INSIDE the dispatch lock: a reload's quality reset
+            # also runs under it, so a pre-swap batch never leaks its
+            # stats into the post-swap generation's gauges
+            if observe:
+                self._observe_outputs(requests, out)
+        with self._lock:
             self._dispatches += 1
 
         results = []
@@ -352,8 +688,9 @@ class InferenceEngine:
                 month=months[i], n=n, bucket=nb, batch_bucket=b))
         return results
 
-    def infer_one(self, request: InferenceRequest) -> InferenceResult:
-        return self.infer([request])[0]
+    def infer_one(self, request: InferenceRequest,
+                  observe: bool = True) -> InferenceResult:
+        return self.infer([request], observe=observe)[0]
 
     # -- introspection -------------------------------------------------------
 
@@ -363,9 +700,18 @@ class InferenceEngine:
                 "n_members": self.n_members,
                 "config_hash": self.config_hash,
                 "params_fingerprint": self.params_fingerprint[:16],
+                "params_generation": self.params_generation,
                 "stock_buckets": list(self.stock_buckets),
                 "batch_buckets": list(self.batch_buckets),
                 "months": self.months,
+                "cuda_graphs": self.uses_graphs,
+                "captures": self._captures,
+                # None before warmup() establishes the steady-state marker
+                "steady_state_captures": (
+                    self._captures - self._warmup_captures
+                    if self._warmup_captures is not None else None),
+                "captured_graphs": len(self._graphs),
+                "replays": self._replays,
                 "dispatches": self._dispatches,
                 "staging_buffers": len(self._staging),
                 "device": str(self.device),

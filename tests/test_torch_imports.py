@@ -1,7 +1,9 @@
 """The PyTorch port imports no JAX: not jax, flax or optax, and nothing of
 the JAX package (whose __init__ pulls in jax and flax) — checked at runtime
 in a fresh interpreter and statically over every source file of the port
-and chip_smoke.py."""
+and chip_smoke.py. The port's stdlib copies (observability, the fault
+injector, the batchers, the flight recorder) also load by path without
+torch or numpy."""
 
 import ast
 import json
@@ -36,7 +38,7 @@ def test_importing_every_port_module_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["n"] >= 15
+    assert out["n"] >= 40  # the serving and observability modules included
     assert out["bad"] == []
 
 
@@ -54,3 +56,40 @@ def test_no_jax_import_in_source(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
+
+
+# modules whose top level is stdlib only: a thin parent loads them by path
+STDLIB_ONLY = [
+    "observability/events.py", "observability/metrics.py",
+    "observability/tracecontext.py", "observability/heartbeat.py",
+    "observability/manifest.py", "observability/report.py",
+    "reliability/faults.py", "serving/batcher.py", "serving/flight.py",
+]
+
+
+@pytest.mark.parametrize("rel", STDLIB_ONLY)
+def test_stdlib_only_module_loads_without_torch(rel):
+    """Load the module by path as a package member (its relative imports
+    resolve against stub parents), then check no torch, numpy or JAX got
+    imported."""
+    code = (
+        "import importlib.util, json, sys, types\n"
+        f"root = {str(ROOT / PKG)!r}\n"
+        f"rel = {rel!r}\n"
+        f"pkg = {PKG!r}\n"
+        "sub = rel.split('/')[0]\n"
+        "for name, path in ((pkg, root), (pkg + '.' + sub, root + '/' + sub)):\n"
+        "    m = types.ModuleType(name); m.__path__ = [path]\n"
+        "    sys.modules[name] = m\n"
+        "name = pkg + '.' + rel[:-3].replace('/', '.')\n"
+        "spec = importlib.util.spec_from_file_location(name, root + '/' + rel)\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "sys.modules[name] = mod\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN + ('torch', 'numpy')!r})\n"
+        "print(json.dumps(bad))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -2,7 +2,8 @@
 package's OFFLINE ensemble path (``parallel/ensemble.ensemble_metrics``),
 never against the JAX engine (not bitwise on this tree — ROADMAP.md §C),
 plus bucket-padding invariance, the incremental macro state, an HTTP round
-trip, and the CUDA-by-default entry points.
+trip through the async front end (concurrent queries folded by the
+continuous batcher), and the CUDA-by-default entry points.
 
 Members are JAX-initialized params exported as reference ``.pt`` run dirs
 with the JAX package's own ``save_torch_checkpoint``, so both packages read
@@ -13,7 +14,7 @@ the same files. Tolerances: weights atol 2e-5, SDF atol 2e-5, Sharpe rtol
 import json
 import subprocess
 import sys
-import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -34,9 +35,11 @@ from deeplearninginassetpricing_paperreplication_torch.serving.engine import (
     InferenceEngine,
     InferenceRequest,
 )
+from deeplearninginassetpricing_paperreplication_torch.serving.aserver import (
+    AsyncServerThread,
+)
 from deeplearninginassetpricing_paperreplication_torch.serving.server import (
     ServingService,
-    make_server,
 )
 from deeplearninginassetpricing_paperreplication_torch.utils.config import (
     ExecutionConfig,
@@ -176,14 +179,38 @@ def _call(base, path, body=None):
         return e.code, json.loads(e.read())
 
 
+def _fold_concurrent(service, base, path, plug_body, bodies):
+    """POST `bodies` concurrently so the continuous batcher folds them into
+    ONE flush: the engine's dispatch lock is held while a plug request (a
+    body unlike the others) occupies the dispatcher, the bodies queue up
+    behind it, and the lock is released once all of them are pending."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cb = service.cbatcher
+    with ThreadPoolExecutor(len(bodies) + 1) as pool:
+        with service.engine._infer_lock:
+            flushes = cb.flushes
+            plug = pool.submit(_call, base, path, plug_body)
+            _wait_for(lambda: cb.flushes > flushes)
+            futs = [pool.submit(_call, base, path, b) for b in bodies]
+            _wait_for(lambda: cb.pending() == len(bodies))
+        plug.result(timeout=60)
+        return [f.result(timeout=60) for f in futs]
+
+
+def _wait_for(cond, timeout=30.0):
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < timeout, "condition never held"
+        time.sleep(0.005)
+
+
 def test_http_round_trip(run_dirs, splits):
     _, _, test = splits
     eng = _engine(run_dirs, splits, stock_buckets=(64, 128))
-    service = ServingService(eng)
-    httpd = make_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    service = ServingService(eng, mode="async")
+    server = AsyncServerThread(service)
+    base = f"http://127.0.0.1:{server.start()}"
     try:
         q = {"individual": test.individual[2].tolist(),
              "mask": test.mask[2].astype(float).tolist(),
@@ -195,9 +222,15 @@ def test_http_round_trip(run_dirs, splits):
         s, f = _call(base, "/v1/sdf", q)
         assert s == 200 and len(f["member_sdf"]) == 3
         np.testing.assert_allclose(f["sdf"], direct.sdf, atol=1e-7)
-        s, batch = _call(base, "/v1/sdf", {"batch": [q, dict(q, month=3)]})
-        assert s == 200 and [r["month"] for r in batch["results"]] == [2, 3]
-        assert batch["results"][0]["batch_bucket"] == 4
+        # two concurrent queries folded by the continuous batcher into one
+        # flush, padded to batch bucket 4
+        folded = _fold_concurrent(service, base, "/v1/sdf",
+                                  dict(q, month=5),
+                                  [dict(q, month=2, mask=None),
+                                   dict(q, month=3, mask=None)])
+        assert [st for st, _ in folded] == [200, 200] \
+            and [r["month"] for _, r in folded] == [2, 3]
+        assert {r["batch_bucket"] for _, r in folded} == {4}
         s, m = _call(base, "/v1/macro", {"macro": test.macro[0].tolist()})
         assert s == 200 and m["month"] == test.T
         s, w = _call(base, "/v1/weights", dict(q, month=-1))
@@ -212,9 +245,8 @@ def test_http_round_trip(run_dirs, splits):
         assert _call(base, "/v1/weights")[0] == 405
         assert _call(base, "/v1/nope")[0] == 404
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=10)
+        server.stop()
+        service.close()
 
 
 @pytest.mark.parametrize("module,args", [
