@@ -43,6 +43,9 @@
                                       # integer operands against
                                       # DIR/microbench.cu, both timed in
                                       # turns
+    python3 chip_smoke.py --only_data # the training kernels' libraries
+                                      # and phase 11 alone (no result
+                                      # line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -165,6 +168,24 @@ Phases, each printing its results; any failure exits non-zero:
    ``/v1/drain`` on the admin port closes the listener and the serve loop
    returns; a nine-member service booted from the pointer reloads as a
    no-op and refuses, whole, a pointer whose member was tampered.
+11. The data plane at the paper's real panel shape (240/60/300 months ×
+   10,000 stocks × 46 characteristics, macro 178, seed 42, written
+   uncompressed into ``_smoke_real/``, the panel cache in
+   ``_smoke_cache/``; both removed after): the native codec built on this
+   host and its decode of the train split bit for bit the NumPy decode;
+   per split, ``device_put_batch`` dense, packed and auto, ``stream_batch``
+   at the default slab and at 4 MiB slabs (dozens of reuses of each pinned
+   slab), and the bf16 wire, each bit for bit ``load_splits`` +
+   ``to_batch("cuda")`` (the bf16 wire: its panel rounded to bf16), with
+   bytes shipped, host ms and ms to resident; ``StartupPipeline`` cold
+   (cache cleared) and warm, bit for bit, cache hits 0/3 then 3/3, its
+   spans and its wall against the sequential load; ``load_splits_chunked``
+   cold, warm, a column span and a truncated shard that alone re-decodes;
+   then the train CLI (epochs 2/1/2) through the pipeline against
+   ``--no_pipeline``, in f32 and in the default bf16 (the pipeline on the
+   bf16 wire): ``history.npz`` and ``final_model.pt`` bit for bit, the
+   epochs' walls at T = 240, and the training kernels' launches of the
+   bf16 pipeline run (the ``data_plane_train_real_shape`` path).
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -175,6 +196,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -3812,6 +3834,415 @@ def promotion_checks(torch, K, C, card, splits, ens_cfg, ens_params):
                 dirs=dirs, ctl=ctl)
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+# the paper's real panel shape (bench.py's): 240/60/300 months x 10,000
+# stocks x 46 characteristics, 178 macro series; only the epochs are cut
+REAL_PANEL = dict(n_periods_train=240, n_periods_valid=60, n_periods_test=300,
+                  n_stocks=10_000, n_features=46, n_macro=178, seed=42)
+REAL_DIR = ROOT / "_smoke_real"
+CACHE_DIR = ROOT / "_smoke_cache"
+REAL_EPOCHS = (2, 1, 2)
+SMALL_SLAB = 4 << 20  # ~40 reuses of each slab on the train split's rows
+SPLIT_NAMES = ("train", "valid", "test")
+
+
+def _timed_put(torch, fn):
+    """(batch, stats, ms to resident from CUDA events, host wall ms): the
+    start event is recorded on the idle default stream, the end event after
+    the call, which orders the default stream behind the copies."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    stats = {}
+    t0 = time.perf_counter()
+    a.record()
+    out = fn(stats)
+    b.record()
+    b.synchronize()
+    return out, stats, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def _same_batch(torch, ref, got, what):
+    check(set(ref) == set(got), f"{what}: keys {sorted(got)} != "
+                                f"{sorted(ref)}")
+    for k in ref:
+        check(got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+              and torch.equal(got[k], ref[k]),
+              f"{what}: {k} differs from load_splits + to_batch")
+
+
+def _same_dataset(ref, got, what):
+    for f in ("returns", "individual", "mask", "macro", "dates",
+              "mean_macro", "std_macro"):
+        a, b = getattr(ref, f), getattr(got, f)
+        check(np.array_equal(np.asarray(a), np.asarray(b)),
+              f"{what}: dataset field {f} differs from load_splits")
+
+
+def _spans(path, t0_mono):
+    """{span: (start s, end s)} from an events.jsonl, relative to t0."""
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        r = json.loads(line)
+        if r["kind"] == "span_end":
+            end = r["mono"] - t0_mono
+            out[r["name"]] = (end - r["duration_s"], end)
+    return out
+
+
+def codec_check(card):
+    """The native codec built on this host, and its decode of the train
+    split bit for bit the NumPy decode."""
+    from deeplearninginassetpricing_paperreplication_torch.data import native
+    from deeplearninginassetpricing_paperreplication_torch.data.panel import (
+        _MISSING_THRESHOLD,
+        numpy_decode,
+    )
+
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native panel codec did not build "
+                                     "(g++ -fopenmp) on this host")
+    build_s = time.perf_counter() - t0
+    with np.load(REAL_DIR / "char" / "Char_train.npz") as f:
+        data = f["data"]
+    t0 = time.perf_counter()
+    got = native.decode_panel(data, _MISSING_THRESHOLD)
+    codec_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = numpy_decode(data)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    check(got is not None, "the codec is built but decode_panel returned None")
+    for name, a, b in zip(("returns", "individual", "mask"), got, ref):
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+              f"codec decode of the train split: {name} is not bit for bit "
+              "the NumPy decode")
+    lib = native._LIB
+    print(f"[data codec] built/loaded in {build_s:.2f} s "
+          f"({native.so_path().name}, {lib.panel_codec_num_threads()} OpenMP "
+          f"threads); train split {data.shape}: codec {codec_ms:.1f} ms, "
+          f"NumPy {numpy_ms:.1f} ms, bit for bit; coverage "
+          f"{float(ref[2].mean()):.4f} ({card})", flush=True)
+    return dict(codec_ms=codec_ms, numpy_ms=numpy_ms, build_s=build_s)
+
+
+def transfer_routes(torch, card, ref_splits, ref_batches):
+    """Every transfer route against load_splits + to_batch on the card, per
+    split, with its bytes, host ms and ms to resident (CUDA events), each
+    route called twice (first: pinning and the copy stream's first use)."""
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        pipeline as P,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        transfer as TR,
+    )
+
+    rows = {}
+    routes = [
+        ("put dense f32", False, lambda b, st: TR.device_put_batch(
+            b, packed=False, device=DEVICE, stats=st)),
+        ("put packed f32", False, lambda b, st: TR.device_put_batch(
+            b, packed=True, device=DEVICE, stats=st)),
+        ("put auto f32", False, lambda b, st: TR.device_put_batch(
+            b, packed="auto", device=DEVICE, stats=st)),
+        ("stream auto f32", False, lambda b, st: P.stream_batch(
+            b, device=DEVICE, stats=st)),
+        ("stream auto f32 4MiB", False, lambda b, st: P.stream_batch(
+            b, device=DEVICE, chunk_bytes=SMALL_SLAB, stats=st)),
+        ("stream dense f32 4MiB", False, lambda b, st: P.stream_batch(
+            b, packed=False, device=DEVICE, chunk_bytes=SMALL_SLAB,
+            stats=st)),
+        ("put packed bf16", True, lambda b, st: TR.device_put_batch(
+            b, packed=True, device=DEVICE, bf16_wire=True, stats=st)),
+        ("stream auto bf16", True, lambda b, st: P.stream_batch(
+            b, device=DEVICE, bf16_wire=True, stats=st)),
+    ]
+    for name, ds, ref in zip(SPLIT_NAMES, ref_splits, ref_batches):
+        batch = ds.full_batch()
+        ref_bf16 = dict(ref, individual=ref["individual"].to(
+            torch.bfloat16).float())
+        for label, bf16, fn in routes:
+            times = []
+            for call in range(2):
+                out, st, ms, wall = _timed_put(torch,
+                                               lambda s: fn(batch, s))
+                _same_batch(torch, ref_bf16 if bf16 else ref, out,
+                            f"{name} {label} (call {call + 1})")
+                times.append((ms, st["host_ms"], wall))
+                del out
+            gbps = st["wire_bytes"] / (times[1][0] * 1e6)
+            rows[(name, label)] = dict(
+                wire_bytes=st["wire_bytes"], chunks=st["chunks"],
+                packed=st["packed"], resident_ms=[t[0] for t in times],
+                host_ms=[t[1] for t in times])
+            print(f"[data route] {name} {label}: {st['wire_bytes']} B "
+                  f"({st['chunks']} slabs, packed {st['packed']}); host "
+                  f"{times[0][1]:.2f} / {times[1][1]:.2f} ms; resident "
+                  f"{times[0][0]:.2f} / {times[1][0]:.2f} ms (calls 1 / 2); "
+                  f"{gbps:.2f} GB/s; bit for bit ({card})", flush=True)
+    return rows
+
+
+def pipeline_checks(torch, card, ref_splits, ref_batches, seq_ms):
+    """StartupPipeline cold (cache cleared), then warm: datasets and batches
+    bit for bit load_splits + to_batch, the cache hits 0/3 then 3/3, every
+    startup span, and the wall against the sequential load."""
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        diskcache,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        pipeline as P,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.data.transfer \
+        import sync_batch
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .events import EventLog
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig
+
+    diskcache.clear()
+    cfg = GANConfig(macro_feature_dim=REAL_PANEL["n_macro"],
+                    individual_feature_dim=REAL_PANEL["n_features"])
+    out = {}
+    for label, hits in (("cold", 0), ("warm", 3)):
+        run = REAL_DIR / f"events_{label}"
+        ev = EventLog(run, process_index=0)
+        torch.cuda.synchronize()
+        t0, m0 = time.perf_counter(), time.monotonic()
+        res = P.StartupPipeline(
+            REAL_DIR, device=DEVICE, events=ev,
+            compile_fn=P.trainer_precompile_fn(
+                cfg, ExecutionConfig(device=DEVICE)),
+        ).start().result()
+        for b in res.batches:
+            sync_batch(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ev.close()
+        check(sum(res.cache_hits.values()) == hits,
+              f"pipeline {label}: cache hits {res.cache_hits}, want {hits}/3")
+        for name, r_ds, g_ds, r_b, g_b in zip(SPLIT_NAMES, ref_splits,
+                                              res.datasets, ref_batches,
+                                              res.batches):
+            _same_dataset(r_ds, g_ds, f"pipeline {label} {name}")
+            _same_batch(torch, r_b, g_b, f"pipeline {label} {name}")
+        spans = _spans(run / "events.jsonl", m0)
+        out[label] = dict(wall_ms=wall, spans=spans, compiled=res.compiled)
+        print(f"[data pipeline] {label}: wall {wall:.1f} ms against the "
+              f"sequential load_splits + to_batch {seq_ms:.1f} ms; cache hits "
+              f"{hits}/3; compiled {res.compiled}; bit for bit ({card})",
+              flush=True)
+        print(f"[data pipeline] {label} spans (start-end ms): " + ", ".join(
+            f"{k} {a * 1e3:.1f}-{b * 1e3:.1f}" for k, (a, b)
+            in sorted(spans.items(), key=lambda kv: kv[1][0])), flush=True)
+        del res
+    return out
+
+
+def chunked_checks(card, ref_splits):
+    """load_splits_chunked at the default shard width, cold then warm, a
+    column span, then one truncated shard: it alone re-decodes, and every
+    split stays bit for bit load_splits."""
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        diskcache,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        pipeline as P,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .events import EventLog
+
+    width = diskcache.DEFAULT_SHARD_WIDTH
+    out = {}
+
+    def run(label, **kw):
+        path = REAL_DIR / f"events_chunked_{label}"
+        ev = EventLog(path, process_index=0)
+        t0 = time.perf_counter()
+        got = P.load_splits_chunked(REAL_DIR, shard_width=width, events=ev,
+                                    **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        ev.close()
+        rows = [json.loads(x) for x in
+                (path / "events.jsonl").read_text().splitlines()]
+        cols = kw.get("columns")
+        for name, r, g in zip(SPLIT_NAMES, ref_splits, got):
+            if cols is not None:
+                a, b = cols
+                r = dataclasses.replace(
+                    r, returns=r.returns[:, a:b],
+                    individual=r.individual[:, a:b], mask=r.mask[:, a:b])
+            _same_dataset(r, g, f"chunked {label} {name}")
+        counters = {}
+        for r in rows:
+            if r["kind"] == "counter":
+                counters[r["name"]] = counters.get(r["name"], 0) + r["value"]
+        out[label] = dict(ms=ms, counters=counters)
+        print(f"[data chunked] {label}: {ms:.1f} ms; counters {counters}; "
+              f"bit for bit ({card})", flush=True)
+        return counters
+
+    c = run("cold")
+    check(c.get("startup/shard_loaded", 0) == 0, "chunked cold run loaded "
+                                                  "shards from a cache")
+    c = run("warm")
+    n_shards = len(diskcache.shard_bounds(REAL_PANEL["n_stocks"], width))
+    check(c.get("startup/shard_loaded") == 3 * n_shards,
+          f"chunked warm run loaded {c.get('startup/shard_loaded')} shards, "
+          f"want {3 * n_shards}")
+    c = run("span", columns=(width, 3 * width))
+    check(c.get("startup/shard_loaded") == 3 * 2, "a two-shard column span "
+                                                  "loaded other shards")
+    char, macro = P.split_paths(REAL_DIR, "train")
+    entry = diskcache.load_chunked(char, macro, width)
+    torn = entry.shard_path(2, "individual")
+    torn.write_bytes(torn.read_bytes()[: torn.stat().st_size // 2])
+    c = run("torn")
+    check(c.get("startup/shard_redecode") == 1,
+          f"a torn shard: {c.get('startup/shard_redecode')} re-decodes, "
+          "want 1")
+    check(c.get("startup/shard_loaded") == 3 * n_shards - 1,
+          "a torn shard: the other shards were not served from the cache")
+    check(all(entry.verify_shard(i)[0] for i in range(entry.n_shards)),
+          "the torn shard was not repaired in place")
+    return out
+
+
+def real_shape_cli(torch, K, C, card):
+    """The train CLI at the real shape, epochs 2/1/2: the pipeline against
+    --no_pipeline in f32 and in the default bf16 (whose pipeline ships the
+    bf16 wire): history.npz and final_model.pt bit for bit. The default
+    bf16 pipeline run is this path's main run: the training kernels'
+    launches are counted there."""
+    from deeplearninginassetpricing_paperreplication_torch import train
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig
+
+    runs, launches = {}, None
+    for dtype in ("float32", "bfloat16"):
+        for mode in ("pipeline", "no_pipeline"):
+            save = REAL_DIR / f"run_{dtype}_{mode}"
+            argv = ["--data_dir", str(REAL_DIR), "--save_dir", str(save),
+                    "--epochs_unc", str(REAL_EPOCHS[0]), "--epochs_moment",
+                    str(REAL_EPOCHS[1]), "--epochs", str(REAL_EPOCHS[2]),
+                    "--ignore_epoch", "0", "--print_freq", "1",
+                    "--device", DEVICE]
+            if dtype == "float32":
+                argv += ["--compute_dtype", "float32"]
+            if mode == "no_pipeline":
+                argv.append("--no_pipeline")
+            main_run = dtype == "bfloat16" and mode == "pipeline"
+            if main_run:
+                K.reset_launch_count()
+                C.reset_launch_count()
+            t0 = time.perf_counter()
+            train.main(argv)
+            wall = time.perf_counter() - t0
+            if main_run:
+                launches = dict(zip(("sdf_ffn_fwd", "sdf_ffn_bwd",
+                                     "cond_em_fwd", "cond_em_bwd"),
+                                    counts(K, C)))
+            metrics = json.loads((save / "final_metrics.json").read_text())
+            runs[(dtype, mode)] = dict(save=save, wall_s=wall,
+                                       metrics=metrics)
+            startup = metrics["startup"]
+            print(f"[data train] {dtype} {mode}: {wall:.1f} s; startup "
+                  f"{startup}; wall ms per epoch at T = "
+                  f"{REAL_PANEL['n_periods_train']}: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in
+                              metrics["epoch_ms"].items())
+                  + f"; test Sharpe {metrics['test']['sharpe']:.6f} ({card})",
+                  flush=True)
+        pipe, seq = runs[(dtype, "pipeline")], runs[(dtype, "no_pipeline")]
+        check(pipe["metrics"]["startup"]["pipeline"]
+              and not seq["metrics"]["startup"]["pipeline"],
+              "the train CLI's default load is not the pipeline")
+        want = ExecutionConfig(device=DEVICE, compute_dtype=dtype
+                               ).bf16_wire_ok(GANConfig(
+                                   macro_feature_dim=REAL_PANEL["n_macro"],
+                                   individual_feature_dim=REAL_PANEL[
+                                       "n_features"]))
+        check(want == (dtype == "bfloat16") or DEVICE != "cuda",
+              f"{dtype}: bf16_wire_ok is {want} for the paper's model")
+        check(pipe["metrics"]["startup"]["bf16_wire"] == want,
+              f"{dtype}: the pipeline's wire is not what bf16_wire_ok says")
+        a = np.load(pipe["save"] / "history.npz")
+        b = np.load(seq["save"] / "history.npz")
+        check(set(a.files) == set(b.files), "history.npz keys differ")
+        for k in a.files:
+            check(np.array_equal(a[k], b[k]), f"{dtype}: history.npz {k} "
+                                              "differs between the pipeline "
+                                              "and --no_pipeline")
+        check((pipe["save"] / "final_model.pt").read_bytes()
+              == (seq["save"] / "final_model.pt").read_bytes(),
+              f"{dtype}: final_model.pt differs between the pipeline and "
+              "--no_pipeline")
+        print(f"[data train] {dtype}: history.npz and final_model.pt bit for "
+              f"bit, pipeline against --no_pipeline", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"the real-shape train CLI launched {name} no time")
+    print(f"[data train] launches, bf16 pipeline run: {launches}", flush=True)
+    return launches, {f"{d} {m}": dict(wall_s=r["wall_s"],
+                                      epoch_ms=r["metrics"]["epoch_ms"])
+                      for (d, m), r in runs.items()}
+
+
+def data_plane_phase(torch, K, C, card):
+    """(11) The data plane at the paper's real panel shape."""
+    from deeplearninginassetpricing_paperreplication_torch.data.panel import (
+        load_splits,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.data.synthetic \
+        import generate_all_splits
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_all_splits(REAL_DIR, verbose=False, compress=False, **REAL_PANEL)
+    nbytes = sum(p.stat().st_size for p in REAL_DIR.rglob("*.npz"))
+    print(f"[data] real-shape panel F={REAL_PANEL['n_features']} "
+          f"M={REAL_PANEL['n_macro']} N={REAL_PANEL['n_stocks']} months "
+          f"{REAL_PANEL['n_periods_train']}/{REAL_PANEL['n_periods_valid']}/"
+          f"{REAL_PANEL['n_periods_test']} seed {REAL_PANEL['seed']}, "
+          f"uncompressed, {nbytes} B: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    codec = codec_check(card)
+    # the reference: the sequential load, then a dense copy from pageable
+    # memory
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_splits = load_splits(REAL_DIR)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    ref_batches, dense = [], []
+    for ds in ref_splits:
+        b, _, ms, wall = _timed_put(torch,
+                                    lambda s, ds=ds: ds.to_batch(DEVICE))
+        ref_batches.append(b)
+        dense.append((ms, wall))
+    seq_ms = load_ms + sum(w for _, w in dense)
+    for name, ds, (ms, _) in zip(SPLIT_NAMES, ref_splits, dense):
+        nbytes = sum(np.asarray(v).size * 4 for v in ds.full_batch().values())
+        print(f"[data route] {name} to_batch dense f32 (pageable): {nbytes} B;"
+              f" resident {ms:.2f} ms; {nbytes / (ms * 1e6):.2f} GB/s "
+              f"({card})", flush=True)
+    print(f"[data] sequential load_splits {load_ms:.1f} ms + to_batch "
+          f"{sum(w for _, w in dense):.1f} ms", flush=True)
+    routes = transfer_routes(torch, card, ref_splits, ref_batches)
+    pipe = pipeline_checks(torch, card, ref_splits, ref_batches, seq_ms)
+    del ref_batches
+    torch.cuda.empty_cache()
+    chunked = chunked_checks(card, ref_splits)
+    del ref_splits
+    launches, cli = real_shape_cli(torch, K, C, card)
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    print(f"[data] phase 11 done in {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+    return dict(launches=launches, codec=codec, routes=routes,
+                pipeline=pipe, chunked=chunked, cli=cli, load_ms=load_ms,
+                dense=dense)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3864,6 +4295,11 @@ def main(argv=None) -> int:
                     help="with --only_ceiling: hold the ceiling bit for bit "
                          "against DIR/microbench.cu's on integer operands "
                          "and time both in turns at the JAX defaults")
+    ap.add_argument("--only_data", action="store_true",
+                    help="build the training kernels' libraries only and run "
+                         "phase 11, the data plane at the real panel shape "
+                         "(a short call while the data plane changes); no "
+                         "result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -3871,6 +4307,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA "
              "card")
+    # the panel cache of every phase lives in the checkout, and goes with it
+    os.environ["DLAP_PANEL_CACHE_DIR"] = str(CACHE_DIR)
+    try:
+        return run_phases(opts, torch)
+    finally:
+        shutil.rmtree(CACHE_DIR, ignore_errors=True)
+        shutil.rmtree(REAL_DIR, ignore_errors=True)
+
+
+def run_phases(opts, torch) -> int:
+
     if not (ROOT / PKG).is_dir() or not (ROOT / "ref_runs").is_dir():
         fail(f"{PKG}/ and ref_runs/ must sit beside this script (run it "
              "from a checkout of the repository)")
@@ -3893,7 +4340,10 @@ def main(argv=None) -> int:
     )
     from deeplearninginassetpricing_paperreplication_torch.utils.config \
         import ExecutionConfig
+    from deeplearninginassetpricing_paperreplication_torch.data import native
 
+    # the panel codec builds on this host in this run (phase 11 checks it)
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
     t_start = time.perf_counter()
     # 1. card
     card = card_line()
@@ -3904,7 +4354,9 @@ def main(argv=None) -> int:
 
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
-    jobs = (K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
+    jobs = (K.build_jobs([64], kernels=("fwd", "bwd")) + C.build_jobs()
+            if opts.only_data
+            else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",))
             if opts.only_fwd or opts.only_serve
@@ -3922,13 +4374,18 @@ def main(argv=None) -> int:
     (cem_job,), (mb_job,) = C.build_jobs(), MB.build_jobs()
     sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
               else ("fwd",) if opts.only_fwd or opts.only_serve
-              else () if opts.only_cem or opts.only_ceiling
+              else () if opts.only_cem or opts.only_ceiling or opts.only_data
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
               else [] if (opts.only_bwd or opts.only_dx or opts.only_fwd
-                          or opts.only_serve)
+                          or opts.only_serve or opts.only_data)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
+
+    if opts.only_data:
+        # the data plane alone: phase 11 on the training kernels' libraries
+        data_plane_phase(torch, K, C, card)
+        return 0
 
     if opts.only_dx:
         # the panel cotangent's libraries alone: its plans, every check and
@@ -4099,6 +4556,9 @@ def main(argv=None) -> int:
     shutil.rmtree(HEALTH_DIR, ignore_errors=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
+    # 11. the data plane at the real panel shape
+    data = data_plane_phase(torch, K, C, card)
+
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
     health_idx = {"sdf_ffn_fwd": 0, "sdf_ffn_bwd": 1, "cond_em_fwd": 3,
@@ -4117,6 +4577,7 @@ def main(argv=None) -> int:
             paths["panel_gradient"] = grad_launches[name]
         if gate["launches"][health_idx[name]]:
             paths["promotion_gate"] = gate["launches"][health_idx[name]]
+        paths["data_plane_train_real_shape"] = data["launches"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name])

@@ -11,3 +11,25 @@ the kernel's plain PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+# the data plane's public names, as the JAX package exports them; resolved
+# at first use, so importing a stdlib-only module of the package (the
+# promotion gate, the fault injector) does not import torch
+_EXPORTS = {
+    "PanelDataset": "data.panel", "load_panel": "data.panel",
+    "load_splits": "data.panel", "StartupPipeline": "data.pipeline",
+    "load_splits_cached": "data.pipeline",
+    "load_splits_chunked": "data.pipeline", "stream_batch": "data.pipeline",
+    "generate_all_splits": "data.synthetic",
+    "generate_dataset": "data.synthetic",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__),
+                   name)

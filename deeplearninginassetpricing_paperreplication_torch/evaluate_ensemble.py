@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .data.panel import load_splits
+from .data.pipeline import load_splits_chunked
 from .parallel.ensemble import (
     ensemble_metrics,
     stack_state_dicts,
@@ -189,8 +189,10 @@ def evaluate_ensemble(
             f"ensemble members loadable, quorum is {quorum}; skipped: "
             + "; ".join(f"{s['dir']}: {s['reason']}"
                         for s in coverage["skipped"]))
-    results = _split_metrics(cfg, stacked, load_splits(data_dir), exec_cfg,
-                             device)
+    # the chunked panel reader: bit for bit load_splits, and a rerun
+    # memmaps the cached decode
+    results = _split_metrics(cfg, stacked, load_splits_chunked(data_dir),
+                             exec_cfg, device)
     n_members = next(iter(stacked.values())).shape[0]
     if verbose:
         _print_report(results, n_members)
@@ -222,7 +224,7 @@ def train_and_evaluate(
     exec_cfg = exec_cfg or ExecutionConfig()
     device = resolve_device(exec_cfg.device)
     seeds = [int(s) for s in seeds]
-    splits = load_splits(data_dir)
+    splits = load_splits_chunked(data_dir)
     cfg = GANConfig(macro_feature_dim=splits[0].macro_feature_dim,
                     individual_feature_dim=splits[0].individual_feature_dim)
     batches = [ds.to_batch(device) for ds in splits]

@@ -8,11 +8,13 @@ multi-run pipeline (three GAN phases × a hyperparameter sweep × a 9-member
 ensemble), exactly the shape that dies to preemptions, OOM kills and NaN
 blowups hours in. Named injection sites sit in the port's verified file IO
 (``checkpoint/save``, ``checkpoint/saved``, ``checkpoint/load``), the
-sweep (``sweep/bucket``, ``sweep/ledger_write``), the promotion gate
-(``promote/validate``, ``promote/write``) and the serving path
-(``serving/infer``, ``serve/accept``, ``serve/admit``, ``serve/flush``,
-``serve/coalesce``, ``serve/reload``), and a JSON *fault plan* decides
-which site hits fire which fault.
+data plane (``pipeline/decode``, ``pipeline/transfer``,
+``data/shard_read``), the sweep (``sweep/bucket``,
+``sweep/ledger_write``), the promotion gate (``promote/validate``,
+``promote/write``) and the serving path (``serving/infer``,
+``serve/accept``, ``serve/admit``, ``serve/flush``, ``serve/coalesce``,
+``serve/reload``), and a JSON *fault plan* decides which site hits fire
+which fault.
 
 Plan format (``DLAP_FAULT_PLAN`` env: inline JSON, or a path to a JSON
 file) — a list of entries (a single object is accepted too)::
@@ -67,6 +69,10 @@ SITES = (
     "checkpoint/save",         # before a verified write (ctx: path)
     "checkpoint/saved",        # after data + digest land (ctx: path)
     "checkpoint/load",         # before a verified read (ctx: path)
+    "pipeline/decode",         # per split, before its decode (ctx: split)
+    "pipeline/transfer",       # per split, before its transfer (ctx: split)
+    "data/shard_read",         # per chunked-store shard, before its digest
+                               #   check (ctx: path, split, shard)
     "sweep/bucket",            # per sweep bucket trained (ctx: bucket,
                                #   n_buckets, path=the bucket's ledger key)
     "sweep/ledger_write",      # before a bucket record lands (ctx: path)

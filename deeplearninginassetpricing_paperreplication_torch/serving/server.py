@@ -1458,10 +1458,11 @@ def _load_macro(args):
     """(macro_history, macro_stats, n_stocks_cap) from --data_dir or
     --macro_npy (already normalized; no stats, no stock cap)."""
     if args.data_dir:
-        from ..data.panel import load_splits
+        # the chunked panel reader: bit for bit load_splits, shard-verified
+        from ..data.pipeline import load_splits_chunked
 
         splits = dict(zip(("train", "valid", "test"),
-                          load_splits(args.data_dir)))
+                          load_splits_chunked(args.data_dir)))
         train = splits["train"]
         return (splits[args.macro_split].macro,
                 (train.mean_macro, train.std_macro),

@@ -21,10 +21,14 @@ Artifacts in --save_dir:
                                        --checkpoint_dirs`` reads them)
     report.json (+ .sha256)          — per-winner + grand ensemble Sharpes
 
-It runs on the CUDA device unless ``--device cpu`` is given. Not ported
-yet: the elastic search (``--workers`` and its lease and retry flags),
-``--device_slices``/``--slice_width``, ``--small_sample``/``--n_periods``/
-``--n_stocks`` and ``--metrics_port``.
+It runs on the CUDA device unless ``--device cpu`` is given. The panel
+loads through the chunked store (``data/pipeline.load_splits_chunked``: a
+rerun memmaps the cached decode) and ships mask-packed
+(``data/transfer.device_put_batch``), on the bf16 wire where every swept
+configuration rounds the panel to bf16 anyway; ``--small_sample`` keeps
+``--n_periods`` × ``--n_stocks``. Not ported yet: the elastic search
+(``--workers`` and its lease and retry flags),
+``--device_slices``/``--slice_width`` and ``--metrics_port``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .data.panel import load_splits
+from .data.pipeline import load_splits_chunked
+from .data.transfer import device_put_batch
 from .evaluate_ensemble import add_execution_args, execution_config
 from .parallel.ensemble import (
     PAPER_SEEDS,
@@ -430,6 +435,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs_moment", type=int, default=64)
     p.add_argument("--epochs", type=int, default=1024)
     p.add_argument("--ignore_epoch", type=int, default=64)
+    p.add_argument("--small_sample", action="store_true",
+                   help="Search on the first --n_periods periods x the "
+                        "--n_stocks stocks with the most valid observations")
+    p.add_argument("--n_periods", type=int, default=100)
+    p.add_argument("--n_stocks", type=int, default=500)
     add_execution_args(p)
     return p
 
@@ -442,9 +452,13 @@ def main(argv=None):
     save_dir.mkdir(parents=True, exist_ok=True)
     print(f"Paper-protocol sweep on {device}; kernel {exec_cfg.kernel}, "
           f"compute dtype {exec_cfg.compute_dtype}", flush=True)
-    train_ds, valid_ds, test_ds = load_splits(args.data_dir)
-    train_b, valid_b, test_b = (ds.to_batch(device)
-                                for ds in (train_ds, valid_ds, test_ds))
+    train_ds, valid_ds, test_ds = load_splits_chunked(args.data_dir)
+    if args.small_sample:
+        train_ds = train_ds.subsample(args.n_periods, args.n_stocks)
+        valid_ds = valid_ds.subsample(min(args.n_periods, valid_ds.T),
+                                      args.n_stocks)
+        test_ds = test_ds.subsample(min(args.n_periods, test_ds.T),
+                                    args.n_stocks)
     base = GANConfig(
         macro_feature_dim=train_ds.macro_feature_dim,
         individual_feature_dim=train_ds.individual_feature_dim,
@@ -473,6 +487,12 @@ def main(argv=None):
             num_epochs=args.epochs,
             ignore_epoch=args.ignore_epoch,
         )
+    # mask-packed; the bf16 wire only where every swept configuration's
+    # consumers round the panel to bf16 anyway
+    bf16_wire = all(exec_cfg.bf16_wire_ok(c) for c, _ in configs)
+    train_b, valid_b, test_b = (
+        device_put_batch(ds.full_batch(), device=device, bf16_wire=bf16_wire)
+        for ds in (train_ds, valid_ds, test_ds))
 
     ranking = load_ranking(args.resume_ranking) if args.resume_ranking else None
     # stage-1 durability: every completed bucket lands in the save dir's

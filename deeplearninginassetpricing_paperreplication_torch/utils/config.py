@@ -196,6 +196,39 @@ class ExecutionConfig:
             raise ValueError("compute_dtype must be float32|bfloat16: "
                              f"{self.compute_dtype!r}")
 
+    def bf16_wire_ok(self, cfg: GANConfig) -> bool:
+        """May the panel ship bfloat16 to the device for `cfg`
+        (``data/transfer.py``)? Only where every consumer of `individual`
+        rounds it to bf16 (round to nearest even) before any product, so a
+        bf16-rounded f32 panel computes bit for bit what the f32 panel
+        does. The kernel route on a CUDA device with compute_dtype bfloat16
+        gives that, where:
+
+        * the SDF net has hidden layers the fused FFN plans (at most
+          ``MAX_HIDDEN_LAYERS``, each within the widest library): its
+          forward and its dW backward round x (``ops/sdf_ffn.py``); with no
+          hidden layer ``models/networks.sdf_raw_weights`` reads x in f32;
+        * the moment net is the default one (no hidden layer) with macro
+          data and at most ``MAX_MOMENTS`` moments: the fused conditional-EM
+          rounds x (``ops/cond_em.py``); any other moment net goes through
+          ``moment_h_members``, which reads x in f32.
+
+        The plain route (a CPU device or ``kernel="off"``) is excluded: it
+        is the route the f32 checks read."""
+        from ..ops import cond_em, sdf_ffn
+
+        if (self.kernel == "off" or self.compute_dtype != "bfloat16"
+                or torch.device(self.device).type != "cuda"):
+            return False
+        if not cfg.hidden_dim or len(cfg.hidden_dim) > sdf_ffn.MAX_HIDDEN_LAYERS:
+            return False
+        try:
+            sdf_ffn.width_bound(cfg.hidden_dim)
+        except ValueError:
+            return False
+        return (not cfg.hidden_dim_moment and cfg.macro_feature_dim > 0
+                and cfg.num_condition_moment <= cond_em.MAX_MOMENTS)
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

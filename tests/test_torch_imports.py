@@ -2,8 +2,9 @@
 the JAX package (whose __init__ pulls in jax and flax) — checked at runtime
 in a fresh interpreter and statically over every source file of the port
 and chip_smoke.py. The port's stdlib copies (observability, the fault
-injector, the batchers, the flight recorder) also load by path without
-torch or numpy."""
+injector, the batchers, the flight recorder, the downloader) also load by
+path without torch or numpy, and its numpy-only copies (the panel cache,
+the codec loader) without torch."""
 
 import ast
 import json
@@ -42,6 +43,17 @@ def test_importing_every_port_module_loads_no_jax():
     assert out["bad"] == []
 
 
+DATA_PLANE = ["data.native", "data.panel", "data.transfer", "data.diskcache",
+              "data.pipeline", "data.download"]
+
+
+def test_the_data_plane_modules_are_imported():
+    """The data plane is among the modules the runtime check imports."""
+    mods = set(_modules())
+    for m in DATA_PLANE:
+        assert f"{PKG}.{m}" in mods, m
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import_in_source(path):
@@ -64,14 +76,17 @@ STDLIB_ONLY = [
     "observability/tracecontext.py", "observability/heartbeat.py",
     "observability/manifest.py", "observability/report.py",
     "reliability/faults.py", "serving/batcher.py", "serving/flight.py",
+    "data/download.py",
 ]
+# modules whose top level is numpy and the stdlib only
+NUMPY_ONLY = ["data/diskcache.py", "data/native.py"]
 
 
-@pytest.mark.parametrize("rel", STDLIB_ONLY)
+@pytest.mark.parametrize("rel", STDLIB_ONLY + NUMPY_ONLY)
 def test_stdlib_only_module_loads_without_torch(rel):
     """Load the module by path as a package member (its relative imports
-    resolve against stub parents), then check no torch, numpy or JAX got
-    imported."""
+    resolve against stub parents), then check no torch or JAX got imported
+    (nor numpy, for the stdlib-only ones)."""
     code = (
         "import importlib.util, json, sys, types\n"
         f"root = {str(ROOT / PKG)!r}\n"
@@ -87,9 +102,29 @@ def test_stdlib_only_module_loads_without_torch(rel):
         "sys.modules[name] = mod\n"
         "spec.loader.exec_module(mod)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        f"{FORBIDDEN + ('torch', 'numpy')!r})\n"
+        f"{FORBIDDEN + ('torch',) + (('numpy',) if rel in STDLIB_ONLY else ())!r})\n"
         "print(json.dumps(bad))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_package_exports_the_data_plane():
+    """The package exports the JAX package's data-plane names (but the
+    mesh's stream_batch_sharded), resolved at first use."""
+    import importlib
+
+    port = importlib.import_module(PKG)
+    data = importlib.import_module(PKG + ".data")
+    names = {"PanelDataset", "load_panel", "load_splits", "StartupPipeline",
+             "load_splits_cached", "load_splits_chunked", "stream_batch",
+             "generate_all_splits", "generate_dataset"}
+    assert set(port.__all__) == names == set(data.__all__)
+    from deeplearninginassetpricing_paperreplication_torch.data import (
+        pipeline,
+    )
+    assert port.StartupPipeline is data.StartupPipeline is \
+        pipeline.StartupPipeline
+    with pytest.raises(AttributeError):
+        port.stream_batch_sharded
