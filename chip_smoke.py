@@ -46,6 +46,9 @@
     python3 chip_smoke.py --only_data # the training kernels' libraries
                                       # and phase 11 alone (no result
                                       # line)
+    python3 chip_smoke.py --only_ops  # the training kernels' libraries
+                                      # and phase 12 alone (no result
+                                      # line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -186,6 +189,27 @@ Phases, each printing its results; any failure exits non-zero:
    bf16 wire): ``history.npz`` and ``final_model.pt`` bit for bit, the
    epochs' walls at T = 240, and the training kernels' launches of the
    bf16 pipeline run (the ``data_plane_train_real_shape`` path).
+12. The trainer's operational plane on phase 6's model and panel (dropout
+   0.05, schedule 8/4/16, ignore 2, seed 42, the default kernel route; run
+   dirs in ``_smoke_ops/``, removed after; it runs after 4b, while the
+   panel is on disk): (a) f32 ``train_3phase`` with ``checkpoint_every`` 4
+   and a ``nan_loss`` plan at the second segment: trips ``[(1, 4, 8)]``,
+   params, history and every ``.pt`` bit for bit an unguarded clean run,
+   and each training kernel's launches the clean run's plus exactly the
+   retried segment's (this run is the ``trainer_ops_plane`` path); (b)
+   three consecutive trips raise ``DivergenceError`` naming
+   ``phase1_unconditional`` with no ``.pt`` written; (c)
+   ``stop_after_epochs`` 6 and 14, each resumed, bit for bit an
+   uninterrupted whole-phase run in f32 and bf16, no resume file left;
+   the epoch walls with the guard on and off (in turns) and the ms of one
+   resume save; (d) the train CLI in subprocesses, default bf16:
+   ``--checkpoint_every 4 --metrics_port 0 --profile DIR`` with a
+   ``/metrics`` scrape showing ``epochs_dispatched`` while it trains,
+   ``heartbeat.json`` with ``device_memory``, ``manifest.json`` with
+   ``kernel_programs``, 28 ``metrics.jsonl`` rows, a Chrome trace naming
+   the FFN and conditional-EM kernels; then a ``kill`` plan at the third
+   segment (the child dies by SIGKILL) and ``--resume``: ``history.npz``
+   and ``final_model.pt`` bit for bit the first run's.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -2468,9 +2492,9 @@ def train_checks(torch, K, C, card, splits, opts):
     per_phase = {}
     run_phase = trainer_mod.Trainer.run_phase
 
-    def counted(self, phase, seeds, b, best):
+    def counted(self, phase, seeds, b, best, **kw):
         before = counts(K, C)
-        out = run_phase(self, phase, seeds, b, best)
+        out = run_phase(self, phase, seeds, b, best, **kw)
         torch.cuda.synchronize()
         per_phase[phase] = tuple(a - c for a, c in zip(counts(K, C), before))
         return out
@@ -2582,9 +2606,9 @@ def wide_train_check(torch, K, C, card, splits):
     per_phase = {}
     run_phase = trainer_mod.Trainer.run_phase
 
-    def counted(self, phase, seeds, b, best):
+    def counted(self, phase, seeds, b, best, **kw):
         before = counts(K, C)
-        out = run_phase(self, phase, seeds, b, best)
+        out = run_phase(self, phase, seeds, b, best, **kw)
         torch.cuda.synchronize()
         per_phase[phase] = tuple(a - c for a, c in zip(counts(K, C), before))
         return out
@@ -4243,6 +4267,352 @@ def data_plane_phase(torch, K, C, card):
                 dense=dense)
 
 
+# ---------------------------------------------------------------------------
+# 12. the trainer's operational plane
+# ---------------------------------------------------------------------------
+
+OPS_DIR = ROOT / "_smoke_ops"
+OPS_CHECKPOINT_EVERY = 4
+OPS_STOPS = (6, 14)  # inside phase 1 (8 epochs), inside phase 3 (after 12)
+TRAIN_KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "cond_em_fwd", "cond_em_bwd")
+
+
+def _fault_plan(plan):
+    """Point the port's fault injector at `plan` (None clears it)."""
+    from deeplearninginassetpricing_paperreplication_torch.reliability import (
+        faults,
+    )
+
+    if plan is None:
+        os.environ.pop(faults.ENV_PLAN, None)
+    else:
+        os.environ[faults.ENV_PLAN] = json.dumps(plan)
+    faults.reset_injector()
+
+
+def _same_run(torch, a, b, what):
+    """Two train_3phase results (final params, history, run dir) bit for
+    bit: params, every history series, every .pt file's bytes."""
+    pa, ha, da = a
+    pb, hb, db = b
+    check(list(pa) == list(pb) and all(torch.equal(pa[k], pb[k]) for k in pa),
+          f"{what}: final params differ")
+    check(set(ha) == set(hb) and all(np.array_equal(np.asarray(ha[k]),
+                                                    np.asarray(hb[k]))
+                                     for k in ha),
+          f"{what}: history differs")
+    pts = sorted(p.name for p in da.glob("*.pt"))
+    check(pts and pts == sorted(p.name for p in db.glob("*.pt")),
+          f"{what}: the .pt files differ")
+    for name in pts:
+        check((da / name).read_bytes() == (db / name).read_bytes(),
+              f"{what}: {name} differs")
+
+
+def ops_plane_runs(torch, K, C, card, splits):
+    """(a) a transient NaN rolled back bit for bit, (b) a persistent one
+    aborting, (c) stop and resume in f32 and bf16, then the walls of the
+    guard (on and off in turns) and of one resume save. Returns the
+    guarded run's launches (the path's count) and the walls."""
+    from deeplearninginassetpricing_paperreplication_torch.reliability.guard \
+        import DivergenceError
+    from deeplearninginassetpricing_paperreplication_torch.training import (
+        trainer as trainer_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, test = splits
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    dropout=DROPOUT)
+    tcfg = TrainConfig(**SCHEDULE, seed=42, print_freq=10 ** 6)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid, test)]
+    ce = OPS_CHECKPOINT_EVERY
+
+    def run(name, dtype="float32", fresh=True, **kw):
+        save = OPS_DIR / name
+        if fresh:
+            shutil.rmtree(save, ignore_errors=True)
+        _, params, hist, trainer = trainer_mod.train_3phase(
+            cfg, *batches, tcfg=tcfg, seed=42, verbose=False,
+            save_dir=str(save), exec_cfg=ExecutionConfig(
+                compute_dtype=dtype, device=DEVICE), **kw)
+        torch.cuda.synchronize()
+        return (params, hist, save), trainer
+
+    def counted(name, **kw):
+        K.reset_launch_count()
+        C.reset_launch_count()
+        out, trainer = run(name, **kw)
+        return out, trainer, counts(K, C)
+
+    # (a) a transient NaN: the guard rolls phase 1's second segment back
+    clean, _, clean_n = counted("clean", checkpoint_every=ce,
+                                divergence_guard=False)
+    _fault_plan([{"site": "trainer/epoch_loop", "action": "nan_loss",
+                  "trigger_count": 2}])
+    try:
+        guarded, tr, guarded_n = counted("guarded", checkpoint_every=ce)
+    finally:
+        _fault_plan(None)
+    check(tr.divergence_trips == [(1, ce, 2 * ce)],
+          f"divergence_trips {tr.divergence_trips} != [(1, {ce}, {2 * ce})]")
+    _same_run(torch, clean, guarded, "a guarded run with a transient NaN vs "
+                                     "an unguarded clean run")
+    trips = np.load(guarded[2] / "history.npz")["divergence_trips"]
+    check(trips.tolist() == [[1.0, ce, 2.0 * ce]],
+          f"history.npz divergence_trips {trips.tolist()}")
+    retried = tuple(ce * v for v in PER_EPOCH["unconditional"])
+    want = tuple(a + r for a, r in zip(clean_n, retried))
+    check(guarded_n == want, f"guarded launches {guarded_n} != the clean "
+                             f"run's {clean_n} + the retried segment's "
+                             f"{retried}")
+    print(f"[ops] (a) transient NaN after phase 1 epochs [{ce}, {2 * ce}), "
+          f"f32, checkpoint_every {ce}: trips {tr.divergence_trips}; "
+          f"params, history and "
+          f"{', '.join(sorted(p.name for p in guarded[2].glob('*.pt')))} bit "
+          f"for bit the unguarded clean run; launches (fwd, bwd, cem_fwd, "
+          f"cem_bwd) clean {clean_n}, guarded {guarded_n} = clean + the "
+          f"retried segment's {retried} ({card})", flush=True)
+
+    # (b) a persistent NaN: three consecutive trips abort before any .pt
+    _fault_plan([{"site": "trainer/epoch_loop", "action": "nan_loss",
+                  "trigger_count": n} for n in (1, 2, 3)])
+    try:
+        run("aborted", checkpoint_every=ce)
+        fail("three consecutive trips did not raise DivergenceError")
+    except DivergenceError as e:
+        check("phase1_unconditional" in str(e),
+              f"the DivergenceError names no phase1_unconditional: {e}")
+        left = sorted(p.name for p in (OPS_DIR / "aborted").glob("*.pt*"))
+        check(not left, f"the aborted run wrote {left}")
+        print(f"[ops] (b) persistent NaN: DivergenceError ({e}); no .pt "
+              "written", flush=True)
+    finally:
+        _fault_plan(None)
+
+    # (c) stop and resume, f32 and bf16, each bit for bit an uninterrupted
+    # whole-phase run; every resume save timed
+    save_ms = []
+    real_save = trainer_mod.Trainer._save_resume
+
+    def timed_save(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(self, *a, **kw)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for dtype in ("float32", "bfloat16"):
+        ref, _ = run(f"whole_{dtype}", dtype)
+        if dtype == "float32":
+            _same_run(torch, clean, ref, "a segmented run vs a whole one")
+        trainer_mod.Trainer._save_resume = timed_save
+        try:
+            for stop in OPS_STOPS:
+                name = f"stop{stop}_{dtype}"
+                (_, _, save), tr = run(name, dtype, checkpoint_every=ce,
+                                       stop_after_epochs=stop)
+                meta = json.loads((save / "resume_meta.json").read_text())
+                check(tr.stopped_midphase and meta["in_phase"] > 0,
+                      f"{name}: no mid-phase stop")
+                resumed, _ = run(name, dtype, fresh=False,
+                                 checkpoint_every=ce, resume=True)
+                _same_run(torch, ref, resumed, f"{name} resumed vs the "
+                                               "uninterrupted run")
+                left = sorted(p.name for p in save.glob("resume_*"))
+                check(not left, f"{name}: resume files left: {left}")
+                print(f"[ops] (c) {dtype} stop_after_epochs {stop} (mid-phase"
+                      f" {meta['in_phase']} at epoch "
+                      f"{meta['epochs_in_phase']}) + resume: bit for bit the "
+                      "uninterrupted run; no resume file left", flush=True)
+        finally:
+            trainer_mod.Trainer._save_resume = real_save
+
+    # walls: the guard on and off in turns (checkpoint_every 4, f32)
+    walls = {False: [], True: []}
+    for guard in (False, True, True, False):
+        _, tr = run(f"wall_{int(guard)}", checkpoint_every=ce,
+                    divergence_guard=guard)
+        walls[guard].append(tr.epoch_ms())
+    mean = {g: {k: statistics.mean(w[k] for w in ws) for k in ws[0]}
+            for g, ws in walls.items()}
+    # the guard's own work a segment: its rollback point, timed alone
+    snap_ms = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (tr.snapshot(), tr.opt_state(tr.opt_sdf), tr.opt_state(tr.opt_moment))
+        torch.cuda.synchronize()
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    save_med = statistics.median(save_ms)
+    print(f"[ops walls] wall ms per epoch, f32, checkpoint_every {ce}, two "
+          f"runs each in turns: guard on {fmt(mean[True])}; guard off "
+          f"{fmt(mean[False])} ({card})", flush=True)
+    print(f"[ops walls] one guard snapshot (the live params and both "
+          f"optimizers' moments copied on the card, synchronized): median "
+          f"{statistics.median(snap_ms[1:]):.3f} ms of 20 ({card})",
+          flush=True)
+    print(f"[ops walls] one resume save (sync, state to the host, torch.save,"
+          f" verified write of the state and its meta): median "
+          f"{save_med:.2f} ms of {len(save_ms)}, range {min(save_ms):.2f}-"
+          f"{max(save_ms):.2f} ({card})", flush=True)
+    return guarded_n, dict(guard_on_epoch_ms=mean[True],
+                           guard_off_epoch_ms=mean[False],
+                           guard_snapshot_ms=statistics.median(snap_ms[1:]),
+                           resume_save_ms=save_med)
+
+
+def _read_port(proc, lines, found):
+    """Collect a child's stdout lines; set `found` once the metrics
+    sidecar's port is logged."""
+    for line in proc.stdout:
+        lines.append(line)
+        if "metrics sidecar: http://127.0.0.1:" in line and not found:
+            found.append(int(line.split("127.0.0.1:")[1].split("/")[0]))
+
+
+def ops_cli_checks(torch, card):
+    """(d) The train CLI in subprocesses, default bf16: --checkpoint_every
+    --metrics_port 0 --profile (a scrape while it trains); a kill plan at
+    the epoch loop, then --resume, bit for bit the first run."""
+    import threading
+
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .metrics import parse_prom_text
+
+    base = [sys.executable, "-m", f"{PKG}.train", "--data_dir", str(DATA_DIR),
+            "--epochs_unc", str(SCHEDULE["num_epochs_unc"]),
+            "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
+            "--epochs", str(SCHEDULE["num_epochs"]), "--ignore_epoch",
+            str(SCHEDULE["ignore_epoch"]), "--print_freq", "8", "--device",
+            DEVICE, "--checkpoint_every", str(OPS_CHECKPOINT_EVERY)]
+    first, second, prof = (OPS_DIR / "cli", OPS_DIR / "cli_killed",
+                           OPS_DIR / "trace")
+    for d in (first, second, prof):
+        shutil.rmtree(d, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items() if k != "DLAP_FAULT_PLAN"}
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        base + ["--save_dir", str(first), "--metrics_port", "0",
+                "--profile", str(prof)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, port = [], []
+    reader = threading.Thread(target=_read_port, args=(proc, lines, port),
+                              daemon=True)
+    reader.start()
+    scraped = None
+    while proc.poll() is None and scraped is None:
+        if port:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port[0]}/metrics",
+                        timeout=2) as r:
+                    prom = parse_prom_text(r.read().decode())
+                n = sum(prom.get("dlap_epochs_dispatched_total", {})
+                        .values())
+                if n > 0:
+                    scraped = n
+            except (OSError, ValueError):
+                pass
+        time.sleep(0.005)
+    rc = proc.wait(timeout=600)
+    reader.join(timeout=10)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"train CLI exited {rc}:\n" + "".join(lines[-30:]))
+    check(port, "the train CLI logged no metrics sidecar port")
+    check(scraped is not None, "no /metrics scrape during training showed "
+                               "epochs_dispatched")
+    hb = json.loads((first / "heartbeat.json").read_text())
+    check(hb["heartbeat"]["section"] == "finalize"
+          and hb.get("device_memory", {}).get("n_devices", 0) >= 1
+          and hb["device_memory"]["totals"].get("peak_bytes_in_use", 0) > 0,
+          f"heartbeat.json lacks device_memory: {hb}")
+    manifest = json.loads((first / "manifest.json").read_text())
+    progs = manifest.get("kernel_programs") or {}
+    check(all(any(k.startswith(n) for k in progs) for n in TRAIN_KERNELS),
+          f"manifest.json kernel_programs {sorted(progs)} lack a training "
+          "kernel")
+    check(all(p["held"]["local_bytes"] == 0 for p in progs.values()),
+          "a kernel program spills")
+    rows = (first / "metrics.jsonl").read_text().splitlines()
+    n_epochs = sum(SCHEDULE[k] for k in ("num_epochs_unc",
+                                         "num_epochs_moment", "num_epochs"))
+    check(len(rows) == n_epochs, f"metrics.jsonl has {len(rows)} rows, not "
+                                 f"{n_epochs}")
+    events = [json.loads(x) for x in
+              (first / "events.jsonl").read_text().splitlines()]
+    dispatched = sum(e["value"] for e in events
+                     if e["name"] == "epochs_dispatched")
+    check(dispatched == n_epochs, f"events.jsonl epochs_dispatched "
+                                  f"{dispatched} != {n_epochs}")
+    traces = [p for p in prof.rglob("*") if p.is_file()]
+    text = "".join(p.read_text(errors="replace") for p in traces)
+    check(traces and "sdf_ffn" in text and "cond_em" in text,
+          "the --profile trace names no FFN or conditional-EM kernel")
+    trace_mb = sum(p.stat().st_size for p in traces) / 1e6
+    print(f"[ops cli] train CLI (bf16, --checkpoint_every "
+          f"{OPS_CHECKPOINT_EVERY} --metrics_port 0 --profile): {wall:.1f} s;"
+          f" /metrics scraped mid-run at port {port[0]}: epochs_dispatched "
+          f"{scraped}; heartbeat.json finalize, peak_bytes_in_use "
+          f"{hb['device_memory']['totals'].get('peak_bytes_in_use')}; "
+          f"kernel_programs {sorted(progs)}; metrics.jsonl {len(rows)} rows;"
+          f" trace {trace_mb:.1f} MB naming sdf_ffn and cond_em ({card})",
+          flush=True)
+
+    # a SIGKILL at the third segment (phase 2), then --resume
+    plan = [{"site": "trainer/epoch_loop", "trigger_count": 3,
+             "action": "kill"}]
+    killed = subprocess.run(
+        base + ["--save_dir", str(second)], cwd=ROOT,
+        env=dict(env, DLAP_FAULT_PLAN=json.dumps(plan)),
+        capture_output=True, text=True, timeout=600)
+    check(killed.returncode == -9, f"the kill plan's run exited "
+                                   f"{killed.returncode}, not by SIGKILL")
+    meta = json.loads((second / "resume_meta.json").read_text())
+    resumed = subprocess.run(base + ["--save_dir", str(second), "--resume"],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+    check(resumed.returncode == 0, f"--resume exited {resumed.returncode}:\n"
+          + resumed.stdout[-3000:] + resumed.stderr[-3000:])
+    a, b = np.load(first / "history.npz"), np.load(second / "history.npz")
+    check(set(a.files) == set(b.files)
+          and all(np.array_equal(a[k], b[k]) for k in a.files),
+          "history.npz of the killed-and-resumed CLI run differs")
+    check((first / "final_model.pt").read_bytes()
+          == (second / "final_model.pt").read_bytes(),
+          "final_model.pt of the killed-and-resumed CLI run differs")
+    rows = (second / "metrics.jsonl").read_text().splitlines()
+    check(len(rows) == n_epochs and not list(second.glob("resume_*")),
+          f"the resumed run dir: {len(rows)} metrics rows, resume files "
+          f"{sorted(p.name for p in second.glob('resume_*'))}")
+    print(f"[ops cli] kill plan at trainer/epoch_loop #3: rc -9 (after "
+          f"phase {meta['completed_phase']}, in_phase {meta['in_phase']}); "
+          f"--resume: history.npz and final_model.pt bit for bit the "
+          f"uninterrupted CLI run; metrics.jsonl {len(rows)} rows ({card})",
+          flush=True)
+
+
+def ops_plane_phase(torch, K, C, card, splits):
+    """(12) The trainer's operational plane at phase 6's full width and
+    panel; returns the guarded run's launches by kernel."""
+    t0 = time.perf_counter()
+    shutil.rmtree(OPS_DIR, ignore_errors=True)
+    try:
+        launches, walls = ops_plane_runs(torch, K, C, card, splits)
+        ops_cli_checks(torch, card)
+    finally:
+        _fault_plan(None)
+        shutil.rmtree(OPS_DIR, ignore_errors=True)
+    for name, n in zip(TRAIN_KERNELS, launches):
+        check(n > 0, f"the operational plane's run launched {name} no time")
+    print(f"[ops] phase 12 done in {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return dict(launches=dict(zip(TRAIN_KERNELS, launches)), walls=walls)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4300,6 +4670,12 @@ def main(argv=None) -> int:
                          "phase 11, the data plane at the real panel shape "
                          "(a short call while the data plane changes); no "
                          "result line")
+    ap.add_argument("--only_ops", action="store_true",
+                    help="build the training kernels' libraries only and run "
+                         "phase 12, the trainer's operational plane on "
+                         "phase 6's panel (a short call while the guard, "
+                         "resume or the train CLI's telemetry change); no "
+                         "result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -4355,7 +4731,7 @@ def run_phases(opts, torch) -> int:
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
     jobs = (K.build_jobs([64], kernels=("fwd", "bwd")) + C.build_jobs()
-            if opts.only_data
+            if opts.only_data or opts.only_ops
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",))
@@ -4374,17 +4750,27 @@ def run_phases(opts, torch) -> int:
     (cem_job,), (mb_job,) = C.build_jobs(), MB.build_jobs()
     sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
               else ("fwd",) if opts.only_fwd or opts.only_serve
-              else () if opts.only_cem or opts.only_ceiling or opts.only_data
+              else () if (opts.only_cem or opts.only_ceiling
+                          or opts.only_data or opts.only_ops)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
               else [] if (opts.only_bwd or opts.only_dx or opts.only_fwd
-                          or opts.only_serve or opts.only_data)
+                          or opts.only_serve or opts.only_data
+                          or opts.only_ops)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
         # the data plane alone: phase 11 on the training kernels' libraries
         data_plane_phase(torch, K, C, card)
+        return 0
+
+    if opts.only_ops:
+        # the trainer's operational plane alone: phase 12 on phase 6's panel
+        try:
+            ops_plane_phase(torch, K, C, card, make_panel())
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
 
     if opts.only_dx:
@@ -4554,6 +4940,9 @@ def run_phases(opts, torch) -> int:
     # 10's pointer
     reload_checks(torch, card, splits, gate["dirs"], gate["ctl"])
     shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+
+    # 12. the trainer's operational plane on phase 6's panel
+    ops = ops_plane_phase(torch, K, C, card, splits)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     # 11. the data plane at the real panel shape
@@ -4578,6 +4967,7 @@ def run_phases(opts, torch) -> int:
         if gate["launches"][health_idx[name]]:
             paths["promotion_gate"] = gate["launches"][health_idx[name]]
         paths["data_plane_train_real_shape"] = data["launches"][name]
+        paths["trainer_ops_plane"] = ops["launches"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name])

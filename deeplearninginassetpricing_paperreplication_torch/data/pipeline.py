@@ -747,7 +747,8 @@ class StartupPipeline:
 # stage 3 helper: build and plan the kernels of the model's route early
 # --------------------------------------------------------------------------
 
-def trainer_precompile_fn(cfg, exec_cfg=None) -> Callable[[Dict], Any]:
+def trainer_precompile_fn(cfg, exec_cfg=None, events=None
+                          ) -> Callable[[Dict], Any]:
     """A `compile_fn` for :class:`StartupPipeline`: the port's counterpart
     of compiling the trainer's programs under the load window. Eager
     PyTorch has no programs to compile; what a first epoch would otherwise
@@ -756,11 +757,18 @@ def trainer_precompile_fn(cfg, exec_cfg=None) -> Callable[[Dict], Any]:
     plans on the card. This does both, for the probed shapes of every split
     and one model (the train CLI's), and returns what it prepared::
 
-        {"device": "cuda:0", "libraries": [...], "plans": n}
+        {"device": "cuda:0", "libraries": [...], "plans": n,
+         "programs": {name: record}}
 
-    On the plain route (a CPU device, ``kernel="off"``) nothing is built:
-    the libraries list is empty.
+    Each plan is recorded with what the card holds of it (resident blocks
+    per SM, registers, local bytes) through
+    ``observability.programs.record_program``: a ``program`` row in
+    `events` and a ``programs`` entry, which the train CLI folds into
+    ``manifest.json`` as ``kernel_programs``. On the plain route (a CPU
+    device, ``kernel="off"``) nothing is built: the libraries list and the
+    programs are empty.
     """
+    from ..observability.programs import record_program
     from ..utils.config import ExecutionConfig
 
     exec_cfg = exec_cfg or ExecutionConfig()
@@ -769,29 +777,45 @@ def trainer_precompile_fn(cfg, exec_cfg=None) -> Callable[[Dict], Any]:
         from ..ops import cond_em, sdf_ffn
 
         dev = resolve_device(exec_cfg.device)
-        out = {"device": str(dev), "libraries": [], "plans": 0}
+        out = {"device": str(dev), "libraries": [], "plans": 0,
+               "programs": {}}
         if dev.type != "cuda" or exec_cfg.kernel == "off":
             return out
         cd = exec_cfg.compute_dtype
         F = cfg.individual_feature_dim
-        if cfg.hidden_dim:
-            lay = sdf_ffn.ffn_layout(F, cfg.hidden_dim)
-            w = sdf_ffn.width_bound(cfg.hidden_dim)
-            for split in SPLITS:
-                t, n = shapes[split]["returns"]
-                sdf_ffn.card_fwd_plan(lay, dev, 1, t, n, cd)
-                out["plans"] += 1
-            t, n = shapes["train"]["returns"]
-            sdf_ffn.card_bwd_plan(lay, dev, 1, t, n)
+
+        def record(name, plan, held, T, N):
+            record_program(events, name, plan, held, out["programs"],
+                           S=1, T=T, N=N, compute_dtype=cd)
             out["plans"] += 1
-            out["libraries"] += [f"sdf_ffn_fwd_w{w}", f"sdf_ffn_bwd_w{w}"]
-        if not cfg.hidden_dim_moment and "macro" in shapes["train"]:
-            for split in SPLITS:
-                t, n = shapes[split]["returns"]
-                cond_em.card_cem_plan(dev, 1, t, n, F,
-                                      cfg.num_condition_moment, cd)
-                out["plans"] += 1
-            out["libraries"].append("cond_em")
+
+        with torch.cuda.device(dev):
+            if cfg.hidden_dim:
+                lay = sdf_ffn.ffn_layout(F, cfg.hidden_dim)
+                w = sdf_ffn.width_bound(cfg.hidden_dim)
+                for split in SPLITS:
+                    t, n = shapes[split]["returns"]
+                    plan = sdf_ffn.card_fwd_plan(lay, dev, 1, t, n, cd)
+                    record(f"sdf_ffn_fwd/{split}", plan,
+                           sdf_ffn.fwd_plan_info(lay, 1, plan), t, n)
+                t, n = shapes["train"]["returns"]
+                plan = sdf_ffn.card_bwd_plan(lay, dev, 1, t, n)
+                record("sdf_ffn_bwd/train", plan,
+                       sdf_ffn.bwd_plan_info(lay, plan), t, n)
+                out["libraries"] += [f"sdf_ffn_fwd_w{w}", f"sdf_ffn_bwd_w{w}"]
+            if not cfg.hidden_dim_moment and "macro" in shapes["train"]:
+                K = cfg.num_condition_moment
+                for split in SPLITS:
+                    t, n = shapes[split]["returns"]
+                    plans = cond_em.card_cem_plan(dev, 1, t, n, F, K, cd)
+                    kinds = (("fwd", "bwd") if split == "train"
+                             else ("fwd",))
+                    for kind in kinds:
+                        plan = getattr(plans, kind)
+                        record(f"cond_em_{kind}/{split}", plan,
+                               cond_em.plan_info(plan, 1, t, n, F, K, cd),
+                               t, n)
+                out["libraries"].append("cond_em")
         return out
 
     return compile_fn

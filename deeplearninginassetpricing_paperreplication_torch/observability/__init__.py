@@ -4,9 +4,17 @@ package's ``observability/``. Nothing here imports torch at module level:
   * :mod:`.events`       — the append-only ``events.jsonl`` writer (spans,
     counters, gauges), feeding a live :class:`MetricsRegistry`;
   * :mod:`.metrics`      — counters, gauges and latency histograms with the
-    Prometheus text exposition of ``/metrics?format=prom``;
+    Prometheus text exposition of ``/metrics?format=prom``, and the
+    read-only :class:`MetricsSidecar` behind the train CLI's
+    ``--metrics_port``;
   * :mod:`.tracecontext` — W3C ``traceparent`` parsing and sampling;
-  * :mod:`.heartbeat`    — phase-tagged liveness (``heartbeat.json``);
+  * :mod:`.heartbeat`    — phase-tagged liveness (``heartbeat.json``), with
+    the device-memory snapshot of :mod:`.memory`
+    (``torch.cuda.memory_stats`` over the visible devices);
+  * :mod:`.logging`      — the process-0-gated :class:`RunLogger`, mirrored
+    into ``events.jsonl``;
+  * :mod:`.programs`     — each kernel's launch plan as the card holds it
+    (``kernel_programs`` in ``manifest.json``; ``xla.py``'s counterpart);
   * :mod:`.manifest`     — ``manifest.json``: config hash, versions, the
     CUDA devices, git sha;
   * :mod:`.report`       — the latency percentiles ``/metrics`` reports;
@@ -18,6 +26,7 @@ package's ``observability/``. Nothing here imports torch at module level:
 
 from .events import EventLog, new_run_id
 from .heartbeat import Heartbeat, read_state, write_state
+from .logging import RunLogger, get_run_logger, set_run_logger
 from .manifest import (
     build_manifest,
     config_hash,
@@ -25,9 +34,11 @@ from .manifest import (
     update_manifest,
     write_manifest,
 )
+from .memory import device_memory_snapshot, log_memory
 from .metrics import (
     PROM_CONTENT_TYPE,
     MetricsRegistry,
+    MetricsSidecar,
     feed_event,
     parse_prom_exemplars,
     parse_prom_text,
@@ -48,13 +59,18 @@ __all__ = [
     "EventLog",
     "Heartbeat",
     "MetricsRegistry",
+    "MetricsSidecar",
     "PROM_CONTENT_TYPE",
+    "RunLogger",
     "TraceContext",
     "build_manifest",
     "config_hash",
+    "device_memory_snapshot",
     "feed_event",
     "format_traceparent",
+    "get_run_logger",
     "load_manifest",
+    "log_memory",
     "new_run_id",
     "new_span_id",
     "new_trace_id",
@@ -65,6 +81,7 @@ __all__ = [
     "prom_name",
     "read_state",
     "render_process_prom",
+    "set_run_logger",
     "trace_sampled",
     "update_manifest",
     "write_manifest",

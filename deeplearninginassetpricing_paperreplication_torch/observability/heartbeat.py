@@ -95,8 +95,8 @@ class Heartbeat:
     """Periodic liveness writer for one run.
 
     Owns its state dict (merged over any existing file so a respawned
-    process keeps prior keys) and optionally mirrors each beat into an
-    :class:`EventLog`.
+    process keeps prior keys) and optionally mirrors each beat — plus a
+    device-memory snapshot — into an :class:`EventLog`.
     """
 
     def __init__(self, path, events: Optional[EventLog] = None):
@@ -104,10 +104,20 @@ class Heartbeat:
         self.events = events
         self.state = read_state(self.path)
 
-    def beat(self, section: str, **extra: Any) -> None:
-        """Record liveness in `section` (plus any `extra` state keys)."""
+    def beat(self, section: str, memory: bool = False, **extra: Any) -> None:
+        """Record liveness in `section` (plus any `extra` state keys);
+        ``memory=True`` additionally snapshots aggregated device memory
+        into the state file (``device_memory``) and the event log (a
+        ``memory`` event): host-side counter reads only, no device sync."""
         if extra:
             self.state.update(extra)
+        if memory:
+            from .memory import log_memory  # deferred: see module docstring
+
+            snap = log_memory(self.events, section=section)
+            self.state["device_memory"] = {
+                "n_devices": snap["n_devices"], "totals": snap["totals"],
+            }
         beat(self.path, self.state, section)
         if self.events is not None:
             self.events.emit("heartbeat", section)

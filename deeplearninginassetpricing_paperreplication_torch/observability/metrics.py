@@ -1,7 +1,6 @@
 """In-process streaming metrics: counters, gauges, latency histograms and
 Prometheus text exposition — the port's copy of the JAX package's
-``observability/metrics.py`` (its scrape sidecar, ``MetricsSidecar``, is
-not ported: it serves CLIs that are not servers).
+``observability/metrics.py``.
 
 The :class:`~.events.EventLog` feeds a :class:`MetricsRegistry` from the
 SAME ``counter``/``gauge``/``span_end`` call sites that write
@@ -12,7 +11,9 @@ runs); the event log stays the post-hoc ground truth. Exposure paths:
   * the serving server answers ``GET /metrics?format=prom`` with the
     Prometheus text format (the JSON ``/metrics`` body is unchanged);
   * a final snapshot lands in the run dir as ``metrics.prom`` on clean
-    serving shutdown.
+    serving shutdown;
+  * :class:`MetricsSidecar` serves ``/metrics`` (Prometheus text) and
+    ``/healthz`` for CLIs that are not servers (``train --metrics_port``).
 
 Metric naming: event names map deterministically — counters
 ``a/b`` → ``dlap_a_b_total``, gauges → ``dlap_a_b``, span durations →
@@ -26,10 +27,11 @@ Module level stays stdlib-only (like ``heartbeat.py`` and ``faults.py``).
 
 from __future__ import annotations
 
+import json
 import math
 import re
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 PROM_PREFIX = "dlap"
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -432,3 +434,70 @@ def parse_prom_exemplars(
         out[key] = {"labels": _parse_labelblob(ex_labels),
                     "value": float(ex_value)}
     return out
+
+
+# -- the read-only scrape sidecar --------------------------------------------
+
+
+class MetricsSidecar:
+    """Stdlib HTTP thread serving ``/metrics`` (Prometheus text) and
+    ``/healthz`` from one or more registries — the scrape endpoint for
+    CLIs that are not servers (``train --metrics_port``). Strictly
+    read-only: GET only, no mutation path.
+    """
+
+    def __init__(self, registries: Iterable[MetricsRegistry],
+                 host: str = "127.0.0.1", port: int = 0):
+        self.registries = list(registries)
+        self.host = host
+        self.port = port
+        self._httpd = None
+        self._thread = None
+
+    def start(self) -> int:
+        """Bind + serve on a daemon thread; returns the bound port (port 0
+        picks a free one)."""
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        sidecar = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib handler API)
+                path = self.path.split("?", 1)[0].rstrip("/") or "/"
+                if path == "/metrics":
+                    body = ("".join(
+                        r.render_prom() for r in sidecar.registries)
+                        + render_process_prom()).encode()
+                    ctype = PROM_CONTENT_TYPE
+                elif path == "/healthz":
+                    body = json.dumps({"ok": True}).encode()
+                    ctype = "application/json"
+                else:
+                    body = b"not found"
+                    ctype = "text/plain"
+                status = 200 if path in ("/metrics", "/healthz") else 404
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, fmt, *args):  # scrapes are not news
+                pass
+
+        self._httpd = ThreadingHTTPServer((self.host, self.port), _Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name="metrics-sidecar")
+        self._thread.start()
+        return self.port
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

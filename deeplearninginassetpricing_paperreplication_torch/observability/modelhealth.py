@@ -18,9 +18,10 @@ torch functions); this module is the host-side plumbing around them:
   * :class:`HealthThresholds` — the configurable bars, with
     :meth:`~HealthThresholds.classify` returning stable reason slugs.
 
-The port has no divergence guard yet, so ``guard_trips`` is 0 and
-``divergence_trips`` empty. The JAX package's ``bench_health_overhead``
-waits for the port's bench.
+``guard_trips`` and ``divergence_trips`` come from the trainer's divergence
+guard (``reliability/guard.py``): the count and the (phase, start epoch,
+end epoch) segments it rolled back. The JAX package's
+``bench_health_overhead`` waits for the port's bench.
 
 Module level stays stdlib-only: the gate and thin readers load
 ``health.json`` without importing torch; torch loads inside the compute

@@ -40,6 +40,7 @@ from ..models.networks import (
     masked_zero_mean,
     sdf_raw_weights,
 )
+from ..observability.logging import get_run_logger
 from ..ops import sdf_ffn
 from ..ops.metrics import (
     cross_sectional_r2,
@@ -338,9 +339,12 @@ def train_members(config: GANConfig, train_b: Batch, valid_b: Batch,
     phase_seeds = [list(zip(*(m[p] for m in member_seeds)))
                    for p in range(3)]
 
+    # human lines from process 0 only; every process keeps its copy in
+    # its own events.jsonl
+    logger = get_run_logger()
+
     def log(msg):
-        if verbose:
-            print(msg, flush=True)
+        logger.info(msg, verbose=verbose)
 
     def run(phase, best, p):
         t0 = time.perf_counter()

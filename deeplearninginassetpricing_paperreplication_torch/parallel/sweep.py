@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..models.networks import init_member_params
+from ..observability.logging import get_run_logger
 from ..reliability.faults import inject
 from ..reliability.ledger import SweepLedger, bucket_key, make_record
 from ..utils.config import (
@@ -238,9 +239,12 @@ def run_sweep(
     bucket_list = list(bucketize(configs_and_lrs).items())
     n_buckets = len(bucket_list)
 
+    # human lines from process 0 only; every process keeps its copy in
+    # its own events.jsonl
+    logger = get_run_logger()
+
     def log(msg):
-        if verbose:
-            print(msg, flush=True)
+        logger.info(msg, verbose=verbose)
 
     execution = execution_of(exec_cfg)
     done_records: Dict[Tuple, Dict] = {}

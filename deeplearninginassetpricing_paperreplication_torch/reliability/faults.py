@@ -8,13 +8,13 @@ multi-run pipeline (three GAN phases × a hyperparameter sweep × a 9-member
 ensemble), exactly the shape that dies to preemptions, OOM kills and NaN
 blowups hours in. Named injection sites sit in the port's verified file IO
 (``checkpoint/save``, ``checkpoint/saved``, ``checkpoint/load``), the
-data plane (``pipeline/decode``, ``pipeline/transfer``,
-``data/shard_read``), the sweep (``sweep/bucket``,
-``sweep/ledger_write``), the promotion gate (``promote/validate``,
-``promote/write``) and the serving path (``serving/infer``,
-``serve/accept``, ``serve/admit``, ``serve/flush``, ``serve/coalesce``,
-``serve/reload``), and a JSON *fault plan* decides which site hits fire
-which fault.
+trainer's segment loop (``trainer/epoch_loop``), the data plane
+(``pipeline/decode``, ``pipeline/transfer``, ``data/shard_read``), the
+sweep (``sweep/bucket``, ``sweep/ledger_write``), the promotion gate
+(``promote/validate``, ``promote/write``) and the serving path
+(``serving/infer``, ``serve/accept``, ``serve/admit``, ``serve/flush``,
+``serve/coalesce``, ``serve/reload``), and a JSON *fault plan* decides
+which site hits fire which fault.
 
 Plan format (``DLAP_FAULT_PLAN`` env: inline JSON, or a path to a JSON
 file) — a list of entries (a single object is accepted too)::
@@ -27,7 +27,10 @@ file) — a list of entries (a single object is accepted too)::
   * ``action``        — one of ``raise`` (RuntimeError), ``kill`` (SIGKILL
                         self: the OOM-kill / preemption death mode),
                         ``truncate_file`` (corrupt the file named by the
-                        site's ``path`` context — a torn write);
+                        site's ``path`` context — a torn write),
+                        ``nan_loss`` (cooperative: :func:`inject` returns
+                        the token and the trainer poisons the segment it
+                        just ran — the divergence guard's exercise path);
   * ``trigger_count`` — fire on the Nth matching hit of the site (1-based,
                         default 1); each entry counts independently;
   * ``match``         — optional substring filter on the site's ``path``
@@ -38,9 +41,8 @@ file) — a list of entries (a single object is accepted too)::
 
 Hit counters are per process. The JAX package's cross-process counter
 file (``DLAP_FAULT_STATE``), its fault events log (``DLAP_FAULT_EVENTS``)
-and the ``hang`` and ``nan_loss`` actions serve its supervisor, elastic
-sweep and training loop, which the port does not have yet; a plan that
-names those actions is refused here.
+and the ``hang`` action serve its supervisor and elastic sweep, which the
+port does not have yet; a plan that names ``hang`` is refused here.
 
 Overhead contract: with no plan in the environment, :func:`inject` is a
 module-global read plus a ``None`` check — zero filesystem traffic, zero
@@ -61,7 +63,7 @@ from typing import Any, Dict, List, Optional, Union
 
 ENV_PLAN = "DLAP_FAULT_PLAN"
 
-ACTIONS = ("raise", "kill", "truncate_file")
+ACTIONS = ("raise", "kill", "truncate_file", "nan_loss")
 
 # the named injection sites threaded through the port (documentation —
 # the injector fires for any site string a plan names)
@@ -69,6 +71,8 @@ SITES = (
     "checkpoint/save",         # before a verified write (ctx: path)
     "checkpoint/saved",        # after data + digest land (ctx: path)
     "checkpoint/load",         # before a verified read (ctx: path)
+    "trainer/epoch_loop",      # after each training segment (ctx: phase,
+                               #   epochs_done; `nan_loss` poisons it)
     "pipeline/decode",         # per split, before its decode (ctx: split)
     "pipeline/transfer",       # per split, before its transfer (ctx: split)
     "data/shard_read",         # per chunked-store shard, before its digest
@@ -134,10 +138,11 @@ class FaultInjector:
 
     # -- the hot path ---------------------------------------------------------
 
-    def fire(self, site: str, **ctx: Any) -> None:
+    def fire(self, site: str, **ctx: Any) -> Optional[str]:
         """Record one hit of `site`; execute any entry whose trigger is
-        reached. ``raise``/``kill`` never return; ``truncate_file``
-        corrupts and returns."""
+        reached. Returns a cooperative-action token (``"nan_loss"``) for the
+        caller to apply, else None. ``raise``/``kill`` never return;
+        ``truncate_file`` corrupts and returns None."""
         matching = [
             i for i, f in enumerate(self.plan)
             if f["site"] == site
@@ -150,14 +155,20 @@ class FaultInjector:
             if self.counts[i] == f["trigger_count"] or (
                     f["persistent"] and self.counts[i] >= f["trigger_count"]):
                 pending.append(f)
+        token = None
         for f in pending:
-            self._execute(f, site, ctx)
+            out = self._execute(f, site, ctx)
+            if out is not None:
+                token = out
+        return token
 
     # -- actions --------------------------------------------------------------
 
     def _execute(self, fault: Dict[str, Any], site: str,
-                 ctx: Dict[str, Any]) -> None:
+                 ctx: Dict[str, Any]) -> Optional[str]:
         action = fault["action"]
+        if action == "nan_loss":
+            return "nan_loss"  # cooperative: the site poisons its own output
         if action == "raise":
             raise FaultInjected(f"injected raise at {site} (ctx={ctx})")
         if action == "kill":
@@ -182,6 +193,7 @@ class FaultInjector:
                     keep = (size // 2) if keep is None else int(keep)
                     with open(p, "r+b") as f:
                         f.truncate(keep)
+        return None
 
     # -- construction ---------------------------------------------------------
 
@@ -228,14 +240,17 @@ def get_injector() -> Optional[FaultInjector]:
     return _injector
 
 
-def inject(site: str, **ctx: Any) -> None:
-    """The one call every injection site makes. With no plan configured
-    this is a global read + None check — zero overhead, zero side effects."""
+def inject(site: str, **ctx: Any) -> Optional[str]:
+    """The one call every injection site makes; returns the fired
+    cooperative action's name (``"nan_loss"``), else None. With no plan
+    configured this is a global read + None check — zero overhead, zero
+    side effects."""
     inj = _injector
     if inj is _UNRESOLVED:
         inj = get_injector()
-    if inj is not None:
-        inj.fire(site, **ctx)
+    if inj is None:
+        return None
+    return inj.fire(site, **ctx)
 
 
 def reset_injector() -> None:

@@ -40,9 +40,13 @@ tensors), not the JAX one (over the flax tree): a pointer is readable by
 both packages, but not to be shared between them.
 
 The validation pass runs on the CUDA device unless the caller asks for the
-CPU (``exec_cfg`` / ``--device cpu``). The JAX package's ``promote/*``
-event counters wait for the port's events log. Module level stays
-stdlib-only: thin readers load pointers without importing torch.
+CPU (``exec_cfg`` / ``--device cpu``). Given an ``EventLog``
+(``events=``), :func:`promote` and :func:`rollback` count the gate's
+decisions with the JAX package's names and attributes:
+``promote/reject`` (reason, source), ``promote/advance`` (generation,
+source, fingerprint, sharpe) and ``promote/rollback`` (generation,
+rolled_back_from, fingerprint, reason). Module level stays stdlib-only:
+thin readers load pointers without importing torch.
 """
 
 from __future__ import annotations
@@ -291,6 +295,11 @@ def evaluate_candidate(
 # -- the gate -----------------------------------------------------------------
 
 
+def _counter(events, name: str, **attrs: Any) -> None:
+    if events is not None:
+        events.counter(name, **attrs)
+
+
 def candidate_reference_profile(
     checkpoint_dirs: Sequence[str],
     reference_profile: Optional[Union[str, Path, Dict[str, Any]]] = None,
@@ -325,6 +334,7 @@ def promote(
     drift_threshold: Optional[float] = None,
     reference_profile: Optional[Union[str, Path, Dict[str, Any]]] = None,
     exec_cfg=None,
+    events=None,
 ) -> Dict[str, Any]:
     """Run the candidate through the gate; on pass, atomically advance the
     promotion pointer and return it. Raises :class:`GateRejection` (with a
@@ -353,7 +363,9 @@ def promote(
       Skipped (recorded as None) when no profile is resolvable.
 
     ``exec_cfg``: the validation pass's ``ExecutionConfig`` (device,
-    kernel route, compute dtype); the default runs on the card."""
+    kernel route, compute dtype); the default runs on the card.
+    ``events``: an ``EventLog`` that counts ``promote/reject`` and
+    ``promote/advance``."""
     # the ONE finite-float coercion shared with the health plane
     from ..observability.modelhealth import _finite_or_none as _finite
 
@@ -362,6 +374,7 @@ def promote(
     inject("promote/validate", path=src, n_members=len(dirs))
 
     def reject(reason: str, detail: str = "") -> None:
+        _counter(events, "promote/reject", reason=reason, source=src)
         raise GateRejection(reason, detail)
 
     if not dirs:
@@ -444,6 +457,9 @@ def promote(
         "promoted_at": round(time.time(), 3),
         "members": members,
     }, history_keep=history_keep)
+    _counter(events, "promote/advance", generation=pointer["generation"],
+             source=src, fingerprint=pointer["params_fingerprint"][:16],
+             sharpe=pointer["valid_sharpe"])
     return pointer
 
 
@@ -451,11 +467,13 @@ def rollback(
     root: Union[str, Path],
     reason: str = "",
     history_keep: int = DEFAULT_HISTORY_KEEP,
+    events=None,
 ) -> Dict[str, Any]:
     """Revert the pointer to the previous history entry (same atomic
     write; the bad head joins the history with ``rolled_back_from`` set so
     the audit trail survives). Raises :class:`PromotionError` when there
-    is nothing to roll back to."""
+    is nothing to roll back to. ``events``: an ``EventLog`` that counts
+    ``promote/rollback``."""
     current = read_pointer(root)
     if current is None:
         raise PromotionError(f"no promotion pointer under {root}")
@@ -469,7 +487,13 @@ def rollback(
             if k in prev and k not in ("generation", "rolled_back_from")}
     head["rolled_back_from"] = current.get("generation")
     head["rollback_reason"] = reason
-    return write_pointer(root, head, history_keep=history_keep)
+    pointer = write_pointer(root, head, history_keep=history_keep)
+    _counter(events, "promote/rollback",
+             generation=pointer["generation"],
+             rolled_back_from=current.get("generation"),
+             fingerprint=str(pointer.get("params_fingerprint"))[:16],
+             reason=reason)
+    return pointer
 
 
 # -- CLI ----------------------------------------------------------------------

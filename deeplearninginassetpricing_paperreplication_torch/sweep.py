@@ -47,6 +47,7 @@ import torch
 from .data.pipeline import load_splits_chunked
 from .data.transfer import device_put_batch
 from .evaluate_ensemble import add_execution_args, execution_config
+from .observability.logging import get_run_logger
 from .parallel.ensemble import (
     PAPER_SEEDS,
     apply_quorum,
@@ -208,9 +209,12 @@ def run_protocol(
     exec_cfg = exec_cfg or ExecutionConfig()
     save_dir = Path(save_dir) if save_dir else None
 
+    # human lines from process 0 only; every process keeps its copy in
+    # its own events.jsonl
+    logger = get_run_logger()
+
     def log(msg):
-        if verbose:
-            print(msg, flush=True)
+        logger.info(msg, verbose=verbose)
 
     # ---- stage 1: hyperparameter search ----
     search_stats: Dict = {}

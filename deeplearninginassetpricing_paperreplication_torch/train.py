@@ -3,33 +3,58 @@
     python -m deeplearninginassetpricing_paperreplication_torch.train \\
         --data_dir data/synthetic_data --save_dir ./checkpoints
 
-The counterpart of the JAX package's ``train.py`` for the flags this port
-implements (the schedule, the model's widths, dropout and seed), plus the
-port's ``--device`` (default cuda: a host without a CUDA device is an
-error naming CUDA, never a quiet CPU run), ``--kernel auto|on|off`` and
-``--compute_dtype``, and ``--diag_stride``.
+The counterpart of the JAX package's ``train.py``, flag for flag but for
+``--shard_stocks`` (no stock-sharded mesh yet), ``--share_sdf_program``
+(it chooses between XLA program bodies; eager PyTorch has none) and
+``--pallas`` (here ``--kernel``): the schedule, the model's widths
+(``--no_lstm``, and ``--rnn_dim_moment``, which neither package's model
+reads), dropout and seed; ``--save_best_freq`` (accepted, no effect, as in
+the reference and the JAX CLI); ``--checkpoint_every K`` (a resumable
+state every K epochs within each phase), ``--stop_after_epochs E`` (stop
+after E epochs of this invocation, leaving a resumable state; the process
+exits 0 and writes no ``final_metrics.json``) and ``--resume`` (continue
+from the run dir's state, bit for bit an uninterrupted run); the
+divergence guard (``--no_divergence_guard``, ``--guard_max_trips``);
+``--metrics_port`` (a read-only ``/metrics`` and ``/healthz`` sidecar
+while it trains; 0 picks a free port, logged at startup); ``--profile
+DIR`` (a ``torch.profiler`` Chrome trace of the training, CPU and CUDA
+activities, into DIR); ``--diag_stride``. The port's own flags are
+``--device`` (default cuda: a host without a CUDA device is an error
+naming CUDA, never a quiet CPU run), ``--kernel auto|on|off`` and
+``--compute_dtype``.
 
 The panel loads through the overlapped startup pipeline
 (``data/pipeline.py``: decode through the disk cache, streamed mask-packed
 transfer, the route's kernels built and planned meanwhile; the bf16 wire
 where ``ExecutionConfig.bf16_wire_ok``); ``--no_pipeline`` is the
 sequential ``load_splits`` + ``to_batch``; ``--small_sample`` loads through
-the cache and keeps ``--n_periods`` × ``--n_stocks``. The startup spans and
-``panel_cache`` counters go to ``events.jsonl``. It writes
-``reference_profile.json`` (the train split's drift profile, before
-training), ``config.json``, ``best_model_loss.pt``, ``best_model_sharpe.pt``,
-``final_model.pt``, ``history.npz`` (with ``diag_*`` fields under
-``--diag_stride``), ``health.json`` and ``final_metrics.json`` into
-``--save_dir``; the port's ``evaluate_ensemble``, server and promotion gate
+the cache and keeps ``--n_periods`` × ``--n_stocks``.
+
+It writes into ``--save_dir``: ``events.jsonl`` (spans, counters —
+``epochs_dispatched``, ``guard/trip``, ``panel_cache`` —, log lines,
+memory and ``program`` rows), ``heartbeat.json`` (the phase section and
+``device_memory``), ``manifest.json`` (config, versions, devices, data
+fingerprint, ``reference_profile`` and ``kernel_programs``: each
+kernel's launch plan as the card holds it), ``reference_profile.json``
+(the train split's drift profile, before training), ``config.json``,
+``metrics.jsonl`` (one row per epoch), ``best_model_loss.pt``,
+``best_model_sharpe.pt``, ``final_model.pt``, ``history.npz`` (with
+``diag_*`` fields under ``--diag_stride`` and ``divergence_trips`` after
+a guard trip), ``health.json`` and ``final_metrics.json``; mid-run also
+``resume_state.pt`` and ``resume_meta.json``, cleared when the run
+completes. The port's ``evaluate_ensemble``, server and promotion gate
 read that directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
+
+import torch
 
 from .data.panel import load_splits
 from .data.pipeline import (
@@ -40,10 +65,28 @@ from .data.pipeline import (
 )
 from .data.transfer import device_put_batch
 from .evaluate_ensemble import add_execution_args, execution_config
-from .observability.drift import reference_profile, write_profile
+from .observability.drift import (
+    PROFILE_FILENAME,
+    reference_profile,
+    write_profile,
+)
 from .observability.events import EventLog
+from .observability.heartbeat import Heartbeat
+from .observability.logging import RunLogger, set_run_logger
+from .observability.manifest import update_manifest, write_manifest
+from .observability.metrics import MetricsSidecar
 from .training.trainer import train_3phase
 from .utils.config import GANConfig, TrainConfig, resolve_device
+
+
+def profile_trace_nonempty(trace_dir) -> bool:
+    """Did the profiler actually write anything under `trace_dir`? The CLI
+    must not claim a trace it did not leave."""
+    trace_dir = Path(trace_dir)
+    if not trace_dir.is_dir():
+        return False
+    return any(p.is_file() and p.stat().st_size > 0
+               for p in trace_dir.rglob("*"))
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -59,13 +102,58 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--print_freq", type=int, default=128)
     p.add_argument("--ignore_epoch", type=int, default=64)
+    p.add_argument("--save_best_freq", type=int, default=128,
+                   help="Accepted for reference-CLI parity and, like the "
+                        "reference (which plumbs it but never reads it), "
+                        "it has no effect: best params are tracked every "
+                        "epoch and persisted on update (use "
+                        "--checkpoint_every for mid-phase persistence)")
     # model (paper defaults)
+    p.add_argument("--use_lstm", action="store_true", default=True)
+    p.add_argument("--no_lstm", action="store_false", dest="use_lstm")
     p.add_argument("--hidden_dim", type=int, nargs="+", default=[64, 64])
     p.add_argument("--rnn_dim", type=int, nargs="+", default=[4])
     p.add_argument("--num_moments", type=int, default=8)
     p.add_argument("--dropout", type=float, default=0.05)
     p.add_argument("--hidden_dim_moment", type=int, nargs="+", default=[])
+    p.add_argument("--rnn_dim_moment", type=int, nargs="+", default=[32],
+                   help="Recorded in the config as num_units_rnn_moment; "
+                        "the moment net builds no LSTM (the reference's "
+                        "does not either)")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--resume", action="store_true",
+                   help="Continue from the last resume point recorded in "
+                        "save_dir (a phase boundary, or a mid-phase segment "
+                        "boundary when --checkpoint_every was used); bit "
+                        "for bit an uninterrupted run")
+    p.add_argument("--checkpoint_every", type=int, default=None, metavar="K",
+                   help="Persist a resumable state every K epochs within "
+                        "each phase; bit for bit an uninterrupted run")
+    p.add_argument("--stop_after_epochs", type=int, default=None, metavar="E",
+                   help="Run at most E more train epochs this invocation "
+                        "(checked at segment boundaries), save the mid-phase "
+                        "state, and exit 0 — continue with --resume")
+    p.add_argument("--profile", type=str, default=None, metavar="TRACE_DIR",
+                   help="Capture a torch.profiler trace (CPU and, on the "
+                        "card, CUDA activities) of the training into "
+                        "TRACE_DIR as a Chrome trace (chrome://tracing, "
+                        "ui.perfetto.dev)")
+    p.add_argument("--metrics_port", type=int, default=None, metavar="PORT",
+                   help="Serve live Prometheus metrics on "
+                        "http://127.0.0.1:PORT/metrics while the run trains "
+                        "— a read-only sidecar fed from the same call sites "
+                        "as events.jsonl (port 0 picks a free one, logged "
+                        "at startup)")
+    p.add_argument("--no_divergence_guard", action="store_false",
+                   dest="divergence_guard",
+                   help="Disable the per-segment non-finite loss/grad check "
+                        "(reliability/guard.py). Outputs are bit for bit "
+                        "the same either way; the guard only decides "
+                        "whether a NaN blowup aborts cleanly or poisons the "
+                        "checkpoints")
+    p.add_argument("--guard_max_trips", type=int, default=3, metavar="K",
+                   help="Consecutive non-finite segments before the "
+                        "divergence guard aborts the run")
     p.add_argument("--diag_stride", type=int, default=None, metavar="K",
                    help="Fold the model-health diagnostics "
                         "(ops/diagnostics.py: per-moment violation norms, "
@@ -99,20 +187,43 @@ def main(argv=None):
                        num_epochs=args.epochs, lr=args.lr,
                        ignore_epoch=args.ignore_epoch, seed=args.seed,
                        print_freq=args.print_freq)
+    # telemetry sinks of this run dir: structured events, phase-tagged
+    # heartbeats, and the process-0-gated logger
     events = EventLog(save_dir)
+    hb = Heartbeat(save_dir / "heartbeat.json", events=events)
+    logger = set_run_logger(RunLogger(events=events))
+    hb.beat("setup")
+    sidecar = None
+    if args.metrics_port is not None:
+        sidecar = MetricsSidecar([events.metrics], port=args.metrics_port)
+        port = sidecar.start()
+        logger.info(f"metrics sidecar: http://127.0.0.1:{port}/metrics "
+                    "(Prometheus text)")
+    try:
+        _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger,
+               argv)
+    finally:
+        if sidecar is not None:
+            sidecar.stop()
+        events.close()
 
+
+def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
     def make_cfg(macro_dim, individual_dim):
         if args.config:
             return GANConfig.load(args.config)
         return GANConfig(
             macro_feature_dim=macro_dim, individual_feature_dim=individual_dim,
-            hidden_dim=tuple(args.hidden_dim),
+            hidden_dim=tuple(args.hidden_dim), use_rnn=args.use_lstm,
             num_units_rnn=tuple(args.rnn_dim),
             hidden_dim_moment=tuple(args.hidden_dim_moment),
-            num_condition_moment=args.num_moments, dropout=args.dropout)
+            num_condition_moment=args.num_moments,
+            num_units_rnn_moment=tuple(args.rnn_dim_moment),
+            dropout=args.dropout)
 
     names = ("train", "valid", "test")
-    if not (args.no_pipeline or args.small_sample):
+    use_pipeline = not (args.no_pipeline or args.small_sample)
+    if use_pipeline:
         # shapes from the npz headers at t≈0: the route's kernels build and
         # plan on a worker thread under the decode and transfer
         shapes = probe_split_shapes(args.data_dir)
@@ -123,14 +234,15 @@ def main(argv=None):
             res = StartupPipeline(
                 args.data_dir, bf16_wire=bf16_wire, device=device,
                 events=events, shapes=shapes,
-                compile_fn=trainer_precompile_fn(cfg, exec_cfg),
+                compile_fn=trainer_precompile_fn(cfg, exec_cfg, events),
             ).start().result()
         train_ds, valid_ds, test_ds = res.datasets
         batches = dict(zip(names, res.batches))
         cache_hits = res.cache_hits
-        print(f"Loaded through the startup pipeline: panel cache "
-              f"{sum(cache_hits.values())}/{len(cache_hits)} split hits, "
-              f"{'bf16' if bf16_wire else 'f32'} wire", flush=True)
+        programs = res.compiled["programs"]
+        logger.info(f"Loaded through the startup pipeline: panel cache "
+                    f"{sum(cache_hits.values())}/{len(cache_hits)} split "
+                    f"hits, {'bf16' if bf16_wire else 'f32'} wire")
     else:
         bf16_wire, cache_hits = False, None
         with events.span("data/load"):
@@ -140,8 +252,8 @@ def main(argv=None):
                 train_ds, valid_ds, test_ds = load_splits_cached(
                     args.data_dir, events=events)
         if args.small_sample:
-            print(f"Using small sample: {args.n_periods} periods, "
-                  f"{args.n_stocks} stocks", flush=True)
+            logger.info(f"Using small sample: {args.n_periods} periods, "
+                        f"{args.n_stocks} stocks")
             train_ds = train_ds.subsample(args.n_periods, args.n_stocks)
             valid_ds = valid_ds.subsample(min(args.n_periods, valid_ds.T),
                                           args.n_stocks)
@@ -160,38 +272,86 @@ def main(argv=None):
                 batches = {name: device_put_batch(
                     ds.full_batch(), device=device, bf16_wire=bf16_wire)
                     for name, ds in zip(names, (train_ds, valid_ds, test_ds))}
-    print(f"Device: {device}; kernel {exec_cfg.kernel}, compute dtype "
-          f"{exec_cfg.compute_dtype}", flush=True)
-    print(f"  Train: {train_ds.T} x {train_ds.N} | Valid: {valid_ds.T} x "
-          f"{valid_ds.N} | Test: {test_ds.T} x {test_ds.N}", flush=True)
+        # the route's launch plans, as the pipeline works them out
+        programs = trainer_precompile_fn(cfg, exec_cfg, events)({
+            name: {"returns": tuple(b["returns"].shape),
+                   **({"macro": tuple(b["macro"].shape)}
+                      if "macro" in b else {})}
+            for name, b in batches.items()})["programs"]
+    logger.info(f"Device: {device}; kernel {exec_cfg.kernel}, compute dtype "
+                f"{exec_cfg.compute_dtype}")
+    logger.info(f"  Train: {train_ds.T} x {train_ds.N} | Valid: {valid_ds.T}"
+                f" x {valid_ds.N} | Test: {test_ds.T} x {test_ds.N}")
+    # the manifest: the run dir is self-describing from here on, whatever
+    # happens to the training that follows
+    write_manifest(save_dir, "train", events=events, config=cfg, tcfg=tcfg,
+                   seed=args.seed, data_dir=args.data_dir, argv=argv,
+                   extra={"resume": bool(args.resume),
+                          "startup_pipeline": use_pipeline,
+                          "diag_stride": args.diag_stride})
     # the train panel's drift profile: what later panels and promotion
     # candidates are scored against; written before training, so even a
     # crashed run leaves it
-    write_profile(save_dir, reference_profile(train_ds.full_batch(),
-                                              source=str(args.data_dir)))
+    with events.span("health/reference_profile"):
+        write_profile(save_dir, reference_profile(
+            train_ds.full_batch(), source=str(args.data_dir)))
+    update_manifest(save_dir, reference_profile=PROFILE_FILENAME,
+                    kernel_programs=programs)
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        profile_ctx = profile(activities=acts)
     t0 = time.time()
-    gan, _, _, trainer = train_3phase(
-        cfg, batches["train"], batches["valid"], batches["test"], tcfg=tcfg,
-        save_dir=str(save_dir), seed=args.seed, exec_cfg=exec_cfg,
-        diag_stride=args.diag_stride)
+    with profile_ctx as prof:
+        _, _, _, trainer = train_3phase(
+            cfg, batches["train"], batches["valid"], batches["test"],
+            tcfg=tcfg, save_dir=str(save_dir), seed=args.seed,
+            exec_cfg=exec_cfg, diag_stride=args.diag_stride,
+            resume=args.resume, checkpoint_every=args.checkpoint_every,
+            stop_after_epochs=args.stop_after_epochs, events=events,
+            heartbeat=hb, divergence_guard=args.divergence_guard,
+            guard_max_trips=args.guard_max_trips)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     wall = time.time() - t0
-    print("\nBest Model Performance (normalized weights):", flush=True)
+    if args.profile:
+        trace_dir = Path(args.profile)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_dir / "trace.json"))
+        # claim a trace only where one was written
+        if profile_trace_nonempty(trace_dir):
+            logger.info(f"Profiler trace written to {trace_dir}")
+        else:
+            logger.warning(f"--profile: no trace files found under "
+                           f"{trace_dir}", trace_dir=str(trace_dir))
+    if trainer.stopped_midphase:
+        # the running params are no best-model selection, and a
+        # final_metrics.json would clobber a previous complete run's
+        logger.info(f"\nStopped mid-phase after {wall:.1f}s; resumable "
+                    f"state saved in {save_dir} — continue with --resume")
+        # a planned stop, not a death in the last beat's phase
+        hb.beat("stopped")
+        return
+    logger.info("\nBest Model Performance (normalized weights):")
     results = {}
     for name, b in batches.items():
-        m = trainer.final_eval(b)
+        with events.span(f"eval/{name}"):
+            m = trainer.final_eval(b)
         results[name] = m
-        print(f"  {name:5s} - Sharpe: {m['sharpe']:7.3f}, MaxDD: "
-              f"{m['max_drawdown']:7.2%}", flush=True)
+        logger.info(f"  {name:5s} - Sharpe: {m['sharpe']:7.3f}, MaxDD: "
+                    f"{m['max_drawdown']:7.2%}")
     (save_dir / "final_metrics.json").write_text(json.dumps(
-        {**results, "wall_clock_s": wall,
-         "phase_execute_seconds": trainer.phase_seconds,
-         "epoch_ms": trainer.epoch_ms(), "device": str(device),
-         "startup": {"pipeline": not (args.no_pipeline or args.small_sample),
-                     "bf16_wire": bf16_wire, "cache_hits": cache_hits}},
+        {**results, "wall_clock_s": wall, **trainer.timings(),
+         "device": str(device),
+         "startup": {"pipeline": use_pipeline, "bf16_wire": bf16_wire,
+                     "cache_hits": cache_hits}},
         indent=2))
-    events.close()
-    print(f"\nTotal wall-clock: {wall:.1f}s — checkpoints in {save_dir}",
-          flush=True)
+    logger.info(f"\nTotal wall-clock: {wall:.1f}s — checkpoints in "
+                f"{save_dir}")
 
 
 if __name__ == "__main__":

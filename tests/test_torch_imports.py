@@ -75,8 +75,10 @@ STDLIB_ONLY = [
     "observability/events.py", "observability/metrics.py",
     "observability/tracecontext.py", "observability/heartbeat.py",
     "observability/manifest.py", "observability/report.py",
-    "reliability/faults.py", "serving/batcher.py", "serving/flight.py",
-    "data/download.py",
+    "observability/logging.py", "observability/memory.py",
+    "observability/programs.py",
+    "reliability/faults.py", "reliability/guard.py", "serving/batcher.py",
+    "serving/flight.py", "data/download.py",
 ]
 # modules whose top level is numpy and the stdlib only
 NUMPY_ONLY = ["data/diskcache.py", "data/native.py"]

@@ -274,3 +274,216 @@ def test_injected_flush_raise_fails_only_that_flush(monkeypatch):
     finally:
         monkeypatch.delenv(p_faults.ENV_PLAN)
         p_faults.reset_injector()
+
+
+# -- the train CLI's telemetry: the run logger, memory, the sidecar, plans ----
+
+_IDENTITY = {"run_id", "process_index", "tid", "seq", "ts", "mono"}
+
+
+def _rows(path):
+    return [{k: v for k, v in json.loads(x).items() if k not in _IDENTITY}
+            for x in path.read_text().splitlines()]
+
+
+@pytest.mark.parametrize("rank", ["0", "1"])
+def test_run_logger_agrees_with_jax(tmp_path, capsys, monkeypatch, rank):
+    """The same calls print the same lines (process 0 only) and mirror the
+    same log rows into every process's events file."""
+    from deeplearninginassetpricing_paperreplication_torch.observability import (
+        logging as p_logging,
+    )
+    from deeplearninginassetpricing_paperreplication_tpu.observability import (
+        events as j_events,
+    )
+    from deeplearninginassetpricing_paperreplication_tpu.observability import (
+        logging as j_logging,
+    )
+
+    monkeypatch.setenv("RANK", rank)
+    out = {}
+    for name, ev_mod, log_mod in (("torch", p_events, p_logging),
+                                  ("jax", j_events, j_logging)):
+        events = ev_mod.EventLog(tmp_path / name, process_index=int(rank))
+        logger = log_mod.RunLogger(events=events, verbose=True)
+        logger.info("phase 1 done", step=3)
+        logger.info("quiet", verbose=False)
+        logger.warning("guard trip", phase="phase1_unconditional")
+        quiet = log_mod.RunLogger(events=events, verbose=False)
+        quiet.info("not printed")
+        events.close()
+        cap = capsys.readouterr()
+        out[name] = (cap.out, cap.err, _rows(events.path))
+    assert out["torch"] == out["jax"]
+    printed = out["torch"][0].splitlines()
+    assert printed == (["phase 1 done"] if rank == "0" else [])
+    assert [r["message"] for r in out["torch"][2]] == [
+        "phase 1 done", "quiet", "guard trip", "not printed"]
+
+
+def test_active_run_logger_is_set_once():
+    from deeplearninginassetpricing_paperreplication_torch.observability import (
+        logging as p_logging,
+    )
+
+    before = p_logging.get_run_logger()
+    try:
+        mine = p_logging.RunLogger()
+        assert p_logging.set_run_logger(mine) is mine
+        assert p_logging.get_run_logger() is mine
+    finally:
+        p_logging.set_run_logger(before)
+
+
+def test_memory_snapshot_has_the_jax_shape_on_the_cpu(tmp_path):
+    """No CUDA context in this process: no devices, the JAX keys; a beat
+    with memory=True adds the state's device_memory and a memory event, as
+    the JAX heartbeat does."""
+    from deeplearninginassetpricing_paperreplication_torch.observability import (
+        memory as p_memory,
+    )
+    from deeplearninginassetpricing_paperreplication_tpu.observability import (
+        events as j_events,
+    )
+    from deeplearninginassetpricing_paperreplication_tpu.observability import (
+        memory as j_memory,
+    )
+
+    snap = p_memory.device_memory_snapshot()
+    assert snap == {"n_devices": 0, "totals": {}, "per_device": []}
+    assert set(snap) == set(j_memory.device_memory_snapshot())
+    states = {}
+    for name, ev_mod, hb_mod in (("torch", p_events, p_heartbeat),
+                                 ("jax", j_events, j_heartbeat)):
+        events = ev_mod.EventLog(tmp_path / name)
+        hb_mod.Heartbeat(tmp_path / name / "hb.json", events=events).beat(
+            "phase1_unconditional", memory=True)
+        events.close()
+        states[name] = json.loads((tmp_path / name / "hb.json").read_text())
+        kinds = [r["kind"] for r in _rows(events.path)]
+        assert kinds == ["memory", "heartbeat"], name
+    assert set(states["torch"]) == set(states["jax"]) == {
+        "heartbeat", "device_memory"}
+    assert set(states["torch"]["device_memory"]) == set(
+        states["jax"]["device_memory"]) == {"n_devices", "totals"}
+
+
+def test_memory_aggregation_rule():
+    """Counts sum over devices; peak, largest and limit take the max."""
+    from deeplearninginassetpricing_paperreplication_torch.observability import (
+        memory as p_memory,
+    )
+
+    class Cuda:
+        def is_initialized(self):
+            return True
+
+        def device_count(self):
+            return 2
+
+        def memory_stats(self, d):
+            return {"allocated_bytes.all.current": 10 * (d + 1),
+                    "allocated_bytes.all.peak": 100 * (d + 1),
+                    "allocated_bytes.small_pool.current": 5,
+                    "num_alloc_retries": d,
+                    "reserved_bytes.all.peak": 50 - d}
+
+        def get_device_properties(self, d):
+            return type("P", (), {"total_memory": 1000})()
+
+    fake = type("Torch", (), {"cuda": Cuda()})()
+    import sys
+
+    real = sys.modules["torch"]
+    sys.modules["torch"] = fake
+    try:
+        snap = p_memory.device_memory_snapshot()
+    finally:
+        sys.modules["torch"] = real
+    assert snap["n_devices"] == 2 and len(snap["per_device"]) == 2
+    t = snap["totals"]
+    assert t["allocated_bytes.all.current"] == 30 == t["bytes_in_use"]
+    assert t["allocated_bytes.all.peak"] == 200 == t["peak_bytes_in_use"]
+    assert t["num_alloc_retries"] == 1 and t["reserved_bytes.all.peak"] == 50
+    assert t["bytes_limit"] == 1000
+    assert "allocated_bytes.small_pool.current" not in t
+
+
+def test_metrics_sidecar_scrapes(tmp_path):
+    import urllib.error
+    import urllib.request
+
+    events = p_events.EventLog(tmp_path)
+    events.counter("epochs_dispatched", value=4, phase="phase1_unconditional")
+    events.counter("guard/trip", phase="phase1_unconditional")
+    sidecar = p_metrics.MetricsSidecar([events.metrics], port=0)
+    port = sidecar.start()
+    try:
+        assert port > 0
+        url = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            assert r.headers["Content-Type"] == p_metrics.PROM_CONTENT_TYPE
+            prom = p_metrics.parse_prom_text(r.read().decode())
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            assert json.loads(r.read()) == {"ok": True}
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(url + "/v1/reload", timeout=10)
+        assert e.value.code == 404
+    finally:
+        sidecar.stop()
+        events.close()
+    key = (("phase", "phase1_unconditional"),)
+    assert prom["dlap_epochs_dispatched_total"][key] == 4
+    assert prom["dlap_guard_trip_total"][key] == 1
+    assert "dlap_process_uptime_seconds" in prom or any(
+        k.startswith("dlap_process") for k in prom)
+
+
+@pytest.mark.parametrize("exemplars", [True, False])
+def test_parse_prom_text_round_trips(exemplars):
+    """The registry's text parses back to its values, in both packages."""
+    reg = p_metrics.MetricsRegistry()
+    jreg = j_metrics.MetricsRegistry()
+    for kind, name, row in FEED:
+        p_metrics.feed_event(reg, kind, name, dict(row))
+        j_metrics.feed_event(jreg, kind, name, dict(row))
+    text = reg.render_prom(exemplars=exemplars)
+    parsed = p_metrics.parse_prom_text(text)
+    assert parsed == j_metrics.parse_prom_text(text)
+    again = "".join(
+        f"{n}{{{','.join(f'{k}={chr(34)}{v}{chr(34)}' for k, v in lab)}}} "
+        f"{val!r}\n" if lab else f"{n} {val!r}\n"
+        for n, series in parsed.items() for lab, val in series.items())
+    assert p_metrics.parse_prom_text(again) == parsed
+    assert sum(parsed["dlap_serve_requests_total"].values()) == 3
+
+
+def test_program_records_fold_into_the_manifest(tmp_path):
+    """record_program emits a program row carrying the record it collects;
+    a plan dataclass becomes plain JSON."""
+    from deeplearninginassetpricing_paperreplication_torch.observability import (
+        programs,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        cond_em,
+        sdf_ffn,
+    )
+
+    lay = sdf_ffn.ffn_layout(46, (64, 64))
+    fwd = sdf_ffn.fwd_plan(lay, 132, 1, 48, 10000, "bfloat16")
+    cem = cond_em.cem_plan(1, 48, 10000, 46, 8, 132, "bfloat16").fwd
+    events = p_events.EventLog(tmp_path)
+    collected = {}
+    held = {"blocks_per_sm": 2, "registers": 96, "local_bytes": 0}
+    programs.record_program(events, "sdf_ffn_fwd/train", fwd, held,
+                            collected, S=1, T=48, N=10000)
+    programs.record_program(events, "cond_em_fwd/train", cem, held,
+                            collected, S=1, T=48, N=10000)
+    events.close()
+    rows = [json.loads(x) for x in events.path.read_text().splitlines()]
+    assert {r["name"]: r["analysis"] for r in rows
+            if r["kind"] == "program"} == collected
+    rec = json.loads(json.dumps(collected))["cond_em_fwd/train"]
+    assert rec["plan"]["grid"] == list(cem.grid)
+    assert rec["held"] == held and rec["T"] == 48
+    assert collected["sdf_ffn_fwd/train"]["plan"]["tile"] == fwd.tile

@@ -171,7 +171,8 @@ def test_trainer_precompile_fn_on_the_plain_route(synthetic_dir):
     for ec in (ExecutionConfig(device="cpu"),
                ExecutionConfig(device="cpu", kernel="off")):
         out = ppipe.trainer_precompile_fn(cfg, ec)(shapes)
-        assert out == {"device": "cpu", "libraries": [], "plans": 0}
+        assert out == {"device": "cpu", "libraries": [], "plans": 0,
+                       "programs": {}}
 
 
 def test_spans_and_counters(synthetic_dir, cache_dir, tmp_path):

@@ -413,3 +413,58 @@ def test_one_pointer_file_is_read_by_both_packages(tmp_path, panel):
     # the torch checkpoint bytes are what the pointer's digests name
     data = Path(v1[0], "best_model_sharpe.pt").read_bytes()
     assert torch.load(io.BytesIO(data), weights_only=True)
+
+
+# -- the gate's counters in the events log ------------------------------------
+
+
+def _counters(run_dir):
+    drop = {"schema", "kind", "name", "run_id", "process_index", "tid",
+            "seq", "ts", "mono", "value"}
+    return [(r["name"], {k: v for k, v in r.items() if k not in drop})
+            for r in map(json.loads, (run_dir / "events.jsonl").read_text()
+                         .splitlines()) if r["kind"] == "counter"]
+
+
+def test_gate_counters_carry_the_jax_names_and_attributes(tmp_path, panel):
+    """promote/advance, promote/reject and promote/rollback with the JAX
+    package's attributes. A rejection before any member loads, and a
+    rollback of one pointer file, are counted by both packages alike."""
+    from deeplearninginassetpricing_paperreplication_torch.observability.events import (
+        EventLog,
+    )
+    from deeplearninginassetpricing_paperreplication_tpu.observability.events import (
+        EventLog as JEventLog,
+    )
+
+    ctl = tmp_path / "ctl"
+    cfg = _cfg()
+    ev = EventLog(tmp_path / "ev")
+    p1 = _promote(ctl, _members(tmp_path / "v1", cfg, (1,)),
+                  valid_batch=panel, source="v1", events=ev)
+    _promote(ctl, _members(tmp_path / "v2", cfg, (2,)), valid_batch=panel,
+             source="v2", sharpe_tolerance=None, events=ev)
+    with pytest.raises(promotion.GateRejection):
+        _promote(ctl, [], source="none", events=ev)
+    back = promotion.rollback(ctl, reason="drill", events=ev)
+    ev.close()
+    got = _counters(tmp_path / "ev")
+    assert [n for n, _ in got] == ["promote/advance", "promote/advance",
+                                   "promote/reject", "promote/rollback"]
+    assert got[0][1] == {"generation": 1, "source": "v1",
+                         "fingerprint": p1["params_fingerprint"][:16],
+                         "sharpe": p1["valid_sharpe"]}
+    assert got[2][1] == {"reason": "missing_member", "source": "none"}
+    assert got[3][1] == {"generation": 3, "rolled_back_from": 2,
+                         "fingerprint": back["params_fingerprint"][:16],
+                         "reason": "drill"}
+    # the JAX gate on the same pointer file and the same empty candidate
+    jev = JEventLog(tmp_path / "jev")
+    with pytest.raises(jpromotion.GateRejection):
+        jpromotion.promote(ctl, [], source="none", events=jev)
+    jpromotion.rollback(ctl, reason="drill", events=jev)
+    jev.close()
+    want = _counters(tmp_path / "jev")
+    assert want[0] == got[2]
+    assert want[1][0] == "promote/rollback"
+    assert set(want[1][1]) == set(got[3][1])

@@ -136,11 +136,23 @@ def test_truncate_file_keeps_the_bytes_asked_for(rel, tmp_path):
 
 @pytest.mark.parametrize("action", ["hang", "nan_loss"])
 def test_port_refuses_the_supervisor_actions(action):
-    """hang and nan_loss serve the JAX package's supervisor and training
-    loop, which the port does not have: a plan naming them is refused."""
+    """hang serves the JAX package's supervisor, which the port does not
+    have yet: a plan naming it is refused. nan_loss serves the training
+    loop's divergence guard, which the port now has: the plan is accepted
+    and the hit returns the token, as the JAX injector's does."""
     faults = _mods("torch")[0]
-    with pytest.raises(faults.FaultPlanError, match="unknown action"):
-        faults.FaultInjector([{"site": "sweep/bucket", "action": action}])
+    plan = [{"site": "trainer/epoch_loop", "action": action}]
+    if action == "hang":
+        with pytest.raises(faults.FaultPlanError, match="unknown action"):
+            faults.FaultInjector(plan)
+        return
+    jfaults = _mods("jax")[0]
+    for mod in (faults, jfaults):
+        inj = mod.FaultInjector(plan)
+        assert inj.fire("trainer/epoch_loop", phase="p",
+                        epochs_done=2) == "nan_loss"
+        assert inj.fire("trainer/epoch_loop", phase="p",
+                        epochs_done=4) is None
 
 
 def test_env_plan_reaches_the_module_singleton(rel, monkeypatch):
