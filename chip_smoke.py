@@ -49,6 +49,10 @@
     python3 chip_smoke.py --only_ops  # the training kernels' libraries
                                       # and phase 12 alone (no result
                                       # line)
+    python3 chip_smoke.py --only_elastic
+                                      # the training kernels' libraries,
+                                      # phase 9's grid in process, then
+                                      # phase 13 alone (no result line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -210,6 +214,25 @@ Phases, each printing its results; any failure exits non-zero:
    the FFN and conditional-EM kernels; then a ``kill`` plan at the third
    segment (the child dies by SIGKILL) and ``--resume``: ``history.npz``
    and ``final_model.pt`` bit for bit the first run's.
+13. The supervisor and the elastic sweep, after phase 12 on phase 6's
+   panel (run dirs in ``_smoke_elastic/``, removed after): (a) the train
+   CLI under ``supervise`` with a ``kill`` plan at the third segment,
+   (b) with a ``hang`` plan at phase 1's boundary in f32 and bf16 (a
+   heartbeat timeout of ``SUP_TIMEOUT``), side by side with two clean
+   runs: one restart each with ``--resume``, the hang SIGKILLed and
+   attributed to ``phase1_unconditional``, ``history.npz`` and
+   ``final_model.pt`` bit for bit the clean run of the same dtype;
+   (c) a supervised ``--workers 2`` fleet (the sweep CLI's coordinator
+   over ``--worker`` processes) on phase 9's four buckets × four lrs,
+   f32, with kills at ``sweep/claim`` #1, ``sweep/bucket`` #2 and
+   ``sweep/ledger_write`` #2: the ranking byte-identical to phase 9's,
+   one record per bucket naming its worker, three restarts, each
+   worker's manifest on the CUDA route and every bucket's kernel plans
+   in the workers' events; (d) a persistent ``raise`` on B2 with
+   ``--max_bucket_attempts`` 2: coverage 0.75 and the other entries bit
+   for bit phase 9's. Launches of these paths (``supervised_train``,
+   ``elastic_sweep``) are counted in the child processes that exit
+   normally (``DLAP_LAUNCH_COUNTS``).
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -3211,7 +3234,8 @@ def sweep_checks(torch, K, C, card, splits):
     f32, a ledger): every pass of a bucket one launch per kernel for all
     four grid points; B2 on the kernel route against kernel="off"; B1's
     lr 2e-3 point against a one-point bucket; a resume from the ledger that
-    launches nothing and returns the same ranking bit for bit."""
+    launches nothing and returns the same ranking bit for bit. Returns the
+    search's launches by kernel and its ranking (phase 13's reference)."""
     from deeplearninginassetpricing_paperreplication_torch.parallel import (
         ensemble as ens_mod,
     )
@@ -3406,7 +3430,7 @@ def sweep_checks(torch, K, C, card, splits):
     print(f"[sweep] resume from the ledger: {again_stats['ledger_hits']} "
           f"hits, 0 launches, the ranking of {len(again)} points equal bit "
           f"for bit, in {resume_s:.3f} s", flush=True)
-    return launches
+    return launches, ranked
 
 
 def sweep_cli_check(torch, card):
@@ -4613,6 +4637,405 @@ def ops_plane_phase(torch, K, C, card, splits):
     return dict(launches=dict(zip(TRAIN_KERNELS, launches)), walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# 13. the supervisor and the elastic sweep
+# ---------------------------------------------------------------------------
+
+ELASTIC_DIR = ROOT / "_smoke_elastic"
+# the supervised train CLI: phase 12's arguments; a hung child is killed
+# after this many seconds without a heartbeat (a healthy one beats at its
+# start and at every segment of 4 epochs)
+SUP_TIMEOUT = 30.0
+SUP_FLAGS = ["--poll", "0.25", "--backoff", "0.5", "--jitter", "0",
+             "--min_uptime", "1"]
+# the fleet: two workers, leases of a few seconds, a bucket attempt budget
+# that outlasts three kills landing on one bucket
+FLEET_FLAGS = ["--workers", "2", "--lease_timeout", "5",
+               "--worker_heartbeat_timeout", "120", "--worker_min_uptime",
+               "1", "--worker_backoff", "0.5", "--worker_max_restarts", "8",
+               "--retry_backoff", "0.5"]
+FLEET_KILLS = [
+    {"site": "sweep/claim", "action": "kill", "trigger_count": 1},
+    {"site": "sweep/bucket", "action": "kill", "trigger_count": 2},
+    {"site": "sweep/ledger_write", "action": "kill", "trigger_count": 2},
+]
+
+
+def _launch_rows(path):
+    """The launch counts the processes that exited normally appended to
+    `path` (``ops.ENV_LAUNCH_COUNTS``): one row each."""
+    if not path.exists():
+        return []
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def _sum_launches(rows):
+    return {k: sum(r[k] for r in rows) for k in TRAIN_KERNELS}
+
+
+def _events(run_dir, pattern="events*.jsonl"):
+    rows = []
+    for p in sorted(Path(run_dir).glob(pattern)):
+        for line in p.read_text().splitlines():
+            try:
+                rows.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass  # a SIGKILLed writer's torn last row
+    return rows
+
+
+def _count(rows, name):
+    return sum(int(r.get("value", 1)) for r in rows
+               if r.get("kind") == "counter" and r.get("name") == name)
+
+
+def _same_cli_run(a, b, what):
+    ha, hb = np.load(a / "history.npz"), np.load(b / "history.npz")
+    check(set(ha.files) == set(hb.files)
+          and all(np.array_equal(ha[k], hb[k]) for k in ha.files),
+          f"{what}: history.npz differs from the clean run's")
+    check((a / "final_model.pt").read_bytes()
+          == (b / "final_model.pt").read_bytes(),
+          f"{what}: final_model.pt differs from the clean run's")
+
+
+def supervised_train_checks(torch, card):
+    """(a) a kill at the third segment and (b) a hang at phase 1's boundary
+    (f32 and bf16), each under ``supervise``; the five train CLI processes
+    (two clean, three supervised) run side by side. Returns the supervised
+    children's launches (the ``supervised_train`` path) and the walls."""
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        ENV_LAUNCH_COUNTS,
+    )
+
+    train = [sys.executable, "-m", f"{PKG}.train", "--data_dir",
+             str(DATA_DIR), "--epochs_unc", str(SCHEDULE["num_epochs_unc"]),
+             "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
+             "--epochs", str(SCHEDULE["num_epochs"]), "--ignore_epoch",
+             str(SCHEDULE["ignore_epoch"]), "--print_freq", "8", "--device",
+             DEVICE, "--checkpoint_every", str(OPS_CHECKPOINT_EVERY)]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DLAP_FAULT_")}
+    hang = [{"site": "trainer/phase_boundary", "trigger_count": 1,
+             "action": "hang"}]
+    runs = {
+        "clean_bfloat16": (None, "bfloat16"),
+        "clean_float32": (None, "float32"),
+        "kill_bfloat16": ([{"site": "trainer/epoch_loop", "trigger_count": 3,
+                            "action": "kill"}], "bfloat16"),
+        "hang_float32": (hang, "float32"),
+        "hang_bfloat16": (hang, "bfloat16"),
+    }
+    procs, t0 = {}, time.perf_counter()
+    for name, (plan, dtype) in runs.items():
+        save = ELASTIC_DIR / name
+        cmd = train + ["--compute_dtype", dtype, "--save_dir", str(save)]
+        e = dict(env, **{ENV_LAUNCH_COUNTS: str(ELASTIC_DIR
+                                                / f"launches.{name}.jsonl")})
+        if plan is not None:
+            e["DLAP_FAULT_PLAN"] = json.dumps(plan)
+            cmd = [sys.executable, "-m", f"{PKG}.supervise", "--run_dir",
+                   str(save), "--timeout", str(SUP_TIMEOUT)] + SUP_FLAGS + [
+                "--"] + cmd
+        with open(ELASTIC_DIR / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=e, stdout=log,
+                                           stderr=subprocess.STDOUT)
+    walls = {}
+    while len(walls) < len(procs) and time.perf_counter() - t0 < 600:
+        for name, proc in procs.items():
+            if name not in walls and proc.poll() is not None:
+                walls[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    outs = {}
+    for name, proc in procs.items():
+        if proc.poll() is None:
+            # SIGTERM first: a supervisor then kills its child's group
+            proc.terminate()
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        outs[name] = (ELASTIC_DIR / f"{name}.log").read_text()
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}:\n"
+                                    + outs[name][-3000:])
+    summaries = {}
+    for name, (plan, dtype) in runs.items():
+        save = ELASTIC_DIR / name
+        if plan is None:
+            continue
+        summary = json.loads(outs[name].strip().splitlines()[-1])
+        summaries[name] = summary
+        _same_cli_run(ELASTIC_DIR / f"clean_{dtype}", save,
+                      f"supervised {name}")
+        rows = _events(save, "events.supervisor.jsonl")
+        children = [r for r in rows if r.get("kind") == "span_begin"
+                    and r.get("name") == "supervise/child"]
+        check(summary["outcome"] == "success" and summary["restarts"] == 1
+              and _count(rows, "supervise/restart") == 1
+              and [(c["attempt"], c["resumed"]) for c in children]
+              == [(1, False), (2, True)],
+              f"{name}: {summary}; children {children}")
+        argv = json.loads((save / "manifest.json").read_text())["argv"]
+        check("--resume" in argv, f"{name}: the restart ran {argv}")
+        death = summary["deaths"][0]
+        if plan[0]["action"] == "kill":
+            check(death["rc"] == -9 and not death["hang"],
+                  f"{name}: death {death}")
+        else:
+            check(death["hang"] and death["rc"] == -9
+                  and summary["hang_kills"] == 1
+                  and death["section"] == "phase1_unconditional",
+                  f"{name}: the hang was not SIGKILLed and attributed to "
+                  f"phase1_unconditional: {death}")
+        faults = _events(save, "events.faults.jsonl")
+        check(len(faults) == 1, f"{name}: fault rows {faults}")
+        check(not list(save.glob("resume_*")), f"{name}: resume files left")
+        print(f"[elastic train] {name}: {plan[0]['action']} at "
+              f"{plan[0]['site']} #{plan[0]['trigger_count']}; death in "
+              f"{death['section']} (rc {death['rc']}, hang {death['hang']}, "
+              f"after {death['uptime_s']} s), restarts {summary['restarts']},"
+              f" the restart with --resume; history.npz and final_model.pt "
+              f"bit for bit clean_{dtype}; {walls[name]:.1f} s ({card})",
+              flush=True)
+    rows = [r for name in summaries
+            for r in _launch_rows(ELASTIC_DIR / f"launches.{name}.jsonl")]
+    check(len(rows) == len(summaries), f"launch rows {rows}: not one per "
+                                       "supervised run's restarted child")
+    launches = _sum_launches(rows)
+    for name, n in launches.items():
+        check(n > 0, f"the supervised train CLI launched {name} no time")
+    print(f"[elastic train] launches of the restarted children (the "
+          f"processes that exited normally; the killed first children's "
+          f"are lost with them): {launches}; walls "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f" ({card})", flush=True)
+    return launches, dict(walls=walls, restarts={
+        k: v["restarts"] for k, v in summaries.items()})
+
+
+def _ranking_rows(ranked):
+    return [(r["config"].to_dict(), r["lr"], r["seed"], r["valid_sharpe"])
+            for r in ranked]
+
+
+def elastic_sweep_checks(torch, card, splits, ref_ranked):
+    """(c) the fleet over phase 9's covering grid with the three kills,
+    (d) the poison bucket, each through the sweep CLI's coordinator
+    (``_prepare_queue``, ``_elastic_search``) and ``--worker``
+    subprocesses. Returns the surviving workers' launches (the
+    ``elastic_sweep`` path) and the walls."""
+    from deeplearninginassetpricing_paperreplication_torch import (
+        sweep as cli,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .events import EventLog
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .heartbeat import Heartbeat
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .logging import RunLogger
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        ENV_LAUNCH_COUNTS,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train = splits[0]
+    base = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                     individual_feature_dim=train.individual_feature_dim)
+    cfgs = [dataclasses.replace(base, hidden_dim=h, num_units_rnn=r,
+                                num_condition_moment=k, dropout=d)
+            for h, r, k, d in SWEEP_BUCKETS]
+    configs = [(c, lr) for c in cfgs for lr in SWEEP_LRS]
+    tcfg = TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6)
+    exec_cfg = ExecutionConfig(compute_dtype="float32", device=DEVICE)
+    ref_dir = ELASTIC_DIR / "phase9"
+    ref_bytes = cli.write_ranking(ref_dir, ref_ranked).read_bytes()
+
+    def fleet(name, plan, attempts):
+        save = ELASTIC_DIR / name
+        args = cli.build_arg_parser().parse_args(
+            ["--data_dir", str(DATA_DIR), "--save_dir", str(save),
+             "--search_seeds", str(SWEEP_SEED), "--device", DEVICE,
+             "--compute_dtype", "float32", "--max_bucket_attempts",
+             str(attempts)] + FLEET_FLAGS)
+        events = EventLog(save)
+        hb = Heartbeat(save / "heartbeat.json", events=events)
+        logger = RunLogger(events=events)
+        os.environ[ENV_LAUNCH_COUNTS] = str(save / "launches.jsonl")
+        _fault_plan(plan)
+        t0 = time.perf_counter()
+        try:
+            _, queue = cli._prepare_queue(args, configs, tcfg, save, events,
+                                          logger, False, exec_cfg)
+            ranked, coverage, summaries = cli._elastic_search(
+                args, queue, save, events, hb, logger)
+            cli.write_ranking(save, ranked, coverage)
+        finally:
+            os.environ.pop(ENV_LAUNCH_COUNTS, None)
+            _fault_plan(None)
+            events.close()
+        wall = time.perf_counter() - t0
+        recs = {r["key"]: r for r in
+                (json.loads(p.read_text()) for p in
+                 (save / "sweep_ledger" / "records").glob("*.json"))}
+        items = queue.items()
+        bucket_walls = [recs[it["key"]]["seconds"] if it["key"] in recs
+                        else None for it in items]
+        restarts = {w: s["restarts"] for w, s in summaries.items()}
+        return save, ranked, coverage, recs, items, dict(
+            wall=wall, bucket_walls=bucket_walls, restarts=restarts)
+
+    # (c) three kills, counted fleet-wide
+    save, ranked, coverage, recs, items, c_walls = fleet("fleet",
+                                                         FLEET_KILLS, 6)
+    check((save / "sweep_ranking.json").read_bytes() == ref_bytes,
+          "the supervised 2-worker sweep's ranking differs from phase 9's "
+          "in-process ranking")
+    faults = _events(save, "events.faults.jsonl")
+    check(sorted((r["site"], r["action"]) for r in faults)
+          == sorted((p["site"], p["action"]) for p in FLEET_KILLS),
+          f"fired faults {faults}")
+    rows = _events(save)
+    check(coverage["complete"] and len(recs) == len(cfgs)
+          and _count(rows, "sweep/ledger_write") == len(cfgs),
+          f"coverage {coverage}; {len(recs)} records; ledger writes "
+          f"{_count(rows, 'sweep/ledger_write')} (a completed bucket "
+          "retrained?)")
+    check(all(r["worker"] in ("w0", "w1") and r["execution"] == {
+        "compute_dtype": "float32", "kernel": "auto"} for r in recs.values()),
+        f"records' workers {[r['worker'] for r in recs.values()]}")
+    restarts = _count(rows, "supervise/restart")
+    check(restarts == len(FLEET_KILLS), f"{restarts} restarts for "
+                                        f"{len(FLEET_KILLS)} kills")
+    programs = {}
+    for wid in ("w0", "w1"):
+        m = json.loads((save / f"manifest.{wid}.json").read_text())
+        progs = m.get("kernel_programs") or {}
+        check(m["device"].startswith("cuda")
+              and m["execution"]["kernel"] == "auto"
+              and m.get("kernel_route") == "cuda"
+              and all(p["held"]["local_bytes"] == 0 for p in progs.values()),
+              f"{wid}'s manifest: device {m['device']}, execution "
+              f"{m['execution']}, route {m.get('kernel_route')}, programs "
+              f"{sorted(progs)}")
+        programs[wid] = sorted(progs)
+    planned = {r["name"].split("/")[0] for r in rows
+               if r.get("kind") == "program"}
+    check(planned == {f"bucket{i + 1}" for i in range(len(cfgs))}
+          and any(programs.values()),
+          f"buckets with kernel plans in the workers' events: {planned}; "
+          f"manifests {programs}")
+    launch_rows = _launch_rows(save / "launches.jsonl")
+    c_launches = _sum_launches(launch_rows)
+    print(f"[elastic sweep] (c) supervised --workers 2 over phase 9's "
+          f"{len(cfgs)} buckets x {len(SWEEP_LRS)} lrs (f32, 8/4/16), kills "
+          f"at sweep/claim #1, sweep/bucket #2, sweep/ledger_write #2: "
+          f"ranking byte-identical to phase 9's in-process ranking; "
+          f"{len(recs)} records, {_count(rows, 'sweep/ledger_write')} ledger"
+          f" writes (none retrained), workers "
+          f"{sorted(r['worker'] for r in recs.values())}; restarts "
+          f"{c_walls['restarts']}, takeovers "
+          f"{_count(rows, 'sweep/lease_takeover')}; wall "
+          f"{c_walls['wall']:.1f} s; bucket walls s "
+          f"{c_walls['bucket_walls']}; worker kernel plans "
+          f"{ {w: len(p) for w, p in programs.items()} }; launches of the "
+          f"{len(launch_rows)} workers that exited normally {c_launches} "
+          f"({card})", flush=True)
+
+    # (d) the poison bucket: B2 raises at every claim
+    poison = items[1]["key"]
+    save, ranked, coverage, recs, _, d_walls = fleet(
+        "poison", [{"site": "sweep/bucket", "action": "raise",
+                    "match": poison, "persistent": True}], 2)
+    check(not coverage["complete"] and coverage["coverage"] == 0.75
+          and [q["key"] for q in coverage["quarantined"]] == [poison]
+          and coverage["quarantined"][0]["attempts"] == 2
+          and coverage["missing"] == [],
+          f"poison coverage {coverage}")
+    saved = json.loads((save / "sweep_coverage.json").read_text())
+    check(saved == coverage, "sweep_coverage.json differs")
+    ref_rows = [r for r in _ranking_rows(ref_ranked)
+                if r[0] != cfgs[1].to_dict()]
+    check(_ranking_rows(ranked) == ref_rows,
+          "the degraded ranking's entries differ from phase 9's")
+    check(json.loads((save / "sweep_ranking.json").read_text())
+          == [dict(r, rank=i) for i, r in enumerate(
+              r for r in json.loads(ref_bytes)
+              if r["config"] != cfgs[1].to_dict())],
+          "the degraded sweep_ranking.json differs from phase 9's rows")
+    d_launches = _sum_launches(_launch_rows(save / "launches.jsonl"))
+    print(f"[elastic sweep] (d) poison B2 (persistent raise at "
+          f"sweep/bucket), --max_bucket_attempts 2: quarantined after "
+          f"{coverage['quarantined'][0]['attempts']} attempts, coverage "
+          f"{coverage['coverage']}, the other {len(recs)} buckets' entries "
+          f"bit for bit phase 9's; restarts {d_walls['restarts']}; wall "
+          f"{d_walls['wall']:.1f} s; bucket walls s "
+          f"{d_walls['bucket_walls']}; launches {d_launches} ({card})",
+          flush=True)
+    launches = {k: c_launches[k] + d_launches[k] for k in TRAIN_KERNELS}
+    for name, n in launches.items():
+        check(n > 0, f"the elastic sweep launched {name} no time")
+    return launches, dict(fleet=c_walls, poison=d_walls)
+
+
+def elastic_phase(torch, card, splits, ref_ranked):
+    """(13) The supervisor and the elastic sweep on phase 6's panel;
+    returns the two paths' launches by kernel."""
+    t0 = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    # the children import the package from this checkout, wherever the
+    # fleet's supervisors start them
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    try:
+        train_launches, train_walls = supervised_train_checks(torch, card)
+        sweep_launches, sweep_walls = elastic_sweep_checks(
+            torch, card, splits, ref_ranked)
+    finally:
+        _fault_plan(None)
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    print(f"[elastic] phase 13 done in {time.perf_counter() - t0:.1f} s; "
+          f"restarts: train {train_walls['restarts']}, fleet "
+          f"{sweep_walls['fleet']['restarts']}, poison "
+          f"{sweep_walls['poison']['restarts']} ({card})", flush=True)
+    return dict(supervised_train=train_launches,
+                elastic_sweep=sweep_launches)
+
+
+def elastic_reference(torch, splits):
+    """Phase 9's in-process ranking of the covering grid (f32, kernel on,
+    a scratch ledger), for ``--only_elastic``."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        sweep as sw,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .ledger import SweepLedger
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, _ = splits
+    base = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                     individual_feature_dim=train.individual_feature_dim)
+    configs = [(dataclasses.replace(base, hidden_dim=h, num_units_rnn=r,
+                                    num_condition_moment=k, dropout=d), lr)
+               for h, r, k, d in SWEEP_BUCKETS for lr in SWEEP_LRS]
+    t0 = time.perf_counter()
+    ranked = sw.run_sweep(
+        configs, [SWEEP_SEED], *(ds.to_batch(DEVICE) for ds in (train, valid)),
+        tcfg=TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6),
+        top_k=None, verbose=False, exec_cfg=ExecutionConfig(
+            kernel="on", compute_dtype="float32", device=DEVICE),
+        ledger=SweepLedger(SWEEP_DIR / "sweep_ledger"))
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    print(f"[elastic] phase 9's in-process ranking of the covering grid: "
+          f"{len(ranked)} points in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return ranked
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4676,6 +5099,13 @@ def main(argv=None) -> int:
                          "phase 6's panel (a short call while the guard, "
                          "resume or the train CLI's telemetry change); no "
                          "result line")
+    ap.add_argument("--only_elastic", action="store_true",
+                    help="build the training kernels' libraries only and run "
+                         "phase 13, the supervisor and the elastic sweep on "
+                         "phase 6's panel, against a fresh in-process run of "
+                         "phase 9's grid (a short call while the supervisor, "
+                         "the work queue or the sweep CLI change); no result "
+                         "line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -4731,7 +5161,7 @@ def run_phases(opts, torch) -> int:
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
     jobs = (K.build_jobs([64], kernels=("fwd", "bwd")) + C.build_jobs()
-            if opts.only_data or opts.only_ops
+            if opts.only_data or opts.only_ops or opts.only_elastic
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",))
@@ -4751,13 +5181,14 @@ def run_phases(opts, torch) -> int:
     sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
               else ("fwd",) if opts.only_fwd or opts.only_serve
               else () if (opts.only_cem or opts.only_ceiling
-                          or opts.only_data or opts.only_ops)
+                          or opts.only_data or opts.only_ops
+                          or opts.only_elastic)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
               else [] if (opts.only_bwd or opts.only_dx or opts.only_fwd
                           or opts.only_serve or opts.only_data
-                          or opts.only_ops)
+                          or opts.only_ops or opts.only_elastic)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -4769,6 +5200,17 @@ def run_phases(opts, torch) -> int:
         # the trainer's operational plane alone: phase 12 on phase 6's panel
         try:
             ops_plane_phase(torch, K, C, card, make_panel())
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+
+    if opts.only_elastic:
+        # the supervisor and the elastic sweep alone: phase 13 on phase 6's
+        # panel, held against a fresh in-process run of phase 9's grid
+        try:
+            splits = make_panel()
+            elastic_phase(torch, card, splits,
+                          elastic_reference(torch, splits))
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
@@ -4919,7 +5361,7 @@ def run_phases(opts, torch) -> int:
     # 9. sweep
     t0 = time.perf_counter()
     sweep_rows = sweep_kernel_checks(torch, K, C, card)
-    sweep_launches = sweep_checks(torch, K, C, card, splits)
+    sweep_launches, sweep_ranked = sweep_checks(torch, K, C, card, splits)
     sweep_cli_check(torch, card)
     print(f"[sweep] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -4943,6 +5385,10 @@ def run_phases(opts, torch) -> int:
 
     # 12. the trainer's operational plane on phase 6's panel
     ops = ops_plane_phase(torch, K, C, card, splits)
+
+    # 13. the supervisor and the elastic sweep on phase 6's panel, held
+    # against phase 9's in-process ranking
+    elastic = elastic_phase(torch, card, splits, sweep_ranked)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     # 11. the data plane at the real panel shape
@@ -4968,6 +5414,10 @@ def run_phases(opts, torch) -> int:
             paths["promotion_gate"] = gate["launches"][health_idx[name]]
         paths["data_plane_train_real_shape"] = data["launches"][name]
         paths["trainer_ops_plane"] = ops["launches"][name]
+        # counted in the supervised train CLI's restarted children and the
+        # elastic workers that exited normally (ops.ENV_LAUNCH_COUNTS)
+        paths["supervised_train"] = elastic["supervised_train"][name]
+        paths["elastic_sweep"] = elastic["elastic_sweep"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name])

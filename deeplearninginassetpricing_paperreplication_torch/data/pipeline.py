@@ -747,15 +747,17 @@ class StartupPipeline:
 # stage 3 helper: build and plan the kernels of the model's route early
 # --------------------------------------------------------------------------
 
-def trainer_precompile_fn(cfg, exec_cfg=None, events=None
-                          ) -> Callable[[Dict], Any]:
+def trainer_precompile_fn(cfg, exec_cfg=None, events=None, members: int = 1,
+                          name_prefix: str = "") -> Callable[[Dict], Any]:
     """A `compile_fn` for :class:`StartupPipeline`: the port's counterpart
     of compiling the trainer's programs under the load window. Eager
     PyTorch has no programs to compile; what a first epoch would otherwise
     wait on is building (``nvcc``, at first use) and loading the CUDA
     libraries the model's route launches, and working out their launch
     plans on the card. This does both, for the probed shapes of every split
-    and one model (the train CLI's), and returns what it prepared::
+    given (``train`` among them) and `members` stacked models (one: the
+    train CLI's; a sweep bucket's grid: ``parallel.sweep``), and returns
+    what it prepared (each program named ``<name_prefix><kernel>/<split>``)::
 
         {"device": "cuda:0", "libraries": [...], "plans": n,
          "programs": {name: record}}
@@ -784,36 +786,39 @@ def trainer_precompile_fn(cfg, exec_cfg=None, events=None
         cd = exec_cfg.compute_dtype
         F = cfg.individual_feature_dim
 
+        S = int(members)
+        splits = [split for split in SPLITS if split in shapes]
+
         def record(name, plan, held, T, N):
-            record_program(events, name, plan, held, out["programs"],
-                           S=1, T=T, N=N, compute_dtype=cd)
+            record_program(events, name_prefix + name, plan, held,
+                           out["programs"], S=S, T=T, N=N, compute_dtype=cd)
             out["plans"] += 1
 
         with torch.cuda.device(dev):
             if cfg.hidden_dim:
                 lay = sdf_ffn.ffn_layout(F, cfg.hidden_dim)
                 w = sdf_ffn.width_bound(cfg.hidden_dim)
-                for split in SPLITS:
+                for split in splits:
                     t, n = shapes[split]["returns"]
-                    plan = sdf_ffn.card_fwd_plan(lay, dev, 1, t, n, cd)
+                    plan = sdf_ffn.card_fwd_plan(lay, dev, S, t, n, cd)
                     record(f"sdf_ffn_fwd/{split}", plan,
-                           sdf_ffn.fwd_plan_info(lay, 1, plan), t, n)
+                           sdf_ffn.fwd_plan_info(lay, S, plan), t, n)
                 t, n = shapes["train"]["returns"]
-                plan = sdf_ffn.card_bwd_plan(lay, dev, 1, t, n)
+                plan = sdf_ffn.card_bwd_plan(lay, dev, S, t, n)
                 record("sdf_ffn_bwd/train", plan,
                        sdf_ffn.bwd_plan_info(lay, plan), t, n)
                 out["libraries"] += [f"sdf_ffn_fwd_w{w}", f"sdf_ffn_bwd_w{w}"]
             if not cfg.hidden_dim_moment and "macro" in shapes["train"]:
                 K = cfg.num_condition_moment
-                for split in SPLITS:
+                for split in splits:
                     t, n = shapes[split]["returns"]
-                    plans = cond_em.card_cem_plan(dev, 1, t, n, F, K, cd)
+                    plans = cond_em.card_cem_plan(dev, S, t, n, F, K, cd)
                     kinds = (("fwd", "bwd") if split == "train"
                              else ("fwd",))
                     for kind in kinds:
                         plan = getattr(plans, kind)
                         record(f"cond_em_{kind}/{split}", plan,
-                               cond_em.plan_info(plan, 1, t, n, F, K, cd),
+                               cond_em.plan_info(plan, S, t, n, F, K, cd),
                                t, n)
                 out["libraries"].append("cond_em")
         return out

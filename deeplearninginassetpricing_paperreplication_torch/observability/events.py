@@ -25,7 +25,19 @@ import uuid
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-from .metrics import MetricsRegistry, feed_event
+try:
+    from .metrics import MetricsRegistry, feed_event
+except ImportError:
+    # loaded OUTSIDE the package (the supervisor path-loads this file);
+    # metrics.py is stdlib-only by contract and sits next to us
+    import importlib.util as _ilu
+
+    _spec = _ilu.spec_from_file_location(
+        "_dlap_metrics", Path(__file__).resolve().parent / "metrics.py")
+    _metrics = _ilu.module_from_spec(_spec)
+    _spec.loader.exec_module(_metrics)
+    MetricsRegistry = _metrics.MetricsRegistry
+    feed_event = _metrics.feed_event
 
 SCHEMA_VERSION = 1
 

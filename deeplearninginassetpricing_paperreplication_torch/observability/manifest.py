@@ -171,8 +171,10 @@ def build_manifest(
 
 
 def write_manifest(run_dir, kind: str, events: Optional[EventLog] = None,
+                   filename: str = "manifest.json",
                    **kwargs) -> Dict[str, Any]:
-    """Build + write ``<run_dir>/manifest.json``. The write is recorded as
+    """Build + write ``<run_dir>/manifest.json`` (`filename`: an elastic
+    sweep worker's ``manifest.<id>.json``). The write is recorded as
     an event when `events` is given. run_id precedence: an explicit
     ``run_id=`` kwarg wins (cross-process shared launch ids), then the
     EventLog's id (so events and manifest cross-reference), then a fresh
@@ -183,21 +185,23 @@ def write_manifest(run_dir, kind: str, events: Optional[EventLog] = None,
     if run_id is None and events is not None:
         run_id = events.run_id
     manifest = build_manifest(kind, run_id=run_id, **kwargs)
-    (run_dir / "manifest.json").write_text(json.dumps(manifest, indent=2))
+    (run_dir / filename).write_text(json.dumps(manifest, indent=2))
     if events is not None:
-        events.emit("manifest", kind, path=str(run_dir / "manifest.json"),
+        events.emit("manifest", kind, path=str(run_dir / filename),
                     config_hash=manifest["config_hash"])
     return manifest
 
 
-def load_manifest(run_dir) -> Optional[Dict[str, Any]]:
-    path = Path(run_dir) / "manifest.json"
+def load_manifest(run_dir, filename: str = "manifest.json"
+                  ) -> Optional[Dict[str, Any]]:
+    path = Path(run_dir) / filename
     if not path.exists():
         return None
     return json.loads(path.read_text())
 
 
-def update_manifest(run_dir, **patch: Any) -> Optional[Dict[str, Any]]:
+def update_manifest(run_dir, filename: str = "manifest.json",
+                    **patch: Any) -> Optional[Dict[str, Any]]:
     """Merge `patch` into an existing ``manifest.json`` (atomically).
 
     The manifest is written at STARTUP, but some provenance only exists at
@@ -208,7 +212,7 @@ def update_manifest(run_dir, **patch: Any) -> Optional[Dict[str, Any]]:
     import os
 
     run_dir = Path(run_dir)
-    path = run_dir / "manifest.json"
+    path = run_dir / filename
     try:
         manifest = json.loads(path.read_text())
     except (OSError, json.JSONDecodeError):

@@ -1,16 +1,18 @@
 """Deterministic, plan-driven fault injection.
 
-The port's copy of the JAX package's ``reliability/faults.py``, the part
-the port's sites use (stdlib only; the two packages share the plan format
-and the ``DLAP_FAULT_PLAN`` variable, so one plan drives either, where it
-names only the actions below). The paper's protocol is a long
+The port's copy of the JAX package's ``reliability/faults.py`` (stdlib
+only; the two packages share the plan format and the ``DLAP_FAULT_PLAN``,
+``DLAP_FAULT_STATE`` and ``DLAP_FAULT_EVENTS`` variables, so one plan
+drives either). The paper's protocol is a long
 multi-run pipeline (three GAN phases × a hyperparameter sweep × a 9-member
 ensemble), exactly the shape that dies to preemptions, OOM kills and NaN
 blowups hours in. Named injection sites sit in the port's verified file IO
 (``checkpoint/save``, ``checkpoint/saved``, ``checkpoint/load``), the
-trainer's segment loop (``trainer/epoch_loop``), the data plane
-(``pipeline/decode``, ``pipeline/transfer``, ``data/shard_read``), the
-sweep (``sweep/bucket``, ``sweep/ledger_write``), the promotion gate
+trainer's segment loop and phase boundaries (``trainer/epoch_loop``,
+``trainer/phase_boundary``), the data plane (``pipeline/decode``,
+``pipeline/transfer``, ``data/shard_read``), the sweep and its work queue
+(``sweep/bucket``, ``sweep/claim``, ``sweep/lease_renew``,
+``sweep/ledger_write``), the promotion gate
 (``promote/validate``, ``promote/write``) and the serving path
 (``serving/infer``, ``serve/accept``, ``serve/admit``, ``serve/flush``,
 ``serve/coalesce``, ``serve/reload``), and a JSON *fault plan* decides
@@ -25,7 +27,9 @@ file) — a list of entries (a single object is accepted too)::
 
   * ``site``          — the injection-site name (see SITES below);
   * ``action``        — one of ``raise`` (RuntimeError), ``kill`` (SIGKILL
-                        self: the OOM-kill / preemption death mode),
+                        self: the OOM-kill / preemption death mode), ``hang``
+                        (sleep forever: the wedged-call death mode the
+                        supervisor's stale-heartbeat check exists for),
                         ``truncate_file`` (corrupt the file named by the
                         site's ``path`` context — a torn write),
                         ``nan_loss`` (cooperative: :func:`inject` returns
@@ -36,13 +40,22 @@ file) — a list of entries (a single object is accepted too)::
   * ``match``         — optional substring filter on the site's ``path``
                         context (so ``checkpoint/saved`` entries can target
                         one artifact);
-  * ``persistent``    — fire on EVERY matching hit from the Nth on, instead
-                        of exactly on the Nth.
+  * ``persistent``    — fire on EVERY matching hit from the Nth on (a
+                        poison bucket: the fault follows the work item
+                        whichever worker claims it), instead of exactly on
+                        the Nth.
 
-Hit counters are per process. The JAX package's cross-process counter
-file (``DLAP_FAULT_STATE``), its fault events log (``DLAP_FAULT_EVENTS``)
-and the ``hang`` action serve its supervisor and elastic sweep, which the
-port does not have yet; a plan that names ``hang`` is refused here.
+Determinism across restarts AND across a worker fleet: when
+``DLAP_FAULT_STATE`` names a file, the per-entry hit counters persist
+through it (written atomically BEFORE a fault executes), so a ``kill``
+fires exactly once ever — the supervised restart does not re-die at the
+same site. Counter updates re-read the file under an ``fcntl`` lock, so N
+concurrent sweep workers sharing one state file see ONE fleet-wide hit
+stream ("the 3rd claim anywhere dies"), not N private ones. Without a
+state file counters are per process.
+
+When ``DLAP_FAULT_EVENTS`` names a file, every fired fault appends one JSON
+line (``{"kind": "counter", "name": "fault/injected", ...}``).
 
 Overhead contract: with no plan in the environment, :func:`inject` is a
 module-global read plus a ``None`` check — zero filesystem traffic, zero
@@ -62,8 +75,10 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 ENV_PLAN = "DLAP_FAULT_PLAN"
+ENV_STATE = "DLAP_FAULT_STATE"
+ENV_EVENTS = "DLAP_FAULT_EVENTS"
 
-ACTIONS = ("raise", "kill", "truncate_file", "nan_loss")
+ACTIONS = ("raise", "kill", "hang", "truncate_file", "nan_loss")
 
 # the named injection sites threaded through the port (documentation —
 # the injector fires for any site string a plan names)
@@ -73,12 +88,19 @@ SITES = (
     "checkpoint/load",         # before a verified read (ctx: path)
     "trainer/epoch_loop",      # after each training segment (ctx: phase,
                                #   epochs_done; `nan_loss` poisons it)
+    "trainer/phase_boundary",  # after each phase's boundary save (ctx:
+                               #   phase); phase 3's fires before the
+                               #   resume state clears
     "pipeline/decode",         # per split, before its decode (ctx: split)
     "pipeline/transfer",       # per split, before its transfer (ctx: split)
     "data/shard_read",         # per chunked-store shard, before its digest
                                #   check (ctx: path, split, shard)
     "sweep/bucket",            # per sweep bucket trained (ctx: bucket,
                                #   n_buckets, path=the bucket's ledger key)
+    "sweep/claim",             # after a worker's lease lands (ctx:
+                               #   path=key, worker, attempt — a kill
+                               #   orphans the lease: expiry + takeover)
+    "sweep/lease_renew",       # per lease renewal (ctx: path=key, worker)
     "sweep/ledger_write",      # before a bucket record lands (ctx: path)
     "promote/validate",        # a candidate enters the gate (ctx: path =
                                #   the source, n_members)
@@ -106,10 +128,21 @@ class FaultPlanError(ValueError):
     """The plan itself is malformed (bad action, missing site)."""
 
 
+def _atomic_write_json(path: Path, obj: Any) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(obj))
+    os.replace(tmp, path)
+
+
 class FaultInjector:
     """Executes one parsed fault plan against named site hits."""
 
-    def __init__(self, plan: Union[Dict[str, Any], List[Dict[str, Any]]]):
+    def __init__(
+        self,
+        plan: Union[Dict[str, Any], List[Dict[str, Any]]],
+        state_path: Optional[Union[str, Path]] = None,
+        events_path: Optional[Union[str, Path]] = None,
+    ):
         if isinstance(plan, dict):
             plan = [plan]
         self.plan: List[Dict[str, Any]] = []
@@ -132,29 +165,80 @@ class FaultInjector:
                 "path": entry.get("path"),
                 "keep_bytes": entry.get("keep_bytes"),
             })
+        self.state_path = Path(state_path) if state_path else None
+        self.events_path = Path(events_path) if events_path else None
         # per-ENTRY hit counters (not per-site): two entries on one site with
         # trigger_count 1 and 2 see the same hit stream but fire separately
         self.counts: List[int] = [0] * len(self.plan)
+        if self.state_path is not None and self.state_path.exists():
+            self._reload_counts()
 
     # -- the hot path ---------------------------------------------------------
+
+    def _locked_state(self):
+        """Exclusive inter-process lock over the state file (a ``.lock``
+        sibling): N concurrent workers sharing DLAP_FAULT_STATE must see one
+        fleet-wide hit stream, not clobber each other's counter writes. A
+        no-op context without a state file (or on non-POSIX hosts)."""
+        from contextlib import contextmanager, nullcontext
+
+        if self.state_path is None:
+            return nullcontext()
+        try:
+            import fcntl
+        except ImportError:
+            return nullcontext()
+
+        @contextmanager
+        def lock():
+            lp = self.state_path.with_name(self.state_path.name + ".lock")
+            with open(lp, "w") as f:
+                fcntl.flock(f, fcntl.LOCK_EX)
+                try:
+                    yield
+                finally:
+                    fcntl.flock(f, fcntl.LOCK_UN)
+
+        return lock()
+
+    def _reload_counts(self) -> None:
+        """Adopt the state file's counters (the fleet-wide truth): another
+        process may have advanced them since this injector loaded. An
+        unreadable file leaves the counters as they are."""
+        try:
+            saved = json.loads(self.state_path.read_text()).get("counts", [])
+        except (OSError, ValueError):
+            return
+        for i, c in enumerate(saved[: len(self.counts)]):
+            self.counts[i] = int(c)
 
     def fire(self, site: str, **ctx: Any) -> Optional[str]:
         """Record one hit of `site`; execute any entry whose trigger is
         reached. Returns a cooperative-action token (``"nan_loss"``) for the
-        caller to apply, else None. ``raise``/``kill`` never return;
-        ``truncate_file`` corrupts and returns None."""
+        caller to apply, else None. ``raise``/``kill``/``hang`` never
+        return; ``truncate_file`` corrupts and returns None."""
         matching = [
             i for i, f in enumerate(self.plan)
             if f["site"] == site
             and not (f["match"] and f["match"] not in str(ctx.get("path", "")))
         ]
+        if not matching:
+            return None
         pending = []
-        for i in matching:  # count every entry's hit before any fires
-            self.counts[i] += 1
-            f = self.plan[i]
-            if self.counts[i] == f["trigger_count"] or (
-                    f["persistent"] and self.counts[i] >= f["trigger_count"]):
-                pending.append(f)
+        with self._locked_state():
+            if self.state_path is not None:
+                self._reload_counts()
+            for i in matching:  # count every entry's hit before any fires
+                self.counts[i] += 1
+                f = self.plan[i]
+                if self.counts[i] == f["trigger_count"] or (
+                        f["persistent"]
+                        and self.counts[i] >= f["trigger_count"]):
+                    pending.append(f)
+            if self.state_path is not None:
+                # persist BEFORE executing: a kill/hang must not re-fire
+                # after a supervised restart replays the run to this site
+                _atomic_write_json(self.state_path, {"counts": self.counts})
         token = None
         for f in pending:
             out = self._execute(f, site, ctx)
@@ -167,22 +251,27 @@ class FaultInjector:
     def _execute(self, fault: Dict[str, Any], site: str,
                  ctx: Dict[str, Any]) -> Optional[str]:
         action = fault["action"]
+        self._log(site, action, ctx)
         if action == "nan_loss":
             return "nan_loss"  # cooperative: the site poisons its own output
         if action == "raise":
             raise FaultInjected(f"injected raise at {site} (ctx={ctx})")
-        if action == "kill":
+        if action in ("kill", "hang"):
             # last words first: the serving plane dumps its flight recorder
-            # here, so an injected SIGKILL leaves the in-flight evidence
+            # here, so an injected death leaves the in-flight evidence
             for hook in list(_pre_death_hooks):
                 try:
                     hook(site, action)
                 except Exception:
                     pass  # a hook must never change the death mode
+        if action == "kill":
             # the OOM-kill / preemption death mode: no cleanup, no excepthook
             os.kill(os.getpid(), signal.SIGKILL)
             while True:  # pragma: no cover — unreachable after SIGKILL lands
                 time.sleep(1)
+        if action == "hang":
+            while True:  # the wedged-call death mode: never returns
+                time.sleep(3600)
         if action == "truncate_file":
             target = fault.get("path") or ctx.get("path")
             if target:
@@ -194,6 +283,22 @@ class FaultInjector:
                     with open(p, "r+b") as f:
                         f.truncate(keep)
         return None
+
+    def _log(self, site: str, action: str, ctx: Dict[str, Any]) -> None:
+        if self.events_path is None:
+            return
+        row = {
+            "kind": "counter", "name": "fault/injected", "value": 1,
+            "site": site, "action": action, "ts": round(time.time(), 6),
+        }
+        for k, v in ctx.items():
+            if isinstance(v, (str, int, float, bool)) or v is None:
+                row.setdefault(k, v)
+        try:
+            with open(self.events_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+        except OSError:
+            pass  # fault logging must never be a new failure mode
 
     # -- construction ---------------------------------------------------------
 
@@ -208,20 +313,24 @@ class FaultInjector:
             plan = json.loads(spec)
         else:
             plan = json.loads(Path(spec).read_text())
-        return cls(plan)
+        return cls(
+            plan,
+            state_path=env.get(ENV_STATE) or None,
+            events_path=env.get(ENV_EVENTS) or None,
+        )
 
 
 # -- module-level singleton (the form the injection sites call) --------------
 
 _UNRESOLVED = ()  # sentinel: environment not yet inspected
 _injector: Any = _UNRESOLVED
-# callables (site, action) → None run before a kill executes
+# callables (site, action) → None run before a kill/hang executes
 _pre_death_hooks: List[Any] = []
 
 
 def add_pre_death_hook(fn) -> None:
-    """Register a last-words callback run before a ``kill`` fault executes
-    (the serving flight recorder's dump). Callbacks must be fast and must
+    """Register a last-words callback run before a ``kill``/``hang`` fault
+    executes (the serving flight recorder's dump). Callbacks must be fast and must
     not raise; exceptions are swallowed."""
     if fn not in _pre_death_hooks:
         _pre_death_hooks.append(fn)
@@ -232,6 +341,7 @@ def remove_pre_death_hook(fn) -> None:
         _pre_death_hooks.remove(fn)
     except ValueError:
         pass
+
 
 def get_injector() -> Optional[FaultInjector]:
     global _injector

@@ -1,7 +1,7 @@
 """Durable sweep ledger: one verified record per completed bucket.
 
-The port's copy of the JAX package's ``reliability/ledger.py``, its record
-part. The 384-config search's unit of work is the architecture bucket (96
+The port's copy of the JAX package's ``reliability/ledger.py``. The
+384-config search's unit of work is the architecture bucket (96
 of them); the ledger makes it the unit of recovery too: every completed
 bucket lands as one atomic, sha256-sidecar JSON record, written through
 :mod:`.verified` so a kill mid-write cannot corrupt it, keyed by the
@@ -11,10 +11,18 @@ nothing it already holds. The keys are the JAX package's, byte for byte,
 for the same config, grid, seeds and schedule; the key leaves out how the
 bucket ran (compute dtype, kernel route), so each record also holds that
 ``execution``, and the sweep reuses a record only under the same one.
+Records, quarantine markers and the queue manifest are otherwise the JAX
+package's, so a ledger written by either package opens in the other.
 
 Layout under ``<run_dir>/sweep_ledger/``::
 
+    queue.json             — the work manifest (bucket list + shared
+                             schedule), written once by the coordinating
+                             process; workers derive ALL work from it
     records/<key>.json     — one verified record per completed bucket
+    quarantine/<key>.json  — poison buckets (killed K consecutive workers)
+    leases/<key>.json      — live worker leases (see scheduler.py)
+    attempts/<key>.json    — per-bucket claim/failure history
 
 Records hold no params (they are JSON): a sweep that consults the ledger
 runs with ``keep_params=False`` — the protocol path, which retrains the
@@ -34,9 +42,15 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 from .faults import inject
-from .verified import load_verified, verified_exists, write_verified
+from .verified import (
+    clear_generations,
+    load_verified,
+    verified_exists,
+    write_verified,
+)
 
 LEDGER_DIRNAME = "sweep_ledger"
+QUEUE_FILENAME = "queue.json"
 
 
 def bucket_key(
@@ -79,6 +93,7 @@ def make_record(
     best_valid_sharpe,
     *,
     execution: Dict[str, str],
+    worker: Optional[str] = None,
     seconds: Optional[float] = None,
 ) -> Dict[str, Any]:
     """Assemble one bucket's ledger record from a ``train_bucket`` output.
@@ -88,9 +103,9 @@ def make_record(
     ranking rebuilt from records is bit-identical to the in-process one.
     Non-finite Sharpes (never-updated trackers) map to null and back to
     -inf on read, the same convention as ``sweep_ranking.json``.
-    ``execution`` is how the bucket ran (``parallel.sweep.execution_of``).
-    The record is the JAX package's with ``execution`` in place of its
-    ``worker``."""
+    ``execution`` is how the bucket ran (``parallel.sweep.execution_of``),
+    ``worker`` the elastic worker that trained it (None in process). The
+    record is the JAX package's with ``execution`` added."""
     return {
         "key": key,
         "index": int(index),
@@ -99,6 +114,7 @@ def make_record(
         "seeds": [int(s) for s in seeds],
         "grid": [[float(lr), float(s)] for lr, s in grid],
         "best_valid_sharpe": [_finite_or_none(s) for s in best_valid_sharpe],
+        "worker": worker,
         "execution": dict(execution),
         "seconds": round(float(seconds), 3) if seconds is not None else None,
         "completed_at": round(time.time(), 3),
@@ -106,17 +122,22 @@ def make_record(
 
 
 class SweepLedger:
-    """Verified per-bucket records for one sweep.
+    """Verified per-bucket records + quarantine markers for one sweep.
 
     All writes go through :func:`.verified.write_verified` (atomic + sha256
     sidecar), all reads through :func:`.verified.load_verified`
-    (digest-checked, errors naming the file). ``writes`` counts the
-    records this instance wrote."""
+    (digest-checked, errors naming the file). Instance counters (``hits``:
+    records loaded, ``writes``: records written) carry the zero-retrain
+    evidence."""
 
     def __init__(self, root: Union[str, Path]):
         self.root = Path(root)
         self.records_dir = self.root / "records"
+        self.quarantine_dir = self.root / "quarantine"
+        self.hits = 0
         self.writes = 0
+
+    # -- records --------------------------------------------------------------
 
     def record_path(self, key: str) -> Path:
         return self.records_dir / f"{key}.json"
@@ -125,7 +146,7 @@ class SweepLedger:
         return verified_exists(self.record_path(key))
 
     def load(self, key: str) -> Dict[str, Any]:
-        """Digest-verified record read."""
+        """Digest-verified record read; counts as a ledger hit."""
         path = self.record_path(key)
 
         def parse(data: bytes) -> Dict[str, Any]:
@@ -135,7 +156,9 @@ class SweepLedger:
                 raise ValueError(
                     f"corrupt sweep-ledger record {path}: {e}") from e
 
-        return load_verified(path, parse)[0]
+        record, _ = load_verified(path, parse)
+        self.hits += 1
+        return record
 
     def write(self, key: str, record: Dict[str, Any]) -> None:
         """Verified write of one completed bucket's record. The fault site
@@ -146,7 +169,42 @@ class SweepLedger:
         write_verified(path, json.dumps(record, indent=2).encode())
         self.writes += 1
 
+    def keys(self) -> List[str]:
+        # "*.json" cannot match sidecars (.json.sha256), generations
+        # (.json.g1), or in-flight tmp files (.json.tmp)
+        if not self.records_dir.exists():
+            return []
+        return sorted(p.stem for p in self.records_dir.glob("*.json"))
+
+    # -- quarantine -----------------------------------------------------------
+
+    def quarantine_path(self, key: str) -> Path:
+        return self.quarantine_dir / f"{key}.json"
+
+    def quarantine(self, key: str, info: Dict[str, Any]) -> None:
+        info = dict(info, key=key, quarantined_at=round(time.time(), 3))
+        write_verified(self.quarantine_path(key),
+                       json.dumps(info, indent=2).encode())
+
+    def is_quarantined(self, key: str) -> bool:
+        return verified_exists(self.quarantine_path(key))
+
+    def quarantined(self) -> Dict[str, Dict[str, Any]]:
+        out: Dict[str, Dict[str, Any]] = {}
+        if not self.quarantine_dir.exists():
+            return out
+        for p in sorted(self.quarantine_dir.glob("*.json")):
+            try:
+                out[p.stem] = json.loads(p.read_text())
+            except (OSError, json.JSONDecodeError):
+                out[p.stem] = {"key": p.stem, "error": "unreadable marker"}
+        return out
+
+    # -- lifecycle ------------------------------------------------------------
+
     def reset(self) -> None:
-        """Drop every record: a sweep that does not resume must not reuse a
-        predecessor's work."""
-        shutil.rmtree(self.records_dir, ignore_errors=True)
+        """Drop every record, quarantine marker, lease, and attempt file:
+        a sweep that does not resume must not reuse a predecessor's work."""
+        for sub in ("records", "quarantine", "leases", "attempts"):
+            shutil.rmtree(self.root / sub, ignore_errors=True)
+        clear_generations(self.root / QUEUE_FILENAME)

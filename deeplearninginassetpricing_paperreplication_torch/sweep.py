@@ -5,30 +5,40 @@ weight-averaged ensembles → test Sharpe report, checkpointing everything.
         --data_dir data/synthetic_data --save_dir ./sweep_run --quick
 
 The counterpart of the JAX package's ``sweep.py`` (paper §II.E: "384
-models … four best … 9 models"), in-process. The search trains each
-architecture bucket's (lr × seed) grid members-stacked (one kernel launch
-per pass for the whole grid, ``parallel/sweep.py``), every winner's seed
-ensemble trains members-stacked at the winner's lr
-(``parallel/ensemble.py``), and evaluation follows the reference's
-ensemble reduction (averaged normalized weights, re-normalized, negated
-Sharpe, ddof=0).
+models … four best … 9 models"). The search trains each architecture
+bucket's (lr × seed) grid members-stacked (one kernel launch per pass for
+the whole grid, ``parallel/sweep.py``), in this process or, with
+``--workers N``, in N supervised worker processes that claim buckets from
+a leased, ledger-backed work queue (``reliability/scheduler.py``: a dead
+or hung worker's lease expires and its bucket is taken over; a bucket
+that keeps killing its workers is quarantined and the ranking ships
+degraded, with ``sweep_coverage.json``). Every winner's seed ensemble
+trains members-stacked at the winner's lr (``parallel/ensemble.py``), and
+evaluation follows the reference's ensemble reduction (averaged
+normalized weights, re-normalized, negated Sharpe, ddof=0).
 
 Artifacts in --save_dir:
     sweep_ranking.json (+ .sha256)   — every (config, lr, seed) + valid Sharpe
+    sweep_coverage.json (+ .sha256)  — a degraded elastic search's coverage
+    sweep_ledger/queue.json          — the work manifest (+ fleet settings)
     sweep_ledger/records/<key>.json  — one verified record per searched bucket
+    sweep_ledger/quarantine/<key>.json — poison buckets
     rank{r}_seed{s}/config.json      — per-member run dirs in the reference
     rank{r}_seed{s}/best_model_sharpe.pt   layout (``evaluate_ensemble
                                        --checkpoint_dirs`` reads them)
     report.json (+ .sha256)          — per-winner + grand ensemble Sharpes
+    events*.jsonl, heartbeat*.json, manifest*.json — the coordinator's and
+                                       each worker's (``<wid>``) telemetry
 
 It runs on the CUDA device unless ``--device cpu`` is given. The panel
 loads through the chunked store (``data/pipeline.load_splits_chunked``: a
 rerun memmaps the cached decode) and ships mask-packed
 (``data/transfer.device_put_batch``), on the bf16 wire where every swept
 configuration rounds the panel to bf16 anyway; ``--small_sample`` keeps
-``--n_periods`` × ``--n_stocks``. Not ported yet: the elastic search
-(``--workers`` and its lease and retry flags),
-``--device_slices``/``--slice_width`` and ``--metrics_port``.
+``--n_periods`` × ``--n_stocks``. Workers run on the coordinator's
+``--device``, ``--kernel`` and ``--compute_dtype``: a worker without a
+card fails rather than train on the CPU. Not ported yet:
+``--device_slices``/``--slice_width`` (the mesh-packed search).
 """
 
 from __future__ import annotations
@@ -37,6 +47,9 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import sys
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -47,7 +60,16 @@ import torch
 from .data.pipeline import load_splits_chunked
 from .data.transfer import device_put_batch
 from .evaluate_ensemble import add_execution_args, execution_config
-from .observability.logging import get_run_logger
+from .observability.events import EventLog
+from .observability.heartbeat import Heartbeat
+from .observability.logging import RunLogger, get_run_logger, set_run_logger
+from .observability.manifest import (
+    load_manifest,
+    update_manifest,
+    write_manifest,
+)
+from .observability.metrics import MetricsSidecar
+from .ops.sdf_ffn import _route as ffn_route
 from .parallel.ensemble import (
     PAPER_SEEDS,
     apply_quorum,
@@ -56,9 +78,22 @@ from .parallel.ensemble import (
     member_weights,
     train_ensemble,
 )
-from .parallel.sweep import architecture_signature, grid_configs, run_sweep
+from .parallel.sweep import (
+    architecture_signature,
+    bucket_work_items,
+    execution_of,
+    grid_configs,
+    open_work_queue,
+    ranking_from_ledger,
+    run_sweep,
+    run_sweep_worker,
+)
 from .reliability.ledger import LEDGER_DIRNAME, SweepLedger
-from .reliability.verified import load_verified, write_verified
+from .reliability.verified import (
+    clear_generations,
+    load_verified,
+    write_verified,
+)
 from .training.checkpoint import member_state_dicts, save_state_dict
 from .utils.config import ExecutionConfig, GANConfig, TrainConfig, resolve_device
 
@@ -84,10 +119,14 @@ def _finite(x: float):
     return x if math.isfinite(x) else None
 
 
-def write_ranking(save_dir, ranked: Sequence[Dict]) -> Path:
-    """Write ``sweep_ranking.json`` through the verified path: atomic
+def write_ranking(save_dir, ranked: Sequence[Dict],
+                  coverage: Optional[Dict] = None) -> Path:
+    """Write ``sweep_ranking.json`` (and, when the search completed
+    DEGRADED, ``sweep_coverage.json``) through the verified path: atomic
     tmp+replace with a sha256 sidecar, so a mid-write kill can never leave
-    a torn ranking for a resume to trust."""
+    a torn ranking for a resume to trust. The coverage manifest is the
+    explicit contract of a degraded completion: which buckets are missing
+    from this ranking, why, and after how many attempts."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     rows = [
@@ -102,6 +141,9 @@ def write_ranking(save_dir, ranked: Sequence[Dict]) -> Path:
     ]
     path = save_dir / "sweep_ranking.json"
     write_verified(path, json.dumps(rows, indent=2).encode())
+    if coverage is not None:
+        write_verified(save_dir / "sweep_coverage.json",
+                       json.dumps(coverage, indent=2).encode())
     return path
 
 
@@ -187,13 +229,18 @@ def run_protocol(
     quorum: Optional[int] = None,
     ledger: Optional[SweepLedger] = None,
     consult_ledger: bool = False,
+    coverage: Optional[Dict] = None,
+    heartbeat=None,
 ) -> Dict:
     """Search → winners → per-winner member-stacked seed ensembles → report.
 
-    `ranking`: a precomputed stage-1 result (the parsed sweep_ranking.json)
-    — skips the search, so an interrupted protocol resumes at the ensemble
-    stage. `ledger` / `consult_ledger`: bucket-level durability for stage 1
-    (see ``run_sweep``).
+    `ranking`: a precomputed stage-1 result (the parsed sweep_ranking.json
+    or a ledger-rebuilt elastic ranking) — skips the search, so an
+    interrupted protocol resumes at the ensemble stage. `ledger` /
+    `consult_ledger`: bucket-level durability for stage 1 (see
+    ``run_sweep``). `coverage`: a degraded elastic search's coverage
+    manifest, shipped beside the ranking (``sweep_coverage.json``) and
+    echoed in the report. `heartbeat` beats each stage's section.
 
     `quorum`: a winner's ensemble proceeds with ≥ quorum finite members,
     dropping diverged ones (recorded per winner as ``dropped_seeds``);
@@ -225,16 +272,18 @@ def run_protocol(
     else:
         log(f"[protocol] search: {len(configs_and_lrs)} (config, lr) combos "
             f"× {len(search_seeds)} seeds")
-        ranked = run_sweep(
-            configs_and_lrs, search_seeds, train_batch, valid_batch,
-            tcfg=search_tcfg, top_k=None, keep_params=False,
-            verbose=verbose, member_chunk=member_chunk, exec_cfg=exec_cfg,
-            stats_out=search_stats, ledger=ledger,
-            consult_ledger=consult_ledger,
-        )
+        with logger.events.span("protocol/search",
+                                n_combos=len(configs_and_lrs)):
+            ranked = run_sweep(
+                configs_and_lrs, search_seeds, train_batch, valid_batch,
+                tcfg=search_tcfg, top_k=None, keep_params=False,
+                verbose=verbose, member_chunk=member_chunk,
+                exec_cfg=exec_cfg, stats_out=search_stats, ledger=ledger,
+                consult_ledger=consult_ledger, heartbeat=heartbeat,
+            )
     search_s = time.time() - t0
     if save_dir:  # also on resume: keep the artifact contract in save_dir
-        write_ranking(save_dir, ranked)
+        write_ranking(save_dir, ranked, coverage)
     winners = select_winners(ranked, top_k)
     log(f"[protocol] search done in {search_s:.1f}s; top {len(winners)}:")
     for i, w in enumerate(winners):
@@ -250,6 +299,7 @@ def run_protocol(
         "search_resumed_from_ranking": ranking is not None,
         "n_search_points": len(ranked),
         **({"search_stats": search_stats} if search_stats else {}),
+        **({"search_coverage": coverage} if coverage is not None else {}),
         **({"quorum": quorum} if quorum is not None else {}),
         "winners": [],
     }
@@ -261,15 +311,21 @@ def run_protocol(
         tcfg = dataclasses.replace(ensemble_tcfg, lr=w["lr"])
         log(f"[protocol] ensemble #{rank}: {len(ensemble_seeds)} seeds, "
             f"lr={w['lr']}")
-        params, _hist = train_ensemble(
-            cfg, train_batch, valid_batch, test_batch, seeds=ensemble_seeds,
-            tcfg=tcfg, member_chunk=member_chunk, exec_cfg=exec_cfg,
-            verbose=verbose)
+        if heartbeat is not None:
+            heartbeat.beat("winner_ensemble", rank=rank)
+        with logger.events.span("protocol/ensemble", rank=rank,
+                                n_seeds=len(ensemble_seeds)):
+            params, _hist = train_ensemble(
+                cfg, train_batch, valid_batch, test_batch,
+                seeds=ensemble_seeds, tcfg=tcfg, member_chunk=member_chunk,
+                exec_cfg=exec_cfg, verbose=verbose)
         member_seeds = [int(s) for s in ensemble_seeds]
         dropped: List[int] = []
         if quorum is not None:
             params, member_seeds, dropped = apply_quorum(
                 params, ensemble_seeds, quorum)
+            for s in dropped:
+                logger.events.counter("sweep/quorum_drop", rank=rank, seed=s)
             if dropped:
                 log(f"[protocol] ensemble #{rank}: dropped diverged members "
                     f"(seeds {dropped}); proceeding with "
@@ -335,6 +391,8 @@ def run_protocol(
         rank = len(winners) + di
         log(f"[protocol] diagnostic retrain #{rank}: "
             f"{len(diagnostic_seeds)} seeds, lr={w['lr']}")
+        if heartbeat is not None:
+            heartbeat.beat("diagnostic_retrain", rank=rank)
         params, _hist = train_ensemble(
             w["config"], train_batch, valid_batch, test_batch,
             seeds=diagnostic_seeds,
@@ -368,6 +426,8 @@ def run_protocol(
         }
 
     # ---- stage 3: grand ensemble across all winners' members ----
+    if heartbeat is not None:
+        heartbeat.beat("grand_ensemble")
     grand = ensemble_metrics_from_weights(
         torch.cat(all_test_weights, dim=0), test_batch)
     report["grand_ensemble_test_sharpe"] = float(grand["ensemble_sharpe"])
@@ -404,16 +464,65 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="Path to a previously written sweep_ranking.json: "
                         "skip stage 1 (the search) and go straight to the "
                         "winner ensembles")
+    # elastic execution (reliability/ledger.py + scheduler.py)
+    p.add_argument("--workers", type=int, default=0, metavar="N",
+                   help="Elastic search: run stage 1 as N supervise-wrapped "
+                        "worker processes claiming architecture buckets "
+                        "from a leased, ledger-backed work queue (dead "
+                        "workers' leases expire and their buckets are "
+                        "re-claimed; poison buckets quarantine). 0 "
+                        "(default) trains buckets in this process")
     p.add_argument("--resume-from-ledger", action="store_true",
                    dest="resume_from_ledger",
                    help="Resume stage 1 from the save dir's bucket ledger: "
                         "completed buckets load from their verified records "
                         "instead of retraining (without it the ledger is "
-                        "cleared first); a record written at another "
+                        "cleared first; the supervisor appends this on "
+                        "sweep restarts); a record written at another "
                         "--compute_dtype or --kernel is retrained")
+    p.add_argument("--metrics_port", type=int, default=None, metavar="PORT",
+                   help="Serve live Prometheus metrics on "
+                        "http://127.0.0.1:PORT/metrics while the sweep runs "
+                        "(read-only stdlib sidecar over the coordinator's "
+                        "counters/gauges/span histograms; port 0 picks a "
+                        "free one, printed at startup)")
     p.add_argument("--search_only", action="store_true",
-                   help="Stop after stage 1: write sweep_ranking.json and "
-                        "exit")
+                   help="Stop after stage 1: write sweep_ranking.json "
+                        "(plus sweep_coverage.json when degraded) and exit")
+    p.add_argument("--lease_timeout", type=float, default=120.0, metavar="S",
+                   help="Elastic: lease staleness after which a worker's "
+                        "claimed bucket is presumed dead and re-claimable")
+    p.add_argument("--max_bucket_attempts", type=int, default=3, metavar="K",
+                   help="Elastic: claims a bucket may consume without ever "
+                        "completing before it is quarantined as poison")
+    p.add_argument("--retry_backoff", type=float, default=2.0, metavar="S",
+                   help="Elastic: per-bucket retry backoff base (doubles "
+                        "per attempt — the supervisor's backoff curve)")
+    p.add_argument("--bucket_timeout", type=float, default=3600.0,
+                   metavar="S",
+                   help="Elastic: per-bucket wall budget. While a bucket "
+                        "trains, the lease keeper beats the worker "
+                        "heartbeat (so long buckets are NOT hang-killed); "
+                        "past this budget it goes silent, the worker is "
+                        "killed as hung, and the bucket is reclaimed — "
+                        "repeated overruns quarantine it")
+    p.add_argument("--worker", action="store_true",
+                   help="Run as one elastic worker: claim buckets from the "
+                        "save_dir's existing queue until drained (normally "
+                        "spawned by --workers N, not by hand)")
+    p.add_argument("--worker_id", type=str, default=None,
+                   help="Stable worker name (events.<id>.jsonl, "
+                        "heartbeat.<id>.json, manifest.<id>.json)")
+    p.add_argument("--worker_heartbeat_timeout", type=float, default=300.0,
+                   metavar="S",
+                   help="Per-worker supervision: heartbeat staleness that "
+                        "counts as a hang (the lease keeper beats through "
+                        "a training bucket, so this need not exceed bucket "
+                        "time — --bucket_timeout bounds that instead)")
+    p.add_argument("--worker_min_uptime", type=float, default=5.0,
+                   metavar="S")
+    p.add_argument("--worker_max_restarts", type=int, default=5)
+    p.add_argument("--worker_backoff", type=float, default=1.0, metavar="S")
     p.add_argument("--quorum", type=int, default=None, metavar="Q",
                    help="Ensemble quorum: proceed with ≥Q surviving "
                         "(finite) seed members per winner, dropping "
@@ -448,15 +557,263 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _worker_main(args) -> int:
+    """One elastic sweep worker: claim buckets from the save_dir's queue
+    manifest until drained. Spawned (and supervised) by the coordinating
+    ``--workers N`` process; everything that must be FLEET-consistent —
+    schedule, seeds, grid, lease policy, wire format — comes from the
+    manifest, and the execution flags from the coordinator's argv."""
+    exec_cfg = execution_config(args)  # exits naming CUDA without a card
+    device = resolve_device(exec_cfg.device)
+    save_dir = Path(args.save_dir)
+    wid = args.worker_id or f"w{os.getpid()}"
+    events = EventLog(save_dir, process_index=0,
+                      filename=f"events.{wid}.jsonl")
+    hb = Heartbeat(save_dir / f"heartbeat.{wid}.json", events=events)
+    logger = set_run_logger(RunLogger(events=events))
+    hb.beat("setup")
+    try:
+        queue = open_work_queue(save_dir, events=events)
+        meta = queue.load_manifest()
+        if meta.get("execution") not in (None, execution_of(exec_cfg)):
+            raise SystemExit(
+                f"worker {wid}: --kernel/--compute_dtype give "
+                f"{execution_of(exec_cfg)}, the queue was written for "
+                f"{meta['execution']}")
+        manifest_name = f"manifest.{wid}.json"
+        # a restarted worker carries its predecessors' plans and counts
+        prev = load_manifest(save_dir, manifest_name) or {}
+        write_manifest(save_dir, "sweep_worker", events=events,
+                       filename=manifest_name, data_dir=meta.get("data_dir"),
+                       extra={"worker": wid, "device": str(device),
+                              "execution": execution_of(exec_cfg)})
+        logger.info(f"[sweep:{wid}] elastic worker up: "
+                    f"{len(queue.items())} buckets on {device}; kernel "
+                    f"{exec_cfg.kernel}, compute dtype "
+                    f"{exec_cfg.compute_dtype}")
+        with events.span("data/load"):
+            train_ds, valid_ds, _ = load_splits_chunked(
+                meta.get("data_dir") or args.data_dir, events=events)
+        if meta.get("small_sample"):
+            train_ds = train_ds.subsample(meta["n_periods"],
+                                          meta["n_stocks"])
+            valid_ds = valid_ds.subsample(
+                min(meta["n_periods"], valid_ds.T), meta["n_stocks"])
+        bf16_wire = bool(meta.get("bf16_wire", False))
+        train_b, valid_b = (
+            device_put_batch(ds.full_batch(), device=device,
+                             bf16_wire=bf16_wire)
+            for ds in (train_ds, valid_ds))
+        # the route every bucket of this worker runs: the CUDA kernels, or
+        # their plain versions (a CPU device, --kernel off)
+        update_manifest(save_dir, filename=manifest_name, kernel_route=(
+            "cuda" if ffn_route(train_b["returns"], exec_cfg.kernel)
+            == "kernel" else "plain"))
+        hb.beat("sweep_wait")
+        programs: Dict[str, Dict] = dict(prev.get("kernel_programs") or {})
+        n = run_sweep_worker(queue, wid, train_b, valid_b, exec_cfg=exec_cfg,
+                             heartbeat=hb, programs_out=programs)
+        # the route each bucket trained on: its kernels' launch plans as
+        # the card holds them (empty on the plain route)
+        update_manifest(save_dir, filename=manifest_name,
+                        kernel_programs=programs,
+                        buckets_trained=prev.get("buckets_trained", 0) + n)
+        hb.beat("done", memory=True)
+        logger.info(f"[sweep:{wid}] queue drained; trained {n} buckets")
+    finally:
+        events.close()
+    return 0
+
+
+def _prepare_queue(args, configs, search_tcfg, save_dir, events, logger,
+                   bf16_wire, exec_cfg):
+    """The run dir's ledger + work manifest, shared by BOTH stage-1 modes
+    (in-process and elastic): writing ``sweep_ledger/queue.json`` even for
+    a single-process sweep is what lets a supervised restart detect the
+    ledger and auto-append ``--resume-from-ledger``, and lets a later
+    ``--workers N`` run adopt a partially completed single-process search.
+    With ``--resume-from-ledger`` an existing manifest is kept only when it
+    describes THIS sweep — same bucket keys in the same order (keys hash
+    config+grid+seeds+schedule); anything else is reset, discarding
+    completed records, rather than silently reusing foreign work. A kept
+    record written at another compute dtype or kernel route is dropped,
+    and its bucket retrains (as ``run_sweep`` does)."""
+    from .reliability.scheduler import WorkQueue
+    from .reliability.supervisor import RestartPolicy
+
+    ledger = SweepLedger(save_dir / LEDGER_DIRNAME)
+    queue = WorkQueue(
+        save_dir / LEDGER_DIRNAME, ledger=ledger,
+        lease_timeout_s=args.lease_timeout,
+        max_attempts=args.max_bucket_attempts,
+        backoff=RestartPolicy(backoff_base_s=args.retry_backoff,
+                              backoff_max_s=max(30.0, args.retry_backoff)),
+        events=events,
+    )
+    items = bucket_work_items(configs, args.search_seeds, search_tcfg)
+    execution = execution_of(exec_cfg)
+    meta = {
+        "kind": "sweep_queue",
+        "tcfg": dataclasses.asdict(search_tcfg),
+        "seeds": [int(s) for s in args.search_seeds],
+        "member_chunk": args.member_chunk,
+        "bf16_wire": bool(bf16_wire),
+        "data_dir": args.data_dir,
+        "small_sample": bool(args.small_sample),
+        "n_periods": args.n_periods,
+        "n_stocks": args.n_stocks,
+        "lease_timeout_s": args.lease_timeout,
+        "max_attempts": args.max_bucket_attempts,
+        "retry_backoff_s": args.retry_backoff,
+        "bucket_timeout_s": args.bucket_timeout,
+        "execution": execution,
+    }
+    keep = False
+    if args.resume_from_ledger and queue.queue_path().exists():
+        try:
+            old = queue.load_manifest()
+            keep = ([it["key"] for it in old.get("items", [])]
+                    == [it["key"] for it in items])
+        except (ValueError, FileNotFoundError, KeyError):
+            keep = False
+        if not keep:
+            logger.warning(
+                "[sweep] existing ledger does not match this grid/schedule; "
+                "resetting it (completed records discarded)")
+    if not keep:
+        ledger.reset()
+    else:
+        for it in items:
+            key = it["key"]
+            if (ledger.has(key)
+                    and ledger.load(key).get("execution") != execution):
+                logger.warning(
+                    f"[sweep] ledger record {key[:12]} ran at another "
+                    f"execution than {execution}: retraining its bucket")
+                clear_generations(ledger.record_path(key))
+    # write (or, on resume, REwrite) the manifest: the work list is
+    # identical on a kept resume, but this invocation's fleet policy —
+    # lease timeout, attempt budget, retry backoff — must win over the
+    # stale one (records and quarantine markers are untouched either way)
+    queue.write_manifest(items, meta)
+    return ledger, queue
+
+
+def _elastic_search(args, queue, save_dir, events, hb, logger):
+    """Stage 1 as a supervised worker fleet: run N supervise-wrapped
+    ``--worker`` children against the prepared work manifest, rebuild the
+    ranking (and its coverage manifest) from the ledger. Returns
+    ``(ranked, coverage, worker summaries)``."""
+    from .reliability.faults import ENV_EVENTS, ENV_PLAN, ENV_STATE
+    from .reliability.scheduler import run_supervised_workers
+    from .reliability.supervisor import RestartPolicy
+
+    items = queue.items()
+    status = queue.status()
+    if status["completed"]:
+        # the fleet-level ledger-hit evidence: this many buckets are reused
+        # from the ledger, not retrained (workers skip them inside claim(),
+        # which scans every item per call — a per-scan counter there would
+        # inflate, so the coordinator records the truth once)
+        events.counter("sweep/ledger_hit", value=status["completed"])
+    logger.info(
+        f"[sweep] elastic search: {len(items)} buckets × {args.workers} "
+        f"workers (already completed: {status['completed']}, quarantined: "
+        f"{status['quarantined']})")
+
+    # fault-plan plumbing (as the supervise CLI's): a fleet sharing one
+    # state file sees ONE hit stream, so a planned kill fires exactly once
+    # across all workers and restarts
+    env = dict(os.environ)
+    if env.get(ENV_PLAN):
+        env.setdefault(ENV_STATE, str(save_dir / "fault_state.json"))
+        env.setdefault(ENV_EVENTS, str(save_dir / "events.faults.jsonl"))
+    # each worker gets the data dir and this run's execution flags (no
+    # worker falls back to the CPU); everything else is in the manifest
+    worker_cmds = {
+        f"w{i}": [sys.executable, "-m", f"{__package__}.sweep", "--worker",
+                  "--worker_id", f"w{i}", "--data_dir", args.data_dir,
+                  "--save_dir", str(save_dir), "--device", args.device,
+                  "--kernel", args.kernel,
+                  "--compute_dtype", args.compute_dtype]
+        for i in range(args.workers)
+    }
+    policy = RestartPolicy(
+        heartbeat_timeout_s=args.worker_heartbeat_timeout,
+        min_uptime_s=args.worker_min_uptime,
+        max_restarts=args.worker_max_restarts,
+        backoff_base_s=args.worker_backoff,
+    )
+    summaries: Dict[str, Dict] = {}
+    with events.span("sweep/fleet", workers=args.workers,
+                     n_buckets=len(items)):
+        fleet = threading.Thread(
+            target=lambda: summaries.update(run_supervised_workers(
+                save_dir, worker_cmds, policy=policy, env=env)),
+            name="sweep-fleet")
+        fleet.start()
+        while fleet.is_alive():
+            # the COORDINATOR's liveness: its own supervisor (if any) must
+            # see progress while it blocks on the fleet
+            hb.beat("sweep_fleet")
+            fleet.join(timeout=2.0)
+    for wid, summary in sorted(summaries.items()):
+        line = (f"[sweep] worker {wid}: outcome={summary['outcome']} "
+                f"restarts={summary['restarts']} "
+                f"hang_kills={summary['hang_kills']}")
+        if summary["outcome"] == "success":
+            logger.info(line)
+        else:
+            logger.warning(line)
+    ranked, coverage = ranking_from_ledger(queue)
+    if not ranked:
+        raise RuntimeError(
+            "elastic search completed no buckets at all — see "
+            f"{save_dir}/supervised.w*.log and the quarantine markers in "
+            f"{save_dir}/{LEDGER_DIRNAME}/quarantine/")
+    if not coverage["complete"]:
+        logger.warning(
+            f"[sweep] DEGRADED completion: {coverage['completed']}/"
+            f"{coverage['n_buckets']} buckets "
+            f"({len(coverage['quarantined'])} quarantined, "
+            f"{len(coverage['missing'])} missing) — the ranking ships "
+            "anyway; sweep_coverage.json is the explicit contract")
+    return ranked, coverage, summaries
+
+
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
+    if args.worker:
+        return _worker_main(args)
     exec_cfg = execution_config(args)  # exits naming CUDA without a card
     device = resolve_device(exec_cfg.device)
     save_dir = Path(args.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    print(f"Paper-protocol sweep on {device}; kernel {exec_cfg.kernel}, "
-          f"compute dtype {exec_cfg.compute_dtype}", flush=True)
-    train_ds, valid_ds, test_ds = load_splits_chunked(args.data_dir)
+    events = EventLog(save_dir)
+    hb = Heartbeat(save_dir / "heartbeat.json", events=events)
+    logger = set_run_logger(RunLogger(events=events))
+    hb.beat("setup")
+    sidecar = None
+    if args.metrics_port is not None:
+        sidecar = MetricsSidecar([events.metrics], port=args.metrics_port)
+        port = sidecar.start()
+        logger.info(f"metrics sidecar: http://127.0.0.1:{port}/metrics "
+                    "(Prometheus text)")
+    try:
+        _protocol(args, exec_cfg, device, save_dir, events, hb, logger,
+                  argv)
+    finally:
+        if sidecar is not None:
+            sidecar.stop()
+        events.close()
+
+
+def _protocol(args, exec_cfg, device, save_dir, events, hb, logger, argv):
+    logger.info(f"Paper-protocol sweep on {device}; kernel "
+                f"{exec_cfg.kernel}, compute dtype {exec_cfg.compute_dtype}")
+    with events.span("data/load"):
+        train_ds, valid_ds, test_ds = load_splits_chunked(args.data_dir,
+                                                          events=events)
     if args.small_sample:
         train_ds = train_ds.subsample(args.n_periods, args.n_stocks)
         valid_ds = valid_ds.subsample(min(args.n_periods, valid_ds.T),
@@ -499,22 +856,56 @@ def main(argv=None):
         for ds in (train_ds, valid_ds, test_ds))
 
     ranking = load_ranking(args.resume_ranking) if args.resume_ranking else None
+    # startup manifest: base config + both schedules + grid size, so the
+    # save dir carries its own provenance
+    write_manifest(
+        save_dir, "sweep", events=events, config=base, tcfg=search_tcfg,
+        seed=args.search_seeds[0], data_dir=args.data_dir, argv=argv,
+        extra={
+            "n_configs": len(configs),
+            "quick": bool(args.quick),
+            "top_k": args.top_k,
+            "ensemble_seeds": list(args.ensemble_seeds),
+            "ensemble_train_config": dataclasses.asdict(ensemble_tcfg),
+            "resumed_from_ranking": args.resume_ranking,
+            "workers": args.workers,
+            "resume_from_ledger": bool(args.resume_from_ledger),
+            "quorum": args.quorum,
+            "execution": execution_of(exec_cfg),
+        },
+    )
+    hb.beat("protocol")
+
     # stage-1 durability: every completed bucket lands in the save dir's
-    # ledger; a run that does not resume from it starts it afresh
-    ledger = SweepLedger(save_dir / LEDGER_DIRNAME)
-    if ranking is None and not args.resume_from_ledger:
-        ledger.reset()
+    # ledger (and the work manifest is written up front), so any restart —
+    # supervised auto --resume-from-ledger or manual — resumes from the
+    # last completed bucket, not from zero
+    coverage = None
+    if ranking is None:
+        ledger, queue = _prepare_queue(
+            args, configs, search_tcfg, save_dir, events, logger, bf16_wire,
+            exec_cfg)
+        if args.workers > 0:
+            ranking, coverage, _summaries = _elastic_search(
+                args, queue, save_dir, events, hb, logger)
+    else:
+        ledger = SweepLedger(save_dir / LEDGER_DIRNAME)
 
     if args.search_only:
         if ranking is None:
-            ranking = run_sweep(
-                configs, args.search_seeds, train_b, valid_b,
-                tcfg=search_tcfg, top_k=None, keep_params=False,
-                member_chunk=args.member_chunk, exec_cfg=exec_cfg,
-                ledger=ledger, consult_ledger=args.resume_from_ledger)
-        path = write_ranking(save_dir, ranking)
-        print(f"[sweep] search-only: ranking ({len(ranking)} points) "
-              f"written to {path}", flush=True)
+            with events.span("protocol/search", n_combos=len(configs)):
+                ranking = run_sweep(
+                    configs, args.search_seeds, train_b, valid_b,
+                    tcfg=search_tcfg, top_k=None, keep_params=False,
+                    member_chunk=args.member_chunk, exec_cfg=exec_cfg,
+                    ledger=ledger, consult_ledger=args.resume_from_ledger,
+                    heartbeat=hb)
+        path = write_ranking(save_dir, ranking, coverage)
+        if coverage is not None:
+            update_manifest(save_dir, search_coverage=coverage)
+        hb.beat("done", memory=True)
+        logger.info(f"[sweep] search-only: ranking ({len(ranking)} points) "
+                    f"written to {path}")
         return
 
     report = run_protocol(
@@ -530,10 +921,25 @@ def main(argv=None):
         quorum=args.quorum,
         ledger=ledger,
         consult_ledger=args.resume_from_ledger,
+        coverage=coverage,
+        heartbeat=hb,
     )
-    print(f"\nReport written to {save_dir / 'report.json'}", flush=True)
-    print("Grand ensemble test Sharpe: "
-          f"{report['grand_ensemble_test_sharpe']:.4f}", flush=True)
+    # late provenance into the manifest: quorum drops and degraded-search
+    # coverage only exist after the protocol ran
+    drops = {str(w["rank"]): w["dropped_seeds"]
+             for w in report["winners"] if w.get("dropped_seeds")}
+    patch = {}
+    if drops:
+        patch["quorum_drops"] = {"quorum": args.quorum,
+                                 "dropped_members": drops}
+    if coverage is not None:
+        patch["search_coverage"] = coverage
+    if patch:
+        update_manifest(save_dir, **patch)
+    hb.beat("done", memory=True)
+    logger.info(f"\nReport written to {save_dir / 'report.json'}")
+    logger.info("Grand ensemble test Sharpe: "
+                f"{report['grand_ensemble_test_sharpe']:.4f}")
 
 
 if __name__ == "__main__":

@@ -49,7 +49,10 @@ falls back one generation; nothing usable starts fresh. The meta carries
 the JAX keys plus the port's route (``kernel``, ``compute_dtype``,
 ``device``): the routes differ in summation order, so a continuation on
 another route is refused, as is one with another schedule, model, seed or
-``diag_stride``. A finished run clears every generation.
+``diag_stride``. A finished run clears every generation. The
+``trainer/phase_boundary`` fault site fires after each phase's boundary
+save (phase 3's before the state clears), as in the JAX trainer: a
+supervisor that restarts a run killed or hung there appends ``--resume``.
 
 ``diag_stride`` k adds the model-health diagnostics (``ops/diagnostics.py``)
 of the valid batch after the train step of every phase-1 and phase-3 epoch
@@ -517,6 +520,7 @@ class Trainer:
                     save_state_dict(save / "best_model_sharpe.pt",
                                     best1.params_sharpe)
                 self._save_resume(save, 1, best1, history, seed)
+            inject("trainer/phase_boundary", phase=1)
             log(f"Phase 1 done in {time.perf_counter() - t0:.1f}s; best "
                 f"valid sharpe {best1.sharpe:.4f}")
         if stop_after_phase == 1:
@@ -537,6 +541,7 @@ class Trainer:
                     save_state_dict(save / "best_model_loss.pt",
                                     best2.params_loss)
                 self._save_resume(save, 2, best1, history, seed)
+            inject("trainer/phase_boundary", phase=2)
             log(f"Phase 2 done; best train cond loss {best2.loss:.6f}")
             # phase 3 continues from the LAST-epoch moment params
         if stop_after_phase == 2:
@@ -568,7 +573,13 @@ class Trainer:
             save_state_dict(save / "final_model.pt", final)
             self._save_history(save, history)
             self.write_health(save, final, batches[1], history, log)
+            # the boundary's fault site BEFORE the resume state clears: a
+            # kill here restarts with --resume from the phase-2 boundary
+            # and rewrites the same final files
+            inject("trainer/phase_boundary", phase=3)
             self._clear_resume(save)
+        else:
+            inject("trainer/phase_boundary", phase=3)
         # the final boundary: liveness and the run's closing memory marks
         self._beat("finalize", memory=True)
         log(f"Training complete in {time.perf_counter() - t0:.1f}s "

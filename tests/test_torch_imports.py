@@ -77,7 +77,9 @@ STDLIB_ONLY = [
     "observability/manifest.py", "observability/report.py",
     "observability/logging.py", "observability/memory.py",
     "observability/programs.py",
-    "reliability/faults.py", "reliability/guard.py", "serving/batcher.py",
+    "reliability/faults.py", "reliability/guard.py",
+    "reliability/supervisor.py", "reliability/scheduler.py",
+    "reliability/ledger.py", "reliability/verified.py", "serving/batcher.py",
     "serving/flight.py", "data/download.py",
 ]
 # modules whose top level is numpy and the stdlib only

@@ -136,17 +136,29 @@ def test_truncate_file_keeps_the_bytes_asked_for(rel, tmp_path):
 
 @pytest.mark.parametrize("action", ["hang", "nan_loss"])
 def test_port_refuses_the_supervisor_actions(action):
-    """hang serves the JAX package's supervisor, which the port does not
-    have yet: a plan naming it is refused. nan_loss serves the training
-    loop's divergence guard, which the port now has: the plan is accepted
-    and the hit returns the token, as the JAX injector's does."""
+    """Both actions once served only the JAX package's supervisor and
+    divergence guard; the port now has both, and accepts each plan as the
+    JAX injector does. hang serves the supervisor's stale-heartbeat check:
+    both packages' injectors take the plan, and a hit of another site or
+    below the trigger count returns without firing (a fired hang never
+    returns, so it is fired only in supervised child processes, in
+    tests/test_torch_supervisor.py and tests/test_torch_elastic.py).
+    nan_loss serves the training loop's divergence guard: the hit returns
+    the token, as the JAX injector's does."""
     faults = _mods("torch")[0]
+    jfaults = _mods("jax")[0]
     plan = [{"site": "trainer/epoch_loop", "action": action}]
     if action == "hang":
-        with pytest.raises(faults.FaultPlanError, match="unknown action"):
-            faults.FaultInjector(plan)
+        plan[0]["trigger_count"] = 2
+        for mod in (faults, jfaults):
+            assert action in mod.ACTIONS
+            inj = mod.FaultInjector(plan)
+            assert inj.plan[0]["action"] == "hang"
+            assert inj.fire("trainer/phase_boundary", phase=1) is None
+            assert inj.fire("trainer/epoch_loop", phase="p",
+                            epochs_done=2) is None
+            assert inj.counts == [1]
         return
-    jfaults = _mods("jax")[0]
     for mod in (faults, jfaults):
         inj = mod.FaultInjector(plan)
         assert inj.fire("trainer/epoch_loop", phase="p",
@@ -331,14 +343,16 @@ def test_ledger_write_site_fires_before_any_byte(rel, tmp_path):
 
 
 def test_records_match_field_for_field(tmp_path):
-    """The port's record of a bucket is the JAX package's, but for the
-    completion time and the port's ``execution`` in place of ``worker``."""
+    """The port's record of a bucket is the JAX package's, worker
+    included, but for the completion time and the port's ``execution``."""
     args = ("k", 3, _cfg_dict(), [1e-3, 5e-4], [7],
             [[1e-3, 7.0], [5e-4, 7.0]], [0.25, float("nan")])
     execution = {"compute_dtype": "float32", "kernel": "auto"}
     a = _mods("torch")[2].make_record(*args, execution=execution,
-                                      seconds=1.23456)
+                                      worker="w", seconds=1.23456)
     b = _mods("jax")[2].make_record(*args, worker="w", seconds=1.23456)
     a.pop("completed_at"), b.pop("completed_at")
-    assert a.pop("execution") == execution and b.pop("worker") == "w"
+    assert a.pop("execution") == execution and a["worker"] == "w"
     assert a == b
+    assert _mods("torch")[2].make_record(
+        *args, execution=execution)["worker"] is None
