@@ -53,6 +53,11 @@
                                       # the training kernels' libraries,
                                       # phase 9's grid in process, then
                                       # phase 13 alone (no result line)
+    python3 chip_smoke.py --only_refit
+                                      # the training kernels' libraries
+                                      # and phase 14 alone (no result
+                                      # line; no report of phases 11 and
+                                      # 12's run dirs)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -233,6 +238,29 @@ Phases, each printing its results; any failure exits non-zero:
    for bit phase 9's. Launches of these paths (``supervised_train``,
    ``elastic_sweep``) are counted in the child processes that exit
    normally (``DLAP_LAUNCH_COUNTS``).
+14. Rolling refit and the run report, after phase 11, on phase 6's panel
+   (run dirs in ``_smoke_refit/``, removed after): the four training
+   kernels against their plain versions at the refit's shapes (S = 1 at
+   T = 24 and 36, the gate's S = 2 at T = 12) and their launch plans as
+   the card holds them; (a) the refit CLI in this process over months 24,
+   36 and 48 × seeds 1 and 2 (the paper's model, f32, 8/4/16, ignore 2,
+   the gate with a moment tolerance): every month recorded with its
+   members' sha256s, the gate in month order, the launches exactly six
+   members' and three gated months'; then ``--resume-from-ledger``: no
+   training launch (only the gate again on a rejected month), no member
+   file rewritten, the pointer's generation kept; (b) month 24 with
+   ``--kernel off``: each seed's history within the training bars; (c) a
+   supervised ``--workers 2`` fleet with kills at ``sweep/claim`` #2 and
+   ``sweep/bucket`` #3: three records, two restarts, every month's
+   ``.pt`` files and ``history.npz`` byte-identical to (a)'s and the same
+   gate outcome; (d) the report CLI: ``--json`` on (c)'s run dir, the text
+   report's startup, training, model-health and kernel-plans sections on
+   the run dirs phases 11 and 12 kept (``_smoke_report_runs/``), one
+   Chrome trace of the fleet with a lane for each worker and supervisor,
+   and ``--budget`` passing with a run-scoped spec and failing when it
+   asks for a fourth month. Launches: ``rolling_refit`` (a) and
+   ``rolling_refit_fleet`` (the workers that exit normally and the
+   coordinator's gate).
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -242,6 +270,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -3141,44 +3170,48 @@ def panel_gradient_checks(torch, K, C, card, splits, params, opts):
 # -- phase 9 ------------------------------------------------------------------
 
 
-def sweep_plan_lines(torch, K, C, tag, cfg, S, splits, card):
+def sweep_plan_lines(torch, K, C, tag, cfg, S, splits, card, prefix="sweep",
+                     Ts=None, train_T=None):
     """The launch plans of a sweep bucket's four training kernels (f32) as
-    the card holds them: the FFN forward and conditional-EM forward at the
-    train and valid splits' T, the backwards at the train split's; fails
-    if the card keeps fewer blocks resident than planned or a kernel
-    spills."""
+    the card holds them: the FFN forward and conditional-EM forward at
+    each T of `Ts` (default the train and valid splits'), the backwards at
+    `train_T` (default the train split's; 0: none); fails if the card
+    keeps fewer blocks resident than planned or a kernel spills. Lines
+    start with ``[prefix]``."""
     dev = torch.device(DEVICE)
     lay = K.ffn_layout(cfg.individual_feature_dim, cfg.hidden_dim)
     F, Kn, N, cd = cfg.individual_feature_dim, cfg.num_condition_moment, \
         splits[0].N, "float32"
-    for T in (splits[0].T, splits[1].T):
+    Ts = Ts or (splits[0].T, splits[1].T)
+    train_T = splits[0].T if train_T is None else train_T
+    for T in Ts:
         plan = K.card_fwd_plan(lay, dev, S, T, N, cd)
         info = K.fwd_plan_info(lay, S, plan)
         check(info["blocks_per_sm"] >= plan.blocks_per_sm
               and info["local_bytes"] == 0,
-              f"sweep {tag} sdf_ffn_fwd plan {plan}: the card holds "
+              f"{prefix} {tag} sdf_ffn_fwd plan {plan}: the card holds "
               f"{info['blocks_per_sm']} blocks per SM, "
               f"{info['local_bytes']} B local")
-        print(f"[sweep] {tag} plan sdf_ffn_fwd S={S} T={T} N={N} route "
+        print(f"[{prefix}] {tag} plan sdf_ffn_fwd S={S} T={T} N={N} route "
               f"{plan.route} tile {plan.tile} threads {plan.threads} members "
               f"{plan.members} smem {plan.smem_bytes} B resident "
               f"{info['blocks_per_sm']}/SM (planned {plan.blocks_per_sm}) G "
               f"{plan.G} of {plan.cells} cells regs {info['registers']} "
               f"local {info['local_bytes']} B", flush=True)
-        if T == splits[0].T:
+        if T == train_T:
             _, bp = bwd_plan_of(torch, K, lay, S, T, N)
-            print(f"[sweep] {tag} plan sdf_ffn_bwd S={S} T={T} N={N} "
+            print(f"[{prefix}] {tag} plan sdf_ffn_bwd S={S} T={T} N={N} "
                   f"{plan_text(bp)}", flush=True)
         for p in C.card_cem_plan(dev, S, T, N, F, Kn, cd):
-            if p.kernel == "bwd" and T != splits[0].T:
+            if p.kernel == "bwd" and T != train_T:
                 continue
             info = C.plan_info(p, S, T, N, F, Kn, cd)
             check(info["blocks_per_sm"] >= p.blocks_per_sm
                   and info["local_bytes"] == 0,
-                  f"sweep {tag} cond_em_{p.kernel} plan {p}: the card holds "
-                  f"{info['blocks_per_sm']} blocks per SM, "
+                  f"{prefix} {tag} cond_em_{p.kernel} plan {p}: the card "
+                  f"holds {info['blocks_per_sm']} blocks per SM, "
                   f"{info['local_bytes']} B local")
-            print(f"[sweep] {tag} plan cond_em_{p.kernel} S={S} T={T} N={N} "
+            print(f"[{prefix}] {tag} plan cond_em_{p.kernel} S={S} T={T} N={N} "
                   f"K={Kn} route {p.route} tile {p.tile} members "
                   f"{p.members} threads {p.threads} var {p.var} stages "
                   f"{p.stages} smem {p.smem_bytes} B resident "
@@ -4283,6 +4316,7 @@ def data_plane_phase(torch, K, C, card):
     chunked = chunked_checks(card, ref_splits)
     del ref_splits
     launches, cli = real_shape_cli(torch, K, C, card)
+    keep_for_report(REAL_DIR / "run_bfloat16_pipeline", "phase11")
     shutil.rmtree(REAL_DIR, ignore_errors=True)
     print(f"[data] phase 11 done in {time.perf_counter() - t_phase:.1f} s "
           f"({card})", flush=True)
@@ -4627,6 +4661,7 @@ def ops_plane_phase(torch, K, C, card, splits):
     try:
         launches, walls = ops_plane_runs(torch, K, C, card, splits)
         ops_cli_checks(torch, card)
+        keep_for_report(OPS_DIR / "cli", "phase12")
     finally:
         _fault_plan(None)
         shutil.rmtree(OPS_DIR, ignore_errors=True)
@@ -5036,6 +5071,428 @@ def elastic_reference(torch, splits):
     return ranked
 
 
+# ---------------------------------------------------------------------------
+# 14. rolling refit and the run report
+# ---------------------------------------------------------------------------
+
+REFIT_DIR = ROOT / "_smoke_refit"
+# run dirs of phases 11 and 12, kept for phase 14's report
+REPORT_RUNS = ROOT / "_smoke_report_runs"
+# the refit: the paper's model on phase 6's panel and schedule, two seeds a
+# month, three walk-forward months of the 48-month train split, f32
+REFIT_MONTHS = (24, 36, 48)
+REFIT_SEEDS = (1, 2)
+# the fleet: two workers, leases of a few seconds, an attempt budget that
+# outlasts both kills landing on one month
+REFIT_FLEET_FLAGS = ["--workers", "2", "--lease_timeout", "5",
+                     "--worker_heartbeat_timeout", "120",
+                     "--worker_min_uptime", "1", "--worker_backoff", "0.5",
+                     "--worker_max_restarts", "8", "--retry_backoff", "0.5",
+                     "--max_bucket_attempts", "4"]
+REFIT_KILLS = [
+    {"site": "sweep/claim", "action": "kill", "trigger_count": 2},
+    {"site": "sweep/bucket", "action": "kill", "trigger_count": 3},
+]
+# the gate's model-health check (phase 10's tolerance): its diagnostics
+# pass runs the conditional-EM forward at the gate's S = 2
+REFIT_MOMENT_TOLERANCE = 1.0
+# launches (sdf_ffn_fwd, sdf_ffn_bwd, cond_em_fwd, cond_em_bwd) of one
+# refit member past its epochs (SWEEP_PER_EPOCH: the refit, like the
+# search, evaluates no test split): the health.json pass on the valid
+# split; and of one gated month: the gate's diagnostics pass and
+# ensemble_metrics over its two members (S = 2)
+REFIT_HEALTH_PASS = (1, 0, 1, 0)
+REFIT_GATE_PASS = (2, 0, 1, 0)
+# a member's files that must be byte-identical across runs
+REFIT_FILES = ("best_model_sharpe.pt", "best_model_loss.pt",
+               "final_model.pt", "history.npz")
+
+
+def keep_for_report(src, name):
+    """Keep a copy of run dir `src` for phase 14's report checks."""
+    REPORT_RUNS.mkdir(parents=True, exist_ok=True)
+    dst = REPORT_RUNS / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+
+
+def refit_argv(run_dir, months=REFIT_MONTHS, extra=()):
+    return ["--data_dir", str(DATA_DIR), "--run_dir", str(run_dir),
+            "--months", *map(str, months),
+            "--seeds", *map(str, REFIT_SEEDS),
+            "--epochs_unc", str(SCHEDULE["num_epochs_unc"]),
+            "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
+            "--epochs", str(SCHEDULE["num_epochs"]),
+            "--ignore_epoch", str(SCHEDULE["ignore_epoch"]),
+            "--hidden_dim", "64", "64", "--rnn_dim", "4",
+            "--num_moments", "8", "--dropout", str(DROPOUT),
+            "--moment_tolerance", str(REFIT_MOMENT_TOLERANCE),
+            "--device", DEVICE, "--compute_dtype", "float32", *extra]
+
+
+def refit_member_launches():
+    """The predicted launches of one refit member."""
+    epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+              "moment": SCHEDULE["num_epochs_moment"],
+              "conditional": SCHEDULE["num_epochs"]}
+    return tuple(sum(SWEEP_PER_EPOCH[p][i] * n for p, n in epochs.items())
+                 + REFIT_HEALTH_PASS[i] for i in range(4))
+
+
+def _refit_records(run_dir):
+    """{month: ledger record} of a refit run dir."""
+    return {r["month"]: r for r in (
+        json.loads(p.read_text()) for p in
+        (Path(run_dir) / "sweep_ledger" / "records").glob("*.json"))}
+
+
+def _gate_outcome(run_dir):
+    """(promoted sources, [(rejected source, reason)]) from the first run
+    of a refit coordinator's events."""
+    rows = _events(run_dir, "events.jsonl")
+    rows = [r for r in rows if r.get("run_id") == rows[0].get("run_id")]
+    return ([r["source"] for r in rows if r.get("kind") == "counter"
+             and r.get("name") == "promote/advance"],
+            [(r["source"], r["reason"]) for r in rows
+             if r.get("kind") == "counter"
+             and r.get("name") == "promote/reject"])
+
+
+def _member_files(run_dir):
+    return {p.relative_to(run_dir): p.stat().st_mtime_ns
+            for p in Path(run_dir).glob("refits/*/*/*") if p.is_file()}
+
+
+def refit_kernel_checks(torch, K, C, card):
+    """The four training kernels against their plain versions at the
+    refit's shapes: S = 1 at each window's T (dropout 0.05) and the gate's
+    S = 2 at the valid split's T (no dropout: an eval forward), f32,
+    N = 10,000; then each shape's launch plans as the card holds them.
+    Returns {kernel: {case: row}} for the kernels line."""
+    global CEM_T
+    N = PANEL["n_stocks"]
+    Tv = PANEL["n_periods_valid"]
+    train = [(1, T, N) for T in REFIT_MONTHS if T != CEM_T]
+    rows = {n: {} for n in TRAIN_KERNELS}
+    fwd = wide_checks(torch, K, card, "fwd", [(64, 64)], train,
+                      ("float32",), DROPOUT)
+    fwd.update(wide_checks(torch, K, card, "fwd", [(64, 64)],
+                           [(2, Tv, N)], ("float32",), 0.0))
+    for (_, S, T, _, _), r in fwd.items():
+        rows["sdf_ffn_fwd"][f"S={S} T={T}"] = r
+    for (S, T, _, _, _), r in ffn_bwd_checks(
+            torch, K, card, (64, 64), train, ("float32",),
+            (DROPOUT,)).items():
+        rows["sdf_ffn_bwd"][f"S={S} T={T}"] = r
+    saved = CEM_T
+    try:
+        for S, T in [(1, T) for _, T, _ in train] + [(2, Tv)]:
+            CEM_T = T
+            cem = cond_em_checks(torch, C, card, (8,), [(S, N)],
+                                 ("float32",), odd=False)
+            for k in ("fwd", "bwd") if S == 1 else ("fwd",):
+                rows[f"cond_em_{k}"][f"S={S} T={T}"] = cem[
+                    (k, S, N, 8, "float32")]
+    finally:
+        CEM_T = saved
+    return rows
+
+
+def refit_plan_lines(torch, K, C, card, splits):
+    """The launch plans of the refit's kernels as the card holds them: each
+    window's training (S = 1 at T = the month, the valid split's evals),
+    then the gate's validation pass (S = 2 at the valid split's T)."""
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import GANConfig
+
+    train = splits[0]
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim)
+    Tv = splits[1].T
+    for month in REFIT_MONTHS:
+        sweep_plan_lines(torch, K, C, f"month {month}", cfg, 1, splits, card,
+                         prefix="refit", Ts=(month, Tv), train_T=month)
+    sweep_plan_lines(torch, K, C, "gate", cfg, len(REFIT_SEEDS), splits,
+                     card, prefix="refit", Ts=(Tv,), train_T=0)
+
+
+def refit_in_process(torch, K, C, card):
+    """(a) the refit CLI in this process, --workers 0, then again with
+    --resume-from-ledger; (b) month 24 again with --kernel off. Returns
+    (a)'s run dir, its launches and its walls."""
+    from deeplearninginassetpricing_paperreplication_torch import refit
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .promotion import read_pointer
+
+    run = REFIT_DIR / "in_process"
+    K.reset_launch_count()
+    C.reset_launch_count()
+    t0 = time.perf_counter()
+    check(refit.main(refit_argv(run)) == 0, "the refit exited non-zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(TRAIN_KERNELS, counts(K, C)))
+    records = _refit_records(run)
+    check(sorted(records) == list(REFIT_MONTHS)
+          and all(r["worker"] == "inline" and r["execution"] == {
+              "compute_dtype": "float32", "kernel": "auto"}
+              for r in records.values()),
+          f"refit records {sorted(records)}")
+    for r in records.values():
+        for m in r["members"]:
+            data = (Path(m["dir"]) / m["file"]).read_bytes()
+            check(hashlib.sha256(data).hexdigest() == m["sha256"],
+                  f"{m['dir']}: {m['file']} differs from its record")
+    promoted, rejected = _gate_outcome(run)
+    gated = len(promoted) + len(rejected)
+    check(gated == len(REFIT_MONTHS) and promoted,
+          f"gate: promoted {promoted}, rejected {rejected}")
+    member = refit_member_launches()
+    want = tuple(len(REFIT_MONTHS) * len(REFIT_SEEDS) * member[i]
+                 + gated * REFIT_GATE_PASS[i] for i in range(4))
+    check(tuple(launches.values()) == want,
+          f"refit launches {launches}, predicted {want} ({member} a "
+          f"member, {REFIT_GATE_PASS} a gated month)")
+    pointer = read_pointer(run)
+    walls = {m: r["seconds"] for m, r in sorted(records.items())}
+    print(f"[refit] (a) refit CLI in process, months {list(REFIT_MONTHS)} x "
+          f"seeds {list(REFIT_SEEDS)} (f32, 8/4/16): {wall:.1f} s; month "
+          f"walls s {walls}; promoted {promoted}, rejected {rejected}; "
+          f"pointer generation {pointer['generation']} ({pointer['source']})"
+          f"; launches {launches} = {len(REFIT_MONTHS) * len(REFIT_SEEDS)} "
+          f"members x {member} + {gated} gated months x {REFIT_GATE_PASS} "
+          f"({card})", flush=True)
+
+    # the resume trains nothing; as in the JAX package, only the months
+    # the gate rejected go through it again (a promoted month is skipped)
+    before = _member_files(run)
+    K.reset_launch_count()
+    C.reset_launch_count()
+    t0 = time.perf_counter()
+    check(refit.main(refit_argv(run, extra=["--resume-from-ledger"])) == 0,
+          "the resumed refit exited non-zero")
+    resume_wall = time.perf_counter() - t0
+    hits = _count(_events(run, "events.jsonl"), "sweep/ledger_hit")
+    regated = tuple(len(rejected) * n for n in REFIT_GATE_PASS)
+    check(counts(K, C) == regated,
+          f"the resumed refit launched {counts(K, C)}, not the gate passes "
+          f"of its {len(rejected)} rejected months {regated}")
+    check(_member_files(run) == before, "the resumed refit rewrote a member "
+                                        "file")
+    check(read_pointer(run)["generation"] == pointer["generation"],
+          "the resumed refit moved the pointer")
+    print(f"[refit] (a) --resume-from-ledger: {resume_wall:.1f} s; no "
+          f"training launch (launches {counts(K, C)}: the gate again on the "
+          f"{len(rejected)} rejected months), {len(before)} member files "
+          f"untouched (mtimes), pointer generation {pointer['generation']}; "
+          f"ledger hits {hits} ({card})", flush=True)
+
+    plain = REFIT_DIR / "kernel_off"
+    month = REFIT_MONTHS[0]
+    t0 = time.perf_counter()
+    check(refit.main(refit_argv(plain, (month,), ["--kernel", "off",
+                                                  "--no_promote"])) == 0,
+          "the --kernel off refit exited non-zero")
+    off_wall = time.perf_counter() - t0
+    devs = []
+    for s in REFIT_SEEDS:
+        sub = Path("refits") / f"m{month:04d}" / f"seed{s}"
+        d_loss, d_sharpe, where = _history_devs(
+            np.load(run / sub / "history.npz"),
+            np.load(plain / sub / "history.npz"))
+        check(d_loss <= 1e-3 and d_sharpe <= 5e-3,
+              f"refit month {month} seed {s}: the kernel route deviates from "
+              f"--kernel off: loss rel {d_loss:.3e} at {where}, Sharpe "
+              f"{d_sharpe:.3e}")
+        devs.append((d_loss, d_sharpe))
+    print(f"[refit] (b) month {month} with --kernel off: {off_wall:.1f} s; "
+          f"each seed's history within the training bars of the kernel "
+          f"route's: (loss rel, Sharpe) {devs} ({card})", flush=True)
+    return run, launches, dict(wall=wall, month_walls=walls,
+                               resume_wall=resume_wall, off_wall=off_wall)
+
+
+def refit_fleet(torch, K, C, card, ref):
+    """(c) a supervised --workers 2 refit with kills at sweep/claim #2 and
+    sweep/bucket #3: every month's member files byte-identical to (a)'s,
+    the same months promoted and rejected, three records, two restarts.
+    Returns its run dir, the launches (the workers that exited normally,
+    and the coordinator's gate) and its walls."""
+    from deeplearninginassetpricing_paperreplication_torch import refit
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        ENV_LAUNCH_COUNTS,
+    )
+
+    run = REFIT_DIR / "fleet"
+    run.mkdir(parents=True)
+    os.environ[ENV_LAUNCH_COUNTS] = str(run / "launches.jsonl")
+    _fault_plan(REFIT_KILLS)
+    K.reset_launch_count()
+    C.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        rc = refit.main(refit_argv(run, extra=REFIT_FLEET_FLAGS))
+    finally:
+        os.environ.pop(ENV_LAUNCH_COUNTS, None)
+        _fault_plan(None)
+    wall = time.perf_counter() - t0
+    gate = counts(K, C)
+    check(rc == 0, "the refit fleet's coordinator exited non-zero")
+    records = _refit_records(run)
+    check(sorted(records) == list(REFIT_MONTHS)
+          and all(r["worker"] in ("w0", "w1") for r in records.values()),
+          f"fleet records {sorted(records)}, workers "
+          f"{[r['worker'] for r in records.values()]}")
+    for month in REFIT_MONTHS:
+        for s in REFIT_SEEDS:
+            sub = Path("refits") / f"m{month:04d}" / f"seed{s}"
+            for f in REFIT_FILES:
+                check((run / sub / f).read_bytes()
+                      == (ref / sub / f).read_bytes(),
+                      f"fleet {sub}/{f} differs from the in-process run's")
+    outcome, ref_outcome = _gate_outcome(run), _gate_outcome(ref)
+    check(outcome == ref_outcome, f"fleet gate {outcome}, in process "
+                                  f"{ref_outcome}")
+    faults = _events(run, "events.faults.jsonl")
+    check(sorted((r["site"], r["action"]) for r in faults)
+          == sorted((p["site"], p["action"]) for p in REFIT_KILLS),
+          f"fired faults {faults}")
+    rows = _events(run)
+    restarts = _count(rows, "supervise/restart")
+    check(restarts == len(REFIT_KILLS)
+          and _count(rows, "sweep/ledger_write") == len(REFIT_MONTHS),
+          f"{restarts} restarts for {len(REFIT_KILLS)} kills; ledger writes "
+          f"{_count(rows, 'sweep/ledger_write')} (a month retrained?)")
+    for wid in ("w0", "w1"):
+        m = json.loads((run / f"manifest.{wid}.json").read_text())
+        check(m["kernel_route"] == "cuda" and m["execution"] == {
+            "compute_dtype": "float32", "kernel": "auto"}
+            and "--resume" not in m["argv"],
+            f"{wid}'s manifest: route {m['kernel_route']}, execution "
+            f"{m['execution']}, argv {m['argv']}")
+    worker_rows = _launch_rows(run / "launches.jsonl")
+    workers = _sum_launches(worker_rows)
+    launches = {k: workers[k] + n for k, n in zip(TRAIN_KERNELS, gate)}
+    gated = len(ref_outcome[0]) + len(ref_outcome[1])
+    check(gate == tuple(gated * n for n in REFIT_GATE_PASS),
+          f"the fleet coordinator's gate launched {gate}")
+    walls = {m: r["seconds"] for m, r in sorted(records.items())}
+    print(f"[refit] (c) supervised --workers 2, kills at sweep/claim #2 and "
+          f"sweep/bucket #3: {wall:.1f} s; {len(records)} records by "
+          f"{ {m: r['worker'] for m, r in sorted(records.items())} }, "
+          f"month walls s {walls}; restarts {restarts}, takeovers "
+          f"{_count(rows, 'sweep/lease_takeover')}; every month's "
+          f"{', '.join(REFIT_FILES)} byte-identical to (a)'s; gate "
+          f"{outcome} as (a); launches of the {len(worker_rows)} workers "
+          f"that exited normally {workers} + the gate {gate} ({card})",
+          flush=True)
+    return run, launches, dict(wall=wall, month_walls=walls,
+                               restarts=restarts)
+
+
+def _report(*argv):
+    return subprocess.run([sys.executable, "-m", f"{PKG}.report", *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+
+
+def refit_report_checks(card, fleet):
+    """(d) the report CLI: --json on (c)'s run dir, the text report on
+    phases 11 and 12's run dirs, --trace of (c)'s fleet, --budget with a
+    run-scoped spec that holds and one that asks for a fourth month."""
+    t0 = time.perf_counter()
+    out = _report(str(fleet), "--json")
+    check(out.returncode == 0, f"report --json exited {out.returncode}: "
+                               + out.stderr[-2000:])
+    s = json.loads(out.stdout)
+    check(s["elastic"]["buckets_completed"] == len(REFIT_MONTHS)
+          and s["reliability"]["restarts"] == len(REFIT_KILLS),
+          f"report --json: elastic {s['elastic']}, reliability "
+          f"{s['reliability']}")
+    kept = []
+    for name in ("phase11", "phase12"):
+        run = REPORT_RUNS / name
+        if not run.is_dir():
+            print(f"[refit] (d) report on {name}'s run dir: not run "
+                  f"({name} did not run)", flush=True)
+            continue
+        out = _report(str(run))
+        check(out.returncode == 0 and "startup breakdown" in out.stdout
+              and "per-phase throughput" in out.stdout
+              and "phase3_conditional" in out.stdout
+              and "kernel launch plans" in out.stdout
+              and "model health:" in out.stdout,
+              f"report on {name}'s run dir:\n{out.stdout[-3000:]}")
+        kept.append(name)
+    trace_path = REFIT_DIR / "fleet_trace.json"
+    out = _report(str(fleet), "--trace", str(trace_path))
+    check(out.returncode == 0, f"report --trace exited {out.returncode}: "
+                               + out.stderr[-2000:])
+    trace = json.loads(trace_path.read_text())
+    lanes = {e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    for lane in ("events.jsonl", "events.w0.jsonl", "events.w1.jsonl",
+                 "events.supervisor.w0.jsonl", "events.supervisor.w1.jsonl"):
+        check(lane in lanes, f"the fleet's trace has no {lane} lane: "
+                             f"{sorted(lanes)}")
+    spans = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    check({"refit/bucket", "refit/fleet"} <= spans,
+          f"the fleet's trace lacks the refit spans: {sorted(spans)[:20]}")
+    rcs = {}
+    for months in (len(REFIT_MONTHS), len(REFIT_MONTHS) + 1):
+        spec = REFIT_DIR / f"budget_{months}.json"
+        spec.write_text(json.dumps({"schema": 1, "budgets": [
+            {"name": "refit_months", "metric": "elastic.buckets_completed",
+             "equals": months},
+            {"name": "refit_restarts", "metric": "reliability.restarts",
+             "max": len(REFIT_KILLS)}]}))
+        rcs[months] = _report(str(fleet), "--budget", str(spec)).returncode
+    check(rcs[len(REFIT_MONTHS)] == 0 and rcs[len(REFIT_MONTHS) + 1] != 0,
+          f"report --budget exit codes {rcs}")
+    print(f"[refit] (d) report: --json buckets_completed "
+          f"{s['elastic']['buckets_completed']}, restarts "
+          f"{s['reliability']['restarts']}; the startup and training "
+          f"sections on {kept}; --trace {trace['otherData']['n_files']} lanes "
+          f"({', '.join(sorted(lanes))}), "
+          f"{trace['otherData']['n_span_events']} spans, "
+          f"{trace['otherData']['n_synthesized_ends']} synthesized ends; "
+          f"--budget rc {rcs}; {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+
+
+def refit_phase(torch, K, C, card, splits):
+    """(14) Rolling refit and the run report on phase 6's panel; returns
+    the two refit paths' launches by kernel and the kernel rows at the
+    refit's shapes."""
+    t0 = time.perf_counter()
+    shutil.rmtree(REFIT_DIR, ignore_errors=True)
+    REFIT_DIR.mkdir(parents=True)
+    # the fleet's workers import the package from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p and p != str(ROOT)])
+    try:
+        rows = refit_kernel_checks(torch, K, C, card)
+        refit_plan_lines(torch, K, C, card, splits)
+        ref, in_process, a_walls = refit_in_process(torch, K, C, card)
+        fleet, fleet_launches, c_walls = refit_fleet(torch, K, C, card, ref)
+        refit_report_checks(card, fleet)
+    finally:
+        _fault_plan(None)
+        shutil.rmtree(REFIT_DIR, ignore_errors=True)
+        shutil.rmtree(REPORT_RUNS, ignore_errors=True)
+    for path, launches in (("rolling_refit", in_process),
+                           ("rolling_refit_fleet", fleet_launches)):
+        for name, n in launches.items():
+            check(n > 0, f"the {path} path launched {name} no time")
+    print(f"[refit] phase 14 done in {time.perf_counter() - t0:.1f} s; "
+          f"(a) {a_walls['wall']:.1f} s, resume {a_walls['resume_wall']:.1f}"
+          f" s, (b) {a_walls['off_wall']:.1f} s, (c) {c_walls['wall']:.1f} s"
+          f" ({card})", flush=True)
+    return dict(rolling_refit=in_process, rolling_refit_fleet=fleet_launches,
+                rows=rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5099,6 +5556,11 @@ def main(argv=None) -> int:
                          "phase 6's panel (a short call while the guard, "
                          "resume or the train CLI's telemetry change); no "
                          "result line")
+    ap.add_argument("--only_refit", action="store_true",
+                    help="build the training kernels' libraries only and run "
+                         "phase 14, rolling refit and the run report on "
+                         "phase 6's panel (a short call while the refit or "
+                         "report CLI change); no result line")
     ap.add_argument("--only_elastic", action="store_true",
                     help="build the training kernels' libraries only and run "
                          "phase 13, the supervisor and the elastic sweep on "
@@ -5120,6 +5582,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(CACHE_DIR, ignore_errors=True)
         shutil.rmtree(REAL_DIR, ignore_errors=True)
+        shutil.rmtree(REPORT_RUNS, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -5161,7 +5624,8 @@ def run_phases(opts, torch) -> int:
     # 2. build: every library, all nvcc processes started together
     t0 = time.perf_counter()
     jobs = (K.build_jobs([64], kernels=("fwd", "bwd")) + C.build_jobs()
-            if opts.only_data or opts.only_ops or opts.only_elastic
+            if (opts.only_data or opts.only_ops or opts.only_elastic
+                or opts.only_refit)
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",))
@@ -5182,13 +5646,14 @@ def run_phases(opts, torch) -> int:
               else ("fwd",) if opts.only_fwd or opts.only_serve
               else () if (opts.only_cem or opts.only_ceiling
                           or opts.only_data or opts.only_ops
-                          or opts.only_elastic)
+                          or opts.only_elastic or opts.only_refit)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
               else [] if (opts.only_bwd or opts.only_dx or opts.only_fwd
                           or opts.only_serve or opts.only_data
-                          or opts.only_ops or opts.only_elastic)
+                          or opts.only_ops or opts.only_elastic
+                          or opts.only_refit)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -5211,6 +5676,15 @@ def run_phases(opts, torch) -> int:
             splits = make_panel()
             elastic_phase(torch, card, splits,
                           elastic_reference(torch, splits))
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+
+    if opts.only_refit:
+        # rolling refit and the run report alone: phase 14 on phase 6's
+        # panel (the report's phase 11 and 12 run dirs are not there)
+        try:
+            refit_phase(torch, K, C, card, make_panel())
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
@@ -5389,10 +5863,14 @@ def run_phases(opts, torch) -> int:
     # 13. the supervisor and the elastic sweep on phase 6's panel, held
     # against phase 9's in-process ranking
     elastic = elastic_phase(torch, card, splits, sweep_ranked)
-    shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     # 11. the data plane at the real panel shape
     data = data_plane_phase(torch, K, C, card)
+
+    # 14. rolling refit and the run report on phase 6's panel (the report
+    # also reads the run dirs phases 11 and 12 kept)
+    refits = refit_phase(torch, K, C, card, splits)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
@@ -5418,9 +5896,14 @@ def run_phases(opts, torch) -> int:
         # elastic workers that exited normally (ops.ENV_LAUNCH_COUNTS)
         paths["supervised_train"] = elastic["supervised_train"][name]
         paths["elastic_sweep"] = elastic["elastic_sweep"][name]
+        # the refit in process (its gate at S = 2 included), and the
+        # fleet's workers that exited normally plus its coordinator's gate
+        paths["rolling_refit"] = refits["rolling_refit"][name]
+        paths["rolling_refit_fleet"] = refits["rolling_refit_fleet"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
-                    at_sweep_shapes=sweep_rows[name])
+                    at_sweep_shapes=sweep_rows[name],
+                    at_refit_shapes=refits["rows"][name])
 
     def grad_path(name):
         n = grad_launches[name]

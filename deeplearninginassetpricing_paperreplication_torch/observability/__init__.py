@@ -17,13 +17,21 @@ package's ``observability/``. Nothing here imports torch at module level:
     (``kernel_programs`` in ``manifest.json``; ``xla.py``'s counterpart);
   * :mod:`.manifest`     — ``manifest.json``: config hash, versions, the
     CUDA devices, git sha;
-  * :mod:`.report`       — the latency percentiles ``/metrics`` reports;
+  * :mod:`.report`       — the report CLI over a run dir's artifacts
+    (``python -m ...report``: phases, startup, serving, reliability,
+    elastic, promotion, model health, kernel plans) and the latency
+    percentiles ``/metrics`` reports;
+  * :mod:`.trace`        — a run dir's event-file family assembled into one
+    Chrome trace (``report --trace``);
+  * :mod:`.budgets`      — declarative perf budgets checked against
+    ``BENCH_*.json`` files and run summaries (``report --budget``);
   * :mod:`.drift`        — reference profiles of a panel and PSI/KS drift
     scores against them (numpy only);
   * :mod:`.modelhealth`  — ``health.json``, the gate's health thresholds and
     the candidate diagnostics (torch loaded lazily).
 """
 
+from .budgets import check_budgets, format_budget_report
 from .events import EventLog, new_run_id
 from .heartbeat import Heartbeat, read_state, write_state
 from .logging import RunLogger, get_run_logger, set_run_logger
@@ -46,6 +54,7 @@ from .metrics import (
     prom_name,
     render_process_prom,
 )
+from .trace import assemble_trace, write_trace
 from .tracecontext import (
     TraceContext,
     format_traceparent,
@@ -63,10 +72,13 @@ __all__ = [
     "PROM_CONTENT_TYPE",
     "RunLogger",
     "TraceContext",
+    "assemble_trace",
     "build_manifest",
+    "check_budgets",
     "config_hash",
     "device_memory_snapshot",
     "feed_event",
+    "format_budget_report",
     "format_traceparent",
     "get_run_logger",
     "load_manifest",
@@ -86,4 +98,5 @@ __all__ = [
     "update_manifest",
     "write_manifest",
     "write_state",
+    "write_trace",
 ]

@@ -76,7 +76,8 @@ STDLIB_ONLY = [
     "observability/tracecontext.py", "observability/heartbeat.py",
     "observability/manifest.py", "observability/report.py",
     "observability/logging.py", "observability/memory.py",
-    "observability/programs.py",
+    "observability/programs.py", "observability/trace.py",
+    "observability/budgets.py",
     "reliability/faults.py", "reliability/guard.py",
     "reliability/supervisor.py", "reliability/scheduler.py",
     "reliability/ledger.py", "reliability/verified.py", "serving/batcher.py",
