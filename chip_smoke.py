@@ -58,6 +58,11 @@
                                       # and phase 14 alone (no result
                                       # line; no report of phases 11 and
                                       # 12's run dirs)
+    python3 chip_smoke.py --only_fleet
+                                      # the FFN forward's libraries, phase
+                                      # 4 at f32 (the answers), then phase
+                                      # 15 on stand-in members (no result
+                                      # line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -261,6 +266,31 @@ Phases, each printing its results; any failure exits non-zero:
    asks for a fourth month. Launches: ``rolling_refit`` (a) and
    ``rolling_refit_fleet`` (the workers that exit normally and the
    coordinator's gate).
+15. The serving fleet under load (``_smoke_fleet/``, removed after): the
+   paper-width ``ref_runs`` trio (f32, stock buckets of the test panel's
+   requests, batch buckets 1 and 4, cache off) served by the serving
+   CLI's supervised replicas on one ``SO_REUSEPORT`` port, booted from a
+   promotion pointer. A 2-replica fleet: the parent holds no CUDA
+   context, each replica one; (a) every test month at c = 1 over raw-f32
+   and base64 bit for bit phase 4's batch-1 answers, and 32 concurrent
+   clients within the f32 bar of the offline weights; (b) closed loops
+   at c = 32 (raw-f32, base64) and c = 4 (JSON), an open-loop raw-f32
+   ladder and the c = 32 raw-f32 loop on one replica, errors all zero,
+   per replica no capture after warmup, replays and launches counted;
+   (c) a replica SIGKILLed under open-loop load with retries: every
+   request answered, one restart, the new incarnation capturing in its
+   warmup only; (d) a ``RollingUpdater`` onto phase 4b's reload target
+   (generation 2 of the pointer, stand-in members of the same
+   architecture) under load: nothing dropped, both replicas on the
+   pointer's fingerprint; (f) the prober and the burn-rate engine on the
+   drill spec: a SIGKILLed and a SIGSTOPped replica each fire the
+   availability alert and it resolves; ``ops status`` and ``report
+   --json`` (its SLO section) on the fleet's run dir; a
+   ``/v1/debug/profile`` capture on an admin port naming sdf_ffn_fwd on
+   the device lane. A 1-replica fleet with ``--autoscale --max_replicas
+   2``: (e) ``bench_loadadapt``'s swing, a scale-up and a scale-down, no
+   interactive request dropped, bulk shed with 429s. Launches
+   (``serving_fleet``): the live replicas' at each fleet's end.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -274,6 +304,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -499,7 +530,8 @@ def within(diff: np.ndarray, ref: np.ndarray, dtype: str, rtol: float,
 
 def kernel_checks(torch, K, card):
     """The fused FFN against its plain version at the listed shapes; returns
-    the row of the shape the main path serves most (S=3, T=4, N=16384)."""
+    the row of the shape the main path serves most (S=3, T=4, N=16384,
+    bf16), with its f32 twin (the fleet's) under ``at_float32``."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
     F, hidden = 46, [64, 64]
@@ -507,7 +539,7 @@ def kernel_checks(torch, K, card):
     def rand(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    row = None
+    rows = {}
     print(f"[kernels] sdf_ffn_fwd vs sdf_ffn_reference, F={F} hidden={hidden}"
           f" ({card})", flush=True)
     for S in (1, 3):
@@ -548,13 +580,15 @@ def kernel_checks(torch, K, card):
                           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
                           f"{bound_ms:.4f} ms ({bound_by})"
                           f"  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-                    if (S, T, N, cd) == (3, 4, 16384, "bfloat16"):
-                        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
-                                   shape=f"S=3 T=4 N=16384 F={F} "
-                                         f"hidden={hidden} bfloat16")
+                    if (S, T, N) == (3, 4, 16384):
+                        rows[cd] = dict(
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            shape=f"S=3 T=4 N=16384 F={F} hidden={hidden} "
+                                  f"{cd}")
     wide_checks(torch, K, card, "fwd")
-    return row
+    # the bf16 serving shape is the row; the fleet's f32 one rides beside
+    return dict(rows["bfloat16"], at_float32=rows["float32"])
 
 
 def wide_checks(torch, K, card, kernel, hiddens=WIDE_HIDDEN,
@@ -1908,7 +1942,10 @@ def serve_and_check(torch, dtype, test, offline, bodies, card, K,
     as four concurrent requests the continuous batcher folds into one
     flush, identical concurrent requests coalesced, a repeated request
     from the cache, two macro appends; every answer held against
-    `offline`, the wires bit for bit one another."""
+    `offline`, the wires bit for bit one another. Returns the service, the
+    forward's launches, the request medians per wire and each month's
+    batch-1 answers on the raw-f32 and base64 wires (phase 15 holds a
+    fleet to them)."""
     from deeplearninginassetpricing_paperreplication_torch.observability \
         .metrics import parse_prom_text
     from deeplearninginassetpricing_paperreplication_torch.serving import (
@@ -1980,6 +2017,7 @@ def serve_and_check(torch, dtype, test, offline, bodies, card, K,
         check_sdf(t, ans_s["sdf"])
         return w, member
 
+    batch1 = {"raw": {}, "b64": {}}
     try:
         b64_answers = {}
         for t in range(test.T):  # batch bucket 1, every wire
@@ -1993,6 +2031,7 @@ def serve_and_check(torch, dtype, test, offline, bodies, card, K,
             check(sw == 200 and ss == 200, f"b64 HTTP {sw}/{ss} month {t}")
             bw_w, bs_m = check_answer(t, bw, bs)
             b64_answers[t] = bs
+            batch1["b64"][t] = bw_w.copy()
             # the wires bit for bit one another: same month, same batch
             check(np.array_equal(jw_w.astype(np.float32), bw_w)
                   and js["sdf"] == bs["sdf"]
@@ -2004,6 +2043,7 @@ def serve_and_check(torch, dtype, test, offline, bodies, card, K,
             sv, vw = timed("b64_valid", base + "/v1/sdf", body["b64_valid"])
             check(sr == 200 and sv == 200, f"raw HTTP {sr}/{sv} month {t}")
             check_weights(t, rw, avg_ref[t][valid], int(valid.sum()))
+            batch1["raw"][t] = rw.copy()
             check_sdf(t, vw["sdf"])
             sv, vw = post(base + "/v1/weights", body["b64_valid"])
             check(sv == 200 and np.array_equal(rw, _unb64(vw["weights_b64"])),
@@ -2132,7 +2172,7 @@ def serve_and_check(torch, dtype, test, offline, bodies, card, K,
                   f"row's duration {m['duration_s']:.3f} (from the handler's"
                   f" start, after the transport's JSON decode) ({card})",
                   flush=True)
-    return service, launches, med
+    return service, launches, med, batch1
 
 
 def graph_checks(torch, service, test, card):
@@ -2245,10 +2285,13 @@ def make_panel():
     return splits
 
 
-def serving_phase(torch, K, card, test, profile: bool) -> int:
-    """Phase 4 at f32 and bf16: the service through the async front end
-    (`serve_and_check`), every warmed bucket's graph against the eager
-    route, `engine.infer` timed; returns the forward's launches."""
+def serving_phase(torch, K, card, test, profile: bool,
+                  dtypes=("float32", "bfloat16")):
+    """Phase 4 at each of `dtypes`: the service through the async front
+    end (`serve_and_check`), every warmed bucket's graph against the eager
+    route, `engine.infer` timed; returns the forward's launches and what
+    phase 15 holds a fleet to: the f32 offline weights and the f32
+    batch-1 answers per wire."""
     from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
         import stack_checkpoints
     from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
@@ -2264,17 +2307,20 @@ def serving_phase(torch, K, card, test, profile: bool) -> int:
                                      device=DEVICE)
     batch = test.to_batch(DEVICE)
     launches = 0
-    for dtype in ("float32", "bfloat16"):
+    ref = {}
+    for dtype in dtypes:
         offline = ensemble_metrics(cfg, stacked, batch, ExecutionConfig(
             kernel="off", compute_dtype=dtype, device=DEVICE))
-        service, n, _ = serve_and_check(torch, dtype, test, offline, bodies,
-                                        card, K, server_mod)
+        service, n, _, answers = serve_and_check(
+            torch, dtype, test, offline, bodies, card, K, server_mod)
+        if dtype == "float32":
+            ref = dict(answers, offline=np.asarray(offline["avg_weights"]))
         launches += n
         graph_checks(torch, service, test, card)
         reqs = engine_timing(torch, service, test, card)
         if profile:
             profile_engine(torch, service, reqs, card)
-    return launches
+    return launches, ref
 
 
 def stand_in_members(torch):
@@ -5493,6 +5539,726 @@ def refit_phase(torch, K, C, card, splits):
                 rows=rows)
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+
+FLEET_DIR = ROOT / "_smoke_fleet"
+FLEET_C = 32  # closed-loop clients on the raw-f32 and base64 wires
+FLEET_JSON_C = 4  # the JSON wire's parse is ~155 ms a request at N = 10,000
+FLEET_RAW_N = 960  # requests of a closed raw-f32 loop
+FLEET_B64_N = 320
+FLEET_JSON_N = 16
+FLEET_LADDER = (0.25, 0.5, 0.75)  # open-loop rates, shares of the c = 32 rps
+FLEET_SWING_S = (4.0, 12.0, 6.0)  # base, surge, base (bench_loadadapt's swing)
+FLEET_AUTOSCALE = ["--autoscale", "--min_replicas", "1", "--max_replicas", "2",
+                   "--autoscale_poll_s", "0.25", "--autoscale_up_depth", "10",
+                   "--autoscale_down_depth", "1",
+                   "--autoscale_up_hysteresis", "2",
+                   "--autoscale_down_hysteresis", "12",
+                   "--autoscale_cooldown_s", "3", "--max_queue", "32",
+                   "--bulk_threshold", "0.5"]
+
+
+def replica_pids(run_dir: Path) -> dict:
+    """{replica id: live pid} of a CLI fleet's replicas (each one's command
+    line names its own run dir under `run_dir`)."""
+    out = {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            argv = (d / "cmdline").read_bytes().decode(errors="replace") \
+                .split("\0")
+        except OSError:
+            continue
+        if "--replica_id" in argv and "--run_dir" in argv:
+            rdir = argv[argv.index("--run_dir") + 1]
+            if Path(rdir).parent == run_dir:
+                out[int(argv[argv.index("--replica_id") + 1])] = int(d.name)
+    return out
+
+
+def nvidia_fds(pid: int) -> int:
+    """Open file descriptors of `pid` on /dev/nvidia* — a process holding a
+    CUDA context has several, one that never touched the card none."""
+    n = 0
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            n += os.readlink(fd).startswith("/dev/nvidia")
+        except OSError:
+            pass
+    return n
+
+
+def compute_app_pids():
+    """The pids `nvidia-smi --query-compute-apps=pid` lists, or None when it
+    cannot say."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    if out.returncode != 0:
+        return None
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def boot_fleet(run_dir: Path, replicas: int, extra, timeout: float = 300.0):
+    """The serving CLI's fleet (`--replicas`) as a subprocess on a free
+    port, with `extra` arguments; returns (process, base url, admin urls,
+    boot s) once every replica's heartbeat says `serve/accepting`."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .heartbeat import read_state
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        pick_free_port,
+        read_fleet_json,
+    )
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    port = pick_free_port()
+    env = {k: v for k, v in os.environ.items() if k != "DLAP_FAULT_PLAN"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p and p != str(ROOT)])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.serving.server", "--server", "async",
+         "--replicas", str(replicas), "--run_dir", str(run_dir), "--port",
+         str(port), "--device", DEVICE, "--compute_dtype", "float32",
+         "--cache_size", "0", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def ready():
+        layout = read_fleet_json(run_dir) or {}
+        ids = layout.get("replica_ids") or []
+        return len(ids) == replicas and all(
+            (read_state(run_dir / f"replica{i}" / "heartbeat.json")
+             .get("heartbeat") or {}).get("section") == "serve/accepting"
+            for i in ids)
+
+    while not ready():
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            stop_fleet(proc)
+            tails = "".join(
+                f"\n{p}:\n" + "\n".join(p.read_text(errors="replace")
+                                        .splitlines()[-15:])
+                for p in sorted(run_dir.glob("replica*/supervised.log")))
+            fail(f"the {replicas}-replica fleet did not boot: "
+                 f"{proc.stdout.read()[-3000:]}{tails}")
+        time.sleep(0.1)
+    layout = read_fleet_json(run_dir)
+    return (proc, f"http://127.0.0.1:{port}", layout["admin_urls"],
+            time.perf_counter() - t0)
+
+
+def stop_fleet(proc) -> None:
+    """SIGTERM the fleet parent (it stops its replicas), SIGKILL after 60 s."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+
+
+def _back(admin_url: str, old_run_id: str, t_kill: float,
+          timeout: float = 300.0) -> float:
+    """Seconds from `t_kill` until the replica behind `admin_url` answers
+    as a new incarnation (another run id)."""
+    while True:
+        try:
+            s, h = get(admin_url + "/healthz")
+            if s == 200 and h.get("run_id") != old_run_id:
+                return time.perf_counter() - t_kill
+        except OSError:
+            pass
+        check(time.perf_counter() - t_kill < timeout,
+              f"{admin_url} was not restarted within {timeout:.0f} s")
+        time.sleep(0.1)
+
+
+def _lat(run) -> str:
+    p = run.get("latency") or {}
+    return (f"p50 {p.get('p50_ms')} p95 {p.get('p95_ms')} p99 "
+            f"{p.get('p99_ms')} ms")
+
+
+def _metrics(url: str) -> dict:
+    return get(url + "/metrics")[1]
+
+
+def fleet_members(torch, member_dirs):
+    """The fleet's promotion pointer: generation 1 the `ref_runs` trio
+    (saved again through the verified IO, tensors unchanged, so the
+    pointer can name each member's digest), and the reload target of
+    phase 4b (`member_dirs[3:6]`, the same architecture) ready for
+    generation 2. Returns (pointer root, generation 2's head)."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .promotion import verify_member_dirs, write_pointer
+    from deeplearninginassetpricing_paperreplication_torch.serving.engine \
+        import params_digest
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import member_state_dicts, save_state_dict
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    dirs = []
+    src = [str(ROOT / d) for d in REF_RUNS]
+    _, stacked = stack_checkpoints(src, device="cpu")
+    for d, sd in zip(REF_RUNS, member_state_dicts(stacked)):
+        out = FLEET_DIR / "members" / Path(d).name
+        out.mkdir(parents=True)
+        shutil.copy(ROOT / d / "config.json", out)
+        save_state_dict(out / "best_model_sharpe.pt", sd)
+        dirs.append(str(out))
+
+    def head(ds):
+        members, rejection = verify_member_dirs(ds)
+        check(rejection is None, f"fleet members: {rejection}")
+        _, st = stack_checkpoints(ds, device="cpu")
+        return {"checkpoint_dirs": list(ds), "members": members,
+                "params_fingerprint": params_digest(st)}
+
+    ctl = FLEET_DIR / "ctl"
+    gen1 = head(dirs)
+    check(gen1["params_fingerprint"] == params_digest(stacked),
+          "the saved ref_runs trio differs from ref_runs")
+    write_pointer(ctl, gen1)
+    return ctl, head(member_dirs[3:6])
+
+
+def fleet_bodies(test):
+    """Per test month: the raw-f32 body of the valid rows and the base64
+    and JSON bodies of the full cross-section (phase 4's), plus a second
+    distinct raw body (the valid rows but the last) for the swing."""
+    from deeplearninginassetpricing_paperreplication_torch.serving.engine \
+        import DEFAULT_STOCK_BUCKETS, bucket_for
+
+    bodies = serving_bodies(test)
+    raw = [b["raw"] for b in bodies]
+    valid = [b["valid"] for b in bodies]
+    alt = [_raw_body(t, test.individual[t][valid[t]][:-1])
+           for t in range(test.T)]
+    sizes = [int(v.sum()) for v in valid] + [int(v.sum()) - 1 for v in valid]
+    buckets = sorted({bucket_for(n, DEFAULT_STOCK_BUCKETS)
+                      for n in sizes + [test.N]})
+    return dict(raw=raw, alt=alt, valid=valid,
+                b64=[b["b64"] for b in bodies],
+                json=[b["json"] for b in bodies], buckets=buckets)
+
+
+def fleet_answers(base, admin, test, ref, b):
+    """(a) every month once (c = 1) over raw-f32 and base64 through the
+    shared port: bit for bit phase 4's batch-1 answers; then every month
+    four times from 32 concurrent clients: within the f32 bar of the
+    offline weights."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    for t in range(test.T):
+        s, w = post(base + "/v1/weights", b["raw"][t], raw=True)
+        check(s == 200 and np.array_equal(w, ref["raw"][t]),
+              f"fleet raw-f32 answer != phase 4's at month {t}")
+        s, ans = post(base + "/v1/weights", b["b64"][t])
+        check(s == 200 and np.array_equal(_unb64(ans["weights_b64"]),
+                                          ref["b64"][t]),
+              f"fleet base64 answer != phase 4's at month {t}")
+    jobs = [t % test.T for t in range(4 * test.T)]
+    worst = [0.0]
+
+    def one(t):
+        s, w = post(base + "/v1/weights", b["raw"][t], raw=True)
+        check(s == 200, f"HTTP {s} under load at month {t}")
+        want = ref["offline"][t][b["valid"][t]]
+        d = np.abs(w - want)
+        check(within(d, want, "float32", **SERVE_F32_TOL),
+              f"under load, month {t} max|d| {d.max():.3e} over the f32 bar")
+        worst[0] = max(worst[0], float(d.max()))
+
+    with ThreadPoolExecutor(FLEET_C) as pool:
+        list(pool.map(one, jobs))
+    return worst[0]
+
+
+def fleet_context_check(proc, pids, card):
+    """The fleet parent holds no CUDA context, each replica one: no
+    /dev/nvidia* descriptor in the parent, some in every replica; and
+    `nvidia-smi --query-compute-apps` lists the replicas, not the parent
+    (this process's own context aside)."""
+    parent_fds = nvidia_fds(proc.pid)
+    fds = {i: nvidia_fds(p) for i, p in pids.items()}
+    check(parent_fds == 0, f"the fleet parent holds {parent_fds} "
+                           "/dev/nvidia* descriptors")
+    check(all(n > 0 for n in fds.values()),
+          f"a replica holds no /dev/nvidia* descriptor: {fds}")
+    apps = compute_app_pids()
+    if apps is not None and os.getpid() in apps:
+        listed = apps - {os.getpid()}
+        check(listed == set(pids.values()) and proc.pid not in apps,
+              f"nvidia-smi lists compute apps {sorted(apps)}; replicas "
+              f"{pids}, parent {proc.pid}, this script {os.getpid()}")
+        how = "nvidia-smi lists exactly the replicas (and this script)"
+    else:
+        how = (f"nvidia-smi's pids {sorted(apps or [])} are of another pid "
+               f"namespace: held by /proc descriptors alone")
+    print(f"[fleet] CUDA contexts: parent pid {proc.pid} 0 /dev/nvidia* "
+          f"descriptors, replicas {pids} {fds}; {how} ({card})", flush=True)
+
+
+def fleet_load(base, admin, b, card):
+    """(b) closed loops at c = 32 on raw-f32 and base64 and c = 4 on JSON,
+    an open-loop raw-f32 ladder, then the c = 32 raw-f32 loop against one
+    replica (its admin port); errors all zero; per replica: no capture
+    after warmup, graph replays and kernel launches counted."""
+    from deeplearninginassetpricing_paperreplication_torch.serving.loadgen \
+        import run_ladder, run_loadgen
+    from deeplearninginassetpricing_paperreplication_torch.serving.server \
+        import BINARY_CONTENT_TYPE
+
+    raw = b["raw"] + b["alt"]
+
+    def loop(url, pool, c, n, ctype="application/json"):
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        out = run_loadgen(url + "/v1/weights", lambda i: pool[i % len(pool)],
+                          mode="closed", concurrency=c, n_requests=n,
+                          warmup_requests=0, retries=2, content_type=ctype)
+        out["client_cpu"] = (time.process_time() - cpu0) / (
+            time.perf_counter() - t0)
+        check(out["n_ok"] == n and out["errors"] == {},
+              f"closed loop c={c}: {out['n_ok']}/{n}, errors "
+              f"{out['errors']}")
+        return out
+
+    # the bucket-4 shapes' first flushes, untimed
+    loop(base, raw, FLEET_C, 4 * len(raw), BINARY_CONTENT_TYPE)
+    runs = {"raw": loop(base, raw, FLEET_C, FLEET_RAW_N, BINARY_CONTENT_TYPE),
+            "b64": loop(base, b["b64"], FLEET_C, FLEET_B64_N),
+            "json": loop(base, b["json"], FLEET_JSON_C, FLEET_JSON_N)}
+    cap = runs["raw"]["throughput_rps"]
+    rates = [round(f * cap, 1) for f in FLEET_LADDER]
+    ladder = run_ladder(base + "/v1/weights", lambda i: raw[i % len(raw)],
+                        rates=rates, warmup_s=0.5, measure_s=2.0, retries=2,
+                        content_type=BINARY_CONTENT_TYPE)
+    for step in ladder["steps"]:
+        check(step["n_ok"] == step["n_requests"] and step["errors"] == {},
+              f"ladder step {step['offered_rate_rps']} rps: errors "
+              f"{step['errors']}")
+    one = loop(admin[0], raw, FLEET_C, FLEET_RAW_N // 2, BINARY_CONTENT_TYPE)
+    per, depth = {}, {}
+    for url in admin:
+        m = _metrics(url)
+        e = m["engine"]
+        depth[url] = m["batcher"].get("mean_queue_depth")
+        check(e["steady_state_captures"] == 0 and e["replays"] > 0
+              and e["kernel_launches"] > 0 and e["ffn_route"] == "cuda",
+              f"{url}: captures after warmup {e['steady_state_captures']}, "
+              f"replays {e['replays']}, launches {e['kernel_launches']}, "
+              f"route {e['ffn_route']}")
+        per[url] = e
+    for wire, r in runs.items():
+        c = FLEET_JSON_C if wire == "json" else FLEET_C
+        print(f"[fleet] (b) 2 replicas, {wire} c={c}: {r['n_ok']} requests "
+              f"{r['throughput_rps']} rps, {_lat(r)}, errors {r['errors']}, "
+              f"retried {r['n_retried']}; client CPU "
+              f"{r['client_cpu']:.2f} cores ({card})", flush=True)
+    for step in ladder["steps"]:
+        print(f"[fleet] (b) open loop raw-f32 {step['offered_rate_rps']} rps "
+              f"offered: {step['n_ok']}/{step['n_requests']} served, "
+              f"{_lat(step)}, late sends {step.get('late_sends')}, errors "
+              f"{step['errors']} ({card})", flush=True)
+    print(f"[fleet] (b) 1 replica, raw-f32 c={FLEET_C}: "
+          f"{one['throughput_rps']} rps, {_lat(one)}; 2-vs-1 "
+          f"{cap / one['throughput_rps']:.3f}; client CPU "
+          f"{one['client_cpu']:.2f} cores ({card})", flush=True)
+    print(f"[fleet] (b) per replica: " + "; ".join(
+        f"replica{i} captures {e['captures']} (after warmup "
+        f"{e['steady_state_captures']}), replays {e['replays']}, "
+        f"sdf_ffn_fwd launches {e['kernel_launches']}, mean queue depth "
+        f"at a flush {depth[url]}"
+        for i, (url, e) in enumerate(per.items())) + f" ({card})",
+        flush=True)
+    return dict(runs=runs, ladder=ladder, one=one, cap=cap)
+
+
+def _open_load(base, pool, rate, seconds, retries=3):
+    """An open-loop raw-f32 run on a thread; returns (thread, result)."""
+    import threading
+
+    from deeplearninginassetpricing_paperreplication_torch.serving.loadgen \
+        import run_loadgen
+    from deeplearninginassetpricing_paperreplication_torch.serving.server \
+        import BINARY_CONTENT_TYPE
+
+    out = {}
+
+    def drive():
+        out.update(run_loadgen(
+            base + "/v1/weights", lambda i: pool[i % len(pool)], mode="open",
+            rate_rps=rate, n_requests=max(1, int(rate * seconds)),
+            warmup_requests=0, retries=retries, open_workers=32,
+            content_type=BINARY_CONTENT_TYPE))
+
+    t = threading.Thread(target=drive, name="fleet-load")
+    t.start()
+    return t, out
+
+
+def _restarts(run_dir: Path, rid: int) -> int:
+    path = run_dir / f"events.supervisor.replica{rid}.jsonl"
+    return sum(json.loads(x).get("name") == "supervise/restart"
+               for x in path.read_text().splitlines() if x.strip())
+
+
+def fleet_kill(base, admin, run_dir, b, cap, n_buckets, card):
+    """(c) SIGKILL replica0 in the middle of an open-loop raw-f32 run with
+    retries: every request answered, one supervised restart, and the new
+    incarnation captures in its warmup only."""
+    raw = b["raw"] + b["alt"]
+    pid0 = replica_pids(run_dir)[0]
+    old_run = get(admin[0] + "/healthz")[1]["run_id"]
+    rate = round(0.35 * cap, 1)
+    t, load = _open_load(base, raw, rate, 6.0)
+    time.sleep(1.5)
+    os.kill(pid0, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    t.join()
+    check(load["n_ok"] == load["n_requests"] and load["errors"] == {},
+          f"(c) {load['n_requests'] - load['n_ok']} requests lost to the "
+          f"kill: {load['errors']}")
+    back = _back(admin[0], old_run, t_kill)
+    check(_restarts(run_dir, 0) == 1, f"replica0 restarted "
+                                      f"{_restarts(run_dir, 0)} times")
+    for body in raw[:8]:
+        check(post(admin[0] + "/v1/weights", body, raw=True)[0] == 200,
+              "the restarted replica does not serve")
+    e = _metrics(admin[0])["engine"]
+    check(e["captures"] == n_buckets and e["steady_state_captures"] == 0,
+          f"(c) the new incarnation: {e['captures']} captures for "
+          f"{n_buckets} buckets, {e['steady_state_captures']} after warmup")
+    print(f"[fleet] (c) SIGKILL replica0 (pid {pid0}) under {rate} rps "
+          f"open loop: {load['n_ok']}/{load['n_requests']} answered, "
+          f"{load['n_retried']} retried, {_lat(load)}; restarted once, "
+          f"serving again {back:.1f} s after the kill (the supervisor's "
+          f"backoff and one replica's boot); new incarnation "
+          f"{e['captures']} captures, {e['steady_state_captures']} after "
+          f"warmup ({card})",
+          flush=True)
+    return back
+
+
+def fleet_reload(base, admin, ctl, gen2, b, cap, card):
+    """(d) `RollingUpdater` rolls both replicas onto generation 2 of the
+    pointer under an open-loop raw-f32 load: nothing dropped, both report
+    the pointer's fingerprint, no capture after warmup."""
+    from deeplearninginassetpricing_paperreplication_torch.reliability \
+        .promotion import write_pointer
+    from deeplearninginassetpricing_paperreplication_torch.serving.fleet \
+        import RollingUpdater
+
+    raw = b["raw"] + b["alt"]
+    rate = round(0.3 * cap, 1)
+    t, load = _open_load(base, raw, rate, 8.0)
+    time.sleep(1.0)
+    pointer = write_pointer(ctl, gen2)
+    t0 = time.perf_counter()
+    roll = RollingUpdater(admin, ctl, health_interval_s=0.25).roll()
+    roll_s = time.perf_counter() - t0
+    t.join()
+    check(roll["status"] == "promoted", f"(d) roll: {roll}")
+    check(load["n_ok"] == load["n_requests"] and load["errors"] == {},
+          f"(d) {load['n_requests'] - load['n_ok']} requests dropped by the "
+          f"rolling reload: {load['errors']}")
+    fp = str(pointer["params_fingerprint"])[:16]
+    for url in admin:
+        e = _metrics(url)["engine"]
+        check(e["params_fingerprint"] == fp
+              and e["steady_state_captures"] == 0
+              and e["params_generation"] >= 1,
+              f"(d) {url}: fingerprint {e['params_fingerprint']} (want "
+              f"{fp}), captures after warmup {e['steady_state_captures']}")
+    print(f"[fleet] (d) rolling reload onto pointer generation "
+          f"{pointer['generation']} ({fp}) under {rate} rps: "
+          f"{load['n_ok']}/{load['n_requests']} answered, 0 dropped, "
+          f"{_lat(load)}; roll {roll_s:.2f} s, both replicas on the "
+          f"pointer's fingerprint, 0 captures after warmup ({card})",
+          flush=True)
+
+
+def fleet_slo(base, admin, run_dir, b, card):
+    """(f) the prober and the burn-rate engine on the drill spec: a
+    SIGKILLed replica and, later, a SIGSTOPped one (still accepting) each
+    fire the availability alert, each alert resolves (restart, SIGCONT);
+    then `ops status` and `report --json` on the fleet's run dir, and a
+    `/v1/debug/profile` capture on replica1's admin port whose trace names
+    sdf_ffn_fwd on a device lane."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .events import EventLog
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .slo import FileAlertSink, SLOEngine, drill_spec
+    from deeplearninginassetpricing_paperreplication_torch.serving.flight \
+        import FlightRecorder
+    from deeplearninginassetpricing_paperreplication_torch.serving.probe \
+        import Prober, build_sources, fixture_payload
+
+    events = EventLog(run_dir, filename="events.probe.jsonl",
+                      process_index=0)
+    flight = FlightRecorder(run_dir=run_dir, events=events)
+    prober = Prober(events, public_url=base,
+                    fixture=fixture_payload(PANEL["n_features"], month=0),
+                    fleet_dir=run_dir, interval_s=0.25, timeout_s=1.0)
+    engine = SLOEngine(drill_spec(), build_sources(prober=prober),
+                       events=events, flight=flight,
+                       sinks=(FileAlertSink(run_dir / "alerts.jsonl"),),
+                       poll_s=0.1)
+
+    def wait_for(cond, timeout, what):
+        t0 = time.perf_counter()
+        while not cond():
+            check(time.perf_counter() - t0 < timeout,
+                  f"(f) timed out waiting for {what}: {engine.state()}")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    det = {}
+    try:
+        prober.start()
+        engine.start()
+        wait_for(lambda: prober.counts()[1] >= 12, 60, "probes flowing")
+        wait_for(lambda: engine.firing() == [], 60, "a clean baseline")
+        pids = replica_pids(run_dir)
+        os.kill(pids[0], signal.SIGKILL)
+        det["kill"] = wait_for(lambda: engine.firing(), 60,
+                               "the kill drill's alert")
+        det["kill_resolve"] = wait_for(lambda: not engine.firing(), 180,
+                                       "the kill's resolve")
+        pid1 = replica_pids(run_dir)[1]
+        os.kill(pid1, signal.SIGSTOP)
+        try:
+            det["wedge"] = wait_for(lambda: engine.firing(), 60,
+                                    "the wedge drill's alert")
+        finally:
+            os.kill(pid1, signal.SIGCONT)
+        det["wedge_resolve"] = wait_for(lambda: not engine.firing(), 180,
+                                        "the wedge's resolve")
+        stats = prober.stats()
+    finally:
+        engine.stop()
+        prober.stop()
+        events.close()
+    names = [json.loads(x)["name"] for x in
+             (run_dir / "events.probe.jsonl").read_text().splitlines()
+             if json.loads(x).get("kind") == "alert"]
+    check(names[-4:] == ["alert/firing", "alert/resolved", "alert/firing",
+                         "alert/resolved"], f"(f) alert rows {names}")
+    print(f"[fleet] (f) SLO drills (drill spec: 8 s / 2 s windows, burn 6): "
+          f"SIGKILL replica0 fired in {det['kill']:.2f} s, resolved "
+          f"{det['kill_resolve']:.1f} s later; SIGSTOP replica1 fired in "
+          f"{det['wedge']:.2f} s, resolved {det['wedge_resolve']:.1f} s "
+          f"after SIGCONT; probes {stats['checks']} checks, "
+          f"{stats['failures']} failures ({card})", flush=True)
+    status = subprocess.run([sys.executable, "-m", f"{PKG}.ops", "status",
+                             str(run_dir)], cwd=ROOT, capture_output=True,
+                            text=True, timeout=120)
+    check(status.returncode == 0 and "slo:" in status.stdout
+          and "replica0" in status.stdout,
+          f"ops status: rc {status.returncode}\n{status.stdout[-2000:]}"
+          f"{status.stderr[-2000:]}")
+    rep = _report(str(run_dir), "--json")
+    check(rep.returncode == 0, f"report --json: {rep.stderr[-2000:]}")
+    slo = json.loads(rep.stdout).get("slo") or {}
+    check(slo.get("alerts", {}).get("firings", 0) >= 2
+          and slo["alerts"]["firing_now"] == [],
+          f"report --json's slo section: {slo}")
+    for line in status.stdout.splitlines()[:12]:
+        print(f"[fleet] (f) ops status | {line}", flush=True)
+    # the profile capture on replica1 (back from SIGSTOP)
+    s, out = post(admin[1] + "/v1/debug/profile", {"action": "start"})
+    check(s == 200, f"profile start: {s} {out}")
+    for body in b["raw"][:8]:
+        check(post(admin[1] + "/v1/weights", body, raw=True)[0] == 200,
+              "replica1 does not serve under the profiler")
+    s, out = post(admin[1] + "/v1/debug/profile", {"action": "stop"})
+    check(s == 200, f"profile stop: {s} {out}")
+    trace = json.loads(Path(out["trace"]).read_text())
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"
+               and "sdf_ffn_fwd" in str(e.get("name"))]
+    check(kernels, "the profile's trace shows no sdf_ffn_fwd kernel on a "
+                   "device lane")
+    first = kernels[0] if kernels else {}
+    s, _ = post(base + "/v1/debug/profile", {"action": "start"})
+    check(s == 404, f"the shared port answered /v1/debug/profile {s}")
+    print(f"[fleet] (f) ops status rc 0; report --json slo: firings "
+          f"{slo['alerts']['firings']}, resolves {slo['alerts']['resolves']}"
+          f", probe failures {slo['probe']['failures']}; /v1/debug/profile "
+          f"on replica1's admin port: {len(kernels)} sdf_ffn_fwd kernels on "
+          f"the device lane (first {str(first.get('name'))[:60]}, "
+          f"{first.get('dur')} us), 404 on the shared port ({card})",
+          flush=True)
+    return det
+
+
+def fleet_autoscale(b, capacity_rps, card):
+    """(e) a fleet booted at one replica with `--autoscale --max_replicas
+    2`, driven by bench_loadadapt's swing (every 4th request bulk; the
+    surge at 1.3× one replica's closed-loop capacity over distinct
+    payloads: the larger of `capacity_rps`, (b)'s c = 32 measurement, and
+    a c = 8 calibration on this fleet, below the scale-up depth — either
+    alone can read low, host timing varies within a run): at least one
+    scale-up and one scale-down, no interactive request dropped, bulk shed
+    with 429s."""
+    from deeplearninginassetpricing_paperreplication_torch.observability \
+        .trace import read_jsonl
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        read_fleet_json,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.serving.loadgen \
+        import loadadapt_swing, run_loadgen
+    from deeplearninginassetpricing_paperreplication_torch.serving.server \
+        import BINARY_CONTENT_TYPE
+
+    run_dir = FLEET_DIR / "autoscale"
+    proc, base, admin, boot_s = boot_fleet(
+        run_dir, 1, ["--pointer", str(FLEET_DIR / "ctl"), "--data_dir",
+                     str(DATA_DIR), "--stock_buckets",
+                     ",".join(map(str, b["buckets"])), "--batch_buckets",
+                     "1,4", *FLEET_AUTOSCALE])
+    launches = 0
+    try:
+        raw = b["raw"] + b["alt"]
+
+        def scales():
+            rows = read_jsonl(run_dir / "events.autoscaler.jsonl")
+            acts = [r.get("action") for r in rows
+                    if r.get("name") == "fleet/scale"]
+            return acts.count("up"), acts.count("down")
+
+        # the bucket-4 shapes' first flushes, then the calibration, both
+        # below the scale-up depth
+        run_loadgen(base + "/v1/weights", lambda i: raw[i % len(raw)],
+                    mode="closed", concurrency=4, n_requests=48,
+                    warmup_requests=0, content_type=BINARY_CONTENT_TYPE)
+        cal = run_loadgen(base + "/v1/weights", lambda i: raw[i % len(raw)],
+                          mode="closed", concurrency=8, n_requests=320,
+                          warmup_requests=0,
+                          content_type=BINARY_CONTENT_TYPE)
+        sw = loadadapt_swing(
+            base + "/v1/weights", lambda i: raw[i % len(raw)], None,
+            lambda i: "bulk" if i % 4 == 0 else "interactive",
+            phase_s=FLEET_SWING_S, surge_factor=1.3,
+            content_type=BINARY_CONTENT_TYPE,
+            capacity_rps=max(capacity_rps, cal["throughput_rps"]))
+        # a replica the autoscaler is draining may no longer answer
+        peak = {}
+        for url in (read_fleet_json(run_dir) or {}).get("admin_urls", []):
+            try:
+                peak[url] = _metrics(url)["batcher"]
+            except OSError:
+                peak[url] = {"mean_queue_depth": "(drained)"}
+        print("[fleet] (e) after the swing, per replica: " + "; ".join(
+            f"mean queue depth {m.get('mean_queue_depth')}, shed "
+            f"{m.get('shed')}, rejected {m.get('rejected')}, flushes "
+            f"{m.get('flushes')}" for m in peak.values()) + f" ({card})",
+            flush=True)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 90:
+            ups, downs = scales()
+            layout = read_fleet_json(run_dir) or {}
+            if downs >= 1 and layout.get("replicas") == 1:
+                break
+            time.sleep(0.25)
+        settle_s = time.perf_counter() - t0
+        ups, downs = scales()
+        for url in (read_fleet_json(run_dir) or {}).get("admin_urls", []):
+            launches += _metrics(url)["engine"]["kernel_launches"]
+        run = sw["swing"]["run"]
+        inter = run["by_class"].get("interactive") or {}
+        bulk = run["by_class"].get("bulk") or {}
+        check(ups >= 1 and downs >= 1,
+              f"(e) scale-ups {ups}, scale-downs {downs}")
+        check(inter.get("dropped") == 0,
+              f"(e) {inter.get('dropped')} interactive requests dropped: "
+              f"{inter.get('errors')}")
+        check((bulk.get("n_shed_429") or 0) >= 1,
+              f"(e) no bulk request shed: {bulk.get('errors')}")
+        decisions = [r for r in read_jsonl(run_dir / "events.autoscaler"
+                                           ".jsonl")
+                     if r.get("name") == "fleet/scale"]
+    finally:
+        stop_fleet(proc)
+    for step in sw["swing"]["steps"]:
+        print(f"[fleet] (e) swing step {step['offered_rate_rps']} rps x "
+              f"{step['duration_s']} s: {step['n_ok']}/{step['n_requests']} "
+              f"ok, {_lat(step)}, errors {step['errors']} ({card})",
+              flush=True)
+    print(f"[fleet] (e) autoscale 1..2 replicas: boot {boot_s:.1f} s, "
+          f"one replica's capacity {sw['capacity_rps']} rps (the larger of "
+          f"(b)'s c=32 {capacity_rps} and c=8 here {cal['throughput_rps']}), "
+          f"surge {sw['surge_rate']} / base {sw['base_rate']} rps; "
+          f"scale-ups {ups}, scale-downs {downs} ("
+          + ", ".join(f"{r['action']} {r.get('reason') or ''}".strip()
+                      for r in decisions)
+          + f"); interactive {inter.get('n_ok')}/{inter.get('n_requests')} "
+          f"ok (dropped {inter.get('dropped')}), bulk shed 429 "
+          f"{bulk.get('n_shed_429')} of {bulk.get('n_requests')}; retried "
+          f"{run['n_retried']}; back to 1 replica {settle_s:.1f} s after "
+          f"the swing ({card})", flush=True)
+    return launches
+
+
+def fleet_phase(torch, card, splits, ref, member_dirs):
+    """(15) The serving fleet under load: the paper-width 3-member ensemble
+    (`ref_runs`, f32, stock buckets of the test panel's requests, batch
+    buckets 1 and 4) served by the serving CLI's supervised replicas on
+    one SO_REUSEPORT port, boot from a promotion pointer. A 2-replica
+    fleet runs (a) answers, (b) load, (c) a kill, (d) a rolling reload and
+    (f) the SLO drills, console and profile; a 1-replica fleet with the
+    autoscaler runs (e). Returns the replicas' sdf_ffn_fwd launches (the
+    live incarnations' at each fleet's end; a killed one's are lost)."""
+    t_phase = time.perf_counter()
+    test = splits[2]
+    b = fleet_bodies(test)
+    ctl, gen2 = fleet_members(torch, member_dirs)
+    run_dir = FLEET_DIR / "fleet"
+    common = ["--pointer", str(ctl), "--data_dir", str(DATA_DIR),
+              "--stock_buckets", ",".join(map(str, b["buckets"])),
+              "--batch_buckets", "1,4"]
+    n_buckets = 2 * len(b["buckets"])
+    proc, base, admin, boot_s = boot_fleet(run_dir, 2, common)
+    launches = 0
+    try:
+        print(f"[fleet] 2 replicas on {base} (SO_REUSEPORT), admin "
+              f"{admin}: booted in {boot_s:.1f} s (both together: the "
+              f"supervised CLI parent, torch, the panel, {n_buckets} CUDA "
+              f"graphs each, f32, stock buckets {b['buckets']}) ({card})",
+              flush=True)
+        pids = replica_pids(run_dir)
+        check(sorted(pids) == [0, 1], f"replica processes {pids}")
+        fleet_context_check(proc, pids, card)
+        t0 = time.perf_counter()
+        worst = fleet_answers(base, admin, test, ref, b)
+        print(f"[fleet] (a) {test.T} months x (raw-f32, base64), c = 1: bit "
+              f"for bit phase 4's batch-1 answers; {4 * test.T} raw-f32 "
+              f"requests from {FLEET_C} clients within the f32 bar of the "
+              f"offline weights (max|d| {worst:.3e}); "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        load = fleet_load(base, admin, b, card)
+        fleet_kill(base, admin, run_dir, b, load["cap"], n_buckets, card)
+        fleet_reload(base, admin, ctl, gen2, b, load["cap"], card)
+        fleet_slo(base, admin, run_dir, b, card)
+        for url in admin:
+            launches += _metrics(url)["engine"]["kernel_launches"]
+    finally:
+        stop_fleet(proc)
+    check(proc.returncode == 0, f"the fleet parent exited {proc.returncode}")
+    launches += fleet_autoscale(b, load["one"]["throughput_rps"], card)
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    print(f"[fleet] phase 15 done in {time.perf_counter() - t_phase:.1f} s; "
+          f"sdf_ffn_fwd launches in the replicas {launches} ({card})",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5561,6 +6327,13 @@ def main(argv=None) -> int:
                          "phase 14, rolling refit and the run report on "
                          "phase 6's panel (a short call while the refit or "
                          "report CLI change); no result line")
+    ap.add_argument("--only_fleet", action="store_true",
+                    help="build the FFN forward's libraries only and run "
+                         "phase 4 at f32 (the answers the fleet is held "
+                         "to), then phase 15, the serving fleet under load, "
+                         "on stand-in members (a short call while the "
+                         "fleet, the autoscaler, the load generator or the "
+                         "SLO plane change); no result line")
     ap.add_argument("--only_elastic", action="store_true",
                     help="build the training kernels' libraries only and run "
                          "phase 13, the supervisor and the elastic sweep on "
@@ -5583,6 +6356,7 @@ def main(argv=None) -> int:
         shutil.rmtree(CACHE_DIR, ignore_errors=True)
         shutil.rmtree(REAL_DIR, ignore_errors=True)
         shutil.rmtree(REPORT_RUNS, ignore_errors=True)
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -5629,7 +6403,7 @@ def run_phases(opts, torch) -> int:
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) if opts.only_dx
             else K.build_jobs(kernels=("fwd",))
-            if opts.only_fwd or opts.only_serve
+            if opts.only_fwd or opts.only_serve or opts.only_fleet
             else C.build_jobs() if opts.only_cem
             else MB.build_jobs() if opts.only_ceiling
             else K.build_jobs() + C.build_jobs() + MB.build_jobs())
@@ -5644,6 +6418,7 @@ def run_phases(opts, torch) -> int:
     (cem_job,), (mb_job,) = C.build_jobs(), MB.build_jobs()
     sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
               else ("fwd",) if opts.only_fwd or opts.only_serve
+              or opts.only_fleet
               else () if (opts.only_cem or opts.only_ceiling
                           or opts.only_data or opts.only_ops
                           or opts.only_elastic or opts.only_refit)
@@ -5651,7 +6426,8 @@ def run_phases(opts, torch) -> int:
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
               else [] if (opts.only_bwd or opts.only_dx or opts.only_fwd
-                          or opts.only_serve or opts.only_data
+                          or opts.only_serve or opts.only_fleet
+                          or opts.only_data
                           or opts.only_ops or opts.only_elastic
                           or opts.only_refit)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
@@ -5767,6 +6543,23 @@ def run_phases(opts, torch) -> int:
               f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
         return 0
 
+    if opts.only_fleet:
+        # the serving fleet alone: phase 4 at f32 (the answers it is held
+        # to), then phase 15 on stand-in members
+        t0 = time.perf_counter()
+        splits = make_panel()
+        try:
+            _, ref = serving_phase(torch, K, card, splits[2], opts.profile,
+                                   dtypes=("float32",))
+            member_dirs, _ = stand_in_members(torch)
+            fleet_phase(torch, card, splits, ref, member_dirs)
+        finally:
+            shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        print(f"[fleet] serving fleet checks passed in "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        return 0
+
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     fwd_plan_lines(torch, K, card)
@@ -5791,7 +6584,8 @@ def run_phases(opts, torch) -> int:
     t0 = time.perf_counter()
     splits = make_panel()
     test = splits[2]
-    serve_launches = serving_phase(torch, K, card, test, opts.profile)
+    serve_launches, fleet_ref = serving_phase(torch, K, card, test,
+                                              opts.profile)
     print(f"[serve] phase 4 done in {time.perf_counter() - t0:.1f} s "
           f"({card})", flush=True)
 
@@ -5870,6 +6664,15 @@ def run_phases(opts, torch) -> int:
     # 14. rolling refit and the run report on phase 6's panel (the report
     # also reads the run dirs phases 11 and 12 kept)
     refits = refit_phase(torch, K, C, card, splits)
+
+    # 15. the serving fleet under load, on phase 4's panel and answers;
+    # its rolling reload targets phase 4b's stand-in members (phase 10's
+    # members are another architecture than the ref_runs trio: dropout)
+    try:
+        fleet_launches = fleet_phase(torch, card, splits, fleet_ref,
+                                     stand_in_members(torch)[0])
+    finally:
+        shutil.rmtree(HEALTH_DIR, ignore_errors=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
@@ -5877,7 +6680,7 @@ def run_phases(opts, torch) -> int:
     health_idx = {"sdf_ffn_fwd": 0, "sdf_ffn_bwd": 1, "cond_em_fwd": 3,
                   "cond_em_bwd": 4}
 
-    def by_path(name, serving=0):
+    def by_path(name, serving=0, fleet=0):
         paths = {"training": train_launches[name],
                  "training_hidden_128x128": wide_launches[name],
                  "ensemble_training": ens_launches[name],
@@ -5885,7 +6688,7 @@ def run_phases(opts, torch) -> int:
                  f"training_diag_stride_{DIAG_STRIDE}": diag_train[
                      "launches"][health_idx[name]]}
         if serving:
-            paths = {"serving": serving, **paths}
+            paths = {"serving": serving, "serving_fleet": fleet, **paths}
         if grad_launches[name]:
             paths["panel_gradient"] = grad_launches[name]
         if gate["launches"][health_idx[name]]:
@@ -5919,7 +6722,8 @@ def run_phases(opts, torch) -> int:
         dict(name="sdf_ffn_fwd", route="cuda", source=src + "sdf_ffn.cu",
              replaces=tpu + "pallas_ffn.py:561",
              also_replaces=tpu + "pallas_ffn.py:188",
-             **by_path("sdf_ffn_fwd", serve_launches), **row,
+             **by_path("sdf_ffn_fwd", serve_launches, fleet_launches),
+             **row,
              at_ensemble_shape=ens_fwd_row, diagnostics_pass=diag_rows),
         dict(name="sdf_ffn_bwd", route="cuda", source=src + "sdf_ffn_bwd.cu",
              replaces=tpu + "pallas_ffn.py:205",

@@ -46,10 +46,13 @@ SCHEMA_VERSION = 1
 # per this many seconds (0 = every such row). A SIGKILLed process then
 # loses at most one window of tail rows instead of an arbitrary buffer.
 # Negative disables fsync entirely (rows still flush to the OS per line —
-# SIGKILL-safe, power-loss-unsafe).
+# SIGKILL-safe, power-loss-unsafe). "alert" (SLO firing/resolved
+# transitions) and "probe" (blackbox probe failures) are in the set for the
+# same reason: they are exactly the rows written moments before a process
+# dies, and a SIGKILL must cost at most one flush window of that evidence.
 ENV_FSYNC = "DLAP_EVENTS_FSYNC_S"
 DEFAULT_FSYNC_INTERVAL_S = 0.5
-_DURABLE_KINDS = ("span_end", "counter", "request")
+_DURABLE_KINDS = ("span_end", "counter", "request", "alert", "probe")
 
 
 def new_run_id() -> str:

@@ -306,6 +306,10 @@ def feed_event(registry: MetricsRegistry, kind: str, name: str,
             if isinstance(dur, (int, float)):
                 registry.observe(prom_name(name, "span"), dur, labels,
                                  exemplar=row.get("trace_id"))
+        elif kind in ("alert", "probe"):
+            # durable incident rows (SLO transitions, probe failures):
+            # each one is also a countable event on the metrics plane
+            registry.counter(prom_name(name, "counter"), 1, labels)
     except Exception:
         pass
 

@@ -8,18 +8,13 @@ each phase ran (epochs/s), how much device memory the run touched, the
 serving, reliability, elastic, promotion and model-health stories, and
 (optionally) how the final Sharpes compare to a ``PARITY_*.json``
 baseline. The counterpart of the JAX package's ``observability/report.py``,
-function for function, on the same run-dir layout and event rows, with two
-differences:
-
-* the JAX package's AOT-program section (``xla_programs``: XLA's cost and
-  memory analysis of each compiled program) is the port's kernel-plans
-  section (``kernel_programs``): each hand-written kernel's launch plan as
-  the card holds it, from ``manifest.json``'s ``kernel_programs`` (the train
-  CLI and the sweep workers write it) or the ``program`` rows that
-  ``observability/programs.py::record_program`` emits;
-* the SLO section (``_slo_summary``) is absent: the burn-rate plane and the
-  status board it reads are not ported yet, so every run dir summarizes as
-  one that predates them.
+function for function, on the same run-dir layout and event rows, with one
+difference: the JAX package's AOT-program section (``xla_programs``: XLA's
+cost and memory analysis of each compiled program) is the port's
+kernel-plans section (``kernel_programs``): each hand-written kernel's
+launch plan as the card holds it, from ``manifest.json``'s
+``kernel_programs`` (the train CLI and the sweep workers write it) or the
+``program`` rows that ``observability/programs.py::record_program`` emits.
 
 Pure file reading: nothing here touches a device, so it works on live,
 finished or crashed run dirs alike. The module's top level is stdlib only;
@@ -744,12 +739,43 @@ def _model_health_summary(run_dir, events) -> Any:
 
 
 def _slo_summary(events) -> Any:
-    """The SLO/alerting section of the JAX package's report (probe totals,
-    alert transitions, burn rates), read through its status board's
-    ``scan_slo_rows``. The port has neither the burn-rate engine nor the
-    status board yet, so this returns None for every run dir: the section
-    is absent, exactly as for a run that predates the plane."""
-    return None
+    """The SLO/alerting story of one run dir: probe totals (blackbox
+    checks, failures, digest changes), alert transitions, and the
+    current firing set + last burn-rate/budget gauges. The row semantics
+    live in ONE place — ``statusboard.scan_slo_rows`` — shared with the
+    ops console, so the report CLI and ``ops status`` can never disagree
+    about what the durable ``alert``/``probe`` rows mean. None when the
+    run predates the plane (section absent, text report byte-stable)."""
+    from .statusboard import scan_slo_rows
+
+    scan = scan_slo_rows(events)
+    # the SAME presence gate as statusboard.gather_status: a prober that
+    # only ever recorded layout_unreadable (blind on a dead fleet dir)
+    # must surface in the report exactly as it does in `ops status`
+    if not (scan["last_state"] or scan["burn"] or scan["probe_checks"]
+            or scan["probe_failures"] or scan["layout_unreadable"]):
+        return None
+    firing_now = sorted(
+        f"{o} [{w}]" for (o, w), row in scan["last_state"].items()
+        if row.get("name") == "alert/firing")
+    return {
+        "probe": {
+            "checks": scan["probe_checks"],
+            "failures": scan["probe_failures"],
+            "digest_changes": scan["digest_changes"],
+            "layout_unreadable": scan["layout_unreadable"],
+            "failures_by_target": dict(
+                sorted(scan["failure_targets"].items())),
+        },
+        "alerts": {"firings": scan["firings"],
+                   "resolves": scan["resolves"],
+                   "firing_now": firing_now},
+        "burn_rates": {f"{o} {w}": v
+                       for (o, w), v in sorted(scan["burn"].items())},
+        "budget_remaining": {
+            f"{o} {w}": v
+            for (o, w), v in sorted(scan["budget"].items())},
+    }
 
 
 def programs_from_events(events_rows) -> Dict[str, Dict[str, Any]]:

@@ -15,7 +15,8 @@ trainer's segment loop and phase boundaries (``trainer/epoch_loop``,
 ``sweep/ledger_write``), the promotion gate
 (``promote/validate``, ``promote/write``) and the serving path
 (``serving/infer``, ``serve/accept``, ``serve/admit``, ``serve/flush``,
-``serve/coalesce``, ``serve/reload``), and a JSON *fault plan* decides
+``serve/coalesce``, ``serve/replica_kill``, ``serve/reload``) and the
+fleet's autoscaler (``fleet/scale``), and a JSON *fault plan* decides
 which site hits fire which fault.
 
 Plan format (``DLAP_FAULT_PLAN`` env: inline JSON, or a path to a JSON
@@ -107,7 +108,11 @@ SITES = (
     "promote/write",           # before the pointer advances (ctx: path,
                                #   generation)
     "serving/infer",           # per served micro-batch (ctx: n_requests)
-    "serve/accept",            # per accepted connection
+    "serve/accept",            # per accepted connection (ctx: path=the
+                               #   replica label, "" outside a fleet)
+    "serve/replica_kill",      # per request on the async server (ctx:
+                               #   path=the replica label — a plan
+                               #   targets ONE member of a fleet)
     "serve/admit",             # per batcher admission decision (ctx:
                                #   priority, queue_depth — `raise` rejects
                                #   exactly one request as it is admitted)
@@ -116,7 +121,12 @@ SITES = (
     "serve/coalesce",          # per single-flight dispatch-OWNER entry (a
                                #   kill here dies with coalesced waiters
                                #   sharing the doomed flight)
-    "serve/reload",            # per /v1/reload request
+    "serve/reload",            # per /v1/reload request (ctx: path=the
+                               #   replica label)
+    "fleet/scale",             # per autoscaler scale action, before the
+                               #   fleet changes (ctx: direction,
+                               #   path=replicas{N} — `raise` fails one
+                               #   scale event; the loop records it)
 )
 
 

@@ -5,14 +5,20 @@ One event loop accepts connections, parses requests, and awaits the
 :class:`~.batcher.ContinuousBatcher` — no thread per request, no GIL convoy
 of handler threads contending on one dispatcher. Connections are
 keep-alive (HTTP/1.1 default), so a steady client pays connection set-up
-once. An optional admin listener on a private 127.0.0.1 port serves the
-same handler with the operational endpoints (``/v1/drain``,
-``/v1/debug/flightrecorder``) unlocked.
+once, and the listener can bind with ``SO_REUSEPORT`` so R replica
+processes share one port — the kernel spreads new connections across live
+listeners, and a dead replica's connections fail fast onto the survivors
+(clients retry; see ``loadgen``). An optional admin listener on a private
+127.0.0.1 port (never shared) serves the same handler with the operational
+endpoints (``/v1/drain``, ``/v1/debug/flightrecorder``,
+``/v1/debug/profile``) unlocked.
 
 The HTTP surface is deliberately minimal (request line + headers +
 Content-Length bodies — what the serving API needs), stdlib-only, and
 instrumented: the ``serve/accept`` fault site fires per accepted
-connection.
+connection and ``serve/replica_kill`` per request with the replica label as
+its path context, so a fault plan can kill one targeted replica mid-flight
+under load.
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ MAX_HEADER_LINES = 64
 
 def pick_free_port(host: str = "127.0.0.1") -> int:
     """A currently-free TCP port (bind-0 probe). Racy by nature: use it to
-    agree a port before the server binds it."""
+    agree a port before the server binds it — a ``SO_REUSEPORT`` replica
+    fleet needs one agreed port, where port 0 would scatter the replicas
+    across different ephemeral ports."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind((host, 0))
         return s.getsockname()[1]
@@ -75,7 +83,7 @@ async def _read_request(reader) -> Optional[Tuple[str, str, dict, bytes]]:
 
 async def _handle_conn(service: ServingService, reader, writer,
                        admin: bool = False) -> None:
-    inject("serve/accept", path="")
+    inject("serve/accept", path=service.replica_label or "")
     rec: dict = {}
     try:
         while True:
@@ -84,6 +92,10 @@ async def _handle_conn(service: ServingService, reader, writer,
             if req is None:
                 break
             method, path, headers, body = req
+            # fault site: kills THIS replica with a request (and typically
+            # a whole flush) in the air; matched by replica label so a
+            # plan can target one member of the fleet
+            inject("serve/replica_kill", path=service.replica_label or "")
             # request-scoped trace context: continue the client's
             # traceparent or mint a fresh edge context; malformed headers
             # fall back, never 500
@@ -191,18 +203,24 @@ async def serve_async(
     port_out: Optional[list] = None,
     admin_port: Optional[int] = None,
     admin_port_out: Optional[list] = None,
+    reuse_port: bool = False,
 ):
     """Run the asyncio server until cancelled or drained. ``port_out`` (a
     list) receives the bound port, ``admin_port_out`` the admin listener's;
     ``ready`` is set once accepting.
 
     ``admin_port``: also bind the SAME handler on a private 127.0.0.1 port
-    with the operational endpoints unlocked. ``/v1/drain`` closes the
-    public listener shortly after answering; the serve loop then returns
-    (the continuous batcher drains first)."""
+    (never ``SO_REUSEPORT``-shared) with the operational endpoints
+    unlocked. In a replica fleet every replica shares the serving port —
+    the kernel picks who answers — so the rolling update and the
+    autoscaler need a per-replica address to target ONE replica.
+    ``/v1/drain`` closes the public listener shortly after answering; the
+    serve loop then returns (the continuous batcher drains first).
+    ``reuse_port``: bind the public listener with ``SO_REUSEPORT``."""
     service.start_async()
     server = await asyncio.start_server(
-        lambda r, w: _handle_conn(service, r, w), host=host, port=port)
+        lambda r, w: _handle_conn(service, r, w), host=host, port=port,
+        reuse_port=reuse_port)
     bound = server.sockets[0].getsockname()[1]
     loop = asyncio.get_running_loop()
     drained = asyncio.Event()
@@ -227,8 +245,9 @@ async def serve_async(
         admin_bound = admin_server.sockets[0].getsockname()[1]
         if admin_port_out is not None:
             admin_port_out.append(admin_bound)
-        print(f"admin endpoint on http://127.0.0.1:{admin_bound}",
-              flush=True)
+        print(f"admin endpoint on http://127.0.0.1:{admin_bound}"
+              + (f" ({service.replica_label})" if service.replica_label
+                 else ""), flush=True)
     if port_out is not None:
         port_out.append(bound)
     if ready is not None:
@@ -237,8 +256,10 @@ async def serve_async(
     if service.heartbeat is not None:
         service.heartbeat.beat("serve/accepting")
     print(f"serving {service.engine.n_members} members on "
-          f"http://{host}:{bound} (async, config "
-          f"{service.engine.config_hash[:12]}, {service.engine.device}, "
+          f"http://{host}:{bound} (async"
+          + (f", {service.replica_label}" if service.replica_label else "")
+          + f", config {service.engine.config_hash[:12]}, "
+          f"{service.engine.device}, "
           f"{service.engine.exec_cfg.compute_dtype})", flush=True)
     async with server:
         try:
@@ -256,12 +277,13 @@ async def serve_async(
 
 
 def run_async_server(service: ServingService, host: str = "127.0.0.1",
-                     port: int = 0,
+                     port: int = 0, reuse_port: bool = False,
                      admin_port: Optional[int] = None) -> None:
     """Blocking entry: own event loop, runs until KeyboardInterrupt or a
     drain."""
     try:
-        asyncio.run(serve_async(service, host, port, admin_port=admin_port))
+        asyncio.run(serve_async(service, host, port, admin_port=admin_port,
+                                reuse_port=reuse_port))
     except asyncio.CancelledError:
         pass
 

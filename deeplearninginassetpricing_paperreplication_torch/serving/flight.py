@@ -12,7 +12,11 @@ of requests currently IN FLIGHT, and dumps all of it atomically to
 
   * **error burst** — ≥ ``burst_threshold`` 5xx or shed-429 responses (or
     drift alerts, :meth:`FlightRecorder.note_alert`) inside
-    ``burst_window_s``, rate-limited to one dump per ``cooldown_s``;
+    ``burst_window_s``, rate-limited to one dump per ``cooldown_s`` — an
+    overload storm counts as trouble, and the dump carries the
+    autoscaler's last decisions (:meth:`FlightRecorder.record_decision`)
+    so it shows *why* the fleet was shedding, and the SLO engine's last
+    alert transitions (:meth:`FlightRecorder.record_alert`);
   * **SIGTERM / clean shutdown** — the serving CLI's close path;
   * **the flare** — SIGUSR1 to the serving CLI (a watchdog's pre-kill
     signal) dumps best-effort from a fresh thread;
@@ -84,6 +88,12 @@ class FlightRecorder:
         # air" evidence
         self._in_flight: Dict[int, Dict[str, Any]] = {}
         self._next_token = 0
+        # the autoscaler's last decisions (signals + actions): an overload
+        # dump then shows WHY the fleet was shedding, not just that it was
+        self._decisions: deque = deque(maxlen=64)
+        # the SLO engine's last alert transitions: a crash dump carries
+        # which budgets were burning when the process died
+        self._alerts: deque = deque(maxlen=64)
         self.burst_threshold = int(burst_threshold)
         self.burst_window_s = float(burst_window_s)
         self.cooldown_s = float(cooldown_s)
@@ -138,6 +148,20 @@ class FlightRecorder:
             self._flushes.append(record)
             self._seq += 1
 
+    def record_decision(self, record: Dict[str, Any]) -> None:
+        """Append one autoscaler decision (signals + action) to the
+        bounded ring the dump carries."""
+        with self._lock:
+            self._decisions.append(record)
+            self._seq += 1
+
+    def record_alert(self, record: Dict[str, Any]) -> None:
+        """Append one SLO alert transition (firing/resolved) to the
+        bounded ring the dump carries."""
+        with self._lock:
+            self._alerts.append(record)
+            self._seq += 1
+
     def error_burst(self) -> bool:
         """True when the last ``burst_threshold`` 5xx responses all landed
         inside ``burst_window_s`` — arming the per-``cooldown_s`` rate
@@ -173,6 +197,8 @@ class FlightRecorder:
                     if r.get("trace_id")),
                 "requests": list(self._requests),
                 "flushes": list(self._flushes),
+                "autoscaler_decisions": list(self._decisions),
+                "alerts": list(self._alerts),
             }
 
     def dump(self, reason: str) -> Optional[Path]:

@@ -26,6 +26,9 @@ Endpoints::
                          "converged"?}
     POST /v1/drain    (admin port only) stop accepting, flush, close
     POST /v1/debug/flightrecorder  (admin port only) dump the recorder
+    POST /v1/debug/profile  (admin port only) {"action": "start"|"stop"}: a
+                      torch.profiler capture into RUN/profile/capture<n>/,
+                      written as a Chrome trace on stop
     GET  /v1/models   ensemble manifest (members, config hash, buckets, ...)
     GET  /healthz     liveness; mirrors the run dir's heartbeat.json
     GET  /metrics     request counts, latency percentiles, cache,
@@ -184,6 +187,61 @@ def request_fingerprint(endpoint: str, payload: Dict[str, Any]) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()
 
 
+class _ProfileCapture:
+    """One ``torch.profiler`` capture on a thread of its own: the profiler
+    is started and stopped on the same thread whichever request threads
+    ask for it, and records the device's kernels process-wide."""
+
+    def __init__(self, trace_dir: Path, cuda: bool):
+        self.trace_dir = Path(trace_dir)
+        self.cuda = cuda
+        self._started = threading.Event()
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._trace: Optional[Path] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-profile")
+
+    def _run(self) -> None:
+        import torch
+
+        try:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        except Exception as e:  # noqa: BLE001 — answered as a 501
+            self._error = e
+            self._started.set()
+            return
+        self._started.set()
+        self._stop.wait()
+        try:
+            prof.stop()
+            path = self.trace_dir / "trace.json"
+            prof.export_chrome_trace(str(path))
+            self._trace = path
+        except Exception as e:  # noqa: BLE001 — answered as a 501
+            self._error = e
+
+    def start(self, timeout: float = 60.0) -> None:
+        self._thread.start()
+        if not self._started.wait(timeout):
+            raise TimeoutError("the profiler did not start")
+        if self._error is not None:
+            raise self._error
+
+    def stop(self, timeout: float = 300.0) -> Path:
+        self._stop.set()
+        self._thread.join(timeout)
+        if self._error is not None:
+            raise self._error
+        if self._trace is None:
+            raise TimeoutError("the profiler did not write its trace")
+        return self._trace
+
+
 class ServingService:
     """Engine + batcher + LRU cache + telemetry, transport-agnostic.
 
@@ -201,6 +259,7 @@ class ServingService:
         cache_size: int = 256,
         events: Optional[EventLog] = None,
         mode: str = "threaded",
+        replica_id: Optional[int] = None,
         pointer_root: Optional[str] = None,
         coalesce: bool = True,
         bulk_threshold: float = 0.5,
@@ -213,9 +272,13 @@ class ServingService:
             raise ValueError(f"mode must be threaded|async: {mode!r}")
         self.engine = engine
         self.mode = mode
+        self.replica_id = replica_id
         # promotion control plane: when set, /v1/reload with no explicit
-        # dirs re-reads this pointer and hot-swaps to ITS generation
+        # dirs re-reads this pointer and hot-swaps to ITS generation (the
+        # rolling-update path, serving/fleet.RollingUpdater)
         self.pointer_root = Path(pointer_root) if pointer_root else None
+        self.replica_label = (f"replica{replica_id}"
+                              if replica_id is not None else None)
         if events is not None:
             self.events = events
         elif run_dir is not None:
@@ -247,7 +310,8 @@ class ServingService:
         # flushes + the in-flight set, dumped on error bursts, shutdown,
         # the SIGUSR1 flare, injected deaths and the admin endpoint (plus a
         # background autosave)
-        self.flight = FlightRecorder(run_dir=run_dir, events=self.events)
+        self.flight = FlightRecorder(
+            run_dir=run_dir, replica=self.replica_label, events=self.events)
         self.flight.start_autosave()
         faults.add_pre_death_hook(self._fault_last_words)
         self._shutdown_reason = "shutdown"
@@ -308,6 +372,10 @@ class ServingService:
             )
         self.accepting = False  # set by the front end once the socket is up
         self._lock = threading.Lock()
+        self._profile_lock = threading.Lock()  # /v1/debug/profile state
+        self._profiler: Optional[Any] = None
+        self._profile_dir: Optional[Path] = None
+        self._profile_seq = 0
         self._latencies: deque = deque(maxlen=4096)  # seconds
         self._requests: Dict[Tuple[str, str], int] = {}
         self._started = time.monotonic()
@@ -322,6 +390,11 @@ class ServingService:
 
     def _hb_loop(self):
         while not self._hb_stop.wait(HEARTBEAT_INTERVAL_S):
+            # the steady section mirrors the lifecycle state: a fleet
+            # readiness check matches on a PERSISTENT "serve/accepting",
+            # not a one-shot beat an idle beat could overwrite; a draining
+            # replica advertises that too (the autoscaler's scale-down
+            # watches for it before stopping the process)
             if self.draining:
                 section = "serve/draining"
             elif self.accepting:
@@ -341,6 +414,7 @@ class ServingService:
                 max_batch=self._max_batch,
                 max_queue=self._max_queue,
                 events=self.events,
+                label=self.replica_label,
                 flight=self.flight,
                 bulk_threshold=self._bulk_threshold,
             )
@@ -395,7 +469,7 @@ class ServingService:
             if status == 200:
                 self._latencies.append(seconds)
         self.events.counter("serve/requests", endpoint=endpoint,
-                            status=status)
+                            status=status, replica=self.replica_label)
 
     def _begin_rec(self, rec: Optional[Dict[str, Any]],
                    trace: Optional[TraceContext], endpoint: str,
@@ -440,6 +514,8 @@ class ServingService:
             "endpoint": rec["endpoint"], "method": rec["method"],
             "status": status, "duration_s": round(total, 6),
         }
+        if self.replica_label is not None:
+            fields["replica"] = self.replica_label
         if rec.get("wire"):
             fields["wire"] = rec["wire"]
         t0 = rec["t0"]
@@ -477,11 +553,13 @@ class ServingService:
                              span_id=trace.span_id,
                              parent_id=trace.parent_id, **fields)
         else:
-            # the aggregate twin: the SAME label-relevant fields, no
-            # per-request identity
+            # the aggregate twin: the SAME label-relevant fields (the
+            # replica and wire too — a partial sampling rate must not split
+            # the histogram into different label sets), no per-request
+            # identity
             twin = {k: fields[k] for k in
-                    ("endpoint", "method", "status", "duration_s", "wire",
-                     "priority") if k in fields}
+                    ("endpoint", "method", "status", "duration_s",
+                     "replica", "wire", "priority") if k in fields}
             self.events.emit("span_end", "serve/request", **twin)
         if isinstance(status, int) and (status >= 500 or status == 429) \
                 and self.flight.error_burst():
@@ -652,6 +730,10 @@ class ServingService:
                          "in_flight": len(
                              self.flight.snapshot("")["in_flight"]),
                          "dumps": self.flight.dumps}
+        if endpoint == "/v1/debug/profile" and admin:
+            if method != "POST":
+                return 405, {"error": "POST required"}
+            return self._profile_endpoint(payload or {})
         return 404, {"error": f"unknown endpoint {endpoint}"}
 
     def _drain_endpoint(self, payload: Dict[str, Any]) -> Tuple[int, Dict]:
@@ -676,7 +758,8 @@ class ServingService:
                 and time.monotonic() < deadline:
             time.sleep(0.02)
         pending = 0 if b is None else b.pending()
-        self.events.counter("serve/drain", pending=pending)
+        self.events.counter("serve/drain", pending=pending,
+                            replica=self.replica_label)
         hook = self._drain_hook
         if hook is not None:
             try:
@@ -685,6 +768,63 @@ class ServingService:
                 pass  # listener already closed / loop shutting down
         return 200, {"draining": True, "pending": pending,
                      "drained": pending == 0}
+
+    def _profile_endpoint(self, payload: Dict[str, Any]) -> Tuple[int, Dict]:
+        """A ``torch.profiler`` capture on a live server: ``{"action":
+        "start"}`` begins one into the run dir (``profile/capture<n>/``),
+        ``{"action": "stop"}`` ends it, writes ``trace.json`` (a Chrome
+        trace: the host's ops and, on a CUDA device, the kernels on the
+        device lanes — CUDA-graph replays included) and answers with its
+        path. Guarded: admin port only, one capture at a time, always
+        inside the run dir (no caller-controlled paths), and a profiler
+        that cannot start or stop answers 501 with the reason instead of
+        taking the server down."""
+        action = payload.get("action")
+        if action not in ("start", "stop"):
+            raise BadRequest("payload requires \"action\": \"start\"|"
+                             "\"stop\"")
+        if self.run_dir is None:
+            return 400, {"error": "profiling requires --run_dir (the "
+                                  "capture is written into the run dir)"}
+        # a DEDICATED lock: the hot-path self._lock (taken by _record on
+        # every request) must not be held across profiler start/stop
+        with self._profile_lock:
+            active = self._profile_dir
+            if action == "start":
+                if active is not None:
+                    return 409, {"error": f"a capture is already running "
+                                          f"into {active}"}
+                n = self._profile_seq
+                self._profile_seq = n + 1
+                trace_dir = self.run_dir / "profile" / f"capture{n}"
+                trace_dir.mkdir(parents=True, exist_ok=True)
+                capture = _ProfileCapture(
+                    trace_dir, cuda=self.engine.device.type == "cuda")
+                try:
+                    capture.start()
+                except Exception as e:
+                    return 501, {"error": "torch.profiler unavailable: "
+                                          f"{type(e).__name__}: {e}"}
+                self._profiler = capture
+                self._profile_dir = trace_dir
+                self.events.counter("serve/profile", action="start",
+                                    replica=self.replica_label)
+                return 200, {"profiling": True,
+                             "trace_dir": str(trace_dir)}
+            if active is None:
+                return 400, {"error": "no capture is running"}
+            capture, self._profiler = self._profiler, None
+            self._profile_dir = None
+            try:
+                trace = capture.stop()
+            except Exception as e:
+                return 501, {"error": "torch.profiler stop failed: "
+                                      f"{type(e).__name__}: {e}"}
+            self.events.counter("serve/profile", action="stop",
+                                replica=self.replica_label)
+        return 200, {"profiling": False, "trace_dir": str(active),
+                     "trace": str(trace),
+                     "non_empty": trace.stat().st_size > 0}
 
     # -- endpoints -----------------------------------------------------------
 
@@ -793,13 +933,15 @@ class ServingService:
                 self.drift_scored += 1
                 self._drift_psi_last = psi
             self.events.gauge("model/drift_psi", round(psi, 6),
-                              endpoint=endpoint)
+                              endpoint=endpoint,
+                              replica=self.replica_label)
             if psi > self.drift_psi_threshold:
                 with self._lock:
                     self.drift_alerts += 1
                 self.events.counter(
                     "model/drift_alert", psi=round(psi, 6),
-                    threshold=self.drift_psi_threshold, endpoint=endpoint)
+                    threshold=self.drift_psi_threshold, endpoint=endpoint,
+                    replica=self.replica_label)
                 # a drift storm dumps the same evidence an error burst does
                 self.flight.note_alert()
                 if self.flight.error_burst():
@@ -844,6 +986,8 @@ class ServingService:
             "n_members": self.engine.n_members,
             "config_hash": self.engine.config_hash,
         }
+        if self.replica_label is not None:
+            body["replica"] = self.replica_label
         b64_out = payload.get("encoding") == "b64"
         if endpoint == "/v1/weights":
             w = np.asarray(res.weights, np.float32)
@@ -904,7 +1048,8 @@ class ServingService:
             if meta is not None:
                 meta["coalesced"] = True
             try:
-                self.events.counter("serve/coalesce", hit=True)
+                self.events.counter("serve/coalesce", hit=True,
+                                    replica=self.replica_label)
             except Exception:
                 pass  # telemetry must never fail the request path
             # shield: one waiter's death must not cancel the shared flight
@@ -919,13 +1064,14 @@ class ServingService:
                 return await dispatch()
             raise value
         # fault site: the dispatch-owner path
-        faults.inject("serve/coalesce", path="")
+        faults.inject("serve/coalesce", path=self.replica_label or "")
         fut = asyncio.get_running_loop().create_future()
         self._inflight[key] = (fut, meta)
         self.coalesce_dispatches += 1
         try:
             try:
-                self.events.counter("serve/coalesce", hit=False)
+                self.events.counter("serve/coalesce", hit=False,
+                                    replica=self.replica_label)
             except Exception:
                 pass  # the finally below owns the cleanup either way
             res = await dispatch()
@@ -1099,7 +1245,7 @@ class ServingService:
             "finite": finite,
         }
         self.events.counter(
-            "serve/canary",
+            "serve/canary", replica=self.replica_label,
             generation=reload_out.get("params_generation"),
             fingerprint=str(reload_out.get("params_fingerprint"))[:16],
             **divergence)
@@ -1115,7 +1261,9 @@ class ServingService:
         the engine's current dirs. The cache needs no flush: its keys
         carry the params fingerprint."""
         payload = payload or {}
-        faults.inject("serve/reload", path="")
+        # fault site: a kill here dies mid-hot-swap; the supervisor
+        # restarts the replica and it converges to the pointer on boot
+        faults.inject("serve/reload", path=self.replica_label or "")
         dirs = payload.get("checkpoint_dirs")
         pointer = None
         if dirs is None and self.pointer_root is not None:
@@ -1162,7 +1310,7 @@ class ServingService:
                 out["params_fingerprint"]
                 == pointer.get("params_fingerprint"))
         self.events.counter(
-            "serve/generation",
+            "serve/generation", replica=self.replica_label,
             fingerprint=out["params_fingerprint"][:16],
             generation=out["params_generation"],
             pointer_generation=(pointer or {}).get("generation"),
@@ -1190,6 +1338,8 @@ class ServingService:
             "device": str(self.engine.device),
             "months": self.engine.months,
         }
+        if self.replica_label is not None:
+            out["replica"] = self.replica_label
         if self.heartbeat is not None:
             out["heartbeat"] = (
                 read_state(self.heartbeat.path).get("heartbeat"))
@@ -1287,7 +1437,7 @@ class ServingService:
                 },
                 "canary_size": len(self._canary),
             }
-        return {
+        out = {
             "requests": requests,
             "latency": latency,
             "cache": {"hits": self.cache.hits, "misses": self.cache.misses,
@@ -1300,6 +1450,9 @@ class ServingService:
             "draining": self.draining,
             "engine": self.engine.stats(),
         }
+        if self.replica_label is not None:
+            out["replica"] = self.replica_label
+        return out
 
 
 # -- HTTP shim (the deprecated threaded front end) ---------------------------
@@ -1385,10 +1538,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "pointer's current generation, and /v1/reload with "
                         "no body re-reads it (member digests verified)")
     p.add_argument("--admin_port", type=int, default=None, metavar="PORT",
-                   help="also serve the API on a PRIVATE 127.0.0.1 port "
-                        "that unlocks /v1/drain and /v1/debug/"
-                        "flightrecorder (0 picks a free port, printed at "
-                        "startup; async server only)")
+                   help="also serve this replica's API on a PRIVATE "
+                        "127.0.0.1 port (not SO_REUSEPORT-shared) that "
+                        "unlocks /v1/drain and /v1/debug/{flightrecorder,"
+                        "profile}: the rolling-update path targets one "
+                        "replica's /v1/reload and /metrics through it (0 "
+                        "picks a free port, printed at startup; async "
+                        "server only; a fleet gives replica i PORT + i)")
     p.add_argument("--data_dir", type=str, default=None,
                    help="panel dir; the serving macro history comes from "
                         "--macro_split (normalized with train stats)")
@@ -1403,6 +1559,40 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "continuous batcher. 'threaded': DEPRECATED "
                         "thread-per-request ThreadingHTTPServer + deadline "
                         "micro-batcher")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve from R supervisor-managed replica processes "
+                        "sharing one SO_REUSEPORT socket (async only); a "
+                        "crashed replica is restarted and degrades "
+                        "capacity, not availability")
+    p.add_argument("--replica_id", type=int, default=None,
+                   help="internal: this process's index in a replica fleet")
+    p.add_argument("--autoscale", action="store_true",
+                   help="load-adaptive fleet (requires --replicas mode): a "
+                        "control thread scrapes per-replica metrics and "
+                        "grows/shrinks the SO_REUSEPORT replica set "
+                        "between --min_replicas and --max_replicas with "
+                        "hysteresis + cooldown; every scale event rewrites "
+                        "fleet.json atomically")
+    p.add_argument("--min_replicas", type=int, default=None,
+                   help="autoscale floor (default: 1)")
+    p.add_argument("--max_replicas", type=int, default=None,
+                   help="autoscale ceiling (default: max(4, --replicas))")
+    p.add_argument("--autoscale_up_depth", type=float, default=8.0,
+                   help="scale up when mean pending per replica reaches "
+                        "this for --autoscale_up_hysteresis ticks")
+    p.add_argument("--autoscale_down_depth", type=float, default=1.0,
+                   help="scale down when mean pending per replica stays "
+                        "at/below this (and nothing is shed) for "
+                        "--autoscale_down_hysteresis ticks")
+    p.add_argument("--autoscale_up_hysteresis", type=int, default=2)
+    p.add_argument("--autoscale_down_hysteresis", type=int, default=8)
+    p.add_argument("--autoscale_poll_s", type=float, default=0.5)
+    p.add_argument("--autoscale_cooldown_s", type=float, default=5.0,
+                   help="minimum seconds between scale events (anti-flap, "
+                        "with hysteresis)")
+    p.add_argument("--reuse_port", action="store_true",
+                   help="bind with SO_REUSEPORT (replica fleets share the "
+                        "port)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--run_dir", type=str, default=None,
@@ -1530,14 +1720,18 @@ def build_service(args: argparse.Namespace,
         engine, run_dir=args.run_dir, max_batch=args.max_batch,
         max_delay_s=args.max_delay_s, max_queue=args.max_queue,
         cache_size=args.cache_size, events=events, mode=args.server,
-        pointer_root=args.pointer, coalesce=not args.no_coalesce,
+        replica_id=args.replica_id, pointer_root=args.pointer,
+        coalesce=not args.no_coalesce,
         bulk_threshold=args.bulk_threshold,
         reference_profile=reference_profile,
         drift_every=args.drift_every,
         drift_psi_threshold=args.drift_psi_threshold)
     if boot_pointer is not None:
+        # the boot row of the convergence timeline: this replica came up
+        # serving the pointer's generation (a replica that died
+        # mid-promotion re-enters here and converges without a reload)
         events.counter(
-            "serve/generation",
+            "serve/generation", replica=service.replica_label,
             fingerprint=engine.params_fingerprint[:16],
             generation=engine.params_generation,
             pointer_generation=boot_pointer["generation"],
@@ -1553,6 +1747,20 @@ def build_service(args: argparse.Namespace,
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_arg_parser().parse_args(argv)
+    if not args.checkpoint_dirs and not args.pointer:
+        print("serving.server: pass --checkpoint_dirs or --pointer",
+              file=sys.stderr)
+        return 2
+    if args.replicas > 1 or args.autoscale:
+        # the fleet parent never touches the device: it only spawns and
+        # supervises replica children (each a fresh `--replica_id i` run of
+        # this CLI on a shared SO_REUSEPORT socket, with the parent's
+        # --device, --kernel and --compute_dtype), so only the children
+        # hold a CUDA context. --autoscale implies fleet mode even at
+        # --replicas 1: a fleet of one that can grow
+        from .fleet import main_from_server_args
+
+        return main_from_server_args(args)
     # SIGTERM is a CLEAN shutdown (the close path writes metrics.prom, the
     # flight-recorder dump and the last heartbeat): it raises
     # KeyboardInterrupt like Ctrl-C. SIGUSR1 is the flare: dump the flight
@@ -1606,6 +1814,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             from .aserver import run_async_server
 
             run_async_server(service, args.host, args.port,
+                             reuse_port=args.reuse_port,
                              admin_port=args.admin_port)
     except KeyboardInterrupt:
         pass

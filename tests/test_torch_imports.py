@@ -82,9 +82,11 @@ STDLIB_ONLY = [
     "reliability/supervisor.py", "reliability/scheduler.py",
     "reliability/ledger.py", "reliability/verified.py", "serving/batcher.py",
     "serving/flight.py", "data/download.py",
+    "serving/fleet.py", "serving/autoscale.py", "observability/slo.py",
+    "observability/statusboard.py",
 ]
 # modules whose top level is numpy and the stdlib only
-NUMPY_ONLY = ["data/diskcache.py", "data/native.py"]
+NUMPY_ONLY = ["data/diskcache.py", "data/native.py", "serving/probe.py"]
 
 
 @pytest.mark.parametrize("rel", STDLIB_ONLY + NUMPY_ONLY)
@@ -133,3 +135,20 @@ def test_package_exports_the_data_plane():
         pipeline.StartupPipeline
     with pytest.raises(AttributeError):
         port.stream_batch_sharded
+
+
+def test_serving_package_exports_the_jax_names():
+    """The serving package exports what the JAX package's does, the fleet,
+    the autoscaler and the load generator included."""
+    import importlib
+
+    port = importlib.import_module(PKG + ".serving")
+    src = (ROOT / "deeplearninginassetpricing_paperreplication_tpu"
+           / "serving" / "__init__.py").read_text()
+    tree = ast.parse(src)
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and node.targets[0].id == "__all__")
+    assert sorted(port.__all__) == sorted(names)
+    for name in names:
+        assert getattr(port, name) is not None, name

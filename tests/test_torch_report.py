@@ -600,9 +600,9 @@ def test_kernel_plans_section(run_dirs):
 
 
 def test_slo_rows_give_no_section_yet(tmp_path):
-    """The port has no SLO section (its status board is not ported): a
-    run dir with alert and probe rows summarizes as the JAX package's but
-    for the ``slo`` section, which only the JAX package's has."""
+    """A run dir with alert and probe rows summarizes as the JAX
+    package's, the ``slo`` section included (both read the rows through
+    their status board's ``scan_slo_rows``)."""
     run = tmp_path / "run"
     _write_rows(run / "events.jsonl", [
         _row("alert", "alert/firing", 100.0, 1.0, objective="availability",
@@ -611,8 +611,8 @@ def test_slo_rows_give_no_section_yet(tmp_path):
              error="timeout"),
         _row("span_end", "phase/x", 102.0, 3.0, duration_s=1.0)])
     ours, theirs = _summaries(run)
-    assert "slo" not in ours
-    assert theirs.pop("slo")
+    assert ours["slo"]["alerts"]["firing_now"] == ["availability [5m]"]
+    assert ours["slo"]["probe"]["failures"] == 1
     assert ours == theirs
 
 
