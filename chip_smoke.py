@@ -63,6 +63,11 @@
                                       # 4 at f32 (the answers), then phase
                                       # 15 on stand-in members (no result
                                       # line)
+    python3 chip_smoke.py --only_joint
+                                      # the training kernels' libraries,
+                                      # their checks at phase 16's shapes,
+                                      # then phase 16 with the figures on
+                                      # stand-in members (no result line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -87,7 +92,13 @@ Phases, each printing its results; any failure exits non-zero:
    bound, as the card holds it, with no spills; the panel cotangent's plan
    per width bound and dtype, as the card holds it, with no spills, and
    the panel cotangent with dropout 0.05 and without, the latter also
-   timed by CUDA-graph replays and at every stock tile, and off the main
+   timed by CUDA-graph replays and at every stock tile; its bf16 route at
+   every such shape also through the C2 audit build (the same source under
+   ``-DSDF_FFN_DX_AUDIT``): the top-layer decisions it certified, the
+   sign flips of the mma sums against the exact chains (none may lie
+   outside the certified window), the largest |mma - chain| / bound (below
+   the window's 2^-16, printed against the assumed 2^-19), and the audit
+   build's dx bit for bit the main library's; and off the main
    paths (F = 80, F = 10 under (8, 7, 6), one hidden layer); the
    conditional-EM kernels
    at K = 4 and 8, each plan as the card holds it (the panel cotangent's
@@ -291,6 +302,32 @@ Phases, each printing its results; any failure exits non-zero:
    2``: (e) ``bench_loadadapt``'s swing, a scale-up and a scale-down, no
    interactive request dropped, bulk shed with 429s. Launches
    (``serving_fleet``): the live replicas' at each fleet's end.
+
+16. The joint trainers, the JAX run dirs and the figures, on phase 6's
+   panel (``_smoke_joint/``, removed after): first ``sdf_ffn_fwd`` and
+   ``sdf_ffn_bwd`` against their plain versions at SimpleSDF's hidden (32,
+   16), S = 1 (the w32 library); (a) ``joint_train`` of the paper's model
+   (24 epochs, plateau patience 3, seed 42): f32 dropout 0 on the kernel
+   route against ``kernel="off"``, every epoch losses rel 1e-3 and Sharpes
+   abs 5e-3; the ``lr`` traces equal, unless the epoch where the routes'
+   plateau decisions first part has a margin |metric - best·(1 + 1e-4)|
+   below 5e-3 of |metric|: that epoch and its margin are printed and the
+   histories compared through it; launches 24 × (2, 1, 2, 1); then dropout
+   0.05 on the kernel route, f32 twice bit for bit and bf16, all finite,
+   with the epoch ms of each route; (b) ``train_simple_sdf`` (input [macro
+   178, individual 46], hidden (32, 16), 24 epochs): dropout 0 kernel
+   against plain, the first epoch at the same bars and every epoch within
+   max(the bars, 4 × the largest deviation of four plain runs whose first
+   or output layer's initial weights move by ±2^-23: the baseline's
+   trajectory is chaotic), launches 24 × (3, 1), dropout 0.1 twice bit for bit; (c) ``tests/fixtures/jax_run_{msgpack,pt}`` (the JAX
+   package's run dir of the paper-width model and its ``.pt`` twin): the
+   same ``state_dict`` bit for bit and bit-for-bit ``evaluate_ensemble``
+   metrics; (d) ``summary_statistics`` on phase 7's nine members saved as
+   run dirs (one ``sdf_ffn_fwd`` launch at S = 9) against
+   ``evaluate_ensemble``'s test Sharpe, |d| <= 1e-6; the plots CLI exits
+   non-zero naming matplotlib where it is missing, and writes the seven
+   figures where it is there. Launches: ``joint_training``,
+   ``simple_sdf_training``, ``plots_summary``.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -1353,7 +1390,7 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
     g = torch.Generator(device=dev).manual_seed(4)
     F, hidden, Kn = 46, [64, 64], 8
     lay = K.ffn_layout(F, hidden)
-    rows = {}
+    rows, audits = {}, {}
     print(f"[kernels] sdf_ffn_dx / cond_em_dx vs sdf_ffn_dx_reference / "
           f"cond_em_dx_reference, F={F} hidden={hidden} K={Kn} ({card})",
           flush=True)
@@ -1398,6 +1435,10 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
                 torch.cuda.synchronize()
                 check(torch.equal(out, again), f"{name} not bitwise "
                       f"repeatable at S={S} T={T} N={N} {cd} {what}")
+                if name == "sdf_ffn_dx" and cd == "bfloat16":
+                    audits[(S, T, N, rate)] = dx_audit_check(
+                        torch, K, card, (x, zp, packed, gout, seed, rate),
+                        out, f"S={S} T={T} N={N:5d} dropout {rate}")
                 ref = plain()
                 err = rel_err(out, ref)
                 check(bool(torch.isfinite(out).all())
@@ -1448,6 +1489,10 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
                     if name == "cond_em_dx":
                         cem_dx_tile_times(torch, C, S, T, N, F, Kn, cd,
                                           (x, zpm, xr, tinv, kT, gem), card)
+    if audits:
+        rows[("sdf_ffn_dx", "bfloat16", "c2_audit")] = {
+            f"S={k[0]} T={k[1]} N={k[2]} dropout {k[3]}": v
+            for k, v in audits.items()}
     if "sdf_ffn_dx" in names:
         for S, T, N, F, hidden in DX_ODD_SHAPES:
             x = torch.randn(T, F, N, generator=g, device=dev)
@@ -1502,6 +1547,40 @@ def dx_checks(torch, K, C, card, names=("sdf_ffn_dx", "cond_em_dx")):
                       f"{plan.route} tile {plan.tile}  bitwise-repeatable "
                       f"({card})", flush=True)
     return rows
+
+
+def dx_audit_check(torch, K, card, args, out, what):
+    """ROADMAP C2: the bf16 sdf_ffn_dx's top-layer ReLU decisions through
+    the audit build (the same source under -DSDF_FFN_DX_AUDIT), which also
+    computes the exact chain of every top-layer element. Fails if a sign
+    disagreement between the mma sum and the exact chain lies outside the
+    certified window, if the largest |mma - chain| / (max|a|·Σ|W| + |b|)
+    reaches the window's 2^-16, or if the audit build's dx is not the main
+    library's bit for bit. Prints that ratio against 2^-19, the bound the
+    window assumes (8x below it). Returns the counters."""
+    adx, c = K.dx_audit(*args)
+    torch.cuda.synchronize()
+    assumed, window = 2.0 ** -19, 2.0 ** -16
+    c = dict(c, ratio_vs_assumed=c["max_ratio"] / assumed,
+             dx_bitwise_main=bool(torch.equal(adx, out)))
+    print(f"[kernels] sdf_ffn_dx C2 audit {what}: (a) certified "
+          f"{c['certified']} of {c['elements']} top-layer elements; (b) sign "
+          f"flips mma vs chain {c['flips']}, outside the window "
+          f"{c['flips_outside']}; (c) max |mma - chain|/bound "
+          f"{c['max_ratio']:.3e} = {c['ratio_vs_assumed']:.3f} x 2^-19 "
+          f"(window 2^-16); dx bit for bit the main library's: "
+          f"{c['dx_bitwise_main']}; audit kernel {c['registers']} registers,"
+          f" {c['local_bytes']} local bytes ({card})", flush=True)
+    check(c["elements"] > 0, f"the C2 audit saw no element at {what}")
+    check(c["flips_outside"] == 0,
+          f"C2: {c['flips_outside']} top-layer decisions of sdf_ffn_dx flip "
+          f"outside the certified window at {what}")
+    check(c["max_ratio"] < window,
+          f"C2: |mma - chain|/bound {c['max_ratio']:.3e} reaches the "
+          f"certified window 2^-16 at {what}")
+    check(c["dx_bitwise_main"], f"C2: the audit build's dx is not the main "
+          f"library's bit for bit at {what}")
+    return c
 
 
 def cem_dx_tile_times(torch, C, S, T, N, F, Kn, cd, args, card):
@@ -6259,6 +6338,466 @@ def fleet_phase(torch, card, splits, ref, member_dirs):
     return launches
 
 
+JOINT_DIR = ROOT / "_smoke_joint"
+JOINT_EPOCHS = 24
+JOINT_PATIENCE = 3
+JOINT_SEED = 42
+JOINT_DROPOUT = 0.05
+SIMPLE_HIDDEN = (32, 16)  # train_simple_sdf's default widths
+SIMPLE_DROPOUT = 0.1  # and its default dropout
+SIMPLE_EPOCHS = 24
+# the plain SimpleSDF runs that measure its trajectory's rounding noise:
+# (layer, sign) of a 2^-23 relative change of that layer's initial weights
+SIMPLE_PERTURBATIONS = (("fc_layers", 1), ("fc_layers", -1),
+                        ("output_proj", 1), ("output_proj", -1))
+LOSS_BAR, SHARPE_BAR = 1e-3, 5e-3  # PERF.md §2: loss rel, Sharpe abs
+SUMMARY_SHARPE_TOL = 1e-6
+# launches per epoch, (sdf_ffn_fwd, sdf_ffn_bwd, cond_em_fwd, cond_em_bwd):
+# joint: the training forward and its one backward (cond_em_bwd gives
+# dzp_m, dxr and dk_stock in that launch; no panel cotangent), then the
+# eval forward; SimpleSDF: the training forward and backward, then the
+# eval forwards on train and valid
+JOINT_PER_EPOCH = (2, 1, 2, 1)
+SIMPLE_PER_EPOCH = (3, 1, 0, 0)
+JAX_RUN_DIRS = ("tests/fixtures/jax_run_msgpack", "tests/fixtures/jax_run_pt")
+
+
+def plateau_decisions(torch, J, valid_sharpe):
+    """Replay the plateau rule over a history's valid Sharpes with the
+    trainer's own f32 step: per epoch (improved?, margin), the margin
+    |metric - best·(1 + 1e-4)| relative to |metric|."""
+    best = torch.tensor(-np.inf, dtype=torch.float32)
+    bad = torch.tensor(0, dtype=torch.int32)
+    scale = torch.tensor(1.0, dtype=torch.float32)
+    out = []
+    for m in valid_sharpe:
+        m = torch.tensor(m, dtype=torch.float32)
+        thr = best * (1.0 + J.PLATEAU_THRESHOLD)
+        out.append((bool(m > thr),
+                    float((m - thr).abs() / m.abs().clamp_min(1e-12))))
+        scale, best, bad = J._plateau_update(scale, best, bad, m, 0.5,
+                                             JOINT_PATIENCE,
+                                             J.PLATEAU_THRESHOLD)
+    return out
+
+
+def compare_joint_histories(torch, J, on, off, what):
+    """The kernel route's joint history against the plain route's. The lr
+    traces must be equal, unless the epoch where the two routes' plateau
+    decisions first part has a margin |metric - best·(1 + 1e-4)| below the
+    Sharpe bar (5e-3 of |metric|): then that epoch and its margin are
+    printed and the histories compared up to it (its lr excluded). Losses
+    rel 1e-3, Sharpes abs 5e-3, every compared epoch. Returns (epochs
+    compared, max loss rel dev, max Sharpe dev)."""
+    n = len(off["lr"])
+    upto, lr_upto = n, n
+    if not np.array_equal(on["lr"], off["lr"]):
+        d_on = plateau_decisions(torch, J, on["valid_sharpe"])
+        d_off = plateau_decisions(torch, J, off["valid_sharpe"])
+        parted = [e for e in range(n) if d_on[e][0] != d_off[e][0]]
+        check(bool(parted), f"{what}: the lr traces differ with the same "
+              f"plateau decisions ({on['lr']} vs {off['lr']})")
+        e = parted[0]
+        margin = min(d_on[e][1], d_off[e][1])
+        check(margin < SHARPE_BAR,
+              f"{what}: the plateau decisions part at epoch {e} with margin "
+              f"{margin:.3e} >= {SHARPE_BAR}")
+        print(f"[joint] {what}: plateau decisions part at epoch {e}, margin "
+              f"{margin:.3e} of |metric| (< {SHARPE_BAR}): histories "
+              f"compared through epoch {e}", flush=True)
+        upto, lr_upto = e + 1, e
+    check(np.array_equal(on["lr"][:lr_upto], off["lr"][:lr_upto]),
+          f"{what}: lr traces differ before the plateau decisions part")
+    dev_loss, dev_sharpe = _devs(on, off, ("train_loss", "valid_loss"),
+                                 ("train_sharpe", "valid_sharpe"), upto)
+    check(dev_loss <= LOSS_BAR, f"{what}: kernel vs plain loss rel dev "
+          f"{dev_loss:.3e} > {LOSS_BAR}")
+    check(dev_sharpe <= SHARPE_BAR, f"{what}: kernel vs plain Sharpe dev "
+          f"{dev_sharpe:.3e} > {SHARPE_BAR}")
+    return upto, dev_loss, dev_sharpe
+
+
+def _finite(hist) -> bool:
+    return all(bool(np.isfinite(v).all()) for v in hist.values())
+
+
+def joint_training_checks(torch, K, C, card, splits):
+    """(a) joint_train at full width (the paper's model) on phase 6's
+    panel: f32 dropout 0 on the kernel route against kernel="off" (launches
+    counted on the kernel run), then dropout 0.05 on the kernel route, two
+    f32 runs bit for bit and one bf16, every value finite. Returns the
+    launches {name: n}."""
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import (
+        GAN,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.models.networks \
+        import init_member_params
+    from deeplearninginassetpricing_paperreplication_torch.training import (
+        joint as J,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig
+
+    train, valid, _ = splits
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid)]
+
+    def cfg_of(dropout):
+        return GANConfig(macro_feature_dim=train.macro_feature_dim,
+                         individual_feature_dim=train.individual_feature_dim,
+                         dropout=dropout)
+
+    init = {k: v[0] for k, v in init_member_params(
+        cfg_of(0.0), [JOINT_SEED]).items()}
+
+    def run(kernel, cd, dropout, epochs=JOINT_EPOCHS):
+        gan = GAN.from_state_dict(cfg_of(dropout), init, ExecutionConfig(
+            kernel=kernel, compute_dtype=cd, device=DEVICE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = J.joint_train(gan, *batches, num_epochs=epochs, lr=1e-3,
+                             plateau_patience=JOINT_PATIENCE,
+                             seed=JOINT_SEED)
+        ms = (time.perf_counter() - t0) * 1e3 / epochs
+        return hist, ms, {k: v.detach().clone()
+                          for k, v in gan.module.state_dict().items()}
+
+    for kernel in ("on", "off"):  # set-up: library loads, first allocations
+        run(kernel, "float32", 0.0, epochs=1)
+    K.reset_launch_count()
+    C.reset_launch_count()
+    on, on_ms, _ = run("on", "float32", 0.0)
+    launches = counts(K, C)
+    K.reset_launch_count()
+    C.reset_launch_count()
+    off, off_ms, _ = run("off", "float32", 0.0)
+    check(counts(K, C) == (0, 0, 0, 0), "kernel='off' joint_train launched "
+          "a kernel")
+    want = tuple(JOINT_EPOCHS * v for v in JOINT_PER_EPOCH)
+    check(launches == want, f"joint_train launches (fwd, bwd, cem_fwd, "
+          f"cem_bwd) {launches} != {want}")
+    check(_finite(on) and _finite(off), "non-finite joint_train history")
+    upto, dev_loss, dev_sharpe = compare_joint_histories(
+        torch, J, on, off, "joint f32 dropout 0")
+    print(f"[joint] joint_train full width F={train.individual_feature_dim} "
+          f"M={train.macro_feature_dim} N={train.N} T={train.T}/{valid.T}, "
+          f"hidden [64, 64], LSTM [4], K=8, {JOINT_EPOCHS} epochs, patience "
+          f"{JOINT_PATIENCE}, seed {JOINT_SEED}, f32 dropout 0: kernel vs "
+          f"plain over {upto} epochs: max loss rel dev {dev_loss:.3e} (bar "
+          f"{LOSS_BAR}), max Sharpe dev {dev_sharpe:.3e} (bar {SHARPE_BAR});"
+          f" lr {on['lr'][0]:.3e} -> {on['lr'][-1]:.3e} (plain "
+          f"{off['lr'][-1]:.3e}); final valid Sharpe kernel "
+          f"{on['valid_sharpe'][-1]:.6f} plain {off['valid_sharpe'][-1]:.6f}"
+          f" ({card})", flush=True)
+    print(f"[joint] launches (fwd, bwd, cem_fwd, cem_bwd) {launches} = "
+          f"{JOINT_EPOCHS} epochs x {JOINT_PER_EPOCH}; wall ms per epoch "
+          f"kernel {on_ms:.2f}, plain {off_ms:.2f} ({card})", flush=True)
+    d1, d1_ms, p1 = run("on", "float32", JOINT_DROPOUT)
+    d2, _, p2 = run("on", "float32", JOINT_DROPOUT)
+    bf, bf_ms, pb = run("on", "bfloat16", JOINT_DROPOUT)
+    check(_finite(d1) and _finite(bf)
+          and all(bool(torch.isfinite(v).all()) for v in pb.values()),
+          "non-finite joint_train with dropout")
+    check(all(np.array_equal(d1[k], d2[k]) for k in d1)
+          and all(torch.equal(p1[k], p2[k]) for k in p1),
+          "joint_train with dropout 0.05 (f32) not bit for bit from one "
+          "seed")
+    print(f"[joint] dropout {JOINT_DROPOUT}, kernel route: f32 twice bit "
+          f"for bit, bf16 finite; final valid Sharpe f32 "
+          f"{d1['valid_sharpe'][-1]:.6f} bf16 {bf['valid_sharpe'][-1]:.6f};"
+          f" wall ms per epoch f32 {d1_ms:.2f}, bf16 {bf_ms:.2f} ({card})",
+          flush=True)
+    return dict(zip(TRAIN_KERNELS, launches)), dict(
+        kernel_ms=on_ms, plain_ms=off_ms, dropout_f32_ms=d1_ms,
+        dropout_bf16_ms=bf_ms)
+
+
+def _devs(a, b, keys_loss, keys_sharpe, upto=None):
+    """(max loss rel dev, max Sharpe abs dev) of two histories over the
+    epochs [:upto]."""
+    sl = slice(None, upto)
+    loss = max(float(np.max(np.abs(a[k][sl] - b[k][sl])
+                            / np.maximum(np.abs(b[k][sl]), 1e-12)))
+               for k in keys_loss)
+    sh = max(float(np.max(np.abs(a[k][sl] - b[k][sl]))) for k in keys_sharpe)
+    return loss, sh
+
+
+def simple_sdf_checks(torch, K, C, card, splits):
+    """(b) train_simple_sdf at full width: input [macro 178, individual 46],
+    hidden (32, 16) (the w32 library). Dropout 0, f32: the kernel route
+    against kernel="off" (launches counted on the kernel run). The first
+    epoch at the training bars (loss rel 1e-3, Sharpe abs 5e-3). Over all
+    24 epochs this baseline's trajectory is chaotic (its loss falls ~60×
+    toward 0): a 2^-23 relative change of the plain run's initial weights
+    moves it about as far as the kernel route does
+    (tools/simple_sdf_sensitivity.py). So the whole history is held to
+    max(the bars, 4 × the largest deviation of four such perturbed plain
+    runs, SIMPLE_PERTURBATIONS): the kernel route departs from the plain
+    route by no more than the plain route's rounding noise does. Then dropout 0.1 on
+    the kernel route twice: finite and bit for bit. Returns the launches."""
+    from deeplearninginassetpricing_paperreplication_torch.models.networks \
+        import SimpleSDF, init_params
+    from deeplearninginassetpricing_paperreplication_torch.training import (
+        joint as J,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    train, valid, _ = splits
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid)]
+    M, F = train.macro_feature_dim, train.individual_feature_dim
+    losses, sharpes = ("train_loss", "valid_loss"), ("train_sharpe",
+                                                     "valid_sharpe")
+
+    def exec_of(kernel):
+        return ExecutionConfig(kernel=kernel, compute_dtype="float32",
+                               device=DEVICE)
+
+    def run(kernel, dropout, epochs=SIMPLE_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, hist = J.train_simple_sdf(
+            M, F, *batches, hidden_dims=SIMPLE_HIDDEN, dropout=dropout,
+            num_epochs=epochs, lr=1e-3, seed=JOINT_SEED,
+            exec_cfg=exec_of(kernel))
+        ms = (time.perf_counter() - t0) * 1e3 / epochs
+        return hist, ms, {k: v.detach().clone()
+                          for k, v in model.state_dict().items()}
+
+    for kernel in ("on", "off"):
+        run(kernel, 0.0, epochs=1)
+    K.reset_launch_count()
+    C.reset_launch_count()
+    on, on_ms, _ = run("on", 0.0)
+    launches = counts(K, C)
+    K.reset_launch_count()
+    off, off_ms, _ = run("off", 0.0)
+    # the plain route's own rounding noise: its first or its output
+    # layer's initial weights scaled by 1 ± 2^-23, the same seeds otherwise
+    perturbed = []
+    for layer, sign in SIMPLE_PERTURBATIONS:
+        noisy = SimpleSDF(M, F, SIMPLE_HIDDEN, 0.0, exec_of("off"))
+        init_params(noisy, torch.Generator().manual_seed(JOINT_SEED))
+        with torch.no_grad():
+            getattr(noisy, layer).get_parameter(
+                "0.weight" if layer == "fc_layers" else "weight").mul_(
+                1.0 + sign * 2.0 ** -23)
+        noisy.to(DEVICE)
+        perturbed.append(J.fit_simple_sdf(
+            noisy, *batches, num_epochs=SIMPLE_EPOCHS, lr=1e-3,
+            seed=JOINT_SEED))
+    check(counts(K, C) == (0, 0, 0, 0), "kernel='off' SimpleSDF launched "
+          "a kernel")
+    want = tuple(SIMPLE_EPOCHS * v for v in SIMPLE_PER_EPOCH)
+    check(launches == want, f"train_simple_sdf launches (fwd, bwd, cem_fwd,"
+          f" cem_bwd) {launches} != {want}")
+    check(_finite(on) and _finite(off), "non-finite SimpleSDF history")
+    first = _devs(on, off, losses, sharpes, upto=1)
+    check(first[0] <= LOSS_BAR and first[1] <= SHARPE_BAR,
+          f"SimpleSDF kernel vs plain after one epoch: loss rel dev "
+          f"{first[0]:.3e}, Sharpe dev {first[1]:.3e}")
+    dev = _devs(on, off, losses, sharpes)
+    spreads = [_devs(h, off, losses, sharpes) for h in perturbed]
+    noise = (max(d[0] for d in spreads), max(d[1] for d in spreads))
+    bars = (max(LOSS_BAR, 4 * noise[0]), max(SHARPE_BAR, 4 * noise[1]))
+    check(dev[0] <= bars[0] and dev[1] <= bars[1],
+          f"SimpleSDF kernel vs plain over {SIMPLE_EPOCHS} epochs: loss rel "
+          f"dev {dev[0]:.3e}, Sharpe dev {dev[1]:.3e} against bars "
+          f"{bars[0]:.3e} / {bars[1]:.3e} (the plain route's 2^-23 "
+          f"perturbations move it up to {noise[0]:.3e} / {noise[1]:.3e})")
+    d1, d_ms, p1 = run("on", SIMPLE_DROPOUT)
+    d2, _, p2 = run("on", SIMPLE_DROPOUT)
+    check(_finite(d1) and all(np.array_equal(d1[k], d2[k]) for k in d1)
+          and all(torch.equal(p1[k], p2[k]) for k in p1),
+          f"SimpleSDF with dropout {SIMPLE_DROPOUT}: non-finite, or not bit "
+          "for bit from one seed")
+    print(f"[simple_sdf] train_simple_sdf input [macro {M}, individual {F}] "
+          f"hidden {list(SIMPLE_HIDDEN)}, {SIMPLE_EPOCHS} epochs, f32 "
+          f"dropout 0, kernel vs plain: epoch 1 loss rel dev {first[0]:.3e},"
+          f" Sharpe dev {first[1]:.3e} (bars {LOSS_BAR} / {SHARPE_BAR}); "
+          f"all epochs {dev[0]:.3e} / {dev[1]:.3e} against the plain "
+          f"route's own 2^-23 perturbations "
+          f"{[(float(f'{a:.3e}'), float(f'{b:.3e}')) for a, b in spreads]} "
+          f"(bars {bars[0]:.3e} / {bars[1]:.3e}); train loss "
+          f"{off['train_loss'][0]:.4e} -> {off['train_loss'][-1]:.4e}; "
+          f"final valid Sharpe kernel {on['valid_sharpe'][-1]:.6f} plain "
+          f"{off['valid_sharpe'][-1]:.6f} ({card})", flush=True)
+    print(f"[simple_sdf] launches {launches} = {SIMPLE_EPOCHS} x "
+          f"{SIMPLE_PER_EPOCH}; dropout {SIMPLE_DROPOUT} twice bit for bit; "
+          f"wall ms per epoch kernel {on_ms:.2f}, plain {off_ms:.2f}, "
+          f"dropout {d_ms:.2f} ({card})", flush=True)
+    return dict(zip(TRAIN_KERNELS, launches)), dict(
+        kernel_ms=on_ms, plain_ms=off_ms, dropout_ms=d_ms,
+        dev=dev, noise=noise, spreads=spreads)
+
+
+def jax_run_dir_checks(torch, card):
+    """(c) The JAX package's run dirs checked in under tests/fixtures/ (the
+    paper-width model as flax .msgpack, and its .pt twin): read without
+    msgpack or JAX (the port imports neither; the line says which of them
+    this machine has), the .msgpack state_dict is the .pt one bit for bit,
+    and evaluate_ensemble gives bit-for-bit metrics on both."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import evaluate_ensemble
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import load_checkpoint_dir
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    import importlib.util
+    importable = [m for m in ("msgpack", "jax", "flax")
+                  if importlib.util.find_spec(m) is not None]
+    dirs = [str(ROOT / d) for d in JAX_RUN_DIRS]
+    (cm, sdm), (cp, sdp) = (load_checkpoint_dir(d) for d in dirs)
+    check(cm == cp and list(sdm) == list(sdp)
+          and all(torch.equal(sdm[k], sdp[k]) for k in sdp),
+          "the JAX run dir's .msgpack does not load to its .pt twin bit for "
+          "bit")
+    res = [evaluate_ensemble([d], str(DATA_DIR), exec_cfg=ExecutionConfig(
+        device=DEVICE), verbose=False) for d in dirs]
+    check(res[0] == res[1], f"evaluate_ensemble on the JAX .msgpack run dir "
+          f"{res[0]} != on its .pt twin {res[1]}")
+    print(f"[jax_run] {JAX_RUN_DIRS[0]}: {len(sdm)} tensors bit for bit the "
+          f".pt twin's; evaluate_ensemble (bf16 kernel) test Sharpe "
+          f"{res[0]['test_sharpe']:.6f} on both, bit for bit; importable of "
+          f"msgpack/jax/flax here: {importable or 'none'} ({card})",
+          flush=True)
+
+
+def figure_checks(torch, K, card, splits, cfg, stacked):
+    """(d) summary_statistics on nine member run dirs (one sdf_ffn_fwd
+    launch at S = 9, counted) against evaluate_ensemble on the same dirs:
+    sharpe_monthly and test_sharpe are both mean/std (ddof 0) of the
+    NEGATED ensemble portfolio return (the paper's sign), so they agree to
+    |d| <= 1e-6. Then the plots CLI: without matplotlib it must exit
+    non-zero naming it; with matplotlib it must write the seven figures
+    (a short diag_stride run dir first). Returns the launches."""
+    from deeplearninginassetpricing_paperreplication_torch import plots
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import evaluate_ensemble
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import member_state_dicts, save_state_dict
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    import importlib.util
+    dirs = []
+    for seed, sd in zip(ENSEMBLE_SEEDS, member_state_dicts(stacked)):
+        d = JOINT_DIR / "members" / f"seed_{seed}"
+        d.mkdir(parents=True)
+        cfg.save(d / "config.json")
+        save_state_dict(d / "best_model_sharpe.pt", sd)
+        dirs.append(str(d))
+    exec_cfg = ExecutionConfig(device=DEVICE)
+    plots.summary_statistics(dirs, str(DATA_DIR), exec_cfg=exec_cfg)  # warm
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    t0 = time.perf_counter()
+    stats = plots.summary_statistics(dirs, str(DATA_DIR), exec_cfg=exec_cfg)
+    summary_ms = (time.perf_counter() - t0) * 1e3
+    n = K.launches
+    check(n == 1, f"summary_statistics launched sdf_ffn_fwd {n} times, not "
+          "once for the nine members")
+    res = evaluate_ensemble(dirs, str(DATA_DIR), exec_cfg=exec_cfg,
+                            verbose=False)
+    d = abs(stats["sharpe_monthly"] - res["test_sharpe"])
+    check(all(np.isfinite(v) for v in stats.values()),
+          f"non-finite summary statistics {stats}")
+    check(d <= SUMMARY_SHARPE_TOL, f"summary_statistics sharpe_monthly "
+          f"{stats['sharpe_monthly']} vs evaluate_ensemble test_sharpe "
+          f"{res['test_sharpe']}: |d| {d:.3e} > {SUMMARY_SHARPE_TOL}")
+    print(f"[figures] summary_statistics of {len(dirs)} members (bf16 "
+          f"kernel, S = {len(dirs)}): Sharpe monthly "
+          f"{stats['sharpe_monthly']:.6f} (negated ensemble return, ddof 0) "
+          f"vs evaluate_ensemble test {res['test_sharpe']:.6f}: |d| "
+          f"{d:.2e}; annual {stats['sharpe_annual']:.4f}, max drawdown "
+          f"{stats['max_drawdown']:.4f}, EV {stats['explained_variation']:.4f}"
+          f"; one launch, {summary_ms:.1f} ms ({card})", flush=True)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    figs = JOINT_DIR / "figs"
+    if has_mpl:
+        from deeplearninginassetpricing_paperreplication_torch.training \
+            .trainer import train_3phase
+        from deeplearninginassetpricing_paperreplication_torch.utils.config \
+            import TrainConfig
+        run_dir = JOINT_DIR / "run"
+        train_3phase(cfg, *[ds.to_batch(DEVICE) for ds in splits],
+                     tcfg=TrainConfig(2, 1, 2, ignore_epoch=0, seed=1),
+                     save_dir=str(run_dir), verbose=False,
+                     exec_cfg=exec_cfg, diag_stride=1)
+        dirs = [str(run_dir)] + dirs
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.plots", "--data_dir", str(DATA_DIR),
+         "--checkpoint_dirs", *dirs, "--output_dir", str(figs),
+         "--device", DEVICE],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if has_mpl:
+        written = sorted(p.name for p in figs.glob("*.png"))
+        check(proc.returncode == 0 and len(written) == 7,
+              f"plots CLI with matplotlib: rc {proc.returncode}, wrote "
+              f"{written}: {proc.stderr[-2000:]}")
+        print(f"[figures] plots CLI wrote {len(written)} figures ({card})",
+              flush=True)
+    else:
+        check(proc.returncode != 0 and "matplotlib" in proc.stderr
+              and not figs.exists(),
+              f"plots CLI without matplotlib: rc {proc.returncode}, stderr "
+              f"{proc.stderr[-2000:]!r}")
+        print(f"[figures] no matplotlib here: the plots CLI exits "
+              f"{proc.returncode} with {proc.stderr.strip().splitlines()[-1]!r}"
+              f" ({card})", flush=True)
+    return {"sdf_ffn_fwd": n}, summary_ms
+
+
+def joint_phase(torch, K, C, card, splits, members=None):
+    """Phase 16 on phase 6's panel: (a) joint_train, (b) train_simple_sdf,
+    (c) the JAX run dirs, (d) the figures on `members` ((cfg, stacked):
+    phase 7's nine; seeded stand-ins without). Returns its launches by path
+    and numbers for the kernels line."""
+    t0 = time.perf_counter()
+    shutil.rmtree(JOINT_DIR, ignore_errors=True)
+    try:
+        joint_launches, joint_ms = joint_training_checks(torch, K, C, card,
+                                                         splits)
+        simple_launches, simple_ms = simple_sdf_checks(torch, K, C, card,
+                                                       splits)
+        jax_run_dir_checks(torch, card)
+        if members is None:
+            from deeplearninginassetpricing_paperreplication_torch.parallel \
+                .ensemble import init_ensemble_params
+            from deeplearninginassetpricing_paperreplication_torch.utils \
+                .config import GANConfig
+            cfg = GANConfig.load(ROOT / REF_RUNS[0] / "config.json")
+            members = (cfg, init_ensemble_params(cfg, ENSEMBLE_SEEDS))
+        plots_launches, summary_ms = figure_checks(torch, K, card, splits,
+                                                   *members)
+    finally:
+        shutil.rmtree(JOINT_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"[joint] phase 16 done in {wall:.1f} s ({card})", flush=True)
+    return dict(joint_training=joint_launches,
+                simple_sdf_training=simple_launches,
+                plots_summary=plots_launches, wall_s=wall,
+                joint_ms=joint_ms, simple_ms=simple_ms,
+                summary_ms=summary_ms)
+
+
+def joint_kernel_checks(torch, K, C, card):
+    """The training kernels against their plain versions at phase 16's own
+    shapes that phase 3 does not hold: sdf_ffn_fwd and sdf_ffn_bwd at
+    SimpleSDF's hidden (32, 16), S = 1, T = 48, N = 10,000, f32, dropout 0
+    and 0.1 (the w32 library). Returns {kernel: row} at dropout 0."""
+    fwd = wide_checks(torch, K, card, "fwd", hiddens=[SIMPLE_HIDDEN],
+                      shapes=[(1, 48, 10000)], dtypes=("float32",), rate=0.0)
+    wide_checks(torch, K, card, "fwd", hiddens=[SIMPLE_HIDDEN],
+                shapes=[(1, 48, 10000)], dtypes=("float32",),
+                rate=SIMPLE_DROPOUT)
+    bwd = ffn_bwd_checks(torch, K, card, SIMPLE_HIDDEN, [(1, 48, 10000)],
+                         dtypes=("float32",), rates=(0.0, SIMPLE_DROPOUT))
+    return {"sdf_ffn_fwd": next(iter(fwd.values())),
+            "sdf_ffn_bwd": bwd[(1, 48, 10000, "float32", 0.0)]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6341,6 +6880,14 @@ def main(argv=None) -> int:
                          "phase 9's grid (a short call while the supervisor, "
                          "the work queue or the sweep CLI change); no result "
                          "line")
+    ap.add_argument("--only_joint", action="store_true",
+                    help="build the training kernels' libraries only and run "
+                         "their checks at phase 16's shapes, then phase 16: "
+                         "joint_train, train_simple_sdf, the JAX run dirs "
+                         "and the figures on phase 6's panel, on nine "
+                         "stand-in members (a short call while the joint "
+                         "trainers, the checkpoint reader or the plots "
+                         "change); no result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -6357,6 +6904,7 @@ def main(argv=None) -> int:
         shutil.rmtree(REAL_DIR, ignore_errors=True)
         shutil.rmtree(REPORT_RUNS, ignore_errors=True)
         shutil.rmtree(FLEET_DIR, ignore_errors=True)
+        shutil.rmtree(JOINT_DIR, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -6400,13 +6948,17 @@ def run_phases(opts, torch) -> int:
     jobs = (K.build_jobs([64], kernels=("fwd", "bwd")) + C.build_jobs()
             if (opts.only_data or opts.only_ops or opts.only_elastic
                 or opts.only_refit)
+            else K.build_jobs([32, 64], kernels=("fwd", "bwd"))
+            + C.build_jobs() if opts.only_joint
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
-            else K.build_jobs(kernels=("dx",)) if opts.only_dx
+            else K.build_jobs(kernels=("dx",)) + [K.audit_job()]
+            if opts.only_dx
             else K.build_jobs(kernels=("fwd",))
             if opts.only_fwd or opts.only_serve or opts.only_fleet
             else C.build_jobs() if opts.only_cem
             else MB.build_jobs() if opts.only_ceiling
-            else K.build_jobs() + C.build_jobs() + MB.build_jobs())
+            else K.build_jobs() + [K.audit_job()] + C.build_jobs()
+            + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6421,7 +6973,8 @@ def run_phases(opts, torch) -> int:
               or opts.only_fleet
               else () if (opts.only_cem or opts.only_ceiling
                           or opts.only_data or opts.only_ops
-                          or opts.only_elastic or opts.only_refit)
+                          or opts.only_elastic or opts.only_refit
+                          or opts.only_joint)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
@@ -6429,7 +6982,7 @@ def run_phases(opts, torch) -> int:
                           or opts.only_serve or opts.only_fleet
                           or opts.only_data
                           or opts.only_ops or opts.only_elastic
-                          or opts.only_refit)
+                          or opts.only_refit or opts.only_joint)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -6452,6 +7005,25 @@ def run_phases(opts, torch) -> int:
             splits = make_panel()
             elastic_phase(torch, card, splits,
                           elastic_reference(torch, splits))
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+
+    if opts.only_joint:
+        # phase 16 alone on phase 6's panel, its kernels first held against
+        # their plain versions at its shapes (the paper width's S = 1 rows
+        # are phase 3's in the whole run)
+        try:
+            splits = make_panel()
+            joint_kernel_checks(torch, K, C, card)
+            wide_checks(torch, K, card, "fwd", hiddens=[(64, 64)],
+                        shapes=[(1, 48, 10000)], dtypes=("float32",),
+                        rate=0.0)
+            ffn_bwd_checks(torch, K, card, (64, 64), [(1, 48, 10000)],
+                           dtypes=("float32",), rates=(0.0,))
+            cond_em_checks(torch, C, card, Ks=(8,), shapes=[(1, 10000)],
+                           dtypes=("float32",), odd=False)
+            joint_phase(torch, K, C, card, splits)
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
@@ -6673,6 +7245,11 @@ def run_phases(opts, torch) -> int:
                                      stand_in_members(torch)[0])
     finally:
         shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+
+    # 16. the joint trainers, the JAX run dirs and the figures on phase 6's
+    # panel; the figures on phase 7's nine members
+    joint_rows = joint_kernel_checks(torch, K, C, card)
+    joint = joint_phase(torch, K, C, card, splits, (ens_cfg, ens_params))
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
@@ -6703,6 +7280,11 @@ def run_phases(opts, torch) -> int:
         # fleet's workers that exited normally plus its coordinator's gate
         paths["rolling_refit"] = refits["rolling_refit"][name]
         paths["rolling_refit_fleet"] = refits["rolling_refit_fleet"][name]
+        # phase 16: each path where it launches this kernel
+        for path in ("joint_training", "simple_sdf_training",
+                     "plots_summary"):
+            if joint[path].get(name):
+                paths[path] = joint[path][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name],
@@ -6723,12 +7305,13 @@ def run_phases(opts, torch) -> int:
              replaces=tpu + "pallas_ffn.py:561",
              also_replaces=tpu + "pallas_ffn.py:188",
              **by_path("sdf_ffn_fwd", serve_launches, fleet_launches),
-             **row,
+             **row, at_simple_sdf_shape=joint_rows["sdf_ffn_fwd"],
              at_ensemble_shape=ens_fwd_row, diagnostics_pass=diag_rows),
         dict(name="sdf_ffn_bwd", route="cuda", source=src + "sdf_ffn_bwd.cu",
              replaces=tpu + "pallas_ffn.py:205",
              also_replaces=tpu + "pallas_ffn.py:591",
              **by_path("sdf_ffn_bwd"), **bwd_row,
+             at_simple_sdf_shape=joint_rows["sdf_ffn_bwd"],
              at_ensemble_shape=ens_bwd_row, at_sweep_widths=wide_bwd),
         dict(name="cond_em_fwd", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:64",
@@ -6746,7 +7329,8 @@ def run_phases(opts, torch) -> int:
         k["library_ms"] = None  # no single PyTorch call computes these
     kernels += [
         dict(name="sdf_ffn_dx", route="cuda", source=src + "sdf_ffn_dx.cu",
-             replaces=tpu + "pallas_ffn.py:300", **grad_path("sdf_ffn_dx")),
+             replaces=tpu + "pallas_ffn.py:300", **grad_path("sdf_ffn_dx"),
+             c2_audit=dx_rows[("sdf_ffn_dx", "bfloat16", "c2_audit")]),
         dict(name="cond_em_dx", route="cuda", source=src + "cond_em.cu",
              replaces=tpu + "pallas_moment.py:134",
              **grad_path("cond_em_dx")),

@@ -12,9 +12,9 @@ the kernel's plain PyTorch version.
 
 __version__ = "0.1.0"
 
-# the data plane's public names, as the JAX package exports them; resolved
-# at first use, so importing a stdlib-only module of the package (the
-# promotion gate, the fault injector) does not import torch
+# the data plane's public names and the joint trainers', as the JAX package
+# exports them; resolved at first use, so importing a stdlib-only module of
+# the package (the promotion gate, the fault injector) does not import torch
 _EXPORTS = {
     "PanelDataset": "data.panel", "load_panel": "data.panel",
     "load_splits": "data.panel", "StartupPipeline": "data.pipeline",
@@ -22,6 +22,8 @@ _EXPORTS = {
     "load_splits_chunked": "data.pipeline", "stream_batch": "data.pipeline",
     "generate_all_splits": "data.synthetic",
     "generate_dataset": "data.synthetic",
+    "SimpleSDF": "models.networks", "joint_train": "training.joint",
+    "train_simple_sdf": "training.joint",
 }
 __all__ = sorted(_EXPORTS)
 

@@ -8,6 +8,9 @@ reference's module names (``sdf_net.macro_lstm.lstm``, ``fc_layers.{3i}``,
   (ReLU, dropout) → Linear(1) → mask → cross-sectional zero-mean.
 * :class:`MomentNet`: concat ``[macro, individual]`` → (optional FFN) →
   Linear(K) → tanh → [K, T, N].
+* :class:`SimpleSDF`: the non-adversarial baseline, concat ``[macro,
+  individual]`` → FFN → Linear(1) → mask → zero-mean, with
+  :func:`simple_sdf_forward` its unweighted unconditional loss.
 
 Both first layers are applied concat-free: the weight splits into a
 per-stock block and a per-period block, ``concat([stock, period]) @ Wᵀ ==
@@ -39,6 +42,8 @@ import torch
 from torch import nn
 
 from ..ops import sdf_ffn
+from ..ops.losses import unconditional_loss
+from ..ops.metrics import sharpe_monitor
 from ..utils.config import ExecutionConfig, GANConfig
 from .recurrent import (
     Generators,
@@ -310,3 +315,82 @@ class AssetPricingModule(nn.Module):
         """(weights [T, N], moments [K, T, N])."""
         return (self.sdf_net(macro, individual, mask, individual_t),
                 self.moment_net(macro, individual))
+
+
+# -- the SimpleSDF baseline --------------------------------------------------
+
+
+class SimpleSDF(nn.Module):
+    """The non-adversarial FFN-only SDF baseline (the JAX package's
+    ``SimpleSDF``): concat ``[macro tiled, individual]`` → FFN (ReLU,
+    dropout) → Linear(1) → mask → cross-sectional zero-mean, always.
+
+    The first layer runs concat-free in the other order from
+    :class:`SDFNet`'s: columns [:M] of its weight act on the macro, so the
+    fused FFN takes ``k1T = W[:, M:]`` and the per-period bias ``zp = macro
+    @ W[:, :M]ᵀ + b`` (``b`` alone without macro, ``macro_dim`` 0). With
+    hidden layers the FFN is one :func:`..ops.sdf_ffn.sdf_ffn` call at
+    S = 1 (the kernels on a CUDA panel, their plain versions on the CPU);
+    the module names are the port's own (the JAX package writes no ``.pt``
+    of it): ``fc_layers.{3i}`` and ``output_proj``."""
+
+    def __init__(self, macro_dim: int, individual_dim: int,
+                 hidden_dims: Sequence[int] = (64, 64), dropout: float = 0.05,
+                 exec_cfg: Optional[ExecutionConfig] = None):
+        super().__init__()
+        self.macro_dim, self.individual_dim = int(macro_dim), int(individual_dim)
+        self.hidden_dims = tuple(int(h) for h in hidden_dims)
+        self.dropout = float(dropout)
+        self.exec_cfg = exec_cfg or _DEFAULT_EXEC
+        d_in = self.macro_dim + self.individual_dim
+        self.fc_layers = _fc_stack(d_in, self.hidden_dims, self.dropout)
+        self.output_proj = nn.Linear(
+            self.hidden_dims[-1] if self.hidden_dims else d_in, 1)
+
+    def forward(self, macro: Optional[torch.Tensor], individual: torch.Tensor,
+                mask: torch.Tensor, individual_t: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """Weights [T, N]; `seed` turns dropout on (training) and draws its
+        masks, as :meth:`SDFNet.forward` does."""
+        M = self.macro_dim
+        if (macro is None) != (M == 0):
+            raise ValueError(f"SimpleSDF built for macro_dim {M} got "
+                             f"{'no' if macro is None else 'a'} macro")
+        if individual_t is None:
+            individual_t = individual.permute(0, 2, 1).contiguous()
+        T = individual_t.shape[0]
+        linears = [m for m in self.fc_layers if isinstance(m, nn.Linear)]
+        first = linears[0] if linears else self.output_proj
+        zp = first.bias.expand(T, first.bias.shape[0])
+        if macro is not None:
+            zp = zp + macro @ first.weight[:, :M].T
+        k1T = first.weight[:, M:]
+        if not self.hidden_dims:
+            raw = torch.einsum("f,tfn->tn", k1T[0], individual_t) + zp
+        else:
+            training = seed is not None and self.dropout > 0.0
+            cfg = self.exec_cfg
+            raw = sdf_ffn.sdf_ffn(
+                individual_t, zp.contiguous()[None], k1T[None],
+                [(m.weight[None], m.bias[None]) for m in linears[1:]],
+                self.output_proj.weight, self.output_proj.bias,
+                seed=seed if training else 0,
+                dropout_rate=self.dropout if training else 0.0,
+                compute_dtype=cfg.compute_dtype, kernel=cfg.kernel)[0]
+        return masked_zero_mean(raw * mask, mask)
+
+
+def simple_sdf_forward(model: SimpleSDF, batch: Mapping[str, torch.Tensor],
+                       seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """SimpleSDF's loss-bearing forward (the JAX package's
+    ``simple_sdf_forward``): the weights, the UNWEIGHTED portfolio returns
+    (no N̄/N_t scaling, unlike the GAN loss), the unconditional loss, and
+    the (std + 1e-8)-guarded monitoring Sharpe (ddof 1). `seed` turns
+    dropout on; None is the eval forward."""
+    mask, returns = batch["mask"], batch["returns"]
+    weights = model(batch.get("macro"), batch["individual"], mask,
+                    individual_t=batch.get("individual_t"), seed=seed)
+    loss, port = unconditional_loss(weights, returns, mask, weighted=False,
+                                    n_assets=batch.get("n_assets"))
+    return {"weights": weights, "loss": loss,
+            "sharpe": sharpe_monitor(port), "portfolio_returns": port}

@@ -77,6 +77,14 @@
 //   registers across the members. Sums run in a fixed order, so two calls
 //   give bitwise-equal dx.
 //
+// The audit build (-DSDF_FFN_DX_AUDIT, its own library) is this file with
+// one addition: route 1 also computes the exact chain of EVERY top-layer
+// element and counts, per launch, in a small device buffer: the elements,
+// those certified (recomputed), those whose mma sum and exact chain differ
+// in sign, how many of those lie outside the certified window, and the
+// largest |mma − chain| / (max|a|·Σ|W| + |b|). Its dx is the main
+// library's, bit for bit: the audit only reads.
+//
 // compute_dtype bfloat16 rounds both operands of every product (kout·g,
 // Wᵀ·dh_pre, K1·dh1_pre, the forward's); the weights arrive rounded.
 // Stocks past N read x = 0 and g = 0 and write nothing.
@@ -693,6 +701,31 @@ __device__ __forceinline__ float exact_chain(const __nv_bfloat16* w,
   return h;
 }
 
+#ifdef SDF_FFN_DX_AUDIT
+// the audit's counters of the current launch (sdf_ffn_dx_audit_reset before
+// it, sdf_ffn_dx_audit_read after): elements, certified, sign flips, flips
+// outside the window, and the largest ratio as float bits (non-negative
+// floats order as their bits)
+__device__ unsigned long long g_dx_audit[5];
+
+__device__ __forceinline__ void audit_add(unsigned seen, unsigned certified,
+                                          unsigned flips, unsigned outside,
+                                          float worst) {
+  seen = __reduce_add_sync(0xffffffffu, seen);
+  certified = __reduce_add_sync(0xffffffffu, certified);
+  flips = __reduce_add_sync(0xffffffffu, flips);
+  outside = __reduce_add_sync(0xffffffffu, outside);
+  const unsigned wbits = __reduce_max_sync(0xffffffffu, __float_as_uint(worst));
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&g_dx_audit[0], (unsigned long long)seen);
+    atomicAdd(&g_dx_audit[1], (unsigned long long)certified);
+    atomicAdd(&g_dx_audit[2], (unsigned long long)flips);
+    atomicAdd(&g_dx_audit[3], (unsigned long long)outside);
+    atomicMax(&g_dx_audit[4], (unsigned long long)wbits);
+  }
+}
+#endif
+
 // member s's image from its packed weights (bf16-exact already, so the
 // conversion is exact): K1 as rows f of units j, each W_l as rows of its
 // units j holding their inputs i, zero wherever a layer is narrower than W;
@@ -911,9 +944,35 @@ sdf_ffn_dx_mma_kernel(const float* __restrict__ x,
           pk[j][0] = pack_bf16(v[0], v[1]);
           pk[j][1] = pack_bf16(v[2], v[3]);
         }
+        const int hin = d.hp[lt - 1];
+#ifdef SDF_FFN_DX_AUDIT
+        {  // every element's exact chain beside its mma sum
+          unsigned seen = 0, certified = 0, flips = 0, outside = 0;
+          float worst = 0.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int unit = 8 * j + 2 * tig + (e & 1), bit = 4 * j + e;
+              if (unit >= d.h[lt] || cl.n0 + r0 + 8 * (e >> 1) >= N) continue;
+              const float b = fm[m.bl[lt] + unit];
+              const float exact =
+                  exact_chain(wb + 2 * (m.wl[lt] + unit * rw),
+                              ain + 8 * (e >> 1), ast, hin) + b;
+              const float mag = am[e >> 1] * fm[m.wabs + unit] + fabsf(b);
+              const bool flagged = (need[bit >> 5] >> (bit & 31)) & 1u;
+              const bool flip = (acc[j][e] > 0.f) != (exact > 0.f);
+              ++seen;
+              certified += flagged;
+              flips += flip;
+              outside += flip && !flagged;
+              if (mag > 0.f) worst = fmaxf(worst, fabsf(acc[j][e] - exact) / mag);
+            }
+          audit_add(seen, certified, flips, outside, worst);
+        }
+#endif
         // the exact chain decides the flagged elements; a decision it turns
         // round rewrites the element's bf16 half of its A fragment
-        const int hin = d.hp[lt - 1];
 #pragma unroll
         for (int w = 0; w < MW; ++w)
           for (uint32_t q = need[w]; q; q &= q - 1) {
@@ -1138,3 +1197,25 @@ extern "C" int sdf_ffn_dx(const float* x, const float* zp, const float* params,
   return (int)cudaLaunchKernel(kern, dim3(G), dim3(threads), args,
                                (size_t)smem_bytes, st);
 }
+
+#ifdef SDF_FFN_DX_AUDIT
+// Zero the audit's counters on `stream` (before a launch). Returns 0 or a
+// cudaError_t value.
+extern "C" int sdf_ffn_dx_audit_reset(void* stream) {
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, g_dx_audit);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemsetAsync(p, 0, sizeof(g_dx_audit),
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The counters after the launches on `stream` since the last reset, into
+// out[5] (waits for the stream). Returns 0 or a cudaError_t value.
+extern "C" int sdf_ffn_dx_audit_read(unsigned long long* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemcpyFromSymbolAsync(
+      out, g_dx_audit, sizeof(g_dx_audit), 0, cudaMemcpyDeviceToHost, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaStreamSynchronize(st);
+}
+#endif

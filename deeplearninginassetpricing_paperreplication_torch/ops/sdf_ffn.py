@@ -49,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -447,6 +447,19 @@ def build_jobs(widths: Sequence[int] = WIDTH_BOUNDS,
             for k in kernels for w in widths]
 
 
+AUDIT_DEFINE = "-DSDF_FFN_DX_AUDIT"
+# the dx audit's counters, in the order its library writes them
+AUDIT_COUNTERS = ("elements", "certified", "flips", "flips_outside",
+                  "max_ratio")
+
+
+def audit_job(width: int = 64) -> _nvcc.Job:
+    """The dx library's audit build: the same source under
+    ``-DSDF_FFN_DX_AUDIT``, its own library (:func:`dx_audit`)."""
+    return _nvcc.Job(f"sdf_ffn_dx_audit_w{width}", _SOURCES["dx"],
+                     (f"-DSDF_FFN_MAXW={width}", AUDIT_DEFINE))
+
+
 def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
           kernels: Sequence[str] = KERNELS) -> Dict[str, str]:
     """Compile the forward, backward and panel-cotangent kernels for sm_90a,
@@ -475,11 +488,12 @@ _ARGTYPES = {
 }
 
 
-def _load(kernel: str, width: int):
-    key = (kernel, width)
+def _load(kernel: str, width: int, audit: bool = False):
+    key = (kernel + "_audit" if audit else kernel, width)
     with _lib_lock:
         if key not in _libs:
-            (job,) = build_jobs([width], [kernel])
+            (job,) = ([audit_job(width)] if audit
+                      else build_jobs([width], [kernel]))
             _nvcc.run([job])
             lib = ctypes.CDLL(str(job.path))
             fn = getattr(lib, f"sdf_ffn_{kernel}")
@@ -506,6 +520,12 @@ def _load(kernel: str, width: int):
                 lib.sdf_ffn_dx_plan_info.restype = ctypes.c_int
                 lib.sdf_ffn_dx_registers.argtypes = [ctypes.c_int] * 3
                 lib.sdf_ffn_dx_registers.restype = ctypes.c_int
+            if audit:
+                lib.sdf_ffn_dx_audit_reset.argtypes = [ctypes.c_void_p]
+                lib.sdf_ffn_dx_audit_reset.restype = ctypes.c_int
+                lib.sdf_ffn_dx_audit_read.argtypes = [
+                    ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_void_p]
+                lib.sdf_ffn_dx_audit_read.restype = ctypes.c_int
             _libs[key] = lib
         return _libs[key]
 
@@ -1000,13 +1020,14 @@ def card_dx_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
 
 
 def dx_plan_info(lay: FfnLayout, S: int, compute_dtype: str,
-                 plan: DxPlan) -> Dict[str, int]:
+                 plan: DxPlan, audit: bool = False) -> Dict[str, int]:
     """What the card makes of `plan` (the current CUDA device): resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    registers and local-memory bytes per thread of the kernel it launches.
-    Raises for a plan the kernel refuses."""
+    registers and local-memory bytes per thread of the kernel it launches
+    (of the audit build's, with `audit`). Raises for a plan the kernel
+    refuses."""
     out = (ctypes.c_int * 3)()
-    rc = _load("dx", width_bound(lay.hidden)).sdf_ffn_dx_plan_info(
+    rc = _load("dx", width_bound(lay.hidden), audit).sdf_ffn_dx_plan_info(
         _layout_ints(lay), S, int(compute_dtype == "bfloat16"), plan.route,
         plan.tile, plan.threads, plan.wbufs, plan.xbufs, plan.smem_bytes, out)
     if rc != 0:
@@ -1081,12 +1102,11 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     return grad_part.sum(dim=1), dzp_part.sum(dim=1)
 
 
-def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-               g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
-               plan: DxPlan = None) -> torch.Tensor:
-    """The panel cotangent dx [T, F, N], summed over the members; `plan`
-    defaults to :func:`card_dx_plan` for this card."""
-    global dx_launches
+def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+             g: torch.Tensor, seed: Seed, dropout_rate: float,
+             plan: Optional[DxPlan]) -> torch.Tensor:
+    """One launch of `lib`'s sdf_ffn_dx (the main library or its audit
+    build) at `plan`, :func:`card_dx_plan` by default."""
     lay = packed.layout
     T, F, N = x_t.shape
     S = packed.n_members
@@ -1098,7 +1118,6 @@ def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     cd = packed.compute_dtype
     if plan is None:
         plan = card_dx_plan(lay, dev, S, T, N, cd)
-    lib = _load("dx", width_bound(lay.hidden))
     dx = torch.empty((T, lay.F, N), dtype=torch.float32, device=dev)
     # route 1's member images (bf16 rows), written by the launch itself
     img = (torch.empty(S * dx_geometry(lay, 1, plan.tile, plan.wbufs,
@@ -1119,8 +1138,55 @@ def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         raise RuntimeError(f"sdf_ffn_dx refused the plan {plan} for hidden "
                            f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_dx", rc)
+    return dx
+
+
+def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+               g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
+               plan: DxPlan = None) -> torch.Tensor:
+    """The panel cotangent dx [T, F, N], summed over the members; `plan`
+    defaults to :func:`card_dx_plan` for this card."""
+    global dx_launches
+    dx = _dx_call(_load("dx", width_bound(packed.layout.hidden)), x_t, zp,
+                  packed, g, seed, dropout_rate, plan)
     dx_launches += 1
     return dx
+
+
+def dx_audit(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
+             g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
+             plan: DxPlan = None) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """:func:`_launch_dx` through the audit build (:func:`audit_job`):
+    (dx, the launch's counters of route 1's top-layer decisions, keyed by
+    :data:`AUDIT_COUNTERS`: ``max_ratio`` is the largest |mma − chain| /
+    (max|a|·Σ|W| + |b|); beside them the audit kernel's ``registers`` and
+    ``local_bytes``). It launches no kernel of the main path and counts no
+    launch; it waits for the card."""
+    lay = packed.layout
+    dev = x_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"dx_audit runs the audit kernel on CUDA tensors; "
+                         f"got {dev}")
+    lib = _load("dx", width_bound(lay.hidden), audit=True)
+    if plan is None:
+        plan = card_dx_plan(lay, dev, packed.n_members, x_t.shape[0],
+                            x_t.shape[2], packed.compute_dtype)
+    out = (ctypes.c_ulonglong * len(AUDIT_COUNTERS))()
+    with torch.cuda.device(dev):
+        # opens the audit kernel to the plan's shared memory
+        held = dx_plan_info(lay, packed.n_members, packed.compute_dtype,
+                            plan, audit=True)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_rc("sdf_ffn_dx_audit_reset", lib.sdf_ffn_dx_audit_reset(stream))
+        dx = _dx_call(lib, x_t, zp, packed, g, seed, dropout_rate, plan)
+        _raise_rc("sdf_ffn_dx_audit_read",
+                  lib.sdf_ffn_dx_audit_read(out, stream))
+    counts = {k: int(v) for k, v in zip(AUDIT_COUNTERS[:-1], out[:-1])}
+    counts["max_ratio"] = float(np.array([out[-1]], np.uint64).astype(
+        np.uint32).view(np.float32)[0])
+    counts.update(registers=held["registers"],
+                  local_bytes=held["local_bytes"])
+    return dx, counts
 
 
 def unpack_grads(grads: torch.Tensor, lay: FfnLayout):

@@ -13,8 +13,11 @@ The trainer writes the same layout (:func:`save_state_dict`,
 package's ``save_params`` does: tmp + ``os.replace``, a ``.sha256``
 sidecar, and the previous file rotated to ``.g1``; a load falls back a
 generation past a corrupt newest file. Files without a sidecar (the
-reference's ``ref_runs/*/*.pt``) load unchecked. Reading the JAX package's
-flax ``.msgpack`` checkpoints is not ported.
+reference's ``ref_runs/*/*.pt``) load unchecked. The JAX package's flax
+``.msgpack`` checkpoints load too (:func:`load_params`): a stdlib reader
+(``utils/flax_msgpack.py``) decodes them and the weight bridge maps the
+tree, so a run directory either package wrote serves, evaluates and gates
+here.
 
 A trained ensemble is a member-stacked dict (the same keys, each tensor
 [S, ...]): :func:`stacked_state_dict_from_jax_params` bridges the JAX
@@ -38,6 +41,7 @@ from ..reliability.verified import (
     verified_exists,
     write_verified,
 )
+from ..utils import flax_msgpack
 from ..utils.config import GANConfig
 
 
@@ -45,34 +49,68 @@ def load_checkpoint_dir(
     ckpt_dir: Union[str, Path],
     which: str = "best_model_sharpe",
 ) -> Tuple[GANConfig, Dict[str, torch.Tensor]]:
-    """(config, state_dict) from a run directory. Falls back to
-    ``final_model.pt`` when the requested best-model file is absent (a run
-    whose schedule never passed ``ignore_epoch`` writes none), with a
-    warning, as the JAX package does. Reads through ``load_verified``: a
-    newest ``.pt`` whose digest or unpickling fails falls back to ``.g1``;
-    when every generation is unusable the ``ValueError`` names each
-    file."""
+    """(config, state_dict) from a run directory, in the JAX package's
+    candidate order: the requested artifact as flax ``.msgpack``, then as
+    ``.pt``, then, for a ``best_model*`` request only, ``final_model``'s
+    (a run whose schedule never passed ``ignore_epoch`` writes no best
+    model), with a warning. Either format may survive only as a ``.g1``
+    generation. Reads through ``load_verified``: a newest file whose digest
+    or parse fails falls back to ``.g1``; when every generation is unusable
+    the ``ValueError`` names each file."""
     ckpt_dir = Path(ckpt_dir)
     cfg = GANConfig.load(ckpt_dir / "config.json")
-    candidates = [ckpt_dir / f"{which}.pt"]
-    if which.startswith("best_model"):
-        candidates.append(ckpt_dir / "final_model.pt")
-    for path in candidates:
-        if not verified_exists(path):
-            continue
-        if path.stem == "final_model" and which != "final_model":
-            warnings.warn(f"{which} absent in {ckpt_dir} (best tracker never "
-                          f"updated); using {path.name}")
-        sd, _ = load_verified(path, _parse_state_dict)
-        return cfg, sd
-    if (ckpt_dir / f"{which}.msgpack").exists():
-        raise FileNotFoundError(
-            f"{ckpt_dir} holds only flax .msgpack checkpoints, which the "
-            "PyTorch port does not read yet: export them with the JAX "
-            "package's save_torch_checkpoint, or bridge the params with "
-            "state_dict_from_jax_params")
-    raise FileNotFoundError(f"no {which}.pt or final_model fallback in "
-                            f"{ckpt_dir}")
+    names = [which] + (["final_model"] if which.startswith("best_model")
+                       else [])
+    for name in names:
+        for suffix in (".msgpack", ".pt"):
+            path = ckpt_dir / f"{name}{suffix}"
+            if not verified_exists(path):
+                continue
+            if name != which:
+                warnings.warn(f"{which} absent in {ckpt_dir} (best tracker "
+                              f"never updated); using {path.name}")
+            if suffix == ".msgpack":
+                return cfg, load_params(path, cfg)
+            sd, _ = load_verified(path, _parse_state_dict)
+            return cfg, sd
+    raise FileNotFoundError(f"no {which}(.msgpack|.pt) or final_model "
+                            f"fallback in {ckpt_dir}")
+
+
+def read_flax_params(path: Union[str, Path]) -> Dict[str, Any]:
+    """The JAX package's params tree (NumPy leaves) from a flax ``.msgpack``
+    written by its ``save_params``, through ``load_verified`` (sidecar
+    checked, ``.g1`` fallback). A file that does not decode raises a
+    ``ValueError`` naming it."""
+    path = Path(path)
+
+    def parse(data: bytes) -> Dict[str, Any]:
+        try:
+            tree = flax_msgpack.loads(data)
+        except ValueError as e:
+            raise ValueError(f"corrupt or truncated checkpoint msgpack "
+                             f"{path}: {e}") from None
+        if not isinstance(tree, dict):
+            raise ValueError(f"checkpoint msgpack {path} holds no params "
+                             "tree")
+        return tree
+
+    tree, _ = load_verified(path, parse)
+    return tree
+
+
+def load_params(path: Union[str, Path],
+                cfg: GANConfig) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of the GAN whose JAX params the flax
+    ``.msgpack`` at `path` holds (:func:`read_flax_params`, then
+    :func:`state_dict_from_jax_params`). A tree that does not fit `cfg`
+    raises a ``ValueError`` naming the file."""
+    tree = read_flax_params(path)
+    try:
+        return state_dict_from_jax_params(tree, cfg)
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"checkpoint msgpack {path} does not fit the "
+                         f"config: missing {e}") from None
 
 
 def _parse_state_dict(data: bytes) -> Dict[str, torch.Tensor]:
@@ -115,6 +153,25 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any],
     for i in range(len(cfg.hidden_dim_moment)):
         put_dense(f"moment_net.fc_layers.{3 * i}", moment[f"TorchDense_{i}"])
     put_dense("moment_net.output_proj", moment["output_proj"])
+    return sd
+
+
+def simple_sdf_state_dict_from_jax_params(params_np: Mapping[str, Any],
+                                          n_hidden: int
+                                          ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``SimpleSDF`` params (``TorchDense_i/Dense_0/
+    {kernel, bias}`` for i = 0…n_hidden, the last one the output layer, as
+    NumPy arrays) → the port's :class:`~..models.networks.SimpleSDF`
+    ``state_dict`` (``fc_layers.{3i}`` and ``output_proj``)."""
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(n_hidden + 1):
+        dense = params_np[f"TorchDense_{i}"]["Dense_0"]
+        prefix = "output_proj" if i == n_hidden else f"fc_layers.{3 * i}"
+        sd[f"{prefix}.weight"] = t(np.asarray(dense["kernel"]).T)
+        sd[f"{prefix}.bias"] = t(dense["bias"])
     return sd
 
 

@@ -161,3 +161,44 @@ def test_wide_panels_take_the_cuda_core_route_in_bf16():
         assert K.dx_route(lay, "bfloat16") == route
         assert K.dx_route(lay, "float32") == 0
         assert K.dx_plan(lay, SMS, 9, 48, 10_000, "bfloat16").route == route
+
+
+def test_audit_build_is_the_dx_source_under_its_macro():
+    """The C2 audit library is sdf_ffn_dx.cu compiled with one more macro,
+    into its own library; everything the macro adds sits inside its
+    #ifdef blocks, so the main library is the source without them."""
+    (main,) = K.build_jobs([64], ["dx"])
+    audit = K.audit_job(64)
+    assert audit.source == main.source == "sdf_ffn_dx.cu"
+    assert audit.defines == main.defines + (K.AUDIT_DEFINE,)
+    assert audit.name != main.name and audit.path != main.path
+    src = (K._nvcc.CSRC / main.source).read_text().splitlines()
+    outside, depth = [], 0
+    for line in src:
+        if line.startswith("#ifdef SDF_FFN_DX_AUDIT"):
+            depth += 1
+        elif depth and line.startswith("#endif"):
+            depth -= 1
+        elif not depth:
+            outside.append(line)
+    assert depth == 0
+    assert sum(line.startswith("#ifdef SDF_FFN_DX_AUDIT") for line in src) == 3
+    for name in ("g_dx_audit", "audit_add", "sdf_ffn_dx_audit_"):
+        assert not any(name in line for line in outside), name
+
+
+def test_audit_needs_cuda_tensors():
+    import torch
+
+    lay_hidden, S, T, N = [64, 64], 1, 2, 8
+    g = torch.Generator().manual_seed(0)
+    k1T = torch.randn(S, 64, F, generator=g)
+    mids = [(torch.randn(S, 64, 64, generator=g), torch.zeros(S, 64))]
+    packed = K.pack_ffn(k1T, mids, torch.randn(S, 64, generator=g),
+                        torch.zeros(S), "bfloat16")
+    assert packed.layout.hidden == tuple(lay_hidden)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.dx_audit(torch.randn(T, F, N), torch.zeros(S, T, 64), packed,
+                   torch.zeros(S, T, N))
+    assert K.AUDIT_COUNTERS == ("elements", "certified", "flips",
+                                "flips_outside", "max_ratio")

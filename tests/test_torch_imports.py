@@ -86,7 +86,8 @@ STDLIB_ONLY = [
     "observability/statusboard.py",
 ]
 # modules whose top level is numpy and the stdlib only
-NUMPY_ONLY = ["data/diskcache.py", "data/native.py", "serving/probe.py"]
+NUMPY_ONLY = ["data/diskcache.py", "data/native.py", "serving/probe.py",
+              "utils/flax_msgpack.py"]
 
 
 @pytest.mark.parametrize("rel", STDLIB_ONLY + NUMPY_ONLY)
@@ -117,9 +118,13 @@ def test_stdlib_only_module_loads_without_torch(rel):
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+JOINT_EXPORTS = {"SimpleSDF", "joint_train", "train_simple_sdf"}
+
+
 def test_package_exports_the_data_plane():
     """The package exports the JAX package's data-plane names (but the
-    mesh's stream_batch_sharded), resolved at first use."""
+    mesh's stream_batch_sharded), resolved at first use, beside the joint
+    trainers' names."""
     import importlib
 
     port = importlib.import_module(PKG)
@@ -127,7 +132,8 @@ def test_package_exports_the_data_plane():
     names = {"PanelDataset", "load_panel", "load_splits", "StartupPipeline",
              "load_splits_cached", "load_splits_chunked", "stream_batch",
              "generate_all_splits", "generate_dataset"}
-    assert set(port.__all__) == names == set(data.__all__)
+    assert names == set(data.__all__)
+    assert set(port.__all__) == names | JOINT_EXPORTS
     from deeplearninginassetpricing_paperreplication_torch.data import (
         pipeline,
     )
@@ -152,3 +158,31 @@ def test_serving_package_exports_the_jax_names():
     assert sorted(port.__all__) == sorted(names)
     for name in names:
         assert getattr(port, name) is not None, name
+
+
+def test_package_exports_the_joint_trainers():
+    """SimpleSDF, joint_train and train_simple_sdf resolve at first use to
+    the port's modules, as the JAX package exports them."""
+    import importlib
+
+    port = importlib.import_module(PKG)
+    networks = importlib.import_module(PKG + ".models.networks")
+    joint = importlib.import_module(PKG + ".training.joint")
+    assert port.SimpleSDF is networks.SimpleSDF
+    assert port.joint_train is joint.joint_train
+    assert port.train_simple_sdf is joint.train_simple_sdf
+    jax_init = (ROOT / "deeplearninginassetpricing_paperreplication_tpu"
+                / "__init__.py").read_text()
+    tree = ast.parse(jax_init)
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and node.targets[0].id == "__all__")
+    assert JOINT_EXPORTS <= set(jax_all)
+
+
+@pytest.mark.parametrize("mod", ["plots", "training.joint",
+                                 "models.networks"])
+def test_the_joint_slice_modules_are_imported(mod):
+    """The joint slice's modules are among those the runtime check
+    imports (so none of them loads JAX)."""
+    assert f"{PKG}.{mod}" in set(_modules())
