@@ -13,15 +13,19 @@
                                       # plans and checks only (no result
                                       # line)
     python3 chip_smoke.py --only_dx --compare_dx DIR
-                                      # also: the f32 sdf_ffn_dx bit for bit
-                                      # against DIR/sdf_ffn_bwd.cu's (an
-                                      # older source beside its header)
+                                      # also: the f32 sdf_ffn_dx and
+                                      # sdf_ffn_bwd at offset 0 bit for bit
+                                      # against DIR/sdf_ffn_dx.cu's and
+                                      # sdf_ffn_bwd.cu's (this tree's
+                                      # argument lists, the dropout offset
+                                      # included)
     python3 chip_smoke.py --only_fwd  # the FFN forward's libraries and
                                       # checks only (no result line)
     python3 chip_smoke.py --only_fwd --compare_fwd DIR
-                                      # also: the f32 forward bit for bit
-                                      # against DIR/sdf_ffn.cu (an older
-                                      # source beside its header)
+                                      # also: the f32 forward at offset 0
+                                      # bit for bit against DIR/sdf_ffn.cu
+                                      # (this tree's argument list, the
+                                      # dropout offset included)
     python3 chip_smoke.py --only_cem  # the conditional-EM library and its
                                       # plans, checks and timings only (no
                                       # result line)
@@ -68,6 +72,10 @@
                                       # their checks at phase 16's shapes,
                                       # then phase 16 with the figures on
                                       # stand-in members (no result line)
+    python3 chip_smoke.py --only_shard
+                                      # the FFN and conditional-EM
+                                      # libraries, then phase 17 alone (no
+                                      # result line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -328,6 +336,29 @@ Phases, each printing its results; any failure exits non-zero:
    non-zero naming matplotlib where it is missing, and writes the seven
    figures where it is there. Launches: ``joint_training``,
    ``simple_sdf_training``, ``plots_summary``.
+
+17. Stock-sharded training on phase 6's panel (``_smoke_shard/``, removed
+   after), the paper's model, f32, dropout 0.05, 8/4/16, ignore 2, seed
+   42: (d) first the FFN kernels' dropout at stock offsets 5,000 and 2^31
+   (a rank's span start): the forward's and the panel cotangent's masks
+   of both layers read out whole (unit j's mask as member j's output, as
+   dx's feature j) and the backward's at 64 stocks of the span (member s's
+   dzp with g on stock n_s only), each bit for bit ``dropout_keep`` at
+   that offset, at BWD_SHAPES' (T, N) and seeds; then the three kernels
+   against their plain versions at that offset (hidden (64, 64), F = 46),
+   each unlike its output at offset 0; (a) the train CLI with
+   ``--shard_stocks`` and no process group (the kernel route):
+   ``history.npz`` and the three checkpoints' tensors bit for bit the same
+   CLI without the flag; (b) ``torch.distributed.run --nproc_per_node 2``
+   of the train CLI with ``--shard_stocks`` on the one card (gloo, the
+   kernel route): each rank launches the training kernels exactly phase
+   6's ``PER_EPOCH`` counts (plus its final evals and health pass), plans
+   them at N = 5,000, the two ranks end with bit-for-bit equal parameters,
+   and every epoch is within the training bars (loss rel 1e-3, Sharpe abs
+   5e-3) of (a)'s unsharded run; (c) the same two ranks with ``--kernel
+   off``, held to (a) by the same bars and launching nothing. The wall ms
+   per epoch at world sizes 1 and 2. Launches (``sharded_training``): the
+   two ranks' of (b).
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -897,23 +928,43 @@ def sass_hmma(K, _nvcc, kernels=("fwd",), more=()):
           "instructions")
 
 
-def compare_fwd(torch, K, _nvcc, src_dir, card):
-    """The f32 forward against an older source's (src_dir/sdf_ffn.cu, its
-    one-thread-per-stock kernel and argument list) at the training shapes:
-    bit for bit equal, and the two timed in turns (old, new, new, old)."""
+def _older_ffn_libs(K, _nvcc, src_dir, jobs):
+    """{(kernel, width): (library, ctypes function)} of the FFN kernels
+    built from another checkout's sources (src_dir holds
+    sdf_ffn{,_bwd,_dx}.cu beside sdf_ffn_common.cuh, with this tree's entry
+    argument lists: the dropout stock offset included), bound as this tree
+    binds its own, one nvcc each, all started together."""
     import ctypes
 
     src = Path(src_dir).resolve()
-    out = _nvcc.BUILD_DIR / "libsdf_ffn_fwd_compare.so"
+    names = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu",
+             "dx": "sdf_ffn_dx.cu"}
     _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-DSDF_FFN_MAXW=64",
-                    "-o", str(out), str(src / "sdf_ffn.cu")], check=True)
-    old = ctypes.CDLL(str(out)).sdf_ffn_fwd
-    old.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-                       ctypes.c_float, ctypes.c_void_p])
-    old.restype = ctypes.c_int
+    procs = {}
+    for kernel, width in jobs:
+        out = _nvcc.BUILD_DIR / f"libsdf_ffn_{kernel}_older_w{width}.so"
+        procs[(kernel, width)] = (out, subprocess.Popen(
+            [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, f"-DSDF_FFN_MAXW={width}",
+             "-o", str(out), str(src / names[kernel])]))
+    libs = {}
+    for (kernel, width), (out, proc) in procs.items():
+        check(proc.wait() == 0, f"the older {src.name}/{names[kernel]} "
+              f"(w{width}) did not build")
+        lib = ctypes.CDLL(str(out))
+        fn = getattr(lib, f"sdf_ffn_{kernel}")
+        fn.argtypes = K._ARGTYPES[kernel]
+        fn.restype = ctypes.c_int
+        libs[(kernel, width)] = (lib, fn)
+    return libs
+
+
+def compare_fwd(torch, K, _nvcc, src_dir, card):
+    """The f32 forward at offset 0 against an older source's
+    (src_dir/sdf_ffn.cu, this tree's argument list) at the training
+    shapes, dropout 0 and 0.05, on the same launch plan: bit for bit
+    equal, and the two timed in turns (old, new, new, old)."""
+    _, old = _older_ffn_libs(K, _nvcc, src_dir, [("fwd", 64)])[("fwd", 64)]
+    new = K._load("fwd", 64).sdf_ffn_fwd
     dev = torch.device(DEVICE)
     (T, N), F, H = KEEP_SHAPE, 46, 64
     x = torch.randn(T, F, N, device=dev)
@@ -923,6 +974,7 @@ def compare_fwd(torch, K, _nvcc, src_dir, card):
         zp = zp1.expand(S, T, H).contiguous()
         seed = 5 if S == 1 else list(range(5, 5 + S))
         packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+        plan = K.card_fwd_plan(packed.layout, dev, S, T, N, "float32")
         for rate in (0.0, DROPOUT):
             drop, bases = K._dropout_args(seed, rate, S, dev)
 
@@ -931,24 +983,39 @@ def compare_fwd(torch, K, _nvcc, src_dir, card):
                 rc = old(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
                          o.data_ptr(), S, T, N,
                          K._layout_ints(packed.layout), 0, *drop,
+                         plan.route, plan.tile, plan.threads, plan.members,
+                         plan.smem_bytes, plan.blocks_per_sm, plan.G,
                          torch.cuda.current_stream().cuda_stream)
                 check(rc == 0, f"the older forward failed (code {rc})")
                 return o
 
             def run_new():
-                return K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate,
-                                        seed=seed)
+                o = torch.empty(S, T, N, device=dev)
+                rc = new(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+                         o.data_ptr(), S, T, N,
+                         K._layout_ints(packed.layout), 0, *drop,
+                         plan.route, plan.tile, plan.threads, plan.members,
+                         plan.smem_bytes, plan.blocks_per_sm, plan.G,
+                         torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"the forward failed (code {rc})")
+                return o
             a, b = run_old(), run_new()
+            c = K.sdf_ffn_packed(x, zp, packed, dropout_rate=rate, seed=seed)
             torch.cuda.synchronize()
-            check(torch.equal(a.view(torch.int32), b.view(torch.int32)), f"sdf_ffn_fwd f32 differs from the older kernel at "
-                        f"S={S} dropout {rate}: max|d| "
-                        f"{float((a - b).abs().max()):.3e}")
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  and torch.equal(b, c),
+                  f"sdf_ffn_fwd f32 differs from the older kernel at "
+                  f"S={S} dropout {rate}: max|d| "
+                  f"{float((a - b).abs().max()):.3e}")
+            # both entries called alike (the same plan and dropout
+            # arguments, made once), so the times are the kernels'
             t = [cuda_ms(torch, f) for f in (run_old, run_new, run_new,
                                               run_old)]
-            print(f"[kernels] fwd f32 S={S} T={T} N={N} drop {rate:.2f}: bit "
-                  f"for bit equal to {src.name}/sdf_ffn.cu; older "
-                  f"{t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / {t[2]:.4f} "
-                  f"ms ({card})", flush=True)
+            print(f"[kernels] fwd f32 S={S} T={T} N={N} drop {rate:.2f} "
+                  f"offset 0: bit for bit equal to "
+                  f"{Path(src_dir).name}/sdf_ffn.cu; older {t[0]:.4f} / "
+                  f"{t[3]:.4f} ms, new {t[1]:.4f} / {t[2]:.4f} ms ({card})",
+                  flush=True)
             del bases
 
 
@@ -1620,32 +1687,17 @@ def dx_tile_times(torch, K, lay, S, T, N, cd, x, zp, packed, gout, card):
 
 
 def compare_dx(torch, K, _nvcc, src_dir, card):
-    """The f32 sdf_ffn_dx against an older source's (src_dir/sdf_ffn_bwd.cu,
-    its one-thread-per-stock kernel and argument list, built once per width
-    bound) at DX_SHAPES (hidden (64, 64)) and at WIDE_HIDDEN × WIDE_SHAPES,
-    dropout 0 and 0.05: bit for bit equal (int32 views), and the two timed
-    in turns (old, new, new, old), without dropout also by CUDA-graph
-    replays."""
-    import ctypes
-
-    src = Path(src_dir).resolve()
-    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, olds = {}, {}
-    for w in K.WIDTH_BOUNDS:
-        out = _nvcc.BUILD_DIR / f"libsdf_ffn_dx_compare_w{w}.so"
-        procs[w] = (out, subprocess.Popen(
-            [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, f"-DSDF_FFN_MAXW={w}", "-o",
-             str(out), str(src / "sdf_ffn_bwd.cu")]))
-    for w, (out, proc) in procs.items():
-        check(proc.wait() == 0, f"the older {src.name}/sdf_ffn_bwd.cu (w{w}) "
-              "did not build")
-        fn = ctypes.CDLL(str(out)).sdf_ffn_dx
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-                          ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        olds[w] = fn
+    """The f32 sdf_ffn_dx and sdf_ffn_bwd at offset 0 against an older
+    source's (src_dir/sdf_ffn_dx.cu and sdf_ffn_bwd.cu, this tree's
+    argument lists, built once per width bound) at DX_SHAPES (hidden
+    (64, 64)) and at WIDE_HIDDEN × WIDE_SHAPES, dropout 0 and 0.05, on the
+    same launch plans: bit for bit equal (int32 views), and the two timed
+    in turns (old, new, new, old), the panel cotangent without dropout also
+    by CUDA-graph replays."""
+    libs = _older_ffn_libs(K, _nvcc, src_dir, [
+        (k, w) for k in ("dx", "bwd") for w in K.WIDTH_BOUNDS])
+    olds = {w: (libs[("dx", w)], libs[("bwd", w)][1])
+            for w in K.WIDTH_BOUNDS}
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(12)
     F = 46
@@ -1660,39 +1712,92 @@ def compare_dx(torch, K, _nvcc, src_dir, card):
         gout = torch.randn(S, T, N, generator=g, device=dev) / N
         seed = 9 if S == 1 else list(range(9, 9 + S))
         packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
-        old = olds[K.width_bound(hidden)]
+        lay = packed.layout
+        (lib, old), old_bwd = olds[K.width_bound(hidden)]
+        new = K._load("dx", K.width_bound(hidden)).sdf_ffn_dx
+        new_bwd = K._load("bwd", K.width_bound(hidden)).sdf_ffn_bwd
+        plan = K.card_dx_plan(lay, dev, S, T, N, "float32")
+        bplan = K.card_bwd_plan(lay, dev, S, T, N)
+        import ctypes
+        held = (ctypes.c_int * 3)()
+        # opens the older kernel to the plan's shared memory
+        check(lib.sdf_ffn_dx_plan_info(
+            K._layout_ints(lay), S, 0, plan.route, plan.tile, plan.threads,
+            plan.wbufs, plan.xbufs, ctypes.c_longlong(plan.smem_bytes),
+            held) == 0, "the older sdf_ffn_dx refused the plan")
         for rate in (0.0, DROPOUT):
             drop, bases = K._dropout_args(seed, rate, S, dev)
+
+            def stream():
+                # read at each call: a CUDA-graph capture runs on its own
+                return torch.cuda.current_stream().cuda_stream
 
             def run_old():
                 o = torch.empty(T, F, N, device=dev)
                 rc = old(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-                         gout.data_ptr(), o.data_ptr(), S, T, N,
-                         K._layout_ints(packed.layout), 0, *drop,
-                         torch.cuda.current_stream().cuda_stream)
+                         gout.data_ptr(), o.data_ptr(), None, S, T, N,
+                         K._layout_ints(lay), 0, *drop, plan.route,
+                         plan.tile, plan.threads, plan.wbufs, plan.xbufs,
+                         plan.smem_bytes, plan.G, stream())
                 check(rc == 0, f"the older sdf_ffn_dx failed (code {rc})")
                 return o
 
             def run_new():
-                return K._launch_dx(x, zp, packed, gout, seed, rate)
+                o = torch.empty(T, F, N, device=dev)
+                rc = new(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+                         gout.data_ptr(), o.data_ptr(), None, S, T, N,
+                         K._layout_ints(lay), 0, *drop, plan.route,
+                         plan.tile, plan.threads, plan.wbufs, plan.xbufs,
+                         plan.smem_bytes, plan.G, stream())
+                check(rc == 0, f"sdf_ffn_dx failed (code {rc})")
+                return o
+
+            def bwd(fn, args):
+                gp = torch.zeros((S, bplan.G, lay.P), device=dev)
+                dp = torch.zeros((S, bplan.G, T, hidden[0]), device=dev)
+                rc = fn(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+                        gout.data_ptr(), gp.data_ptr(), dp.data_ptr(), S, T,
+                        N, K._layout_ints(lay), 0, *args, bplan.G,
+                        bplan.tile, bplan.threads, bplan.nt,
+                        bplan.smem_bytes, bplan.blocks_per_sm, stream())
+                check(rc == 0, f"sdf_ffn_bwd failed (code {rc})")
+                return gp, dp
+            run_old_bwd = lambda: bwd(old_bwd, drop)  # noqa: E731
+            run_new_bwd = lambda: bwd(new_bwd, drop)  # noqa: E731
             a, b = run_old(), run_new()
+            c = K._launch_dx(x, zp, packed, gout, seed, rate, plan)
+            (gp, dp), (gq, dq) = run_old_bwd(), run_new_bwd()
+            grads, dzp = K._launch_bwd(x, zp, packed, gout, seed, rate, bplan)
             torch.cuda.synchronize()
-            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  and torch.equal(b, c),
                   f"sdf_ffn_dx f32 differs from the older kernel at hidden="
                   f"{list(hidden)} S={S} T={T} N={N} dropout {rate}: max|d| "
                   f"{float((a - b).abs().max()):.3e}")
+            check(torch.equal(gp, gq) and torch.equal(dp, dq)
+                  and torch.equal(gq.sum(dim=1), grads)
+                  and torch.equal(dq.sum(dim=1), dzp),
+                  f"sdf_ffn_bwd f32 differs from the older kernel at hidden="
+                  f"{list(hidden)} S={S} T={T} N={N} dropout {rate}")
+            # both entries called alike (the same plans and dropout
+            # arguments, made once), so the times are the kernels'
             t = [cuda_ms(torch, f, reps=10) for f in (run_old, run_new,
                                                       run_new, run_old)]
-            line = (f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
-                    f"{t[2]:.4f} ms")
+            tb = [cuda_ms(torch, f, reps=5) for f in (
+                run_old_bwd, run_new_bwd, run_new_bwd, run_old_bwd)]
+            line = ""
             if rate == 0.0:
                 d = [graph_ms(torch, f, reps=10) for f in (run_old, run_new,
                                                            run_new, run_old)]
-                line += (f" (device: older {d[0]:.4f} / {d[3]:.4f}, new "
-                         f"{d[1]:.4f} / {d[2]:.4f})")
-            print(f"[kernels] dx f32 hidden={list(hidden)} S={S} T={T} "
-                  f"N={N:5d} drop {rate:.2f}: bit for bit equal to "
-                  f"{src.name}/sdf_ffn_bwd.cu; {line} ({card})", flush=True)
+                line = (f" (device: older {d[0]:.4f} / {d[3]:.4f}, new "
+                        f"{d[1]:.4f} / {d[2]:.4f})")
+            print(f"[kernels] dx and bwd f32 hidden={list(hidden)} S={S} "
+                  f"T={T} N={N:5d} drop {rate:.2f} offset 0: bit for bit "
+                  f"equal to {Path(src_dir).name}/sdf_ffn_dx.cu and "
+                  f"sdf_ffn_bwd.cu; dx older {t[0]:.4f} / {t[3]:.4f} ms, "
+                  f"new {t[1]:.4f} / {t[2]:.4f} ms{line}; bwd older "
+                  f"{tb[0]:.4f} / {tb[3]:.4f} ms, new {tb[1]:.4f} / "
+                  f"{tb[2]:.4f} ms ({card})", flush=True)
             del bases
 
 
@@ -6798,6 +6903,412 @@ def joint_kernel_checks(torch, K, C, card):
             "sdf_ffn_bwd": bwd[(1, 48, 10000, "float32", 0.0)]}
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+SHARD_DIR = ROOT / "_smoke_shard"
+# stock offsets beside the ranks' own span starts: rank 1's at N = 10,000
+# over two ranks, and one past 2^31 (the hash adds it in uint32)
+SHARD_OFFSETS = (5000, 1 << 31)
+SHARD_READ_STOCKS = 64  # the backward's mask readout: stocks per launch
+# per rank and CLI run, beside the epochs' PER_EPOCH: the final evals of
+# train, valid and test and the health pass, (fwd, bwd, cem_fwd, cem_bwd)
+SHARD_CLI_EXTRA = (4, 0, 4, 0)
+
+
+def _mask_readouts(torch, K, T, N, seed, offset, rate=DROPOUT, H=64, F=46):
+    """The FFN kernels' dropout masks at `offset`, read from their own
+    outputs, against ``dropout_keep`` at that offset: the forward's unit j
+    as member j's output (k1T = 0 and zp = 1 make every first-layer unit 1
+    before dropout; a second layer W = 0, b = 1 the same), the panel
+    cotangent's as feature j of dx (F = H, K1 = I, x = 0, g = 1; a second
+    layer W = I, b = 1 gives both layers' masks), the backward's at
+    SHARD_READ_STOCKS stocks as member s's dzp with g = 1 on stock n_s
+    only. Every product in them is a single term, so a kept unit is exactly
+    nonzero. Returns the units compared."""
+    dev = torch.device(DEVICE)
+    ones = lambda *sh: torch.ones(*sh, device=dev)  # noqa: E731
+    zeros = lambda *sh: torch.zeros(*sh, device=dev)  # noqa: E731
+    keep = [K.dropout_keep(seed, rate, layer, 1, T, H, N, dev,
+                           offset)[0] for layer in (0, 1)]  # [T, H, N]
+    both = keep[0] & keep[1]
+    n = 0
+    # forward: H members, one seed, member j reads unit j
+    x = torch.randn(T, F, N, device=dev)
+    for layer in (0, 1):
+        mids = [(zeros(H, H, H), ones(H, H))] if layer else []
+        packed = K.pack_ffn(zeros(H, H, F), mids, torch.eye(H, device=dev),
+                            zeros(H), "float32")
+        w = K._launch(x, ones(H, T, H), packed, [seed] * H, rate, offset)
+        check(torch.equal(w != 0, keep[layer].permute(1, 0, 2)),
+              f"sdf_ffn_fwd masks of layer {layer} at offset {offset} (T={T}"
+              f" N={N} seed {seed}) differ from dropout_keep")
+        n += w.numel()
+    # panel cotangent: F = H features, dx feature j reads unit j
+    for layer in (0, 1):
+        mids = [(torch.eye(H, device=dev)[None], ones(1, H))] if layer else []
+        packed = K.pack_ffn(torch.eye(H, device=dev)[None], mids, ones(1, H),
+                            zeros(1), "float32")
+        dx = K._launch_dx(zeros(T, H, N), ones(1, T, H), packed,
+                          ones(1, T, N), seed, rate, offset=offset)
+        check(torch.equal(dx != 0, keep[0] if layer == 0 else both),
+              f"sdf_ffn_dx masks (layers 0..{layer}) at offset {offset} "
+              f"(T={T} N={N} seed {seed}) differ from dropout_keep")
+        n += dx.numel()
+    # backward: member s's dzp reads stock n_s
+    S = SHARD_READ_STOCKS
+    cols = torch.linspace(0, N - 1, S, device=dev).round().long()
+    g = zeros(S, T, N)
+    g[torch.arange(S, device=dev), :, cols] = 1.0
+    for layer in (0, 1):
+        mids = ([(torch.eye(H, device=dev).expand(S, H, H).contiguous(),
+                  ones(S, H))] if layer else [])
+        packed = K.pack_ffn(zeros(S, H, F), mids, ones(S, H), zeros(S),
+                            "float32")
+        _, dzp = K._launch_bwd(x, ones(S, T, H), packed, g, [seed] * S,
+                               rate, offset=offset)  # [S, T, H]
+        want = (keep[0] if layer == 0 else both)[:, :, cols].permute(2, 0, 1)
+        check(torch.equal(dzp != 0, want),
+              f"sdf_ffn_bwd masks (layers 0..{layer}) at offset {offset} "
+              f"(T={T} N={N} seed {seed}, stocks {S}) differ from "
+              "dropout_keep")
+        n += dzp.numel()
+    return n
+
+
+def shard_world(torch) -> int:
+    """The ranks of phase 17's (b) and (c): four, NCCL with a card each,
+    on a host of four cards or more; else two gloo ranks sharing card 0."""
+    return 4 if torch.cuda.device_count() >= 4 else 2
+
+
+def _fwd_plan(torch, K, lay, S, T, N):
+    """The f32 forward's plan at (S, T, N) and what the card makes of it;
+    fails if the card holds fewer blocks resident than planned or the
+    kernel spills."""
+    plan = K.card_fwd_plan(lay, torch.device(DEVICE), S, T, N, "float32")
+    info = K.fwd_plan_info(lay, S, plan)
+    check(info["blocks_per_sm"] >= plan.blocks_per_sm
+          and info["local_bytes"] == 0,
+          f"sdf_ffn_fwd plan {plan}: the card holds "
+          f"{info['blocks_per_sm']} blocks per SM, local "
+          f"{info['local_bytes']} B")
+    return dict(route=plan.route, tile=plan.tile, threads=plan.threads,
+                members=plan.members, smem_bytes=plan.smem_bytes,
+                blocks_per_sm_planned=plan.blocks_per_sm,
+                blocks_per_sm=info["blocks_per_sm"], G=plan.G,
+                cells=plan.cells, registers=info["registers"],
+                local_bytes=info["local_bytes"])
+
+
+def _cem_plan(torch, C, S, T, N, F, Kn):
+    """The f32 conditional-EM forward's and backward's plans at (S, T, N)
+    and what the card makes of them; fails as cem_plan_lines does."""
+    out = {}
+    for p in C.card_cem_plan(torch.device(DEVICE), S, T, N, F, Kn,
+                             "float32"):
+        info = C.plan_info(p, S, T, N, F, Kn, "float32")
+        check(info["blocks_per_sm"] >= p.blocks_per_sm
+              and info["local_bytes"] == 0,
+              f"cond_em_{p.kernel} plan {p}: the card holds "
+              f"{info['blocks_per_sm']} blocks per SM, local "
+              f"{info['local_bytes']} B")
+        out[p.kernel] = dict(route=p.route, tile=p.tile, members=p.members,
+                             threads=p.threads, var=p.var, stages=p.stages,
+                             smem_bytes=p.smem_bytes,
+                             blocks_per_sm_planned=p.blocks_per_sm,
+                             blocks_per_sm=info["blocks_per_sm"],
+                             groups=p.groups, grid=list(p.grid),
+                             registers=info["registers"],
+                             local_bytes=info["local_bytes"])
+    return out
+
+
+def shard_kernel_checks(torch, K, C, card, world):
+    """(d) The training kernels at the ranks' shape and the FFN kernels'
+    dropout at a stock offset. The masks read out bit for bit
+    ``dropout_keep`` at SHARD_OFFSETS (BWD_SHAPES' (T, N), the first and
+    last of each shape's seeds) and at each rank's span start (the train
+    split's T, N / world). Then the forward, backward and panel cotangent
+    against their plain versions at those offsets and shapes (hidden
+    (64, 64), F = 46, f32, dropout 0.05), each unlike its output at
+    offset 0, and the conditional-EM forward and backward against theirs at
+    the ranks' shape (K = 8, f32). Returns the rows of the four kernels the
+    ranks launch, at their shape, with the plans the card holds."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(17)
+    F, hidden, Kn = 46, [64, 64], 8
+    T, n_r = PANEL["n_periods_train"], PANEL["n_stocks"] // world
+    starts = [r * n_r for r in range(world)]
+    units = 0
+    for offset in SHARD_OFFSETS:
+        for S, T_, N in BWD_SHAPES:
+            for seed in sorted({7, 7 + S - 1}):
+                units += _mask_readouts(torch, K, T_, N, seed, offset)
+    for offset in starts[1:]:
+        units += _mask_readouts(torch, K, T, n_r, 7, offset)
+    print(f"[shard] dropout masks at stock offsets {SHARD_OFFSETS} "
+          f"(BWD_SHAPES' (T, N)) and {starts[1:]} (T={T} N={n_r}, the ranks' "
+          f"span starts): sdf_ffn_fwd (both layers, every unit), sdf_ffn_dx "
+          f"(both layers) and sdf_ffn_bwd ({SHARD_READ_STOCKS} stocks a "
+          f"launch) bit for bit dropout_keep; {units:,} units read ({card})",
+          flush=True)
+    rank_shape = (1, T, n_r)
+    cases = ([(o, sh) for o in SHARD_OFFSETS for sh in BWD_SHAPES]
+             + [(a, rank_shape) for a in starts])
+    worst = [0.0, 0.0]  # the ranks' shape: fwd, bwd max|d| over the ranks
+    rows = {}
+    for offset, (S, T_, N) in cases:
+        x = torch.randn(T_, F, N, generator=g, device=dev)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden, dev)
+        zp = (zp1 + torch.randn(S, T_, hidden[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        gout = torch.randn(S, T_, N, generator=g, device=dev) / N
+        seed = 7 if S == 1 else list(range(7, 7 + S))
+        packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+        args = (x, zp, k1T, mids, kout)
+        w = K.sdf_ffn_packed(x, zp, packed, dropout_rate=DROPOUT, seed=seed,
+                             offset=offset)
+        w0 = K.sdf_ffn_packed(x, zp, packed, dropout_rate=DROPOUT, seed=seed)
+        wr = K.sdf_ffn_reference(*args, bout, "float32", seed, DROPOUT,
+                                 offset)
+        grads, dzp = K._launch_bwd(x, zp, packed, gout, seed, DROPOUT,
+                                   offset=offset)
+        dk1T, dmids, dkout, dbout = K.unpack_grads(grads, packed.layout)
+        r = K.sdf_ffn_bwd_reference(*args, gout, "float32", seed, DROPOUT,
+                                    offset)
+        dx = K._launch_dx(x, zp, packed, gout, seed, DROPOUT, offset=offset)
+        dx0 = K._launch_dx(x, zp, packed, gout, seed, DROPOUT)
+        dxr = K.sdf_ffn_dx_reference(*args, gout, "float32", seed, DROPOUT,
+                                     offset)
+        outs = [dzp, dk1T, dkout, dbout, *(t for wb in dmids for t in wb)]
+        refs = [r[0], r[1], r[3], r[4], *(t for wb in r[2] for t in wb)]
+        bwd_err = max(rel_err(o, q) for o, q in zip(outs, refs))
+        errs = (rel_err(w, wr), bwd_err, rel_err(dx, dxr))
+        check(errs[0] <= 1e-5 and errs[1] <= GRAD_F32_REL
+              and errs[2] <= GRAD_F32_REL,
+              f"offset {offset} S={S} T={T_} N={N}: kernel vs plain "
+              f"max|d|/max|ref| fwd {errs[0]:.2e}, bwd {errs[1]:.2e}, "
+              f"dx {errs[2]:.2e}")
+        check(offset == 0 or (not torch.equal(w, w0)
+                              and not torch.equal(dx, dx0)),
+              f"offset {offset} S={S} T={T_} N={N}: the offset changed no "
+              "mask")
+        print(f"[shard] offset {offset} S={S} T={T_:2d} N={N:5d} f32 drop "
+              f"{DROPOUT}: kernel vs plain max|d|/max|ref| fwd "
+              f"{errs[0]:.2e}, bwd {errs[1]:.2e}, dx {errs[2]:.2e}"
+              + ("" if offset == 0 else "; unlike offset 0")
+              + f" ({card})", flush=True)
+        if (S, T_, N) != rank_shape:
+            continue
+        worst[0] = max(worst[0], float((w - wr).abs().max()))
+        worst[1] = max(worst[1], max(float((o - q).abs().max())
+                                     for o, q in zip(outs, refs)))
+        if offset != starts[-1]:
+            continue
+        # the last rank's launches at its own offset, timed beside the
+        # plain versions; its plans as the card holds them
+        shape = (f"S=1 T={T} N={n_r} F={F} hidden={hidden} float32 dropout "
+                 f"{DROPOUT} offsets {starts}")
+        for name, kern, plain, flops, nbytes, plan, reps in (
+                ("sdf_ffn_fwd",
+                 lambda: K.sdf_ffn_packed(x, zp, packed,
+                                          dropout_rate=DROPOUT, seed=seed,
+                                          offset=offset),
+                 lambda: K.sdf_ffn_reference(*args, bout, "float32", seed,
+                                             DROPOUT, offset),
+                 K.flops, K.bytes_moved,
+                 _fwd_plan(torch, K, packed.layout, *rank_shape), (20, 10)),
+                ("sdf_ffn_bwd",
+                 lambda: K._launch_bwd(x, zp, packed, gout, seed, DROPOUT,
+                                       offset=offset),
+                 lambda: K.sdf_ffn_bwd_reference(*args, gout, "float32",
+                                                 seed, DROPOUT, offset),
+                 K.bwd_flops, K.bwd_bytes_moved,
+                 bwd_plan_of(torch, K, packed.layout, *rank_shape)[1],
+                 (10, 5))):
+            b_ms, b_by = bound(flops(1, T, n_r, F, hidden),
+                               nbytes(1, T, n_r, F, hidden), "float32")
+            rows[name] = dict(
+                max_abs_err=worst[0 if name == "sdf_ffn_fwd" else 1],
+                ms=cuda_ms(torch, kern, reps=reps[0]),
+                plain_ms=cuda_ms(torch, plain, reps=reps[1]),
+                bound_ms=b_ms, bound_by=b_by, plan=plan, shape=shape)
+    cem = cond_em_checks(torch, C, card, Ks=(Kn,), shapes=[(1, n_r)],
+                         dtypes=("float32",), odd=False)
+    plans = _cem_plan(torch, C, 1, CEM_T, n_r, F, Kn)
+    for k in ("fwd", "bwd"):
+        rows[f"cond_em_{k}"] = dict(cem[(k, 1, n_r, Kn, "float32")],
+                                    plan=plans[k])
+    for name, row in rows.items():
+        print(f"[shard] {name} at the ranks' shape ({row['shape']}): "
+              f"max|d| {row['max_abs_err']:.3e}  kernel {row['ms']:.4f} ms "
+              f" plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}); plan {row['plan']} ({card})",
+              flush=True)
+    print(f"[shard] (d) kernel checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
+def _shard_argv(save, kernel, extra=()):
+    return ["--data_dir", str(DATA_DIR), "--save_dir", str(save),
+            "--epochs_unc", str(SCHEDULE["num_epochs_unc"]),
+            "--epochs_moment", str(SCHEDULE["num_epochs_moment"]),
+            "--epochs", str(SCHEDULE["num_epochs"]), "--ignore_epoch",
+            str(SCHEDULE["ignore_epoch"]), "--print_freq", "8",
+            "--dropout", str(DROPOUT), "--device", DEVICE,
+            "--compute_dtype", "float32", "--kernel", kernel, *extra]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun(save, kernel, world):
+    """The train CLI with --shard_stocks over `world` ranks, through
+    torch.distributed.run; (wall s, launch rows, events)."""
+    counts_file = SHARD_DIR / f"launches.{save.name}.jsonl"
+    env = dict(os.environ, DLAP_LAUNCH_COUNTS=str(counts_file))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(world), "--master_addr",
+           "127.0.0.1", "--master_port", str(_free_port()), "-m",
+           f"{PKG}.train", *_shard_argv(save, kernel, ["--shard_stocks"])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    (SHARD_DIR / f"{save.name}.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0,
+          f"torchrun --shard_stocks ({kernel}) exited {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return wall, _launch_rows(counts_file), _events(save)
+
+
+def _run_dir_devs(a, b):
+    """(max loss rel dev, max Sharpe abs dev) of two run dirs' history.npz
+    over every epoch."""
+    ha, hb = np.load(a / "history.npz"), np.load(b / "history.npz")
+    return _devs(ha, hb, ("train_loss", "valid_loss", "test_loss"),
+                 ("train_sharpe", "valid_sharpe", "test_sharpe"))
+
+
+def _rank_digests(rows):
+    return [r.get("sha256") for r in rows if r.get("kind") == "counter"
+            and r.get("name") == "shard/final_params"]
+
+
+def shard_phase(torch, card, world):
+    """Phase 17 (a)-(c) on phase 6's panel (DATA_DIR); (d) runs before it.
+    Returns the launches of (b) (the ``sharded_training`` path) and the
+    walls."""
+    from deeplearninginassetpricing_paperreplication_torch import train
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    try:
+        # (a) no process group: --shard_stocks is world size 1
+        plain, flag = SHARD_DIR / "world1", SHARD_DIR / "world1_flag"
+        t1 = time.perf_counter()
+        train.main(_shard_argv(plain, "on"))
+        wall1 = time.perf_counter() - t1
+        train.main(_shard_argv(flag, "on", ["--shard_stocks"]))
+        ha, hb = np.load(plain / "history.npz"), np.load(flag / "history.npz")
+        check(set(ha.files) == set(hb.files)
+              and all(np.array_equal(ha[k], hb[k]) for k in ha.files),
+              "(a) --shard_stocks without a group: history.npz differs")
+        for name in ("best_model_loss.pt", "best_model_sharpe.pt",
+                     "final_model.pt"):
+            sa, sb = (torch.load(d / name, weights_only=True)
+                      for d in (plain, flag))
+            check(list(sa) == list(sb)
+                  and all(torch.equal(sa[k], sb[k]) for k in sa),
+                  f"(a) --shard_stocks without a group: {name} differs")
+        log = (flag / "events.jsonl").read_text()
+        check("without a process group: world size 1" in log,
+              "(a) the log does not say world size 1")
+        ms1 = json.loads((plain / "final_metrics.json").read_text())[
+            "epoch_ms"]
+        print(f"[shard] (a) train CLI --shard_stocks without a process group"
+              f" (f32, kernel on): world size 1, history.npz and the three "
+              f"checkpoints bit for bit the unsharded CLI's ({card})",
+              flush=True)
+
+        # (b) two ranks on the one card, kernel route; (c) the plain route
+        epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+                  "moment": SCHEDULE["num_epochs_moment"],
+                  "conditional": SCHEDULE["num_epochs"]}
+        want = tuple(sum(PER_EPOCH[p][i] * n for p, n in epochs.items())
+                     + SHARD_CLI_EXTRA[i] for i in range(4))
+        out = {}
+        for kernel in ("on", "off"):
+            save = SHARD_DIR / f"world{world}_{kernel}"
+            wall, rows, evs = _torchrun(save, kernel, world)
+            check(len(rows) == world,
+                  f"({kernel}) {len(rows)} launch rows, not one per rank")
+            per_rank = [tuple(r[k] for k in TRAIN_KERNELS) for r in rows]
+            expect = want if kernel == "on" else (0, 0, 0, 0)
+            check(all(c == expect for c in per_rank),
+                  f"({kernel}) per-rank launches (fwd, bwd, cem_fwd, "
+                  f"cem_bwd) {per_rank} != {expect}")
+            digests = _rank_digests(evs)
+            check(len(digests) == world and len(set(digests)) == 1,
+                  f"({kernel}) the ranks' final parameters differ: "
+                  f"{digests}")
+            mesh = json.loads((save / "manifest.json").read_text())[
+                "devices"]["mesh"]
+            spans = [(r["start"], r["stop"]) for r in mesh["ranks"]]
+            n = PANEL["n_stocks"]
+            backend = ("nccl" if torch.cuda.device_count() >= world
+                       else "gloo")
+            check(mesh["backend"] == backend and spans == [
+                (r * n // world, (r + 1) * n // world)
+                for r in range(world)],
+                f"({kernel}) manifest mesh {mesh}")
+            if kernel == "on":
+                ns = {e["analysis"]["N"] for e in evs
+                      if e.get("kind") == "program"
+                      and e.get("name", "").endswith("/train")}
+                check(ns == {n // world},
+                      f"(b) the ranks planned the train kernels at N {ns}")
+            dl, dsh = _run_dir_devs(save, plain)
+            check(dl <= LOSS_BAR and dsh <= SHARPE_BAR,
+                  f"({kernel}) two ranks vs the unsharded kernel run: loss "
+                  f"rel {dl:.3e} (bar {LOSS_BAR}), Sharpe {dsh:.3e} (bar "
+                  f"{SHARPE_BAR})")
+            ms = json.loads((save / "final_metrics.json").read_text())[
+                "epoch_ms"]
+            out[kernel] = dict(wall=wall, rows=per_rank, dev=(dl, dsh),
+                               epoch_ms=ms)
+            print(f"[shard] ({'b' if kernel == 'on' else 'c'}) torchrun "
+                  f"{world} ranks ({backend}, devices "
+                  f"{[r['device'] for r in mesh['ranks']]}), kernel {kernel}:"
+                  f" rank spans {spans}, per-rank launches {per_rank[0]} "
+                  f"(want {expect}), ranks' final params bit for bit equal; "
+                  f"every epoch vs the unsharded kernel run: loss rel "
+                  f"{dl:.3e} (bar {LOSS_BAR}), Sharpe {dsh:.3e} (bar "
+                  f"{SHARPE_BAR}); wall {wall:.1f} s ({card})", flush=True)
+        fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+        print(f"[shard] wall ms per epoch, f32: world size 1 kernel "
+              f"{fmt(ms1)} (CLI wall {wall1:.1f} s); world size "
+              f"{world} kernel {fmt(out['on']['epoch_ms'])}; world "
+              f"size {world} plain {fmt(out['off']['epoch_ms'])} "
+              f"({card})", flush=True)
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"[shard] phase 17 done in {wall:.1f} s ({card})", flush=True)
+    return dict(launches={k: sum(r[i] for r in out["on"]["rows"])
+                          for i, k in enumerate(TRAIN_KERNELS)},
+                world1_epoch_ms=ms1, world2_epoch_ms=out["on"]["epoch_ms"],
+                world2_plain_epoch_ms=out["off"]["epoch_ms"], wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6814,18 +7325,19 @@ def main(argv=None) -> int:
                          "run its plans and checks (a short call while "
                          "sdf_ffn_dx.cu changes); no result line")
     ap.add_argument("--compare_dx", metavar="DIR", default=None,
-                    help="with --only_dx: hold the f32 sdf_ffn_dx bit for "
-                         "bit against DIR/sdf_ffn_bwd.cu's, an older source "
-                         "beside its sdf_ffn_common.cuh, and time both in "
-                         "turns")
+                    help="with --only_dx: hold the f32 sdf_ffn_dx and "
+                         "sdf_ffn_bwd at offset 0 bit for bit against "
+                         "DIR/sdf_ffn_dx.cu's and sdf_ffn_bwd.cu's (this "
+                         "tree's argument lists, beside their "
+                         "sdf_ffn_common.cuh), and time both in turns")
     ap.add_argument("--only_fwd", action="store_true",
                     help="build the FFN forward's libraries only and run "
                          "their checks (a short call while the forward "
                          "changes); no result line")
     ap.add_argument("--compare_fwd", metavar="DIR", default=None,
-                    help="with --only_fwd: hold the f32 forward bit for bit "
-                         "against DIR/sdf_ffn.cu, an older source beside "
-                         "its sdf_ffn_common.cuh")
+                    help="with --only_fwd: hold the f32 forward at offset 0 "
+                         "bit for bit against DIR/sdf_ffn.cu (this tree's "
+                         "argument list, beside its sdf_ffn_common.cuh)")
     ap.add_argument("--only_cem", action="store_true",
                     help="build the conditional-EM library only and run its "
                          "plans, checks and timings (a short call while "
@@ -6888,6 +7400,12 @@ def main(argv=None) -> int:
                          "stand-in members (a short call while the joint "
                          "trainers, the checkpoint reader or the plots "
                          "change); no result line")
+    ap.add_argument("--only_shard", action="store_true",
+                    help="build the FFN and conditional-EM libraries only, "
+                         "then phase 17: the dropout offset checks and "
+                         "stock-sharded training on phase 6's panel (a short "
+                         "call while the partition layer, the collectives "
+                         "or the sharded data plane change); no result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -6905,6 +7423,7 @@ def main(argv=None) -> int:
         shutil.rmtree(REPORT_RUNS, ignore_errors=True)
         shutil.rmtree(FLEET_DIR, ignore_errors=True)
         shutil.rmtree(JOINT_DIR, ignore_errors=True)
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -6950,6 +7469,7 @@ def run_phases(opts, torch) -> int:
                 or opts.only_refit)
             else K.build_jobs([32, 64], kernels=("fwd", "bwd"))
             + C.build_jobs() if opts.only_joint
+            else K.build_jobs([64]) + C.build_jobs() if opts.only_shard
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) + [K.audit_job()]
             if opts.only_dx
@@ -6974,7 +7494,7 @@ def run_phases(opts, torch) -> int:
               else () if (opts.only_cem or opts.only_ceiling
                           or opts.only_data or opts.only_ops
                           or opts.only_elastic or opts.only_refit
-                          or opts.only_joint)
+                          or opts.only_joint or opts.only_shard)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
@@ -6982,7 +7502,8 @@ def run_phases(opts, torch) -> int:
                           or opts.only_serve or opts.only_fleet
                           or opts.only_data
                           or opts.only_ops or opts.only_elastic
-                          or opts.only_refit or opts.only_joint)
+                          or opts.only_refit or opts.only_joint
+                          or opts.only_shard)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -7024,6 +7545,17 @@ def run_phases(opts, torch) -> int:
             cond_em_checks(torch, C, card, Ks=(8,), shapes=[(1, 10000)],
                            dtypes=("float32",), odd=False)
             joint_phase(torch, K, C, card, splits)
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+
+    if opts.only_shard:
+        # phase 17 alone on phase 6's panel
+        try:
+            world = shard_world(torch)
+            shard_kernel_checks(torch, K, C, card, world)
+            make_panel()
+            shard_phase(torch, card, world)
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
@@ -7250,6 +7782,12 @@ def run_phases(opts, torch) -> int:
     # panel; the figures on phase 7's nine members
     joint_rows = joint_kernel_checks(torch, K, C, card)
     joint = joint_phase(torch, K, C, card, splits, (ens_cfg, ens_params))
+
+    # 17. stock-sharded training on phase 6's panel, the FFN kernels'
+    # dropout offset first
+    world = shard_world(torch)
+    shard_rows = shard_kernel_checks(torch, K, C, card, world)
+    shard = shard_phase(torch, card, world)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
@@ -7285,10 +7823,13 @@ def run_phases(opts, torch) -> int:
                      "plots_summary"):
             if joint[path].get(name):
                 paths[path] = joint[path][name]
+        # phase 17: the ranks' launches of the torchrun CLI run
+        paths["sharded_training"] = shard["launches"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name],
-                    at_refit_shapes=refits["rows"][name])
+                    at_refit_shapes=refits["rows"][name],
+                    at_sharded_shape=shard_rows[name])
 
     def grad_path(name):
         n = grad_launches[name]

@@ -20,6 +20,7 @@ _EXPORTS = {
     "load_splits": "data.panel", "StartupPipeline": "data.pipeline",
     "load_splits_cached": "data.pipeline",
     "load_splits_chunked": "data.pipeline", "stream_batch": "data.pipeline",
+    "stream_batch_sharded": "data.pipeline",
     "generate_all_splits": "data.synthetic",
     "generate_dataset": "data.synthetic",
     "SimpleSDF": "models.networks", "joint_train": "training.joint",

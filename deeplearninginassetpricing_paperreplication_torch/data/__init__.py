@@ -8,6 +8,7 @@ _EXPORTS = {
     "PanelDataset": "panel", "load_panel": "panel", "load_splits": "panel",
     "StartupPipeline": "pipeline", "load_splits_cached": "pipeline",
     "load_splits_chunked": "pipeline", "stream_batch": "pipeline",
+    "stream_batch_sharded": "pipeline",
     "generate_all_splits": "synthetic", "generate_dataset": "synthetic",
 }
 __all__ = sorted(_EXPORTS)

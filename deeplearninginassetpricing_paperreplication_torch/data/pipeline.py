@@ -1,8 +1,8 @@
 """Overlapped startup pipeline: cache-aware decode → streamed transfer →
 early kernel build.
 
-The port's counterpart of the JAX package's ``data/pipeline.py`` (without
-the mesh). Before the first training step a run must decode the panel,
+The port's counterpart of the JAX package's ``data/pipeline.py``. Before
+the first training step a run must decode the panel,
 copy it to the card and have the kernels its route launches built and
 planned. The three have no dependency beyond "the build needs shapes" and
 "the transfer needs decoded bytes", so they run as a pipeline:
@@ -32,6 +32,15 @@ The chunked store (:mod:`.diskcache` ``store_chunked``/``load_chunked``):
 the stock axis (``columns=`` restricts it to a span), re-decoding only a
 torn shard from its npz. The sweep, ensemble and serving CLIs load through
 it.
+
+Stock sharding (a ``parallel.partition.Mesh`` over the ranks of a process
+group): :func:`stream_batch_sharded` puts this rank's contiguous span of a
+padded global batch on its device, bit for bit ``partition.shard_batch``'s
+slice; ``StartupPipeline(mesh=)`` reads only the rank's columns through the
+chunked store, pads its span to the mesh (the last rank's tail is masked
+zeros), and ships it the same way. Beyond one rank every local batch
+carries ``n_assets``, the true global count. Each shard's transfer is one
+``startup/shard_transfer`` span with its ``start``/``stop``.
 """
 
 from __future__ import annotations
@@ -558,6 +567,58 @@ def stream_batch(
                       stats=stats)
 
 
+def _ship_shard(local: Dict[str, Any], span: Tuple[int, int], shard: int,
+                device, events: EventLog, split: str, bf16_wire: bool,
+                **stream_kw) -> Dict[str, torch.Tensor]:
+    """One rank's local batch onto its device through :func:`stream_batch`,
+    timed as one ``startup/shard_transfer`` span."""
+    a, b = span
+    with events.span("startup/shard_transfer", split=split, shard=shard,
+                     device=str(device), start=a, stop=b):
+        return stream_batch(local, device=device, bf16_wire=bf16_wire,
+                            **stream_kw)
+
+
+def stream_batch_sharded(
+    batch: Dict[str, np.ndarray],
+    mesh,
+    axis_name: Optional[str] = None,
+    events: Optional[EventLog] = None,
+    split: str = "",
+    bf16_wire: bool = False,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """This rank's contiguous span of the padded global `batch` (host
+    arrays), on `device` (default cuda): ``partition.shard_batch``'s slice,
+    bit for bit, streamed through :func:`stream_batch` (the same routing,
+    slabs and bf16 wire: with `bf16_wire` the span's `individual` ships
+    bfloat16 and lands float32 with bf16-rounded values). Beyond one shard
+    the batch carries ``n_assets``. N must divide the mesh's stock axis:
+    pad with ``PanelDataset.pad_stocks`` first (an N that does not divide
+    raises). One ``startup/shard_transfer`` span with the span's
+    ``start``/``stop``."""
+    from ..parallel import partition
+
+    axis_name = axis_name or partition.STOCK_AXIS
+    ev = events if events is not None else EventLog()
+    r = partition.rank()
+    n = np.asarray(batch["returns"]).shape[1]
+    span = partition.stock_span(n, mesh, r, axis_name)
+    local = partition.shard_batch(batch, mesh, axis_name, device=r)
+    return _ship_shard(local, span, r, resolve_device(
+        "cuda" if device is None else device), ev, split, bf16_wire)
+
+
+def _span_dataset(ds: PanelDataset, width: int,
+                  n_global: int) -> PanelDataset:
+    """A rank's columns of a split padded on the right with masked zeros
+    to its span's `width`, carrying the split's true stock count."""
+    if ds.N < width:
+        ds = ds.pad_stocks(width)
+    ds.n_assets = n_global
+    return ds
+
+
 def _peak_rss_bytes() -> Optional[int]:
     """This process's high-water RSS (Linux ru_maxrss is KiB)."""
     try:
@@ -597,6 +658,14 @@ class StartupPipeline:
     `device` (default cuda), ordered before later work on the stream that
     was current when :meth:`start` ran. An exception from any stage is
     re-raised by ``result()``.
+
+    `mesh` (a ``parallel.partition.Mesh`` whose stock axis spans the
+    process group's ranks): each split decodes only this rank's span of
+    its stock axis padded to the mesh, through the chunked store
+    (``shard_width``: its shard width), and ships it with one
+    ``startup/shard_transfer`` span; the datasets and batches are the
+    rank's (a dataset's ``n_assets`` is the split's true stock count), and
+    `compile_fn` sees the rank's local shapes.
     """
 
     def __init__(
@@ -612,6 +681,8 @@ class StartupPipeline:
         shapes: Optional[Dict] = None,
         chunk_bytes: int = DEFAULT_CHUNK_BYTES,
         cache: Optional[bool] = None,
+        mesh=None,
+        shard_width: Optional[int] = None,
     ):
         self.data_dir = Path(data_dir)
         self.macro_idx = macro_idx
@@ -623,6 +694,9 @@ class StartupPipeline:
         self.shapes = shapes
         self.chunk_bytes = chunk_bytes
         self.use_cache = diskcache.cache_enabled() if cache is None else cache
+        self.mesh = mesh
+        self.shard_width = shard_width
+        self._spans: Dict[str, Tuple[int, int, int]] = {}  # a, b, n
         self._started = False
         self._stream = None
         self._compile_thread: Optional[threading.Thread] = None
@@ -653,10 +727,24 @@ class StartupPipeline:
     def _decode_one(self, split: str) -> _RawSplit:
         char, macro = split_paths(self.data_dir, split)
         inject("pipeline/decode", split=split)
+        attrs = {}
         with self.events.span(f"startup/load/{split}"):
-            raw = _load_split_raw(char, macro, self.use_cache)
+            if self.mesh is None:
+                raw = _load_split_raw(char, macro, self.use_cache)
+            else:
+                a, b, n = self._spans[split]
+                if a >= n:
+                    raise ValueError(
+                        f"{split}: rank span [{a}, {b}) holds none of the "
+                        f"{n} stocks; use fewer ranks")
+                chunked = _load_split_chunked(
+                    char, macro, columns=(a, min(b, n)),
+                    use_cache=self.use_cache, shard_width=self.shard_width,
+                    events=self.events, split=split)
+                raw = _RawSplit(chunked.ds, None, chunked.cache_hit)
+                attrs = {"chunked": True}
         self.events.counter("panel_cache", value=1, split=split,
-                            hit=raw.cache_hit)
+                            hit=raw.cache_hit, **attrs)
         return raw
 
     def _run_transfers(self):
@@ -671,19 +759,25 @@ class StartupPipeline:
                         stats = _finalize_macro(raw.ds, self.macro_idx)
                     elif stats is not None:
                         _finalize_macro(raw.ds, self.macro_idx, stats)
-                    self._datasets[split] = raw.ds
+                    ds = raw.ds
+                    if self.mesh is not None:
+                        a, b, n = self._spans[split]
+                        ds = _span_dataset(ds, b - a, n)
+                    self._datasets[split] = ds
                     inject("pipeline/transfer", split=split)
+                    kw = dict(packed=self.packed, packed_rep=raw.packed,
+                              chunk_bytes=self.chunk_bytes, slabs=slabs,
+                              stream=self._stream)
                     with self.events.span(f"startup/transfer/{split}"):
-                        self._batches[split] = stream_batch(
-                            raw.ds.full_batch(),
-                            packed=self.packed,
-                            device=self.device,
-                            bf16_wire=self.bf16_wire,
-                            packed_rep=raw.packed,
-                            chunk_bytes=self.chunk_bytes,
-                            slabs=slabs,
-                            stream=self._stream,
-                        )
+                        if self.mesh is None:
+                            self._batches[split] = stream_batch(
+                                ds.full_batch(), device=self.device,
+                                bf16_wire=self.bf16_wire, **kw)
+                        else:
+                            from ..parallel.partition import rank
+                            self._batches[split] = _ship_shard(
+                                ds.full_batch(), (a, b), rank(), self.device,
+                                self.events, split, self.bf16_wire, **kw)
             rss = _peak_rss_bytes()
             if rss is not None:
                 self.events.gauge("startup/peak_rss", value=rss)
@@ -699,6 +793,8 @@ class StartupPipeline:
         if self.device.type == "cuda":
             # the consumer: the stream current in the thread that starts us
             self._stream = torch.cuda.current_stream(self.device)
+        if self.mesh is not None:
+            self._plan_spans()
         if self.compile_fn is not None:
             if self.shapes is None:
                 with self.events.span("startup/probe"):
@@ -721,6 +817,27 @@ class StartupPipeline:
         )
         self._transfer_thread.start()
         return self
+
+    def _plan_spans(self) -> None:
+        """This rank's span [a, b) of each split's stock axis padded to the
+        mesh, from the npz headers; the compile stage then plans the
+        rank's local shapes."""
+        from ..parallel.partition import STOCK_AXIS, rank, stock_span
+
+        if self.shapes is None:
+            with self.events.span("startup/probe"):
+                self.shapes = probe_split_shapes(self.data_dir)
+        parts = int(self.mesh.shape[STOCK_AXIS])
+        local = {}
+        for split, entry in self.shapes.items():
+            n = entry["returns"][1]
+            n_pad = n + (-n) % parts
+            a, b = stock_span(n_pad, self.mesh, rank())
+            self._spans[split] = (a, b, n)
+            local[split] = {k: (v[:1] + (b - a,) + v[2:]
+                                if k in ("individual", "returns", "mask")
+                                else v) for k, v in entry.items()}
+        self.shapes = local
 
     def result(self) -> PipelineResult:
         """Block until every stage completes; re-raise the first failure."""

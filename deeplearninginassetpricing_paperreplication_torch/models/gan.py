@@ -25,6 +25,13 @@ conditional-EM call serve all S members. :meth:`GAN.member_terms` forms the
 weights, F and em (or h) that both the losses and the model-health
 diagnostics (``ops/diagnostics.py``) are built from. The inference-mode
 ``weights`` and ``moments`` are the serving path's.
+
+Stock-sharded training (``exec_cfg.shard``, a
+``parallel.collectives.StockShard``): each rank's batch holds its own
+contiguous span of the stocks. The FFN runs on the rank's panel with the
+span's start as its dropout offset, the fused conditional-EM on the local
+shard (em[k, n] is local to its stock, as are T_i), and every sum over
+stocks (zero-mean, F, the losses, the normalized weights) is all-reduced.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..ops.losses import (
     unconditional_loss,
 )
 from ..ops.metrics import normalize_weights_abs, sharpe_monitor
+from ..parallel.collectives import stock_sum
 from ..utils.config import ExecutionConfig, GANConfig, resolve_device
 from .networks import (
     AssetPricingModule,
@@ -130,6 +138,7 @@ class GAN:
         net gives h [S, K, T, N] and em None. Without `moments` both are
         None and no moment-net work is done."""
         cfg = self.cfg
+        shard = self.exec_cfg.shard
         batch = self.prepare_batch(batch)
         returns, mask, macro = batch["returns"], batch["mask"], batch.get(
             "macro")
@@ -144,11 +153,12 @@ class GAN:
                           for s in seeds]
         states = macro_states(sdf, cfg, macro, generators)
         weights = sdf_raw_weights(sdf, cfg, self.exec_cfg,
-                                  batch["individual_t"], states,
-                                  seed=seeds) * mask
+                                  batch["individual_t"], states, seed=seeds,
+                                  offset=shard.start if shard else 0) * mask
         if cfg.normalize_w:
-            weights = masked_zero_mean(weights, mask)
-        F = portfolio_returns(weights, returns, mask, cfg.weighted_loss)
+            weights = masked_zero_mean(weights, mask, shard)
+        F = portfolio_returns(weights, returns, mask, cfg.weighted_loss,
+                              shard)
         em = h = None
         if moments and not cfg.hidden_dim_moment and macro is not None:
             k_period, k_stock, bias = moment_output_members(moment, cfg)
@@ -160,7 +170,7 @@ class GAN:
                 kernel=self.exec_cfg.kernel)  # [S, K, N]
         elif moments:
             h = moment_h_members(moment, cfg, macro, batch["individual"],
-                                 generators)
+                                 generators, shard)
         return weights, F, em, h
 
     def forward_members(self, params: Mapping[str, torch.Tensor],
@@ -178,6 +188,7 @@ class GAN:
         if phase not in PHASES:
             raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
         cfg = self.cfg
+        shard = self.exec_cfg.shard
         batch = self.prepare_batch(batch)
         returns, mask = batch["returns"], batch["mask"]
         n_assets = batch.get("n_assets")
@@ -187,27 +198,27 @@ class GAN:
         if phase == "unconditional":
             loss_unc, _ = unconditional_loss(weights, returns, mask,
                                              cfg.weighted_loss, F=F,
-                                             n_assets=n_assets)
+                                             n_assets=n_assets, shard=shard)
             loss_cond = zero
         elif em is not None:
-            loss_cond = em_loss(em, n_assets)
+            loss_cond = em_loss(em, n_assets, shard)
         else:
             loss_cond, _ = conditional_loss(weights, returns, mask, h,
                                             cfg.weighted_loss, F=F,
-                                            n_assets=n_assets)
+                                            n_assets=n_assets, shard=shard)
         if phase == "moment":
             loss_unc = zero
             total = -loss_cond  # the discriminator ascends
         elif phase == "conditional":
             loss_unc, _ = unconditional_loss(weights, returns, mask,
                                              cfg.weighted_loss, F=F,
-                                             n_assets=n_assets)
+                                             n_assets=n_assets, shard=shard)
             total = loss_cond
         else:
             total = loss_unc
         loss_res = zero
         if cfg.residual_loss_factor > 0:
-            loss_res = residual_loss(weights, returns, mask)
+            loss_res = residual_loss(weights, returns, mask, shard)
             total = total + cfg.residual_loss_factor * loss_res
         return {
             "weights": weights,
@@ -226,10 +237,11 @@ class GAN:
                            ) -> torch.Tensor:
         """Weights scaled to Σ|w| = 1 per period."""
         return normalize_weights_abs(self.weights(batch, macro_state),
-                                     batch["mask"])
+                                     batch["mask"], self.exec_cfg.shard)
 
     def sdf_factor(self, batch: Batch, normalized: bool = True) -> torch.Tensor:
         """Portfolio return series [T] of the SDF portfolio."""
         w = (self.normalized_weights(batch) if normalized
              else self.weights(batch))
-        return (w * batch["returns"] * batch["mask"]).sum(dim=1)
+        return stock_sum(w * batch["returns"] * batch["mask"], 1,
+                         self.exec_cfg.shard)

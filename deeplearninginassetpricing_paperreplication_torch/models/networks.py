@@ -32,6 +32,14 @@ Ensemble training works on member-stacked parameter dicts (the reference's
 ``state_dict`` keys, each tensor [S, ...]): :func:`init_member_params`
 draws them, :func:`moment_output_members` and :func:`moment_h_members` are
 the moment net over them.
+
+Under a stock shard (``parallel.collectives.StockShard``) the panel holds
+the rank's stocks only: the cross-sectional zero-mean sums and counts over
+every rank's stocks, the FFN hashes its dropout on the global stock index
+(its ``offset``), and a moment net with hidden layers draws its dropout at
+the global stock count and keeps its span, so a rank's masks are the
+unsharded run's over its span. The LSTM sees only the replicated macro
+series and is unchanged.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from torch import nn
 
 from ..ops import sdf_ffn
 from ..ops.losses import unconditional_loss
+from ..parallel.collectives import StockShard, is_sharded, stock_sum
 from ..ops.metrics import sharpe_monitor
 from ..utils.config import ExecutionConfig, GANConfig
 from .recurrent import (
@@ -56,10 +65,12 @@ from .recurrent import (
 _DEFAULT_EXEC = ExecutionConfig()
 
 
-def masked_zero_mean(weights: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Cross-sectional zero-mean per period over valid stocks (last axis)."""
-    count = mask.sum(dim=-1, keepdim=True).clamp_min(1)
-    mean = (weights * mask).sum(dim=-1, keepdim=True) / count
+def masked_zero_mean(weights: torch.Tensor, mask: torch.Tensor,
+                     shard: Optional[StockShard] = None) -> torch.Tensor:
+    """Cross-sectional zero-mean per period over valid stocks (last axis;
+    under a stock shard, over every rank's stocks)."""
+    count = stock_sum(mask, -1, shard, keepdim=True).clamp_min(1)
+    mean = stock_sum(weights * mask, -1, shard, keepdim=True) / count
     return (weights - mean) * mask
 
 
@@ -156,13 +167,14 @@ def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
                     exec_cfg: ExecutionConfig, x_t: torch.Tensor,
                     macro_state: Optional[torch.Tensor],
                     packed: Optional[sdf_ffn.PackedFfn] = None,
-                    seed: Optional[sdf_ffn.Seed] = None) -> torch.Tensor:
+                    seed: Optional[sdf_ffn.Seed] = None,
+                    offset: int = 0) -> torch.Tensor:
     """Unmasked weights [S, T, N] of S members on the feature-major panel
     x_t [T, F, N], given each member's macro state [S, T, Dp] (or None).
     With hidden layers this is ONE fused-FFN call over all members: from
     weights packed once (`packed`, the serving path), or differentiable,
     with dropout drawn from `seed` (one int, or one per member) when one is
-    given (training)."""
+    given (training), hashed on the global stock index from `offset`."""
     T = x_t.shape[0]
     if not cfg.hidden_dim:
         # no hidden layer: the output projection is the split layer itself
@@ -180,7 +192,8 @@ def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
     return sdf_ffn.sdf_ffn(
         x_t, zp, k1T, mids, kout, bout, seed=seed if training else 0,
         dropout_rate=cfg.dropout if training else 0.0,
-        compute_dtype=exec_cfg.compute_dtype, kernel=exec_cfg.kernel)
+        compute_dtype=exec_cfg.compute_dtype, kernel=exec_cfg.kernel,
+        offset=offset)
 
 
 class SDFNet(nn.Module):
@@ -214,11 +227,13 @@ class SDFNet(nn.Module):
             macro_state = macro_state[None]
         if individual_t is None:
             individual_t = individual.permute(0, 2, 1).contiguous()
+        shard = self.exec_cfg.shard
         w = sdf_raw_weights(params, self.cfg, self.exec_cfg, individual_t,
-                            macro_state, seed=seed)[0]
+                            macro_state, seed=seed,
+                            offset=shard.start if shard else 0)[0]
         w = w * mask
         if self.cfg.normalize_w:
-            w = masked_zero_mean(w, mask)
+            w = masked_zero_mean(w, mask, shard)
         return w
 
 
@@ -267,11 +282,13 @@ def moment_output_members(params: Mapping[str, torch.Tensor], cfg: GANConfig
 
 def moment_h_members(params: Mapping[str, torch.Tensor], cfg: GANConfig,
                      macro: Optional[torch.Tensor], individual: torch.Tensor,
-                     generators: Generators = None) -> torch.Tensor:
+                     generators: Generators = None,
+                     shard: Optional[StockShard] = None) -> torch.Tensor:
     """h [S, K, T, N]: :class:`MomentNet` of every member, from
     member-stacked ``moment_net``-relative params (the plain route of a
     moment net with hidden layers). `generators` (one per member) draw the
-    hidden layers' dropout."""
+    hidden layers' dropout; under a stock shard each draw is made at the
+    global stock count and cut to the rank's span."""
     n_hidden = len(cfg.hidden_dim_moment)
     layers = [(params[f"fc_layers.{3 * i}.weight"],
                params[f"fc_layers.{3 * i}.bias"]) for i in range(n_hidden)]
@@ -282,8 +299,10 @@ def moment_h_members(params: Mapping[str, torch.Tensor], cfg: GANConfig,
          + b0[:, None, None, :])
     if macro is not None:
         x = x + (macro @ w0[:, :, :M].transpose(1, 2))[:, :, None, :]
+    span = ((-2, shard.start, shard.stop, shard.n_global)
+            if is_sharded(shard) else None)  # x is [S, T, N, H]
     for w, b in layers[1:]:
-        x = dropout(torch.relu(x), cfg.dropout, generators)
+        x = dropout(torch.relu(x), cfg.dropout, generators, span)
         x = x @ w[:, None].transpose(-1, -2) + b[:, None, None, :]
     return torch.tanh(x).permute(0, 3, 1, 2)  # [S, K, T, N]
 

@@ -67,18 +67,35 @@ def lstm_step(p: LayerParams, carry: Carry, x_t: torch.Tensor) -> Carry:
     return _gates(zx_t + _rowmat(carry[0], _mT(p["w_hh"])), carry[1])
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Generators) -> torch.Tensor:
+def _rand(shape, generator: torch.Generator, device,
+          span: Optional[Tuple[int, int, int, int]]) -> torch.Tensor:
+    """U[0, 1) of `shape`; with `span` (dim, start, stop, n) drawn at n
+    along dim and cut to [start, stop): a stock shard's part of the
+    unsharded draw."""
+    if span is None:
+        return torch.rand(shape, generator=generator, device=device)
+    dim, start, stop, n = span
+    full = list(shape)
+    full[dim] = n
+    u = torch.rand(full, generator=generator, device=device)
+    return u.narrow(dim, start, stop - start)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Generators,
+            span: Optional[Tuple[int, int, int, int]] = None
+            ) -> torch.Tensor:
     """Inverted dropout drawn from an explicit generator; the identity
     without one (eval) or at rate 0. With one generator per member, member
     s's slice x[s] draws from its own, exactly as a one-member call with
-    that generator draws (only the draw is per member)."""
+    that generator draws (only the draw is per member). `span` (dim,
+    start, stop, n), dim counted from the end: x holds the part [start,
+    stop) of an axis of n, and draws that part of the draw at n."""
     if generator is None or rate <= 0.0:
         return x
     if isinstance(generator, torch.Generator):
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        u = _rand(x.shape, generator, x.device, span)
     else:
-        u = torch.stack([torch.rand(x.shape[1:], generator=g, device=x.device)
+        u = torch.stack([_rand(x.shape[1:], g, x.device, span)
                          for g in generator])
     keep = u >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)

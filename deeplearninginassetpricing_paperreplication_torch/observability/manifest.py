@@ -116,9 +116,32 @@ def _versions() -> Dict[str, Optional[str]]:
     return vers
 
 
-def device_topology() -> Dict[str, Any]:
+def device_topology(mesh: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
     """The CUDA devices this process sees: count, and each one's name and
-    compute capability (an empty list on a host without one)."""
+    compute capability (an empty list on a host without one); with `mesh`
+    (a stock-sharded run's :func:`mesh_record`) also the mesh."""
+    topo = _local_devices()
+    if mesh is not None:
+        topo["mesh"] = mesh
+    return topo
+
+
+def mesh_record(world: int, backend: Optional[str], spans, devices,
+                axis_name: str = "stocks") -> Dict[str, Any]:
+    """How a stock-sharded run was laid out: the world size, the process
+    group's backend (None without one), and each rank's span [start, stop)
+    of the padded train stock axis and its device."""
+    return {
+        "axis_names": [axis_name], "shape": [int(world)],
+        "world_size": int(world), "backend": backend,
+        "ranks": [{"rank": r, "start": int(a), "stop": int(b),
+                   "device": str(d)}
+                  for r, ((a, b), d) in enumerate(zip(spans, devices))],
+    }
+
+
+def _local_devices() -> Dict[str, Any]:
     try:
         import torch
 
@@ -148,8 +171,10 @@ def build_manifest(
     data_dir=None,
     argv=None,
     extra: Optional[Dict[str, Any]] = None,
+    mesh: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
-    """Assemble the manifest dict (pure; no filesystem writes)."""
+    """Assemble the manifest dict (pure; no filesystem writes); `mesh`: a
+    stock-sharded run's :func:`mesh_record`, under ``devices.mesh``."""
     manifest = {
         "schema": MANIFEST_SCHEMA_VERSION,
         "kind": kind,
@@ -161,7 +186,7 @@ def build_manifest(
         "config_hash": config_hash(config),
         "train_config": _as_dict(tcfg),
         "versions": _versions(),
-        "devices": device_topology(),
+        "devices": device_topology(mesh),
         "git_sha": _git_sha(),
         "data": data_fingerprint(data_dir) if data_dir is not None else None,
     }

@@ -355,7 +355,7 @@ sdf_ffn_fwd_f32_kernel(const float* __restrict__ x,
     if (drop.on) {
       const uint32_t base = drop.member_base[s];
       for (int i = tid; i < tile; i += nth)
-        rowh[i] = sdf_ffn::row_hash(base, t, n0 + i);
+        rowh[i] = sdf_ffn::row_hash(base, t, drop.offset + n0 + i);
     }
     if (c + gridDim.x < cells)
       fetch_f32(pre, zpre, cell_at(c + gridDim.x, T, tiles, tile), x, zp, T,
@@ -604,8 +604,8 @@ sdf_ffn_fwd_mma_kernel(const float* __restrict__ x,
       uint32_t rows[2] = {0u, 0u};
       if (drop.on) {
         const uint32_t base = drop.member_base[s];
-        rows[0] = sdf_ffn::row_hash(base, t, n0 + r0);
-        rows[1] = sdf_ffn::row_hash(base, t, n0 + r0 + 8);
+        rows[0] = sdf_ffn::row_hash(base, t, drop.offset + n0 + r0);
+        rows[1] = sdf_ffn::row_hash(base, t, drop.offset + n0 + r0 + 8);
       }
       float acc[NT][4];
       uint32_t pk[NT][2];
@@ -751,7 +751,8 @@ extern "C" int sdf_ffn_fwd_plan_info(const int* layout, int S, int route,
 // layout: see sdf_ffn::read_dims. dropout: rate > 0 iff `dropout` is 1;
 // then member s hashes from member_base[s] (a device array of S uint32),
 // keeps a unit iff its hash >= `threshold`, and scales kept values by
-// `scale`. The plan (route 0 f32 / 1 bf16 tensor cores, stock tile,
+// `scale`; stock n hashes as the global stock `offset` + n (0 unsharded).
+// The plan (route 0 f32 / 1 bf16 tensor cores, stock tile,
 // threads, members per block, shared-memory bytes, the resident blocks per
 // SM it counts on, G blocks) comes from ops/sdf_ffn.py::fwd_plan; a plan
 // that disagrees with this file, or that the card does not hold resident
@@ -762,7 +763,8 @@ extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
                            const float* params, float* out, int S, int T,
                            int N, const int* layout, int bf16, int dropout,
                            const unsigned int* member_base,
-                           unsigned int threshold, float scale, int route,
+                           unsigned int threshold, float scale,
+                           unsigned int offset, int route,
                            int tile, int threads, int members,
                            long long smem_bytes, int blocks_per_sm, int G,
                            void* stream) {
@@ -784,7 +786,7 @@ extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
   const long long groups = (S + members - 1) / members;
   const long long cells = groups * T * ((N + tile - 1) / tile);
   if (G > cells) return kUnsupported;
-  const Dropout drop{dropout, member_base, threshold, scale};
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
   // the two kernels' arguments: (x, zp, params, out, T, N, tile, cells, d,
   // m, drop) and (x, zp, params, out, S, T, N, members, cells, d, m, drop)
   void* f32_args[] = {&x, &zp, &params, &out, &T, &N, &tile, (void*)&cells,

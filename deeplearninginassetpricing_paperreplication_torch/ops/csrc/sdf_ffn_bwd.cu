@@ -330,7 +330,8 @@ sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
     {
       const float gv = valid ? g[((size_t)s * T + t) * N + n] : 0.f;
       gs[tid] = gv;
-      const uint32_t row = drop.on ? sdf_ffn::row_hash(base, t, n) : 0u;
+      const uint32_t row =
+          drop.on ? sdf_ffn::row_hash(base, t, drop.offset + n) : 0u;
       const float* xt = x + (size_t)t * F * N + n;
       float* xrow = sm + m.x + tid * m.sx;
       float cur[MAXW];
@@ -694,7 +695,8 @@ extern "C" int sdf_ffn_bwd_plan_info(const int* layout, int bn, int threads,
 }
 
 // grad_part [S, G, P] and dzp_part [S, G, T, H1], both zeroed by the
-// caller. The plan (stock tile bn = threads per block, nt register tiles
+// caller; dropout (and its global stock `offset`) as in sdf_ffn_fwd. The
+// plan (stock tile bn = threads per block, nt register tiles
 // per thread or 0 for accumulators in grad_part, shared-memory bytes, the
 // resident blocks per SM it counts on, G blocks per member) comes from
 // ops/sdf_ffn.py::bwd_plan; a plan that disagrees with this file's
@@ -705,7 +707,8 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
                            float* grad_part, float* dzp_part, int S, int T,
                            int N, const int* layout, int bf16, int dropout,
                            const unsigned int* member_base,
-                           unsigned int threshold, float scale, int G, int bn,
+                           unsigned int threshold, float scale,
+                           unsigned int offset, int G, int bn,
                            int threads, int nt, long long smem_bytes,
                            int blocks_per_sm, void* stream) {
   if (S < 1 || T < 1 || N < 1 || S > 65535 || G < 1 || blocks_per_sm < 1)
@@ -718,7 +721,7 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
   rc = kernel_info(nt, (size_t)smem_bytes, bn, &info[0], &info[1], &info[2]);
   if (rc != 0) return rc;
   if (info[0] < blocks_per_sm) return kUnsupported;
-  const Dropout drop{dropout, member_base, threshold, scale};
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
   const dim3 grid((unsigned)G, (unsigned)S);
   const size_t smem = (size_t)smem_bytes;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -5,7 +5,10 @@
 //
 // Dropout: a counter-based hash of (member base, period t, stock n, layer l,
 // unit j) only, so a mask does not depend on the block size or the launch
-// shape, and the backward regenerates the forward's masks exactly. Member
+// shape, and the backward regenerates the forward's masks exactly. n is the
+// GLOBAL stock index: a launch over a stock shard passes its span's first
+// stock as `offset`, and hashes offset + its local index, so rank r draws
+// exactly the masks of an unsharded launch over its span. Member
 // s's base is fmix32(fmix32(seed_s ^ golden) ^ index_s), computed on the
 // host (ops/sdf_ffn.py::member_bases) and read from a small [S] array: with
 // S seeds, index_s = 0 and member s draws exactly the masks of a one-member
@@ -42,6 +45,7 @@ struct Dropout {
   const uint32_t* member_base;   // [S] per-member hash bases (device)
   uint32_t threshold;  // keep iff bits >= threshold
   float scale;         // 1 / (1 - rate), as float32
+  uint32_t offset;     // global index of the launch's first stock
 };
 
 // layout: [n_hidden, F, P, off_kout, off_bout,

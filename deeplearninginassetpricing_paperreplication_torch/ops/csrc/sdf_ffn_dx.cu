@@ -288,7 +288,7 @@ __device__ __forceinline__ void stage_step(float* sm, const DxSmem& m,
     uint32_t* rh = reinterpret_cast<uint32_t*>(sm + m.rowh + p * tile);
     const uint32_t base = drop.member_base[s];
     for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      rh[i] = sdf_ffn::row_hash(base, cl.t, cl.n0 + i);
+      rh[i] = sdf_ffn::row_hash(base, cl.t, drop.offset + cl.n0 + i);
   }
 }
 
@@ -1166,7 +1166,8 @@ extern "C" int sdf_ffn_dx(const float* x, const float* zp, const float* params,
                           const float* g, float* dx, unsigned int* img, int S,
                           int T, int N, const int* layout, int bf16,
                           int dropout, const unsigned int* member_base,
-                          unsigned int threshold, float scale, int route,
+                          unsigned int threshold, float scale,
+                          unsigned int offset, int route,
                           int tile, int threads, int wbufs, int xbufs,
                           long long smem_bytes, int G, void* stream) {
   if (T < 1 || N < 1 || G < 1) return kUnsupported;
@@ -1181,7 +1182,7 @@ extern "C" int sdf_ffn_dx(const float* x, const float* zp, const float* params,
   const int cells = (int)ncells;
   const void* kern = kernel_of(route, bf16, d.F);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{dropout, member_base, threshold, scale};
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
   if (route == kRouteMma) {
     sdf_ffn_dx_image_kernel<<<S, 256, 0, st>>>(params, img, d, m);
     const cudaError_t err = cudaGetLastError();

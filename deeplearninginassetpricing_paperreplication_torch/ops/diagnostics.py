@@ -23,6 +23,11 @@ the card, one ``cond_em_fwd`` launch beside the one ``sdf_ffn_fwd``) and h
 never materializes; the violation norms are ``sqrt(mean_n em²)``, the
 number the JAX package gets from h. The JAX ``strided_diagnostics`` (an
 XLA ``lax.cond``) is a plain ``epoch % stride`` test in the trainer.
+
+Under a stock shard (``shard``, ``gan.exec_cfg.shard`` in
+:func:`diagnostics_members`) every sum over stocks goes through
+``stock_sum`` and the largest weight through ``stock_amax``: each rank
+reports the whole panel's diagnostics.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from .losses import (em_loss, moment_means, portfolio_returns,
+from ..parallel.collectives import StockShard, stock_amax, stock_sum
+from .losses import (asset_count, em_loss, moment_means, portfolio_returns,
                      unconditional_loss)
 from .metrics import normalize_weights_abs
 
@@ -59,36 +65,41 @@ SCALAR_KEYS = (
 Diagnostics = Dict[str, torch.Tensor]
 
 
-def em_violations(em: torch.Tensor, n_assets=None) -> torch.Tensor:
+def em_violations(em: torch.Tensor, n_assets=None,
+                  shard: Optional[StockShard] = None) -> torch.Tensor:
     """v_k = sqrt(mean_i em_k²) [S, K] (the sum over the true ``n_assets``
     under stock padding), so ``mean_k v_k² == em_loss(em)``."""
+    n_assets = asset_count(n_assets, shard)
     if n_assets is None:
         return torch.sqrt((em ** 2).mean(dim=-1))
-    return torch.sqrt((em ** 2).sum(dim=-1) / n_assets)
+    return torch.sqrt(stock_sum(em ** 2, -1, shard) / n_assets)
 
 
 def moment_violations(weights: torch.Tensor, returns: torch.Tensor,
                       mask: torch.Tensor, moments: torch.Tensor,
                       weighted: bool = True, F: Optional[torch.Tensor] = None,
-                      n_assets=None) -> torch.Tensor:
+                      n_assets=None, shard: Optional[StockShard] = None
+                      ) -> torch.Tensor:
     """Per-moment-function conditional violation norms [S, K]:
 
         v_k = sqrt( mean_i ( Σ_t h_k·R·m·M / T_i )² )
 
     the square root of each h_k's share of the conditional loss."""
     if F is None:
-        F = portfolio_returns(weights, returns, mask, weighted)
-    return em_violations(moment_means(returns, mask, moments, F), n_assets)
+        F = portfolio_returns(weights, returns, mask, weighted, shard)
+    return em_violations(moment_means(returns, mask, moments, F), n_assets,
+                         shard)
 
 
 def unconditional_violation(weights: torch.Tensor, returns: torch.Tensor,
                             mask: torch.Tensor, weighted: bool = True,
                             F: Optional[torch.Tensor] = None,
-                            n_assets=None) -> torch.Tensor:
+                            n_assets=None, shard: Optional[StockShard] = None
+                            ) -> torch.Tensor:
     """sqrt of the unconditional pricing-error norm [S]: h ≡ 1's
     violation."""
     loss, _ = unconditional_loss(weights, returns, mask, weighted, F=F,
-                                 n_assets=n_assets)
+                                 n_assets=n_assets, shard=shard)
     return torch.sqrt(loss)
 
 
@@ -110,8 +121,8 @@ def sdf_series_stats(F: torch.Tensor) -> Diagnostics:
             "sdf_finite_frac": frac}
 
 
-def portfolio_diagnostics(weights: torch.Tensor,
-                          mask: torch.Tensor) -> Diagnostics:
+def portfolio_diagnostics(weights: torch.Tensor, mask: torch.Tensor,
+                          shard: Optional[StockShard] = None) -> Diagnostics:
     """Concentration and churn of each member's served portfolio [S], on
     the abs-sum-normalized weights (Σ_i |w·m| = 1 per period):
 
@@ -120,13 +131,13 @@ def portfolio_diagnostics(weights: torch.Tensor,
       * ``short_fraction`` — mean_t Σ_i max(−w, 0)·m;
       * ``turnover``       — mean_{t≥1} ½ Σ_i |w_t − w_{t−1}|·(m_t·m_{t−1}).
     """
-    nw = normalize_weights_abs(weights, mask) * mask
-    hhi = (nw.abs() ** 2).sum(dim=-1).mean(dim=-1)
-    max_abs = nw.abs().amax(dim=(-2, -1))
-    short = (-nw).clamp_min(0.0).sum(dim=-1).mean(dim=-1)
+    nw = normalize_weights_abs(weights, mask, shard) * mask
+    hhi = stock_sum(nw.abs() ** 2, -1, shard).mean(dim=-1)
+    max_abs = stock_amax(nw.abs(), (-2, -1), shard)
+    short = stock_sum((-nw).clamp_min(0.0), -1, shard).mean(dim=-1)
     both = mask[1:] * mask[:-1]
-    churn = 0.5 * ((nw[..., 1:, :] - nw[..., :-1, :]).abs() * both).sum(
-        dim=-1)
+    churn = 0.5 * stock_sum(
+        (nw[..., 1:, :] - nw[..., :-1, :]).abs() * both, -1, shard)
     turnover = churn.sum(dim=-1) / max(churn.shape[-1], 1)
     return {"weight_hhi": hhi, "weight_max_abs": max_abs,
             "short_fraction": short, "turnover": turnover}
@@ -137,7 +148,8 @@ def panel_diagnostics(weights: torch.Tensor, returns: torch.Tensor,
                       moments: Optional[torch.Tensor] = None,
                       weighted: bool = True, n_assets=None,
                       F: Optional[torch.Tensor] = None,
-                      em: Optional[torch.Tensor] = None) -> Diagnostics:
+                      em: Optional[torch.Tensor] = None,
+                      shard: Optional[StockShard] = None) -> Diagnostics:
     """The full diagnostic set of S members from one eval forward's
     outputs: ``moment_violations`` [S, K] and every key of
     :data:`SCALAR_KEYS` [S], f32. The moment side is either the moments h
@@ -146,13 +158,13 @@ def panel_diagnostics(weights: torch.Tensor, returns: torch.Tensor,
     ``loss_cond − loss_unc``: the h-weighted pricing error the
     discriminator finds beyond the unconditional one."""
     if F is None:
-        F = portfolio_returns(weights, returns, mask, weighted)
+        F = portfolio_returns(weights, returns, mask, weighted, shard)
     if em is None:
         em = moment_means(returns, mask, moments, F)
-    violations = em_violations(em, n_assets)
-    loss_cond = em_loss(em, n_assets)
+    violations = em_violations(em, n_assets, shard)
+    loss_cond = em_loss(em, n_assets, shard)
     loss_unc, _ = unconditional_loss(weights, returns, mask, weighted, F=F,
-                                     n_assets=n_assets)
+                                     n_assets=n_assets, shard=shard)
     out = {
         "computed": torch.ones_like(loss_unc),
         "moment_violations": violations,
@@ -163,7 +175,7 @@ def panel_diagnostics(weights: torch.Tensor, returns: torch.Tensor,
         "loss_cond": loss_cond,
     }
     out.update(sdf_series_stats(F))
-    out.update(portfolio_diagnostics(weights, mask))
+    out.update(portfolio_diagnostics(weights, mask, shard))
     return {k: v.to(torch.float32) for k, v in out.items()}
 
 
@@ -178,7 +190,8 @@ def diagnostics_members(gan, params: Mapping[str, torch.Tensor],
     weights, F, em, h = gan.member_terms(params, batch)
     return panel_diagnostics(weights, batch["returns"], batch["mask"], h,
                              gan.cfg.weighted_loss,
-                             n_assets=batch.get("n_assets"), F=F, em=em)
+                             n_assets=batch.get("n_assets"), F=F, em=em,
+                             shard=gan.exec_cfg.shard)
 
 
 def zeros_diagnostics(num_moments: int, S: int = 1) -> Diagnostics:

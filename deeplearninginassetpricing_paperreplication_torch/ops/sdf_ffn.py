@@ -42,6 +42,17 @@ S seeds, member s draws exactly the masks of a one-member call with
 ``seeds[s]`` (as the JAX member kernels seed each member from its own
 ``seed_ref[s]``), so a member-fused ensemble trains like S serial runs; one
 int gives member s the base of (seed, s).
+
+The stock in the hash is the GLOBAL stock index: every entry takes an
+``offset``, the global index of the panel's first stock (0 unsharded), and
+stock n of the call hashes as offset + n. A rank of a stock-sharded run
+passes its span's start, so its masks are exactly the unsharded run's
+masks over its span, and the sharded run with dropout is the unsharded one
+up to summation order. (The JAX sharded wrapper instead folds the rank into
+the seed, ``seed + idx · 40507``; its masks come from the TPU PRNG and are
+not the port's in any case. Keying on the global index keeps one hash for
+the forward, the backward and the panel cotangent, whatever the sharding.)
+At offset 0 every route computes what it did before the offset existed.
 """
 
 from __future__ import annotations
@@ -188,13 +199,14 @@ def member_bases(seed: Seed, S: int) -> List[int]:
     return [_fmix32_int(_fmix32_int(x ^ _GOLDEN) ^ i) for x, i in keys]
 
 
-def _row_hash(seed: Seed, S: int, T: int, N: int,
-              device) -> torch.Tensor:
-    """[S, T, N] int64: the per-(member, period, stock) base of the bits."""
+def _row_hash(seed: Seed, S: int, T: int, N: int, device,
+              offset: int = 0) -> torch.Tensor:
+    """[S, T, N] int64: the per-(member, period, stock) base of the bits;
+    stock n hashes as the global stock offset + n."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     h = torch.tensor(member_bases(seed, S), dtype=torch.int64, device=device)
     h = _fmix32(h[:, None, None] ^ ar(T)[None, :, None])
-    return _fmix32(h ^ ar(N)[None, None, :])
+    return _fmix32(h ^ (ar(N) + int(offset))[None, None, :])
 
 
 def _unit_bits(row: torch.Tensor, layer: int, H: int) -> torch.Tensor:
@@ -205,17 +217,21 @@ def _unit_bits(row: torch.Tensor, layer: int, H: int) -> torch.Tensor:
 
 
 def dropout_keep(seed: Seed, rate: float, layer: int, S: int, T: int,
-                 H: int, N: int, device="cpu") -> torch.Tensor:
-    """The kernels' keep mask [S, T, H, N] (bool) of one hidden layer;
-    `seed` is one int or S ints."""
+                 H: int, N: int, device="cpu", offset: int = 0
+                 ) -> torch.Tensor:
+    """The kernels' keep mask [S, T, H, N] (bool) of one hidden layer of a
+    call over the stocks [offset, offset + N); `seed` is one int or S
+    ints."""
     threshold, _ = dropout_params(rate)
-    return _unit_bits(_row_hash(seed, S, T, N, device), layer, H) >= threshold
+    return _unit_bits(_row_hash(seed, S, T, N, device, offset), layer,
+                      H) >= threshold
 
 
 # -- the plain versions -------------------------------------------------------
 
 
-def _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed, dropout_rate):
+def _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed, dropout_rate,
+                   offset=0):
     """Post-ReLU, post-dropout activations (f32, unrounded) [S, T, H, N] of
     every hidden layer, and each layer's derivative factor (ReLU mask ×
     dropout multiplier): the ONE copy of the layer loop for the plain
@@ -226,7 +242,7 @@ def _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed, dropout_rate):
     drop = dropout_rate > 0.0
     if drop:
         threshold, scale = dropout_params(dropout_rate)
-        row = _row_hash(seed, S, T, N, x_t.device)
+        row = _row_hash(seed, S, T, N, x_t.device, offset)
     x = _round(x_t.float(), compute_dtype)
     h_pre = torch.einsum("shf,tfn->sthn", _round(k1T, compute_dtype), x)
     h_pre = h_pre + zp[..., None]
@@ -250,14 +266,16 @@ def _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed, dropout_rate):
 def sdf_ffn_reference(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
                       mids: Mids, kout: torch.Tensor, bout: torch.Tensor,
                       compute_dtype: str = "float32", seed: Seed = 0,
-                      dropout_rate: float = 0.0) -> torch.Tensor:
+                      dropout_rate: float = 0.0, offset: int = 0
+                      ) -> torch.Tensor:
     """The plain-PyTorch forward.
 
     x_t [T, F, N]; zp [S, T, H1]; k1T [S, H1, F]; mids ((W [S, H, Hin],
     b [S, H]), ...); kout [S, HL]; bout [S]  →  raw weights [S, T, N] f32.
+    `offset`: the global index of the panel's first stock (dropout).
     """
     acts, _ = _forward_stack(x_t, zp, k1T, mids, compute_dtype, seed,
-                             dropout_rate)
+                             dropout_rate, offset)
     out = torch.einsum("sk,stkn->stn", _round(kout, compute_dtype),
                        _round(acts[-1], compute_dtype))
     return out + bout[:, None, None]
@@ -282,13 +300,15 @@ def _dh_chain(facs, mids, kout, g, compute_dtype):
 def sdf_ffn_bwd_reference(x_t: torch.Tensor, zp: torch.Tensor,
                           k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
                           g: torch.Tensor, compute_dtype: str = "float32",
-                          seed: Seed = 0, dropout_rate: float = 0.0):
+                          seed: Seed = 0, dropout_rate: float = 0.0,
+                          offset: int = 0):
     """The plain-PyTorch backward, with the JAX kernel's rounding points.
 
     g [S, T, N] → (dzp [S, T, H1], dk1T [S, H1, F], ((dW, db), ...),
     dkout [S, HL], dbout [S])."""
     cd = compute_dtype
-    acts, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate)
+    acts, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate,
+                                offset)
     dh_pres = _dh_chain(facs, mids, kout, g, cd)
     dkout = torch.einsum("sthn,stn->sh", acts[-1], g)  # f32, unrounded
     dbout = g.sum(dim=(1, 2))
@@ -304,14 +324,15 @@ def sdf_ffn_bwd_reference(x_t: torch.Tensor, zp: torch.Tensor,
 def sdf_ffn_dx_reference(x_t: torch.Tensor, zp: torch.Tensor,
                          k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
                          g: torch.Tensor, compute_dtype: str = "float32",
-                         seed: Seed = 0, dropout_rate: float = 0.0
-                         ) -> torch.Tensor:
+                         seed: Seed = 0, dropout_rate: float = 0.0,
+                         offset: int = 0) -> torch.Tensor:
     """The plain-PyTorch panel cotangent, with the JAX kernel's rounding
     points (``pallas_ffn._dx_kernel``): g [S, T, N] → dx [T, F, N] =
     Σ_s round(K1_s)·round(dh1_pre_s), summed over the members because they
     share the panel."""
     cd = compute_dtype
-    _, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate)
+    _, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate,
+                             offset)
     dh1_pre = _dh_chain(facs, mids, kout, g, cd)[0]
     return torch.einsum("sjf,stjn->tfn", _round(k1T, cd),
                         _round(dh1_pre, cd))
@@ -469,20 +490,21 @@ def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
     return _nvcc.run(build_jobs(widths, kernels), verbose)
 
 
+# the dropout arguments of every entry: (on, member_base, threshold, scale,
+# the global stock offset)
+_DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                  ctypes.c_float, ctypes.c_uint]
 _ARGTYPES = {
     "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + _DROP_ARGTYPES
             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p]),
     "bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + _DROP_ARGTYPES
             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_void_p]),
     "dx": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-           + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
+           + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + _DROP_ARGTYPES
            + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_void_p]),
 }
@@ -550,15 +572,18 @@ def _raise_rc(kernel: str, rc: int) -> None:
             + ("unsupported shape" if rc == -1 else "cudaError") + ")")
 
 
-def _dropout_args(seed: Seed, rate: float, S: int, device):
-    """(kernel arguments (on, member_base pointer, threshold, scale), the
-    [S] base tensor the pointer points into, kept alive by the caller)."""
+def _dropout_args(seed: Seed, rate: float, S: int, device, offset: int = 0):
+    """(kernel arguments (on, member_base pointer, threshold, scale, the
+    global stock offset), the [S] base tensor the pointer points into, kept
+    alive by the caller)."""
+    if not 0 <= int(offset) < 2 ** 32:
+        raise ValueError(f"sdf_ffn: stock offset {offset} outside uint32")
     if rate <= 0.0:
-        return (0, None, 0, 1.0), None
+        return (0, None, 0, 1.0, int(offset)), None
     threshold, scale = dropout_params(rate)
     bases = np.asarray(member_bases(seed, S), np.uint32).view(np.int32)
     base_t = torch.from_numpy(bases).to(device)
-    return (1, base_t.data_ptr(), threshold, scale), base_t
+    return (1, base_t.data_ptr(), threshold, scale, int(offset)), base_t
 
 
 def _layout_ints(lay: FfnLayout):
@@ -567,7 +592,8 @@ def _layout_ints(lay: FfnLayout):
 
 
 def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
-            seed: Seed = 0, dropout_rate: float = 0.0) -> torch.Tensor:
+            seed: Seed = 0, dropout_rate: float = 0.0,
+            offset: int = 0) -> torch.Tensor:
     """Raw weights [S, T, N], launched at :func:`card_fwd_plan`."""
     global launches
     lay = packed.layout
@@ -580,7 +606,7 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     plan = card_fwd_plan(lay, dev, S, T, N, packed.compute_dtype)
     lib = _load("fwd", width_bound(lay.hidden))
     out = torch.empty((S, T, N), dtype=torch.float32, device=dev)
-    drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_fwd(
@@ -1065,7 +1091,8 @@ def bwd_plan_info(lay: FfnLayout, plan: BwdPlan) -> Dict[str, int]:
 
 def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                 g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
-                plan: BwdPlan = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                plan: BwdPlan = None, offset: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(grads [S, P] in the packed layout, dzp [S, T, H1]); `plan` defaults
     to :func:`card_bwd_plan` for this card."""
     global bwd_launches
@@ -1084,7 +1111,7 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     grad_part = torch.zeros((S, G, lay.P), dtype=torch.float32, device=dev)
     dzp_part = torch.zeros((S, G, T, lay.hidden[0]), dtype=torch.float32,
                            device=dev)
-    drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_bwd(
@@ -1104,7 +1131,7 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
 
 def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
              g: torch.Tensor, seed: Seed, dropout_rate: float,
-             plan: Optional[DxPlan]) -> torch.Tensor:
+             plan: Optional[DxPlan], offset: int = 0) -> torch.Tensor:
     """One launch of `lib`'s sdf_ffn_dx (the main library or its audit
     build) at `plan`, :func:`card_dx_plan` by default."""
     lay = packed.layout
@@ -1124,7 +1151,7 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                                        plan.xbufs)[1],
                        dtype=torch.int32, device=dev)
            if plan.route == 1 else None)
-    drop, _bases = _dropout_args(seed, dropout_rate, S, dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_dx(
@@ -1143,19 +1170,20 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
 
 def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
-               plan: DxPlan = None) -> torch.Tensor:
+               plan: DxPlan = None, offset: int = 0) -> torch.Tensor:
     """The panel cotangent dx [T, F, N], summed over the members; `plan`
     defaults to :func:`card_dx_plan` for this card."""
     global dx_launches
     dx = _dx_call(_load("dx", width_bound(packed.layout.hidden)), x_t, zp,
-                  packed, g, seed, dropout_rate, plan)
+                  packed, g, seed, dropout_rate, plan, offset)
     dx_launches += 1
     return dx
 
 
 def dx_audit(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
              g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
-             plan: DxPlan = None) -> Tuple[torch.Tensor, Dict[str, float]]:
+             plan: DxPlan = None, offset: int = 0
+             ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """:func:`_launch_dx` through the audit build (:func:`audit_job`):
     (dx, the launch's counters of route 1's top-layer decisions, keyed by
     :data:`AUDIT_COUNTERS`: ``max_ratio`` is the largest |mma − chain| /
@@ -1178,7 +1206,8 @@ def dx_audit(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                             plan, audit=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise_rc("sdf_ffn_dx_audit_reset", lib.sdf_ffn_dx_audit_reset(stream))
-        dx = _dx_call(lib, x_t, zp, packed, g, seed, dropout_rate, plan)
+        dx = _dx_call(lib, x_t, zp, packed, g, seed, dropout_rate, plan,
+                      offset)
         _raise_rc("sdf_ffn_dx_audit_read",
                   lib.sdf_ffn_dx_audit_read(out, stream))
     counts = {k: int(v) for k, v in zip(AUDIT_COUNTERS[:-1], out[:-1])}
@@ -1222,14 +1251,15 @@ def _route(x_t: torch.Tensor, kernel: str) -> str:
 
 def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                    kernel: str = "auto", dropout_rate: float = 0.0,
-                   seed: Seed = 0) -> torch.Tensor:
+                   seed: Seed = 0, offset: int = 0) -> torch.Tensor:
     """Raw weights [S, T, N] from pre-packed member weights (the serving
     path: no gradient)."""
     if _route(x_t, kernel) == "plain":
         return sdf_ffn_reference(x_t, zp, packed.k1T, packed.mids,
                                  packed.kout, packed.bout,
-                                 packed.compute_dtype, seed, dropout_rate)
-    return _launch(x_t, zp, packed, seed, dropout_rate)
+                                 packed.compute_dtype, seed, dropout_rate,
+                                 offset)
+    return _launch(x_t, zp, packed, seed, dropout_rate, offset)
 
 
 class _SdfFfn(torch.autograd.Function):
@@ -1241,20 +1271,20 @@ class _SdfFfn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, meta, x_t, zp, k1T, kout, bout, *mids_flat):
-        route, cd, seed, rate = meta
+        route, cd, seed, rate, off = meta
         mids = tuple(zip(mids_flat[0::2], mids_flat[1::2]))
         ctx.meta = meta
         ctx.n_mids = len(mids)
         ctx.save_for_backward(x_t, zp, k1T, kout, *mids_flat)
         if route == "plain":
             return sdf_ffn_reference(x_t, zp, k1T, mids, kout, bout, cd,
-                                     seed, rate)
+                                     seed, rate, off)
         ctx.packed = pack_ffn(k1T, mids, kout, bout, cd)
-        return _launch(x_t, zp, ctx.packed, seed, rate)
+        return _launch(x_t, zp, ctx.packed, seed, rate, off)
 
     @staticmethod
     def backward(ctx, g):
-        route, cd, seed, rate = ctx.meta
+        route, cd, seed, rate, off = ctx.meta
         x_t, zp, k1T, kout, *mids_flat = ctx.saved_tensors
         mids = tuple(zip(mids_flat[0::2], mids_flat[1::2]))
         need = ctx.needs_input_grad  # (meta, x_t, zp, k1T, kout, bout, *mids)
@@ -1262,17 +1292,17 @@ class _SdfFfn(torch.autograd.Function):
         dx = None
         if need[1]:
             dx = (sdf_ffn_dx_reference(x_t, zp, k1T, mids, kout, g, cd, seed,
-                                       rate) if route == "plain" else
+                                       rate, off) if route == "plain" else
                   _launch_dx(x_t, zp.contiguous(), ctx.packed, g, seed,
-                             rate))
+                             rate, offset=off))
         grads = [None] * (len(need) - 2)
         if any(need[2:]):
             if route == "plain":
                 dzp, dk1T, dmids, dkout, dbout = sdf_ffn_bwd_reference(
-                    x_t, zp, k1T, mids, kout, g, cd, seed, rate)
+                    x_t, zp, k1T, mids, kout, g, cd, seed, rate, off)
             else:
                 flat, dzp = _launch_bwd(x_t, zp.contiguous(), ctx.packed, g,
-                                        seed, rate)
+                                        seed, rate, offset=off)
                 dk1T, dmids, dkout, dbout = unpack_grads(flat,
                                                          ctx.packed.layout)
             grads = [d if n else None for d, n in zip(
@@ -1285,14 +1315,15 @@ def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
             mids: Mids, kout: torch.Tensor, bout: torch.Tensor, *,
             seed: Seed = 0, dropout_rate: float = 0.0,
             compute_dtype: str = "bfloat16",
-            kernel: str = "auto") -> torch.Tensor:
+            kernel: str = "auto", offset: int = 0) -> torch.Tensor:
     """Differentiable fused FFN: raw weights [S, T, N].
 
     Gradients flow to the panel x_t (summed over the members, which share
     it), to zp (and through it to the macro path) and to every weight and
     bias. ``seed`` (one int, or S ints: one per member) and
     ``dropout_rate`` draw the dropout masks, identically in the forward and
-    the backward."""
+    the backward; ``offset`` is the global index of x_t's first stock (a
+    stock shard's start)."""
     _check_dtype(compute_dtype)
     S, H1, F = k1T.shape
     if len(mids) + 1 > MAX_HIDDEN_LAYERS:
@@ -1301,7 +1332,7 @@ def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1): {dropout_rate}")
     meta = (_route(x_t, kernel), compute_dtype, member_seeds(seed, S),
-            float(dropout_rate))
+            float(dropout_rate), int(offset))
     flat = [t for wb in mids for t in wb]
     return _SdfFfn.apply(meta, x_t, zp, k1T, kout, bout, *flat)
 

@@ -1,1 +1,2 @@
-"""Member-stacked ensembles."""
+"""Member-stacked ensembles, the partition layer (``partition``, ``mesh``)
+and the collectives of stock-sharded training (``collectives``)."""

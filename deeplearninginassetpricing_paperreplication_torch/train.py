@@ -4,24 +4,40 @@
         --data_dir data/synthetic_data --save_dir ./checkpoints
 
 The counterpart of the JAX package's ``train.py``, flag for flag but for
-``--shard_stocks`` (no stock-sharded mesh yet), ``--share_sdf_program``
-(it chooses between XLA program bodies; eager PyTorch has none) and
-``--pallas`` (here ``--kernel``): the schedule, the model's widths
-(``--no_lstm``, and ``--rnn_dim_moment``, which neither package's model
-reads), dropout and seed; ``--save_best_freq`` (accepted, no effect, as in
-the reference and the JAX CLI); ``--checkpoint_every K`` (a resumable
-state every K epochs within each phase), ``--stop_after_epochs E`` (stop
-after E epochs of this invocation, leaving a resumable state; the process
-exits 0 and writes no ``final_metrics.json``) and ``--resume`` (continue
-from the run dir's state, bit for bit an uninterrupted run); the
-divergence guard (``--no_divergence_guard``, ``--guard_max_trips``);
-``--metrics_port`` (a read-only ``/metrics`` and ``/healthz`` sidecar
-while it trains; 0 picks a free port, logged at startup); ``--profile
-DIR`` (a ``torch.profiler`` Chrome trace of the training, CPU and CUDA
+``--share_sdf_program`` (it chooses between XLA program bodies; eager
+PyTorch has none) and ``--pallas`` (here ``--kernel``): the schedule,
+the model's widths (``--no_lstm``, and ``--rnn_dim_moment``, which
+neither package's model reads), dropout and seed; ``--save_best_freq``
+(accepted, no effect, as in the reference and the JAX CLI);
+``--checkpoint_every K`` (a resumable state every K epochs within each
+phase), ``--stop_after_epochs E`` (stop after E epochs of this
+invocation, leaving a resumable state; the process exits 0 and writes no
+``final_metrics.json``) and ``--resume`` (continue from the run dir's
+state, bit for bit an uninterrupted run); the divergence guard
+(``--no_divergence_guard``, ``--guard_max_trips``); ``--metrics_port``
+(a read-only ``/metrics`` and ``/healthz`` sidecar while it trains; 0
+picks a free port, logged at startup); ``--profile DIR`` (a
+``torch.profiler`` Chrome trace of the training, CPU and CUDA
 activities, into DIR); ``--diag_stride``. The port's own flags are
 ``--device`` (default cuda: a host without a CUDA device is an error
 naming CUDA, never a quiet CPU run), ``--kernel auto|on|off`` and
 ``--compute_dtype``.
+
+``--shard_stocks`` trains on the stock axis split over the ranks of a
+``torch.distributed`` process group, each rank on its own contiguous span
+(``parallel/collectives.py``: the sums over stocks and the gradients are
+all-reduced)::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m deeplearninginassetpricing_paperreplication_torch.train \
+        --data_dir D --save_dir R --shard_stocks [--device cpu]
+
+It joins the group torchrun describes in the environment (NCCL where each
+rank has a card of its own, gloo where ranks share one or on the CPU); the
+device is ``cuda:LOCAL_RANK % device_count``. Without a group it runs at
+world size 1, the unsharded route bit for bit, and says so. Only rank 0
+writes the run dir's files; every rank writes its own
+``events.proc<r>.jsonl``, and the manifest records the mesh.
 
 The panel loads through the overlapped startup pipeline
 (``data/pipeline.py``: decode through the disk cache, streamed mask-packed
@@ -50,17 +66,21 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import hashlib
 import json
 import time
 from pathlib import Path
 
 import torch
 
-from .data.panel import load_splits
+from .data.panel import load_panel, load_splits
 from .data.pipeline import (
     StartupPipeline,
     load_splits_cached,
     probe_split_shapes,
+    split_paths,
+    stream_batch_sharded,
     trainer_precompile_fn,
 )
 from .data.transfer import device_put_batch
@@ -73,10 +93,28 @@ from .observability.drift import (
 from .observability.events import EventLog
 from .observability.heartbeat import Heartbeat
 from .observability.logging import RunLogger, set_run_logger
-from .observability.manifest import update_manifest, write_manifest
+from .observability.manifest import (
+    mesh_record,
+    update_manifest,
+    write_manifest,
+)
 from .observability.metrics import MetricsSidecar
+from .parallel import collectives, partition
 from .training.trainer import train_3phase
 from .utils.config import GANConfig, TrainConfig, resolve_device
+
+
+def _profile_panel(data_dir, profile_ds, train_ds):
+    """The panel the drift profile sketches: the whole train split, as the
+    unsharded run profiles it. A rank's startup pipeline holds only its own
+    stock span, so beyond one rank (`profile_ds` None) the split's
+    characteristics are decoded whole here; the macro series are global on
+    every rank."""
+    if profile_ds is not None:
+        return profile_ds.full_batch()
+    full = load_panel(split_paths(data_dir, "train")[0])
+    return {"individual": full.individual, "mask": full.mask,
+            "macro": train_ds.macro}
 
 
 def profile_trace_nonempty(trace_dir) -> bool:
@@ -87,6 +125,15 @@ def profile_trace_nonempty(trace_dir) -> bool:
         return False
     return any(p.is_file() and p.stat().st_size > 0
                for p in trace_dir.rglob("*"))
+
+
+def params_sha256(params) -> str:
+    """sha256 of a state_dict's names and tensor bytes, in order."""
+    h = hashlib.sha256()
+    for k, v in params.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -121,6 +168,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "the moment net builds no LSTM (the reference's "
                         "does not either)")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--shard_stocks", action="store_true",
+                   help="Shard the [T,N,F] panel along N over the ranks of "
+                        "the torch.distributed group torchrun describes "
+                        "(each rank trains on its contiguous stock span); "
+                        "without a group, world size 1")
     p.add_argument("--resume", action="store_true",
                    help="Continue from the last resume point recorded in "
                         "save_dir (a phase boundary, or a mid-phase segment "
@@ -180,6 +232,20 @@ def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     exec_cfg = execution_config(args)  # exits naming CUDA without a card
     device = resolve_device(exec_cfg.device)
+    backend = None
+    if args.shard_stocks:
+        # before the event log: its file name carries the rank
+        device, backend = collectives.join_process_group(device)
+        exec_cfg = dataclasses.replace(exec_cfg, device=str(device))
+    try:
+        _main(args, argv, exec_cfg, device, backend)
+    finally:
+        if backend is not None:
+            collectives.leave_process_group()
+
+
+def _main(args, argv, exec_cfg, device, backend):
+    rank0 = partition.rank() == 0
     save_dir = Path(args.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     tcfg = TrainConfig(num_epochs_unc=args.epochs_unc,
@@ -190,25 +256,28 @@ def main(argv=None):
     # telemetry sinks of this run dir: structured events, phase-tagged
     # heartbeats, and the process-0-gated logger
     events = EventLog(save_dir)
-    hb = Heartbeat(save_dir / "heartbeat.json", events=events)
+    hb = Heartbeat(save_dir / "heartbeat.json", events=events) if rank0 \
+        else None
     logger = set_run_logger(RunLogger(events=events))
-    hb.beat("setup")
+    if hb is not None:
+        hb.beat("setup")
     sidecar = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and rank0:
         sidecar = MetricsSidecar([events.metrics], port=args.metrics_port)
         port = sidecar.start()
         logger.info(f"metrics sidecar: http://127.0.0.1:{port}/metrics "
                     "(Prometheus text)")
     try:
         _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger,
-               argv)
+               argv, backend)
     finally:
         if sidecar is not None:
             sidecar.stop()
         events.close()
 
 
-def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
+def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv,
+           backend):
     def make_cfg(macro_dim, individual_dim):
         if args.config:
             return GANConfig.load(args.config)
@@ -223,6 +292,14 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
 
     names = ("train", "valid", "test")
     use_pipeline = not (args.no_pipeline or args.small_sample)
+    mesh = partition.create_mesh() if args.shard_stocks else None
+    world, rank0 = partition.world_size(), partition.rank() == 0
+    if mesh is not None:
+        logger.info(
+            f"Sharding the stock axis over {world} ranks ({backend})"
+            if backend is not None else
+            "--shard_stocks without a process group: world size 1 (the "
+            "unsharded route)")
     if use_pipeline:
         # shapes from the npz headers at t≈0: the route's kernels build and
         # plan on a worker thread under the decode and transfer
@@ -233,10 +310,11 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
         with events.span("startup/pipeline"):
             res = StartupPipeline(
                 args.data_dir, bf16_wire=bf16_wire, device=device,
-                events=events, shapes=shapes,
+                events=events, shapes=shapes, mesh=mesh,
                 compile_fn=trainer_precompile_fn(cfg, exec_cfg, events),
             ).start().result()
         train_ds, valid_ds, test_ds = res.datasets
+        profile_ds = train_ds if world == 1 else None
         batches = dict(zip(names, res.batches))
         cache_hits = res.cache_hits
         programs = res.compiled["programs"]
@@ -261,10 +339,23 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
                                         args.n_stocks)
         cfg = make_cfg(train_ds.macro_feature_dim,
                        train_ds.individual_feature_dim)
+        profile_ds = train_ds
+        if mesh is not None:
+            train_ds, valid_ds, test_ds = (ds.pad_stocks(world) for ds in
+                                           (train_ds, valid_ds, test_ds))
         with events.span("data/transfer"):
             if args.no_pipeline:
                 batches = {name: ds.to_batch(device) for name, ds in
                            zip(names, (train_ds, valid_ds, test_ds))}
+                if mesh is not None:
+                    batches = {name: partition.shard_batch(b, mesh)
+                               for name, b in batches.items()}
+            elif mesh is not None:
+                bf16_wire = exec_cfg.bf16_wire_ok(cfg)
+                batches = {name: stream_batch_sharded(
+                    ds.full_batch(), mesh, events=events, split=name,
+                    bf16_wire=bf16_wire, device=device)
+                    for name, ds in zip(names, (train_ds, valid_ds, test_ds))}
             else:
                 # mask-packed, and the bf16 wire where every consumer of
                 # the panel rounds it to bf16 anyway
@@ -281,22 +372,42 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
     logger.info(f"Device: {device}; kernel {exec_cfg.kernel}, compute dtype "
                 f"{exec_cfg.compute_dtype}")
     logger.info(f"  Train: {train_ds.T} x {train_ds.N} | Valid: {valid_ds.T}"
-                f" x {valid_ds.N} | Test: {test_ds.T} x {test_ds.N}")
-    # the manifest: the run dir is self-describing from here on, whatever
-    # happens to the training that follows
-    write_manifest(save_dir, "train", events=events, config=cfg, tcfg=tcfg,
-                   seed=args.seed, data_dir=args.data_dir, argv=argv,
-                   extra={"resume": bool(args.resume),
-                          "startup_pipeline": use_pipeline,
-                          "diag_stride": args.diag_stride})
-    # the train panel's drift profile: what later panels and promotion
-    # candidates are scored against; written before training, so even a
-    # crashed run leaves it
-    with events.span("health/reference_profile"):
-        write_profile(save_dir, reference_profile(
-            train_ds.full_batch(), source=str(args.data_dir)))
-    update_manifest(save_dir, reference_profile=PROFILE_FILENAME,
-                    kernel_programs=programs)
+                f" x {valid_ds.N} | Test: {test_ds.T} x {test_ds.N}"
+                + (" (rank 0's stocks)" if world > 1 and use_pipeline
+                   else ""))
+    mesh_rec = None
+    if mesh is not None:
+        # every rank's span of the padded train stock axis, and its device
+        n_local = batches["train"]["returns"].shape[1]
+        shard = collectives.shard_of(n_local * world)
+        exec_cfg = dataclasses.replace(exec_cfg, shard=shard)
+        index = (-1 if device.type != "cuda" else device.index
+                 if device.index is not None else torch.cuda.current_device())
+        rows = collectives.gather_ints([index], shard, device)
+        mesh_rec = mesh_record(
+            world, backend, [(r * n_local, (r + 1) * n_local)
+                             for r in range(world)],
+            [f"cuda:{d}" if d >= 0 else "cpu" for (d,) in rows])
+        logger.info(f"  rank {shard.rank}: stocks [{shard.start}, "
+                    f"{shard.stop}) of {shard.n_global} on {device}")
+    if rank0:
+        # the manifest: the run dir is self-describing from here on,
+        # whatever happens to the training that follows
+        write_manifest(save_dir, "train", events=events, config=cfg,
+                       tcfg=tcfg, seed=args.seed, data_dir=args.data_dir,
+                       argv=argv, mesh=mesh_rec,
+                       extra={"resume": bool(args.resume),
+                              "startup_pipeline": use_pipeline,
+                              "diag_stride": args.diag_stride})
+        # the whole train panel's drift profile, sharded or not: what
+        # later panels and promotion candidates are scored against;
+        # written before training, so even a crashed run leaves it
+        with events.span("health/reference_profile"):
+            write_profile(save_dir, reference_profile(
+                _profile_panel(args.data_dir, profile_ds, train_ds),
+                source=str(args.data_dir)))
+        update_manifest(save_dir, reference_profile=PROFILE_FILENAME,
+                        kernel_programs=programs)
 
     profile_ctx = contextlib.nullcontext()
     if args.profile:
@@ -307,7 +418,7 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
         profile_ctx = profile(activities=acts)
     t0 = time.time()
     with profile_ctx as prof:
-        _, _, _, trainer = train_3phase(
+        _, final_params, _, trainer = train_3phase(
             cfg, batches["train"], batches["valid"], batches["test"],
             tcfg=tcfg, save_dir=str(save_dir), seed=args.seed,
             exec_cfg=exec_cfg, diag_stride=args.diag_stride,
@@ -318,7 +429,11 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     wall = time.time() - t0
-    if args.profile:
+    if world > 1:
+        # every rank's final parameters, for a check that the ranks agree
+        events.counter("shard/final_params", value=1,
+                       sha256=params_sha256(final_params))
+    if args.profile and rank0:
         trace_dir = Path(args.profile)
         trace_dir.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_dir / "trace.json"))
@@ -334,7 +449,8 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
         logger.info(f"\nStopped mid-phase after {wall:.1f}s; resumable "
                     f"state saved in {save_dir} — continue with --resume")
         # a planned stop, not a death in the last beat's phase
-        hb.beat("stopped")
+        if hb is not None:
+            hb.beat("stopped")
         return
     logger.info("\nBest Model Performance (normalized weights):")
     results = {}
@@ -344,6 +460,8 @@ def _train(args, exec_cfg, device, save_dir, tcfg, events, hb, logger, argv):
         results[name] = m
         logger.info(f"  {name:5s} - Sharpe: {m['sharpe']:7.3f}, MaxDD: "
                     f"{m['max_drawdown']:7.2%}")
+    if not rank0:
+        return
     (save_dir / "final_metrics.json").write_text(json.dumps(
         {**results, "wall_clock_s": wall, **trainer.timings(),
          "device": str(device),

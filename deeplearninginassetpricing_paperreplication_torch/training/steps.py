@@ -19,6 +19,13 @@ The member-stacked steps (:class:`MemberOptimizer`, :func:`train_step_members`,
 axis [S, ...]. optax runs inside the JAX package's vmap, so each member is
 clipped by its OWN global norm; :class:`MemberOptimizer` does the same (one
 joint norm over the stack would clip every member by all members' norm).
+
+Under a stock shard (``gan.exec_cfg.shard``) each rank's backward gives its
+share of the replicated parameters' gradients; the train steps all-reduce
+them as one flattened bucket before the clip
+(``parallel.collectives.all_reduce_grads``), so every rank clips and steps
+on the same true gradient and the parameters stay bit for bit equal across
+ranks. The eval steps' portfolio sums run over every rank's stocks.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from ..models.gan import GAN, Batch
 from ..ops.metrics import normalize_weights_abs, sharpe
+from ..parallel.collectives import all_reduce_grads, stock_sum
 
 _TRAINABLE = {
     "unconditional": "sdf_net",
@@ -136,6 +144,7 @@ def train_step(gan: GAN, phase: str, opt: Optimizer, batch: Batch,
     grads = torch.autograd.grad(out["loss"], opt.params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.params, grads)]
+    grads = all_reduce_grads(grads, gan.exec_cfg.shard)
     grad_norm = opt.step(grads)
     return {
         "loss": out["loss"].detach(),
@@ -152,9 +161,10 @@ def train_step(gan: GAN, phase: str, opt: Optimizer, batch: Batch,
 def eval_step(gan: GAN, batch: Batch) -> Dict[str, torch.Tensor]:
     """Dropout off: Sharpe (ddof 1) of the abs-sum-normalized weights'
     portfolio, losses from a conditional-phase forward."""
+    shard = gan.exec_cfg.shard
     out = gan.forward(batch, phase="conditional", seed=None)
-    nw = normalize_weights_abs(out["weights"], batch["mask"])
-    port = (nw * batch["returns"] * batch["mask"]).sum(dim=1)
+    nw = normalize_weights_abs(out["weights"], batch["mask"], shard)
+    port = stock_sum(nw * batch["returns"] * batch["mask"], 1, shard)
     return {
         "loss": out["loss"],
         "loss_unc": out["loss_unconditional"],
@@ -192,6 +202,7 @@ def train_step_members(gan: GAN, phase: str, opt: MemberOptimizer,
                                 allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.params, grads)]
+    grads = all_reduce_grads(grads, gan.exec_cfg.shard)
     grad_norm = opt.step(grads)
     return {
         "loss": out["loss"].detach(),
@@ -207,9 +218,10 @@ def train_step_members(gan: GAN, phase: str, opt: MemberOptimizer,
 def eval_step_members(gan: GAN, params: StackedParams, batch: Batch
                       ) -> Dict[str, torch.Tensor]:
     """:func:`eval_step` of every member: [S] metrics, [S, T] portfolio."""
+    shard = gan.exec_cfg.shard
     out = gan.forward_members(params, batch, phase="conditional")
-    nw = normalize_weights_abs(out["weights"], batch["mask"])
-    port = (nw * batch["returns"] * batch["mask"]).sum(dim=-1)
+    nw = normalize_weights_abs(out["weights"], batch["mask"], shard)
+    port = stock_sum(nw * batch["returns"] * batch["mask"], -1, shard)
     return {
         "loss": out["loss"],
         "loss_unc": out["loss_unconditional"],

@@ -65,6 +65,15 @@ bit for bit those of a run without them. A run with a ``save_dir`` ends by
 writing ``health.json`` on the final params and the valid batch, whatever
 the stride.
 
+**Stock sharding** (``gan.exec_cfg.shard`` beyond one rank): every rank
+runs the same loop on its own stocks. Every decision (best-by-valid, the
+divergence guard, the segments) reads replicated scalars, which the
+collectives leave bit for bit equal on every rank, so the ranks decide
+alike. Only rank 0 writes the run dir's files (history, checkpoints, the
+resume state, ``health.json``, ``metrics.jsonl``); every rank computes what
+they hold. A resume reads the state on every rank between two barriers:
+after whatever wrote it, and before rank 0 can write the next one.
+
 Telemetry: the ``epochs_dispatched`` and ``guard/trip`` counters and the
 ``phase/*`` spans go to the trainer's ``EventLog``; a heartbeat at each
 phase start, with a device-memory snapshot at each segment end and at
@@ -100,6 +109,7 @@ from ..ops.metrics import (
     factor_betas,
     max_drawdown,
 )
+from ..parallel.collectives import barrier, is_sharded
 from ..reliability import verified
 from ..reliability.faults import inject
 from ..reliability.guard import DivergenceError, segment_nonfinite
@@ -182,6 +192,9 @@ class Trainer:
         # phase in this invocation
         self.phase_seconds: Dict[str, float] = {}
         self.phase_epochs: Dict[str, int] = {}
+        # the rank that writes the run dir (every rank of an unsharded run)
+        shard = gan.exec_cfg.shard
+        self.writer = not is_sharded(shard) or shard.rank == 0
 
     # -- parameters ------------------------------------------------------------
 
@@ -447,7 +460,9 @@ class Trainer:
         best_loaded, partial, best1 = None, None, None
         resumed = False
         if resume:
+            barrier(self.gan.exec_cfg.shard)
             loaded = self._load_resume(save, seed)
+            barrier(self.gan.exec_cfg.shard)
             if loaded is not None:
                 (completed, best1, history, in_phase, e_in, best_loaded,
                  partial) = loaded
@@ -457,7 +472,7 @@ class Trainer:
                 log(f"Resuming {where} ({len(history['train_loss'])} epochs "
                     "of completed history)")
         budget = [stop_after_epochs] if stop_after_epochs is not None else None
-        if save is not None and not resumed:
+        if save is not None and not resumed and self.writer:
             # a fresh run: a stale log must not double-count epochs
             open(save / "metrics.jsonl", "w").close()
 
@@ -514,11 +529,11 @@ class Trainer:
                 self.load(best1.params_sharpe)
             if save is not None:
                 if best1.updated_loss:
-                    save_state_dict(save / "best_model_loss.pt",
-                                    best1.params_loss)
+                    self._save_params(save / "best_model_loss.pt",
+                                      best1.params_loss)
                 if best1.updated_sharpe:
-                    save_state_dict(save / "best_model_sharpe.pt",
-                                    best1.params_sharpe)
+                    self._save_params(save / "best_model_sharpe.pt",
+                                      best1.params_sharpe)
                 self._save_resume(save, 1, best1, history, seed)
             inject("trainer/phase_boundary", phase=1)
             log(f"Phase 1 done in {time.perf_counter() - t0:.1f}s; best "
@@ -538,8 +553,8 @@ class Trainer:
                 return result()
             if save is not None:
                 if best2.updated_loss:
-                    save_state_dict(save / "best_model_loss.pt",
-                                    best2.params_loss)
+                    self._save_params(save / "best_model_loss.pt",
+                                      best2.params_loss)
                 self._save_resume(save, 2, best1, history, seed)
             inject("trainer/phase_boundary", phase=2)
             log(f"Phase 2 done; best train cond loss {best2.loss:.6f}")
@@ -566,11 +581,11 @@ class Trainer:
         self.load(final)
         if save is not None:
             if best3.updated_loss:
-                save_state_dict(save / "best_model_loss.pt",
-                                best3.params_loss)
+                self._save_params(save / "best_model_loss.pt",
+                                  best3.params_loss)
             if best3.updated_sharpe:
-                save_state_dict(save / "best_model_sharpe.pt", final)
-            save_state_dict(save / "final_model.pt", final)
+                self._save_params(save / "best_model_sharpe.pt", final)
+            self._save_params(save / "final_model.pt", final)
             self._save_history(save, history)
             self.write_health(save, final, batches[1], history, log)
             # the boundary's fault site BEFORE the resume state clears: a
@@ -592,10 +607,17 @@ class Trainer:
             history[k].extend(h[k].tolist())
         history["phase"].extend([label] * len(h["train_loss"]))
 
+    def _save_params(self, path: Path, params: StateDict) -> None:
+        """A checkpoint, written by the writing rank only."""
+        if self.writer:
+            save_state_dict(path, params)
+
     def _save_history(self, save: Path, history) -> None:
         """``history.npz``; the divergence-guard trips ride along as a
         [n, 3] f32 (phase_no, start_epoch, end_epoch) array when any
         occurred."""
+        if not self.writer:
+            return
         arrays = dict(history)
         if self.divergence_trips:
             arrays["divergence_trips"] = np.asarray(self.divergence_trips,
@@ -609,10 +631,12 @@ class Trainer:
         trips. Unlike the JAX trainer, which swallows every exception here,
         only the write's ``OSError`` is logged and passed over: an error of
         the diagnostics pass itself (a kernel that fails to launch)
-        propagates."""
+        propagates. Every rank computes it; the writing rank writes it."""
         health = compute_health(self.gan, params, valid_b, history=history,
                                 guard_trips=self.divergence_trips,
                                 diag_stride=self.diag_stride)
+        if not self.writer:
+            return
         try:
             write_health(save, health)
         except OSError as e:
@@ -643,6 +667,8 @@ class Trainer:
         with the run id, appended phase by phase (a crash keeps what was
         logged; a resumed run appends only its own phases). Only scalar
         series land in rows."""
+        if not self.writer:
+            return
         n = len(hist["train_loss"])
         with open(save / "metrics.jsonl", "a") as f:
             for e in range(n):
@@ -675,6 +701,12 @@ class Trainer:
         return {"kernel": ec.kernel, "compute_dtype": ec.compute_dtype,
                 "device": next(self.gan.module.parameters()).device.type}
 
+    def _shards(self) -> Dict[str, int]:
+        """The stock shards of a sharded run (``stock_shards``: its world
+        size), which a continuation must share; nothing unsharded."""
+        shard = self.gan.exec_cfg.shard
+        return {"stock_shards": shard.world} if is_sharded(shard) else {}
+
     @staticmethod
     def _best_state(best: Best) -> Dict[str, Any]:
         cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}  # noqa: E731
@@ -696,7 +728,10 @@ class Trainer:
         phase's tracker and its partial history over epochs
         ``[0, epochs_in_phase)``. The state's sha256 is embedded in the
         meta, binding the two files: a kill between the two writes leaves
-        an unmatched pair that the load skips for the ``.g1`` one."""
+        an unmatched pair that the load skips for the ``.g1`` one. Written
+        by the writing rank only."""
+        if not self.writer:
+            return
         cpu_opt = lambda o: {**o, "mu": [m.cpu() for m in o["mu"]],  # noqa: E731
                              "nu": [n.cpu() for n in o["nu"]]}
         state = {
@@ -732,6 +767,7 @@ class Trainer:
             # keep the same setting
             "diag_stride": self.diag_stride,
             **self._route(),
+            **self._shards(),
             "state_sha256": state_sha,
         }
         verified.write_verified(save / RESUME_META,
@@ -739,6 +775,8 @@ class Trainer:
 
     def _clear_resume(self, save: Path) -> None:
         """A finished run leaves nothing to resume (all generations)."""
+        if not self.writer:
+            return
         verified.clear_generations(save / RESUME_STATE)
         verified.clear_generations(save / RESUME_META)
 
@@ -819,8 +857,9 @@ class Trainer:
                 f"resume state diag_stride={meta.get('diag_stride')} does "
                 f"not match {self.diag_stride}: the history schema would "
                 "change mid-run")
-        for key, value in self._route().items():
-            if meta.get(key) != value:
+        for key, value in {**self._route(), "stock_shards": 1,
+                           **self._shards()}.items():
+            if meta.get(key, 1 if key == "stock_shards" else None) != value:
                 raise ValueError(
                     f"resume state {key}={meta.get(key)!r} does not match "
                     f"the current {value!r}: the routes differ in summation "
@@ -855,14 +894,15 @@ class Trainer:
         """Eval metrics of the module's current params, plus EV, XS-R² and
         the max drawdown (mean/std of the portfolio with ddof 0)."""
         batch = self.gan.prepare_batch(batch)
+        shard = self.gan.exec_cfg.shard
         m = eval_step(self.gan, batch)
         port = m.pop("portfolio_returns")
         returns, mask = batch["returns"], batch["mask"]
         betas = factor_betas(returns, port, mask)
         m["explained_variation"] = explained_variation(returns, port, mask,
-                                                       betas)
+                                                       betas, shard)
         m["cross_sectional_r2"] = cross_sectional_r2(returns, port, mask,
-                                                     betas)
+                                                     betas, shard=shard)
         out = {k: float(v) for k, v in m.items()}
         port = port.cpu().numpy()
         out["max_drawdown"] = max_drawdown(port)
@@ -908,7 +948,8 @@ def train_3phase(config: GANConfig, train_b: Batch, valid_b: Batch,
     gan = GAN(config, exec_cfg, module.to(train_b["returns"].device))
     if save_dir:
         Path(save_dir).mkdir(parents=True, exist_ok=True)
-        config.save(Path(save_dir) / "config.json")
+        if not is_sharded(exec_cfg.shard) or exec_cfg.shard.rank == 0:
+            config.save(Path(save_dir) / "config.json")
     trainer = Trainer(gan, tcfg, has_test=test_b is not None,
                       diag_stride=diag_stride, events=events,
                       heartbeat=heartbeat, divergence_guard=divergence_guard,

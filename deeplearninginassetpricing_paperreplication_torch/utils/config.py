@@ -183,11 +183,19 @@ class ExecutionConfig:
     compute_dtype: operand dtype of the kernel's products (f32
         accumulation always); bfloat16 is the JAX package's default too.
     device: where the entry points put the model and the data.
+    shard: this rank's place in a stock-sharded run
+        (``parallel.collectives.StockShard``: its span of the padded stock
+        axis, the world size, the process group), or None. Under it every
+        sum over stocks is all-reduced and the FFN's dropout hash keys on
+        the global stock index; None, or a world of 1, is the unsharded
+        route (the counterpart of the JAX package's ``shard_mesh`` and
+        ``shard_axis``).
     """
 
     kernel: str = "auto"
     compute_dtype: str = "bfloat16"
     device: str = "cuda"
+    shard: Any = None
 
     def __post_init__(self):
         if self.kernel not in ("auto", "on", "off"):
@@ -214,7 +222,8 @@ class ExecutionConfig:
           ``moment_h_members``, which reads x in f32.
 
         The plain route (a CPU device or ``kernel="off"``) is excluded: it
-        is the route the f32 checks read."""
+        is the route the f32 checks read. Under a stock shard the same
+        holds per shard: each rank's kernels read only its own span."""
         from ..ops import cond_em, sdf_ffn
 
         if (self.kernel == "off" or self.compute_dtype != "bfloat16"

@@ -76,9 +76,8 @@ def _assert_same_run(a, b):
 
 
 def test_train_cli_accepts_every_jax_train_flag():
-    """Every flag of the JAX train CLI but --shard_stocks (no stock mesh
-    yet), --share_sdf_program (no XLA program bodies to share) and --pallas
-    (the port's --kernel)."""
+    """Every flag of the JAX train CLI but --share_sdf_program (no XLA
+    program bodies to share) and --pallas (the port's --kernel)."""
     from deeplearninginassetpricing_paperreplication_tpu import train as jtrain
 
     def flags(parser):
@@ -86,7 +85,7 @@ def test_train_cli_accepts_every_jax_train_flag():
 
     missing = flags(jtrain.build_arg_parser()) - flags(
         train.build_arg_parser())
-    assert missing == {"--shard_stocks", "--share_sdf_program", "--pallas"}
+    assert missing == {"--share_sdf_program", "--pallas"}
     args = train.build_arg_parser().parse_args(["--data_dir", "d"])
     assert (args.use_lstm, args.rnn_dim_moment, args.save_best_freq,
             args.divergence_guard, args.guard_max_trips) == (

@@ -122,16 +122,17 @@ JOINT_EXPORTS = {"SimpleSDF", "joint_train", "train_simple_sdf"}
 
 
 def test_package_exports_the_data_plane():
-    """The package exports the JAX package's data-plane names (but the
-    mesh's stream_batch_sharded), resolved at first use, beside the joint
-    trainers' names."""
+    """The package exports the JAX package's data-plane names, the mesh's
+    stream_batch_sharded among them, resolved at first use, beside the
+    joint trainers' names."""
     import importlib
 
     port = importlib.import_module(PKG)
     data = importlib.import_module(PKG + ".data")
     names = {"PanelDataset", "load_panel", "load_splits", "StartupPipeline",
              "load_splits_cached", "load_splits_chunked", "stream_batch",
-             "generate_all_splits", "generate_dataset"}
+             "stream_batch_sharded", "generate_all_splits",
+             "generate_dataset"}
     assert names == set(data.__all__)
     assert set(port.__all__) == names | JOINT_EXPORTS
     from deeplearninginassetpricing_paperreplication_torch.data import (
@@ -139,8 +140,8 @@ def test_package_exports_the_data_plane():
     )
     assert port.StartupPipeline is data.StartupPipeline is \
         pipeline.StartupPipeline
-    with pytest.raises(AttributeError):
-        port.stream_batch_sharded
+    assert port.stream_batch_sharded is data.stream_batch_sharded is \
+        pipeline.stream_batch_sharded
 
 
 def test_serving_package_exports_the_jax_names():
