@@ -76,6 +76,10 @@
                                       # the FFN and conditional-EM
                                       # libraries, then phase 17 alone (no
                                       # result line)
+    python3 chip_smoke.py --only_mesh
+                                      # the training kernels' libraries,
+                                      # then phase 18 alone (no result
+                                      # line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -360,6 +364,31 @@ Phases, each printing its results; any failure exits non-zero:
    per epoch at world sizes 1 and 2. Launches (``sharded_training``): the
    two ranks' of (b).
 
+18. The mesh path on phase 6's panel (``_smoke_mesh/``, removed after):
+   first the four training kernels at a grid position's span (S = 2, B1
+   and B2's widths) and the forward at the serving spans against their
+   plain versions (``at_mesh_shapes``); then, counts from 0, (a) B1 and B2
+   of phase 9's grid (f32, 8/4/16, seed 42): ``run_sweep`` with a
+   one-device grid mesh ranks bit for bit as no mesh; each bucket through
+   ``train_bucket(grid_mesh=…)`` over two positions (two spans of card 0,
+   or cards 0 and 1) is bit for bit ``member_chunk=2`` and within the
+   sweep bars of the mesh-off bucket, every launch at S = 2, each
+   position's launches a bucket's; the sweep CLI ``--device_slices N
+   --slice_width 1`` in process and with ``--workers`` (1, or 2 on four
+   cards) rank byte for byte alike, the slice leases released; (b) the
+   ``ref_runs`` trio, f32, stock buckets 64…16,384, every test month:
+   ``mesh="stocks=1"`` bit for bit the default engine, a stock-span engine
+   (stocks=2 on card 0, or stocks=4 over four cards) and a
+   members=3,stocks=2 engine within 1e-6 of it and within the f32 bar of
+   offline ``ensemble_metrics``, no capture after warmup, graph replays bit
+   for bit the eager route, a hot reload onto stand-in members and back,
+   ``infer()`` ms of each; (c) ``serve --replicas 2 --mesh stocks=-1
+   --mesh_slices N`` (N cards): ``fleet.json``'s mesh keys, every month
+   through the shared port against (b), a SIGKILL under load with no
+   request lost; (d) ``bench_meshserve`` at a small load. Launches
+   (``mesh``): this process's over (a)–(d) and the fleet survivor's
+   forwards.
+
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -367,6 +396,7 @@ Then one ``kernels`` JSON line, the card line again, and the result line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -7309,6 +7339,565 @@ def shard_phase(torch, card, world):
                 world2_plain_epoch_ms=out["off"]["epoch_ms"], wall_s=wall)
 
 
+# -- phase 18: the mesh-packed sweep and the serving mesh ----------------------
+
+MESH_DIR = ROOT / "_smoke_mesh"
+MESH_BUCKETS = SWEEP_BUCKETS[:2]  # B1, B2 of phase 9's covering grid
+MESH_SPAN = 2  # grid width 4 (four lrs x seed 42) over two positions
+MESH_FLEET_RATE = 40.0  # the kill's open-loop rate (rps) and seconds
+MESH_FLEET_S = 4.0
+MESH_BENCH = dict(n_pairs=8, fleet_stocks=512, fleet_rate_rps=20.0,
+                  fleet_seconds=4.0)
+
+
+def _spread(devices, n):
+    """`n` mesh positions laid over `devices` in turn."""
+    return tuple(devices[i % len(devices)] for i in range(n))
+
+
+def mesh_window(K, C):
+    """(run, parts): ``with run(part):`` sets the launch counts to 0 just
+    before one of the mesh path's own runs and adds them to
+    ``parts[part]`` just after. The references, warm-ups and comparisons
+    run outside every window, so they count nowhere."""
+    parts = {}
+
+    @contextlib.contextmanager
+    def run(part):
+        K.reset_launch_count()
+        C.reset_launch_count()
+        yield
+        got = parts.setdefault(part, dict.fromkeys(TRAIN_KERNELS, 0))
+        for k, n in zip(TRAIN_KERNELS, counts(K, C)):
+            got[k] += n
+    return run, parts
+
+
+def mesh_kernel_checks(torch, K, C, card):
+    """The kernels at the mesh path's own shapes against their plain
+    versions: the four training kernels at a grid position's span (S = 2,
+    B1 and B2's widths, K and dropout, f32, T, N = SWEEP_TN), and the
+    forward at a serving span (S = 3 over 16,384 / stocks, and one member
+    over 8,192: the members=3,stocks=2 engine's). Returns {kernel: {case:
+    row}} for the kernels line."""
+    T, N = SWEEP_TN
+    rows = {n: {} for n in TRAIN_KERNELS}
+    for i, (h, _, Kn, rate) in enumerate(MESH_BUCKETS):
+        tag = f"B{i + 1} span"
+        S = MESH_SPAN
+        rows["sdf_ffn_fwd"][tag] = wide_checks(
+            torch, K, card, "fwd", (h,), [(S, T, N)], ("float32",),
+            rate)[(h, S, T, N, "float32")]
+        rows["sdf_ffn_bwd"][tag] = ffn_bwd_checks(
+            torch, K, card, h, [(S, T, N)], ("float32",), (rate,))[
+                (S, T, N, "float32", rate)]
+        cem = cond_em_checks(torch, C, card, (Kn,), [(S, N)], ("float32",),
+                             odd=False)
+        for k in ("fwd", "bwd"):
+            rows[f"cond_em_{k}"][tag] = cem[(k, S, N, Kn, "float32")]
+    n_span = 16384 // (4 if torch.cuda.device_count() >= 4 else 2)
+    fwd = wide_checks(torch, K, card, "fwd", [(64, 64)],
+                      [(3, 1, n_span), (1, 1, 8192)], ("float32",), 0.0)
+    rows["sdf_ffn_fwd"]["serving span"] = fwd[((64, 64), 3, 1, n_span,
+                                               "float32")]
+    rows["sdf_ffn_fwd"]["serving member span"] = fwd[((64, 64), 1, 1, 8192,
+                                                      "float32")]
+    return rows
+
+
+def _same_bucket(torch, a, b):
+    return (np.array_equal(a["best_valid_sharpe"], b["best_valid_sharpe"])
+            and all(np.array_equal(a["history"][k], b["history"][k])
+                    for k in a["history"])
+            and all(torch.equal(a["params"][k], b["params"][k].to(
+                a["params"][k].device)) for k in a["params"]))
+
+
+def mesh_sweep_checks(torch, K, C, card, splits, mesh_run):
+    """(a) B1 and B2 of phase 9's grid, f32, 8/4/16, seed 42: run_sweep
+    with a one-device grid mesh bit for bit the mesh-off run; each bucket
+    through train_bucket(grid_mesh=…) over two positions (two spans of the
+    one card, or one card each) bit for bit the same bucket at
+    member_chunk=2 and within the sweep bars of the mesh-off bucket, each
+    position launching a bucket's launches at S = 2. The two mesh runs
+    count in ``mesh_run("sweep")``. Returns the walls and per-position
+    launches."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        partition,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        sweep as sw,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, _ = splits
+    base = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                     individual_feature_dim=train.individual_feature_dim)
+    cfgs = [dataclasses.replace(base, hidden_dim=h, num_units_rnn=r,
+                                num_condition_moment=k, dropout=d)
+            for h, r, k, d in MESH_BUCKETS]
+    configs = [(c, lr) for c in cfgs for lr in SWEEP_LRS]
+    tcfg = TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6)
+    ex = ExecutionConfig(kernel="on", compute_dtype="float32", device=DEVICE)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid)]
+    cards = partition.local_devices(DEVICE)
+    epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+              "moment": SCHEDULE["num_epochs_moment"],
+              "conditional": SCHEDULE["num_epochs"]}
+    per_bucket = tuple(sum(epochs[p] * SWEEP_PER_EPOCH[p][i]
+                           for p in epochs) for i in range(4))
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    for c in cfgs:  # library loads and first allocations are set-up
+        sw.train_bucket(c, SWEEP_LRS, [SWEEP_SEED], *batches,
+                        TrainConfig(1, 1, 1, ignore_epoch=0), exec_cfg=ex)
+    sync()
+    row = lambda r: (r["config"], r["lr"], r["seed"], r["valid_sharpe"])  # noqa: E731
+    walls = {}
+    for name, mesh in (("off", None), ("one", partition.grid_slice_mesh(
+            0, 1, width=1, devices=cards))):
+        stats = {}
+        with (mesh_run("sweep") if mesh is not None
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            ranked = sw.run_sweep(configs, [SWEEP_SEED], *batches,
+                                  tcfg=tcfg, top_k=None, verbose=False,
+                                  exec_cfg=ex, stats_out=stats,
+                                  grid_mesh=mesh)
+            sync()
+        walls[name] = (time.perf_counter() - t0, stats, ranked)
+    one_stats = walls["one"][1]["grid_mesh"]
+    check([row(r) for r in walls["one"][2]] == [row(r) for r in
+                                                 walls["off"][2]],
+          "run_sweep with a one-device grid mesh ranks otherwise than "
+          "without a mesh")
+    check(one_stats["axes"] == {"grid": 1}
+          and one_stats["devices"] == [str(cards[0])]
+          and not one_stats["fallback_buckets"],
+          f"the one-device grid mesh's stats: {one_stats}")
+    print(f"[mesh sweep] (a) run_sweep B1+B2 x lrs {list(SWEEP_LRS)} x seed "
+          f"{SWEEP_SEED}, f32: a one-device grid mesh ({one_stats['axes']} "
+          f"on {one_stats['devices']}) ranks bit for bit as no mesh; wall "
+          f"{walls['one'][0]:.3f} s vs {walls['off'][0]:.3f} s; bucket "
+          f"walls {[round(s, 3) for s in walls['one'][1]['bucket_seconds']]}"
+          f" vs {[round(s, 3) for s in walls['off'][1]['bucket_seconds']]} "
+          f"({card})", flush=True)
+
+    pos = tuple(cards[:2]) if len(cards) >= 2 else (cards[0],) * 2
+    mesh2 = partition.MeshConfig((("grid", 2),), pos).build()
+    launchers = {"sdf_ffn_fwd": (K, "_launch"),
+                 "sdf_ffn_bwd": (K, "_launch_bwd"),
+                 "cond_em_fwd": (C, "_launch_fwd"),
+                 "cond_em_bwd": (C, "_launch_bwd")}
+    originals = {n: getattr(m, a) for n, (m, a) in launchers.items()}
+    members = {}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            n = (args[2].n_members if name.startswith("sdf")
+                 else args[4].shape[0])
+            members.setdefault(name, set()).add(n)
+            return originals[name](*args, **kw)
+        return rec
+
+    out = {"walls": {}, "positions": {}}
+    for i, c in enumerate(cfgs):
+        tag = f"B{i + 1}"
+        for name, (m, a) in launchers.items():
+            setattr(m, a, recorder(name))
+        try:
+            with mesh_run("sweep"):
+                t0 = time.perf_counter()
+                on = sw.train_bucket(c, SWEEP_LRS, [SWEEP_SEED], *batches,
+                                     tcfg, exec_cfg=ex, grid_mesh=mesh2)
+                sync()
+                on_s = time.perf_counter() - t0
+        finally:
+            for name, (m, a) in launchers.items():
+                setattr(m, a, originals[name])
+        check(set(members) == set(launchers)
+              and all(v == {MESH_SPAN} for v in members.values()),
+              f"mesh {tag}: launches not all at S = {MESH_SPAN}: {members}")
+        members.clear()
+        place = on["placement"]
+        check(place["span"] == MESH_SPAN and not place["fallback"]
+              and place["devices"] == [str(d) for d in pos],
+              f"mesh {tag} placement {place}")
+        for p, got in enumerate(place["launches"]):
+            have = tuple(got[k] for k in TRAIN_KERNELS)
+            check(have == per_bucket,
+                  f"mesh {tag} position {p}: launches (fwd, bwd, cem_fwd, "
+                  f"cem_bwd) {have} != {per_bucket}")
+        t0 = time.perf_counter()
+        chunk = sw.train_bucket(c, SWEEP_LRS, [SWEEP_SEED], *batches, tcfg,
+                                exec_cfg=ex, member_chunk=MESH_SPAN)
+        sync()
+        chunk_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        off = sw.train_bucket(c, SWEEP_LRS, [SWEEP_SEED], *batches, tcfg,
+                              exec_cfg=ex)
+        sync()
+        off_s = time.perf_counter() - t0
+        check(_same_bucket(torch, on, chunk),
+              f"mesh {tag}: two positions differ from member_chunk=2")
+        bitwise = _same_bucket(torch, on, off)
+        devs = [_point_devs(on, off, g, g) for g in range(len(SWEEP_LRS))]
+        dev_loss = max(d[0] for d in devs)
+        dev_sharpe = max(d[1] for d in devs)
+        check(dev_loss <= 1e-3 and dev_sharpe <= 5e-3,
+              f"mesh {tag} vs mesh-off: loss rel dev {dev_loss:.3e}, "
+              f"Sharpe dev {dev_sharpe:.3e}")
+        out["walls"][tag] = dict(mesh=on_s, chunk=chunk_s, off=off_s)
+        out["positions"][tag] = place["launches"]
+        print(f"[mesh sweep] (a) {tag} hidden={list(c.hidden_dim)} over two "
+              f"positions {place['devices']} (span {MESH_SPAN}): bit for bit "
+              f"member_chunk=2; vs mesh-off (S=4) "
+              + ("bit for bit" if bitwise else
+                 f"loss rel dev {dev_loss:.3e}, Sharpe dev "
+                 f"{dev_sharpe:.3e} (bars 1e-3, 5e-3)")
+              + f"; wall s mesh {on_s:.3f}, member_chunk=2 {chunk_s:.3f}, "
+              f"mesh-off {off_s:.3f}; per-position launches (rows 5, 9, 10: "
+              f"sdf_ffn_bwd, cond_em_fwd, cond_em_bwd) "
+              + ", ".join(f"p{p} ({g['sdf_ffn_bwd']}, {g['cond_em_fwd']}, "
+                          f"{g['cond_em_bwd']})"
+                          for p, g in enumerate(place["launches"]))
+              + f", every launch S={MESH_SPAN} ({card})", flush=True)
+    return out
+
+
+def mesh_sweep_cli_check(torch, card):
+    """(a) the sweep CLI (--quick --search_only, bf16): --device_slices N
+    --slice_width 1 (N cards) in process and with --workers (1 on one card,
+    2 on more), both at once: the two rankings byte for byte, the worker's
+    slice lease claimed and released, its bucket plans per position.
+    Returns the launches of the CLI processes that exited normally."""
+    from deeplearninginassetpricing_paperreplication_torch.ops import (
+        ENV_LAUNCH_COUNTS,
+    )
+
+    n = torch.cuda.device_count()
+    workers = 1 if n == 1 else 2
+    argv = [sys.executable, "-m", f"{PKG}.sweep", "--data_dir",
+            str(DATA_DIR), "--quick", "--search_only", "--device", DEVICE,
+            "--device_slices", str(n), "--slice_width", "1"]
+    runs = {"in_process": [], "workers": [
+        "--workers", str(workers), "--lease_timeout", "5",
+        "--worker_min_uptime", "0.2", "--worker_backoff", "0.1"]}
+    sink = MESH_DIR / "cli_launches.jsonl"
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, **{ENV_LAUNCH_COUNTS: str(sink)})
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(argv + ["--save_dir", str(MESH_DIR / k),
+                                         *extra],
+                                 cwd=ROOT, stdout=subprocess.PIPE, env=env,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, extra in runs.items()}
+    logs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for k, p in procs.items():
+        check(p.returncode == 0, f"the sweep CLI ({k}) exited "
+                                 f"{p.returncode}:\n{logs[k][-3000:]}")
+    check("mesh-packed grids over 1 device(s)" in logs["in_process"],
+          "the in-process CLI did not pack its grids on a mesh")
+    ranking = {k: (MESH_DIR / k / "sweep_ranking.json").read_bytes()
+               for k in runs}
+    check(ranking["in_process"] == ranking["workers"],
+          "the --workers ranking differs from the in-process one")
+    rows = _events(MESH_DIR / "workers", "events.w*.jsonl")
+    claims = _count(rows, "sweep/slice_claim")
+    check(claims == workers, f"{claims} slice claims by {workers} workers")
+    check(not list((MESH_DIR / "workers" / "sweep_ledger" / "slices")
+                   .glob("slice*.json")),
+          "a slice lease outlived its worker")
+    plans = json.loads((MESH_DIR / "workers" / "manifest.w0.json")
+                       .read_text()).get("kernel_programs") or {}
+    check(plans and all("/pos0/" in k for k in plans),
+          f"the worker's bucket plans are not per position: {sorted(plans)}")
+    print(f"[mesh sweep] (a) the sweep CLI --quick --search_only "
+          f"--device_slices {n} --slice_width 1, in process and with "
+          f"--workers {workers} (run at once): rankings byte for byte, "
+          f"{claims} slice lease(s) claimed and released, "
+          f"{len(plans)} bucket plans per position; {wall:.1f} s ({card})",
+          flush=True)
+    return _sum_launches(_launch_rows(sink))
+
+
+def mesh_engine_checks(torch, K, card, test, mesh_run):
+    """(b) the ref_runs trio (S = 3, F = 46, M = 178, hidden [64, 64]), f32,
+    stock buckets 64…16,384, every test month at batch 1 (and batch 4):
+    ``mesh="stocks=1"`` bit for bit the default engine; a stock-span engine
+    (stocks=2 on one card, or stocks=4 over four) within 1e-6 of it and
+    within the f32 bar of offline ``ensemble_metrics``; a members=3,stocks=2
+    engine the same; no capture after warmup, launches = 2 × captures;
+    every warmed bucket's replay bit for bit its eager route; a hot reload
+    onto stand-in members and back; ``infer()`` ms of each engine. The
+    mesh engines' builds, warmups and reloads count in
+    ``mesh_run("engines")``. Returns the default engine (phase 18's fleet
+    answers are held to it)."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        partition,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
+        import ensemble_metrics
+    from deeplearninginassetpricing_paperreplication_torch.serving.engine \
+        import InferenceEngine, InferenceRequest
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    ex = ExecutionConfig(device=DEVICE, compute_dtype="float32")
+    dirs = [str(ROOT / d) for d in REF_RUNS]
+    cfg, stacked = stack_checkpoints(dirs, device=DEVICE)
+    offline = np.asarray(ensemble_metrics(
+        cfg, stacked, test.to_batch(DEVICE),
+        ExecutionConfig(kernel="off", compute_dtype="float32",
+                        device=DEVICE))["avg_weights"])
+    cards = partition.local_devices(DEVICE)
+    stocks = 4 if len(cards) >= 4 else 2
+    engines = {
+        "default": (None, {}),
+        "stocks=1": ("stocks=1", {}),
+        f"stocks={stocks}": (partition.MeshConfig(
+            (("stocks", stocks),), _spread(cards, stocks)), {}),
+        "members=3,stocks=2": (partition.MeshConfig(
+            (("members", 3), ("stocks", 2)), _spread(cards, 6)),
+            dict(stock_buckets=(16384,), batch_buckets=(1,))),
+    }
+    built = {}
+    for name, (mesh, kw) in engines.items():
+        with (mesh_run("engines") if mesh is not None
+              else contextlib.nullcontext()):
+            before = K.launches
+            eng = InferenceEngine(dirs, macro_history=test.macro,
+                                  exec_cfg=ex, mesh=mesh, **kw)
+            eng.warmup()
+        st = eng.stats()
+        check(K.launches - before == 2 * st["captures"],
+              f"engine {name}: {K.launches - before} launches for "
+              f"{st['captures']} captures")
+        built[name] = eng
+    reqs = [InferenceRequest(individual=test.individual[t],
+                             mask=test.mask[t].astype(np.float32),
+                             returns=test.returns[t], month=t)
+            for t in range(test.T)]
+    ref = [built["default"].infer_one(r) for r in reqs]
+    devs = {}
+    for name, eng in built.items():
+        worst, bit = 0.0, True
+        for t, (r, a) in enumerate(zip(reqs, ref)):
+            got = eng.infer_one(r)
+            d = max(float(np.abs(got.weights - a.weights).max()),
+                    abs(got.sdf - a.sdf),
+                    float(np.abs(got.member_sdf - a.member_sdf).max()))
+            bit = bit and d == 0.0
+            worst = max(worst, d)
+            want = offline[t]
+            check(within(np.abs(got.weights - want), want, "float32",
+                         **SERVE_F32_TOL),
+                  f"engine {name} month {t} over the f32 bar of offline")
+        if name == "stocks=1":
+            check(bit, f"mesh stocks=1 is not bit for bit the default "
+                       f"engine (max|d| {worst:.3e})")
+        check(worst <= 1e-6, f"engine {name} vs default: max|d| {worst:.3e}")
+        devs[name] = (worst, bit)
+    span = built[f"stocks={stocks}"]
+    for i in range(0, test.T, 4):
+        got = span.infer(reqs[i:i + 4])
+        for g, a in zip(got, built["default"].infer(reqs[i:i + 4])):
+            check(float(np.abs(g.weights - a.weights).max()) <= 1e-6
+                  and g.batch_bucket == 4, "stock-span batch 4 vs default")
+    for name in (f"stocks={stocks}", "members=3,stocks=2"):
+        eng = built[name]
+        for r in reqs[:2]:
+            a = eng.infer([r])[0]
+            b = eng.infer([r], graphs=False)[0]
+            check(np.array_equal(a.weights, b.weights) and a.sdf == b.sdf,
+                  f"engine {name}: graph replay != its eager route")
+    # a hot reload onto stand-in members of the same architecture, and back
+    stand, _ = stand_in_members(torch)
+    before = [span.infer_one(r) for r in reqs[:3]]
+    with mesh_run("engines"):
+        t0 = time.perf_counter()
+        out = span.reload(stand[:3])
+        reload_s = time.perf_counter() - t0
+    fresh = InferenceEngine(stand[:3], macro_history=test.macro, exec_cfg=ex)
+    fresh.warmup()
+    worst_swap = 0.0
+    for r in reqs[:6]:
+        worst_swap = max(worst_swap, float(np.abs(
+            span.infer_one(r).weights - fresh.infer_one(r).weights).max()))
+    check(out["swapped"] and worst_swap <= 1e-6,
+          f"the span engine's reload: {out}, max|d| {worst_swap:.3e} vs a "
+          "fresh engine")
+    with mesh_run("engines"):
+        span.reload(dirs)
+    for a, r in zip(before, reqs[:3]):
+        check(np.array_equal(span.infer_one(r).weights, a.weights),
+              "the span engine reloaded back is not bit for bit its start")
+    shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+    times = {name: [] for name in built}
+    for r in reqs:
+        for name, eng in built.items():
+            t0 = time.perf_counter()
+            eng.infer_one(r)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    for name, eng in built.items():
+        st = eng.stats()
+        check(st["steady_state_captures"] == 0,
+              f"engine {name}: {st['steady_state_captures']} captures "
+              "after warmup")
+        print(f"[mesh engine] (b) {name} (mesh {st['mesh']}): "
+              f"{st['mesh_devices']} position(s), first on {st['device']}, "
+              f"{st['captured_graphs']} graphs, 0 captures after warmup; "
+              f"every test month vs the default engine "
+              + ("bit for bit" if devs[name][1] else
+                 f"max|d| {devs[name][0]:.3e} (bar 1e-6)")
+              + f", within the f32 bar of offline; infer() median "
+              f"{statistics.median(times[name]):.3f} ms batch 1, graphs "
+              f"({card})", flush=True)
+    print(f"[mesh engine] (b) hot reload of stocks={stocks} onto stand-in "
+          f"members in {reload_s * 1e3:.1f} ms: max|d| {worst_swap:.3e} vs "
+          f"a fresh engine; reloaded back bit for bit ({card})", flush=True)
+    return built["default"]
+
+
+def mesh_fleet_check(torch, card, test, ref_engine):
+    """(c) ``serve --replicas 2 --mesh stocks=-1 --mesh_slices N`` (N
+    cards) on the trio: fleet.json's mesh keys, each replica's mesh and
+    device; every month once (c = 1, raw-f32) through the shared port
+    against (b)'s default engine (bit for bit on one card); a SIGKILL of
+    replica0 under open-loop load with no request lost. Returns the
+    survivor's forward launches."""
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        read_fleet_json,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.serving.engine \
+        import InferenceRequest
+
+    n = torch.cuda.device_count()
+    b = fleet_bodies(test)
+    run_dir = MESH_DIR / "fleet"
+    extra = ["--checkpoint_dirs", *[str(ROOT / d) for d in REF_RUNS],
+             "--data_dir", str(DATA_DIR),
+             "--stock_buckets", ",".join(map(str, b["buckets"])),
+             "--batch_buckets", "1,4", "--mesh", "stocks=-1",
+             "--mesh_slices", str(n)]
+    proc, base, admin, boot_s = boot_fleet(run_dir, 2, extra)
+    try:
+        layout = read_fleet_json(run_dir)
+        want = {"0": f"0:{n}", "1": f"{1 % n}:{n}"}
+        check(layout["mesh"] == "stocks=-1" and layout["mesh_slices"] == n
+              and layout["mesh_slice_by_replica"] == want,
+              f"fleet.json mesh keys: {layout}")
+        engines = [_metrics(a)["engine"] for a in admin]
+        devices = [e["device"] for e in engines]
+        check(all(e["mesh"] == "stocks=1" for e in engines)
+              and devices == [f"cuda:{i % n}" for i in range(2)],
+              f"replica meshes {[e['mesh'] for e in engines]} on {devices}")
+        worst = 0.0
+        for t in range(test.T):
+            s, w = post(base + "/v1/weights", b["raw"][t], raw=True)
+            a = ref_engine.infer_one(InferenceRequest(
+                individual=test.individual[t][b["valid"][t]], month=t))
+            check(s == 200, f"HTTP {s} at month {t}")
+            d = float(np.abs(w - a.weights).max())
+            check(d == 0.0 if n == 1 else d <= 1e-6,
+                  f"fleet answer at month {t} vs (b): max|d| {d:.3e}")
+            worst = max(worst, d)
+        pid0 = replica_pids(run_dir)[0]
+        t, load = _open_load(base, b["raw"], MESH_FLEET_RATE, MESH_FLEET_S)
+        time.sleep(1.0)
+        os.kill(pid0, signal.SIGKILL)
+        t.join()
+        check(load["n_ok"] == load["n_requests"] and load["errors"] == {},
+              f"(c) {load['n_requests'] - load['n_ok']} requests lost to "
+              f"the kill: {load['errors']}")
+        survivor = _metrics(admin[1])["engine"]
+        check(survivor["steady_state_captures"] == 0,
+              f"replica1 captured {survivor['steady_state_captures']} after "
+              "warmup")
+        print(f"[mesh fleet] (c) 2 replicas, --mesh stocks=-1 --mesh_slices "
+              f"{n}: booted in {boot_s:.1f} s; fleet.json slices {want}; "
+              f"replicas on {devices}, meshes stocks=1; {test.T} months c = 1 "
+              f"through the shared port vs (b): "
+              + ("bit for bit" if worst == 0.0 else f"max|d| {worst:.3e}")
+              + f"; SIGKILL replica0 under {MESH_FLEET_RATE} rps: "
+              f"{load['n_ok']}/{load['n_requests']} answered, "
+              f"{load['n_retried']} retried, {_lat(load)}; replica1 0 "
+              f"captures after warmup ({card})", flush=True)
+        return survivor["kernel_launches"]
+    finally:
+        stop_fleet(proc)
+
+
+def mesh_bench_check(torch, card):
+    """(d) ``bench_meshserve`` at N = 10,240 × 46, K = 3, a small load:
+    its bars (the degenerate mesh bit for bit, the sharded engine within
+    its tolerance across the hot swap, no capture after warmup, no request
+    lost to the kill). Its launches count nowhere: its one-device engines
+    and its sharded engine run in one call."""
+    from deeplearninginassetpricing_paperreplication_torch.serving.loadgen \
+        import bench_meshserve
+
+    t0 = time.perf_counter()
+    out = bench_meshserve(device=DEVICE, **MESH_BENCH)
+    wall = time.perf_counter() - t0
+    fm = out["fault_matrix"]
+    check(out["degenerate_bitwise"] == 1 and out["bit_identical"] == 1
+          and out["steady_state_captures_max"] == 0
+          and fm["dropped_requests"] == 0 and sum(fm["replica_restarts"]) >= 1,
+          f"bench_meshserve bars: {json.dumps(out)[:3000]}")
+    print(f"[mesh bench] (d) bench_meshserve {out['shape']}: sharded "
+          f"{out['sharded_mesh']} over {out['sharded_positions']} positions"
+          f" max|d| {out['sharded_max_abs_diff']:.3e} (bitwise "
+          f"{out['bitwise_equal_sharded']}), degenerate bitwise; hot swap "
+          f"max|d| {out['hot_swap']['max_abs_diff']:.3e}; infer median ms "
+          f"single / sharded {out['median_infer_ms']['single']} / "
+          f"{out['median_infer_ms']['sharded']}; fleet {fm['mesh']}: "
+          f"{fm['n_ok']}/{fm['n_requests']} answered across the kill, "
+          f"restarts {fm['replica_restarts']}, {_lat(fm)}; captures after "
+          f"warmup {out['steady_state_captures']}; {wall:.1f} s ({card})",
+          flush=True)
+    return out
+
+
+def mesh_phase(torch, K, C, card, splits):
+    """(18) The mesh path on phase 6's panel: the kernels at its shapes,
+    then (a) the mesh-packed sweep in process and through the CLI, (b) the
+    serving mesh, (c) a mesh fleet and (d) bench_meshserve. Its launches
+    are the mesh runs' own, each counted from 0 (``mesh_window``): the
+    in-process sweep's mesh runs, the sweep CLI's processes, the mesh
+    engines and the fleet's survivor. Returns them, by part too, and the
+    kernel rows."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    rows = mesh_kernel_checks(torch, K, C, card)
+    mesh_run, parts = mesh_window(K, C)
+    try:
+        sweep = mesh_sweep_checks(torch, K, C, card, splits, mesh_run)
+        parts["sweep_cli"] = mesh_sweep_cli_check(torch, card)
+        ref_engine = mesh_engine_checks(torch, K, card, splits[2], mesh_run)
+        parts["fleet_survivor"] = dict.fromkeys(TRAIN_KERNELS, 0)
+        parts["fleet_survivor"]["sdf_ffn_fwd"] = mesh_fleet_check(
+            torch, card, splits[2], ref_engine)
+        bench = mesh_bench_check(torch, card)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+        shutil.rmtree(HEALTH_DIR, ignore_errors=True)
+    launches = {k: sum(p[k] for p in parts.values()) for k in TRAIN_KERNELS}
+    wall = time.perf_counter() - t_phase
+    print(f"[mesh] phase 18 done in {wall:.1f} s; the mesh runs' launches "
+          f"{launches}, by part {parts} ({card})", flush=True)
+    return dict(launches=launches, parts=parts, rows=rows, sweep=sweep,
+                bench=bench, wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7406,6 +7995,13 @@ def main(argv=None) -> int:
                          "stock-sharded training on phase 6's panel (a short "
                          "call while the partition layer, the collectives "
                          "or the sharded data plane change); no result line")
+    ap.add_argument("--only_mesh", action="store_true",
+                    help="build the training kernels' libraries only, then "
+                         "phase 18: the kernels at the mesh path's shapes, "
+                         "the mesh-packed sweep, the serving mesh, a mesh "
+                         "fleet and bench_meshserve on phase 6's panel (a "
+                         "short call while the mesh, the sweep or the "
+                         "engine change); no result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -7424,6 +8020,7 @@ def main(argv=None) -> int:
         shutil.rmtree(FLEET_DIR, ignore_errors=True)
         shutil.rmtree(JOINT_DIR, ignore_errors=True)
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -7470,6 +8067,8 @@ def run_phases(opts, torch) -> int:
             else K.build_jobs([32, 64], kernels=("fwd", "bwd"))
             + C.build_jobs() if opts.only_joint
             else K.build_jobs([64]) + C.build_jobs() if opts.only_shard
+            else K.build_jobs(kernels=("fwd", "bwd")) + C.build_jobs()
+            if opts.only_mesh
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
             else K.build_jobs(kernels=("dx",)) + [K.audit_job()]
             if opts.only_dx
@@ -7494,7 +8093,8 @@ def run_phases(opts, torch) -> int:
               else () if (opts.only_cem or opts.only_ceiling
                           or opts.only_data or opts.only_ops
                           or opts.only_elastic or opts.only_refit
-                          or opts.only_joint or opts.only_shard)
+                          or opts.only_joint or opts.only_shard
+                          or opts.only_mesh)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
@@ -7503,7 +8103,7 @@ def run_phases(opts, torch) -> int:
                           or opts.only_data
                           or opts.only_ops or opts.only_elastic
                           or opts.only_refit or opts.only_joint
-                          or opts.only_shard)
+                          or opts.only_shard or opts.only_mesh)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -7545,6 +8145,14 @@ def run_phases(opts, torch) -> int:
             cond_em_checks(torch, C, card, Ks=(8,), shapes=[(1, 10000)],
                            dtypes=("float32",), odd=False)
             joint_phase(torch, K, C, card, splits)
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+
+    if opts.only_mesh:
+        # phase 18 alone on phase 6's panel
+        try:
+            mesh_phase(torch, K, C, card, make_panel())
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
@@ -7788,6 +8396,9 @@ def run_phases(opts, torch) -> int:
     world = shard_world(torch)
     shard_rows = shard_kernel_checks(torch, K, C, card, world)
     shard = shard_phase(torch, card, world)
+
+    # 18. the mesh-packed sweep and the serving mesh on phase 6's panel
+    mesh = mesh_phase(torch, K, C, card, splits)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     src = f"{PKG}/ops/csrc/"
@@ -7825,11 +8436,16 @@ def run_phases(opts, torch) -> int:
                 paths[path] = joint[path][name]
         # phase 17: the ranks' launches of the torchrun CLI run
         paths["sharded_training"] = shard["launches"][name]
+        # phase 18: the mesh runs' own, each counted from 0 (the in-process
+        # sweep's, the sweep CLI's processes, the mesh engines, the fleet's
+        # survivor)
+        paths["mesh"] = mesh["launches"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name],
                     at_refit_shapes=refits["rows"][name],
-                    at_sharded_shape=shard_rows[name])
+                    at_sharded_shape=shard_rows[name],
+                    at_mesh_shapes=mesh["rows"][name])
 
     def grad_path(name):
         n = grad_launches[name]

@@ -1,37 +1,69 @@
 """Kernels of the PyTorch port and their plain versions.
 
-Each kernel wrapper counts its own launches (``sdf_ffn.launches``,
-``bwd_launches``, ``dx_launches``; ``cond_em.fwd_launches``,
-``bwd_launches``, ``dx_launches``). A process started by another — a
-supervised train CLI, an elastic sweep worker — keeps its counts to
-itself; with ``DLAP_LAUNCH_COUNTS`` naming a file, it appends them there
-as one JSON line when it exits normally (a killed process leaves none),
-so the parent that started it can read them.
+Each kernel wrapper counts its own launches, per (kernel, device), through
+:func:`count_launch`, where it launches and nowhere else. The module totals
+(``sdf_ffn.launches``, ``bwd_launches``, ``dx_launches``;
+``cond_em.fwd_launches``, ``bwd_launches``, ``dx_launches``) sum them over
+the devices; :func:`device_launch_counts` reads one device's. A process
+started by another — a supervised train CLI, an elastic sweep worker —
+keeps its counts to itself; with ``DLAP_LAUNCH_COUNTS`` naming a file, it
+appends them there as one JSON line when it exits normally (a killed
+process leaves none), so the parent that started it can read them.
 """
 
 import atexit
 import json
 import os
 import sys
+import threading
+from typing import Dict, Iterable, Tuple
 
 ENV_LAUNCH_COUNTS = "DLAP_LAUNCH_COUNTS"
+KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
+           "cond_em_bwd", "cond_em_dx")
+
+
+# (kernel, device) -> launches, under one lock: a server launches from its
+# dispatch thread while another thread may reload
+_launch_counts: Dict[Tuple[str, str], int] = {}
+_launch_lock = threading.Lock()
+
+
+def count_launch(kernel: str, device) -> None:
+    """One launch of `kernel` on `device`."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    key = (kernel, str(device))
+    with _launch_lock:
+        _launch_counts[key] = _launch_counts.get(key, 0) + 1
+
+
+def launch_total(kernel: str) -> int:
+    """The launches of `kernel` on every device."""
+    with _launch_lock:
+        return sum(n for (k, _), n in _launch_counts.items() if k == kernel)
+
+
+def reset_launch_counts(kernels: Iterable[str]) -> None:
+    """Set the counts of `kernels` to 0 on every device."""
+    kernels = set(kernels)
+    with _launch_lock:
+        for key in [k for k in _launch_counts if k[0] in kernels]:
+            del _launch_counts[key]
+
+
+def device_launch_counts(device) -> Dict[str, int]:
+    """{kernel: launches on `device`} of the six training and serving
+    kernels."""
+    with _launch_lock:
+        return {k: _launch_counts.get((k, str(device)), 0) for k in KERNELS}
 
 
 def _append_launch_counts(path):
-    """This process's launches by kernel, from the wrappers' counters of
-    the kernel modules it loaded (a module not loaded launched nothing),
-    as one JSON line appended to `path`."""
-    ffn = sys.modules.get(f"{__name__}.sdf_ffn")
-    cem = sys.modules.get(f"{__name__}.cond_em")
-    row = {
-        "pid": os.getpid(), "argv": sys.argv,
-        "sdf_ffn_fwd": ffn.launches if ffn else 0,
-        "sdf_ffn_bwd": ffn.bwd_launches if ffn else 0,
-        "sdf_ffn_dx": ffn.dx_launches if ffn else 0,
-        "cond_em_fwd": cem.fwd_launches if cem else 0,
-        "cond_em_bwd": cem.bwd_launches if cem else 0,
-        "cond_em_dx": cem.dx_launches if cem else 0,
-    }
+    """This process's launches by kernel as one JSON line appended to
+    `path`."""
+    row = {"pid": os.getpid(), "argv": sys.argv,
+           **{k: launch_total(k) for k in KERNELS}}
     try:
         with open(path, "a") as f:
             f.write(json.dumps(row) + "\n")

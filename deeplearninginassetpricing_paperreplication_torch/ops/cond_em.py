@@ -35,7 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _nvcc
+from . import _nvcc, count_launch, launch_total, reset_launch_counts
 from .sdf_ffn import (BLOCK_SMEM_RESERVED, MAX_SMEM, REG_ALLOC_UNIT,
                       SM_MAX_BLOCKS, SM_MAX_THREADS, SM_REGS, SM_SMEM,
                       _check_dtype, _raise_rc, _round, _route)
@@ -43,20 +43,25 @@ from .sdf_ffn import (BLOCK_SMEM_RESERVED, MAX_SMEM, REG_ALLOC_UNIT,
 MAX_MOMENTS = 16
 BWD_STOCKS = 128  # the backward's stock tile: its partial sums are built on it
 
-# launches of the CUDA kernels, counted where the wrapper launches them
-fwd_launches = 0
-bwd_launches = 0
-dx_launches = 0
+# launches of the CUDA kernels, counted per device where the wrapper
+# launches them and nowhere else (ops.count_launch; reset_launch_count()
+# before a run, read them after): these module totals sum the devices
+_TOTALS = {"fwd_launches": "cond_em_fwd",
+           "bwd_launches": "cond_em_bwd",
+           "dx_launches": "cond_em_dx"}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
+def __getattr__(name: str) -> int:
+    if name in _TOTALS:
+        return launch_total(_TOTALS[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launch_count() -> None:
-    global fwd_launches, bwd_launches, dx_launches
-    fwd_launches = 0
-    bwd_launches = 0
-    dx_launches = 0
+    reset_launch_counts(_TOTALS.values())
 
 
 # -- the plain versions -------------------------------------------------------
@@ -665,7 +670,6 @@ def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
     """em [S, K, N]. The kernels round kT to the compute dtype themselves
     (route 1 as it builds its fragments), so no PyTorch op runs before the
     launch."""
-    global fwd_launches
     kT = kT.contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype).fwd
@@ -680,13 +684,12 @@ def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
             plan.members, plan.threads, plan.var, plan.stages,
             plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _refused("fwd", rc, plan)
-    fwd_launches += 1
+    count_launch("cond_em_fwd", dev)
     return em_part.sum(dim=1)  # the fixed-order pass over the period groups
 
 
 def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
     """(dkT, dzp_m, dxr), kT rounded in the kernels as in the forward."""
-    global bwd_launches
     kT = kT.contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     gem = gem.float().contiguous()
@@ -710,7 +713,7 @@ def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
             plan.threads, plan.var, plan.stages, plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream)
     _refused("bwd", rc, plan)
-    bwd_launches += 1
+    count_launch("cond_em_bwd", dev)
     return dkT_part.sum(dim=1), dzpm_part.sum(dim=1), dxr
 
 
@@ -718,7 +721,6 @@ def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
                plan: Optional[CemDxPlan] = None):
     """The panel cotangent dx [T, F, N], summed over the members; `plan`
     defaults to :func:`card_cem_dx_plan` for this card."""
-    global dx_launches
     kT = _round(kT, compute_dtype).contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     gem = gem.float().contiguous()
@@ -739,7 +741,7 @@ def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
     if rc == -1:
         raise RuntimeError(f"cond_em_dx refused the plan {plan}")
     _raise_rc("cond_em_dx", rc)
-    dx_launches += 1
+    count_launch("cond_em_dx", dev)
     return dx
 
 

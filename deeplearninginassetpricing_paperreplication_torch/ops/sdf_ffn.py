@@ -65,7 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import _nvcc
+from . import _nvcc, count_launch, launch_total, reset_launch_counts
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 MAX_HIDDEN_LAYERS = 8
@@ -104,11 +104,12 @@ DX_THREADS = (64, 128, 256)
 DX_FEATURES = 6
 DX_MMA_MAX_F = 64
 
-# launches of the CUDA kernels, counted where the wrapper launches them and
-# nowhere else (reset_launch_count() before a run, read them after)
-launches = 0
-bwd_launches = 0
-dx_launches = 0
+# launches of the CUDA kernels, counted per device where the wrapper
+# launches them and nowhere else (ops.count_launch; reset_launch_count()
+# before a run, read them after): these module totals sum the devices
+_TOTALS = {"launches": "sdf_ffn_fwd",
+           "bwd_launches": "sdf_ffn_bwd",
+           "dx_launches": "sdf_ffn_dx"}
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -117,11 +118,14 @@ Mids = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 Seed = Union[int, Sequence[int]]
 
 
+def __getattr__(name: str) -> int:
+    if name in _TOTALS:
+        return launch_total(_TOTALS[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launch_count() -> None:
-    global launches, bwd_launches, dx_launches
-    launches = 0
-    bwd_launches = 0
-    dx_launches = 0
+    reset_launch_counts(_TOTALS.values())
 
 
 def _round(a: torch.Tensor, compute_dtype: str) -> torch.Tensor:
@@ -595,7 +599,6 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
             seed: Seed = 0, dropout_rate: float = 0.0,
             offset: int = 0) -> torch.Tensor:
     """Raw weights [S, T, N], launched at :func:`card_fwd_plan`."""
-    global launches
     lay = packed.layout
     T, F, N = x_t.shape
     S = packed.n_members
@@ -619,7 +622,7 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         raise RuntimeError(f"sdf_ffn_fwd refused the plan {plan} for hidden "
                            f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_fwd", rc)
-    launches += 1
+    count_launch("sdf_ffn_fwd", dev)
     return out
 
 
@@ -1095,7 +1098,6 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(grads [S, P] in the packed layout, dzp [S, T, H1]); `plan` defaults
     to :func:`card_bwd_plan` for this card."""
-    global bwd_launches
     lay = packed.layout
     T, F, N = x_t.shape
     S = packed.n_members
@@ -1124,7 +1126,7 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         raise RuntimeError(f"sdf_ffn_bwd refused the plan {plan} for hidden "
                            f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_bwd", rc)
-    bwd_launches += 1
+    count_launch("sdf_ffn_bwd", dev)
     # the fixed-order pass over the per-block partials
     return grad_part.sum(dim=1), dzp_part.sum(dim=1)
 
@@ -1173,10 +1175,9 @@ def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                plan: DxPlan = None, offset: int = 0) -> torch.Tensor:
     """The panel cotangent dx [T, F, N], summed over the members; `plan`
     defaults to :func:`card_dx_plan` for this card."""
-    global dx_launches
     dx = _dx_call(_load("dx", width_bound(packed.layout.hidden)), x_t, zp,
                   packed, g, seed, dropout_rate, plan, offset)
-    dx_launches += 1
+    count_launch("sdf_ffn_dx", x_t.device)
     return dx
 
 

@@ -11,6 +11,13 @@ GSPMD lowers; here:
   may hold any hashable device identities (:func:`slice_devices` cuts
   sub-grids of them); by default it holds the group's ranks
   ``0 .. world - 1``;
+* **a single-process mesh** holds ``torch.device``s instead: the devices
+  of one process (:func:`local_devices`, the counterpart of
+  ``jax.devices()``), as the mesh-packed sweep and the serving engine lay
+  them out. There the Python API may name one device at several positions
+  (a CPU test, or several spans on one card); :meth:`Mesh.positions`
+  enumerates positions by index and :func:`position_device` gives each
+  one's ``torch.device``, while :meth:`Mesh.position` stays strict;
 * **a placement** is the port's own small class, :class:`PartitionSpec`
   (``P``): a tuple with one entry per array dimension, a mesh axis name
   (that dimension is split in contiguous spans over the axis) or None
@@ -36,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -81,6 +88,49 @@ def rank() -> int:
             if dist.is_available() and dist.is_initialized() else 0)
 
 
+def local_devices(route="cuda") -> Tuple[Any, ...]:
+    """This process's devices of `route` (a device type or a device): every
+    CUDA device torch sees, ``cuda:0 .. cuda:n-1``, or the one CPU device.
+    Asking for CUDA without a card is an error naming it."""
+    import torch
+
+    kind = torch.device(route).type
+    if kind == "cpu":
+        return (torch.device("cpu"),)
+    if kind != "cuda":
+        raise ValueError(f"device must be cuda or cpu: {str(route)!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(route)!r} requested but torch finds no CUDA "
+            "device; pass --device cpu (device='cpu') to run on the CPU")
+    return tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
+
+
+def position_device(entry):
+    """The ``torch.device`` of a single-process mesh entry (a device or its
+    name); a rank mesh's integer entries name processes, not devices."""
+    import torch
+
+    if isinstance(entry, torch.device):
+        return entry
+    if isinstance(entry, str):
+        return torch.device(entry)
+    raise TypeError(f"mesh entry {entry!r} is not a device (a rank mesh "
+                    "places each rank on its own device)")
+
+
+def on_device(device):
+    """A context making `device` current where it is a card (kernels and
+    graphs launch on the current device's stream); nothing on the CPU."""
+    import contextlib
+
+    import torch
+
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 # -- the mesh ------------------------------------------------------------------
 
 
@@ -104,6 +154,13 @@ class Mesh:
             raise ValueError(f"{device!r} is not (once) in the mesh "
                              f"{self.devices.tolist()}")
         return dict(zip(self.axis_names, (int(i) for i in hits[0])))
+
+    def positions(self) -> List[Tuple[Dict[str, int], Any]]:
+        """Every position in row-major order as ({axis: index}, its device
+        entry); unlike :meth:`position`, one device may hold several."""
+        return [(dict(zip(self.axis_names, (int(i) for i in idx))),
+                 self.devices[idx])
+                for idx in np.ndindex(*self.devices.shape)]
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh) and self.axis_names == other.axis_names

@@ -37,8 +37,19 @@ What the JAX module has and this one does not: the XLA program machinery
 no program per bucket: each kernel library builds once per width bound
 (``ops/_nvcc.py``). In its place an elastic worker records each bucket's
 kernel launch plans (``observability/programs.record_program``) before
-the bucket trains. ``grid_mesh`` (the mesh-packed sweep) is not ported
-yet.
+the bucket trains.
+
+Mesh packing (``grid_mesh``, a ``('grid',)`` mesh of ``torch.device``s,
+``partition.grid_slice_mesh`` over ``partition.local_devices``): mesh
+position p of a width-D mesh trains grid rows ``[p·G/D, (p+1)·G/D)``
+through ``train_members`` on its own device, as ``shard_stack_tree`` lays
+the JAX grid out. A point keeps its lr, init and dropout base seed, so a
+position's rows are bit for bit the same rows trained at
+``member_chunk = G/D`` on one device; the results join in grid order. A
+grid D does not divide trains whole on the first position (the JAX naive
+fallback). The positions train one after another: on two cards, a thread
+per card took longer than this order (``tools/mesh_schedule.py``), as the
+epoch loop is bound by the host.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import torch
 
 from ..models.networks import init_member_params
 from ..observability.logging import get_run_logger
+from ..ops import device_launch_counts
 from ..reliability.faults import inject
 from ..reliability.ledger import SweepLedger, bucket_key, make_record
 from ..utils.config import (
@@ -64,6 +76,13 @@ from ..utils.config import (
     resolve_device,
 )
 from .ensemble import train_members
+from .partition import (
+    GRID_AXIS,
+    grid_slice_mesh,
+    local_devices,
+    on_device,
+    position_device,
+)
 
 Batch = Dict[str, torch.Tensor]
 # (cfg, seeds) -> member-stacked state dict [S, ...]: a grid's start
@@ -171,6 +190,8 @@ def train_bucket(
     member_chunk: Optional[int] = None,
     exec_cfg: Optional[ExecutionConfig] = None,
     init: Optional[InitFn] = None,
+    grid_mesh=None,
+    placed: Optional[Dict[Any, Dict[str, Batch]]] = None,
 ) -> Dict[str, Any]:
     """Train the (lr × seed) grid of one architecture bucket, members
     stacked: one 3-phase run in which every pass of every grid point is one
@@ -182,22 +203,100 @@ def train_bucket(
     ``init_member_params``. `member_chunk` caps the member axis per run
     (sequential chunks, concatenated).
 
+    `grid_mesh`: lay the grid over a ``('grid',)`` mesh (see the module
+    doc); `placed` is :func:`place_on_mesh`'s copy of the two batches on
+    the mesh's devices (made here when not given).
+
     Returns {"grid": [(lr, seed)] float64, "best_valid_sharpe": [G], the
     reported Sharpe of each point (phase-3 best if that tracker updated,
     else phase-1 best, else -inf), "params": the final params [G, ...],
-    "history": {key: [G, E]}}."""
+    "history": {key: [G, E]}}; with a mesh also "placement" (what
+    :func:`_train_on_mesh` returns), the params on the first position's
+    device."""
     grid = [(lr, s) for lr in lrs for s in seeds]
     grid_seeds = [int(s) for _, s in grid]
     start = (init or init_member_params)(cfg, grid_seeds)
+    kw = dict(lrs=[float(lr) for lr, _ in grid],
+              dropout_seeds=[dropout_base_seed(s) for s in grid_seeds],
+              member_chunk=member_chunk, exec_cfg=exec_cfg)
+    if grid_mesh is not None:
+        if placed is None:
+            placed = place_on_mesh(train_batch, valid_batch, grid_mesh)
+        out = _train_on_mesh(cfg, grid_seeds, tcfg, start, kw, grid_mesh,
+                             placed)
+        return {"grid": np.asarray(grid, dtype=np.float64), **out}
     out = train_members(
         cfg, train_batch, valid_batch, None, grid_seeds, tcfg,
-        lrs=[float(lr) for lr, _ in grid],
-        dropout_seeds=[dropout_base_seed(s) for s in grid_seeds],
-        member_chunk=member_chunk, exec_cfg=exec_cfg, state_dicts=start,
-        verbose=False)
+        state_dicts=start, verbose=False, **kw)
     return {"grid": np.asarray(grid, dtype=np.float64),
             "best_valid_sharpe": out["best_valid_sharpe"],
             "params": out["params"], "history": out["history"]}
+
+
+def mesh_positions(grid_mesh) -> List[torch.device]:
+    """The ``torch.device`` of each position of a ``('grid',)`` mesh, in
+    grid order."""
+    if tuple(grid_mesh.shape) != (GRID_AXIS,):
+        raise ValueError(f"grid_mesh must have the one axis {GRID_AXIS!r}; "
+                         f"got {tuple(grid_mesh.shape)}")
+    return [position_device(d) for _, d in grid_mesh.positions()]
+
+
+def place_on_mesh(train_batch: Batch, valid_batch: Batch, grid_mesh
+                  ) -> Dict[torch.device, Dict[str, Batch]]:
+    """{device: {"train", "valid"}}: the two batches copied once onto each
+    device of the mesh (a batch already there is not copied), for every
+    bucket of a search to read."""
+    placed: Dict[torch.device, Dict[str, Batch]] = {}
+    for dev in mesh_positions(grid_mesh):
+        if dev not in placed:
+            placed[dev] = {
+                name: {k: v.to(dev) for k, v in b.items()}
+                for name, b in (("train", train_batch),
+                                ("valid", valid_batch))}
+    return placed
+
+
+def _train_on_mesh(cfg: GANConfig, grid_seeds: List[int], tcfg: TrainConfig,
+                   start: Dict[str, torch.Tensor], kw: Dict[str, Any],
+                   grid_mesh, placed) -> Dict[str, Any]:
+    """Each mesh position in turn trains its span of the grid on its own
+    device; the results join in grid order on the first position's device.
+    "placement" records the positions, the span (None where the mesh does
+    not divide the grid and the first position trains it whole), each
+    position's device and its kernel launches by name."""
+    devices = mesh_positions(grid_mesh)
+    G, D = len(grid_seeds), len(devices)
+    ragged = G % D != 0
+    spans = ([(0, G)] if ragged
+             else [(p * G // D, (p + 1) * G // D) for p in range(D)])
+    outs, launches = [], []
+    for p, (a, b) in enumerate(spans):
+        dev = devices[p]
+        before = device_launch_counts(dev)
+        with on_device(dev):
+            outs.append(train_members(
+                cfg, placed[dev]["train"], placed[dev]["valid"], None,
+                grid_seeds[a:b], tcfg,
+                state_dicts={k: v[a:b] for k, v in start.items()},
+                verbose=False,
+                **{k: v[a:b] if k in ("lrs", "dropout_seeds") else v
+                   for k, v in kw.items()}))
+        after = device_launch_counts(dev)
+        launches.append({k: after[k] - before[k] for k in after})
+    dev0 = devices[0]
+    return {
+        "best_valid_sharpe": np.concatenate(
+            [o["best_valid_sharpe"] for o in outs]),
+        "params": {k: torch.cat([o["params"][k].to(dev0) for o in outs])
+                   for k in outs[0]["params"]},
+        "history": {k: np.concatenate([o["history"][k] for o in outs])
+                    for k in outs[0]["history"]},
+        "placement": {"positions": D, "span": None if ragged else G // D,
+                      "fallback": ragged,
+                      "devices": [str(devices[p]) for p in range(len(spans))],
+                      "launches": launches},
+    }
 
 
 def run_sweep(
@@ -216,9 +315,18 @@ def run_sweep(
     consult_ledger: bool = False,
     init: Optional[InitFn] = None,
     heartbeat=None,
+    grid_mesh=None,
 ) -> List[Dict]:
     """Execute a sweep: bucket → member-stacked grid per bucket → global
     ranking.
+
+    `grid_mesh`: mesh-packed execution, every bucket's grid laid over the
+    ``('grid',)`` mesh (:func:`train_bucket`); the panel goes to each of
+    its devices once for the whole search. ``stats_out["grid_mesh"]``
+    gets the JAX keys (the axes as laid out, each position's device), the
+    buckets a ragged grid trained whole on the first position
+    (``fallback_buckets``) and each trained bucket's placement
+    (``bucket_placement``).
 
     Runs on ``exec_cfg.device`` (default the card: without one, an error
     naming CUDA); the batches move there. Returns the top_k entries (all
@@ -248,6 +356,9 @@ def run_sweep(
     device = resolve_device(exec_cfg.device)
     train_batch = {k: v.to(device) for k, v in train_batch.items()}
     valid_batch = {k: v.to(device) for k, v in valid_batch.items()}
+    placed = (place_on_mesh(train_batch, valid_batch, grid_mesh)
+              if grid_mesh is not None else None)
+    placements: List[Dict[str, Any]] = []
     bucket_list = list(bucketize(configs_and_lrs).items())
     n_buckets = len(bucket_list)
 
@@ -310,8 +421,15 @@ def run_sweep(
                                 n_buckets=n_buckets) as sp_b:
             out = train_bucket(b["cfg"], b["lrs"], seeds, train_batch,
                                valid_batch, tcfg, member_chunk=member_chunk,
-                               exec_cfg=exec_cfg, init=init)
+                               exec_cfg=exec_cfg, init=init,
+                               grid_mesh=grid_mesh, placed=placed)
         bucket_seconds.append(sp_b.seconds)
+        if grid_mesh is not None:
+            placements.append({"bucket": i + 1, **out["placement"]})
+            if out["placement"]["fallback"]:
+                logger.events.counter("sweep/grid_fallback", bucket=i + 1,
+                                      grid=len(out["grid"]),
+                                      positions=out["placement"]["positions"])
         if ledger is not None:
             # durably record the completed bucket BEFORE moving on: a crash
             # after this line costs no completed work
@@ -336,6 +454,13 @@ def run_sweep(
     if stats_out is not None:
         stats_out["n_buckets"] = n_buckets
         stats_out["bucket_seconds"] = bucket_seconds
+        if grid_mesh is not None:
+            stats_out["grid_mesh"] = {
+                "axes": dict(grid_mesh.shape),
+                "devices": [str(d) for d in mesh_positions(grid_mesh)],
+                "fallback_buckets": [p["bucket"] for p in placements
+                                     if p["fallback"]],
+                "bucket_placement": placements}
         if ledger is not None:
             stats_out["ledger_hits"] = len(done_records)
             stats_out["ledger_writes"] = ledger.writes - ledger_writes_before
@@ -378,6 +503,7 @@ def run_sweep_worker(
     verbose: bool = True,
     poll_s: float = 0.5,
     programs_out: Optional[Dict[str, Dict]] = None,
+    devices: Optional[Sequence] = None,
 ) -> int:
     """One elastic sweep worker's claim → train → record loop.
 
@@ -398,8 +524,21 @@ def run_sweep_worker(
     cleanly. Returns the number of buckets this worker trained.
 
     Runs on ``exec_cfg.device`` (default the card; without one, an error
-    naming CUDA); the batches move there."""
-    from ..reliability.scheduler import LeaseKeeper
+    naming CUDA); the batches move there.
+
+    Mesh packing: with ``device_slices`` S (and ``slice_width``) in the
+    manifest the worker first leases one of the S disjoint device slices
+    of `devices` (default ``partition.local_devices`` of the route;
+    ``queue.claim_device_slice``), waiting while every slice is held,
+    copies its batches onto that slice's devices once, and trains every
+    bucket over a ``('grid',)`` mesh of them, recording each position's
+    launch plans. While it waits for buckets it renews the slice; after a
+    ``LeaseLost`` it leases a slice again (and copies the panel there),
+    and it releases the slice at drain. A slice taken over mid-bucket
+    keeps that bucket's result (placement changes no value). Bucket
+    leases, takeover and quarantine are unchanged: the slice is a lease
+    of its own, renewed by the same keeper."""
+    from ..reliability.scheduler import LeaseKeeper, LeaseLost
 
     exec_cfg = exec_cfg or ExecutionConfig()
     device = resolve_device(exec_cfg.device)
@@ -411,10 +550,34 @@ def run_sweep_worker(
     seeds = [int(s) for s in manifest["seeds"]]
     member_chunk = manifest.get("member_chunk")
     bucket_timeout = manifest.get("bucket_timeout_s")
+    n_slices = int(manifest.get("device_slices") or 0)
+    slice_width = manifest.get("slice_width")
+    if n_slices and devices is None:
+        devices = local_devices(device)
     execution = execution_of(exec_cfg)
     n_buckets = len(queue.items())
     trained = 0
+    grid_mesh = placed = slice_idx = None
     while True:
+        if n_slices and slice_idx is None:
+            slice_idx = queue.claim_device_slice(worker_id, n_slices)
+            if slice_idx is None:
+                # every slice held by a live worker: wait for one to free
+                if heartbeat is not None:
+                    heartbeat.beat("sweep_wait")
+                time.sleep(poll_s)
+                continue
+            grid_mesh = grid_slice_mesh(
+                slice_idx, n_slices,
+                width=int(slice_width) if slice_width else None,
+                devices=devices)
+            logger.info(
+                f"[sweep:{worker_id}] leased device slice {slice_idx}/"
+                f"{n_slices}: devices "
+                f"{[str(d) for d in mesh_positions(grid_mesh)]}",
+                verbose=verbose)
+            # the panel onto the slice's devices, once per slice
+            placed = place_on_mesh(train_batch, valid_batch, grid_mesh)
         status, item = queue.claim(worker_id)
         if status == "drained":
             break
@@ -426,6 +589,13 @@ def run_sweep_worker(
             # orphan over (scheduler.next_wake_delay)
             if heartbeat is not None:
                 heartbeat.beat("sweep_wait")
+            if slice_idx is not None:
+                # an idle worker still owns its devices: keep the slice
+                # lease warm so a takeover only happens on real death
+                try:
+                    queue.renew_device_slice(slice_idx, worker_id)
+                except LeaseLost:
+                    grid_mesh = placed = slice_idx = None
             time.sleep(queue.next_wake_delay(poll_s, worker=worker_id))
             continue
         key, idx = item["key"], int(item["index"])
@@ -437,7 +607,9 @@ def run_sweep_worker(
             f"[sweep:{worker_id}] bucket {idx + 1}/{n_buckets} "
             f"(attempt {item['attempt']}): hidden={cfg.hidden_dim} "
             f"rnn={cfg.num_units_rnn} × {len(item['lrs'])} lrs × "
-            f"{len(seeds)} seeds", verbose=verbose)
+            f"{len(seeds)} seeds"
+            + (f" [slice {slice_idx}]" if slice_idx is not None else ""),
+            verbose=verbose)
         # mid-bucket fault site: fires with the lease HELD — a kill here
         # leaves an orphan lease that must expire and be taken over
         inject("sweep/bucket", bucket=idx + 1, n_buckets=n_buckets,
@@ -451,17 +623,32 @@ def run_sweep_worker(
             with logger.events.span("sweep/bucket", bucket=idx + 1,
                                     worker=worker_id) as sp_b, \
                     LeaseKeeper(queue, key, worker_id, heartbeat=heartbeat,
-                                max_lifetime_s=bucket_timeout) as keeper:
+                                max_lifetime_s=bucket_timeout,
+                                slice_index=slice_idx) as keeper:
                 G = len(item["lrs"]) * len(seeds)
-                programs = record_bucket_programs(
-                    cfg, min(G, member_chunk or G),
-                    {"train": train_batch, "valid": valid_batch}, exec_cfg,
-                    events=logger.events, name_prefix=f"bucket{idx + 1}/")
+                programs = {}
+                for prefix, dev, width in _plan_positions(
+                        idx, G, grid_mesh, device):
+                    programs.update(record_bucket_programs(
+                        cfg, min(width, member_chunk or width),
+                        {"train": train_batch, "valid": valid_batch},
+                        dataclasses.replace(exec_cfg, device=str(dev)),
+                        events=logger.events, name_prefix=prefix))
                 if programs_out is not None:
                     programs_out.update(programs)
                 out = train_bucket(
                     cfg, item["lrs"], seeds, train_batch, valid_batch, tcfg,
-                    member_chunk=member_chunk, exec_cfg=exec_cfg)
+                    member_chunk=member_chunk, exec_cfg=exec_cfg,
+                    grid_mesh=grid_mesh, placed=placed)
+            if keeper.slice_lost:
+                # the device slice was taken over (this worker was presumed
+                # dead) while the bucket lease held: the result stands, but
+                # the next bucket trains on a freshly leased slice
+                logger.warning(
+                    f"[sweep:{worker_id}] device slice {slice_idx} was "
+                    "taken over mid-train; keeping the result and leasing "
+                    "a slice again")
+                grid_mesh = placed = slice_idx = None
             if keeper.lost:
                 # presumed dead and taken over mid-train: the new owner's
                 # (bit-identical) result is the one the ledger records
@@ -482,7 +669,24 @@ def run_sweep_worker(
             logger.warning(
                 f"[sweep:{worker_id}] bucket {idx + 1} failed "
                 f"({type(e).__name__}: {e}); released for retry")
+    if slice_idx is not None:
+        queue.release_device_slice(slice_idx, worker_id)
     return trained
+
+
+def _plan_positions(idx: int, G: int, grid_mesh, device):
+    """(program name prefix, device, members) of each position that
+    trains bucket `idx` of grid width G: one on `device` without a mesh,
+    else every position at its span (the first alone, the whole grid,
+    where the mesh does not divide it)."""
+    if grid_mesh is None:
+        return [(f"bucket{idx + 1}/", device, G)]
+    devices = mesh_positions(grid_mesh)
+    D = len(devices)
+    if G % D:
+        return [(f"bucket{idx + 1}/pos0/", devices[0], G)]
+    return [(f"bucket{idx + 1}/pos{p}/", dev, G // D)
+            for p, dev in enumerate(devices)]
 
 
 def ranking_from_ledger(queue) -> Tuple[List[Dict], Dict[str, Any]]:

@@ -31,9 +31,8 @@ State lives beside the ledger under ``<run_dir>/sweep_ledger/``:
                             disjoint device slices; a worker holds exactly
                             one slice while training and renews it with
                             its bucket lease, so two live workers never
-                            train on the same devices. No entry point
-                            leases slices yet: they serve the mesh-packed
-                            sweep, which the port has not got
+                            train on the same devices (the mesh-packed
+                            sweep's workers, ``sweep --device_slices``)
 
 Fault sites: ``sweep/claim`` fires after a lease is written (a
 kill there leaves an orphan lease → exercises expiry + takeover),

@@ -100,12 +100,19 @@ class FleetController:
         pointer: Optional[str] = None,
         http_timeout_s: float = 10.0,
         metrics_timeout_s: float = 2.0,
+        mesh: Optional[str] = None,
+        mesh_slices: Optional[int] = None,
     ):
         self.fleet = fleet
         self.make_argv = make_argv
         self.host, self.port = host, port
         self.admin_ports: Dict[int, int] = dict(admin_ports or {})
         self.pointer = pointer
+        # the mesh-serving record for fleet.json: the --mesh spec every
+        # replica serves with and the slice count (replica i serves from
+        # disjoint contiguous slice i % mesh_slices)
+        self.mesh = mesh
+        self.mesh_slices = mesh_slices
         self.http_timeout_s = float(http_timeout_s)
         # the per-tick scrape gets its own SHORT timeout: one wedged-but-
         # accepting replica must not stall the control loop 10 s per poll
@@ -208,12 +215,15 @@ class FleetController:
             "admin_urls": [f"http://127.0.0.1:{self.admin_ports[r]}"
                            for r in live if r in self.admin_ports],
             "pointer": str(self.pointer) if self.pointer else None,
-            # the JAX package's mesh-serving keys, null until the port
-            # serves from a device mesh: the layout stays key for key the
-            # JAX package's, so either package reads the other's
-            "mesh": None,
-            "mesh_slices": None,
-            "mesh_slice_by_replica": None,
+            # the JAX package's mesh-serving keys (null without --mesh):
+            # the layout stays key for key the JAX package's, so either
+            # package reads the other's
+            "mesh": self.mesh,
+            "mesh_slices": self.mesh_slices,
+            "mesh_slice_by_replica": (
+                {str(r): f"{r % self.mesh_slices}:{self.mesh_slices}"
+                 for r in live}
+                if self.mesh and self.mesh_slices else None),
             "total_replicas_ever": self.fleet.replicas,
         })
 

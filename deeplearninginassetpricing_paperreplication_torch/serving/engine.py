@@ -36,8 +36,22 @@ month of firm characteristics.
   rebinding, and re-derives the macro state; :meth:`snapshot_params`
   clones what a reload overwrites so the canary's :meth:`restore_params`
   can put it back.
-
-Left for later slices: the device mesh and per-span staging.
+* **The device mesh.** ``mesh=`` (a spec string such as ``"stocks=4"`` or
+  ``"members=2,stocks=2"``, a ``MeshConfig`` or a built ``Mesh``) lays the
+  forward over a grid of this process's devices
+  (``parallel/partition.local_devices``). The ``stocks`` axis cuts every
+  stock bucket into contiguous spans; an optional ``members`` axis cuts the
+  stacked members. Each position holds its members' weights on its own
+  device, pinned host staging and device inputs for its span
+  (:meth:`_span_staging`, :meth:`_fill`, :meth:`_put_spans`) and, on
+  a CUDA device, a graph per (stock bucket, batch bucket, position). The
+  members' weights before the cross-section are gathered onto the first
+  position, whose graph then runs the cross-sectional steps (the masked
+  zero mean, Σ|w| = 1, the sums over stocks) over the whole bucket in the
+  one-device engine's order. A reload copies into every position's
+  tensors. Without a mesh the engine is the one-device engine, bit for
+  bit; a one-position mesh is the one-device engine on that position's
+  device.
 """
 
 from __future__ import annotations
@@ -65,6 +79,7 @@ from ..observability import EventLog
 from ..observability.manifest import config_hash
 from ..ops import sdf_ffn
 from ..ops.metrics import normalize_weights_abs
+from ..parallel import partition
 from ..parallel.ensemble import sdf_params
 from ..reliability.faults import inject
 from ..utils.config import ExecutionConfig, resolve_device
@@ -133,6 +148,38 @@ class _BucketGraph:
     out: Dict[str, torch.Tensor]  # weights [B, Nb], sdf [B], member_sdf [K, B]
 
 
+@dataclasses.dataclass
+class _SpanGraph:
+    """One captured (stock bucket, batch bucket, mesh position) forward:
+    the graph, the position's static inputs on its device and its output,
+    the members' weights over its span ({"w": [K_p, B, span]}). The first
+    position's graph also runs the cross-section over the whole bucket:
+    its ``out`` is the bucket's outputs, and it owns the gathered weights
+    and the bucket's mask and returns on its device."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    individual: torch.Tensor  # [B, span, F]
+    mask: torch.Tensor  # [B, span]
+    state: Optional[torch.Tensor]  # [K_p, B, Dp]
+    out: Dict[str, torch.Tensor]
+    gathered: Optional[torch.Tensor] = None  # [K, B, Nb]
+    mask_all: Optional[torch.Tensor] = None  # [B, Nb]
+    returns_all: Optional[torch.Tensor] = None  # [B, Nb]
+
+
+@dataclasses.dataclass
+class _Position:
+    """One position of the serving mesh: its device, its members [m0, m1)
+    and stock part, and its own copy of their weights (the packed FFN
+    buffer too, whose plain-route pieces are views of ``params``)."""
+
+    device: torch.device
+    members: Tuple[int, int]
+    stock_part: int
+    params: Dict[str, torch.Tensor]
+    packed: Optional[sdf_ffn.PackedFfn]
+
+
 class InferenceEngine:
     """K stacked checkpoints + macro history → month-query object.
 
@@ -157,9 +204,17 @@ class InferenceEngine:
         which: str = "best_model_sharpe",
         exec_cfg: Optional[ExecutionConfig] = None,
         events: Optional[EventLog] = None,
+        mesh=None,
     ):
         self.exec_cfg = exec_cfg or ExecutionConfig()
         self.device = resolve_device(self.exec_cfg.device)
+        self._mesh = (self._build_mesh(mesh) if mesh is not None
+                      else partition.device_mesh(self.device))
+        if mesh is not None:
+            # the first position's device holds the stacked params, the
+            # macro state and the cross-sectional steps
+            self.device = partition.position_device(
+                self._mesh.devices.flat[0])
         self.events = events if events is not None else EventLog()
         self.checkpoint_dirs = [str(d) for d in checkpoint_dirs]
         self._which = which
@@ -184,6 +239,9 @@ class InferenceEngine:
         self._infer_lock = threading.Lock()
         self._staging: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
         self._graphs: Dict[Tuple[int, int], _BucketGraph] = {}
+        self._init_positions(mesh is not None)
+        self._span_plans: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        self._span_graphs: Dict[Tuple[int, int], List[_SpanGraph]] = {}
         self._captures = 0
         # captures at the end of warmup(): everything past this marker is a
         # steady-state capture (stats()["steady_state_captures"])
@@ -215,6 +273,86 @@ class InferenceEngine:
     def uses_graphs(self) -> bool:
         """True on a CUDA device: every bucket is served by graph replay."""
         return self.device.type == "cuda"
+
+    # -- the device mesh -----------------------------------------------------
+
+    def _build_mesh(self, mesh) -> partition.Mesh:
+        """A spec string, a ``MeshConfig`` (without devices: the route's
+        local devices) or a ``Mesh`` → the built mesh, every position on a
+        device of the engine's route."""
+        if isinstance(mesh, str):
+            mesh = partition.parse_mesh_spec(
+                mesh, partition.local_devices(self.device))
+        if isinstance(mesh, partition.MeshConfig):
+            if mesh.devices is None:
+                mesh = dataclasses.replace(
+                    mesh, devices=partition.local_devices(self.device))
+            mesh = mesh.build()
+        for _, dev in mesh.positions():
+            if partition.position_device(dev).type != self.device.type:
+                raise ValueError(
+                    f"mesh device {dev} is not on the engine's route "
+                    f"{self.device.type}")
+        return mesh
+
+    def _init_positions(self, meshed: bool) -> None:
+        """Validate the mesh against the buckets and the ensemble, and
+        give each position its members' weights on its device."""
+        shape = self._mesh.shape
+        self._stock_shards = int(shape.get(partition.STOCK_AXIS, 1))
+        try:
+            self._member_axis = partition.member_axis_name(self._mesh)
+        except ValueError:
+            self._member_axis = None
+        for axis in shape:
+            if axis not in (partition.STOCK_AXIS, self._member_axis):
+                raise ValueError(
+                    f"mesh axis {axis!r}: the serving mesh lays out "
+                    f"'{partition.STOCK_AXIS}' and one member axis only")
+        for nb in self.stock_buckets:
+            if nb % self._stock_shards:
+                raise ValueError(
+                    f"stock bucket {nb} is not divisible by the mesh's "
+                    f"{self._stock_shards}-way '{partition.STOCK_AXIS}' "
+                    "axis: every bucket shards evenly or the padded spans "
+                    "would straddle devices")
+        parts = (int(shape[self._member_axis])
+                 if self._member_axis is not None else 1)
+        if parts == 1:
+            # a member axis of one (or none) replicates the members
+            self._member_axis = None
+        elif self.n_members % parts:
+            raise ValueError(
+                f"mesh '{self._member_axis}' axis size {parts} does not "
+                f"divide the {self.n_members}-member ensemble")
+        # the span path for more than one position; one position is the
+        # one-device engine on that position's device
+        self._sharded_dispatch = meshed and self._mesh.devices.size > 1
+        self._positions: List[_Position] = []
+        if not self._sharded_dispatch:
+            return
+        k = self.n_members // parts
+        for coords, dev in self._mesh.positions():
+            m = coords.get(self._member_axis, 0) if parts > 1 else 0
+            dev = partition.position_device(dev)
+            params = {key: v[m * k:(m + 1) * k].to(dev, copy=True)
+                      for key, v in self.params.items()}
+            self._positions.append(_Position(
+                dev, (m * k, (m + 1) * k),
+                coords.get(partition.STOCK_AXIS, 0), params,
+                pack_sdf_ffn(params, self.cfg, self.exec_cfg.compute_dtype)
+                if self.cfg.hidden_dim else None))
+
+    @torch.inference_mode()
+    def _sync_positions(self) -> None:
+        """Copy the engine's params and packed buffer into every
+        position's own tensors (a reload, a restore)."""
+        for pos in self._positions:
+            m0, m1 = pos.members
+            for key, v in pos.params.items():
+                v.copy_(self.params[key][m0:m1])
+            if pos.packed is not None:
+                pos.packed.params.copy_(self._packed.params[m0:m1])
 
     # -- generation quality --------------------------------------------------
 
@@ -360,6 +498,7 @@ class InferenceEngine:
             v.copy_(params[k])
         if self._packed is not None:
             self._packed.params.copy_(packed.params)
+        self._sync_positions()
 
     def _snapshot_locked(self) -> Tuple:
         # params and the packed buffer are overwritten in place by a
@@ -379,6 +518,7 @@ class InferenceEngine:
                 v.copy_(params[k])
             if packed is not None:
                 self._packed.params.copy_(packed)
+        self._sync_positions()
         self.params_fingerprint = fingerprint
         self._carries, self._hs, self._macro_raw = carries, hs, macro_raw
 
@@ -490,10 +630,23 @@ class InferenceEngine:
              ) -> Dict[str, torch.Tensor]:
         """state [K, B, Dp] or None; individual [B, Nb, F]; mask/returns
         [B, Nb] → the paper-protocol ensemble reduction per month."""
+        w = self._raw(self.params, self._packed, state, individual, mask)
+        return self._join(w, mask, returns)
+
+    def _raw(self, params: Dict[str, torch.Tensor],
+             packed: Optional[sdf_ffn.PackedFfn],
+             state: Optional[torch.Tensor], individual: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+        """The members' masked weights [K, B, n] before the cross-section:
+        per stock, so a span's are the whole bucket's over that span."""
         # the kernel's feature-major panel, transposed on the device
-        x_t = individual.transpose(1, 2).contiguous()  # [B, F, Nb]
-        w = sdf_raw_weights(self.params, self.cfg, self.exec_cfg, x_t, state,
-                            self._packed) * mask  # [K, B, Nb]
+        x_t = individual.transpose(1, 2).contiguous()  # [B, F, n]
+        return sdf_raw_weights(params, self.cfg, self.exec_cfg, x_t, state,
+                               packed) * mask
+
+    def _join(self, w: torch.Tensor, mask: torch.Tensor,
+              returns: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The cross-sectional steps over a whole bucket's [K, B, Nb]."""
         if self.cfg.normalize_w:
             w = masked_zero_mean(w, mask)
         w = normalize_weights_abs(w, mask)
@@ -561,21 +714,221 @@ class InferenceEngine:
         self.events.counter("serve/capture", bucket=nb, batch=b)
         return g
 
+    # -- the mesh's per-span staging and dispatch -----------------------------
+
+    def _span_staging(self, nb: int, b: int) -> Dict[str, Any]:
+        """Host staging for one (stock bucket, batch bucket) on the mesh:
+        each position's stock span, and one zeroed, reused (individual,
+        mask, returns) triple per UNIQUE span, pinned on a CUDA device —
+        positions that share a span across the member axis share its
+        buffers. Callers hold the dispatch lock."""
+        key = (nb, b)
+        plan = self._span_plans.get(key)
+        if plan is None:
+            w = nb // self._stock_shards
+            spans = [(p.stock_part * w, (p.stock_part + 1) * w)
+                     for p in self._positions]
+            unique = sorted(set(spans))
+            pin = self.device.type == "cuda"
+            f = self.cfg.individual_feature_dim
+            plan = {
+                "spans": unique,
+                "span_ix": [unique.index(sp) for sp in spans],
+                "buffers": [
+                    (torch.zeros((b, a1 - a0, f), pin_memory=pin),
+                     torch.zeros((b, a1 - a0), pin_memory=pin),
+                     torch.zeros((b, a1 - a0), pin_memory=pin))
+                    for a0, a1 in unique],
+            }
+            self._span_plans[key] = plan
+        else:
+            for triple in plan["buffers"]:
+                for a in triple:
+                    a.zero_()
+        return plan
+
+    @staticmethod
+    def _fill(spans: List[Tuple[int, int]],
+              bufs: List[Tuple[torch.Tensor, ...]],
+              requests: List[InferenceRequest],
+              inds: List[np.ndarray]) -> None:
+        """Write each request's rows into the staging: one (individual,
+        mask, returns) triple per stock span, sorted (the one-device
+        engine's is the one span (0, Nb)); padded tails stay zero."""
+        views = [tuple(a.numpy() for a in t) for t in bufs]
+        for i, (r, ind) in enumerate(zip(requests, inds)):
+            n = ind.shape[0]
+            m = None if r.mask is None else np.asarray(r.mask, np.float32)
+            ret = (None if r.returns is None
+                   else np.asarray(r.returns, np.float32))
+            for (a0, a1), (bi, bm, br) in zip(spans, views):
+                hi = min(n, a1)
+                if hi <= a0:
+                    break  # nothing of this request left
+                bi[i, :hi - a0] = ind[a0:hi]
+                bm[i, :hi - a0] = 1.0 if m is None else m[a0:hi]
+                if ret is not None:
+                    br[i, :hi - a0] = ret[a0:hi]
+
+    def _put_spans(self, plan: Dict[str, Any], nb: int
+                   ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]],
+                              torch.Tensor, torch.Tensor]:
+        """The eager route's device inputs: each position's (individual,
+        mask) span on its device, and the whole bucket's mask and returns
+        on the first position's."""
+        spans = []
+        for pos, ix in zip(self._positions, plan["span_ix"]):
+            bi, bm, _ = plan["buffers"][ix]
+            spans.append((bi.to(pos.device, non_blocking=True),
+                          bm.to(pos.device, non_blocking=True)))
+        mask = torch.cat([t[1] for t in plan["buffers"]], dim=1)
+        returns = torch.cat([t[2] for t in plan["buffers"]], dim=1)
+        return (spans, mask.to(self.device, non_blocking=True),
+                returns.to(self.device, non_blocking=True))
+
+    def _span_state(self, pos: _Position, idx: List[int]
+                    ) -> Optional[torch.Tensor]:
+        if not self._uses_state:
+            return None
+        m0, m1 = pos.members
+        return self._hs[m0:m1][:, idx].to(pos.device)
+
+    @torch.inference_mode()
+    def _forward_spans(self, plan: Dict[str, Any], nb: int, b: int,
+                       idx: List[int]) -> Dict[str, torch.Tensor]:
+        """The eager forward over the mesh: every position's weights on
+        its device, gathered onto the first, then the cross-section."""
+        spans, mask, returns = self._put_spans(plan, nb)
+        gathered = torch.zeros((self.n_members, b, nb), device=self.device)
+        for pos, ix, (ind, m) in zip(self._positions, plan["span_ix"],
+                                     spans):
+            with partition.on_device(pos.device):
+                w = self._raw(pos.params, pos.packed,
+                              self._span_state(pos, idx), ind, m)
+            a0, a1 = plan["spans"][ix]
+            gathered[pos.members[0]:pos.members[1], :, a0:a1].copy_(w)
+        return self._join(gathered, mask, returns)
+
+    def _capture_spans(self, nb: int, b: int) -> List[_SpanGraph]:
+        """Capture one graph per position for the (nb, b) bucket: each
+        position's weights over its span into a static output; the first
+        position's graph also copies its own into the gathered [K, B, Nb]
+        buffer (the others are copied there between replays) and runs the
+        cross-section. Each forward runs once uncaptured first, as in
+        :meth:`_capture`. Callers hold the dispatch lock."""
+        f = self.cfg.individual_feature_dim
+        w = nb // self._stock_shards
+        dev0 = self.device
+        gathered = torch.zeros((self.n_members, b, nb), device=dev0)
+        mask_all = torch.zeros((b, nb), device=dev0)
+        returns_all = torch.zeros((b, nb), device=dev0)
+        graphs: List[Optional[_SpanGraph]] = [None] * len(self._positions)
+        # the first position last: its graph reads what the others wrote
+        for p in list(range(1, len(self._positions))) + [0]:
+            pos = self._positions[p]
+            dev = pos.device
+            a0 = pos.stock_part * w
+            m0, m1 = pos.members
+            ind = torch.zeros((b, w, f), device=dev)
+            mask = torch.zeros((b, w), device=dev)
+            state = None
+            if self._uses_state:
+                state = torch.zeros((m1 - m0, b, self.state_dim),
+                                    device=dev)
+                state.copy_(self._hs[m0:m1, :1].expand(-1, b, -1))
+
+            def body(pos=pos, ind=ind, mask=mask, state=state, p=p,
+                     a0=a0, m0=m0, m1=m1):
+                out_w = self._raw(pos.params, pos.packed, state, ind, mask)
+                if p:
+                    return {"w": out_w}
+                gathered[m0:m1, :, a0:a0 + w].copy_(out_w)
+                return self._join(gathered, mask_all, returns_all)
+
+            with partition.on_device(dev):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side), torch.inference_mode():
+                    body()
+                side.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                with self.events.span("serve/capture", bucket=nb, batch=b,
+                                      position=p):
+                    with torch.cuda.graph(graph, stream=side,
+                                          capture_error_mode="thread_local"), \
+                            torch.inference_mode():
+                        out = body()
+                torch.cuda.current_stream(dev).wait_stream(side)
+            graphs[p] = _SpanGraph(graph, ind, mask, state, out)
+            with self._lock:
+                self._captures += 1
+            self.events.counter("serve/capture", bucket=nb, batch=b,
+                                position=p)
+        graphs[0].gathered = gathered
+        graphs[0].mask_all = mask_all
+        graphs[0].returns_all = returns_all
+        self._span_graphs[(nb, b)] = graphs
+        return graphs
+
+    @torch.inference_mode()
+    def _dispatch_spans(self, nb: int, b: int, months: List[int],
+                        plan: Dict[str, Any], graphs: bool
+                        ) -> Dict[str, np.ndarray]:
+        """One forward of filled span staging → host outputs. Callers
+        hold the dispatch lock. ``graphs``: replay each position's graph
+        (the first last); False runs the same steps eagerly."""
+        idx = months + [months[0]] * (b - len(months))
+        if not graphs:
+            out = self._forward_spans(plan, nb, b, idx)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+        gs = self._span_graphs.get((nb, b)) or self._capture_spans(nb, b)
+        g0 = gs[0]
+        for (a0, a1), (_, bm, br) in zip(plan["spans"], plan["buffers"]):
+            g0.mask_all[:, a0:a1].copy_(bm, non_blocking=True)
+            g0.returns_all[:, a0:a1].copy_(br, non_blocking=True)
+        for p in list(range(1, len(gs))) + [0]:
+            g, pos = gs[p], self._positions[p]
+            bi, bm, _ = plan["buffers"][plan["span_ix"][p]]
+            with partition.on_device(pos.device):
+                g.individual.copy_(bi, non_blocking=True)
+                g.mask.copy_(bm, non_blocking=True)
+                if g.state is not None:
+                    m0, m1 = pos.members
+                    for i, m in enumerate(idx):
+                        g.state[:, i].copy_(self._hs[m0:m1, m])
+                g.graph.replay()
+            if p:
+                a0, a1 = plan["spans"][plan["span_ix"][p]]
+                m0, m1 = pos.members
+                g0.gathered[m0:m1, :, a0:a1].copy_(g.out["w"])
+        out = {k: v.cpu().numpy() for k, v in g0.out.items()}
+        with self._lock:
+            self._replays += 1
+        return out
+
     def warmup(self) -> int:
         """Allocate every (stock bucket, batch bucket)'s host staging and,
-        on a CUDA device, capture its graph — so steady-state serving
-        captures nothing and allocates no host memory. Returns the number
-        of buckets warmed."""
+        on a CUDA device, capture its graph (one per mesh position) — so
+        steady-state serving captures nothing and allocates no host memory.
+        Returns the number of buckets warmed."""
         n = 0
         for nb in self.stock_buckets:
             for b in self.batch_buckets:
                 with self._infer_lock:
-                    self._staging_buffers(nb, b)
-                    if self.uses_graphs and (nb, b) not in self._graphs:
-                        self._capture(nb, b)
+                    if self._sharded_dispatch:
+                        self._span_staging(nb, b)
+                        if (self.uses_graphs
+                                and (nb, b) not in self._span_graphs):
+                            self._capture_spans(nb, b)
+                    else:
+                        self._staging_buffers(nb, b)
+                        if self.uses_graphs and (nb, b) not in self._graphs:
+                            with partition.on_device(self.device):
+                                self._capture(nb, b)
                 n += 1
         if self.uses_graphs:
-            torch.cuda.synchronize(self.device)
+            for dev in {p.device for p in self._positions} | {self.device}:
+                torch.cuda.synchronize(dev)
         with self._lock:
             self._warmup_captures = self._captures
         return n
@@ -611,16 +964,17 @@ class InferenceEngine:
                             mask.to(dev, non_blocking=True),
                             returns.to(dev, non_blocking=True))
             return {k: v.cpu().numpy() for k, v in out.items()}
-        g = self._graphs.get((nb, b)) or self._capture(nb, b)
-        g.individual.copy_(individual, non_blocking=True)
-        g.mask.copy_(mask, non_blocking=True)
-        g.returns.copy_(returns, non_blocking=True)
-        if g.state is not None:
-            # the macro state lives outside the graph (append_month rebinds
-            # it): gather the months' rows into the static input
-            for i, m in enumerate(idx):
-                g.state[:, i].copy_(self._hs[:, m])
-        g.graph.replay()
+        with partition.on_device(dev):
+            g = self._graphs.get((nb, b)) or self._capture(nb, b)
+            g.individual.copy_(individual, non_blocking=True)
+            g.mask.copy_(mask, non_blocking=True)
+            g.returns.copy_(returns, non_blocking=True)
+            if g.state is not None:
+                # the macro state lives outside the graph (append_month
+                # rebinds it): gather the months' rows into the static input
+                for i, m in enumerate(idx):
+                    g.state[:, i].copy_(self._hs[:, m])
+            g.graph.replay()
         out = {k: v.cpu().numpy() for k, v in g.out.items()}
         with self._lock:
             self._replays += 1
@@ -657,18 +1011,19 @@ class InferenceEngine:
             attrs["flush"] = flush
         with self._infer_lock:
             months = self._resolve_months(requests)
-            stage = self._staging_buffers(nb, b)
-            xv, mv, rv = (a.numpy() for a in stage)
-            for i, (r, ind) in enumerate(zip(requests, inds)):
-                n = ind.shape[0]
-                xv[i, :n] = ind
-                mv[i, :n] = (1.0 if r.mask is None
-                             else np.asarray(r.mask, np.float32))
-                if r.returns is not None:
-                    rv[i, :n] = np.asarray(r.returns, np.float32)
-            with self.events.span("serve/dispatch", **attrs):
-                out = self._dispatch(nb, b, months, stage,
-                                     graphs and self.uses_graphs)
+            if self._sharded_dispatch:
+                plan = self._span_staging(nb, b)
+                self._fill(plan["spans"], plan["buffers"], requests, inds)
+                attrs["shards"] = len(self._positions)
+                with self.events.span("serve/dispatch", **attrs):
+                    out = self._dispatch_spans(nb, b, months, plan,
+                                               graphs and self.uses_graphs)
+            else:
+                stage = self._staging_buffers(nb, b)
+                self._fill([(0, nb)], [stage], requests, inds)
+                with self.events.span("serve/dispatch", **attrs):
+                    out = self._dispatch(nb, b, months, stage,
+                                         graphs and self.uses_graphs)
             # merged INSIDE the dispatch lock: a reload's quality reset
             # also runs under it, so a pre-swap batch never leaks its
             # stats into the post-swap generation's gauges
@@ -710,11 +1065,21 @@ class InferenceEngine:
                 "steady_state_captures": (
                     self._captures - self._warmup_captures
                     if self._warmup_captures is not None else None),
-                "captured_graphs": len(self._graphs),
+                "captured_graphs": len(self._graphs) + sum(
+                    len(g) for g in self._span_graphs.values()),
                 "replays": self._replays,
                 "dispatches": self._dispatches,
-                "staging_buffers": len(self._staging),
+                "staging_buffers": len(self._staging) + len(
+                    self._span_plans),
                 "device": str(self.device),
+                # the serving mesh: axes as laid out, its positions, and
+                # whether dispatch stages per-position spans (False on the
+                # one-device engine)
+                "mesh": partition.mesh_spec_str(self._mesh),
+                "mesh_devices": int(self._mesh.devices.size),
+                "stock_shards": self._stock_shards,
+                "member_axis": self._member_axis,
+                "sharded_dispatch": self._sharded_dispatch,
                 "ffn_route": ("plain" if self.exec_cfg.kernel == "off"
                               or self.device.type == "cpu" else "cuda"),
                 "compute_dtype": self.exec_cfg.compute_dtype,

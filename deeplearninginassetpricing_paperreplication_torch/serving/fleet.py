@@ -75,7 +75,9 @@ def server_child_argv(args, replica_id: int, replica_run_dir,
     from the promotion pointer instead of a fixed ``--checkpoint_dirs``
     list — so a replica restarted mid-promotion converges to the
     pointer's generation on its own. Every replica runs with the parent's
-    ``--device``, ``--kernel`` and ``--compute_dtype``."""
+    ``--device``, ``--kernel`` and ``--compute_dtype``, and the parent's
+    ``--mesh`` over its device slice (``--mesh_slice i % N:N`` from
+    ``--mesh_slices N``)."""
     argv = [sys.executable, "-m", f"{_ROOT_PKG}.serving.server",
             "--server", "async",
             "--host", args.host, "--port", str(port), "--reuse_port",
@@ -104,6 +106,15 @@ def server_child_argv(args, replica_id: int, replica_run_dir,
         argv += ["--stock_buckets", args.stock_buckets]
     if args.batch_buckets:
         argv += ["--batch_buckets", args.batch_buckets]
+    if getattr(args, "mesh", None):
+        argv += ["--mesh", args.mesh]
+        n_slices = getattr(args, "mesh_slices", None)
+        if n_slices:
+            # the replica↔device-slice lease: replica i of a co-hosted fleet
+            # lays its mesh over disjoint contiguous slice i % N. The parent
+            # never touches a device, so it stamps the INDEX and the replica
+            # resolves its own devices (partition.slice_devices)
+            argv += ["--mesh_slice", f"{replica_id % n_slices}:{n_slices}"]
     if args.max_batch is not None:
         argv += ["--max_batch", str(args.max_batch)]
     if args.no_warmup:
@@ -587,7 +598,9 @@ def main_from_server_args(args) -> int:
     controller = FleetController(
         fleet, make_argv, args.host, port,
         admin_ports={i: p for i, p in enumerate(admin_ports)},
-        pointer=getattr(args, "pointer", None))
+        pointer=getattr(args, "pointer", None),
+        mesh=getattr(args, "mesh", None),
+        mesh_slices=getattr(args, "mesh_slices", None))
     # the CONFIGURED layout, on disk before any replica is up: a slow or
     # wedged boot is still inspectable (port + admin endpoints); the
     # post-ready publish below and every scale event rewrite it live

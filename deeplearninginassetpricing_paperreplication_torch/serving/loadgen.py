@@ -19,7 +19,7 @@ The bench functions (``bench_serving``: the deprecated threaded server;
 ``bench_serving_async``: the production path, a supervised replica fleet
 on one shared port, closed-loop at c=32 and up a rate ladder over every
 wire; ``bench_rolling_reload``, ``bench_loadadapt``, ``bench_slo``,
-``bench_tracing_overhead``) return the JAX package's result dicts, key for
+``bench_tracing_overhead``, ``bench_meshserve``) return the JAX package's result dicts, key for
 key, but for "steady-state recompiles", which on the port are CUDA-graph
 captures after warmup (``steady_state_captures``). They write no file.
 The replicas run on the CUDA device unless the caller passes
@@ -1856,6 +1856,335 @@ def bench_tracing_overhead(
                 "request row per request, =0 only the aggregate span_end "
                 "twin; the bar requires the ratio >= 0.95 "
                 "(tracing overhead <= 5% of closed-loop rps)",
+    }
+
+
+# -- the mesh-serving benchmark -------------------------------------------------
+
+
+def _span_mesh(device: str, spec: Optional[str]):
+    """The sharded engine's mesh: `spec` over the route's local devices (the
+    CLI's rule: more devices than the host has is an error), or by default
+    ``stocks=S`` with S the device count but at least 2, laid over the
+    devices in turn (on one device, two spans of it)."""
+    from ..parallel import partition
+
+    devices = partition.local_devices(device)
+    if spec is not None:
+        return partition.parse_mesh_spec(spec, devices)
+    n = max(2, len(devices))
+    return partition.MeshConfig(((partition.STOCK_AXIS, n),),
+                                tuple(devices[i % len(devices)]
+                                      for i in range(n)))
+
+
+def bench_meshserve(
+    n_stocks: int = 10_240,
+    n_features: int = 46,
+    n_macro: int = 8,
+    n_members: int = 3,
+    months: int = 24,
+    n_pairs: int = 24,
+    mesh_spec: Optional[str] = None,
+    tol: float = 1e-5,
+    fleet_stocks: int = 512,
+    fleet_rate_rps: float = 30.0,
+    fleet_seconds: float = 10.0,
+    seed: int = 42,
+    device: str = "cuda",
+    compute_dtype: str = "float32",
+) -> Dict[str, Any]:
+    """The mesh-serving benchmark, three legs, as the JAX package's:
+
+      * identity: the one-device engine against a degenerate ``stocks=1``
+        mesh (bit for bit: placement only) and against the sharded engine
+        (`mesh_spec` over the local devices; by default one span per
+        device, at least two, so one card runs the span path too), paired
+        requests in alternating order. The sharded engine gathers the
+        members' weights onto its first position and runs the
+        cross-section there; ``sharded_max_abs_diff`` must stay within
+        `tol`. A hot swap of a rewritten member mid-run re-checks it
+        against a fresh one-device engine of the new weights.
+      * invariants: captures after warmup (the port's counterpart of the
+        JAX engine's recompiles) are 0 on every engine and every replica
+        incarnation; the engines warm the same buckets.
+      * fault matrix: a supervised 2-replica fleet, ``--mesh stocks=-1
+        --mesh_slices`` the device count (at most 2; one card: both on its
+        one slice), under open-loop load with retries; replica 0 is
+        SIGKILLed mid-load and restarted. ``dropped_requests`` must be 0.
+
+    Writes no file outside its temporary directory; the replicas run on
+    `device`."""
+    import os as _os
+    import signal as _signal
+    import tempfile
+    from pathlib import Path
+
+    from ..parallel import partition
+    from ..utils.config import ExecutionConfig, GANConfig
+    from .aserver import pick_free_port
+    from .engine import InferenceEngine, InferenceRequest
+    from .fleet import ReplicaFleet, server_child_argv
+    from .server import BINARY_CONTENT_TYPE
+
+    n_devices = len(partition.local_devices(device))
+    exec_cfg = ExecutionConfig(device=device, compute_dtype=compute_dtype)
+    rng = np.random.default_rng(seed)
+    cfg = GANConfig(macro_feature_dim=n_macro,
+                    individual_feature_dim=n_features)
+    macro = rng.standard_normal((months, n_macro)).astype(np.float32)
+
+    def _requests(n, stocks, offset=0):
+        out = []
+        for i in range(n):
+            r = np.random.default_rng(seed + 1 + offset + i)
+            out.append(InferenceRequest(
+                individual=r.standard_normal(
+                    (stocks, n_features)).astype(np.float32),
+                mask=(r.random(stocks) > 0.1).astype(np.float32),
+                returns=(r.standard_normal(stocks) * 0.05).astype(
+                    np.float32),
+                month=int(i % months)))
+        return out
+
+    def _identity(a, b):
+        """(bitwise, max_abs_diff) over a pair of results."""
+        d = 0.0
+        if a.weights.size:
+            d = float(np.max(np.abs(a.weights - b.weights)))
+        if a.sdf is not None and b.sdf is not None:
+            d = max(d, abs(float(a.sdf) - float(b.sdf)))
+        return (np.array_equal(a.weights, b.weights) and a.sdf == b.sdf), d
+
+    def _engine(dirs, mesh=None):
+        return InferenceEngine(dirs, macro_history=macro,
+                               stock_buckets=(n_stocks,), batch_buckets=(1,),
+                               exec_cfg=exec_cfg, mesh=mesh)
+
+    n_slices = min(2, n_devices)
+    with tempfile.TemporaryDirectory(prefix="dlap_meshserve_") as td:
+        td = Path(td)
+        dirs = _make_member_dirs(td / "v1", cfg, range(1, n_members + 1))
+
+        t0 = time.monotonic()
+        single = _engine(dirs)
+        single_load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        sharded = _engine(dirs, _span_mesh(device, mesh_spec))
+        sharded_load_s = time.monotonic() - t0
+        degenerate = _engine(dirs, "stocks=1")
+
+        t0 = time.monotonic()
+        warmed_single = single.warmup()
+        single_warmup_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        warmed_sharded = sharded.warmup()
+        sharded_warmup_s = time.monotonic() - t0
+        degenerate.warmup()
+
+        # paired at the paper stock shape: the same request through both
+        # engines, the order alternated per pair
+        pair_single_s: List[float] = []
+        pair_sharded_s: List[float] = []
+        bitwise_all = degenerate_bitwise = True
+        max_diff = 0.0
+        for i, req in enumerate(_requests(n_pairs, n_stocks)):
+            order = ((single, pair_single_s), (sharded, pair_sharded_s))
+            if i % 2:
+                order = order[::-1]
+            results = {}
+            for eng, walls in order:
+                t0 = time.monotonic()
+                results[id(eng)] = eng.infer_one(req)
+                walls.append(time.monotonic() - t0)
+            bit, d = _identity(results[id(single)], results[id(sharded)])
+            bitwise_all = bitwise_all and bit
+            max_diff = max(max_diff, d)
+            dbit, _ = _identity(results[id(single)],
+                                degenerate.infer_one(req))
+            degenerate_bitwise = degenerate_bitwise and dbit
+
+        # the hot swap: member 0 rewritten on disk, the sharded engine
+        # reloads (every position's tensors, no capture) and must hold the
+        # same identity against a fresh one-device engine of the new params
+        swap_src = Path(_make_member_dirs(td / "v2", cfg, (101,))[0])
+        for f in swap_src.iterdir():
+            (Path(dirs[0]) / f.name).write_bytes(f.read_bytes())
+        t0 = time.monotonic()
+        reload_out = sharded.reload()
+        reload_s = time.monotonic() - t0
+        single2 = _engine(dirs)
+        single2.warmup()
+        swap_bitwise = True
+        swap_max_diff = 0.0
+        for req in _requests(4, n_stocks, offset=10**6):
+            bit, d = _identity(single2.infer_one(req),
+                               sharded.infer_one(req))
+            swap_bitwise = swap_bitwise and bit
+            swap_max_diff = max(swap_max_diff, d)
+        stats_single = single.stats()
+        stats_sharded = sharded.stats()
+
+        # -- fault matrix: a 2-replica fleet on device slices ----------------
+        np.save(td / "macro.npy", macro)
+        run_dir = td / "fleet_run"
+        args = _server_args(
+            run_dir, device, compute_dtype,
+            "--checkpoint_dirs", *dirs,
+            "--macro_npy", str(td / "macro.npy"),
+            "--stock_buckets", str(fleet_stocks),
+            "--batch_buckets", "1,2,4",
+            "--mesh", "stocks=-1", "--mesh_slices", str(n_slices),
+            "--max_queue", "512",
+            "--cache_size", "0")
+        port = pick_free_port()
+        admin_ports: List[int] = []
+        for _ in range(2):
+            ap = pick_free_port()
+            while ap in admin_ports or ap == port:
+                ap = pick_free_port()
+            admin_ports.append(ap)
+        argvs = [server_child_argv(args, i, run_dir / f"replica{i}", port,
+                                   admin_port=admin_ports[i])
+                 for i in range(2)]
+        fleet = ReplicaFleet(argvs, run_dir)
+        url = f"http://127.0.0.1:{port}/v1/weights"
+        bodies = []
+        for i in range(64):
+            r = np.random.default_rng(seed + 1 + i)
+            bodies.append(binary_payload_bytes(
+                r.standard_normal(
+                    (fleet_stocks, n_features)).astype(np.float32),
+                i % months))
+        n_requests = int(fleet_rate_rps * fleet_seconds)
+        load_out: Dict[str, Any] = {}
+
+        def _drive():
+            load_out.update(run_loadgen(
+                url, lambda i: bodies[i % len(bodies)], mode="open",
+                rate_rps=fleet_rate_rps, n_requests=n_requests,
+                warmup_requests=0, retries=2, timeout_s=30.0,
+                open_workers=8, content_type=BINARY_CONTENT_TYPE))
+
+        try:
+            t0 = time.monotonic()
+            fleet.start()
+            fleet.wait_ready(timeout=600.0)
+            startup_s = time.monotonic() - t0
+            # every batch-bucket shape served once before the measured load
+            run_loadgen(url, lambda i: bodies[i % len(bodies)],
+                        mode="closed", concurrency=8, n_requests=64,
+                        warmup_requests=4,
+                        content_type=BINARY_CONTENT_TYPE)
+            loader = threading.Thread(target=_drive, name="meshserve-load")
+            loader.start()
+            time.sleep(min(2.0, fleet_seconds / 4))
+            pid0 = fleet.replica_pid(0)
+            if pid0 is None:
+                raise RuntimeError("replica 0 has no live process to kill")
+            _os.kill(pid0, _signal.SIGKILL)
+            loader.join()
+            # the restarted incarnation must accept before its scrape (the
+            # invariants read its post-restart counters)
+            fleet.wait_ready(timeout=600.0)
+            per_replica: Dict[str, Any] = {}
+            for ap in admin_ports:
+                deadline = time.monotonic() + 120.0
+                while True:
+                    try:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{ap}/metrics",
+                                timeout=10) as r:
+                            m = json.loads(r.read())
+                        break
+                    except OSError:
+                        if time.monotonic() >= deadline:
+                            raise
+                        time.sleep(0.5)
+                per_replica[str(m.get("replica"))] = m
+        finally:
+            summaries = fleet.stop()
+
+    med_single = float(np.median(pair_single_s)) if pair_single_s else None
+    med_sharded = (float(np.median(pair_sharded_s))
+                   if pair_sharded_s else None)
+    captures = {
+        "single": stats_single["steady_state_captures"],
+        "sharded": stats_sharded["steady_state_captures"],
+        **{str(r): m["engine"]["steady_state_captures"]
+           for r, m in sorted(per_replica.items())},
+    }
+    return {
+        "shape": f"N={n_stocks} F={n_features} M={n_macro} "
+                 f"K={n_members} months={months}",
+        "devices": n_devices,
+        "mesh": mesh_spec,
+        "sharded_mesh": stats_sharded["mesh"],
+        "sharded_positions": stats_sharded["mesh_devices"],
+        "stock_shards": stats_sharded["stock_shards"],
+        "n_pairs": n_pairs,
+        "engine_load_s": {"single": round(single_load_s, 3),
+                          "sharded": round(sharded_load_s, 3)},
+        "warmup_capture_s": {"single": round(single_warmup_s, 3),
+                             "sharded": round(sharded_warmup_s, 3)},
+        "warmed_programs": {"single": warmed_single,
+                            "sharded": warmed_sharded},
+        "median_infer_ms": {
+            "single": (round(med_single * 1e3, 3)
+                       if med_single is not None else None),
+            "sharded": (round(med_sharded * 1e3, 3)
+                        if med_sharded is not None else None)},
+        "paired_median_ratio_single_over_sharded": (
+            round(med_single / med_sharded, 4)
+            if med_single and med_sharded else None),
+        "bit_identical": int(degenerate_bitwise and max_diff <= tol
+                             and swap_max_diff <= tol),
+        "bitwise_equal_sharded": int(bitwise_all),
+        "degenerate_bitwise": int(degenerate_bitwise),
+        "sharded_max_abs_diff": max_diff,
+        "tolerance": tol,
+        "hot_swap": {
+            "swapped": reload_out.get("swapped"),
+            "reload_s": round(reload_s, 3),
+            "max_abs_diff": swap_max_diff,
+            "bitwise_equal": int(swap_bitwise)},
+        "dispatches": {"single": stats_single["dispatches"],
+                       "sharded": stats_sharded["dispatches"]},
+        "captures": {"single": stats_single["captures"],
+                     "sharded": stats_sharded["captures"]},
+        "steady_state_captures": captures,
+        "steady_state_captures_max": max(captures.values()),
+        "fault_matrix": {
+            "replicas": 2,
+            "mesh": f"stocks=-1 over {n_slices} slice(s)",
+            "fleet_stocks": fleet_stocks,
+            "rate_rps": fleet_rate_rps,
+            "fleet_startup_s": round(startup_s, 3),
+            "n_requests": load_out.get("n_requests"),
+            "n_ok": load_out.get("n_ok"),
+            "dropped_requests": (int(load_out["n_requests"])
+                                 - int(load_out["n_ok"])),
+            "n_retried": load_out.get("n_retried"),
+            "errors": load_out.get("errors"),
+            "latency": load_out.get("latency"),
+            "replica_meshes": {
+                r: m["engine"]["mesh"]
+                for r, m in sorted(per_replica.items())},
+            "replica_devices": {
+                r: m["engine"]["device"]
+                for r, m in sorted(per_replica.items())},
+            "replica_restarts": [
+                (s or {}).get("restarts", 0) for s in summaries],
+        },
+        "note": "bit_identical = the degenerate stocks=1 mesh bit for bit "
+                "the one-device engine AND the sharded engine within "
+                "`tolerance` of it, across the hot swap. Steady-state "
+                "captures must be 0 everywhere. Fault matrix: replica 0 "
+                "SIGKILLed mid-load and restarted under supervision; "
+                "retries reach the survivor, so dropped_requests must be "
+                "0. Several spans on one device share its compute: a "
+                "paired ratio there measures the span path's overhead, "
+                "not a speedup.",
     }
 
 

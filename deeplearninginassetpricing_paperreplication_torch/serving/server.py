@@ -302,6 +302,8 @@ class ServingService:
                     "batch_buckets": list(engine.batch_buckets),
                     "device": str(engine.device),
                     "compute_dtype": engine.exec_cfg.compute_dtype,
+                    "mesh": engine.stats().get("mesh"),
+                    "mesh_devices": engine.stats().get("mesh_devices"),
                 },
             )
             self.heartbeat.beat("serve/start")
@@ -1603,6 +1605,25 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(default: powers of two capped at the panel size)")
     p.add_argument("--batch_buckets", type=str, default=None,
                    help="comma-separated batch-bucket ladder override")
+    p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
+                   help="serve from a mesh of this process's devices instead "
+                        "of one: a partition.parse_mesh_spec string "
+                        "('stocks=4', 'stocks=-1' to fill every device, "
+                        "'members=2,stocks=4', or a bare integer for the "
+                        "stock axis). Each stock bucket is cut into spans "
+                        "along 'stocks' (and the members along 'members'), "
+                        "a CUDA graph per span; a spec needing more devices "
+                        "than the host has is an error")
+    p.add_argument("--mesh_slices", type=int, default=None, metavar="N",
+                   help="fleet mode: cut the local devices into N disjoint "
+                        "contiguous slices (partition.slice_devices) and "
+                        "give replica i the slice i %% N, so co-hosted "
+                        "replicas never share a device; requires --mesh "
+                        "whose axes fit one slice")
+    p.add_argument("--mesh_slice", type=str, default=None, metavar="I:N",
+                   help="internal: lay this replica's --mesh over device "
+                        "slice I of N (written by the fleet parent from "
+                        "--mesh_slices)")
     p.add_argument("--max_batch", type=int, default=None,
                    help="max requests per flush (default: largest batch "
                         "bucket)")
@@ -1662,6 +1683,25 @@ def _load_macro(args):
     return None, None, None
 
 
+def mesh_config(spec: str, mesh_slice: Optional[str], device: str):
+    """``--mesh`` over the route's local devices or, with ``--mesh_slice
+    I:N`` (stamped by the fleet parent from ``--mesh_slices``), over slice
+    I of N of them: the lease contract the sweep's workers share, so
+    co-hosted replicas never touch one device. Raises ``ValueError`` for a
+    malformed slice or one the host cannot hold."""
+    from ..parallel import partition
+
+    devices = partition.local_devices(device)
+    if mesh_slice:
+        try:
+            idx, n_slices = (int(x) for x in mesh_slice.split(":", 1))
+        except ValueError:
+            raise ValueError(f"--mesh_slice must be I:N, got "
+                             f"{mesh_slice!r}") from None
+        devices = partition.slice_devices(idx, n_slices, devices=devices)
+    return partition.parse_mesh_spec(spec, devices)
+
+
 def build_service(args: argparse.Namespace,
                   events: Optional[EventLog] = None) -> ServingService:
     """Everything ``main`` serves, from parsed CLI arguments: the macro
@@ -1700,6 +1740,9 @@ def build_service(args: argparse.Namespace,
     batch_buckets = _parse_buckets(args.batch_buckets)
     if batch_buckets is not None:
         kwargs["batch_buckets"] = batch_buckets
+    if args.mesh:
+        kwargs["mesh"] = mesh_config(args.mesh, args.mesh_slice,
+                                     exec_cfg.device)
     engine = InferenceEngine(checkpoint_dirs, exec_cfg=exec_cfg, **kwargs)
     # the drift reference profile: an explicit path wins; 'off' disables;
     # default = the first serving member dir carrying one

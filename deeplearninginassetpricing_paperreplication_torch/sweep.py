@@ -37,8 +37,13 @@ rerun memmaps the cached decode) and ships mask-packed
 configuration rounds the panel to bf16 anyway; ``--small_sample`` keeps
 ``--n_periods`` × ``--n_stocks``. Workers run on the coordinator's
 ``--device``, ``--kernel`` and ``--compute_dtype``: a worker without a
-card fails rather than train on the CPU. Not ported yet:
-``--device_slices``/``--slice_width`` (the mesh-packed search).
+card fails rather than train on the CPU. ``--device_slices S``
+(``--slice_width W``) packs the search over the process's devices
+(``parallel/partition.local_devices``): each worker leases one of S
+disjoint slices of W devices and lays every bucket's grid over it
+(``parallel/sweep.py``'s ``grid_mesh``); with ``--workers 0`` one slice
+spans the local devices. A layout the host cannot hold fails before any
+work starts.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from .parallel.ensemble import (
     member_weights,
     train_ensemble,
 )
+from .parallel.partition import grid_slice_mesh, local_devices, slice_devices
 from .parallel.sweep import (
     architecture_signature,
     bucket_work_items,
@@ -231,6 +237,7 @@ def run_protocol(
     consult_ledger: bool = False,
     coverage: Optional[Dict] = None,
     heartbeat=None,
+    grid_mesh=None,
 ) -> Dict:
     """Search → winners → per-winner member-stacked seed ensembles → report.
 
@@ -251,6 +258,8 @@ def run_protocol(
     widen the search-vs-retrain rank comparison (the Spearman in
     ``report["search_vs_retrain"]``) to ≥ 8 pairs; every point there is
     valued at the same member count. ≤ top_k disables the retrains.
+
+    `grid_mesh`: the search's mesh packing (``run_sweep``).
     """
     t0 = time.time()
     exec_cfg = exec_cfg or ExecutionConfig()
@@ -280,6 +289,7 @@ def run_protocol(
                 verbose=verbose, member_chunk=member_chunk,
                 exec_cfg=exec_cfg, stats_out=search_stats, ledger=ledger,
                 consult_ledger=consult_ledger, heartbeat=heartbeat,
+                grid_mesh=grid_mesh,
             )
     search_s = time.time() - t0
     if save_dir:  # also on resume: keep the artifact contract in save_dir
@@ -498,6 +508,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--retry_backoff", type=float, default=2.0, metavar="S",
                    help="Elastic: per-bucket retry backoff base (doubles "
                         "per attempt — the supervisor's backoff curve)")
+    p.add_argument("--device_slices", type=int, default=0, metavar="S",
+                   help="Mesh-packed search: cut the local devices into S "
+                        "disjoint contiguous slices; each worker leases ONE "
+                        "slice (the queue's device-slice lease) and lays "
+                        "its buckets' (lr × seed) grids over a ('grid',) "
+                        "mesh of that slice's devices. With --workers 0 one "
+                        "slice spans the local devices. 0 (default): no "
+                        "mesh. A grid point trains the same either way")
+    p.add_argument("--slice_width", type=int, default=None, metavar="W",
+                   help="Devices per slice (default: local device count "
+                        "// device_slices)")
     p.add_argument("--bucket_timeout", type=float, default=3600.0,
                    metavar="S",
                    help="Elastic: per-bucket wall budget. While a bucket "
@@ -667,6 +688,10 @@ def _prepare_queue(args, configs, search_tcfg, save_dir, events, logger,
         "retry_backoff_s": args.retry_backoff,
         "bucket_timeout_s": args.bucket_timeout,
         "execution": execution,
+        # mesh packing is fleet-consistent: every worker must agree on the
+        # device partitioning, so it rides the manifest
+        "device_slices": int(args.device_slices or 0),
+        "slice_width": args.slice_width,
     }
     keep = False
     if args.resume_from_ledger and queue.queue_path().exists():
@@ -872,9 +897,31 @@ def _protocol(args, exec_cfg, device, save_dir, events, hb, logger, argv):
             "resume_from_ledger": bool(args.resume_from_ledger),
             "quorum": args.quorum,
             "execution": execution_of(exec_cfg),
+            "device_slices": args.device_slices,
         },
     )
     hb.beat("protocol")
+    if args.device_slices:
+        # fail HERE, not as a worker crash loop after slice leases are
+        # claimed: the fit check is slice_devices itself, so the pre-flight
+        # cannot drift from what the workers enforce
+        try:
+            slice_devices(0, args.device_slices, args.slice_width,
+                          devices=local_devices(device))
+        except ValueError as e:
+            raise SystemExit(
+                f"--device_slices {args.device_slices}"
+                + (f" --slice_width {args.slice_width}"
+                   if args.slice_width else "")
+                + f" does not fit the local devices: {e}") from e
+        if args.workers > args.device_slices:
+            # legal: a worker with no slice lease polls until one frees, so
+            # the surplus are hot spares that train only after another
+            # worker dies and its slice expires
+            logger.warning(
+                f"[sweep] --workers {args.workers} > --device_slices "
+                f"{args.device_slices}: {args.workers - args.device_slices} "
+                "worker(s) will idle as hot spares until a slice frees")
 
     # stage-1 durability: every completed bucket lands in the save dir's
     # ledger (and the work manifest is written up front), so any restart —
@@ -891,6 +938,15 @@ def _protocol(args, exec_cfg, device, save_dir, events, hb, logger, argv):
     else:
         ledger = SweepLedger(save_dir / LEDGER_DIRNAME)
 
+    # in-process mesh packing: one slice spanning the local devices (the
+    # elastic fleet leases one slice per worker through the manifest)
+    grid_mesh = None
+    if args.device_slices and args.workers == 0:
+        grid_mesh = grid_slice_mesh(0, 1, width=args.slice_width,
+                                    devices=local_devices(device))
+        logger.info(f"[sweep] mesh-packed grids over "
+                    f"{grid_mesh.devices.size} device(s)")
+
     if args.search_only:
         if ranking is None:
             with events.span("protocol/search", n_combos=len(configs)):
@@ -899,7 +955,7 @@ def _protocol(args, exec_cfg, device, save_dir, events, hb, logger, argv):
                     tcfg=search_tcfg, top_k=None, keep_params=False,
                     member_chunk=args.member_chunk, exec_cfg=exec_cfg,
                     ledger=ledger, consult_ledger=args.resume_from_ledger,
-                    heartbeat=hb)
+                    heartbeat=hb, grid_mesh=grid_mesh)
         path = write_ranking(save_dir, ranking, coverage)
         if coverage is not None:
             update_manifest(save_dir, search_coverage=coverage)
@@ -923,6 +979,7 @@ def _protocol(args, exec_cfg, device, save_dir, events, hb, logger, argv):
         consult_ledger=args.resume_from_ledger,
         coverage=coverage,
         heartbeat=hb,
+        grid_mesh=grid_mesh,
     )
     # late provenance into the manifest: quorum drops and degraded-search
     # coverage only exist after the protocol ran

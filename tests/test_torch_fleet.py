@@ -76,16 +76,17 @@ def test_children_inherit_the_execution_flags(tmp_path):
 
 
 def test_server_cli_has_the_jax_fleet_flags():
-    """Every serving flag of the JAX CLI but the mesh's three, with the
-    same defaults for the fleet and autoscaler flags."""
+    """Every serving flag of the JAX CLI, the mesh's three included, with
+    the same defaults for the fleet, autoscaler and mesh flags."""
     from deeplearninginassetpricing_paperreplication_tpu.serving.server import (  # noqa: E501
         build_arg_parser as j_parser,
     )
 
     ours = {a.dest: a.default for a in build_arg_parser()._actions}
     theirs = {a.dest: a.default for a in j_parser()._actions}
-    assert set(theirs) - set(ours) == {"mesh", "mesh_slices", "mesh_slice"}
-    for dest in ("replicas", "replica_id", "autoscale", "min_replicas",
+    assert set(theirs) - set(ours) == set()
+    for dest in ("mesh", "mesh_slices", "mesh_slice",
+                 "replicas", "replica_id", "autoscale", "min_replicas",
                  "max_replicas", "autoscale_up_depth",
                  "autoscale_down_depth", "autoscale_up_hysteresis",
                  "autoscale_down_hysteresis", "autoscale_poll_s",

@@ -517,8 +517,9 @@ def test_port_worker_ranking_holds_the_jax_run_sweep(splits, tmp_path):
 
 
 def test_sweep_cli_takes_the_jax_elastic_flags():
-    """Every flag of the JAX sweep CLI but the mesh-packed search's
-    --device_slices and --slice_width; the port adds its execution flags."""
+    """Every flag of the JAX sweep CLI, the mesh-packed search's
+    --device_slices and --slice_width included, with their defaults; the
+    port adds its execution flags."""
     from deeplearninginassetpricing_paperreplication_torch import sweep
     from deeplearninginassetpricing_paperreplication_tpu import (
         sweep as jsweep,
@@ -529,5 +530,9 @@ def test_sweep_cli_takes_the_jax_elastic_flags():
 
     ours, theirs = flags(sweep.build_arg_parser()), flags(
         jsweep.build_arg_parser())
-    assert theirs - ours == {"device_slices", "slice_width"}
+    assert theirs - ours == set()
     assert ours - theirs == {"device", "compute_dtype", "kernel"}
+    defaults = [{a.dest: a.default for a in p._actions} for p in (
+        sweep.build_arg_parser(), jsweep.build_arg_parser())]
+    for dest in ("device_slices", "slice_width"):
+        assert defaults[0][dest] == defaults[1][dest], dest
