@@ -80,6 +80,10 @@
                                       # the training kernels' libraries,
                                       # then phase 18 alone (no result
                                       # line)
+    python3 chip_smoke.py --only_multihost
+                                      # the training kernels' libraries,
+                                      # then phase 19 alone (no result
+                                      # line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -388,6 +392,30 @@ Phases, each printing its results; any failure exits non-zero:
    request lost; (d) ``bench_meshserve`` at a small load. Launches
    (``mesh``): this process's over (a)–(d) and the fleet survivor's
    forwards.
+
+19. Multi-process training and sequence parallelism (``_smoke_multihost/``,
+   removed after): first the four training kernels at the path's shapes
+   against their plain versions (``at_multihost_shapes``: S = 1, f32,
+   dropout 0, K = 8; the worker CLI's T = 6, N = 8, F = 5, hidden (4,), and
+   a rank's T = 48, N = 10,000 and 5,000, F = 46, hidden (64, 64)); then
+   worlds of rank processes on a TCP store (``spawn_world``: gloo ranks
+   sharing card 0, or NCCL with a card each where the host has as many),
+   each rank one conditional ``train_step`` of its mesh row's member with
+   the row's stock sums all-reduced over the row: (a) the worker CLI at
+   the JAX shapes, two ranks, mesh [2, 1]: the ranks' gathered losses
+   equal and each member's bit for bit its one-process step on the card;
+   (b) the worker at the paper width (F = 46, M = 178, hidden (64, 64),
+   LSTM (4,), K = 8, T = 48, N = 10,000, f32, dropout 0): [2, 1] bit for
+   bit the one-process step; four ranks on two granules (``GROUP_RANK``
+   0, 0, 1, 1), mesh [2, 2], every rank planning its kernels at N = 5,000
+   and holding the same losses, within rtol 2e-4 of [2, 1]; [2, 1] with
+   ``--kernel off`` within the loss bar 1e-3, launching nothing; each
+   rank's launches of rows 1, 3, 6, 7 (one each on the kernel route) and
+   each world's wall; (c) ``sequence_sharded_lstm`` (I = 178, H = 4) over
+   four time positions (spans of card 0, or one card each on four) at T =
+   600 (atol 1e-6) and 16,384 (atol 1e-5) against the one-device
+   ``lstm_scan``, both timed; a ragged T raises. Launches (``multihost``):
+   the kernel-route ranks' of (a) and (b).
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -7898,6 +7926,368 @@ def mesh_phase(torch, K, C, card, splits):
                 bench=bench, wall_s=wall)
 
 
+# -- phase 19: multi-process training and sequence parallelism ----------------
+
+MULTIHOST_DIR = ROOT / "_smoke_multihost"
+# (b): phase 6's model at the paper width without dropout, f32, over the
+# worker's panel (NumPy from seed 0) at T = 48, N = 10,000
+MH_PAPER = dict(macro_feature_dim=178, individual_feature_dim=46,
+                hidden_dim=[64, 64], num_units_rnn=[4], num_condition_moment=8,
+                dropout=0.0)
+MH_T, MH_N = 48, 10_000
+MH_CLI_PER = 8  # (a): the worker CLI's default stocks a rank (mesh [2, 1])
+MH_STEP = (1, 1, 1, 1)  # one conditional train_step: rows 1, 3, 6, 7
+MH_RTOL = 2e-4  # [2, 2] against [2, 1]: only the stock sums' order differs
+# a rank of (b): the worker at the paper width (the CLI takes no widths)
+MH_PAPER_RANK = (
+    "import json, sys\n"
+    f"from {PKG}.parallel.multihost_worker import worker\n"
+    f"from {PKG}.utils.config import GANConfig\n"
+    "out = worker(cfg=GANConfig(**json.loads(sys.argv[2])),\n"
+    "             **json.loads(sys.argv[1]))\n"
+    "print(json.dumps(out), flush=True)\n")
+# (c): the paper's macro LSTM (I = 178, H = 4) over four time positions
+SEQ_I, SEQ_H, SEQ_D = 178, 4, 4
+SEQ_CASES = ((600, 1e-6), (16_384, 1e-5))  # 240 + 60 + 300 months; daily
+
+
+def multihost_kernel_checks(torch, K, C, card):
+    """The four training kernels at the multihost path's shapes (S = 1,
+    f32, dropout 0, K = 8) against their plain versions: the worker CLI's
+    (T = 6, N = 8, F = 5, hidden (4,)) and a rank's at the paper width (T =
+    48, N = 10,000 and 5,000, F = 46, hidden (64, 64)). Returns {kernel:
+    {case: row}} for the kernels line."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases = [("cli", 6, MH_CLI_PER, 5, [4]),
+             ("paper [2, 1]", MH_T, MH_N, 46, [64, 64]),
+             ("paper [2, 2]", MH_T, MH_N // 2, 46, [64, 64])]
+    rows = {n: {} for n in TRAIN_KERNELS}
+    Kn, cd, seed = 8, "float32", 19
+    for tag, T, N, F, hidden in cases:
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, 1, F, hidden, dev)
+        zp = (zp1 + torch.randn(1, T, hidden[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        gout = torch.randn(1, T, N, generator=g, device=dev) / N
+        packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+        args = (x, zp, k1T, mids, kout)
+        _, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, 1, T, N, F, Kn, dev)
+        cem = (x, zpm, xr, tinv, kT)
+
+        def bwd_outs(pair):
+            grads, dzp = pair
+            dk1T, dmids, dkout, dbout = K.unpack_grads(grads, packed.layout)
+            return [dzp, dk1T, dkout, dbout, *(t for wb in dmids for t in wb)]
+
+        def bwd_refs(r):
+            return [r[0], r[1], r[3], r[4], *(t for wb in r[2] for t in wb)]
+
+        table = (
+            ("sdf_ffn_fwd",
+             lambda: K.sdf_ffn_packed(x, zp, packed, dropout_rate=0.0,
+                                      seed=seed),
+             lambda: K.sdf_ffn_reference(*args, bout, cd, seed, 0.0),
+             lambda o: [o], lambda r: [r], 1e-5,
+             K.flops(1, T, N, F, hidden), K.bytes_moved(1, T, N, F, hidden)),
+            ("sdf_ffn_bwd",
+             lambda: K._launch_bwd(x, zp, packed, gout, seed, 0.0),
+             lambda: K.sdf_ffn_bwd_reference(*args, gout, cd, seed, 0.0),
+             bwd_outs, bwd_refs, GRAD_F32_REL,
+             K.bwd_flops(1, T, N, F, hidden),
+             K.bwd_bytes_moved(1, T, N, F, hidden)),
+            ("cond_em_fwd", lambda: C._launch_fwd(*cem, cd),
+             lambda: C.cond_em_reference(*cem, cd), lambda o: [o],
+             lambda r: [r], GRAD_F32_REL, C.fwd_flops(1, T, N, F, Kn),
+             C.fwd_bytes_moved(1, T, N, F, Kn)),
+            ("cond_em_bwd", lambda: C._launch_bwd(*cem, gem, cd),
+             lambda: C.cond_em_bwd_reference(*cem, gem, cd), list, list,
+             GRAD_F32_REL, C.bwd_flops(1, T, N, F, Kn),
+             C.bwd_bytes_moved(1, T, N, F, Kn)),
+        )
+        for name, kern, plain, outs, refs, bar, flops, nbytes in table:
+            got, ref = outs(kern()), refs(plain())
+            err = max(rel_err(o, q) for o, q in zip(got, ref))
+            check(all(bool(torch.isfinite(o).all()) for o in got)
+                  and err <= bar,
+                  f"{name} at the multihost {tag} shape (T={T} N={N} F={F} "
+                  f"hidden={hidden}) disagrees with its plain version: "
+                  f"max|d|/max|ref| {err:.3e}")
+            b_ms, b_by = bound(flops, nbytes, cd)
+            rows[name][tag] = dict(
+                max_abs_err=max(float((o - q).abs().max())
+                                for o, q in zip(got, ref)),
+                ms=cuda_ms(torch, kern, reps=10, warmup=2),
+                plain_ms=cuda_ms(torch, plain, reps=5, warmup=1),
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"S=1 T={T} N={N} F={F} hidden={hidden} K={Kn} {cd} "
+                      "dropout 0")
+            r = rows[name][tag]
+            print(f"[multihost] {name} at the {tag} shape ({r['shape']}): "
+                  f"max|d|/max|ref| {err:.2e}  kernel {r['ms']:.4f} ms  "
+                  f"plain {r['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({b_by}) ({card})", flush=True)
+    return rows
+
+
+def _mh_rank(row) -> int:
+    """The process id of a launch-count row of a multihost rank (its argv:
+    the worker CLI's, or MH_PAPER_RANK's JSON)."""
+    argv = row["argv"]
+    if "--process_id" in argv:
+        return int(argv[argv.index("--process_id") + 1])
+    return int(json.loads(argv[1])["process_id"])
+
+
+def _mh_world(torch, tag, n, kernel, per, paper, granules=None):
+    """One world of `n` ranks through ``spawn_world``: the worker CLI, or
+    with `paper` the worker at MH_PAPER. Returns its results, wall s (spawn
+    to the last rank's exit), per-rank launches (fwd, bwd, cem_fwd,
+    cem_bwd) and the N each rank planned its kernels at."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        multihost_worker as W,
+    )
+
+    run_dir = MULTIHOST_DIR / tag
+    counts_file = MULTIHOST_DIR / f"launches.{tag}.jsonl"
+    env = dict(os.environ, DLAP_LAUNCH_COUNTS=str(counts_file))
+
+    def command(r, coordinator):
+        if not paper:
+            return W.worker_command(
+                r, coordinator, n, "--device", DEVICE, "--kernel", kernel,
+                "--n_stocks_per_device", str(per), "--run_dir", str(run_dir),
+                "--run_id", tag)
+        kw = dict(coordinator=coordinator, num_processes=n, process_id=r,
+                  T=MH_T, n_stocks_per_device=per, device=DEVICE,
+                  kernel=kernel, run_dir=str(run_dir), run_id=tag)
+        return [sys.executable, "-c", MH_PAPER_RANK, json.dumps(kw),
+                json.dumps(MH_PAPER)]
+
+    try:
+        results, wall = W.spawn_world(command, n, granules=granules, env=env,
+                                      timeout=600, cwd=ROOT)
+    except RuntimeError as e:
+        fail(f"multihost world {tag}: {e}")
+    rows = sorted(_launch_rows(counts_file), key=_mh_rank)
+    check([_mh_rank(r) for r in rows] == list(range(n)),
+          f"{tag}: launch rows of ranks {[_mh_rank(r) for r in rows]}")
+    launches = [tuple(r[k] for k in TRAIN_KERNELS) for r in rows]
+    planned, steps = {}, {}
+    for e in _events(run_dir):
+        pidx = e.get("process_index", 0)
+        if e.get("kind") == "program":
+            planned.setdefault(pidx, set()).add(e["analysis"]["N"])
+        elif (e.get("kind") == "span_end"
+              and e.get("name") == "multihost/train_step"):
+            steps[pidx] = (e["mono"] - e["duration_s"], e["mono"])
+    check(len(steps) == n, f"{tag}: train_step spans of ranks {sorted(steps)}")
+    backend = json.loads((run_dir / "manifest.json").read_text())[
+        "devices"]["mesh"]["backend"]
+    want = ("nccl" if torch.cuda.device_count() >= n else "gloo")
+    check(backend == want, f"{tag}: backend {backend}, not {want}")
+    losses = [o["losses"] for o in results]
+    check(all(x == losses[0] for x in losses),
+          f"{tag}: the ranks' gathered losses differ: {losses}")
+    # the ranks' steps side by side: the sum of their spans (each up to
+    # its device's end) over the time their union covers; n = all at once,
+    # 1 = one after another (the host's monotonic clock, shared)
+    union, end = 0.0, None
+    for a, b in sorted(steps.values()):
+        start = a if end is None else max(a, end)
+        union += max(0.0, b - start)
+        end = b if end is None else max(end, b)
+    step_ms = [round((steps[r][1] - steps[r][0]) * 1e3, 3)
+               for r in range(n)]
+    return dict(results=results, wall=wall, launches=launches,
+                planned=planned, backend=backend, losses=losses[0],
+                step_ms=step_ms, concurrency=sum(step_ms) / 1e3 / union)
+
+
+def _mh_reference(torch, cfg, T, N):
+    """Each member's one-process step on card 0 (the kernel route) over
+    the worker's panel at (T, N): the losses [2, 1] is held to."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        multihost_worker as W,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    host = W.worker_panel(T, N, cfg.macro_feature_dim,
+                          cfg.individual_feature_dim)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    ec = ExecutionConfig(kernel="on", compute_dtype="float32", device=DEVICE)
+    return [float(W.member_step(cfg, W.member_state_dict(cfg, g), batch,
+                                ec)[0]["loss"]) for g in range(2)]
+
+
+def multihost_checks(torch, card):
+    """(a) the worker CLI at its JAX shapes and (b) the worker at the paper
+    width, as worlds of rank processes. Returns the kernel-route ranks'
+    launches (the ``multihost`` path) and the walls."""
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        multihost_worker as W,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import GANConfig
+
+    out, launches = {}, dict.fromkeys(TRAIN_KERNELS, 0)
+
+    def held(tag, w, kernel, N, shape):
+        check(all(o["mesh_shape"] == shape for o in w["results"]),
+              f"{tag}: mesh {[o['mesh_shape'] for o in w['results']]}")
+        want = MH_STEP if kernel == "on" else (0, 0, 0, 0)
+        check(all(c == want for c in w["launches"]),
+              f"{tag}: per-rank launches (fwd, bwd, cem_fwd, cem_bwd) "
+              f"{w['launches']} != {want}")
+        if kernel == "on":
+            check(len(w["planned"]) == len(w["results"]) and all(
+                v == {N} for v in w["planned"].values()),
+                f"{tag}: the ranks planned their kernels at N "
+                f"{w['planned']}, not {N}")
+            for i, k in enumerate(TRAIN_KERNELS):
+                launches[k] += sum(c[i] for c in w["launches"])
+        out[tag] = w
+        print(f"[multihost] {tag}: {len(w['results'])} ranks ({w['backend']})"
+              f", mesh {shape}, kernel {kernel}: losses {w['losses']} equal "
+              f"on every rank; per-rank launches {w['launches']}; planned N "
+              f"{sorted(set().union(*w['planned'].values())) or '-'}; step "
+              f"ms by rank {w['step_ms']} (side by side "
+              f"{w['concurrency']:.2f} of {len(w['results'])}); wall "
+              f"{w['wall']:.2f} s from spawn to the last rank's exit "
+              f"({card})", flush=True)
+
+    # (a) the worker CLI, two ranks, mesh [2, 1], the kernel route
+    w = _mh_world(torch, "cli_2x1", 2, "on", MH_CLI_PER, paper=False)
+    held("cli_2x1", w, "on", MH_CLI_PER, [2, 1])
+    ref = _mh_reference(torch, W.jax_config(), W.JAX_T, MH_CLI_PER)
+    check(w["losses"] == ref, f"(a) the CLI's losses {w['losses']} are not "
+          f"bit for bit the one-process step's {ref}")
+    print(f"[multihost] (a) the worker CLI (T={W.JAX_T} N={MH_CLI_PER} "
+          f"F={W.JAX_F} M={W.JAX_M}): each member's loss bit for bit its "
+          f"one-process train_step on the card ({card})", flush=True)
+
+    # (b) the paper width: [2, 1], [2, 2] on two granules, the plain route
+    cfg = GANConfig(**MH_PAPER)
+    ref = _mh_reference(torch, cfg, MH_T, MH_N)
+    w21 = _mh_world(torch, "paper_2x1", 2, "on", MH_N, paper=True)
+    held("paper_2x1", w21, "on", MH_N, [2, 1])
+    check(w21["losses"] == ref, f"(b) [2, 1] losses {w21['losses']} are "
+          f"not bit for bit the one-process step's {ref}")
+    w22 = _mh_world(torch, "paper_2x2", 4, "on", MH_N // 2, paper=True,
+                    granules=[0, 0, 1, 1])
+    held("paper_2x2", w22, "on", MH_N // 2, [2, 2])
+    d22 = max(abs(a - b) / abs(b) for a, b in zip(w22["losses"], ref))
+    check(d22 <= MH_RTOL, f"(b) [2, 2] vs [2, 1]: loss rel {d22:.3e} (bar "
+          f"{MH_RTOL})")
+    off = _mh_world(torch, "paper_2x1_off", 2, "off", MH_N, paper=True)
+    held("paper_2x1_off", off, "off", MH_N, [2, 1])
+    d_off = max(abs(a - b) / abs(b) for a, b in zip(off["losses"], ref))
+    check(d_off <= LOSS_BAR, f"(b) --kernel off vs the kernel route: loss "
+          f"rel {d_off:.3e} (bar {LOSS_BAR})")
+    print(f"[multihost] (b) paper width (T={MH_T} N={MH_N} F=46 M=178 "
+          f"hidden (64, 64) LSTM (4,) K=8, f32, dropout 0): [2, 1] bit for "
+          f"bit the one-process step; [2, 2] (N = {MH_N // 2} a rank) loss "
+          f"rel {d22:.3e} (bar {MH_RTOL}); --kernel off loss rel "
+          f"{d_off:.3e} (bar {LOSS_BAR}) ({card})", flush=True)
+    return launches, {k: dict(wall_s=v["wall"], step_ms=v["step_ms"],
+                              concurrency=v["concurrency"])
+                      for k, v in out.items()}
+
+
+def sequence_checks(torch, card):
+    """(c) ``sequence_sharded_lstm`` over SEQ_D time positions (spans of
+    card 0, or one card each on four) against the one-device
+    ``lstm_scan`` on card 0, at each of SEQ_CASES; a ragged T raises.
+    Returns {T: (max|d|, bit for bit, one-device ms, pipeline ms)}."""
+    from deeplearninginassetpricing_paperreplication_torch.models.recurrent \
+        import lstm_scan
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        partition,
+        sequence,
+    )
+
+    devs = partition.local_devices(DEVICE)
+    positions = _spread(devs, SEQ_D)
+    mesh = partition.MeshConfig(((sequence.TIME_AXIS, SEQ_D),),
+                                positions).build()
+    dev0 = positions[0]
+    g = torch.Generator().manual_seed(19)
+    k = SEQ_H ** -0.5
+    params = {name: ((torch.rand(shape, generator=g) * 2 - 1) * k).to(dev0)
+              for name, shape in (("w_ih", (4 * SEQ_H, SEQ_I)),
+                                  ("w_hh", (4 * SEQ_H, SEQ_H)),
+                                  ("b_ih", (4 * SEQ_H,)),
+                                  ("b_hh", (4 * SEQ_H,)))}
+
+    def sync():
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    lstm_scan(params, torch.zeros(8, SEQ_I, device=dev0))  # warm-up
+    sequence.sequence_sharded_lstm(params, torch.zeros(8, SEQ_I,
+                                                       device=dev0), mesh)
+    for T, atol in SEQ_CASES:
+        x = torch.randn(T, SEQ_I, generator=g).to(dev0)
+        (ref, _), one_ms = timed(lambda: lstm_scan(params, x))
+        chunks, pipe_ms = timed(
+            lambda: sequence.sequence_sharded_lstm(params, x, mesh))
+        check(len(chunks) == SEQ_D and all(
+            c.device == p and c.shape == (T // SEQ_D, SEQ_H)
+            for c, p in zip(chunks, positions)),
+            f"(c) T={T}: chunks {[(c.device, tuple(c.shape)) for c in chunks]}"
+            f" against positions {positions}")
+        got = torch.cat([c.to(dev0) for c in chunks])
+        err = float((got - ref).abs().max())
+        exact = bool(torch.equal(got, ref))
+        check(bool(torch.isfinite(got).all()) and err <= atol,
+              f"(c) T={T} over {SEQ_D} positions vs one-device lstm_scan: "
+              f"max|d| {err:.3e} (atol {atol})")
+        out[T] = (err, exact, one_ms, pipe_ms)
+        print(f"[multihost] (c) sequence T={T} I={SEQ_I} H={SEQ_H} over "
+              f"{SEQ_D} positions {[str(p) for p in positions]}: max|d| "
+              f"{err:.3e} (atol {atol}), {'' if exact else 'not '}bit for "
+              f"bit the one-device lstm_scan; wall one device "
+              f"{one_ms:.1f} ms, pipeline {pipe_ms:.1f} ms ({card})",
+              flush=True)
+    try:
+        sequence.sequence_sharded_lstm(params, x[:SEQ_CASES[0][0] - 1], mesh)
+    except ValueError as e:
+        check("must divide" in str(e), f"(c) the ragged error: {e}")
+    else:
+        fail("(c) a ragged sequence did not raise")
+    return out
+
+
+def multihost_phase(torch, K, C, card):
+    """(19) The kernels at the path's shapes, then (a) and (b)
+    (``multihost_checks``) and (c) (``sequence_checks``). Returns the
+    ranks' launches (the ``multihost`` path), the kernel rows and the
+    walls."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    MULTIHOST_DIR.mkdir(parents=True)
+    try:
+        rows = multihost_kernel_checks(torch, K, C, card)
+        launches, walls = multihost_checks(torch, card)
+        seq = sequence_checks(torch, card)
+    finally:
+        shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[multihost] phase 19 done in {wall:.1f} s; the ranks' launches "
+          f"{launches}; world walls {walls} ({card})", flush=True)
+    return dict(launches=launches, rows=rows, walls=walls, sequence=seq,
+                wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -8002,6 +8392,13 @@ def main(argv=None) -> int:
                          "fleet and bench_meshserve on phase 6's panel (a "
                          "short call while the mesh, the sweep or the "
                          "engine change); no result line")
+    ap.add_argument("--only_multihost", action="store_true",
+                    help="build the training kernels' libraries only, then "
+                         "phase 19: the kernels at the multihost path's "
+                         "shapes, the worker's worlds of rank processes and "
+                         "the time-sharded LSTM (a short call while the "
+                         "multihost worker, the hybrid mesh or the sequence "
+                         "pipeline change); no result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -8021,6 +8418,7 @@ def main(argv=None) -> int:
         shutil.rmtree(JOINT_DIR, ignore_errors=True)
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
         shutil.rmtree(MESH_DIR, ignore_errors=True)
+        shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -8065,7 +8463,7 @@ def run_phases(opts, torch) -> int:
             if (opts.only_data or opts.only_ops or opts.only_elastic
                 or opts.only_refit)
             else K.build_jobs([32, 64], kernels=("fwd", "bwd"))
-            + C.build_jobs() if opts.only_joint
+            + C.build_jobs() if opts.only_joint or opts.only_multihost
             else K.build_jobs([64]) + C.build_jobs() if opts.only_shard
             else K.build_jobs(kernels=("fwd", "bwd")) + C.build_jobs()
             if opts.only_mesh
@@ -8094,7 +8492,7 @@ def run_phases(opts, torch) -> int:
                           or opts.only_data or opts.only_ops
                           or opts.only_elastic or opts.only_refit
                           or opts.only_joint or opts.only_shard
-                          or opts.only_mesh)
+                          or opts.only_mesh or opts.only_multihost)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
@@ -8103,7 +8501,8 @@ def run_phases(opts, torch) -> int:
                           or opts.only_data
                           or opts.only_ops or opts.only_elastic
                           or opts.only_refit or opts.only_joint
-                          or opts.only_shard or opts.only_mesh)
+                          or opts.only_shard or opts.only_mesh
+                          or opts.only_multihost)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -8155,6 +8554,11 @@ def run_phases(opts, torch) -> int:
             mesh_phase(torch, K, C, card, make_panel())
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+
+    if opts.only_multihost:
+        # phase 19 alone (the worker makes its own panel)
+        multihost_phase(torch, K, C, card)
         return 0
 
     if opts.only_shard:
@@ -8401,6 +8805,9 @@ def run_phases(opts, torch) -> int:
     mesh = mesh_phase(torch, K, C, card, splits)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
 
+    # 19. multi-process training and the time-sharded LSTM
+    multihost = multihost_phase(torch, K, C, card)
+
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
     health_idx = {"sdf_ffn_fwd": 0, "sdf_ffn_bwd": 1, "cond_em_fwd": 3,
@@ -8440,12 +8847,16 @@ def run_phases(opts, torch) -> int:
         # sweep's, the sweep CLI's processes, the mesh engines, the fleet's
         # survivor)
         paths["mesh"] = mesh["launches"][name]
+        # phase 19: the kernel-route ranks' launches (one step each),
+        # counted in the rank processes
+        paths["multihost"] = multihost["launches"][name]
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name],
                     at_refit_shapes=refits["rows"][name],
                     at_sharded_shape=shard_rows[name],
-                    at_mesh_shapes=mesh["rows"][name])
+                    at_mesh_shapes=mesh["rows"][name],
+                    at_multihost_shapes=multihost["rows"][name])
 
     def grad_path(name):
         n = grad_launches[name]

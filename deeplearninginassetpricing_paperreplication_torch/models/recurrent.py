@@ -42,12 +42,24 @@ def _gates(z: torch.Tensor, c: torch.Tensor) -> Carry:
     return h_new, c_new
 
 
+def lstm_project(p: LayerParams, x: torch.Tensor) -> torch.Tensor:
+    """The hoisted input projection of every step: x [..., T, I] →
+    ``x @ W_ihᵀ + (b_ih + b_hh)`` [..., T, 4H]."""
+    return x @ _mT(p["w_ih"]) + (p["b_ih"] + p["b_hh"]).unsqueeze(-2)
+
+
 def lstm_scan(p: LayerParams, x: torch.Tensor,
               carry: Optional[Carry] = None) -> Tuple[torch.Tensor, Carry]:
     """One layer over a sequence: x [..., T, I] → (h sequence [..., T, H],
     final carry (h [..., H], c [..., H]))."""
+    return lstm_recur(p, lstm_project(p, x), carry)
+
+
+def lstm_recur(p: LayerParams, zx: torch.Tensor,
+               carry: Optional[Carry] = None) -> Tuple[torch.Tensor, Carry]:
+    """:func:`lstm_scan`'s recurrence over a projected sequence zx
+    [..., T, 4H] (:func:`lstm_project`) from `carry` (zeros without one)."""
     H = p["w_hh"].shape[-1]
-    zx = x @ _mT(p["w_ih"]) + (p["b_ih"] + p["b_hh"]).unsqueeze(-2)
     w_hh_t = _mT(p["w_hh"])
     if carry is None:
         zeros = zx.new_zeros(zx.shape[:-2] + (H,))

@@ -187,3 +187,26 @@ def test_the_joint_slice_modules_are_imported(mod):
     """The joint slice's modules are among those the runtime check
     imports (so none of them loads JAX)."""
     assert f"{PKG}.{mod}" in set(_modules())
+
+
+@pytest.mark.parametrize("mod", ["parallel.multihost",
+                                 "parallel.multihost_worker",
+                                 "parallel.sequence"])
+def test_the_multihost_and_sequence_modules_are_imported(mod):
+    """The last module slice (multi-process training and sequence
+    parallelism) is among the modules the runtime and source checks read,
+    and importing it joins no group and touches no device."""
+    assert f"{PKG}.{mod}" in set(_modules())
+    path = ROOT / PKG / (mod.replace(".", "/") + ".py")
+    assert path in SOURCES
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({PKG + '.' + mod!r})\n"
+        "import torch.distributed as dist\n"
+        "print(json.dumps([dist.is_initialized(),\n"
+        "                  'torch.cuda' in sys.modules and\n"
+        "                  __import__('torch').cuda.is_initialized()]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [False, False]
