@@ -84,6 +84,10 @@
                                       # the training kernels' libraries,
                                       # then phase 19 alone (no result
                                       # line)
+    python3 chip_smoke.py --only_bf16panel
+                                      # the w64 FFN and conditional-EM
+                                      # libraries, then phase 20 alone (no
+                                      # result line)
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -91,7 +95,8 @@ Phases, each printing its results; any failure exits non-zero:
 2. Build: every kernel of the port from this checkout's sources (``nvcc``,
    sm_90a, one process per library, all started together): the SDF-FFN
    forward, backward and panel cotangent for each width bound, the
-   conditional-EM (forward, backward, panel cotangent), and the matmul
+   conditional-EM (forward, backward, panel cotangent; one library per
+   panel dtype), and the matmul
    ceiling; then each library's tensor-core instructions in its
    ``cuobjdump -sass`` (HMMA in the FFN forward's and panel cotangent's
    libraries and in the conditional-EM's, whose bf16 routes need them;
@@ -416,6 +421,29 @@ Phases, each printing its results; any failure exits non-zero:
    600 (atol 1e-6) and 16,384 (atol 1e-5) against the one-device
    ``lstm_scan``, both timed; a ragged T raises. Launches (``multihost``):
    the kernel-route ranks' of (a) and (b).
+
+20. The bf16 feature-major panel (``ExecutionConfig.bf16_panel``, the
+   default on the kernel route) on phase 6's panel: (a) each of the six
+   panel kernels (hidden (64, 64), F = 46, K = 8, T = 48) on a bf16 panel
+   bit for bit the same kernel on ``x.bfloat16().float()`` (a bf16 dx bit
+   for bit that call's f32 dx rounded once) and against its plain version
+   on the bf16 panel at phase 3's bars (a bf16 dx also within one bf16
+   ulp), at S = 1 and 9, N = 10,000, 10,003 and a 2,500-stock span at
+   offset 5,000, f32 and bf16 compute, dropout 0 and 0.05 (the FFN's); at
+   N = 10,000 one call timed on the bf16 and on the f32 panel, each beside
+   its bound; (b) phase 6's model (seed 42, dropout 0.05, 8/4/16) under the
+   default ``ExecutionConfig`` (bf16 compute, bf16 panel; its launches are
+   the ``bf16panel_training`` path, every one on the bf16 panel) bit for
+   bit ``bf16_panel=False`` (histories, selected epochs, final params),
+   with each run's epoch walls and peak allocated memory; f32 compute on
+   the bf16 panel, the kernel route against the plain route fed the same
+   panel, at the training bars; (c) the nine seeds (S = 9), bf16 compute,
+   the bf16 panel bit for bit the f32 panel, and ``ensemble_metrics`` on a
+   training-prepared (bf16-panel) batch bit for bit the f32 batch's; (d)
+   the conditional panel gradient of (c)'s members through the bf16 panel
+   (the ``bf16panel_gradient`` path: one call launches rows 1, 4, 6, 7, 8
+   once each on the bf16 panel), kernel against the plain route on the
+   same panel at 2e-2·max|ref|.
 
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -2656,7 +2684,8 @@ def reload_checks(torch, card, splits, member_dirs, ctl):
                                            train.std_macro),
                               stock_buckets=(16384,),
                               exec_cfg=ExecutionConfig(
-                                  device=DEVICE, compute_dtype="float32"))
+                                  device=DEVICE, compute_dtype="float32",
+                                  bf16_panel=False))
         eng.warmup()
         return eng
 
@@ -2845,14 +2874,15 @@ def train_checks(torch, K, C, card, splits, opts):
         trainer_mod.train_3phase(
             cfg, *batches, tcfg=TrainConfig(1, 1, 1, ignore_epoch=0),
             verbose=False, exec_cfg=ExecutionConfig(
-                kernel=kernel, compute_dtype="float32", device=DEVICE))
+                kernel=kernel, compute_dtype="float32", bf16_panel=False,
+                device=DEVICE))
     trainer_mod.Trainer.run_phase = counted
     try:
         results = {}
         for kernel in ("on", "off"):
             exec_cfg = ExecutionConfig(kernel=kernel,
                                        compute_dtype="float32",
-                                       device=DEVICE)
+                                       bf16_panel=False, device=DEVICE)
             per_phase.clear()
             K.reset_launch_count()
             C.reset_launch_count()
@@ -2960,7 +2990,8 @@ def wide_train_check(torch, K, C, card, splits):
             cfg, *batches, tcfg=TrainConfig(**sched, seed=42,
                                             print_freq=10 ** 6),
             seed=42, verbose=False, exec_cfg=ExecutionConfig(
-                kernel="on", compute_dtype="float32", device=DEVICE))
+                kernel="on", compute_dtype="float32", bf16_panel=False,
+                device=DEVICE))
         wall = time.perf_counter() - t0
     finally:
         trainer_mod.Trainer.run_phase = run_phase
@@ -3153,7 +3184,7 @@ def ensemble_checks(torch, K, C, card, splits, single_epoch_ms, opts):
         return ens_mod.train_ensemble(
             cfg, *batches, seeds=ENSEMBLE_SEEDS, tcfg=tc, verbose=False,
             exec_cfg=ExecutionConfig(kernel=kernel, compute_dtype="float32",
-                                     device=DEVICE))
+                                     bf16_panel=False, device=DEVICE))
 
     # one untimed epoch per phase on each route first (set-up)
     for kernel in ("on", "off"):
@@ -3209,7 +3240,7 @@ def ensemble_checks(torch, K, C, card, splits, single_epoch_ms, opts):
         _, _, h, _ = train_3phase(
             cfg, *batches, tcfg=tcfg, seed=seed, verbose=False,
             exec_cfg=ExecutionConfig(kernel="on", compute_dtype="float32",
-                                     device=DEVICE))
+                                     bf16_panel=False, device=DEVICE))
         serial.append(_history_devs({k: v[i] for k, v in on["hist"].items()},
                                     h))
     serial_s = time.perf_counter() - t0
@@ -3270,7 +3301,8 @@ def profile_ensemble(torch, cfg, params, batches, card):
     from deeplearninginassetpricing_paperreplication_torch.utils.config \
         import ExecutionConfig
 
-    gan = GAN(cfg, ExecutionConfig(compute_dtype="float32", device=DEVICE))
+    gan = GAN(cfg, ExecutionConfig(compute_dtype="float32", bf16_panel=False,
+                                   device=DEVICE))
     b = [gan.prepare_batch(x) for x in batches]
     params = {k: v.clone() for k, v in params.items()}
     opt = MemberOptimizer(member_subtree(params, "sdf_net"), 1e-3)
@@ -3373,7 +3405,7 @@ def panel_gradient_checks(torch, K, C, card, splits, params, opts):
         return dx
 
     gans = {(kernel, cd): GAN(cfg, ExecutionConfig(
-        kernel=kernel, compute_dtype=cd, device=DEVICE))
+        kernel=kernel, compute_dtype=cd, bf16_panel=False, device=DEVICE))
         for kernel in ("on", "off") for cd in ("float32", "bfloat16")}
     grad(gans[("on", "float32")], "conditional", "conditional")  # warm-up
     torch.cuda.synchronize()
@@ -3585,7 +3617,7 @@ def sweep_checks(torch, K, C, card, splits):
 
     def execution(kernel):
         return ExecutionConfig(kernel=kernel, compute_dtype="float32",
-                               device=DEVICE)
+                               bf16_panel=False, device=DEVICE)
 
     def bucket(cfg, lrs, kernel="on", tc=tcfg):
         return sw.train_bucket(cfg, lrs, [SWEEP_SEED], *batches, tc,
@@ -3873,7 +3905,7 @@ def diag_pass_checks(torch, K, C, card, splits, models):
     for tag, cfg, params in models:
         S = next(iter(params.values())).shape[0]
         gans = {(kernel, cd): GAN(cfg, ExecutionConfig(
-            kernel=kernel, compute_dtype=cd, device=DEVICE))
+            kernel=kernel, compute_dtype=cd, bf16_panel=False, device=DEVICE))
             for kernel in ("on", "off") for cd in ("float32", "bfloat16")}
         batch = gans["on", "float32"].prepare_batch(valid.to_batch(DEVICE))
         row = {}
@@ -3996,7 +4028,8 @@ def diag_train_check(torch, K, C, card, splits, single):
                     **SCHEDULE, seed=42, print_freq=10 ** 6),
                 save_dir=str(save), seed=42, verbose=False,
                 diag_stride=stride, exec_cfg=ExecutionConfig(
-                    kernel="on", compute_dtype="float32", device=DEVICE))
+                    kernel="on", compute_dtype="float32", bf16_panel=False,
+                    device=DEVICE))
         finally:
             Trainer.diagnostics = untimed
         torch.cuda.synchronize()
@@ -4505,18 +4538,24 @@ def real_shape_cli(torch, K, C, card):
             if main_run:
                 K.reset_launch_count()
                 C.reset_launch_count()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             train.main(argv)
             wall = time.perf_counter() - t0
+            # the bf16 run trains on the bf16 panel (the CLI's bf16_panel)
+            peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
             if main_run:
                 launches = dict(zip(("sdf_ffn_fwd", "sdf_ffn_bwd",
                                      "cond_em_fwd", "cond_em_bwd"),
                                     counts(K, C)))
             metrics = json.loads((save / "final_metrics.json").read_text())
             runs[(dtype, mode)] = dict(save=save, wall_s=wall,
-                                       metrics=metrics)
+                                       metrics=metrics, peak_mib=peak_mib)
             startup = metrics["startup"]
-            print(f"[data train] {dtype} {mode}: {wall:.1f} s; startup "
+            panel = "bf16" if dtype == "bfloat16" else "f32"
+            print(f"[data train] {dtype} {mode}: {wall:.1f} s; peak "
+                  f"allocated {peak_mib:.1f} MiB ({panel} panel); startup "
                   f"{startup}; wall ms per epoch at T = "
                   f"{REAL_PANEL['n_periods_train']}: "
                   + ", ".join(f"{k} {v:.2f}" for k, v in
@@ -4553,7 +4592,8 @@ def real_shape_cli(torch, K, C, card):
         check(n > 0, f"the real-shape train CLI launched {name} no time")
     print(f"[data train] launches, bf16 pipeline run: {launches}", flush=True)
     return launches, {f"{d} {m}": dict(wall_s=r["wall_s"],
-                                      epoch_ms=r["metrics"]["epoch_ms"])
+                                      epoch_ms=r["metrics"]["epoch_ms"],
+                                      peak_mib=r["peak_mib"])
                       for (d, m), r in runs.items()}
 
 
@@ -4683,7 +4723,8 @@ def ops_plane_runs(torch, K, C, card, splits):
         _, params, hist, trainer = trainer_mod.train_3phase(
             cfg, *batches, tcfg=tcfg, seed=42, verbose=False,
             save_dir=str(save), exec_cfg=ExecutionConfig(
-                compute_dtype=dtype, device=DEVICE), **kw)
+                compute_dtype=dtype, bf16_panel=dtype == "bfloat16",
+                device=DEVICE), **kw)
         torch.cuda.synchronize()
         return (params, hist, save), trainer
 
@@ -5171,7 +5212,8 @@ def elastic_sweep_checks(torch, card, splits, ref_ranked):
             for h, r, k, d in SWEEP_BUCKETS]
     configs = [(c, lr) for c in cfgs for lr in SWEEP_LRS]
     tcfg = TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6)
-    exec_cfg = ExecutionConfig(compute_dtype="float32", device=DEVICE)
+    exec_cfg = ExecutionConfig(compute_dtype="float32", bf16_panel=False,
+                               device=DEVICE)
     ref_dir = ELASTIC_DIR / "phase9"
     ref_bytes = cli.write_ranking(ref_dir, ref_ranked).read_bytes()
 
@@ -5350,7 +5392,8 @@ def elastic_reference(torch, splits):
         configs, [SWEEP_SEED], *(ds.to_batch(DEVICE) for ds in (train, valid)),
         tcfg=TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6),
         top_k=None, verbose=False, exec_cfg=ExecutionConfig(
-            kernel="on", compute_dtype="float32", device=DEVICE),
+            kernel="on", compute_dtype="float32", bf16_panel=False,
+            device=DEVICE),
         ledger=SweepLedger(SWEEP_DIR / "sweep_ledger"))
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
     print(f"[elastic] phase 9's in-process ranking of the covering grid: "
@@ -6614,7 +6657,7 @@ def joint_training_checks(torch, K, C, card, splits):
 
     def run(kernel, cd, dropout, epochs=JOINT_EPOCHS):
         gan = GAN.from_state_dict(cfg_of(dropout), init, ExecutionConfig(
-            kernel=kernel, compute_dtype=cd, device=DEVICE))
+            kernel=kernel, compute_dtype=cd, bf16_panel=False, device=DEVICE))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hist = J.joint_train(gan, *batches, num_epochs=epochs, lr=1e-3,
@@ -6714,7 +6757,7 @@ def simple_sdf_checks(torch, K, C, card, splits):
 
     def exec_of(kernel):
         return ExecutionConfig(kernel=kernel, compute_dtype="float32",
-                               device=DEVICE)
+                               bf16_panel=False, device=DEVICE)
 
     def run(kernel, dropout, epochs=SIMPLE_EPOCHS):
         torch.cuda.synchronize()
@@ -7467,7 +7510,8 @@ def mesh_sweep_checks(torch, K, C, card, splits, mesh_run):
             for h, r, k, d in MESH_BUCKETS]
     configs = [(c, lr) for c in cfgs for lr in SWEEP_LRS]
     tcfg = TrainConfig(**SCHEDULE, seed=SWEEP_SEED, print_freq=10 ** 6)
-    ex = ExecutionConfig(kernel="on", compute_dtype="float32", device=DEVICE)
+    ex = ExecutionConfig(kernel="on", compute_dtype="float32",
+                         bf16_panel=False, device=DEVICE)
     batches = [ds.to_batch(DEVICE) for ds in (train, valid)]
     cards = partition.local_devices(DEVICE)
     epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
@@ -7678,7 +7722,8 @@ def mesh_engine_checks(torch, K, card, test, mesh_run):
     from deeplearninginassetpricing_paperreplication_torch.utils.config \
         import ExecutionConfig
 
-    ex = ExecutionConfig(device=DEVICE, compute_dtype="float32")
+    ex = ExecutionConfig(device=DEVICE, compute_dtype="float32",
+                         bf16_panel=False)
     dirs = [str(ROOT / d) for d in REF_RUNS]
     cfg, stacked = stack_checkpoints(dirs, device=DEVICE)
     offline = np.asarray(ensemble_metrics(
@@ -8116,7 +8161,8 @@ def _mh_reference(torch, cfg, T, N):
     host = W.worker_panel(T, N, cfg.macro_feature_dim,
                           cfg.individual_feature_dim)
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
-    ec = ExecutionConfig(kernel="on", compute_dtype="float32", device=DEVICE)
+    ec = ExecutionConfig(kernel="on", compute_dtype="float32",
+                         bf16_panel=False, device=DEVICE)
     return [float(W.member_step(cfg, W.member_state_dict(cfg, g), batch,
                                 ec)[0]["loss"]) for g in range(2)]
 
@@ -8288,6 +8334,472 @@ def multihost_phase(torch, K, C, card):
                 wall_s=wall)
 
 
+# -- phase 20 -----------------------------------------------------------------
+
+BP_T = 48
+# (S, N, stock offset): the training and ensemble shapes, an odd N (the
+# bf16 panel's 2-byte loads) and a 2,500-stock span at its start 5,000 (a
+# four-rank shard: bf16 rows 5,000 bytes apart, not 16-byte aligned)
+BP_SHAPES = [(S, N, off) for S in (1, 9)
+             for N, off in ((10_000, 0), (10_003, 0), (2_500, 5_000))]
+BP_ROW_N = 10_000  # the timed shape: the training panel's N
+BP_KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
+              "cond_em_bwd", "cond_em_dx")
+BP_TRAIN_KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "cond_em_fwd",
+                    "cond_em_bwd")
+
+
+def bf16_panel_counts(K, C):
+    """The bf16-panel forms' launches, in BP_KERNELS order."""
+    return (K.launches_bf16_panel, K.bwd_launches_bf16_panel,
+            K.dx_launches_bf16_panel, C.fwd_launches_bf16_panel,
+            C.bwd_launches_bf16_panel, C.dx_launches_bf16_panel)
+
+
+def _bf16_ulp(torch, ref):
+    """One bf16 ulp of each element of `ref` (0 where ref is 0)."""
+    r = ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    return torch.where(r == 0, torch.zeros_like(r), ulp)
+
+
+def _bp_calls(torch, K, C, S, T, N, F, Kn, hidden, off, cd, rate, ins):
+    """{kernel: (its launch on a panel x, its plain version on x, flops,
+    bytes moved at an element size)} for the six panel kernels: each
+    returns a list of output tensors."""
+    zp, k1T, mids, kout, bout, gout, seed, zpm, xr, tinv, kT, gem = ins
+    packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+
+    def bwd(r):
+        grads, dzp = r
+        dk1T, dmids, dkout, dbout = K.unpack_grads(grads, packed.layout)
+        return [dzp, dk1T, dkout, dbout] + [t for wb in dmids for t in wb]
+
+    def bwd_ref(r):
+        return [r[0], r[1], r[3], r[4]] + [t for wb in r[2] for t in wb]
+
+    ffn = (S, T, N, F, hidden)
+    cem = (S, T, N, F, Kn)
+    return {
+        "sdf_ffn_fwd": (
+            lambda x: [K._launch(x, zp, packed, seed, rate, off)],
+            lambda x: [K.sdf_ffn_reference(x, zp, k1T, mids, kout, bout, cd,
+                                           seed, rate, off)],
+            K.flops(*ffn), lambda b: K.bytes_moved(*ffn, b)),
+        "sdf_ffn_bwd": (
+            lambda x: bwd(K._launch_bwd(x, zp, packed, gout, seed, rate,
+                                        offset=off)),
+            lambda x: bwd_ref(K.sdf_ffn_bwd_reference(
+                x, zp, k1T, mids, kout, gout, cd, seed, rate, off)),
+            K.bwd_flops(*ffn), lambda b: K.bwd_bytes_moved(*ffn, b)),
+        "sdf_ffn_dx": (
+            lambda x: [K._launch_dx(x, zp, packed, gout, seed, rate,
+                                    offset=off)],
+            lambda x: [K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout,
+                                              cd, seed, rate, off)],
+            K.dx_flops(*ffn), lambda b: K.dx_bytes_moved(*ffn, b)),
+        "cond_em_fwd": (
+            lambda x: [C._launch_fwd(x, zpm, xr, tinv, kT, cd)],
+            lambda x: [C.cond_em_reference(x, zpm, xr, tinv, kT, cd)],
+            C.fwd_flops(*cem), lambda b: C.fwd_bytes_moved(*cem, b)),
+        "cond_em_bwd": (
+            lambda x: list(C._launch_bwd(x, zpm, xr, tinv, kT, gem, cd)),
+            lambda x: list(C.cond_em_bwd_reference(x, zpm, xr, tinv, kT,
+                                                   gem, cd)),
+            C.bwd_flops(*cem), lambda b: C.bwd_bytes_moved(*cem, b)),
+        "cond_em_dx": (
+            lambda x: [C._launch_dx(x, zpm, xr, tinv, kT, gem, cd)],
+            lambda x: [C.cond_em_dx_reference(x, zpm, xr, tinv, kT, gem,
+                                              cd)],
+            C.dx_flops(*cem), lambda b: C.dx_bytes_moved(*cem, b)),
+    }
+
+
+def bf16panel_plan_lines(torch, K, C, card):
+    """Each panel kernel's plan at BP_T, N = 10,000 (and the 2,500-stock
+    span), S = 1 and 9, both compute dtypes, for its bf16-panel instance
+    beside its f32-panel one, as the card holds them; fails if the card
+    keeps fewer blocks resident than planned or an instance spills."""
+    dev = torch.device(DEVICE)
+    F, hidden, Kn, T = 46, (64, 64), 8, BP_T
+    lay = K.ffn_layout(F, hidden)
+    for S in (1, 9):
+        for N in (BP_ROW_N, 2_500):
+            for cd in ("float32", "bfloat16"):
+                for xb16 in (True, False):
+                    plans = []
+                    p = K.card_fwd_plan(lay, dev, S, T, N, cd, xb16)
+                    plans.append(("sdf_ffn_fwd", p,
+                                  K.fwd_plan_info(lay, S, p, xb16)))
+                    p = K.card_bwd_plan(lay, dev, S, T, N, xb16=xb16)
+                    plans.append(("sdf_ffn_bwd", p,
+                                  K.bwd_plan_info(lay, p, xb16)))
+                    p = K.card_dx_plan(lay, dev, S, T, N, cd, xb16=xb16)
+                    plans.append(("sdf_ffn_dx", p,
+                                  K.dx_plan_info(lay, S, cd, p, xb16=xb16)))
+                    for p in C.card_cem_plan(dev, S, T, N, F, Kn, cd, xb16):
+                        plans.append((f"cond_em_{p.kernel}", p, C.plan_info(
+                            p, S, T, N, F, Kn, cd, xb16)))
+                    p = C.card_cem_dx_plan(dev, S, T, N, F, Kn, cd,
+                                           xb16=xb16)
+                    plans.append(("cond_em_dx", p, C.dx_plan_info(
+                        p, S, T, N, F, Kn, cd, xb16)))
+                    for name, p, info in plans:
+                        check(info["blocks_per_sm"] >= p.blocks_per_sm
+                              and info["local_bytes"] == 0,
+                              f"{name} {'bf16' if xb16 else 'f32'} panel "
+                              f"plan {p}: the card holds "
+                              f"{info['blocks_per_sm']} blocks per SM, "
+                              f"{info['local_bytes']} B local")
+                        print(f"[bf16 panel plan] {name:11s} S={S} T={T} "
+                              f"N={N:5d} {cd:8s} "
+                              f"{'bf16' if xb16 else 'f32 '} panel: route "
+                              f"{getattr(p, 'route', 0)} tile {p.tile} "
+                              f"threads {p.threads}"
+                              f" smem {p.smem_bytes} B resident "
+                              f"{info['blocks_per_sm']}/SM (planned "
+                              f"{p.blocks_per_sm}) regs {info['registers']}"
+                              f" local {info['local_bytes']} B ({card})",
+                              flush=True)
+
+
+def bf16panel_kernel_checks(torch, K, C, card):
+    """(a) Each of the six panel kernels on a bf16 panel xb: bit for bit the
+    same kernel on the f32 panel xb.float() (a bf16 dx: bit for bit that
+    call's f32 dx rounded once), and against its plain version on xb at
+    the bars of phase 3 (a bf16 dx also within one bf16 ulp: the sum's
+    order can move one rounding), at BP_SHAPES, f32 and bf16 compute,
+    dropout 0 and 0.05 (the FFN's); at N = 10,000 one call timed on the
+    bf16 panel and on the f32 panel, each beside its bound. Returns
+    {(kernel, S, cd): row}."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(20)
+    F, hidden, Kn, T = 46, [64, 64], 8, BP_T
+    rows = {}
+    print(f"[bf16 panel] the six panel kernels on a bf16 panel, T={T} F={F} "
+          f"hidden={hidden} K={Kn} ({card})", flush=True)
+    for S, N, off in BP_SHAPES:
+        xf = torch.randn(T, F, N, generator=g, device=dev)
+        xb = xf.to(torch.bfloat16)
+        xw = xb.float()  # the bf16 panel widened: what every kernel reads
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden, dev)
+        zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        gout = torch.randn(S, T, N, generator=g, device=dev) / N
+        seed = 7 if S == 1 else list(range(7, 7 + S))
+        _, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F, Kn, dev)
+        ins = (zp, k1T, mids, kout, bout, gout, seed, zpm, xr, tinv, kT, gem)
+        for cd in ("float32", "bfloat16"):
+            for rate in (0.0, DROPOUT):
+                calls = _bp_calls(torch, K, C, S, T, N, F, Kn, hidden, off,
+                                  cd, rate, ins)
+                for name, (kern, plain, flops, nbytes) in calls.items():
+                    if rate and name.startswith("cond_em"):
+                        continue  # the moment net has no dropout
+                    what = (f"{name} S={S} N={N} offset {off} {cd} dropout "
+                            f"{rate}")
+                    out = kern(xb)
+                    wide = kern(xw)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(o, w.to(o.dtype))
+                               for o, w in zip(out, wide))
+                    check(same and all(o.dtype == (torch.bfloat16 if
+                                                   name.endswith("_dx")
+                                                   else torch.float32)
+                                       for o in out),
+                          f"{what}: the bf16 panel is not bit for bit the "
+                          f"same kernel on x.bfloat16().float()")
+                    ref = plain(xb)
+                    err, ok = 0.0, True
+                    for o, r in zip(out, ref):
+                        d = (o.float() - r.float()).abs()
+                        scale = float(r.float().abs().max())
+                        err = max(err, float(d.max()) / (scale or 1.0))
+                        if name == "sdf_ffn_fwd":
+                            ok &= within(d.cpu().numpy(),
+                                         r.float().cpu().numpy(), cd,
+                                         **F32_TOL)
+                            continue
+                        bar = (GRAD_F32_REL if cd == "float32"
+                               else BF16_REL) * scale
+                        if name.endswith("_dx"):
+                            ok &= bool((d <= bar + _bf16_ulp(torch, r)).all())
+                        else:
+                            ok &= float(d.max()) <= bar
+                        ok &= bool(torch.isfinite(o).all())
+                    check(ok, f"{what}: disagrees with its plain version on "
+                              f"the bf16 panel, max|d|/max|ref| {err:.3e}")
+                    if N != BP_ROW_N or (rate == 0.0) != name.startswith(
+                            "cond_em"):
+                        continue
+                    ms = cuda_ms(torch, lambda: kern(xb), reps=10, warmup=2)
+                    f32_ms = cuda_ms(torch, lambda: kern(xf), reps=10,
+                                     warmup=2)
+                    plain_ms = cuda_ms(torch, lambda: plain(xb), reps=3,
+                                       warmup=1)
+                    b_ms, b_by = bound(flops, nbytes(2), cd)
+                    f_ms, f_by = bound(flops, nbytes(4), cd)
+                    print(f"[bf16 panel] {name:11s} S={S} T={T} N={N} {cd:8s}"
+                          f" dropout {rate:.2f}: max|d|/max|ref| {err:.2e}; "
+                          f"bf16 panel {ms:.4f} ms (bound {b_ms:.4f}, "
+                          f"{b_by}), f32 panel {f32_ms:.4f} ms (bound "
+                          f"{f_ms:.4f}, {f_by}), plain {plain_ms:.4f} ms "
+                          f"({card})", flush=True)
+                    rows[(name, S, cd)] = dict(
+                        max_abs_err=max(float((o.float() - r.float()).abs()
+                                              .max())
+                                        for o, r in zip(out, ref)),
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None, f32_panel_ms=f32_ms,
+                        f32_panel_bound_ms=f_ms, f32_panel_bound_by=f_by,
+                        shape=f"S={S} T={T} N={N} F={F} {cd} dropout {rate}"
+                              f" bf16 panel")
+                    del ref
+            print(f"[bf16 panel] S={S} N={N} offset {off} {cd}: the six "
+                  f"kernels bit for bit on x.bfloat16().float(), within "
+                  f"their bars of the plain versions ({card})", flush=True)
+    return rows
+
+
+def _bp_selected(hist):
+    """Per phase, the epoch (within the phase) of the best valid Sharpe."""
+    out = {}
+    for p in dict.fromkeys(hist["phase"].tolist()):
+        at = np.flatnonzero(hist["phase"] == p)
+        out[str(p)] = int(np.argmax(hist["valid_sharpe"][at]))
+    return out
+
+
+def bf16panel_train_checks(torch, K, C, card, splits):
+    """(b) Phase 6's model, bf16 compute: the default ExecutionConfig (the
+    bf16 panel; the main path run, its launches counted) bit for bit the
+    run with bf16_panel=False (histories, selected epochs, final params);
+    then f32 compute on the bf16 panel, the kernel route against the plain
+    route fed the same bf16 panel, at the training bars. Returns (the
+    bf16-panel forms' launches, the walls and peaks)."""
+    from deeplearninginassetpricing_paperreplication_torch.training import (
+        trainer as trainer_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, test = splits
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    dropout=DROPOUT)
+    tcfg = TrainConfig(**SCHEDULE, seed=42, print_freq=10 ** 6)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid, test)]
+    check(ExecutionConfig(device=DEVICE).stores_bf16_panel(cfg),
+          "the default ExecutionConfig does not store a bf16 panel on the "
+          "card")
+
+    def run(exec_cfg, b=batches, tc=tcfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, params, hist, trainer = trainer_mod.train_3phase(
+            cfg, *b, tcfg=tc, seed=42, verbose=False, exec_cfg=exec_cfg)
+        torch.cuda.synchronize()
+        return dict(params=params, hist=hist, epoch_ms=trainer.epoch_ms(),
+                    wall=time.perf_counter() - t0,
+                    peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+
+    default = ExecutionConfig(device=DEVICE)
+    run(default, tc=TrainConfig(1, 1, 1, ignore_epoch=0))  # set-up
+    K.reset_launch_count()
+    C.reset_launch_count()
+    bp = run(default)
+    launches = dict(zip(BP_KERNELS, bf16_panel_counts(K, C)))
+    totals = dict(zip(BP_TRAIN_KERNELS, counts(K, C)))
+    n_epochs = {"unconditional": SCHEDULE["num_epochs_unc"],
+                "moment": SCHEDULE["num_epochs_moment"],
+                "conditional": SCHEDULE["num_epochs"]}
+    for i, name in enumerate(BP_TRAIN_KERNELS):
+        want = sum(n * PER_EPOCH[p][i] for p, n in n_epochs.items())
+        check(launches[name] == totals[name] == want,
+              f"the bf16-panel training launched {name} {totals[name]} "
+              f"times, {launches[name]} on the bf16 panel, not {want}")
+    fp = run(dataclasses.replace(default, bf16_panel=False))
+    check(set(bp["hist"]) == set(fp["hist"])
+          and all(np.array_equal(bp["hist"][k], fp["hist"][k])
+                  for k in bp["hist"]),
+          "bf16 compute: the bf16-panel history is not bit for bit the f32 "
+          "panel's")
+    check(all(torch.equal(bp["params"][k], fp["params"][k])
+              for k in fp["params"]),
+          "bf16 compute: the bf16-panel final params are not bit for bit "
+          "the f32 panel's")
+    sel = _bp_selected(bp["hist"])
+    check(sel == _bp_selected(fp["hist"]), "selected epochs differ")
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    print(f"[bf16 panel train] phase 6's model, bf16 compute, 8/4/16: the "
+          f"bf16 panel bit for bit the f32 panel (histories, selected epochs "
+          f"{sel}, final params); launches on the bf16 panel {launches} "
+          f"({card})", flush=True)
+    for tag, r in (("bf16 panel", bp), ("f32 panel", fp)):
+        print(f"[bf16 panel train] {tag}: wall ms per epoch {fmt(r['epoch_ms'])}"
+              f"; run {r['wall']:.2f} s; peak allocated {r['peak_mb']:.1f} "
+              f"MiB ({card})", flush=True)
+    # f32 compute on the bf16 panel: the kernel route (the default panel)
+    # against the plain route fed the same bf16 panel
+    b16 = [dict(b, individual_t=b["individual"].permute(0, 2, 1).contiguous()
+                .to(torch.bfloat16)) for b in batches]
+    on = run(ExecutionConfig(kernel="on", compute_dtype="float32",
+                             device=DEVICE))
+    off = run(ExecutionConfig(kernel="off", compute_dtype="float32",
+                              device=DEVICE), b=b16)
+    dev_loss = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])
+                             / np.maximum(np.abs(off["hist"][k]), 1e-12)))
+                   for k in ("train_loss", "valid_loss", "test_loss"))
+    dev_sharpe = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])))
+                     for k in ("train_sharpe", "valid_sharpe",
+                               "test_sharpe"))
+    check(all(np.isfinite(on["hist"][k]).all() for k in on["hist"]
+              if k != "phase"), "non-finite f32 bf16-panel history")
+    check(dev_loss <= 1e-3 and dev_sharpe <= 5e-3,
+          f"f32 compute on the bf16 panel, kernel vs plain: loss rel dev "
+          f"{dev_loss:.3e} (bar 1e-3), Sharpe dev {dev_sharpe:.3e} (bar "
+          f"5e-3)")
+    print(f"[bf16 panel train] f32 compute on the bf16 panel, kernel vs the "
+          f"plain route on the same panel, every epoch: max loss rel dev "
+          f"{dev_loss:.3e} (bar 1e-3), max Sharpe dev {dev_sharpe:.3e} (bar "
+          f"5e-3); selected epochs {_bp_selected(on['hist'])} / "
+          f"{_bp_selected(off['hist'])}; wall ms per epoch kernel "
+          f"{fmt(on['epoch_ms'])}; peak {on['peak_mb']:.1f} MiB ({card})",
+          flush=True)
+    return launches, {
+        "bf16_panel": dict(epoch_ms=bp["epoch_ms"], peak_mib=bp["peak_mb"]),
+        "f32_panel": dict(epoch_ms=fp["epoch_ms"], peak_mib=fp["peak_mb"])}
+
+
+def bf16panel_ensemble_checks(torch, K, C, card, splits):
+    """(c) The nine seeds (S = 9), bf16 compute: the bf16 panel bit for bit
+    the f32 panel; ensemble_metrics on a batch prepared for training (its
+    bf16 panel) bit for bit the f32 batch's. Returns (cfg, the members)."""
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import \
+        GAN
+    from deeplearninginassetpricing_paperreplication_torch.parallel import (
+        ensemble as ens_mod,
+    )
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig, GANConfig, TrainConfig
+
+    train, valid, test = splits
+    cfg = GANConfig(macro_feature_dim=train.macro_feature_dim,
+                    individual_feature_dim=train.individual_feature_dim,
+                    dropout=DROPOUT)
+    tcfg = TrainConfig(**SCHEDULE, print_freq=10 ** 6)
+    batches = [ds.to_batch(DEVICE) for ds in (train, valid, test)]
+    default = ExecutionConfig(device=DEVICE)
+    res = {}
+    for tag, ex in (("bf16", default),
+                    ("f32", dataclasses.replace(default, bf16_panel=False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[tag] = ens_mod.train_ensemble(cfg, *batches, seeds=ENSEMBLE_SEEDS,
+                                          tcfg=tcfg, verbose=False,
+                                          exec_cfg=ex)
+        torch.cuda.synchronize()
+        res[tag] += (time.perf_counter() - t0,)
+    (pb, hb, wb), (pf, hf, wf) = res["bf16"], res["f32"]
+    check(all(np.array_equal(np.asarray(hb[k]), np.asarray(hf[k]))
+              for k in hf)
+          and all(torch.equal(pb[k], pf[k]) for k in pf),
+          "S = 9, bf16 compute: the bf16-panel ensemble is not bit for bit "
+          "the f32 panel's")
+    prepared = GAN(cfg, default).prepare_batch(test.to_batch(DEVICE))
+    check(prepared["individual_t"].dtype == torch.bfloat16,
+          "the training-prepared batch has no bf16 panel")
+    m_b = ens_mod.ensemble_metrics(cfg, pb, prepared, default)
+    m_f = ens_mod.ensemble_metrics(cfg, pb, test.to_batch(DEVICE), default)
+    check(all(np.array_equal(m_b[k], m_f[k]) for k in m_f),
+          "ensemble_metrics on a bf16-prepared batch is not bit for bit the "
+          "f32 batch's")
+    print(f"[bf16 panel ensemble] S={len(ENSEMBLE_SEEDS)}, bf16 compute, "
+          f"8/4/16: the bf16 panel bit for bit the f32 panel (histories, "
+          f"final params; {wb:.2f} s / {wf:.2f} s); ensemble_metrics on a "
+          f"bf16-prepared test batch bit for bit the f32 batch's (test "
+          f"Sharpe {float(m_f['ensemble_sharpe']):.6f}) ({card})",
+          flush=True)
+    return cfg, pb
+
+
+def bf16panel_gradient_checks(torch, K, C, card, splits, cfg, params):
+    """(d) The panel gradient of the conditional loss of S = 9 members,
+    bf16 compute, through the bf16 panel: the kernel route against the
+    plain route fed the same bf16 panel (bar 2e-2·max|ref|); one call's
+    launches, every one on the bf16 panel. Returns those launches."""
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import \
+        GAN
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    batch = splits[0].to_batch(DEVICE)
+    params = {k: v.detach() for k, v in params.items()}
+    S = params["sdf_net.output_proj.bias"].shape[0]
+
+    def grad(kernel, bf16_t):
+        gan = GAN(cfg, ExecutionConfig(kernel=kernel, device=DEVICE))
+        ind = batch["individual"].clone().requires_grad_()
+        b = dict(batch, individual=ind)
+        if bf16_t:  # the same bf16 panel for the plain route
+            b["individual_t"] = ind.permute(0, 2, 1).contiguous().to(
+                torch.bfloat16)
+        res = gan.forward_members(params, b, "conditional")
+        (dx,) = torch.autograd.grad(res["loss"].sum(), ind)
+        return dx
+
+    grad("on", False)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    C.reset_launch_count()
+    on = grad("on", False)
+    torch.cuda.synchronize()
+    got = bf16_panel_counts(K, C)
+    check(got == PANEL_GRAD_LAUNCHES
+          and panel_counts(K, C) == PANEL_GRAD_LAUNCHES,
+          f"one bf16-panel conditional panel gradient launched {got} on the "
+          f"bf16 panel (of {panel_counts(K, C)}), not {PANEL_GRAD_LAUNCHES}")
+    off = grad("off", True)
+    err = rel_err(on, off)
+    check(on.dtype == torch.float32 and bool(torch.isfinite(on).all())
+          and err <= BF16_REL,
+          f"the bf16-panel panel gradient, kernel vs plain: max|d|/max|ref| "
+          f"{err:.3e} (bar {BF16_REL:g})")
+    f32p = GAN(cfg, ExecutionConfig(bf16_panel=False, device=DEVICE))
+    ind = batch["individual"].clone().requires_grad_()
+    (ref32,) = torch.autograd.grad(f32p.forward_members(
+        params, dict(batch, individual=ind), "conditional")["loss"].sum(),
+        ind)
+    print(f"[bf16 panel grad] S={S}, bf16 compute, conditional loss: one call "
+          f"launched {got} on the bf16 panel; kernel vs plain on the same "
+          f"panel max|d|/max|ref| {err:.2e} (bar {BF16_REL:g}); against the "
+          f"f32 panel's kernel route {rel_err(on, ref32):.2e} (its dx summed "
+          f"in f32, not rounded to bf16) ({card})", flush=True)
+    return dict(zip(BP_KERNELS, got))
+
+
+def bf16panel_phase(torch, K, C, card, splits):
+    """Phase 20: (a) the six kernels on a bf16 panel, (b) phase 6's model,
+    (c) the nine seeds, (d) the panel gradient. Returns the rows, the
+    bf16-panel forms' launches by path, and (b)'s walls and peaks."""
+    t0 = time.perf_counter()
+    bf16panel_plan_lines(torch, K, C, card)
+    rows = bf16panel_kernel_checks(torch, K, C, card)
+    train_launches, memory = bf16panel_train_checks(torch, K, C, card, splits)
+    cfg, members = bf16panel_ensemble_checks(torch, K, C, card, splits)
+    grad_launches = bf16panel_gradient_checks(torch, K, C, card, splits, cfg,
+                                              members)
+    by_path = {name: {p: n for p, n in (("bf16panel_training",
+                                         train_launches[name]),
+                                        ("bf16panel_gradient",
+                                         grad_launches[name])) if n}
+               for name in BP_KERNELS}
+    print(f"[bf16 panel] phase 20 done in {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    return dict(rows=rows, launches=by_path, memory=memory)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -8392,6 +8904,13 @@ def main(argv=None) -> int:
                          "fleet and bench_meshserve on phase 6's panel (a "
                          "short call while the mesh, the sweep or the "
                          "engine change); no result line")
+    ap.add_argument("--only_bf16panel", action="store_true",
+                    help="build the w64 FFN and conditional-EM libraries "
+                         "only, then phase 20: the six panel kernels on a "
+                         "bf16 panel and phase 6's model, the nine seeds and "
+                         "the panel gradient through it (a short call while "
+                         "the bf16 panel's staging or its routing change); "
+                         "no result line")
     ap.add_argument("--only_multihost", action="store_true",
                     help="build the training kernels' libraries only, then "
                          "phase 19: the kernels at the multihost path's "
@@ -8464,7 +8983,8 @@ def run_phases(opts, torch) -> int:
                 or opts.only_refit)
             else K.build_jobs([32, 64], kernels=("fwd", "bwd"))
             + C.build_jobs() if opts.only_joint or opts.only_multihost
-            else K.build_jobs([64]) + C.build_jobs() if opts.only_shard
+            else K.build_jobs([64]) + C.build_jobs()
+            if opts.only_shard or opts.only_bf16panel
             else K.build_jobs(kernels=("fwd", "bwd")) + C.build_jobs()
             if opts.only_mesh
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
@@ -8484,7 +9004,7 @@ def run_phases(opts, torch) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {line.strip()}", flush=True)
 
-    (cem_job,), (mb_job,) = C.build_jobs(), MB.build_jobs()
+    cem_job, (mb_job,) = C.build_jobs()[0], MB.build_jobs()
     sass_hmma(K, _nvcc, ("dx",) if opts.only_bwd or opts.only_dx
               else ("fwd",) if opts.only_fwd or opts.only_serve
               or opts.only_fleet
@@ -8492,7 +9012,8 @@ def run_phases(opts, torch) -> int:
                           or opts.only_data or opts.only_ops
                           or opts.only_elastic or opts.only_refit
                           or opts.only_joint or opts.only_shard
-                          or opts.only_mesh or opts.only_multihost)
+                          or opts.only_mesh or opts.only_multihost
+                          or opts.only_bf16panel)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
@@ -8502,7 +9023,7 @@ def run_phases(opts, torch) -> int:
                           or opts.only_ops or opts.only_elastic
                           or opts.only_refit or opts.only_joint
                           or opts.only_shard or opts.only_mesh
-                          or opts.only_multihost)
+                          or opts.only_multihost or opts.only_bf16panel)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_data:
@@ -8559,6 +9080,14 @@ def run_phases(opts, torch) -> int:
     if opts.only_multihost:
         # phase 19 alone (the worker makes its own panel)
         multihost_phase(torch, K, C, card)
+        return 0
+
+    if opts.only_bf16panel:
+        # phase 20 alone on phase 6's panel
+        try:
+            bf16panel_phase(torch, K, C, card, make_panel())
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
 
     if opts.only_shard:
@@ -8808,6 +9337,9 @@ def run_phases(opts, torch) -> int:
     # 19. multi-process training and the time-sharded LSTM
     multihost = multihost_phase(torch, K, C, card)
 
+    # 20. the bf16 panel on phase 6's panel (its splits are in memory)
+    bp = bf16panel_phase(torch, K, C, card, splits)
+
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
     health_idx = {"sdf_ffn_fwd": 0, "sdf_ffn_bwd": 1, "cond_em_fwd": 3,
@@ -8850,6 +9382,9 @@ def run_phases(opts, torch) -> int:
         # phase 19: the kernel-route ranks' launches (one step each),
         # counted in the rank processes
         paths["multihost"] = multihost["launches"][name]
+        # phase 20: the bf16-panel training run and panel gradient (every
+        # launch on the bf16 panel)
+        paths.update(bp["launches"][name])
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name],
@@ -8859,11 +9394,12 @@ def run_phases(opts, torch) -> int:
                     at_multihost_shapes=multihost["rows"][name])
 
     def grad_path(name):
-        n = grad_launches[name]
+        paths = {"panel_gradient": grad_launches[name],
+                 **bp["launches"][name]}
         extra = {f"at_{cd}_dropout": dx_rows[(name, cd, "dropout")]
                  for cd in ("float32", "bfloat16")
                  if (name, cd, "dropout") in dx_rows}
-        return dict(launches=n, launches_by_path={"panel_gradient": n},
+        return dict(launches=sum(paths.values()), launches_by_path=paths,
                     **dx_rows[(name, "float32")],
                     at_bfloat16=dx_rows[(name, "bfloat16")], **extra,
                     library_ms=None)  # no single PyTorch call computes it
@@ -8908,6 +9444,23 @@ def run_phases(opts, torch) -> int:
              launches=ceiling_row["launches_by_path"]["roofline"],
              **ceiling_row),
     ]
+    # the bf16-panel forms (phase 20): each kernel's row at its main path's
+    # shape (S = 1, or the panel gradient's S = 9 for the two dx kernels),
+    # bf16 compute, with the f32 compute row and the f32 panel's ms beside
+    forms = []
+    for k in kernels[:6]:
+        name = k["name"]
+        S = 9 if name.endswith("_dx") else 1
+        forms.append(dict(
+            name=name + "_bf16_panel", route="cuda", source=k["source"],
+            replaces=k["replaces"],
+            launches=sum(bp["launches"][name].values()),
+            launches_by_path=bp["launches"][name],
+            **bp["rows"][(name, S, "bfloat16")],
+            at_float32=bp["rows"][(name, S, "float32")],
+            at_other_members=bp["rows"][(name, 10 - S, "bfloat16")],
+            peak_memory=bp["memory"] if name == "sdf_ffn_fwd" else None))
+    kernels += forms
     for k in kernels:
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"the {path} path launched {k['name']} no time")

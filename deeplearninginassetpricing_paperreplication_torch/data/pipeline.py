@@ -902,6 +902,8 @@ def trainer_precompile_fn(cfg, exec_cfg=None, events=None, members: int = 1,
             return out
         cd = exec_cfg.compute_dtype
         F = cfg.individual_feature_dim
+        # the kernels' bf16-panel instances where training stores one
+        xb16 = exec_cfg.stores_bf16_panel(cfg)
 
         S = int(members)
         splits = [split for split in SPLITS if split in shapes]
@@ -917,26 +919,27 @@ def trainer_precompile_fn(cfg, exec_cfg=None, events=None, members: int = 1,
                 w = sdf_ffn.width_bound(cfg.hidden_dim)
                 for split in splits:
                     t, n = shapes[split]["returns"]
-                    plan = sdf_ffn.card_fwd_plan(lay, dev, S, t, n, cd)
+                    plan = sdf_ffn.card_fwd_plan(lay, dev, S, t, n, cd, xb16)
                     record(f"sdf_ffn_fwd/{split}", plan,
-                           sdf_ffn.fwd_plan_info(lay, S, plan), t, n)
+                           sdf_ffn.fwd_plan_info(lay, S, plan, xb16), t, n)
                 t, n = shapes["train"]["returns"]
-                plan = sdf_ffn.card_bwd_plan(lay, dev, S, t, n)
+                plan = sdf_ffn.card_bwd_plan(lay, dev, S, t, n, xb16=xb16)
                 record("sdf_ffn_bwd/train", plan,
-                       sdf_ffn.bwd_plan_info(lay, plan), t, n)
+                       sdf_ffn.bwd_plan_info(lay, plan, xb16), t, n)
                 out["libraries"] += [f"sdf_ffn_fwd_w{w}", f"sdf_ffn_bwd_w{w}"]
             if not cfg.hidden_dim_moment and "macro" in shapes["train"]:
                 K = cfg.num_condition_moment
                 for split in splits:
                     t, n = shapes[split]["returns"]
-                    plans = cond_em.card_cem_plan(dev, S, t, n, F, K, cd)
+                    plans = cond_em.card_cem_plan(dev, S, t, n, F, K, cd,
+                                                  xb16)
                     kinds = (("fwd", "bwd") if split == "train"
                              else ("fwd",))
                     for kind in kinds:
                         plan = getattr(plans, kind)
                         record(f"cond_em_{kind}/{split}", plan,
-                               cond_em.plan_info(plan, S, t, n, F, K, cd),
-                               t, n)
+                               cond_em.plan_info(plan, S, t, n, F, K, cd,
+                                                 xb16), t, n)
                 out["libraries"].append("cond_em")
         return out
 

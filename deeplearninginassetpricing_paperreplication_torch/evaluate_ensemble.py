@@ -301,7 +301,9 @@ def add_execution_args(p: argparse.ArgumentParser) -> None:
 
 def execution_config(args) -> ExecutionConfig:
     """The CLIs' ExecutionConfig; exits with a message naming CUDA when
-    --device cuda finds no CUDA device."""
+    --device cuda finds no CUDA device. The bf16 panel goes with bf16
+    compute (the JAX CLIs' only configuration); ``--compute_dtype
+    float32``, the comparison route, keeps the f32 panel."""
     try:
         resolve_device(args.device)
     except RuntimeError as e:
@@ -309,6 +311,7 @@ def execution_config(args) -> ExecutionConfig:
         raise SystemExit(2) from None
     return ExecutionConfig(kernel=args.kernel,
                            compute_dtype=args.compute_dtype,
+                           bf16_panel=args.compute_dtype == "bfloat16",
                            device=args.device)
 
 

@@ -5,7 +5,10 @@ class is a pure function of (params, batch); here the parameters live in
 the module, and a batch is a dict of tensors on the module's device
 (``macro`` [T, M], ``individual`` [T, N, F], ``mask`` and ``returns``
 [T, N], the feature-major panel ``individual_t`` [T, F, N] from
-:meth:`GAN.prepare_batch`, optionally ``n_assets``).
+:meth:`GAN.prepare_batch`, optionally ``n_assets``). ``individual_t`` is
+bfloat16 where ``ExecutionConfig.stores_bf16_panel`` holds (the JAX
+package's default on the kernel route), else float32; ``individual`` is
+always f32.
 
 :meth:`GAN.forward_members` computes the phase's loss of S members at
 once, from member-stacked parameters [S, ...] (where the JAX package vmaps
@@ -65,6 +68,17 @@ PHASES = ("unconditional", "moment", "conditional")
 Batch = Dict[str, torch.Tensor]
 
 
+def feature_major(batch: Batch) -> Batch:
+    """`batch` with the f32 feature-major panel ``individual_t`` [T, F, N]
+    (kept where it has an f32 one): the panel of every evaluation and of
+    models that never store a bf16 panel (SimpleSDF)."""
+    x_t = batch.get("individual_t")
+    if x_t is not None and x_t.dtype == torch.float32:
+        return batch
+    return dict(batch, individual_t=batch["individual"].permute(
+        0, 2, 1).contiguous())
+
+
 class GAN:
     """A GANConfig with its :class:`AssetPricingModule`. Training or eval
     is chosen per call (a dropout seed or none), not by a module flag."""
@@ -76,6 +90,7 @@ class GAN:
         self.module = (module if module is not None
                        else AssetPricingModule(cfg, self.exec_cfg))
         self.module.sdf_net.exec_cfg = self.exec_cfg
+        self.module.moment_net.exec_cfg = self.exec_cfg
         self.module.eval()
 
     @classmethod
@@ -99,19 +114,25 @@ class GAN:
 
     @torch.inference_mode()
     def moments(self, batch: Batch) -> torch.Tensor:
-        """tanh moments h [K, T, N]."""
-        return self.module.moment_net(batch.get("macro"), batch["individual"])
+        """tanh moments h [K, T, N] (the default moment net reads a bf16
+        ``individual_t`` where the batch has one, as in the JAX package)."""
+        return self.module.moment_net(batch.get("macro"), batch["individual"],
+                                      individual_t=batch.get("individual_t"))
 
     # -- training -----------------------------------------------------------
 
-    @staticmethod
-    def prepare_batch(batch: Batch) -> Batch:
+    def prepare_batch(self, batch: Batch) -> Batch:
         """Add the feature-major panel ``individual_t`` [T, F, N] the
-        kernels read (once per split, outside the epoch loop)."""
+        kernels read (once per split, outside the epoch loop): in bfloat16
+        where ``exec_cfg.stores_bf16_panel(cfg)`` holds (the JAX package's
+        ``prepare_batch``), else f32. A batch that has one keeps it."""
         if "individual_t" in batch:
             return batch
+        if not self.exec_cfg.stores_bf16_panel(self.cfg):
+            return feature_major(batch)
+        # transposed and rounded in one copy: no f32 panel in between
         return dict(batch, individual_t=batch["individual"].permute(
-            0, 2, 1).contiguous())
+            0, 2, 1).to(torch.bfloat16, memory_format=torch.contiguous_format))
 
     def forward(self, batch: Batch, phase: str = "conditional",
                 seed: Optional[int] = None) -> Dict[str, torch.Tensor]:

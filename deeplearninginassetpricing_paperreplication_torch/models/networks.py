@@ -177,7 +177,12 @@ def sdf_raw_weights(params: Mapping[str, torch.Tensor], cfg: GANConfig,
     given (training), hashed on the global stock index from `offset`."""
     T = x_t.shape[0]
     if not cfg.hidden_dim:
-        # no hidden layer: the output projection is the split layer itself
+        # no hidden layer: the output projection is the split layer itself,
+        # on an f32 panel (ExecutionConfig.stores_bf16_panel needs hidden
+        # layers, so prepare_batch never gives this path a bf16 one)
+        if x_t.dtype != torch.float32:
+            raise ValueError("an SDF net without hidden layers reads an f32 "
+                             f"panel; got {x_t.dtype}")
         F = cfg.individual_feature_dim
         w = params["output_proj.weight"][:, 0, :]  # [S, F + Dp]
         out = torch.einsum("sf,tfn->stn", w[:, :F], x_t)
@@ -245,6 +250,7 @@ class MomentNet(nn.Module):
     def __init__(self, cfg: GANConfig, exec_cfg: Optional[ExecutionConfig] = None):
         super().__init__()
         self.cfg = cfg
+        self.exec_cfg = exec_cfg or _DEFAULT_EXEC
         self.fc_layers = _fc_stack(cfg.moment_input_dim,
                                    cfg.hidden_dim_moment, cfg.dropout)
         d_last = (cfg.hidden_dim_moment[-1] if cfg.hidden_dim_moment
@@ -253,9 +259,28 @@ class MomentNet(nn.Module):
 
     def forward(self, macro: Optional[torch.Tensor],
                 individual: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                individual_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """h [K, T, N]; `generator` draws the hidden layers' dropout
-        (training), as the JAX MomentNet does."""
+        (training), as the JAX MomentNet does. The default net (no hidden
+        layer) with macro reads a bf16 feature-major panel `individual_t`
+        [T, F, N] where it is given one, as the JAX MomentNet does: one
+        contraction, f32 accumulation, the operands in the compute dtype
+        on the card and in f32 on the CPU (the JAX rule: its CPU dot has no
+        bf16 × bf16 = f32 kernel)."""
+        if (individual_t is not None and individual_t.dtype == torch.bfloat16
+                and not self.cfg.hidden_dim_moment and macro is not None):
+            M = macro.shape[-1]
+            w, b = self.output_proj.weight, self.output_proj.bias  # [K, M+F]
+            cd = (self.exec_cfg.compute_dtype
+                  if individual_t.device.type == "cuda" else "float32")
+            # operands rounded to `cd` and kept in f32: every product is
+            # exact in f32 and the sum accumulates in f32
+            out = torch.einsum("tfn,kf->ktn",
+                               sdf_ffn._round(individual_t.float(), cd),
+                               sdf_ffn._round(w[:, M:], cd))
+            zp_m = macro @ w[:, :M].T + b  # [T, K]
+            return torch.tanh(out + zp_m.T[:, :, None])
         linears = [m for m in self.fc_layers if isinstance(m, nn.Linear)]
         linears.append(self.output_proj)
         first = linears[0]

@@ -9,6 +9,10 @@ started by another — a supervised train CLI, an elastic sweep worker —
 keeps its counts to itself; with ``DLAP_LAUNCH_COUNTS`` naming a file, it
 appends them there as one JSON line when it exits normally (a killed
 process leaves none), so the parent that started it can read them.
+
+A launch on a bf16 panel (``ExecutionConfig.bf16_panel``) also counts
+under its kernel's bf16-panel form, ``<kernel>_bf16_panel``
+(:data:`BF16_PANEL_KERNELS`), so a run can show which form its path took.
 """
 
 import atexit
@@ -21,6 +25,8 @@ from typing import Dict, Iterable, Tuple
 ENV_LAUNCH_COUNTS = "DLAP_LAUNCH_COUNTS"
 KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
            "cond_em_bwd", "cond_em_dx")
+BF16_PANEL = "_bf16_panel"
+BF16_PANEL_KERNELS = tuple(k + BF16_PANEL for k in KERNELS)
 
 
 # (kernel, device) -> launches, under one lock: a server launches from its
@@ -31,8 +37,9 @@ _launch_lock = threading.Lock()
 
 def count_launch(kernel: str, device) -> None:
     """One launch of `kernel` on `device`."""
-    if kernel not in KERNELS:
-        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    if kernel not in KERNELS and kernel not in BF16_PANEL_KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS} (or "
+                         f"its bf16-panel form)")
     key = (kernel, str(device))
     with _launch_lock:
         _launch_counts[key] = _launch_counts.get(key, 0) + 1

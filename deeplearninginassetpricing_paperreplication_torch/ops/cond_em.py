@@ -24,6 +24,12 @@ route, stock tile, members per block, threads, stages and shared memory,
 Python arithmetic that the kernel checks on the card), the panel cotangent
 at :func:`cem_dx_plan`'s; their f32 outputs keep the summation order of the
 one-thread-per-stock kernels they replaced, bit for bit.
+
+The panel x_t is float32 or bfloat16 (``ExecutionConfig.bf16_panel``), as
+in ``ops/sdf_ffn.py``: each kernel widens a bf16 panel exactly into the
+f32 stages it computes from (``csrc/panel.cuh``), each plain version reads
+``x_t.float()``, and the panel cotangent comes back in the panel's dtype,
+rounded once.
 """
 
 from __future__ import annotations
@@ -35,10 +41,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _nvcc, count_launch, launch_total, reset_launch_counts
-from .sdf_ffn import (BLOCK_SMEM_RESERVED, MAX_SMEM, REG_ALLOC_UNIT,
-                      SM_MAX_BLOCKS, SM_MAX_THREADS, SM_REGS, SM_SMEM,
-                      _check_dtype, _raise_rc, _round, _route)
+from . import BF16_PANEL, _nvcc, launch_total, reset_launch_counts
+from .sdf_ffn import (BLOCK_SMEM_RESERVED, MAX_SMEM, PANEL_DTYPES,
+                      REG_ALLOC_UNIT, SM_MAX_BLOCKS, SM_MAX_THREADS, SM_REGS,
+                      SM_SMEM, _check_dtype, _panel_args, _raise_rc, _round,
+                      _route, check_panel_dtype, is_bf16, panel_launch)
 
 MAX_MOMENTS = 16
 BWD_STOCKS = 128  # the backward's stock tile: its partial sums are built on it
@@ -49,8 +56,11 @@ BWD_STOCKS = 128  # the backward's stock tile: its partial sums are built on it
 _TOTALS = {"fwd_launches": "cond_em_fwd",
            "bwd_launches": "cond_em_bwd",
            "dx_launches": "cond_em_dx"}
+# and those of the bf16-panel forms alone (a subset of the above)
+_TOTALS.update({k + BF16_PANEL: v + BF16_PANEL
+                for k, v in list(_TOTALS.items())})
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[bool, ctypes.CDLL] = {}  # by the panel's dtype: bf16 or not
 _lib_lock = threading.Lock()
 
 
@@ -106,48 +116,58 @@ def cond_em_dx_reference(x_t, zp_m, xr, tinv, kT, gem,
                          compute_dtype: str = "float32") -> torch.Tensor:
     """gem [S, K, N] → the panel cotangent dx [T, F, N] = Σ_s round(kT_s)ᵀ ·
     round(dpre_s), summed over the members (the rounding of
-    ``pallas_moment._dx_kernel``)."""
+    ``pallas_moment._dx_kernel``), in the panel's dtype (a bf16 dx rounded
+    once)."""
     _, dpre = _dpre(x_t, zp_m, xr, tinv, kT, gem, compute_dtype)
     return torch.einsum("skf,stkn->tfn", _round(kT, compute_dtype),
-                        _round(dpre, compute_dtype))
+                        _round(dpre, compute_dtype)).to(x_t.dtype)
 
 
 # -- the CUDA kernels ----------------------------------------------------------
 
 
 def build_jobs() -> List[_nvcc.Job]:
-    return [_nvcc.Job("cond_em", "cond_em.cu")]
+    """One library per panel dtype (f32, then bf16), compiled side by
+    side: each holds its dtype's kernel instances."""
+    return [_nvcc.Job("cond_em", "cond_em.cu"),
+            _nvcc.Job("cond_em_bf16_panel", "cond_em.cu",
+                      ("-DCOND_EM_PANEL_BF16=1",))]
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load(xb16: bool = False) -> ctypes.CDLL:
+    """The library of a bf16 (`xb16`) or f32 panel's instances."""
+    xb16 = bool(xb16)
     with _lib_lock:
-        if _lib is None:
-            (job,) = build_jobs()
+        if xb16 not in _libs:
+            job = build_jobs()[int(xb16)]
             _nvcc.run([job])
             lib = ctypes.CDLL(str(job.path))
-            lib.cond_em_fwd.argtypes = ([ctypes.c_void_p] * 6
+            # every entry's first two: the panel and its dtype (1: bf16)
+            panel = [ctypes.c_void_p, ctypes.c_int]
+            lib.cond_em_fwd.argtypes = (panel + [ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 13
                                         + [ctypes.c_longlong, ctypes.c_void_p])
-            lib.cond_em_bwd.argtypes = ([ctypes.c_void_p] * 9
+            lib.cond_em_bwd.argtypes = (panel + [ctypes.c_void_p] * 8
                                         + [ctypes.c_int] * 12
                                         + [ctypes.c_longlong, ctypes.c_void_p])
-            lib.cond_em_dx.argtypes = ([ctypes.c_void_p] * 7
+            lib.cond_em_dx.argtypes = (panel + [ctypes.c_void_p] * 6
                                        + [ctypes.c_int] * 10
                                        + [ctypes.c_longlong, ctypes.c_void_p])
+            # every plan query names the panel's dtype last (xb16), which
+            # must be the library's
             lib.cond_em_plan_info.argtypes = (
-                [ctypes.c_int] * 14 + [ctypes.c_longlong,
+                [ctypes.c_int] * 14 + [ctypes.c_longlong, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)])
             lib.cond_em_dx_plan_info.argtypes = (
-                [ctypes.c_int] * 10 + [ctypes.c_longlong,
+                [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)])
-            lib.cond_em_registers.argtypes = [ctypes.c_int] * 6
+            lib.cond_em_registers.argtypes = [ctypes.c_int] * 7
             for fn in (lib.cond_em_fwd, lib.cond_em_bwd, lib.cond_em_dx,
                        lib.cond_em_plan_info, lib.cond_em_dx_plan_info,
                        lib.cond_em_registers):
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[xb16] = lib
+        return _libs[xb16]
 
 
 def _groups(S: int, T: int, N: int, stocks: int, sms: int, waves: int) -> int:
@@ -546,31 +566,33 @@ _dx_plans: Dict[tuple, CemDxPlan] = {}
 
 
 def card_cem_plan(dev, S: int, T: int, N: int, F: int, K: int,
-                  compute_dtype: str) -> CemPlans:
+                  compute_dtype: str, xb16: bool = False) -> CemPlans:
     """:func:`cem_plan` for the card `dev`: its SM count, and the registers
-    of the library's kernel instances at (F, K, dtype); kept per shape.
-    Each plan is checked on the card once, before its first launch
-    (:func:`plan_info`): one that the kernel refuses, or whose blocks the
-    card does not keep resident, raises."""
-    key = (dev, S, T, N, F, K, compute_dtype)
+    of the library's kernel instances at (F, K, dtype), on a bf16 panel
+    (their bf16-panel instances) with `xb16`; kept per shape. Each plan is
+    checked on the card once, before its first launch (:func:`plan_info`):
+    one that the kernel refuses, or whose blocks the card does not keep
+    resident, raises."""
+    key = (dev, S, T, N, F, K, compute_dtype, bool(xb16))
     plans = _plans.get(key)
     if plans is None:
         bf16 = int(compute_dtype == "bfloat16")
-        rkey = (F, K, bf16)
+        rkey = (F, K, bf16, bool(xb16))
         if rkey not in _regs:
-            lib = _load()
+            lib = _load(xb16)
             inst = [("fwd", 0, v) for v in FWD_CTS[fwd_rt(K)]] + [
                 ("bwd", 0, 0), ("bwd", 0, 1)]
             if bf16 and F <= MMA_MAX_F:
                 inst += [(k, 1, v) for k in ("fwd", "bwd") for v in (1, 2, 3)]
             got = {i: lib.cond_em_registers(int(i[0] == "bwd"), F, K, bf16,
-                                            i[1], i[2]) for i in inst}
+                                            i[1], i[2], int(xb16))
+                   for i in inst}
             _regs[rkey] = {i: r for i, r in got.items() if r > 0}
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plans = cem_plan(S, T, N, F, K, sms, compute_dtype, _regs[rkey])
         with torch.cuda.device(dev):
             for p in plans:
-                held = plan_info(p, S, T, N, F, K, compute_dtype)
+                held = plan_info(p, S, T, N, F, K, compute_dtype, xb16)
                 if held["blocks_per_sm"] < p.blocks_per_sm:
                     raise RuntimeError(
                         f"cond_em_{p.kernel}: the card keeps "
@@ -581,17 +603,17 @@ def card_cem_plan(dev, S: int, T: int, N: int, F: int, K: int,
 
 
 def plan_info(plan: CemPlan, S: int, T: int, N: int, F: int, K: int,
-              compute_dtype: str) -> Dict[str, int]:
+              compute_dtype: str, xb16: bool = False) -> Dict[str, int]:
     """What the card makes of `plan` (the current CUDA device): resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel it launches.
     Raises for a plan the kernel refuses."""
     out = (ctypes.c_int * 3)()
-    rc = _load().cond_em_plan_info(
+    rc = _load(xb16).cond_em_plan_info(
         int(plan.kernel == "bwd"), S, T, F, N, K, plan.groups,
         int(compute_dtype == "bfloat16"), plan.route, plan.tile,
         plan.members, plan.threads, plan.var, plan.stages, plan.smem_bytes,
-        out)
+        int(xb16), out)
     if rc != 0:
         raise RuntimeError(f"cond_em_{plan.kernel} refused the plan {plan} "
                            f"(code {rc})")
@@ -599,27 +621,28 @@ def plan_info(plan: CemPlan, S: int, T: int, N: int, F: int, K: int,
 
 
 def card_cem_dx_plan(dev, S: int, T: int, N: int, F: int, K: int,
-                     compute_dtype: str,
-                     tile: Optional[int] = None) -> CemDxPlan:
+                     compute_dtype: str, tile: Optional[int] = None,
+                     xb16: bool = False) -> CemDxPlan:
     """:func:`cem_dx_plan` for the card `dev`: its SM count, and the
     registers of the library's kernel instance at (F, K, dtype); kept per
     shape. Each plan is checked on the card once, before its first launch
     (:func:`dx_plan_info`): one that the kernel refuses, or whose blocks the
     card does not keep resident, raises."""
-    key = (dev, S, T, N, F, K, compute_dtype, tile)
+    key = (dev, S, T, N, F, K, compute_dtype, tile, bool(xb16))
     plan = _dx_plans.get(key)
     if plan is None:
         bf16 = int(compute_dtype == "bfloat16")
         route = dx_route(F, compute_dtype)
-        rkey = (F, K, bf16)
+        rkey = (F, K, bf16, bool(xb16))
         if rkey not in _dx_regs:
-            r = _load().cond_em_registers(2, F, K, bf16, route, 0)
+            r = _load(xb16).cond_em_registers(2, F, K, bf16, route, 0,
+                                              int(xb16))
             _dx_regs[rkey] = {route: r} if r > 0 else {}
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = cem_dx_plan(S, T, N, F, K, sms, compute_dtype, _dx_regs[rkey],
                            tile)
         with torch.cuda.device(dev):
-            held = dx_plan_info(plan, S, T, N, F, K, compute_dtype)
+            held = dx_plan_info(plan, S, T, N, F, K, compute_dtype, xb16)
         if held["blocks_per_sm"] < plan.blocks_per_sm:
             raise RuntimeError(f"cond_em_dx: the card keeps "
                                f"{held['blocks_per_sm']} blocks per SM of "
@@ -629,14 +652,14 @@ def card_cem_dx_plan(dev, S: int, T: int, N: int, F: int, K: int,
 
 
 def dx_plan_info(plan: CemDxPlan, S: int, T: int, N: int, F: int, K: int,
-                 compute_dtype: str) -> Dict[str, int]:
+                 compute_dtype: str, xb16: bool = False) -> Dict[str, int]:
     """What the card makes of the panel cotangent's `plan` (the current CUDA
     device), as :func:`plan_info` reports it. Raises for a plan the kernel
     refuses."""
     out = (ctypes.c_int * 3)()
-    rc = _load().cond_em_dx_plan_info(
+    rc = _load(xb16).cond_em_dx_plan_info(
         S, T, F, N, K, int(compute_dtype == "bfloat16"), plan.route,
-        plan.tile, plan.threads, plan.G, plan.smem_bytes, out)
+        plan.tile, plan.threads, plan.G, plan.smem_bytes, int(xb16), out)
     if rc != 0:
         raise RuntimeError(f"cond_em_dx refused the plan {plan} (code {rc})")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
@@ -651,10 +674,12 @@ def _checked(x_t, zp_m, xr, tinv, kT):
     for name, t, shape in (("x_t", x_t, (T, F, N)), ("zp_m", zp_m, (S, T, K)),
                            ("xr", xr, (S, T, N)), ("tinv", tinv, (N,)),
                            ("kT", kT, (S, K, F))):
-        if (t.device != dev or t.dtype != torch.float32
+        dtypes = PANEL_DTYPES if name == "x_t" else (torch.float32,)
+        if (t.device != dev or t.dtype not in dtypes
                 or not t.is_contiguous() or tuple(t.shape) != shape):
+            kinds = " or ".join(str(d).split(".")[-1] for d in dtypes)
             raise ValueError(
-                f"cond_em: {name} must be a contiguous float32 {list(shape)}"
+                f"cond_em: {name} must be a contiguous {kinds} {list(shape)}"
                 f" tensor on {dev}; got {t.dtype} {list(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()})")
     return S, T, F, N, K, dev
@@ -672,19 +697,19 @@ def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
     launch."""
     kT = kT.contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
-    plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype).fwd
+    plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype, is_bf16(x_t)).fwd
     em_part = torch.empty((S, plan.groups, K, N), dtype=torch.float32,
                           device=dev)
-    lib = _load()
+    lib = _load(is_bf16(x_t))
     with torch.cuda.device(dev):
         rc = lib.cond_em_fwd(
-            x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
+            *_panel_args(x_t), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
             kT.data_ptr(), em_part.data_ptr(), S, T, F, N, K, plan.groups,
             int(compute_dtype == "bfloat16"), plan.route, plan.tile,
             plan.members, plan.threads, plan.var, plan.stages,
             plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _refused("fwd", rc, plan)
-    count_launch("cond_em_fwd", dev)
+    panel_launch("cond_em_fwd", x_t)
     return em_part.sum(dim=1)  # the fixed-order pass over the period groups
 
 
@@ -696,31 +721,32 @@ def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
     if tuple(gem.shape) != (S, K, N):
         raise ValueError(f"cond_em: gem must be {[S, K, N]}; got "
                          f"{list(gem.shape)}")
-    plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype).bwd
+    plan = card_cem_plan(dev, S, T, N, F, K, compute_dtype, is_bf16(x_t)).bwd
     tiles, groups = plan.grid[1], plan.groups
     dkT_part = torch.empty((S, groups * tiles, K, F), dtype=torch.float32,
                            device=dev)
     dzpm_part = torch.empty((S, tiles, T, K), dtype=torch.float32,
                             device=dev)
     dxr = torch.empty((S, T, N), dtype=torch.float32, device=dev)
-    lib = _load()
+    lib = _load(is_bf16(x_t))
     with torch.cuda.device(dev):
         rc = lib.cond_em_bwd(
-            x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
+            *_panel_args(x_t), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
             kT.data_ptr(), gem.data_ptr(), dkT_part.data_ptr(),
             dzpm_part.data_ptr(), dxr.data_ptr(), S, T, F, N, K, groups,
             int(compute_dtype == "bfloat16"), plan.route, plan.members,
             plan.threads, plan.var, plan.stages, plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream)
     _refused("bwd", rc, plan)
-    count_launch("cond_em_bwd", dev)
+    panel_launch("cond_em_bwd", x_t)
     return dkT_part.sum(dim=1), dzpm_part.sum(dim=1), dxr
 
 
 def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
                plan: Optional[CemDxPlan] = None):
-    """The panel cotangent dx [T, F, N], summed over the members; `plan`
-    defaults to :func:`card_cem_dx_plan` for this card."""
+    """The panel cotangent dx [T, F, N] in the panel's dtype, summed over
+    the members; `plan` defaults to :func:`card_cem_dx_plan` for this
+    card."""
     kT = _round(kT, compute_dtype).contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     gem = gem.float().contiguous()
@@ -728,12 +754,14 @@ def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
         raise ValueError(f"cond_em: gem must be {[S, K, N]}; got "
                          f"{list(gem.shape)}")
     if plan is None:
-        plan = card_cem_dx_plan(dev, S, T, N, F, K, compute_dtype)
-    dx = torch.empty((T, F, N), dtype=torch.float32, device=dev)
-    lib = _load()
+        plan = card_cem_dx_plan(dev, S, T, N, F, K, compute_dtype,
+                                xb16=is_bf16(x_t))
+    # in the panel's dtype: a bf16 dx is rounded once, in the kernel
+    dx = torch.empty((T, F, N), dtype=x_t.dtype, device=dev)
+    lib = _load(is_bf16(x_t))
     with torch.cuda.device(dev):
         rc = lib.cond_em_dx(
-            x_t.data_ptr(), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
+            *_panel_args(x_t), zp_m.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
             kT.data_ptr(), gem.data_ptr(), dx.data_ptr(), S, T, F, N, K,
             int(compute_dtype == "bfloat16"), plan.route, plan.tile,
             plan.threads, plan.G, plan.smem_bytes,
@@ -741,7 +769,7 @@ def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
     if rc == -1:
         raise RuntimeError(f"cond_em_dx refused the plan {plan}")
     _raise_rc("cond_em_dx", rc)
-    count_launch("cond_em_dx", dev)
+    panel_launch("cond_em_dx", x_t)
     return dx
 
 
@@ -792,9 +820,11 @@ def fused_conditional_em(x_t: torch.Tensor, zp_m: torch.Tensor,
     """em [K, N], with the JAX signature: x_t [T, F, N], zp_m [T, K],
     xr [T, N], tinv [N], k_stock [F, K]. With a leading member axis on
     zp_m [S, T, K], xr [S, T, N] and k_stock [S, F, K] it returns
-    em [S, K, N]. Differentiable with respect to the panel x_t (summed over
-    the members, which share it), zp_m, xr, k_stock and tinv."""
+    em [S, K, N]. Differentiable with respect to the panel x_t (float32 or
+    bfloat16; its gradient, summed over the members, which share it, comes
+    back in its dtype), zp_m, xr, k_stock and tinv."""
     _check_dtype(compute_dtype)
+    check_panel_dtype(x_t, "cond_em")
     single = zp_m.dim() == 2
     if single:
         zp_m, xr, k_stock = zp_m[None], xr[None], k_stock[None]
@@ -813,10 +843,12 @@ def fwd_flops(S: int, T: int, N: int, F: int, K: int) -> int:
     return 2 * S * T * N * K * (F + 1)
 
 
-def fwd_bytes_moved(S: int, T: int, N: int, F: int, K: int) -> int:
-    """The panel, zp_m, xr, tinv and kT read once, em written once (f32)."""
-    return 4 * (T * F * N + S * T * K + S * T * N + N + S * K * F
-                + S * K * N)
+def fwd_bytes_moved(S: int, T: int, N: int, F: int, K: int,
+                    x_bytes: int = 4) -> int:
+    """The panel (`x_bytes` a value: 4 in f32, 2 in bf16), zp_m, xr, tinv
+    and kT read once, em written once (f32)."""
+    return (x_bytes * T * F * N
+            + 4 * (S * T * K + S * T * N + N + S * K * F + S * K * N))
 
 
 def bwd_flops(S: int, T: int, N: int, F: int, K: int) -> int:
@@ -825,11 +857,13 @@ def bwd_flops(S: int, T: int, N: int, F: int, K: int) -> int:
     return 2 * S * T * N * K * (2 * F + 2)
 
 
-def bwd_bytes_moved(S: int, T: int, N: int, F: int, K: int) -> int:
-    """The forward's inputs and gem read once; dkT, dzp_m and dxr written
-    once (f32)."""
-    return 4 * (T * F * N + 2 * S * T * K + 2 * S * T * N + N
-                + 2 * S * K * F + S * K * N)
+def bwd_bytes_moved(S: int, T: int, N: int, F: int, K: int,
+                    x_bytes: int = 4) -> int:
+    """The forward's inputs (the panel at `x_bytes` a value) and gem read
+    once; dkT, dzp_m and dxr written once (f32)."""
+    return (x_bytes * T * F * N
+            + 4 * (2 * S * T * K + 2 * S * T * N + N + 2 * S * K * F
+                   + S * K * N))
 
 
 
@@ -839,8 +873,9 @@ def dx_flops(S: int, T: int, N: int, F: int, K: int) -> int:
     return 2 * S * T * N * K * (2 * F + 2)
 
 
-def dx_bytes_moved(S: int, T: int, N: int, F: int, K: int) -> int:
-    """The forward's inputs and gem read once; dx [T, F, N] written once
-    (f32)."""
-    return 4 * (2 * T * F * N + S * T * K + S * T * N + N + S * K * F
-                + S * K * N)
+def dx_bytes_moved(S: int, T: int, N: int, F: int, K: int,
+                   x_bytes: int = 4) -> int:
+    """The forward's inputs and gem read once; dx [T, F, N] written once,
+    in the panel's dtype (`x_bytes` a value)."""
+    return (2 * x_bytes * T * F * N
+            + 4 * (S * T * K + S * T * N + N + S * K * F + S * K * N))

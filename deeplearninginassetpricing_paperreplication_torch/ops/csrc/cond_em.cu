@@ -119,10 +119,28 @@
 // No float atomics: two calls are bitwise-equal. The launch plan (route,
 // tile, threads, shared memory, resident blocks, G) is
 // ops/cond_em.py::cem_dx_plan's, checked here as the others are.
+//
+// The panel: every kernel here stages it through fwd_load, and has a float
+// and a bf16-panel instance (the template's PX; panel.cuh). The bf16
+// instance stores its panel widened into the same f32 stages there, with
+// ordinary loads in place of the panel's cp.async copies (the xr rows
+// keep theirs), so it computes what the float one does on the f32 panel
+// x.bfloat16().float(); cond_em_dx writes dx in the panel's dtype. One
+// library per panel dtype: the build passes -DCOND_EM_PANEL_BF16=0|1 and
+// the library holds that dtype's instances alone, so the two compile side
+// by side; its entry points refuse the other dtype (xb16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "panel.cuh"
+
+#ifndef COND_EM_PANEL_BF16
+#define COND_EM_PANEL_BF16 0
+#endif
 
 namespace {
 
@@ -216,13 +234,18 @@ __device__ __forceinline__ void walk_next(Walk& w, int cols) {
 // feature-major; stocks past N zero-filled) into xs, and of the block's
 // members' xr rows [M][tile] (members past Ml and stocks past N zero) into
 // xrs: 16 bytes a copy where N is a multiple of 4 (every row then starts
-// 16-byte aligned), else 4
+// 16-byte aligned), else 4. A bf16 panel is stored widened into xs here and
+// now (panel.cuh).
+template <typename PX>
 __device__ __forceinline__ void fwd_load(float* xs, int xst, float* xrs,
-                                         const float* x, const float* xr,
+                                         const PX* x, const float* xr,
                                          int t, int n0, int s0, int Ml, int M,
                                          int T, int F, int N, int tile) {
-  const float* xt = x + (size_t)t * F * N + n0;
-  if ((N & 3) == 0) {
+  const PX* xt = x + (size_t)t * F * N + n0;
+  const bool vec = (N & 3) == 0;
+  if constexpr (panel::kBf16<PX>) {
+    panel::stage_bf16(xs, xst, xt, N, F, tile, N - n0);
+  } else if (vec) {
     const int q = tile / 4;
     for (Walk w = walk_start(q); w.r < F; walk_next(w, q)) {
       const int left = N - n0 - 4 * w.c;
@@ -230,6 +253,15 @@ __device__ __forceinline__ void fwd_load(float* xs, int xst, float* xrs,
                  left > 0 ? xt + (size_t)w.r * N + 4 * w.c : x,
                  left >= 4 ? 16 : left > 0 ? 4 * left : 0);
     }
+  } else {
+    for (Walk w = walk_start(tile); w.r < F; walk_next(w, tile)) {
+      const bool ok = n0 + w.c < N;
+      cp_async4(xs + w.r * xst + w.c, ok ? xt + (size_t)w.r * N + w.c : x,
+                ok);
+    }
+  }
+  if (vec) {
+    const int q = tile / 4;
     for (Walk w = walk_start(q); w.r < M; walk_next(w, q)) {
       const int left = w.r < Ml ? N - n0 - 4 * w.c : 0;
       cp_async16(xrs + w.r * tile + 4 * w.c,
@@ -239,10 +271,6 @@ __device__ __forceinline__ void fwd_load(float* xs, int xst, float* xrs,
                  left >= 4 ? 16 : left > 0 ? 4 * left : 0);
     }
     return;
-  }
-  for (Walk w = walk_start(tile); w.r < F; walk_next(w, tile)) {
-    const bool ok = n0 + w.c < N;
-    cp_async4(xs + w.r * xst + w.c, ok ? xt + (size_t)w.r * N + w.c : x, ok);
   }
   for (Walk w = walk_start(tile); w.r < M; walk_next(w, tile)) {
     const bool ok = w.r < Ml && n0 + w.c < N;
@@ -271,9 +299,9 @@ __device__ __forceinline__ void load_cols(float (&v)[CT], const float* row,
 // kT [M][F][KP], zp_m [tpg][M][KP] (moments past K zero), the panel slabs
 // [NS][F][tile] and xr [NS][M][tile], periods t + 1 .. t + NS − 1 in flight
 // while t computes (NS is kFwdCoresStages: more timed the same).
-template <int RT, int CT, bool BF16>
+template <int RT, int CT, bool BF16, typename PX>
 __global__ void __launch_bounds__(kFwdMaxThreads, 1)
-cond_em_fwd_cores(const float* __restrict__ x, const float* __restrict__ zpm,
+cond_em_fwd_cores(const PX* __restrict__ x, const float* __restrict__ zpm,
                   const float* __restrict__ xr,
                   const float* __restrict__ tinv,
                   const float* __restrict__ kT, float* __restrict__ em_part,
@@ -422,9 +450,9 @@ __host__ __device__ inline int mma_nt(int M, int K) {
 // member-moments r = m · KP8 + k. Shared memory: zp_m [tpg][M·KP8], the
 // panel slabs [NS][16·KS][tile + 4] (rows past F zero) and xr
 // [NS][M][tile].
-template <int NT, int KS>
+template <int NT, int KS, typename PX>
 __global__ void __launch_bounds__(kFwdMaxThreads, 1)
-cond_em_fwd_mma(const float* __restrict__ x, const float* __restrict__ zpm,
+cond_em_fwd_mma(const PX* __restrict__ x, const float* __restrict__ zpm,
                 const float* __restrict__ xr, const float* __restrict__ tinv,
                 const float* __restrict__ kT, float* __restrict__ em_part,
                 int S, int T, int F, int N, int K, int tpg, int M, int tile,
@@ -578,9 +606,9 @@ __device__ __forceinline__ void load_pb(float (&d)[PB], const float* p) {
 // the stage [rows][132] (rows F with XT, else 4·⌈F/4⌉, those past F zero)
 // and xr [MB][128], xT [128][XS] (XT only), dpre [128][DS] (and its bf16
 // rounding, bf16 only).
-template <int KP, bool BF16, bool XT>
+template <int KP, bool BF16, bool XT, typename PX>
 __global__ void __launch_bounds__(kBwdMaxThreads, 1)
-cond_em_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zpm,
+cond_em_bwd_kernel(const PX* __restrict__ x, const float* __restrict__ zpm,
                    const float* __restrict__ xr,
                    const float* __restrict__ tinv,
                    const float* __restrict__ kT,
@@ -821,9 +849,9 @@ constexpr int kDpStride = kBwdTile + 8;  // bf16 dpre rows: 272 bytes
 // memory: zp_m [tpg][R], the stages [NS][16·KS][132] (rows past F zero), xr
 // [NS][MB][128], tinv [128], the dzp_m partials [8][R], the dxr partials
 // [R/8][128], dpre [pad16(R)][136] bf16.
-template <int NT, int KS>
+template <int NT, int KS, typename PX>
 __global__ void __launch_bounds__(kFwdMaxThreads, 1)
-cond_em_bwd_mma(const float* __restrict__ x, const float* __restrict__ zpm,
+cond_em_bwd_mma(const PX* __restrict__ x, const float* __restrict__ zpm,
                 const float* __restrict__ xr, const float* __restrict__ tinv,
                 const float* __restrict__ kT, const float* __restrict__ gem,
                 float* __restrict__ dkT_part, float* __restrict__ dzpm_part,
@@ -1084,12 +1112,12 @@ __device__ __forceinline__ float f4(const float4& v, int i) {
 // moments k0..k0 + RT, stocks 4·sc..) recomputes pre, h and dpre; phase B:
 // item (features 6·fg.., stocks 4·sc..) forms that dx tile over all members.
 // Items are dealt out to the block's threads in turn.
-template <int RT, bool BF16>
+template <int RT, bool BF16, typename PX>
 __global__ void __launch_bounds__(kDxMaxThreads, 1)
-cond_em_dx_cores(const float* __restrict__ x, const float* __restrict__ zpm,
+cond_em_dx_cores(const PX* __restrict__ x, const float* __restrict__ zpm,
                  const float* __restrict__ xr, const float* __restrict__ tinv,
                  const float* __restrict__ kT, const float* __restrict__ gem,
-                 float* __restrict__ dx, int S, int T, int F, int N, int K,
+                 PX* __restrict__ dx, int S, int T, int F, int N, int K,
                  int tile, int cells) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
@@ -1228,14 +1256,14 @@ cond_em_dx_cores(const float* __restrict__ x, const float* __restrict__ zpm,
 #pragma unroll
       for (int a = 0; a < kDxFeatures; ++a) {
         if (f0 + a >= F || left <= 0) continue;
-        float* o = dx + ((size_t)cl.t * F + f0 + a) * N + n;
-        if (vec && left >= 4) {
+        PX* o = dx + ((size_t)cl.t * F + f0 + a) * N + n;
+        if (!panel::kBf16<PX> && vec && left >= 4) {
           *reinterpret_cast<float4*>(o) =
               make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (j < left) o[j] = acc[a][j];
+            if (j < left) panel::st(o + j, acc[a][j]);
         }
       }
     }
@@ -1250,12 +1278,12 @@ cond_em_dx_cores(const float* __restrict__ x, const float* __restrict__ zpm,
 // banks; the member of each r [RP]; the panel slabs [2][16·KS][tile + 4]
 // (rows past F zero), the xr rows [2][S][tile] and the period's zp_m
 // [2][RP] (past S·K zero).
-template <int KS>
+template <int KS, typename PX>
 __global__ void __launch_bounds__(kDxMaxThreads, 1)
-cond_em_dx_mma(const float* __restrict__ x, const float* __restrict__ zpm,
+cond_em_dx_mma(const PX* __restrict__ x, const float* __restrict__ zpm,
                const float* __restrict__ xr, const float* __restrict__ tinv,
                const float* __restrict__ kT, const float* __restrict__ gem,
-               float* __restrict__ dx, int S, int T, int F, int N, int K,
+               PX* __restrict__ dx, int S, int T, int F, int N, int K,
                int tile, int cells) {
   constexpr int FN = 2 * KS;  // dx's n tiles of 8 features
   extern __shared__ float4 sm4[];
@@ -1395,11 +1423,11 @@ cond_em_dx_mma(const float* __restrict__ x, const float* __restrict__ zpm,
       if (left <= 0) continue;
       const float4 v = *reinterpret_cast<const float4*>(xb + wk.r * xst +
                                                         4 * wk.c);
-      float* o = dx + ((size_t)cl.t * F + wk.r) * N + n;
-      if (vec && left >= 4) {
+      PX* o = dx + ((size_t)cl.t * F + wk.r) * N + n;
+      if (!panel::kBf16<PX> && vec && left >= 4) {
         *reinterpret_cast<float4*>(o) = v;
       } else {
-        for (int j = 0; j < 4 && j < left; ++j) o[j] = f4(v, j);
+        for (int j = 0; j < 4 && j < left; ++j) panel::st(o + j, f4(v, j));
       }
     }
   }
@@ -1427,24 +1455,25 @@ int dx_geometry(int S, int F, int K, int bf16, int route, int tile,
   return 0;
 }
 
-// the panel cotangent's kernel instance: route 0 by K (RT) and bf16, route
-// 1 by KS = ⌈F/16⌉
+// the panel cotangent's kernel instance on the panel type PX: route 0 by K
+// (RT) and bf16, route 1 by KS = ⌈F/16⌉
+template <typename PX>
 const void* dx_kernel_of(int route, int F, int K, int bf16) {
   if (route == kRouteMma) {
     switch ((F + 15) / 16) {
-      case 1: return (const void*)cond_em_dx_mma<1>;
-      case 2: return (const void*)cond_em_dx_mma<2>;
-      case 3: return (const void*)cond_em_dx_mma<3>;
-      case 4: return (const void*)cond_em_dx_mma<4>;
+      case 1: return (const void*)cond_em_dx_mma<1, PX>;
+      case 2: return (const void*)cond_em_dx_mma<2, PX>;
+      case 3: return (const void*)cond_em_dx_mma<3, PX>;
+      case 4: return (const void*)cond_em_dx_mma<4, PX>;
       default: return nullptr;
     }
   }
   if (route != kRouteCores) return nullptr;
   if (pad4(K) % 8)
-    return bf16 ? (const void*)cond_em_dx_cores<4, true>
-                : (const void*)cond_em_dx_cores<4, false>;
-  return bf16 ? (const void*)cond_em_dx_cores<8, true>
-              : (const void*)cond_em_dx_cores<8, false>;
+    return bf16 ? (const void*)cond_em_dx_cores<4, true, PX>
+                : (const void*)cond_em_dx_cores<4, false, PX>;
+  return bf16 ? (const void*)cond_em_dx_cores<8, true, PX>
+              : (const void*)cond_em_dx_cores<8, false, PX>;
 }
 
 bool bad_shape(int S, int T, int F, int N, int K, int groups) {
@@ -1456,13 +1485,16 @@ bool bad_shape(int S, int T, int F, int N, int K, int groups) {
 
 enum { kFwd = 0, kBwd = 1, kDx = 2 };
 
-// the forward's kernel instance: route 0 at RT (from K) and var = CT stocks
-// per thread, route 1 at var = NT n tiles per warp and KS = ⌈F/16⌉ k steps
+// the forward's kernel instance on the panel type PX: route 0 at RT (from
+// K) and var = CT stocks per thread, route 1 at var = NT n tiles per warp
+// and KS = ⌈F/16⌉ k steps
+template <typename PX>
 const void* fwd_kernel_of(int route, int F, int K, int var, int bf16) {
   if (route == kRouteMma) {
     const int ks = (F + 15) / 16;
-#define CEM_MMA(nt, kss) \
-  if (var == nt && ks == kss) return (const void*)cond_em_fwd_mma<nt, kss>;
+#define CEM_MMA(nt, kss)        \
+  if (var == nt && ks == kss) \
+    return (const void*)cond_em_fwd_mma<nt, kss, PX>;
     CEM_MMA(1, 1) CEM_MMA(1, 2) CEM_MMA(1, 3) CEM_MMA(1, 4)
     CEM_MMA(2, 1) CEM_MMA(2, 2) CEM_MMA(2, 3) CEM_MMA(2, 4)
     CEM_MMA(3, 1) CEM_MMA(3, 2) CEM_MMA(3, 3) CEM_MMA(3, 4)
@@ -1473,21 +1505,23 @@ const void* fwd_kernel_of(int route, int F, int K, int var, int bf16) {
   const int rt = pad4(K) % 8 ? 4 : 8;
 #define CEM_CORES(r, c)                                                    \
   if (rt == r && var == c)                                                 \
-    return bf16 ? (const void*)cond_em_fwd_cores<r, c, true>               \
-                : (const void*)cond_em_fwd_cores<r, c, false>;
+    return bf16 ? (const void*)cond_em_fwd_cores<r, c, true, PX>           \
+                : (const void*)cond_em_fwd_cores<r, c, false, PX>;
   CEM_CORES(8, 1) CEM_CORES(8, 2) CEM_CORES(4, 2)
 #undef CEM_CORES
   return nullptr;
 }
 
-// the backward's kernel instance: route 0 by K, bf16 and var (0 through the
-// stock-major xT, 1 without), route 1 (bf16) at var = NT n tiles per warp
-// and KS = ⌈F/16⌉ k steps
+// the backward's kernel instance on the panel type PX: route 0 by K, bf16
+// and var (0 through the stock-major xT, 1 without), route 1 (bf16) at var
+// = NT n tiles per warp and KS = ⌈F/16⌉ k steps
+template <typename PX>
 const void* bwd_kernel_of(int route, int F, int K, int var, int bf16) {
   if (route == kRouteMma) {
     const int ks = (F + 15) / 16;
-#define CEM_MMA(nt, kss) \
-  if (var == nt && ks == kss) return (const void*)cond_em_bwd_mma<nt, kss>;
+#define CEM_MMA(nt, kss)        \
+  if (var == nt && ks == kss) \
+    return (const void*)cond_em_bwd_mma<nt, kss, PX>;
     CEM_MMA(1, 1) CEM_MMA(1, 2) CEM_MMA(1, 3) CEM_MMA(1, 4)
     CEM_MMA(2, 1) CEM_MMA(2, 2) CEM_MMA(2, 3) CEM_MMA(2, 4)
     CEM_MMA(3, 1) CEM_MMA(3, 2) CEM_MMA(3, 3) CEM_MMA(3, 4)
@@ -1500,14 +1534,35 @@ const void* bwd_kernel_of(int route, int F, int K, int var, int bf16) {
   switch (pad4(K) * 2 + var) {
 #define CEM_BWD(kp, v)                                                   \
   case kp * 2 + v:                                                       \
-    return bf16 ? (const void*)cond_em_bwd_kernel<kp, true, v == 0>      \
-                : (const void*)cond_em_bwd_kernel<kp, false, v == 0>;
+    return bf16 ? (const void*)cond_em_bwd_kernel<kp, true, v == 0, PX>  \
+                : (const void*)cond_em_bwd_kernel<kp, false, v == 0, PX>;
     CEM_BWD(4, 0) CEM_BWD(8, 0) CEM_BWD(12, 0) CEM_BWD(16, 0)
     CEM_BWD(4, 1) CEM_BWD(8, 1) CEM_BWD(12, 1) CEM_BWD(16, 1)
 #undef CEM_BWD
     default:
       return nullptr;
   }
+}
+
+// the three kernels' instances on this library's panel dtype, or nullptr
+// for a panel of the other (xb16 1: bf16, 0: f32)
+using Panel = std::conditional_t<COND_EM_PANEL_BF16, __nv_bfloat16, float>;
+
+const void* fwd_kernel_of(int route, int F, int K, int var, int bf16,
+                          int xb16) {
+  if (xb16 != COND_EM_PANEL_BF16) return nullptr;
+  return fwd_kernel_of<Panel>(route, F, K, var, bf16);
+}
+
+const void* bwd_kernel_of(int route, int F, int K, int var, int bf16,
+                          int xb16) {
+  if (xb16 != COND_EM_PANEL_BF16) return nullptr;
+  return bwd_kernel_of<Panel>(route, F, K, var, bf16);
+}
+
+const void* dx_kernel_of(int route, int F, int K, int bf16, int xb16) {
+  if (xb16 != COND_EM_PANEL_BF16) return nullptr;
+  return dx_kernel_of<Panel>(route, F, K, bf16);
 }
 
 // The forward's plan: (route, stock tile, members per block, var, stages)
@@ -1592,7 +1647,7 @@ int kernel_info(const void* kern, int threads, size_t smem, int* blocks,
 const void* checked_plan(int kernel, int S, int T, int F, int N, int K,
                          int groups, int bf16, int route, int tile,
                          int members, int threads, int var, int stages,
-                         long long smem_bytes) {
+                         long long smem_bytes, int xb16) {
   if (bad_shape(S, T, F, N, K, groups)) return nullptr;
   const int tpg = (T + groups - 1) / groups;
   int th = 0;
@@ -1602,13 +1657,14 @@ const void* checked_plan(int kernel, int S, int T, int F, int N, int K,
     if (fwd_geometry(S, F, K, tpg, bf16, route, tile, members, var, stages,
                      &th, &floats) != 0)
       return nullptr;
-    kern = fwd_kernel_of(route, F, K, var, bf16);
+    kern = fwd_kernel_of(route, F, K, var, bf16, xb16);
   } else if (kernel == kBwd) {
     if (tile != kBwdTile || bwd_geometry(S, F, K, tpg, bf16, route, members,
                                          var, stages, &th, &floats) != 0)
       return nullptr;
     kern = bwd_kernel_of(route, F, K,
-                         route == kRouteMma ? mma_nt(members, K) : var, bf16);
+                         route == kRouteMma ? mma_nt(members, K) : var, bf16,
+                         xb16);
   }
   if (th != threads || 4 * floats != smem_bytes || smem_bytes > kMaxSmem)
     return nullptr;
@@ -1619,7 +1675,7 @@ const void* checked_plan(int kernel, int S, int T, int F, int N, int K,
 // file: its shared bytes must be what the geometry gives, G at most the cells
 const void* checked_dx_plan(int S, int T, int F, int N, int K, int bf16,
                             int route, int tile, int threads, int G,
-                            long long smem_bytes, int* cells) {
+                            long long smem_bytes, int xb16, int* cells) {
   if (bad_shape(S, T, F, N, K, 1) || G < 1) return nullptr;
   long long floats = 0;
   if (dx_geometry(S, F, K, bf16, route, tile, threads, &floats) != 0 ||
@@ -1628,7 +1684,7 @@ const void* checked_dx_plan(int S, int T, int F, int N, int K, int bf16,
   const long long n = (long long)T * ((N + tile - 1) / tile);
   if (n > 0x7fffffffLL || G > n) return nullptr;
   *cells = (int)n;
-  return dx_kernel_of(route, F, K, bf16);
+  return dx_kernel_of(route, F, K, bf16, xb16);
 }
 
 }  // namespace
@@ -1636,14 +1692,16 @@ const void* checked_dx_plan(int S, int T, int F, int N, int K, int bf16,
 // Registers per thread of a kernel instance (kernel 0 forward: route, var as
 // in the plan; kernel 1 backward: route 0 by K, bf16 and var, route 1 at
 // var = NT n tiles per warp; kernel 2 the panel cotangent: route 0 by K and
-// bf16, route 1 by F, var unused), or -1.
+// bf16, route 1 by F, var unused) on an f32 (xb16 0) or bf16 (1) panel, or
+// -1.
 extern "C" int cond_em_registers(int kernel, int F, int K, int bf16,
-                                 int route, int var) {
+                                 int route, int var, int xb16) {
   if (F < 1 || K < 1 || K > kMaxK) return kUnsupported;
-  const void* kern = kernel == kFwd ? fwd_kernel_of(route, F, K, var, bf16)
-                     : kernel == kBwd ? bwd_kernel_of(route, F, K, var, bf16)
-                     : kernel == kDx  ? dx_kernel_of(route, F, K, bf16)
-                                      : nullptr;
+  const void* kern =
+      kernel == kFwd   ? fwd_kernel_of(route, F, K, var, bf16, xb16)
+      : kernel == kBwd ? bwd_kernel_of(route, F, K, var, bf16, xb16)
+      : kernel == kDx  ? dx_kernel_of(route, F, K, bf16, xb16)
+                       : nullptr;
   if (kern == nullptr) return kUnsupported;
   cudaFuncAttributes attr;
   if (cudaFuncGetAttributes(&attr, kern) != cudaSuccess) return kUnsupported;
@@ -1654,36 +1712,40 @@ extern "C" int cond_em_registers(int kernel, int F, int K, int bf16,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
 // local-memory bytes per thread]. var: the forward's CT (route 0) or NT
 // (route 1), the backward's as in bwd_geometry; stages: the panel tiles in
-// flight. Returns 0, a cudaError_t value, or -1 for a plan this file
-// refuses. The wrapper calls it once for each plan, before the plan's first
-// launch, and refuses a plan whose blocks the card does not hold.
+// flight; xb16: the instance for an f32 (0) or bf16 (1) panel. Returns 0,
+// a cudaError_t value, or -1 for a plan this file refuses. The wrapper
+// calls it once for each plan, before the plan's first launch, and refuses
+// a plan whose blocks the card does not hold.
 extern "C" int cond_em_plan_info(int kernel, int S, int T, int F, int N,
                                  int K, int groups, int bf16, int route,
                                  int tile, int members, int threads, int var,
-                                 int stages, long long smem_bytes, int* out) {
+                                 int stages, long long smem_bytes, int xb16,
+                                 int* out) {
   const void* kern =
       checked_plan(kernel, S, T, F, N, K, groups, bf16, route, tile, members,
-                   threads, var, stages, smem_bytes);
+                   threads, var, stages, smem_bytes, xb16);
   if (kern == nullptr) return kUnsupported;
   return kernel_info(kern, threads, (size_t)smem_bytes, &out[0], &out[1],
                      &out[2]);
 }
 
+// x: the panel [T, F, N], f32, or bf16 where xb16 is 1 (panel.cuh).
 // em_part [S, groups, K, N] (fully written; the wrapper sums axis 1). kT
 // [S, K, F] in f32, rounded to bf16 here in bf16. The plan (route, stock
 // tile, members per block, threads, var, stages, shared bytes) comes from
 // ops/cond_em.py::cem_plan, checked on the card by cond_em_plan_info; one
 // that disagrees with this file is refused. Returns 0, a cudaError_t value,
 // or -1 for an unsupported shape or plan.
-extern "C" int cond_em_fwd(const float* x, const float* zpm, const float* xr,
-                           const float* tinv, const float* kT,
-                           float* em_part, int S, int T, int F, int N, int K,
-                           int groups, int bf16, int route, int tile,
-                           int members, int threads, int var, int stages,
-                           long long smem_bytes, void* stream) {
+extern "C" int cond_em_fwd(const void* x, int xb16, const float* zpm,
+                           const float* xr, const float* tinv,
+                           const float* kT, float* em_part, int S, int T,
+                           int F, int N, int K, int groups, int bf16,
+                           int route, int tile, int members, int threads,
+                           int var, int stages, long long smem_bytes,
+                           void* stream) {
   const void* kern =
       checked_plan(kFwd, S, T, F, N, K, groups, bf16, route, tile, members,
-                   threads, var, stages, smem_bytes);
+                   threads, var, stages, smem_bytes, xb16);
   if (kern == nullptr) return kUnsupported;
   int tpg = (T + groups - 1) / groups;
   dim3 grid((unsigned)((N + tile - 1) / tile), (unsigned)groups,
@@ -1700,16 +1762,17 @@ extern "C" int cond_em_fwd(const float* x, const float* zpm, const float* xr,
 // 128-stock tiles. The plan (route 0 CUDA cores or 1 bf16 tensor cores,
 // members per block, threads, var, stages, shared bytes) comes from
 // cem_plan and is checked as the forward's is.
-extern "C" int cond_em_bwd(const float* x, const float* zpm, const float* xr,
-                           const float* tinv, const float* kT,
-                           const float* gem, float* dkT_part,
-                           float* dzpm_part, float* dxr, int S, int T, int F,
-                           int N, int K, int groups, int bf16, int route,
-                           int members, int threads, int var, int stages,
-                           long long smem_bytes, void* stream) {
+extern "C" int cond_em_bwd(const void* x, int xb16, const float* zpm,
+                           const float* xr, const float* tinv,
+                           const float* kT, const float* gem,
+                           float* dkT_part, float* dzpm_part, float* dxr,
+                           int S, int T, int F, int N, int K, int groups,
+                           int bf16, int route, int members, int threads,
+                           int var, int stages, long long smem_bytes,
+                           void* stream) {
   const void* kern =
       checked_plan(kBwd, S, T, F, N, K, groups, bf16, route, kBwdTile,
-                   members, threads, var, stages, smem_bytes);
+                   members, threads, var, stages, smem_bytes, xb16);
   if (kern == nullptr) return kUnsupported;
   int tpg = (T + groups - 1) / groups;
   dim3 grid((unsigned)((S + members - 1) / members),
@@ -1726,35 +1789,37 @@ extern "C" int cond_em_bwd(const float* x, const float* zpm, const float* xr,
 
 
 // What the card makes of a panel-cotangent plan (route, stock tile,
-// threads, G, shared bytes): out as cond_em_plan_info's. Returns 0, a
-// cudaError_t value, or -1 for a plan this file refuses.
+// threads, G, shared bytes) of the instance for an f32 (xb16 0) or bf16 (1)
+// panel: out as cond_em_plan_info's. Returns 0, a cudaError_t value, or -1
+// for a plan this file refuses.
 extern "C" int cond_em_dx_plan_info(int S, int T, int F, int N, int K,
                                     int bf16, int route, int tile,
                                     int threads, int G, long long smem_bytes,
-                                    int* out) {
+                                    int xb16, int* out) {
   int cells = 0;
   const void* kern = checked_dx_plan(S, T, F, N, K, bf16, route, tile,
-                                     threads, G, smem_bytes, &cells);
+                                     threads, G, smem_bytes, xb16, &cells);
   if (kern == nullptr) return kUnsupported;
   return kernel_info(kern, threads, (size_t)smem_bytes, &out[0], &out[1],
                      &out[2]);
 }
 
-// dx [T, F, N] (fully written). kT [S, K, F] is already rounded to the
+// dx [T, F, N] (fully written; bf16 where the panel is, xb16 1, else
+// f32). kT [S, K, F] is already rounded to the
 // compute dtype. The plan (route 0 CUDA cores or 1 bf16 tensor cores, stock
 // tile, threads, G persistent blocks, shared bytes) comes from
 // ops/cond_em.py::cem_dx_plan, checked on the card by cond_em_dx_plan_info;
 // one that disagrees with this file is refused. Returns 0, a cudaError_t
 // value, or -1 for an unsupported shape or plan.
-extern "C" int cond_em_dx(const float* x, const float* zpm, const float* xr,
-                          const float* tinv, const float* kT,
-                          const float* gem, float* dx, int S, int T, int F,
+extern "C" int cond_em_dx(const void* x, int xb16, const float* zpm,
+                          const float* xr, const float* tinv, const float* kT,
+                          const float* gem, void* dx, int S, int T, int F,
                           int N, int K, int bf16, int route, int tile,
                           int threads, int G, long long smem_bytes,
                           void* stream) {
   int cells = 0;
   const void* kern = checked_dx_plan(S, T, F, N, K, bf16, route, tile,
-                                     threads, G, smem_bytes, &cells);
+                                     threads, G, smem_bytes, xb16, &cells);
   if (kern == nullptr) return kUnsupported;
   void* args[] = {&x, &zpm, &xr, &tinv, &kT, &gem, &dx, &S, &T, &F, &N, &K,
                   &tile, &cells};

@@ -7,8 +7,9 @@
 //
 //   w[s,t,n] = kout_s . relu(W_L,s ... relu(K1_s^T x[t,:,n] + zp[s,t]) ... + b) + bout_s
 //
-// over the feature-major panel x [T, F, N] (f32). The output is the raw
-// weight [S, T, N] in f32, before masking.
+// over the feature-major panel x [T, F, N] (f32, or bf16: panel.cuh; each
+// kernel below has a float and a bf16-panel instance). The output is the
+// raw weight [S, T, N] in f32, before masking.
 //
 // What bounds it on this card: operations. At the paper's widths (F = 46,
 // hidden [64, 64]) a (member, period, stock) row costs
@@ -65,6 +66,7 @@
 //   kout [hp_L]
 //   bout [4]              (element 0)
 
+#include "panel.cuh"
 #include "sdf_ffn_common.cuh"
 
 // One library per width bound: the build passes -DSDF_FFN_MAXW=32|64|128
@@ -294,25 +296,28 @@ __device__ void layer_f32(const float* __restrict__ W, int wstride,
   }
 }
 
-// load cell cn's first kPre·threads panel values and this thread's zp
-// element into registers (stocks past N and the rest are 0)
+// load cell cn's first kPre·threads panel values (a bf16 panel's widened)
+// and this thread's zp element into registers (stocks past N and the rest
+// are 0)
+template <typename PX>
 __device__ __forceinline__ void fetch_f32(float (&pre)[kPre], float& zpre,
-                                          const Cell& cn, const float* x,
+                                          const Cell& cn, const PX* x,
                                           const float* zp, int T, int F,
                                           int N, int h0, int tile, int lt) {
   const int tid = threadIdx.x, nth = blockDim.x;
-  const float* xt = x + (size_t)cn.t * F * N + cn.n0;
+  const PX* xt = x + (size_t)cn.t * F * N + cn.n0;
 #pragma unroll
   for (int q = 0; q < kPre; ++q) {
     const int i = q * nth + tid, j = i & (tile - 1);
     pre[q] = i < F * tile && cn.n0 + j < N
-                 ? __ldg(xt + (size_t)(i >> lt) * N + j) : 0.f;
+                 ? panel::ldx(xt + (size_t)(i >> lt) * N + j) : 0.f;
   }
   zpre = tid < h0 ? __ldg(zp + ((size_t)cn.g * T + cn.t) * h0 + tid) : 0.f;
 }
 
+template <typename PX>
 __global__ void __launch_bounds__(kMaxThreads)
-sdf_ffn_fwd_f32_kernel(const float* __restrict__ x,
+sdf_ffn_fwd_f32_kernel(const PX* __restrict__ x,
                        const float* __restrict__ zp,
                        const float* __restrict__ params,
                        float* __restrict__ out, int T, int N, int tile,
@@ -346,10 +351,10 @@ sdf_ffn_fwd_f32_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int q = 0; q < kPre; ++q)
       if (q * nth + tid < F * tile) xs[q * nth + tid] = pre[q];
-    const float* xt = x + (size_t)t * F * N + n0;
+    const PX* xt = x + (size_t)t * F * N + n0;
     for (int i = kPre * nth + tid; i < F * tile; i += nth) {
       const int j = i & (tile - 1);
-      xs[i] = n0 + j < N ? __ldg(xt + (size_t)(i >> lt) * N + j) : 0.f;
+      xs[i] = n0 + j < N ? panel::ldx(xt + (size_t)(i >> lt) * N + j) : 0.f;
     }
     if (tid < pad8(hp0)) zps[tid] = zpre;
     if (drop.on) {
@@ -412,19 +417,25 @@ __device__ __forceinline__ void x_frag(uint32_t (&a)[4], const float* xs,
 
 // start the copies of cell (t, n0) of member group [s0, s0 + ms): its panel
 // tile [F][tile] (stocks past N zero-filled) into xs, and each member's zp
-// row, zero-padded to the width bound, into zs [ms][W]
+// row, zero-padded to the width bound, into zs [ms][W]. A bf16 panel is
+// stored widened here and now (panel.cuh); the zp rows go by cp.async.
+template <typename PX>
 __device__ __forceinline__ void load_cell(float* xs, float* zs,
-                                          const float* x, const float* zp,
+                                          const PX* x, const float* zp,
                                           int t, int n0, int s0, int ms,
                                           int T, int F, int N, int h0,
                                           int stride) {
   constexpr int W = SDF_FFN_MAXW;
-  const float* xt = x + (size_t)t * F * N;
-  for (int i = threadIdx.x; i < F * kMmaTile; i += blockDim.x) {
-    const int f = i / kMmaTile, j = i % kMmaTile;
-    const bool valid = n0 + j < N;
-    cp_async4(xs + f * stride + j,
-              valid ? xt + (size_t)f * N + n0 + j : x, valid);
+  const PX* xt = x + (size_t)t * F * N;
+  if constexpr (panel::kBf16<PX>) {
+    panel::stage_bf16(xs, stride, xt + n0, N, F, kMmaTile, N - n0);
+  } else {
+    for (int i = threadIdx.x; i < F * kMmaTile; i += blockDim.x) {
+      const int f = i / kMmaTile, j = i % kMmaTile;
+      const bool valid = n0 + j < N;
+      cp_async4(xs + f * stride + j,
+                valid ? xt + (size_t)f * N + n0 + j : x, valid);
+    }
   }
   for (int i = threadIdx.x; i < ms * W; i += blockDim.x) {
     const int sl = i / W, u = i % W;
@@ -533,9 +544,9 @@ __device__ __forceinline__ void epilogue_mma(const float (&acc)[NT][4],
 // then converts its panel fragments once per cell and every member reuses
 // them, in fully unrolled products; KX = 0 reads them per member in a loop
 // over any F
-template <int MAXW, int KX>
+template <int MAXW, int KX, typename PX>
 __global__ void __launch_bounds__(kMmaMaxThreads, 1)
-sdf_ffn_fwd_mma_kernel(const float* __restrict__ x,
+sdf_ffn_fwd_mma_kernel(const PX* __restrict__ x,
                        const float* __restrict__ zp,
                        const float* __restrict__ params,
                        float* __restrict__ out, int S, int T, int N, int mb,
@@ -661,25 +672,33 @@ sdf_ffn_fwd_mma_kernel(const float* __restrict__ x,
 
 // -- plans ---------------------------------------------------------------------
 
-// the kernel a route runs for F features (the bf16 instance by its first
-// layer's k steps)
+// the kernel a route runs for F features on the panel type PX (the bf16
+// route's instance by its first layer's k steps)
+template <typename PX>
 const void* kernel_of(int route, int F) {
-  if (route == kRouteF32) return (const void*)sdf_ffn_fwd_f32_kernel;
+  if (route == kRouteF32) return (const void*)sdf_ffn_fwd_f32_kernel<PX>;
   switch (pad16(F) / 16) {
-    case 1: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 1>;
-    case 2: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 2>;
-    case 3: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 3>;
-    case 4: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 4>;
-    default: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 0>;
+    case 1: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 1, PX>;
+    case 2: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 2, PX>;
+    case 3: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 3, PX>;
+    case 4: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 4, PX>;
+    default: return (const void*)sdf_ffn_fwd_mma_kernel<SDF_FFN_MAXW, 0, PX>;
   }
 }
 
-// 0 if the card takes `route` at `threads` and `smem` bytes: resident
-// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
-// and local-memory bytes per thread; else a cudaError_t value
-int kernel_info(int route, int F, int threads, size_t smem, int* blocks,
-                int* regs, int* local_bytes) {
-  const void* kern = kernel_of(route, F);
+// the kernel for a panel of bf16 (xb16 1) or f32 values
+const void* kernel_of(int route, int F, int xb16) {
+  return xb16 ? kernel_of<__nv_bfloat16>(route, F)
+              : kernel_of<float>(route, F);
+}
+
+// 0 if the card takes `route` (on the panel type xb16 names) at `threads`
+// and `smem` bytes: resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
+// local-memory bytes per thread; else a cudaError_t value
+int kernel_info(int route, int F, int xb16, int threads, size_t smem,
+                int* blocks, int* regs, int* local_bytes) {
+  const void* kern = kernel_of(route, F, xb16);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -722,33 +741,37 @@ int check_plan(const int* layout, int S, int route, int tile, int threads,
 }  // namespace
 
 // Registers per thread of the kernel route 0 (f32) or 1 (bf16 tensor
-// cores) runs for F features.
-extern "C" int sdf_ffn_fwd_registers(int route, int F) {
+// cores) runs for F features on an f32 (xb16 0) or bf16 (1) panel.
+extern "C" int sdf_ffn_fwd_registers(int route, int F, int xb16) {
   if ((route != kRouteF32 && route != kRouteMma) || F < 1) return kUnsupported;
   int info[3] = {0, 0, 0};
-  if (kernel_info(route, F, route == kRouteMma ? 256 : 128, 0, &info[0],
-                  &info[1], &info[2]) != 0)
+  if (kernel_info(route, F, xb16, route == kRouteMma ? 256 : 128, 0,
+                  &info[0], &info[1], &info[2]) != 0)
     return kUnsupported;
   return info[1];
 }
 
 // What the card makes of a plan: out = [resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
-// local-memory bytes per thread]. Returns 0, a cudaError_t value, or -1 for
-// a plan this file refuses.
+// local-memory bytes per thread] of its instance for an f32 (xb16 0) or
+// bf16 (1) panel. Returns 0, a cudaError_t value, or -1 for a plan this
+// file refuses.
 extern "C" int sdf_ffn_fwd_plan_info(const int* layout, int S, int route,
                                      int tile, int threads, int members,
-                                     long long smem_bytes, int* out) {
+                                     long long smem_bytes, int xb16,
+                                     int* out) {
   FfnDims d;
   FwdSmem m;
   const int rc = check_plan(layout, S, route, tile, threads, members,
                             smem_bytes, &d, &m);
   if (rc != 0) return rc;
-  return kernel_info(route, d.F, threads, (size_t)smem_bytes, &out[0],
+  return kernel_info(route, d.F, xb16, threads, (size_t)smem_bytes, &out[0],
                      &out[1], &out[2]);
 }
 
-// layout: see sdf_ffn::read_dims. dropout: rate > 0 iff `dropout` is 1;
+// x: the panel [T, F, N], f32, or bf16 where xb16 is 1 (panel.cuh: the
+// kernel's bf16-panel instance). layout: see sdf_ffn::read_dims. dropout:
+// rate > 0 iff `dropout` is 1;
 // then member s hashes from member_base[s] (a device array of S uint32),
 // keeps a unit iff its hash >= `threshold`, and scales kept values by
 // `scale`; stock n hashes as the global stock `offset` + n (0 unsharded).
@@ -759,7 +782,7 @@ extern "C" int sdf_ffn_fwd_plan_info(const int* layout, int S, int route,
 // (G above blocks per SM × SMs), is refused.
 // Returns 0 on success, a cudaError_t value, or -1 for an unsupported shape
 // or plan.
-extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
+extern "C" int sdf_ffn_fwd(const void* x, int xb16, const float* zp,
                            const float* params, float* out, int S, int T,
                            int N, const int* layout, int bf16, int dropout,
                            const unsigned int* member_base,
@@ -776,7 +799,7 @@ extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
                       &m);
   if (rc != 0) return rc;
   int info[3] = {0, 0, 0};
-  rc = kernel_info(route, d.F, threads, (size_t)smem_bytes, &info[0],
+  rc = kernel_info(route, d.F, xb16, threads, (size_t)smem_bytes, &info[0],
                    &info[1], &info[2]);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;
@@ -793,7 +816,8 @@ extern "C" int sdf_ffn_fwd(const float* x, const float* zp,
                       &d, &m, (void*)&drop};
   void* mma_args[] = {&x, &zp, &params, &out, &S, &T, &N, &members,
                       (void*)&cells, &d, &m, (void*)&drop};
-  return (int)cudaLaunchKernel(kernel_of(route, d.F), dim3(G), dim3(threads),
+  return (int)cudaLaunchKernel(kernel_of(route, d.F, xb16), dim3(G),
+                               dim3(threads),
                                route == kRouteF32 ? f32_args : mma_args,
                                (size_t)smem_bytes,
                                static_cast<cudaStream_t>(stream));

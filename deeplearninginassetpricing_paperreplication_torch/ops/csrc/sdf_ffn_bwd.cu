@@ -50,10 +50,14 @@
 // the stocks in ascending order and over the cells in the block's order;
 // the wrapper sums the G partials in a fixed order (torch.sum over the
 // partial axis). No float atomics: two calls give bitwise-equal gradients.
-// Stock lanes past N read x = 0 and g = 0, so they add nothing. Only the
+// Stock lanes past N read x = 0 and g = 0, so they add nothing. The
+// kernel has a float and a bf16-panel instance (panel.cuh); the latter
+// reads 2 bytes a value and widens it as it loads the thread's x row,
+// from which the f32 panel's arithmetic runs unchanged. Only the
 // inner loops are unrolled (the outer loops over units are not), which
 // keeps the build to seconds.
 
+#include "panel.cuh"
 #include "sdf_ffn_common.cuh"
 
 #ifndef SDF_FFN_MAXW
@@ -274,9 +278,9 @@ __device__ __forceinline__ void vec_store(float* gp, const Vec& v,
     if (q < v.n) gp[v.out + q] = c[q];
 }
 
-template <int MAXW, int NT>
+template <int MAXW, int NT, typename PX>
 __global__ void __launch_bounds__(kMaxTile)
-sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
+sdf_ffn_bwd_kernel(const PX* __restrict__ x, const float* __restrict__ zp,
                    const float* __restrict__ params,
                    const float* __restrict__ g, float* __restrict__ grad_part,
                    float* __restrict__ dzp_part, int T, int N, FfnDims d,
@@ -332,7 +336,7 @@ sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
       gs[tid] = gv;
       const uint32_t row =
           drop.on ? sdf_ffn::row_hash(base, t, drop.offset + n) : 0u;
-      const float* xt = x + (size_t)t * F * N + n;
+      const PX* xt = x + (size_t)t * F * N + n;
       float* xrow = sm + m.x + tid * m.sx;
       float cur[MAXW];
 #pragma unroll
@@ -342,7 +346,8 @@ sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
         float xv[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          xv[r] = valid && f + r < F ? __ldg(xt + (size_t)(f + r) * N) : 0.f;
+          xv[r] = valid && f + r < F ? panel::ldx(xt + (size_t)(f + r) * N)
+                                     : 0.f;
         st4(xrow + f, xv[0], xv[1], xv[2], xv[3]);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -606,10 +611,10 @@ sdf_ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ zp,
 
 // every plan is checked against this file's own arithmetic: 0 if the card
 // takes it, else kUnsupported (or a cudaError_t value)
-template <int NT>
+template <int NT, typename PX>
 int bwd_kernel_info(size_t smem, int bn, int* blocks, int* regs,
                     int* local_bytes) {
-  auto kern = sdf_ffn_bwd_kernel<SDF_FFN_MAXW, NT>;
+  auto kern = sdf_ffn_bwd_kernel<SDF_FFN_MAXW, NT, PX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -625,20 +630,29 @@ int bwd_kernel_info(size_t smem, int bn, int* blocks, int* regs,
 
 // the register instances: none at w128 (128-wide rows leave no registers
 // for the accumulators)
-int kernel_info(int nt, size_t smem, int bn, int* blocks, int* regs,
-                int* local_bytes) {
+template <typename PX>
+int instance_info(int nt, size_t smem, int bn, int* blocks, int* regs,
+                  int* local_bytes) {
   switch (nt) {
     case 0:
-      return bwd_kernel_info<0>(smem, bn, blocks, regs, local_bytes);
+      return bwd_kernel_info<0, PX>(smem, bn, blocks, regs, local_bytes);
 #if SDF_FFN_MAXW <= 64
     case 4:
-      return bwd_kernel_info<4>(smem, bn, blocks, regs, local_bytes);
+      return bwd_kernel_info<4, PX>(smem, bn, blocks, regs, local_bytes);
     case 6:
-      return bwd_kernel_info<6>(smem, bn, blocks, regs, local_bytes);
+      return bwd_kernel_info<6, PX>(smem, bn, blocks, regs, local_bytes);
 #endif
     default:
       return kUnsupported;
   }
+}
+
+// ... of the instance for an f32 (xb16 0) or bf16 (1) panel
+int kernel_info(int nt, int xb16, size_t smem, int bn, int* blocks,
+                int* regs, int* local_bytes) {
+  return xb16 ? instance_info<__nv_bfloat16>(nt, smem, bn, blocks, regs,
+                                             local_bytes)
+              : instance_info<float>(nt, smem, bn, blocks, regs, local_bytes);
 }
 
 // 0 and the plan's smem plan if (layout, tile bn, threads, nt, smem bytes)
@@ -660,40 +674,51 @@ int check_plan(const int* layout, int bn, int threads, int nt,
 
 template <int NT>
 int launch_bwd(dim3 grid, int bn, size_t smem, cudaStream_t stream,
-               const float* x, const float* zp, const float* params,
+               const void* x, int xb16, const float* zp, const float* params,
                const float* g, float* grad_part, float* dzp_part, int T,
                int N, const FfnDims& d, const BwdSmem& m, int bf16,
                const Dropout& drop) {
-  sdf_ffn_bwd_kernel<SDF_FFN_MAXW, NT><<<grid, bn, smem, stream>>>(
-      x, zp, params, g, grad_part, dzp_part, T, N, d, m, bf16, drop);
+  if (xb16)
+    sdf_ffn_bwd_kernel<SDF_FFN_MAXW, NT, __nv_bfloat16>
+        <<<grid, bn, smem, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                     zp, params, g, grad_part, dzp_part, T, N,
+                                     d, m, bf16, drop);
+  else
+    sdf_ffn_bwd_kernel<SDF_FFN_MAXW, NT, float><<<grid, bn, smem, stream>>>(
+        static_cast<const float*>(x), zp, params, g, grad_part, dzp_part, T,
+        N, d, m, bf16, drop);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Registers per thread of the kernel instance with `nt` register tiles per
-// thread (0: accumulators in grad_part), or -1 for an instance this library
-// lacks.
-extern "C" int sdf_ffn_bwd_registers(int nt) {
+// thread (0: accumulators in grad_part) for an f32 (xb16 0) or bf16 (1)
+// panel, or -1 for an instance this library lacks.
+extern "C" int sdf_ffn_bwd_registers(int nt, int xb16) {
   int info[3] = {0, 0, 0};
-  if (kernel_info(nt, 0, kMaxTile, &info[0], &info[1], &info[2]) != 0)
+  if (kernel_info(nt, xb16, 0, kMaxTile, &info[0], &info[1], &info[2]) != 0)
     return kUnsupported;
   return info[1];
 }
 
 // What the card makes of a plan: out = [resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
-// local-memory bytes per thread]. Returns 0, a cudaError_t value, or -1 for
-// a plan this file refuses.
+// local-memory bytes per thread] of its instance for an f32 (xb16 0) or
+// bf16 (1) panel. Returns 0, a cudaError_t value, or -1 for a plan this
+// file refuses.
 extern "C" int sdf_ffn_bwd_plan_info(const int* layout, int bn, int threads,
-                                     int nt, long long smem_bytes, int* out) {
+                                     int nt, long long smem_bytes, int xb16,
+                                     int* out) {
   FfnDims d;
   BwdSmem m;
   const int rc = check_plan(layout, bn, threads, nt, smem_bytes, &d, &m);
   if (rc != 0) return rc;
-  return kernel_info(nt, (size_t)smem_bytes, bn, &out[0], &out[1], &out[2]);
+  return kernel_info(nt, xb16, (size_t)smem_bytes, bn, &out[0], &out[1],
+                     &out[2]);
 }
 
+// x: the panel [T, F, N], f32, or bf16 where xb16 is 1 (panel.cuh).
 // grad_part [S, G, P] and dzp_part [S, G, T, H1], both zeroed by the
 // caller; dropout (and its global stock `offset`) as in sdf_ffn_fwd. The
 // plan (stock tile bn = threads per block, nt register tiles
@@ -702,7 +727,7 @@ extern "C" int sdf_ffn_bwd_plan_info(const int* layout, int bn, int threads,
 // ops/sdf_ffn.py::bwd_plan; a plan that disagrees with this file's
 // arithmetic, or that the card does not hold resident, is refused. Returns
 // 0, a cudaError_t value, or -1 for an unsupported shape or plan.
-extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
+extern "C" int sdf_ffn_bwd(const void* x, int xb16, const float* zp,
                            const float* params, const float* g,
                            float* grad_part, float* dzp_part, int S, int T,
                            int N, const int* layout, int bf16, int dropout,
@@ -718,7 +743,8 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
   int rc = check_plan(layout, bn, threads, nt, smem_bytes, &d, &m);
   if (rc != 0) return rc;
   int info[3] = {0, 0, 0};
-  rc = kernel_info(nt, (size_t)smem_bytes, bn, &info[0], &info[1], &info[2]);
+  rc = kernel_info(nt, xb16, (size_t)smem_bytes, bn, &info[0], &info[1],
+                   &info[2]);
   if (rc != 0) return rc;
   if (info[0] < blocks_per_sm) return kUnsupported;
   const Dropout drop{dropout, member_base, threshold, scale, offset};
@@ -727,15 +753,15 @@ extern "C" int sdf_ffn_bwd(const float* x, const float* zp,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nt) {
     case 0:
-      return launch_bwd<0>(grid, bn, smem, st, x, zp, params, g, grad_part,
-                           dzp_part, T, N, d, m, bf16, drop);
+      return launch_bwd<0>(grid, bn, smem, st, x, xb16, zp, params, g,
+                           grad_part, dzp_part, T, N, d, m, bf16, drop);
 #if SDF_FFN_MAXW <= 64
     case 4:
-      return launch_bwd<4>(grid, bn, smem, st, x, zp, params, g, grad_part,
-                           dzp_part, T, N, d, m, bf16, drop);
+      return launch_bwd<4>(grid, bn, smem, st, x, xb16, zp, params, g,
+                           grad_part, dzp_part, T, N, d, m, bf16, drop);
     case 6:
-      return launch_bwd<6>(grid, bn, smem, st, x, zp, params, g, grad_part,
-                           dzp_part, T, N, d, m, bf16, drop);
+      return launch_bwd<6>(grid, bn, smem, st, x, xb16, zp, params, g,
+                           grad_part, dzp_part, T, N, d, m, bf16, drop);
 #endif
     default:
       return kUnsupported;

@@ -88,9 +88,15 @@
 // compute_dtype bfloat16 rounds both operands of every product (kout·g,
 // Wᵀ·dh_pre, K1·dh1_pre, the forward's); the weights arrive rounded.
 // Stocks past N read x = 0 and g = 0 and write nothing.
+//
+// Each kernel has a float and a bf16-panel instance (panel.cuh): the latter
+// stores its panel tiles widened into the same f32 tiles, with ordinary
+// loads in place of the cp.async copies, and writes dx in bf16, the f32
+// sum of the members rounded once.
 
 #include <limits.h>
 
+#include "panel.cuh"
 #include "sdf_ffn_common.cuh"
 
 #ifndef SDF_FFN_MAXW
@@ -264,6 +270,18 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     cp_async4(dst + r * tile + c, ok ? src + (size_t)r * N + n0 + c : src,
               ok);
   }
+}
+
+// start the copies of period t's panel tile [F][tile] (stocks n0 ..) into
+// dst: cp.async from an f32 panel; from a bf16 one, stored widened now
+template <typename PX>
+__device__ __forceinline__ void load_panel(float* dst, const PX* x, int t,
+                                           int F, int n0, int N, int tile) {
+  const PX* xt = x + (size_t)t * F * N;
+  if constexpr (panel::kBf16<PX>)
+    panel::stage_bf16(dst, tile, xt + n0, N, F, tile, N - n0);
+  else
+    load_rows(dst, xt, F, n0, N, tile);
 }
 
 // Stage step (c, s), member s of cell c, into parity p: the member's
@@ -480,12 +498,12 @@ __device__ void core_back(const float* __restrict__ Wl, int hin, int hl,
 
 // RB: bf16 operands (the panel, the activations, g) on the CUDA cores, for F
 // beyond the tensor-core route
-template <bool RB>
+template <bool RB, typename PX>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-sdf_ffn_dx_cores_kernel(const float* __restrict__ x,
+sdf_ffn_dx_cores_kernel(const PX* __restrict__ x,
                         const float* __restrict__ zp,
                         const float* __restrict__ params,
-                        const float* __restrict__ g, float* __restrict__ dx,
+                        const float* __restrict__ g, PX* __restrict__ dx,
                         int S, int T, int N, int tile, int cells, FfnDims d,
                         DxSmem m, Dropout drop) {
   extern __shared__ float4 smem4[];
@@ -506,8 +524,7 @@ sdf_ffn_dx_cores_kernel(const float* __restrict__ x,
   const int df0 = tid / groups * kDf, ds0 = tid % groups * kTs;
   auto load_x = [&](int c, int b) {
     const Cell cl = cell_at(c, tiles, tile);
-    load_rows(sm + m.x + b * F * tile, x + (size_t)cl.t * F * N, F, cl.n0, N,
-              tile);
+    load_panel(sm + m.x + b * F * tile, x, cl.t, F, cl.n0, N, tile);
   };
 
   int c = blockIdx.x;
@@ -597,13 +614,13 @@ sdf_ffn_dx_cores_kernel(const float* __restrict__ x,
       for (int u = 0; u < kDf; ++u) {
         const int f = df0 + u;
         if (f >= F) continue;
-        float* o = dx + ((size_t)cl.t * F + f) * N + n;
-        if ((N & 3) == 0 && n + kTs <= N) {
-          st4(o, dxa[u]);
+        PX* o = dx + ((size_t)cl.t * F + f) * N + n;
+        if (!panel::kBf16<PX> && (N & 3) == 0 && n + kTs <= N) {
+          st4(reinterpret_cast<float*>(o), dxa[u]);
         } else {
 #pragma unroll
           for (int s = 0; s < kTs; ++s)
-            if (n + s < N) o[s] = dxa[u][s];
+            if (n + s < N) panel::st(o + s, dxa[u][s]);
         }
       }
     }
@@ -774,12 +791,12 @@ __global__ void sdf_ffn_dx_image_kernel(const float* __restrict__ params,
 // the tensor cores: the top layer's product, its decisions certified
 // against the exact chain, the dh chain and dx. KX: pad16(F) / 16 (≤ 4),
 // so dx has 2·KX n tiles of 8 features.
-template <int MAXW, int KX>
+template <int MAXW, int KX, typename PX>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-sdf_ffn_dx_mma_kernel(const float* __restrict__ x,
+sdf_ffn_dx_mma_kernel(const PX* __restrict__ x,
                       const float* __restrict__ zp,
                       const uint32_t* __restrict__ img,
-                      const float* __restrict__ g, float* __restrict__ dx,
+                      const float* __restrict__ g, PX* __restrict__ dx,
                       int S, int T, int N, int tile, int cells, FfnDims d,
                       DxSmem m, Dropout drop) {
   constexpr int NT = MAXW / 8;   // accumulator tiles of 8 units
@@ -804,8 +821,7 @@ sdf_ffn_dx_mma_kernel(const float* __restrict__ x,
   const float* imgf = reinterpret_cast<const float*>(img);
   auto load_x = [&](int c, int b) {
     const Cell cl = cell_at(c, tiles, tile);
-    load_rows(smf + m.x + b * F * tile, x + (size_t)cl.t * F * N, F, cl.n0, N,
-              tile);
+    load_panel(smf + m.x + b * F * tile, x, cl.t, F, cl.n0, N, tile);
   };
 
   int c = blockIdx.x;
@@ -1046,7 +1062,8 @@ sdf_ffn_dx_mma_kernel(const float* __restrict__ x,
       for (int e = 0; e < 4; ++e) {
         const int f = 8 * j + 2 * tig + (e & 1);
         const int n = cl.n0 + r0 + 8 * (e >> 1);
-        if (f < F && n < N) dx[((size_t)cl.t * F + f) * N + n] = dxa[j][e];
+        if (f < F && n < N)
+          panel::st(dx + ((size_t)cl.t * F + f) * N + n, dxa[j][e]);
       }
   }
   cp_async_wait<0>();
@@ -1056,16 +1073,23 @@ sdf_ffn_dx_mma_kernel(const float* __restrict__ x,
 
 // the kernel of `route` for F features (route 0's bf16-operand instance,
 // route 1's by its dx tiles)
+template <typename PX>
 const void* kernel_of(int route, int bf16, int F) {
   if (route == kRouteCores)
-    return bf16 ? (const void*)sdf_ffn_dx_cores_kernel<true>
-                : (const void*)sdf_ffn_dx_cores_kernel<false>;
+    return bf16 ? (const void*)sdf_ffn_dx_cores_kernel<true, PX>
+                : (const void*)sdf_ffn_dx_cores_kernel<false, PX>;
   switch (pad16(F) / 16) {
-    case 1: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 1>;
-    case 2: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 2>;
-    case 3: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 3>;
-    default: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 4>;
+    case 1: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 1, PX>;
+    case 2: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 2, PX>;
+    case 3: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 3, PX>;
+    default: return (const void*)sdf_ffn_dx_mma_kernel<SDF_FFN_MAXW, 4, PX>;
   }
+}
+
+// ... on an f32 (xb16 0) or bf16 (1) panel
+const void* kernel_of(int route, int bf16, int F, int xb16) {
+  return xb16 ? kernel_of<__nv_bfloat16>(route, bf16, F)
+              : kernel_of<float>(route, bf16, F);
 }
 
 // 0 if the card takes `kern` at `threads` and `smem` bytes: resident
@@ -1122,36 +1146,39 @@ int check_plan(const int* layout, int S, int bf16, int route, int tile,
 }  // namespace
 
 // Registers per thread of the kernel `route` runs for F features (route 0
-// with bf16 operands where `bf16`).
-extern "C" int sdf_ffn_dx_registers(int route, int bf16, int F) {
+// with bf16 operands where `bf16`) on an f32 (xb16 0) or bf16 (1) panel.
+extern "C" int sdf_ffn_dx_registers(int route, int bf16, int F, int xb16) {
   if ((route != kRouteCores && route != kRouteMma) || F < 1 ||
       (route == kRouteMma && pad16(F) > kMmaMaxF))
     return kUnsupported;
   int info[3] = {0, 0, 0};
-  if (kernel_info(kernel_of(route, bf16, F), 128, 0, &info[0], &info[1],
-                  &info[2]) != 0)
+  if (kernel_info(kernel_of(route, bf16, F, xb16), 128, 0, &info[0],
+                  &info[1], &info[2]) != 0)
     return kUnsupported;
   return info[1];
 }
 
 // What the card makes of a plan: out = [resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
-// local-memory bytes per thread]. Returns 0, a cudaError_t value, or -1 for
-// a plan this file refuses.
+// local-memory bytes per thread] of its instance for an f32 (xb16 0) or
+// bf16 (1) panel. Returns 0, a cudaError_t value, or -1 for a plan this
+// file refuses.
 extern "C" int sdf_ffn_dx_plan_info(const int* layout, int S, int bf16,
                                     int route, int tile, int threads,
                                     int wbufs, int xbufs,
-                                    long long smem_bytes, int* out) {
+                                    long long smem_bytes, int xb16,
+                                    int* out) {
   FfnDims d;
   DxSmem m;
   const int rc = check_plan(layout, S, bf16, route, tile, threads, wbufs,
                             xbufs, smem_bytes, &d, &m);
   if (rc != 0) return rc;
-  return kernel_info(kernel_of(route, bf16, d.F), threads, (size_t)smem_bytes,
-                     &out[0], &out[1], &out[2]);
+  return kernel_info(kernel_of(route, bf16, d.F, xb16), threads,
+                     (size_t)smem_bytes, &out[0], &out[1], &out[2]);
 }
 
-// dx [T, F, N] (fully written) from x [T, F, N], zp [S, T, H1], the packed
+// dx [T, F, N] (fully written; bf16 where the panel is, xb16 1, else f32)
+// from x [T, F, N], zp [S, T, H1], the packed
 // params [S, P] and g [S, T, N]. img: route 1's member images, S ×
 // wwords words of device scratch (unused by route 0). layout: see
 // sdf_ffn::read_dims; dropout as in sdf_ffn_fwd. The plan (route, stock
@@ -1162,8 +1189,9 @@ extern "C" int sdf_ffn_dx_plan_info(const int* layout, int S, int bf16,
 // which also opens the kernel to the shared memory the launch takes); a
 // plan that disagrees with this file is refused. Returns 0, a cudaError_t
 // value, or -1 for an unsupported shape or plan.
-extern "C" int sdf_ffn_dx(const float* x, const float* zp, const float* params,
-                          const float* g, float* dx, unsigned int* img, int S,
+extern "C" int sdf_ffn_dx(const void* x, int xb16, const float* zp,
+                          const float* params, const float* g, void* dx,
+                          unsigned int* img, int S,
                           int T, int N, const int* layout, int bf16,
                           int dropout, const unsigned int* member_base,
                           unsigned int threshold, float scale,
@@ -1180,7 +1208,7 @@ extern "C" int sdf_ffn_dx(const float* x, const float* zp, const float* params,
   const long long ncells = (long long)T * ((N + tile - 1) / tile);
   if (G > ncells || ncells > INT_MAX) return kUnsupported;
   const int cells = (int)ncells;
-  const void* kern = kernel_of(route, bf16, d.F);
+  const void* kern = kernel_of(route, bf16, d.F, xb16);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout drop{dropout, member_base, threshold, scale, offset};
   if (route == kRouteMma) {

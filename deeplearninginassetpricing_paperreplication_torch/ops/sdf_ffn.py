@@ -33,6 +33,15 @@ once.
 ``compute_dtype="bfloat16"`` rounds both operands of every product to bf16
 and accumulates in f32 (``pallas_ffn._dot``); biases stay f32.
 
+The panel x_t is float32 or bfloat16 (:data:`PANEL_DTYPES`; the bf16
+panel is ``ExecutionConfig.bf16_panel``'s, the JAX package's default on
+the kernel route), and no other dtype is taken. Every kernel widens a bf16
+panel exactly into its f32 form (``csrc/panel.cuh``), and every plain
+version computes on ``x_t.float()``, so either route on a bf16 panel is
+that route on the f32 panel ``x.bfloat16().float()``; the panel cotangent
+comes back in the panel's dtype, summed in f32 and rounded once (round to
+nearest even), as the JAX kernel's ``.astype(dx_ref.dtype)``.
+
 Dropout (training) is a counter-based hash of (member base, period,
 stock, layer, unit), applied after the ReLU of every hidden layer: keep iff
 the bits are ≥ round(rate·2³²), kept values scaled by 1/(1 − rate). The
@@ -65,9 +74,11 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import _nvcc, count_launch, launch_total, reset_launch_counts
+from . import (BF16_PANEL, _nvcc, count_launch, launch_total,
+               reset_launch_counts)
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+PANEL_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HIDDEN_LAYERS = 8
 WIDTH_BOUNDS = (32, 64, 128)  # one library per bound on the padded width
 MAX_SMEM = 227 * 1024  # shared memory one block may use (bytes)
@@ -110,6 +121,9 @@ DX_MMA_MAX_F = 64
 _TOTALS = {"launches": "sdf_ffn_fwd",
            "bwd_launches": "sdf_ffn_bwd",
            "dx_launches": "sdf_ffn_dx"}
+# and those of the bf16-panel forms alone (a subset of the above)
+_TOTALS.update({k + BF16_PANEL: v + BF16_PANEL
+                for k, v in list(_TOTALS.items())})
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -134,6 +148,21 @@ def _round(a: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     if compute_dtype == "bfloat16":
         return a.to(torch.bfloat16).to(torch.float32)
     return a
+
+
+def check_panel_dtype(x_t: torch.Tensor, who: str = "sdf_ffn") -> None:
+    """Refuse a panel dtype the kernels do not take (never convert it)."""
+    if x_t.dtype not in PANEL_DTYPES:
+        raise ValueError(f"{who}: the panel x_t must be float32 or bfloat16;"
+                         f" got {x_t.dtype}")
+
+
+def panel_launch(kernel: str, x_t: torch.Tensor) -> None:
+    """Count one launch of `kernel` on x_t's device and, on a bf16 panel,
+    one of its bf16-panel form (``<kernel>_bf16_panel``)."""
+    count_launch(kernel, x_t.device)
+    if x_t.dtype == torch.bfloat16:
+        count_launch(kernel + BF16_PANEL, x_t.device)
 
 
 def _check_dtype(compute_dtype: str) -> None:
@@ -333,13 +362,13 @@ def sdf_ffn_dx_reference(x_t: torch.Tensor, zp: torch.Tensor,
     """The plain-PyTorch panel cotangent, with the JAX kernel's rounding
     points (``pallas_ffn._dx_kernel``): g [S, T, N] → dx [T, F, N] =
     Σ_s round(K1_s)·round(dh1_pre_s), summed over the members because they
-    share the panel."""
+    share the panel, in the panel's dtype (a bf16 dx rounded once)."""
     cd = compute_dtype
     _, facs = _forward_stack(x_t, zp, k1T, mids, cd, seed, dropout_rate,
                              offset)
     dh1_pre = _dh_chain(facs, mids, kout, g, cd)[0]
     return torch.einsum("sjf,stjn->tfn", _round(k1T, cd),
-                        _round(dh1_pre, cd))
+                        _round(dh1_pre, cd)).to(x_t.dtype)
 
 
 # -- packed parameters ------------------------------------------------------
@@ -498,16 +527,18 @@ def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
 # the global stock offset)
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
                   ctypes.c_float, ctypes.c_uint]
+# every entry's first two: the panel and its dtype (1: bf16, 0: f32)
+_PANEL_ARGTYPES = [ctypes.c_void_p, ctypes.c_int]
 _ARGTYPES = {
-    "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "fwd": (_PANEL_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + _DROP_ARGTYPES
             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p]),
-    "bwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    "bwd": (_PANEL_ARGTYPES + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + _DROP_ARGTYPES
             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_void_p]),
-    "dx": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    "dx": (_PANEL_ARGTYPES + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + _DROP_ARGTYPES
            + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_void_p]),
@@ -525,26 +556,32 @@ def _load(kernel: str, width: int, audit: bool = False):
             fn = getattr(lib, f"sdf_ffn_{kernel}")
             fn.argtypes = _ARGTYPES[kernel]
             fn.restype = ctypes.c_int
+            # every plan query names the panel's dtype last (xb16): each
+            # kernel's f32 and bf16-panel instances have their own
+            # registers
             if kernel == "fwd":
                 lib.sdf_ffn_fwd_plan_info.argtypes = [
                     ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5 + [
-                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+                    ctypes.c_longlong, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
                 lib.sdf_ffn_fwd_plan_info.restype = ctypes.c_int
-                lib.sdf_ffn_fwd_registers.argtypes = [ctypes.c_int] * 2
+                lib.sdf_ffn_fwd_registers.argtypes = [ctypes.c_int] * 3
                 lib.sdf_ffn_fwd_registers.restype = ctypes.c_int
             if kernel == "bwd":
                 lib.sdf_ffn_bwd_plan_info.argtypes = [
                     ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [
-                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+                    ctypes.c_longlong, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
                 lib.sdf_ffn_bwd_plan_info.restype = ctypes.c_int
-                lib.sdf_ffn_bwd_registers.argtypes = [ctypes.c_int]
+                lib.sdf_ffn_bwd_registers.argtypes = [ctypes.c_int] * 2
                 lib.sdf_ffn_bwd_registers.restype = ctypes.c_int
             if kernel == "dx":
                 lib.sdf_ffn_dx_plan_info.argtypes = [
                     ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7 + [
-                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+                    ctypes.c_longlong, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
                 lib.sdf_ffn_dx_plan_info.restype = ctypes.c_int
-                lib.sdf_ffn_dx_registers.argtypes = [ctypes.c_int] * 3
+                lib.sdf_ffn_dx_registers.argtypes = [ctypes.c_int] * 4
                 lib.sdf_ffn_dx_registers.restype = ctypes.c_int
             if audit:
                 lib.sdf_ffn_dx_audit_reset.argtypes = [ctypes.c_void_p]
@@ -557,9 +594,11 @@ def _load(kernel: str, width: int, audit: bool = False):
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-                device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"sdf_ffn: {name} must be a contiguous float32 "
+                device: torch.device,
+                dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    if t.device != device or t.dtype not in dtypes or not t.is_contiguous():
+        kinds = " or ".join(str(d).split(".")[-1] for d in dtypes)
+        raise ValueError(f"sdf_ffn: {name} must be a contiguous {kinds} "
                          f"tensor on {device}; got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
     if tuple(t.shape) != shape:
@@ -595,6 +634,16 @@ def _layout_ints(lay: FfnLayout):
     return (ctypes.c_int * len(ints))(*ints)
 
 
+def is_bf16(x_t: torch.Tensor) -> bool:
+    """Is x_t a bf16 panel (its kernels' bf16-panel instances)?"""
+    return x_t.dtype == torch.bfloat16
+
+
+def _panel_args(x_t: torch.Tensor):
+    """An entry's first two arguments: the panel and its dtype flag."""
+    return x_t.data_ptr(), int(is_bf16(x_t))
+
+
 def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
             seed: Seed = 0, dropout_rate: float = 0.0,
             offset: int = 0) -> torch.Tensor:
@@ -603,17 +652,18 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     T, F, N = x_t.shape
     S = packed.n_members
     dev = x_t.device
-    _check_cuda("x_t", x_t, (T, lay.F, N), dev)
+    _check_cuda("x_t", x_t, (T, lay.F, N), dev, PANEL_DTYPES)
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
-    plan = card_fwd_plan(lay, dev, S, T, N, packed.compute_dtype)
+    plan = card_fwd_plan(lay, dev, S, T, N, packed.compute_dtype,
+                         is_bf16(x_t))
     lib = _load("fwd", width_bound(lay.hidden))
     out = torch.empty((S, T, N), dtype=torch.float32, device=dev)
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_fwd(
-            x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+            *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
             out.data_ptr(), S, T, N, _layout_ints(lay),
             int(packed.compute_dtype == "bfloat16"), *drop, plan.route,
             plan.tile, plan.threads, plan.members, plan.smem_bytes,
@@ -622,7 +672,7 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         raise RuntimeError(f"sdf_ffn_fwd refused the plan {plan} for hidden "
                            f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_fwd", rc)
-    count_launch("sdf_ffn_fwd", dev)
+    panel_launch("sdf_ffn_fwd", x_t)
     return out
 
 
@@ -979,67 +1029,72 @@ def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-_bwd_regs: Dict[int, Dict[int, int]] = {}
-_fwd_regs: Dict[Tuple[int, int], Dict[int, int]] = {}
+_bwd_regs: Dict[Tuple[int, bool], Dict[int, int]] = {}
+_fwd_regs: Dict[Tuple[int, int, bool], Dict[int, int]] = {}
 _fwd_plans: Dict[tuple, "FwdPlan"] = {}
+
+# `xb16` below: plan for the kernel's bf16-panel instance (a bf16 x_t),
+# whose registers are its own, else for its f32-panel one
 
 
 def card_bwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
-                  tile: int = None) -> BwdPlan:
+                  tile: int = None, xb16: bool = False) -> BwdPlan:
     """:func:`bwd_plan` for the card `dev`: its SM count, and the registers
     of the library's kernel instances."""
-    width = width_bound(lay.hidden)
-    if width not in _bwd_regs:
-        lib = _load("bwd", width)
-        regs = {nt: lib.sdf_ffn_bwd_registers(nt)
+    rkey = (width_bound(lay.hidden), bool(xb16))
+    if rkey not in _bwd_regs:
+        lib = _load("bwd", rkey[0])
+        regs = {nt: lib.sdf_ffn_bwd_registers(nt, int(xb16))
                 for nt in (0,) + BWD_REG_TILES}
-        _bwd_regs[width] = {nt: r for nt, r in regs.items() if r > 0}
-    return bwd_plan(lay, _sm_count(dev), S, T, N, tile, _bwd_regs[width])
+        _bwd_regs[rkey] = {nt: r for nt, r in regs.items() if r > 0}
+    return bwd_plan(lay, _sm_count(dev), S, T, N, tile, _bwd_regs[rkey])
 
 
 def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
-                  compute_dtype: str) -> FwdPlan:
+                  compute_dtype: str, xb16: bool = False) -> FwdPlan:
     """:func:`fwd_plan` for the card `dev`: its SM count, and the registers
     of the library's two kernels at the layout's F; kept per shape, so a serving loop plans
     each bucket once."""
-    key = (lay, dev, S, T, N, compute_dtype)
+    key = (lay, dev, S, T, N, compute_dtype, bool(xb16))
     if key not in _fwd_plans:
-        lib_key = (width_bound(lay.hidden), lay.F)
+        lib_key = (width_bound(lay.hidden), lay.F, bool(xb16))
         if lib_key not in _fwd_regs:
             lib = _load("fwd", lib_key[0])
-            _fwd_regs[lib_key] = {r: lib.sdf_ffn_fwd_registers(r, lay.F)
+            _fwd_regs[lib_key] = {r: lib.sdf_ffn_fwd_registers(r, lay.F,
+                                                               int(xb16))
                                   for r in FWD_ROUTES.values()}
         _fwd_plans[key] = fwd_plan(lay, _sm_count(dev), S, T, N,
                                    compute_dtype, _fwd_regs[lib_key])
     return _fwd_plans[key]
 
 
-_dx_regs: Dict[Tuple[int, int, int], Dict[int, int]] = {}
+_dx_regs: Dict[Tuple[int, int, int, bool], Dict[int, int]] = {}
 _dx_plans: Dict[tuple, DxPlan] = {}
 
 
 def card_dx_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
-                 compute_dtype: str, tile: int = None) -> DxPlan:
+                 compute_dtype: str, tile: int = None,
+                 xb16: bool = False) -> DxPlan:
     """:func:`dx_plan` for the card `dev`: its SM count, and the registers
     of the library's kernel for the layout's F and dtype; kept per shape
     (and forced `tile`).
     Each plan is checked on the card once, before its first launch
     (:func:`dx_plan_info`): one that the kernel refuses, or whose blocks
     the card does not keep resident, raises."""
-    key = (lay, dev, S, T, N, compute_dtype, tile)
+    key = (lay, dev, S, T, N, compute_dtype, tile, bool(xb16))
     plan = _dx_plans.get(key)
     if plan is None:
         route = dx_route(lay, compute_dtype)
         bf16 = int(compute_dtype == "bfloat16")
-        rkey = (width_bound(lay.hidden), lay.F, bf16)
+        rkey = (width_bound(lay.hidden), lay.F, bf16, bool(xb16))
         if rkey not in _dx_regs:
-            regs = _load("dx", rkey[0]).sdf_ffn_dx_registers(route, bf16,
-                                                             lay.F)
+            regs = _load("dx", rkey[0]).sdf_ffn_dx_registers(
+                route, bf16, lay.F, int(xb16))
             _dx_regs[rkey] = {route: regs} if regs > 0 else {}
         plan = dx_plan(lay, _sm_count(dev), S, T, N, compute_dtype,
                        _dx_regs[rkey], tile)
         with torch.cuda.device(dev):
-            held = dx_plan_info(lay, S, compute_dtype, plan)
+            held = dx_plan_info(lay, S, compute_dtype, plan, xb16=xb16)
         if held["blocks_per_sm"] < plan.blocks_per_sm:
             raise RuntimeError(f"sdf_ffn_dx: the card keeps "
                                f"{held['blocks_per_sm']} blocks per SM of "
@@ -1049,7 +1104,8 @@ def card_dx_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
 
 
 def dx_plan_info(lay: FfnLayout, S: int, compute_dtype: str,
-                 plan: DxPlan, audit: bool = False) -> Dict[str, int]:
+                 plan: DxPlan, audit: bool = False,
+                 xb16: bool = False) -> Dict[str, int]:
     """What the card makes of `plan` (the current CUDA device): resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel it launches
@@ -1058,13 +1114,15 @@ def dx_plan_info(lay: FfnLayout, S: int, compute_dtype: str,
     out = (ctypes.c_int * 3)()
     rc = _load("dx", width_bound(lay.hidden), audit).sdf_ffn_dx_plan_info(
         _layout_ints(lay), S, int(compute_dtype == "bfloat16"), plan.route,
-        plan.tile, plan.threads, plan.wbufs, plan.xbufs, plan.smem_bytes, out)
+        plan.tile, plan.threads, plan.wbufs, plan.xbufs, plan.smem_bytes,
+        int(xb16), out)
     if rc != 0:
         raise RuntimeError(f"sdf_ffn_dx refused the plan {plan} (code {rc})")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
-def fwd_plan_info(lay: FfnLayout, S: int, plan: FwdPlan) -> Dict[str, int]:
+def fwd_plan_info(lay: FfnLayout, S: int, plan: FwdPlan,
+                  xb16: bool = False) -> Dict[str, int]:
     """What the card makes of `plan` (the current CUDA device): resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel it launches.
@@ -1072,13 +1130,14 @@ def fwd_plan_info(lay: FfnLayout, S: int, plan: FwdPlan) -> Dict[str, int]:
     out = (ctypes.c_int * 3)()
     rc = _load("fwd", width_bound(lay.hidden)).sdf_ffn_fwd_plan_info(
         _layout_ints(lay), S, plan.route, plan.tile, plan.threads,
-        plan.members, plan.smem_bytes, out)
+        plan.members, plan.smem_bytes, int(xb16), out)
     if rc != 0:
         raise RuntimeError(f"sdf_ffn_fwd refused the plan {plan} (code {rc})")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
 
 
-def bwd_plan_info(lay: FfnLayout, plan: BwdPlan) -> Dict[str, int]:
+def bwd_plan_info(lay: FfnLayout, plan: BwdPlan,
+                  xb16: bool = False) -> Dict[str, int]:
     """What the card makes of `plan` (the current CUDA device): resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel instance it
@@ -1086,7 +1145,7 @@ def bwd_plan_info(lay: FfnLayout, plan: BwdPlan) -> Dict[str, int]:
     out = (ctypes.c_int * 3)()
     rc = _load("bwd", width_bound(lay.hidden)).sdf_ffn_bwd_plan_info(
         _layout_ints(lay), plan.tile, plan.threads, plan.nt,
-        plan.smem_bytes, out)
+        plan.smem_bytes, int(xb16), out)
     if rc != 0:
         raise RuntimeError(f"sdf_ffn_bwd refused the plan {plan} (code {rc})")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
@@ -1102,12 +1161,12 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     T, F, N = x_t.shape
     S = packed.n_members
     dev = x_t.device
-    _check_cuda("x_t", x_t, (T, lay.F, N), dev)
+    _check_cuda("x_t", x_t, (T, lay.F, N), dev, PANEL_DTYPES)
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
     _check_cuda("g", g, (S, T, N), dev)
     if plan is None:
-        plan = card_bwd_plan(lay, dev, S, T, N)
+        plan = card_bwd_plan(lay, dev, S, T, N, xb16=is_bf16(x_t))
     lib = _load("bwd", width_bound(lay.hidden))
     G = plan.G
     grad_part = torch.zeros((S, G, lay.P), dtype=torch.float32, device=dev)
@@ -1117,7 +1176,7 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_bwd(
-            x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+            *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
             g.data_ptr(), grad_part.data_ptr(), dzp_part.data_ptr(), S, T, N,
             _layout_ints(lay), int(packed.compute_dtype == "bfloat16"),
             *drop, G, plan.tile, plan.threads, plan.nt, plan.smem_bytes,
@@ -1126,7 +1185,7 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         raise RuntimeError(f"sdf_ffn_bwd refused the plan {plan} for hidden "
                            f"{list(lay.hidden)}, F = {lay.F}")
     _raise_rc("sdf_ffn_bwd", rc)
-    count_launch("sdf_ffn_bwd", dev)
+    panel_launch("sdf_ffn_bwd", x_t)
     # the fixed-order pass over the per-block partials
     return grad_part.sum(dim=1), dzp_part.sum(dim=1)
 
@@ -1140,14 +1199,15 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     T, F, N = x_t.shape
     S = packed.n_members
     dev = x_t.device
-    _check_cuda("x_t", x_t, (T, lay.F, N), dev)
+    _check_cuda("x_t", x_t, (T, lay.F, N), dev, PANEL_DTYPES)
     _check_cuda("zp", zp, (S, T, lay.hidden[0]), dev)
     _check_cuda("params", packed.params, (S, lay.P), dev)
     _check_cuda("g", g, (S, T, N), dev)
     cd = packed.compute_dtype
     if plan is None:
-        plan = card_dx_plan(lay, dev, S, T, N, cd)
-    dx = torch.empty((T, lay.F, N), dtype=torch.float32, device=dev)
+        plan = card_dx_plan(lay, dev, S, T, N, cd, xb16=is_bf16(x_t))
+    # in the panel's dtype: a bf16 dx is rounded once, in the kernel
+    dx = torch.empty((T, lay.F, N), dtype=x_t.dtype, device=dev)
     # route 1's member images (bf16 rows), written by the launch itself
     img = (torch.empty(S * dx_geometry(lay, 1, plan.tile, plan.wbufs,
                                        plan.xbufs)[1],
@@ -1157,7 +1217,7 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdf_ffn_dx(
-            x_t.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
+            *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
             g.data_ptr(), dx.data_ptr(),
             None if img is None else img.data_ptr(), S, T, N,
             _layout_ints(lay), int(cd == "bfloat16"), *drop, plan.route,
@@ -1173,11 +1233,11 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
 def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
                plan: DxPlan = None, offset: int = 0) -> torch.Tensor:
-    """The panel cotangent dx [T, F, N], summed over the members; `plan`
-    defaults to :func:`card_dx_plan` for this card."""
+    """The panel cotangent dx [T, F, N] in the panel's dtype, summed over
+    the members; `plan` defaults to :func:`card_dx_plan` for this card."""
     dx = _dx_call(_load("dx", width_bound(packed.layout.hidden)), x_t, zp,
                   packed, g, seed, dropout_rate, plan, offset)
-    count_launch("sdf_ffn_dx", x_t.device)
+    panel_launch("sdf_ffn_dx", x_t)
     return dx
 
 
@@ -1199,12 +1259,13 @@ def dx_audit(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     lib = _load("dx", width_bound(lay.hidden), audit=True)
     if plan is None:
         plan = card_dx_plan(lay, dev, packed.n_members, x_t.shape[0],
-                            x_t.shape[2], packed.compute_dtype)
+                            x_t.shape[2], packed.compute_dtype,
+                            xb16=is_bf16(x_t))
     out = (ctypes.c_ulonglong * len(AUDIT_COUNTERS))()
     with torch.cuda.device(dev):
         # opens the audit kernel to the plan's shared memory
         held = dx_plan_info(lay, packed.n_members, packed.compute_dtype,
-                            plan, audit=True)
+                            plan, audit=True, xb16=is_bf16(x_t))
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise_rc("sdf_ffn_dx_audit_reset", lib.sdf_ffn_dx_audit_reset(stream))
         dx = _dx_call(lib, x_t, zp, packed, g, seed, dropout_rate, plan,
@@ -1255,6 +1316,7 @@ def sdf_ffn_packed(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                    seed: Seed = 0, offset: int = 0) -> torch.Tensor:
     """Raw weights [S, T, N] from pre-packed member weights (the serving
     path: no gradient)."""
+    check_panel_dtype(x_t)
     if _route(x_t, kernel) == "plain":
         return sdf_ffn_reference(x_t, zp, packed.k1T, packed.mids,
                                  packed.kout, packed.bout,
@@ -1324,8 +1386,10 @@ def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
     bias. ``seed`` (one int, or S ints: one per member) and
     ``dropout_rate`` draw the dropout masks, identically in the forward and
     the backward; ``offset`` is the global index of x_t's first stock (a
-    stock shard's start)."""
+    stock shard's start). x_t is float32 or bfloat16; its gradient comes
+    back in its dtype."""
     _check_dtype(compute_dtype)
+    check_panel_dtype(x_t)
     S, H1, F = k1T.shape
     if len(mids) + 1 > MAX_HIDDEN_LAYERS:
         raise ValueError(f"the fused FFN takes at most {MAX_HIDDEN_LAYERS} "
@@ -1349,11 +1413,14 @@ def flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
     return 2 * per * S * T * N
 
 
-def bytes_moved(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
-    """Each input read once, the output written once (f32): the panel, zp,
-    the packed weights, and the [S, T, N] output."""
+def bytes_moved(S: int, T: int, N: int, F: int, hidden: Sequence[int],
+                x_bytes: int = 4) -> int:
+    """Each input read once, the output written once: the panel (`x_bytes`
+    a value: 4 in f32, 2 in bf16), zp, the packed weights, and the
+    [S, T, N] output (f32)."""
     lay = ffn_layout(F, hidden)
-    return 4 * (T * F * N + S * T * hidden[0] + S * lay.P + S * T * N)
+    return (x_bytes * T * F * N
+            + 4 * (S * T * hidden[0] + S * lay.P + S * T * N))
 
 
 def bwd_flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
@@ -1368,12 +1435,12 @@ def bwd_flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
 
 
 def bwd_bytes_moved(S: int, T: int, N: int, F: int,
-                    hidden: Sequence[int]) -> int:
-    """The panel, zp, the weights and g read once; dzp and the parameter
-    gradients written once (f32)."""
+                    hidden: Sequence[int], x_bytes: int = 4) -> int:
+    """The panel (`x_bytes` a value), zp, the weights and g read once; dzp
+    and the parameter gradients written once (f32)."""
     lay = ffn_layout(F, hidden)
-    return 4 * (T * F * N + 2 * S * T * hidden[0] + 2 * S * lay.P
-                + S * T * N)
+    return (x_bytes * T * F * N
+            + 4 * (2 * S * T * hidden[0] + 2 * S * lay.P + S * T * N))
 
 
 def dx_flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
@@ -1386,8 +1453,9 @@ def dx_flops(S: int, T: int, N: int, F: int, hidden: Sequence[int]) -> int:
 
 
 def dx_bytes_moved(S: int, T: int, N: int, F: int,
-                   hidden: Sequence[int]) -> int:
+                   hidden: Sequence[int], x_bytes: int = 4) -> int:
     """The panel, zp, the weights and g read once; dx [T, F, N] written
-    once (f32)."""
+    once, in the panel's dtype (`x_bytes` a value)."""
     lay = ffn_layout(F, hidden)
-    return 4 * (2 * T * F * N + S * T * hidden[0] + S * lay.P + S * T * N)
+    return (2 * x_bytes * T * F * N
+            + 4 * (S * T * hidden[0] + S * lay.P + S * T * N))

@@ -33,7 +33,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.gan import GAN
+from ..models.gan import GAN, feature_major
 from ..models.networks import (
     init_member_params,
     macro_states,
@@ -87,12 +87,14 @@ def member_weights(cfg: GANConfig, stacked: Mapping[str, torch.Tensor],
                    batch: Batch, exec_cfg: ExecutionConfig,
                    packed: Optional[sdf_ffn.PackedFfn] = None) -> torch.Tensor:
     """[S, T, N] abs-sum-normalized weights of every member: one member-
-    stacked LSTM scan and one fused-FFN call over all S members."""
+    stacked LSTM scan and one fused-FFN call over all S members. On the f32
+    panel always: a batch prepared for training with a bf16 panel
+    (``ExecutionConfig.bf16_panel``) has it rebuilt in f32, so reported
+    metrics do not depend on that training-side storage (the JAX package's
+    ``member_weights``)."""
     params = sdf_params(stacked)
     mask = batch["mask"]
-    x_t = batch.get("individual_t")
-    if x_t is None:
-        x_t = batch["individual"].permute(0, 2, 1).contiguous()
+    x_t = feature_major(batch)["individual_t"]
     states = macro_states(params, cfg, batch.get("macro"))
     w = sdf_raw_weights(params, cfg, exec_cfg, x_t, states, packed) * mask
     if cfg.normalize_w:

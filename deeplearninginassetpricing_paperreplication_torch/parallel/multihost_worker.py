@@ -111,7 +111,7 @@ def member_step(cfg: GANConfig, state_dict, batch, exec_cfg: ExecutionConfig,
     loss that of the parameters before the update; the stepped GAN)."""
     gan = GAN.from_state_dict(cfg, state_dict, exec_cfg)
     opt = Optimizer(subtree_params(gan, "sdf_net"), lr)
-    metrics = train_step(gan, "conditional", opt, GAN.prepare_batch(batch),
+    metrics = train_step(gan, "conditional", opt, gan.prepare_batch(batch),
                          None)
     return metrics, gan
 
@@ -172,8 +172,10 @@ def run_rank(cfg: GANConfig, T: int, n_stocks_per_device: int, device,
     if shard.span != stock_span(N, mesh, device=me):
         raise RuntimeError(f"rank {me}: row group span {shard.span} is not "
                            f"the mesh's {stock_span(N, mesh, device=me)}")
+    # the f32 comparison route (kernel against plain): the f32 panel
     exec_cfg = ExecutionConfig(kernel=kernel, compute_dtype="float32",
-                               device=str(dev), shard=shard)
+                               bf16_panel=False, device=str(dev),
+                               shard=shard)
     with events.span("multihost/plan"):
         trainer_precompile_fn(cfg, exec_cfg, events)(
             {"train": {"returns": tuple(batch["returns"].shape),

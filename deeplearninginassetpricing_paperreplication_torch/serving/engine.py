@@ -640,7 +640,9 @@ class InferenceEngine:
         """The members' masked weights [K, B, n] before the cross-section:
         per stock, so a span's are the whole bucket's over that span."""
         # the kernel's feature-major panel, transposed on the device
-        x_t = individual.transpose(1, 2).contiguous()  # [B, F, n]
+        # [B, F, n], f32 always: the engine serves on the f32 panel whatever
+        # exec_cfg.bf16_panel says (the JAX engine's _load_stacked)
+        x_t = individual.transpose(1, 2).contiguous()
         return sdf_raw_weights(params, self.cfg, self.exec_cfg, x_t, state,
                                packed) * mask
 

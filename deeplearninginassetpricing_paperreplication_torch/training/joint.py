@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.gan import GAN, Batch
+from ..models.gan import GAN, Batch, feature_major
 from ..models.networks import SimpleSDF, init_params, simple_sdf_forward
 from ..ops.metrics import sharpe
 from ..utils.config import ExecutionConfig
@@ -128,8 +128,9 @@ def fit_simple_sdf(model: SimpleSDF, train_batch: Batch, valid_batch: Batch,
     followed by an eval forward on both batches. Returns the per-epoch
     ``train_sharpe``, ``valid_sharpe`` (ddof 1), ``train_loss`` and
     ``valid_loss``. :func:`train_simple_sdf` is this from a seeded init."""
-    train_b = GAN.prepare_batch(train_batch)
-    valid_b = GAN.prepare_batch(valid_batch)
+    # SimpleSDF reads the f32 panel (the JAX package's transposes its own)
+    train_b = feature_major(train_batch)
+    valid_b = feature_major(valid_batch)
     params = list(model.parameters())
     for p in params:
         p.requires_grad_(True)

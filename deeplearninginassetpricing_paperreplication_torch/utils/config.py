@@ -182,6 +182,14 @@ class ExecutionConfig:
         JAX package's ``ExecutionConfig.pallas_ffn``.
     compute_dtype: operand dtype of the kernel's products (f32
         accumulation always); bfloat16 is the JAX package's default too.
+    bf16_panel: store the feature-major panel ``individual_t`` in bfloat16
+        on the kernel route (:meth:`stores_bf16_panel`), halving its bytes,
+        as the JAX package's ``ExecutionConfig.bf16_panel`` does (its
+        default, True, too); ``individual`` stays f32. Under bf16 compute
+        the kernels round x to bf16 before every product anyway, so the
+        bf16 panel changes no number there; under f32 compute it rounds the
+        panel. Set False for bit-level f32 comparisons (the CLIs' f32
+        compute does). Evaluation and serving rebuild an f32 panel.
     device: where the entry points put the model and the data.
     shard: this rank's place in a stock-sharded run
         (``parallel.collectives.StockShard``: its span of the padded stock
@@ -194,6 +202,7 @@ class ExecutionConfig:
 
     kernel: str = "auto"
     compute_dtype: str = "bfloat16"
+    bf16_panel: bool = True
     device: str = "cuda"
     shard: Any = None
 
@@ -203,6 +212,18 @@ class ExecutionConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError("compute_dtype must be float32|bfloat16: "
                              f"{self.compute_dtype!r}")
+
+    def stores_bf16_panel(self, cfg: GANConfig) -> bool:
+        """Does ``GAN.prepare_batch`` store ``individual_t`` in bfloat16 for
+        `cfg`? The JAX package's ``bf16_panel and
+        use_pallas(cfg.hidden_dim)``: the flag is set, the SDF net has
+        hidden layers (the fused FFN runs) and the kernel route is on:
+        ``kernel="on"``, or ``"auto"`` on a CUDA device (JAX's ``"auto"``
+        means a TPU). On the CPU ``"auto"`` is the plain route, so the panel
+        stays f32 there."""
+        kernel_route = self.kernel == "on" or (
+            self.kernel == "auto" and torch.device(self.device).type == "cuda")
+        return self.bf16_panel and bool(cfg.hidden_dim) and kernel_route
 
     def bf16_wire_ok(self, cfg: GANConfig) -> bool:
         """May the panel ship bfloat16 to the device for `cfg`
