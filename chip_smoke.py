@@ -1066,8 +1066,8 @@ def compare_fwd(torch, K, _nvcc, src_dir, card):
 
             def run_old():
                 o = torch.empty(S, T, N, device=dev)
-                rc = old(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-                         o.data_ptr(), S, T, N,
+                rc = old(x.data_ptr(), 0, zp.data_ptr(),
+                         packed.params.data_ptr(), o.data_ptr(), S, T, N,
                          K._layout_ints(packed.layout), 0, *drop,
                          plan.route, plan.tile, plan.threads, plan.members,
                          plan.smem_bytes, plan.blocks_per_sm, plan.G,
@@ -1077,8 +1077,8 @@ def compare_fwd(torch, K, _nvcc, src_dir, card):
 
             def run_new():
                 o = torch.empty(S, T, N, device=dev)
-                rc = new(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-                         o.data_ptr(), S, T, N,
+                rc = new(x.data_ptr(), 0, zp.data_ptr(),
+                         packed.params.data_ptr(), o.data_ptr(), S, T, N,
                          K._layout_ints(packed.layout), 0, *drop,
                          plan.route, plan.tile, plan.threads, plan.members,
                          plan.smem_bytes, plan.blocks_per_sm, plan.G,
@@ -1394,11 +1394,13 @@ def cond_em_checks(torch, C, card, Ks=CEM_KS, shapes=CEM_SHAPES,
 
 def compare_cem(torch, C, _nvcc, src_dir, card):
     """The f32 cond_em_fwd, cond_em_bwd and cond_em_dx against an older
-    source's (src_dir/cond_em.cu, its one-thread-per-stock kernels and
-    argument lists, as at bdd71ce) at S in {1, 3, 9}, N in {10000, 10007},
-    K in {4, 8}, and cond_em_dx also at CEM_ODD_SHAPES (K = 5 and 16, F = 10
-    and 80): every output bit for bit equal (int32 views), and the two timed
-    in turns (old, new, new, old)."""
+    source's (src_dir/cond_em.cu: its one-thread-per-stock kernels and
+    argument lists, as at bdd71ce, or a source with this tree's argument
+    lists, run by this tree's launchers at the same plans) at S in {1, 3,
+    9}, N in {10000, 10007}, K in {4, 8}, and cond_em_dx also at
+    CEM_ODD_SHAPES (K = 5 and 16, F = 10 and 80): every output bit for bit
+    equal (int32 views), and the two timed in turns (old, new, new,
+    old)."""
     import ctypes
 
     src = Path(src_dir).resolve()
@@ -1407,6 +1409,29 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
     subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(out),
                     str(src / "cond_em.cu")], check=True)
     lib = ctypes.CDLL(str(out))
+    current = hasattr(lib, "cond_em_plan_info")  # this tree's interface
+    opened = set()  # shapes whose plans the older kernels are open to
+
+    def on_older(fn, *args):
+        """`fn`, a launcher of this tree, on the older library, its kernels
+        first opened to the plans' shared memory (the plan queries)."""
+        saved = C._libs.get(False)
+        C._libs[False] = C.bind(lib)
+        x, kT, cd = args[0], args[4], args[-1]
+        (T, F, N), (S, Kn, _) = x.shape, kT.shape
+        try:
+            if (S, T, N, F, Kn, cd) not in opened:
+                opened.add((S, T, N, F, Kn, cd))
+                for p in C.card_cem_plan(x.device, S, T, N, F, Kn, cd):
+                    C.plan_info(p, S, T, N, F, Kn, cd)
+                C.dx_plan_info(C.card_cem_dx_plan(x.device, S, T, N, F, Kn,
+                                                  cd), S, T, N, F, Kn, cd)
+            return fn(*args)
+        finally:
+            if saved is None:
+                C._libs.pop(False)
+            else:
+                C._libs[False] = saved
     lib.cond_em_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                 + [ctypes.c_void_p])
     lib.cond_em_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
@@ -1423,6 +1448,9 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
         S, Kn, _ = kT.shape
 
         def run():
+            if current:
+                return (on_older(C._launch_dx, x, zpm, xr, tinv, kT, gem,
+                                 "bfloat16" if bf16 else "float32"),)
             o = torch.empty(T, F, N, device=x.device)
             rc = lib.cond_em_dx(
                 x.data_ptr(), zpm.data_ptr(), xr.data_ptr(), tinv.data_ptr(),
@@ -1445,6 +1473,9 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
                 tiles = -(-N // C.BWD_STOCKS)
 
                 def old_fwd():
+                    if current:
+                        return (on_older(C._launch_fwd, x, zpm, xr, tinv, kT,
+                                         "float32"),)
                     part = torch.empty(S, gf, Kn, N, device=dev)
                     rc = lib.cond_em_fwd(
                         x.data_ptr(), zpm.data_ptr(), xr.data_ptr(),
@@ -1455,6 +1486,9 @@ def compare_cem(torch, C, _nvcc, src_dir, card):
                     return (part.sum(dim=1),)
 
                 def old_bwd():
+                    if current:
+                        return on_older(C._launch_bwd, x, zpm, xr, tinv, kT,
+                                        gem, "float32")
                     dkt = torch.empty(S, gb * tiles, Kn, F, device=dev)
                     dzp = torch.empty(S, tiles, T, Kn, device=dev)
                     dxr = torch.empty(S, T, N, device=dev)
@@ -1809,7 +1843,7 @@ def compare_dx(torch, K, _nvcc, src_dir, card):
         # opens the older kernel to the plan's shared memory
         check(lib.sdf_ffn_dx_plan_info(
             K._layout_ints(lay), S, 0, plan.route, plan.tile, plan.threads,
-            plan.wbufs, plan.xbufs, ctypes.c_longlong(plan.smem_bytes),
+            plan.wbufs, plan.xbufs, ctypes.c_longlong(plan.smem_bytes), 0,
             held) == 0, "the older sdf_ffn_dx refused the plan")
         for rate in (0.0, DROPOUT):
             drop, bases = K._dropout_args(seed, rate, S, dev)
@@ -1820,8 +1854,9 @@ def compare_dx(torch, K, _nvcc, src_dir, card):
 
             def run_old():
                 o = torch.empty(T, F, N, device=dev)
-                rc = old(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-                         gout.data_ptr(), o.data_ptr(), None, S, T, N,
+                rc = old(x.data_ptr(), 0, zp.data_ptr(),
+                         packed.params.data_ptr(), gout.data_ptr(),
+                         o.data_ptr(), None, S, T, N,
                          K._layout_ints(lay), 0, *drop, plan.route,
                          plan.tile, plan.threads, plan.wbufs, plan.xbufs,
                          plan.smem_bytes, plan.G, stream())
@@ -1830,8 +1865,9 @@ def compare_dx(torch, K, _nvcc, src_dir, card):
 
             def run_new():
                 o = torch.empty(T, F, N, device=dev)
-                rc = new(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-                         gout.data_ptr(), o.data_ptr(), None, S, T, N,
+                rc = new(x.data_ptr(), 0, zp.data_ptr(),
+                         packed.params.data_ptr(), gout.data_ptr(),
+                         o.data_ptr(), None, S, T, N,
                          K._layout_ints(lay), 0, *drop, plan.route,
                          plan.tile, plan.threads, plan.wbufs, plan.xbufs,
                          plan.smem_bytes, plan.G, stream())
@@ -1841,9 +1877,10 @@ def compare_dx(torch, K, _nvcc, src_dir, card):
             def bwd(fn, args):
                 gp = torch.zeros((S, bplan.G, lay.P), device=dev)
                 dp = torch.zeros((S, bplan.G, T, hidden[0]), device=dev)
-                rc = fn(x.data_ptr(), zp.data_ptr(), packed.params.data_ptr(),
-                        gout.data_ptr(), gp.data_ptr(), dp.data_ptr(), S, T,
-                        N, K._layout_ints(lay), 0, *args, bplan.G,
+                rc = fn(x.data_ptr(), 0, zp.data_ptr(),
+                        packed.params.data_ptr(), gout.data_ptr(),
+                        gp.data_ptr(), dp.data_ptr(), S, T, N,
+                        K._layout_ints(lay), 0, *args, bplan.G,
                         bplan.tile, bplan.threads, bplan.nt,
                         bplan.smem_bytes, bplan.blocks_per_sm, stream())
                 check(rc == 0, f"sdf_ffn_bwd failed (code {rc})")
@@ -8800,6 +8837,568 @@ def bf16panel_phase(torch, K, C, card, splits):
     return dict(rows=rows, launches=by_path, memory=memory)
 
 
+# -- phase 21 -------------------------------------------------------------------
+
+SH_DIR = ROOT / "_smoke_shapes"
+# (a) the stacks the resident kernels cannot hold, F = 46, and the paper's
+# widths at F = 256 (the panel cotangent and the bf16 forward stream there)
+SH_STACKS = [((256, 256), 46), ((132,), 46), ((64,) * 12, 46),
+             ((64,) * 16, 46), ((64, 64), 256)]
+SH_T = 6  # the checks' periods (the plain versions at S = 9 hold
+# [S, T, H, N] activations and int64 dropout bits per layer)
+SH_N = 10_000
+SH_RATES = (0.0, 0.1)
+SH_KS = (17, 32)  # moment chunks: 9 + 8, 16 + 16
+SH_ROW = (48, 10_000)  # the timed shape: the training panel's T, N
+SH_C11 = [(1, 48, 10_000, 5, k) for k in (1, 4, 8)]  # F ≤ 6, S = 1, f32
+# (b)-(d): the train CLI's shape range run
+SH_HIDDEN = (256, 256)
+SH_MOMENTS = 32
+SH_EPOCHS = (4, 2, 4)
+SH_KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
+              "cond_em_bwd", "cond_em_dx")
+
+
+def stream_counts(K):
+    """The streamed route's launches (forward, backward, panel cotangent)."""
+    return (K.launches_stream, K.bwd_launches_stream, K.dx_launches_stream)
+
+
+def _stack_text(hidden) -> str:
+    return (f"{list(hidden)}" if len(hidden) <= 3
+            else f"{len(hidden)}x{hidden[0]}")
+
+
+def shapes_plan_lines(torch, K, card):
+    """Each FFN kernel's plan at SH_STACKS, S = 1 and 9, T = 48, N =
+    10,000, both computes, on the f32 and bf16 panels, as the card holds
+    it: the route (2/3 streamed), tile, shared memory, scratch floats a
+    block, resident blocks, G, registers, local bytes. Fails if a streamed
+    plan is held with fewer blocks than planned or spills. Returns
+    {(stack, F, kernel, cd, xb16): the held plan at S = 1}."""
+    dev = torch.device(DEVICE)
+    T, N = SH_ROW
+    held = {}
+    for hidden, F in SH_STACKS:
+        lay = K.ffn_layout(F, hidden)
+        for S in (1, 9):
+            for cd in ("float32", "bfloat16"):
+                for xb16 in (False, True):
+                    for kernel in ("fwd", "bwd", "dx"):
+                        if kernel == "fwd":
+                            plan = K.card_fwd_plan(lay, dev, S, T, N, cd,
+                                                   xb16)
+                            info = K.fwd_plan_info(lay, S, plan, xb16)
+                        elif kernel == "bwd":
+                            plan = K.card_bwd_plan(lay, dev, S, T, N,
+                                                   xb16=xb16,
+                                                   compute_dtype=cd)
+                            info = K.bwd_plan_info(lay, plan, xb16)
+                        else:
+                            plan = K.card_dx_plan(lay, dev, S, T, N, cd,
+                                                  xb16=xb16)
+                            info = K.dx_plan_info(lay, S, cd, plan,
+                                                  xb16=xb16)
+                        if K.is_stream(plan):
+                            check(info["blocks_per_sm"] >= plan.blocks_per_sm
+                                  and info["local_bytes"] == 0,
+                                  f"sdf_ffn_{kernel}_stream plan {plan}: "
+                                  f"the card holds {info}")
+                        if S == 1:
+                            held[(hidden, F, kernel, cd, xb16)] = dict(
+                                route=plan.route, tile=plan.tile,
+                                smem_bytes=plan.smem_bytes,
+                                scratch_floats=plan.scratch,
+                                blocks_per_sm=info["blocks_per_sm"],
+                                G=plan.G, registers=info["registers"],
+                                local_bytes=info["local_bytes"])
+                        print(f"[shapes] {kernel} plan hidden="
+                              f"{_stack_text(hidden)} F={F} S={S} {cd:8s} "
+                              f"{'bf16' if xb16 else 'f32 '} panel: route "
+                              f"{plan.route} tile {plan.tile} smem "
+                              f"{plan.smem_bytes} B scratch {plan.scratch} "
+                              f"floats/block resident {info['blocks_per_sm']}"
+                              f"/SM (planned {plan.blocks_per_sm}) G "
+                              f"{plan.G} regs {info['registers']} local "
+                              f"{info['local_bytes']} B ({card})",
+                              flush=True)
+    return held
+
+
+def _sh_check(torch, name, cd, out, wide, ref, what):
+    """A kernel's outputs on the bf16 panel bit for bit its outputs on the
+    widened panel (`wide`, None on the f32 panel), and within the bars of
+    phase 3 of the plain version's. Returns max|d|/max|ref|."""
+    if wide is not None:
+        check(all(torch.equal(o, w.to(o.dtype)) for o, w in zip(out, wide)),
+              f"{what}: the bf16 panel is not bit for bit the same kernel on"
+              f" x.bfloat16().float()")
+    err, ok = 0.0, True
+    for o, r in zip(out, ref):
+        d = (o.float() - r.float()).abs()
+        scale = float(r.float().abs().max())
+        err = max(err, float(d.max()) / (scale or 1.0))
+        ok &= bool(torch.isfinite(o).all())
+        if name == "sdf_ffn_fwd":
+            ok &= within(d.cpu().numpy(), r.float().cpu().numpy(), cd,
+                         **F32_TOL)
+            continue
+        bar = (GRAD_F32_REL if cd == "float32" else BF16_REL) * scale
+        if name.endswith("_dx") and o.dtype == torch.bfloat16:
+            ok &= bool((d <= bar + _bf16_ulp(torch, r)).all())
+        else:
+            ok &= float(d.max()) <= bar
+    check(ok, f"{what}: disagrees with its plain version, max|d|/max|ref| "
+              f"{err:.3e}")
+    return err
+
+
+def _sh_inputs(torch, g, S, T, N, F, hidden, Kn, dev):
+    """The six kernels' inputs past the panel (_bp_calls' `ins`)."""
+    zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, list(hidden),
+                                            dev)
+    zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                            device=dev) * 0.3).contiguous()
+    gout = torch.randn(S, T, N, generator=g, device=dev) / N
+    seed = 7 if S == 1 else list(range(7, 7 + S))
+    _, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, T, N, F, Kn, dev)
+    return zp, k1T, mids, kout, bout, gout, seed, zpm, xr, tinv, kT, gem
+
+
+def shapes_kernel_checks(torch, K, C, card):
+    """(a) The three FFN kernels at SH_STACKS (the streamed route where the
+    resident one cannot hold the stack), S = 1 and 9, both computes, both
+    panels, dropout 0 and 0.1; the three conditional-EM kernels at K = 17
+    and 32 (moment chunks), S = 1 and 9, both computes, both panels; and
+    cond_em_dx at F ≤ 6, S = 1, f32 (C11). Each against its plain version
+    at the bars of phase 3, twice bit for bit, and on the bf16 panel bit
+    for bit on the widened panel. Then the timed rows
+    (:func:`shapes_kernel_rows`)."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(21)
+    T, N = SH_T, SH_N
+    streamed = {}
+    print(f"[shapes] the FFN kernels at {len(SH_STACKS)} stacks, T={T} "
+          f"N={N}, and the conditional EM at K={list(SH_KS)} ({card})",
+          flush=True)
+
+    def run(name, kern, plain, x, cd, what):
+        xb = x.to(torch.bfloat16)
+        for panel in (x, xb):
+            w = f"{what} {'bf16' if panel is xb else 'f32'} panel"
+            out = kern(panel)
+            again = kern(panel)
+            wide = kern(panel.float()) if panel is xb else None
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"{w}: not bit for bit repeatable")
+            _sh_check(torch, name, cd, out, wide, plain(panel), w)
+            del out, again, wide
+
+    for hidden, F in SH_STACKS:
+        for S in (1, 9):
+            x = torch.randn(T, F, N, generator=g, device=dev)
+            ins = _sh_inputs(torch, g, S, T, N, F, hidden, 8, dev)
+            for cd in ("float32", "bfloat16"):
+                for rate in SH_RATES:
+                    calls = _bp_calls(torch, K, C, S, T, N, F, 8,
+                                      list(hidden), 0, cd, rate, ins)
+                    K.reset_launch_count()
+                    for name in SH_KERNELS[:3]:
+                        kern, plain, _, _ = calls[name]
+                        run(name, kern, plain, x, cd,
+                            f"{name} hidden={_stack_text(hidden)} F={F} "
+                            f"S={S} {cd} dropout {rate}")
+                    torch.cuda.synchronize()
+                    for name, n in zip(SH_KERNELS[:3], stream_counts(K)):
+                        streamed[(name, hidden, F, S, cd)] = n > 0
+            print(f"[shapes] hidden={_stack_text(hidden)} F={F} S={S}: fwd,"
+                  f" bwd, dx within their bars (both computes, panels, "
+                  f"dropout {list(SH_RATES)}), bit for bit repeatable; "
+                  f"streamed: "
+                  + ", ".join(f"{n[8:]} {cd}" for (n, h, f, s, cd), on
+                              in streamed.items()
+                              if on and (h, f, s) == (hidden, F, S))
+                  + f" ({card})", flush=True)
+            del x, ins
+    for hidden, F in SH_STACKS[:4]:
+        for name in SH_KERNELS[:3]:
+            check(all(streamed[(name, hidden, F, S, cd)] for S in (1, 9)
+                      for cd in ("float32", "bfloat16")),
+                  f"{name} did not take the streamed route at hidden="
+                  f"{_stack_text(hidden)}")
+    for Kn in SH_KS:
+        n = len(C.moment_chunks(Kn))
+        for S in (1, 9):
+            x = torch.randn(T, 46, N, generator=g, device=dev)
+            ins = _sh_inputs(torch, g, S, T, N, 46, (64, 64), Kn, dev)
+            for cd in ("float32", "bfloat16"):
+                calls = _bp_calls(torch, K, C, S, T, N, 46, Kn, [64, 64], 0,
+                                  cd, 0.0, ins)
+                C.reset_launch_count()
+                for name in SH_KERNELS[3:]:
+                    kern, plain, _, _ = calls[name]
+                    run(name, kern, plain, x, cd, f"{name} K={Kn} S={S} {cd}")
+                torch.cuda.synchronize()
+                # per kernel: two calls and a widened one on the bf16
+                # panel, two on the f32 panel; one launch a chunk
+                got = (C.fwd_launches, C.bwd_launches, C.dx_launches)
+                check(got == (5 * n,) * 3,
+                      f"K={Kn}: the conditional EM launched {got}, not "
+                      f"{5 * n} each ({n} chunks a call)")
+            print(f"[shapes] cond_em fwd, bwd, dx K={Kn} ({n} chunks) S={S}:"
+                  f" within their bars (both computes, panels), bit for bit "
+                  f"repeatable ({card})", flush=True)
+            del x, ins
+    for S, Tc, Nc, F, Kn in SH_C11:
+        x = torch.randn(Tc, F, Nc, generator=g, device=dev)
+        _, zpm, xr, tinv, kT, gem = _cem_inputs(torch, g, S, Tc, Nc, F, Kn,
+                                                dev)
+        plan = C.card_cem_dx_plan(dev, S, Tc, Nc, F, Kn, "float32")
+        out = [C._launch_dx(x, zpm, xr, tinv, kT, gem, "float32")]
+        torch.cuda.synchronize()
+        err = _sh_check(torch, "cond_em_dx", "float32", out, None,
+                        [C.cond_em_dx_reference(x, zpm, xr, tinv, kT, gem,
+                                                "float32")],
+                        f"cond_em_dx F={F} K={Kn} S={S} (C11)")
+        print(f"[shapes] cond_em_dx F={F} K={Kn} S={S} T={Tc} N={Nc} f32 "
+              f"(C11): plan route {plan.route} tile {plan.tile} threads "
+              f"{plan.threads} G {plan.G}; max|d|/max|ref| {err:.2e} "
+              f"({card})", flush=True)
+    return shapes_kernel_rows(torch, K, C, card)
+
+
+def shapes_kernel_rows(torch, K, C, card):
+    """Each streamed FFN kernel at (256, 256), F = 46, and each chunked
+    conditional-EM kernel at K = 32, at SH_ROW: the forwards and backwards
+    at S = 1 (training) and S = 9 (the member axis), the two panel
+    cotangents at S = 9 (the panel gradient of (c)), bf16 compute on the
+    bf16 panel and f32 compute on the f32 panel, the FFN at dropout 0.05.
+    One event-timed call each beside its plain version and bound. Returns
+    {(name, S, cd): row}."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(22)
+    T, N = SH_ROW
+    F, hidden = 46, list(SH_HIDDEN)
+    rows = {}
+    for name, S in [(n, s) for n in SH_KERNELS
+                    for s in ((9,) if n.endswith("_dx") else (1, 9))]:
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        ins = _sh_inputs(torch, g, S, T, N, F, hidden, SH_MOMENTS, dev)
+        for cd, xb16 in (("bfloat16", True), ("float32", False)):
+            panel = x.to(torch.bfloat16) if xb16 else x
+            rate = 0.0 if name.startswith("cond_em") else DROPOUT
+            kern, plain, flops, nbytes = _bp_calls(
+                torch, K, C, S, T, N, F, SH_MOMENTS, hidden, 0, cd, rate,
+                ins)[name]
+            out, ref = kern(panel), plain(panel)
+            torch.cuda.synchronize()
+            err = _sh_check(torch, name, cd, out, None, ref,
+                            f"{name} at its timed shape {cd}")
+            abs_err = max(float((o.float() - r.float()).abs().max())
+                          for o, r in zip(out, ref))
+            del out, ref
+            ms = cuda_ms(torch, lambda: kern(panel), reps=5, warmup=2)
+            plain_ms = cuda_ms(torch, lambda: plain(panel), reps=3, warmup=1)
+            b_ms, b_by = bound(flops, nbytes(2 if xb16 else 4), cd)
+            row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       shape=f"S={S} T={T} N={N} F={F} hidden={hidden} "
+                             + (f"K={SH_MOMENTS} " if name.startswith(
+                                 "cond_em") else f"dropout {rate} ")
+                             + f"{cd} {'bf16' if xb16 else 'f32'} panel")
+            print(f"[shapes] {name:11s} {row['shape']}: max|d|/max|ref| "
+                  f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+            rows[(name, S, cd)] = row
+        del x, ins
+    return rows
+
+
+def _sh_cfg(splits, **kw):
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import GANConfig
+
+    train = splits[0]
+    return GANConfig(macro_feature_dim=train.macro_feature_dim,
+                     individual_feature_dim=train.individual_feature_dim,
+                     hidden_dim=SH_HIDDEN, num_condition_moment=SH_MOMENTS,
+                     dropout=DROPOUT, **kw)
+
+
+def shapes_train_check(torch, K, C, card):
+    """(b) The train CLI at --hidden_dim 256 256 --num_moments 32 on phase
+    6's panel, SH_EPOCHS, f32 compute, on the kernel route (its launches
+    counted: the streamed forward and backward, the chunked conditional
+    EM) and on the plain route: every epoch's losses within C3's 1e-3
+    relative bar, Sharpes within 5e-3, the same selected epochs. Returns
+    the kernel run's launches by kernel, and its streamed ones."""
+    from deeplearninginassetpricing_paperreplication_torch import train
+
+    unc, mom, cond = SH_EPOCHS
+    runs = {}
+    for kernel in ("on", "off"):
+        save = SH_DIR / f"train_{kernel}"
+        shutil.rmtree(save, ignore_errors=True)
+        torch.cuda.synchronize()
+        K.reset_launch_count()
+        C.reset_launch_count()
+        t0 = time.perf_counter()
+        train.main(["--data_dir", str(DATA_DIR), "--save_dir", str(save),
+                    "--epochs_unc", str(unc), "--epochs_moment", str(mom),
+                    "--epochs", str(cond), "--ignore_epoch", "0",
+                    "--print_freq", "1000", "--device", DEVICE,
+                    "--compute_dtype", "float32", "--kernel", kernel,
+                    "--hidden_dim", *map(str, SH_HIDDEN), "--num_moments",
+                    str(SH_MOMENTS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(zip(SH_KERNELS, panel_counts(K, C)))
+        streamed = dict(zip(SH_KERNELS[:3], stream_counts(K)))
+        with np.load(save / "history.npz") as h:
+            hist = {k: h[k] for k in h.files}
+        metrics = json.loads((save / "final_metrics.json").read_text())
+        runs[kernel] = dict(hist=hist, wall=wall, launches=launches,
+                            streamed=streamed, epoch_ms=metrics["epoch_ms"])
+        shutil.rmtree(save, ignore_errors=True)
+    on, off = runs["on"], runs["off"]
+    check(all(on["launches"][k] > 0 for k in SH_KERNELS
+              if k not in ("sdf_ffn_dx", "cond_em_dx"))
+          and on["streamed"]["sdf_ffn_fwd"] == on["launches"]["sdf_ffn_fwd"]
+          and on["streamed"]["sdf_ffn_bwd"] == on["launches"]["sdf_ffn_bwd"],
+          f"the (256, 256) kernel-route training launched {on['launches']}, "
+          f"streamed {on['streamed']}: every FFN launch must stream")
+    check(not any(off["launches"].values()),
+          f"the plain-route training launched {off['launches']}")
+    check(all(np.isfinite(on["hist"][k]).all() for k in on["hist"]
+              if k != "phase"), "non-finite (256, 256) kernel history")
+    dev_loss = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])
+                                / np.maximum(np.abs(off["hist"][k]), 1e-12)))
+                   for k in ("train_loss", "valid_loss", "test_loss"))
+    dev_sharpe = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])))
+                     for k in ("train_sharpe", "valid_sharpe",
+                               "test_sharpe"))
+    sel = _bp_selected(on["hist"])
+    check(dev_loss <= 1e-3 and dev_sharpe <= 5e-3
+          and sel == _bp_selected(off["hist"]),
+          f"train CLI hidden {list(SH_HIDDEN)} K={SH_MOMENTS}, kernel vs "
+          f"plain: loss rel dev {dev_loss:.3e} (bar 1e-3), Sharpe dev "
+          f"{dev_sharpe:.3e} (bar 5e-3), selected epochs {sel} / "
+          f"{_bp_selected(off['hist'])}")
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    print(f"[shapes train] train CLI --hidden_dim {SH_HIDDEN[0]} "
+          f"{SH_HIDDEN[1]} --num_moments {SH_MOMENTS}, f32, "
+          f"{unc}/{mom}/{cond} epochs, N={PANEL['n_stocks']}: kernel vs "
+          f"plain every epoch max loss rel dev {dev_loss:.3e} (bar 1e-3), "
+          f"max Sharpe dev {dev_sharpe:.3e} (bar 5e-3), selected epochs "
+          f"{sel}; launches {on['launches']}, streamed {on['streamed']}; "
+          f"wall ms per epoch kernel {fmt(on['epoch_ms'])}, plain "
+          f"{fmt(off['epoch_ms'])}; run {on['wall']:.1f} s / "
+          f"{off['wall']:.1f} s ({card})", flush=True)
+    return on["launches"], on["streamed"]
+
+
+def shapes_gradient_check(torch, K, C, card, splits):
+    """(c) ∂(conditional loss)/∂individual of a (256, 256), K = 32
+    ensemble of nine seeded members (S = 9), parameters frozen, on the
+    train split: the kernel route against kernel="off" in f32 and bf16.
+    Returns the kernel route's launches and streamed ones."""
+    from deeplearninginassetpricing_paperreplication_torch.models.gan import \
+        GAN
+    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
+        import init_ensemble_params
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    cfg = _sh_cfg(splits)
+    params = {k: v.detach() for k, v in init_ensemble_params(
+        cfg, ENSEMBLE_SEEDS, device=DEVICE).items()}
+    batch = splits[0].to_batch(DEVICE)
+
+    def grad(kernel, cd):
+        gan = GAN(cfg, ExecutionConfig(kernel=kernel, compute_dtype=cd,
+                                       bf16_panel=False, device=DEVICE))
+        ind = batch["individual"].clone().requires_grad_()
+        res = gan.forward_members(params, dict(batch, individual=ind),
+                                  "conditional")
+        (dx,) = torch.autograd.grad(res["loss"].sum(), ind)
+        return dx
+
+    grad("on", "float32")  # plans and set-up
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    C.reset_launch_count()
+    errs = {}
+    for cd in ("float32", "bfloat16"):
+        on = grad("on", cd)
+        torch.cuda.synchronize()
+        if cd == "float32":
+            launches = dict(zip(SH_KERNELS, panel_counts(K, C)))
+            streamed = dict(zip(SH_KERNELS[:3], stream_counts(K)))
+        off = grad("off", cd)
+        err = rel_err(on, off)
+        check(bool(torch.isfinite(on).all())
+              and err <= (GRAD_F32_REL if cd == "float32" else BF16_REL),
+              f"(256, 256) K={SH_MOMENTS} S=9 panel gradient ({cd}): kernel "
+              f"vs plain max|d|/max|ref| {err:.3e}")
+        errs[cd] = err
+    n = len(C.moment_chunks(SH_MOMENTS))
+    want = (1, 0, 1, n, n, n)
+    check(tuple(launches.values()) == want
+          and streamed == {"sdf_ffn_fwd": 1, "sdf_ffn_bwd": 0,
+                           "sdf_ffn_dx": 1},
+          f"one (256, 256) K={SH_MOMENTS} panel gradient launched "
+          f"{launches} (streamed {streamed}), not {want}")
+    print(f"[shapes grad] d conditional loss / d individual, hidden "
+          f"{list(SH_HIDDEN)} K={SH_MOMENTS}, S=9 seeded members, train "
+          f"split: kernel vs plain max|d|/max|ref| f32 "
+          f"{errs['float32']:.2e} (bar {GRAD_F32_REL:g}), bf16 "
+          f"{errs['bfloat16']:.2e} (bar {BF16_REL:g}); one call launched "
+          f"{launches}, streamed {streamed} ({card})", flush=True)
+    return launches, streamed
+
+
+def boot_server(run_dir: Path, extra, timeout: float = 300.0):
+    """The serving CLI (one process, async front end, f32) as a subprocess
+    on a free port with `extra` arguments; returns (process, base url,
+    boot s) once /healthz answers."""
+    from deeplearninginassetpricing_paperreplication_torch.serving import (
+        pick_free_port,
+    )
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    port = pick_free_port()
+    env = {k: v for k, v in os.environ.items() if k != "DLAP_FAULT_PLAN"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p and p != str(ROOT)])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.serving.server", "--server", "async",
+         "--run_dir", str(run_dir), "--port", str(port), "--device", DEVICE,
+         "--compute_dtype", "float32", "--cache_size", "0", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    base = f"http://127.0.0.1:{port}"
+    while True:
+        try:
+            if get(base + "/healthz")[0] == 200:
+                break
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            stop_fleet(proc)
+            fail(f"the serving CLI did not boot: {proc.stdout.read()[-3000:]}")
+        time.sleep(0.2)
+    return proc, base, time.perf_counter() - t0
+
+
+def shapes_serve_check(torch, K, card, splits):
+    """(d) A (256, 256) ensemble of three seeded members saved as run dirs,
+    served by the serving CLI (one replica, f32): a few test months over
+    the raw-f32 wire answered and within the f32 bar of the offline
+    ensemble_metrics weights. Returns the replica's sdf_ffn_fwd launches
+    (every one streamed: the stack has no resident plan)."""
+    from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
+        import stack_checkpoints
+    from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
+        import ensemble_metrics, init_ensemble_params
+    from deeplearninginassetpricing_paperreplication_torch.training \
+        .checkpoint import member_state_dicts, save_state_dict
+    from deeplearninginassetpricing_paperreplication_torch.utils.config \
+        import ExecutionConfig
+
+    test = splits[2]
+    cfg = _sh_cfg(splits)
+    check(not K.resident_fits(K.ffn_layout(cfg.individual_feature_dim,
+                                           cfg.hidden_dim)),
+          "the served stack has a resident plan")
+    seeds = ENSEMBLE_SEEDS[:3]
+    dirs = []
+    for seed, sd in zip(seeds, member_state_dicts(
+            init_ensemble_params(cfg, seeds))):
+        d = SH_DIR / "members" / f"seed_{seed}"
+        d.mkdir(parents=True, exist_ok=True)
+        cfg.save(d / "config.json")
+        save_state_dict(d / "best_model_sharpe.pt", sd)
+        dirs.append(str(d))
+    _, stacked = stack_checkpoints(dirs, device=DEVICE)
+    offline = np.asarray(ensemble_metrics(cfg, stacked, test.to_batch(DEVICE),
+                                          ExecutionConfig(
+                                              kernel="off",
+                                              compute_dtype="float32",
+                                              device=DEVICE))["avg_weights"])
+    bodies = serving_bodies(test)
+    months = (0, test.T // 3, 2 * test.T // 3, test.T - 1)
+    proc, base, boot_s = boot_server(SH_DIR / "serve", [
+        "--checkpoint_dirs", *dirs, "--data_dir", str(DATA_DIR)])
+    worst = 0.0
+    try:
+        for t in months:
+            s, w = post(base + "/v1/weights", bodies[t]["raw"], raw=True)
+            want = offline[t][bodies[t]["valid"]]
+            check(s == 200 and w.shape == want.shape,
+                  f"(256, 256) served month {t}: HTTP {s}")
+            d = np.abs(w - want)
+            check(within(d, want, "float32", **SERVE_F32_TOL),
+                  f"(256, 256) served month {t}: max|d| {d.max():.3e} over "
+                  f"the f32 bar of the offline weights")
+            worst = max(worst, float(d.max()))
+        engine = _metrics(base)["engine"]
+        launches = engine["kernel_launches"]
+    finally:
+        stop_fleet(proc)
+    check(proc.returncode == 0, f"the serving CLI exited {proc.returncode}")
+    check(launches > 0 and engine["kernel_launches_stream"] == launches,
+          f"the (256, 256) server launched sdf_ffn_fwd {launches} times, "
+          f"{engine['kernel_launches_stream']} streamed")
+    print(f"[shapes serve] {len(seeds)} seeded members hidden "
+          f"{list(SH_HIDDEN)} through the serving CLI (booted in "
+          f"{boot_s:.1f} s): months {list(months)} over raw-f32 answered, "
+          f"within the f32 bar of the offline weights (max|d| {worst:.3e}); "
+          f"the replica's sdf_ffn_fwd launches {launches}, all streamed "
+          f"({card})", flush=True)
+    return launches
+
+
+def shapes_phase(torch, K, C, card):
+    """Phase 21 on phase 6's panel, written anew (and removed after): (a)
+    the kernels at the shapes the resident kernels do not hold, (b) the
+    train CLI at (256, 256), K = 32, (c) its panel gradient at S = 9, (d) a
+    served (256, 256) ensemble. Returns the timed rows, the held plans and
+    {kernel: {path: launches}} of the six kernels and of the streamed
+    forms (``<kernel>_stream``)."""
+    t0 = time.perf_counter()
+    plans = shapes_plan_lines(torch, K, card)
+    rows = shapes_kernel_checks(torch, K, C, card)
+    t1 = time.perf_counter()
+    try:
+        splits = make_panel()
+        train_l, train_s = shapes_train_check(torch, K, C, card)
+        grad_l, grad_s = shapes_gradient_check(torch, K, C, card, splits)
+        serve_l = shapes_serve_check(torch, K, card, splits)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+        shutil.rmtree(SH_DIR, ignore_errors=True)
+    launches = {}
+    for name in SH_KERNELS:
+        paths = {"shapes_training": train_l[name],
+                 "shapes_panel_gradient": grad_l[name]}
+        if name == "sdf_ffn_fwd":
+            paths["shapes_serving"] = serve_l
+        launches[name] = {p: n for p, n in paths.items() if n}
+    for name in SH_KERNELS[:3]:
+        paths = {"shapes_training": train_s[name],
+                 "shapes_panel_gradient": grad_s[name]}
+        if name == "sdf_ffn_fwd":
+            paths["shapes_serving"] = serve_l
+        launches[name + "_stream"] = {p: n for p, n in paths.items() if n}
+    print(f"[shapes] phase 21 done in {time.perf_counter() - t0:.1f} s "
+          f"((a) {t1 - t0:.1f} s); launches by path {launches} ({card})",
+          flush=True)
+    return dict(rows=rows, plans=plans, launches=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -8918,6 +9517,15 @@ def main(argv=None) -> int:
                          "the time-sharded LSTM (a short call while the "
                          "multihost worker, the hybrid mesh or the sequence "
                          "pipeline change); no result line")
+    ap.add_argument("--only_shapes", action="store_true",
+                    help="build the streamed FFN libraries, the w64 FFN and "
+                         "the conditional-EM libraries only, then phase 21: "
+                         "the kernels at the shapes the resident kernels do "
+                         "not hold (widths above 128, more than 8 layers, "
+                         "more than 16 moments, C11), a (256, 256), K = 32 "
+                         "train CLI run, panel gradient and served ensemble "
+                         "(a short call while the streamed route or the "
+                         "moment chunks change); no result line")
     opts = ap.parse_args(argv)
 
     import torch
@@ -8938,6 +9546,7 @@ def main(argv=None) -> int:
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
         shutil.rmtree(MESH_DIR, ignore_errors=True)
         shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+        shutil.rmtree(SH_DIR, ignore_errors=True)
 
 
 def run_phases(opts, torch) -> int:
@@ -8985,6 +9594,8 @@ def run_phases(opts, torch) -> int:
             + C.build_jobs() if opts.only_joint or opts.only_multihost
             else K.build_jobs([64]) + C.build_jobs()
             if opts.only_shard or opts.only_bf16panel
+            else K.stream_jobs() + K.build_jobs([64]) + C.build_jobs()
+            if opts.only_shapes
             else K.build_jobs(kernels=("fwd", "bwd")) + C.build_jobs()
             if opts.only_mesh
             else K.build_jobs(kernels=("bwd", "dx")) if opts.only_bwd
@@ -8994,8 +9605,8 @@ def run_phases(opts, torch) -> int:
             if opts.only_fwd or opts.only_serve or opts.only_fleet
             else C.build_jobs() if opts.only_cem
             else MB.build_jobs() if opts.only_ceiling
-            else K.build_jobs() + [K.audit_job()] + C.build_jobs()
-            + MB.build_jobs())
+            else K.build_jobs() + [K.audit_job()] + K.stream_jobs()
+            + C.build_jobs() + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -9013,7 +9624,7 @@ def run_phases(opts, torch) -> int:
                           or opts.only_elastic or opts.only_refit
                           or opts.only_joint or opts.only_shard
                           or opts.only_mesh or opts.only_multihost
-                          or opts.only_bf16panel)
+                          or opts.only_bf16panel or opts.only_shapes)
               else ("fwd", "dx"),
               [(cem_job, "HMMA")] if opts.only_cem
               else [(mb_job, "HGMMA")] if opts.only_ceiling
@@ -9023,8 +9634,14 @@ def run_phases(opts, torch) -> int:
                           or opts.only_ops or opts.only_elastic
                           or opts.only_refit or opts.only_joint
                           or opts.only_shard or opts.only_mesh
-                          or opts.only_multihost or opts.only_bf16panel)
+                          or opts.only_multihost or opts.only_bf16panel
+                          or opts.only_shapes)
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
+
+    if opts.only_shapes:
+        # phase 21 alone on phase 6's panel
+        shapes_phase(torch, K, C, card)
+        return 0
 
     if opts.only_data:
         # the data plane alone: phase 11 on the training kernels' libraries
@@ -9340,6 +9957,11 @@ def run_phases(opts, torch) -> int:
     # 20. the bf16 panel on phase 6's panel (its splits are in memory)
     bp = bf16panel_phase(torch, K, C, card, splits)
 
+    # 21. the kernel route's shape range: the streamed FFN route, the
+    # moment chunks and C11, then a (256, 256), K = 32 model trained,
+    # differentiated and served (phase 6's panel written anew)
+    shp = shapes_phase(torch, K, C, card)
+
     src = f"{PKG}/ops/csrc/"
     tpu = "deeplearninginassetpricing_paperreplication_tpu/ops/"
     health_idx = {"sdf_ffn_fwd": 0, "sdf_ffn_bwd": 1, "cond_em_fwd": 3,
@@ -9385,6 +10007,9 @@ def run_phases(opts, torch) -> int:
         # phase 20: the bf16-panel training run and panel gradient (every
         # launch on the bf16 panel)
         paths.update(bp["launches"][name])
+        # phase 21: the (256, 256), K = 32 training, panel gradient and
+        # server (the streamed route and the moment chunks)
+        paths.update(shp["launches"][name])
         return dict(launches=sum(paths.values()), launches_by_path=paths,
                     ensemble_members=ens_members,
                     at_sweep_shapes=sweep_rows[name],
@@ -9395,7 +10020,7 @@ def run_phases(opts, torch) -> int:
 
     def grad_path(name):
         paths = {"panel_gradient": grad_launches[name],
-                 **bp["launches"][name]}
+                 **bp["launches"][name], **shp["launches"][name]}
         extra = {f"at_{cd}_dropout": dx_rows[(name, cd, "dropout")]
                  for cd in ("float32", "bfloat16")
                  if (name, cd, "dropout") in dx_rows}
@@ -9461,6 +10086,42 @@ def run_phases(opts, torch) -> int:
             at_other_members=bp["rows"][(name, 10 - S, "bfloat16")],
             peak_memory=bp["memory"] if name == "sdf_ffn_fwd" else None))
     kernels += forms
+    # phase 21: the streamed route's three kernels (one source, a library
+    # each) and the conditional EM over moment chunks, each at its timed
+    # shape (bf16 compute on the bf16 panel, the f32 row beside) with its
+    # launches on phase 21's paths
+    tpu_rows = {"sdf_ffn_fwd": ("pallas_ffn.py:188", "pallas_ffn.py:561"),
+                "sdf_ffn_bwd": ("pallas_ffn.py:205", "pallas_ffn.py:591"),
+                "sdf_ffn_dx": ("pallas_ffn.py:300", None),
+                "cond_em_fwd": ("pallas_moment.py:64", "pallas_moment.py:274"),
+                "cond_em_bwd": ("pallas_moment.py:86", "pallas_moment.py:302"),
+                "cond_em_dx": ("pallas_moment.py:134", None)}
+    for name in SH_KERNELS:
+        stream = not name.startswith("cond_em")
+        S = 9 if name.endswith("_dx") else 1
+        by = shp["launches"][name + "_stream" if stream else name]
+        rep_, also = tpu_rows[name]
+        row = dict(
+            name=name + ("_stream" if stream else "_moment_chunks"),
+            route="cuda",
+            source=src + ("sdf_ffn_stream.cu" if stream else "cond_em.cu"),
+            replaces=tpu + rep_, launches=sum(by.values()),
+            launches_by_path=by, **shp["rows"][(name, S, "bfloat16")],
+            at_float32=shp["rows"][(name, S, "float32")])
+        if S == 1:  # the member axis beside the training shape
+            row["at_nine_members"] = {cd: shp["rows"][(name, 9, cd)]
+                                      for cd in ("bfloat16", "float32")}
+        if also:
+            row["also_replaces"] = tpu + also
+        if stream:
+            row["plans"] = {f"{cd} {'bf16' if xb16 else 'f32'} panel":
+                            shp["plans"][(SH_HIDDEN, 46, name[8:], cd,
+                                          xb16)]
+                            for cd in ("float32", "bfloat16")
+                            for xb16 in (False, True)}
+        check(row["launches"] > 0, f"phase 21 launched {row['name']} no "
+                                   f"time")
+        kernels.append(row)
     for k in kernels:
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"the {path} path launched {k['name']} no time")

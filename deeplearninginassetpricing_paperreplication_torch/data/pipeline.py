@@ -917,16 +917,27 @@ def trainer_precompile_fn(cfg, exec_cfg=None, events=None, members: int = 1,
             if cfg.hidden_dim:
                 lay = sdf_ffn.ffn_layout(F, cfg.hidden_dim)
                 w = sdf_ffn.width_bound(cfg.hidden_dim)
+                libs = set()
+
+                def library(kernel, plan):
+                    # the streamed route's library, or the width bound's
+                    libs.add(f"sdf_ffn_{kernel}_stream"
+                             if sdf_ffn.is_stream(plan)
+                             else f"sdf_ffn_{kernel}_w{w}")
+
                 for split in splits:
                     t, n = shapes[split]["returns"]
                     plan = sdf_ffn.card_fwd_plan(lay, dev, S, t, n, cd, xb16)
                     record(f"sdf_ffn_fwd/{split}", plan,
                            sdf_ffn.fwd_plan_info(lay, S, plan, xb16), t, n)
+                    library("fwd", plan)
                 t, n = shapes["train"]["returns"]
-                plan = sdf_ffn.card_bwd_plan(lay, dev, S, t, n, xb16=xb16)
+                plan = sdf_ffn.card_bwd_plan(lay, dev, S, t, n, xb16=xb16,
+                                             compute_dtype=cd)
                 record("sdf_ffn_bwd/train", plan,
                        sdf_ffn.bwd_plan_info(lay, plan, xb16), t, n)
-                out["libraries"] += [f"sdf_ffn_fwd_w{w}", f"sdf_ffn_bwd_w{w}"]
+                library("bwd", plan)
+                out["libraries"] += sorted(libs)
             if not cfg.hidden_dim_moment and "macro" in shapes["train"]:
                 K = cfg.num_condition_moment
                 for split in splits:

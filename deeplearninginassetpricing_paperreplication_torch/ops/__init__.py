@@ -13,6 +13,9 @@ process leaves none), so the parent that started it can read them.
 A launch on a bf16 panel (``ExecutionConfig.bf16_panel``) also counts
 under its kernel's bf16-panel form, ``<kernel>_bf16_panel``
 (:data:`BF16_PANEL_KERNELS`), so a run can show which form its path took.
+Likewise a launch of an FFN kernel's streamed-weight route (the stacks its
+resident route cannot hold) also counts under ``<kernel>_stream``
+(:data:`STREAM_KERNELS`).
 """
 
 import atexit
@@ -27,6 +30,8 @@ KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
            "cond_em_bwd", "cond_em_dx")
 BF16_PANEL = "_bf16_panel"
 BF16_PANEL_KERNELS = tuple(k + BF16_PANEL for k in KERNELS)
+STREAM = "_stream"
+STREAM_KERNELS = tuple(k + STREAM for k in KERNELS[:3])
 
 
 # (kernel, device) -> launches, under one lock: a server launches from its
@@ -37,9 +42,10 @@ _launch_lock = threading.Lock()
 
 def count_launch(kernel: str, device) -> None:
     """One launch of `kernel` on `device`."""
-    if kernel not in KERNELS and kernel not in BF16_PANEL_KERNELS:
+    if (kernel not in KERNELS and kernel not in BF16_PANEL_KERNELS
+            and kernel not in STREAM_KERNELS):
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS} (or "
-                         f"its bf16-panel form)")
+                         f"its bf16-panel or streamed form)")
     key = (kernel, str(device))
     with _launch_lock:
         _launch_counts[key] = _launch_counts.get(key, 0) + 1
@@ -70,7 +76,7 @@ def _append_launch_counts(path):
     """This process's launches by kernel as one JSON line appended to
     `path`."""
     row = {"pid": os.getpid(), "argv": sys.argv,
-           **{k: launch_total(k) for k in KERNELS}}
+           **{k: launch_total(k) for k in KERNELS + STREAM_KERNELS}}
     try:
         with open(path, "a") as f:
             f.write(json.dumps(row) + "\n")

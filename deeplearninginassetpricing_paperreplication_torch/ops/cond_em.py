@@ -25,6 +25,15 @@ Python arithmetic that the kernel checks on the card), the panel cotangent
 at :func:`cem_dx_plan`'s; their f32 outputs keep the summation order of the
 one-thread-per-stock kernels they replaced, bit for bit.
 
+The kernels take at most :data:`MAX_MOMENTS` moments. Above that the
+wrappers launch them over :func:`moment_chunks` (balanced chunks of at most
+16 moments; every moment's terms are its own): em rows, ∂k_stock rows and
+∂zp_m columns come per chunk; ∂xr and the panel cotangent are summed over
+the chunks in f32, in chunk order, and the cotangent is rounded once to the
+panel's dtype (each chunk's runs on the panel widened to f32, which every
+kernel computes exactly as it does the bf16 panel). At K ≤ 16 the path is
+one launch, as it was. The plain versions take any K.
+
 The panel x_t is float32 or bfloat16 (``ExecutionConfig.bf16_panel``), as
 in ``ops/sdf_ffn.py``: each kernel widens a bf16 panel exactly into the
 f32 stages it computes from (``csrc/panel.cuh``), each plain version reads
@@ -47,7 +56,7 @@ from .sdf_ffn import (BLOCK_SMEM_RESERVED, MAX_SMEM, PANEL_DTYPES,
                       SM_SMEM, _check_dtype, _panel_args, _raise_rc, _round,
                       _route, check_panel_dtype, is_bf16, panel_launch)
 
-MAX_MOMENTS = 16
+MAX_MOMENTS = 16  # the kernels' (csrc/cond_em.cu kMaxK); more go in chunks
 BWD_STOCKS = 128  # the backward's stock tile: its partial sums are built on it
 
 # launches of the CUDA kernels, counted per device where the wrapper
@@ -141,33 +150,57 @@ def _load(xb16: bool = False) -> ctypes.CDLL:
         if xb16 not in _libs:
             job = build_jobs()[int(xb16)]
             _nvcc.run([job])
-            lib = ctypes.CDLL(str(job.path))
-            # every entry's first two: the panel and its dtype (1: bf16)
-            panel = [ctypes.c_void_p, ctypes.c_int]
-            lib.cond_em_fwd.argtypes = (panel + [ctypes.c_void_p] * 5
-                                        + [ctypes.c_int] * 13
-                                        + [ctypes.c_longlong, ctypes.c_void_p])
-            lib.cond_em_bwd.argtypes = (panel + [ctypes.c_void_p] * 8
-                                        + [ctypes.c_int] * 12
-                                        + [ctypes.c_longlong, ctypes.c_void_p])
-            lib.cond_em_dx.argtypes = (panel + [ctypes.c_void_p] * 6
-                                       + [ctypes.c_int] * 10
-                                       + [ctypes.c_longlong, ctypes.c_void_p])
-            # every plan query names the panel's dtype last (xb16), which
-            # must be the library's
-            lib.cond_em_plan_info.argtypes = (
-                [ctypes.c_int] * 14 + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.POINTER(ctypes.c_int)])
-            lib.cond_em_dx_plan_info.argtypes = (
-                [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.POINTER(ctypes.c_int)])
-            lib.cond_em_registers.argtypes = [ctypes.c_int] * 7
-            for fn in (lib.cond_em_fwd, lib.cond_em_bwd, lib.cond_em_dx,
-                       lib.cond_em_plan_info, lib.cond_em_dx_plan_info,
-                       lib.cond_em_registers):
-                fn.restype = ctypes.c_int
-            _libs[xb16] = lib
+            _libs[xb16] = bind(ctypes.CDLL(str(job.path)))
         return _libs[xb16]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a cond_em.cu library's entries
+    (this tree's argument lists)."""
+    # every entry's first two: the panel and its dtype (1: bf16)
+    panel = [ctypes.c_void_p, ctypes.c_int]
+    lib.cond_em_fwd.argtypes = (panel + [ctypes.c_void_p] * 5
+                                + [ctypes.c_int] * 13
+                                + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.cond_em_bwd.argtypes = (panel + [ctypes.c_void_p] * 8
+                                + [ctypes.c_int] * 12
+                                + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.cond_em_dx.argtypes = (panel + [ctypes.c_void_p] * 6
+                               + [ctypes.c_int] * 10
+                               + [ctypes.c_longlong, ctypes.c_void_p])
+    # every plan query names the panel's dtype last (xb16), which
+    # must be the library's
+    lib.cond_em_plan_info.argtypes = (
+        [ctypes.c_int] * 14 + [ctypes.c_longlong, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)])
+    lib.cond_em_dx_plan_info.argtypes = (
+        [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)])
+    lib.cond_em_registers.argtypes = [ctypes.c_int] * 7
+    for fn in (lib.cond_em_fwd, lib.cond_em_bwd, lib.cond_em_dx,
+               lib.cond_em_plan_info, lib.cond_em_dx_plan_info,
+               lib.cond_em_registers):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def moment_chunks(K: int) -> List[Tuple[int, int]]:
+    """The moments [a, b) of each launch: one chunk where K ≤ MAX_MOMENTS,
+    else ⌈K/16⌉ chunks as equal as they come, the larger first."""
+    if K < 1:
+        raise ValueError(f"cond_em: K must be at least 1; got {K}")
+    n = -(-K // MAX_MOMENTS)
+    q, r = divmod(K, n)
+    edges = [0]
+    for i in range(n):
+        edges.append(edges[-1] + q + (i < r))
+    return list(zip(edges, edges[1:]))
+
+
+def chunk_moments(K: int) -> int:
+    """The moments a launch plans for: K, or its largest chunk."""
+    a, b = moment_chunks(K)[0]
+    return b - a
 
 
 def _groups(S: int, T: int, N: int, stocks: int, sms: int, waves: int) -> int:
@@ -358,10 +391,10 @@ def cem_plan(S: int, T: int, N: int, F: int, K: int, sms: int,
     route 1 two stages where they cost no wave. `registers` ({(kernel,
     route, var): registers per thread}, var the forward's instance or route
     1's NT, as the built library reports them) bounds the blocks per SM too.
+    Above MAX_MOMENTS moments it plans the largest of :func:`moment_chunks`.
     Raises if nothing fits."""
     _check_dtype(compute_dtype)
-    if not 1 <= K <= MAX_MOMENTS:
-        raise ValueError(f"cond_em: K must be in [1, {MAX_MOMENTS}]; got {K}")
+    K = chunk_moments(K)
     bf16 = compute_dtype == "bfloat16"
     regs = registers or {}
     # -- forward
@@ -515,47 +548,61 @@ def cem_dx_plan(S: int, T: int, N: int, F: int, K: int, sms: int,
     hidden by the others), then the larger tile, then fewer threads.
     `registers` ({route: registers per thread}, as the built library
     reports them) bounds the blocks per SM too; `tile` forces one stock
-    tile. Raises if nothing fits."""
+    tile. Above MAX_MOMENTS moments it plans the largest of
+    :func:`moment_chunks`. Raises if nothing fits, naming what refused:
+    the shared memory, the threads or the registers."""
     _check_dtype(compute_dtype)
-    if not 1 <= K <= MAX_MOMENTS:
-        raise ValueError(f"cond_em: K must be in [1, {MAX_MOMENTS}]; got {K}")
+    K = chunk_moments(K)
     route = dx_route(F, compute_dtype)
     regs = (registers or {}).get(route, 0)
     best = None
-    for bn in (tile,) if tile else DX_MMA_TILES if route else DX_TILES:
-        if bn % (16 if route else 4):
-            continue
-        if route:
-            counts = (2 * bn,)
-        else:
-            most = max(S * (_pad(K, 4) // fwd_rt(K)), -(-F // DX_FEATURES))
-            counts = range(64, min(DX_MAX_THREADS, _pad(most * bn // 4, 32))
-                           + 1, 32)
-        smem = 4 * dx_geometry(route, S, F, K, bn)
-        if smem > MAX_SMEM:
-            continue
-        cells = T * -(-N // bn)
-        for threads in counts:
-            if threads > DX_MAX_THREADS:
+    refused = set()
+    # block sizes of whole warps from 64 up to the larger phase's items;
+    # only where no tile has one, from one warp (one member's few items)
+    for low in (64, 32):
+        for bn in (tile,) if tile else DX_MMA_TILES if route else DX_TILES:
+            if bn % (16 if route else 4):
+                refused.add(f"the stock tile {bn}")
                 continue
-            blocks = _resident(smem, threads, regs)
-            if blocks < 1:
-                continue
-            G = min(cells, blocks * sms)
-            fill = cells / (G * -(-cells // G))
-            busy = blocks * threads * fill
             if route:
-                busy = round(busy, 6)
-            else:  # to two significant figures: the balance is no finer
-                busy = float(f"{busy * dx_balance(S, F, K, bn, threads):.2g}")
-            key = (busy, blocks, bn, -threads)
-            if best is None or key > best[0]:
-                best = (key, CemDxPlan(route, bn, threads, DX_STAGES, smem,
-                                       blocks, G, cells))
+                counts = (2 * bn,)
+            else:
+                most = max(S * (_pad(K, 4) // fwd_rt(K)),
+                           -(-F // DX_FEATURES))
+                counts = range(low, min(DX_MAX_THREADS,
+                                        _pad(most * bn // 4, 32)) + 1, 32)
+                if not counts:
+                    refused.add(f"the threads (the items fill fewer than "
+                                f"{low})")
+            smem = 4 * dx_geometry(route, S, F, K, bn)
+            if smem > MAX_SMEM:
+                refused.add(f"the shared memory ({smem} B > {MAX_SMEM} B)")
+                continue
+            cells = T * -(-N // bn)
+            for threads in counts:
+                blocks = _resident(smem, threads, regs)
+                if blocks < 1:
+                    refused.add(f"the registers ({regs} a thread at "
+                                f"{threads} threads)")
+                    continue
+                G = min(cells, blocks * sms)
+                fill = cells / (G * -(-cells // G))
+                busy = blocks * threads * fill
+                if route:
+                    busy = round(busy, 6)
+                else:  # to two significant figures: the balance is no finer
+                    busy = float(
+                        f"{busy * dx_balance(S, F, K, bn, threads):.2g}")
+                key = (busy, blocks, bn, -threads)
+                if best is None or key > best[0]:
+                    best = (key, CemDxPlan(route, bn, threads, DX_STAGES,
+                                           smem, blocks, G, cells))
+        if best is not None or route:
+            break
     if best is None:
-        raise ValueError(f"cond_em_dx: F = {F}, K = {K} at S = {S} does not "
-                         "fit the kernel's shared memory"
-                         + (f" at tile {tile}" if tile else ""))
+        raise ValueError(f"cond_em_dx: F = {F}, K = {K} at S = {S} has no "
+                         "launch plan" + (f" at tile {tile}" if tile else "")
+                         + ": refused by " + ", ".join(sorted(refused)))
     return best[1]
 
 
@@ -572,7 +619,9 @@ def card_cem_plan(dev, S: int, T: int, N: int, F: int, K: int,
     (their bf16-panel instances) with `xb16`; kept per shape. Each plan is
     checked on the card once, before its first launch (:func:`plan_info`):
     one that the kernel refuses, or whose blocks the card does not keep
-    resident, raises."""
+    resident, raises. Above MAX_MOMENTS moments it plans the largest
+    chunk."""
+    K = chunk_moments(K)
     key = (dev, S, T, N, F, K, compute_dtype, bool(xb16))
     plans = _plans.get(key)
     if plans is None:
@@ -607,7 +656,9 @@ def plan_info(plan: CemPlan, S: int, T: int, N: int, F: int, K: int,
     """What the card makes of `plan` (the current CUDA device): resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel it launches.
-    Raises for a plan the kernel refuses."""
+    Raises for a plan the kernel refuses. K above MAX_MOMENTS reads as its
+    largest chunk."""
+    K = chunk_moments(K)
     out = (ctypes.c_int * 3)()
     rc = _load(xb16).cond_em_plan_info(
         int(plan.kernel == "bwd"), S, T, F, N, K, plan.groups,
@@ -627,7 +678,9 @@ def card_cem_dx_plan(dev, S: int, T: int, N: int, F: int, K: int,
     registers of the library's kernel instance at (F, K, dtype); kept per
     shape. Each plan is checked on the card once, before its first launch
     (:func:`dx_plan_info`): one that the kernel refuses, or whose blocks the
-    card does not keep resident, raises."""
+    card does not keep resident, raises. Above MAX_MOMENTS moments it plans
+    the largest chunk."""
+    K = chunk_moments(K)
     key = (dev, S, T, N, F, K, compute_dtype, tile, bool(xb16))
     plan = _dx_plans.get(key)
     if plan is None:
@@ -655,7 +708,8 @@ def dx_plan_info(plan: CemDxPlan, S: int, T: int, N: int, F: int, K: int,
                  compute_dtype: str, xb16: bool = False) -> Dict[str, int]:
     """What the card makes of the panel cotangent's `plan` (the current CUDA
     device), as :func:`plan_info` reports it. Raises for a plan the kernel
-    refuses."""
+    refuses. K above MAX_MOMENTS reads as its largest chunk."""
+    K = chunk_moments(K)
     out = (ctypes.c_int * 3)()
     rc = _load(xb16).cond_em_dx_plan_info(
         S, T, F, N, K, int(compute_dtype == "bfloat16"), plan.route,
@@ -691,8 +745,8 @@ def _refused(kernel: str, rc: int, plan: CemPlan) -> None:
     _raise_rc(f"cond_em_{kernel}", rc)
 
 
-def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
-    """em [S, K, N]. The kernels round kT to the compute dtype themselves
+def _launch_fwd_chunk(x_t, zp_m, xr, tinv, kT, compute_dtype):
+    """em [S, K, N] of one launch (K ≤ MAX_MOMENTS). The kernels round kT to the compute dtype themselves
     (route 1 as it builds its fragments), so no PyTorch op runs before the
     launch."""
     kT = kT.contiguous()
@@ -713,8 +767,9 @@ def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
     return em_part.sum(dim=1)  # the fixed-order pass over the period groups
 
 
-def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
-    """(dkT, dzp_m, dxr), kT rounded in the kernels as in the forward."""
+def _launch_bwd_chunk(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """(dkT, dzp_m, dxr) of one launch (K ≤ MAX_MOMENTS), kT rounded in the
+    kernels as in the forward."""
     kT = kT.contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     gem = gem.float().contiguous()
@@ -742,11 +797,11 @@ def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
     return dkT_part.sum(dim=1), dzpm_part.sum(dim=1), dxr
 
 
-def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
-               plan: Optional[CemDxPlan] = None):
-    """The panel cotangent dx [T, F, N] in the panel's dtype, summed over
-    the members; `plan` defaults to :func:`card_cem_dx_plan` for this
-    card."""
+def _launch_dx_chunk(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
+                     plan: Optional[CemDxPlan] = None):
+    """The panel cotangent dx [T, F, N] of one launch (K ≤ MAX_MOMENTS) in
+    the panel's dtype, summed over the members; `plan` defaults to
+    :func:`card_cem_dx_plan` for this card."""
     kT = _round(kT, compute_dtype).contiguous()
     S, T, F, N, K, dev = _checked(x_t, zp_m, xr, tinv, kT)
     gem = gem.float().contiguous()
@@ -771,6 +826,85 @@ def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
     _raise_rc("cond_em_dx", rc)
     panel_launch("cond_em_dx", x_t)
     return dx
+
+
+# -- moment chunks ----------------------------------------------------------------
+
+
+def _moment_slice(t: torch.Tensor, dim: int, a: int, b: int) -> torch.Tensor:
+    return t.narrow(dim, a, b - a).contiguous()
+
+
+def chunked_fwd(fn, x_t, zp_m, xr, tinv, kT, compute_dtype):
+    """em [S, K, N] from `fn` (a launch, or the plain version) over
+    :func:`moment_chunks`: each chunk's em rows; one call where K ≤
+    MAX_MOMENTS."""
+    chunks = moment_chunks(kT.shape[1])
+    if len(chunks) == 1:
+        return fn(x_t, zp_m, xr, tinv, kT, compute_dtype)
+    return torch.cat([fn(x_t, _moment_slice(zp_m, 2, a, b), xr, tinv,
+                         _moment_slice(kT, 1, a, b), compute_dtype)
+                      for a, b in chunks], dim=1)
+
+
+def chunked_bwd(fn, x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """(dkT, dzp_m, dxr) from `fn` over :func:`moment_chunks`: dkT rows and
+    dzp_m columns per chunk, dxr summed over the chunks in f32, in chunk
+    order."""
+    chunks = moment_chunks(kT.shape[1])
+    if len(chunks) == 1:
+        return fn(x_t, zp_m, xr, tinv, kT, gem, compute_dtype)
+    dkT, dzpm, dxr = [], [], None
+    for a, b in chunks:
+        k, z, r = fn(x_t, _moment_slice(zp_m, 2, a, b), xr, tinv,
+                     _moment_slice(kT, 1, a, b), _moment_slice(gem, 1, a, b),
+                     compute_dtype)
+        dkT.append(k)
+        dzpm.append(z)
+        dxr = r if dxr is None else dxr + r
+    return torch.cat(dkT, dim=1), torch.cat(dzpm, dim=2), dxr
+
+
+def chunked_dx(fn, x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """The panel cotangent from `fn` over :func:`moment_chunks`: each
+    chunk's on the panel widened to f32 (an f32 cotangent, computed as on
+    the bf16 panel), summed in f32 in chunk order and rounded once to the
+    panel's dtype."""
+    chunks = moment_chunks(kT.shape[1])
+    if len(chunks) == 1:
+        return fn(x_t, zp_m, xr, tinv, kT, gem, compute_dtype)
+    x32 = x_t.float()
+    dx = None
+    for a, b in chunks:
+        d = fn(x32, _moment_slice(zp_m, 2, a, b), xr, tinv,
+               _moment_slice(kT, 1, a, b), _moment_slice(gem, 1, a, b),
+               compute_dtype)
+        dx = d if dx is None else dx + d
+    return dx.to(x_t.dtype)
+
+
+def _launch_fwd(x_t, zp_m, xr, tinv, kT, compute_dtype):
+    """em [S, K, N]: one launch, or one a moment chunk above MAX_MOMENTS."""
+    return chunked_fwd(_launch_fwd_chunk, x_t, zp_m, xr, tinv, kT,
+                       compute_dtype)
+
+
+def _launch_bwd(x_t, zp_m, xr, tinv, kT, gem, compute_dtype):
+    """(dkT, dzp_m, dxr): one launch, or one a moment chunk."""
+    return chunked_bwd(_launch_bwd_chunk, x_t, zp_m, xr, tinv, kT, gem,
+                       compute_dtype)
+
+
+def _launch_dx(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
+               plan: Optional[CemDxPlan] = None):
+    """The panel cotangent dx [T, F, N] in the panel's dtype: one launch
+    (at `plan`, :func:`card_cem_dx_plan` by default), or one a moment chunk
+    (each at its own card plan)."""
+    if plan is not None:
+        return _launch_dx_chunk(x_t, zp_m, xr, tinv, kT, gem, compute_dtype,
+                                plan)
+    return chunked_dx(_launch_dx_chunk, x_t, zp_m, xr, tinv, kT, gem,
+                      compute_dtype)
 
 
 class _CondEm(torch.autograd.Function):

@@ -1,7 +1,7 @@
-// Shared by sdf_ffn.cu (forward), sdf_ffn_bwd.cu (recompute backward) and
-// sdf_ffn_dx.cu (panel cotangent): the packed-layout dimensions, the bf16
-// operand rounding, the dropout mask, and the tensor-core and cp.async
-// primitives.
+// Shared by sdf_ffn.cu (forward), sdf_ffn_bwd.cu (recompute backward),
+// sdf_ffn_dx.cu (panel cotangent) and sdf_ffn_stream.cu (the streamed-weight
+// route of all three): the packed-layout dimensions, the bf16 operand
+// rounding, the dropout mask, and the tensor-core and cp.async primitives.
 //
 // Dropout: a counter-based hash of (member base, period t, stock n, layer l,
 // unit j) only, so a mask does not depend on the block size or the launch
@@ -68,6 +68,30 @@ inline int read_dims(const int* layout, FfnDims* d, int* maxw) {
   }
   return 0;
 }
+
+// The streamed kernels' view of the packed layout: the same ints
+// (ops/sdf_ffn.py FfnLayout.as_ints) copied to device memory, so a stack of
+// any depth is described (the resident kernels' FfnDims holds kMaxLayers),
+// read through the read-only cache where a layer starts.
+struct LayoutTable {
+  const int* v;  // [n_hidden, F, P, off_kout, off_bout, h[n], hp[n],
+                 //  off_w[n], off_b[n]] in device memory
+  __device__ __forceinline__ int n() const { return __ldg(v); }
+  __device__ __forceinline__ int F() const { return __ldg(v + 1); }
+  __device__ __forceinline__ int P() const { return __ldg(v + 2); }
+  __device__ __forceinline__ int off_kout() const { return __ldg(v + 3); }
+  __device__ __forceinline__ int off_bout() const { return __ldg(v + 4); }
+  __device__ __forceinline__ int h(int l) const { return __ldg(v + 5 + l); }
+  __device__ __forceinline__ int hp(int l) const {
+    return __ldg(v + 5 + n() + l);
+  }
+  __device__ __forceinline__ int off_w(int l) const {
+    return __ldg(v + 5 + 2 * n() + l);
+  }
+  __device__ __forceinline__ int off_b(int l) const {
+    return __ldg(v + 5 + 3 * n() + l);
+  }
+};
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

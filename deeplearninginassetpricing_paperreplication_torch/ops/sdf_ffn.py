@@ -22,7 +22,14 @@ Two routes compute the same functions:
 * the CUDA kernels ``csrc/sdf_ffn.cu`` (forward), ``csrc/sdf_ffn_bwd.cu``
   (backward) and ``csrc/sdf_ffn_dx.cu`` (panel cotangent), ``sm_90a``, built
   with ``nvcc`` at first use and bound through ``ctypes``. A CUDA tensor
-  always goes through them; a build, plan or launch failure raises.
+  always goes through them; a build, plan or launch failure raises. These
+  resident kernels hold a member's whole stack in shared memory (at most
+  MAX_HIDDEN_LAYERS layers of padded width ≤ 128); every stack they cannot
+  hold takes the streamed-weight route of all three, ``csrc/sdf_ffn_stream.cu``
+  (one layer at a time, weights streamed through shared memory in slabs;
+  :data:`STREAM_ROUTES`), up to STREAM_MAX_WIDTH, STREAM_MAX_LAYERS and
+  STREAM_MAX_F. Each plan function picks the route: a shape the resident
+  route plans keeps its plan.
 
 :func:`sdf_ffn` is the differentiable entry (a ``torch.autograd.Function``
 whose backward is ``sdf_ffn_dx`` for the panel and ``sdf_ffn_bwd`` for
@@ -74,12 +81,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import (BF16_PANEL, _nvcc, count_launch, launch_total,
+from . import (BF16_PANEL, STREAM, _nvcc, count_launch, launch_total,
                reset_launch_counts)
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 PANEL_DTYPES = (torch.float32, torch.bfloat16)
-MAX_HIDDEN_LAYERS = 8
+MAX_HIDDEN_LAYERS = 8  # the resident kernels' (csrc/sdf_ffn_common.cuh)
 WIDTH_BOUNDS = (32, 64, 128)  # one library per bound on the padded width
 MAX_SMEM = 227 * 1024  # shared memory one block may use (bytes)
 # the card's SM (H100): shared memory, of which each resident block also
@@ -114,6 +121,23 @@ DX_TILES = (32, 64, 128)
 DX_THREADS = (64, 128, 256)
 DX_FEATURES = 6
 DX_MMA_MAX_F = 64
+# the streamed-weight route (csrc/sdf_ffn_stream.cu), for every stack the
+# resident kernels cannot hold: its route number by compute dtype (in
+# every plan's `route`), 256 threads a block, stock tiles (each thread 4
+# units × 4 stocks of a layer pass), the slab depth the tile rows pad to,
+# the limits it plans to (twice the reach its plan tests hold: widths
+# 1,024, 32 layers, F 512), and the global memory it may take a launch for
+# tile activations (where they do not fit shared memory) and for the
+# backward's per-block gradient partials
+STREAM_ROUTES = {"float32": 2, "bfloat16": 3}
+STREAM_THREADS = 256
+STREAM_TILES = (16, 32, 64)
+STREAM_SLAB = 16
+STREAM_MAX_WIDTH = 2048
+STREAM_MAX_LAYERS = 64
+STREAM_MAX_F = 1024
+STREAM_SCRATCH_BYTES = 2 << 30
+STREAM_GRAD_BYTES = 2 << 30
 
 # launches of the CUDA kernels, counted per device where the wrapper
 # launches them and nowhere else (ops.count_launch; reset_launch_count()
@@ -121,8 +145,9 @@ DX_MMA_MAX_F = 64
 _TOTALS = {"launches": "sdf_ffn_fwd",
            "bwd_launches": "sdf_ffn_bwd",
            "dx_launches": "sdf_ffn_dx"}
-# and those of the bf16-panel forms alone (a subset of the above)
-_TOTALS.update({k + BF16_PANEL: v + BF16_PANEL
+# and those of the bf16-panel forms and of the streamed route alone
+# (subsets of the above)
+_TOTALS.update({k + form: v + form for form in (BF16_PANEL, STREAM)
                 for k, v in list(_TOTALS.items())})
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
@@ -451,9 +476,6 @@ def pack_ffn(k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
     _check_dtype(compute_dtype)
     S, H1, F = k1T.shape
     hidden = [H1] + [w.shape[1] for w, _ in mids]
-    if len(hidden) > MAX_HIDDEN_LAYERS:
-        raise ValueError(f"the fused FFN takes at most {MAX_HIDDEN_LAYERS} "
-                         f"hidden layers; got {len(hidden)}")
     lay = ffn_layout(F, hidden)
     buf = torch.zeros(S, lay.P, dtype=torch.float32, device=k1T.device)
     with torch.no_grad():
@@ -477,14 +499,39 @@ def pack_ffn(k1T: torch.Tensor, mids: Mids, kout: torch.Tensor,
 
 
 def width_bound(hidden: Sequence[int]) -> int:
-    """The library a model needs: the smallest of WIDTH_BOUNDS that holds
-    its widest (padded) hidden layer."""
+    """The resident library a model needs: the smallest of WIDTH_BOUNDS that
+    holds its widest (padded) hidden layer. A wider stack has no resident
+    library; the streamed route serves it, and its bound reads as the
+    padded width rounded up to 128. Raises past STREAM_MAX_WIDTH."""
     w = max(_pad4(h) for h in hidden)
     for b in WIDTH_BOUNDS:
         if w <= b:
             return b
-    raise ValueError(f"sdf_ffn: hidden width {max(hidden)} exceeds the "
-                     f"kernel's {WIDTH_BOUNDS[-1]}")
+    if w > STREAM_MAX_WIDTH:
+        raise ValueError(f"sdf_ffn: hidden width {max(hidden)} exceeds the "
+                         f"streamed route's {STREAM_MAX_WIDTH} (width)")
+    return _pad(w, WIDTH_BOUNDS[-1])
+
+
+def resident_fits(lay: FfnLayout) -> bool:
+    """Can the resident kernels hold `lay` at all (at most
+    MAX_HIDDEN_LAYERS layers, each within the widest library)? Whether a
+    plan fits shared memory is the plan functions' question."""
+    return (len(lay.hidden) <= MAX_HIDDEN_LAYERS
+            and max(lay.hp) <= WIDTH_BOUNDS[-1])
+
+
+def kernel_route_takes(F: int, hidden: Sequence[int]) -> bool:
+    """Is (F, hidden) within the kernel route's limits: the resident
+    kernels' or, past them, the streamed route's width, depth and F?
+    (Whether a plan then fits is the plan functions' question.)"""
+    return (len(hidden) <= STREAM_MAX_LAYERS and F <= STREAM_MAX_F
+            and max(_pad4(h) for h in hidden) <= STREAM_MAX_WIDTH)
+
+
+def is_stream(plan) -> bool:
+    """Does `plan` launch the streamed-weight route?"""
+    return plan.route in STREAM_ROUTES.values()
 
 
 _SOURCES = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu",
@@ -499,6 +546,17 @@ def build_jobs(widths: Sequence[int] = WIDTH_BOUNDS,
     return [_nvcc.Job(f"sdf_ffn_{k}_w{w}", _SOURCES[k],
                       (f"-DSDF_FFN_MAXW={w}",))
             for k in kernels for w in widths]
+
+
+STREAM_SOURCE = "sdf_ffn_stream.cu"
+
+
+def stream_jobs(kernels: Sequence[str] = KERNELS) -> List[_nvcc.Job]:
+    """The streamed route's libraries, one per kernel (its four panel ×
+    compute instances), built only where a stack needs them."""
+    return [_nvcc.Job(f"sdf_ffn_{k}_stream", STREAM_SOURCE,
+                      (f"-DSDF_FFN_STREAM_KERNEL={KERNELS.index(k)}",))
+            for k in kernels]
 
 
 AUDIT_DEFINE = "-DSDF_FFN_DX_AUDIT"
@@ -543,6 +601,39 @@ _ARGTYPES = {
            + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_void_p]),
 }
+
+
+_STREAM_ARGTYPES = {
+    # x, xb16, zp, params, out | g + grads (bwd: g, grad_part, dzp_part;
+    # dx: g, dx), scratch, layout, layout on the card, S, T, N, bf16,
+    # dropout, tile, smem, G, stream
+    k: (_PANEL_ARGTYPES + [ctypes.c_void_p] * n
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + _DROP_ARGTYPES
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    for k, n in (("fwd", 4), ("bwd", 6), ("dx", 5))}
+
+
+def _load_stream(kernel: str):
+    """The streamed route's library of `kernel`, built at first use."""
+    key = (kernel + STREAM, 0)
+    with _lib_lock:
+        if key not in _libs:
+            (job,) = stream_jobs([kernel])
+            _nvcc.run([job])
+            lib = ctypes.CDLL(str(job.path))
+            fn = getattr(lib, f"sdf_ffn_{kernel}_stream")
+            fn.argtypes = _STREAM_ARGTYPES[kernel]
+            fn.restype = ctypes.c_int
+            lib.sdf_ffn_stream_plan_info.argtypes = [
+                ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int)]
+            lib.sdf_ffn_stream_plan_info.restype = ctypes.c_int
+            lib.sdf_ffn_stream_registers.argtypes = [ctypes.c_int] * 2
+            lib.sdf_ffn_stream_registers.restype = ctypes.c_int
+            _libs[key] = lib
+        return _libs[key]
 
 
 def _load(kernel: str, width: int, audit: bool = False):
@@ -657,8 +748,12 @@ def _launch(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     _check_cuda("params", packed.params, (S, lay.P), dev)
     plan = card_fwd_plan(lay, dev, S, T, N, packed.compute_dtype,
                          is_bf16(x_t))
-    lib = _load("fwd", width_bound(lay.hidden))
     out = torch.empty((S, T, N), dtype=torch.float32, device=dev)
+    if is_stream(plan):
+        _stream_launch("fwd", x_t, zp, packed, plan, seed, dropout_rate,
+                       offset, (out,))
+        return out
+    lib = _load("fwd", width_bound(lay.hidden))
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -733,6 +828,7 @@ class FwdPlan:
     blocks_per_sm: int
     G: int
     cells: int
+    scratch: int = 0  # streamed route: tile floats a block in global memory
 
 
 def _resident(smem: int, threads: int, regs: int) -> int:
@@ -749,9 +845,112 @@ def _resident(smem: int, threads: int, regs: int) -> int:
     return blocks
 
 
+def stream_rows(lay: FfnLayout, kernel: str) -> int:
+    """Rows of a streamed block's tile buffers (csrc/sdf_ffn_stream.cu
+    tile_rows; each row BN + 4 floats, each buffer's rows padded to
+    STREAM_SLAB): the panel tile, then the forward's two activation buffers
+    (the widest layer each), or every layer's activations, two dh buffers
+    and (dx) the cotangent's accumulator."""
+    r = [_pad(h, STREAM_SLAB) for h in lay.hidden]
+    rf = _pad(lay.F, STREAM_SLAB)
+    if kernel == "fwd":
+        return rf + 2 * max(r)
+    return rf + sum(r) + 2 * max(r) + (rf if kernel == "dx" else 0)
+
+
+def stream_geometry(lay: FfnLayout, kernel: str,
+                    tile: int) -> Tuple[int, int]:
+    """(shared-memory floats besides the tile buffers, floats of the tile
+    buffers) of a streamed block at stock tile `tile`, as
+    csrc/sdf_ffn_stream.cu counts them: two weight slabs of STREAM_SLAB
+    inputs × 16·threads/tile units, the row hashes and the g row."""
+    fixed = 2 * STREAM_SLAB * (16 * STREAM_THREADS // tile) + 2 * tile
+    return fixed, stream_rows(lay, kernel) * (tile + 4)
+
+
+def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
+                N: int, registers: int = 0
+                ) -> Tuple[int, int, int, int, int, int]:
+    """The streamed route's launch for `kernel` ("fwd", "bwd" or "dx"):
+    (stock tile, shared memory, resident blocks per SM, G, cells, tile
+    floats a block in global scratch — 0 where the tile buffers sit in
+    shared memory).
+
+    Of the stock tiles, with the tile buffers in shared memory where they
+    fit, else in scratch, the one that keeps the most stocks resident per
+    SM (tile × blocks per SM, shared memory in front; then the larger
+    tile). G: a persistent grid over the S·T·⌈N/tile⌉ cells (forward) or
+    T·⌈N/tile⌉ (the panel cotangent; the backward's G blocks per member),
+    at most the blocks resident on `sms` SMs, and no more than the
+    scratch budgets allow. Raises naming the limit (width, layers, F,
+    shared memory, registers, scratch)."""
+    name = f"sdf_ffn_{kernel}"
+    over = [f"{what} {got} exceeds its {cap} ({tag})" for what, got, cap, tag
+            in (("hidden width", max(lay.hp), STREAM_MAX_WIDTH, "width"),
+                ("depth of", len(lay.hidden), STREAM_MAX_LAYERS, "layers"),
+                ("F =", lay.F, STREAM_MAX_F, "F")) if got > cap]
+    if over:
+        raise ValueError(f"{name}: hidden {list(lay.hidden)} with F = "
+                         f"{lay.F} does not fit the streamed route: "
+                         + "; ".join(over))
+    per = S if kernel == "bwd" else 1  # blocks a G column
+    part = 4 * S * (lay.P + T * lay.hidden[0])  # bwd partials a G column
+    plans, refused = [], set()
+    for tile in STREAM_TILES:
+        fixed, tf = stream_geometry(lay, kernel, tile)
+        cells = (S if kernel == "fwd" else 1) * T * -(-N // tile)
+        for in_smem in (True, False):
+            smem = 4 * (fixed + (tf if in_smem else 0))
+            if smem > MAX_SMEM:
+                refused.add("shared memory")
+                continue
+            blocks = _resident(smem, STREAM_THREADS, registers)
+            if blocks < 1:
+                refused.add(f"registers ({registers} a thread)")
+                continue
+            G = max(1, min(cells, blocks * sms // per))
+            if not in_smem:
+                G = min(G, STREAM_SCRATCH_BYTES // (4 * tf * per))
+            if kernel == "bwd":
+                G = min(G, STREAM_GRAD_BYTES // part)
+            if G < 1:
+                refused.add(f"scratch ({4 * tf * per} B of tile buffers, "
+                            f"{part if kernel == 'bwd' else 0} B of gradient"
+                            " partials a grid column)")
+                continue
+            plans.append(((in_smem, tile * blocks, tile),
+                          (tile, smem, blocks, G, cells,
+                           0 if in_smem else tf)))
+    if not plans:
+        raise ValueError(f"{name}: hidden {list(lay.hidden)} with F = "
+                         f"{lay.F} does not fit the streamed route: refused "
+                         "by " + ", ".join(sorted(refused)))
+    return max(plans)[1]
+
+
 def fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
              compute_dtype: str = "float32",
              registers: Dict[int, int] = None) -> FwdPlan:
+    """The forward's launch plan: the resident route's
+    (:func:`resident_fwd_plan`) where it has one, else the streamed
+    route's (:func:`stream_plan`; `registers` keyed by its route)."""
+    _check_dtype(compute_dtype)
+    if resident_fits(lay):
+        try:
+            return resident_fwd_plan(lay, sms, S, T, N, compute_dtype,
+                                     registers)
+        except ValueError:
+            pass
+    route = STREAM_ROUTES[compute_dtype]
+    tile, smem, blocks, G, cells, scratch = stream_plan(
+        lay, "fwd", sms, S, T, N, (registers or {}).get(route, 0))
+    return FwdPlan(route, tile, STREAM_THREADS, 1, smem, blocks, G, cells,
+                   scratch)
+
+
+def resident_fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
+                      compute_dtype: str = "float32",
+                      registers: Dict[int, int] = None) -> FwdPlan:
     """The forward's launch plan for `lay` on a card of `sms` SMs.
 
     float32: of the stock tiles and block sizes whose shared memory fits,
@@ -834,6 +1033,8 @@ class BwdPlan:
     blocks_per_sm: int
     G: int
     nt: int
+    route: int = 0  # 0 resident; or the streamed route's (STREAM_ROUTES)
+    scratch: int = 0  # streamed route: tile floats a block in global memory
 
     @property
     def accumulators(self) -> str:
@@ -841,8 +1042,29 @@ class BwdPlan:
 
 
 def bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
-             tile: int = None, registers: Dict[int, int] = None) -> BwdPlan:
-    """The backward's launch plan for `lay` on a card of `sms` SMs.
+             tile: int = None, registers: Dict[int, int] = None,
+             compute_dtype: str = "float32") -> BwdPlan:
+    """The backward's launch plan: the resident route's
+    (:func:`resident_bwd_plan`) where it has one, else the streamed
+    route's at `compute_dtype` (:func:`stream_plan`; `registers` keyed by
+    its route). A forced `tile` is the resident route's."""
+    _check_dtype(compute_dtype)
+    if tile is not None or resident_fits(lay):
+        try:
+            return resident_bwd_plan(lay, sms, S, T, N, tile, registers)
+        except ValueError:
+            if tile is not None:
+                raise
+    route = STREAM_ROUTES[compute_dtype]
+    bn, smem, blocks, G, _, scratch = stream_plan(
+        lay, "bwd", sms, S, T, N, (registers or {}).get(route, 0))
+    return BwdPlan(bn, STREAM_THREADS, smem, blocks, G, 0, route, scratch)
+
+
+def resident_bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
+                      tile: int = None,
+                      registers: Dict[int, int] = None) -> BwdPlan:
+    """The resident backward's launch plan for `lay` on a card of `sms` SMs.
 
     Among the stock tiles whose shared memory fits one block, it takes the
     one that keeps the most stocks resident per SM (tile × blocks per SM;
@@ -975,12 +1197,37 @@ class DxPlan:
     blocks_per_sm: int
     G: int
     cells: int
+    scratch: int = 0  # streamed route: tile floats a block in global memory
 
 
 def dx_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
             compute_dtype: str = "float32",
             registers: Dict[int, int] = None, tile: int = None) -> DxPlan:
-    """The panel cotangent's launch plan for `lay` on a card of `sms` SMs.
+    """The panel cotangent's launch plan: the resident route's
+    (:func:`resident_dx_plan`) where it has one, else the streamed route's
+    (:func:`stream_plan`; `registers` keyed by its route). A forced `tile`
+    is the resident route's."""
+    _check_dtype(compute_dtype)
+    if tile is not None or resident_fits(lay):
+        try:
+            return resident_dx_plan(lay, sms, S, T, N, compute_dtype,
+                                    registers, tile)
+        except ValueError:
+            if tile is not None:
+                raise
+    route = STREAM_ROUTES[compute_dtype]
+    bn, smem, blocks, G, cells, scratch = stream_plan(
+        lay, "dx", sms, S, T, N, (registers or {}).get(route, 0))
+    return DxPlan(route, bn, STREAM_THREADS, 2, 1, False, smem, blocks, G,
+                  cells, scratch)
+
+
+def resident_dx_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
+                     compute_dtype: str = "float32",
+                     registers: Dict[int, int] = None,
+                     tile: int = None) -> DxPlan:
+    """The resident panel cotangent's launch plan for `lay` on a card of
+    `sms` SMs.
 
     Of the stock tiles, block sizes (route 0; route 1 runs a warp per 16
     stocks), weight buffers and panel tile buffers whose shared memory
@@ -1037,17 +1284,55 @@ _fwd_plans: Dict[tuple, "FwdPlan"] = {}
 # whose registers are its own, else for its f32-panel one
 
 
+_stream_regs: Dict[Tuple[str, str, bool], int] = {}
+
+
+def _stream_registers(kernel: str, compute_dtype: str, xb16: bool) -> int:
+    """Registers per thread of the streamed `kernel`'s instance (0 if the
+    library cannot say)."""
+    key = (kernel, compute_dtype, bool(xb16))
+    if key not in _stream_regs:
+        r = _load_stream(kernel).sdf_ffn_stream_registers(
+            int(compute_dtype == "bfloat16"), int(xb16))
+        _stream_regs[key] = max(r, 0)
+    return _stream_regs[key]
+
+
+def _card_plan(plan_fn, kernel, lay, sms, resident_regs, compute_dtype,
+               xb16, *args):
+    """`plan_fn` at the resident library's registers (where the resident
+    route can hold `lay`) and, where it takes the streamed route, again at
+    the streamed library's: a stack that needs no streamed library builds
+    none."""
+    regs = dict(resident_regs() if resident_fits(lay) else {})
+    plan = plan_fn(lay, sms, *args, registers=regs)
+    if is_stream(plan):
+        regs[plan.route] = _stream_registers(kernel, compute_dtype, xb16)
+        plan = plan_fn(lay, sms, *args, registers=regs)
+    return plan
+
+
 def card_bwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
-                  tile: int = None, xb16: bool = False) -> BwdPlan:
+                  tile: int = None, xb16: bool = False,
+                  compute_dtype: str = "float32") -> BwdPlan:
     """:func:`bwd_plan` for the card `dev`: its SM count, and the registers
-    of the library's kernel instances."""
-    rkey = (width_bound(lay.hidden), bool(xb16))
-    if rkey not in _bwd_regs:
-        lib = _load("bwd", rkey[0])
-        regs = {nt: lib.sdf_ffn_bwd_registers(nt, int(xb16))
-                for nt in (0,) + BWD_REG_TILES}
-        _bwd_regs[rkey] = {nt: r for nt, r in regs.items() if r > 0}
-    return bwd_plan(lay, _sm_count(dev), S, T, N, tile, _bwd_regs[rkey])
+    of the library's kernel instances (the resident ones, or the streamed
+    one at `compute_dtype`)."""
+
+    def resident():
+        rkey = (width_bound(lay.hidden), bool(xb16))
+        if rkey not in _bwd_regs:
+            lib = _load("bwd", rkey[0])
+            regs = {nt: lib.sdf_ffn_bwd_registers(nt, int(xb16))
+                    for nt in (0,) + BWD_REG_TILES}
+            _bwd_regs[rkey] = {nt: r for nt, r in regs.items() if r > 0}
+        return _bwd_regs[rkey]
+
+    def plan_fn(lay, sms, registers):
+        return bwd_plan(lay, sms, S, T, N, tile, registers, compute_dtype)
+
+    return _card_plan(plan_fn, "bwd", lay, _sm_count(dev), resident,
+                      compute_dtype, xb16)
 
 
 def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
@@ -1057,14 +1342,20 @@ def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
     each bucket once."""
     key = (lay, dev, S, T, N, compute_dtype, bool(xb16))
     if key not in _fwd_plans:
-        lib_key = (width_bound(lay.hidden), lay.F, bool(xb16))
-        if lib_key not in _fwd_regs:
-            lib = _load("fwd", lib_key[0])
-            _fwd_regs[lib_key] = {r: lib.sdf_ffn_fwd_registers(r, lay.F,
-                                                               int(xb16))
-                                  for r in FWD_ROUTES.values()}
-        _fwd_plans[key] = fwd_plan(lay, _sm_count(dev), S, T, N,
-                                   compute_dtype, _fwd_regs[lib_key])
+        def resident():
+            lib_key = (width_bound(lay.hidden), lay.F, bool(xb16))
+            if lib_key not in _fwd_regs:
+                lib = _load("fwd", lib_key[0])
+                _fwd_regs[lib_key] = {
+                    r: lib.sdf_ffn_fwd_registers(r, lay.F, int(xb16))
+                    for r in FWD_ROUTES.values()}
+            return _fwd_regs[lib_key]
+
+        def plan_fn(lay, sms, registers):
+            return fwd_plan(lay, sms, S, T, N, compute_dtype, registers)
+
+        _fwd_plans[key] = _card_plan(plan_fn, "fwd", lay, _sm_count(dev),
+                                     resident, compute_dtype, xb16)
     return _fwd_plans[key]
 
 
@@ -1084,15 +1375,21 @@ def card_dx_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
     key = (lay, dev, S, T, N, compute_dtype, tile, bool(xb16))
     plan = _dx_plans.get(key)
     if plan is None:
-        route = dx_route(lay, compute_dtype)
-        bf16 = int(compute_dtype == "bfloat16")
-        rkey = (width_bound(lay.hidden), lay.F, bf16, bool(xb16))
-        if rkey not in _dx_regs:
-            regs = _load("dx", rkey[0]).sdf_ffn_dx_registers(
-                route, bf16, lay.F, int(xb16))
-            _dx_regs[rkey] = {route: regs} if regs > 0 else {}
-        plan = dx_plan(lay, _sm_count(dev), S, T, N, compute_dtype,
-                       _dx_regs[rkey], tile)
+        def resident():
+            route = dx_route(lay, compute_dtype)
+            bf16 = int(compute_dtype == "bfloat16")
+            rkey = (width_bound(lay.hidden), lay.F, bf16, bool(xb16))
+            if rkey not in _dx_regs:
+                regs = _load("dx", rkey[0]).sdf_ffn_dx_registers(
+                    route, bf16, lay.F, int(xb16))
+                _dx_regs[rkey] = {route: regs} if regs > 0 else {}
+            return _dx_regs[rkey]
+
+        def plan_fn(lay, sms, registers):
+            return dx_plan(lay, sms, S, T, N, compute_dtype, registers, tile)
+
+        plan = _card_plan(plan_fn, "dx", lay, _sm_count(dev), resident,
+                          compute_dtype, xb16)
         with torch.cuda.device(dev):
             held = dx_plan_info(lay, S, compute_dtype, plan, xb16=xb16)
         if held["blocks_per_sm"] < plan.blocks_per_sm:
@@ -1111,6 +1408,11 @@ def dx_plan_info(lay: FfnLayout, S: int, compute_dtype: str,
     registers and local-memory bytes per thread of the kernel it launches
     (of the audit build's, with `audit`). Raises for a plan the kernel
     refuses."""
+    if is_stream(plan):
+        if audit:
+            raise ValueError("sdf_ffn_dx: the audit build is the resident "
+                             "route's; the plan is the streamed route's")
+        return stream_plan_info("dx", lay, plan, xb16)
     out = (ctypes.c_int * 3)()
     rc = _load("dx", width_bound(lay.hidden), audit).sdf_ffn_dx_plan_info(
         _layout_ints(lay), S, int(compute_dtype == "bfloat16"), plan.route,
@@ -1127,6 +1429,8 @@ def fwd_plan_info(lay: FfnLayout, S: int, plan: FwdPlan,
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel it launches.
     Raises for a plan the kernel refuses."""
+    if is_stream(plan):
+        return stream_plan_info("fwd", lay, plan, xb16)
     out = (ctypes.c_int * 3)()
     rc = _load("fwd", width_bound(lay.hidden)).sdf_ffn_fwd_plan_info(
         _layout_ints(lay), S, plan.route, plan.tile, plan.threads,
@@ -1142,6 +1446,8 @@ def bwd_plan_info(lay: FfnLayout, plan: BwdPlan,
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers and local-memory bytes per thread of the kernel instance it
     launches. Raises for a plan the kernel refuses."""
+    if is_stream(plan):
+        return stream_plan_info("bwd", lay, plan, xb16)
     out = (ctypes.c_int * 3)()
     rc = _load("bwd", width_bound(lay.hidden)).sdf_ffn_bwd_plan_info(
         _layout_ints(lay), plan.tile, plan.threads, plan.nt,
@@ -1149,6 +1455,69 @@ def bwd_plan_info(lay: FfnLayout, plan: BwdPlan,
     if rc != 0:
         raise RuntimeError(f"sdf_ffn_bwd refused the plan {plan} (code {rc})")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
+
+
+def stream_plan_info(kernel: str, lay: FfnLayout, plan,
+                     xb16: bool = False) -> Dict[str, int]:
+    """What the card makes of a streamed `plan` of `kernel` (the current
+    CUDA device): resident blocks per SM, registers and local-memory bytes
+    per thread of the instance it launches (the plan's route names the
+    compute dtype). Raises for a plan the kernel refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _load_stream(kernel).sdf_ffn_stream_plan_info(
+        _layout_ints(lay), int(plan.route == STREAM_ROUTES["bfloat16"]),
+        plan.tile, plan.smem_bytes, int(plan.scratch > 0), int(xb16), out)
+    if rc != 0:
+        raise RuntimeError(f"sdf_ffn_{kernel}_stream refused the plan {plan}"
+                           f" (code {rc})")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
+
+
+_layouts_dev: Dict[Tuple[FfnLayout, str], torch.Tensor] = {}
+
+
+def _layout_dev(lay: FfnLayout, dev) -> torch.Tensor:
+    """The layout's ints on the card (the streamed kernels' LayoutTable),
+    copied once per (layout, device)."""
+    key = (lay, str(dev))
+    if key not in _layouts_dev:
+        _layouts_dev[key] = torch.tensor(lay.as_ints(), dtype=torch.int32,
+                                         device=dev)
+    return _layouts_dev[key]
+
+
+def _stream_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
+                   packed: PackedFfn, plan, seed: Seed, dropout_rate: float,
+                   offset: int, outs: Sequence[torch.Tensor]) -> None:
+    """One launch of the streamed `kernel` at `plan` writing `outs` (fwd:
+    out; bwd: g, grad_part, dzp_part; dx: g, dx), inputs checked by the
+    caller; counts it under the kernel and its ``_stream`` form."""
+    lay = packed.layout
+    T, _, N = x_t.shape
+    S = packed.n_members
+    dev = x_t.device
+    if plan.route != STREAM_ROUTES[packed.compute_dtype]:
+        raise ValueError(f"sdf_ffn_{kernel}: the plan {plan} is not the "
+                         f"streamed route at {packed.compute_dtype}")
+    blocks = plan.G * (S if kernel == "bwd" else 1)
+    scratch = (torch.empty(blocks * plan.scratch, dtype=torch.float32,
+                           device=dev) if plan.scratch else None)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_load_stream(kernel), f"sdf_ffn_{kernel}_stream")(
+            *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            None if scratch is None else scratch.data_ptr(),
+            _layout_ints(lay), _layout_dev(lay, dev).data_ptr(), S, T, N,
+            int(packed.compute_dtype == "bfloat16"), *drop, plan.tile,
+            plan.smem_bytes, plan.G, stream)
+    if rc == -1:
+        raise RuntimeError(f"sdf_ffn_{kernel}_stream refused the plan {plan}"
+                           f" for hidden {list(lay.hidden)}, F = {lay.F}")
+    _raise_rc(f"sdf_ffn_{kernel}_stream", rc)
+    panel_launch(f"sdf_ffn_{kernel}", x_t)
+    count_launch(f"sdf_ffn_{kernel}{STREAM}", dev)
 
 
 def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
@@ -1166,12 +1535,17 @@ def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     _check_cuda("params", packed.params, (S, lay.P), dev)
     _check_cuda("g", g, (S, T, N), dev)
     if plan is None:
-        plan = card_bwd_plan(lay, dev, S, T, N, xb16=is_bf16(x_t))
-    lib = _load("bwd", width_bound(lay.hidden))
+        plan = card_bwd_plan(lay, dev, S, T, N, xb16=is_bf16(x_t),
+                             compute_dtype=packed.compute_dtype)
     G = plan.G
     grad_part = torch.zeros((S, G, lay.P), dtype=torch.float32, device=dev)
     dzp_part = torch.zeros((S, G, T, lay.hidden[0]), dtype=torch.float32,
                            device=dev)
+    if is_stream(plan):
+        _stream_launch("bwd", x_t, zp, packed, plan, seed, dropout_rate,
+                       offset, (g, grad_part, dzp_part))
+        return grad_part.sum(dim=1), dzp_part.sum(dim=1)
+    lib = _load("bwd", width_bound(lay.hidden))
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1194,7 +1568,8 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
              g: torch.Tensor, seed: Seed, dropout_rate: float,
              plan: Optional[DxPlan], offset: int = 0) -> torch.Tensor:
     """One launch of `lib`'s sdf_ffn_dx (the main library or its audit
-    build) at `plan`, :func:`card_dx_plan` by default."""
+    build) at `plan`, :func:`card_dx_plan` by default; a streamed plan
+    launches the streamed library (`lib` unused)."""
     lay = packed.layout
     T, F, N = x_t.shape
     S = packed.n_members
@@ -1208,6 +1583,10 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
         plan = card_dx_plan(lay, dev, S, T, N, cd, xb16=is_bf16(x_t))
     # in the panel's dtype: a bf16 dx is rounded once, in the kernel
     dx = torch.empty((T, lay.F, N), dtype=x_t.dtype, device=dev)
+    if is_stream(plan):
+        _stream_launch("dx", x_t, zp, packed, plan, seed, dropout_rate,
+                       offset, (g, dx))
+        return dx
     # route 1's member images (bf16 rows), written by the launch itself
     img = (torch.empty(S * dx_geometry(lay, 1, plan.tile, plan.wbufs,
                                        plan.xbufs)[1],
@@ -1235,6 +1614,13 @@ def _launch_dx(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
                plan: DxPlan = None, offset: int = 0) -> torch.Tensor:
     """The panel cotangent dx [T, F, N] in the panel's dtype, summed over
     the members; `plan` defaults to :func:`card_dx_plan` for this card."""
+    if plan is None:
+        plan = card_dx_plan(packed.layout, x_t.device, packed.n_members,
+                            x_t.shape[0], x_t.shape[2], packed.compute_dtype,
+                            xb16=is_bf16(x_t))
+    if is_stream(plan):  # counted where it launches
+        return _dx_call(None, x_t, zp, packed, g, seed, dropout_rate, plan,
+                        offset)
     dx = _dx_call(_load("dx", width_bound(packed.layout.hidden)), x_t, zp,
                   packed, g, seed, dropout_rate, plan, offset)
     panel_launch("sdf_ffn_dx", x_t)
@@ -1387,13 +1773,12 @@ def sdf_ffn(x_t: torch.Tensor, zp: torch.Tensor, k1T: torch.Tensor,
     ``dropout_rate`` draw the dropout masks, identically in the forward and
     the backward; ``offset`` is the global index of x_t's first stock (a
     stock shard's start). x_t is float32 or bfloat16; its gradient comes
-    back in its dtype."""
+    back in its dtype. The plain route takes any depth and width; the
+    kernel route's limits are its plans' (a shape no route plans raises
+    where it is launched, naming the limit)."""
     _check_dtype(compute_dtype)
     check_panel_dtype(x_t)
     S, H1, F = k1T.shape
-    if len(mids) + 1 > MAX_HIDDEN_LAYERS:
-        raise ValueError(f"the fused FFN takes at most {MAX_HIDDEN_LAYERS} "
-                         f"hidden layers; got {len(mids) + 1}")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1): {dropout_rate}")
     meta = (_route(x_t, kernel), compute_dtype, member_seeds(seed, S),

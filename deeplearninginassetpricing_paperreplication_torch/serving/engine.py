@@ -1086,4 +1086,5 @@ class InferenceEngine:
                               or self.device.type == "cpu" else "cuda"),
                 "compute_dtype": self.exec_cfg.compute_dtype,
                 "kernel_launches": sdf_ffn.launches,
+                "kernel_launches_stream": sdf_ffn.launches_stream,
             }

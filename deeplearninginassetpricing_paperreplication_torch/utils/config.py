@@ -233,31 +233,32 @@ class ExecutionConfig:
         does. The kernel route on a CUDA device with compute_dtype bfloat16
         gives that, where:
 
-        * the SDF net has hidden layers the fused FFN plans (at most
-          ``MAX_HIDDEN_LAYERS``, each within the widest library): its
-          forward and its dW backward round x (``ops/sdf_ffn.py``); with no
-          hidden layer ``models/networks.sdf_raw_weights`` reads x in f32;
+        * the SDF net has hidden layers the fused FFN's kernel route takes
+          (``sdf_ffn.kernel_route_takes``: the resident kernels, or past
+          them the streamed-weight route, up to its width, depth and F):
+          both routes' forward and dW backward round x as they read it
+          (``ops/sdf_ffn.py``); with no hidden layer
+          ``models/networks.sdf_raw_weights`` reads x in f32;
         * the moment net is the default one (no hidden layer) with macro
-          data and at most ``MAX_MOMENTS`` moments: the fused conditional-EM
-          rounds x (``ops/cond_em.py``); any other moment net goes through
+          data, at any number of moments: the fused conditional-EM rounds x
+          in every launch, and above ``MAX_MOMENTS`` every moment chunk's
+          launch does (its panel cotangent reads the panel widened to f32,
+          exactly) (``ops/cond_em.py``); any other moment net goes through
           ``moment_h_members``, which reads x in f32.
 
         The plain route (a CPU device or ``kernel="off"``) is excluded: it
         is the route the f32 checks read. Under a stock shard the same
         holds per shard: each rank's kernels read only its own span."""
-        from ..ops import cond_em, sdf_ffn
+        from ..ops import sdf_ffn
 
         if (self.kernel == "off" or self.compute_dtype != "bfloat16"
                 or torch.device(self.device).type != "cuda"):
             return False
-        if not cfg.hidden_dim or len(cfg.hidden_dim) > sdf_ffn.MAX_HIDDEN_LAYERS:
-            return False
-        try:
-            sdf_ffn.width_bound(cfg.hidden_dim)
-        except ValueError:
+        if not cfg.hidden_dim or not sdf_ffn.kernel_route_takes(
+                cfg.individual_feature_dim, cfg.hidden_dim):
             return False
         return (not cfg.hidden_dim_moment and cfg.macro_feature_dim > 0
-                and cfg.num_condition_moment <= cond_em.MAX_MOMENTS)
+                and cfg.num_condition_moment >= 1)
 
 
 @dataclasses.dataclass(frozen=True)

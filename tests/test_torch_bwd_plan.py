@@ -95,8 +95,14 @@ def test_registers_bound_the_resident_blocks():
 
 
 def test_plan_refuses_what_does_not_fit():
+    # (128,) * 8 outgrows the resident backward's shared memory (bwd_plan
+    # then takes the streamed route, tests/test_torch_shapes.py), and a
+    # width past the streamed route's limit fits no route
     with pytest.raises(ValueError, match="does not fit"):
-        K.bwd_plan(K.ffn_layout(F, (128,) * 8), SMS, 1, 48, 10_000)
+        K.resident_bwd_plan(K.ffn_layout(F, (128,) * 8), SMS, 1, 48, 10_000)
+    with pytest.raises(ValueError, match="does not fit the streamed route"):
+        K.bwd_plan(K.ffn_layout(F, (K.STREAM_MAX_WIDTH + 4,)), SMS, 1, 48,
+                   10_000)
     # a forced tile that does not fit at (128, 128)
     with pytest.raises(ValueError, match="at tile 128"):
         K.bwd_plan(K.ffn_layout(F, (128, 128)), SMS, 1, 48, 10_000,

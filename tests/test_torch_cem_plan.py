@@ -110,7 +110,9 @@ def test_the_main_paths_plans():
     assert (bf.bwd.route, bf.bwd.members, bf.bwd.var) == (1, 3, 8)
 
 
-@pytest.mark.parametrize("kw", [dict(F=5000), dict(K=17), dict(K=0),
+# K = 17 plans its moment chunks (tests/test_torch_shapes.py), so it refuses
+# only what a chunk cannot fit
+@pytest.mark.parametrize("kw", [dict(F=5000), dict(K=17, F=5000), dict(K=0),
                                 dict(F=5000, cd="bfloat16")],
                          ids=["wide-F", "K17", "K0", "wide-F-bf16"])
 def test_a_shape_that_cannot_fit_raises(kw):
@@ -214,7 +216,7 @@ def test_dx_balance_counts_rounds():
     assert C.dx_balance(9, 46, 8, 64, 128) < C.dx_balance(9, 46, 8, 64, 160)
 
 
-@pytest.mark.parametrize("kw", [dict(F=5000), dict(K=17), dict(K=0),
+@pytest.mark.parametrize("kw", [dict(F=5000), dict(K=17, F=5000), dict(K=0),
                                 dict(tile=102), dict(tile=4096),
                                 dict(F=5000, cd="bfloat16")],
                          ids=["wide-F", "K17", "K0", "tile102", "tile4096",

@@ -183,8 +183,11 @@ def test_wrapper_routes_and_refusals():
     with pytest.raises(ValueError, match="compute_dtype"):
         K.pack_ffn(k1T, mids, kout, bout, "float16")
     assert K.width_bound((64, 64)) == 64 and K.width_bound((8,)) == 32
+    # wider stacks take the streamed route (bound: the width padded to
+    # 128); past its limit no route takes them
+    assert K.width_bound((200,)) == 256
     with pytest.raises(ValueError, match="exceeds"):
-        K.width_bound((200,))
+        K.width_bound((K.STREAM_MAX_WIDTH + 1,))
     # bound bookkeeping: 2·(F·H1 + H1·H2 + H2) per (member, period, stock)
     assert K.flops(3, 4, 16384, 46, (64, 64)) == 2 * (
         46 * 64 + 64 * 64 + 64) * 3 * 4 * 16384

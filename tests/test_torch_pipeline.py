@@ -304,11 +304,16 @@ def test_bf16_wire_predicate_execution(change, ok):
     ({"hidden_dim": (128, 128)}, True),
     ({"hidden_dim": (64, 64, 64)}, True),
     ({"hidden_dim": ()}, False),
-    ({"hidden_dim": (256,)}, False),
-    ({"hidden_dim": (8,) * 9}, False),
+    # the streamed route and the moment chunks round x as the resident
+    # kernels do
+    ({"hidden_dim": (256,)}, True),
+    ({"hidden_dim": (8,) * 9}, True),
     ({"hidden_dim_moment": (16,)}, False),
     ({"macro_feature_dim": 0}, False),
-    ({"num_condition_moment": 17}, False),
+    ({"num_condition_moment": 17}, True),
+    # past the streamed route's width and depth no kernel takes the stack
+    ({"hidden_dim": (4096,)}, False),
+    ({"hidden_dim": (8,) * 65}, False),
 ])
 def test_bf16_wire_predicate_model(change, ok):
     cfg = GANConfig(**{**dict(macro_feature_dim=178,
