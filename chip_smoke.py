@@ -88,6 +88,15 @@
                                       # the w64 FFN and conditional-EM
                                       # libraries, then phase 20 alone (no
                                       # result line)
+    python3 chip_smoke.py --only_shapes
+                                      # the streamed, w64 FFN and
+                                      # conditional-EM libraries, then
+                                      # phase 21 alone (no result line)
+    python3 chip_smoke.py --only_shapes --compare_stream DIR
+                                      # also: the streamed route's CUDA-core
+                                      # instances bit for bit against
+                                      # DIR/sdf_ffn_stream.cu (this tree's
+                                      # argument lists), both timed in turns
 
 Phases, each printing its results; any failure exits non-zero:
 
@@ -445,6 +454,17 @@ Phases, each printing its results; any failure exits non-zero:
    once each on the bf16 panel), kernel against the plain route on the
    same panel at 2e-2·max|ref|.
 
+21. The kernel route's shape range, on phase 6's panel written anew: (a)
+   the three FFN kernels at stacks the resident kernels cannot hold (the
+   streamed route: CUDA cores, routes 2 f32 / 3 bf16, and under bf16
+   compute the forward's and backward's tensor-core form, route 4) and
+   the conditional EM past 16 moments, against their plain versions;
+   the streamed forward and backward bit for bit each other (kout = e_j,
+   g one-hot); timed rows at (256, 256), T = 48, N = 10,000; (b) the train
+   CLI at ``--hidden_dim 256 256 --num_moments 32``, f32 and bf16 compute,
+   kernel route against ``--kernel off``; (c) its S = 9 panel gradient;
+   (d) a served (256, 256) trio.
+
 Then one ``kernels`` JSON line, the card line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -465,6 +485,7 @@ import sys
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -4280,6 +4301,9 @@ def promotion_checks(torch, K, C, card, splits, ens_cfg, ens_params):
 REAL_PANEL = dict(n_periods_train=240, n_periods_valid=60, n_periods_test=300,
                   n_stocks=10_000, n_features=46, n_macro=178, seed=42)
 REAL_DIR = ROOT / "_smoke_real"
+# processes a phase starts for a later one or beside its own work; main()
+# stops any still running (stop_fleet: SIGTERM, then SIGKILL)
+BACKGROUND = []
 CACHE_DIR = ROOT / "_smoke_cache"
 REAL_EPOCHS = (2, 1, 2)
 SMALL_SLAB = 4 << 20  # ~40 reuses of each slab on the train split's rows
@@ -4634,25 +4658,42 @@ def real_shape_cli(torch, K, C, card):
                       for (d, m), r in runs.items()}
 
 
-def data_plane_phase(torch, K, C, card):
-    """(11) The data plane at the paper's real panel shape."""
+def start_real_panel():
+    """Write the real-shape panel (REAL_PANEL, uncompressed) into REAL_DIR
+    anew in a process of its own, so phase 11's set-up runs while an
+    earlier phase waits on its children; returns (the process, its start
+    on the host clock). :func:`data_plane_phase` waits for it."""
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+            f"{PKG}.data.synthetic import generate_all_splits; "
+            "generate_all_splits(sys.argv[2], verbose=False, compress=False, "
+            f"**{REAL_PANEL!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
+                             str(REAL_DIR)], cwd=ROOT)
+    BACKGROUND.append(proc)
+    return proc, time.perf_counter()
+
+
+def data_plane_phase(torch, K, C, card, real=None):
+    """(11) The data plane at the paper's real panel shape; `real` the
+    panel's writer from :func:`start_real_panel`, started earlier (else
+    started here)."""
     from deeplearninginassetpricing_paperreplication_torch.data.panel import (
         load_splits,
     )
-    from deeplearninginassetpricing_paperreplication_torch.data.synthetic \
-        import generate_all_splits
 
     t_phase = time.perf_counter()
-    shutil.rmtree(REAL_DIR, ignore_errors=True)
-    t0 = time.perf_counter()
-    generate_all_splits(REAL_DIR, verbose=False, compress=False, **REAL_PANEL)
+    proc, t0 = real or start_real_panel()
+    check(proc.wait() == 0, f"writing the real-shape panel exited "
+                            f"{proc.returncode}")
     nbytes = sum(p.stat().st_size for p in REAL_DIR.rglob("*.npz"))
     print(f"[data] real-shape panel F={REAL_PANEL['n_features']} "
           f"M={REAL_PANEL['n_macro']} N={REAL_PANEL['n_stocks']} months "
           f"{REAL_PANEL['n_periods_train']}/{REAL_PANEL['n_periods_valid']}/"
           f"{REAL_PANEL['n_periods_test']} seed {REAL_PANEL['seed']}, "
-          f"uncompressed, {nbytes} B: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"uncompressed, {nbytes} B: written {time.perf_counter() - t0:.1f}"
+          f" s after its start ({time.perf_counter() - t_phase:.1f} s of "
+          f"this phase)", flush=True)
     codec = codec_check(card)
     # the reference: the sequential load, then a dense copy from pageable
     # memory
@@ -4918,6 +4959,15 @@ def ops_cli_checks(torch, card):
         shutil.rmtree(d, ignore_errors=True)
     env = {k: v for k, v in os.environ.items() if k != "DLAP_FAULT_PLAN"}
 
+    # the kill plan's run (a SIGKILL at the third segment, phase 2) starts
+    # beside the profiled one; its --resume follows both
+    plan = [{"site": "trainer/epoch_loop", "trigger_count": 3,
+             "action": "kill"}]
+    killed = subprocess.Popen(
+        base + ["--save_dir", str(second)], cwd=ROOT,
+        env=dict(env, DLAP_FAULT_PLAN=json.dumps(plan)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    BACKGROUND.append(killed)
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         base + ["--save_dir", str(first), "--metrics_port", "0",
@@ -4986,15 +5036,10 @@ def ops_cli_checks(torch, card):
           f" trace {trace_mb:.1f} MB naming sdf_ffn and cond_em ({card})",
           flush=True)
 
-    # a SIGKILL at the third segment (phase 2), then --resume
-    plan = [{"site": "trainer/epoch_loop", "trigger_count": 3,
-             "action": "kill"}]
-    killed = subprocess.run(
-        base + ["--save_dir", str(second)], cwd=ROOT,
-        env=dict(env, DLAP_FAULT_PLAN=json.dumps(plan)),
-        capture_output=True, text=True, timeout=600)
-    check(killed.returncode == -9, f"the kill plan's run exited "
-                                   f"{killed.returncode}, not by SIGKILL")
+    # the kill plan's run, then --resume
+    check(killed.wait(timeout=600) == -9, f"the kill plan's run exited "
+                                          f"{killed.returncode}, not by "
+                                          "SIGKILL")
     meta = json.loads((second / "resume_meta.json").read_text())
     resumed = subprocess.run(base + ["--save_dir", str(second), "--resume"],
                              cwd=ROOT, env=env, capture_output=True,
@@ -5100,11 +5145,12 @@ def _same_cli_run(a, b, what):
           f"{what}: final_model.pt differs from the clean run's")
 
 
-def supervised_train_checks(torch, card):
-    """(a) a kill at the third segment and (b) a hang at phase 1's boundary
-    (f32 and bf16), each under ``supervise``; the five train CLI processes
-    (two clean, three supervised) run side by side. Returns the supervised
-    children's launches (the ``supervised_train`` path) and the walls."""
+def spawn_supervised_train():
+    """Start (a) a kill at the third segment and (b) a hang at phase 1's
+    boundary (f32 and bf16), each under ``supervise``, and their two clean
+    runs: five train CLI processes side by side. Returns (the runs, their
+    processes, the start); :func:`supervised_train_checks` waits for them
+    and checks them."""
     from deeplearninginassetpricing_paperreplication_torch.ops import (
         ENV_LAUNCH_COUNTS,
     )
@@ -5141,6 +5187,14 @@ def supervised_train_checks(torch, card):
         with open(ELASTIC_DIR / f"{name}.log", "w") as log:
             procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=e, stdout=log,
                                            stderr=subprocess.STDOUT)
+    return runs, procs, t0
+
+
+def supervised_train_checks(torch, card, spawned):
+    """The runs of :func:`spawn_supervised_train`, waited for and checked.
+    Returns the supervised children's launches (the ``supervised_train``
+    path) and the walls."""
+    runs, procs, t0 = spawned
     walls = {}
     while len(walls) < len(procs) and time.perf_counter() - t0 < 600:
         for name, proc in procs.items():
@@ -5393,9 +5447,16 @@ def elastic_phase(torch, card, splits, ref_ranked):
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p])
     try:
-        train_launches, train_walls = supervised_train_checks(torch, card)
-        sweep_launches, sweep_walls = elastic_sweep_checks(
-            torch, card, splits, ref_ranked)
+        # the supervised train CLIs run while the elastic sweeps do (each
+        # its own run dir; the train children's environment is fixed at
+        # their spawn, before the sweeps set their fault plans)
+        spawned = spawn_supervised_train()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            train = pool.submit(supervised_train_checks, torch, card,
+                                spawned)
+            sweep_launches, sweep_walls = elastic_sweep_checks(
+                torch, card, splits, ref_ranked)
+            train_launches, train_walls = train.result()
     finally:
         _fault_plan(None)
         shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
@@ -5867,9 +5928,9 @@ def refit_phase(torch, K, C, card, splits):
 FLEET_DIR = ROOT / "_smoke_fleet"
 FLEET_C = 32  # closed-loop clients on the raw-f32 and base64 wires
 FLEET_JSON_C = 4  # the JSON wire's parse is ~155 ms a request at N = 10,000
-FLEET_RAW_N = 960  # requests of a closed raw-f32 loop
-FLEET_B64_N = 320
-FLEET_JSON_N = 16
+FLEET_RAW_N = 480  # requests of a closed raw-f32 loop
+FLEET_B64_N = 160
+FLEET_JSON_N = 8
 FLEET_LADDER = (0.25, 0.5, 0.75)  # open-loop rates, shares of the c = 32 rps
 FLEET_SWING_S = (4.0, 12.0, 6.0)  # base, surge, base (bench_loadadapt's swing)
 FLEET_AUTOSCALE = ["--autoscale", "--min_replicas", "1", "--max_replicas", "2",
@@ -6159,7 +6220,7 @@ def fleet_load(base, admin, b, card):
     cap = runs["raw"]["throughput_rps"]
     rates = [round(f * cap, 1) for f in FLEET_LADDER]
     ladder = run_ladder(base + "/v1/weights", lambda i: raw[i % len(raw)],
-                        rates=rates, warmup_s=0.5, measure_s=2.0, retries=2,
+                        rates=rates, warmup_s=0.5, measure_s=1.5, retries=2,
                         content_type=BINARY_CONTENT_TYPE)
     for step in ladder["steps"]:
         check(step["n_ok"] == step["n_requests"] and step["errors"] == {},
@@ -6239,7 +6300,7 @@ def fleet_kill(base, admin, run_dir, b, cap, n_buckets, card):
     pid0 = replica_pids(run_dir)[0]
     old_run = get(admin[0] + "/healthz")[1]["run_id"]
     rate = round(0.35 * cap, 1)
-    t, load = _open_load(base, raw, rate, 6.0)
+    t, load = _open_load(base, raw, rate, 4.0)
     time.sleep(1.5)
     os.kill(pid0, signal.SIGKILL)
     t_kill = time.perf_counter()
@@ -6279,7 +6340,7 @@ def fleet_reload(base, admin, ctl, gen2, b, cap, card):
 
     raw = b["raw"] + b["alt"]
     rate = round(0.3 * cap, 1)
-    t, load = _open_load(base, raw, rate, 8.0)
+    t, load = _open_load(base, raw, rate, 6.0)
     time.sleep(1.0)
     pointer = write_pointer(ctl, gen2)
     t0 = time.perf_counter()
@@ -6420,9 +6481,25 @@ def fleet_slo(base, admin, run_dir, b, card):
     return det
 
 
-def fleet_autoscale(b, capacity_rps, card):
+def boot_autoscale_fleet(b):
+    """(e)'s fleet: one replica under `--autoscale --max_replicas 2` on the
+    pointer of (d), booted (a stop on exit registered in BACKGROUND);
+    boot_fleet's (process, base url, admin urls, boot s)."""
+    booted = boot_fleet(
+        FLEET_DIR / "autoscale", 1, ["--pointer", str(FLEET_DIR / "ctl"),
+                                     "--data_dir", str(DATA_DIR),
+                                     "--stock_buckets",
+                                     ",".join(map(str, b["buckets"])),
+                                     "--batch_buckets", "1,4",
+                                     *FLEET_AUTOSCALE])
+    BACKGROUND.append(booted[0])
+    return booted
+
+
+def fleet_autoscale(b, capacity_rps, card, booted):
     """(e) a fleet booted at one replica with `--autoscale --max_replicas
-    2`, driven by bench_loadadapt's swing (every 4th request bulk; the
+    2` (`booted`: :func:`boot_autoscale_fleet`'s), driven by
+    bench_loadadapt's swing (every 4th request bulk; the
     surge at 1.3× one replica's closed-loop capacity over distinct
     payloads: the larger of `capacity_rps`, (b)'s c = 32 measurement, and
     a c = 8 calibration on this fleet, below the scale-up depth — either
@@ -6440,11 +6517,7 @@ def fleet_autoscale(b, capacity_rps, card):
         import BINARY_CONTENT_TYPE
 
     run_dir = FLEET_DIR / "autoscale"
-    proc, base, admin, boot_s = boot_fleet(
-        run_dir, 1, ["--pointer", str(FLEET_DIR / "ctl"), "--data_dir",
-                     str(DATA_DIR), "--stock_buckets",
-                     ",".join(map(str, b["buckets"])), "--batch_buckets",
-                     "1,4", *FLEET_AUTOSCALE])
+    proc, base, admin, boot_s = booted
     launches = 0
     try:
         raw = b["raw"] + b["alt"]
@@ -6567,13 +6640,18 @@ def fleet_phase(torch, card, splits, ref, member_dirs):
         load = fleet_load(base, admin, b, card)
         fleet_kill(base, admin, run_dir, b, load["cap"], n_buckets, card)
         fleet_reload(base, admin, ctl, gen2, b, load["cap"], card)
-        fleet_slo(base, admin, run_dir, b, card)
+        # (e)'s fleet boots on (d)'s pointer while the drills of (f) run
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            auto = pool.submit(boot_autoscale_fleet, b)
+            fleet_slo(base, admin, run_dir, b, card)
+            booted = auto.result()
         for url in admin:
             launches += _metrics(url)["engine"]["kernel_launches"]
     finally:
         stop_fleet(proc)
     check(proc.returncode == 0, f"the fleet parent exited {proc.returncode}")
-    launches += fleet_autoscale(b, load["one"]["throughput_rps"], card)
+    launches += fleet_autoscale(b, load["one"]["throughput_rps"], card,
+                                booted)
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     print(f"[fleet] phase 15 done in {time.perf_counter() - t_phase:.1f} s; "
           f"sdf_ffn_fwd launches in the replicas {launches} ({card})",
@@ -7384,9 +7462,14 @@ def shard_phase(torch, card, world):
         want = tuple(sum(PER_EPOCH[p][i] * n for p, n in epochs.items())
                      + SHARD_CLI_EXTRA[i] for i in range(4))
         out = {}
+        # the two worlds side by side (each wall includes the other's load)
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            runs = {k: pool.submit(_torchrun, SHARD_DIR / f"world{world}_{k}",
+                                   k, world) for k in ("on", "off")}
+            runs = {k: f.result() for k, f in runs.items()}
         for kernel in ("on", "off"):
             save = SHARD_DIR / f"world{world}_{kernel}"
-            wall, rows, evs = _torchrun(save, kernel, world)
+            wall, rows, evs = runs[kernel]
             check(len(rows) == world,
                   f"({kernel}) {len(rows)} launch rows, not one per rank")
             per_rank = [tuple(r[k] for k in TRAIN_KERNELS) for r in rows]
@@ -7435,8 +7518,8 @@ def shard_phase(torch, card, world):
         print(f"[shard] wall ms per epoch, f32: world size 1 kernel "
               f"{fmt(ms1)} (CLI wall {wall1:.1f} s); world size "
               f"{world} kernel {fmt(out['on']['epoch_ms'])}; world "
-              f"size {world} plain {fmt(out['off']['epoch_ms'])} "
-              f"({card})", flush=True)
+              f"size {world} plain {fmt(out['off']['epoch_ms'])} (the two "
+              f"worlds side by side) ({card})", flush=True)
     finally:
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -8206,8 +8289,9 @@ def _mh_reference(torch, cfg, T, N):
 
 def multihost_checks(torch, card):
     """(a) the worker CLI at its JAX shapes and (b) the worker at the paper
-    width, as worlds of rank processes. Returns the kernel-route ranks'
-    launches (the ``multihost`` path) and the walls."""
+    width, as worlds of rank processes, the four worlds side by side.
+    Returns the kernel-route ranks' launches (the ``multihost`` path) and
+    the walls."""
     from deeplearninginassetpricing_paperreplication_torch.parallel import (
         multihost_worker as W,
     )
@@ -8240,30 +8324,42 @@ def multihost_checks(torch, card):
               f"{w['wall']:.2f} s from spawn to the last rank's exit "
               f"({card})", flush=True)
 
+    # the one-process references, then the four worlds side by side (each
+    # with its own ranks, run dir and port: a world's wall and step times
+    # include the others' load)
+    ref_cli = _mh_reference(torch, W.jax_config(), W.JAX_T, MH_CLI_PER)
+    cfg = GANConfig(**MH_PAPER)
+    ref = _mh_reference(torch, cfg, MH_T, MH_N)
+    worlds = {"cli_2x1": (2, "on", MH_CLI_PER, False, None),
+              "paper_2x1": (2, "on", MH_N, True, None),
+              "paper_2x2": (4, "on", MH_N // 2, True, [0, 0, 1, 1]),
+              "paper_2x1_off": (2, "off", MH_N, True, None)}
+    with ThreadPoolExecutor(max_workers=len(worlds)) as pool:
+        runs = {tag: pool.submit(_mh_world, torch, tag, n, kernel, per,
+                                 paper, granules)
+                for tag, (n, kernel, per, paper, granules) in worlds.items()}
+        runs = {tag: f.result() for tag, f in runs.items()}
+
     # (a) the worker CLI, two ranks, mesh [2, 1], the kernel route
-    w = _mh_world(torch, "cli_2x1", 2, "on", MH_CLI_PER, paper=False)
+    w = runs["cli_2x1"]
     held("cli_2x1", w, "on", MH_CLI_PER, [2, 1])
-    ref = _mh_reference(torch, W.jax_config(), W.JAX_T, MH_CLI_PER)
-    check(w["losses"] == ref, f"(a) the CLI's losses {w['losses']} are not "
-          f"bit for bit the one-process step's {ref}")
+    check(w["losses"] == ref_cli, f"(a) the CLI's losses {w['losses']} are "
+          f"not bit for bit the one-process step's {ref_cli}")
     print(f"[multihost] (a) the worker CLI (T={W.JAX_T} N={MH_CLI_PER} "
           f"F={W.JAX_F} M={W.JAX_M}): each member's loss bit for bit its "
           f"one-process train_step on the card ({card})", flush=True)
 
     # (b) the paper width: [2, 1], [2, 2] on two granules, the plain route
-    cfg = GANConfig(**MH_PAPER)
-    ref = _mh_reference(torch, cfg, MH_T, MH_N)
-    w21 = _mh_world(torch, "paper_2x1", 2, "on", MH_N, paper=True)
+    w21 = runs["paper_2x1"]
     held("paper_2x1", w21, "on", MH_N, [2, 1])
     check(w21["losses"] == ref, f"(b) [2, 1] losses {w21['losses']} are "
           f"not bit for bit the one-process step's {ref}")
-    w22 = _mh_world(torch, "paper_2x2", 4, "on", MH_N // 2, paper=True,
-                    granules=[0, 0, 1, 1])
+    w22 = runs["paper_2x2"]
     held("paper_2x2", w22, "on", MH_N // 2, [2, 2])
     d22 = max(abs(a - b) / abs(b) for a, b in zip(w22["losses"], ref))
     check(d22 <= MH_RTOL, f"(b) [2, 2] vs [2, 1]: loss rel {d22:.3e} (bar "
           f"{MH_RTOL})")
-    off = _mh_world(torch, "paper_2x1_off", 2, "off", MH_N, paper=True)
+    off = runs["paper_2x1_off"]
     held("paper_2x1_off", off, "off", MH_N, [2, 1])
     d_off = max(abs(a - b) / abs(b) for a, b in zip(off["losses"], ref))
     check(d_off <= LOSS_BAR, f"(b) --kernel off vs the kernel route: loss "
@@ -8851,6 +8947,10 @@ SH_RATES = (0.0, 0.1)
 SH_KS = (17, 32)  # moment chunks: 9 + 8, 16 + 16
 SH_ROW = (48, 10_000)  # the timed shape: the training panel's T, N
 SH_C11 = [(1, 48, 10_000, 5, k) for k in (1, 4, 8)]  # F ≤ 6, S = 1, f32
+# the forward/backward agreement: units j of kout = e_j, and the (period,
+# stock) of the one-hot g (a stock inside a tile, not its first)
+SH_AGREE_UNITS = tuple(range(0, 256, 17))  # 16 units, 0 … 255
+SH_AGREE_AT = (3, 5003)
 # (b)-(d): the train CLI's shape range run
 SH_HIDDEN = (256, 256)
 SH_MOMENTS = 32
@@ -9065,7 +9165,237 @@ def shapes_kernel_checks(torch, K, C, card):
               f"(C11): plan route {plan.route} tile {plan.tile} threads "
               f"{plan.threads} G {plan.G}; max|d|/max|ref| {err:.2e} "
               f"({card})", flush=True)
+    shapes_agreement_check(torch, K, card)
     return shapes_kernel_rows(torch, K, C, card)
+
+
+def _older_stream_libs(K, _nvcc, src_dir):
+    """{kernel: ctypes function} of the streamed route's three kernels built
+    from another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
+    sdf_ffn_common.cuh and panel.cuh, with this tree's argument lists of
+    sdf_ffn_{fwd,bwd,dx}_stream), bound as this tree binds its own, one nvcc
+    each, all started together."""
+    import ctypes
+
+    src = Path(src_dir).resolve()
+    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, kernel in enumerate(K.KERNELS):
+        out = _nvcc.BUILD_DIR / f"libsdf_ffn_{kernel}_stream_older.so"
+        procs[kernel] = (out, subprocess.Popen(
+            [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, f"-DSDF_FFN_STREAM_KERNEL={i}",
+             "-o", str(out), str(src / K.STREAM_SOURCE)]))
+    fns = {}
+    for kernel, (out, proc) in procs.items():
+        check(proc.wait() == 0, f"the older {src.name}/{K.STREAM_SOURCE} "
+              f"(kernel {kernel}) did not build")
+        fn = getattr(ctypes.CDLL(str(out)), f"sdf_ffn_{kernel}_stream")
+        fn.argtypes = K._STREAM_ARGTYPES[kernel]
+        fn.restype = ctypes.c_int
+        fns[kernel] = fn
+    return fns
+
+
+def compare_stream(torch, K, _nvcc, src_dir, card):
+    """The streamed route's CUDA-core instances against an older source's
+    (src_dir/sdf_ffn_stream.cu, this tree's argument lists) on the same
+    plans (route 2 at f32, route 3 at bf16, as the card holds them): the
+    f32 instances of all three kernels and the bf16-compute ones of the
+    panel cotangent (and of the forward and backward, which bf16 compute
+    now plans on the tensor-core form where it fits) at phase 21's stacks,
+    T = SH_T, S = 1 and 9, both panels, dropout 0 and 0.1, offset 0, bit for
+    bit (int views of every output); then timed in turns (old, new, new,
+    old) at (256, 256), SH_ROW, dropout 0.05: the forward and backward at
+    S = 1, the panel cotangent at S = 9, f32 on the f32 panel and bf16 on
+    the bf16 panel."""
+    olds = _older_stream_libs(K, _nvcc, src_dir)
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(23)
+    name = Path(src_dir).name
+
+    def caller(kernel, fn, x, zp, packed, plan, gout, seed, rate):
+        S, lay = packed.n_members, packed.layout
+        T, F, N = x.shape
+        tile, smem, _, G, _, scratch = plan
+        blocks = G * (S if kernel == "bwd" else 1)
+
+        def run():
+            drop, _bases = K._dropout_args(seed, rate, S, dev)
+            if kernel == "fwd":
+                outs = (torch.empty(S, T, N, device=dev),)
+            elif kernel == "bwd":
+                outs = (gout, torch.zeros(S, G, lay.P, device=dev),
+                        torch.zeros(S, G, T, lay.hidden[0], device=dev))
+            else:
+                outs = (gout, torch.empty(T, F, N, dtype=x.dtype,
+                                          device=dev))
+            scr = (torch.empty(blocks * scratch, device=dev) if scratch
+                   else None)
+            rc = fn(*K._panel_args(x), zp.data_ptr(),
+                    packed.params.data_ptr(), *(t.data_ptr() for t in outs),
+                    None if scr is None else scr.data_ptr(),
+                    K._layout_ints(lay), K._layout_dev(lay, dev).data_ptr(),
+                    S, T, N, int(packed.compute_dtype == "bfloat16"), *drop,
+                    tile, smem, G, torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"sdf_ffn_{kernel}_stream failed (code {rc})")
+            return [o for o in outs if o is not gout]
+        return run
+
+    def ints(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    def streams(kernel, lay, S, T, N, cd):
+        if kernel == "fwd":
+            plan = K.fwd_plan(lay, sms, S, T, N, cd)
+        elif kernel == "bwd":
+            plan = K.bwd_plan(lay, sms, S, T, N, compute_dtype=cd)
+        else:
+            plan = K.dx_plan(lay, sms, S, T, N, cd)
+        return K.is_stream(plan)
+
+    def plan_of(kernel, lay, S, T, N, cd, xb16):
+        route = K.STREAM_ROUTES[cd]
+        regs = K._stream_registers(kernel, route, xb16)
+        return K.stream_plan(lay, kernel, sms, S, T, N, regs, route)
+
+    kinds = [(k, cd) for cd in ("float32", "bfloat16") for k in K.KERNELS]
+    compared = 0
+    for hidden, F in SH_STACKS:
+        lay = K.ffn_layout(F, hidden)
+        for S in (1, 9):
+            T, N = SH_T, SH_N
+            x = torch.randn(T, F, N, generator=g, device=dev)
+            zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F,
+                                                    list(hidden), dev)
+            zp = (zp1 + torch.randn(S, T, hidden[0], generator=g,
+                                    device=dev) * 0.3).contiguous()
+            gout = torch.randn(S, T, N, generator=g, device=dev) / N
+            seed = 9 if S == 1 else list(range(9, 9 + S))
+            done = []
+            for kernel, cd in kinds:
+                packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+                if not streams(kernel, lay, S, T, N, cd):
+                    continue  # the resident route's stack
+                for xb in (x, x.to(torch.bfloat16)):
+                    plan = plan_of(kernel, lay, S, T, N, cd,
+                                   xb.dtype == torch.bfloat16)
+                    for rate in SH_RATES:
+                        old = caller(kernel, olds[kernel], xb, zp, packed,
+                                     plan, gout, seed, rate)
+                        new = caller(kernel, getattr(
+                            K._load_stream(kernel),
+                            f"sdf_ffn_{kernel}_stream"), xb, zp, packed,
+                            plan, gout, seed, rate)
+                        a, b = old(), new()
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(ints(p), ints(q))
+                                  for p, q in zip(a, b)),
+                              f"sdf_ffn_{kernel}_stream {cd} "
+                              f"{'bf16' if xb is not x else 'f32'} panel "
+                              f"hidden={_stack_text(hidden)} F={F} S={S} "
+                              f"dropout {rate}: differs from {name}'s")
+                        compared += 1
+                done.append(f"{kernel} {cd}")
+            print(f"[shapes compare] hidden={_stack_text(hidden)} F={F} "
+                  f"S={S} T={T} N={N}: {', '.join(done)} bit for bit "
+                  f"{name}/{K.STREAM_SOURCE}'s (both panels, dropout "
+                  f"{list(SH_RATES)}) ({card})", flush=True)
+            del x
+    T, N = SH_ROW
+    F, hidden = 46, list(SH_HIDDEN)
+    lay = K.ffn_layout(F, hidden)
+    for kernel, cd in kinds:
+        S = 9 if kernel == "dx" else 1
+        if cd == "bfloat16" and kernel != "dx":
+            continue  # the tensor-core form's, timed in phase 21's rows
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        xb = x.to(torch.bfloat16) if cd == "bfloat16" else x
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, S, F, hidden, dev)
+        zp = zp1.expand(S, T, hidden[0]).contiguous()
+        gout = torch.randn(S, T, N, generator=g, device=dev) / N
+        seed = 5 if S == 1 else list(range(5, 5 + S))
+        packed = K.pack_ffn(k1T, mids, kout, bout, cd)
+        plan = plan_of(kernel, lay, S, T, N, cd, xb is not x)
+        old = caller(kernel, olds[kernel], xb, zp, packed, plan, gout, seed,
+                     DROPOUT)
+        new = caller(kernel, getattr(K._load_stream(kernel),
+                                     f"sdf_ffn_{kernel}_stream"), xb, zp,
+                     packed, plan, gout, seed, DROPOUT)
+        check(all(torch.equal(ints(p), ints(q))
+                  for p, q in zip(old(), new())),
+              f"sdf_ffn_{kernel}_stream {cd} at its timed shape differs "
+              f"from {name}'s")
+        t = [cuda_ms(torch, f, reps=3, warmup=1) for f in (old, new, new,
+                                                             old)]
+        print(f"[shapes compare] {kernel} {cd} "
+              f"{'bf16' if xb is not x else 'f32'} panel S={S} T={T} "
+              f"N={N} hidden={hidden} dropout {DROPOUT}: bit for bit; "
+              f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
+              f"{t[2]:.4f} ms ({card})", flush=True)
+        del x, xb
+    print(f"[shapes compare] {compared} calls bit for bit {name}/"
+          f"{K.STREAM_SOURCE}'s ({card})", flush=True)
+
+
+def shapes_agreement_check(torch, K, card):
+    """(a) The streamed forward and backward agree bit for bit: at (256,
+    256), F = 46, S = 1 and 9, dropout 0.1, with kout = e_j and bout = 0 the
+    forward's output at (t0, n0) is round(act_j) (f32 compute: act_j), and
+    with g one-hot there the backward's dkout_j is act_j unrounded, so
+    bf16(dkout_j) (f32: dkout_j) must be the output bit for bit, for every
+    member and each unit of SH_AGREE_UNITS. bf16 compute on the bf16 panel
+    (the tensor-core form), f32 on the f32 panel. Fails if no compared
+    value is nonzero."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(24)
+    T, N, F = SH_T, SH_N, 46
+    t0, n0 = SH_AGREE_AT
+    for S in (1, 9):
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zp1, k1T, mids, _, _ = _ffn_params(torch, g, S, F, list(SH_HIDDEN),
+                                           dev)
+        zp = (zp1 + torch.randn(S, T, SH_HIDDEN[0], generator=g,
+                                device=dev) * 0.3).contiguous()
+        seed = 11 if S == 1 else list(range(11, 11 + S))
+        onehot = torch.zeros(S, T, N, device=dev)
+        onehot[:, t0, n0] = 1.0
+        for cd, panel in (("bfloat16", x.to(torch.bfloat16)),
+                          ("float32", x)):
+            K.reset_launch_count()
+            nonzero, total = 0, 0
+            for j in SH_AGREE_UNITS:
+                kout = torch.zeros(S, SH_HIDDEN[-1], device=dev)
+                kout[:, j] = 1.0
+                packed = K.pack_ffn(k1T, mids, kout,
+                                    torch.zeros(S, device=dev), cd)
+                out = K._launch(panel, zp, packed, seed, 0.1)[:, t0, n0]
+                grads, _ = K._launch_bwd(panel, zp, packed, onehot, seed, 0.1)
+                dk = K.unpack_grads(grads, packed.layout)[2][:, j]
+                want = (dk.to(torch.bfloat16).float() if cd == "bfloat16"
+                        else dk)
+                torch.cuda.synchronize()
+                check(torch.equal(out, want),
+                      f"(256, 256) S={S} {cd} unit {j}: the forward's output "
+                      f"{out.tolist()} is not the backward's "
+                      f"{'bf16(dkout)' if cd == 'bfloat16' else 'dkout'} "
+                      f"{want.tolist()} bit for bit")
+                nonzero += int((out != 0).sum())
+                total += S
+            mma = (K.launches_stream_mma, K.bwd_launches_stream_mma)
+            check(nonzero > 0 and mma == ((len(SH_AGREE_UNITS),) * 2
+                                          if cd == "bfloat16" else (0, 0)),
+                  f"(256, 256) S={S} {cd}: {nonzero} nonzero of {total} "
+                  f"compared; tensor-core launches {mma}")
+            print(f"[shapes] fwd/bwd agreement (256, 256) S={S} {cd} "
+                  f"dropout 0.1, kout = e_j for j in {list(SH_AGREE_UNITS)}, "
+                  f"g one-hot at (t, n) = {SH_AGREE_AT}: the forward's "
+                  f"output bit for bit the backward's "
+                  f"{'bf16(dkout_j)' if cd == 'bfloat16' else 'dkout_j'} "
+                  f"({nonzero} of {total} nonzero; tensor-core launches "
+                  f"{mma}) ({card})", flush=True)
+        del x
 
 
 def shapes_kernel_rows(torch, K, C, card):
@@ -9126,19 +9456,23 @@ def _sh_cfg(splits, **kw):
                      dropout=DROPOUT, **kw)
 
 
-def shapes_train_check(torch, K, C, card):
+def shapes_train_check(torch, K, C, card, cd="float32"):
     """(b) The train CLI at --hidden_dim 256 256 --num_moments 32 on phase
-    6's panel, SH_EPOCHS, f32 compute, on the kernel route (its launches
-    counted: the streamed forward and backward, the chunked conditional
-    EM) and on the plain route: every epoch's losses within C3's 1e-3
-    relative bar, Sharpes within 5e-3, the same selected epochs. Returns
-    the kernel run's launches by kernel, and its streamed ones."""
+    6's panel, SH_EPOCHS, on the kernel route (its launches counted: the
+    streamed forward and backward, the chunked conditional EM) and on the
+    plain route. f32 compute: every epoch's losses within C3's 1e-3
+    relative bar, Sharpes within 5e-3, the same selected epochs. bf16
+    compute (the CLI's default, on the bf16 panel; every FFN launch on the
+    tensor-core form of the streamed route): every epoch finite, epoch 1's
+    losses within BF16_REL relative (PERF.md §2's bf16 class), the largest
+    deviation over all epochs printed. Returns the kernel run's launches by
+    kernel, and its streamed ones."""
     from deeplearninginassetpricing_paperreplication_torch import train
 
     unc, mom, cond = SH_EPOCHS
     runs = {}
     for kernel in ("on", "off"):
-        save = SH_DIR / f"train_{kernel}"
+        save = SH_DIR / f"train_{kernel}_{cd}"
         shutil.rmtree(save, ignore_errors=True)
         torch.cuda.synchronize()
         K.reset_launch_count()
@@ -9148,53 +9482,81 @@ def shapes_train_check(torch, K, C, card):
                     "--epochs_unc", str(unc), "--epochs_moment", str(mom),
                     "--epochs", str(cond), "--ignore_epoch", "0",
                     "--print_freq", "1000", "--device", DEVICE,
-                    "--compute_dtype", "float32", "--kernel", kernel,
+                    "--compute_dtype", cd, "--kernel", kernel,
                     "--hidden_dim", *map(str, SH_HIDDEN), "--num_moments",
                     str(SH_MOMENTS)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(zip(SH_KERNELS, panel_counts(K, C)))
         streamed = dict(zip(SH_KERNELS[:3], stream_counts(K)))
+        streamed.update(zip(("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma"),
+                            (K.launches_stream_mma,
+                             K.bwd_launches_stream_mma)))
+        panel16 = dict(zip(SH_KERNELS, bf16_panel_counts(K, C)))
         with np.load(save / "history.npz") as h:
             hist = {k: h[k] for k in h.files}
         metrics = json.loads((save / "final_metrics.json").read_text())
         runs[kernel] = dict(hist=hist, wall=wall, launches=launches,
-                            streamed=streamed, epoch_ms=metrics["epoch_ms"])
+                            streamed=streamed, panel16=panel16,
+                            epoch_ms=metrics["epoch_ms"])
         shutil.rmtree(save, ignore_errors=True)
     on, off = runs["on"], runs["off"]
+    bf = cd == "bfloat16"
+    ffn = ("sdf_ffn_fwd", "sdf_ffn_bwd")
     check(all(on["launches"][k] > 0 for k in SH_KERNELS
               if k not in ("sdf_ffn_dx", "cond_em_dx"))
-          and on["streamed"]["sdf_ffn_fwd"] == on["launches"]["sdf_ffn_fwd"]
-          and on["streamed"]["sdf_ffn_bwd"] == on["launches"]["sdf_ffn_bwd"],
+          and all(on["streamed"][k] == on["launches"][k] for k in ffn),
           f"the (256, 256) kernel-route training launched {on['launches']}, "
           f"streamed {on['streamed']}: every FFN launch must stream")
+    # bf16 compute: every FFN launch on the tensor-core form, the training
+    # passes on the bf16 panel (evaluation rebuilds the f32 one); f32: none
+    check(all(on["streamed"][k + "_mma"] == (on["launches"][k] if bf else 0)
+              for k in ffn)
+          and (on["panel16"]["sdf_ffn_bwd"] == on["launches"]["sdf_ffn_bwd"]
+               and on["panel16"]["sdf_ffn_fwd"] > 0 if bf
+               else not any(on["panel16"].values())),
+          f"the (256, 256) {cd} training's FFN launches {on['launches']}: "
+          f"tensor-core {on['streamed']}, bf16 panel {on['panel16']}")
     check(not any(off["launches"].values()),
           f"the plain-route training launched {off['launches']}")
     check(all(np.isfinite(on["hist"][k]).all() for k in on["hist"]
               if k != "phase"), "non-finite (256, 256) kernel history")
-    dev_loss = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])
-                                / np.maximum(np.abs(off["hist"][k]), 1e-12)))
-                   for k in ("train_loss", "valid_loss", "test_loss"))
+    losses = ("train_loss", "valid_loss", "test_loss")
+    rel = {k: np.abs(on["hist"][k] - off["hist"][k])
+           / np.maximum(np.abs(off["hist"][k]), 1e-12) for k in losses}
+    dev_loss = max(float(np.max(v)) for v in rel.values())
+    dev_first = max(float(v[0]) for v in rel.values())
     dev_sharpe = max(float(np.max(np.abs(on["hist"][k] - off["hist"][k])))
                      for k in ("train_sharpe", "valid_sharpe",
                                "test_sharpe"))
     sel = _bp_selected(on["hist"])
-    check(dev_loss <= 1e-3 and dev_sharpe <= 5e-3
-          and sel == _bp_selected(off["hist"]),
-          f"train CLI hidden {list(SH_HIDDEN)} K={SH_MOMENTS}, kernel vs "
-          f"plain: loss rel dev {dev_loss:.3e} (bar 1e-3), Sharpe dev "
-          f"{dev_sharpe:.3e} (bar 5e-3), selected epochs {sel} / "
-          f"{_bp_selected(off['hist'])}")
+    if bf:
+        check(dev_first <= BF16_REL,
+              f"train CLI hidden {list(SH_HIDDEN)} K={SH_MOMENTS} bf16, "
+              f"kernel vs plain: epoch 1 loss rel dev {dev_first:.3e} (bar "
+              f"{BF16_REL:g})")
+        bars = (f"epoch 1 loss rel dev {dev_first:.3e} (bar {BF16_REL:g}); "
+                f"largest over the epochs: loss {dev_loss:.3e}, Sharpe "
+                f"{dev_sharpe:.3e}, selected epochs {sel} / "
+                f"{_bp_selected(off['hist'])}")
+    else:
+        check(dev_loss <= 1e-3 and dev_sharpe <= 5e-3
+              and sel == _bp_selected(off["hist"]),
+              f"train CLI hidden {list(SH_HIDDEN)} K={SH_MOMENTS}, kernel vs "
+              f"plain: loss rel dev {dev_loss:.3e} (bar 1e-3), Sharpe dev "
+              f"{dev_sharpe:.3e} (bar 5e-3), selected epochs {sel} / "
+              f"{_bp_selected(off['hist'])}")
+        bars = (f"every epoch max loss rel dev {dev_loss:.3e} (bar 1e-3), "
+                f"max Sharpe dev {dev_sharpe:.3e} (bar 5e-3), selected "
+                f"epochs {sel}")
     fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
     print(f"[shapes train] train CLI --hidden_dim {SH_HIDDEN[0]} "
-          f"{SH_HIDDEN[1]} --num_moments {SH_MOMENTS}, f32, "
-          f"{unc}/{mom}/{cond} epochs, N={PANEL['n_stocks']}: kernel vs "
-          f"plain every epoch max loss rel dev {dev_loss:.3e} (bar 1e-3), "
-          f"max Sharpe dev {dev_sharpe:.3e} (bar 5e-3), selected epochs "
-          f"{sel}; launches {on['launches']}, streamed {on['streamed']}; "
-          f"wall ms per epoch kernel {fmt(on['epoch_ms'])}, plain "
-          f"{fmt(off['epoch_ms'])}; run {on['wall']:.1f} s / "
-          f"{off['wall']:.1f} s ({card})", flush=True)
+          f"{SH_HIDDEN[1]} --num_moments {SH_MOMENTS}, {cd}"
+          f"{' (bf16 panel)' if bf else ''}, {unc}/{mom}/{cond} epochs, N="
+          f"{PANEL['n_stocks']}: kernel vs plain {bars}; launches "
+          f"{on['launches']}, streamed {on['streamed']}; wall ms per epoch "
+          f"kernel {fmt(on['epoch_ms'])}, plain {fmt(off['epoch_ms'])}; run "
+          f"{on['wall']:.1f} s / {off['wall']:.1f} s ({card})", flush=True)
     return on["launches"], on["streamed"]
 
 
@@ -9375,6 +9737,7 @@ def shapes_phase(torch, K, C, card):
     try:
         splits = make_panel()
         train_l, train_s = shapes_train_check(torch, K, C, card)
+        bf_l, bf_s = shapes_train_check(torch, K, C, card, "bfloat16")
         grad_l, grad_s = shapes_gradient_check(torch, K, C, card, splits)
         serve_l = shapes_serve_check(torch, K, card, splits)
     finally:
@@ -9383,16 +9746,23 @@ def shapes_phase(torch, K, C, card):
     launches = {}
     for name in SH_KERNELS:
         paths = {"shapes_training": train_l[name],
+                 "shapes_training_bf16": bf_l[name],
                  "shapes_panel_gradient": grad_l[name]}
         if name == "sdf_ffn_fwd":
             paths["shapes_serving"] = serve_l
         launches[name] = {p: n for p, n in paths.items() if n}
     for name in SH_KERNELS[:3]:
         paths = {"shapes_training": train_s[name],
+                 "shapes_training_bf16": bf_s[name],
                  "shapes_panel_gradient": grad_s[name]}
         if name == "sdf_ffn_fwd":
             paths["shapes_serving"] = serve_l
         launches[name + "_stream"] = {p: n for p, n in paths.items() if n}
+    # the tensor-core form's (bf16 compute): the bf16 training's FFN
+    # launches
+    for name in SH_KERNELS[:2]:
+        launches[name + "_stream_mma"] = {
+            "shapes_training_bf16": bf_s[name + "_mma"]}
     print(f"[shapes] phase 21 done in {time.perf_counter() - t0:.1f} s "
           f"((a) {t1 - t0:.1f} s); launches by path {launches} ({card})",
           flush=True)
@@ -9517,6 +9887,14 @@ def main(argv=None) -> int:
                          "the time-sharded LSTM (a short call while the "
                          "multihost worker, the hybrid mesh or the sequence "
                          "pipeline change); no result line")
+    ap.add_argument("--compare_stream", metavar="DIR", default=None,
+                    help="with --only_shapes: hold the streamed route's "
+                         "CUDA-core instances (f32 forward, backward and "
+                         "panel cotangent; bf16 ones too) bit for bit "
+                         "against DIR/sdf_ffn_stream.cu's (this tree's "
+                         "argument lists, beside its sdf_ffn_common.cuh and "
+                         "panel.cuh) at phase 21's stacks, and time both in "
+                         "turns")
     ap.add_argument("--only_shapes", action="store_true",
                     help="build the streamed FFN libraries, the w64 FFN and "
                          "the conditional-EM libraries only, then phase 21: "
@@ -9538,6 +9916,8 @@ def main(argv=None) -> int:
     try:
         return run_phases(opts, torch)
     finally:
+        for proc in BACKGROUND:
+            stop_fleet(proc)
         shutil.rmtree(CACHE_DIR, ignore_errors=True)
         shutil.rmtree(REAL_DIR, ignore_errors=True)
         shutil.rmtree(REPORT_RUNS, ignore_errors=True)
@@ -9639,8 +10019,11 @@ def run_phases(opts, torch) -> int:
               else [(cem_job, "HMMA"), (mb_job, "HGMMA")])
 
     if opts.only_shapes:
-        # phase 21 alone on phase 6's panel
+        # phase 21 alone on phase 6's panel, and (with --compare_stream) the
+        # streamed route's CUDA-core instances against an older source
         shapes_phase(torch, K, C, card)
+        if opts.compare_stream:
+            compare_stream(torch, K, _nvcc, opts.compare_stream, card)
         return 0
 
     if opts.only_data:
@@ -9917,11 +10300,13 @@ def run_phases(opts, torch) -> int:
     ops = ops_plane_phase(torch, K, C, card, splits)
 
     # 13. the supervisor and the elastic sweep on phase 6's panel, held
-    # against phase 9's in-process ranking
+    # against phase 9's in-process ranking; phase 11's real-shape panel is
+    # written meanwhile (phase 13 mostly waits on its children)
+    real = start_real_panel()
     elastic = elastic_phase(torch, card, splits, sweep_ranked)
 
     # 11. the data plane at the real panel shape
-    data = data_plane_phase(torch, K, C, card)
+    data = data_plane_phase(torch, K, C, card, real)
 
     # 14. rolling refit and the run report on phase 6's panel (the report
     # also reads the run dirs phases 11 and 12 kept)
@@ -10089,7 +10474,8 @@ def run_phases(opts, torch) -> int:
     # phase 21: the streamed route's three kernels (one source, a library
     # each) and the conditional EM over moment chunks, each at its timed
     # shape (bf16 compute on the bf16 panel, the f32 row beside) with its
-    # launches on phase 21's paths
+    # launches on phase 21's paths; the forward's and backward's bf16 rows
+    # are their tensor-core form (route 4), its launches beside
     tpu_rows = {"sdf_ffn_fwd": ("pallas_ffn.py:188", "pallas_ffn.py:561"),
                 "sdf_ffn_bwd": ("pallas_ffn.py:205", "pallas_ffn.py:591"),
                 "sdf_ffn_dx": ("pallas_ffn.py:300", None),
@@ -10113,6 +10499,9 @@ def run_phases(opts, torch) -> int:
                                       for cd in ("bfloat16", "float32")}
         if also:
             row["also_replaces"] = tpu + also
+        if name + "_stream_mma" in shp["launches"]:
+            row["tensor_core_launches_by_path"] = shp["launches"][
+                name + "_stream_mma"]
         if stream:
             row["plans"] = {f"{cd} {'bf16' if xb16 else 'f32'} panel":
                             shp["plans"][(SH_HIDDEN, 46, name[8:], cd,

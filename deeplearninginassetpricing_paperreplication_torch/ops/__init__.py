@@ -15,7 +15,9 @@ under its kernel's bf16-panel form, ``<kernel>_bf16_panel``
 (:data:`BF16_PANEL_KERNELS`), so a run can show which form its path took.
 Likewise a launch of an FFN kernel's streamed-weight route (the stacks its
 resident route cannot hold) also counts under ``<kernel>_stream``
-(:data:`STREAM_KERNELS`).
+(:data:`STREAM_KERNELS`), and one of that route's tensor-core form (bf16
+compute, forward and backward) also under ``<kernel>_stream_mma``
+(:data:`STREAM_MMA_KERNELS`).
 """
 
 import atexit
@@ -32,6 +34,8 @@ BF16_PANEL = "_bf16_panel"
 BF16_PANEL_KERNELS = tuple(k + BF16_PANEL for k in KERNELS)
 STREAM = "_stream"
 STREAM_KERNELS = tuple(k + STREAM for k in KERNELS[:3])
+STREAM_MMA = "_stream_mma"
+STREAM_MMA_KERNELS = tuple(k + STREAM_MMA for k in KERNELS[:2])
 
 
 # (kernel, device) -> launches, under one lock: a server launches from its
@@ -43,7 +47,8 @@ _launch_lock = threading.Lock()
 def count_launch(kernel: str, device) -> None:
     """One launch of `kernel` on `device`."""
     if (kernel not in KERNELS and kernel not in BF16_PANEL_KERNELS
-            and kernel not in STREAM_KERNELS):
+            and kernel not in STREAM_KERNELS
+            and kernel not in STREAM_MMA_KERNELS):
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS} (or "
                          f"its bf16-panel or streamed form)")
     key = (kernel, str(device))
@@ -76,7 +81,8 @@ def _append_launch_counts(path):
     """This process's launches by kernel as one JSON line appended to
     `path`."""
     row = {"pid": os.getpid(), "argv": sys.argv,
-           **{k: launch_total(k) for k in KERNELS + STREAM_KERNELS}}
+           **{k: launch_total(k)
+              for k in KERNELS + STREAM_KERNELS + STREAM_MMA_KERNELS}}
     try:
         with open(path, "a") as f:
             f.write(json.dumps(row) + "\n")

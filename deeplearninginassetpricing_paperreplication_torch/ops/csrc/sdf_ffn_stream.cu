@@ -43,12 +43,18 @@
 // What bounds it: at the widths it serves, the operations (about as many as
 // the resident routes') run on the CUDA cores at f32 rate, and each cell
 // re-reads the whole member's weights from L2 (BN FMAs per weight float
-// read). It is the simple route that is right for every shape; tensor cores
-// and a larger reuse of the slab are later work.
+// read). It is the simple route that is right for every shape.
+//
+// Under bf16 compute the forward and the backward have a tensor-core route
+// of their own (fwd_stream_mma_kernel, bwd_stream_mma_kernel, below: bf16
+// tiles, mma.sync products, bf16 weight slabs), planned wherever its tiles
+// fit shared memory; the kernels above stay the f32 route, the bf16 route of
+// the stacks whose tiles go to scratch, and the panel cotangent.
 //
 // One library per kernel: -DSDF_FFN_STREAM_KERNEL=0 (forward), 1 (backward),
 // 2 (panel cotangent), each holding the four (panel dtype × compute dtype)
-// instances of its kernel.
+// instances of its kernel, and the forward's and backward's libraries the
+// two (panel dtype) instances of their tensor-core kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -578,6 +584,642 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+#if SDF_FFN_STREAM_KERNEL != 2
+// -- the tensor-core route: bf16 compute, forward and backward ----------------
+//
+// Under bf16 compute every product reads its operands rounded to bf16, so the
+// tiles hold bf16 ([rows][BN + 8] bf16 bits, feature-major, each layer's rows
+// padded to 16 and zero past its width): exactly what the products read, in
+// half the bytes, twice the stocks a block. The three values the plain route
+// reads unrounded come from the f32 accumulators in the epilogues instead:
+// the top layer's activations in dkout, and dh_pre in the bias gradients and
+// in dzp. The ReLU × dropout factor is read back from a tile as act > 0, as
+// from the f32 tiles: a positive activation that rounds to bf16 zero (below
+// 2^-133) is stored as -0 (bits 0x8000), which every product reads as 0, so
+// the factor is "bits != 0" and exact.
+//
+// Products run on mma.sync.m16n8k16 (bf16 operands, f32 accumulators): a warp
+// owns 64 output units × 32 stocks (4 × 4 fragments), the block's 8 warps
+// BN/32 along the stocks and the rest along the units, so one pass covers
+// UC = 16384/BN units. Weights stream as bf16 from a copy in the products'
+// [units][inputs] orientation (ops/sdf_ffn.py stream_mma_weights: each
+// layer's matrix and, for the dh chain, its transpose; wtab holds each one's
+// offset and row length), in slabs of kMmaSlab inputs × UC units through a
+// three-stage cp.async ring (16-byte copies, one __syncthreads a slab). The
+// forward and the backward's recompute run the same routine with the same
+// k-step order, so a ReLU decision never differs between the loss and its
+// gradient. The weight gradients run on mma.sync too (M the gradient's rows,
+// N its columns, K the cell's BN stocks); each cell's partial is added into
+// the block's grad_part slice in 16-byte vectors, every element always by the
+// same thread (repeatable bit for bit, no atomics).
+//
+// What bounds it: the tensor cores (operations). On an H100 at (256, 256),
+// T = 48, N = 10,000 the forward runs 21.7× and the backward 32× from that
+// bound: one 8-warp block an SM (180 / 237 registers), a __syncthreads a
+// slab, and in the backward each cell's read-add-write of its ~78,000-float
+// gradient partial (not measured apart).
+
+constexpr int kMmaSlab = 32;           // inputs per bf16 weight slab
+constexpr int kMmaStages = 3;          // slabs in flight
+constexpr int kSlabLd = kMmaSlab + 8;  // bf16 a slab row: 80 B, so the 8
+                                       // rows of an ldmatrix hit distinct banks
+constexpr int kRed = 512;              // floats of the cross-warp sums
+constexpr unsigned kFull = 0xffffffffu;
+
+typedef uint16_t bfbits;  // a bf16 value's bits in the tiles and slabs
+
+// units one pass of the tensor-core route computes at stock tile BN
+__host__ __device__ __forceinline__ int mma_pass_units(int BN) {
+  return 64 * (8 / (BN / 32));
+}
+
+// shared-memory bytes of a tensor-core block: the slab ring, the row hashes,
+// the g row, the cross-warp sums, then `rows` tile rows of BN + 8 bf16
+__host__ __device__ inline long long mma_smem_bytes(int BN, int rows,
+                                                    int SU) {
+  return 2LL * kMmaStages * SU * kSlabLd + 8LL * BN + 4LL * kRed +
+         2LL * rows * (BN + 8);
+}
+
+__device__ __forceinline__ uint32_t bf_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// a non-negative activation's bits: 0 unless it is positive, then rounded to
+// bf16, with -0 standing for a positive value that rounds to zero
+__device__ __forceinline__ uint32_t act_bits(float a) {
+  if (!(a > 0.f)) return 0u;
+  const uint32_t b = bf_bits(a);
+  return b ? b : 0x8000u;
+}
+
+__device__ __forceinline__ float unbits(bfbits b) {
+  return __uint_as_float((uint32_t)b << 16);
+}
+
+// a warp's place in the block's products at stock tile BN
+struct MmaWarp {
+  int wn, wu, UC, lane, g, t;
+  __device__ explicit MmaWarp(int BN) {
+    const int warp = threadIdx.x >> 5, WN = BN >> 5;
+    wn = warp % WN;
+    wu = warp / WN;
+    UC = mma_pass_units(BN);
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+  }
+};
+
+// what a layer product's epilogue does with its sums
+enum MmaEpilogue {
+  kMmaAct = 0,    // + bias, ReLU, dropout, act_bits: a hidden layer
+  kMmaChain = 1,  // × dscale where the layer below's bits are nonzero: dh_pre
+};
+
+struct MmaOut {
+  const float* bias;     // kMmaAct: [Uout] f32
+  const uint32_t* hash;  // kMmaAct: the tile's dropout row hashes
+  int layer;
+  Dropout drop;
+  const bfbits* below;   // kMmaChain: the layer below's activation tile
+  float dscale;
+  const float* grow;     // kMmaAct: the g row (dkout), or null
+  float* rsum;           // row sums' destination (read-add-write), or null
+};
+
+// rs[mt][h]: a thread's sums of its rows (mt, g + 8h) over its stocks;
+// summed over the warp's 32 stocks, then over the warps of the same units in
+// a fixed order, and added to dst[u] for u < Uout, u in the pass at u0
+__device__ void finish_row_sums(float (&rs)[4][2], const MmaWarp& w, int BN,
+                                int u0, int RU, int Uout, float* red,
+                                float* dst) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = rs[mt][h];
+      s += __shfl_xor_sync(kFull, s, 1);
+      s += __shfl_xor_sync(kFull, s, 2);
+      rs[mt][h] = s;
+    }
+  if (w.t == 0) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const int ul = w.wu * 64 + mt * 16 + w.g;
+      if (u0 + ul < RU) {
+        red[w.wn * w.UC + ul] = rs[mt][0];
+        red[w.wn * w.UC + ul + 8] = rs[mt][1];
+      }
+    }
+  }
+  __syncthreads();
+  const int WN = BN >> 5, rows = min(w.UC, RU - u0);
+  for (int ul = threadIdx.x; ul < rows; ul += kThreads) {
+    if (u0 + ul >= Uout) continue;
+    float s = 0.f;
+    for (int q = 0; q < WN; ++q) s += red[q * w.UC + ul];
+    dst[u0 + ul] += s;
+  }
+  __syncthreads();
+}
+
+// the epilogue of one pass (units from u0) of a layer product
+template <int EPI>
+__device__ void mma_epilogue(const float (&acc)[4][4][4], const MmaWarp& w,
+                             int u0, int RU, int Uout, bfbits* out,
+                             const MmaOut& e, float* red, int BN) {
+  const int LDH = BN + 8;
+  float rs[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int ub = u0 + w.wu * 64 + mt * 16;
+    if (ub >= RU) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = ub + w.g + 8 * h;
+      const bool in = u < Uout;
+      const float bias =
+          (EPI == kMmaAct && in) ? __ldg(e.bias + u) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = w.wn * 32 + nt * 8 + 2 * w.t;
+        float v0 = 0.f, v1 = 0.f;
+        uint32_t b0, b1;
+        if (EPI == kMmaAct) {
+          if (in) {
+            v0 = fmaxf(acc[mt][nt][2 * h] + bias, 0.f);
+            v1 = fmaxf(acc[mt][nt][2 * h + 1] + bias, 0.f);
+            if (e.drop.on) {
+              v0 = sdf_ffn::keep_unit(e.hash[n], e.layer, u,
+                                      e.drop.threshold)
+                       ? v0 * e.drop.scale
+                       : 0.f;
+              v1 = sdf_ffn::keep_unit(e.hash[n + 1], e.layer, u,
+                                      e.drop.threshold)
+                       ? v1 * e.drop.scale
+                       : 0.f;
+            }
+          }
+          b0 = act_bits(v0);
+          b1 = act_bits(v1);
+          if (e.grow)
+            rs[mt][h] = fmaf(v1, e.grow[n + 1], fmaf(v0, e.grow[n], rs[mt][h]));
+        } else {
+          if (in) {
+            const uint32_t f = *reinterpret_cast<const uint32_t*>(
+                e.below + (size_t)u * LDH + n);
+            if (f & 0xffffu) v0 = acc[mt][nt][2 * h] * e.dscale;
+            if (f >> 16) v1 = acc[mt][nt][2 * h + 1] * e.dscale;
+          }
+          b0 = bf_bits(v0);
+          b1 = bf_bits(v1);
+          rs[mt][h] = (rs[mt][h] + v0) + v1;
+        }
+        *reinterpret_cast<uint32_t*>(out + (size_t)u * LDH + n) =
+            b0 | (b1 << 16);
+      }
+    }
+  }
+  if (e.rsum) finish_row_sums(rs, w, BN, u0, RU, Uout, red, e.rsum);
+}
+
+// out[u][n] (u < pad16(Uout), n < BN, bf16) from Σ_k A[u][k]·in[k][n] over
+// k < Kin: A the bf16 copy's [units][lda] matrix (zero past the layer), `in`
+// a tile of pad16(Kin) rows (zero from Kin). Slab i of the ring holds units
+// [p·UC, +UC) × inputs [kb·kMmaSlab, +kMmaSlab) of pass p; the epilogue of
+// pass p runs after its last slab. Every thread of the block calls it; it
+// ends synchronised.
+template <int EPI>
+__device__ void layer_product_mma(const bfbits* __restrict__ A, int lda,
+                                  int Kin, int Uout, const bfbits* in,
+                                  bfbits* out, const MmaOut& e, bfbits* slab,
+                                  int SU, float* red, int BN) {
+  const MmaWarp w(BN);
+  const int LDH = BN + 8;
+  const int RU = pad16(Uout), KP = pad16(Kin);
+  const int nk = (KP + kMmaSlab - 1) / kMmaSlab;
+  const int total = ((RU + w.UC - 1) / w.UC) * nk;
+  auto issue = [&](int i) {
+    if (i < total) {
+      const int p = i / nk, kb = i - p * nk;
+      const int u0 = p * w.UC, k0 = kb * kMmaSlab;
+      const int rows = min(w.UC, RU - u0);
+      bfbits* dst = slab + (size_t)(i % kMmaStages) * SU * kSlabLd;
+      for (int c = threadIdx.x; c < rows * (kMmaSlab / 8); c += kThreads) {
+        const int r = c / (kMmaSlab / 8), q = c % (kMmaSlab / 8);
+        sdf_ffn::cp_async16(
+            reinterpret_cast<float*>(dst + r * kSlabLd + q * 8),
+            reinterpret_cast<const float*>(A + (size_t)(u0 + r) * lda + k0 +
+                                           q * 8),
+            16);
+      }
+    }
+    sdf_ffn::cp_async_commit();
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+  issue(0);
+  issue(1);
+  for (int i = 0; i < total; ++i) {
+    sdf_ffn::cp_async_wait<1>();
+    __syncthreads();  // slab i landed; every warp is done with slab i - 1
+    issue(i + 2);
+    const int p = i / nk, kb = i - p * nk;
+    const int u0 = p * w.UC, k0 = kb * kMmaSlab;
+    const int ub = u0 + w.wu * 64;  // the warp's first unit
+    if (ub < RU) {
+      const bfbits* s = slab + (size_t)(i % kMmaStages) * SU * kSlabLd +
+                        (w.wu * 64) * kSlabLd;
+      const int steps = min(kMmaSlab, KP - k0) >> 4;
+      for (int ks = 0; ks < steps; ++ks) {
+        uint32_t a[4][4], b[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          if (ub + 16 * mt < RU)
+            sdf_ffn::ldsm_x4(a[mt], reinterpret_cast<const uint32_t*>(
+                                        s + (mt * 16 + (w.lane & 15)) * kSlabLd +
+                                        ks * 16 + (w.lane >> 4) * 8));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          uint32_t r[4];
+          sdf_ffn::ldsm_x4_t(
+              r, reinterpret_cast<const uint32_t*>(
+                     in + (size_t)(k0 + ks * 16 + (w.lane & 15)) * LDH +
+                     w.wn * 32 + q * 16 + (w.lane >> 4) * 8));
+          b[2 * q][0] = r[0];
+          b[2 * q][1] = r[1];
+          b[2 * q + 1][0] = r[2];
+          b[2 * q + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          if (ub + 16 * mt < RU)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              sdf_ffn::mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+      }
+    }
+    if (kb == nk - 1) {
+      mma_epilogue<EPI>(acc, w, u0, RU, Uout, out, e, red, BN);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+// gp[a·ldg + b] += Σ_n A[a][n]·B[b][n] for a < Ra, b < Rb over the cell's BN
+// stocks (bf16 tiles; a weight gradient's partial): warp tiles of 64 rows ×
+// 32 columns, the sums added in 16-byte vectors (lanes t and t ^ 1 trade
+// halves: the even one takes row g, the odd one row g + 8). Only global
+// memory is written.
+__device__ void grad_product_mma(const bfbits* A, int Ra, const bfbits* B,
+                                 int Rb, float* gp, int ldg, int BN) {
+  const int LDH = BN + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool odd = t & 1;
+  const int RA = pad16(Ra), RB = pad16(Rb);
+  const int ta = (RA + 63) >> 6, tb = (RB + 31) >> 5;
+  for (int wt = warp; wt < ta * tb; wt += kThreads / 32) {
+    const int a0 = (wt / tb) * 64, b0 = (wt % tb) * 32;
+    float acc[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+    for (int k0 = 0; k0 < BN; k0 += 16) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        if (a0 + 16 * mt < RA)
+          sdf_ffn::ldsm_x4(a[mt], reinterpret_cast<const uint32_t*>(
+                                      A + (size_t)(a0 + 16 * mt + (lane & 15)) *
+                                              LDH +
+                                      k0 + (lane >> 4) * 8));
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (b0 + 16 * q < RB) {
+          uint32_t r[4];
+          sdf_ffn::ldsm_x4(
+              r, reinterpret_cast<const uint32_t*>(
+                     B +
+                     (size_t)(b0 + 16 * q + (lane & 7) + ((lane >> 4) << 3)) *
+                         LDH +
+                     k0 + ((lane >> 3) & 1) * 8));
+          b[2 * q][0] = r[0];
+          b[2 * q][1] = r[1];
+          b[2 * q + 1][0] = r[2];
+          b[2 * q + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if (a0 + 16 * mt < RA && b0 + 8 * nt < RB)
+            sdf_ffn::mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      if (a0 + 16 * mt >= RA) continue;
+      const int a = a0 + 16 * mt + g + (odd ? 8 : 0);
+      float4 v[4], o[4];
+      bool ok[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        ok[nt] = false;
+        if (b0 + 8 * nt >= RB) continue;
+        const float* c = acc[mt][nt];
+        const float r0 = __shfl_xor_sync(kFull, odd ? c[0] : c[2], 1);
+        const float r1 = __shfl_xor_sync(kFull, odd ? c[1] : c[3], 1);
+        v[nt] = odd ? make_float4(r0, r1, c[2], c[3])
+                    : make_float4(c[0], c[1], r0, r1);
+        ok[nt] = a < Ra && b0 + 8 * nt + 4 * (t >> 1) < Rb;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (ok[nt])
+          o[nt] = *reinterpret_cast<const float4*>(
+              gp + (size_t)a * ldg + b0 + 8 * nt + 4 * (t >> 1));
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (ok[nt]) {
+          o[nt].x += v[nt].x;
+          o[nt].y += v[nt].y;
+          o[nt].z += v[nt].z;
+          o[nt].w += v[nt].w;
+          *reinterpret_cast<float4*>(gp + (size_t)a * ldg + b0 + 8 * nt +
+                                     4 * (t >> 1)) = o[nt];
+        }
+    }
+  }
+}
+
+// dh_pre of the top layer, round(kout_j)·round(g_n)·dscale where its
+// activation is nonzero (else 0), into dh (pad16(HL) rows, bf16), its f32 row
+// sums added to dst[j]: a thread 8 stocks of a row, the BN/8 threads of a row
+// adjacent lanes of one warp
+__device__ void top_dh_mma(const bfbits* act, int HL,
+                           const float* __restrict__ kout, const float* grow,
+                           float dscale, bfbits* dh, float* dst, int BN) {
+  const int LDH = BN + 8, per = BN / 8;
+  const int items = pad16(HL) * per;
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x & ~31; base < items; base += kThreads) {
+    const int i = base + lane;
+    const int j = i / per, n = (i - j * per) * 8;
+    float s = 0.f;
+    if (i < items) {
+      const uint4 a =
+          *reinterpret_cast<const uint4*>(act + (size_t)j * LDH + n);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+      const float k = j < HL ? sdf_ffn::round_bf16(__ldg(kout + j)) : 0.f;
+      uint32_t o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float d0 = 0.f, d1 = 0.f;
+        if (j < HL && (av[q] & 0xffffu))
+          d0 = k * sdf_ffn::round_bf16(grow[n + 2 * q]) * dscale;
+        if (j < HL && (av[q] >> 16))
+          d1 = k * sdf_ffn::round_bf16(grow[n + 2 * q + 1]) * dscale;
+        s = (s + d0) + d1;
+        o[q] = bf_bits(d0) | (bf_bits(d1) << 16);
+      }
+      *reinterpret_cast<uint4*>(dh + (size_t)j * LDH + n) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    for (int d = 1; d < per; d <<= 1) s += __shfl_xor_sync(kFull, s, d);
+    if (i < items && i % per == 0 && j < HL) dst[j] += s;
+  }
+}
+
+// the tile x[t][:, n0 : n0 + BN] rounded to bf16 into X [pad16(F)][BN + 8],
+// zero past F and past N (a bf16 panel is copied as it is)
+template <typename PX>
+__device__ void stage_x_mma(bfbits* X, const PX* __restrict__ x, int F,
+                            int N, int t, int n0, int BN) {
+  const int RF = pad16(F), half = BN / 2, LDH = BN + 8;
+  for (int i = threadIdx.x; i < RF * half; i += kThreads) {
+    const int f = i / half, n = (i - f * half) * 2;
+    float v0 = 0.f, v1 = 0.f;
+    if (f < F) {
+      const PX* p = x + ((size_t)t * F + f) * N + n0 + n;
+      if (n0 + n < N) v0 = panel::ldx(p);
+      if (n0 + n + 1 < N) v1 = panel::ldx(p + 1);
+    }
+    *reinterpret_cast<uint32_t*>(X + (size_t)f * LDH + n) =
+        bf_bits(v0) | (bf_bits(v1) << 16);
+  }
+}
+
+struct MmaSmem {
+  bfbits* slab;
+  uint32_t* hash;
+  float* grow;
+  float* red;
+  bfbits* tile;
+};
+
+__device__ MmaSmem carve_mma(float* smem, int BN, int SU) {
+  char* p = reinterpret_cast<char*>(smem);
+  MmaSmem m;
+  m.slab = reinterpret_cast<bfbits*>(p);
+  p += 2 * kMmaStages * SU * kSlabLd;
+  m.hash = reinterpret_cast<uint32_t*>(p);
+  p += 4 * BN;
+  m.grow = reinterpret_cast<float*>(p);
+  p += 4 * BN;
+  m.red = reinterpret_cast<float*>(p);
+  p += 4 * kRed;
+  m.tile = reinterpret_cast<bfbits*>(p);
+  return m;
+}
+
+// the cell's forward on the tensor cores, one layer at a time from X;
+// returns the top layer's tile. `keep_all`: layer l's tile at acts + its row
+// (the backward), else in the two buffers at acts, acts + wr rows. With
+// `grow`, the top layer's epilogue adds Σ_n act·g (f32, unrounded) to dkout.
+__device__ const bfbits* forward_cell_mma(
+    const LayoutTable& L, const float* W, const bfbits* Wb, const int* wtab,
+    const float* __restrict__ zp_row, const bfbits* X, bfbits* acts, int wr,
+    bool keep_all, const uint32_t* hash, const Dropout& drop,
+    const float* grow, float* dkout, bfbits* slab, int SU, float* red,
+    int BN) {
+  const int nl = L.n(), LDH = BN + 8;
+  const bfbits* in = X;
+  int Kin = L.F(), row = 0;
+  for (int l = 0; l < nl; ++l) {
+    const int H = L.h(l);
+    bfbits* o = keep_all ? acts + (size_t)row * LDH
+                         : acts + (size_t)((l & 1) * wr) * LDH;
+    row += pad16(H);
+    const bool top = l + 1 == nl;
+    const MmaOut e{l ? W + L.off_b(l) : zp_row, hash, l, drop, nullptr, 1.f,
+                   top ? grow : nullptr, top ? dkout : nullptr};
+    layer_product_mma<kMmaAct>(Wb + __ldg(wtab + 4 * l),
+                               __ldg(wtab + 4 * l + 1), Kin, H, in, o, e,
+                               slab, SU, red, BN);
+    in = o;
+    Kin = H;
+  }
+  return in;
+}
+
+// the cell's dh chain on the tensor cores from g down to the first layer,
+// and each layer's weight gradient and bias gradient on the way (dzp_row
+// takes the first layer's row sums); returns dh_pre of the first layer
+__device__ const bfbits* chain_cell_mma(
+    const LayoutTable& L, const float* W, const bfbits* Wb, const int* wtab,
+    const bfbits* acts, const float* grow, bfbits* dh0, bfbits* dh1,
+    float dscale, const Dropout& drop, float* gp, float* dzp_row,
+    bfbits* slab, int SU, float* red, int BN) {
+  const int nl = L.n(), LDH = BN + 8;
+  int top = 0;
+  for (int l = 0; l + 1 < nl; ++l) top += pad16(L.h(l));
+  top_dh_mma(acts + (size_t)top * LDH, L.h(nl - 1), W + L.off_kout(), grow,
+             dscale, dh0, nl > 1 ? gp + L.off_b(nl - 1) : dzp_row, BN);
+  __syncthreads();
+  bfbits* cur = dh0;
+  bfbits* other = dh1;
+  int row = top;
+  for (int l = nl - 1; l >= 1; --l) {
+    const int below = row - pad16(L.h(l - 1));
+    const bfbits* act = acts + (size_t)below * LDH;
+    grad_product_mma(cur, L.h(l), act, L.h(l - 1), gp + L.off_w(l),
+                     L.hp(l - 1), BN);
+    const MmaOut e{nullptr, nullptr, 0, drop, act, dscale, nullptr,
+                   l > 1 ? gp + L.off_b(l - 1) : dzp_row};
+    layer_product_mma<kMmaChain>(Wb + __ldg(wtab + 4 * l + 2),
+                                 __ldg(wtab + 4 * l + 3), L.h(l), L.h(l - 1),
+                                 cur, other, e, slab, SU, red, BN);
+    bfbits* tmp = cur;
+    cur = other;
+    other = tmp;
+    row = below;
+  }
+  return cur;
+}
+
+// out [S, T, N]: a persistent grid over the S·T·⌈N/BN⌉ cells; wb [S][Pb]
+// the members' bf16 weight copies
+template <typename PX>
+__global__ void __launch_bounds__(kThreads)
+    fwd_stream_mma_kernel(const PX* __restrict__ x,
+                          const float* __restrict__ zp,
+                          const float* __restrict__ params,
+                          const bfbits* __restrict__ wb,
+                          const int* __restrict__ wtab, int Pb,
+                          float* __restrict__ out, LayoutTable L, int S,
+                          int T, int N, Dropout drop, int BN, int SU) {
+  extern __shared__ __align__(16) float smem[];
+  const int LDH = BN + 8;
+  const MmaSmem m = carve_mma(smem, BN, SU);
+  const int F = L.F(), P = L.P(), H1 = L.h(0), nl = L.n();
+  const int wr = widest_rows(L);
+  bfbits* X = m.tile;
+  bfbits* acts = m.tile + (size_t)pad16(F) * LDH;
+  const int tiles = (N + BN - 1) / BN;
+  const long long cells = (long long)S * T * tiles;
+  // the output product: the kThreads / BN threads of a stock split the units
+  const int parts = kThreads / BN, n = threadIdx.x % BN,
+            part = threadIdx.x / BN;
+  for (long long c = blockIdx.x; c < cells; c += gridDim.x) {
+    const int tile = (int)(c % tiles);
+    const int t = (int)((c / tiles) % T);
+    const int s = (int)(c / ((long long)tiles * T));
+    const int n0 = tile * BN;
+    __syncthreads();  // the last cell's readers are done
+    stage_x_mma(X, x, F, N, t, n0, BN);
+    stage_hash(m.hash, drop, s, t, n0, BN);
+    __syncthreads();
+    const float* W = params + (size_t)s * P;
+    const bfbits* top = forward_cell_mma(
+        L, W, wb + (size_t)s * Pb, wtab, zp + ((size_t)s * T + t) * H1, X,
+        acts, wr, false, m.hash, drop, nullptr, nullptr, m.slab, SU, m.red,
+        BN);
+    const float* kout = W + L.off_kout();
+    const int HL = L.h(nl - 1), span = (HL + parts - 1) / parts;
+    float a = 0.f;
+    for (int j = part * span; j < min(HL, (part + 1) * span); ++j)
+      a = fmaf(__ldg(kout + j), unbits(top[(size_t)j * LDH + n]), a);
+    m.red[part * BN + n] = a;
+    __syncthreads();
+    if (threadIdx.x < BN && n0 + n < N) {
+      float o = 0.f;
+      for (int q = 0; q < parts; ++q) o += m.red[q * BN + n];
+      out[((size_t)s * T + t) * N + n0 + n] = o + __ldg(W + L.off_bout());
+    }
+  }
+}
+
+// grad_part [S, G, P] and dzp_part [S, G, T, H1]: block (g, s) walks member
+// s's T·⌈N/BN⌉ cells g, g + G, ... and adds into its own slices
+template <typename PX>
+__global__ void __launch_bounds__(kThreads)
+    bwd_stream_mma_kernel(const PX* __restrict__ x,
+                          const float* __restrict__ zp,
+                          const float* __restrict__ params,
+                          const bfbits* __restrict__ wb,
+                          const int* __restrict__ wtab, int Pb,
+                          const float* __restrict__ g, float* grad_part,
+                          float* dzp_part, LayoutTable L, int T, int N,
+                          Dropout drop, int BN, int SU) {
+  extern __shared__ __align__(16) float smem[];
+  const int LDH = BN + 8;
+  const int G = gridDim.x, gb = blockIdx.x, s = blockIdx.y;
+  const MmaSmem m = carve_mma(smem, BN, SU);
+  const int F = L.F(), P = L.P(), H1 = L.h(0);
+  const int wr = widest_rows(L), sr = sum_rows(L);
+  bfbits* X = m.tile;
+  bfbits* acts = m.tile + (size_t)pad16(F) * LDH;
+  bfbits* dh0 = acts + (size_t)sr * LDH;
+  bfbits* dh1 = dh0 + (size_t)wr * LDH;
+  float* gp = grad_part + ((size_t)s * G + gb) * P;
+  const float dscale = drop.on ? drop.scale : 1.f;
+  const float* W = params + (size_t)s * P;
+  const bfbits* Wb = wb + (size_t)s * Pb;
+  const int tiles = (N + BN - 1) / BN;
+  const int cells = T * tiles;
+  for (int c = gb; c < cells; c += G) {
+    const int tile = c % tiles, t = c / tiles, n0 = tile * BN;
+    __syncthreads();
+    stage_x_mma(X, x, F, N, t, n0, BN);
+    stage_hash(m.hash, drop, s, t, n0, BN);
+    for (int n = threadIdx.x; n < BN; n += kThreads)
+      m.grow[n] = n0 + n < N ? __ldg(g + ((size_t)s * T + t) * N + n0 + n)
+                             : 0.f;
+    __syncthreads();
+    // the recompute, dkout (unrounded activations × g) in its top epilogue
+    forward_cell_mma(L, W, Wb, wtab, zp + ((size_t)s * T + t) * H1, X, acts,
+                     wr, true, m.hash, drop, m.grow, gp + L.off_kout(),
+                     m.slab, SU, m.red, BN);
+    if (threadIdx.x == 0) {
+      float a = 0.f;
+      for (int n = 0; n < BN; ++n) a += m.grow[n];
+      gp[L.off_bout()] += a;
+    }
+    float* dzp_row = dzp_part + (((size_t)s * G + gb) * T + t) * H1;
+    const bfbits* dhp0 =
+        chain_cell_mma(L, W, Wb, wtab, acts, m.grow, dh0, dh1, dscale, drop,
+                       gp, dzp_row, m.slab, SU, m.red, BN);
+    // dK1 [F][hp0]
+    grad_product_mma(X, F, dhp0, H1, gp, L.hp(0), BN);
+  }
+}
+#endif  // SDF_FFN_STREAM_KERNEL != 2
+
 // -- the host side ---------------------------------------------------------------
 
 template <typename PX, bool BF>
@@ -797,6 +1439,166 @@ extern "C" int sdf_ffn_dx_stream(const void* x, int xb16, const float* zp,
       dx_stream_kernel<float, false><<<G, kThreads, smem_bytes, st>>>(
           xp, zp, params, g, dp, scratch, L, S, T, N, drop, tile, rows);
   }
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if SDF_FFN_STREAM_KERNEL != 2
+// -- the tensor-core route's host side ----------------------------------------
+
+namespace {
+
+const void* mma_kernel_of(int xb16) {
+#if SDF_FFN_STREAM_KERNEL == 0
+  return xb16 ? (const void*)fwd_stream_mma_kernel<__nv_bfloat16>
+              : (const void*)fwd_stream_mma_kernel<float>;
+#else
+  return xb16 ? (const void*)bwd_stream_mma_kernel<__nv_bfloat16>
+              : (const void*)bwd_stream_mma_kernel<float>;
+#endif
+}
+
+// 0 if the card takes the tensor-core kernel at `smem` bytes: resident blocks
+// per SM, registers and local-memory bytes per thread; else a cudaError_t
+int mma_kernel_info(int xb16, size_t smem, int* blocks, int* regs,
+                    int* local_bytes) {
+  const void* kern = mma_kernel_of(xb16);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return 0;
+}
+
+// the slab rows SU of `layout` at stock tile `tile`: a pass's units, or the
+// widest padded layer where that is narrower
+int mma_slab_rows(const int* layout, int tile) {
+  const int n = layout[0];
+  int w = 0;
+  for (int l = 0; l < n; ++l) {
+    const int r = pad16(layout[5 + l]);
+    w = r > w ? r : w;
+  }
+  const int uc = mma_pass_units(tile);
+  return uc < w ? uc : w;
+}
+
+// 0, and the slab rows, for a plan (tile, shared memory) of `layout` this
+// route takes: its tiles all in shared memory; else kUnsupported
+int check_mma_plan(const int* layout, int tile, long long smem_bytes,
+                   int* SU) {
+  const int n = layout[0], F = layout[1];
+  if (n < 1 || F < 1) return kUnsupported;
+  if (tile != 32 && tile != 64 && tile != 128) return kUnsupported;
+  const int rows = tile_rows(SDF_FFN_STREAM_KERNEL, n, F, layout + 5);
+  *SU = mma_slab_rows(layout, tile);
+  if (smem_bytes != mma_smem_bytes(tile, rows, *SU) || smem_bytes > kMaxSmem)
+    return kUnsupported;
+  return 0;
+}
+
+// the checks of a launch: the plan, the card's residency, the grid; opens
+// the kernel to its shared memory
+int prepare_mma(const int* layout, int xb16, int tile, long long smem_bytes,
+                int G, int* SU) {
+  if (G < 1) return kUnsupported;
+  int rc = check_mma_plan(layout, tile, smem_bytes, SU);
+  if (rc != 0) return rc;
+  int info[3] = {0, 0, 0};
+  rc = mma_kernel_info(xb16, (size_t)smem_bytes, &info[0], &info[1],
+                       &info[2]);
+  if (rc != 0) return rc;
+  return info[0] >= 1 ? 0 : kUnsupported;
+}
+
+}  // namespace
+
+// Registers per thread of this library's tensor-core kernel (bf16 compute)
+// on a bf16 (xb16 1) or f32 panel.
+extern "C" int sdf_ffn_stream_mma_registers(int xb16) {
+  int info[3] = {0, 0, 0};
+  if (mma_kernel_info(xb16, 0, &info[0], &info[1], &info[2]) != 0)
+    return kUnsupported;
+  return info[1];
+}
+
+// What the card makes of a tensor-core plan (tile, shared memory): resident
+// blocks per SM, registers and local-memory bytes per thread into out[3];
+// 0, or kUnsupported / a cudaError_t value.
+extern "C" int sdf_ffn_stream_mma_plan_info(const int* layout, int tile,
+                                            long long smem_bytes, int xb16,
+                                            int* out) {
+  int SU = 0;
+  const int rc = check_mma_plan(layout, tile, smem_bytes, &SU);
+  if (rc != 0) return rc;
+  return mma_kernel_info(xb16, (size_t)smem_bytes, &out[0], &out[1],
+                         &out[2]);
+}
+#endif  // SDF_FFN_STREAM_KERNEL != 2
+
+#if SDF_FFN_STREAM_KERNEL == 0
+// The tensor-core forward (bf16 compute): out [S, T, N] f32 on `stream`; wb
+// [S][Pb] the members' bf16 weight copies, wtab their table (device ints).
+extern "C" int sdf_ffn_fwd_stream_mma(
+    const void* x, int xb16, const float* zp, const float* params,
+    const void* wb, const int* wtab, int Pb, float* out, const int* layout,
+    const int* layout_dev, int S, int T, int N, int dropout,
+    const unsigned int* member_base, unsigned int threshold, float scale,
+    unsigned int offset, int tile, long long smem_bytes, int G,
+    void* stream) {
+  if (S < 1 || T < 1 || N < 1 || Pb < 1) return kUnsupported;
+  int SU = 0;
+  const int rc = prepare_mma(layout, xb16, tile, smem_bytes, G, &SU);
+  if (rc != 0) return rc;
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
+  const LayoutTable L{layout_dev};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bfbits* w = static_cast<const bfbits*>(wb);
+  if (xb16)
+    fwd_stream_mma_kernel<__nv_bfloat16><<<G, kThreads, smem_bytes, st>>>(
+        static_cast<const __nv_bfloat16*>(x), zp, params, w, wtab, Pb, out, L,
+        S, T, N, drop, tile, SU);
+  else
+    fwd_stream_mma_kernel<float><<<G, kThreads, smem_bytes, st>>>(
+        static_cast<const float*>(x), zp, params, w, wtab, Pb, out, L, S, T,
+        N, drop, tile, SU);
+  return (int)cudaGetLastError();
+}
+#elif SDF_FFN_STREAM_KERNEL == 1
+// The tensor-core backward (bf16 compute): grad_part [S, G, P] and dzp_part
+// [S, G, T, H1], zeroed by the caller, on a grid of (G, S) blocks.
+extern "C" int sdf_ffn_bwd_stream_mma(
+    const void* x, int xb16, const float* zp, const float* params,
+    const void* wb, const int* wtab, int Pb, const float* g,
+    float* grad_part, float* dzp_part, const int* layout,
+    const int* layout_dev, int S, int T, int N, int dropout,
+    const unsigned int* member_base, unsigned int threshold, float scale,
+    unsigned int offset, int tile, long long smem_bytes, int G,
+    void* stream) {
+  if (S < 1 || T < 1 || N < 1 || Pb < 1) return kUnsupported;
+  int SU = 0;
+  const int rc = prepare_mma(layout, xb16, tile, smem_bytes, G, &SU);
+  if (rc != 0) return rc;
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
+  const LayoutTable L{layout_dev};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bfbits* w = static_cast<const bfbits*>(wb);
+  const dim3 grid(G, S);
+  if (xb16)
+    bwd_stream_mma_kernel<__nv_bfloat16><<<grid, kThreads, smem_bytes, st>>>(
+        static_cast<const __nv_bfloat16*>(x), zp, params, w, wtab, Pb, g,
+        grad_part, dzp_part, L, T, N, drop, tile, SU);
+  else
+    bwd_stream_mma_kernel<float><<<grid, kThreads, smem_bytes, st>>>(
+        static_cast<const float*>(x), zp, params, w, wtab, Pb, g, grad_part,
+        dzp_part, L, T, N, drop, tile, SU);
   return (int)cudaGetLastError();
 }
 #endif

@@ -81,8 +81,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import (BF16_PANEL, STREAM, _nvcc, count_launch, launch_total,
-               reset_launch_counts)
+from . import (BF16_PANEL, STREAM, STREAM_MMA, _nvcc, count_launch,
+               launch_total, reset_launch_counts)
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 PANEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -138,6 +138,26 @@ STREAM_MAX_LAYERS = 64
 STREAM_MAX_F = 1024
 STREAM_SCRATCH_BYTES = 2 << 30
 STREAM_GRAD_BYTES = 2 << 30
+# its tensor-core route under bf16 compute (csrc/sdf_ffn_stream.cu
+# fwd_stream_mma_kernel, bwd_stream_mma_kernel; the panel cotangent has
+# none): bf16 tiles in shared memory only, at these stock tiles (each warp 64
+# units × 32 stocks of mma.sync), weight slabs of STREAM_MMA_SLAB inputs from
+# a bf16 copy of the weights (stream_mma_weights) in a ring of
+# STREAM_MMA_STAGES, and STREAM_MMA_RED floats of cross-warp sums. A stack
+# whose bf16 tiles do not fit shared memory keeps route 3, and so does one
+# deeper than STREAM_MMA_MAX_LAYERS: there the bf16 gradient is chaotic in
+# the accumulation order (each layer's bf16 roundings flip with the last
+# bits of its sums and the flips cascade down the stack), so it moves by
+# the plain route's own distance from an exact (f64) evaluation, up to 1.5e-2
+# of max|ref| at 6 layers and 2.7e-2 at 12 (tools/stream_mma_accuracy.py),
+# while route 3's per-element FMA order is the plain route's
+STREAM_MMA_ROUTE = 4
+STREAM_MMA_MAX_LAYERS = 4
+STREAM_MMA_KERNELS = ("fwd", "bwd")
+STREAM_MMA_TILES = (32, 64, 128)
+STREAM_MMA_SLAB = 32
+STREAM_MMA_STAGES = 3
+STREAM_MMA_RED = 512
 
 # launches of the CUDA kernels, counted per device where the wrapper
 # launches them and nowhere else (ops.count_launch; reset_launch_count()
@@ -149,6 +169,9 @@ _TOTALS = {"launches": "sdf_ffn_fwd",
 # (subsets of the above)
 _TOTALS.update({k + form: v + form for form in (BF16_PANEL, STREAM)
                 for k, v in list(_TOTALS.items())})
+# and those of the streamed route's tensor-core form (a subset of _stream)
+_TOTALS.update({"launches" + STREAM_MMA: "sdf_ffn_fwd" + STREAM_MMA,
+                "bwd_launches" + STREAM_MMA: "sdf_ffn_bwd" + STREAM_MMA})
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -530,8 +553,9 @@ def kernel_route_takes(F: int, hidden: Sequence[int]) -> bool:
 
 
 def is_stream(plan) -> bool:
-    """Does `plan` launch the streamed-weight route?"""
-    return plan.route in STREAM_ROUTES.values()
+    """Does `plan` launch the streamed-weight route (either form)?"""
+    return (plan.route in STREAM_ROUTES.values()
+            or plan.route == STREAM_MMA_ROUTE)
 
 
 _SOURCES = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu",
@@ -614,6 +638,17 @@ _STREAM_ARGTYPES = {
     for k, n in (("fwd", 4), ("bwd", 6), ("dx", 5))}
 
 
+_STREAM_MMA_ARGTYPES = {
+    # x, xb16, zp, params, wb, wtab, Pb, out | g, grad_part, dzp_part,
+    # layout, layout on the card, S, T, N, dropout, tile, smem, G, stream
+    k: (_PANEL_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+        + [ctypes.c_void_p] * n
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + _DROP_ARGTYPES
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    for k, n in (("fwd", 1), ("bwd", 3))}
+
+
 def _load_stream(kernel: str):
     """The streamed route's library of `kernel`, built at first use."""
     key = (kernel + STREAM, 0)
@@ -632,6 +667,17 @@ def _load_stream(kernel: str):
             lib.sdf_ffn_stream_plan_info.restype = ctypes.c_int
             lib.sdf_ffn_stream_registers.argtypes = [ctypes.c_int] * 2
             lib.sdf_ffn_stream_registers.restype = ctypes.c_int
+            if kernel in STREAM_MMA_KERNELS:
+                fn = getattr(lib, f"sdf_ffn_{kernel}_stream_mma")
+                fn.argtypes = _STREAM_MMA_ARGTYPES[kernel]
+                fn.restype = ctypes.c_int
+                lib.sdf_ffn_stream_mma_plan_info.argtypes = [
+                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
+                lib.sdf_ffn_stream_mma_plan_info.restype = ctypes.c_int
+                lib.sdf_ffn_stream_mma_registers.argtypes = [ctypes.c_int]
+                lib.sdf_ffn_stream_mma_registers.restype = ctypes.c_int
             _libs[key] = lib
         return _libs[key]
 
@@ -858,26 +904,43 @@ def stream_rows(lay: FfnLayout, kernel: str) -> int:
     return rf + sum(r) + 2 * max(r) + (rf if kernel == "dx" else 0)
 
 
-def stream_geometry(lay: FfnLayout, kernel: str,
-                    tile: int) -> Tuple[int, int]:
-    """(shared-memory floats besides the tile buffers, floats of the tile
-    buffers) of a streamed block at stock tile `tile`, as
-    csrc/sdf_ffn_stream.cu counts them: two weight slabs of STREAM_SLAB
-    inputs × 16·threads/tile units, the row hashes and the g row."""
-    fixed = 2 * STREAM_SLAB * (16 * STREAM_THREADS // tile) + 2 * tile
-    return fixed, stream_rows(lay, kernel) * (tile + 4)
+def stream_geometry(lay: FfnLayout, kernel: str, tile: int,
+                    route: int = STREAM_ROUTES["float32"]) -> Tuple[int, int]:
+    """(shared-memory words (4 bytes) besides the tile buffers, words of the
+    tile buffers) of a streamed block of `route` at stock tile `tile`, as
+    csrc/sdf_ffn_stream.cu counts them.
+
+    Routes 2 and 3: two weight slabs of STREAM_SLAB inputs ×
+    16·threads/tile units, the row hashes and the g row; f32 tile rows of
+    tile + 4 floats. The tensor-core route (STREAM_MMA_ROUTE): a ring of
+    STREAM_MMA_STAGES slabs of SU rows × (STREAM_MMA_SLAB + 8) bf16 (SU the
+    units of a pass, 64 a warp with tile/32 of the 8 warps along the stocks,
+    or the widest padded layer where narrower), the row hashes, the g row
+    and STREAM_MMA_RED cross-warp sums; bf16 tile rows of tile + 8."""
+    rows = stream_rows(lay, kernel)
+    if route != STREAM_MMA_ROUTE:
+        fixed = 2 * STREAM_SLAB * (16 * STREAM_THREADS // tile) + 2 * tile
+        return fixed, rows * (tile + 4)
+    su = min(64 * (8 // (tile // 32)),
+             max(_pad(h, STREAM_SLAB) for h in lay.hidden))
+    fixed = (STREAM_MMA_STAGES * su * (STREAM_MMA_SLAB + 8) // 2 + 2 * tile
+             + STREAM_MMA_RED)
+    return fixed, rows * (tile + 8) // 2
 
 
 def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
-                N: int, registers: int = 0
+                N: int, registers: int = 0,
+                route: int = STREAM_ROUTES["float32"]
                 ) -> Tuple[int, int, int, int, int, int]:
-    """The streamed route's launch for `kernel` ("fwd", "bwd" or "dx"):
-    (stock tile, shared memory, resident blocks per SM, G, cells, tile
-    floats a block in global scratch — 0 where the tile buffers sit in
-    shared memory).
+    """The streamed route's launch for `kernel` ("fwd", "bwd" or "dx") on
+    `route` (2 or 3, or the tensor-core STREAM_MMA_ROUTE of the forward and
+    backward): (stock tile, shared memory, resident blocks per SM, G,
+    cells, tile floats a block in global scratch — 0 where the tile buffers
+    sit in shared memory).
 
     Of the stock tiles, with the tile buffers in shared memory where they
-    fit, else in scratch, the one that keeps the most stocks resident per
+    fit, else in scratch (not on the tensor-core route: ldmatrix reads
+    shared memory only), the one that keeps the most stocks resident per
     SM (tile × blocks per SM, shared memory in front; then the larger
     tile). G: a persistent grid over the S·T·⌈N/tile⌉ cells (forward) or
     T·⌈N/tile⌉ (the panel cotangent; the backward's G blocks per member),
@@ -885,6 +948,9 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     scratch budgets allow. Raises naming the limit (width, layers, F,
     shared memory, registers, scratch)."""
     name = f"sdf_ffn_{kernel}"
+    mma = route == STREAM_MMA_ROUTE
+    if mma and kernel not in STREAM_MMA_KERNELS:
+        raise ValueError(f"{name}: no tensor-core streamed route")
     over = [f"{what} {got} exceeds its {cap} ({tag})" for what, got, cap, tag
             in (("hidden width", max(lay.hp), STREAM_MAX_WIDTH, "width"),
                 ("depth of", len(lay.hidden), STREAM_MAX_LAYERS, "layers"),
@@ -896,10 +962,10 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     per = S if kernel == "bwd" else 1  # blocks a G column
     part = 4 * S * (lay.P + T * lay.hidden[0])  # bwd partials a G column
     plans, refused = [], set()
-    for tile in STREAM_TILES:
-        fixed, tf = stream_geometry(lay, kernel, tile)
+    for tile in STREAM_MMA_TILES if mma else STREAM_TILES:
+        fixed, tf = stream_geometry(lay, kernel, tile, route)
         cells = (S if kernel == "fwd" else 1) * T * -(-N // tile)
-        for in_smem in (True, False):
+        for in_smem in (True,) if mma else (True, False):
             smem = 4 * (fixed + (tf if in_smem else 0))
             if smem > MAX_SMEM:
                 refused.add("shared memory")
@@ -941,11 +1007,35 @@ def fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
                                      registers)
         except ValueError:
             pass
-    route = STREAM_ROUTES[compute_dtype]
-    tile, smem, blocks, G, cells, scratch = stream_plan(
-        lay, "fwd", sms, S, T, N, (registers or {}).get(route, 0))
+    route, plan = stream_route_plan(lay, "fwd", sms, S, T, N, compute_dtype,
+                                    registers)
+    tile, smem, blocks, G, cells, scratch = plan
     return FwdPlan(route, tile, STREAM_THREADS, 1, smem, blocks, G, cells,
                    scratch)
+
+
+def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
+                      N: int, compute_dtype: str,
+                      registers: Dict[int, int] = None):
+    """(route, :func:`stream_plan`) of the streamed `kernel` at
+    `compute_dtype`: under bf16 compute the forward and the backward take the
+    tensor-core route (STREAM_MMA_ROUTE) for stacks of at most
+    STREAM_MMA_MAX_LAYERS layers whose bf16 tiles fit shared memory, else
+    route 3 (the tiles in shared memory or scratch); f32 compute, and the
+    panel cotangent, take STREAM_ROUTES[compute_dtype]. `registers` is keyed
+    by route."""
+    regs = registers or {}
+    if (compute_dtype == "bfloat16" and kernel in STREAM_MMA_KERNELS
+            and len(lay.hidden) <= STREAM_MMA_MAX_LAYERS):
+        try:
+            return STREAM_MMA_ROUTE, stream_plan(
+                lay, kernel, sms, S, T, N, regs.get(STREAM_MMA_ROUTE, 0),
+                STREAM_MMA_ROUTE)
+        except ValueError:
+            pass
+    route = STREAM_ROUTES[compute_dtype]
+    return route, stream_plan(lay, kernel, sms, S, T, N,
+                              regs.get(route, 0), route)
 
 
 def resident_fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
@@ -1055,9 +1145,9 @@ def bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
         except ValueError:
             if tile is not None:
                 raise
-    route = STREAM_ROUTES[compute_dtype]
-    bn, smem, blocks, G, _, scratch = stream_plan(
-        lay, "bwd", sms, S, T, N, (registers or {}).get(route, 0))
+    route, plan = stream_route_plan(lay, "bwd", sms, S, T, N, compute_dtype,
+                                    registers)
+    bn, smem, blocks, G, _, scratch = plan
     return BwdPlan(bn, STREAM_THREADS, smem, blocks, G, 0, route, scratch)
 
 
@@ -1215,9 +1305,9 @@ def dx_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
         except ValueError:
             if tile is not None:
                 raise
-    route = STREAM_ROUTES[compute_dtype]
-    bn, smem, blocks, G, cells, scratch = stream_plan(
-        lay, "dx", sms, S, T, N, (registers or {}).get(route, 0))
+    route, plan = stream_route_plan(lay, "dx", sms, S, T, N, compute_dtype,
+                                    registers)
+    bn, smem, blocks, G, cells, scratch = plan
     return DxPlan(route, bn, STREAM_THREADS, 2, 1, False, smem, blocks, G,
                   cells, scratch)
 
@@ -1284,30 +1374,31 @@ _fwd_plans: Dict[tuple, "FwdPlan"] = {}
 # whose registers are its own, else for its f32-panel one
 
 
-_stream_regs: Dict[Tuple[str, str, bool], int] = {}
+_stream_regs: Dict[Tuple[str, int, bool], int] = {}
 
 
-def _stream_registers(kernel: str, compute_dtype: str, xb16: bool) -> int:
-    """Registers per thread of the streamed `kernel`'s instance (0 if the
-    library cannot say)."""
-    key = (kernel, compute_dtype, bool(xb16))
+def _stream_registers(kernel: str, route: int, xb16: bool) -> int:
+    """Registers per thread of the streamed `kernel`'s instance of `route`
+    (0 if the library cannot say)."""
+    key = (kernel, route, bool(xb16))
     if key not in _stream_regs:
-        r = _load_stream(kernel).sdf_ffn_stream_registers(
-            int(compute_dtype == "bfloat16"), int(xb16))
+        lib = _load_stream(kernel)
+        r = (lib.sdf_ffn_stream_mma_registers(int(xb16))
+             if route == STREAM_MMA_ROUTE else lib.sdf_ffn_stream_registers(
+                 int(route == STREAM_ROUTES["bfloat16"]), int(xb16)))
         _stream_regs[key] = max(r, 0)
     return _stream_regs[key]
 
 
-def _card_plan(plan_fn, kernel, lay, sms, resident_regs, compute_dtype,
-               xb16, *args):
+def _card_plan(plan_fn, kernel, lay, sms, resident_regs, xb16, *args):
     """`plan_fn` at the resident library's registers (where the resident
-    route can hold `lay`) and, where it takes the streamed route, again at
-    the streamed library's: a stack that needs no streamed library builds
-    none."""
+    route can hold `lay`) and, where it takes a streamed route, again at
+    that route's registers in the streamed library: a stack that needs no
+    streamed library builds none."""
     regs = dict(resident_regs() if resident_fits(lay) else {})
     plan = plan_fn(lay, sms, *args, registers=regs)
-    if is_stream(plan):
-        regs[plan.route] = _stream_registers(kernel, compute_dtype, xb16)
+    while is_stream(plan) and plan.route not in regs:
+        regs[plan.route] = _stream_registers(kernel, plan.route, xb16)
         plan = plan_fn(lay, sms, *args, registers=regs)
     return plan
 
@@ -1331,8 +1422,7 @@ def card_bwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
     def plan_fn(lay, sms, registers):
         return bwd_plan(lay, sms, S, T, N, tile, registers, compute_dtype)
 
-    return _card_plan(plan_fn, "bwd", lay, _sm_count(dev), resident,
-                      compute_dtype, xb16)
+    return _card_plan(plan_fn, "bwd", lay, _sm_count(dev), resident, xb16)
 
 
 def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
@@ -1355,7 +1445,7 @@ def card_fwd_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
             return fwd_plan(lay, sms, S, T, N, compute_dtype, registers)
 
         _fwd_plans[key] = _card_plan(plan_fn, "fwd", lay, _sm_count(dev),
-                                     resident, compute_dtype, xb16)
+                                     resident, xb16)
     return _fwd_plans[key]
 
 
@@ -1389,7 +1479,7 @@ def card_dx_plan(lay: FfnLayout, dev, S: int, T: int, N: int,
             return dx_plan(lay, sms, S, T, N, compute_dtype, registers, tile)
 
         plan = _card_plan(plan_fn, "dx", lay, _sm_count(dev), resident,
-                          compute_dtype, xb16)
+                          xb16)
         with torch.cuda.device(dev):
             held = dx_plan_info(lay, S, compute_dtype, plan, xb16=xb16)
         if held["blocks_per_sm"] < plan.blocks_per_sm:
@@ -1464,9 +1554,13 @@ def stream_plan_info(kernel: str, lay: FfnLayout, plan,
     per thread of the instance it launches (the plan's route names the
     compute dtype). Raises for a plan the kernel refuses."""
     out = (ctypes.c_int * 3)()
-    rc = _load_stream(kernel).sdf_ffn_stream_plan_info(
-        _layout_ints(lay), int(plan.route == STREAM_ROUTES["bfloat16"]),
-        plan.tile, plan.smem_bytes, int(plan.scratch > 0), int(xb16), out)
+    lib = _load_stream(kernel)
+    rc = (lib.sdf_ffn_stream_mma_plan_info(
+        _layout_ints(lay), plan.tile, plan.smem_bytes, int(xb16), out)
+        if plan.route == STREAM_MMA_ROUTE else lib.sdf_ffn_stream_plan_info(
+            _layout_ints(lay), int(plan.route == STREAM_ROUTES["bfloat16"]),
+            plan.tile, plan.smem_bytes, int(plan.scratch > 0), int(xb16),
+            out))
     if rc != 0:
         raise RuntimeError(f"sdf_ffn_{kernel}_stream refused the plan {plan}"
                            f" (code {rc})")
@@ -1496,9 +1590,16 @@ def _stream_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
     T, _, N = x_t.shape
     S = packed.n_members
     dev = x_t.device
-    if plan.route != STREAM_ROUTES[packed.compute_dtype]:
+    mma = plan.route == STREAM_MMA_ROUTE
+    if not (plan.route == STREAM_ROUTES[packed.compute_dtype]
+            or (mma and packed.compute_dtype == "bfloat16"
+                and kernel in STREAM_MMA_KERNELS)):
         raise ValueError(f"sdf_ffn_{kernel}: the plan {plan} is not the "
                          f"streamed route at {packed.compute_dtype}")
+    if mma:
+        _stream_mma_launch(kernel, x_t, zp, packed, plan, seed, dropout_rate,
+                           offset, outs)
+        return
     blocks = plan.G * (S if kernel == "bwd" else 1)
     scratch = (torch.empty(blocks * plan.scratch, dtype=torch.float32,
                            device=dev) if plan.scratch else None)
@@ -1518,6 +1619,107 @@ def _stream_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
     _raise_rc(f"sdf_ffn_{kernel}_stream", rc)
     panel_launch(f"sdf_ffn_{kernel}", x_t)
     count_launch(f"sdf_ffn_{kernel}{STREAM}", dev)
+
+
+def stream_mma_table(lay: FfnLayout) -> Tuple[int, List[int]]:
+    """(bf16 values a member, [off_a, ld_a, off_t, ld_t] per layer) of the
+    bf16 weight copy the tensor-core route streams: each layer l's matrix
+    A_l [pad16(h_l)][ld_a] (A_l[u][k] = the weight from input k to unit u;
+    ld_a = the layer's inputs padded to STREAM_MMA_SLAB), in layer order,
+    then for l ≥ 1 its transpose [pad16(h_{l-1})][ld_t] (the dh chain's
+    Wᵀ; ld_t = h_l padded), zero past each matrix; l = 0 has no transpose
+    (0, 0). Every offset and row is a multiple of 8 values (16 bytes)."""
+    h, ins = lay.hidden, (lay.F,) + lay.hidden[:-1]
+    off, tab = 0, []
+    for li in range(len(h)):
+        ld = _pad(ins[li], STREAM_MMA_SLAB)
+        tab.append([off, ld, 0, 0])
+        off += _pad(h[li], 16) * ld
+    for li in range(1, len(h)):
+        ld = _pad(h[li], STREAM_MMA_SLAB)
+        tab[li][2:] = [off, ld]
+        off += _pad(h[li - 1], 16) * ld
+    return off, [x for row in tab for x in row]
+
+
+def _stream_mma_index(lay: FfnLayout) -> Tuple[int, np.ndarray]:
+    """(values a member, the packed f32 index each value of the bf16 copy
+    reads: P, one past the packed row, where it is zero)."""
+    Pb, tab = stream_mma_table(lay)
+    src = np.full(Pb, lay.P, np.int64)
+    h, hp = lay.hidden, lay.hp
+    for li in range(len(h)):
+        off_a, ld_a, off_t, ld_t = tab[4 * li:4 * li + 4]
+        u = np.arange(h[li])[:, None]
+        if li == 0:  # k1 [F][hp0]: input k, unit u at k·hp0 + u
+            k = np.arange(lay.F)[None, :]
+            src[off_a + u * ld_a + k] = k * hp[0] + u
+            continue
+        k = np.arange(h[li - 1])[None, :]  # W_l [h_l][hp_{l-1}]
+        src[off_a + u * ld_a + k] = lay.off_w[li] + u * hp[li - 1] + k
+        src[off_t + k.T * ld_t + u.T] = lay.off_w[li] + u.T * hp[li - 1] + k.T
+    return Pb, src
+
+
+_mma_index: Dict[Tuple[FfnLayout, str], Tuple[int, torch.Tensor]] = {}
+_mma_tabs: Dict[Tuple[FfnLayout, str], torch.Tensor] = {}
+
+
+def stream_mma_weights(packed: PackedFfn) -> torch.Tensor:
+    """[S, Pb] bf16: the bf16 copy of `packed`'s weights that the
+    tensor-core route streams (:func:`stream_mma_table`'s layout), gathered
+    from packed.params on their device. Under bf16 compute the packed
+    weights are already bf16 values (:func:`pack_ffn`), so the copy is
+    exact. The route's wrapper makes it at each launch, so it follows
+    weights updated in place (a serving engine's hot reload, a CUDA graph's
+    replay)."""
+    if packed.compute_dtype != "bfloat16":
+        raise ValueError("sdf_ffn: the bf16 weight copy is the bf16-compute "
+                         "route's")
+    dev = packed.params.device
+    key = (packed.layout, str(dev))
+    if key not in _mma_index:
+        Pb, src = _stream_mma_index(packed.layout)
+        _mma_index[key] = (Pb, torch.from_numpy(src).to(dev))
+    _, src = _mma_index[key]
+    padded = torch.nn.functional.pad(packed.params, (0, 1))
+    return padded[:, src].to(torch.bfloat16).contiguous()
+
+
+def _stream_mma_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
+                       packed: PackedFfn, plan, seed: Seed,
+                       dropout_rate: float, offset: int,
+                       outs: Sequence[torch.Tensor]) -> None:
+    """One launch of the streamed `kernel`'s tensor-core form at `plan`
+    (fwd: out; bwd: g, grad_part, dzp_part), the bf16 weight copy made
+    here; counts it under the kernel, its ``_stream`` and its
+    ``_stream_mma`` forms."""
+    lay = packed.layout
+    T, _, N = x_t.shape
+    S = packed.n_members
+    dev = x_t.device
+    wb = stream_mma_weights(packed)
+    key = (lay, str(dev))
+    if key not in _mma_tabs:
+        _mma_tabs[key] = torch.tensor(stream_mma_table(lay)[1],
+                                      dtype=torch.int32, device=dev)
+    drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_load_stream(kernel), f"sdf_ffn_{kernel}_stream_mma")(
+            *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
+            wb.data_ptr(), _mma_tabs[key].data_ptr(), wb.shape[1],
+            *(t.data_ptr() for t in outs), _layout_ints(lay),
+            _layout_dev(lay, dev).data_ptr(), S, T, N, *drop, plan.tile,
+            plan.smem_bytes, plan.G, stream)
+    if rc == -1:
+        raise RuntimeError(f"sdf_ffn_{kernel}_stream_mma refused the plan "
+                           f"{plan} for hidden {list(lay.hidden)}, F = "
+                           f"{lay.F}")
+    _raise_rc(f"sdf_ffn_{kernel}_stream_mma", rc)
+    panel_launch(f"sdf_ffn_{kernel}", x_t)
+    count_launch(f"sdf_ffn_{kernel}{STREAM}", dev)
+    count_launch(f"sdf_ffn_{kernel}{STREAM_MMA}", dev)
 
 
 def _launch_bwd(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,

@@ -1,11 +1,14 @@
 """The launch plans of the kernel route's shape range (CPU arithmetic): the
 SDF-FFN's streamed-weight route (ops/sdf_ffn.py stream_plan, as
 csrc/sdf_ffn_stream.cu counts its shared memory), where it is chosen, its
-reach and its refusals; the conditional EM's moment chunks
-(ops/cond_em.py moment_chunks, cem_plan / cem_dx_plan of a chunk); and the
-panel cotangent's plan for one member with few characteristics (C11)."""
+reach and its refusals, and its tensor-core form under bf16 compute (route
+STREAM_MMA_ROUTE: bf16 tiles, its bf16 weight copy); the conditional EM's
+moment chunks (ops/cond_em.py moment_chunks, cem_plan / cem_dx_plan of a
+chunk); and the panel cotangent's plan for one member with few
+characteristics (C11)."""
 
 import pytest
+import torch
 
 from deeplearninginassetpricing_paperreplication_torch.ops import cond_em as C
 from deeplearninginassetpricing_paperreplication_torch.ops import sdf_ffn as K
@@ -16,6 +19,9 @@ KINDS = ("fwd", "bwd", "dx")
 # chip_smoke.py phase 21 (a): widths above 128, 12 and 16 layers, F = 256
 PHASE21 = [((256, 256), 46), ((132,), 46), ((64,) * 12, 46),
            ((64,) * 16, 46), ((64, 64), 256)]
+# the streamed route's stocks per SM at (256, 256) before its tensor-core
+# form (one block an SM: forward tile 64, backward 32)
+CUDA_CORE_STOCKS = {"fwd": 64, "bwd": 32}
 # shapes the resident kernels plan today (the plan tests' grids)
 RESIDENT = [((64, 64), 46), ((128, 128), 46), ((64, 64, 64), 46),
             ((32, 32), 46), ((8, 7, 6), 10), ((64, 64), 80), ((8,), 5)]
@@ -47,19 +53,29 @@ def test_streamed_plans_fit_the_block(hidden, F, S, kind):
     threads and the SM: its shared memory is the slabs, row hashes and g
     row, plus the tile buffers where they sit in shared memory (else a
     scratch slice a block); G fills at most the resident blocks (per member
-    for the backward) and the scratch budgets."""
+    for the backward) and the scratch budgets. Under bf16 compute the
+    forward and the backward take the tensor-core route, its bf16 tiles in
+    shared memory, at least twice the (256, 256) stocks per SM of the CUDA
+    cores' (forward 2 × 64, backward 2 × 32), up to STREAM_MMA_MAX_LAYERS
+    layers; the 12- and 16-layer stacks keep route 3."""
     lay = K.ffn_layout(F, hidden)
     for cd in DTYPES:
         plan = _plan(kind, lay, S, cd)
         if not K.is_stream(plan):
             assert K.resident_fits(lay)  # only (64, 64) at F = 256
             continue
-        assert plan.route == K.STREAM_ROUTES[cd]
+        mma = (cd == "bfloat16" and kind in K.STREAM_MMA_KERNELS
+               and len(hidden) <= K.STREAM_MMA_MAX_LAYERS)
+        assert plan.route == (K.STREAM_MMA_ROUTE if mma
+                              else K.STREAM_ROUTES[cd])
         assert plan.threads == K.STREAM_THREADS
-        assert plan.tile in K.STREAM_TILES
-        fixed, tf = K.stream_geometry(lay, kind, plan.tile)
+        assert plan.tile in (K.STREAM_MMA_TILES if mma else K.STREAM_TILES)
+        fixed, tf = K.stream_geometry(lay, kind, plan.tile, plan.route)
         assert plan.smem_bytes == 4 * (fixed + (0 if plan.scratch else tf))
-        assert plan.scratch in (0, tf)
+        assert plan.scratch in ((0,) if mma else (0, tf))
+        if mma:
+            assert plan.tile * plan.blocks_per_sm >= 2 * CUDA_CORE_STOCKS[
+                kind]
         assert plan.smem_bytes <= K.MAX_SMEM
         assert plan.blocks_per_sm >= 1
         assert plan.blocks_per_sm * (plan.smem_bytes + K.BLOCK_SMEM_RESERVED
@@ -102,12 +118,118 @@ def test_streamed_route_only_where_no_resident_plan_fits(hidden, F, S, kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_reach_widths_1024_depth_32_F_512_nine_members(kind):
+    """The reach plans with its tile buffers in scratch; under bf16 compute
+    that is route 3 on the CUDA cores (the tensor-core route's ldmatrix
+    reads shared memory only): a plan decision by shape."""
     lay = K.ffn_layout(512, (1024,) * 32)
     for S in (1, 9):
         for cd in DTYPES:
             plan = _plan(kind, lay, S, cd)
             assert K.is_stream(plan) and plan.G >= 1
             assert plan.scratch > 0  # the tile buffers go to scratch
+            assert plan.route == K.STREAM_ROUTES[cd]
+    if kind in K.STREAM_MMA_KERNELS:
+        with pytest.raises(ValueError, match="shared memory"):
+            K.stream_plan(lay, kind, SMS, 1, T, N,
+                          route=K.STREAM_MMA_ROUTE)
+
+
+@pytest.mark.parametrize("kind", K.STREAM_MMA_KERNELS)
+@pytest.mark.parametrize("depth", [K.STREAM_MMA_MAX_LAYERS,
+                                   K.STREAM_MMA_MAX_LAYERS + 1, 12, 16])
+def test_tensor_core_route_up_to_its_depth(depth, kind):
+    """A plan decision by depth: bf16 stacks of at most STREAM_MMA_MAX_LAYERS
+    layers past the resident kernels take the tensor-core route, deeper
+    ones route 3 (tiles in shared memory, the CUDA cores), the forward and
+    the backward alike."""
+    lay = K.ffn_layout(46, (144,) * depth if depth <= 6 else (64,) * depth)
+    for S in (1, 9):
+        plan = _plan(kind, lay, S, "bfloat16")
+        deep = depth > K.STREAM_MMA_MAX_LAYERS
+        assert plan.route == (K.STREAM_ROUTES["bfloat16"] if deep
+                              else K.STREAM_MMA_ROUTE)
+        assert K.is_stream(plan)
+
+
+@pytest.mark.parametrize("kind,tile,smem,G9", [
+    ("fwd", 64, 161_024, 132), ("bwd", 32, 171_008, 14)])
+def test_f32_streamed_plans_at_256x256_are_the_cuda_cores(kind, tile, smem,
+                                                          G9):
+    """f32 compute keeps the CUDA-core route's plans: (256, 256), F = 46,
+    one block an SM."""
+    lay = K.ffn_layout(46, (256, 256))
+    for S, G in ((1, 132), (9, G9 if kind == "bwd" else 132)):
+        plan = _plan(kind, lay, S, "float32")
+        assert (plan.route, plan.tile, plan.smem_bytes, plan.blocks_per_sm,
+                plan.G, plan.scratch) == (K.STREAM_ROUTES["float32"], tile,
+                                          smem, 1, G, 0)
+
+
+@pytest.mark.parametrize("kind", K.STREAM_MMA_KERNELS)
+@pytest.mark.parametrize("hidden,F", [((256, 256), 46), ((132,), 46),
+                                      ((144,) * 4, 46), ((200, 136, 160), 80)],
+                         ids=["256x256", "132", "4x144", "200-136-160"])
+def test_tensor_core_smem_is_what_the_kernel_counts(hidden, F, kind):
+    """The tensor-core plan's shared memory, counted as
+    csrc/sdf_ffn_stream.cu's mma_smem_bytes counts it: a ring of three
+    slabs of SU rows × 40 bf16, the row hashes and the g row, 512 floats of
+    cross-warp sums, then the bf16 tile rows of tile + 8."""
+    lay = K.ffn_layout(F, hidden)
+    plan = _plan(kind, lay, 1, "bfloat16")
+    assert plan.route == K.STREAM_MMA_ROUTE
+    su = min(64 * 8 // (plan.tile // 32),
+             max(-(-h // 16) * 16 for h in hidden))
+    rows = K.stream_rows(lay, kind)
+    assert plan.smem_bytes == (2 * 3 * su * 40 + 8 * plan.tile + 4 * 512
+                               + 2 * rows * (plan.tile + 8))
+    assert plan.smem_bytes <= K.MAX_SMEM
+    if hidden == (256, 256):
+        assert (plan.tile, plan.blocks_per_sm) == (
+            (128, 1) if kind == "fwd" else (64, 1))
+
+
+@pytest.mark.parametrize("hidden,F,S", [((256, 256), 46, 2), ((132,), 46, 1),
+                                        ((12,) * 3, 5, 3),
+                                        ((8, 7, 6), 10, 2)])
+def test_stream_mma_weights_equal_the_packed_weights(hidden, F, S):
+    """The tensor-core route's bf16 weight copy holds exactly the packed
+    (bf16-rounded) weights: each layer's [units][inputs] matrix and, from
+    the second layer, its transpose, zero past them, every offset and row
+    16-byte aligned."""
+    g = torch.Generator().manual_seed(3)
+    k1T = torch.randn(S, hidden[0], F, generator=g)
+    mids = [(torch.randn(S, hidden[i], hidden[i - 1], generator=g),
+             torch.randn(S, hidden[i], generator=g))
+            for i in range(1, len(hidden))]
+    packed = K.pack_ffn(k1T, mids, torch.randn(S, hidden[-1], generator=g),
+                        torch.randn(S, generator=g), "bfloat16")
+    wb = K.stream_mma_weights(packed)
+    Pb, tab = K.stream_mma_table(packed.layout)
+    assert wb.dtype == torch.bfloat16 and wb.shape == (S, Pb)
+    assert all(v % 8 == 0 for v in tab)
+    dk1T, dmids, _, _ = K.unpack_grads(packed.params, packed.layout)
+    weights = [dk1T] + [w for w, _ in dmids]
+    ins = (F,) + tuple(hidden[:-1])
+    covered = 0
+    for li, w in enumerate(weights):
+        off_a, ld_a, off_t, ld_t = tab[4 * li:4 * li + 4]
+        rows = -(-hidden[li] // 16) * 16
+        a = wb[:, off_a:off_a + rows * ld_a].float().view(S, rows, ld_a)
+        assert torch.equal(a[:, :hidden[li], :ins[li]], w)
+        assert not a[:, hidden[li]:].any() and not a[:, :, ins[li]:].any()
+        covered += rows * ld_a
+        if li:
+            rows = -(-ins[li] // 16) * 16
+            at = wb[:, off_t:off_t + rows * ld_t].float().view(S, rows, ld_t)
+            assert torch.equal(at[:, :ins[li], :hidden[li]],
+                               w.transpose(1, 2))
+            assert not at[:, ins[li]:].any()
+            assert not at[:, :, hidden[li]:].any()
+            covered += rows * ld_t
+    assert covered == Pb
+    with pytest.raises(ValueError, match="bf16"):
+        K.stream_mma_weights(K.pack_ffn(k1T, mids, torch.zeros(S, hidden[-1]),
+                                        torch.zeros(S), "float32"))
 
 
 @pytest.mark.parametrize("hidden,F,limit", [
@@ -118,10 +240,11 @@ def test_reach_widths_1024_depth_32_F_512_nine_members(kind):
 def test_shapes_beyond_every_route_raise_naming_the_limit(hidden, F, limit):
     lay = K.ffn_layout(F, hidden)
     for kind in KINDS:
-        with pytest.raises(ValueError, match="does not fit the streamed "
-                                             "route") as e:
-            _plan(kind, lay, 1, "float32")
-        assert limit in str(e.value)
+        for cd in DTYPES:
+            with pytest.raises(ValueError, match="does not fit the streamed "
+                                                 "route") as e:
+                _plan(kind, lay, 1, cd)
+            assert limit in str(e.value)
     assert not K.kernel_route_takes(F, hidden)
 
 
