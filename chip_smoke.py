@@ -457,10 +457,13 @@ Phases, each printing its results; any failure exits non-zero:
 21. The kernel route's shape range, on phase 6's panel written anew: (a)
    the three FFN kernels at stacks the resident kernels cannot hold (the
    streamed route: CUDA cores, routes 2 f32 / 3 bf16, and under bf16
-   compute the forward's and backward's tensor-core form, route 4) and
+   compute each kernel's tensor-core form, route 4, up to 4 layers) and
    the conditional EM past 16 moments, against their plain versions;
    the streamed forward and backward bit for bit each other (kout = e_j,
-   g one-hot); timed rows at (256, 256), T = 48, N = 10,000; (b) the train
+   g one-hot); the panel cotangent's route 4 through its audit build (0
+   top-layer decisions flipped outside the certified window) and beside
+   route 3 on a forced plan; timed rows at (256, 256), T = 48, N = 10,000,
+   and route 3 against route 4 in turns; (b) the train
    CLI at ``--hidden_dim 256 256 --num_moments 32``, f32 and bf16 compute,
    kernel route against ``--kernel off``; (c) its S = 9 panel gradient;
    (d) a served (256, 256) trio.
@@ -8951,6 +8954,9 @@ SH_C11 = [(1, 48, 10_000, 5, k) for k in (1, 4, 8)]  # F ≤ 6, S = 1, f32
 # stock) of the one-hot g (a stock inside a tile, not its first)
 SH_AGREE_UNITS = tuple(range(0, 256, 17))  # 16 units, 0 … 255
 SH_AGREE_AT = (3, 5003)
+# the panel cotangent's route 4: its audit and route 3 beside it at these
+# stacks (≤ 4 layers: the top layer 256, 132 and 64 deep)
+SH_AUDIT = [((256, 256), 46), ((132,), 46), ((64, 64), 256)]
 # (b)-(d): the train CLI's shape range run
 SH_HIDDEN = (256, 256)
 SH_MOMENTS = 32
@@ -9095,6 +9101,7 @@ def shapes_kernel_checks(torch, K, C, card):
             _sh_check(torch, name, cd, out, wide, plain(panel), w)
             del out, again, wide
 
+    dx_mma = {}  # the panel cotangent's tensor-core launches of each case
     for hidden, F in SH_STACKS:
         for S in (1, 9):
             x = torch.randn(T, F, N, generator=g, device=dev)
@@ -9112,6 +9119,8 @@ def shapes_kernel_checks(torch, K, C, card):
                     torch.cuda.synchronize()
                     for name, n in zip(SH_KERNELS[:3], stream_counts(K)):
                         streamed[(name, hidden, F, S, cd)] = n > 0
+                    dx_mma[(hidden, F, S, cd, rate)] = (
+                        K.dx_launches_stream_mma, K.dx_launches)
             print(f"[shapes] hidden={_stack_text(hidden)} F={F} S={S}: fwd,"
                   f" bwd, dx within their bars (both computes, panels, "
                   f"dropout {list(SH_RATES)}), bit for bit repeatable; "
@@ -9127,6 +9136,24 @@ def shapes_kernel_checks(torch, K, C, card):
                       for cd in ("float32", "bfloat16")),
                   f"{name} did not take the streamed route at hidden="
                   f"{_stack_text(hidden)}")
+    # the panel cotangent's route: 4 (tensor cores) under bf16 compute at
+    # most STREAM_MMA_MAX_LAYERS deep, else 3; never under f32. Each case
+    # made 5 launches (two a panel and the widened one)
+    for (hidden, F, S, cd, rate), (mma, total) in dx_mma.items():
+        want = (5 if cd == "bfloat16"
+                and len(hidden) <= K.STREAM_MMA_MAX_LAYERS else 0)
+        check(total == 5 and mma == want,
+              f"sdf_ffn_dx hidden={_stack_text(hidden)} F={F} S={S} {cd} "
+              f"dropout {rate}: {mma} of {total} launches on route 4, not "
+              f"{want}")
+    print(f"[shapes] sdf_ffn_dx under bf16 compute on route 4 (tensor "
+          f"cores) at "
+          + ", ".join(f"{_stack_text(h)} F={f}" for h, f in SH_STACKS
+                      if len(h) <= K.STREAM_MMA_MAX_LAYERS)
+          + ", route 3 at "
+          + ", ".join(f"{_stack_text(h)} F={f}" for h, f in SH_STACKS
+                      if len(h) > K.STREAM_MMA_MAX_LAYERS)
+          + f"; f32 never on route 4 ({card})", flush=True)
     for Kn in SH_KS:
         n = len(C.moment_chunks(Kn))
         for S in (1, 9):
@@ -9166,15 +9193,156 @@ def shapes_kernel_checks(torch, K, C, card):
               f"{plan.threads} G {plan.G}; max|d|/max|ref| {err:.2e} "
               f"({card})", flush=True)
     shapes_agreement_check(torch, K, card)
-    return shapes_kernel_rows(torch, K, C, card)
+    audit = shapes_dx_audit(torch, K, card)
+    rows = shapes_kernel_rows(torch, K, C, card)
+    rows["dx_route4"] = dict(audit=audit, in_turns=shapes_dx_turns(
+        torch, K, card))
+    return rows
+
+
+def _dx_route3_plan(torch, K, lay, S, T, N, xb16):
+    """The streamed panel cotangent's route-3 plan (bf16 compute on the
+    CUDA cores) for this card, forced where bf16 compute plans route 4."""
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    route = K.STREAM_ROUTES["bfloat16"]
+    tile, smem, blocks, G, cells, scratch = K.stream_plan(
+        lay, "dx", sms, S, T, N, K._stream_registers("dx", route, xb16),
+        route)
+    return K.DxPlan(route, tile, K.STREAM_THREADS, 2, 1, False, smem, blocks,
+                    G, cells, scratch)
+
+
+def shapes_dx_audit(torch, K, card):
+    """(a) The streamed panel cotangent's route 4 at SH_AUDIT, S = 1 and
+    9, dropout 0 and 0.1, on the bf16 panel (T = SH_T): its audit build
+    computes the exact chain of every top-layer element beside its mma sum
+    and must find 0 decisions flipped outside the certified window, its dx
+    bit for bit the main library's; route 3 through a forced plan beside
+    it, both against the plain version at phase 3's bars. Returns the
+    counters summed over the cases (max_ratio their largest), with the
+    windows."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(25)
+    T, N = SH_T, SH_N
+    total = dict.fromkeys(K.AUDIT_COUNTERS[:-1], 0)
+    total["max_ratio"] = 0.0
+    windows = {}
+    for hidden, F in SH_AUDIT:
+        lay = K.ffn_layout(F, hidden)
+        depth = hidden[-2] if len(hidden) > 1 else F
+        window = K.stream_certify_window(depth)
+        windows[_stack_text(hidden) + f" F={F}"] = window
+        for S in (1, 9):
+            x = torch.randn(T, F, N, generator=g, device=dev).to(
+                torch.bfloat16)
+            zp, k1T, mids, kout, bout, gout, seed = _sh_inputs(
+                torch, g, S, T, N, F, hidden, 8, dev)[:7]
+            packed = K.pack_ffn(k1T, mids, kout, bout, "bfloat16")
+            plan4 = K.card_dx_plan(lay, dev, S, T, N, "bfloat16", xb16=True)
+            plan3 = _dx_route3_plan(torch, K, lay, S, T, N, True)
+            check(plan4.route == K.STREAM_MMA_ROUTE,
+                  f"sdf_ffn_dx bf16 hidden={_stack_text(hidden)} F={F}: plan "
+                  f"{plan4}, not route {K.STREAM_MMA_ROUTE}")
+            for rate in SH_RATES:
+                what = (f"sdf_ffn_dx route 4 hidden={_stack_text(hidden)} "
+                        f"F={F} S={S} bf16 dropout {rate}")
+                d4 = K._launch_dx(x, zp, packed, gout, seed, rate, plan4)
+                da, counts = K.dx_audit(x, zp, packed, gout, seed, rate,
+                                        plan4)
+                d3 = K._launch_dx(x, zp, packed, gout, seed, rate, plan3)
+                ref = K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout,
+                                             "bfloat16", seed, rate)
+                torch.cuda.synchronize()
+                check(torch.equal(da.view(torch.int16), d4.view(torch.int16)),
+                      f"{what}: the audit build's dx is not the main "
+                      f"library's bit for bit")
+                check(counts["elements"] == S * T * N * hidden[-1]
+                      and counts["flips_outside"] == 0,
+                      f"{what}: the audit counted {counts}")
+                e4 = _sh_check(torch, "sdf_ffn_dx", "bfloat16", [d4], None,
+                               [ref], what)
+                e3 = _sh_check(torch, "sdf_ffn_dx", "bfloat16", [d3], None,
+                               [ref], what.replace("route 4", "route 3"))
+                d43 = float((d4.float() - d3.float()).abs().max()) / float(
+                    ref.float().abs().max())
+                for k in K.AUDIT_COUNTERS[:-1]:
+                    total[k] += counts[k]
+                total["max_ratio"] = max(total["max_ratio"],
+                                         counts["max_ratio"])
+                print(f"[shapes dx audit] {what}: {counts['elements']} "
+                      f"top-layer decisions, {counts['certified']} certified"
+                      f" (recomputed), {counts['flips']} mma signs differ "
+                      f"from the chain, {counts['flips_outside']} outside "
+                      f"the window; max|mma - chain|/bound "
+                      f"{counts['max_ratio']:.3e} (window {window:.3e}); "
+                      f"audit kernel {counts['registers']} registers, "
+                      f"{counts['local_bytes']} B local; "
+                      f"max|d|/max|ref| route 4 {e4:.3e}, route 3 (forced "
+                      f"plan, tile {plan3.tile}) {e3:.3e}, route 4 vs route "
+                      f"3 {d43:.3e} ({card})", flush=True)
+                del d4, da, d3, ref
+            del x
+    print(f"[shapes dx audit] route 4 at {len(SH_AUDIT)} stacks × S = 1, 9 × "
+          f"dropout {list(SH_RATES)}: {total['elements']} decisions, "
+          f"{total['certified']} certified, {total['flips']} mma flips, "
+          f"{total['flips_outside']} outside the window; max|mma - chain|/"
+          f"bound {total['max_ratio']:.3e}; windows {windows} ({card})",
+          flush=True)
+    return dict(total, windows=windows)
+
+
+def shapes_dx_turns(torch, K, card):
+    """The streamed panel cotangent at (256, 256), F = 46, SH_ROW, dropout
+    DROPOUT, bf16 compute on the bf16 panel: route 3 (a forced plan) and
+    route 4 (the card's plan) timed in turns (route 3, 4, 4, 3) at S = 1
+    and 9, after holding route 4 at phase 3's bars against the plain
+    version. Returns {S: {route3_ms: [a, b], route4_ms: [a, b]}}."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(26)
+    T, N = SH_ROW
+    F, hidden = 46, SH_HIDDEN
+    lay = K.ffn_layout(F, hidden)
+    out = {}
+    for S in (1, 9):
+        x = torch.randn(T, F, N, generator=g, device=dev).to(torch.bfloat16)
+        zp, k1T, mids, kout, bout, gout, seed = _sh_inputs(
+            torch, g, S, T, N, F, hidden, 8, dev)[:7]
+        packed = K.pack_ffn(k1T, mids, kout, bout, "bfloat16")
+        plan4 = K.card_dx_plan(lay, dev, S, T, N, "bfloat16", xb16=True)
+        plan3 = _dx_route3_plan(torch, K, lay, S, T, N, True)
+
+        def r3():
+            return K._launch_dx(x, zp, packed, gout, seed, DROPOUT, plan3)
+
+        def r4():
+            return K._launch_dx(x, zp, packed, gout, seed, DROPOUT, plan4)
+        ref = K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout,
+                                     "bfloat16", seed, DROPOUT)
+        err = _sh_check(torch, "sdf_ffn_dx", "bfloat16", [r4()], None, [ref],
+                        f"sdf_ffn_dx route 4 at its timed shape S={S}")
+        del ref
+        t = [cuda_ms(torch, f, reps=3, warmup=1) for f in (r3, r4, r4, r3)]
+        out[S] = dict(route3_ms=[t[0], t[3]], route4_ms=[t[1], t[2]],
+                      route3_tile=plan3.tile, route4_tile=plan4.tile)
+        print(f"[shapes dx turns] sdf_ffn_dx bf16 (bf16 panel) S={S} T={T} "
+              f"N={N} hidden={list(hidden)} dropout {DROPOUT}: route 3 "
+              f"(tile {plan3.tile}) {t[0]:.4f} / {t[3]:.4f} ms, route 4 "
+              f"(tile {plan4.tile}) {t[1]:.4f} / {t[2]:.4f} ms; route 4 "
+              f"max|d|/max|ref| {err:.2e} ({card})", flush=True)
+        check(S == 1 or max(t[1], t[2]) < min(t[0], t[3]),
+              f"sdf_ffn_dx S={S}: route 4 ({t[1]:.4f}, {t[2]:.4f} ms) is not "
+              f"faster than route 3 ({t[0]:.4f}, {t[3]:.4f} ms)")
+        del x
+    return out
 
 
 def _older_stream_libs(K, _nvcc, src_dir):
-    """{kernel: ctypes function} of the streamed route's three kernels built
-    from another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
+    """({kernel: ctypes function} of the streamed route's three kernels,
+    {kernel: its tensor-core entry} of the forward and backward) built from
+    another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
     sdf_ffn_common.cuh and panel.cuh, with this tree's argument lists of
-    sdf_ffn_{fwd,bwd,dx}_stream), bound as this tree binds its own, one nvcc
-    each, all started together."""
+    sdf_ffn_{fwd,bwd,dx}_stream and sdf_ffn_{fwd,bwd}_stream_mma), bound as
+    this tree binds its own, one nvcc each, all started together."""
     import ctypes
 
     src = Path(src_dir).resolve()
@@ -9185,30 +9353,38 @@ def _older_stream_libs(K, _nvcc, src_dir):
         procs[kernel] = (out, subprocess.Popen(
             [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, f"-DSDF_FFN_STREAM_KERNEL={i}",
              "-o", str(out), str(src / K.STREAM_SOURCE)]))
-    fns = {}
+    fns, mma = {}, {}
     for kernel, (out, proc) in procs.items():
         check(proc.wait() == 0, f"the older {src.name}/{K.STREAM_SOURCE} "
               f"(kernel {kernel}) did not build")
-        fn = getattr(ctypes.CDLL(str(out)), f"sdf_ffn_{kernel}_stream")
+        lib = ctypes.CDLL(str(out))
+        fn = getattr(lib, f"sdf_ffn_{kernel}_stream")
         fn.argtypes = K._STREAM_ARGTYPES[kernel]
         fn.restype = ctypes.c_int
         fns[kernel] = fn
-    return fns
+        if kernel != "dx":
+            fn = getattr(lib, f"sdf_ffn_{kernel}_stream_mma")
+            fn.argtypes = K._STREAM_MMA_ARGTYPES[kernel]
+            fn.restype = ctypes.c_int
+            mma[kernel] = fn
+    return fns, mma
 
 
 def compare_stream(torch, K, _nvcc, src_dir, card):
     """The streamed route's CUDA-core instances against an older source's
     (src_dir/sdf_ffn_stream.cu, this tree's argument lists) on the same
     plans (route 2 at f32, route 3 at bf16, as the card holds them): the
-    f32 instances of all three kernels and the bf16-compute ones of the
-    panel cotangent (and of the forward and backward, which bf16 compute
-    now plans on the tensor-core form where it fits) at phase 21's stacks,
+    f32 instances of all three kernels and the bf16-compute ones (route 3
+    on a forced plan where bf16 compute now plans the tensor-core form) at
+    phase 21's stacks,
     T = SH_T, S = 1 and 9, both panels, dropout 0 and 0.1, offset 0, bit for
     bit (int views of every output); then timed in turns (old, new, new,
     old) at (256, 256), SH_ROW, dropout 0.05: the forward and backward at
     S = 1, the panel cotangent at S = 9, f32 on the f32 panel and bf16 on
-    the bf16 panel."""
-    olds = _older_stream_libs(K, _nvcc, src_dir)
+    the bf16 panel. Likewise the forward's and backward's tensor-core forms
+    (route 4) where bf16 compute plans them, bit for bit and, at (256,
+    256), S = 1, timed in turns."""
+    olds, old_mma = _older_stream_libs(K, _nvcc, src_dir)
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(23)
@@ -9242,9 +9418,48 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
             return [o for o in outs if o is not gout]
         return run
 
+    def mma_caller(kernel, fn, x, zp, packed, plan, gout, seed, rate):
+        S, lay = packed.n_members, packed.layout
+        T, F, N = x.shape
+        tile, smem, _, G, _, _ = plan
+        wb = K.stream_mma_weights(packed)
+        wtab = torch.tensor(K.stream_mma_table(lay)[1], dtype=torch.int32,
+                            device=dev)
+
+        def run():
+            drop, _bases = K._dropout_args(seed, rate, S, dev)
+            if kernel == "fwd":
+                outs = (torch.empty(S, T, N, device=dev),)
+            else:
+                outs = (gout, torch.zeros(S, G, lay.P, device=dev),
+                        torch.zeros(S, G, T, lay.hidden[0], device=dev))
+            rc = fn(*K._panel_args(x), zp.data_ptr(),
+                    packed.params.data_ptr(), wb.data_ptr(), wtab.data_ptr(),
+                    wb.shape[1], *(t.data_ptr() for t in outs),
+                    K._layout_ints(lay), K._layout_dev(lay, dev).data_ptr(),
+                    S, T, N, *drop, tile, smem, G,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"sdf_ffn_{kernel}_stream_mma failed (code {rc})")
+            return [o for o in outs if o is not gout]
+        return run
+
     def ints(t):
         return t.view(torch.int16 if t.dtype == torch.bfloat16
                       else torch.int32)
+
+    def mma_plan_of(kernel, lay, S, T, N, xb16):
+        regs = K._stream_registers(kernel, K.STREAM_MMA_ROUTE, xb16)
+        return K.stream_plan(lay, kernel, sms, S, T, N, regs,
+                             K.STREAM_MMA_ROUTE)
+
+    def mma_pair(kernel, x, zp, packed, gout, seed, rate):
+        plan = mma_plan_of(kernel, packed.layout, packed.n_members,
+                           x.shape[0], x.shape[2], x.dtype == torch.bfloat16)
+        new = getattr(K._load_stream(kernel), f"sdf_ffn_{kernel}_stream_mma")
+        return (mma_caller(kernel, old_mma[kernel], x, zp, packed, plan,
+                           gout, seed, rate),
+                mma_caller(kernel, new, x, zp, packed, plan, gout, seed,
+                           rate))
 
     def streams(kernel, lay, S, T, N, cd):
         if kernel == "fwd":
@@ -9274,6 +9489,25 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
             gout = torch.randn(S, T, N, generator=g, device=dev) / N
             seed = 9 if S == 1 else list(range(9, 9 + S))
             done = []
+            for kernel in ("fwd", "bwd"):
+                packed = K.pack_ffn(k1T, mids, kout, bout, "bfloat16")
+                if K.stream_route_plan(lay, kernel, sms, S, T, N,
+                                       "bfloat16")[0] != K.STREAM_MMA_ROUTE:
+                    continue  # deeper than route 4's stacks
+                for xb in (x, x.to(torch.bfloat16)):
+                    for rate in SH_RATES:
+                        old, new = mma_pair(kernel, xb, zp, packed, gout,
+                                            seed, rate)
+                        a, b = old(), new()
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(ints(p), ints(q))
+                                  for p, q in zip(a, b)),
+                              f"sdf_ffn_{kernel}_stream_mma "
+                              f"{'bf16' if xb is not x else 'f32'} panel "
+                              f"hidden={_stack_text(hidden)} F={F} S={S} "
+                              f"dropout {rate}: differs from {name}'s")
+                        compared += 1
+                done.append(f"{kernel} route 4")
             for kernel, cd in kinds:
                 packed = K.pack_ffn(k1T, mids, kout, bout, cd)
                 if not streams(kernel, lay, S, T, N, cd):
@@ -9335,6 +9569,24 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
               f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
               f"{t[2]:.4f} ms ({card})", flush=True)
         del x, xb
+    for kernel in ("fwd", "bwd"):  # route 4 at S = 1 on the bf16 panel
+        x = torch.randn(T, F, N, generator=g, device=dev).to(torch.bfloat16)
+        zp1, k1T, mids, kout, bout = _ffn_params(torch, g, 1, F, hidden, dev)
+        zp = zp1.expand(1, T, hidden[0]).contiguous()
+        gout = torch.randn(1, T, N, generator=g, device=dev) / N
+        packed = K.pack_ffn(k1T, mids, kout, bout, "bfloat16")
+        old, new = mma_pair(kernel, x, zp, packed, gout, 5, DROPOUT)
+        check(all(torch.equal(ints(p), ints(q))
+                  for p, q in zip(old(), new())),
+              f"sdf_ffn_{kernel}_stream_mma at its timed shape differs from "
+              f"{name}'s")
+        t = [cuda_ms(torch, f, reps=3, warmup=1) for f in (old, new, new,
+                                                             old)]
+        print(f"[shapes compare] {kernel} route 4 bfloat16 bf16 panel S=1 "
+              f"T={T} N={N} hidden={hidden} dropout {DROPOUT}: bit for bit; "
+              f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
+              f"{t[2]:.4f} ms ({card})", flush=True)
+        del x
     print(f"[shapes compare] {compared} calls bit for bit {name}/"
           f"{K.STREAM_SOURCE}'s ({card})", flush=True)
 
@@ -9564,7 +9816,9 @@ def shapes_gradient_check(torch, K, C, card, splits):
     """(c) ∂(conditional loss)/∂individual of a (256, 256), K = 32
     ensemble of nine seeded members (S = 9), parameters frozen, on the
     train split: the kernel route against kernel="off" in f32 and bf16.
-    Returns the kernel route's launches and streamed ones."""
+    Returns {compute dtype: the kernel route's launches}, {compute dtype:
+    its streamed ones, and (``<kernel>_mma``) the tensor-core form's}: one
+    call each."""
     from deeplearninginassetpricing_paperreplication_torch.models.gan import \
         GAN
     from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
@@ -9588,15 +9842,18 @@ def shapes_gradient_check(torch, K, C, card, splits):
 
     grad("on", "float32")  # plans and set-up
     torch.cuda.synchronize()
-    K.reset_launch_count()
-    C.reset_launch_count()
-    errs = {}
+    errs, launches, streamed = {}, {}, {}
     for cd in ("float32", "bfloat16"):
+        K.reset_launch_count()
+        C.reset_launch_count()
         on = grad("on", cd)
         torch.cuda.synchronize()
-        if cd == "float32":
-            launches = dict(zip(SH_KERNELS, panel_counts(K, C)))
-            streamed = dict(zip(SH_KERNELS[:3], stream_counts(K)))
+        launches[cd] = dict(zip(SH_KERNELS, panel_counts(K, C)))
+        streamed[cd] = dict(zip(SH_KERNELS[:3], stream_counts(K)))
+        streamed[cd].update(zip(
+            ("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma", "sdf_ffn_dx_mma"),
+            (K.launches_stream_mma, K.bwd_launches_stream_mma,
+             K.dx_launches_stream_mma)))
         off = grad("off", cd)
         err = rel_err(on, off)
         check(bool(torch.isfinite(on).all())
@@ -9606,17 +9863,22 @@ def shapes_gradient_check(torch, K, C, card, splits):
         errs[cd] = err
     n = len(C.moment_chunks(SH_MOMENTS))
     want = (1, 0, 1, n, n, n)
-    check(tuple(launches.values()) == want
-          and streamed == {"sdf_ffn_fwd": 1, "sdf_ffn_bwd": 0,
-                           "sdf_ffn_dx": 1},
-          f"one (256, 256) K={SH_MOMENTS} panel gradient launched "
-          f"{launches} (streamed {streamed}), not {want}")
+    for cd in ("float32", "bfloat16"):
+        mma = int(cd == "bfloat16")  # bf16: the forward and dx on route 4
+        check(tuple(launches[cd].values()) == want
+              and streamed[cd] == {"sdf_ffn_fwd": 1, "sdf_ffn_bwd": 0,
+                                   "sdf_ffn_dx": 1, "sdf_ffn_fwd_mma": mma,
+                                   "sdf_ffn_bwd_mma": 0,
+                                   "sdf_ffn_dx_mma": mma},
+              f"one (256, 256) K={SH_MOMENTS} {cd} panel gradient launched "
+              f"{launches[cd]} (streamed {streamed[cd]}), not {want}")
     print(f"[shapes grad] d conditional loss / d individual, hidden "
           f"{list(SH_HIDDEN)} K={SH_MOMENTS}, S=9 seeded members, train "
           f"split: kernel vs plain max|d|/max|ref| f32 "
           f"{errs['float32']:.2e} (bar {GRAD_F32_REL:g}), bf16 "
           f"{errs['bfloat16']:.2e} (bar {BF16_REL:g}); one call launched "
-          f"{launches}, streamed {streamed} ({card})", flush=True)
+          f"{launches['float32']}, streamed f32 {streamed['float32']}, bf16 "
+          f"{streamed['bfloat16']} ({card})", flush=True)
     return launches, streamed
 
 
@@ -9747,22 +10009,27 @@ def shapes_phase(torch, K, C, card):
     for name in SH_KERNELS:
         paths = {"shapes_training": train_l[name],
                  "shapes_training_bf16": bf_l[name],
-                 "shapes_panel_gradient": grad_l[name]}
+                 "shapes_panel_gradient": grad_l["float32"][name],
+                 "shapes_panel_gradient_bf16": grad_l["bfloat16"][name]}
         if name == "sdf_ffn_fwd":
             paths["shapes_serving"] = serve_l
         launches[name] = {p: n for p, n in paths.items() if n}
     for name in SH_KERNELS[:3]:
         paths = {"shapes_training": train_s[name],
                  "shapes_training_bf16": bf_s[name],
-                 "shapes_panel_gradient": grad_s[name]}
+                 "shapes_panel_gradient": grad_s["float32"][name],
+                 "shapes_panel_gradient_bf16": grad_s["bfloat16"][name]}
         if name == "sdf_ffn_fwd":
             paths["shapes_serving"] = serve_l
         launches[name + "_stream"] = {p: n for p, n in paths.items() if n}
     # the tensor-core form's (bf16 compute): the bf16 training's FFN
-    # launches
-    for name in SH_KERNELS[:2]:
-        launches[name + "_stream_mma"] = {
-            "shapes_training_bf16": bf_s[name + "_mma"]}
+    # launches and the bf16 panel gradient's
+    for name in SH_KERNELS[:3]:
+        paths = {"shapes_training_bf16": bf_s.get(name + "_mma", 0),
+                 "shapes_panel_gradient_bf16": grad_s["bfloat16"][
+                     name + "_mma"]}
+        launches[name + "_stream_mma"] = {p: n for p, n in paths.items()
+                                          if n}
     print(f"[shapes] phase 21 done in {time.perf_counter() - t0:.1f} s "
           f"((a) {t1 - t0:.1f} s); launches by path {launches} ({card})",
           flush=True)
@@ -9890,7 +10157,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compare_stream", metavar="DIR", default=None,
                     help="with --only_shapes: hold the streamed route's "
                          "CUDA-core instances (f32 forward, backward and "
-                         "panel cotangent; bf16 ones too) bit for bit "
+                         "panel cotangent; bf16 route 3 too) bit for bit "
                          "against DIR/sdf_ffn_stream.cu's (this tree's "
                          "argument lists, beside its sdf_ffn_common.cuh and "
                          "panel.cuh) at phase 21's stacks, and time both in "
@@ -9974,7 +10241,8 @@ def run_phases(opts, torch) -> int:
             + C.build_jobs() if opts.only_joint or opts.only_multihost
             else K.build_jobs([64]) + C.build_jobs()
             if opts.only_shard or opts.only_bf16panel
-            else K.stream_jobs() + K.build_jobs([64]) + C.build_jobs()
+            else K.stream_jobs() + [K.stream_audit_job()]
+            + K.build_jobs([64]) + C.build_jobs()
             if opts.only_shapes
             else K.build_jobs(kernels=("fwd", "bwd")) + C.build_jobs()
             if opts.only_mesh
@@ -9986,7 +10254,7 @@ def run_phases(opts, torch) -> int:
             else C.build_jobs() if opts.only_cem
             else MB.build_jobs() if opts.only_ceiling
             else K.build_jobs() + [K.audit_job()] + K.stream_jobs()
-            + C.build_jobs() + MB.build_jobs())
+            + [K.stream_audit_job()] + C.build_jobs() + MB.build_jobs())
     logs = _nvcc.run(jobs, verbose=True)
     print(f"[build] {len(logs)} libraries ({', '.join(sorted(logs))}) built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -10474,8 +10742,9 @@ def run_phases(opts, torch) -> int:
     # phase 21: the streamed route's three kernels (one source, a library
     # each) and the conditional EM over moment chunks, each at its timed
     # shape (bf16 compute on the bf16 panel, the f32 row beside) with its
-    # launches on phase 21's paths; the forward's and backward's bf16 rows
-    # are their tensor-core form (route 4), its launches beside
+    # launches on phase 21's paths; the FFN kernels' bf16 rows are their
+    # tensor-core form (route 4), named with its launches beside; the
+    # panel cotangent's also carries its audit and route 3 in turns
     tpu_rows = {"sdf_ffn_fwd": ("pallas_ffn.py:188", "pallas_ffn.py:561"),
                 "sdf_ffn_bwd": ("pallas_ffn.py:205", "pallas_ffn.py:591"),
                 "sdf_ffn_dx": ("pallas_ffn.py:300", None),
@@ -10500,8 +10769,15 @@ def run_phases(opts, torch) -> int:
         if also:
             row["also_replaces"] = tpu + also
         if name + "_stream_mma" in shp["launches"]:
+            row["tensor_core_kernel"] = name[8:] + "_stream_mma_kernel"
             row["tensor_core_launches_by_path"] = shp["launches"][
                 name + "_stream_mma"]
+            check(sum(row["tensor_core_launches_by_path"].values()) > 0,
+                  f"phase 21 launched {row['tensor_core_kernel']} no time")
+        if name == "sdf_ffn_dx":
+            row["tensor_core_audit"] = shp["rows"]["dx_route4"]["audit"]
+            row["route3_vs_route4_in_turns"] = shp["rows"]["dx_route4"][
+                "in_turns"]
         if stream:
             row["plans"] = {f"{cd} {'bf16' if xb16 else 'f32'} panel":
                             shp["plans"][(SH_HIDDEN, 46, name[8:], cd,

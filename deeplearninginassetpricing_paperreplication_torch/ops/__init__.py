@@ -16,8 +16,7 @@ under its kernel's bf16-panel form, ``<kernel>_bf16_panel``
 Likewise a launch of an FFN kernel's streamed-weight route (the stacks its
 resident route cannot hold) also counts under ``<kernel>_stream``
 (:data:`STREAM_KERNELS`), and one of that route's tensor-core form (bf16
-compute, forward and backward) also under ``<kernel>_stream_mma``
-(:data:`STREAM_MMA_KERNELS`).
+compute) also under ``<kernel>_stream_mma`` (:data:`STREAM_MMA_KERNELS`).
 """
 
 import atexit
@@ -35,7 +34,7 @@ BF16_PANEL_KERNELS = tuple(k + BF16_PANEL for k in KERNELS)
 STREAM = "_stream"
 STREAM_KERNELS = tuple(k + STREAM for k in KERNELS[:3])
 STREAM_MMA = "_stream_mma"
-STREAM_MMA_KERNELS = tuple(k + STREAM_MMA for k in KERNELS[:2])
+STREAM_MMA_KERNELS = tuple(k + STREAM_MMA for k in KERNELS[:3])
 
 
 # (kernel, device) -> launches, under one lock: a server launches from its

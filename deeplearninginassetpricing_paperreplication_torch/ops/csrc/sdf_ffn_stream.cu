@@ -45,16 +45,19 @@
 // re-reads the whole member's weights from L2 (BN FMAs per weight float
 // read). It is the simple route that is right for every shape.
 //
-// Under bf16 compute the forward and the backward have a tensor-core route
-// of their own (fwd_stream_mma_kernel, bwd_stream_mma_kernel, below: bf16
-// tiles, mma.sync products, bf16 weight slabs), planned wherever its tiles
-// fit shared memory; the kernels above stay the f32 route, the bf16 route of
-// the stacks whose tiles go to scratch, and the panel cotangent.
+// Under bf16 compute each kernel has a tensor-core route of its own
+// (fwd_stream_mma_kernel, bwd_stream_mma_kernel, dx_stream_mma_kernel, below:
+// bf16 tiles, mma.sync products, bf16 weight slabs), planned wherever its
+// tiles fit shared memory; the kernels above stay the f32 route and the bf16
+// route of the stacks whose tiles go to scratch or that are too deep.
 //
 // One library per kernel: -DSDF_FFN_STREAM_KERNEL=0 (forward), 1 (backward),
 // 2 (panel cotangent), each holding the four (panel dtype × compute dtype)
-// instances of its kernel, and the forward's and backward's libraries the
-// two (panel dtype) instances of their tensor-core kernel.
+// instances of its kernel and the two (panel dtype) instances of its
+// tensor-core kernel. The panel cotangent's audit build (-DSDF_FFN_DX_AUDIT
+// beside =2, its own library) also counts its tensor-core kernel's top-layer
+// decisions against the exact chain; its dx is the main library's, bit for
+// bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -584,8 +587,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-#if SDF_FFN_STREAM_KERNEL != 2
-// -- the tensor-core route: bf16 compute, forward and backward ----------------
+// -- the tensor-core route: bf16 compute ---------------------------------------
 //
 // Under bf16 compute every product reads its operands rounded to bf16, so the
 // tiles hold bf16 ([rows][BN + 8] bf16 bits, feature-major, each layer's rows
@@ -675,6 +677,9 @@ struct MmaWarp {
 enum MmaEpilogue {
   kMmaAct = 0,    // + bias, ReLU, dropout, act_bits: a hidden layer
   kMmaChain = 1,  // × dscale where the layer below's bits are nonzero: dh_pre
+  kMmaTop = 2,    // the panel cotangent's top layer: dh_pre, decisions
+                  // certified against the exact chain (DxTopOut)
+  kMmaAccum = 3,  // added into the panel cotangent's f32 tile (DxAccOut)
 };
 
 struct MmaOut {
@@ -784,16 +789,50 @@ __device__ void mma_epilogue(const float (&acc)[4][4][4], const MmaWarp& w,
   if (e.rsum) finish_row_sums(rs, w, BN, u0, RU, Uout, red, e.rsum);
 }
 
+// kMmaTop: the top layer of the panel cotangent
+struct DxTopOut {
+  const float* bias;     // [Uout] f32 (the zp row in a one-layer stack)
+  const uint32_t* hash;  // the tile's dropout row hashes
+  int layer;
+  Dropout drop;
+  const float* kout;     // [Uout], bf16 values
+  const float* grow;     // the g row
+  float dscale;
+  const float* amax;     // [BN]: max_k |in[k][n]| of each stock
+  const float* wabs;     // [Uout]: Σ_k |A[u][k]|
+  float window;          // certify_window(Kin)
+  const bfbits* A;       // the product's matrix and its row length, input
+  int lda;               // tile and depth (the exact chain reads them)
+  const bfbits* in;
+  int Kin;
+  int n0, N;             // the tile's first stock, the stocks (the audit)
+};
+
+// kMmaAccum: the panel cotangent's dx product
+struct DxAccOut {
+  float* acc;  // [pad16(F)][BN + 4] f32, summed over the members
+};
+
+// the panel cotangent's epilogues, defined with its kernel below
+template <int EPI>
+__device__ void mma_epilogue(const float (&acc)[4][4][4], const MmaWarp& w,
+                             int u0, int RU, int Uout, bfbits* out,
+                             const DxTopOut& e, float* red, int BN);
+template <int EPI>
+__device__ void mma_epilogue(const float (&acc)[4][4][4], const MmaWarp& w,
+                             int u0, int RU, int Uout, bfbits* out,
+                             const DxAccOut& e, float* red, int BN);
+
 // out[u][n] (u < pad16(Uout), n < BN, bf16) from Σ_k A[u][k]·in[k][n] over
 // k < Kin: A the bf16 copy's [units][lda] matrix (zero past the layer), `in`
 // a tile of pad16(Kin) rows (zero from Kin). Slab i of the ring holds units
 // [p·UC, +UC) × inputs [kb·kMmaSlab, +kMmaSlab) of pass p; the epilogue of
-// pass p runs after its last slab. Every thread of the block calls it; it
-// ends synchronised.
-template <int EPI>
+// pass p (EPI, with `e` of its kind) runs after its last slab. Every thread
+// of the block calls it; it ends synchronised.
+template <int EPI, typename Out>
 __device__ void layer_product_mma(const bfbits* __restrict__ A, int lda,
                                   int Kin, int Uout, const bfbits* in,
-                                  bfbits* out, const MmaOut& e, bfbits* slab,
+                                  bfbits* out, const Out& e, bfbits* slab,
                                   int SU, float* red, int BN) {
   const MmaWarp w(BN);
   const int LDH = BN + 8;
@@ -1032,11 +1071,12 @@ struct MmaSmem {
   bfbits* tile;
 };
 
-__device__ MmaSmem carve_mma(float* smem, int BN, int SU) {
+// the block's regions from `slab_bytes` of slab ring on
+__device__ MmaSmem carve_mma_at(float* smem, int BN, int slab_bytes) {
   char* p = reinterpret_cast<char*>(smem);
   MmaSmem m;
   m.slab = reinterpret_cast<bfbits*>(p);
-  p += 2 * kMmaStages * SU * kSlabLd;
+  p += slab_bytes;
   m.hash = reinterpret_cast<uint32_t*>(p);
   p += 4 * BN;
   m.grow = reinterpret_cast<float*>(p);
@@ -1045,6 +1085,10 @@ __device__ MmaSmem carve_mma(float* smem, int BN, int SU) {
   p += 4 * kRed;
   m.tile = reinterpret_cast<bfbits*>(p);
   return m;
+}
+
+__device__ MmaSmem carve_mma(float* smem, int BN, int SU) {
+  return carve_mma_at(smem, BN, 2 * kMmaStages * SU * kSlabLd);
 }
 
 // the cell's forward on the tensor cores, one layer at a time from X;
@@ -1218,7 +1262,453 @@ __global__ void __launch_bounds__(kThreads)
     grad_product_mma(X, F, dhp0, H1, gp, L.hp(0), BN);
   }
 }
-#endif  // SDF_FFN_STREAM_KERNEL != 2
+
+// -- the tensor-core route of the panel cotangent -----------------------------
+//
+// A panel cotangent does not sum over stocks, so one flipped ReLU decision
+// moves a whole term of one stock's dx (5% of max|dx| in a CPU experiment,
+// sdf_ffn_dx.cu, tools/dx_flip_sensitivity.py): the backward's decisions on
+// mma.sync average such flips out, the dx's would not. So its decisions are
+// route 3's, bit for bit, by sdf_ffn_dx.cu route 1's rule at streamed widths:
+//
+// - The layers below the top run route 3's chains on the CUDA cores
+//   (layer_product_exact: an fmaf chain over the inputs in k order from 0 on
+//   bf16 operands, whose products are exact in f32, then + bias, ReLU and
+//   dropout), into bf16 tiles (act_bits). Their values and decisions are
+//   route 3's.
+// - The top layer runs on mma.sync; where |h| ≤ certify_window(Kin)·(max|a|
+//   ·Σ_k|W_uk| + |b_u|) the lane recomputes the exact chain (its unit's row of
+//   the bf16 copy, the stock's column of the input tile) and decides on it.
+//   Its epilogue writes dh_pre = round(kout)·round(g)·dscale where the
+//   decision is on; its activations are never stored.
+// - The dh chain (W_lᵀ·dh_pre, × the factor read from the exact tile below,
+//   written over that tile) and dx's K1·dh1_pre run on mma.sync: they decide
+//   nothing, so another f32 sum order moves only a rounding of dh_pre. dx
+//   sums the members in an f32 tile in member order, rounded once at the end.
+//
+// The window grows with the depth of the top layer's sum: sdf_ffn_dx.cu's
+// 2^-16 was sized as eight times what an mma accumulation can move a sum
+// over 64 inputs, so here it is 2^-16 per started 64 inputs (mirrored by
+// ops/sdf_ffn.py stream_certify_window).
+//
+// What bounds it: the tensor cores (operations). On an H100 at (256, 256),
+// F = 46, T = 48, N = 10,000, S = 9 it runs 24.7× from that bound: one
+// 8-warp block an SM (228 registers), a __syncthreads a slab, layer 0 on the
+// CUDA cores (about 8% of the multiply-adds), and in the K1 product at
+// F = 46 half the warps idle (48 rows against a 128-unit pass).
+constexpr float kCertify = 1.0f / 65536.0f;
+constexpr int kCertifyDepth = 64;
+constexpr float kCertifyFloor = 1e-30f;
+
+__host__ __device__ inline float certify_window(int kin) {
+  return kCertify * (float)((kin + kCertifyDepth - 1) / kCertifyDepth);
+}
+
+// shared memory of the dx's slab region: the bf16 ring of the mma products
+// or the two f32 slabs of the exact layers (kSlab × pass_units(BN)), which
+// never run at once
+__host__ __device__ inline long long dx_mma_slab_bytes(int BN, int SU) {
+  const long long ring = 2LL * kMmaStages * SU * kSlabLd;
+  const long long f32 = 8LL * kSlab * pass_units(BN);
+  return ring > f32 ? ring : f32;
+}
+
+// shared-memory bytes of a dx tensor-core block: the slab region, the row
+// hashes, the g row, the cross-warp floats (the stocks' max|a|), then `rows`
+// bf16 tile rows of BN + 8 (the panel tile, the layers below the top, the
+// top's dh_pre) and the f32 dx tile [pad16(F)][BN + 4]
+__host__ __device__ inline long long dx_mma_smem_bytes(int BN, int rows,
+                                                       int F, int SU) {
+  return dx_mma_slab_bytes(BN, SU) + 8LL * BN + 4LL * kRed +
+         2LL * rows * (BN + 8) + 4LL * pad16(F) * (BN + 4);
+}
+
+// the plain version's pre-activation sum of unit row `a` (bf16, zero past
+// Kin up to a multiple of 8) over the stock n of `in` (bf16 tile, zero past
+// Kin up to pad16(Kin)): an fmaf chain over k in order from 0, route 3's
+__device__ __forceinline__ float exact_chain_bits(const bfbits* __restrict__ a,
+                                                  const bfbits* in, int n,
+                                                  int Kin, int LDH) {
+  float h = 0.f;
+  for (int k = 0; k < Kin; k += 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(a + k));
+    const uint32_t wv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h = fmaf(__uint_as_float(wv[i] << 16),
+               unbits(in[(size_t)(k + 2 * i) * LDH + n]), h);
+      h = fmaf(__uint_as_float(wv[i] & 0xffff0000u),
+               unbits(in[(size_t)(k + 2 * i + 1) * LDH + n]), h);
+    }
+  }
+  return h;
+}
+
+#ifdef SDF_FFN_DX_AUDIT
+// the audit's counters of the current launch (sdf_ffn_dx_audit_reset before
+// it, sdf_ffn_dx_audit_read after): elements, certified, sign flips, flips
+// outside the window, and the largest ratio as float bits (non-negative
+// floats order as their bits)
+__device__ unsigned long long g_dx_audit[5];
+
+__device__ __forceinline__ void audit_add(unsigned seen, unsigned certified,
+                                          unsigned flips, unsigned outside,
+                                          float worst) {
+  seen = __reduce_add_sync(kFull, seen);
+  certified = __reduce_add_sync(kFull, certified);
+  flips = __reduce_add_sync(kFull, flips);
+  outside = __reduce_add_sync(kFull, outside);
+  const unsigned wbits = __reduce_max_sync(kFull, __float_as_uint(worst));
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&g_dx_audit[0], (unsigned long long)seen);
+    atomicAdd(&g_dx_audit[1], (unsigned long long)certified);
+    atomicAdd(&g_dx_audit[2], (unsigned long long)flips);
+    atomicAdd(&g_dx_audit[3], (unsigned long long)outside);
+    atomicMax(&g_dx_audit[4], (unsigned long long)wbits);
+  }
+}
+#endif
+
+// out[u][n] (u < pad16(Uout), n < BN, bf16 bits): route 3's layer product
+// (layer_product<true, kAct>) on bf16 tiles, its weights W(k, u) (bf16
+// values in f32: W[k·ldw + u] direct, else W[u·ldw + k]) through the two f32
+// slabs at `slab`, its inputs from `in` (pad16(Kin) rows, zero from Kin): per
+// element an fmaf chain over k < pad16(Kin) in order from 0, + bias[u],
+// ReLU, dropout of `layer`, act_bits; rows from Uout written 0. Every thread
+// of the block calls it.
+__device__ void layer_product_exact(const float* __restrict__ W, bool direct,
+                                    int ldw, int Kin, int Uout,
+                                    const bfbits* in, bfbits* out,
+                                    const float* __restrict__ bias,
+                                    const uint32_t* hash, int layer,
+                                    const Dropout& drop, float* slab,
+                                    int BN) {
+  const int LDH = BN + 8;
+  const int UC = pass_units(BN);
+  const int nq = BN >> 2;
+  const int nt = threadIdx.x % nq, ut = threadIdx.x / nq;
+  const int RU = pad16(Uout);
+  const int nk = pad16(Kin) / kSlab;
+  for (int u0 = 0; u0 < RU; u0 += UC) {
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    auto issue = [&](int kb) {
+      float* dst = slab + (kb & 1) * kSlab * UC;
+      const int k0 = kb * kSlab;
+      for (int e = threadIdx.x; e < kSlab * UC; e += kThreads) {
+        int k, u;
+        if (direct) {
+          k = e / UC;
+          u = e - k * UC;
+        } else {
+          u = e / kSlab;
+          k = e - u * kSlab;
+        }
+        const int gk = k0 + k, gu = u0 + u;
+        const bool ok = gk < Kin && gu < Uout;
+        const size_t at = !ok ? 0
+                          : direct ? (size_t)gk * ldw + gu
+                                   : (size_t)gu * ldw + gk;
+        sdf_ffn::cp_async4(dst + k * UC + u, W + at, ok);
+      }
+    };
+    issue(0);
+    sdf_ffn::cp_async_commit();
+    for (int kb = 0; kb < nk; ++kb) {
+      if (kb + 1 < nk) issue(kb + 1);
+      sdf_ffn::cp_async_commit();
+      sdf_ffn::cp_async_wait<1>();
+      __syncthreads();
+      const float* s = slab + (kb & 1) * kSlab * UC + 4 * ut;
+      const bfbits* x = in + (size_t)kb * kSlab * LDH + 4 * nt;
+#pragma unroll 4
+      for (int k = 0; k < kSlab; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(s + k * UC);
+        const uint2 q = *reinterpret_cast<const uint2*>(x + (size_t)k * LDH);
+        const float wr[4] = {w.x, w.y, w.z, w.w};
+        const float vc[4] = {__uint_as_float(q.x << 16),
+                             __uint_as_float(q.x & 0xffff0000u),
+                             __uint_as_float(q.y << 16),
+                             __uint_as_float(q.y & 0xffff0000u)};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(wr[r], vc[c], acc[r][c]);
+      }
+      __syncthreads();
+    }
+    const int ub = u0 + 4 * ut;
+    if (ub >= RU) continue;  // RU is a multiple of 16: a quad is in or out
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int u = ub + r;
+      uint32_t b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = 4 * nt + c;
+        float a = 0.f;
+        if (u < Uout) {
+          a = fmaxf(acc[r][c] + __ldg(bias + u), 0.f);
+          if (drop.on)
+            a = sdf_ffn::keep_unit(hash[n], layer, u, drop.threshold)
+                    ? a * drop.scale
+                    : 0.f;
+        }
+        b[c] = act_bits(a);
+      }
+      *reinterpret_cast<uint2*>(out + (size_t)u * LDH + 4 * nt) =
+          make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
+    }
+  }
+}
+
+// amax[n] = max_k |in[k][n]| over k < Kin (bf16 tile) for the BN stocks,
+// through red[0, kThreads); amax is red + kThreads. Ends synchronised.
+__device__ void stock_max(const bfbits* in, int Kin, float* red, int BN) {
+  const int LDH = BN + 8, parts = kThreads / BN;
+  const int n = threadIdx.x % BN, part = threadIdx.x / BN;
+  uint32_t m = 0;
+  for (int k = part; k < Kin; k += parts)
+    m = max(m, (uint32_t)(in[(size_t)k * LDH + n] & 0x7fffu));
+  red[part * BN + n] = __uint_as_float(m << 16);
+  __syncthreads();
+  if (threadIdx.x < BN) {
+    float a = 0.f;
+    for (int q = 0; q < parts; ++q) a = fmaxf(a, red[q * BN + n]);
+    red[kThreads + n] = a;
+  }
+  __syncthreads();
+}
+
+// the top layer's dh_pre of the decision `on` at unit u, stock n
+__device__ __forceinline__ float top_dh_of(bool on, const DxTopOut& e, int u,
+                                           int n, float ko) {
+  if (on && e.drop.on)
+    on = sdf_ffn::keep_unit(e.hash[n], e.layer, u, e.drop.threshold);
+  return on ? ko * sdf_ffn::round_bf16(e.grow[n]) * e.dscale : 0.f;
+}
+
+// kMmaTop: h = Σ + b decides each element by its sign where |h| lies outside
+// the window of its magnitude bound, else by the exact chain's (recomputed
+// after the pass's other elements, one set bit at a time); out = dh_pre in
+// bf16 (0 past Uout). The audit build also computes every element's chain.
+template <int EPI>
+__device__ void mma_epilogue(const float (&acc)[4][4][4], const MmaWarp& w,
+                             int u0, int RU, int Uout, bfbits* out,
+                             const DxTopOut& e, float*, int BN) {
+  static_assert(EPI == kMmaTop, "the top layer's epilogue");
+  const int LDH = BN + 8;
+  // bit ((mt·2 + h)·4 + nt)·2 + j of the element (mt, h, nt, j): its mma
+  // sum is positive (on), and it lies within the window (need)
+  uint32_t on[2] = {0u, 0u}, need[2] = {0u, 0u};
+#ifdef SDF_FFN_DX_AUDIT
+  unsigned seen = 0, certified = 0, flips = 0, outside = 0;
+  float worst = 0.f;
+#endif
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int ub = u0 + w.wu * 64 + mt * 16;
+    if (ub >= RU) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = ub + w.g + 8 * h;
+      const bool in = u < Uout;
+      float bias = 0.f, mag = 0.f, ko = 0.f;
+      if (in) {
+        bias = __ldg(e.bias + u);
+        mag = __ldg(e.wabs + u);
+        ko = sdf_ffn::round_bf16(__ldg(e.kout + u));
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = w.wn * 32 + nt * 8 + 2 * w.t;
+        uint32_t b[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (!in) continue;
+          const int bit = ((mt * 2 + h) * 4 + nt) * 2 + j;
+          const float hs = acc[mt][nt][2 * h + j] + bias;
+          const float bound =
+              e.window * (e.amax[n + j] * mag + fabsf(bias)) + kCertifyFloor;
+          const bool flagged = fabsf(hs) <= bound;
+          on[bit >> 5] |= (uint32_t)(hs > 0.f) << (bit & 31);
+          need[bit >> 5] |= (uint32_t)flagged << (bit & 31);
+          b[j] = bf_bits(top_dh_of(hs > 0.f, e, u, n + j, ko));
+#ifdef SDF_FFN_DX_AUDIT
+          if (e.n0 + n + j < e.N) {
+            const float exact =
+                exact_chain_bits(e.A + (size_t)u * e.lda, e.in, n + j, e.Kin,
+                                 LDH) +
+                bias;
+            const float m = e.amax[n + j] * mag + fabsf(bias);
+            const bool flip = (hs > 0.f) != (exact > 0.f);
+            ++seen;
+            certified += flagged;
+            flips += flip;
+            outside += flip && !flagged;
+            if (m > 0.f) worst = fmaxf(worst, fabsf(hs - exact) / m);
+          }
+#endif
+        }
+        *reinterpret_cast<uint32_t*>(out + (size_t)u * LDH + n) =
+            b[0] | (b[1] << 16);
+      }
+    }
+  }
+#ifdef SDF_FFN_DX_AUDIT
+  audit_add(seen, certified, flips, outside, worst);
+#endif
+  // the exact chain decides the flagged elements; a decision it turns round
+  // rewrites the element's dh_pre
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    for (uint32_t rest = need[q]; rest; rest &= rest - 1) {
+      const int bit = 32 * q + __ffs(rest) - 1;
+      const int mt = bit >> 4, h = (bit >> 3) & 1, nt = (bit >> 1) & 3,
+                j = bit & 1;
+      const int u = u0 + w.wu * 64 + mt * 16 + w.g + 8 * h;
+      const int n = w.wn * 32 + nt * 8 + 2 * w.t + j;
+      const float bias = __ldg(e.bias + u);
+      const bool exact =
+          exact_chain_bits(e.A + (size_t)u * e.lda, e.in, n, e.Kin, LDH) +
+              bias >
+          0.f;
+      if (exact == (((on[q] >> (bit & 31)) & 1u) != 0u)) continue;
+      out[(size_t)u * LDH + n] = (bfbits)bf_bits(
+          top_dh_of(exact, e, u, n, sdf_ffn::round_bf16(__ldg(e.kout + u))));
+    }
+}
+
+// kMmaAccum: the f32 dx tile += the pass's sums, rows u < Uout
+template <int EPI>
+__device__ void mma_epilogue(const float (&acc)[4][4][4], const MmaWarp& w,
+                             int u0, int RU, int Uout, bfbits*,
+                             const DxAccOut& e, float*, int BN) {
+  static_assert(EPI == kMmaAccum, "the dx product's epilogue");
+  const int LDF = BN + 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int ub = u0 + w.wu * 64 + mt * 16;
+    if (ub >= RU) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = ub + w.g + 8 * h;
+      if (u >= Uout) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float2* p = reinterpret_cast<float2*>(
+            e.acc + (size_t)u * LDF + w.wn * 32 + nt * 8 + 2 * w.t);
+        float2 v = *p;
+        v.x += acc[mt][nt][2 * h];
+        v.y += acc[mt][nt][2 * h + 1];
+        *p = v;
+      }
+    }
+  }
+}
+
+// dx [T, F, N] in the panel's dtype: a persistent grid over the T·⌈N/BN⌉
+// cells, each for all S members (they share the panel); wb [S][Pb] the
+// members' bf16 weight copies, wabs [S][HL] their top layer's Σ_k |W_uk|
+template <typename PX>
+__global__ void __launch_bounds__(kThreads)
+    dx_stream_mma_kernel(const PX* __restrict__ x,
+                         const float* __restrict__ zp,
+                         const float* __restrict__ params,
+                         const bfbits* __restrict__ wb,
+                         const int* __restrict__ wtab, int Pb,
+                         const float* __restrict__ g,
+                         const float* __restrict__ wabs, PX* __restrict__ dx,
+                         LayoutTable L, int S, int T, int N, Dropout drop,
+                         int BN, int SU) {
+  extern __shared__ __align__(16) float smem[];
+  const int LDH = BN + 8, LDF = BN + 4;
+  const MmaSmem m = carve_mma_at(smem, BN, (int)dx_mma_slab_bytes(BN, SU));
+  const int F = L.F(), P = L.P(), H1 = L.h(0), nl = L.n();
+  const int RF = pad16(F), lt = nl - 1, HL = L.h(lt);
+  int top = 0;  // rows of the layers below the top
+  for (int l = 0; l < lt; ++l) top += pad16(L.h(l));
+  bfbits* X = m.tile;
+  bfbits* acts = X + (size_t)RF * LDH;
+  bfbits* dht = acts + (size_t)top * LDH;  // the top layer's dh_pre
+  float* dxa = reinterpret_cast<float*>(dht + (size_t)pad16(HL) * LDH);
+  float* fslab = reinterpret_cast<float*>(m.slab);
+  const float dscale = drop.on ? drop.scale : 1.f;
+  const int Kt = lt ? L.h(lt - 1) : F;  // the top layer's inputs
+  const float window = certify_window(Kt);
+  const int At_off = __ldg(wtab + 4 * lt), At_ld = __ldg(wtab + 4 * lt + 1);
+  const int tiles = (N + BN - 1) / BN;
+  const int cells = T * tiles;
+  for (int c = blockIdx.x; c < cells; c += gridDim.x) {
+    const int tile = c % tiles, t = c / tiles, n0 = tile * BN;
+    __syncthreads();  // the last cell's readers are done
+    stage_x_mma(X, x, F, N, t, n0, BN);
+    for (int i = threadIdx.x; i < RF * BN; i += kThreads)
+      dxa[(size_t)(i / BN) * LDF + i % BN] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      stage_hash(m.hash, drop, s, t, n0, BN);
+      for (int n = threadIdx.x; n < BN; n += kThreads)
+        m.grow[n] = n0 + n < N ? __ldg(g + ((size_t)s * T + t) * N + n0 + n)
+                               : 0.f;
+      __syncthreads();
+      const float* W = params + (size_t)s * P;
+      const bfbits* Wb = wb + (size_t)s * Pb;
+      const float* zrow = zp + ((size_t)s * T + t) * H1;
+      // the layers below the top: route 3's chains on the CUDA cores
+      const bfbits* in = X;
+      int Kin = F, row = 0;
+      for (int l = 0; l < lt; ++l) {
+        const int H = L.h(l);
+        bfbits* o = acts + (size_t)row * LDH;
+        row += pad16(H);
+        if (l == 0)
+          layer_product_exact(W, true, L.hp(0), Kin, H, in, o, zrow, m.hash,
+                              0, drop, fslab, BN);
+        else
+          layer_product_exact(W + L.off_w(l), false, L.hp(l - 1), Kin, H, in,
+                              o, W + L.off_b(l), m.hash, l, drop, fslab, BN);
+        __syncthreads();
+        in = o;
+        Kin = H;
+      }
+      // the top layer on the tensor cores, its decisions certified
+      stock_max(in, Kin, m.red, BN);
+      const bfbits* At = Wb + At_off;
+      const DxTopOut et{lt ? W + L.off_b(lt) : zrow, m.hash, lt, drop,
+                        W + L.off_kout(), m.grow, dscale, m.red + kThreads,
+                        wabs + (size_t)s * HL, window, At, At_ld, in, Kin,
+                        n0, N};
+      layer_product_mma<kMmaTop>(At, At_ld, Kin, HL, in, dht, et, m.slab, SU,
+                                 m.red, BN);
+      // the dh chain: dh_pre of layer l - 1 over its activations
+      const bfbits* cur = dht;
+      for (int l = lt; l >= 1; --l) {
+        row -= pad16(L.h(l - 1));
+        bfbits* below = acts + (size_t)row * LDH;
+        const MmaOut ec{nullptr, nullptr, 0, drop, below, dscale, nullptr,
+                        nullptr};
+        layer_product_mma<kMmaChain>(Wb + __ldg(wtab + 4 * l + 2),
+                                     __ldg(wtab + 4 * l + 3), L.h(l),
+                                     L.h(l - 1), cur, below, ec, m.slab, SU,
+                                     m.red, BN);
+        cur = below;
+      }
+      // dx += K1 · dh_pre of the first layer: K1 as [pad16(F)][h0 padded]
+      layer_product_mma<kMmaAccum>(Wb + __ldg(wtab + 2), __ldg(wtab + 3), H1,
+                                   F, cur, nullptr, DxAccOut{dxa}, m.slab, SU,
+                                   m.red, BN);
+    }
+    for (int i = threadIdx.x; i < F * BN; i += kThreads) {
+      const int f = i / BN, n = i - f * BN;
+      if (n0 + n < N)
+        panel::st(dx + ((size_t)t * F + f) * N + n0 + n,
+                  dxa[(size_t)f * LDF + n]);
+    }
+  }
+}
 
 // -- the host side ---------------------------------------------------------------
 
@@ -1443,7 +1933,6 @@ extern "C" int sdf_ffn_dx_stream(const void* x, int xb16, const float* zp,
 }
 #endif
 
-#if SDF_FFN_STREAM_KERNEL != 2
 // -- the tensor-core route's host side ----------------------------------------
 
 namespace {
@@ -1452,9 +1941,12 @@ const void* mma_kernel_of(int xb16) {
 #if SDF_FFN_STREAM_KERNEL == 0
   return xb16 ? (const void*)fwd_stream_mma_kernel<__nv_bfloat16>
               : (const void*)fwd_stream_mma_kernel<float>;
-#else
+#elif SDF_FFN_STREAM_KERNEL == 1
   return xb16 ? (const void*)bwd_stream_mma_kernel<__nv_bfloat16>
               : (const void*)bwd_stream_mma_kernel<float>;
+#else
+  return xb16 ? (const void*)dx_stream_mma_kernel<__nv_bfloat16>
+              : (const void*)dx_stream_mma_kernel<float>;
 #endif
 }
 
@@ -1478,10 +1970,11 @@ int mma_kernel_info(int xb16, size_t smem, int* blocks, int* regs,
 }
 
 // the slab rows SU of `layout` at stock tile `tile`: a pass's units, or the
-// widest padded layer where that is narrower
+// widest padded layer (in the panel cotangent also pad16(F), the rows of its
+// dx product) where that is narrower
 int mma_slab_rows(const int* layout, int tile) {
   const int n = layout[0];
-  int w = 0;
+  int w = SDF_FFN_STREAM_KERNEL == kDx ? pad16(layout[1]) : 0;
   for (int l = 0; l < n; ++l) {
     const int r = pad16(layout[5 + l]);
     w = r > w ? r : w;
@@ -1497,10 +1990,18 @@ int check_mma_plan(const int* layout, int tile, long long smem_bytes,
   const int n = layout[0], F = layout[1];
   if (n < 1 || F < 1) return kUnsupported;
   if (tile != 32 && tile != 64 && tile != 128) return kUnsupported;
-  const int rows = tile_rows(SDF_FFN_STREAM_KERNEL, n, F, layout + 5);
   *SU = mma_slab_rows(layout, tile);
-  if (smem_bytes != mma_smem_bytes(tile, rows, *SU) || smem_bytes > kMaxSmem)
-    return kUnsupported;
+  long long want;
+  if (SDF_FFN_STREAM_KERNEL == kDx) {
+    // the panel tile, the layers below the top and the top's dh_pre
+    int rows = pad16(F);
+    for (int l = 0; l < n; ++l) rows += pad16(layout[5 + l]);
+    want = dx_mma_smem_bytes(tile, rows, F, *SU);
+  } else {
+    want = mma_smem_bytes(
+        tile, tile_rows(SDF_FFN_STREAM_KERNEL, n, F, layout + 5), *SU);
+  }
+  if (smem_bytes != want || smem_bytes > kMaxSmem) return kUnsupported;
   return 0;
 }
 
@@ -1541,7 +2042,6 @@ extern "C" int sdf_ffn_stream_mma_plan_info(const int* layout, int tile,
   return mma_kernel_info(xb16, (size_t)smem_bytes, &out[0], &out[1],
                          &out[2]);
 }
-#endif  // SDF_FFN_STREAM_KERNEL != 2
 
 #if SDF_FFN_STREAM_KERNEL == 0
 // The tensor-core forward (bf16 compute): out [S, T, N] f32 on `stream`; wb
@@ -1601,4 +2101,54 @@ extern "C" int sdf_ffn_bwd_stream_mma(
         dzp_part, L, T, N, drop, tile, SU);
   return (int)cudaGetLastError();
 }
+#else
+// The tensor-core panel cotangent (bf16 compute): dx [T, F, N] in the
+// panel's dtype, summed over the S members; wabs [S][HL] the top layer's
+// Σ_k |W_uk| (f32) of each member, which the certified window reads.
+extern "C" int sdf_ffn_dx_stream_mma(
+    const void* x, int xb16, const float* zp, const float* params,
+    const void* wb, const int* wtab, int Pb, const float* g, void* dx,
+    const float* wabs, const int* layout, const int* layout_dev, int S,
+    int T, int N, int dropout, const unsigned int* member_base,
+    unsigned int threshold, float scale, unsigned int offset, int tile,
+    long long smem_bytes, int G, void* stream) {
+  if (S < 1 || T < 1 || N < 1 || Pb < 1) return kUnsupported;
+  int SU = 0;
+  const int rc = prepare_mma(layout, xb16, tile, smem_bytes, G, &SU);
+  if (rc != 0) return rc;
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
+  const LayoutTable L{layout_dev};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bfbits* w = static_cast<const bfbits*>(wb);
+  if (xb16)
+    dx_stream_mma_kernel<__nv_bfloat16><<<G, kThreads, smem_bytes, st>>>(
+        static_cast<const __nv_bfloat16*>(x), zp, params, w, wtab, Pb, g,
+        wabs, static_cast<__nv_bfloat16*>(dx), L, S, T, N, drop, tile, SU);
+  else
+    dx_stream_mma_kernel<float><<<G, kThreads, smem_bytes, st>>>(
+        static_cast<const float*>(x), zp, params, w, wtab, Pb, g, wabs,
+        static_cast<float*>(dx), L, S, T, N, drop, tile, SU);
+  return (int)cudaGetLastError();
+}
+
+#ifdef SDF_FFN_DX_AUDIT
+// Zero the audit's counters on `stream` (before a launch). Returns 0 or a
+// cudaError_t value.
+extern "C" int sdf_ffn_dx_audit_reset(void* stream) {
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, g_dx_audit);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemsetAsync(p, 0, sizeof(g_dx_audit),
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Read the counters into out[5] (after the launch; waits for `stream`).
+extern "C" int sdf_ffn_dx_audit_read(unsigned long long* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemcpyFromSymbolAsync(
+      out, g_dx_audit, sizeof(g_dx_audit), 0, cudaMemcpyDeviceToHost, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaStreamSynchronize(st);
+}
+#endif
 #endif

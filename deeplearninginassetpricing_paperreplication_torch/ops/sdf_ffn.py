@@ -139,25 +139,35 @@ STREAM_MAX_F = 1024
 STREAM_SCRATCH_BYTES = 2 << 30
 STREAM_GRAD_BYTES = 2 << 30
 # its tensor-core route under bf16 compute (csrc/sdf_ffn_stream.cu
-# fwd_stream_mma_kernel, bwd_stream_mma_kernel; the panel cotangent has
-# none): bf16 tiles in shared memory only, at these stock tiles (each warp 64
-# units × 32 stocks of mma.sync), weight slabs of STREAM_MMA_SLAB inputs from
-# a bf16 copy of the weights (stream_mma_weights) in a ring of
-# STREAM_MMA_STAGES, and STREAM_MMA_RED floats of cross-warp sums. A stack
-# whose bf16 tiles do not fit shared memory keeps route 3, and so does one
-# deeper than STREAM_MMA_MAX_LAYERS: there the bf16 gradient is chaotic in
-# the accumulation order (each layer's bf16 roundings flip with the last
-# bits of its sums and the flips cascade down the stack), so it moves by
-# the plain route's own distance from an exact (f64) evaluation, up to 1.5e-2
-# of max|ref| at 6 layers and 2.7e-2 at 12 (tools/stream_mma_accuracy.py),
-# while route 3's per-element FMA order is the plain route's
+# fwd_stream_mma_kernel, bwd_stream_mma_kernel, dx_stream_mma_kernel): bf16
+# tiles in shared memory only, at these stock tiles (each warp 64 units × 32
+# stocks of mma.sync), weight slabs of STREAM_MMA_SLAB inputs from a bf16
+# copy of the weights (stream_mma_weights) in a ring of STREAM_MMA_STAGES,
+# and STREAM_MMA_RED floats of cross-warp sums. A stack whose bf16 tiles do
+# not fit shared memory keeps route 3, and so does one deeper than
+# STREAM_MMA_MAX_LAYERS: there the bf16 gradient is chaotic in the
+# accumulation order (each layer's bf16 roundings flip with the last bits of
+# its sums and the flips cascade down the stack), so it moves by the plain
+# route's own distance from an exact (f64) evaluation, up to 1.5e-2 of
+# max|ref| at 6 layers and 2.7e-2 at 12 (tools/stream_mma_accuracy.py),
+# while route 3's per-element FMA order is the plain route's. The panel
+# cotangent's route 4 decides every ReLU as route 3 does: the layers below
+# the top run route 3's chains on the CUDA cores, and the top layer's
+# decisions on mma.sync are certified (stream_certify_window)
 STREAM_MMA_ROUTE = 4
 STREAM_MMA_MAX_LAYERS = 4
-STREAM_MMA_KERNELS = ("fwd", "bwd")
+STREAM_MMA_KERNELS = ("fwd", "bwd", "dx")
 STREAM_MMA_TILES = (32, 64, 128)
 STREAM_MMA_SLAB = 32
 STREAM_MMA_STAGES = 3
 STREAM_MMA_RED = 512
+# route 4's dx recomputes a top-layer pre-activation h as route 3's exact
+# chain where |h| ≤ window·(max|a|·Σ_k|W_uk| + |b_u|), the window
+# STREAM_CERTIFY per started STREAM_CERTIFY_DEPTH inputs of the top layer
+# (csrc/sdf_ffn_stream.cu kCertify, kCertifyDepth: sdf_ffn_dx.cu route 1's
+# 2^-16 at 64 inputs, grown with the sum's depth)
+STREAM_CERTIFY = 2.0 ** -16
+STREAM_CERTIFY_DEPTH = 64
 
 # launches of the CUDA kernels, counted per device where the wrapper
 # launches them and nowhere else (ops.count_launch; reset_launch_count()
@@ -171,7 +181,8 @@ _TOTALS.update({k + form: v + form for form in (BF16_PANEL, STREAM)
                 for k, v in list(_TOTALS.items())})
 # and those of the streamed route's tensor-core form (a subset of _stream)
 _TOTALS.update({"launches" + STREAM_MMA: "sdf_ffn_fwd" + STREAM_MMA,
-                "bwd_launches" + STREAM_MMA: "sdf_ffn_bwd" + STREAM_MMA})
+                "bwd_launches" + STREAM_MMA: "sdf_ffn_bwd" + STREAM_MMA,
+                "dx_launches" + STREAM_MMA: "sdf_ffn_dx" + STREAM_MMA})
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -577,7 +588,8 @@ STREAM_SOURCE = "sdf_ffn_stream.cu"
 
 def stream_jobs(kernels: Sequence[str] = KERNELS) -> List[_nvcc.Job]:
     """The streamed route's libraries, one per kernel (its four panel ×
-    compute instances), built only where a stack needs them."""
+    compute instances and its two tensor-core ones), built only where a
+    stack needs them."""
     return [_nvcc.Job(f"sdf_ffn_{k}_stream", STREAM_SOURCE,
                       (f"-DSDF_FFN_STREAM_KERNEL={KERNELS.index(k)}",))
             for k in kernels]
@@ -594,6 +606,22 @@ def audit_job(width: int = 64) -> _nvcc.Job:
     ``-DSDF_FFN_DX_AUDIT``, its own library (:func:`dx_audit`)."""
     return _nvcc.Job(f"sdf_ffn_dx_audit_w{width}", _SOURCES["dx"],
                      (f"-DSDF_FFN_MAXW={width}", AUDIT_DEFINE))
+
+
+def stream_audit_job() -> _nvcc.Job:
+    """The streamed dx library's audit build: its source under
+    ``-DSDF_FFN_DX_AUDIT`` too, its own library (:func:`dx_audit` of a
+    route-4 plan)."""
+    (main,) = stream_jobs(["dx"])
+    return _nvcc.Job("sdf_ffn_dx_stream_audit", STREAM_SOURCE,
+                     main.defines + (AUDIT_DEFINE,))
+
+
+def stream_certify_window(kin: int) -> float:
+    """Route 4's certified window for a top layer of `kin` inputs
+    (csrc/sdf_ffn_stream.cu certify_window): STREAM_CERTIFY per started
+    STREAM_CERTIFY_DEPTH inputs."""
+    return STREAM_CERTIFY * -(-int(kin) // STREAM_CERTIFY_DEPTH)
 
 
 def build(widths: Sequence[int] = WIDTH_BOUNDS, verbose: bool = False,
@@ -639,22 +667,24 @@ _STREAM_ARGTYPES = {
 
 
 _STREAM_MMA_ARGTYPES = {
-    # x, xb16, zp, params, wb, wtab, Pb, out | g, grad_part, dzp_part,
-    # layout, layout on the card, S, T, N, dropout, tile, smem, G, stream
+    # x, xb16, zp, params, wb, wtab, Pb, out | g, grad_part, dzp_part | g,
+    # dx, wabs, layout, layout on the card, S, T, N, dropout, tile, smem, G,
+    # stream
     k: (_PANEL_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int]
         + [ctypes.c_void_p] * n
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         + [ctypes.c_int] * 3 + _DROP_ARGTYPES
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    for k, n in (("fwd", 1), ("bwd", 3))}
+    for k, n in (("fwd", 1), ("bwd", 3), ("dx", 3))}
 
 
-def _load_stream(kernel: str):
-    """The streamed route's library of `kernel`, built at first use."""
-    key = (kernel + STREAM, 0)
+def _load_stream(kernel: str, audit: bool = False):
+    """The streamed route's library of `kernel` (with `audit`, the dx's
+    audit build), built at first use."""
+    key = (kernel + STREAM + ("_audit" if audit else ""), 0)
     with _lib_lock:
         if key not in _libs:
-            (job,) = stream_jobs([kernel])
+            (job,) = [stream_audit_job()] if audit else stream_jobs([kernel])
             _nvcc.run([job])
             lib = ctypes.CDLL(str(job.path))
             fn = getattr(lib, f"sdf_ffn_{kernel}_stream")
@@ -678,6 +708,8 @@ def _load_stream(kernel: str):
                 lib.sdf_ffn_stream_mma_plan_info.restype = ctypes.c_int
                 lib.sdf_ffn_stream_mma_registers.argtypes = [ctypes.c_int]
                 lib.sdf_ffn_stream_mma_registers.restype = ctypes.c_int
+            if audit:
+                _bind_audit(lib)
             _libs[key] = lib
         return _libs[key]
 
@@ -721,13 +753,19 @@ def _load(kernel: str, width: int, audit: bool = False):
                 lib.sdf_ffn_dx_registers.argtypes = [ctypes.c_int] * 4
                 lib.sdf_ffn_dx_registers.restype = ctypes.c_int
             if audit:
-                lib.sdf_ffn_dx_audit_reset.argtypes = [ctypes.c_void_p]
-                lib.sdf_ffn_dx_audit_reset.restype = ctypes.c_int
-                lib.sdf_ffn_dx_audit_read.argtypes = [
-                    ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_void_p]
-                lib.sdf_ffn_dx_audit_read.restype = ctypes.c_int
+                _bind_audit(lib)
             _libs[key] = lib
         return _libs[key]
+
+
+def _bind_audit(lib) -> None:
+    """An audit build's counter entries (both dx sources name them
+    alike)."""
+    lib.sdf_ffn_dx_audit_reset.argtypes = [ctypes.c_void_p]
+    lib.sdf_ffn_dx_audit_reset.restype = ctypes.c_int
+    lib.sdf_ffn_dx_audit_read.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_void_p]
+    lib.sdf_ffn_dx_audit_read.restype = ctypes.c_int
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape: Tuple[int, ...],
@@ -891,16 +929,21 @@ def _resident(smem: int, threads: int, regs: int) -> int:
     return blocks
 
 
-def stream_rows(lay: FfnLayout, kernel: str) -> int:
+def stream_rows(lay: FfnLayout, kernel: str,
+                route: int = STREAM_ROUTES["float32"]) -> int:
     """Rows of a streamed block's tile buffers (csrc/sdf_ffn_stream.cu
-    tile_rows; each row BN + 4 floats, each buffer's rows padded to
-    STREAM_SLAB): the panel tile, then the forward's two activation buffers
-    (the widest layer each), or every layer's activations, two dh buffers
-    and (dx) the cotangent's accumulator."""
+    tile_rows; each buffer's rows padded to STREAM_SLAB): the panel tile,
+    then the forward's two activation buffers (the widest layer each), or
+    every layer's activations, two dh buffers and (dx) the cotangent's
+    accumulator. Route 4's dx (bf16 rows; its dx accumulator an f32 tile
+    apart): the panel tile, the layers below the top (each layer's dh_pre
+    written over its activations) and the top layer's dh_pre."""
     r = [_pad(h, STREAM_SLAB) for h in lay.hidden]
     rf = _pad(lay.F, STREAM_SLAB)
     if kernel == "fwd":
         return rf + 2 * max(r)
+    if kernel == "dx" and route == STREAM_MMA_ROUTE:
+        return rf + sum(r)
     return rf + sum(r) + 2 * max(r) + (rf if kernel == "dx" else 0)
 
 
@@ -916,16 +959,26 @@ def stream_geometry(lay: FfnLayout, kernel: str, tile: int,
     STREAM_MMA_STAGES slabs of SU rows × (STREAM_MMA_SLAB + 8) bf16 (SU the
     units of a pass, 64 a warp with tile/32 of the 8 warps along the stocks,
     or the widest padded layer where narrower), the row hashes, the g row
-    and STREAM_MMA_RED cross-warp sums; bf16 tile rows of tile + 8."""
-    rows = stream_rows(lay, kernel)
+    and STREAM_MMA_RED cross-warp sums; bf16 tile rows of tile + 8. Its dx
+    also counts pad16(F) among the layers for SU (its dx product's rows),
+    shares the ring with the two f32 slabs of routes 2 and 3 (its exact
+    layers below the top; the larger of the two) and adds an f32 dx tile of
+    pad16(F) rows × (tile + 4)."""
+    rows = stream_rows(lay, kernel, route)
     if route != STREAM_MMA_ROUTE:
         fixed = 2 * STREAM_SLAB * (16 * STREAM_THREADS // tile) + 2 * tile
         return fixed, rows * (tile + 4)
+    dx = kernel == "dx"
     su = min(64 * (8 // (tile // 32)),
-             max(_pad(h, STREAM_SLAB) for h in lay.hidden))
-    fixed = (STREAM_MMA_STAGES * su * (STREAM_MMA_SLAB + 8) // 2 + 2 * tile
-             + STREAM_MMA_RED)
-    return fixed, rows * (tile + 8) // 2
+             max(_pad(h, STREAM_SLAB)
+                 for h in lay.hidden + ((lay.F,) if dx else ())))
+    ring = STREAM_MMA_STAGES * su * (STREAM_MMA_SLAB + 8) // 2
+    if dx:
+        ring = max(ring, 2 * STREAM_SLAB * (16 * STREAM_THREADS // tile))
+    tiles = rows * (tile + 8) // 2
+    if dx:
+        tiles += _pad(lay.F, STREAM_SLAB) * (tile + 4)
+    return ring + 2 * tile + STREAM_MMA_RED, tiles
 
 
 def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
@@ -933,8 +986,8 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
                 route: int = STREAM_ROUTES["float32"]
                 ) -> Tuple[int, int, int, int, int, int]:
     """The streamed route's launch for `kernel` ("fwd", "bwd" or "dx") on
-    `route` (2 or 3, or the tensor-core STREAM_MMA_ROUTE of the forward and
-    backward): (stock tile, shared memory, resident blocks per SM, G,
+    `route` (2 or 3, or the tensor-core STREAM_MMA_ROUTE): (stock tile,
+    shared memory, resident blocks per SM, G,
     cells, tile floats a block in global scratch — 0 where the tile buffers
     sit in shared memory).
 
@@ -1018,12 +1071,11 @@ def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
                       N: int, compute_dtype: str,
                       registers: Dict[int, int] = None):
     """(route, :func:`stream_plan`) of the streamed `kernel` at
-    `compute_dtype`: under bf16 compute the forward and the backward take the
-    tensor-core route (STREAM_MMA_ROUTE) for stacks of at most
-    STREAM_MMA_MAX_LAYERS layers whose bf16 tiles fit shared memory, else
-    route 3 (the tiles in shared memory or scratch); f32 compute, and the
-    panel cotangent, take STREAM_ROUTES[compute_dtype]. `registers` is keyed
-    by route."""
+    `compute_dtype`: under bf16 compute each kernel takes the tensor-core
+    route (STREAM_MMA_ROUTE) for stacks of at most STREAM_MMA_MAX_LAYERS
+    layers whose bf16 tiles fit shared memory, else route 3 (the tiles in
+    shared memory or scratch); f32 compute takes route 2. `registers` is
+    keyed by route."""
     regs = registers or {}
     if (compute_dtype == "bfloat16" and kernel in STREAM_MMA_KERNELS
             and len(lay.hidden) <= STREAM_MMA_MAX_LAYERS):
@@ -1499,10 +1551,12 @@ def dx_plan_info(lay: FfnLayout, S: int, compute_dtype: str,
     (of the audit build's, with `audit`). Raises for a plan the kernel
     refuses."""
     if is_stream(plan):
-        if audit:
-            raise ValueError("sdf_ffn_dx: the audit build is the resident "
-                             "route's; the plan is the streamed route's")
-        return stream_plan_info("dx", lay, plan, xb16)
+        if audit and plan.route != STREAM_MMA_ROUTE:
+            raise ValueError("sdf_ffn_dx: the audit builds are of the "
+                             "certified routes (1, and the streamed route "
+                             f"{STREAM_MMA_ROUTE}); the plan is route "
+                             f"{plan.route}'s")
+        return stream_plan_info("dx", lay, plan, xb16, audit)
     out = (ctypes.c_int * 3)()
     rc = _load("dx", width_bound(lay.hidden), audit).sdf_ffn_dx_plan_info(
         _layout_ints(lay), S, int(compute_dtype == "bfloat16"), plan.route,
@@ -1548,13 +1602,15 @@ def bwd_plan_info(lay: FfnLayout, plan: BwdPlan,
 
 
 def stream_plan_info(kernel: str, lay: FfnLayout, plan,
-                     xb16: bool = False) -> Dict[str, int]:
+                     xb16: bool = False, audit: bool = False
+                     ) -> Dict[str, int]:
     """What the card makes of a streamed `plan` of `kernel` (the current
     CUDA device): resident blocks per SM, registers and local-memory bytes
     per thread of the instance it launches (the plan's route names the
-    compute dtype). Raises for a plan the kernel refuses."""
+    compute dtype; `audit`: of the dx's audit build). Raises for a plan the
+    kernel refuses."""
     out = (ctypes.c_int * 3)()
-    lib = _load_stream(kernel)
+    lib = _load_stream(kernel, audit)
     rc = (lib.sdf_ffn_stream_mma_plan_info(
         _layout_ints(lay), plan.tile, plan.smem_bytes, int(xb16), out)
         if plan.route == STREAM_MMA_ROUTE else lib.sdf_ffn_stream_plan_info(
@@ -1592,8 +1648,7 @@ def _stream_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
     dev = x_t.device
     mma = plan.route == STREAM_MMA_ROUTE
     if not (plan.route == STREAM_ROUTES[packed.compute_dtype]
-            or (mma and packed.compute_dtype == "bfloat16"
-                and kernel in STREAM_MMA_KERNELS)):
+            or (mma and packed.compute_dtype == "bfloat16")):
         raise ValueError(f"sdf_ffn_{kernel}: the plan {plan} is not the "
                          f"streamed route at {packed.compute_dtype}")
     if mma:
@@ -1627,18 +1682,19 @@ def stream_mma_table(lay: FfnLayout) -> Tuple[int, List[int]]:
     A_l [pad16(h_l)][ld_a] (A_l[u][k] = the weight from input k to unit u;
     ld_a = the layer's inputs padded to STREAM_MMA_SLAB), in layer order,
     then for l ≥ 1 its transpose [pad16(h_{l-1})][ld_t] (the dh chain's
-    Wᵀ; ld_t = h_l padded), zero past each matrix; l = 0 has no transpose
-    (0, 0). Every offset and row is a multiple of 8 values (16 bytes)."""
+    Wᵀ; ld_t = h_l padded), then layer 0's, K1 [pad16(F)][ld_t] (the panel
+    cotangent's dx product), zero past each matrix. Every offset and row is
+    a multiple of 8 values (16 bytes)."""
     h, ins = lay.hidden, (lay.F,) + lay.hidden[:-1]
     off, tab = 0, []
     for li in range(len(h)):
         ld = _pad(ins[li], STREAM_MMA_SLAB)
         tab.append([off, ld, 0, 0])
         off += _pad(h[li], 16) * ld
-    for li in range(1, len(h)):
+    for li in list(range(1, len(h))) + [0]:
         ld = _pad(h[li], STREAM_MMA_SLAB)
         tab[li][2:] = [off, ld]
-        off += _pad(h[li - 1], 16) * ld
+        off += _pad(ins[li], 16) * ld
     return off, [x for row in tab for x in row]
 
 
@@ -1653,11 +1709,12 @@ def _stream_mma_index(lay: FfnLayout) -> Tuple[int, np.ndarray]:
         u = np.arange(h[li])[:, None]
         if li == 0:  # k1 [F][hp0]: input k, unit u at k·hp0 + u
             k = np.arange(lay.F)[None, :]
-            src[off_a + u * ld_a + k] = k * hp[0] + u
-            continue
-        k = np.arange(h[li - 1])[None, :]  # W_l [h_l][hp_{l-1}]
-        src[off_a + u * ld_a + k] = lay.off_w[li] + u * hp[li - 1] + k
-        src[off_t + k.T * ld_t + u.T] = lay.off_w[li] + u.T * hp[li - 1] + k.T
+            at = k * hp[0] + u
+        else:  # W_l [h_l][hp_{l-1}]
+            k = np.arange(h[li - 1])[None, :]
+            at = lay.off_w[li] + u * hp[li - 1] + k
+        src[off_a + u * ld_a + k] = at
+        src[off_t + k.T * ld_t + u.T] = at.T
     return Pb, src
 
 
@@ -1686,19 +1743,39 @@ def stream_mma_weights(packed: PackedFfn) -> torch.Tensor:
     return padded[:, src].to(torch.bfloat16).contiguous()
 
 
+def stream_mma_wabs(packed: PackedFfn) -> torch.Tensor:
+    """[S, HL] f32: Σ_k |W_uk| over the inputs k of each unit u of each
+    member's top layer (K1's columns in a one-layer stack), from
+    packed.params on their device: the magnitude bound of route 4's
+    certified window. The dx's wrapper makes it at each launch, as it makes
+    the bf16 copy."""
+    lay, S = packed.layout, packed.n_members
+    h, hp, p = lay.hidden, lay.hp, packed.params
+    if len(h) == 1:
+        k1 = p[:, :lay.F * hp[0]].view(S, lay.F, hp[0])
+        return k1.abs().sum(dim=1)[:, :h[0]].contiguous()
+    o = lay.off_w[-1]
+    w = p[:, o:o + h[-1] * hp[-2]].view(S, h[-1], hp[-2])
+    return w.abs().sum(dim=2).contiguous()
+
+
 def _stream_mma_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
                        packed: PackedFfn, plan, seed: Seed,
                        dropout_rate: float, offset: int,
-                       outs: Sequence[torch.Tensor]) -> None:
+                       outs: Sequence[torch.Tensor], lib=None) -> None:
     """One launch of the streamed `kernel`'s tensor-core form at `plan`
-    (fwd: out; bwd: g, grad_part, dzp_part), the bf16 weight copy made
-    here; counts it under the kernel, its ``_stream`` and its
-    ``_stream_mma`` forms."""
+    (fwd: out; bwd: g, grad_part, dzp_part; dx: g, dx), the bf16 weight copy
+    (and the dx's :func:`stream_mma_wabs`) made here; counts it under the
+    kernel, its ``_stream`` and its ``_stream_mma`` forms. `lib`: another
+    build of the kernel's library (the dx audit's), whose launch is not
+    counted."""
     lay = packed.layout
     T, _, N = x_t.shape
     S = packed.n_members
     dev = x_t.device
     wb = stream_mma_weights(packed)
+    if kernel == "dx":
+        outs = tuple(outs) + (stream_mma_wabs(packed),)
     key = (lay, str(dev))
     if key not in _mma_tabs:
         _mma_tabs[key] = torch.tensor(stream_mma_table(lay)[1],
@@ -1706,7 +1783,8 @@ def _stream_mma_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_load_stream(kernel), f"sdf_ffn_{kernel}_stream_mma")(
+        rc = getattr(lib or _load_stream(kernel),
+                     f"sdf_ffn_{kernel}_stream_mma")(
             *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
             wb.data_ptr(), _mma_tabs[key].data_ptr(), wb.shape[1],
             *(t.data_ptr() for t in outs), _layout_ints(lay),
@@ -1717,6 +1795,8 @@ def _stream_mma_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
                            f"{plan} for hidden {list(lay.hidden)}, F = "
                            f"{lay.F}")
     _raise_rc(f"sdf_ffn_{kernel}_stream_mma", rc)
+    if lib is not None:
+        return
     panel_launch(f"sdf_ffn_{kernel}", x_t)
     count_launch(f"sdf_ffn_{kernel}{STREAM}", dev)
     count_launch(f"sdf_ffn_{kernel}{STREAM_MMA}", dev)
@@ -1771,7 +1851,8 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
              plan: Optional[DxPlan], offset: int = 0) -> torch.Tensor:
     """One launch of `lib`'s sdf_ffn_dx (the main library or its audit
     build) at `plan`, :func:`card_dx_plan` by default; a streamed plan
-    launches the streamed library (`lib` unused)."""
+    launches the streamed library (`lib` None), or its audit build (`lib`,
+    a route-4 plan)."""
     lay = packed.layout
     T, F, N = x_t.shape
     S = packed.n_members
@@ -1786,8 +1867,12 @@ def _dx_call(lib, x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     # in the panel's dtype: a bf16 dx is rounded once, in the kernel
     dx = torch.empty((T, lay.F, N), dtype=x_t.dtype, device=dev)
     if is_stream(plan):
-        _stream_launch("dx", x_t, zp, packed, plan, seed, dropout_rate,
-                       offset, (g, dx))
+        if lib is None:
+            _stream_launch("dx", x_t, zp, packed, plan, seed, dropout_rate,
+                           offset, (g, dx))
+        else:
+            _stream_mma_launch("dx", x_t, zp, packed, plan, seed,
+                               dropout_rate, offset, (g, dx), lib)
         return dx
     # route 1's member images (bf16 rows), written by the launch itself
     img = (torch.empty(S * dx_geometry(lay, 1, plan.tile, plan.wbufs,
@@ -1833,8 +1918,9 @@ def dx_audit(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
              g: torch.Tensor, seed: Seed = 0, dropout_rate: float = 0.0,
              plan: DxPlan = None, offset: int = 0
              ) -> Tuple[torch.Tensor, Dict[str, float]]:
-    """:func:`_launch_dx` through the audit build (:func:`audit_job`):
-    (dx, the launch's counters of route 1's top-layer decisions, keyed by
+    """:func:`_launch_dx` through the audit build (:func:`audit_job`, or
+    :func:`stream_audit_job` for a route-4 plan): (dx, the launch's counters
+    of the top-layer decisions of route 1 or 4, keyed by
     :data:`AUDIT_COUNTERS`: ``max_ratio`` is the largest |mma − chain| /
     (max|a|·Σ|W| + |b|); beside them the audit kernel's ``registers`` and
     ``local_bytes``). It launches no kernel of the main path and counts no
@@ -1844,11 +1930,12 @@ def dx_audit(x_t: torch.Tensor, zp: torch.Tensor, packed: PackedFfn,
     if dev.type != "cuda":
         raise ValueError(f"dx_audit runs the audit kernel on CUDA tensors; "
                          f"got {dev}")
-    lib = _load("dx", width_bound(lay.hidden), audit=True)
     if plan is None:
         plan = card_dx_plan(lay, dev, packed.n_members, x_t.shape[0],
                             x_t.shape[2], packed.compute_dtype,
                             xb16=is_bf16(x_t))
+    lib = (_load_stream("dx", audit=True) if is_stream(plan)
+           else _load("dx", width_bound(lay.hidden), audit=True))
     out = (ctypes.c_ulonglong * len(AUDIT_COUNTERS))()
     with torch.cuda.device(dev):
         # opens the audit kernel to the plan's shared memory

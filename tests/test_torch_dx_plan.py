@@ -16,6 +16,7 @@ is the persistent set of resident blocks (or every cell, where there are
 fewer).
 """
 
+import numpy as np
 import pytest
 
 from deeplearninginassetpricing_paperreplication_torch.ops import sdf_ffn as K
@@ -202,3 +203,162 @@ def test_audit_needs_cuda_tensors():
                    torch.zeros(S, T, N))
     assert K.AUDIT_COUNTERS == ("elements", "certified", "flips",
                                 "flips_outside", "max_ratio")
+
+
+# -- the streamed route's tensor-core panel cotangent (route 4) ---------------
+
+# chip_smoke.py phase 21's stacks that route 4 serves (≤ 4 layers), and the
+# deeper ones route 3 keeps
+ROUTE4 = [((256, 256), 46), ((132,), 46), ((144,) * 4, 46), ((64, 64), 256)]
+ROUTE4_IDS = ["256x256", "132", "4x144", "64x64-F256"]
+
+
+@pytest.mark.parametrize("S", [1, 9])
+@pytest.mark.parametrize("hidden,f", ROUTE4, ids=ROUTE4_IDS)
+def test_bf16_streamed_dx_takes_the_tensor_core_route(hidden, f, S):
+    """Under bf16 compute the streamed panel cotangent plans route 4: its
+    bf16 tiles and f32 dx tile in shared memory (no scratch), 256 threads,
+    a stock tile of STREAM_MMA_TILES, the shared memory that
+    csrc/sdf_ffn_stream.cu's dx_mma_smem_bytes counts; f32 compute keeps
+    route 2."""
+    lay = K.ffn_layout(f, hidden)
+    plan = K.dx_plan(lay, SMS, S, 48, 10_000, "bfloat16")
+    assert K.is_stream(plan) and plan.route == K.STREAM_MMA_ROUTE
+    assert plan.scratch == 0 and plan.threads == K.STREAM_THREADS
+    assert plan.tile in K.STREAM_MMA_TILES
+    fixed, tiles = K.stream_geometry(lay, "dx", plan.tile, plan.route)
+    assert plan.smem_bytes == 4 * (fixed + tiles) <= BLOCK_SMEM_LIMIT
+    assert plan.cells == 48 * -(-10_000 // plan.tile)
+    assert plan.G == min(plan.cells, plan.blocks_per_sm * SMS)
+    assert K.dx_plan(lay, SMS, S, 48, 10_000, "float32").route == \
+        K.STREAM_ROUTES["float32"]
+    # at the registers of an 8-warp block of the tensor-core kernels (the
+    # forward's 180, the backward's 237) it still plans, one block an SM
+    for regs in (180, 237):
+        held = K.dx_plan(lay, SMS, S, 48, 10_000, "bfloat16",
+                         {K.STREAM_MMA_ROUTE: regs})
+        assert held.route == K.STREAM_MMA_ROUTE and held.blocks_per_sm == 1
+
+
+@pytest.mark.parametrize("depth", [5, 12, 16])
+def test_deep_bf16_streamed_dx_keeps_route_3(depth):
+    """A plan decision by depth: past STREAM_MMA_MAX_LAYERS layers the
+    streamed bf16 panel cotangent stays on route 3 (the CUDA cores)."""
+    assert depth > K.STREAM_MMA_MAX_LAYERS
+    lay = K.ffn_layout(F, (144,) * depth if depth < 12 else (64,) * depth)
+    for S in (1, 9):
+        plan = K.dx_plan(lay, SMS, S, 48, 10_000, "bfloat16")
+        assert plan.route == K.STREAM_ROUTES["bfloat16"]
+        assert K.dx_plan(lay, SMS, S, 48, 10_000, "float32").route == \
+            K.STREAM_ROUTES["float32"]
+
+
+def test_f32_streamed_dx_plan_at_256x256_is_unchanged():
+    """f32 compute keeps route 2's plan at (256, 256), F = 46: tile 32, one
+    block an SM, its tiles in shared memory; and route 3 forced at bf16
+    (the plan the card checks route 4 against) is route 2's geometry."""
+    lay = K.ffn_layout(F, (256, 256))
+    for S in (1, 9):
+        plan = K.dx_plan(lay, SMS, S, 48, 10_000, "float32")
+        assert (plan.route, plan.tile, plan.smem_bytes, plan.blocks_per_sm,
+                plan.G, plan.cells, plan.scratch) == (
+                    K.STREAM_ROUTES["float32"], 32, 177_920, 1, SMS, 15_024,
+                    0)
+        assert K.stream_plan(lay, "dx", SMS, S, 48, 10_000,
+                             route=K.STREAM_ROUTES["bfloat16"]) == (
+            32, 177_920, 1, SMS, 15_024, 0)
+
+
+def test_stream_audit_build_is_the_stream_source_under_its_macro():
+    """The streamed dx's audit library is sdf_ffn_stream.cu compiled as the
+    dx library with the audit macro, into its own library; everything the
+    macro adds sits inside its #ifdef blocks."""
+    (main,) = K.stream_jobs(["dx"])
+    audit = K.stream_audit_job()
+    assert audit.source == main.source == K.STREAM_SOURCE
+    assert audit.defines == main.defines + (K.AUDIT_DEFINE,)
+    assert audit.name != main.name and audit.path != main.path
+    src = (K._nvcc.CSRC / main.source).read_text().splitlines()
+    outside, depth, blocks = [], 0, 0
+    for line in src:
+        if line.startswith("#ifdef SDF_FFN_DX_AUDIT"):
+            depth += 1
+            blocks += 1
+        elif depth and line.startswith("#endif"):
+            depth -= 1
+        elif not depth:
+            outside.append(line)
+    assert depth == 0 and blocks >= 3
+    for name in ("g_dx_audit", "audit_add", "sdf_ffn_dx_audit_", "seen"):
+        assert not any(name in line for line in outside), name
+
+
+def test_certified_window_mirrors_the_kernel():
+    """ops/sdf_ffn.py's window is csrc/sdf_ffn_stream.cu's: 2^-16 (route
+    1's kCertify in sdf_ffn_dx.cu) per started 64 inputs of the top layer."""
+    import re
+
+    src = (K._nvcc.CSRC / K.STREAM_SOURCE).read_text()
+    dx_src = (K._nvcc.CSRC / "sdf_ffn_dx.cu").read_text()
+    const = "constexpr float kCertify = 1.0f / 65536.0f;"
+    assert const in src and const in dx_src
+    assert K.STREAM_CERTIFY == 1.0 / 65536.0
+    depth = re.search(r"constexpr int kCertifyDepth = (\d+);", src)
+    assert depth and int(depth.group(1)) == K.STREAM_CERTIFY_DEPTH == 64
+    assert ("return kCertify * (float)((kin + kCertifyDepth - 1) / "
+            "kCertifyDepth);") in src
+    for kin, want in ((1, 2 ** -16), (46, 2 ** -16), (64, 2 ** -16),
+                      (65, 2 ** -15), (132, 3 * 2 ** -16), (256, 2 ** -14),
+                      (2048, 2 ** -11)):
+        assert K.stream_certify_window(kin) == want
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bf16 (round to nearest even), as float32."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("depth", [64, 256, 1024, 2048])
+def test_blocked_sum_within_the_certified_window(depth):
+    """A numpy model of route 4's certification. Products of bf16 values
+    are exact in f32, so route 3's fmaf chain over the top layer's inputs
+    (k in order from 0) is replayed here bit for bit; an mma order is
+    modelled as 16-wide blocks, each summed exactly and added to the f32
+    accumulator. On phase 21's draws (torch generator 21; the layer below a
+    ReLU of K1ᵀx + zp at F = 46, the top layer's W at depth^-0.5, b at 0.1)
+    the blocked pre-activation is within window/8 of the chain, relative to
+    the magnitude bound max|a|·Σ|W| + |b|, so every decision outside the
+    window is the chain's."""
+    import torch
+
+    g = torch.Generator().manual_seed(21)
+    U, n = 64, 128
+    x = torch.randn(F, n, generator=g).numpy()
+    k1 = (torch.randn(depth, F, generator=g) * F ** -0.5).numpy()
+    zp = (torch.randn(depth, 1, generator=g) * 0.3).numpy()
+    a = _bf16(np.maximum(_bf16(k1) @ _bf16(x) + zp, 0.0))  # [depth, n]
+    w = _bf16((torch.randn(U, depth, generator=g) * depth ** -0.5).numpy())
+    b = (torch.randn(U, 1, generator=g) * 0.1).numpy().astype(np.float32)
+    chain = np.zeros((U, n), np.float32)
+    for k in range(depth):  # fmaf(w, a, h): the exact product, one rounding
+        chain = (chain + w[:, k:k + 1] * a[k:k + 1, :]).astype(np.float32)
+    blocked = np.zeros((U, n), np.float32)
+    for k0 in range(0, depth, 16):
+        part = w[:, k0:k0 + 16].astype(np.float64) @ a[k0:k0 + 16].astype(
+            np.float64)
+        blocked = (blocked.astype(np.float64) + part).astype(np.float32)
+    h_chain = (chain + b).astype(np.float32)
+    h_mma = (blocked + b).astype(np.float32)
+    mag = (a.max(axis=0)[None, :] * np.abs(w).sum(axis=1)[:, None]
+           + np.abs(b))
+    window = K.stream_certify_window(depth)
+    gap = np.abs(h_mma.astype(np.float64) - h_chain) / mag
+    assert float(gap.max()) <= window / 8
+    outside = np.abs(h_mma) > window * mag
+    assert np.array_equal(h_mma[outside] > 0, h_chain[outside] > 0)
+    # the model exercises both: sums that differ, and some within the window
+    assert (h_mma != h_chain).any()
+    assert 0 < float(outside.mean()) <= 1.0

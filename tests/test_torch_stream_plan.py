@@ -20,8 +20,8 @@ KINDS = ("fwd", "bwd", "dx")
 PHASE21 = [((256, 256), 46), ((132,), 46), ((64,) * 12, 46),
            ((64,) * 16, 46), ((64, 64), 256)]
 # the streamed route's stocks per SM at (256, 256) before its tensor-core
-# form (one block an SM: forward tile 64, backward 32)
-CUDA_CORE_STOCKS = {"fwd": 64, "bwd": 32}
+# form (one block an SM: forward tile 64, backward 32, panel cotangent 32)
+CUDA_CORE_STOCKS = {"fwd": 64, "bwd": 32, "dx": 32}
 # shapes the resident kernels plan today (the plan tests' grids)
 RESIDENT = [((64, 64), 46), ((128, 128), 46), ((64, 64, 64), 46),
             ((32, 32), 46), ((8, 7, 6), 10), ((64, 64), 80), ((8,), 5)]
@@ -53,10 +53,10 @@ def test_streamed_plans_fit_the_block(hidden, F, S, kind):
     threads and the SM: its shared memory is the slabs, row hashes and g
     row, plus the tile buffers where they sit in shared memory (else a
     scratch slice a block); G fills at most the resident blocks (per member
-    for the backward) and the scratch budgets. Under bf16 compute the
-    forward and the backward take the tensor-core route, its bf16 tiles in
-    shared memory, at least twice the (256, 256) stocks per SM of the CUDA
-    cores' (forward 2 × 64, backward 2 × 32), up to STREAM_MMA_MAX_LAYERS
+    for the backward) and the scratch budgets. Under bf16 compute every
+    kernel takes the tensor-core route, its bf16 tiles in shared memory, at
+    least twice the (256, 256) stocks per SM of the CUDA cores' (forward 2 ×
+    64, backward and panel cotangent 2 × 32), up to STREAM_MMA_MAX_LAYERS
     layers; the 12- and 16-layer stacks keep route 3."""
     lay = K.ffn_layout(F, hidden)
     for cd in DTYPES:
@@ -140,8 +140,8 @@ def test_reach_widths_1024_depth_32_F_512_nine_members(kind):
 def test_tensor_core_route_up_to_its_depth(depth, kind):
     """A plan decision by depth: bf16 stacks of at most STREAM_MMA_MAX_LAYERS
     layers past the resident kernels take the tensor-core route, deeper
-    ones route 3 (tiles in shared memory, the CUDA cores), the forward and
-    the backward alike."""
+    ones route 3 (tiles in shared memory, the CUDA cores), the forward, the
+    backward and the panel cotangent alike."""
     lay = K.ffn_layout(46, (144,) * depth if depth <= 6 else (64,) * depth)
     for S in (1, 9):
         plan = _plan(kind, lay, S, "bfloat16")
@@ -173,19 +173,33 @@ def test_tensor_core_smem_is_what_the_kernel_counts(hidden, F, kind):
     """The tensor-core plan's shared memory, counted as
     csrc/sdf_ffn_stream.cu's mma_smem_bytes counts it: a ring of three
     slabs of SU rows × 40 bf16, the row hashes and the g row, 512 floats of
-    cross-warp sums, then the bf16 tile rows of tile + 8."""
+    cross-warp sums, then the bf16 tile rows of tile + 8. The panel
+    cotangent's (dx_mma_smem_bytes): SU counts pad16(F) too, the ring holds
+    at least the exact layers' two f32 slabs of 16 × 4096/tile, its bf16
+    rows are the panel tile's and each layer's once, and an f32 dx tile of
+    pad16(F) × (tile + 4) follows them."""
     lay = K.ffn_layout(F, hidden)
     plan = _plan(kind, lay, 1, "bfloat16")
     assert plan.route == K.STREAM_MMA_ROUTE
-    su = min(64 * 8 // (plan.tile // 32),
-             max(-(-h // 16) * 16 for h in hidden))
-    rows = K.stream_rows(lay, kind)
-    assert plan.smem_bytes == (2 * 3 * su * 40 + 8 * plan.tile + 4 * 512
-                               + 2 * rows * (plan.tile + 8))
+    p16 = [-(-h // 16) * 16 for h in hidden]
+    f16 = -(-F // 16) * 16
+    if kind == "dx":
+        su = min(64 * 8 // (plan.tile // 32), max(p16 + [f16]))
+        rows = f16 + sum(p16)
+        assert rows == K.stream_rows(lay, kind, K.STREAM_MMA_ROUTE)
+        assert plan.smem_bytes == (
+            max(2 * 3 * su * 40, 2 * 16 * (4096 // plan.tile) * 4)
+            + 8 * plan.tile + 4 * 512 + 2 * rows * (plan.tile + 8)
+            + 4 * f16 * (plan.tile + 4))
+    else:
+        su = min(64 * 8 // (plan.tile // 32), max(p16))
+        rows = K.stream_rows(lay, kind)
+        assert plan.smem_bytes == (2 * 3 * su * 40 + 8 * plan.tile + 4 * 512
+                                   + 2 * rows * (plan.tile + 8))
     assert plan.smem_bytes <= K.MAX_SMEM
     if hidden == (256, 256):
-        assert (plan.tile, plan.blocks_per_sm) == (
-            (128, 1) if kind == "fwd" else (64, 1))
+        assert (plan.tile, plan.blocks_per_sm) == {
+            "fwd": (128, 1), "bwd": (64, 1), "dx": (128, 1)}[kind]
 
 
 @pytest.mark.parametrize("hidden,F,S", [((256, 256), 46, 2), ((132,), 46, 1),
@@ -193,9 +207,10 @@ def test_tensor_core_smem_is_what_the_kernel_counts(hidden, F, kind):
                                         ((8, 7, 6), 10, 2)])
 def test_stream_mma_weights_equal_the_packed_weights(hidden, F, S):
     """The tensor-core route's bf16 weight copy holds exactly the packed
-    (bf16-rounded) weights: each layer's [units][inputs] matrix and, from
-    the second layer, its transpose, zero past them, every offset and row
-    16-byte aligned."""
+    (bf16-rounded) weights: each layer's [units][inputs] matrix and its
+    transpose (the first layer's, K1 [F][h0], the panel cotangent's dx
+    product), zero past them, every offset and row 16-byte aligned; the
+    dx's Σ|W| of the top layer's units is the packed weights'."""
     g = torch.Generator().manual_seed(3)
     k1T = torch.randn(S, hidden[0], F, generator=g)
     mids = [(torch.randn(S, hidden[i], hidden[i - 1], generator=g),
@@ -218,15 +233,20 @@ def test_stream_mma_weights_equal_the_packed_weights(hidden, F, S):
         assert torch.equal(a[:, :hidden[li], :ins[li]], w)
         assert not a[:, hidden[li]:].any() and not a[:, :, ins[li]:].any()
         covered += rows * ld_a
-        if li:
-            rows = -(-ins[li] // 16) * 16
-            at = wb[:, off_t:off_t + rows * ld_t].float().view(S, rows, ld_t)
-            assert torch.equal(at[:, :ins[li], :hidden[li]],
-                               w.transpose(1, 2))
-            assert not at[:, ins[li]:].any()
-            assert not at[:, :, hidden[li]:].any()
-            covered += rows * ld_t
+        rows = -(-ins[li] // 16) * 16
+        at = wb[:, off_t:off_t + rows * ld_t].float().view(S, rows, ld_t)
+        assert ld_t == -(-hidden[li] // K.STREAM_MMA_SLAB) * K.STREAM_MMA_SLAB
+        assert torch.equal(at[:, :ins[li], :hidden[li]], w.transpose(1, 2))
+        assert not at[:, ins[li]:].any()
+        assert not at[:, :, hidden[li]:].any()
+        covered += rows * ld_t
     assert covered == Pb
+    # layer 0's transpose comes last: the other matrices keep their offsets
+    assert tab[2] == max(tab[2::4])
+    wabs = K.stream_mma_wabs(packed)
+    assert wabs.shape == (S, hidden[-1]) and wabs.dtype == torch.float32
+    torch.testing.assert_close(wabs, weights[-1].abs().sum(dim=2),
+                               rtol=1e-6, atol=0)
     with pytest.raises(ValueError, match="bf16"):
         K.stream_mma_weights(K.pack_ffn(k1T, mids, torch.zeros(S, hidden[-1]),
                                         torch.zeros(S), "float32"))

@@ -1,6 +1,7 @@
-"""How far the streamed SDF-FFN backward's two bf16 routes sit from the plain
-version, beside how far the plain version sits from an exact evaluation, by
-depth: the evidence behind ``ops/sdf_ffn.py::STREAM_MMA_MAX_LAYERS``.
+"""How far the streamed SDF-FFN backward's and panel cotangent's two bf16
+routes sit from the plain version, beside how far the plain version sits
+from an exact evaluation, by depth: the evidence behind
+``ops/sdf_ffn.py::STREAM_MMA_MAX_LAYERS``.
 
 Under bf16 compute every product reads bf16 operands and accumulates in f32.
 The plain version (``sdf_ffn_bwd_reference``), route 3 (the CUDA cores: one
@@ -12,9 +13,15 @@ generator 21, T = 6, N = 10,000, F = 46) at stacks of 64 and 256 units and
 growing depth, S = 1 and 9, dropout 0 and 0.1, and prints, per case, the
 largest max|d|/max|ref| over the gradient tensors (dzp, dK1, dkout, each dW_l
 and db_l) of route 4 and route 3 against the plain version and of the plain
-version and route 4 against the float64 evaluation. A stack too deep for
-route 4's shared memory is skipped. It needs a CUDA card and builds the
-streamed backward's library from this checkout::
+version and route 4 against the float64 evaluation. Then the same for the
+panel cotangent dx (``sdf_ffn_dx_reference``), route 4 on a forced plan at
+every depth, and its audit build's count of top-layer decisions flipped
+outside the certified window: route 4's dx runs the layers below the top as
+route 3's exact chains and certifies the top layer's decisions, so its
+distance from plain should not grow with depth the way the backward's does.
+A stack too deep for route 4's shared memory is skipped. It needs a CUDA card
+and builds the streamed backward's and panel cotangent's libraries (and the
+dx's audit build) from this checkout::
 
     python3 tools/stream_mma_accuracy.py
 """
@@ -66,9 +73,10 @@ def r16(a, dt):
     return a.to(torch.bfloat16).to(dt)
 
 
-def exact_bwd(x_t, zp, k1T, mids, kout, g, seed, rate, dt=torch.float64):
-    """``sdf_ffn_bwd_reference``'s rounding points, its sums in `dt`:
-    [dzp, dK1, dkout, dW_1, db_1, ...]."""
+def exact_chain(x_t, zp, k1T, mids, kout, g, seed, rate, dt):
+    """The plain versions' forward and dh chain at their rounding points,
+    the sums in `dt`: (the rounded panel, each layer's activations, each
+    layer's dh_pre)."""
     S = zp.shape[0]
     drop = rate > 0
     if drop:
@@ -93,6 +101,13 @@ def exact_bwd(x_t, zp, k1T, mids, kout, g, seed, rate, dt=torch.float64):
         dh = torch.einsum("sji,stjn->stin", r16(mids[li - 1][0], dt),
                           r16(pres[li], dt))
     pres[0] = dh * facs[0]
+    return x, acts, pres
+
+
+def exact_bwd(x_t, zp, k1T, mids, kout, g, seed, rate, dt=torch.float64):
+    """``sdf_ffn_bwd_reference``'s rounding points, its sums in `dt`:
+    [dzp, dK1, dkout, dW_1, db_1, ...]."""
+    x, acts, pres = exact_chain(x_t, zp, k1T, mids, kout, g, seed, rate, dt)
     out = [pres[0].sum(dim=3),
            torch.einsum("stjn,tfn->sjf", r16(pres[0], dt), x),
            torch.einsum("sthn,stn->sh", acts[-1], g.to(dt))]
@@ -117,9 +132,54 @@ def launched(x, zp, packed, gout, seed, rate, route):
     return [dzp, dk1T, dkout] + [t for wb in dmids for t in wb]
 
 
+def exact_dx(x_t, zp, k1T, mids, kout, g, seed, rate, dt=torch.float64):
+    """``sdf_ffn_dx_reference``'s rounding points, its sums in `dt`."""
+    _, _, pres = exact_chain(x_t, zp, k1T, mids, kout, g, seed, rate, dt)
+    return torch.einsum("sjf,stjn->tfn", r16(k1T, dt), r16(pres[0], dt))
+
+
+def dx_plan(packed, x, route):
+    """The streamed dx's plan on `route` (3, or 4 forced at any depth) at
+    this card's registers."""
+    lay, S = packed.layout, packed.n_members
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, smem, blocks, G, cells, scratch = K.stream_plan(
+        lay, "dx", sms, S, T, N, K._stream_registers("dx", route, False),
+        route)
+    return K.DxPlan(route, tile, K.STREAM_THREADS, 2, 1, False, smem, blocks,
+                    G, cells, scratch)
+
+
 def worst(a, b) -> float:
     return max(float((p.double() - q.double()).abs().max()
                      / q.double().abs().max()) for p, q in zip(a, b))
+
+
+def dx_case(name, x, zp, packed, k1T, mids, kout, gout, seed, rate):
+    """The panel cotangent's routes 4 (and its audit) and 3 at one case."""
+    try:
+        plan4 = dx_plan(packed, x, K.STREAM_MMA_ROUTE)
+    except ValueError as e:  # route 4's shared memory
+        print(f"{name} dx: no route-4 plan ({e})", flush=True)
+        return
+    r4 = [K._launch_dx(x, zp, packed, gout, seed, rate, plan4)]
+    audit, counts = K.dx_audit(x, zp, packed, gout, seed, rate, plan4)
+    r3 = [K._launch_dx(x, zp, packed, gout, seed, rate,
+                       dx_plan(packed, x, K.STREAM_ROUTES["bfloat16"]))]
+    plain = [K.sdf_ffn_dx_reference(x, zp, k1T, mids, kout, gout, "bfloat16",
+                                    seed, rate)]
+    exact = [exact_dx(x, zp, k1T, mids, kout, gout, seed, rate)]
+    torch.cuda.synchronize()
+    same = torch.equal(audit, r4[0])
+    print(f"{name} dx: route 4 vs plain {worst(r4, plain):.2e}, route 3 vs "
+          f"plain {worst(r3, plain):.2e}, plain vs f64 "
+          f"{worst(plain, exact):.2e}, route 4 vs f64 {worst(r4, exact):.2e}"
+          f"; audit: {counts['certified']} of {counts['elements']} "
+          f"certified, {counts['flips']} mma flips, "
+          f"{counts['flips_outside']} outside the window, max|mma - chain|/"
+          f"bound {counts['max_ratio']:.3e}, its dx "
+          f"{'bit for bit' if same else 'NOT bit for bit'} route 4's",
+          flush=True)
 
 
 def main() -> int:
@@ -155,6 +215,8 @@ def main() -> int:
                       f"f64 {worst(plain, exact):.2e}, route 4 vs f64 "
                       f"{worst(r4, exact):.2e}", flush=True)
                 del r4, r3, ref, plain, exact
+                dx_case(name, x, zp, packed, k1T, mids, kout, gout, seed,
+                        rate)
             del x, zp, k1T, mids, kout, gout
     return 0
 
