@@ -8960,6 +8960,22 @@ SH_AUDIT = [((256, 256), 46), ((132,), 46), ((64, 64), 256)]
 # (b)-(d): the train CLI's shape range run
 SH_HIDDEN = (256, 256)
 SH_MOMENTS = 32
+# route 5 against route 2: a nonzero stock offset (a stock shard's span
+# start), beside offset 0; and a stack beside SH_STACKS whose route-5 plans
+# take tile 32 and a two-pass layer (320 units)
+SH_OFFSET = 2_500
+SH_TILED_EXTRA = [((320, 320), 46)]
+# route 5 against route 2 in turns, (hidden, F, S): the training shape at S
+# = 1 and 9, and at S = 1 every other stack whose route-5 tile fits: (132,)
+# (a 144-unit pass of 256), the 64-wide stacks (a quarter of a pass; (64,
+# 64) at F = 256 plans the resident kernels), the plans at tile 32 ((320,
+# 320); the backward of (384,) and of 3 × 256), and the forward's boundary
+# (K.STREAM_TILED_NARROW): 96 units, and 64 units where route 2 takes tile
+# 32 (F = 1024) or 64 (F = 512)
+SH_TILED_TURNS = ([(SH_HIDDEN, 46, 1), (SH_HIDDEN, 46, 9)]
+                  + [(h, F, 1) for h, F in SH_STACKS[1:] + SH_TILED_EXTRA
+                     + [((384,), 46), ((256,) * 3, 46), ((96, 96), 384),
+                        ((64, 64), 1024), ((64,) * 3, 512)]])
 SH_EPOCHS = (4, 2, 4)
 SH_KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
               "cond_em_bwd", "cond_em_dx")
@@ -9193,11 +9209,213 @@ def shapes_kernel_checks(torch, K, C, card):
               f"{plan.threads} G {plan.G}; max|d|/max|ref| {err:.2e} "
               f"({card})", flush=True)
     shapes_agreement_check(torch, K, card)
+    tiled = shapes_tiled_checks(torch, K, C, card)
     audit = shapes_dx_audit(torch, K, card)
     rows = shapes_kernel_rows(torch, K, C, card)
     rows["dx_route4"] = dict(audit=audit, in_turns=shapes_dx_turns(
         torch, K, card))
+    rows["route5"] = dict(bit_for_bit_route2=tiled,
+                          in_turns=shapes_tiled_turns(torch, K, card))
     return rows
+
+
+def shapes_tiled_checks(torch, K, C, card):
+    """(a) Route 5, the register-tiled f32 forward and backward, against
+    route 2 launched on the same (tile, G) (K.stream_reference_plan: route
+    2's tiles in scratch where they do not fit shared memory): bit for bit
+    on int views for each kernel route 5 plans at the SH_STACKS stacks and
+    SH_TILED_EXTRA (the deep 64-wide stacks' backward; their forward keeps
+    route 2), both panels, S = 1 and 9, dropout 0 and 0.1, stock offset 0
+    and SH_OFFSET; (b) each against its plain version at phase 3's bars.
+    Each call of the card's plan must launch route 5 once. Returns
+    {"stacks": [...], "calls": n}."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(29)
+    T, N = SH_T, SH_N
+    ints = lambda t: t.view(torch.int32)  # noqa: E731
+    stacks, compared, worst = [], 0, 0.0
+    for hidden, F in SH_STACKS + SH_TILED_EXTRA:
+        lay = K.ffn_layout(F, hidden)
+        for S in (1, 9):
+            x = torch.randn(T, F, N, generator=g, device=dev)
+            ins = _sh_inputs(torch, g, S, T, N, F, hidden, 8, dev)
+            zp, k1T, mids, kout, bout, gout, seed = ins[:7]
+            packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+            ran = []
+            for xb in (x, x.to(torch.bfloat16)):
+                xb16 = xb is not x
+                fp = K.card_fwd_plan(lay, dev, S, T, N, "float32", xb16)
+                bp = K.card_bwd_plan(lay, dev, S, T, N, xb16=xb16,
+                                     compute_dtype="float32")
+                tiled = {k: p.route == K.STREAM_TILED_ROUTE
+                         for k, p in (("fwd", fp), ("bwd", bp))}
+                check(tiled["bwd"] or not tiled["fwd"],
+                      f"hidden={_stack_text(hidden)} F={F}: the f32 forward "
+                      f"plans {fp}, the backward {bp}")
+                if not tiled["bwd"]:
+                    continue
+                ran = [k for k in ("fwd", "bwd") if tiled[k]]
+                fr = K.stream_reference_plan(lay, "fwd", fp, S) \
+                    if tiled["fwd"] else fp
+                br = K.stream_reference_plan(lay, "bwd", bp, S)
+                for rate in SH_RATES:
+                    for off in (0, SH_OFFSET):
+                        what = (f"route 5 hidden={_stack_text(hidden)} F={F}"
+                                f" S={S} {'bf16' if xb16 else 'f32'} panel "
+                                f"dropout {rate} offset {off}")
+                        K.reset_launch_count()
+                        o5 = K._launch(xb, zp, packed, seed, rate, off)
+                        g5, z5 = K._launch_bwd(xb, zp, packed, gout, seed,
+                                               rate, None, off)
+                        torch.cuda.synchronize()
+                        n5 = (K.launches_stream_tiled,
+                              K.bwd_launches_stream_tiled)
+                        o2 = torch.empty_like(o5)
+                        K._stream_launch("fwd", xb, zp, packed, fr, seed,
+                                         rate, off, (o2,))
+                        g2, z2 = K._launch_bwd(xb, zp, packed, gout, seed,
+                                               rate, br, off)
+                        torch.cuda.synchronize()
+                        check(n5 == (int(tiled["fwd"]), 1),
+                              f"{what}: the card's plans launched route 5 "
+                              f"{n5} times (forward, backward), not "
+                              f"{(int(tiled['fwd']), 1)}")
+                        check(torch.equal(ints(o5), ints(o2)),
+                              f"sdf_ffn_fwd {what}: not bit for bit route "
+                              f"2 at tile {fr.tile}, G {fr.G}")
+                        check(torch.equal(ints(g5), ints(g2))
+                              and torch.equal(ints(z5), ints(z2)),
+                              f"sdf_ffn_bwd {what}: not bit for bit route "
+                              f"2 at tile {br.tile}, G {br.G} (scratch "
+                              f"{br.scratch} floats a block)")
+                        calls = _bp_calls(torch, K, C, S, T, N, F, 8,
+                                          list(hidden), off, "float32", rate,
+                                          ins)
+                        dk1T, dmids, dkout, dbout = K.unpack_grads(g5, lay)
+                        ef = _sh_check(torch, "sdf_ffn_fwd", "float32", [o5],
+                                       None, calls["sdf_ffn_fwd"][1](xb),
+                                       "sdf_ffn_fwd " + what) \
+                            if tiled["fwd"] else 0.0
+                        eb = _sh_check(torch, "sdf_ffn_bwd", "float32",
+                                       [z5, dk1T, dkout, dbout]
+                                       + [t for wb in dmids for t in wb],
+                                       None, calls["sdf_ffn_bwd"][1](xb),
+                                       "sdf_ffn_bwd " + what)
+                        worst = max(worst, ef, eb)
+                        compared += len(ran)
+                        del o5, o2, g5, g2, z5, z2
+            del x, ins, packed
+            if not ran:
+                continue
+            stacks.append(f"{_stack_text(hidden)} F={F} S={S} "
+                          f"{'/'.join(ran)}")
+            print(f"[shapes tiled] hidden={_stack_text(hidden)} F={F} S={S} "
+                  f"T={T} N={N}: route 5's {' and '.join(ran)} (forward "
+                  f"route {fp.route} tile {fp.tile} G {fp.G}, backward route "
+                  f"{bp.route} tile {bp.tile} G {bp.G}) bit for bit route 2 "
+                  f"on the same (tile, G) (the backward's route 2 tiles "
+                  f"{'in scratch' if br.scratch else 'in shared memory'}), "
+                  f"both panels, dropout {list(SH_RATES)}, offset 0 and "
+                  f"{SH_OFFSET}; within phase 3's bars of plain ({card})",
+                  flush=True)
+    check(len(stacks) >= 10, f"route 5 planned at {stacks} only")
+    print(f"[shapes tiled] {compared} calls bit for bit route 2 at "
+          f"{stacks}; max|d|/max|ref| against plain {worst:.2e} ({card})",
+          flush=True)
+    return dict(stacks=stacks, calls=compared, max_rel_err_plain=worst)
+
+
+def shapes_tiled_turns(torch, K, card):
+    """(c) Route 5 against route 2 (each on its own plan, route 2's as PR 28
+    planned it) at SH_TILED_TURNS, SH_ROW, dropout DROPOUT, f32 on the f32
+    panel, timed in turns (route 2, 5, 5, 2; each the median of 3 timings
+    of k calls back to back over k, k the calls in ~20 ms), the forward and
+    the backward, with each instance's registers and local bytes. Route 5
+    must build with 0 B of local memory, and where the planner streams the
+    stack (K.stream_route_plan) the route it picks must be the faster one
+    in turns: a boundary of the plans is a reading of this table. Returns
+    {"kernel stack S=s": {planned, route2_ms, route5_ms, plans}}."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(30)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    T, N = SH_ROW
+    route2, route5 = K.STREAM_ROUTES["float32"], K.STREAM_TILED_ROUTE
+    out, wrong = {}, []
+    for hidden, F, S in SH_TILED_TURNS:
+        lay = K.ffn_layout(F, hidden)
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        zp, k1T, mids, kout, bout, gout, seed = _sh_inputs(
+            torch, g, S, T, N, F, hidden, 8, dev)[:7]
+        packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+        for kernel in ("fwd", "bwd"):
+            plans = {}
+            for route in (route2, route5):
+                tile, smem, blocks, G, cells, scr = K.stream_plan(
+                    lay, kernel, sms, S, T, N,
+                    K._stream_registers(kernel, route, False), route)
+                threads = K.stream_threads(route)
+                plans[route] = (
+                    K.FwdPlan(route, tile, threads, 1, smem, blocks, G, cells,
+                              scr) if kernel == "fwd"
+                    else K.BwdPlan(tile, threads, smem, blocks, G, 0, route,
+                                   scr))
+            if kernel == "fwd":
+                planned = K.card_fwd_plan(lay, dev, S, T, N, "float32").route
+                info = {r: K.fwd_plan_info(lay, S, p)
+                        for r, p in plans.items()}
+
+                def run(p):
+                    o = torch.empty(S, T, N, device=dev)
+                    K._stream_launch("fwd", x, zp, packed, p, seed, DROPOUT,
+                                     0, (o,))
+                    return o
+            else:
+                planned = K.card_bwd_plan(lay, dev, S, T, N).route
+                info = {r: K.bwd_plan_info(lay, p) for r, p in plans.items()}
+
+                def run(p):
+                    return K._launch_bwd(x, zp, packed, gout, seed, DROPOUT,
+                                         p)
+            p2, p5 = plans[route2], plans[route5]
+            check(info[route5]["local_bytes"] == 0
+                  and info[route5]["blocks_per_sm"] >= p5.blocks_per_sm,
+                  f"sdf_ffn_{kernel} {_stack_text(hidden)} S={S}: route 5's "
+                  f"plan {p5}, the card holds {info[route5]}")
+            # k calls back to back a timing (at least ~20 ms of work), so
+            # the host's launch path hides behind the card's
+            est = cuda_ms(torch, lambda: run(p5), reps=1, warmup=1)
+            k = max(1, int(20.0 / max(est, 0.01)))
+
+            def calls(p):
+                for _ in range(k):
+                    run(p)
+            t = [cuda_ms(torch, lambda p=p: calls(p), reps=3, warmup=1) / k
+                 for p in (p2, p5, p5, p2)]
+            where = f"{_stack_text(hidden)} F={F} S={S}"
+            out[f"{kernel} {where}"] = dict(
+                planned=planned, route2_ms=[t[0], t[3]],
+                route5_ms=[t[1], t[2]],
+                route2_plan=dict(tile=p2.tile, G=p2.G, **info[route2]),
+                route5_plan=dict(tile=p5.tile, G=p5.G, **info[route5]))
+            print(f"[shapes tiled turns] sdf_ffn_{kernel} f32 {where} T={T} "
+                  f"N={N} dropout {DROPOUT}: route 2 (tile {p2.tile}, G "
+                  f"{p2.G}, {info[route2]['registers']} registers, "
+                  f"{info[route2]['local_bytes']} B local) {t[0]:.4f} / "
+                  f"{t[3]:.4f} ms, route 5 (tile {p5.tile}, G {p5.G}, "
+                  f"{info[route5]['registers']} registers, "
+                  f"{info[route5]['local_bytes']} B local) {t[1]:.4f} / "
+                  f"{t[2]:.4f} ms ({k} calls a timing); planned route "
+                  f"{planned} ({card})", flush=True)
+            fast, slow = ((t[1:3], t[::3]) if planned == route5
+                          else (t[::3], t[1:3]))
+            if planned in plans and max(fast) >= min(slow):
+                wrong.append(f"sdf_ffn_{kernel} {where}: the planned route "
+                             f"{planned} ({fast[0]:.4f}, {fast[1]:.4f} ms) "
+                             f"is not faster than the other ({slow[0]:.4f}, "
+                             f"{slow[1]:.4f} ms)")
+        del x
+    check(not wrong, "; ".join(wrong))
+    return out
 
 
 def _dx_route3_plan(torch, K, lay, S, T, N, xb16):
@@ -9338,11 +9556,13 @@ def shapes_dx_turns(torch, K, card):
 
 def _older_stream_libs(K, _nvcc, src_dir):
     """({kernel: ctypes function} of the streamed route's three kernels,
-    {kernel: its tensor-core entry} of the forward and backward) built from
-    another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
+    {kernel: its tensor-core entry} of the forward and backward, {kernel:
+    its register-tiled entry} where the older source has route 5) built
+    from another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
     sdf_ffn_common.cuh and panel.cuh, with this tree's argument lists of
-    sdf_ffn_{fwd,bwd,dx}_stream and sdf_ffn_{fwd,bwd}_stream_mma), bound as
-    this tree binds its own, one nvcc each, all started together."""
+    sdf_ffn_{fwd,bwd,dx}_stream, sdf_ffn_{fwd,bwd}_stream_mma and
+    sdf_ffn_{fwd,bwd}_stream_tiled), bound as this tree binds its own, one
+    nvcc each, all started together."""
     import ctypes
 
     src = Path(src_dir).resolve()
@@ -9353,7 +9573,7 @@ def _older_stream_libs(K, _nvcc, src_dir):
         procs[kernel] = (out, subprocess.Popen(
             [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, f"-DSDF_FFN_STREAM_KERNEL={i}",
              "-o", str(out), str(src / K.STREAM_SOURCE)]))
-    fns, mma = {}, {}
+    fns, mma, tiled = {}, {}, {}
     for kernel, (out, proc) in procs.items():
         check(proc.wait() == 0, f"the older {src.name}/{K.STREAM_SOURCE} "
               f"(kernel {kernel}) did not build")
@@ -9367,7 +9587,12 @@ def _older_stream_libs(K, _nvcc, src_dir):
             fn.argtypes = K._STREAM_MMA_ARGTYPES[kernel]
             fn.restype = ctypes.c_int
             mma[kernel] = fn
-    return fns, mma
+        if hasattr(lib, f"sdf_ffn_{kernel}_stream_tiled"):
+            fn = getattr(lib, f"sdf_ffn_{kernel}_stream_tiled")
+            fn.argtypes = K._STREAM_TILED_ARGTYPES[kernel]
+            fn.restype = ctypes.c_int
+            tiled[kernel] = fn
+    return fns, mma, tiled
 
 
 def compare_stream(torch, K, _nvcc, src_dir, card):
@@ -9383,8 +9608,11 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
     S = 1, the panel cotangent at S = 9, f32 on the f32 panel and bf16 on
     the bf16 panel. Likewise the forward's and backward's tensor-core forms
     (route 4) where bf16 compute plans them, bit for bit and, at (256,
-    256), S = 1, timed in turns."""
-    olds, old_mma = _older_stream_libs(K, _nvcc, src_dir)
+    256), S = 1, timed in turns; and the register-tiled f32 forward and
+    backward (route 5) where f32 compute plans them, bit for bit, or, where
+    the older source has no route 5, a line saying that its pairs were
+    skipped."""
+    olds, old_mma, old_tiled = _older_stream_libs(K, _nvcc, src_dir)
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(23)
@@ -9443,6 +9671,28 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
             return [o for o in outs if o is not gout]
         return run
 
+    def tiled_caller(kernel, fn, x, zp, packed, plan, gout, seed, rate):
+        S, lay = packed.n_members, packed.layout
+        T, F, N = x.shape
+        tile, smem, _, G, _, _ = plan
+
+        def run():
+            drop, _bases = K._dropout_args(seed, rate, S, dev)
+            if kernel == "fwd":
+                outs = (torch.empty(S, T, N, device=dev),)
+            else:
+                outs = (gout, torch.zeros(S, G, lay.P, device=dev),
+                        torch.zeros(S, G, T, lay.hidden[0], device=dev))
+            rc = fn(*K._panel_args(x), zp.data_ptr(),
+                    packed.params.data_ptr(), *(t.data_ptr() for t in outs),
+                    K._layout_ints(lay), K._layout_dev(lay, dev).data_ptr(),
+                    S, T, N, *drop, tile, smem, G,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"sdf_ffn_{kernel}_stream_tiled failed (code "
+                           f"{rc})")
+            return [o for o in outs if o is not gout]
+        return run
+
     def ints(t):
         return t.view(torch.int16 if t.dtype == torch.bfloat16
                       else torch.int32)
@@ -9476,7 +9726,7 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
         return K.stream_plan(lay, kernel, sms, S, T, N, regs, route)
 
     kinds = [(k, cd) for cd in ("float32", "bfloat16") for k in K.KERNELS]
-    compared = 0
+    compared, skipped = 0, set()
     for hidden, F in SH_STACKS:
         lay = K.ffn_layout(F, hidden)
         for S in (1, 9):
@@ -9508,6 +9758,35 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
                               f"dropout {rate}: differs from {name}'s")
                         compared += 1
                 done.append(f"{kernel} route 4")
+            for kernel in K.STREAM_TILED_KERNELS:
+                packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
+                if K.stream_route_plan(lay, kernel, sms, S, T, N,
+                                       "float32")[0] != K.STREAM_TILED_ROUTE:
+                    continue  # a narrow stack's, or one route 5 cannot hold
+                if kernel not in old_tiled:
+                    skipped.add(kernel)
+                    continue
+                new_fn = getattr(K._load_stream(kernel),
+                                 f"sdf_ffn_{kernel}_stream_tiled")
+                for xb in (x, x.to(torch.bfloat16)):
+                    xb16 = xb.dtype == torch.bfloat16
+                    plan = K.stream_plan(
+                        lay, kernel, sms, S, T, N,
+                        K._stream_registers(kernel, K.STREAM_TILED_ROUTE,
+                                            xb16), K.STREAM_TILED_ROUTE)
+                    for rate in SH_RATES:
+                        a, b = (tiled_caller(kernel, fn, xb, zp, packed, plan,
+                                             gout, seed, rate)()
+                                for fn in (old_tiled[kernel], new_fn))
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(ints(p), ints(q))
+                                  for p, q in zip(a, b)),
+                              f"sdf_ffn_{kernel}_stream_tiled "
+                              f"{'bf16' if xb16 else 'f32'} panel "
+                              f"hidden={_stack_text(hidden)} F={F} S={S} "
+                              f"dropout {rate}: differs from {name}'s")
+                        compared += 1
+                done.append(f"{kernel} route 5")
             for kernel, cd in kinds:
                 packed = K.pack_ffn(k1T, mids, kout, bout, cd)
                 if not streams(kernel, lay, S, T, N, cd):
@@ -9587,6 +9866,12 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
               f"older {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / "
               f"{t[2]:.4f} ms ({card})", flush=True)
         del x
+    if skipped:
+        print(f"[shapes compare] skipped the register-tiled route's (route "
+              f"{K.STREAM_TILED_ROUTE}) pairs of "
+              + ", ".join(f"sdf_ffn_{k}_stream_tiled" for k in sorted(skipped))
+              + f": {name}/{K.STREAM_SOURCE} has no such entry ({card})",
+              flush=True)
     print(f"[shapes compare] {compared} calls bit for bit {name}/"
           f"{K.STREAM_SOURCE}'s ({card})", flush=True)
 
@@ -9598,8 +9883,8 @@ def shapes_agreement_check(torch, K, card):
     with g one-hot there the backward's dkout_j is act_j unrounded, so
     bf16(dkout_j) (f32: dkout_j) must be the output bit for bit, for every
     member and each unit of SH_AGREE_UNITS. bf16 compute on the bf16 panel
-    (the tensor-core form), f32 on the f32 panel. Fails if no compared
-    value is nonzero."""
+    (the tensor-core form), f32 on the f32 panel (the register-tiled
+    form). Fails if no compared value is nonzero."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(24)
     T, N, F = SH_T, SH_N, 46
@@ -9636,17 +9921,20 @@ def shapes_agreement_check(torch, K, card):
                 nonzero += int((out != 0).sum())
                 total += S
             mma = (K.launches_stream_mma, K.bwd_launches_stream_mma)
-            check(nonzero > 0 and mma == ((len(SH_AGREE_UNITS),) * 2
-                                          if cd == "bfloat16" else (0, 0)),
+            tiled = (K.launches_stream_tiled, K.bwd_launches_stream_tiled)
+            n = (len(SH_AGREE_UNITS),) * 2
+            check(nonzero > 0 and mma == (n if cd == "bfloat16" else (0, 0))
+                  and tiled == ((0, 0) if cd == "bfloat16" else n),
                   f"(256, 256) S={S} {cd}: {nonzero} nonzero of {total} "
-                  f"compared; tensor-core launches {mma}")
+                  f"compared; tensor-core launches {mma}, register-tiled "
+                  f"{tiled}")
             print(f"[shapes] fwd/bwd agreement (256, 256) S={S} {cd} "
                   f"dropout 0.1, kout = e_j for j in {list(SH_AGREE_UNITS)}, "
                   f"g one-hot at (t, n) = {SH_AGREE_AT}: the forward's "
                   f"output bit for bit the backward's "
                   f"{'bf16(dkout_j)' if cd == 'bfloat16' else 'dkout_j'} "
                   f"({nonzero} of {total} nonzero; tensor-core launches "
-                  f"{mma}) ({card})", flush=True)
+                  f"{mma}, register-tiled {tiled}) ({card})", flush=True)
         del x
 
 
@@ -9715,7 +10003,8 @@ def shapes_train_check(torch, K, C, card, cd="float32"):
     plain route. f32 compute: every epoch's losses within C3's 1e-3
     relative bar, Sharpes within 5e-3, the same selected epochs. bf16
     compute (the CLI's default, on the bf16 panel; every FFN launch on the
-    tensor-core form of the streamed route): every epoch finite, epoch 1's
+    tensor-core form of the streamed route; f32 compute: every FFN launch
+    on its register-tiled form): every epoch finite, epoch 1's
     losses within BF16_REL relative (PERF.md §2's bf16 class), the largest
     deviation over all epochs printed. Returns the kernel run's launches by
     kernel, and its streamed ones."""
@@ -9741,9 +10030,12 @@ def shapes_train_check(torch, K, C, card, cd="float32"):
         wall = time.perf_counter() - t0
         launches = dict(zip(SH_KERNELS, panel_counts(K, C)))
         streamed = dict(zip(SH_KERNELS[:3], stream_counts(K)))
-        streamed.update(zip(("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma"),
+        streamed.update(zip(("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma",
+                             "sdf_ffn_fwd_tiled", "sdf_ffn_bwd_tiled"),
                             (K.launches_stream_mma,
-                             K.bwd_launches_stream_mma)))
+                             K.bwd_launches_stream_mma,
+                             K.launches_stream_tiled,
+                             K.bwd_launches_stream_tiled)))
         panel16 = dict(zip(SH_KERNELS, bf16_panel_counts(K, C)))
         with np.load(save / "history.npz") as h:
             hist = {k: h[k] for k in h.files}
@@ -9761,14 +10053,18 @@ def shapes_train_check(torch, K, C, card, cd="float32"):
           f"the (256, 256) kernel-route training launched {on['launches']}, "
           f"streamed {on['streamed']}: every FFN launch must stream")
     # bf16 compute: every FFN launch on the tensor-core form, the training
-    # passes on the bf16 panel (evaluation rebuilds the f32 one); f32: none
+    # passes on the bf16 panel (evaluation rebuilds the f32 one); f32: every
+    # one on the register-tiled form, none on a bf16 panel
     check(all(on["streamed"][k + "_mma"] == (on["launches"][k] if bf else 0)
+              and on["streamed"][k + "_tiled"] == (0 if bf
+                                                   else on["launches"][k])
               for k in ffn)
           and (on["panel16"]["sdf_ffn_bwd"] == on["launches"]["sdf_ffn_bwd"]
                and on["panel16"]["sdf_ffn_fwd"] > 0 if bf
                else not any(on["panel16"].values())),
           f"the (256, 256) {cd} training's FFN launches {on['launches']}: "
-          f"tensor-core {on['streamed']}, bf16 panel {on['panel16']}")
+          f"tensor-core and register-tiled {on['streamed']}, bf16 panel "
+          f"{on['panel16']}")
     check(not any(off["launches"].values()),
           f"the plain-route training launched {off['launches']}")
     check(all(np.isfinite(on["hist"][k]).all() for k in on["hist"]
@@ -9812,13 +10108,58 @@ def shapes_train_check(torch, K, C, card, cd="float32"):
     return on["launches"], on["streamed"]
 
 
+def shapes_train_turns(torch, K, C, card):
+    """(b) The f32 train CLI at (256, 256), K = 32 (SH_EPOCHS, kernel
+    route) with the streamed forward and backward on route 2
+    (K.f32_streamed_on_route2) and on route 5, in turns (route 2, 5, 5, 2):
+    each run's wall ms per epoch and phase, and its launches on route 5 (all
+    the FFN's, or none). Returns {"route2": [epoch_ms, epoch_ms], "route5":
+    [...]}."""
+    from deeplearninginassetpricing_paperreplication_torch import train
+
+    unc, mom, cond = SH_EPOCHS
+    out = {"route2": [], "route5": []}
+    for route in ("route2", "route5", "route5", "route2"):
+        save = SH_DIR / f"turns_{route}"
+        shutil.rmtree(save, ignore_errors=True)
+        with (K.f32_streamed_on_route2() if route == "route2"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            K.reset_launch_count()
+            train.main(["--data_dir", str(DATA_DIR), "--save_dir", str(save),
+                        "--epochs_unc", str(unc), "--epochs_moment", str(mom),
+                        "--epochs", str(cond), "--ignore_epoch", "0",
+                        "--print_freq", "1000", "--device", DEVICE,
+                        "--compute_dtype", "float32", "--kernel", "on",
+                        "--hidden_dim", *map(str, SH_HIDDEN),
+                        "--num_moments", str(SH_MOMENTS)])
+            torch.cuda.synchronize()
+        tiled = (K.launches_stream_tiled, K.bwd_launches_stream_tiled)
+        ffn = (K.launches_stream, K.bwd_launches_stream)
+        check(ffn[0] > 0 and ffn[1] > 0
+              and tiled == (ffn if route == "route5" else (0, 0)),
+              f"the f32 train CLI on {route}: streamed launches {ffn}, "
+              f"register-tiled {tiled}")
+        metrics = json.loads((save / "final_metrics.json").read_text())
+        out[route].append(metrics["epoch_ms"])
+        shutil.rmtree(save, ignore_errors=True)
+    fmt = lambda d: "/".join(f"{v:.2f}" for v in d.values())  # noqa: E731
+    print(f"[shapes train turns] train CLI --hidden_dim {SH_HIDDEN[0]} "
+          f"{SH_HIDDEN[1]} --num_moments {SH_MOMENTS} f32, {unc}/{mom}/{cond}"
+          f" epochs, wall ms per epoch (phase 1/2/3) in turns: route 2 "
+          f"{fmt(out['route2'][0])} ... {fmt(out['route2'][1])}, route 5 "
+          f"{fmt(out['route5'][0])}, {fmt(out['route5'][1])} ({card})",
+          flush=True)
+    return out
+
+
 def shapes_gradient_check(torch, K, C, card, splits):
     """(c) ∂(conditional loss)/∂individual of a (256, 256), K = 32
     ensemble of nine seeded members (S = 9), parameters frozen, on the
     train split: the kernel route against kernel="off" in f32 and bf16.
     Returns {compute dtype: the kernel route's launches}, {compute dtype:
-    its streamed ones, and (``<kernel>_mma``) the tensor-core form's}: one
-    call each."""
+    its streamed ones, and (``<kernel>_mma``) the tensor-core form's and
+    (``sdf_ffn_fwd_tiled``) the register-tiled form's}: one call each."""
     from deeplearninginassetpricing_paperreplication_torch.models.gan import \
         GAN
     from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
@@ -9851,9 +10192,10 @@ def shapes_gradient_check(torch, K, C, card, splits):
         launches[cd] = dict(zip(SH_KERNELS, panel_counts(K, C)))
         streamed[cd] = dict(zip(SH_KERNELS[:3], stream_counts(K)))
         streamed[cd].update(zip(
-            ("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma", "sdf_ffn_dx_mma"),
+            ("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma", "sdf_ffn_dx_mma",
+             "sdf_ffn_fwd_tiled"),
             (K.launches_stream_mma, K.bwd_launches_stream_mma,
-             K.dx_launches_stream_mma)))
+             K.dx_launches_stream_mma, K.launches_stream_tiled)))
         off = grad("off", cd)
         err = rel_err(on, off)
         check(bool(torch.isfinite(on).all())
@@ -9864,12 +10206,14 @@ def shapes_gradient_check(torch, K, C, card, splits):
     n = len(C.moment_chunks(SH_MOMENTS))
     want = (1, 0, 1, n, n, n)
     for cd in ("float32", "bfloat16"):
-        mma = int(cd == "bfloat16")  # bf16: the forward and dx on route 4
+        # bf16: the forward and dx on route 4; f32: the forward on route 5
+        mma = int(cd == "bfloat16")
         check(tuple(launches[cd].values()) == want
               and streamed[cd] == {"sdf_ffn_fwd": 1, "sdf_ffn_bwd": 0,
                                    "sdf_ffn_dx": 1, "sdf_ffn_fwd_mma": mma,
                                    "sdf_ffn_bwd_mma": 0,
-                                   "sdf_ffn_dx_mma": mma},
+                                   "sdf_ffn_dx_mma": mma,
+                                   "sdf_ffn_fwd_tiled": 1 - mma},
               f"one (256, 256) K={SH_MOMENTS} {cd} panel gradient launched "
               f"{launches[cd]} (streamed {streamed[cd]}), not {want}")
     print(f"[shapes grad] d conditional loss / d individual, hidden "
@@ -9922,7 +10266,8 @@ def shapes_serve_check(torch, K, card, splits):
     served by the serving CLI (one replica, f32): a few test months over
     the raw-f32 wire answered and within the f32 bar of the offline
     ensemble_metrics weights. Returns the replica's sdf_ffn_fwd launches
-    (every one streamed: the stack has no resident plan)."""
+    (every one streamed, on the register-tiled route: the stack has no
+    resident plan)."""
     from deeplearninginassetpricing_paperreplication_torch.evaluate_ensemble \
         import stack_checkpoints
     from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
@@ -9973,22 +10318,25 @@ def shapes_serve_check(torch, K, card, splits):
     finally:
         stop_fleet(proc)
     check(proc.returncode == 0, f"the serving CLI exited {proc.returncode}")
-    check(launches > 0 and engine["kernel_launches_stream"] == launches,
+    check(launches > 0 and engine["kernel_launches_stream"] == launches
+          and engine["kernel_launches_stream_tiled"] == launches,
           f"the (256, 256) server launched sdf_ffn_fwd {launches} times, "
-          f"{engine['kernel_launches_stream']} streamed")
+          f"{engine['kernel_launches_stream']} streamed, "
+          f"{engine['kernel_launches_stream_tiled']} register-tiled")
     print(f"[shapes serve] {len(seeds)} seeded members hidden "
           f"{list(SH_HIDDEN)} through the serving CLI (booted in "
           f"{boot_s:.1f} s): months {list(months)} over raw-f32 answered, "
           f"within the f32 bar of the offline weights (max|d| {worst:.3e}); "
-          f"the replica's sdf_ffn_fwd launches {launches}, all streamed "
-          f"({card})", flush=True)
+          f"the replica's sdf_ffn_fwd launches {launches}, all streamed on "
+          f"the register-tiled route ({card})", flush=True)
     return launches
 
 
 def shapes_phase(torch, K, C, card):
     """Phase 21 on phase 6's panel, written anew (and removed after): (a)
     the kernels at the shapes the resident kernels do not hold, (b) the
-    train CLI at (256, 256), K = 32, (c) its panel gradient at S = 9, (d) a
+    train CLI at (256, 256), K = 32 (and in f32 on routes 2 and 5 in
+    turns), (c) its panel gradient at S = 9, (d) a
     served (256, 256) ensemble. Returns the timed rows, the held plans and
     {kernel: {path: launches}} of the six kernels and of the streamed
     forms (``<kernel>_stream``)."""
@@ -9999,6 +10347,8 @@ def shapes_phase(torch, K, C, card):
     try:
         splits = make_panel()
         train_l, train_s = shapes_train_check(torch, K, C, card)
+        rows["route5"]["train_in_turns"] = shapes_train_turns(torch, K, C,
+                                                              card)
         bf_l, bf_s = shapes_train_check(torch, K, C, card, "bfloat16")
         grad_l, grad_s = shapes_gradient_check(torch, K, C, card, splits)
         serve_l = shapes_serve_check(torch, K, card, splits)
@@ -10030,6 +10380,16 @@ def shapes_phase(torch, K, C, card):
                      name + "_mma"]}
         launches[name + "_stream_mma"] = {p: n for p, n in paths.items()
                                           if n}
+    # the register-tiled form's (f32 compute): the f32 training's forward
+    # and backward, the f32 panel gradient's and the server's forwards
+    for name in SH_KERNELS[:2]:
+        paths = {"shapes_training": train_s[name + "_tiled"],
+                 "shapes_panel_gradient": grad_s["float32"].get(
+                     name + "_tiled", 0)}
+        if name == "sdf_ffn_fwd":
+            paths["shapes_serving"] = serve_l
+        launches[name + "_stream_tiled"] = {p: n for p, n in paths.items()
+                                            if n}
     print(f"[shapes] phase 21 done in {time.perf_counter() - t0:.1f} s "
           f"((a) {t1 - t0:.1f} s); launches by path {launches} ({card})",
           flush=True)
@@ -10774,6 +11134,17 @@ def run_phases(opts, torch) -> int:
                 name + "_stream_mma"]
             check(sum(row["tensor_core_launches_by_path"].values()) > 0,
                   f"phase 21 launched {row['tensor_core_kernel']} no time")
+        if name + "_stream_tiled" in shp["launches"]:
+            row["f32_kernel"] = name[8:] + "_stream_tiled_kernel"
+            row["f32_launches_by_path"] = shp["launches"][
+                name + "_stream_tiled"]
+            row["f32_route5_vs_route2_in_turns"] = {
+                k: v for k, v in shp["rows"]["route5"]["in_turns"].items()
+                if k.startswith(name[8:])}
+            row["f32_route5_bit_for_bit_route2"] = shp["rows"]["route5"][
+                "bit_for_bit_route2"]
+            check(sum(row["f32_launches_by_path"].values()) > 0,
+                  f"phase 21 launched {row['f32_kernel']} no time")
         if name == "sdf_ffn_dx":
             row["tensor_core_audit"] = shp["rows"]["dx_route4"]["audit"]
             row["route3_vs_route4_in_turns"] = shp["rows"]["dx_route4"][

@@ -16,7 +16,9 @@ under its kernel's bf16-panel form, ``<kernel>_bf16_panel``
 Likewise a launch of an FFN kernel's streamed-weight route (the stacks its
 resident route cannot hold) also counts under ``<kernel>_stream``
 (:data:`STREAM_KERNELS`), and one of that route's tensor-core form (bf16
-compute) also under ``<kernel>_stream_mma`` (:data:`STREAM_MMA_KERNELS`).
+compute) also under ``<kernel>_stream_mma`` (:data:`STREAM_MMA_KERNELS`),
+and one of its register-tiled form (f32 compute, the forward and the
+backward) also under ``<kernel>_stream_tiled`` (:data:`STREAM_TILED_KERNELS`).
 """
 
 import atexit
@@ -35,6 +37,8 @@ STREAM = "_stream"
 STREAM_KERNELS = tuple(k + STREAM for k in KERNELS[:3])
 STREAM_MMA = "_stream_mma"
 STREAM_MMA_KERNELS = tuple(k + STREAM_MMA for k in KERNELS[:3])
+STREAM_TILED = "_stream_tiled"
+STREAM_TILED_KERNELS = tuple(k + STREAM_TILED for k in KERNELS[:2])
 
 
 # (kernel, device) -> launches, under one lock: a server launches from its
@@ -47,7 +51,8 @@ def count_launch(kernel: str, device) -> None:
     """One launch of `kernel` on `device`."""
     if (kernel not in KERNELS and kernel not in BF16_PANEL_KERNELS
             and kernel not in STREAM_KERNELS
-            and kernel not in STREAM_MMA_KERNELS):
+            and kernel not in STREAM_MMA_KERNELS
+            and kernel not in STREAM_TILED_KERNELS):
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS} (or "
                          f"its bf16-panel or streamed form)")
     key = (kernel, str(device))
@@ -81,7 +86,8 @@ def _append_launch_counts(path):
     `path`."""
     row = {"pid": os.getpid(), "argv": sys.argv,
            **{k: launch_total(k)
-              for k in KERNELS + STREAM_KERNELS + STREAM_MMA_KERNELS}}
+              for k in KERNELS + STREAM_KERNELS + STREAM_MMA_KERNELS
+              + STREAM_TILED_KERNELS}}
     try:
         with open(path, "a") as f:
             f.write(json.dumps(row) + "\n")

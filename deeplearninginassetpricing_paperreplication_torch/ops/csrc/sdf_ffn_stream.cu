@@ -43,21 +43,32 @@
 // What bounds it: at the widths it serves, the operations (about as many as
 // the resident routes') run on the CUDA cores at f32 rate, and each cell
 // re-reads the whole member's weights from L2 (BN FMAs per weight float
-// read). It is the simple route that is right for every shape.
+// read). It is the simple route that is right for every shape: the f32
+// panel cotangent's, the scratch-tile stacks' and the deep narrow stacks'
+// route (route 2 f32, route 3 bf16), and the bit-for-bit reference of route
+// 5 on the same plan. Its 4 × 4 tiles a thread do two 16-byte shared loads
+// for 16 FMAs, so shared memory, not the FMA pipes, sets its pace.
 //
 // Under bf16 compute each kernel has a tensor-core route of its own
 // (fwd_stream_mma_kernel, bwd_stream_mma_kernel, dx_stream_mma_kernel, below:
 // bf16 tiles, mma.sync products, bf16 weight slabs), planned wherever its
 // tiles fit shared memory; the kernels above stay the f32 route and the bf16
-// route of the stacks whose tiles go to scratch or that are too deep.
+// route of the stacks whose tiles go to scratch or that are too deep. Under
+// f32 compute the forward and the backward have a register-tiled route of
+// their own (fwd_stream_tiled_kernel, bwd_stream_tiled_kernel, route 5,
+// below: route 2's values bit for bit on the same plan, 512-thread blocks of
+// larger register tiles, a three-stage cp.async ring, the backward's tile in
+// shared memory), planned wherever its tile fits, but for the forward of
+// stacks at most 64 units wide where route 2 takes tile 64.
 //
 // One library per kernel: -DSDF_FFN_STREAM_KERNEL=0 (forward), 1 (backward),
 // 2 (panel cotangent), each holding the four (panel dtype × compute dtype)
 // instances of its kernel and the two (panel dtype) instances of its
-// tensor-core kernel. The panel cotangent's audit build (-DSDF_FFN_DX_AUDIT
-// beside =2, its own library) also counts its tensor-core kernel's top-layer
-// decisions against the exact chain; its dx is the main library's, bit for
-// bit.
+// tensor-core kernel; the forward's and the backward's also the four (panel
+// dtype × stock tile) instances of its register-tiled kernel. The panel
+// cotangent's audit build (-DSDF_FFN_DX_AUDIT beside =2, its own library)
+// also counts its tensor-core kernel's top-layer decisions against the exact
+// chain; its dx is the main library's, bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -274,12 +285,12 @@ __device__ void row_sums(const float* A, int R, float* dst, int BN, int LD) {
 }
 
 // the tile x[t][:, n0 : n0 + BN] widened to f32 into X [pad16(F)][LD], zero
-// past F and past N
-template <typename PX>
+// past F and past N, by a block of NT threads
+template <typename PX, int NT = kThreads>
 __device__ void stage_x(float* X, const PX* __restrict__ x, int T, int F,
                         int N, int t, int n0, int BN, int LD) {
   const int RF = pad16(F);
-  for (int i = threadIdx.x; i < RF * BN; i += kThreads) {
+  for (int i = threadIdx.x; i < RF * BN; i += NT) {
     const int f = i / BN, n = i - f * BN;
     float v = 0.f;
     if (f < F && n0 + n < N)
@@ -288,11 +299,13 @@ __device__ void stage_x(float* X, const PX* __restrict__ x, int T, int F,
   }
 }
 
-// the tile's dropout row hashes of member s at period t
+// the tile's dropout row hashes of member s at period t (a block of NT
+// threads)
+template <int NT = kThreads>
 __device__ void stage_hash(uint32_t* hash, const Dropout& drop, int s, int t,
                            int n0, int BN) {
   if (!drop.on) return;
-  for (int n = threadIdx.x; n < BN; n += kThreads)
+  for (int n = threadIdx.x; n < BN; n += NT)
     hash[n] = sdf_ffn::row_hash(__ldg(drop.member_base + s), (uint32_t)t,
                                 drop.offset + (uint32_t)(n0 + n));
 }
@@ -619,7 +632,8 @@ __global__ void __launch_bounds__(kThreads)
 // T = 48, N = 10,000 the forward runs 21.7× and the backward 32× from that
 // bound: one 8-warp block an SM (180 / 237 registers), a __syncthreads a
 // slab, and in the backward each cell's read-add-write of its ~78,000-float
-// gradient partial (not measured apart).
+// gradient partial (not measured apart). Under f32 compute the register-
+// tiled route 5 (below) takes the same stacks.
 
 constexpr int kMmaSlab = 32;           // inputs per bf16 weight slab
 constexpr int kMmaStages = 3;          // slabs in flight
@@ -1710,6 +1724,589 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- the register-tiled route: f32 compute on the CUDA cores ------------------
+//
+// Route 5: the forward and the backward under f32 compute, redesigned from
+// route 2's (fwd_stream_kernel, bwd_stream_kernel) for the widths that stream
+// (a padded layer of 128 or more units). They compute route 2's values bit
+// for bit on the same plan: every output of a layer product is one fmaf
+// chain over its inputs in k order from 0 (over pad16(Kin), the same zero
+// terms), its epilogue route 2's (bias, ReLU, the dropout hash; the chain's
+// factor), and every weight-gradient element of a cell one fmaf chain over
+// the cell's stocks in n order, added once into the block's grad_part slice
+// in the cell order c = gb, gb + G, ...; so the forward's out is route 2's at
+// any tile and grid, and the backward's gradients are route 2's at the same
+// (tile, G). What differs is how the work sits on the card:
+//
+// - Blocks of 512 threads (16 warps, twice route 2's), one an SM. A layer
+//   product gives each thread 8 units × TN stocks (TN = tile / 16: 4 at
+//   tile 64, 2 at tile 32), the block 32 unit groups × 16 stock groups, so a
+//   pass covers kTilePass = 256 units: a 256-unit layer reads its input tile
+//   once. A warp's 32 lanes are 4 unit groups × 8 stock groups, so the
+//   16-byte weight reads are broadcasts (4 addresses a warp) and the
+//   activation reads 8 adjacent float4s: 3 shared loads feed 32 FMAs at
+//   tile 64 (route 2: 2 loads, 16 FMAs).
+// - Weights stream through a three-stage cp.async ring of slabs of
+//   kTileSlab inputs × 256 units in 16-byte copies, one __syncthreads a slab.
+//   A slab is laid out as the weights lie in global memory: [input][unit]
+//   where the units are contiguous (K1, and every dh chain's W_l), else
+//   [unit][input] (the forward's W_l, rows kTileKLd floats apart), with the
+//   thread's units placed so that either layout reads conflict-free.
+// - The backward writes each layer's dh_pre over that layer's activations
+//   once its weight gradient has read them (the chain's epilogue reads the
+//   factor of element (u, n) and writes dh_pre to the same element; dkout
+//   reads the top layer before its dh_pre overwrites it), so its tile is
+//   pad16(F) + Σ pad16(h_l) rows (route 2: + 2 · the widest layer): at (256,
+//   256), F = 46 it holds 64 stocks in shared memory.
+// - A weight gradient gives each thread 4 rows × 4 columns (a round of 64 ×
+//   128 pairs), the sum over the cell's stocks sequential in n; the round's
+//   grad_part block is copied into the idle slab ring before that sum, so
+//   the read-add-write's reads hide behind it, and each element is added
+//   once, always by the same thread (repeatable, no atomics).
+// - The forward copies the next cell's panel tile into X (cp.async, an f32
+//   panel with 16-byte aligned rows) while the layers above the first run,
+//   and reads kout from the idle slab ring in its output sums.
+//
+// What bounds it: the f32 FMAs (operations). Layers narrower than a pass
+// idle the threads whose units lie past them: a 64-unit layer uses a quarter
+// of a pass, where route 2's 64-unit pass at tile 64 is full, so the forward
+// of stacks at most 64 units wide keeps route 2 where route 2 takes tile 64
+// (ops/sdf_ffn.py stream_route_plan); the backward, whose weight gradients
+// and dh chain gain at any width, takes route 5 wherever its tile fits.
+
+constexpr int kTileThreads = 512;  // a block: 16 warps
+constexpr int kTileSG = kTileThreads / 32;  // stock groups (unit groups: 32)
+constexpr int kTilePass = 256;      // units a layer pass: 32 groups × 8
+constexpr int kTileSlab = kSlab;    // inputs a weight slab
+constexpr int kTileStages = 3;      // slabs in flight
+constexpr int kTileKLd = kTileSlab + 4;  // floats a [unit][input] slab row
+constexpr int kTileSlabFloats = kTilePass * kTileKLd;  // the larger layout
+
+// rows of a register-tiled block's tile ([rows][tile + 4] f32): X, then the
+// forward's two activation buffers, or the backward's every layer (each
+// layer's dh_pre written over its activations)
+__host__ __device__ inline int tiled_rows(int kernel, int n, int F,
+                                          const int* h) {
+  int wr = 0, sum = 0;
+  for (int l = 0; l < n; ++l) {
+    const int r = pad16(h[l]);
+    wr = r > wr ? r : wr;
+    sum += r;
+  }
+  return pad16(F) + (kernel == kFwd ? 2 * wr : sum);
+}
+
+// shared-memory bytes of a register-tiled block: the slab ring, the row
+// hashes, the g row, then the tile
+__host__ __device__ inline long long tiled_smem_bytes(int BN, int rows) {
+  return 4LL * (kTileStages * kTileSlabFloats + 2 * BN +
+                (long long)rows * (BN + 4));
+}
+
+// a thread's place in a register-tiled layer product at stock tile BN: TN =
+// BN / kTileSG stocks of stock group sg (TN ≥ 4: 4·sg + (c & 3) + (c >> 2)
+// · 4·kTileSG, read as float4s; TN = 2: 2·sg + c), and 8 units of unit
+// group ug. A warp is 8 adjacent stock groups × 4 adjacent unit groups.
+template <int BN>
+struct TileThread {
+  static constexpr int TN = BN / kTileSG;
+  int sg, ug;
+  __device__ TileThread() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    sg = (lane & 7) + 8 * (warp % (kTileSG / 8));
+    ug = (lane >> 3) + 4 * (warp / (kTileSG / 8));
+  }
+  __device__ __forceinline__ int stock(int c) const {
+    return TN >= 4 ? (c >> 2) * 4 * kTileSG + 4 * sg + (c & 3) : 2 * sg + c;
+  }
+  // unit r of the pass: [input][unit] slabs read units 4·ug … 4·ug + 3 and
+  // 128 further as two float4s; [unit][input] slabs rows ug + 32·r
+  __device__ __forceinline__ int unit(int r, bool direct) const {
+    return direct ? (r >> 2) * 128 + 4 * ug + (r & 3) : r * 32 + ug;
+  }
+};
+
+__device__ __forceinline__ void ld4(float* d, const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+// TN activations of stocks th.stock(0 … TN-1) from the tile row at p
+template <int BN>
+__device__ __forceinline__ void ld_stocks(float* d, const float* p,
+                                          const TileThread<BN>& th) {
+  constexpr int TN = TileThread<BN>::TN;
+  if (TN >= 4) {
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q)
+      ld4(d + 4 * q, p + q * 4 * kTileSG + 4 * th.sg);
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p + 2 * th.sg);
+    d[0] = v.x;
+    d[1] = v.y;
+  }
+}
+
+// out[u][n] (u < pad16(Uout), n < BN) from Σ_k W(k, u)·in[k][n] over k <
+// pad16(Kin): layer_product<false, EPI> (kAct or kChain) on the register
+// tiles, the same sums and epilogues. W(k, u) = W[k·ldw + u] (direct) or
+// W[u·ldw + k]; `in` has pad16(Kin) rows, zero from Kin. kChain may write
+// over `below` (each element read, then written, by one thread). UD / UT:
+// how far the [input][unit] and [unit][input] slab loops unroll (whole
+// slabs in the forward; the backward, at the 128-register cap of 512
+// threads, less). Every thread of the block calls it; it ends synchronised.
+template <int EPI, int BN, int UD = kTileSlab, int UT = kTileSlab / 4>
+__device__ void layer_product_tiled(const float* __restrict__ W, bool direct,
+                                    int ldw, int Kin, int Uout,
+                                    const float* in, float* out,
+                                    const float* __restrict__ bias,
+                                    const float* below, const uint32_t* hash,
+                                    int layer, const Dropout& drop,
+                                    float dscale, float* slab) {
+  constexpr int LD = BN + 4;
+  const TileThread<BN> th;
+  constexpr int TN = TileThread<BN>::TN;
+  const int RU = pad16(Uout);
+  const int nk = pad16(Kin) / kTileSlab;
+  const int total = ((RU + kTilePass - 1) / kTilePass) * nk;
+  // slab i: units [p·256, +256) × inputs [kb·16, +16) of pass p, zero
+  // outside the layer, in 16-byte copies
+  auto issue = [&](int i) {
+    if (i < total) {
+      const int p = i / nk, kb = i - p * nk;
+      const int u0 = p * kTilePass, k0 = kb * kTileSlab;
+      float* dst = slab + (i % kTileStages) * kTileSlabFloats;
+      for (int c = threadIdx.x; c < kTilePass * kTileSlab / 4;
+           c += kTileThreads) {
+        int k, u;
+        float* d;
+        if (direct) {
+          k = c / (kTilePass / 4);
+          u = (c % (kTilePass / 4)) * 4;
+          d = dst + k * kTilePass + u;
+        } else {
+          u = c / (kTileSlab / 4);
+          k = (c % (kTileSlab / 4)) * 4;
+          d = dst + u * kTileKLd + k;
+        }
+        const int gk = k0 + k, gu = u0 + u;
+        const bool ok = gk < Kin && gu < Uout;
+        const float* src = !ok ? W
+                           : direct ? W + (size_t)gk * ldw + gu
+                                    : W + (size_t)gu * ldw + gk;
+        sdf_ffn::cp_async16(d, src, ok ? 16 : 0);
+      }
+    }
+    sdf_ffn::cp_async_commit();
+  };
+  float acc[8][TN];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+  issue(0);
+  issue(1);
+  for (int i = 0; i < total; ++i) {
+    sdf_ffn::cp_async_wait<1>();
+    __syncthreads();  // slab i landed; every warp is done with slab i - 1
+    issue(i + 2);
+    const int p = i / nk, kb = i - p * nk;
+    const int u0 = p * kTilePass;
+    const float* s = slab + (i % kTileStages) * kTileSlabFloats;
+    const float* x = in + (size_t)kb * kTileSlab * LD;
+    if (direct) {
+      const float* w = s + 4 * th.ug;
+#pragma unroll (UD)
+      for (int k = 0; k < kTileSlab; ++k) {
+        float wv[8], xv[TN];
+        ld4(wv, w + k * kTilePass);
+        ld4(wv + 4, w + k * kTilePass + 128);
+        ld_stocks(xv, x + (size_t)k * LD, th);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < TN; ++c)
+            acc[r][c] = fmaf(wv[r], xv[c], acc[r][c]);
+      }
+    } else {
+      const float* w = s + th.ug * kTileKLd;
+#pragma unroll (UT)
+      for (int kq = 0; kq < kTileSlab; kq += 4) {
+        float wq[8][4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) ld4(wq[r], w + r * 32 * kTileKLd + kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float xv[TN];
+          ld_stocks(xv, x + (size_t)(kq + kk) * LD, th);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < TN; ++c)
+              acc[r][c] = fmaf(wq[r][kk], xv[c], acc[r][c]);
+        }
+      }
+    }
+    if (kb != nk - 1) continue;
+    // the pass's epilogue: route 2's, the thread's stocks in float4s (or a
+    // float2)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int u = u0 + th.unit(r, direct);
+      if (u < RU) {
+        const bool in_layer = u < Uout;
+        const float b = (EPI == kAct && in_layer) ? __ldg(bias + u) : 0.f;
+        float* o = out + (size_t)u * LD;
+        float f[TN];
+        if (EPI == kChain) {
+          if (in_layer) {
+            ld_stocks(f, below + (size_t)u * LD, th);
+          } else {
+#pragma unroll
+            for (int c = 0; c < TN; ++c) f[c] = 0.f;
+          }
+        }
+        float v[TN];
+#pragma unroll
+        for (int c = 0; c < TN; ++c) {
+          const float a = acc[r][c];
+          if (EPI == kAct) {
+            float e = 0.f;
+            if (in_layer) {
+              e = fmaxf(a + b, 0.f);
+              if (drop.on)
+                e = sdf_ffn::keep_unit(hash[th.stock(c)], layer, u,
+                                       drop.threshold)
+                        ? e * drop.scale
+                        : 0.f;
+            }
+            v[c] = e;
+          } else {
+            v[c] = (in_layer && f[c] > 0.f) ? a * dscale : 0.f;
+          }
+          acc[r][c] = 0.f;
+        }
+        if (TN >= 4) {
+#pragma unroll
+          for (int q = 0; q < TN / 4; ++q)
+            *reinterpret_cast<float4*>(o + q * 4 * kTileSG + 4 * th.sg) =
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                            v[4 * q + 3]);
+        } else {
+          *reinterpret_cast<float2*>(o + 2 * th.sg) = make_float2(v[0], v[1]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// gp[a·ldg + b] += Σ_n A[a][n]·B[b][n] for a < Ra, b < Rb over the tile's
+// BN stocks in n order (grad_product<false>'s sums): rounds of 64 rows ×
+// 128 columns, each thread rows ag + 16·i and columns bg + 32·j (i, j < 4;
+// a warp 4 adjacent rows × 8 adjacent columns). A round's grad_part block
+// is copied into `stage` (the idle slab ring, [64][kGradLd]) in 16-byte
+// cp.async copies before the sum over the stocks, so the read-add-write's
+// reads overlap it; each element is then added once, always by the same
+// thread. Only global memory is written.
+constexpr int kGradRows = 64, kGradCols = 128, kGradLd = kGradCols + 8;
+static_assert(kGradRows * kGradLd <= kTileStages * kTileSlabFloats,
+              "a grad_part block fits the slab ring");
+static_assert(kTileThreads == 512, "16 row groups × 32 column groups");
+
+template <int BN>
+__device__ void grad_product_tiled(const float* A, int Ra, const float* B,
+                                   int Rb, float* gp, int ldg, float* stage) {
+  constexpr int LD = BN + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bg = (lane & 7) + 8 * (warp & 3);
+  const int ag = (lane >> 3) + 4 * (warp >> 2);
+  for (int a0 = 0; a0 < Ra; a0 += kGradRows) {
+    for (int b0 = 0; b0 < Rb; b0 += kGradCols) {
+      for (int c = threadIdx.x; c < kGradRows * kGradCols / 4;
+           c += kTileThreads) {
+        const int r = c / (kGradCols / 4), q = (c % (kGradCols / 4)) * 4;
+        const bool ok = a0 + r < Ra && b0 + q < Rb;
+        sdf_ffn::cp_async16(stage + r * kGradLd + q,
+                            ok ? gp + (size_t)(a0 + r) * ldg + b0 + q : gp,
+                            ok ? 16 : 0);
+      }
+      sdf_ffn::cp_async_commit();
+      float acc[4][4];
+      int ar[4], br[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // rows past Ra / Rb read a row that is there; their sums are dropped
+        ar[i] = min(a0 + ag + 16 * i, Ra - 1) * LD;
+        br[i] = min(b0 + bg + 32 * i, Rb - 1) * LD;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      }
+#pragma unroll 1
+      for (int n = 0; n < BN; n += 4) {
+        float av[4][4], bv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ld4(av[i], A + ar[i] + n);
+          ld4(bv[i], B + br[i] + n);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(av[i][e], bv[j][e], acc[i][j]);
+      }
+      sdf_ffn::cp_async_wait<0>();
+      __syncthreads();  // the block landed
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = a0 + ag + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int b = b0 + bg + 32 * j;
+          if (a < Ra && b < Rb)
+            gp[(size_t)a * ldg + b] =
+                stage[(ag + 16 * i) * kGradLd + bg + 32 * j] + acc[i][j];
+        }
+      }
+      __syncthreads();  // every thread has read the block
+    }
+  }
+}
+
+// dst[j] += Σ_n A[j][n] for j < R in n order (row_sums' sums), a float4 of
+// stocks at a time
+template <int BN>
+__device__ void row_sums_tiled(const float* A, int R, float* dst) {
+  constexpr int LD = BN + 4;
+  for (int j = threadIdx.x; j < R; j += kTileThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int n = 0; n < BN; n += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(A + (size_t)j * LD + n);
+      s += v.x;
+      s += v.y;
+      s += v.z;
+      s += v.w;
+    }
+    dst[j] += s;
+  }
+}
+
+struct NoHook {
+  __device__ void operator()() const {}
+};
+
+// forward_cell<false> on the register tiles: the top layer's activations
+// (UD / UT: layer_product_tiled's unrolls); after_first() runs once the
+// first layer's product is done with X
+template <int BN, int UD = kTileSlab, int UT = kTileSlab / 4,
+          typename AfterFirst = NoHook>
+__device__ const float* forward_cell_tiled(const LayoutTable& L,
+                                           const float* W,
+                                           const float* __restrict__ zp_row,
+                                           const float* X, float* acts,
+                                           int wr, bool keep_all,
+                                           const uint32_t* hash,
+                                           const Dropout& drop, float* slab,
+                                           AfterFirst after_first = {}) {
+  constexpr int LD = BN + 4;
+  const int nl = L.n();
+  const float* in = X;
+  int Kin = L.F(), row = 0;
+  for (int l = 0; l < nl; ++l) {
+    const int H = L.h(l);
+    float* o = keep_all ? acts + (size_t)row * LD
+                        : acts + (size_t)((l & 1) * wr) * LD;
+    row += pad16(H);
+    if (l == 0)
+      layer_product_tiled<kAct, BN, UD, UT>(W, true, L.hp(0), Kin, H, in, o,
+                                            zp_row, nullptr, hash, 0, drop,
+                                            1.f, slab);
+    else
+      layer_product_tiled<kAct, BN, UD, UT>(
+          W + L.off_w(l), false, L.hp(l - 1), Kin, H, in, o, W + L.off_b(l),
+          nullptr, hash, l, drop, 1.f, slab);
+    if (l == 0) after_first();
+    in = o;
+    Kin = H;
+  }
+  return in;
+}
+
+// out [S, T, N]: fwd_stream_kernel<PX, false> on the register tiles, stock
+// tile BN, the tile in shared memory
+template <typename PX, int BN>
+__global__ void __launch_bounds__(kTileThreads)
+    fwd_stream_tiled_kernel(const PX* __restrict__ x,
+                            const float* __restrict__ zp,
+                            const float* __restrict__ params,
+                            float* __restrict__ out, LayoutTable L, int S,
+                            int T, int N, Dropout drop) {
+  constexpr int LD = BN + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* slab = smem;
+  uint32_t* hash =
+      reinterpret_cast<uint32_t*>(smem + kTileStages * kTileSlabFloats);
+  float* X = smem + kTileStages * kTileSlabFloats + 2 * BN;
+  const int F = L.F(), P = L.P(), H1 = L.h(0), nl = L.n();
+  const int wr = widest_rows(L);
+  float* acts = X + (size_t)pad16(F) * LD;
+  const int tiles = (N + BN - 1) / BN;
+  const long long cells = (long long)S * T * tiles;
+  // an f32 panel whose rows start 16-byte aligned: the next cell's tile is
+  // copied into X (cp.async) once the first layer has read it, while the
+  // layers above it run
+  bool vec = false;
+  if constexpr (!panel::kBf16<PX>)
+    vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  auto prefetch = [&](long long cn) {
+    if constexpr (!panel::kBf16<PX>) {
+      const int tn = (int)((cn / tiles) % T), m0 = (int)(cn % tiles) * BN;
+      for (int i = threadIdx.x; i < pad16(F) * (BN / 4); i += kTileThreads) {
+        const int f = i / (BN / 4), q = (i % (BN / 4)) * 4;
+        const int left = N - (m0 + q);
+        const int bytes = f < F ? 4 * max(0, min(4, left)) : 0;
+        sdf_ffn::cp_async16(X + (size_t)f * LD + q,
+                            bytes ? x + ((size_t)tn * F + f) * N + m0 + q : x,
+                            bytes);
+      }
+      sdf_ffn::cp_async_commit();
+    }
+  };
+  bool staged = false;  // X holds this cell's tile already
+  for (long long c = blockIdx.x; c < cells; c += gridDim.x) {
+    const int tile = (int)(c % tiles);
+    const int t = (int)((c / tiles) % T);
+    const int s = (int)(c / ((long long)tiles * T));
+    const int n0 = tile * BN;
+    __syncthreads();  // the last cell's readers are done
+    if (!staged) stage_x<PX, kTileThreads>(X, x, T, F, N, t, n0, BN, LD);
+    stage_hash<kTileThreads>(hash, drop, s, t, n0, BN);
+    sdf_ffn::cp_async_wait<0>();  // the prefetched tile landed
+    __syncthreads();
+    const float* W = params + (size_t)s * P;
+    staged = vec && c + gridDim.x < cells;
+    const float* top = forward_cell_tiled<BN>(
+        L, W, zp + ((size_t)s * T + t) * H1, X, acts, wr, false, hash, drop,
+        slab, [&] {
+          if (staged) prefetch(c + gridDim.x);
+        });
+    // kout in the idle slab ring: the output sums read it from shared
+    // memory
+    const int HL = L.h(nl - 1);
+    for (int j = threadIdx.x; j < HL; j += kTileThreads)
+      slab[j] = __ldg(W + L.off_kout() + j);
+    __syncthreads();
+    const float bout = __ldg(W + L.off_bout());
+    for (int n = threadIdx.x; n < BN; n += kTileThreads) {
+      if (n0 + n >= N) continue;
+      float a = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < HL; ++j)
+        a = fmaf(slab[j], top[(size_t)j * LD + n], a);
+      out[((size_t)s * T + t) * N + n0 + n] = a + bout;
+    }
+  }
+}
+
+// grad_part [S, G, P] and dzp_part [S, G, T, H1]: bwd_stream_kernel<PX,
+// false> on the register tiles, each layer's dh_pre over its activations
+template <typename PX, int BN>
+__global__ void __launch_bounds__(kTileThreads)
+    bwd_stream_tiled_kernel(const PX* __restrict__ x,
+                            const float* __restrict__ zp,
+                            const float* __restrict__ params,
+                            const float* __restrict__ g, float* grad_part,
+                            float* dzp_part, LayoutTable L, int T, int N,
+                            Dropout drop) {
+  constexpr int LD = BN + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* slab = smem;
+  uint32_t* hash =
+      reinterpret_cast<uint32_t*>(smem + kTileStages * kTileSlabFloats);
+  float* grow = smem + kTileStages * kTileSlabFloats + BN;
+  float* X = grow + BN;
+  const int G = gridDim.x, gb = blockIdx.x, s = blockIdx.y;
+  const int F = L.F(), P = L.P(), H1 = L.h(0), nl = L.n();
+  const int HL = L.h(nl - 1);
+  float* acts = X + (size_t)pad16(F) * LD;
+  int top_row = 0;  // rows of the layers below the top
+  for (int l = 0; l + 1 < nl; ++l) top_row += pad16(L.h(l));
+  float* gp = grad_part + ((size_t)s * G + gb) * P;
+  const float dscale = drop.on ? drop.scale : 1.f;
+  const float* W = params + (size_t)s * P;
+  const float* kout = W + L.off_kout();
+  const int tiles = (N + BN - 1) / BN;
+  const int cells = T * tiles;
+  for (int c = gb; c < cells; c += G) {
+    const int tile = c % tiles, t = c / tiles, n0 = tile * BN;
+    __syncthreads();
+    stage_x<PX, kTileThreads>(X, x, T, F, N, t, n0, BN, LD);
+    stage_hash<kTileThreads>(hash, drop, s, t, n0, BN);
+    for (int n = threadIdx.x; n < BN; n += kTileThreads)
+      grow[n] = n0 + n < N ? __ldg(g + ((size_t)s * T + t) * N + n0 + n)
+                           : 0.f;
+    __syncthreads();
+    float* top = acts + (size_t)top_row * LD;
+    forward_cell_tiled<BN, 4, 1>(L, W, zp + ((size_t)s * T + t) * H1, X,
+                                 acts, 0, true, hash, drop, slab);
+    // dkout (the activations × g) and dbout, before dh_pre overwrites them
+    for (int j = threadIdx.x; j < HL; j += kTileThreads) {
+      float a = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN; n += 4) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(top + (size_t)j * LD + n);
+        a = fmaf(v.x, grow[n], a);
+        a = fmaf(v.y, grow[n + 1], a);
+        a = fmaf(v.z, grow[n + 2], a);
+        a = fmaf(v.w, grow[n + 3], a);
+      }
+      gp[L.off_kout() + j] += a;
+    }
+    if (threadIdx.x == 0) {
+      float a = 0.f;
+      for (int n = 0; n < BN; ++n) a += grow[n];
+      gp[L.off_bout()] += a;
+    }
+    __syncthreads();
+    // dh_pre of the top layer over its activations
+    for (int i = threadIdx.x; i < pad16(HL) * BN; i += kTileThreads) {
+      const int j = i / BN, n = i - j * BN;
+      float* p = top + (size_t)j * LD + n;
+      *p = (j < HL && *p > 0.f) ? __ldg(kout + j) * grow[n] * dscale : 0.f;
+    }
+    __syncthreads();
+    int row = top_row;
+    for (int l = nl - 1; l >= 1; --l) {
+      const int below = row - pad16(L.h(l - 1));
+      const float* dhp = acts + (size_t)row * LD;
+      float* act = acts + (size_t)below * LD;
+      grad_product_tiled<BN>(dhp, L.h(l), act, L.h(l - 1), gp + L.off_w(l),
+                             L.hp(l - 1), slab);
+      row_sums_tiled<BN>(dhp, L.h(l), gp + L.off_b(l));
+      __syncthreads();  // the weight gradient has read the activations
+      layer_product_tiled<kChain, BN, 4, 1>(
+          W + L.off_w(l), true, L.hp(l - 1), L.h(l), L.h(l - 1), dhp, act,
+          nullptr, act, nullptr, 0, drop, dscale, slab);
+      row = below;
+    }
+    // dK1 [F][hp0] and dzp
+    grad_product_tiled<BN>(X, F, acts, H1, gp, L.hp(0), slab);
+    row_sums_tiled<BN>(acts, H1,
+                       dzp_part + (((size_t)s * G + gb) * T + t) * H1);
+  }
+}
+
 // -- the host side ---------------------------------------------------------------
 
 template <typename PX, bool BF>
@@ -1730,15 +2327,15 @@ const void* kernel_of(int bf16, int xb16) {
   return bf16 ? kernel_for<float, true>() : kernel_for<float, false>();
 }
 
-// 0 if the card takes the kernel at `smem` bytes: resident blocks per SM,
-// registers and local-memory bytes per thread; else a cudaError_t value
-int kernel_info(int bf16, int xb16, size_t smem, int* blocks, int* regs,
-                int* local_bytes) {
-  const void* kern = kernel_of(bf16, xb16);
+// 0 if the card takes kernel `kern` in blocks of `threads` at `smem`
+// bytes (it opens the kernel to them): resident blocks per SM, registers
+// and local-memory bytes per thread; else a cudaError_t value
+int func_info(const void* kern, int threads, size_t smem, int* blocks,
+              int* regs, int* local_bytes) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
@@ -1747,6 +2344,14 @@ int kernel_info(int bf16, int xb16, size_t smem, int* blocks, int* regs,
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return 0;
+}
+
+// func_info of this library's kernel under bf16 (1) or f32 compute on a
+// bf16 (xb16 1) or f32 panel
+int kernel_info(int bf16, int xb16, size_t smem, int* blocks, int* regs,
+                int* local_bytes) {
+  return func_info(kernel_of(bf16, xb16), kThreads, smem, blocks, regs,
+                   local_bytes);
 }
 
 // the tile rows of `layout` (host ints), or kUnsupported for a layout or
@@ -1950,23 +2555,11 @@ const void* mma_kernel_of(int xb16) {
 #endif
 }
 
-// 0 if the card takes the tensor-core kernel at `smem` bytes: resident blocks
-// per SM, registers and local-memory bytes per thread; else a cudaError_t
+// func_info of this library's tensor-core kernel
 int mma_kernel_info(int xb16, size_t smem, int* blocks, int* regs,
                     int* local_bytes) {
-  const void* kern = mma_kernel_of(xb16);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kern);
-  if (err != cudaSuccess) return (int)err;
-  *regs = attr.numRegs;
-  *local_bytes = (int)attr.localSizeBytes;
-  return 0;
+  return func_info(mma_kernel_of(xb16), kThreads, smem, blocks, regs,
+                   local_bytes);
 }
 
 // the slab rows SU of `layout` at stock tile `tile`: a pass's units, or the
@@ -2149,6 +2742,166 @@ extern "C" int sdf_ffn_dx_audit_read(unsigned long long* out, void* stream) {
       out, g_dx_audit, sizeof(g_dx_audit), 0, cudaMemcpyDeviceToHost, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaStreamSynchronize(st);
+}
+#endif
+#endif
+
+// -- the register-tiled route's host side -------------------------------------
+
+#if SDF_FFN_STREAM_KERNEL != 2
+namespace {
+
+const void* tiled_kernel_of(int xb16, int tile) {
+#if SDF_FFN_STREAM_KERNEL == 0
+  if (tile == 32)
+    return xb16 ? (const void*)fwd_stream_tiled_kernel<__nv_bfloat16, 32>
+                : (const void*)fwd_stream_tiled_kernel<float, 32>;
+  return xb16 ? (const void*)fwd_stream_tiled_kernel<__nv_bfloat16, 64>
+              : (const void*)fwd_stream_tiled_kernel<float, 64>;
+#else
+  if (tile == 32)
+    return xb16 ? (const void*)bwd_stream_tiled_kernel<__nv_bfloat16, 32>
+                : (const void*)bwd_stream_tiled_kernel<float, 32>;
+  return xb16 ? (const void*)bwd_stream_tiled_kernel<__nv_bfloat16, 64>
+              : (const void*)bwd_stream_tiled_kernel<float, 64>;
+#endif
+}
+
+// func_info of this library's register-tiled kernel at stock tile `tile`
+int tiled_kernel_info(int xb16, int tile, size_t smem, int* blocks,
+                      int* regs, int* local_bytes) {
+  return func_info(tiled_kernel_of(xb16, tile), kTileThreads, smem, blocks,
+                   regs, local_bytes);
+}
+
+// 0 for a plan (tile, shared memory) of `layout` this route takes: stock
+// tile 32 or 64, its tile in shared memory; else kUnsupported
+int check_tiled_plan(const int* layout, int tile, long long smem_bytes) {
+  const int n = layout[0], F = layout[1];
+  if (n < 1 || F < 1) return kUnsupported;
+  if (tile != 32 && tile != 64) return kUnsupported;
+  const long long want = tiled_smem_bytes(
+      tile, tiled_rows(SDF_FFN_STREAM_KERNEL, n, F, layout + 5));
+  if (smem_bytes != want || smem_bytes > kMaxSmem) return kUnsupported;
+  return 0;
+}
+
+// the checks of a launch: the plan, the card's residency, the grid; opens
+// the kernel to its shared memory
+int prepare_tiled(const int* layout, int xb16, int tile, long long smem_bytes,
+                  int G) {
+  if (G < 1) return kUnsupported;
+  int rc = check_tiled_plan(layout, tile, smem_bytes);
+  if (rc != 0) return rc;
+  int info[3] = {0, 0, 0};
+  rc = tiled_kernel_info(xb16, tile, (size_t)smem_bytes, &info[0], &info[1],
+                         &info[2]);
+  if (rc != 0) return rc;
+  return info[0] >= 1 ? 0 : kUnsupported;
+}
+
+}  // namespace
+
+// Registers per thread of this library's register-tiled kernel (f32
+// compute) on a bf16 (xb16 1) or f32 panel: the larger of its two stock
+// tiles' instances.
+extern "C" int sdf_ffn_stream_tiled_registers(int xb16) {
+  int most = 0;
+  for (int tile = 32; tile <= 64; tile *= 2) {
+    int info[3] = {0, 0, 0};
+    if (tiled_kernel_info(xb16, tile, 0, &info[0], &info[1], &info[2]) != 0)
+      return kUnsupported;
+    most = info[1] > most ? info[1] : most;
+  }
+  return most;
+}
+
+// What the card makes of a register-tiled plan (tile, shared memory):
+// resident blocks per SM, registers and local-memory bytes per thread into
+// out[3]; 0, or kUnsupported / a cudaError_t value.
+extern "C" int sdf_ffn_stream_tiled_plan_info(const int* layout, int tile,
+                                              long long smem_bytes, int xb16,
+                                              int* out) {
+  const int rc = check_tiled_plan(layout, tile, smem_bytes);
+  if (rc != 0) return rc;
+  return tiled_kernel_info(xb16, tile, (size_t)smem_bytes, &out[0], &out[1],
+                           &out[2]);
+}
+
+#if SDF_FFN_STREAM_KERNEL == 0
+// The register-tiled forward (f32 compute): out [S, T, N] on `stream`.
+extern "C" int sdf_ffn_fwd_stream_tiled(
+    const void* x, int xb16, const float* zp, const float* params, float* out,
+    const int* layout, const int* layout_dev, int S, int T, int N,
+    int dropout, const unsigned int* member_base, unsigned int threshold,
+    float scale, unsigned int offset, int tile, long long smem_bytes, int G,
+    void* stream) {
+  if (S < 1 || T < 1 || N < 1) return kUnsupported;
+  const int rc = prepare_tiled(layout, xb16, tile, smem_bytes, G);
+  if (rc != 0) return rc;
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
+  const LayoutTable L{layout_dev};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
+  const float* xf = static_cast<const float*>(x);
+  if (tile == 32) {
+    if (xb16)
+      fwd_stream_tiled_kernel<__nv_bfloat16, 32>
+          <<<G, kTileThreads, smem_bytes, st>>>(xh, zp, params, out, L, S, T, N,
+                                            drop);
+    else
+      fwd_stream_tiled_kernel<float, 32><<<G, kTileThreads, smem_bytes, st>>>(
+          xf, zp, params, out, L, S, T, N, drop);
+  } else {
+    if (xb16)
+      fwd_stream_tiled_kernel<__nv_bfloat16, 64>
+          <<<G, kTileThreads, smem_bytes, st>>>(xh, zp, params, out, L, S, T, N,
+                                            drop);
+    else
+      fwd_stream_tiled_kernel<float, 64><<<G, kTileThreads, smem_bytes, st>>>(
+          xf, zp, params, out, L, S, T, N, drop);
+  }
+  return (int)cudaGetLastError();
+}
+#else
+// The register-tiled backward (f32 compute): grad_part [S, G, P] and
+// dzp_part [S, G, T, H1], zeroed by the caller, on a grid of (G, S) blocks.
+extern "C" int sdf_ffn_bwd_stream_tiled(
+    const void* x, int xb16, const float* zp, const float* params,
+    const float* g, float* grad_part, float* dzp_part, const int* layout,
+    const int* layout_dev, int S, int T, int N, int dropout,
+    const unsigned int* member_base, unsigned int threshold, float scale,
+    unsigned int offset, int tile, long long smem_bytes, int G,
+    void* stream) {
+  if (S < 1 || T < 1 || N < 1) return kUnsupported;
+  const int rc = prepare_tiled(layout, xb16, tile, smem_bytes, G);
+  if (rc != 0) return rc;
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
+  const LayoutTable L{layout_dev};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(G, S);
+  const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
+  const float* xf = static_cast<const float*>(x);
+  if (tile == 32) {
+    if (xb16)
+      bwd_stream_tiled_kernel<__nv_bfloat16, 32>
+          <<<grid, kTileThreads, smem_bytes, st>>>(xh, zp, params, g, grad_part,
+                                               dzp_part, L, T, N, drop);
+    else
+      bwd_stream_tiled_kernel<float, 32>
+          <<<grid, kTileThreads, smem_bytes, st>>>(xf, zp, params, g, grad_part,
+                                                   dzp_part, L, T, N, drop);
+  } else {
+    if (xb16)
+      bwd_stream_tiled_kernel<__nv_bfloat16, 64>
+          <<<grid, kTileThreads, smem_bytes, st>>>(xh, zp, params, g, grad_part,
+                                               dzp_part, L, T, N, drop);
+    else
+      bwd_stream_tiled_kernel<float, 64>
+          <<<grid, kTileThreads, smem_bytes, st>>>(xf, zp, params, g, grad_part,
+                                                   dzp_part, L, T, N, drop);
+  }
+  return (int)cudaGetLastError();
 }
 #endif
 #endif

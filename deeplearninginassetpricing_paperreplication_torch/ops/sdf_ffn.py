@@ -73,6 +73,7 @@ At offset 0 every route computes what it did before the offset existed.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import threading
@@ -81,8 +82,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import (BF16_PANEL, STREAM, STREAM_MMA, _nvcc, count_launch,
-               launch_total, reset_launch_counts)
+from . import (BF16_PANEL, STREAM, STREAM_MMA, STREAM_TILED, _nvcc,
+               count_launch, launch_total, reset_launch_counts)
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 PANEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -168,6 +169,27 @@ STREAM_MMA_RED = 512
 # 2^-16 at 64 inputs, grown with the sum's depth)
 STREAM_CERTIFY = 2.0 ** -16
 STREAM_CERTIFY_DEPTH = 64
+# its register-tiled route under f32 compute (csrc/sdf_ffn_stream.cu
+# fwd_stream_tiled_kernel, bwd_stream_tiled_kernel): route 2's values bit for
+# bit on the same plan, blocks of STREAM_TILED_THREADS threads, each 8 units
+# × tile/16 stocks of a layer pass of STREAM_TILED_PASS units, weight slabs
+# of STREAM_SLAB inputs in a ring of STREAM_TILED_STAGES (each slab
+# [STREAM_TILED_PASS][STREAM_SLAB + 4] floats at most), the f32 tile in
+# shared memory only, the backward's dh_pre written over each layer's
+# activations. Planned wherever its tile fits, else route 2, but for the
+# forward of a stack whose layers are at most STREAM_TILED_NARROW units wide
+# where route 2 takes tile 64: route 2's pass (4096 / tile units) is full
+# there and route 5's a quarter used. chip_smoke.py's turns put that
+# boundary: route 2's forward ~1.9× faster at 12 × 64 and (64, 64, 64) F =
+# 512, route 5's faster at 96 units and at (64, 64) F = 1024 (route 2 at
+# tile 32), and route 5's backward faster at every streamed stack timed
+STREAM_TILED_ROUTE = 5
+STREAM_TILED_KERNELS = ("fwd", "bwd")
+STREAM_TILED_THREADS = 512
+STREAM_TILED_TILES = (32, 64)
+STREAM_TILED_PASS = 256
+STREAM_TILED_STAGES = 3
+STREAM_TILED_NARROW = 64
 
 # launches of the CUDA kernels, counted per device where the wrapper
 # launches them and nowhere else (ops.count_launch; reset_launch_count()
@@ -183,6 +205,9 @@ _TOTALS.update({k + form: v + form for form in (BF16_PANEL, STREAM)
 _TOTALS.update({"launches" + STREAM_MMA: "sdf_ffn_fwd" + STREAM_MMA,
                 "bwd_launches" + STREAM_MMA: "sdf_ffn_bwd" + STREAM_MMA,
                 "dx_launches" + STREAM_MMA: "sdf_ffn_dx" + STREAM_MMA})
+# and those of its register-tiled form (f32 compute; a subset of _stream)
+_TOTALS.update({"launches" + STREAM_TILED: "sdf_ffn_fwd" + STREAM_TILED,
+                "bwd_launches" + STREAM_TILED: "sdf_ffn_bwd" + STREAM_TILED})
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -564,9 +589,9 @@ def kernel_route_takes(F: int, hidden: Sequence[int]) -> bool:
 
 
 def is_stream(plan) -> bool:
-    """Does `plan` launch the streamed-weight route (either form)?"""
+    """Does `plan` launch the streamed-weight route (any of its forms)?"""
     return (plan.route in STREAM_ROUTES.values()
-            or plan.route == STREAM_MMA_ROUTE)
+            or plan.route in (STREAM_MMA_ROUTE, STREAM_TILED_ROUTE))
 
 
 _SOURCES = {"fwd": "sdf_ffn.cu", "bwd": "sdf_ffn_bwd.cu",
@@ -588,8 +613,9 @@ STREAM_SOURCE = "sdf_ffn_stream.cu"
 
 def stream_jobs(kernels: Sequence[str] = KERNELS) -> List[_nvcc.Job]:
     """The streamed route's libraries, one per kernel (its four panel ×
-    compute instances and its two tensor-core ones), built only where a
-    stack needs them."""
+    compute instances, its two tensor-core ones and, the forward's and the
+    backward's, the four panel × stock-tile instances of the register-tiled
+    route), built only where a stack needs them."""
     return [_nvcc.Job(f"sdf_ffn_{k}_stream", STREAM_SOURCE,
                       (f"-DSDF_FFN_STREAM_KERNEL={KERNELS.index(k)}",))
             for k in kernels]
@@ -678,6 +704,16 @@ _STREAM_MMA_ARGTYPES = {
     for k, n in (("fwd", 1), ("bwd", 3), ("dx", 3))}
 
 
+_STREAM_TILED_ARGTYPES = {
+    # x, xb16, zp, params, out | g, grad_part, dzp_part, layout, layout on
+    # the card, S, T, N, dropout, tile, smem, G, stream
+    k: (_PANEL_ARGTYPES + [ctypes.c_void_p] * n
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + _DROP_ARGTYPES
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    for k, n in (("fwd", 3), ("bwd", 5))}
+
+
 def _load_stream(kernel: str, audit: bool = False):
     """The streamed route's library of `kernel` (with `audit`, the dx's
     audit build), built at first use."""
@@ -708,6 +744,17 @@ def _load_stream(kernel: str, audit: bool = False):
                 lib.sdf_ffn_stream_mma_plan_info.restype = ctypes.c_int
                 lib.sdf_ffn_stream_mma_registers.argtypes = [ctypes.c_int]
                 lib.sdf_ffn_stream_mma_registers.restype = ctypes.c_int
+            if kernel in STREAM_TILED_KERNELS:
+                fn = getattr(lib, f"sdf_ffn_{kernel}_stream_tiled")
+                fn.argtypes = _STREAM_TILED_ARGTYPES[kernel]
+                fn.restype = ctypes.c_int
+                lib.sdf_ffn_stream_tiled_plan_info.argtypes = [
+                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
+                lib.sdf_ffn_stream_tiled_plan_info.restype = ctypes.c_int
+                lib.sdf_ffn_stream_tiled_registers.argtypes = [ctypes.c_int]
+                lib.sdf_ffn_stream_tiled_registers.restype = ctypes.c_int
             if audit:
                 _bind_audit(lib)
             _libs[key] = lib
@@ -937,12 +984,15 @@ def stream_rows(lay: FfnLayout, kernel: str,
     every layer's activations, two dh buffers and (dx) the cotangent's
     accumulator. Route 4's dx (bf16 rows; its dx accumulator an f32 tile
     apart): the panel tile, the layers below the top (each layer's dh_pre
-    written over its activations) and the top layer's dh_pre."""
+    written over its activations) and the top layer's dh_pre. Route 5's
+    backward (csrc tiled_rows): the panel tile and every layer, each
+    layer's dh_pre written over its activations."""
     r = [_pad(h, STREAM_SLAB) for h in lay.hidden]
     rf = _pad(lay.F, STREAM_SLAB)
     if kernel == "fwd":
         return rf + 2 * max(r)
-    if kernel == "dx" and route == STREAM_MMA_ROUTE:
+    if ((kernel == "dx" and route == STREAM_MMA_ROUTE)
+            or (kernel == "bwd" and route == STREAM_TILED_ROUTE)):
         return rf + sum(r)
     return rf + sum(r) + 2 * max(r) + (rf if kernel == "dx" else 0)
 
@@ -963,8 +1013,14 @@ def stream_geometry(lay: FfnLayout, kernel: str, tile: int,
     also counts pad16(F) among the layers for SU (its dx product's rows),
     shares the ring with the two f32 slabs of routes 2 and 3 (its exact
     layers below the top; the larger of the two) and adds an f32 dx tile of
-    pad16(F) rows × (tile + 4)."""
+    pad16(F) rows × (tile + 4). The register-tiled route
+    (STREAM_TILED_ROUTE, csrc tiled_smem_bytes): a ring of
+    STREAM_TILED_STAGES slabs of STREAM_TILED_PASS × (STREAM_SLAB + 4)
+    floats, the row hashes and the g row; f32 tile rows of tile + 4."""
     rows = stream_rows(lay, kernel, route)
+    if route == STREAM_TILED_ROUTE:
+        ring = STREAM_TILED_STAGES * STREAM_TILED_PASS * (STREAM_SLAB + 4)
+        return ring + 2 * tile, rows * (tile + 4)
     if route != STREAM_MMA_ROUTE:
         fixed = 2 * STREAM_SLAB * (16 * STREAM_THREADS // tile) + 2 * tile
         return fixed, rows * (tile + 4)
@@ -986,14 +1042,15 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
                 route: int = STREAM_ROUTES["float32"]
                 ) -> Tuple[int, int, int, int, int, int]:
     """The streamed route's launch for `kernel` ("fwd", "bwd" or "dx") on
-    `route` (2 or 3, or the tensor-core STREAM_MMA_ROUTE): (stock tile,
-    shared memory, resident blocks per SM, G,
-    cells, tile floats a block in global scratch — 0 where the tile buffers
-    sit in shared memory).
+    `route` (2 or 3, the tensor-core STREAM_MMA_ROUTE, or the register-tiled
+    STREAM_TILED_ROUTE): (stock tile, shared memory, resident blocks per SM,
+    G, cells, tile floats a block in global scratch — 0 where the tile
+    buffers sit in shared memory).
 
     Of the stock tiles, with the tile buffers in shared memory where they
-    fit, else in scratch (not on the tensor-core route: ldmatrix reads
-    shared memory only), the one that keeps the most stocks resident per
+    fit, else in scratch (not on routes 4 and 5: ldmatrix reads shared
+    memory only, and route 5 is the shared-memory form of route 2), the
+    one that keeps the most stocks resident per
     SM (tile × blocks per SM, shared memory in front; then the larger
     tile). G: a persistent grid over the S·T·⌈N/tile⌉ cells (forward) or
     T·⌈N/tile⌉ (the panel cotangent; the backward's G blocks per member),
@@ -1002,8 +1059,11 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     shared memory, registers, scratch)."""
     name = f"sdf_ffn_{kernel}"
     mma = route == STREAM_MMA_ROUTE
+    tiled = route == STREAM_TILED_ROUTE
     if mma and kernel not in STREAM_MMA_KERNELS:
         raise ValueError(f"{name}: no tensor-core streamed route")
+    if tiled and kernel not in STREAM_TILED_KERNELS:
+        raise ValueError(f"{name}: no register-tiled streamed route")
     over = [f"{what} {got} exceeds its {cap} ({tag})" for what, got, cap, tag
             in (("hidden width", max(lay.hp), STREAM_MAX_WIDTH, "width"),
                 ("depth of", len(lay.hidden), STREAM_MAX_LAYERS, "layers"),
@@ -1014,16 +1074,18 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
                          + "; ".join(over))
     per = S if kernel == "bwd" else 1  # blocks a G column
     part = 4 * S * (lay.P + T * lay.hidden[0])  # bwd partials a G column
+    threads = stream_threads(route)
     plans, refused = [], set()
-    for tile in STREAM_MMA_TILES if mma else STREAM_TILES:
+    for tile in (STREAM_MMA_TILES if mma else STREAM_TILED_TILES if tiled
+                 else STREAM_TILES):
         fixed, tf = stream_geometry(lay, kernel, tile, route)
         cells = (S if kernel == "fwd" else 1) * T * -(-N // tile)
-        for in_smem in (True,) if mma else (True, False):
+        for in_smem in (True,) if mma or tiled else (True, False):
             smem = 4 * (fixed + (tf if in_smem else 0))
             if smem > MAX_SMEM:
                 refused.add("shared memory")
                 continue
-            blocks = _resident(smem, STREAM_THREADS, registers)
+            blocks = _resident(smem, threads, registers)
             if blocks < 1:
                 refused.add(f"registers ({registers} a thread)")
                 continue
@@ -1047,6 +1109,38 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     return max(plans)[1]
 
 
+def stream_threads(route: int) -> int:
+    """Threads a block of the streamed `route`."""
+    return STREAM_TILED_THREADS if route == STREAM_TILED_ROUTE \
+        else STREAM_THREADS
+
+
+def stream_reference_plan(lay: FfnLayout, kernel: str, plan, S: int):
+    """Route 2's plan of the same stock tile and G as the streamed `plan`
+    (a FwdPlan or BwdPlan of the register-tiled route): its tile buffers in
+    shared memory where they fit, else in scratch. Route 2 computes, on
+    it, what route 5 computes on `plan`, bit for bit (the forward's out at
+    any plan; the backward's gradients group the same stocks into the same
+    cells), so it is route 5's reference. Raises for a tile route 2 does
+    not take."""
+    route = STREAM_ROUTES["float32"]
+    if plan.tile not in STREAM_TILES:
+        raise ValueError(f"sdf_ffn_{kernel}: route {route} takes tiles "
+                         f"{STREAM_TILES}, not {plan.tile}")
+    fixed, tf = stream_geometry(lay, kernel, plan.tile, route)
+    in_smem = 4 * (fixed + tf) <= MAX_SMEM
+    smem = 4 * (fixed + (tf if in_smem else 0))
+    per = S if kernel == "bwd" else 1
+    scratch = 0 if in_smem else tf
+    if 4 * plan.G * per * scratch > STREAM_SCRATCH_BYTES:
+        raise ValueError(f"sdf_ffn_{kernel}: route {route}'s tile buffers "
+                         f"at tile {plan.tile}, G = {plan.G} exceed its "
+                         f"scratch")
+    return dataclasses.replace(
+        plan, route=route, threads=STREAM_THREADS, smem_bytes=smem,
+        blocks_per_sm=_resident(smem, STREAM_THREADS, 0), scratch=scratch)
+
+
 def fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
              compute_dtype: str = "float32",
              registers: Dict[int, int] = None) -> FwdPlan:
@@ -1063,8 +1157,8 @@ def fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
     route, plan = stream_route_plan(lay, "fwd", sms, S, T, N, compute_dtype,
                                     registers)
     tile, smem, blocks, G, cells, scratch = plan
-    return FwdPlan(route, tile, STREAM_THREADS, 1, smem, blocks, G, cells,
-                   scratch)
+    return FwdPlan(route, tile, stream_threads(route), 1, smem, blocks, G,
+                   cells, scratch)
 
 
 def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
@@ -1074,8 +1168,12 @@ def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     `compute_dtype`: under bf16 compute each kernel takes the tensor-core
     route (STREAM_MMA_ROUTE) for stacks of at most STREAM_MMA_MAX_LAYERS
     layers whose bf16 tiles fit shared memory, else route 3 (the tiles in
-    shared memory or scratch); f32 compute takes route 2. `registers` is
-    keyed by route."""
+    shared memory or scratch); under f32 compute the forward and the
+    backward take the register-tiled route (STREAM_TILED_ROUTE) where its
+    tile fits shared memory, but for the forward where every padded layer
+    is at most STREAM_TILED_NARROW units wide and route 2 takes tile 64;
+    else (and the panel cotangent always) route 2. `registers` is keyed by
+    route."""
     regs = registers or {}
     if (compute_dtype == "bfloat16" and kernel in STREAM_MMA_KERNELS
             and len(lay.hidden) <= STREAM_MMA_MAX_LAYERS):
@@ -1086,8 +1184,41 @@ def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
         except ValueError:
             pass
     route = STREAM_ROUTES[compute_dtype]
-    return route, stream_plan(lay, kernel, sms, S, T, N,
-                              regs.get(route, 0), route)
+    plan = None
+    if (compute_dtype == "float32" and kernel in STREAM_TILED_KERNELS
+            and _f32_route5):
+        if (kernel == "fwd" and max(_pad(h, STREAM_SLAB) for h in lay.hidden)
+                <= STREAM_TILED_NARROW):
+            plan = stream_plan(lay, kernel, sms, S, T, N, regs.get(route, 0),
+                               route)
+        if plan is None or plan[0] != 64:
+            try:
+                return STREAM_TILED_ROUTE, stream_plan(
+                    lay, kernel, sms, S, T, N,
+                    regs.get(STREAM_TILED_ROUTE, 0), STREAM_TILED_ROUTE)
+            except ValueError:
+                pass
+    return route, plan or stream_plan(lay, kernel, sms, S, T, N,
+                                      regs.get(route, 0), route)
+
+
+_f32_route5 = True
+
+
+@contextlib.contextmanager
+def f32_streamed_on_route2():
+    """Plan the streamed f32 forward and backward on route 2 inside the
+    block, as the plans did before route 5 (the card's check times the train
+    CLI on each route in turns); the plans kept per shape are dropped on
+    entry and on exit."""
+    global _f32_route5
+    _fwd_plans.clear()
+    _f32_route5 = False
+    try:
+        yield
+    finally:
+        _f32_route5 = True
+        _fwd_plans.clear()
 
 
 def resident_fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
@@ -1200,7 +1331,8 @@ def bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
     route, plan = stream_route_plan(lay, "bwd", sms, S, T, N, compute_dtype,
                                     registers)
     bn, smem, blocks, G, _, scratch = plan
-    return BwdPlan(bn, STREAM_THREADS, smem, blocks, G, 0, route, scratch)
+    return BwdPlan(bn, stream_threads(route), smem, blocks, G, 0, route,
+                   scratch)
 
 
 def resident_bwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
@@ -1436,7 +1568,9 @@ def _stream_registers(kernel: str, route: int, xb16: bool) -> int:
     if key not in _stream_regs:
         lib = _load_stream(kernel)
         r = (lib.sdf_ffn_stream_mma_registers(int(xb16))
-             if route == STREAM_MMA_ROUTE else lib.sdf_ffn_stream_registers(
+             if route == STREAM_MMA_ROUTE
+             else lib.sdf_ffn_stream_tiled_registers(int(xb16))
+             if route == STREAM_TILED_ROUTE else lib.sdf_ffn_stream_registers(
                  int(route == STREAM_ROUTES["bfloat16"]), int(xb16)))
         _stream_regs[key] = max(r, 0)
     return _stream_regs[key]
@@ -1613,7 +1747,10 @@ def stream_plan_info(kernel: str, lay: FfnLayout, plan,
     lib = _load_stream(kernel, audit)
     rc = (lib.sdf_ffn_stream_mma_plan_info(
         _layout_ints(lay), plan.tile, plan.smem_bytes, int(xb16), out)
-        if plan.route == STREAM_MMA_ROUTE else lib.sdf_ffn_stream_plan_info(
+        if plan.route == STREAM_MMA_ROUTE
+        else lib.sdf_ffn_stream_tiled_plan_info(
+            _layout_ints(lay), plan.tile, plan.smem_bytes, int(xb16), out)
+        if plan.route == STREAM_TILED_ROUTE else lib.sdf_ffn_stream_plan_info(
             _layout_ints(lay), int(plan.route == STREAM_ROUTES["bfloat16"]),
             plan.tile, plan.smem_bytes, int(plan.scratch > 0), int(xb16),
             out))
@@ -1641,39 +1778,60 @@ def _stream_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
                    offset: int, outs: Sequence[torch.Tensor]) -> None:
     """One launch of the streamed `kernel` at `plan` writing `outs` (fwd:
     out; bwd: g, grad_part, dzp_part; dx: g, dx), inputs checked by the
-    caller; counts it under the kernel and its ``_stream`` form."""
+    caller; counts it under the kernel and its ``_stream`` form (and the
+    register-tiled route's also under ``_stream_tiled``)."""
     lay = packed.layout
     T, _, N = x_t.shape
     S = packed.n_members
     dev = x_t.device
     mma = plan.route == STREAM_MMA_ROUTE
+    tiled = plan.route == STREAM_TILED_ROUTE
     if not (plan.route == STREAM_ROUTES[packed.compute_dtype]
-            or (mma and packed.compute_dtype == "bfloat16")):
+            or (mma and packed.compute_dtype == "bfloat16")
+            or (tiled and packed.compute_dtype == "float32"
+                and kernel in STREAM_TILED_KERNELS)):
         raise ValueError(f"sdf_ffn_{kernel}: the plan {plan} is not the "
                          f"streamed route at {packed.compute_dtype}")
     if mma:
         _stream_mma_launch(kernel, x_t, zp, packed, plan, seed, dropout_rate,
                            offset, outs)
         return
+    if tiled:
+        fixed, tf = stream_geometry(lay, kernel, plan.tile, plan.route)
+        if (plan.tile not in STREAM_TILED_TILES or plan.scratch
+                or plan.smem_bytes != 4 * (fixed + tf)
+                or plan.smem_bytes > MAX_SMEM):
+            raise ValueError(
+                f"sdf_ffn_{kernel}: route {STREAM_TILED_ROUTE} refuses the "
+                f"plan {plan}: a tile of {STREAM_TILED_TILES} in shared "
+                f"memory, {4 * (fixed + tf)} B at tile {plan.tile} against "
+                f"its {MAX_SMEM} (shared memory)")
     blocks = plan.G * (S if kernel == "bwd" else 1)
     scratch = (torch.empty(blocks * plan.scratch, dtype=torch.float32,
                            device=dev) if plan.scratch else None)
     drop, _bases = _dropout_args(seed, dropout_rate, S, dev, offset)
+    lib = _load_stream(kernel)
+    entry = f"sdf_ffn_{kernel}_stream" + ("_tiled" if tiled else "")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_load_stream(kernel), f"sdf_ffn_{kernel}_stream")(
-            *_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
-            *(t.data_ptr() for t in outs),
-            None if scratch is None else scratch.data_ptr(),
-            _layout_ints(lay), _layout_dev(lay, dev).data_ptr(), S, T, N,
-            int(packed.compute_dtype == "bfloat16"), *drop, plan.tile,
-            plan.smem_bytes, plan.G, stream)
+        head = (*_panel_args(x_t), zp.data_ptr(), packed.params.data_ptr(),
+                *(t.data_ptr() for t in outs))
+        layout = (_layout_ints(lay), _layout_dev(lay, dev).data_ptr(), S, T,
+                  N)
+        tail = (plan.tile, plan.smem_bytes, plan.G, stream)
+        rc = (getattr(lib, entry)(*head, *layout, *drop, *tail) if tiled
+              else getattr(lib, entry)(
+                  *head, None if scratch is None else scratch.data_ptr(),
+                  *layout, int(packed.compute_dtype == "bfloat16"), *drop,
+                  *tail))
     if rc == -1:
-        raise RuntimeError(f"sdf_ffn_{kernel}_stream refused the plan {plan}"
-                           f" for hidden {list(lay.hidden)}, F = {lay.F}")
-    _raise_rc(f"sdf_ffn_{kernel}_stream", rc)
+        raise RuntimeError(f"{entry} refused the plan {plan} for hidden "
+                           f"{list(lay.hidden)}, F = {lay.F}")
+    _raise_rc(entry, rc)
     panel_launch(f"sdf_ffn_{kernel}", x_t)
     count_launch(f"sdf_ffn_{kernel}{STREAM}", dev)
+    if tiled:
+        count_launch(f"sdf_ffn_{kernel}{STREAM_TILED}", dev)
 
 
 def stream_mma_table(lay: FfnLayout) -> Tuple[int, List[int]]:

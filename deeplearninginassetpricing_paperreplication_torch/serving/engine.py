@@ -1087,4 +1087,6 @@ class InferenceEngine:
                 "compute_dtype": self.exec_cfg.compute_dtype,
                 "kernel_launches": sdf_ffn.launches,
                 "kernel_launches_stream": sdf_ffn.launches_stream,
+                "kernel_launches_stream_tiled":
+                    sdf_ffn.launches_stream_tiled,
             }

@@ -2,10 +2,14 @@
 SDF-FFN's streamed-weight route (ops/sdf_ffn.py stream_plan, as
 csrc/sdf_ffn_stream.cu counts its shared memory), where it is chosen, its
 reach and its refusals, and its tensor-core form under bf16 compute (route
-STREAM_MMA_ROUTE: bf16 tiles, its bf16 weight copy); the conditional EM's
+STREAM_MMA_ROUTE: bf16 tiles, its bf16 weight copy) and its register-tiled
+form under f32 compute (route STREAM_TILED_ROUTE, held to route 2 on the
+same plan: stream_reference_plan); the conditional EM's
 moment chunks (ops/cond_em.py moment_chunks, cem_plan / cem_dx_plan of a
 chunk); and the panel cotangent's plan for one member with few
 characteristics (C11)."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -57,7 +61,10 @@ def test_streamed_plans_fit_the_block(hidden, F, S, kind):
     kernel takes the tensor-core route, its bf16 tiles in shared memory, at
     least twice the (256, 256) stocks per SM of the CUDA cores' (forward 2 ×
     64, backward and panel cotangent 2 × 32), up to STREAM_MMA_MAX_LAYERS
-    layers; the 12- and 16-layer stacks keep route 3."""
+    layers; the 12- and 16-layer stacks keep route 3. Under f32 compute the
+    backward takes the register-tiled route, its f32 tile in shared memory,
+    and so does the forward of the wide stacks ((256, 256), (132,)); the
+    64-wide deep stacks' forward and the panel cotangent keep route 2."""
     lay = K.ffn_layout(F, hidden)
     for cd in DTYPES:
         plan = _plan(kind, lay, S, cd)
@@ -66,13 +73,20 @@ def test_streamed_plans_fit_the_block(hidden, F, S, kind):
             continue
         mma = (cd == "bfloat16" and kind in K.STREAM_MMA_KERNELS
                and len(hidden) <= K.STREAM_MMA_MAX_LAYERS)
+        tiled = (cd == "float32" and kind in K.STREAM_TILED_KERNELS
+                 and not (kind == "fwd"
+                          and max(hidden) <= K.STREAM_TILED_NARROW))
         assert plan.route == (K.STREAM_MMA_ROUTE if mma
+                              else K.STREAM_TILED_ROUTE if tiled
                               else K.STREAM_ROUTES[cd])
-        assert plan.threads == K.STREAM_THREADS
-        assert plan.tile in (K.STREAM_MMA_TILES if mma else K.STREAM_TILES)
+        assert plan.threads == (K.STREAM_TILED_THREADS if tiled
+                                else K.STREAM_THREADS)
+        assert plan.tile in (K.STREAM_MMA_TILES if mma
+                             else K.STREAM_TILED_TILES if tiled
+                             else K.STREAM_TILES)
         fixed, tf = K.stream_geometry(lay, kind, plan.tile, plan.route)
         assert plan.smem_bytes == 4 * (fixed + (0 if plan.scratch else tf))
-        assert plan.scratch in ((0,) if mma else (0, tf))
+        assert plan.scratch in ((0,) if mma or tiled else (0, tf))
         if mma:
             assert plan.tile * plan.blocks_per_sm >= 2 * CUDA_CORE_STOCKS[
                 kind]
@@ -155,14 +169,21 @@ def test_tensor_core_route_up_to_its_depth(depth, kind):
     ("fwd", 64, 161_024, 132), ("bwd", 32, 171_008, 14)])
 def test_f32_streamed_plans_at_256x256_are_the_cuda_cores(kind, tile, smem,
                                                           G9):
-    """f32 compute keeps the CUDA-core route's plans: (256, 256), F = 46,
-    one block an SM."""
+    """f32 compute plans the register-tiled route on the CUDA cores at (256,
+    256), F = 46: tile 64 in shared memory (the backward's dh_pre over its
+    activations: 48 + 512 rows), one block an SM, G 132 (the backward's 14 a
+    member at S = 9). Route 2, asked for, keeps its plans: the forward at
+    tile 64, the backward at tile 32."""
     lay = K.ffn_layout(46, (256, 256))
-    for S, G in ((1, 132), (9, G9 if kind == "bwd" else 132)):
+    for S in (1, 9):
+        G = G9 if kind == "bwd" and S == 9 else 132
         plan = _plan(kind, lay, S, "float32")
         assert (plan.route, plan.tile, plan.smem_bytes, plan.blocks_per_sm,
-                plan.G, plan.scratch) == (K.STREAM_ROUTES["float32"], tile,
-                                          smem, 1, G, 0)
+                plan.G, plan.scratch) == (K.STREAM_TILED_ROUTE, 64, 214_272,
+                                          1, G, 0)
+        assert K.stream_plan(lay, kind, SMS, S, T, N, route=K.STREAM_ROUTES[
+            "float32"]) == (tile, smem, 1, G, (S if kind == "fwd" else 1)
+                            * T * -(-N // tile), 0)
 
 
 @pytest.mark.parametrize("kind", K.STREAM_MMA_KERNELS)
@@ -200,6 +221,196 @@ def test_tensor_core_smem_is_what_the_kernel_counts(hidden, F, kind):
     if hidden == (256, 256):
         assert (plan.tile, plan.blocks_per_sm) == {
             "fwd": (128, 1), "bwd": (64, 1), "dx": (128, 1)}[kind]
+
+
+@pytest.mark.parametrize("kind", K.STREAM_TILED_KERNELS)
+@pytest.mark.parametrize("hidden,F", [((256, 256), 46), ((132,), 46),
+                                      ((64,) * 12, 46), ((200, 136, 160), 80)],
+                         ids=["256x256", "132", "12x64", "200-136-160"])
+def test_register_tiled_smem_is_what_the_kernel_counts(hidden, F, kind):
+    """The register-tiled plan's shared memory, counted as
+    csrc/sdf_ffn_stream.cu's tiled_smem_bytes counts it: a ring of three
+    slabs of 256 units × 20 floats, the row hashes and the g row, then the
+    f32 tile rows of tile + 4: the forward's panel tile and two buffers of
+    the widest layer, the backward's panel tile and every layer once (each
+    layer's dh_pre over its activations; route 2 adds two dh buffers)."""
+    lay = K.ffn_layout(F, hidden)
+    tile, smem, blocks, G, cells, scratch = K.stream_plan(
+        lay, kind, SMS, 1, T, N, route=K.STREAM_TILED_ROUTE)
+    p16 = [-(-h // 16) * 16 for h in hidden]
+    f16 = -(-F // 16) * 16
+    rows = f16 + (2 * max(p16) if kind == "fwd" else sum(p16))
+    assert rows == K.stream_rows(lay, kind, K.STREAM_TILED_ROUTE)
+    assert rows == (K.stream_rows(lay, kind) if kind == "fwd"
+                    else K.stream_rows(lay, kind) - 2 * max(p16))
+    assert smem == 4 * (3 * 256 * 20 + 2 * tile + rows * (tile + 4))
+    assert smem <= K.MAX_SMEM and scratch == 0 and blocks >= 1
+    assert tile in K.STREAM_TILED_TILES
+    # the larger tile wherever it fits: 64 but for the 12-layer backward
+    assert tile == (32 if (kind, hidden) == ("bwd", (64,) * 12) else 64)
+    assert G == min(cells, blocks * SMS)
+
+
+@pytest.mark.parametrize("S", [1, 9])
+@pytest.mark.parametrize("hidden,F", [((256, 256), 46), ((132,), 46),
+                                      ((200, 136, 160), 80), ((384,), 46),
+                                      ((256,) * 3, 46)],
+                         ids=["256x256", "132", "200-136-160", "384",
+                              "3x256"])
+def test_register_tiled_backward_tile_is_one_route_2_takes(hidden, F, S):
+    """Route 5's backward is bit for bit route 2's only on the same (tile,
+    G), so its tile must be one route 2 takes: stream_reference_plan gives
+    route 2's plan of that tile and G (the tile buffers in shared memory
+    where they fit, else in scratch, within its budget), for the forward
+    too."""
+    lay = K.ffn_layout(F, hidden)
+    for kind in K.STREAM_TILED_KERNELS:
+        plan = _plan(kind, lay, S, "float32")
+        assert plan.route == K.STREAM_TILED_ROUTE
+        assert plan.tile in K.STREAM_TILES
+        ref = K.stream_reference_plan(lay, kind, plan, S)
+        assert type(ref) is type(plan) and K.is_stream(ref)
+        assert (ref.route, ref.tile, ref.G) == (K.STREAM_ROUTES["float32"],
+                                               plan.tile, plan.G)
+        fixed, tf = K.stream_geometry(lay, kind, plan.tile, ref.route)
+        fits = 4 * (fixed + tf) <= K.MAX_SMEM
+        assert ref.scratch == (0 if fits else tf)
+        assert ref.smem_bytes == 4 * (fixed + (tf if fits else 0))
+        assert ref.blocks_per_sm >= 1
+        per = S if kind == "bwd" else 1
+        assert 4 * ref.G * per * ref.scratch <= K.STREAM_SCRATCH_BYTES
+    # a tile route 2 does not take has no reference
+    bad = K.FwdPlan(K.STREAM_TILED_ROUTE, 128, 256, 1, 0, 1, 1, 1)
+    with pytest.raises(ValueError, match="takes tiles"):
+        K.stream_reference_plan(lay, "fwd", bad, S)
+
+
+@pytest.mark.parametrize("hidden,F", PHASE21 + [((1024,) * 32, 512)],
+                         ids=["256x256", "132", "12x64", "16x64", "F256",
+                              "reach"])
+def test_f32_dx_scratch_stacks_and_bf16_plans_keep_their_route(hidden, F):
+    """Route 5 takes only f32 forwards and backwards whose tile fits: the
+    f32 panel cotangent stays on route 2, the reach's scratch-tile stacks on
+    route 2, the deep 64-wide stacks' forward on route 2 (their backward
+    takes route 5), and no bf16 plan is route 5's (route 4, else route
+    3)."""
+    lay = K.ffn_layout(F, hidden)
+    for S in (1, 9):
+        for kind in KINDS:
+            for cd in DTYPES:
+                plan = _plan(kind, lay, S, cd)
+                if not K.is_stream(plan):
+                    continue
+                if cd == "bfloat16":
+                    assert plan.route in (K.STREAM_MMA_ROUTE,
+                                          K.STREAM_ROUTES["bfloat16"])
+                elif (kind == "dx" or plan.scratch
+                      or (kind == "fwd"
+                          and max(hidden) <= K.STREAM_TILED_NARROW)):
+                    assert plan.route == K.STREAM_ROUTES["float32"]
+                if plan.route == K.STREAM_TILED_ROUTE:
+                    assert cd == "float32" and kind != "dx"
+                    assert hidden in ((256, 256), (132,)) or kind == "bwd"
+                    assert F < 512
+    if F == 512:  # the reach streams its tiles through scratch on route 2
+        assert K.fwd_plan(lay, SMS, 1, T, N).scratch > 0
+
+
+# (hidden, F): the f32 forward's and backward's routes, as chip_smoke.py's
+# turns timed them (route 2 against route 5 at T = 48, N = 10,000)
+TIMED_ROUTES = [((64,) * 12, 46, 2, 5), ((64,) * 16, 46, 2, 5),
+                ((64,) * 3, 512, 2, 5), ((64, 64), 1024, 5, 5),
+                ((96, 96), 384, 5, 5), ((132,), 46, 5, 5),
+                ((320, 320), 46, 5, 5)]
+
+
+@pytest.mark.parametrize("hidden,F,fwd,bwd", TIMED_ROUTES,
+                         ids=["12x64", "16x64", "3x64-F512", "64x64-F1024",
+                              "96x96-F384", "132", "320x320"])
+def test_f32_routes_are_the_faster_in_turns(hidden, F, fwd, bwd):
+    """The f32 forward keeps route 2 where every layer is at most
+    STREAM_TILED_NARROW units wide and route 2 takes tile 64 (its 64-unit
+    pass full, route 5's 256-unit pass a quarter used); it takes route 5 at
+    96 units, and at 64 units where route 2 takes tile 32. The backward
+    takes route 5 at every stack. Route 2 keeps its own plan."""
+    lay = K.ffn_layout(F, hidden)
+    for S in (1, 9):
+        for kind, route in (("fwd", fwd), ("bwd", bwd)):
+            plan = _plan(kind, lay, S, "float32")
+            assert K.is_stream(plan)
+            assert plan.route == (K.STREAM_TILED_ROUTE if route == 5
+                                  else K.STREAM_ROUTES["float32"])
+            if route == 2:
+                tile, smem, blocks, G, _, scratch = K.stream_plan(
+                    lay, kind, SMS, S, T, N, route=plan.route)
+                assert (plan.tile, plan.smem_bytes, plan.blocks_per_sm,
+                        plan.G, plan.scratch) == (tile, smem, blocks, G,
+                                                  scratch)
+
+
+def test_f32_streamed_on_route2_plans_route_2_inside_the_block():
+    """f32_streamed_on_route2 plans the streamed f32 forward and backward
+    on route 2 inside the block, as before route 5, and route 5 again after
+    it; the bf16 plans and the panel cotangent's do not change."""
+    lay = K.ffn_layout(46, (256, 256))
+    before = {(k, cd): _plan(k, lay, 1, cd) for k in KINDS for cd in DTYPES}
+    with K.f32_streamed_on_route2():
+        inside = {(k, cd): _plan(k, lay, 1, cd)
+                  for k in KINDS for cd in DTYPES}
+    after = {(k, cd): _plan(k, lay, 1, cd) for k in KINDS for cd in DTYPES}
+    assert after == before
+    for key, plan in inside.items():
+        if key in (("fwd", "float32"), ("bwd", "float32")):
+            assert before[key].route == K.STREAM_TILED_ROUTE
+            assert plan.route == K.STREAM_ROUTES["float32"]
+            assert (plan.tile, plan.threads) == (
+                CUDA_CORE_STOCKS[key[0]], K.STREAM_THREADS)
+        else:
+            assert plan == before[key]
+
+
+def test_a_stack_route_5_cannot_hold_falls_to_route_2():
+    """(2048,) at F = 46 is wide enough for route 5, but its tile does not
+    fit shared memory at any tile it takes: the plans fall to route 2 (tile
+    buffers in scratch). A launch of a route-5 plan the kernel would refuse
+    raises before the card, naming the limit; so does one at the wrong
+    compute or of the panel cotangent."""
+    lay = K.ffn_layout(46, (2048,))
+    for kind in K.STREAM_TILED_KERNELS:
+        with pytest.raises(ValueError, match="shared memory"):
+            K.stream_plan(lay, kind, SMS, 1, T, N,
+                          route=K.STREAM_TILED_ROUTE)
+        plan = _plan(kind, lay, 1, "float32")
+        assert plan.route == K.STREAM_ROUTES["float32"] and plan.scratch > 0
+    with pytest.raises(ValueError, match="no register-tiled"):
+        K.stream_plan(lay, "dx", SMS, 1, T, N, route=K.STREAM_TILED_ROUTE)
+    g = torch.Generator().manual_seed(0)
+    S, Tc, Nc, F, hidden = 1, 2, 8, 5, (256,)
+    lay = K.ffn_layout(F, hidden)
+    x = torch.randn(Tc, F, Nc, generator=g)
+    zp = torch.randn(S, Tc, hidden[0], generator=g)
+    k1T = torch.randn(S, hidden[0], F, generator=g)
+    args = (k1T, [], torch.randn(S, hidden[0], generator=g),
+            torch.randn(S, generator=g))
+    good = K.fwd_plan(lay, SMS, S, Tc, Nc, "float32")
+    assert good.route == K.STREAM_TILED_ROUTE
+    out = (torch.empty(S, Tc, Nc),)
+    for bad, match in (
+            (dataclasses.replace(good, smem_bytes=good.smem_bytes + 16),
+             r"\(shared memory\)"),
+            (dataclasses.replace(good, tile=16), r"\(shared memory\)"),
+            (dataclasses.replace(good, scratch=1), r"\(shared memory\)")):
+        with pytest.raises(ValueError, match=match):
+            K._stream_launch("fwd", x, zp, K.pack_ffn(*args, "float32"), bad,
+                             0, 0.0, 0, out)
+    with pytest.raises(ValueError, match="not the streamed route at bfloat16"):
+        K._stream_launch("fwd", x, zp, K.pack_ffn(*args, "bfloat16"), good, 0,
+                         0.0, 0, out)
+    dx = K.DxPlan(K.STREAM_TILED_ROUTE, 64, 256, 2, 1, False, good.smem_bytes,
+                  1, 1, 1)
+    with pytest.raises(ValueError, match="not the streamed route at float32"):
+        K._stream_launch("dx", x, zp, K.pack_ffn(*args, "float32"), dx, 0, 0.0,
+                         0, (torch.empty(S, Tc, Nc), torch.empty_like(x)))
 
 
 @pytest.mark.parametrize("hidden,F,S", [((256, 256), 46, 2), ((132,), 46, 1),
