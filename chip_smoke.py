@@ -460,7 +460,10 @@ Phases, each printing its results; any failure exits non-zero:
    compute each kernel's tensor-core form, route 4, up to 4 layers) and
    the conditional EM past 16 moments, against their plain versions;
    the streamed forward and backward bit for bit each other (kout = e_j,
-   g one-hot); the panel cotangent's route 4 through its audit build (0
+   g one-hot); the plans with their tiles in global scratch at (1536,);
+   under f32 compute each kernel's register-tiled form, route 5, bit for
+   bit route 2 and in turns with it; the panel cotangent's route 4 through
+   its audit build (0
    top-layer decisions flipped outside the certified window) and beside
    route 3 on a forced plan; timed rows at (256, 256), T = 48, N = 10,000,
    and route 3 against route 4 in turns; (b) the train
@@ -8976,6 +8979,10 @@ SH_TILED_TURNS = ([(SH_HIDDEN, 46, 1), (SH_HIDDEN, 46, 9)]
                   + [(h, F, 1) for h, F in SH_STACKS[1:] + SH_TILED_EXTRA
                      + [((384,), 46), ((256,) * 3, 46), ((96, 96), 384),
                         ((64, 64), 1024), ((64,) * 3, 512)]])
+# the plans whose tile buffers sit in global scratch (route 2 f32, route 3
+# bf16: every kernel's at (1536,)), launched at a small depth (T, N)
+SH_SCRATCH = ((1536,), 46)
+SH_SCRATCH_DEPTH = (2, 2_048)
 SH_EPOCHS = (4, 2, 4)
 SH_KERNELS = ("sdf_ffn_fwd", "sdf_ffn_bwd", "sdf_ffn_dx", "cond_em_fwd",
               "cond_em_bwd", "cond_em_dx")
@@ -9096,6 +9103,7 @@ def shapes_kernel_checks(torch, K, C, card):
     at the bars of phase 3, twice bit for bit, and on the bf16 panel bit
     for bit on the widened panel. Then the timed rows
     (:func:`shapes_kernel_rows`)."""
+    walls, t = {}, time.perf_counter()  # (a)'s parts, for the log
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(21)
     T, N = SH_T, SH_N
@@ -9208,31 +9216,54 @@ def shapes_kernel_checks(torch, K, C, card):
               f"(C11): plan route {plan.route} tile {plan.tile} threads "
               f"{plan.threads} G {plan.G}; max|d|/max|ref| {err:.2e} "
               f"({card})", flush=True)
+    def lap(name):
+        nonlocal t
+        walls[name] = time.perf_counter() - t
+        t = time.perf_counter()
+    lap("kernel checks")
     shapes_agreement_check(torch, K, card)
+    lap("agreement")
+    scratch = shapes_scratch_checks(torch, K, C, card)
+    lap("scratch plans")
     tiled = shapes_tiled_checks(torch, K, C, card)
+    lap("route 5 bit for bit")
     audit = shapes_dx_audit(torch, K, card)
+    lap("dx audit")
     rows = shapes_kernel_rows(torch, K, C, card)
+    lap("timed rows")
     rows["dx_route4"] = dict(audit=audit, in_turns=shapes_dx_turns(
         torch, K, card))
+    lap("dx route 4 turns")
     rows["route5"] = dict(bit_for_bit_route2=tiled,
                           in_turns=shapes_tiled_turns(torch, K, card))
+    lap("route 5 turns")
+    rows["scratch_plans"] = scratch
+    print("[shapes] (a) walls: " + ", ".join(f"{k} {v:.1f} s"
+                                             for k, v in walls.items())
+          + f" ({card})", flush=True)
     return rows
 
 
 def shapes_tiled_checks(torch, K, C, card):
-    """(a) Route 5, the register-tiled f32 forward and backward, against
-    route 2 launched on the same (tile, G) (K.stream_reference_plan: route
-    2's tiles in scratch where they do not fit shared memory): bit for bit
-    on int views for each kernel route 5 plans at the SH_STACKS stacks and
-    SH_TILED_EXTRA (the deep 64-wide stacks' backward; their forward keeps
-    route 2), both panels, S = 1 and 9, dropout 0 and 0.1, stock offset 0
-    and SH_OFFSET; (b) each against its plain version at phase 3's bars.
-    Each call of the card's plan must launch route 5 once. Returns
-    {"stacks": [...], "calls": n}."""
+    """(a) Route 5, the register-tiled f32 kernels, against route 2: the
+    forward and backward launched on the same (tile, G)
+    (K.stream_reference_plan: route 2's tiles in scratch where they do not
+    fit shared memory), the panel cotangent on route 2's own card plan (its
+    dx is route 2's at any plan); bit for bit on int views for each kernel
+    route 5 plans at the SH_STACKS stacks and SH_TILED_EXTRA (the deep
+    64-wide stacks' backward and dx; their forward keeps route 2), both
+    panels, S = 1 and 9, dropout 0 and 0.1, stock offset 0 and SH_OFFSET;
+    (b) each against its plain version at phase 3's bars. Each call of the
+    card's plan must launch route 5 once. Returns {"stacks": [...],
+    "calls": n}."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(29)
     T, N = SH_T, SH_N
-    ints = lambda t: t.view(torch.int32)  # noqa: E731
+    kinds = ("fwd", "bwd", "dx")
+
+    def ints(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
     stacks, compared, worst = [], 0, 0.0
     for hidden, F in SH_STACKS + SH_TILED_EXTRA:
         lay = K.ffn_layout(F, hidden)
@@ -9244,78 +9275,111 @@ def shapes_tiled_checks(torch, K, C, card):
             ran = []
             for xb in (x, x.to(torch.bfloat16)):
                 xb16 = xb is not x
-                fp = K.card_fwd_plan(lay, dev, S, T, N, "float32", xb16)
-                bp = K.card_bwd_plan(lay, dev, S, T, N, xb16=xb16,
-                                     compute_dtype="float32")
+                plans = dict(
+                    fwd=K.card_fwd_plan(lay, dev, S, T, N, "float32", xb16),
+                    bwd=K.card_bwd_plan(lay, dev, S, T, N, xb16=xb16,
+                                        compute_dtype="float32"),
+                    dx=K.card_dx_plan(lay, dev, S, T, N, "float32",
+                                      xb16=xb16))
                 tiled = {k: p.route == K.STREAM_TILED_ROUTE
-                         for k, p in (("fwd", fp), ("bwd", bp))}
+                         for k, p in plans.items()}
                 check(tiled["bwd"] or not tiled["fwd"],
                       f"hidden={_stack_text(hidden)} F={F}: the f32 forward "
-                      f"plans {fp}, the backward {bp}")
-                if not tiled["bwd"]:
+                      f"plans {plans['fwd']}, the backward {plans['bwd']}")
+                ran = [k for k in kinds if tiled[k]]
+                if not ran:
                     continue
-                ran = [k for k in ("fwd", "bwd") if tiled[k]]
-                fr = K.stream_reference_plan(lay, "fwd", fp, S) \
-                    if tiled["fwd"] else fp
-                br = K.stream_reference_plan(lay, "bwd", bp, S)
+                refs = {k: K.stream_reference_plan(lay, k, plans[k], S)
+                        for k in ("fwd", "bwd") if tiled[k]}
+                if tiled["dx"]:
+                    refs["dx"] = _dx_cuda_core_plan(torch, K, lay, S, T, N,
+                                                    xb16, "float32")
                 for rate in SH_RATES:
                     for off in (0, SH_OFFSET):
                         what = (f"route 5 hidden={_stack_text(hidden)} F={F}"
                                 f" S={S} {'bf16' if xb16 else 'f32'} panel "
                                 f"dropout {rate} offset {off}")
                         K.reset_launch_count()
-                        o5 = K._launch(xb, zp, packed, seed, rate, off)
-                        g5, z5 = K._launch_bwd(xb, zp, packed, gout, seed,
-                                               rate, None, off)
+                        new = {}
+                        if tiled["fwd"]:
+                            new["fwd"] = [K._launch(xb, zp, packed, seed,
+                                                    rate, off)]
+                        if tiled["bwd"]:
+                            new["bwd"] = list(K._launch_bwd(
+                                xb, zp, packed, gout, seed, rate, None, off))
+                        if tiled["dx"]:
+                            new["dx"] = [K._launch_dx(xb, zp, packed, gout,
+                                                      seed, rate, None, off)]
                         torch.cuda.synchronize()
                         n5 = (K.launches_stream_tiled,
-                              K.bwd_launches_stream_tiled)
-                        o2 = torch.empty_like(o5)
-                        K._stream_launch("fwd", xb, zp, packed, fr, seed,
-                                         rate, off, (o2,))
-                        g2, z2 = K._launch_bwd(xb, zp, packed, gout, seed,
-                                               rate, br, off)
-                        torch.cuda.synchronize()
-                        check(n5 == (int(tiled["fwd"]), 1),
+                              K.bwd_launches_stream_tiled,
+                              K.dx_launches_stream_tiled)
+                        want = tuple(int(tiled[k]) for k in kinds)
+                        check(n5 == want,
                               f"{what}: the card's plans launched route 5 "
-                              f"{n5} times (forward, backward), not "
-                              f"{(int(tiled['fwd']), 1)}")
-                        check(torch.equal(ints(o5), ints(o2)),
-                              f"sdf_ffn_fwd {what}: not bit for bit route "
-                              f"2 at tile {fr.tile}, G {fr.G}")
-                        check(torch.equal(ints(g5), ints(g2))
-                              and torch.equal(ints(z5), ints(z2)),
-                              f"sdf_ffn_bwd {what}: not bit for bit route "
-                              f"2 at tile {br.tile}, G {br.G} (scratch "
-                              f"{br.scratch} floats a block)")
+                              f"{n5} times (forward, backward, dx), not "
+                              f"{want}")
+                        old = {}
+                        if tiled["fwd"]:
+                            o2 = torch.empty_like(new["fwd"][0])
+                            K._stream_launch("fwd", xb, zp, packed,
+                                             refs["fwd"], seed, rate, off,
+                                             (o2,))
+                            old["fwd"] = [o2]
+                        if tiled["bwd"]:
+                            old["bwd"] = list(K._launch_bwd(
+                                xb, zp, packed, gout, seed, rate,
+                                refs["bwd"], off))
+                        if tiled["dx"]:
+                            old["dx"] = [K._launch_dx(xb, zp, packed, gout,
+                                                      seed, rate, refs["dx"],
+                                                      off)]
+                        torch.cuda.synchronize()
+                        for k in ran:
+                            ref = refs[k]
+                            check(all(torch.equal(ints(a), ints(b))
+                                      for a, b in zip(new[k], old[k])),
+                                  f"sdf_ffn_{k} {what}: not bit for bit "
+                                  f"route 2 at tile {ref.tile}, G {ref.G} "
+                                  f"(scratch {ref.scratch} floats a block)")
                         calls = _bp_calls(torch, K, C, S, T, N, F, 8,
                                           list(hidden), off, "float32", rate,
                                           ins)
-                        dk1T, dmids, dkout, dbout = K.unpack_grads(g5, lay)
-                        ef = _sh_check(torch, "sdf_ffn_fwd", "float32", [o5],
-                                       None, calls["sdf_ffn_fwd"][1](xb),
-                                       "sdf_ffn_fwd " + what) \
-                            if tiled["fwd"] else 0.0
-                        eb = _sh_check(torch, "sdf_ffn_bwd", "float32",
-                                       [z5, dk1T, dkout, dbout]
-                                       + [t for wb in dmids for t in wb],
-                                       None, calls["sdf_ffn_bwd"][1](xb),
-                                       "sdf_ffn_bwd " + what)
-                        worst = max(worst, ef, eb)
+                        if tiled["fwd"]:
+                            worst = max(worst, _sh_check(
+                                torch, "sdf_ffn_fwd", "float32", new["fwd"],
+                                None, calls["sdf_ffn_fwd"][1](xb),
+                                "sdf_ffn_fwd " + what))
+                        if tiled["bwd"]:
+                            g5, z5 = new["bwd"]
+                            dk1T, dmids, dkout, dbout = K.unpack_grads(g5, lay)
+                            worst = max(worst, _sh_check(
+                                torch, "sdf_ffn_bwd", "float32",
+                                [z5, dk1T, dkout, dbout]
+                                + [t for wb in dmids for t in wb], None,
+                                calls["sdf_ffn_bwd"][1](xb),
+                                "sdf_ffn_bwd " + what))
+                        if tiled["dx"]:
+                            worst = max(worst, _sh_check(
+                                torch, "sdf_ffn_dx", "float32", new["dx"],
+                                None, calls["sdf_ffn_dx"][1](xb),
+                                "sdf_ffn_dx " + what))
                         compared += len(ran)
-                        del o5, o2, g5, g2, z5, z2
+                        del new, old
             del x, ins, packed
             if not ran:
                 continue
             stacks.append(f"{_stack_text(hidden)} F={F} S={S} "
                           f"{'/'.join(ran)}")
             print(f"[shapes tiled] hidden={_stack_text(hidden)} F={F} S={S} "
-                  f"T={T} N={N}: route 5's {' and '.join(ran)} (forward "
-                  f"route {fp.route} tile {fp.tile} G {fp.G}, backward route "
-                  f"{bp.route} tile {bp.tile} G {bp.G}) bit for bit route 2 "
-                  f"on the same (tile, G) (the backward's route 2 tiles "
-                  f"{'in scratch' if br.scratch else 'in shared memory'}), "
-                  f"both panels, dropout {list(SH_RATES)}, offset 0 and "
+                  f"T={T} N={N}: route 5's {', '.join(ran)} ("
+                  + ", ".join(f"{k} tile {plans[k].tile} G {plans[k].G}"
+                              for k in ran)
+                  + ") bit for bit route 2 ("
+                  + ", ".join(f"{k} tile {refs[k].tile} G {refs[k].G}"
+                              f"{' tiles in scratch' if refs[k].scratch else ''}"
+                              for k in ran)
+                  + f"), both panels, dropout {list(SH_RATES)}, offset 0 and "
                   f"{SH_OFFSET}; within phase 3's bars of plain ({card})",
                   flush=True)
     check(len(stacks) >= 10, f"route 5 planned at {stacks} only")
@@ -9325,15 +9389,75 @@ def shapes_tiled_checks(torch, K, C, card):
     return dict(stacks=stacks, calls=compared, max_rel_err_plain=worst)
 
 
+def shapes_scratch_checks(torch, K, C, card):
+    """(a) The streamed plans whose tile buffers sit in a global scratch
+    slice a block (route 2 under f32 compute, route 3 under bf16): at
+    SH_SCRATCH every FFN kernel's plan of both computes on both panels puts
+    its tiles there. Each launched once at SH_SCRATCH_DEPTH, S = 1 and 3,
+    dropout 0.1, its plan's scratch > 0, one streamed launch, against its
+    plain version at phase 3's bars. Returns {"kernel cd panel S=s": plan
+    and max|d|/max|ref|}."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(31)
+    (hidden, F), (T, N) = SH_SCRATCH, SH_SCRATCH_DEPTH
+    lay = K.ffn_layout(F, hidden)
+    rate = 0.1
+    out = {}
+    for S in (1, 3):
+        x = torch.randn(T, F, N, generator=g, device=dev)
+        ins = _sh_inputs(torch, g, S, T, N, F, hidden, 8, dev)
+        for cd in ("float32", "bfloat16"):
+            calls = _bp_calls(torch, K, C, S, T, N, F, 8, list(hidden), 0,
+                              cd, rate, ins)
+            for xb in (x, x.to(torch.bfloat16)):
+                xb16 = xb is not x
+                panel = "bf16" if xb16 else "f32"
+                plans = {
+                    "sdf_ffn_fwd": K.card_fwd_plan(lay, dev, S, T, N, cd,
+                                                   xb16),
+                    "sdf_ffn_bwd": K.card_bwd_plan(lay, dev, S, T, N,
+                                                   xb16=xb16,
+                                                   compute_dtype=cd),
+                    "sdf_ffn_dx": K.card_dx_plan(lay, dev, S, T, N, cd,
+                                                 xb16=xb16)}
+                for name, plan in plans.items():
+                    what = (f"{name} hidden={_stack_text(hidden)} F={F} S={S}"
+                            f" T={T} N={N} {cd} {panel} panel dropout "
+                            f"{rate}")
+                    check(plan.route == K.STREAM_ROUTES[cd]
+                          and plan.scratch > 0,
+                          f"{what}: the plan {plan} does not put its tiles "
+                          f"in scratch")
+                    kern, plain = calls[name][:2]
+                    K.reset_launch_count()
+                    res = kern(xb)
+                    torch.cuda.synchronize()
+                    n = stream_counts(K)[SH_KERNELS.index(name)]
+                    check(n == 1, f"{what}: {n} streamed launches, not 1")
+                    err = _sh_check(torch, name, cd, res, None, plain(xb),
+                                    what)
+                    out[f"{name[8:]} {cd} {panel} panel S={S}"] = dict(
+                        route=plan.route, tile=plan.tile, G=plan.G,
+                        scratch_floats=plan.scratch, max_rel_err_plain=err)
+                    print(f"[shapes scratch] {what}: route {plan.route} tile "
+                          f"{plan.tile} G {plan.G}, {plan.scratch} scratch "
+                          f"floats a block; max|d|/max|ref| {err:.2e} "
+                          f"({card})", flush=True)
+                    del res
+        del x, ins
+    return out
+
+
 def shapes_tiled_turns(torch, K, card):
     """(c) Route 5 against route 2 (each on its own plan, route 2's as PR 28
     planned it) at SH_TILED_TURNS, SH_ROW, dropout DROPOUT, f32 on the f32
     panel, timed in turns (route 2, 5, 5, 2; each the median of 3 timings
-    of k calls back to back over k, k the calls in ~20 ms), the forward and
-    the backward, with each instance's registers and local bytes. Route 5
-    must build with 0 B of local memory, and where the planner streams the
-    stack (K.stream_route_plan) the route it picks must be the faster one
-    in turns: a boundary of the plans is a reading of this table. Returns
+    of k calls back to back over k, k the calls in ~20 ms), the forward, the
+    backward and the panel cotangent (where route 5's tile fits), with each
+    instance's registers and local bytes. Route 5 must build with 0 B of
+    local memory, and where the planner streams the stack
+    (K.stream_route_plan) the route it picks must be the faster one in
+    turns: a boundary of the plans is a reading of this table. Returns
     {"kernel stack S=s": {planned, route2_ms, route5_ms, plans}}."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(30)
@@ -9347,18 +9471,25 @@ def shapes_tiled_turns(torch, K, card):
         zp, k1T, mids, kout, bout, gout, seed = _sh_inputs(
             torch, g, S, T, N, F, hidden, 8, dev)[:7]
         packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
-        for kernel in ("fwd", "bwd"):
+        for kernel in ("fwd", "bwd", "dx"):
             plans = {}
             for route in (route2, route5):
-                tile, smem, blocks, G, cells, scr = K.stream_plan(
-                    lay, kernel, sms, S, T, N,
-                    K._stream_registers(kernel, route, False), route)
+                try:
+                    tile, smem, blocks, G, cells, scr = K.stream_plan(
+                        lay, kernel, sms, S, T, N,
+                        K._stream_registers(kernel, route, False), route)
+                except ValueError:
+                    continue  # a tile route 5 cannot hold
                 threads = K.stream_threads(route)
                 plans[route] = (
                     K.FwdPlan(route, tile, threads, 1, smem, blocks, G, cells,
                               scr) if kernel == "fwd"
                     else K.BwdPlan(tile, threads, smem, blocks, G, 0, route,
-                                   scr))
+                                   scr) if kernel == "bwd"
+                    else K.DxPlan(route, tile, threads, 2, 1, False, smem,
+                                  blocks, G, cells, scr))
+            if route5 not in plans:
+                continue
             if kernel == "fwd":
                 planned = K.card_fwd_plan(lay, dev, S, T, N, "float32").route
                 info = {r: K.fwd_plan_info(lay, S, p)
@@ -9369,13 +9500,21 @@ def shapes_tiled_turns(torch, K, card):
                     K._stream_launch("fwd", x, zp, packed, p, seed, DROPOUT,
                                      0, (o,))
                     return o
-            else:
+            elif kernel == "bwd":
                 planned = K.card_bwd_plan(lay, dev, S, T, N).route
                 info = {r: K.bwd_plan_info(lay, p) for r, p in plans.items()}
 
                 def run(p):
                     return K._launch_bwd(x, zp, packed, gout, seed, DROPOUT,
                                          p)
+            else:
+                planned = K.card_dx_plan(lay, dev, S, T, N, "float32").route
+                info = {r: K.dx_plan_info(lay, S, "float32", p)
+                        for r, p in plans.items()}
+
+                def run(p):
+                    return K._launch_dx(x, zp, packed, gout, seed, DROPOUT,
+                                        p)
             p2, p5 = plans[route2], plans[route5]
             check(info[route5]["local_bytes"] == 0
                   and info[route5]["blocks_per_sm"] >= p5.blocks_per_sm,
@@ -9418,11 +9557,13 @@ def shapes_tiled_turns(torch, K, card):
     return out
 
 
-def _dx_route3_plan(torch, K, lay, S, T, N, xb16):
-    """The streamed panel cotangent's route-3 plan (bf16 compute on the
-    CUDA cores) for this card, forced where bf16 compute plans route 4."""
+def _dx_cuda_core_plan(torch, K, lay, S, T, N, xb16, cd="bfloat16"):
+    """The streamed panel cotangent's plan on the CUDA-core route of `cd`
+    (route 3 for bf16 compute, route 2 for f32) for this card, as the
+    planner made it before the tensor-core and register-tiled routes:
+    forced where `cd` plans route 4 or 5."""
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
-    route = K.STREAM_ROUTES["bfloat16"]
+    route = K.STREAM_ROUTES[cd]
     tile, smem, blocks, G, cells, scratch = K.stream_plan(
         lay, "dx", sms, S, T, N, K._stream_registers("dx", route, xb16),
         route)
@@ -9457,7 +9598,7 @@ def shapes_dx_audit(torch, K, card):
                 torch, g, S, T, N, F, hidden, 8, dev)[:7]
             packed = K.pack_ffn(k1T, mids, kout, bout, "bfloat16")
             plan4 = K.card_dx_plan(lay, dev, S, T, N, "bfloat16", xb16=True)
-            plan3 = _dx_route3_plan(torch, K, lay, S, T, N, True)
+            plan3 = _dx_cuda_core_plan(torch, K, lay, S, T, N, True)
             check(plan4.route == K.STREAM_MMA_ROUTE,
                   f"sdf_ffn_dx bf16 hidden={_stack_text(hidden)} F={F}: plan "
                   f"{plan4}, not route {K.STREAM_MMA_ROUTE}")
@@ -9527,7 +9668,7 @@ def shapes_dx_turns(torch, K, card):
             torch, g, S, T, N, F, hidden, 8, dev)[:7]
         packed = K.pack_ffn(k1T, mids, kout, bout, "bfloat16")
         plan4 = K.card_dx_plan(lay, dev, S, T, N, "bfloat16", xb16=True)
-        plan3 = _dx_route3_plan(torch, K, lay, S, T, N, True)
+        plan3 = _dx_cuda_core_plan(torch, K, lay, S, T, N, True)
 
         def r3():
             return K._launch_dx(x, zp, packed, gout, seed, DROPOUT, plan3)
@@ -9557,12 +9698,12 @@ def shapes_dx_turns(torch, K, card):
 def _older_stream_libs(K, _nvcc, src_dir):
     """({kernel: ctypes function} of the streamed route's three kernels,
     {kernel: its tensor-core entry} of the forward and backward, {kernel:
-    its register-tiled entry} where the older source has route 5) built
-    from another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
+    its register-tiled entry} where the older source has it) built from
+    another checkout's sdf_ffn_stream.cu (src_dir holds it beside its
     sdf_ffn_common.cuh and panel.cuh, with this tree's argument lists of
     sdf_ffn_{fwd,bwd,dx}_stream, sdf_ffn_{fwd,bwd}_stream_mma and
-    sdf_ffn_{fwd,bwd}_stream_tiled), bound as this tree binds its own, one
-    nvcc each, all started together."""
+    sdf_ffn_{fwd,bwd,dx}_stream_tiled), bound as this tree binds its own,
+    one nvcc each, all started together."""
     import ctypes
 
     src = Path(src_dir).resolve()
@@ -9608,10 +9749,9 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
     S = 1, the panel cotangent at S = 9, f32 on the f32 panel and bf16 on
     the bf16 panel. Likewise the forward's and backward's tensor-core forms
     (route 4) where bf16 compute plans them, bit for bit and, at (256,
-    256), S = 1, timed in turns; and the register-tiled f32 forward and
-    backward (route 5) where f32 compute plans them, bit for bit, or, where
-    the older source has no route 5, a line saying that its pairs were
-    skipped."""
+    256), S = 1, timed in turns; and the register-tiled f32 kernels (route
+    5) where f32 compute plans them, bit for bit, or, where the older source
+    has no such kernel, a line saying that its pairs were skipped."""
     olds, old_mma, old_tiled = _older_stream_libs(K, _nvcc, src_dir)
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -9680,9 +9820,12 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
             drop, _bases = K._dropout_args(seed, rate, S, dev)
             if kernel == "fwd":
                 outs = (torch.empty(S, T, N, device=dev),)
-            else:
+            elif kernel == "bwd":
                 outs = (gout, torch.zeros(S, G, lay.P, device=dev),
                         torch.zeros(S, G, T, lay.hidden[0], device=dev))
+            else:
+                outs = (gout, torch.empty(T, F, N, dtype=x.dtype,
+                                          device=dev))
             rc = fn(*K._panel_args(x), zp.data_ptr(),
                     packed.params.data_ptr(), *(t.data_ptr() for t in outs),
                     K._layout_ints(lay), K._layout_dev(lay, dev).data_ptr(),
@@ -9758,7 +9901,7 @@ def compare_stream(torch, K, _nvcc, src_dir, card):
                               f"dropout {rate}: differs from {name}'s")
                         compared += 1
                 done.append(f"{kernel} route 4")
-            for kernel in K.STREAM_TILED_KERNELS:
+            for kernel in K.KERNELS:
                 packed = K.pack_ffn(k1T, mids, kout, bout, "float32")
                 if K.stream_route_plan(lay, kernel, sms, S, T, N,
                                        "float32")[0] != K.STREAM_TILED_ROUTE:
@@ -10159,7 +10302,7 @@ def shapes_gradient_check(torch, K, C, card, splits):
     train split: the kernel route against kernel="off" in f32 and bf16.
     Returns {compute dtype: the kernel route's launches}, {compute dtype:
     its streamed ones, and (``<kernel>_mma``) the tensor-core form's and
-    (``sdf_ffn_fwd_tiled``) the register-tiled form's}: one call each."""
+    (``<kernel>_tiled``) the register-tiled form's}: one call each."""
     from deeplearninginassetpricing_paperreplication_torch.models.gan import \
         GAN
     from deeplearninginassetpricing_paperreplication_torch.parallel.ensemble \
@@ -10193,9 +10336,10 @@ def shapes_gradient_check(torch, K, C, card, splits):
         streamed[cd] = dict(zip(SH_KERNELS[:3], stream_counts(K)))
         streamed[cd].update(zip(
             ("sdf_ffn_fwd_mma", "sdf_ffn_bwd_mma", "sdf_ffn_dx_mma",
-             "sdf_ffn_fwd_tiled"),
+             "sdf_ffn_fwd_tiled", "sdf_ffn_dx_tiled"),
             (K.launches_stream_mma, K.bwd_launches_stream_mma,
-             K.dx_launches_stream_mma, K.launches_stream_tiled)))
+             K.dx_launches_stream_mma, K.launches_stream_tiled,
+             K.dx_launches_stream_tiled)))
         off = grad("off", cd)
         err = rel_err(on, off)
         check(bool(torch.isfinite(on).all())
@@ -10206,14 +10350,15 @@ def shapes_gradient_check(torch, K, C, card, splits):
     n = len(C.moment_chunks(SH_MOMENTS))
     want = (1, 0, 1, n, n, n)
     for cd in ("float32", "bfloat16"):
-        # bf16: the forward and dx on route 4; f32: the forward on route 5
+        # bf16: the forward and dx on route 4; f32: both on route 5
         mma = int(cd == "bfloat16")
         check(tuple(launches[cd].values()) == want
               and streamed[cd] == {"sdf_ffn_fwd": 1, "sdf_ffn_bwd": 0,
                                    "sdf_ffn_dx": 1, "sdf_ffn_fwd_mma": mma,
                                    "sdf_ffn_bwd_mma": 0,
                                    "sdf_ffn_dx_mma": mma,
-                                   "sdf_ffn_fwd_tiled": 1 - mma},
+                                   "sdf_ffn_fwd_tiled": 1 - mma,
+                                   "sdf_ffn_dx_tiled": 1 - mma},
               f"one (256, 256) K={SH_MOMENTS} {cd} panel gradient launched "
               f"{launches[cd]} (streamed {streamed[cd]}), not {want}")
     print(f"[shapes grad] d conditional loss / d individual, hidden "
@@ -10381,9 +10526,10 @@ def shapes_phase(torch, K, C, card):
         launches[name + "_stream_mma"] = {p: n for p, n in paths.items()
                                           if n}
     # the register-tiled form's (f32 compute): the f32 training's forward
-    # and backward, the f32 panel gradient's and the server's forwards
-    for name in SH_KERNELS[:2]:
-        paths = {"shapes_training": train_s[name + "_tiled"],
+    # and backward, the f32 panel gradient's forward and dx and the
+    # server's forwards
+    for name in SH_KERNELS[:3]:
+        paths = {"shapes_training": train_s.get(name + "_tiled", 0),
                  "shapes_panel_gradient": grad_s["float32"].get(
                      name + "_tiled", 0)}
         if name == "sdf_ffn_fwd":
@@ -11145,6 +11291,10 @@ def run_phases(opts, torch) -> int:
                 "bit_for_bit_route2"]
             check(sum(row["f32_launches_by_path"].values()) > 0,
                   f"phase 21 launched {row['f32_kernel']} no time")
+        if stream:
+            row["scratch_tile_plans"] = {
+                k: v for k, v in shp["rows"]["scratch_plans"].items()
+                if k.startswith(name[8:])}
         if name == "sdf_ffn_dx":
             row["tensor_core_audit"] = shp["rows"]["dx_route4"]["audit"]
             row["route3_vs_route4_in_turns"] = shp["rows"]["dx_route4"][

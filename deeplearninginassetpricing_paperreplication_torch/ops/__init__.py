@@ -17,8 +17,8 @@ Likewise a launch of an FFN kernel's streamed-weight route (the stacks its
 resident route cannot hold) also counts under ``<kernel>_stream``
 (:data:`STREAM_KERNELS`), and one of that route's tensor-core form (bf16
 compute) also under ``<kernel>_stream_mma`` (:data:`STREAM_MMA_KERNELS`),
-and one of its register-tiled form (f32 compute, the forward and the
-backward) also under ``<kernel>_stream_tiled`` (:data:`STREAM_TILED_KERNELS`).
+and one of its register-tiled form (f32 compute) also under
+``<kernel>_stream_tiled`` (:data:`STREAM_TILED_KERNELS`).
 """
 
 import atexit
@@ -38,7 +38,7 @@ STREAM_KERNELS = tuple(k + STREAM for k in KERNELS[:3])
 STREAM_MMA = "_stream_mma"
 STREAM_MMA_KERNELS = tuple(k + STREAM_MMA for k in KERNELS[:3])
 STREAM_TILED = "_stream_tiled"
-STREAM_TILED_KERNELS = tuple(k + STREAM_TILED for k in KERNELS[:2])
+STREAM_TILED_KERNELS = tuple(k + STREAM_TILED for k in KERNELS[:3])
 
 
 # (kernel, device) -> launches, under one lock: a server launches from its

@@ -54,18 +54,18 @@
 // bf16 tiles, mma.sync products, bf16 weight slabs), planned wherever its
 // tiles fit shared memory; the kernels above stay the f32 route and the bf16
 // route of the stacks whose tiles go to scratch or that are too deep. Under
-// f32 compute the forward and the backward have a register-tiled route of
-// their own (fwd_stream_tiled_kernel, bwd_stream_tiled_kernel, route 5,
-// below: route 2's values bit for bit on the same plan, 512-thread blocks of
-// larger register tiles, a three-stage cp.async ring, the backward's tile in
-// shared memory), planned wherever its tile fits, but for the forward of
-// stacks at most 64 units wide where route 2 takes tile 64.
+// f32 compute every kernel has a register-tiled route of its own
+// (fwd_stream_tiled_kernel, bwd_stream_tiled_kernel, dx_stream_tiled_kernel,
+// route 5, below: route 2's values bit for bit, 512-thread blocks of larger
+// register tiles, a three-stage cp.async ring, the tile in shared memory),
+// planned wherever its tile fits, but for the forward and the panel
+// cotangent of stacks at most 64 units wide where route 2 takes tile 64.
 //
 // One library per kernel: -DSDF_FFN_STREAM_KERNEL=0 (forward), 1 (backward),
 // 2 (panel cotangent), each holding the four (panel dtype × compute dtype)
-// instances of its kernel and the two (panel dtype) instances of its
-// tensor-core kernel; the forward's and the backward's also the four (panel
-// dtype × stock tile) instances of its register-tiled kernel. The panel
+// instances of its kernel, the two (panel dtype) instances of its
+// tensor-core kernel and the four (panel dtype × stock tile) instances of
+// its register-tiled kernel. The panel
 // cotangent's audit build (-DSDF_FFN_DX_AUDIT beside =2, its own library)
 // also counts its tensor-core kernel's top-layer decisions against the exact
 // chain; its dx is the main library's, bit for bit.
@@ -1726,13 +1726,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- the register-tiled route: f32 compute on the CUDA cores ------------------
 //
-// Route 5: the forward and the backward under f32 compute, redesigned from
-// route 2's (fwd_stream_kernel, bwd_stream_kernel) for the widths that stream
-// (a padded layer of 128 or more units). They compute route 2's values bit
-// for bit on the same plan: every output of a layer product is one fmaf
-// chain over its inputs in k order from 0 (over pad16(Kin), the same zero
-// terms), its epilogue route 2's (bias, ReLU, the dropout hash; the chain's
-// factor), and every weight-gradient element of a cell one fmaf chain over
+// Route 5: the three kernels under f32 compute, redesigned from route 2's
+// (fwd_stream_kernel, bwd_stream_kernel, dx_stream_kernel) for the widths
+// that stream (a padded layer of 128 or more units). They compute route 2's
+// values bit for bit on the same plan: every output of a layer product is
+// one fmaf chain over its inputs in k order from 0 (over pad16(Kin), the
+// same zero terms), its epilogue route 2's (bias, ReLU, the dropout hash;
+// the chain's factor; the dx sum), and every weight-gradient element of a
+// cell one fmaf chain over
 // the cell's stocks in n order, added once into the block's grad_part slice
 // in the cell order c = gb, gb + G, ...; so the forward's out is route 2's at
 // any tile and grid, and the backward's gradients are route 2's at the same
@@ -1767,12 +1768,25 @@ __global__ void __launch_bounds__(kThreads)
 //   panel with 16-byte aligned rows) while the layers above the first run,
 //   and reads kout from the idle slab ring in its output sums.
 //
+// - The panel cotangent (dx_stream_tiled_kernel) recomputes the forward and
+//   runs the dh chain as the backward does (dh_pre over the activations),
+//   then adds K1·dh1_pre into an f32 dx tile after the panel tile and the
+//   layers, member after member in s order, and writes dx once a cell in
+//   the panel's dtype: route 2's dx bit for bit at any plan (each element
+//   belongs to one cell, each sum runs over its inputs in order). Its tile
+//   is 2·pad16(F) + Σ pad16(h_l) rows: at (256, 256), F = 46, 64 stocks in
+//   shared memory. K1·dh1_pre has pad16(F) output units, which would fill
+//   48 of a 256-unit pass at F = 46, so for pad16(F) ≤ kNarrowUnits it runs
+//   on a map of its own (k1_product_narrow: every thread pad16(F)/16 units ×
+//   tile/32 stocks).
+//
 // What bounds it: the f32 FMAs (operations). Layers narrower than a pass
 // idle the threads whose units lie past them: a 64-unit layer uses a quarter
 // of a pass, where route 2's 64-unit pass at tile 64 is full, so the forward
-// of stacks at most 64 units wide keeps route 2 where route 2 takes tile 64
-// (ops/sdf_ffn.py stream_route_plan); the backward, whose weight gradients
-// and dh chain gain at any width, takes route 5 wherever its tile fits.
+// and the panel cotangent of stacks at most 64 units wide keep route 2 where
+// route 2 takes tile 64 (ops/sdf_ffn.py stream_route_plan); the backward,
+// whose weight gradients and dh chain gain at any width, takes route 5
+// wherever its tile fits.
 
 constexpr int kTileThreads = 512;  // a block: 16 warps
 constexpr int kTileSG = kTileThreads / 32;  // stock groups (unit groups: 32)
@@ -1783,8 +1797,8 @@ constexpr int kTileKLd = kTileSlab + 4;  // floats a [unit][input] slab row
 constexpr int kTileSlabFloats = kTilePass * kTileKLd;  // the larger layout
 
 // rows of a register-tiled block's tile ([rows][tile + 4] f32): X, then the
-// forward's two activation buffers, or the backward's every layer (each
-// layer's dh_pre written over its activations)
+// forward's two activation buffers, or every layer (each layer's dh_pre
+// written over its activations) and (the panel cotangent) the dx accumulator
 __host__ __device__ inline int tiled_rows(int kernel, int n, int F,
                                           const int* h) {
   int wr = 0, sum = 0;
@@ -1793,7 +1807,8 @@ __host__ __device__ inline int tiled_rows(int kernel, int n, int F,
     wr = r > wr ? r : wr;
     sum += r;
   }
-  return pad16(F) + (kernel == kFwd ? 2 * wr : sum);
+  if (kernel == kFwd) return pad16(F) + 2 * wr;
+  return pad16(F) + sum + (kernel == kDx ? pad16(F) : 0);
 }
 
 // shared-memory bytes of a register-tiled block: the slab ring, the row
@@ -1851,10 +1866,12 @@ __device__ __forceinline__ void ld_stocks(float* d, const float* p,
 }
 
 // out[u][n] (u < pad16(Uout), n < BN) from Σ_k W(k, u)·in[k][n] over k <
-// pad16(Kin): layer_product<false, EPI> (kAct or kChain) on the register
-// tiles, the same sums and epilogues. W(k, u) = W[k·ldw + u] (direct) or
-// W[u·ldw + k]; `in` has pad16(Kin) rows, zero from Kin. kChain may write
-// over `below` (each element read, then written, by one thread). UD / UT:
+// pad16(Kin): layer_product<false, EPI> on the register tiles, the same
+// sums and epilogues (kAccum: out += the sums, rows u < Uout). W(k, u) =
+// W[k·ldw + u] (direct) or W[u·ldw + k]; `in` has pad16(Kin) rows, zero
+// from Kin. kChain may write over `below` (each element read, then written,
+// by one thread), and kAccum reads and writes each element of `out` in one
+// thread. UD / UT:
 // how far the [input][unit] and [unit][input] slab loops unroll (whole
 // slabs in the forward; the backward, at the 128-register cap of 512
 // threads, less). Every thread of the block calls it; it ends synchronised.
@@ -1961,9 +1978,10 @@ __device__ void layer_product_tiled(const float* __restrict__ W, bool direct,
         const float b = (EPI == kAct && in_layer) ? __ldg(bias + u) : 0.f;
         float* o = out + (size_t)u * LD;
         float f[TN];
-        if (EPI == kChain) {
+        if (EPI != kAct) {
+          // kChain: the factor's activations; kAccum: out's sums so far
           if (in_layer) {
-            ld_stocks(f, below + (size_t)u * LD, th);
+            ld_stocks(f, (EPI == kChain ? below : out) + (size_t)u * LD, th);
           } else {
 #pragma unroll
             for (int c = 0; c < TN; ++c) f[c] = 0.f;
@@ -1984,11 +2002,15 @@ __device__ void layer_product_tiled(const float* __restrict__ W, bool direct,
                         : 0.f;
             }
             v[c] = e;
-          } else {
+          } else if (EPI == kChain) {
             v[c] = (in_layer && f[c] > 0.f) ? a * dscale : 0.f;
+          } else {
+            v[c] = f[c] + a;
           }
           acc[r][c] = 0.f;
         }
+        // kAccum: route 2 leaves out's rows past Uout as they are
+        if (EPI == kAccum && !in_layer) continue;
         if (TN >= 4) {
 #pragma unroll
           for (int q = 0; q < TN / 4; ++q)
@@ -2304,6 +2326,212 @@ __global__ void __launch_bounds__(kTileThreads)
     grad_product_tiled<BN>(X, F, acts, H1, gp, L.hp(0), slab);
     row_sums_tiled<BN>(acts, H1,
                        dzp_part + (((size_t)s * G + gb) * T + t) * H1);
+  }
+}
+
+// The panel cotangent's K1 product on a map of its own: out[u][n] += Σ_j
+// W[u·ldw + j]·in[j][n] over j < pad16(Kin), for u < Uout, 16·R =
+// pad16(Uout) ≤ kNarrowUnits (layer_product<false, kAccum> of K1 [F][hp0],
+// not direct: its sums in j order from 0 and its epilogue). The block's
+// threads are 16 unit groups × 32 stock groups: a thread holds units ug +
+// 16·r (r < R) × stocks TN·sg … + TN - 1 (TN = BN / 32), so every thread
+// works where a 256-unit pass would keep pad16(F)/256 of them busy. A warp
+// is 4 adjacent unit groups × 8 adjacent stock groups: its weight reads are
+// 4 rows kNarrowLd floats apart (conflict-free 16-byte reads), its
+// activation reads 8 adjacent float2s (or floats). K1 streams in slabs of
+// kNarrowK inputs × 16·R units ([unit][input]) through the three-stage
+// ring. Every thread of the block calls it; it ends synchronised.
+constexpr int kNarrowUnits = 64;
+constexpr int kNarrowK = 64;
+constexpr int kNarrowLd = kNarrowK + 4;
+static_assert(kNarrowUnits * kNarrowLd <= kTileSlabFloats,
+              "a narrow slab fits a stage of the ring");
+
+template <int BN, int R>
+__device__ void k1_product_narrow(const float* __restrict__ W, int ldw,
+                                  int Kin, int Uout, const float* in,
+                                  float* out, float* slab) {
+  constexpr int LD = BN + 4;
+  constexpr int TN = BN / 32;
+  static_assert(TN == 1 || TN == 2, "stock tiles 32 and 64");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sg = (lane & 7) + 8 * (warp & 3);
+  const int ug = (lane >> 3) + 4 * (warp >> 2);
+  const int K16 = pad16(Kin);
+  const int nk = (K16 + kNarrowK - 1) / kNarrowK;
+  // slab i: units [0, 16·R) × inputs [i·kNarrowK, +kNarrowK), zero outside
+  // K1, in 16-byte copies
+  auto issue = [&](int i) {
+    if (i < nk) {
+      float* dst = slab + (i % kTileStages) * kTileSlabFloats;
+      const int k0 = i * kNarrowK;
+      for (int c = threadIdx.x; c < 16 * R * (kNarrowK / 4);
+           c += kTileThreads) {
+        const int u = c / (kNarrowK / 4), k = (c % (kNarrowK / 4)) * 4;
+        const int gk = k0 + k;
+        const bool ok = gk < Kin && u < Uout;
+        sdf_ffn::cp_async16(dst + u * kNarrowLd + k,
+                            ok ? W + (size_t)u * ldw + gk : W, ok ? 16 : 0);
+      }
+    }
+    sdf_ffn::cp_async_commit();
+  };
+  float acc[R][TN];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+  issue(0);
+  issue(1);
+  for (int i = 0; i < nk; ++i) {
+    sdf_ffn::cp_async_wait<1>();
+    __syncthreads();  // slab i landed; every warp is done with slab i - 1
+    issue(i + 2);
+    const float* w =
+        slab + (i % kTileStages) * kTileSlabFloats + ug * kNarrowLd;
+    const float* x = in + (size_t)i * kNarrowK * LD + TN * sg;
+    const int kn = min(kNarrowK, K16 - i * kNarrowK);  // a multiple of 16
+#pragma unroll 2
+    for (int kq = 0; kq < kn; kq += 4) {
+      float wq[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ld4(wq[r], w + r * 16 * kNarrowLd + kq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* p = x + (size_t)(kq + kk) * LD;
+        float xv[TN];
+        if constexpr (TN == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(p);
+          xv[0] = v.x;
+          xv[1] = v.y;
+        } else {
+          xv[0] = *p;
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < TN; ++c)
+            acc[r][c] = fmaf(wq[r][kk], xv[c], acc[r][c]);
+      }
+    }
+  }
+  // route 2's epilogue: out += the sums, rows u < Uout
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int u = ug + 16 * r;
+    if (u >= Uout) continue;
+    float* o = out + (size_t)u * LD + TN * sg;
+    if constexpr (TN == 2) {
+      float2 v = *reinterpret_cast<const float2*>(o);
+      v.x = v.x + acc[r][0];
+      v.y = v.y + acc[r][1];
+      *reinterpret_cast<float2*>(o) = v;
+    } else {
+      *o = *o + acc[r][0];
+    }
+  }
+  __syncthreads();
+}
+
+// dx tile += K1·dh1_pre of one member: the narrow map where pad16(F) ≤
+// kNarrowUnits, else layer_product_tiled's 256-unit passes
+template <int BN>
+__device__ void k1_product(const LayoutTable& L, const float* W,
+                           const float* dh1, float* acc, const Dropout& drop,
+                           float* slab) {
+  const int F = L.F(), H1 = L.h(0), hp0 = L.hp(0);
+  switch (pad16(F) / 16) {
+    case 1:
+      k1_product_narrow<BN, 1>(W, hp0, H1, F, dh1, acc, slab);
+      break;
+    case 2:
+      k1_product_narrow<BN, 2>(W, hp0, H1, F, dh1, acc, slab);
+      break;
+    case 3:
+      k1_product_narrow<BN, 3>(W, hp0, H1, F, dh1, acc, slab);
+      break;
+    case 4:
+      k1_product_narrow<BN, 4>(W, hp0, H1, F, dh1, acc, slab);
+      break;
+    default:
+      layer_product_tiled<kAccum, BN, 4, 1>(W, false, hp0, H1, F, dh1, acc,
+                                            nullptr, nullptr, nullptr, 0,
+                                            drop, 1.f, slab);
+  }
+}
+static_assert(kNarrowUnits == 4 * 16, "k1_product's cases");
+
+// dx [T, F, N] in the panel's dtype: dx_stream_kernel<PX, false> on the
+// register tiles, a persistent grid over the T·⌈N/BN⌉ cells, each for all S
+// members in s order; the tile in shared memory (X, every layer with its
+// dh_pre written over it, the f32 dx accumulator)
+template <typename PX, int BN>
+__global__ void __launch_bounds__(kTileThreads)
+    dx_stream_tiled_kernel(const PX* __restrict__ x,
+                           const float* __restrict__ zp,
+                           const float* __restrict__ params,
+                           const float* __restrict__ g, PX* __restrict__ dx,
+                           LayoutTable L, int S, int T, int N, Dropout drop) {
+  constexpr int LD = BN + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* slab = smem;
+  uint32_t* hash =
+      reinterpret_cast<uint32_t*>(smem + kTileStages * kTileSlabFloats);
+  float* grow = smem + kTileStages * kTileSlabFloats + BN;
+  float* X = grow + BN;
+  const int F = L.F(), P = L.P(), H1 = L.h(0), nl = L.n();
+  const int HL = L.h(nl - 1);
+  float* acts = X + (size_t)pad16(F) * LD;
+  int top_row = 0;  // rows of the layers below the top
+  for (int l = 0; l + 1 < nl; ++l) top_row += pad16(L.h(l));
+  float* top = acts + (size_t)top_row * LD;
+  float* acc = top + (size_t)pad16(HL) * LD;
+  const float dscale = drop.on ? drop.scale : 1.f;
+  const int tiles = (N + BN - 1) / BN;
+  const int cells = T * tiles;
+  for (int c = blockIdx.x; c < cells; c += gridDim.x) {
+    const int tile = c % tiles, t = c / tiles, n0 = tile * BN;
+    __syncthreads();  // the last cell's readers are done
+    stage_x<PX, kTileThreads>(X, x, T, F, N, t, n0, BN, LD);
+    for (int i = threadIdx.x; i < pad16(F) * BN; i += kTileThreads)
+      acc[(size_t)(i / BN) * LD + i % BN] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      stage_hash<kTileThreads>(hash, drop, s, t, n0, BN);
+      for (int n = threadIdx.x; n < BN; n += kTileThreads)
+        grow[n] = n0 + n < N ? __ldg(g + ((size_t)s * T + t) * N + n0 + n)
+                             : 0.f;
+      __syncthreads();
+      const float* W = params + (size_t)s * P;
+      const float* kout = W + L.off_kout();
+      forward_cell_tiled<BN, 4, 1>(L, W, zp + ((size_t)s * T + t) * H1, X,
+                                   acts, 0, true, hash, drop, slab);
+      // dh_pre of the top layer over its activations
+      for (int i = threadIdx.x; i < pad16(HL) * BN; i += kTileThreads) {
+        const int j = i / BN, n = i - j * BN;
+        float* p = top + (size_t)j * LD + n;
+        *p = (j < HL && *p > 0.f) ? __ldg(kout + j) * grow[n] * dscale : 0.f;
+      }
+      __syncthreads();
+      // the dh chain: each layer's dh_pre over the activations below
+      int row = top_row;
+      for (int l = nl - 1; l >= 1; --l) {
+        const int below = row - pad16(L.h(l - 1));
+        float* act = acts + (size_t)below * LD;
+        layer_product_tiled<kChain, BN, 4, 1>(
+            W + L.off_w(l), true, L.hp(l - 1), L.h(l), L.h(l - 1),
+            acts + (size_t)row * LD, act, nullptr, act, nullptr, 0, drop,
+            dscale, slab);
+        row = below;
+      }
+      // dx += K1 · dh_pre of the first layer
+      k1_product<BN>(L, W, acts, acc, drop, slab);
+    }
+    for (int i = threadIdx.x; i < F * BN; i += kTileThreads) {
+      const int f = i / BN, n = i - f * BN;
+      if (n0 + n < N)
+        panel::st(dx + ((size_t)t * F + f) * N + n0 + n,
+                  acc[(size_t)f * LD + n]);
+    }
   }
 }
 
@@ -2748,7 +2976,6 @@ extern "C" int sdf_ffn_dx_audit_read(unsigned long long* out, void* stream) {
 
 // -- the register-tiled route's host side -------------------------------------
 
-#if SDF_FFN_STREAM_KERNEL != 2
 namespace {
 
 const void* tiled_kernel_of(int xb16, int tile) {
@@ -2758,12 +2985,18 @@ const void* tiled_kernel_of(int xb16, int tile) {
                 : (const void*)fwd_stream_tiled_kernel<float, 32>;
   return xb16 ? (const void*)fwd_stream_tiled_kernel<__nv_bfloat16, 64>
               : (const void*)fwd_stream_tiled_kernel<float, 64>;
-#else
+#elif SDF_FFN_STREAM_KERNEL == 1
   if (tile == 32)
     return xb16 ? (const void*)bwd_stream_tiled_kernel<__nv_bfloat16, 32>
                 : (const void*)bwd_stream_tiled_kernel<float, 32>;
   return xb16 ? (const void*)bwd_stream_tiled_kernel<__nv_bfloat16, 64>
               : (const void*)bwd_stream_tiled_kernel<float, 64>;
+#else
+  if (tile == 32)
+    return xb16 ? (const void*)dx_stream_tiled_kernel<__nv_bfloat16, 32>
+                : (const void*)dx_stream_tiled_kernel<float, 32>;
+  return xb16 ? (const void*)dx_stream_tiled_kernel<__nv_bfloat16, 64>
+              : (const void*)dx_stream_tiled_kernel<float, 64>;
 #endif
 }
 
@@ -2863,7 +3096,7 @@ extern "C" int sdf_ffn_fwd_stream_tiled(
   }
   return (int)cudaGetLastError();
 }
-#else
+#elif SDF_FFN_STREAM_KERNEL == 1
 // The register-tiled backward (f32 compute): grad_part [S, G, P] and
 // dzp_part [S, G, T, H1], zeroed by the caller, on a grid of (G, S) blocks.
 extern "C" int sdf_ffn_bwd_stream_tiled(
@@ -2903,5 +3136,42 @@ extern "C" int sdf_ffn_bwd_stream_tiled(
   }
   return (int)cudaGetLastError();
 }
-#endif
+#else
+// The register-tiled panel cotangent (f32 compute): dx [T, F, N] in the
+// panel's dtype, summed over the S members, on `stream`.
+extern "C" int sdf_ffn_dx_stream_tiled(
+    const void* x, int xb16, const float* zp, const float* params,
+    const float* g, void* dx, const int* layout, const int* layout_dev, int S,
+    int T, int N, int dropout, const unsigned int* member_base,
+    unsigned int threshold, float scale, unsigned int offset, int tile,
+    long long smem_bytes, int G, void* stream) {
+  if (S < 1 || T < 1 || N < 1) return kUnsupported;
+  const int rc = prepare_tiled(layout, xb16, tile, smem_bytes, G);
+  if (rc != 0) return rc;
+  const Dropout drop{dropout, member_base, threshold, scale, offset};
+  const LayoutTable L{layout_dev};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
+  const float* xf = static_cast<const float*>(x);
+  __nv_bfloat16* dh = static_cast<__nv_bfloat16*>(dx);
+  float* df = static_cast<float*>(dx);
+  if (tile == 32) {
+    if (xb16)
+      dx_stream_tiled_kernel<__nv_bfloat16, 32>
+          <<<G, kTileThreads, smem_bytes, st>>>(xh, zp, params, g, dh, L, S, T,
+                                            N, drop);
+    else
+      dx_stream_tiled_kernel<float, 32><<<G, kTileThreads, smem_bytes, st>>>(
+          xf, zp, params, g, df, L, S, T, N, drop);
+  } else {
+    if (xb16)
+      dx_stream_tiled_kernel<__nv_bfloat16, 64>
+          <<<G, kTileThreads, smem_bytes, st>>>(xh, zp, params, g, dh, L, S, T,
+                                            N, drop);
+    else
+      dx_stream_tiled_kernel<float, 64><<<G, kTileThreads, smem_bytes, st>>>(
+          xf, zp, params, g, df, L, S, T, N, drop);
+  }
+  return (int)cudaGetLastError();
+}
 #endif

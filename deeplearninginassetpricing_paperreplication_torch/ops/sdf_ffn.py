@@ -170,21 +170,23 @@ STREAM_MMA_RED = 512
 STREAM_CERTIFY = 2.0 ** -16
 STREAM_CERTIFY_DEPTH = 64
 # its register-tiled route under f32 compute (csrc/sdf_ffn_stream.cu
-# fwd_stream_tiled_kernel, bwd_stream_tiled_kernel): route 2's values bit for
-# bit on the same plan, blocks of STREAM_TILED_THREADS threads, each 8 units
-# × tile/16 stocks of a layer pass of STREAM_TILED_PASS units, weight slabs
-# of STREAM_SLAB inputs in a ring of STREAM_TILED_STAGES (each slab
-# [STREAM_TILED_PASS][STREAM_SLAB + 4] floats at most), the f32 tile in
-# shared memory only, the backward's dh_pre written over each layer's
-# activations. Planned wherever its tile fits, else route 2, but for the
-# forward of a stack whose layers are at most STREAM_TILED_NARROW units wide
-# where route 2 takes tile 64: route 2's pass (4096 / tile units) is full
-# there and route 5's a quarter used. chip_smoke.py's turns put that
-# boundary: route 2's forward ~1.9× faster at 12 × 64 and (64, 64, 64) F =
-# 512, route 5's faster at 96 units and at (64, 64) F = 1024 (route 2 at
-# tile 32), and route 5's backward faster at every streamed stack timed
+# fwd_stream_tiled_kernel, bwd_stream_tiled_kernel, dx_stream_tiled_kernel):
+# route 2's values bit for bit on the same plan (the dx at any plan), blocks
+# of STREAM_TILED_THREADS threads, each 8 units × tile/16 stocks of a layer
+# pass of STREAM_TILED_PASS units, weight slabs of STREAM_SLAB inputs in a
+# ring of STREAM_TILED_STAGES (each slab [STREAM_TILED_PASS][STREAM_SLAB + 4]
+# floats at most), the f32 tile in shared memory only, the backward's and
+# the dx's dh_pre written over each layer's activations (the dx's K1 product
+# on a map of its own where pad16(F) ≤ 64). Planned wherever its tile fits,
+# else route 2, but for the forward and the panel cotangent of a stack whose
+# layers are at most STREAM_TILED_NARROW units wide where route 2 takes tile
+# 64: route 2's pass (4096 / tile units) is full there and route 5's a
+# quarter used. chip_smoke.py's turns put that boundary: route 2's forward
+# ~1.9× faster at 12 × 64 and (64, 64, 64) F = 512, and its dx ~1.3× at
+# (64, 64) F = 256; route 5's faster at 96 units and at 64 units where
+# route 2 takes tile 32 (the forward at (64, 64) F = 1024, the dx at 12 and
+# 16 × 64), and route 5's backward faster at every streamed stack timed
 STREAM_TILED_ROUTE = 5
-STREAM_TILED_KERNELS = ("fwd", "bwd")
 STREAM_TILED_THREADS = 512
 STREAM_TILED_TILES = (32, 64)
 STREAM_TILED_PASS = 256
@@ -207,7 +209,8 @@ _TOTALS.update({"launches" + STREAM_MMA: "sdf_ffn_fwd" + STREAM_MMA,
                 "dx_launches" + STREAM_MMA: "sdf_ffn_dx" + STREAM_MMA})
 # and those of its register-tiled form (f32 compute; a subset of _stream)
 _TOTALS.update({"launches" + STREAM_TILED: "sdf_ffn_fwd" + STREAM_TILED,
-                "bwd_launches" + STREAM_TILED: "sdf_ffn_bwd" + STREAM_TILED})
+                "bwd_launches" + STREAM_TILED: "sdf_ffn_bwd" + STREAM_TILED,
+                "dx_launches" + STREAM_TILED: "sdf_ffn_dx" + STREAM_TILED})
 
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -613,9 +616,9 @@ STREAM_SOURCE = "sdf_ffn_stream.cu"
 
 def stream_jobs(kernels: Sequence[str] = KERNELS) -> List[_nvcc.Job]:
     """The streamed route's libraries, one per kernel (its four panel ×
-    compute instances, its two tensor-core ones and, the forward's and the
-    backward's, the four panel × stock-tile instances of the register-tiled
-    route), built only where a stack needs them."""
+    compute instances, its two tensor-core ones and the four panel ×
+    stock-tile instances of the register-tiled route), built only where a
+    stack needs them."""
     return [_nvcc.Job(f"sdf_ffn_{k}_stream", STREAM_SOURCE,
                       (f"-DSDF_FFN_STREAM_KERNEL={KERNELS.index(k)}",))
             for k in kernels]
@@ -705,13 +708,13 @@ _STREAM_MMA_ARGTYPES = {
 
 
 _STREAM_TILED_ARGTYPES = {
-    # x, xb16, zp, params, out | g, grad_part, dzp_part, layout, layout on
-    # the card, S, T, N, dropout, tile, smem, G, stream
+    # x, xb16, zp, params, out | g, grad_part, dzp_part | g, dx, layout,
+    # layout on the card, S, T, N, dropout, tile, smem, G, stream
     k: (_PANEL_ARGTYPES + [ctypes.c_void_p] * n
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         + [ctypes.c_int] * 3 + _DROP_ARGTYPES
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    for k, n in (("fwd", 3), ("bwd", 5))}
+    for k, n in (("fwd", 3), ("bwd", 5), ("dx", 4))}
 
 
 def _load_stream(kernel: str, audit: bool = False):
@@ -744,17 +747,16 @@ def _load_stream(kernel: str, audit: bool = False):
                 lib.sdf_ffn_stream_mma_plan_info.restype = ctypes.c_int
                 lib.sdf_ffn_stream_mma_registers.argtypes = [ctypes.c_int]
                 lib.sdf_ffn_stream_mma_registers.restype = ctypes.c_int
-            if kernel in STREAM_TILED_KERNELS:
-                fn = getattr(lib, f"sdf_ffn_{kernel}_stream_tiled")
-                fn.argtypes = _STREAM_TILED_ARGTYPES[kernel]
-                fn.restype = ctypes.c_int
-                lib.sdf_ffn_stream_tiled_plan_info.argtypes = [
-                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_int)]
-                lib.sdf_ffn_stream_tiled_plan_info.restype = ctypes.c_int
-                lib.sdf_ffn_stream_tiled_registers.argtypes = [ctypes.c_int]
-                lib.sdf_ffn_stream_tiled_registers.restype = ctypes.c_int
+            fn = getattr(lib, f"sdf_ffn_{kernel}_stream_tiled")
+            fn.argtypes = _STREAM_TILED_ARGTYPES[kernel]
+            fn.restype = ctypes.c_int
+            lib.sdf_ffn_stream_tiled_plan_info.argtypes = [
+                ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int)]
+            lib.sdf_ffn_stream_tiled_plan_info.restype = ctypes.c_int
+            lib.sdf_ffn_stream_tiled_registers.argtypes = [ctypes.c_int]
+            lib.sdf_ffn_stream_tiled_registers.restype = ctypes.c_int
             if audit:
                 _bind_audit(lib)
             _libs[key] = lib
@@ -985,16 +987,19 @@ def stream_rows(lay: FfnLayout, kernel: str,
     accumulator. Route 4's dx (bf16 rows; its dx accumulator an f32 tile
     apart): the panel tile, the layers below the top (each layer's dh_pre
     written over its activations) and the top layer's dh_pre. Route 5's
-    backward (csrc tiled_rows): the panel tile and every layer, each
-    layer's dh_pre written over its activations."""
+    backward and dx (csrc tiled_rows): the panel tile and every layer, each
+    layer's dh_pre written over its activations, and (dx) the cotangent's
+    accumulator."""
     r = [_pad(h, STREAM_SLAB) for h in lay.hidden]
     rf = _pad(lay.F, STREAM_SLAB)
     if kernel == "fwd":
         return rf + 2 * max(r)
-    if ((kernel == "dx" and route == STREAM_MMA_ROUTE)
-            or (kernel == "bwd" and route == STREAM_TILED_ROUTE)):
+    if kernel == "dx" and route == STREAM_MMA_ROUTE:
         return rf + sum(r)
-    return rf + sum(r) + 2 * max(r) + (rf if kernel == "dx" else 0)
+    acc = rf if kernel == "dx" else 0
+    if route == STREAM_TILED_ROUTE:
+        return rf + sum(r) + acc
+    return rf + sum(r) + 2 * max(r) + acc
 
 
 def stream_geometry(lay: FfnLayout, kernel: str, tile: int,
@@ -1062,8 +1067,6 @@ def stream_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     tiled = route == STREAM_TILED_ROUTE
     if mma and kernel not in STREAM_MMA_KERNELS:
         raise ValueError(f"{name}: no tensor-core streamed route")
-    if tiled and kernel not in STREAM_TILED_KERNELS:
-        raise ValueError(f"{name}: no register-tiled streamed route")
     over = [f"{what} {got} exceeds its {cap} ({tag})" for what, got, cap, tag
             in (("hidden width", max(lay.hp), STREAM_MAX_WIDTH, "width"),
                 ("depth of", len(lay.hidden), STREAM_MAX_LAYERS, "layers"),
@@ -1117,12 +1120,12 @@ def stream_threads(route: int) -> int:
 
 def stream_reference_plan(lay: FfnLayout, kernel: str, plan, S: int):
     """Route 2's plan of the same stock tile and G as the streamed `plan`
-    (a FwdPlan or BwdPlan of the register-tiled route): its tile buffers in
-    shared memory where they fit, else in scratch. Route 2 computes, on
-    it, what route 5 computes on `plan`, bit for bit (the forward's out at
-    any plan; the backward's gradients group the same stocks into the same
-    cells), so it is route 5's reference. Raises for a tile route 2 does
-    not take."""
+    (a FwdPlan, BwdPlan or DxPlan of the register-tiled route): its tile
+    buffers in shared memory where they fit, else in scratch. Route 2
+    computes, on it, what route 5 computes on `plan`, bit for bit (the
+    forward's out and the panel cotangent at any plan; the backward's
+    gradients group the same stocks into the same cells), so it is route
+    5's reference. Raises for a tile route 2 does not take."""
     route = STREAM_ROUTES["float32"]
     if plan.tile not in STREAM_TILES:
         raise ValueError(f"sdf_ffn_{kernel}: route {route} takes tiles "
@@ -1168,12 +1171,11 @@ def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
     `compute_dtype`: under bf16 compute each kernel takes the tensor-core
     route (STREAM_MMA_ROUTE) for stacks of at most STREAM_MMA_MAX_LAYERS
     layers whose bf16 tiles fit shared memory, else route 3 (the tiles in
-    shared memory or scratch); under f32 compute the forward and the
-    backward take the register-tiled route (STREAM_TILED_ROUTE) where its
-    tile fits shared memory, but for the forward where every padded layer
-    is at most STREAM_TILED_NARROW units wide and route 2 takes tile 64;
-    else (and the panel cotangent always) route 2. `registers` is keyed by
-    route."""
+    shared memory or scratch); under f32 compute every kernel takes the
+    register-tiled route (STREAM_TILED_ROUTE) where its tile fits shared
+    memory, but for the forward and the panel cotangent where every padded
+    layer is at most STREAM_TILED_NARROW units wide and route 2 takes tile
+    64; else route 2. `registers` is keyed by route."""
     regs = registers or {}
     if (compute_dtype == "bfloat16" and kernel in STREAM_MMA_KERNELS
             and len(lay.hidden) <= STREAM_MMA_MAX_LAYERS):
@@ -1185,9 +1187,8 @@ def stream_route_plan(lay: FfnLayout, kernel: str, sms: int, S: int, T: int,
             pass
     route = STREAM_ROUTES[compute_dtype]
     plan = None
-    if (compute_dtype == "float32" and kernel in STREAM_TILED_KERNELS
-            and _f32_route5):
-        if (kernel == "fwd" and max(_pad(h, STREAM_SLAB) for h in lay.hidden)
+    if compute_dtype == "float32" and _f32_route5:
+        if (kernel != "bwd" and max(_pad(h, STREAM_SLAB) for h in lay.hidden)
                 <= STREAM_TILED_NARROW):
             plan = stream_plan(lay, kernel, sms, S, T, N, regs.get(route, 0),
                                route)
@@ -1207,18 +1208,20 @@ _f32_route5 = True
 
 @contextlib.contextmanager
 def f32_streamed_on_route2():
-    """Plan the streamed f32 forward and backward on route 2 inside the
-    block, as the plans did before route 5 (the card's check times the train
-    CLI on each route in turns); the plans kept per shape are dropped on
-    entry and on exit."""
+    """Plan the streamed f32 forward, backward and panel cotangent on route
+    2 inside the block, as the plans did before route 5 (the card's check
+    times the train CLI and the panel gradient on each route in turns); the
+    plans kept per shape are dropped on entry and on exit."""
     global _f32_route5
     _fwd_plans.clear()
+    _dx_plans.clear()
     _f32_route5 = False
     try:
         yield
     finally:
         _f32_route5 = True
         _fwd_plans.clear()
+        _dx_plans.clear()
 
 
 def resident_fwd_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
@@ -1492,8 +1495,8 @@ def dx_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
     route, plan = stream_route_plan(lay, "dx", sms, S, T, N, compute_dtype,
                                     registers)
     bn, smem, blocks, G, cells, scratch = plan
-    return DxPlan(route, bn, STREAM_THREADS, 2, 1, False, smem, blocks, G,
-                  cells, scratch)
+    return DxPlan(route, bn, stream_threads(route), 2, 1, False, smem, blocks,
+                  G, cells, scratch)
 
 
 def resident_dx_plan(lay: FfnLayout, sms: int, S: int, T: int, N: int,
@@ -1788,8 +1791,7 @@ def _stream_launch(kernel: str, x_t: torch.Tensor, zp: torch.Tensor,
     tiled = plan.route == STREAM_TILED_ROUTE
     if not (plan.route == STREAM_ROUTES[packed.compute_dtype]
             or (mma and packed.compute_dtype == "bfloat16")
-            or (tiled and packed.compute_dtype == "float32"
-                and kernel in STREAM_TILED_KERNELS)):
+            or (tiled and packed.compute_dtype == "float32")):
         raise ValueError(f"sdf_ffn_{kernel}: the plan {plan} is not the "
                          f"streamed route at {packed.compute_dtype}")
     if mma:

@@ -219,8 +219,10 @@ def test_bf16_streamed_dx_takes_the_tensor_core_route(hidden, f, S):
     """Under bf16 compute the streamed panel cotangent plans route 4: its
     bf16 tiles and f32 dx tile in shared memory (no scratch), 256 threads,
     a stock tile of STREAM_MMA_TILES, the shared memory that
-    csrc/sdf_ffn_stream.cu's dx_mma_smem_bytes counts; f32 compute keeps
-    route 2."""
+    csrc/sdf_ffn_stream.cu's dx_mma_smem_bytes counts; f32 compute takes
+    the register-tiled route 5 (512 threads), but for (64, 64) at F = 256,
+    whose route 2 takes tile 64 (the 64-wide layers fill route 2's pass and
+    a quarter of route 5's), which keeps route 2."""
     lay = K.ffn_layout(f, hidden)
     plan = K.dx_plan(lay, SMS, S, 48, 10_000, "bfloat16")
     assert K.is_stream(plan) and plan.route == K.STREAM_MMA_ROUTE
@@ -230,8 +232,11 @@ def test_bf16_streamed_dx_takes_the_tensor_core_route(hidden, f, S):
     assert plan.smem_bytes == 4 * (fixed + tiles) <= BLOCK_SMEM_LIMIT
     assert plan.cells == 48 * -(-10_000 // plan.tile)
     assert plan.G == min(plan.cells, plan.blocks_per_sm * SMS)
-    assert K.dx_plan(lay, SMS, S, 48, 10_000, "float32").route == \
-        K.STREAM_ROUTES["float32"]
+    f32 = K.dx_plan(lay, SMS, S, 48, 10_000, "float32")
+    narrow = max(hidden) <= K.STREAM_TILED_NARROW
+    assert (f32.route, f32.threads) == (
+        (K.STREAM_ROUTES["float32"], K.STREAM_THREADS) if narrow
+        else (K.STREAM_TILED_ROUTE, K.STREAM_TILED_THREADS))
     # at the registers of an 8-warp block of the tensor-core kernels (the
     # forward's 180, the backward's 237) it still plans, one block an SM
     for regs in (180, 237):
@@ -243,27 +248,34 @@ def test_bf16_streamed_dx_takes_the_tensor_core_route(hidden, f, S):
 @pytest.mark.parametrize("depth", [5, 12, 16])
 def test_deep_bf16_streamed_dx_keeps_route_3(depth):
     """A plan decision by depth: past STREAM_MMA_MAX_LAYERS layers the
-    streamed bf16 panel cotangent stays on route 3 (the CUDA cores)."""
+    streamed bf16 panel cotangent stays on route 3 (the CUDA cores); the
+    f32 one takes route 5 at every depth whose tile fits (the 64-wide
+    stacks' route 2 takes tile 32 there)."""
     assert depth > K.STREAM_MMA_MAX_LAYERS
     lay = K.ffn_layout(F, (144,) * depth if depth < 12 else (64,) * depth)
     for S in (1, 9):
         plan = K.dx_plan(lay, SMS, S, 48, 10_000, "bfloat16")
         assert plan.route == K.STREAM_ROUTES["bfloat16"]
         assert K.dx_plan(lay, SMS, S, 48, 10_000, "float32").route == \
-            K.STREAM_ROUTES["float32"]
+            K.STREAM_TILED_ROUTE
 
 
 def test_f32_streamed_dx_plan_at_256x256_is_unchanged():
-    """f32 compute keeps route 2's plan at (256, 256), F = 46: tile 32, one
-    block an SM, its tiles in shared memory; and route 3 forced at bf16
-    (the plan the card checks route 4 against) is route 2's geometry."""
+    """Route 2's plan at (256, 256), F = 46 is unchanged: tile 32, one
+    block an SM, its tiles in shared memory (the card's reference for route
+    5, which f32 compute now plans: tile 64, 512 threads); and route 3
+    forced at bf16 (the plan the card checks route 4 against) is route 2's
+    geometry."""
     lay = K.ffn_layout(F, (256, 256))
     for S in (1, 9):
         plan = K.dx_plan(lay, SMS, S, 48, 10_000, "float32")
-        assert (plan.route, plan.tile, plan.smem_bytes, plan.blocks_per_sm,
-                plan.G, plan.cells, plan.scratch) == (
-                    K.STREAM_ROUTES["float32"], 32, 177_920, 1, SMS, 15_024,
-                    0)
+        assert (plan.route, plan.tile, plan.threads, plan.smem_bytes,
+                plan.blocks_per_sm, plan.G, plan.cells, plan.scratch) == (
+                    K.STREAM_TILED_ROUTE, 64, K.STREAM_TILED_THREADS,
+                    227_328, 1, SMS, 7_536, 0)
+        assert K.stream_plan(lay, "dx", SMS, S, 48, 10_000,
+                             route=K.STREAM_ROUTES["float32"]) == (
+            32, 177_920, 1, SMS, 15_024, 0)
         assert K.stream_plan(lay, "dx", SMS, S, 48, 10_000,
                              route=K.STREAM_ROUTES["bfloat16"]) == (
             32, 177_920, 1, SMS, 15_024, 0)

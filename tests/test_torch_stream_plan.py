@@ -40,6 +40,13 @@ def _plan(kind, lay, S, cd, registers=None):
     return K.dx_plan(lay, SMS, S, T, N, cd, registers)
 
 
+def _route2_tile(kind, lay, S):
+    """The stock tile of route 2's own plan of `kind` (the narrow stacks'
+    boundary reads it)."""
+    return K.stream_plan(lay, kind, SMS, S, T, N,
+                         route=K.STREAM_ROUTES["float32"])[0]
+
+
 def _resident(kind, lay, S, cd):
     if kind == "fwd":
         return K.resident_fwd_plan(lay, SMS, S, T, N, cd)
@@ -61,10 +68,11 @@ def test_streamed_plans_fit_the_block(hidden, F, S, kind):
     kernel takes the tensor-core route, its bf16 tiles in shared memory, at
     least twice the (256, 256) stocks per SM of the CUDA cores' (forward 2 ×
     64, backward and panel cotangent 2 × 32), up to STREAM_MMA_MAX_LAYERS
-    layers; the 12- and 16-layer stacks keep route 3. Under f32 compute the
-    backward takes the register-tiled route, its f32 tile in shared memory,
-    and so does the forward of the wide stacks ((256, 256), (132,)); the
-    64-wide deep stacks' forward and the panel cotangent keep route 2."""
+    layers; the 12- and 16-layer stacks keep route 3. Under f32 compute
+    every kernel takes the register-tiled route, its f32 tile in shared
+    memory, but the forward and the panel cotangent of the 64-wide stacks
+    where route 2 takes tile 64 (the deep stacks' forward, the dx at F =
+    256), which keep route 2."""
     lay = K.ffn_layout(F, hidden)
     for cd in DTYPES:
         plan = _plan(kind, lay, S, cd)
@@ -73,9 +81,10 @@ def test_streamed_plans_fit_the_block(hidden, F, S, kind):
             continue
         mma = (cd == "bfloat16" and kind in K.STREAM_MMA_KERNELS
                and len(hidden) <= K.STREAM_MMA_MAX_LAYERS)
-        tiled = (cd == "float32" and kind in K.STREAM_TILED_KERNELS
-                 and not (kind == "fwd"
-                          and max(hidden) <= K.STREAM_TILED_NARROW))
+        tiled = (cd == "float32"
+                 and not (kind != "bwd"
+                          and max(hidden) <= K.STREAM_TILED_NARROW
+                          and _route2_tile(kind, lay, S) == 64))
         assert plan.route == (K.STREAM_MMA_ROUTE if mma
                               else K.STREAM_TILED_ROUTE if tiled
                               else K.STREAM_ROUTES[cd])
@@ -165,6 +174,44 @@ def test_tensor_core_route_up_to_its_depth(depth, kind):
         assert K.is_stream(plan)
 
 
+def test_f32_dx_plan_at_256x256_is_route_5():
+    """f32 compute plans the panel cotangent's register-tiled route at
+    (256, 256), F = 46: 48 + 512 + 48 rows at tile 64, 227,328 B of shared
+    memory (within one block's 232,448), 512 threads (DxPlan.threads is the
+    route's), one block an SM, G 132 over the T·⌈N/64⌉ cells, no scratch, at
+    S = 1 and 9; route 2's reference plan is its own at that tile and G."""
+    lay = K.ffn_layout(46, (256, 256))
+    assert K.stream_rows(lay, "dx", K.STREAM_TILED_ROUTE) == 608
+    for S in (1, 9):
+        plan = _plan("dx", lay, S, "float32")
+        assert (plan.route, plan.tile, plan.smem_bytes, plan.threads,
+                plan.blocks_per_sm, plan.G, plan.cells, plan.scratch) == (
+                    K.STREAM_TILED_ROUTE, 64, 227_328,
+                    K.STREAM_TILED_THREADS, 1, SMS, T * -(-N // 64), 0)
+        assert 227_328 == 4 * (3 * 256 * 20 + 2 * 64 + 608 * 68) <= K.MAX_SMEM
+        ref = K.stream_reference_plan(lay, "dx", plan, S)
+        assert (ref.route, ref.tile, ref.G, ref.threads) == (
+            K.STREAM_ROUTES["float32"], 64, SMS, K.STREAM_THREADS)
+
+
+@pytest.mark.parametrize("hidden,F", [((1024,) * 32, 512), ((1536,), 46),
+                                      ((1280, 1280), 46)],
+                         ids=["reach", "1536", "1280x1280"])
+def test_f32_dx_stacks_route_5_cannot_hold_keep_route_2(hidden, F):
+    """Route 5 has no scratch form: where its dx tile does not fit shared
+    memory at tile 32 (the reach, one 1,536-unit layer, two of 1,280) the
+    f32 panel cotangent keeps route 2 with its tile buffers in scratch, at
+    S = 1 and 9, and a route-5 plan asked for raises naming shared
+    memory."""
+    lay = K.ffn_layout(F, hidden)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.stream_plan(lay, "dx", SMS, 1, T, N, route=K.STREAM_TILED_ROUTE)
+    for S in (1, 9):
+        plan = _plan("dx", lay, S, "float32")
+        assert plan.route == K.STREAM_ROUTES["float32"] and plan.scratch > 0
+        assert plan.threads == K.STREAM_THREADS
+
+
 @pytest.mark.parametrize("kind,tile,smem,G9", [
     ("fwd", 64, 161_024, 132), ("bwd", 32, 171_008, 14)])
 def test_f32_streamed_plans_at_256x256_are_the_cuda_cores(kind, tile, smem,
@@ -223,31 +270,42 @@ def test_tensor_core_smem_is_what_the_kernel_counts(hidden, F, kind):
             "fwd": (128, 1), "bwd": (64, 1), "dx": (128, 1)}[kind]
 
 
-@pytest.mark.parametrize("kind", K.STREAM_TILED_KERNELS)
+@pytest.mark.parametrize("kind", K.KERNELS)
 @pytest.mark.parametrize("hidden,F", [((256, 256), 46), ((132,), 46),
-                                      ((64,) * 12, 46), ((200, 136, 160), 80)],
-                         ids=["256x256", "132", "12x64", "200-136-160"])
+                                      ((64,) * 12, 46), ((200, 136, 160), 80),
+                                      ((320, 320), 46)],
+                         ids=["256x256", "132", "12x64", "200-136-160",
+                              "320x320"])
 def test_register_tiled_smem_is_what_the_kernel_counts(hidden, F, kind):
     """The register-tiled plan's shared memory, counted as
     csrc/sdf_ffn_stream.cu's tiled_smem_bytes counts it: a ring of three
     slabs of 256 units × 20 floats, the row hashes and the g row, then the
     f32 tile rows of tile + 4: the forward's panel tile and two buffers of
     the widest layer, the backward's panel tile and every layer once (each
-    layer's dh_pre over its activations; route 2 adds two dh buffers)."""
+    layer's dh_pre over its activations; route 2 adds two dh buffers), the
+    panel cotangent's as the backward's and its f32 dx accumulator of
+    pad16(F) rows (route 2 adds the two dh buffers)."""
     lay = K.ffn_layout(F, hidden)
     tile, smem, blocks, G, cells, scratch = K.stream_plan(
         lay, kind, SMS, 1, T, N, route=K.STREAM_TILED_ROUTE)
     p16 = [-(-h // 16) * 16 for h in hidden]
     f16 = -(-F // 16) * 16
-    rows = f16 + (2 * max(p16) if kind == "fwd" else sum(p16))
+    rows = f16 + {"fwd": 2 * max(p16), "bwd": sum(p16),
+                  "dx": sum(p16) + f16}[kind]
     assert rows == K.stream_rows(lay, kind, K.STREAM_TILED_ROUTE)
     assert rows == (K.stream_rows(lay, kind) if kind == "fwd"
                     else K.stream_rows(lay, kind) - 2 * max(p16))
-    assert smem == 4 * (3 * 256 * 20 + 2 * tile + rows * (tile + 4))
+    ring = 3 * 256 * 20
+    assert smem == 4 * (ring + 2 * tile + rows * (tile + 4))
     assert smem <= K.MAX_SMEM and scratch == 0 and blocks >= 1
     assert tile in K.STREAM_TILED_TILES
     # the larger tile wherever it fits: 64 but for the 12-layer backward
-    assert tile == (32 if (kind, hidden) == ("bwd", (64,) * 12) else 64)
+    # and dx, the 80-feature dx and the 320-wide stack
+    assert tile == (64 if 4 * (ring + 128 + rows * 68) <= K.MAX_SMEM else 32)
+    assert tile == (32 if hidden == (320, 320)
+                    or (kind, hidden) in (("bwd", (64,) * 12),
+                                          ("dx", (64,) * 12),
+                                          ("dx", (200, 136, 160))) else 64)
     assert G == min(cells, blocks * SMS)
 
 
@@ -262,9 +320,9 @@ def test_register_tiled_backward_tile_is_one_route_2_takes(hidden, F, S):
     G), so its tile must be one route 2 takes: stream_reference_plan gives
     route 2's plan of that tile and G (the tile buffers in shared memory
     where they fit, else in scratch, within its budget), for the forward
-    too."""
+    and the panel cotangent too."""
     lay = K.ffn_layout(F, hidden)
-    for kind in K.STREAM_TILED_KERNELS:
+    for kind in K.KERNELS:
         plan = _plan(kind, lay, S, "float32")
         assert plan.route == K.STREAM_TILED_ROUTE
         assert plan.tile in K.STREAM_TILES
@@ -289,11 +347,13 @@ def test_register_tiled_backward_tile_is_one_route_2_takes(hidden, F, S):
                          ids=["256x256", "132", "12x64", "16x64", "F256",
                               "reach"])
 def test_f32_dx_scratch_stacks_and_bf16_plans_keep_their_route(hidden, F):
-    """Route 5 takes only f32 forwards and backwards whose tile fits: the
-    f32 panel cotangent stays on route 2, the reach's scratch-tile stacks on
-    route 2, the deep 64-wide stacks' forward on route 2 (their backward
-    takes route 5), and no bf16 plan is route 5's (route 4, else route
-    3)."""
+    """Route 5 takes only f32 plans whose tile fits: the f32 panel
+    cotangent takes it where its tile fits (the deep 64-wide stacks', whose
+    route 2 takes tile 32, too), the reach's scratch-tile stacks stay on
+    route 2, the forward and the panel cotangent of the 64-wide stacks
+    where route 2 takes tile 64 on route 2 (the deep stacks' forward, the
+    dx at F = 256; their backward takes route 5), and no bf16 plan is route
+    5's (route 4, else route 3)."""
     lay = K.ffn_layout(F, hidden)
     for S in (1, 9):
         for kind in KINDS:
@@ -304,38 +364,46 @@ def test_f32_dx_scratch_stacks_and_bf16_plans_keep_their_route(hidden, F):
                 if cd == "bfloat16":
                     assert plan.route in (K.STREAM_MMA_ROUTE,
                                           K.STREAM_ROUTES["bfloat16"])
-                elif (kind == "dx" or plan.scratch
-                      or (kind == "fwd"
-                          and max(hidden) <= K.STREAM_TILED_NARROW)):
+                elif (plan.scratch
+                      or (kind != "bwd"
+                          and max(hidden) <= K.STREAM_TILED_NARROW
+                          and _route2_tile(kind, lay, S) == 64)):
                     assert plan.route == K.STREAM_ROUTES["float32"]
+                else:
+                    assert plan.route == K.STREAM_TILED_ROUTE
                 if plan.route == K.STREAM_TILED_ROUTE:
-                    assert cd == "float32" and kind != "dx"
-                    assert hidden in ((256, 256), (132,)) or kind == "bwd"
+                    assert cd == "float32"
+                    assert (hidden in ((256, 256), (132,))
+                            or kind in ("bwd", "dx"))
                     assert F < 512
     if F == 512:  # the reach streams its tiles through scratch on route 2
         assert K.fwd_plan(lay, SMS, 1, T, N).scratch > 0
 
 
-# (hidden, F): the f32 forward's and backward's routes, as chip_smoke.py's
-# turns timed them (route 2 against route 5 at T = 48, N = 10,000)
-TIMED_ROUTES = [((64,) * 12, 46, 2, 5), ((64,) * 16, 46, 2, 5),
-                ((64,) * 3, 512, 2, 5), ((64, 64), 1024, 5, 5),
-                ((96, 96), 384, 5, 5), ((132,), 46, 5, 5),
-                ((320, 320), 46, 5, 5)]
+# (hidden, F): the f32 forward's, backward's and panel cotangent's routes,
+# as chip_smoke.py's turns timed them (route 2 against route 5 at T = 48, N
+# = 10,000; the dx at 3 × 64, F = 512 and at (64, 64), F = 1024 on route 2
+# because route 5's tile does not fit)
+TIMED_ROUTES = [((64,) * 12, 46, 2, 5, 5), ((64,) * 16, 46, 2, 5, 5),
+                ((64,) * 3, 512, 2, 5, 2), ((64, 64), 1024, 5, 5, 2),
+                ((96, 96), 384, 5, 5, 5), ((132,), 46, 5, 5, 5),
+                ((320, 320), 46, 5, 5, 5)]
 
 
-@pytest.mark.parametrize("hidden,F,fwd,bwd", TIMED_ROUTES,
+@pytest.mark.parametrize("hidden,F,fwd,bwd,dx", TIMED_ROUTES,
                          ids=["12x64", "16x64", "3x64-F512", "64x64-F1024",
                               "96x96-F384", "132", "320x320"])
-def test_f32_routes_are_the_faster_in_turns(hidden, F, fwd, bwd):
+def test_f32_routes_are_the_faster_in_turns(hidden, F, fwd, bwd, dx):
     """The f32 forward keeps route 2 where every layer is at most
     STREAM_TILED_NARROW units wide and route 2 takes tile 64 (its 64-unit
     pass full, route 5's 256-unit pass a quarter used); it takes route 5 at
     96 units, and at 64 units where route 2 takes tile 32. The backward
-    takes route 5 at every stack. Route 2 keeps its own plan."""
+    takes route 5 at every stack, the panel cotangent wherever its tile
+    fits (at 12 and 16 × 64 route 2 takes tile 32). Route 2 keeps its own
+    plan."""
     lay = K.ffn_layout(F, hidden)
     for S in (1, 9):
-        for kind, route in (("fwd", fwd), ("bwd", bwd)):
+        for kind, route in (("fwd", fwd), ("bwd", bwd), ("dx", dx)):
             plan = _plan(kind, lay, S, "float32")
             assert K.is_stream(plan)
             assert plan.route == (K.STREAM_TILED_ROUTE if route == 5
@@ -349,9 +417,9 @@ def test_f32_routes_are_the_faster_in_turns(hidden, F, fwd, bwd):
 
 
 def test_f32_streamed_on_route2_plans_route_2_inside_the_block():
-    """f32_streamed_on_route2 plans the streamed f32 forward and backward
-    on route 2 inside the block, as before route 5, and route 5 again after
-    it; the bf16 plans and the panel cotangent's do not change."""
+    """f32_streamed_on_route2 plans the streamed f32 forward, backward and
+    panel cotangent on route 2 inside the block, as before route 5, and
+    route 5 again after it; the bf16 plans do not change."""
     lay = K.ffn_layout(46, (256, 256))
     before = {(k, cd): _plan(k, lay, 1, cd) for k in KINDS for cd in DTYPES}
     with K.f32_streamed_on_route2():
@@ -360,7 +428,7 @@ def test_f32_streamed_on_route2_plans_route_2_inside_the_block():
     after = {(k, cd): _plan(k, lay, 1, cd) for k in KINDS for cd in DTYPES}
     assert after == before
     for key, plan in inside.items():
-        if key in (("fwd", "float32"), ("bwd", "float32")):
+        if key[1] == "float32":
             assert before[key].route == K.STREAM_TILED_ROUTE
             assert plan.route == K.STREAM_ROUTES["float32"]
             assert (plan.tile, plan.threads) == (
@@ -374,16 +442,14 @@ def test_a_stack_route_5_cannot_hold_falls_to_route_2():
     fit shared memory at any tile it takes: the plans fall to route 2 (tile
     buffers in scratch). A launch of a route-5 plan the kernel would refuse
     raises before the card, naming the limit; so does one at the wrong
-    compute or of the panel cotangent."""
+    compute."""
     lay = K.ffn_layout(46, (2048,))
-    for kind in K.STREAM_TILED_KERNELS:
+    for kind in K.KERNELS:
         with pytest.raises(ValueError, match="shared memory"):
             K.stream_plan(lay, kind, SMS, 1, T, N,
                           route=K.STREAM_TILED_ROUTE)
         plan = _plan(kind, lay, 1, "float32")
         assert plan.route == K.STREAM_ROUTES["float32"] and plan.scratch > 0
-    with pytest.raises(ValueError, match="no register-tiled"):
-        K.stream_plan(lay, "dx", SMS, 1, T, N, route=K.STREAM_TILED_ROUTE)
     g = torch.Generator().manual_seed(0)
     S, Tc, Nc, F, hidden = 1, 2, 8, 5, (256,)
     lay = K.ffn_layout(F, hidden)
@@ -406,11 +472,22 @@ def test_a_stack_route_5_cannot_hold_falls_to_route_2():
     with pytest.raises(ValueError, match="not the streamed route at bfloat16"):
         K._stream_launch("fwd", x, zp, K.pack_ffn(*args, "bfloat16"), good, 0,
                          0.0, 0, out)
-    dx = K.DxPlan(K.STREAM_TILED_ROUTE, 64, 256, 2, 1, False, good.smem_bytes,
-                  1, 1, 1)
-    with pytest.raises(ValueError, match="not the streamed route at float32"):
-        K._stream_launch("dx", x, zp, K.pack_ffn(*args, "float32"), dx, 0, 0.0,
-                         0, (torch.empty(S, Tc, Nc), torch.empty_like(x)))
+    # the panel cotangent's route-5 plan: 2·pad16(F) + 256 rows at tile 64
+    dx = K.dx_plan(lay, SMS, S, Tc, Nc, "float32")
+    assert (dx.route, dx.tile, dx.threads, dx.scratch) == (
+        K.STREAM_TILED_ROUTE, 64, K.STREAM_TILED_THREADS, 0)
+    assert dx.smem_bytes == 4 * (3 * 256 * 20 + 128 + (16 + 256 + 16) * 68)
+    outs = (torch.empty(S, Tc, Nc), torch.empty_like(x))
+    for bad in (dataclasses.replace(dx, smem_bytes=good.smem_bytes),
+                dataclasses.replace(dx, tile=16),
+                dataclasses.replace(dx, scratch=1)):
+        with pytest.raises(ValueError, match=r"route 5 refuses .*"
+                                             r"\(shared memory\)"):
+            K._stream_launch("dx", x, zp, K.pack_ffn(*args, "float32"), bad,
+                             0, 0.0, 0, outs)
+    with pytest.raises(ValueError, match="not the streamed route at bfloat16"):
+        K._stream_launch("dx", x, zp, K.pack_ffn(*args, "bfloat16"), dx, 0,
+                         0.0, 0, outs)
 
 
 @pytest.mark.parametrize("hidden,F,S", [((256, 256), 46, 2), ((132,), 46, 1),
